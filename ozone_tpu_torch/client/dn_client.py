@@ -1,0 +1,150 @@
+"""Datanode clients: the in-process client and the dn_id -> client factory.
+
+Port of the in-process part of `ozone_tpu/client/dn_client.py` (the
+reference's XceiverClient family). The gRPC and native-datapath clients,
+block tokens and topology ordering are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ozone_tpu_torch.client.resilience import HealthRegistry
+from ozone_tpu_torch.storage.datanode import Datanode
+from ozone_tpu_torch.storage.ids import (
+    BlockData,
+    BlockID,
+    ChunkInfo,
+    ContainerState,
+    StorageError,
+)
+from ozone_tpu_torch.utils.checksum import ChecksumData
+
+#: the code a datanode answers before the batched verbs are finalized
+PRE_FINALIZE_ERROR = "NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION"
+
+
+def batch_unsupported(e: Exception) -> bool:
+    """True when `e` means the peer cannot serve the batched
+    WriteChunksCommit verb; callers downgrade to per-chunk verbs."""
+    return isinstance(e, StorageError) and (
+        e.code == PRE_FINALIZE_ERROR
+        or (e.code == "IO_EXCEPTION" and "UNIMPLEMENTED" in e.msg))
+
+
+def write_unit_batched(client, block_id: BlockID, pairs, commit: BlockData,
+                       writer: Optional[str] = None) -> None:
+    """Land one unit's chunks + block commit: one WriteChunksCommit when
+    the peer serves it, per-chunk verbs otherwise."""
+    fn = getattr(client, "write_chunks_commit", None)
+    if fn is not None:
+        try:
+            fn(block_id, pairs, commit=commit, writer=writer)
+            return
+        except StorageError as e:
+            if not batch_unsupported(e):
+                raise
+    for info, data in pairs:
+        client.write_chunk(block_id, info, data, writer=writer)
+    client.put_block(commit, writer=writer)
+
+
+def write_unit_stream(client, block_id: BlockID, pairs,
+                      writer: Optional[str] = None) -> None:
+    """Land one batch of a unit's chunks with no commit (the streaming half
+    of write_unit_batched); a refused verb is remembered on the client."""
+    fn = getattr(client, "write_chunks_commit", None)
+    if fn is not None and not getattr(client, "_stream_downgraded", False):
+        try:
+            fn(block_id, pairs, commit=None, writer=writer)
+            return
+        except StorageError as e:
+            if not batch_unsupported(e):
+                raise
+            client._stream_downgraded = True
+    for info, data in pairs:
+        client.write_chunk(block_id, info, data, writer=writer)
+
+
+def build_chunk_pairs(block_id: BlockID, stripes, cells, crcs,
+                      unit_len: int, cell: int, bpc: int, checksum,
+                      host_checksum) -> list[tuple[ChunkInfo, object]]:
+    """(ChunkInfo, data) pairs for one unit's cells of the given stripe
+    indexes: cells [len(stripes), cell], crcs [len(stripes), S] device CRCs
+    as uint32 (size 0 forces host checksums). Full cells reuse the device
+    CRCs; the tail chunk falls back to the host checksummer."""
+    pairs: list[tuple[ChunkInfo, object]] = []
+    for bi, s in enumerate(stripes):
+        chunk_len = max(0, min(cell, unit_len - s * cell))
+        if chunk_len == 0:
+            continue
+        data = cells[bi, :chunk_len]
+        if chunk_len == cell and cell % bpc == 0 and crcs.size:
+            cs = ChecksumData(checksum, bpc, tuple(
+                int(v).to_bytes(4, "big") for v in crcs[bi].tolist()))
+        else:
+            cs = host_checksum.compute(data)
+        pairs.append((ChunkInfo(
+            name=f"{block_id}_chunk_{s}",
+            offset=s * cell,
+            length=chunk_len,
+            checksum=cs,
+        ), data))
+    return pairs
+
+
+class LocalDatanodeClient:
+    """In-process client wrapping a Datanode instance directly."""
+
+    def __init__(self, dn: Datanode):
+        self.dn = dn
+        self.dn_id = dn.id
+
+    def create_container(self, container_id, replica_index=0,
+                         state=ContainerState.OPEN):
+        self.dn.create_container(container_id, replica_index, state)
+
+    def close_container(self, container_id):
+        self.dn.close_container(container_id)
+
+    def write_chunk(self, block_id, info, data, sync=False, writer=None):
+        self.dn.write_chunk(block_id, info, data, sync, writer=writer)
+
+    def read_chunk(self, block_id, info, verify=False):
+        return self.dn.read_chunk(block_id, info, verify)
+
+    def put_block(self, block, sync=False, writer=None):
+        self.dn.put_block(block, sync, writer=writer)
+
+    def write_chunks_commit(self, block_id, chunks, commit=None,
+                            sync=False, writer=None):
+        """In-process twin of the batched stream verb: every chunk, then the
+        commit. Routes through the instance verbs so subclasses that inject
+        faults cover this path too."""
+        for info, data in chunks:
+            self.write_chunk(block_id, info, data, sync, writer=writer)
+        if commit is not None:
+            self.put_block(commit, sync, writer=writer)
+
+    def get_block(self, block_id):
+        return self.dn.get_block(block_id)
+
+
+class DatanodeClientFactory:
+    """dn_id -> client resolver for in-process datanodes, with the per-peer
+    health registry every writer built over it shares."""
+
+    def __init__(self):
+        self._local: dict[str, LocalDatanodeClient] = {}
+        self.health = HealthRegistry()
+
+    def register_local(self, dn: Datanode) -> LocalDatanodeClient:
+        c = LocalDatanodeClient(dn)
+        self._local[dn.id] = c
+        return c
+
+    def get(self, dn_id: str) -> LocalDatanodeClient:
+        c = self._local.get(dn_id)
+        if c is None:
+            raise KeyError(f"no client for datanode {dn_id}")
+        return c

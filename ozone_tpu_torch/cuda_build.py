@@ -1,0 +1,97 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each `csrc/<name>.cu` exports a plain C interface. It is compiled with
+`nvcc` for `sm_90a` into `_build/lib<name>-<hash>.so`, where the hash
+covers the source and the flags, so an edited source never loads a
+stale library. The library is then loaded with ctypes. Nothing is
+compiled at import time; `load(name)` compiles on its first call in a
+process and caches the handle, and `build_all()` compiles every source
+at once, one `nvcc` process per file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: name -> (seconds, nvcc's stderr) of the builds this process ran
+build_log: dict[str, tuple[float, str]] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required "
+                           "to build the port's kernels")
+    return path
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, BUILD / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for `name` unless its library exists; returns
+    (target, tmp, process, t0) or None."""
+    src, so = _target(name)
+    if so.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return so, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, job) -> None:
+    so, tmp, proc, t0 = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, so)
+    build_log[name] = (time.perf_counter() - t0, log)
+
+
+def build_all() -> dict[str, tuple[float, str]]:
+    """Compile every csrc/*.cu in parallel (one nvcc each) and load them."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _lock:
+        jobs = {n: _start(n) for n in names if n not in _libs}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish(n, job)
+    for n in names:
+        load(n)
+    return dict(build_log)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, compiling it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+        return lib

@@ -1,0 +1,130 @@
+"""Datanode: volumes + container set + the chunk/block verbs.
+
+Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC write and
+its read-back use (the reference's KeyValueHandler verb switch):
+CreateContainer, WriteChunk, ReadChunk (with checksum verification),
+PutBlock, GetBlock, CloseContainer, and the single-writer block fence.
+The scanners and their scan queue, the volume checker and container
+deletion are not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ozone_tpu_torch.storage.container import Container, ContainerSet, HddsVolume
+from ozone_tpu_torch.storage.ids import (
+    CHECKSUM_MISMATCH,
+    BlockData,
+    BlockID,
+    ChunkInfo,
+    ContainerState,
+    StorageError,
+)
+from ozone_tpu_torch.utils.checksum import Checksum, ChecksumError
+from ozone_tpu_torch.utils.metrics import MetricsRegistry
+
+
+class Datanode:
+    """One datanode instance over a root directory of volumes."""
+
+    def __init__(self, root: Path, dn_id: str = "dn0", num_volumes: int = 1):
+        self.root = Path(root)
+        self.id = dn_id
+        self.volumes = [
+            HddsVolume(self.root / f"vol{i}") for i in range(num_volumes)
+        ]
+        self.containers = ContainerSet()
+        self.metrics = MetricsRegistry(f"datanode.{dn_id}")
+        self._rr = itertools.count()
+        self._lock = threading.Lock()
+        for vol in self.volumes:
+            for c in vol.load_containers():
+                self.containers.add(c)
+
+    # -- container verbs --
+    def create_container(
+        self,
+        container_id: int,
+        replica_index: int = 0,
+        state: ContainerState = ContainerState.OPEN,
+    ) -> Container:
+        with self._lock:
+            vol = self.volumes[next(self._rr) % len(self.volumes)]
+            c = Container(container_id, vol.container_dir(container_id),
+                          vol.db, state=state, replica_index=replica_index)
+            c.root.mkdir(parents=True, exist_ok=True)
+            c.save_descriptor()
+            self.containers.add(c)
+            self.metrics.counter("container_created").inc()
+            return c
+
+    def close_container(self, container_id: int) -> None:
+        self.containers.get(container_id).close()
+        self.metrics.counter("container_closed").inc()
+
+    # -- chunk/block verbs --
+    def write_chunk(
+        self, block_id: BlockID, info: ChunkInfo, data, sync: bool = False,
+        writer: Optional[str] = None,
+    ) -> None:
+        with self.metrics.histogram("chunk_write_seconds").time():
+            c = self.containers.get(block_id.container_id)
+            c.require_writable()
+            self._fence(c, block_id, writer)
+            c.chunks.write_chunk(block_id, info, data, sync=sync)
+            self.metrics.counter("bytes_written").inc(info.length)
+
+    def _fence(self, container: Container, block_id: BlockID,
+               writer: Optional[str]) -> None:
+        """Single-writer block fence (the reference's
+        validateChunkForOverwrite); violations are counted."""
+        try:
+            container.bind_writer(block_id, writer)
+        except StorageError:
+            self.metrics.counter("write_fence_violations").inc()
+            raise
+
+    def read_chunk(
+        self, block_id: BlockID, info: ChunkInfo, verify: bool = False
+    ) -> np.ndarray:
+        with self.metrics.histogram("chunk_read_seconds").time():
+            c = self.containers.get(block_id.container_id)
+            data = c.chunks.read_chunk(block_id, info)
+            if verify and info.checksum.checksums:
+                try:
+                    Checksum().verify(data, info.checksum,
+                                      offset_hint=str(block_id))
+                except ChecksumError as e:
+                    self.metrics.counter("checksum_failures").inc()
+                    c.mark_unhealthy()
+                    raise StorageError(CHECKSUM_MISMATCH, str(e)) from e
+            self.metrics.counter("bytes_read").inc(info.length)
+            return data
+
+    def put_block(self, block: BlockData, sync: bool = False,
+                  writer: Optional[str] = None) -> None:
+        c = self.containers.get(block.block_id.container_id)
+        c.require_writable()
+        # the data path's fence: a foreign writer must not commit its
+        # chunk list over a block another writer owns
+        self._fence(c, block.block_id, writer)
+        if sync:
+            c.chunks.fsync_block(block.block_id)
+        block.committed = True
+        c.put_block(block)
+        self.metrics.counter("blocks_committed").inc()
+
+    def get_block(self, block_id: BlockID) -> BlockData:
+        return self.containers.get(block_id.container_id).get_block(block_id)
+
+    def close(self) -> None:
+        for c in self.containers:
+            c.chunks.close()
+        for v in self.volumes:
+            v.close()

@@ -1,0 +1,182 @@
+"""Host-side checksums: CRC32 / CRC32C / SHA256 / MD5 over chunk slices.
+
+Port of `ozone_tpu/utils/checksum.py` without the native library: CRC32C
+runs the numpy linear decomposition (crc = L(M) xor crc(0^N)) for large
+inputs and the table-driven loop for small ones; CRC32 is zlib. The
+same `_table` backs the CUDA kernel's byte table and its zero-advance
+operators (codec/fused_kernel.py), so device and host CRCs share one
+definition.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import zlib
+from dataclasses import dataclass
+from enum import Enum
+from functools import lru_cache
+
+import numpy as np
+
+#: Reflected polynomials.
+CRC32_POLY = 0xEDB88320  # IEEE, matches zlib.crc32
+CRC32C_POLY = 0x82F63B78  # Castagnoli, matches java.util.zip.CRC32C
+
+
+@lru_cache(maxsize=None)
+def _table(poly: int) -> np.ndarray:
+    """256-entry byte-step table for a reflected CRC."""
+    t = np.zeros(256, dtype=np.uint64)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ poly if c & 1 else c >> 1
+        t[i] = c
+    return t.astype(np.uint32)
+
+
+def crc_table_driven(data, poly: int, crc: int = 0) -> int:
+    """Classic table-driven reflected CRC with init/xorout 0xFFFFFFFF.
+
+    `crc` is the running *finalized* value of previous data (0 for none),
+    matching zlib.crc32's incremental contract.
+    """
+    tab = _table(poly)
+    state = crc ^ 0xFFFFFFFF
+    for b in np.asarray(data, dtype=np.uint8).reshape(-1).tolist():
+        state = (state >> 8) ^ int(tab[(state ^ b) & 0xFF])
+    return state ^ 0xFFFFFFFF
+
+
+@lru_cache(maxsize=64)
+def _linear_parts(n: int, poly: int) -> tuple[np.ndarray, int]:
+    """(contribution vector K32 [n*8] uint32, crc_of_n_zero_bytes).
+
+    K32[i] = linear-CRC contribution of message bit i (byte i//8, bit i%8
+    LSB-first) for an n-byte message:  crc(M) = XOR_{set bits} K32[i] ^ Z_n.
+    Built by iterating the one-zero-byte advance backwards from the last
+    byte: contribution columns of byte j satisfy C[j-1] = step(C[j]).
+    """
+    tab = _table(poly).astype(np.uint32)
+    k = np.zeros((n, 8), dtype=np.uint32)
+    cur = tab[(1 << np.arange(8)).astype(np.uint8)]  # [8] uint32
+    if n > 0:
+        k[n - 1] = cur
+        for j in range(n - 2, -1, -1):
+            cur = (cur >> np.uint32(8)) ^ tab[cur & np.uint32(0xFF)]
+            k[j] = cur
+    s = 0xFFFFFFFF
+    for _ in range(n):
+        s = (s >> 8) ^ int(tab[s & 0xFF])
+    zeros_crc = s ^ 0xFFFFFFFF
+    return k.reshape(n * 8), zeros_crc
+
+
+def crc_linear(data, poly: int) -> int:
+    """Vectorized CRC via the linear decomposition (single shot, init/xorout
+    0xFFFFFFFF). Bit-exact with crc_table_driven."""
+    data = np.asarray(data, dtype=np.uint8).reshape(-1)
+    k32, zeros_crc = _linear_parts(data.size, poly)
+    sel = k32[np.unpackbits(data, bitorder="little").astype(bool)]
+    if sel.size:
+        return int(np.bitwise_xor.reduce(sel)) ^ zeros_crc
+    return zeros_crc
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C (Castagnoli), numpy only: the linear decomposition for a
+    fresh CRC over more than 256 bytes, the table loop otherwise."""
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    if crc == 0 and data.size > 256:
+        return crc_linear(data, CRC32C_POLY)
+    return crc_table_driven(data, CRC32C_POLY, crc)
+
+
+def crc32(data, crc: int = 0) -> int:
+    """CRC32 (IEEE), zlib-compatible and computed by zlib."""
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    return int(zlib.crc32(memoryview(data), crc))
+
+
+class ChecksumType(Enum):
+    NONE = "NONE"
+    CRC32 = "CRC32"
+    CRC32C = "CRC32C"
+    SHA256 = "SHA256"
+    MD5 = "MD5"
+
+
+@dataclass(frozen=True)
+class ChecksumData:
+    """Per-chunk checksum list: one entry per bytesPerChecksum slice
+    (reference ozone/common/ChecksumData.java)."""
+
+    type: ChecksumType
+    bytes_per_checksum: int
+    checksums: tuple[bytes, ...] = ()
+
+    def to_lists(self) -> dict:
+        return {
+            "type": self.type.value,
+            "bytes_per_checksum": self.bytes_per_checksum,
+            "checksums": [c.hex() for c in self.checksums],
+        }
+
+    @classmethod
+    def from_lists(cls, d: dict) -> "ChecksumData":
+        return cls(
+            ChecksumType(d["type"]),
+            int(d["bytes_per_checksum"]),
+            tuple(bytes.fromhex(c) for c in d["checksums"]),
+        )
+
+
+class ChecksumError(Exception):
+    pass
+
+
+class Checksum:
+    """Compute/verify slice-wise checksums over a chunk buffer
+    (reference Checksum.computeChecksum / verifyChecksum:247-276)."""
+
+    def __init__(self, type_: ChecksumType = ChecksumType.CRC32C,
+                 bytes_per_checksum: int = 16 * 1024):
+        self.type = type_
+        self.bpc = bytes_per_checksum
+
+    def _one(self, piece: np.ndarray) -> bytes:
+        if self.type is ChecksumType.CRC32:
+            return int(crc32(piece)).to_bytes(4, "big")
+        if self.type is ChecksumType.CRC32C:
+            return int(crc32c(piece)).to_bytes(4, "big")
+        if self.type is ChecksumType.SHA256:
+            return hashlib.sha256(piece.tobytes()).digest()
+        if self.type is ChecksumType.MD5:
+            return hashlib.md5(piece.tobytes()).digest()
+        raise ValueError(self.type)
+
+    def compute(self, data) -> ChecksumData:
+        if self.type is ChecksumType.NONE:
+            return ChecksumData(self.type, self.bpc)
+        data = np.asarray(data, dtype=np.uint8).reshape(-1)
+        sums = tuple(
+            self._one(data[o : o + self.bpc]) for o in range(0, data.size, self.bpc)
+        )
+        return ChecksumData(self.type, self.bpc, sums)
+
+    def verify(self, data, expected: ChecksumData, offset_hint: str = "") -> None:
+        if expected.type is ChecksumType.NONE:
+            return
+        actual = Checksum(expected.type, expected.bytes_per_checksum).compute(data)
+        if actual.checksums != expected.checksums:
+            bad = [
+                i
+                for i, (a, e) in enumerate(
+                    zip(actual.checksums, expected.checksums)
+                )
+                if a != e
+            ]
+            raise ChecksumError(
+                f"checksum mismatch {offset_hint} at slices {bad[:8]} "
+                f"(type={expected.type.value})"
+            )

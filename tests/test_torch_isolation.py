@@ -1,0 +1,83 @@
+"""The port stands alone: it imports neither jax nor any `ozone_tpu` module,
+and its entry points refuse to run on a CUDA device that is not there."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(code: str) -> str:
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_port_imports_no_jax_and_no_reference():
+    out = _run("""
+        import importlib, pkgutil, sys
+        import ozone_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            ozone_tpu_torch.__path__, "ozone_tpu_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "ozone_tpu" or m.startswith("ozone_tpu."))
+        print(len(names), bad)
+    """)
+    count, bad = out.split(" ", 1)
+    assert int(count) >= 20, out
+    assert bad.strip() == "[]", out
+
+
+def test_default_device_raises_without_cuda():
+    out = _run("""
+        import torch
+        from ozone_tpu_torch.codec.api import CoderOptions
+        from ozone_tpu_torch.codec.fused import FusedSpec, make_fused_encoder
+        from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+        from ozone_tpu_torch.client.ec_writer import ECKeyWriter
+        assert not torch.cuda.is_available()
+        opts = CoderOptions(3, 2, "rs", cell_size=4096)
+        for make in (lambda: make_fused_encoder(FusedSpec(opts)),
+                     lambda: ECKeyWriter(opts, None, DatanodeClientFactory(),
+                                         block_size=4096)):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError("no error without CUDA")
+        print("ok")
+    """)
+    assert out.strip() == "ok"
+
+
+def test_cuda_build_is_lazy():
+    """Importing the kernel's module compiles nothing and needs no nvcc."""
+    out = _run("""
+        from ozone_tpu_torch import cuda_build
+        from ozone_tpu_torch.codec import fused_kernel
+        print(len(cuda_build._libs), fused_kernel.launches.count)
+    """)
+    assert out.split() == ["0", "0"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.relative_to(REPO).as_posix()
+    for p in (REPO / "ozone_tpu_torch").rglob("*.py")
+    if "_build" not in p.relative_to(REPO).parts))  # build outputs
+def test_source_names_no_jax(path):
+    text = (REPO / path).read_text()
+    for line in text.splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            assert "jax" not in stripped and "ozone_tpu." not in stripped \
+                and not stripped.startswith(("import ozone_tpu ", "from ozone_tpu ")), \
+                f"{path}: {stripped}"
