@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernel-only]
 
 Builds the port's CUDA kernels from `ozone_tpu_torch/csrc` (nvcc, sm_90a),
 holds every kernel against its plain PyTorch version on the card, then
@@ -10,7 +10,9 @@ drives the port's main path: four concurrent RS(6,3) key PUTs through
 against the source bytes and the plain version's parity and CRCs. Every
 failure raises. The last line is one JSON object with "ok" and the
 device; the line before it is nvidia-smi's name and power limit, and the
-one before that the kernels' JSON line.
+one before that the kernels' JSON line. --kernel-only stops after the
+build, the kernel cases and the timings (no PUTs; the kernels' JSON then
+has "launches": null) and prints the same last lines.
 
 It exits non-zero with no result when CUDA is not available.
 """
@@ -45,17 +47,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
+def cuda_ms(fn, calls: int = 1, rounds: int = 20) -> float:
+    """Device time per call: CUDA events around `calls` back-to-back calls
+    of fn(), divided by `calls`; the median of `rounds` such runs, after
+    one warm-up. With one call a round, host time inside the call that
+    leaves the card idle counts; in a run of calls the host enqueues
+    ahead, so its time hides unless a call launches slower than it runs."""
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -72,9 +79,10 @@ def fused_bound(b: int, k: int, p: int, cell: int, bpc: int) -> tuple[float, str
 
 # ------------------------------------------------------------ kernel phase
 def check_kernel_cases(device, cases, seed: int) -> float:
-    """Kernel against plain on each (k, p, cell, bpc, B, checksum) case,
-    exact on every byte and word; 64 sampled slices against the host CRC.
-    Returns the largest difference seen (0 when every case agrees)."""
+    """Kernel against plain on each (k, p, cell, bpc, B, checksum[, crc_in])
+    case, exact on every byte and word; sampled slices against the host
+    CRC. p = 0 is a plain slice CRC of the k inputs. Returns the largest
+    difference seen (0 when every case agrees)."""
     from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.codec.api import CoderOptions
     from ozone_tpu_torch.codec.fused import _POLY, _parity_matrix
@@ -82,28 +90,34 @@ def check_kernel_cases(device, cases, seed: int) -> float:
 
     rng = np.random.default_rng(seed)
     worst = 0
-    for k, p, cell, bpc, b, checksum in cases:
+    for k, p, cell, bpc, b, checksum, *rest in cases:
+        crc_in = rest[0] if rest else True
         data = torch.from_numpy(rng.integers(0, 256, (b, k, cell), dtype=np.uint8)).to(device)
-        matrix = torch.from_numpy(_parity_matrix(CoderOptions(k, p, cell_size=cell))).to(device)
+        matrix = (_parity_matrix(CoderOptions(k, p, cell_size=cell)) if p
+                  else np.zeros((0, k), dtype=np.uint8))
+        matrix = torch.from_numpy(matrix).to(device)
         poly = _POLY.get(ChecksumType[checksum])
-        out, crcs = fused_kernel.fused_encode_crc(data, matrix, poly, bpc)
-        pout, pcrcs = fused_kernel.fused_encode_crc_plain(data, matrix, poly, bpc)
+        out, crcs = fused_kernel.fused_encode_crc(data, matrix, poly, bpc, crc_in)
+        pout, pcrcs = fused_kernel.fused_encode_crc_plain(data, matrix, poly, bpc, crc_in)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         diff = max((out.int() - pout.int()).abs().max().item() if out.numel() else 0,
                    (crcs.long() - pcrcs.long()).abs().max().item() if crcs.numel() else 0)
         worst = max(worst, diff)
-        shape_ok = crcs.shape == (b, (k + p) if poly else 0, cell // bpc)
-        print(f"kernel vs plain rs-{k}-{p} cell={cell} bpc={bpc} B={b} {checksum}: "
-              f"max_abs_err={diff} crcs={tuple(crcs.shape)}")
+        rows = (k if crc_in else 0) + p if poly else 0
+        shape_ok = out.shape == (b, p, cell) and crcs.shape == (b, rows, cell // bpc)
+        print(f"kernel vs plain rs-{k}-{p} cell={cell} bpc={bpc} B={b} {checksum} "
+              f"crc_in={crc_in}: max_abs_err={diff} crcs={tuple(crcs.shape)}")
         if diff or not shape_ok:
-            raise AssertionError(f"kernel disagrees with plain on rs-{k}-{p} "
-                                 f"B={b} {checksum}")
+            raise AssertionError(f"kernel disagrees with plain on rs-{k}-{p} cell={cell} "
+                                 f"bpc={bpc} B={b} {checksum} crc_in={crc_in}")
         if poly is None:
             continue
-        units = torch.cat([data, out], 1).cpu().numpy()
+        units = torch.cat([data, out] if crc_in else [out], 1).cpu().numpy()
         words = crcs.cpu().numpy().view(np.uint32)
         host = crc32c if checksum == "CRC32C" else (lambda a: zlib.crc32(a.tobytes()))
         for _ in range(64 if bpc < cell else 8):
-            bi, u, s = (int(rng.integers(n)) for n in (b, k + p, cell // bpc))
+            bi, u, s = (int(rng.integers(n)) for n in (b, rows, cell // bpc))
             want = host(units[bi, u, s * bpc:(s + 1) * bpc])
             if int(words[bi, u, s]) != want:
                 raise AssertionError(f"CRC of slice {(bi, u, s)} != host {checksum}")
@@ -120,17 +134,45 @@ def time_kernel(device, k: int, p: int, cell: int, bpc: int, b: int,
     rng = np.random.default_rng(seed)
     data = torch.from_numpy(rng.integers(0, 256, (b, k, cell), dtype=np.uint8)).to(device)
     matrix = torch.from_numpy(_parity_matrix(CoderOptions(k, p, cell_size=cell))).to(device)
+
+    def run():
+        return fused_kernel.fused_encode_crc(data, matrix, CRC32C_POLY, bpc)
+
     before = fused_kernel.launches.count
-    ms = cuda_ms(lambda: fused_kernel.fused_encode_crc(data, matrix, CRC32C_POLY, bpc))
+    ms = cuda_ms(run)
+    in_run_ms = cuda_ms(run, calls=20, rounds=5)
     launched = fused_kernel.launches.count - before
     plain_ms = (cuda_ms(lambda: fused_kernel.fused_encode_crc_plain(
-        data, matrix, CRC32C_POLY, bpc), reps=5) if plain else None)
+        data, matrix, CRC32C_POLY, bpc), rounds=5) if plain else None)
     bound_ms, bound_by = fused_bound(b, k, p, cell, bpc)
     print(f"fused_encode_crc rs-{k}-{p} cell={cell} bpc={bpc} B={b}: "
-          f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{ms:.4f} ms a single call ({in_run_ms:.4f} ms a call in a run of 20), "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
           f"{b * k * cell / MIB / ms * 1e3 / 1024:.2f} GiB/s in, launches {launched}"
           + (f", plain {plain_ms:.4f} ms" if plain else ""))
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": ms, "ms_in_run": in_run_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_parts(device, k: int, p: int, cell: int, bpc: int, b: int, seed: int) -> None:
+    """The kernel's two halves apart, at one shape: the GF apply with no
+    CRC, and the CRC alone over as many rows (p = 0, k + p input rows)."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import _parity_matrix
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY
+
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.integers(0, 256, (b, k + p, cell), dtype=np.uint8)).to(device)
+    matrix = torch.from_numpy(_parity_matrix(CoderOptions(k, p, cell_size=cell))).to(device)
+    inputs = data[:, :k].contiguous()
+    no_rows = torch.zeros((0, k + p), dtype=torch.uint8, device=device)
+    gf_ms = cuda_ms(lambda: fused_kernel.fused_encode_crc(inputs, matrix, None, bpc),
+                    calls=20, rounds=5)
+    crc_ms = cuda_ms(lambda: fused_kernel.fused_encode_crc(data, no_rows, CRC32C_POLY, bpc),
+                     calls=20, rounds=5)
+    print(f"fused_encode_crc rs-{k}-{p} B={b} apart: GF apply alone {gf_ms:.4f} ms, "
+          f"CRC alone over {k + p} rows {crc_ms:.4f} ms")
 
 
 # --------------------------------------------------------------- main path
@@ -300,6 +342,8 @@ def main_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="build, kernel cases and timings only; no PUTs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -318,27 +362,42 @@ def main() -> int:
     for lib, (secs, log) in sorted(logs.items()):
         print(f"nvcc {lib} ({secs:.2f} s):\n{log.strip()}")
 
+    from ozone_tpu_torch.codec import fused_kernel
+
+    for k, p in ((6, 3), (10, 4), (20, 4)):
+        smem, per_sm = fused_kernel.kernel_occupancy(k, p, 16 * 1024, k + p)
+        print(f"fused_encode_crc rs-{k}-{p} bpc=16384: {smem} B shared memory per "
+              f"block, {per_sm} blocks per SM")
     cases = [
         (6, 3, MIB, 16 * 1024, 8, "CRC32C"),
         (6, 3, MIB, 16 * 1024, 8, "CRC32"),
         (10, 4, MIB, 16 * 1024, 4, "CRC32C"),
         (3, 2, MIB, MIB, 4, "CRC32C"),  # one slice per cell, many tiles
         (6, 3, MIB, 16 * 1024, 1, "NONE"),
+        (20, 4, MIB, 16 * 1024, 2, "CRC32C"),
+        (6, 3, 4800, 480, 3, "CRC32C"),  # 512-byte tile, padded front
+        (6, 3, 4800, 100, 3, "CRC32"),  # slice not a multiple of 16: byte path
+        (6, 3, MIB, 16 * 1024, 4, "CRC32C", False),  # decode form: outputs only
+        (6, 0, MIB, 16 * 1024, 4, "CRC32C"),  # p = 0: plain slice CRC
     ]
     err = check_kernel_cases(device, cases, args.seed)
     timed = time_kernel(device, 6, 3, MIB, 16 * 1024, 8, args.seed, plain=True)
     time_kernel(device, 6, 3, MIB, 16 * 1024, 128, args.seed, plain=False)
+    time_parts(device, 6, 3, MIB, 16 * 1024, 128, args.seed)
     print("library_ms: none; no single PyTorch call computes a GF(2^8) "
           "matrix apply with slice CRCs")
 
-    run = main_path(device, [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7],
-                    MIB, 16 * 1024, args.seed)
+    launches = None
+    if not args.kernel_only:
+        run = main_path(device, [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7],
+                        MIB, 16 * 1024, args.seed)
+        launches = run["launches"]
     print(json.dumps({"kernels": [{
         "name": "fused_encode_crc", "route": "cuda",
         "source": "ozone_tpu_torch/csrc/fused_encode_crc.cu",
         "replaces": "ozone_tpu/codec/pallas_kernel.py:56",
-        "launches": run["launches"], "max_abs_err": err,
-        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "launches": launches, "max_abs_err": err,
+        "ms": timed["ms"], "ms_in_run": timed["ms_in_run"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
         "library_ms": None,
     }]}))

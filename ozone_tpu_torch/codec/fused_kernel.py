@@ -33,11 +33,13 @@ from ozone_tpu_torch.codec.crc_device import crc_constants_planemajor, crc_slice
 from ozone_tpu_torch.utils import checksum as hostsum
 
 #: limits of the kernel (csrc/fused_encode_crc.cu): output rows held in
-#: registers, and the dynamic shared memory one block may take on Hopper
+#: registers, and the shared memory, static and dynamic, one block may
+#: take on Hopper
 MAX_P = 16
 MAX_SMEM_BYTES = 232448
-#: zero-advance operators the kernel takes: 16, 32, ..., 512 bytes
-_ADVANCE_BYTES = (16, 32, 64, 128, 256, 512)
+#: the kernel's lanes per warp, and the bounds of its per-row tile
+LANES = 32
+MIN_TILE, MAX_TILE = LANES * 16, 4096
 
 
 class LaunchCounter:
@@ -109,29 +111,49 @@ def _lib() -> ctypes.CDLL:
     lib.fused_encode_crc_error.restype = ctypes.c_char_p
     lib.fused_encode_crc_smem_bytes.argtypes = [i, i, i, i]
     lib.fused_encode_crc_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_encode_crc_blocks_per_sm.argtypes = [i, i, i, i]
+    lib.fused_encode_crc_blocks_per_sm.restype = i
     return lib
 
 
-@lru_cache(maxsize=8)
-def kernel_constants(poly: int) -> np.ndarray:
+def kernel_tile(slice_bytes: int) -> int:
+    """Bytes per row of one tile of the kernel for this slice length: the
+    slice rounded up to 512, at most 4096 (`make_layout` in the source)."""
+    return min(-(-slice_bytes // MIN_TILE) * MIN_TILE, MAX_TILE)
+
+
+def advance_lengths(slice_bytes: int) -> tuple[int, ...]:
+    """Zero-byte lengths of the kernel's six advance operators, in order:
+    the per-tile gap a lane skips (tile - piece), then the five fold
+    levels piece, 2 piece, ..., 16 piece, where piece = tile / 32."""
+    tile = kernel_tile(slice_bytes)
+    piece = tile // LANES
+    return (tile - piece,) + tuple(piece << i for i in range(5))
+
+
+@lru_cache(maxsize=64)
+def kernel_constants(poly: int, slice_bytes: int) -> np.ndarray:
     """uint32 [256 + 6*32]: the reflected CRC's byte table, then the 32x32
     GF(2) operators "advance a zero-init CRC state through L zero bytes"
-    for L = 16 .. 512 (column i = image of bit i)."""
+    for the L of `advance_lengths(slice_bytes)` (column i = image of bit
+    i). For a 16 KiB slice (4 KiB tiles, 128-byte lane pieces) that is
+    L = 3968, then 128, 256, 512, 1024, 2048."""
     tab = hostsum._table(poly)
-    ops = []
+    lengths = advance_lengths(slice_bytes)
+    ops = {}
     x = np.uint32(1) << np.arange(32, dtype=np.uint32)
     done = 0
-    for n in _ADVANCE_BYTES:
+    for n in sorted(set(lengths)):
         for _ in range(n - done):
             x = (x >> np.uint32(8)) ^ tab[x & np.uint32(0xFF)]
         done = n
-        ops.append(x.copy())
-    return np.concatenate([tab.astype(np.uint32), *ops])
+        ops[n] = x.copy()
+    return np.concatenate([tab.astype(np.uint32), *(ops[n] for n in lengths)])
 
 
-@lru_cache(maxsize=16)
-def _device_constants(poly: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(kernel_constants(poly).view(np.int32)).to(device)
+@lru_cache(maxsize=64)
+def _device_constants(poly: int, slice_bytes: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(kernel_constants(poly, slice_bytes).view(np.int32)).to(device)
 
 
 def _check(data: torch.Tensor, matrix: torch.Tensor, slice_bytes: int) -> None:
@@ -154,6 +176,14 @@ def _check(data: torch.Tensor, matrix: torch.Tensor, slice_bytes: int) -> None:
         raise ValueError(f"matrix on {matrix.device}, data on {data.device}")
     if not data.is_contiguous() or not matrix.is_contiguous():
         raise ValueError("data and matrix must be contiguous")
+
+
+def kernel_occupancy(k: int, p: int, slice_bytes: int, rows: int) -> tuple[int, int]:
+    """(shared memory bytes per block, blocks per SM on the current card)
+    of the kernel for this shape; needs the CUDA build."""
+    lib = _lib()
+    return (lib.fused_encode_crc_smem_bytes(k, p, slice_bytes, rows),
+            lib.fused_encode_crc_blocks_per_sm(k, p, slice_bytes, rows))
 
 
 def fused_encode_crc(data: torch.Tensor, matrix: torch.Tensor,
@@ -187,7 +217,7 @@ def fused_encode_crc(data: torch.Tensor, matrix: torch.Tensor,
     zeros_crc = 0
     if rows:
         zeros_crc = hostsum._linear_parts(slice_bytes, poly)[1]
-    consts = _device_constants(poly or hostsum.CRC32C_POLY, data.device)
+    consts = _device_constants(poly or hostsum.CRC32C_POLY, slice_bytes, data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = lib.fused_encode_crc(

@@ -121,44 +121,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         fused_kernel.fused_encode_crc(data, matrix, 0x82F63B78, bpc)
 
 
+def _adv(op, x: int) -> int:
+    y = 0
+    for i in range(32):
+        if (x >> i) & 1:
+            y ^= int(op[i])
+    return y
+
+
 def _emulate_kernel_crc(piece: np.ndarray, poly: int) -> int:
-    """The CRC schedule of csrc/fused_encode_crc.cu, in Python: 4 KiB tiles
-    zero-padded at the front, 16-byte lane segments, five shuffle folds
-    with adv_16..adv_256, a per-row carry with adv_512, then zeros_crc."""
+    """The CRC schedule of csrc/fused_encode_crc.cu, in Python: tiles of
+    kernel_tile(n) bytes zero-padded at the front, 32 lane pieces of
+    tile/32 bytes, each lane running slicing-by-4 through its piece of
+    every tile from its own state after one gap advance (operator 0, by
+    four byte tables), one five-level fold (operators 1..5), then
+    zeros_crc."""
     from ozone_tpu_torch.utils.checksum import _linear_parts
 
-    consts = fused_kernel.kernel_constants(poly)
-    tab = [int(v) for v in consts[:256]]
-    ops = [consts[256 + 32 * i:256 + 32 * (i + 1)] for i in range(6)]
-
-    def adv(op, x):
-        y = 0
-        for i in range(32):
-            if (x >> i) & 1:
-                y ^= int(op[i])
-        return y
-
     n = piece.size
-    tile = min(-(-n // 512) * 512, 4096)
+    consts = fused_kernel.kernel_constants(poly, n)
+    ops = [consts[256 + 32 * i:256 + 32 * (i + 1)] for i in range(6)]
+    tabs = [[int(v) for v in consts[:256]]]
+    for _ in range(3):  # T1..T3 from T0, as each block derives them
+        tabs.append([(v >> 8) ^ tabs[0][v & 0xFF] for v in tabs[-1]])
+    t0, t1, t2, t3 = tabs
+
+    tile = fused_kernel.kernel_tile(n)
     ntiles = -(-n // tile)
+    lp = tile // fused_kernel.LANES
     buf = np.concatenate([np.zeros(ntiles * tile - n, np.uint8), piece])
-    state = 0
-    for c in range(0, buf.size, 512):
-        segs = []
-        for lane in range(32):
-            crc = 0
-            for byte in buf[c + 16 * lane:c + 16 * lane + 16].tolist():
-                crc = (crc >> 8) ^ tab[(crc ^ byte) & 0xFF]
-            segs.append(crc)
-        for level in range(5):
-            step = 1 << level
-            segs = [adv(ops[level], segs[i]) ^ segs[i + step]
-                    if i % (2 * step) == 0 else segs[i] for i in range(32)]
-        state = adv(ops[5], state) ^ segs[0]
-    return state ^ _linear_parts(n, poly)[1]
+    words = buf.view("<u4").tolist()
+    states = [0] * fused_kernel.LANES
+    # the gap operator as four byte tables, as each block builds it
+    gap = [[_adv(ops[0], v << (8 * nb)) for v in range(256)] for nb in range(4)]
+    for t in range(ntiles):
+        for lane in range(fused_kernel.LANES):
+            st = states[lane]
+            st = (gap[0][st & 0xFF] ^ gap[1][(st >> 8) & 0xFF]
+                  ^ gap[2][(st >> 16) & 0xFF] ^ gap[3][st >> 24]) if t else 0
+            w0 = (t * tile + lane * lp) // 4
+            for w in words[w0:w0 + lp // 4]:
+                c = st ^ w
+                st = t3[c & 0xFF] ^ t2[(c >> 8) & 0xFF] ^ t1[(c >> 16) & 0xFF] ^ t0[c >> 24]
+            states[lane] = st
+    for level in range(5):
+        step = 1 << level
+        states = [_adv(ops[1 + level], states[i]) ^ states[i + step]
+                  if i % (2 * step) == 0 else states[i] for i in range(32)]
+    return states[0] ^ _linear_parts(n, poly)[1]
 
 
-@pytest.mark.parametrize("n", [16, 100, 512, 4096 + 48])
+@pytest.mark.parametrize("n", [16, 100, 512, 4096 + 48, 16384 + 48, 65536])
 @pytest.mark.parametrize("checksum,host", [("CRC32", crc32), ("CRC32C", crc32c)])
 def test_kernel_crc_schedule_matches_host(n, checksum, host):
     """The kernel's host-built table and zero-advance operators, combined
@@ -166,3 +179,72 @@ def test_kernel_crc_schedule_matches_host(n, checksum, host):
     poly = {"CRC32": 0xEDB88320, "CRC32C": 0x82F63B78}[checksum]
     piece = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
     assert _emulate_kernel_crc(piece, poly) == host(piece)
+
+
+@pytest.mark.parametrize("n,lengths", [
+    (16, (496, 16, 32, 64, 128, 256)),
+    (100, (496, 16, 32, 64, 128, 256)),
+    (1536, (1488, 48, 96, 192, 384, 768)),
+    (16384, (3968, 128, 256, 512, 1024, 2048)),
+    (1 << 20, (3968, 128, 256, 512, 1024, 2048)),
+])
+def test_kernel_advance_lengths(n, lengths):
+    """Six operators for every slice length; the gap plus one piece is a
+    tile, and the last fold level spans half of it."""
+    assert fused_kernel.advance_lengths(n) == lengths
+    assert fused_kernel.kernel_constants(0x82F63B78, n).shape == (256 + 6 * 32,)
+
+
+def _xtime(x: np.ndarray) -> np.ndarray:
+    """The kernel's packed doubling of four GF(2^8) bytes in a uint32:
+    ((x << 1) & 0xfefefefe) ^ umulhi(x & 0x80808080, 0x1d << 25)."""
+    hi = (x & np.uint32(0x80808080)).astype(np.uint64)
+    red = ((hi * np.uint64(0x1D << 25)) >> np.uint64(32)).astype(np.uint32)
+    return ((x << np.uint32(1)) & np.uint32(0xFEFEFEFE)) ^ red
+
+
+def _emulate_kernel_gf(data: np.ndarray, matrix: np.ndarray) -> np.ndarray:
+    """The kernel's GF(2^8) apply on 32-bit words: uint8 [k, C] and
+    [p, k] -> uint8 [p, C] by Horner's rule over the coefficient bits,
+    acc = xtime(acc) ^ XOR_j (x_j & mask[j][b][i]) for b = 7 .. 0."""
+    p, k = matrix.shape
+    words = np.ascontiguousarray(data).view("<u4")  # [k, C/4]
+    bits = (matrix.T[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]) & 1
+    masks = np.where(bits == 1, np.uint32(0xFFFFFFFF), np.uint32(0))  # [k, 8, p]
+    acc = np.zeros((p, words.shape[1]), dtype=np.uint32)
+    for b in range(7, -1, -1):
+        if b < 7:
+            acc = _xtime(acc)
+        for j in range(k):
+            acc ^= words[j][None, :] & masks[j, b][:, None]
+    return acc.view(np.uint8)
+
+
+def test_kernel_gf_product_all_pairs():
+    """Packed xtime and bit masks give gf_mul for all 256 x 256 pairs."""
+    from ozone_tpu_torch.codec.gf256 import gf_mul
+
+    a = np.arange(256, dtype=np.uint8)
+    coeffs = np.arange(256, dtype=np.uint8)[:, None]  # 256 rows, k = 1
+    got = _emulate_kernel_gf(a[None, :], coeffs)
+    assert np.array_equal(got, gf_mul(coeffs, a[None, :]))
+
+
+@pytest.mark.parametrize("k,p", [(6, 3), (10, 4)])
+@pytest.mark.parametrize("which", ["parity", "random"])
+def test_kernel_gf_matrix_apply(k, p, which):
+    """The kernel's GF apply equals gf_matmul and the plain version on an
+    RS parity matrix and on a random coefficient matrix."""
+    from ozone_tpu_torch.codec.gf256 import gf_matmul
+
+    rng = np.random.default_rng(k * 10 + p)
+    if which == "parity":
+        matrix = _parity_matrix(CoderOptions(k, p, cell_size=CELL))
+    else:
+        matrix = rng.integers(0, 256, (p, k), dtype=np.uint8)
+    data = rng.integers(0, 256, (k, CELL), dtype=np.uint8)
+    got = _emulate_kernel_gf(data, matrix)
+    assert np.array_equal(got, gf_matmul(matrix, data))
+    plain = fused_kernel.gf_apply_plain(torch.from_numpy(data[None]),
+                                        torch.from_numpy(matrix))
+    assert np.array_equal(got, plain[0].numpy())
