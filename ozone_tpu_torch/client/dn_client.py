@@ -107,11 +107,19 @@ class LocalDatanodeClient:
     def close_container(self, container_id):
         self.dn.close_container(container_id)
 
+    def delete_container(self, container_id, force=False):
+        self.dn.delete_container(container_id, force)
+
     def write_chunk(self, block_id, info, data, sync=False, writer=None):
         self.dn.write_chunk(block_id, info, data, sync, writer=writer)
 
     def read_chunk(self, block_id, info, verify=False):
         return self.dn.read_chunk(block_id, info, verify)
+
+    def read_chunks(self, block_id, infos, verify=False):
+        # the instance verb per chunk, so subclasses that inject read
+        # faults cover the batched path too
+        return [self.read_chunk(block_id, i, verify) for i in infos]
 
     def put_block(self, block, sync=False, writer=None):
         self.dn.put_block(block, sync, writer=writer)
@@ -128,6 +136,9 @@ class LocalDatanodeClient:
 
     def get_block(self, block_id):
         return self.dn.get_block(block_id)
+
+    def list_blocks(self, container_id):
+        return self.dn.list_blocks(container_id)
 
 
 class DatanodeClientFactory:

@@ -40,6 +40,7 @@ from ozone_tpu_torch.codec.fused import (
     make_fused_encoder,
     resolve_device,
 )
+from ozone_tpu_torch.codec.pipeline import finish_pull, host_buffer, start_pull
 from ozone_tpu_torch.scm.pipeline import Pipeline
 from ozone_tpu_torch.storage.ids import BlockData, BlockID, ChunkInfo, StorageError
 from ozone_tpu_torch.utils.checksum import Checksum, ChecksumData, ChecksumType
@@ -195,7 +196,7 @@ class ECKeyWriter:
         # one worker per unit stream: the k+p unit writes of a run go out
         # concurrently
         self._rpc_pool: Optional[ThreadPoolExecutor] = None
-        # the batch in flight: (stripes, parity, crcs, copy-done event)
+        # the batch in flight: (stripes, start_pull's copies and event)
         self._pending: Optional[tuple] = None
 
     # ------------------------------------------------------------------ write
@@ -237,45 +238,25 @@ class ECKeyWriter:
         with Tracer.instance().span("codec:device_dispatch",
                                     rows=len(stripes),
                                     width=self.stripe_batch, direct=True):
-            parity, crcs = self._fused(self._stage(stripes))
-            pending = (stripes, *self._start_pull(parity, crcs))
+            pending = (stripes,
+                       start_pull(self._fused(self._stage(stripes))))
         self.dispatches += 1
         prev, self._pending = self._pending, pending
         if prev is not None:
             self._write_batch(*self._resolve_pending(prev))
 
-    def _stage(self, stripes: list[_Stripe]):
-        """The batch [B, k, C] on the host: in pinned memory when it goes
-        to a CUDA device, so its copy there runs asynchronously."""
-        if self.device.type != "cuda":
-            return np.stack([s.data for s in stripes])
-        host = torch.empty((len(stripes), self.k, self.cell),
-                           dtype=torch.uint8, pin_memory=True)
+    def _stage(self, stripes: list[_Stripe]) -> torch.Tensor:
+        """The batch [B, k, C] on the host, pinned when it goes to CUDA."""
+        host = host_buffer((len(stripes), self.k, self.cell), self.device)
         np.stack([s.data for s in stripes], out=host.numpy())
         return host
-
-    def _start_pull(self, parity: torch.Tensor, crcs: torch.Tensor) -> tuple:
-        """Start the device->host copy of a batch's results on the current
-        stream; returns (parity, crcs, event), event None on the CPU."""
-        if self.device.type != "cuda":
-            return parity, crcs, None
-        out = []
-        for t in (parity, crcs):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            out.append(host)
-        done = torch.cuda.Event()
-        done.record()
-        return out[0], out[1], done
 
     @staticmethod
     def _resolve_pending(prev: tuple) -> tuple:
         """(stripes, parity uint8 [B, p, C], crcs uint32 [B, k+p, S]) of an
         in-flight batch as numpy, once its copy to the host is done."""
-        stripes, parity, crcs, done = prev
-        if done is not None:
-            done.synchronize()
-        return stripes, parity.numpy(), crcs.numpy().view(np.uint32)
+        stripes, pulled = prev
+        return (stripes, *finish_pull(pulled))
 
     def _drain_pending(self) -> None:
         prev, self._pending = self._pending, None

@@ -1,14 +1,20 @@
-"""Fused EC encode + CRC pass: one device pass per stripe batch.
+"""Fused EC encode + CRC and decode + CRC: one device pass per stripe batch.
 
-Port of the encode half of `ozone_tpu/codec/fused.py`. The encoder takes
-a stripe batch [B, k, C] and returns the parity [B, p, C] and the CRC of
-every bytes_per_checksum slice of all k+p units [B, k+p, C / bpc], from
-one launch of the fused kernel (codec/fused_kernel.py).
+Port of the encoder and decoder of `ozone_tpu/codec/fused.py`. The
+encoder takes a stripe batch [B, k, C] and returns the parity [B, p, C]
+and the CRC of every bytes_per_checksum slice of all k+p units
+[B, k+p, C / bpc]. The decoder takes the v valid units of a batch
+[B, v, C] and returns the e erased units [B, e, C] and their slice CRCs
+[B, e, C / bpc]. Both are one launch of the fused kernel
+(codec/fused_kernel.py) with the coding matrix as its runtime argument:
+the parity generator for encode, a per-pattern [e, v] recovery matrix for
+decode, so a new erasure pattern builds a small matrix, never a kernel.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -62,6 +68,23 @@ def _parity_matrix(options: CoderOptions) -> np.ndarray:
     return rs_math.parity_matrix(options.data_units, options.parity_units)
 
 
+def _decode_matrix(options: CoderOptions, valid: list[int],
+                   erased: list[int]) -> np.ndarray:
+    """e x len(valid) GF(2^8) recovery matrix. RS inverts the surviving
+    k x k submatrix; XOR recovers its one erasable unit as the XOR of the
+    k others, the parity unit included (its decode is a re-encode)."""
+    if options.codec == "lrc":
+        raise NotImplementedError("the lrc codec is not ported yet")
+    if options.codec == "xor":
+        if len(erased) != 1:
+            raise ValueError("xor codec recovers at most one erasure")
+        if len(valid) != options.data_units:
+            raise ValueError("xor decode needs all other units")
+        return np.ones((1, len(valid)), dtype=np.uint8)
+    return rs_math.decode_matrix(
+        options.data_units, options.parity_units, list(erased), list(valid))
+
+
 def resolve_device(device) -> torch.device:
     """The torch device an entry point runs on; CUDA must be present
     unless the caller asks for the CPU."""
@@ -70,6 +93,14 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch path")
     return dev
+
+
+def _to_device(units, dev: torch.device) -> torch.Tensor:
+    """A numpy array or tensor of units as a uint8 tensor on `dev`, copied
+    without blocking (asynchronously when the host memory is pinned)."""
+    if not isinstance(units, torch.Tensor):
+        units = torch.from_numpy(np.ascontiguousarray(units, dtype=np.uint8))
+    return units.to(dev, non_blocking=True)
 
 
 def make_fused_encoder(spec: FusedSpec, device="cuda"):
@@ -85,14 +116,53 @@ def make_fused_encoder(spec: FusedSpec, device="cuda"):
     bpc = spec.bytes_per_checksum
 
     def fn(data):
-        if not isinstance(data, torch.Tensor):
-            data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
-        data = data.to(dev, non_blocking=True)
+        data = _to_device(data, dev)
         parity, crcs = fused_encode_crc(data, matrix, poly, bpc)
         if poly is None:
             b, k = data.shape[:2]
             crcs = torch.zeros((b, k + parity.shape[1], 0), dtype=torch.int32,
                                device=dev)
         return parity, crcs
+
+    return fn
+
+
+@lru_cache(maxsize=512)
+def _decode_plan_cached(options: CoderOptions, valid: tuple, erased: tuple,
+                        device: torch.device) -> torch.Tensor:
+    """The [e, v] uint8 recovery matrix of one erasure pattern, on
+    `device`. Cheap to build (a k x k GF inversion and one small copy);
+    every pattern shares the one kernel library."""
+    dm = _decode_matrix(options, list(valid), list(erased))
+    return torch.from_numpy(dm).to(device)
+
+
+def decode_plan_cache_size() -> int:
+    """Decode plans (erasure patterns x devices) currently cached."""
+    return _decode_plan_cached.cache_info().currsize
+
+
+def make_fused_decoder(spec: FusedSpec, valid: list[int], erased: list[int],
+                       device="cuda"):
+    """fn(valid_units uint8 [B, v, C]) -> (rec uint8 [B, e, C],
+    crcs int32 [B, e, C // bpc]), both torch tensors on `device`. `valid`
+    lists the unit indexes of the v rows supplied, `erased` the units to
+    rebuild, in output order. CRC words are uint32 bit patterns, and the
+    CRC tensor is [B, e, 0] when the checksum is not CRC32/CRC32C. Host
+    input goes to the device with a non-blocking copy (asynchronous when
+    it is pinned)."""
+    dev = resolve_device(device)
+    matrix = _decode_plan_cached(spec.options, tuple(valid), tuple(erased), dev)
+    poly = _POLY.get(spec.checksum)
+    bpc = spec.bytes_per_checksum
+
+    def fn(valid_units):
+        valid_units = _to_device(valid_units, dev)
+        rec, crcs = fused_encode_crc(valid_units, matrix, poly, bpc,
+                                     crc_in=False)
+        if poly is None:
+            crcs = torch.zeros(rec.shape[:2] + (0,), dtype=torch.int32,
+                               device=dev)
+        return rec, crcs
 
     return fn

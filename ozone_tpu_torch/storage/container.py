@@ -84,6 +84,23 @@ class VolumeDB:
             ).fetchone()
         return BlockData.from_json(json.loads(row[0])) if row else None
 
+    @_guard_sqlite
+    def list_blocks(self, container_id: int) -> list[BlockData]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT data FROM blocks WHERE container_id=? ORDER BY local_id",
+                (container_id,),
+            ).fetchall()
+        return [BlockData.from_json(json.loads(r[0])) for r in rows]
+
+    @_guard_sqlite
+    def delete_container(self, container_id: int) -> None:
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM blocks WHERE container_id=?", (container_id,)
+            )
+            self._conn.commit()
+
     def close(self) -> None:
         with self._lock:
             self._conn.close()
@@ -191,6 +208,9 @@ class Container:
             raise StorageError(NO_SUCH_BLOCK, str(block_id))
         return b
 
+    def list_blocks(self) -> list[BlockData]:
+        return self.db.list_blocks(self.id)
+
 
 class HddsVolume:
     """One storage volume (disk) holding container directories + a VolumeDB."""
@@ -230,6 +250,10 @@ class ContainerSet:
         if c is None:
             raise StorageError(CONTAINER_NOT_FOUND, str(container_id))
         return c
+
+    def remove(self, container_id: int) -> None:
+        with self._lock:
+            self._containers.pop(container_id, None)
 
     def __iter__(self) -> Iterator[Container]:
         return iter(list(self._containers.values()))

@@ -3,14 +3,15 @@
 Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC write and
 its read-back use (the reference's KeyValueHandler verb switch):
 CreateContainer, WriteChunk, ReadChunk (with checksum verification),
-PutBlock, GetBlock, CloseContainer, and the single-writer block fence.
-The scanners and their scan queue, the volume checker and container
-deletion are not ported yet.
+PutBlock, GetBlock, ListBlock, CloseContainer, DeleteContainer, and the
+single-writer block fence. The scanners and their scan queue, the volume
+checker and block deletion are not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
+import shutil
 import threading
 from pathlib import Path
 from typing import Optional
@@ -20,6 +21,7 @@ import numpy as np
 from ozone_tpu_torch.storage.container import Container, ContainerSet, HddsVolume
 from ozone_tpu_torch.storage.ids import (
     CHECKSUM_MISMATCH,
+    CLOSED_CONTAINER_IO,
     BlockData,
     BlockID,
     ChunkInfo,
@@ -67,6 +69,20 @@ class Datanode:
     def close_container(self, container_id: int) -> None:
         self.containers.get(container_id).close()
         self.metrics.counter("container_closed").inc()
+
+    def delete_container(self, container_id: int, force: bool = False) -> None:
+        """Drop a replica: its block records, chunk files and directory.
+        An OPEN container goes only with force (reconstruction cleanup)."""
+        c = self.containers.get(container_id)
+        if not force and c.state == ContainerState.OPEN:
+            raise StorageError(
+                CLOSED_CONTAINER_IO, f"container {container_id} is OPEN"
+            )
+        c.db.delete_container(container_id)
+        c.chunks.close()  # release cached block-file descriptors
+        shutil.rmtree(c.root, ignore_errors=True)
+        self.containers.remove(container_id)
+        self.metrics.counter("container_deleted").inc()
 
     # -- chunk/block verbs --
     def write_chunk(
@@ -122,6 +138,9 @@ class Datanode:
 
     def get_block(self, block_id: BlockID) -> BlockData:
         return self.containers.get(block_id.container_id).get_block(block_id)
+
+    def list_blocks(self, container_id: int) -> list[BlockData]:
+        return self.containers.get(container_id).list_blocks()
 
     def close(self) -> None:
         for c in self.containers:

@@ -126,6 +126,7 @@ CONTAINER_NOT_FOUND = "CONTAINER_NOT_FOUND"
 CONTAINER_EXISTS = "CONTAINER_EXISTS"
 NO_SUCH_BLOCK = "NO_SUCH_BLOCK"
 CHECKSUM_MISMATCH = "CHECKSUM_MISMATCH"
+CLOSED_CONTAINER_IO = "CLOSED_CONTAINER_IO"
 INVALID_CONTAINER_STATE = "INVALID_CONTAINER_STATE"
 IO_EXCEPTION = "IO_EXCEPTION"
 INVALID_WRITE_SIZE = "INVALID_WRITE_SIZE"

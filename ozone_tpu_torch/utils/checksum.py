@@ -1,8 +1,10 @@
 """Host-side checksums: CRC32 / CRC32C / SHA256 / MD5 over chunk slices.
 
 Port of `ozone_tpu/utils/checksum.py` without the native library: CRC32C
-runs the numpy linear decomposition (crc = L(M) xor crc(0^N)) for large
-inputs and the table-driven loop for small ones; CRC32 is zlib. The
+runs the numpy linear decomposition (crc = L(M) xor crc(0^N)), by bytes
+through a position table for the whole slices of a chunk and by bits for
+other large inputs, and the table-driven loop for small ones; CRC32 is
+zlib. The
 same `_table` backs the CUDA kernel's byte table and its zero-advance
 operators (codec/fused_kernel.py), so device and host CRCs share one
 definition.
@@ -11,6 +13,7 @@ definition.
 from __future__ import annotations
 
 import hashlib
+import threading
 import zlib
 from dataclasses import dataclass
 from enum import Enum
@@ -81,6 +84,48 @@ def crc_linear(data, poly: int) -> int:
     if sel.size:
         return int(np.bitwise_xor.reduce(sel)) ^ zeros_crc
     return zeros_crc
+
+
+#: longest slice `crc_slices` serves from a byte-position table (its table
+#: takes 1 KiB per byte of slice: 16 MiB at 16 KiB)
+POSITION_TABLE_MAX = 16 * 1024
+
+
+_position_lock = threading.Lock()
+
+
+def _position_table(n: int, poly: int) -> tuple[np.ndarray, np.ndarray, np.uint32]:
+    # one thread builds a table while the others wait (reader threads all
+    # verify at once, and a table takes ~0.1 s to build)
+    with _position_lock:
+        return _build_position_table(n, poly)
+
+
+@lru_cache(maxsize=4)
+def _build_position_table(n: int, poly: int) -> tuple[np.ndarray, np.ndarray, np.uint32]:
+    """(T [n * 256] uint32, row offsets [n] int32, crc of n zero bytes):
+    `_linear_parts` by bytes instead of bits. T[256 i + b] is the linear
+    CRC contribution of byte value b at position i of an n-byte message,
+    so crc(M) = XOR_i T[256 i + M[i]] ^ crc(0^n): one gather per byte."""
+    tab = _table(poly)
+    t = np.empty((n, 256), dtype=np.uint32)
+    cur = tab.copy()
+    t[n - 1] = cur
+    for i in range(n - 2, -1, -1):
+        cur = (cur >> np.uint32(8)) ^ tab[cur & np.uint32(0xFF)]
+        t[i] = cur
+    rows = np.arange(n, dtype=np.int32) * 256
+    return t.reshape(-1), rows, np.uint32(_linear_parts(n, poly)[1])
+
+
+def crc_slices(data, n: int, poly: int) -> np.ndarray:
+    """uint32 CRC (init/xorout 0xFFFFFFFF) of every n-byte slice of
+    `data`, whose size is a multiple of n, for n <= POSITION_TABLE_MAX.
+    Bit-exact with crc_table_driven; numpy releases the interpreter lock
+    in the gather and the reduce, so threads verifying chunks overlap."""
+    table, rows, zeros_crc = _position_table(n, poly)
+    slices = np.asarray(data, dtype=np.uint8).reshape(-1, n)
+    return np.bitwise_xor.reduce(table[rows + slices], axis=1) ^ zeros_crc
 
 
 def crc32c(data, crc: int = 0) -> int:
@@ -159,10 +204,17 @@ class Checksum:
         if self.type is ChecksumType.NONE:
             return ChecksumData(self.type, self.bpc)
         data = np.asarray(data, dtype=np.uint8).reshape(-1)
-        sums = tuple(
-            self._one(data[o : o + self.bpc]) for o in range(0, data.size, self.bpc)
-        )
-        return ChecksumData(self.type, self.bpc, sums)
+        start = 0
+        sums: list[bytes] = []
+        if self.type is ChecksumType.CRC32C and self.bpc <= POSITION_TABLE_MAX:
+            # whole slices at once; the short tail, if any, below
+            start = data.size - data.size % self.bpc
+            if start:
+                sums = [int(v).to_bytes(4, "big") for v in
+                        crc_slices(data[:start], self.bpc, CRC32C_POLY).tolist()]
+        sums += [self._one(data[o : o + self.bpc])
+                 for o in range(start, data.size, self.bpc)]
+        return ChecksumData(self.type, self.bpc, tuple(sums))
 
     def verify(self, data, expected: ChecksumData, offset_hint: str = "") -> None:
         if expected.type is ChecksumType.NONE:

@@ -111,3 +111,20 @@ def test_host_crcs(n):
     # incremental contract: continue a running CRC
     assert checksum.crc32c(data[n // 2:], checksum.crc32c(data[:n // 2])) == \
         checksum.crc32c(data)
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("n,slices", [(1, 5), (100, 3), (1024, 4), (16 * 1024, 2)])
+def test_position_table_slice_crcs(poly, n, slices):
+    """The byte-position-table CRC of whole slices equals the table loop,
+    and Checksum.compute (which takes it for CRC32C) equals the
+    reference's, the short tail included."""
+    data = np.random.default_rng(n).integers(0, 256, n * slices, dtype=np.uint8)
+    want = [checksum.crc_table_driven(data[i * n:(i + 1) * n], poly)
+            for i in range(slices)] if n < 16 * 1024 else \
+        [checksum.crc_linear(data[i * n:(i + 1) * n], poly) for i in range(slices)]
+    assert checksum.crc_slices(data, n, poly).tolist() == want
+    tail = np.concatenate([data, data[:n // 2 + 1]])
+    assert checksum.Checksum(checksum.ChecksumType.CRC32C, n).compute(tail) == \
+        checksum.ChecksumData.from_lists(j_checksum.Checksum(
+            j_checksum.ChecksumType.CRC32C, n).compute(tail).to_lists())

@@ -33,11 +33,11 @@ N_DN = 6
 class MiniEC:
     """n datanodes of one implementation + a naive group allocator."""
 
-    def __init__(self, root, mods, opts):
+    def __init__(self, root, mods, opts, n_dn=N_DN):
         dn_mod, client_mod, pipe_mod, writer_mod = mods
         self.opts, self.pipe_mod, self.writer_mod = opts, pipe_mod, writer_mod
         self.dns = [dn_mod.Datanode(root / f"dn{i}", dn_id=f"dn{i}")
-                    for i in range(N_DN)]
+                    for i in range(n_dn)]
         self.clients = client_mod.DatanodeClientFactory()
         for dn in self.dns:
             self.clients.register_local(dn)
@@ -45,8 +45,9 @@ class MiniEC:
         self._lid = itertools.count(1)
 
     def allocate(self, excluded):
-        nodes = [d.id for d in self.dns if d.id not in excluded][:K + P]
-        if len(nodes) < K + P:
+        n = self.opts.all_units
+        nodes = [d.id for d in self.dns if d.id not in excluded][:n]
+        if len(nodes) < n:
             raise RuntimeError("not enough nodes")
         return self.writer_mod.BlockGroup(
             container_id=next(self._cid), local_id=next(self._lid),

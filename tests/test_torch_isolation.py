@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference():
         print(len(names), bad)
     """)
     count, bad = out.split(" ", 1)
-    assert int(count) >= 20, out
+    assert int(count) >= 28, out
     assert bad.strip() == "[]", out
 
 
@@ -40,14 +40,24 @@ def test_default_device_raises_without_cuda():
     out = _run("""
         import torch
         from ozone_tpu_torch.codec.api import CoderOptions
-        from ozone_tpu_torch.codec.fused import FusedSpec, make_fused_encoder
+        from ozone_tpu_torch.codec.fused import (
+            FusedSpec, make_fused_decoder, make_fused_encoder)
         from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
-        from ozone_tpu_torch.client.ec_writer import ECKeyWriter
+        from ozone_tpu_torch.client.ec_reader import ECBlockGroupReader
+        from ozone_tpu_torch.client.ec_writer import BlockGroup, ECKeyWriter
+        from ozone_tpu_torch.scm.pipeline import Pipeline, ReplicationConfig
+        from ozone_tpu_torch.storage.reconstruction import (
+            ECReconstructionCoordinator)
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
+        clients = DatanodeClientFactory()
+        group = BlockGroup(1, 1, Pipeline(ReplicationConfig.from_ec(opts),
+                                          [f"dn{i}" for i in range(5)]), 4096)
         for make in (lambda: make_fused_encoder(FusedSpec(opts)),
-                     lambda: ECKeyWriter(opts, None, DatanodeClientFactory(),
-                                         block_size=4096)):
+                     lambda: make_fused_decoder(FusedSpec(opts), [0, 1, 2], [3]),
+                     lambda: ECKeyWriter(opts, None, clients, block_size=4096),
+                     lambda: ECBlockGroupReader(group, opts, clients),
+                     lambda: ECReconstructionCoordinator(clients)):
             try:
                 make()
             except RuntimeError as e:
