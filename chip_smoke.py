@@ -5,16 +5,29 @@
 
 Builds the port's CUDA kernels from `ozone_tpu_torch/csrc` (nvcc, sm_90a),
 holds every kernel against its plain PyTorch version on the card, in its
-encode and its decode form, then drives the port's main paths:
+RS and LRC encode forms, its decode forms (RS, LRC local, across groups
+and global) and its scrub form (slice CRCs, no coding rows), then drives
+the port's main paths, on the shared codec service (the default route)
+unless a phase says otherwise:
 
 - four concurrent RS(6,3) key PUTs through `ECKeyWriter` into nine
   in-process datanodes, read back and checked against the source bytes
-  and the plain version's parity and CRCs;
+  and the plain version's parity and CRCs, once on the service and once
+  with OZONE_TPU_CODEC_SERVICE=0 (the direct route);
+- 32 concurrent small RS(6,3) PUTs (one stripe and a 4 KiB tail each)
+  whose tails coalesce in the service;
 - RS(10,4) read and repair: two keys PUT into 16 datanodes, read whole
   through `ECBlockGroupReader` healthy, then with two data units down
   (whole and ranged), their replicas rebuilt onto two spares by
   `ECReconstructionCoordinator`, and read again through the rebuilt
-  replicas with two other units down.
+  replicas with two other units down;
+- LRC(12,2,2): two keys PUT into 18 datanodes, read healthy, with one
+  unit down (local repair, reading only the lost unit's group), with
+  unit 0 down (a short group's local repair over known-zero units), with
+  two units of one group down (global decode), and unit 2 rebuilt onto a
+  spare from its group;
+- the device scrubber over every closed container of those datanodes,
+  then over a container with one flipped byte, against the host scan.
 
 Every failure raises. The last line is one JSON object with "ok" and the
 device; the line before it is nvidia-smi's name and power limit, and the
@@ -28,7 +41,9 @@ It exits non-zero with no result when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -90,10 +105,12 @@ def fused_bound(b: int, k: int, p: int, cell: int, bpc: int,
 
 # ------------------------------------------------------------ kernel phase
 def check_kernel_cases(device, cases, seed: int) -> float:
-    """Kernel against plain on each (k, p, cell, bpc, B, checksum[, crc_in])
-    case, exact on every byte and word; sampled slices against the host
-    CRC. p = 0 is a plain slice CRC of the k inputs. Returns the largest
-    difference seen (0 when every case agrees)."""
+    """Kernel against plain on each (k, p, cell, bpc, B, checksum[, crc_in[,
+    scheme]]) case, exact on every byte and word; sampled slices against
+    the host CRC. The matrix is the RS generator, or that of `scheme`
+    (e.g. "lrc-12-2-2"); p = 0 is a plain slice CRC of the k inputs, the
+    scrubber's form. Returns the largest difference seen (0 when every
+    case agrees)."""
     from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.codec.api import CoderOptions
     from ozone_tpu_torch.codec.fused import _POLY, _parity_matrix
@@ -103,8 +120,9 @@ def check_kernel_cases(device, cases, seed: int) -> float:
     worst = 0
     for k, p, cell, bpc, b, checksum, *rest in cases:
         crc_in = rest[0] if rest else True
+        scheme = rest[1] if len(rest) > 1 else f"rs-{k}-{p}"
         data = torch.from_numpy(rng.integers(0, 256, (b, k, cell), dtype=np.uint8)).to(device)
-        matrix = (_parity_matrix(CoderOptions(k, p, cell_size=cell)) if p
+        matrix = (_parity_matrix(CoderOptions.parse(f"{scheme}-{cell}")) if p
                   else np.zeros((0, k), dtype=np.uint8))
         matrix = torch.from_numpy(matrix).to(device)
         poly = _POLY.get(ChecksumType[checksum])
@@ -117,10 +135,10 @@ def check_kernel_cases(device, cases, seed: int) -> float:
         worst = max(worst, diff)
         rows = (k if crc_in else 0) + p if poly else 0
         shape_ok = out.shape == (b, p, cell) and crcs.shape == (b, rows, cell // bpc)
-        print(f"kernel vs plain rs-{k}-{p} cell={cell} bpc={bpc} B={b} {checksum} "
+        print(f"kernel vs plain {scheme} cell={cell} bpc={bpc} B={b} {checksum} "
               f"crc_in={crc_in}: max_abs_err={diff} crcs={tuple(crcs.shape)}")
         if diff or not shape_ok:
-            raise AssertionError(f"kernel disagrees with plain on rs-{k}-{p} cell={cell} "
+            raise AssertionError(f"kernel disagrees with plain on {scheme} cell={cell} "
                                  f"bpc={bpc} B={b} {checksum} crc_in={crc_in}")
         if poly is None:
             continue
@@ -137,11 +155,12 @@ def check_kernel_cases(device, cases, seed: int) -> float:
 
 def check_decode_cases(device, cases, seed: int) -> float:
     """The kernel in decode form (an [e, v] recovery matrix, crc_in=False)
-    against plain on each (k, p, valid, erased, cell, bpc, B, checksum)
+    against plain on each (scheme, valid, erased, cell, bpc, B, checksum)
     case: a seeded codeword is encoded by the plain version, the `valid`
     units go in, and the recovered rows must equal the plain version's and
-    the erased units, exact; sampled slices against the host CRC. Returns
-    the largest difference seen."""
+    the erased units, exact; sampled slices against the host CRC. For LRC
+    the read set may be narrower than k (a local repair reads group_size
+    units). Returns the largest difference seen."""
     from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.codec.api import CoderOptions
     from ozone_tpu_torch.codec.fused import _POLY, _decode_matrix, _parity_matrix
@@ -149,8 +168,9 @@ def check_decode_cases(device, cases, seed: int) -> float:
 
     rng = np.random.default_rng(seed)
     worst = 0
-    for k, p, valid, erased, cell, bpc, b, checksum in cases:
-        opts = CoderOptions(k, p, cell_size=cell)
+    for scheme, valid, erased, cell, bpc, b, checksum in cases:
+        opts = CoderOptions.parse(f"{scheme}-{cell}")
+        k = opts.data_units
         data = torch.from_numpy(rng.integers(0, 256, (b, k, cell), dtype=np.uint8)).to(device)
         parity, _ = fused_kernel.fused_encode_crc_plain(
             data, torch.from_numpy(_parity_matrix(opts)).to(device), None, bpc)
@@ -167,7 +187,8 @@ def check_decode_cases(device, cases, seed: int) -> float:
                    (crcs.long() - pcrcs.long()).abs().max().item() if crcs.numel() else 0)
         worst = max(worst, diff)
         rows = len(erased) if poly else 0
-        name = f"rs-{k}-{p} valid={valid} erased={erased} bpc={bpc} B={b} {checksum}"
+        name = (f"{scheme} valid={valid} erased={erased} matrix={tuple(matrix.shape)} "
+                f"bpc={bpc} B={b} {checksum}")
         print(f"decode kernel vs plain {name}: max_abs_err={diff} crcs={tuple(crcs.shape)}")
         if diff or crcs.shape != (b, rows, cell // bpc):
             raise AssertionError(f"decode kernel disagrees with plain on {name}")
@@ -184,6 +205,19 @@ def check_decode_cases(device, cases, seed: int) -> float:
     return worst
 
 
+def time_form(name: str, run, plain, bound: tuple[float, str], in_bytes: int) -> dict:
+    """A kernel form's time on fixed inputs, a single call and a call in a
+    run of 20, beside its plain version's time and its bound."""
+    ms = cuda_ms(run)
+    in_run_ms = cuda_ms(run, calls=20, rounds=5)
+    plain_ms = cuda_ms(plain, rounds=5)
+    bound_ms, bound_by = bound
+    print(f"fused_encode_crc {name}: {ms:.4f} ms a single call ({in_run_ms:.4f} ms a call "
+          f"in a run of 20), bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{in_bytes / ms * 1e3 / 2**30:.2f} GiB/s in, plain {plain_ms:.4f} ms")
+    return {"ms": ms, "ms_in_run": in_run_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
 def time_decode(device, cell: int, bpc: int, b: int, seed: int) -> dict:
     """The kernel in decode form at the degraded read's shape: RS(10,4),
     units 0 and 1 rebuilt from units 2..11, CRC32C over the two rows."""
@@ -197,20 +231,13 @@ def time_decode(device, cell: int, bpc: int, b: int, seed: int) -> dict:
     units = torch.from_numpy(rng.integers(0, 256, (b, len(valid), cell), dtype=np.uint8)).to(device)
     matrix = torch.from_numpy(_decode_matrix(CoderOptions(10, 4, cell_size=cell),
                                              valid, erased)).to(device)
-
-    def run():
-        return fused_kernel.fused_encode_crc(units, matrix, CRC32C_POLY, bpc, crc_in=False)
-
-    ms = cuda_ms(run)
-    in_run_ms = cuda_ms(run, calls=20, rounds=5)
-    plain_ms = cuda_ms(lambda: fused_kernel.fused_encode_crc_plain(
-        units, matrix, CRC32C_POLY, bpc, crc_in=False), rounds=5)
-    bound_ms, bound_by = fused_bound(b, len(valid), len(erased), cell, bpc, rows=len(erased))
-    print(f"fused_encode_crc decode rs-10-4 e=2 v=10 cell={cell} bpc={bpc} B={b}: "
-          f"{ms:.4f} ms a single call ({in_run_ms:.4f} ms a call in a run of 20), "
-          f"bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{b * len(valid) * cell / MIB / ms * 1e3 / 1024:.2f} GiB/s in, plain {plain_ms:.4f} ms")
-    return {"ms": ms, "ms_in_run": in_run_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return time_form(
+        f"decode rs-10-4 e=2 v=10 cell={cell} bpc={bpc} B={b}",
+        lambda: fused_kernel.fused_encode_crc(units, matrix, CRC32C_POLY, bpc, crc_in=False),
+        lambda: fused_kernel.fused_encode_crc_plain(units, matrix, CRC32C_POLY, bpc,
+                                                    crc_in=False),
+        fused_bound(b, len(valid), len(erased), cell, bpc, rows=len(erased)),
+        b * len(valid) * cell)
 
 
 def time_kernel(device, k: int, p: int, cell: int, bpc: int, b: int,
@@ -264,7 +291,94 @@ def time_parts(device, k: int, p: int, cell: int, bpc: int, b: int, seed: int) -
           f"CRC alone over {k + p} rows {crc_ms:.4f} ms")
 
 
+def time_lrc_and_scrub(device, cell: int, bpc: int, seed: int) -> dict:
+    """The LRC(12,2,2) encode (B=8, [4, 12] generator, CRC32C over all 16
+    rows), its local decode (unit 2 from its group, B=8, [1, 6] matrix,
+    CRC32C over the recovered row) and the scrubber's batch (4096 slices
+    of bpc bytes through `make_crc_fn`, no coding rows)."""
+    from ozone_tpu_torch.codec import fused_kernel, lrc_math
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.crc_device import make_crc_fn
+    from ozone_tpu_torch.codec.fused import _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY
+
+    rng = np.random.default_rng(seed)
+    lrc = CoderOptions.parse(f"lrc-12-2-2-{cell}")
+    b = 8
+    data = torch.from_numpy(rng.integers(0, 256, (b, 12, cell), dtype=np.uint8)).to(device)
+    gen = torch.from_numpy(_parity_matrix(lrc)).to(device)
+    out = {"lrc_encode": time_form(
+        f"lrc-12-2-2 encode [4, 12] B={b}",
+        lambda: fused_kernel.fused_encode_crc(data, gen, CRC32C_POLY, bpc),
+        lambda: fused_kernel.fused_encode_crc_plain(data, gen, CRC32C_POLY, bpc),
+        fused_bound(b, 12, 4, cell, bpc), b * 12 * cell)}
+    valid, _ = lrc_math.plan_valid(lrc, [2], [u for u in range(16) if u != 2])
+    units = data[:, :len(valid)].contiguous()
+    rows = torch.from_numpy(_decode_matrix(lrc, valid, [2])).to(device)
+    out["lrc_decode"] = time_form(
+        f"lrc-12-2-2 local decode [1, {len(valid)}] B={b}",
+        lambda: fused_kernel.fused_encode_crc(units, rows, CRC32C_POLY, bpc, crc_in=False),
+        lambda: fused_kernel.fused_encode_crc_plain(units, rows, CRC32C_POLY, bpc,
+                                                    crc_in=False),
+        fused_bound(b, len(valid), 1, cell, bpc, rows=1), b * len(valid) * cell)
+    n = 4096
+    slices = torch.from_numpy(rng.integers(0, 256, (n, 1, bpc), dtype=np.uint8)).to(device)
+    no_rows = torch.zeros((0, 1), dtype=torch.uint8, device=device)
+    crc_fn = make_crc_fn(bpc)
+    out["scrub"] = time_form(
+        f"scrub batch [{n}, 1, {bpc}] (no coding rows)",
+        lambda: crc_fn(slices),
+        lambda: fused_kernel.fused_encode_crc_plain(slices, no_rows, CRC32C_POLY, bpc),
+        fused_bound(n, 1, 0, bpc, bpc, rows=1), n * bpc)
+    return out
+
+
 # --------------------------------------------------------------- main path
+def service_counts() -> dict:
+    """The shared codec service's dispatch counters, and the observation
+    counts and sums of its queue-wait and dispatch histograms
+    (process-wide)."""
+    from ozone_tpu_torch.codec import service as codec_service
+
+    out = {name: codec_service.METRICS.counter(name).value
+           for name in ("submissions", "dispatches", "multi_op_dispatches",
+                        "stripes_dispatched", "slots_dispatched")}
+    for name in ("queue_wait_seconds", "dispatch_seconds"):
+        h = codec_service.METRICS.histogram(name)
+        out[name], out[f"{name}_n"] = h.total, h.count
+    return out
+
+
+def service_delta(before: dict) -> dict:
+    """The service's counters since `before`, with the fill ratio of the
+    dispatches in between (stripes over batch slots) and the mean queue
+    wait and dispatch time (launch to results on the host) in ms."""
+    now = service_counts()
+    out = {k: now[k] - before[k] for k in now}
+    out["fill_ratio"] = (out["stripes_dispatched"] / out["slots_dispatched"]
+                         if out["slots_dispatched"] else 0.0)
+    for name, key in (("queue_wait_seconds", "queue_wait_ms"),
+                      ("dispatch_seconds", "dispatch_ms")):
+        n = out[f"{name}_n"]
+        out[key] = 1e3 * out[name] / n if n else 0.0
+    return out
+
+
+@contextlib.contextmanager
+def codec_route(service: bool):
+    """The enclosed phase takes the shared codec service (the default) or,
+    with OZONE_TPU_CODEC_SERVICE=0, the direct route."""
+    old = os.environ.get("OZONE_TPU_CODEC_SERVICE")
+    os.environ["OZONE_TPU_CODEC_SERVICE"] = "1" if service else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("OZONE_TPU_CODEC_SERVICE")
+        else:
+            os.environ["OZONE_TPU_CODEC_SERVICE"] = old
+
+
 class Cluster:
     """In-process port datanodes and a naive group allocator that takes the
     first k+p of them. The client factory raises for a node in `dead`, as
@@ -309,8 +423,10 @@ class Cluster:
             dn.close()
 
 
-def put_keys(cluster: Cluster, keys: list[np.ndarray], device, bpc: int):
-    """PUT every key on its own thread; returns (groups per key, writers)."""
+def put_keys(cluster: Cluster, keys: list[np.ndarray], device, bpc: int,
+             barrier: threading.Barrier | None = None):
+    """PUT every key on its own thread; returns (groups per key, writers).
+    With a barrier, every writer's close() starts together."""
     from ozone_tpu_torch.client.ec_writer import ECKeyWriter
 
     results: list = [None] * len(keys)
@@ -323,9 +439,13 @@ def put_keys(cluster: Cluster, keys: list[np.ndarray], device, bpc: int):
             data = keys[i]
             for pos in range(0, data.size, 4 * MIB):  # a client's write calls
                 w.write(data[pos:pos + 4 * MIB])
+            if barrier is not None:
+                barrier.wait(timeout=300)
             results[i] = (w.close(), w)
         except BaseException as e:  # reported and re-raised by the caller
             errors.append(e)
+            if barrier is not None:
+                barrier.abort()
 
     threads = [threading.Thread(target=put, args=(i,)) for i in range(len(keys))]
     for t in threads:
@@ -405,37 +525,114 @@ def verify_keys(cluster: Cluster, keys, groups_per_key, device, bpc: int,
     return {"chunks": chunks, "verified": verified, "partial": partial}
 
 
-def main_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
+def put_run(device, opts, keys, bpc: int, seed: int, route: str, what: str,
+            barrier: bool = False) -> dict:
+    """PUT `keys` concurrently into a fresh cluster of k+p datanodes on
+    `route` ("service" or "direct") and check every chunk against the
+    source and the plain version. On the service, launches equal the
+    service's dispatches; on the direct route, the writers' submissions."""
     from ozone_tpu_torch.codec import fused_kernel
+
+    total = sum(int(k.size) for k in keys)
+    with codec_route(route == "service"), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        cluster = Cluster(Path(tmp), opts, opts.all_units)
+        try:
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since, t0 = time.time(), time.perf_counter()
+            groups, writers = put_keys(
+                cluster, keys, device, bpc,
+                barrier=threading.Barrier(len(keys)) if barrier else None)
+            wall = time.perf_counter() - t0
+            launches = fused_kernel.launches.count
+            svc = service_delta(before)
+            spans = span_totals(since)
+            submissions = sum(w.dispatches for w in writers)
+            checked = verify_keys(cluster, keys, groups, device, bpc, seed, 64)
+        finally:
+            cluster.close()
+    print(f"{what} ({route}): {len(keys)} concurrent {opts} PUTs, {total} B in "
+          f"{wall:.3f} s = {total / wall / 2**30:.3f} GiB/s, {len(keys) / wall:.1f} PUTs/s "
+          f"(wall); kernel launches {launches}, writer submissions {submissions}; service "
+          f"dispatches {svc['dispatches']}, multi_op_dispatches "
+          f"{svc['multi_op_dispatches']}, fill_ratio {svc['fill_ratio']:.3f}, queue wait "
+          f"{svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms (means); "
+          f"{checked['chunks']} chunks byte-exact")
+    print(f"{what} ({route}) spans: {spans}")
+    dispatches = svc["dispatches"] if route == "service" else submissions
+    if svc["submissions"] != (submissions if route == "service" else 0):
+        raise AssertionError(f"{what} ({route}): {svc['submissions']} service submissions "
+                             f"for {submissions} writer submissions")
+    if device.type == "cuda" and (launches <= 0 or launches != dispatches):
+        raise AssertionError(f"{what} ({route}): {launches} kernel launches for "
+                             f"{dispatches} dispatches")
+    if checked["verified"] < 64:
+        raise AssertionError("too few chunks verified")
+    return {"launches": launches, "dispatches": dispatches, "submissions": submissions,
+            "multi_op": svc["multi_op_dispatches"], "fill_ratio": svc["fill_ratio"],
+            "gib_s": total / wall / 2**30, "puts_s": len(keys) / wall,
+            "partial": checked["partial"]}
+
+
+#: route order of a paired comparison in one call, after one unmeasured
+#: run on each route (the first runs pay for new pinned and device
+#: memory): the direct route against the service, alternated
+WARMUP, ROUTES = ("service", "direct"), ("direct", "service", "service", "direct")
+
+
+def compare_routes(device, opts, keys, bpc: int, seed: int, what: str,
+                   barrier: bool = False) -> dict:
+    """The warm-up runs, then the paired runs; {route: [run, ...]} of the
+    paired runs, and "warmup": [run, ...]."""
+    warm = [put_run(device, opts, keys, bpc, seed, route, f"{what} warm-up", barrier)
+            for route in WARMUP]
+    runs = [put_run(device, opts, keys, bpc, seed, route, what, barrier)
+            for route in ROUTES]
+    out = {route: [r for r, name in zip(runs, ROUTES) if name == route]
+           for route in ("service", "direct")}
+    out["warmup"] = warm
+    return out
+
+
+def main_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
+    """Concurrent RS(6,3) PUTs of the same keys into a fresh cluster, on the
+    direct route and on the shared codec service, alternated."""
     from ozone_tpu_torch.codec.api import CoderOptions
 
     opts = CoderOptions(6, 3, "rs", cell_size=cell)
     rng = np.random.default_rng(seed)
     keys = [rng.integers(0, 256, n, dtype=np.uint8) for n in key_sizes]
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        cluster = Cluster(Path(tmp), opts, opts.all_units)
-        try:
-            fused_kernel.launches.reset()
-            t0 = time.perf_counter()
-            groups, writers = put_keys(cluster, keys, device, bpc)
-            wall = time.perf_counter() - t0
-            launches = fused_kernel.launches.count
-            dispatches = sum(w.dispatches for w in writers)
-            disk = sum(f.stat().st_size for f in Path(tmp).rglob("*.block"))
-            checked = verify_keys(cluster, keys, groups, device, bpc, seed, 64)
-        finally:
-            cluster.close()
-    total = sum(key_sizes)
-    print(f"main path: {len(keys)} concurrent rs-6-3 PUTs, {total} B of user data "
-          f"in {wall:.3f} s = {total / wall / 2**30:.3f} GiB/s (wall); "
-          f"kernel launches {launches}, writer dispatches {dispatches}; "
-          f"{disk} B of chunk files on disk; {checked['chunks']} chunks read back, "
-          f"{checked['verified']} verified ({checked['partial']} partial)")
-    if device.type == "cuda" and (launches <= 0 or launches != dispatches):
-        raise AssertionError(f"{launches} kernel launches for {dispatches} dispatches")
-    if checked["verified"] < 64 or not checked["partial"]:
-        raise AssertionError("too few chunks verified")
-    return {"launches": launches, "dispatches": dispatches, "wall_s": wall}
+    out = compare_routes(device, opts, keys, bpc, seed, "main path")
+    if not all(r["partial"] for runs in out.values() for r in runs):
+        raise AssertionError("no partial chunk was verified")
+    return out
+
+
+def small_puts(device, n_keys: int, key_size: int, cell: int, bpc: int,
+               seed: int) -> dict:
+    """Many small concurrent RS(6,3) PUTs: each key is one full stripe and a
+    short tail, both flushed at close() as one partial batch, and every
+    close() starts behind one barrier, so on the service the tails reach
+    it within its linger and share launches. The direct route, alternated
+    with it, launches once per PUT."""
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.pipeline import host_buffer
+
+    opts = CoderOptions(6, 3, "rs", cell_size=cell)
+    rng = np.random.default_rng(seed + 2)
+    keys = [rng.integers(0, 256, key_size, dtype=np.uint8) for _ in range(n_keys)]
+    # the pinned pool of a long-running client already holds blocks of the
+    # staging size; without them the first allocations spread the closes
+    warm = [host_buffer((2, opts.data_units, cell), device) for _ in range(n_keys)]
+    del warm
+    out = compare_routes(device, opts, keys, bpc, seed, "small PUTs", barrier=True)
+    for r in out["service"]:
+        if r["multi_op"] <= 0 or not r["dispatches"] < r["submissions"]:
+            raise AssertionError(f"small PUTs: {r['dispatches']} service dispatches for "
+                                 f"{r['submissions']} submissions, {r['multi_op']} "
+                                 "carrying more than one PUT")
+    return out
 
 
 def read_groups(cluster: Cluster, keys, groups_per_key, device, bpc: int,
@@ -504,12 +701,19 @@ def span_totals(since: float) -> str:
     return ", ".join(f"{name} {n} x {secs:.3f} s" for name, (n, secs) in sorted(totals.items()))
 
 
-def check_launches(what: str, device, launches: int, dispatches: int) -> None:
-    """On the card, every decode dispatch is one kernel launch, and the
-    path launched at least once."""
-    print(f"{what}: decode launches {launches}, decode dispatches {dispatches}")
-    if device.type == "cuda" and (launches <= 0 or launches != dispatches):
-        raise AssertionError(f"{what}: {launches} kernel launches for {dispatches} dispatches")
+def check_launches(what: str, device, launches: int, svc: dict, submissions: int) -> None:
+    """The service saw every decode submission of the path and dispatched
+    them in at most as many launches; on the card every service dispatch
+    is one kernel launch, and the path launched at least once."""
+    print(f"{what}: decode launches {launches}, decode submissions {submissions}, "
+          f"service dispatches {svc['dispatches']} (multi_op_dispatches "
+          f"{svc['multi_op_dispatches']})")
+    if svc["submissions"] != submissions or svc["dispatches"] > submissions:
+        raise AssertionError(f"{what}: {svc['submissions']} service submissions, "
+                             f"{svc['dispatches']} dispatches for {submissions} submissions")
+    if device.type == "cuda" and (launches <= 0 or launches != svc["dispatches"]):
+        raise AssertionError(f"{what}: {launches} kernel launches for "
+                             f"{svc['dispatches']} service dispatches")
 
 
 def check_rebuilt(cluster: Cluster, groups, lost, spares, bpc: int) -> dict:
@@ -518,7 +722,7 @@ def check_rebuilt(cluster: Cluster, groups, lost, spares, bpc: int) -> dict:
     equal to the host CRC32C of its bytes."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ozone_tpu_torch.storage.ids import ContainerState
+    from ozone_tpu_torch.storage.ids import ContainerState, StorageError
     from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
 
     host = Checksum(ChecksumType.CRC32C, bpc)
@@ -531,13 +735,17 @@ def check_rebuilt(cluster: Cluster, groups, lost, spares, bpc: int) -> dict:
             if c.state is not ContainerState.CLOSED or c.replica_index != u + 1:
                 raise AssertionError(f"rebuilt container {g.container_id} on {spare} is "
                                      f"{c.state.value}, replica index {c.replica_index}")
-            sblk, dblk = src.get_block(g.block_id), dst.get_block(g.block_id)
-            if [(i.offset, i.length) for i in sblk.chunks] != \
+            try:
+                schunks = src.get_block(g.block_id).chunks
+            except StorageError:  # a unit holding no bytes of a short group
+                schunks = []
+            dblk = dst.get_block(g.block_id)
+            if [(i.offset, i.length) for i in schunks] != \
                     [(i.offset, i.length) for i in dblk.chunks]:
                 raise AssertionError(f"rebuilt chunk list of {g.block_id} unit {u} differs")
             per_target[spare] += dblk.length
             pairs += [(src, dst, g.block_id, si, di)
-                      for si, di in zip(sblk.chunks, dblk.chunks)]
+                      for si, di in zip(schunks, dblk.chunks)]
 
     def check(pair):
         src, dst, bid, si, di = pair
@@ -558,8 +766,9 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
     the first 14), read every group healthy, then with the datanodes of
     units 0 and 1 down (whole and ranged), rebuild replica indexes 1 and 2
     of every container onto the two spares, and read again through the
-    rebuilt replicas with units 2 and 3 down. Kernel launches are counted
-    from 0 for each run."""
+    rebuilt replicas with units 2 and 3 down, all on the shared codec
+    service. Kernel launches are counted from 0 for each run and must equal
+    the service's dispatches in it."""
     from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.codec.api import CoderOptions
     from ozone_tpu_torch.storage.reconstruction import (
@@ -575,14 +784,19 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-rr-") as tmp:
         cluster = Cluster(Path(tmp), opts, 16)
         try:
+            before = service_counts()
             fused_kernel.launches.reset()
             groups_per_key, writers = put_keys(cluster, keys, device, bpc)
             out["put_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
             groups = [g for gs in groups_per_key for g in gs]
             total = sum(key_sizes)
             print(f"read/repair: rs-10-4 PUT of {len(keys)} keys, {total} B, "
                   f"{len(groups)} block groups on 14 of 16 datanodes; encode launches "
-                  f"{out['put_launches']} for {sum(w.dispatches for w in writers)} dispatches")
+                  f"{out['put_launches']} for {svc['dispatches']} service dispatches of "
+                  f"{sum(w.dispatches for w in writers)} writer submissions")
+            if device.type == "cuda" and out["put_launches"] != svc["dispatches"]:
+                raise AssertionError("rs-10-4 PUT: launches differ from service dispatches")
 
             fused_kernel.launches.reset()
             since = time.time()
@@ -599,23 +813,26 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
                   f"{unverified['bytes'] / unverified['wall_s'] / 2**30:.3f} GiB/s (wall)")
 
             cluster.dead = {groups[0].pipeline.nodes[u] for u in lost}
+            before = service_counts()
             fused_kernel.launches.reset()
             since = time.time()
             degraded = read_groups(cluster, keys, groups_per_key, device, bpc)
             out["degraded_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
             print(f"degraded GET spans: {span_totals(since)}")
             print(f"degraded GET (units {lost} down): "
                   f"{degraded['bytes'] / degraded['wall_s'] / 2**30:.3f} GiB/s (wall), "
                   f"{degraded['bytes']} B byte-exact in {degraded['wall_s']:.3f} s")
-            check_launches("degraded GET", device, out["degraded_launches"],
+            check_launches("degraded GET", device, out["degraded_launches"], svc,
                            degraded["dispatches"])
 
+            before = service_counts()
             fused_kernel.launches.reset()
             ranged = ranged_reads(cluster, keys, groups_per_key, device, bpc)
             out["ranged_launches"] = fused_kernel.launches.count
             print(f"ranged degraded reads: {ranged['ranges']} ranges byte-exact")
             check_launches("ranged degraded reads", device, out["ranged_launches"],
-                           ranged["dispatches"])
+                           service_delta(before), ranged["dispatches"])
 
             coord = ECReconstructionCoordinator(cluster.clients, bytes_per_checksum=bpc,
                                                 device=device)
@@ -623,12 +840,14 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
                 g.container_id, opts,
                 {u + 1: n for u, n in enumerate(g.pipeline.nodes) if u not in lost},
                 {u + 1: spare for u, spare in zip(lost, spares)}) for g in groups]
+            before = service_counts()
             fused_kernel.launches.reset()
             since, t0 = time.time(), time.perf_counter()
             for cmd in cmds:
                 coord.reconstruct_container_group(cmd)
             repair_s = time.perf_counter() - t0
             out["repair_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
             print(f"repair spans: {span_totals(since)}")
             rebuilt = check_rebuilt(cluster, groups, lost, spares, bpc)
             per_target = statistics.mean(rebuilt["per_target"].values())
@@ -637,20 +856,23 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
                   f"{per_target / repair_s / MIB:.1f} MiB/s per target datanode (wall), "
                   f"{per_target:.0f} B per target; {rebuilt['chunks']} rebuilt chunks "
                   f"({rebuilt['partial']} partial) equal the lost ones, CRCs equal host CRC32C")
-            check_launches("repair", device, out["repair_launches"],
+            check_launches("repair", device, out["repair_launches"], svc,
                            coord.metrics.counter("decode_dispatches").value)
 
             for g in groups:
                 for u, spare in zip(lost, spares):
                     g.pipeline.nodes[u] = spare
             cluster.dead = {groups[0].pipeline.nodes[u] for u in (2, 3)}
+            before = service_counts()
             fused_kernel.launches.reset()
             reread = read_groups(cluster, keys, groups_per_key, device, bpc)
             out["reread_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
             print(f"re-read through the rebuilt replicas (units [2, 3] down): "
                   f"{reread['bytes'] / reread['wall_s'] / 2**30:.3f} GiB/s (wall), "
                   f"byte-exact")
-            check_launches("re-read", device, out["reread_launches"], reread["dispatches"])
+            check_launches("re-read", device, out["reread_launches"], svc,
+                           reread["dispatches"])
         finally:
             cluster.close()
     out["decode_launches"] = sum(out[k] for k in ("degraded_launches", "ranged_launches",
@@ -659,6 +881,219 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
                degraded_gib_s=degraded["bytes"] / degraded["wall_s"] / 2**30,
                repair_mib_s_per_target=per_target / repair_s / MIB)
     return out
+
+
+@contextlib.contextmanager
+def spy_reads(cluster: Cluster):
+    """Count the bytes each datanode serves through its client while the
+    block runs (`read_chunks` goes through the spied `read_chunk`)."""
+    served: dict[str, int] = {}
+    lock = threading.Lock()
+    clients = list(cluster.clients._local.items())
+
+    def spied(dn_id, fn):
+        def read_chunk(*a, **kw):
+            data = fn(*a, **kw)
+            with lock:
+                served[dn_id] = served.get(dn_id, 0) + int(data.size)
+            return data
+        return read_chunk
+
+    for dn_id, c in clients:
+        c.read_chunk = spied(dn_id, c.read_chunk)
+    try:
+        yield served
+    finally:
+        for _, c in clients:
+            del c.read_chunk
+
+
+def degraded_lrc_get(cluster: Cluster, keys, groups_per_key, device, bpc: int,
+                     down: list[int], what: str) -> dict:
+    """read_all of every group with the datanodes of units `down` out, on
+    the service; byte-exact, and launches equal the service's dispatches."""
+    from ozone_tpu_torch.codec import fused_kernel
+
+    cluster.dead = {groups_per_key[0][0].pipeline.nodes[u] for u in down}
+    before = service_counts()
+    fused_kernel.launches.reset()
+    got = read_groups(cluster, keys, groups_per_key, device, bpc)
+    launches = fused_kernel.launches.count
+    print(f"lrc {what} GET (units {down} down): "
+          f"{got['bytes'] / got['wall_s'] / 2**30:.3f} GiB/s (wall), {got['bytes']} B "
+          f"byte-exact in {got['wall_s']:.3f} s")
+    check_launches(f"lrc {what} GET", device, launches, service_delta(before),
+                   got["dispatches"])
+    cluster.dead = set()
+    return {"launches": launches, "gib_s": got["bytes"] / got["wall_s"] / 2**30}
+
+
+def lrc_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
+    """LRC(12,2,2) on 18 datanodes (16 units, 2 spares), all on the shared
+    codec service: concurrent PUTs, a healthy GET (no decode), degraded
+    GETs with unit 2 down (local repair: each decode reads only unit 2's
+    group), unit 0 down (in a short group, a local repair over known-zero
+    units) and units 0 and 1 down (global decode), a rebuild of replica
+    index 3 (unit 2) of every container onto a spare, then the device
+    scrubber over the datanodes."""
+    from ozone_tpu_torch.client.ec_reader import ECBlockGroupReader
+    from ozone_tpu_torch.codec import fused_kernel, lrc_math
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.storage.reconstruction import (
+        ECReconstructionCoordinator,
+        ReconstructionCommand,
+    )
+
+    opts = CoderOptions.parse(f"lrc-12-2-2-{cell}")
+    rng = np.random.default_rng(seed + 3)
+    keys = [rng.integers(0, 256, n, dtype=np.uint8) for n in key_sizes]
+    out = {}
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-lrc-") as tmp:
+        cluster = Cluster(Path(tmp), opts, 18)
+        try:
+            before = service_counts()
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+            groups_per_key, writers = put_keys(cluster, keys, device, bpc)
+            put_s = time.perf_counter() - t0
+            out["put_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            groups = [g for gs in groups_per_key for g in gs]
+            checked = verify_keys(cluster, keys, groups_per_key, device, bpc, seed, 64)
+            print(f"lrc: lrc-12-2-2 PUT of {len(keys)} keys, {sum(key_sizes)} B in "
+                  f"{put_s:.3f} s = {sum(key_sizes) / put_s / 2**30:.3f} GiB/s (wall), "
+                  f"{len(groups)} block groups on 16 of 18 datanodes; encode launches "
+                  f"{out['put_launches']} for {svc['dispatches']} service dispatches of "
+                  f"{sum(w.dispatches for w in writers)} writer submissions; "
+                  f"{checked['chunks']} chunks equal the source and the plain version")
+            if device.type == "cuda" and (out["put_launches"] <= 0
+                                          or out["put_launches"] != svc["dispatches"]):
+                raise AssertionError("lrc PUT: launches differ from service dispatches")
+
+            fused_kernel.launches.reset()
+            healthy = read_groups(cluster, keys, groups_per_key, device, bpc)
+            print(f"lrc healthy GET: {healthy['bytes'] / healthy['wall_s'] / 2**30:.3f} "
+                  f"GiB/s (wall), decode launches {fused_kernel.launches.count}")
+            if fused_kernel.launches.count or healthy["dispatches"]:
+                raise AssertionError("a healthy lrc read decoded")
+
+            nodes = groups[0].pipeline.nodes
+            scope = {nodes[u] for u in lrc_math.group_scope(opts, 0)} - {nodes[2]}
+            out["local"] = degraded_lrc_get(cluster, keys, groups_per_key, device, bpc,
+                                            [2], "local")
+            cluster.dead = {nodes[2]}
+            for g in groups:
+                reader = ECBlockGroupReader(g, opts, cluster.clients,
+                                            bytes_per_checksum=bpc, device=device)
+                with spy_reads(cluster) as served:
+                    reader.recover_cells([2])
+                if not set(served) <= scope or (g.length >= 12 * cell
+                                                and len(served) != 6):
+                    raise AssertionError(f"local repair of unit 2 in {g.block_id} read "
+                                         f"{sorted(served)}, not its group {sorted(scope)}")
+            cluster.dead = set()
+            print(f"lrc local repair: every decode of unit 2 read only the datanodes of "
+                  f"its group ({len(scope)})")
+            out["short"] = degraded_lrc_get(cluster, keys, groups_per_key, device, bpc,
+                                            [0], "local (unit 0, short group over "
+                                            "known-zero units)")
+            out["global"] = degraded_lrc_get(cluster, keys, groups_per_key, device, bpc,
+                                             [0, 1], "global")
+
+            cluster.dead = {nodes[2]}
+            coord = ECReconstructionCoordinator(cluster.clients, bytes_per_checksum=bpc,
+                                                device=device)
+            cmds = [ReconstructionCommand(
+                g.container_id, opts,
+                {u + 1: n for u, n in enumerate(g.pipeline.nodes) if u != 2},
+                {3: "dn16"}) for g in groups]
+            before = service_counts()
+            fused_kernel.launches.reset()
+            with spy_reads(cluster) as served:
+                t0 = time.perf_counter()
+                for cmd in cmds:
+                    coord.reconstruct_container_group(cmd)
+                repair_s = time.perf_counter() - t0
+            out["repair_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            rebuilt = check_rebuilt(cluster, groups, [2], ["dn16"], bpc)
+            target = rebuilt["per_target"]["dn16"]
+            read_bytes = sum(served.values())
+            print(f"lrc repair: {len(cmds)} containers, replica index 3 onto dn16 in "
+                  f"{repair_s:.3f} s: {target / repair_s / MIB:.1f} MiB/s per target "
+                  f"datanode (wall), {target} B rebuilt; {read_bytes} B read from "
+                  f"{len(served)} datanodes = {read_bytes / target:.3f} B read per rebuilt "
+                  f"B; {rebuilt['chunks']} rebuilt chunks ({rebuilt['partial']} partial) "
+                  f"equal the lost ones, CRCs equal host CRC32C")
+            if not set(served) <= scope:
+                raise AssertionError(f"the repair read {sorted(served)}, outside unit 2's "
+                                     "group")
+            check_launches("lrc repair", device, out["repair_launches"], svc,
+                           coord.metrics.counter("decode_dispatches").value)
+            cluster.dead = set()
+            out.update(repair_mib_s_per_target=target / repair_s / MIB,
+                       read_per_rebuilt=read_bytes / target)
+            out["scrub"] = scrub_path(cluster, device, groups)
+        finally:
+            cluster.close()
+    out["decode_launches"] = sum(out[k]["launches"] for k in ("local", "short", "global")) \
+        + out["repair_launches"]
+    return out
+
+
+def scrub_path(cluster: Cluster, device, groups) -> dict:
+    """Close every container, scrub every datanode on the device (no
+    errors), then flip one byte of one chunk file: the scrubber reports
+    exactly that slice, the replica goes UNHEALTHY, and the host scan names
+    the same chunk."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.storage.ids import ContainerState
+    from ozone_tpu_torch.storage.scrubber import SCANNABLE_STATES, DeviceScrubber
+
+    scrubbed = 0
+    for dn in cluster.dns.values():
+        for c in dn.list_containers():
+            if c.state is ContainerState.OPEN:
+                dn.close_container(c.id)
+            if c.state in SCANNABLE_STATES:
+                scrubbed += sum(i.length for b in c.list_blocks() for i in b.chunks)
+    scrubber = DeviceScrubber(device=device)
+    fused_kernel.launches.reset()
+    t0 = time.perf_counter()
+    found = {dn_id: scrubber.scrub_all(dn) for dn_id, dn in cluster.dns.items()}
+    wall = time.perf_counter() - t0
+    launches = fused_kernel.launches.count
+    print(f"scrub: {len(cluster.dns)} datanodes, {scrubbed} B of chunks in {wall:.3f} s = "
+          f"{scrubbed / wall / 2**30:.3f} GiB/s (wall); kernel launches {launches}, "
+          f"scrub dispatches {scrubber.dispatches}")
+    if any(found.values()):
+        raise AssertionError(f"the scrubber found errors in healthy containers: {found}")
+    if device.type == "cuda" and (launches <= 0 or launches != scrubber.dispatches):
+        raise AssertionError(f"scrub: {launches} kernel launches for "
+                             f"{scrubber.dispatches} dispatches")
+
+    g = max(groups, key=lambda grp: grp.length)
+    dn = cluster.dns[g.pipeline.nodes[5]]
+    info = dn.get_block(g.block_id).chunks[3]
+    bpc = info.checksum.bytes_per_checksum
+    sl = min(7, info.length // bpc - 1)
+    path = dn.containers.get(g.container_id).chunks.block_path(g.block_id)
+    with open(path, "r+b") as f:
+        f.seek(info.offset + sl * bpc + 100)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x5A]))
+    errors = scrubber.scrub_container(dn, g.container_id)
+    want = f"{g.block_id}/{info.name}: crc mismatch at slice {sl}"
+    state = dn.containers.get(g.container_id).state
+    host = dn.scan_container(g.container_id)
+    print(f"scrub of one flipped byte: {errors}; container {state.value}; host scan: {host}")
+    if errors != [want] or state is not ContainerState.UNHEALTHY:
+        raise AssertionError(f"scrub reported {errors} ({state.value}), want [{want!r}]")
+    if [e.split(":")[0] for e in host] != [want.split(":")[0]]:
+        raise AssertionError(f"the host scan reported {host}")
+    return {"launches": launches, "gib_s": scrubbed / wall / 2**30,
+            "dispatches": scrubber.dispatches}
 
 
 def main() -> int:
@@ -690,43 +1125,73 @@ def main() -> int:
         smem, per_sm = fused_kernel.kernel_occupancy(k, p, 16 * 1024, k + p)
         print(f"fused_encode_crc rs-{k}-{p} bpc=16384: {smem} B shared memory per "
               f"block, {per_sm} blocks per SM")
+    bpc = 16 * 1024
     cases = [
-        (6, 3, MIB, 16 * 1024, 8, "CRC32C"),
-        (6, 3, MIB, 16 * 1024, 8, "CRC32"),
-        (10, 4, MIB, 16 * 1024, 4, "CRC32C"),
+        (6, 3, MIB, bpc, 8, "CRC32C"),
+        (6, 3, MIB, bpc, 8, "CRC32"),
+        (10, 4, MIB, bpc, 4, "CRC32C"),
         (3, 2, MIB, MIB, 4, "CRC32C"),  # one slice per cell, many tiles
-        (6, 3, MIB, 16 * 1024, 1, "NONE"),
-        (20, 4, MIB, 16 * 1024, 2, "CRC32C"),
+        (6, 3, MIB, bpc, 1, "NONE"),
+        (20, 4, MIB, bpc, 2, "CRC32C"),
         (6, 3, 4800, 480, 3, "CRC32C"),  # 512-byte tile, padded front
         (6, 3, 4800, 100, 3, "CRC32"),  # slice not a multiple of 16: byte path
-        (6, 3, MIB, 16 * 1024, 4, "CRC32C", False),  # decode form: outputs only
-        (6, 0, MIB, 16 * 1024, 4, "CRC32C"),  # p = 0: plain slice CRC
+        (6, 3, MIB, bpc, 4, "CRC32C", False),  # decode form: outputs only
+        (6, 0, MIB, bpc, 4, "CRC32C"),  # p = 0: plain slice CRC
+        (12, 4, MIB, bpc, 8, "CRC32C", True, "lrc-12-2-2"),  # LRC encode, [4, 12]
+        (1, 0, bpc, bpc, 4096, "CRC32C"),  # the scrubber's batch at its 64 MiB cap
+        (1, 0, bpc, bpc, 1024, "CRC32C"),  # the scrub of one 16 MiB container
     ]
     err = check_kernel_cases(device, cases, args.seed)
-    decode_cases = [  # (k, p, valid, erased, cell, bpc, B, checksum)
-        (10, 4, list(range(2, 12)), [0, 1], MIB, 16 * 1024, 8, "CRC32C"),
-        (6, 3, [0, 1, 3, 4, 5, 6], [2, 7], MIB, 16 * 1024, 8, "CRC32C"),
-        (10, 4, [0, 1, 2, 4, 5, 6, 7, 8, 9, 13], [3], MIB, 16 * 1024, 1, "CRC32C"),
-        (10, 4, list(range(4, 14)), [0, 1, 2, 3], MIB, 16 * 1024, 2, "NONE"),
+    from ozone_tpu_torch.codec import lrc_math
+    from ozone_tpu_torch.codec.api import CoderOptions
+
+    def lrc_read_set(erased):
+        return lrc_math.plan_valid(CoderOptions.parse("lrc-12-2-2"), erased,
+                                   [u for u in range(16) if u not in erased])[0]
+
+    decode_cases = [  # (scheme, valid, erased, cell, bpc, B, checksum)
+        ("rs-10-4", list(range(2, 12)), [0, 1], MIB, bpc, 8, "CRC32C"),
+        ("rs-6-3", [0, 1, 3, 4, 5, 6], [2, 7], MIB, bpc, 8, "CRC32C"),
+        ("rs-10-4", [0, 1, 2, 4, 5, 6, 7, 8, 9, 13], [3], MIB, bpc, 1, "CRC32C"),
+        ("rs-10-4", list(range(4, 14)), [0, 1, 2, 3], MIB, bpc, 2, "NONE"),
+        # LRC local repair: [1, 6], the register-held k = 6 instance
+        ("lrc-12-2-2", lrc_read_set([2]), [2], MIB, bpc, 8, "CRC32C"),
+        # one loss in each group: [2, 12]
+        ("lrc-12-2-2", lrc_read_set([2, 8]), [2, 8], MIB, bpc, 8, "CRC32C"),
+        # global: two data units and their group's local parity, pruned columns
+        ("lrc-12-2-2", lrc_read_set([0, 1, 12]), [0, 1, 12], MIB, bpc, 8, "CRC32C"),
     ]
     err = max(err, check_decode_cases(device, decode_cases, args.seed))
-    timed = time_kernel(device, 6, 3, MIB, 16 * 1024, 8, args.seed, plain=True)
-    time_kernel(device, 6, 3, MIB, 16 * 1024, 128, args.seed, plain=False)
-    time_parts(device, 6, 3, MIB, 16 * 1024, 128, args.seed)
-    decode = time_decode(device, MIB, 16 * 1024, 8, args.seed)
+    timed = time_kernel(device, 6, 3, MIB, bpc, 8, args.seed, plain=True)
+    time_kernel(device, 6, 3, MIB, bpc, 128, args.seed, plain=False)
+    time_parts(device, 6, 3, MIB, bpc, 128, args.seed)
+    decode = time_decode(device, MIB, bpc, 8, args.seed)
+    forms = time_lrc_and_scrub(device, MIB, bpc, args.seed)
     print("library_ms: none; no single PyTorch call computes a GF(2^8) "
           "matrix apply with slice CRCs")
 
-    launches = None
+    launches = paths = None
     if not args.kernel_only:
         put = main_path(device, [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7],
-                        MIB, 16 * 1024, args.seed)
-        rr = read_repair_path(device, [320 * MIB, 161 * MIB + 12345], MIB, 16 * 1024,
+                        MIB, bpc, args.seed)
+        small = small_puts(device, 32, 6 * MIB + 4096, MIB, bpc, args.seed)
+        rr = read_repair_path(device, [320 * MIB, 161 * MIB + 12345], MIB, bpc,
                               args.seed)
-        launches = put["launches"] + rr["put_launches"] + rr["decode_launches"]
-        print(f"kernel launches on the main paths: {launches} (rs-6-3 PUT "
-              f"{put['launches']}, rs-10-4 PUT {rr['put_launches']}, decode "
-              f"{rr['decode_launches']})")
+        lrc = lrc_path(device, [384 * MIB, MIB + 12345], MIB, bpc, args.seed)
+        paths = {
+            f"rs63_{name}_{route}": sum(r["launches"] for r in runs[route])
+            for name, runs in (("put", put), ("small_puts", small))
+            for route in ("service", "direct", "warmup")}
+        paths.update({
+            "rs104_put": rr["put_launches"], "rs104_decode": rr["decode_launches"],
+            "lrc_put": lrc["put_launches"], "lrc_decode": lrc["decode_launches"],
+            "scrub": lrc["scrub"]["launches"],
+        })
+        launches = sum(paths.values())
+        print(f"kernel launches on the main paths: {launches} {paths}")
+    from ozone_tpu_torch.codec import service as codec_service
+
+    codec_service.reset_for_tests()  # stops the service's dispatcher thread
     print(json.dumps({"kernels": [{
         "name": "fused_encode_crc", "route": "cuda",
         "source": "ozone_tpu_torch/csrc/fused_encode_crc.cu",
@@ -737,6 +1202,9 @@ def main() -> int:
         "library_ms": None,
         "decode_ms": decode["ms"], "decode_ms_in_run": decode["ms_in_run"],
         "decode_plain_ms": decode["plain_ms"], "decode_bound_ms": decode["bound_ms"],
+        **{f"{form}_{key}": value for form, timing in forms.items()
+           for key, value in timing.items()},
+        "launches_by_path": paths,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,22 @@
 """EC block-group read paths: normal, degraded, and targeted recovery.
 
-Port of `ozone_tpu/client/ec_reader.py` on its per-operation path (the
-path the JAX reader takes with the shared codec service off and no mesh).
-It mirrors the reference's read stack: round-robin cell reads from the k
-data blocks, falling back to reading any k of the k+p units and decoding
-the missing cells, and the targeted recovery that offline reconstruction
-drives (`recover_cells_iter`).
+Port of `ozone_tpu/client/ec_reader.py` on a single device (the mesh and
+mesh-executor routes wait for the port's multi-device slice). It mirrors
+the reference's read stack: round-robin cell reads from the k data
+blocks, falling back to reading a decodable set of the other units and
+decoding the missing cells, and the targeted recovery that offline
+reconstruction drives (`recover_cells_iter`). For RS the read set is k
+units; for LRC the repair planner (`codec/lrc_math.plan_valid`) picks it,
+the lost unit's local group (group_size units) when one loss per group
+allows it.
 
 Degraded reads decode every needed stripe of the group in batches of
-`decode_batch_size()` stripes, one launch of the fused kernel each,
-through a depth-1 `DeviceBatchPipeline`: survivor reads of batch N+1 run
-while batch N decodes and its results come back to the host.
+`decode_batch_size()` stripes through a depth-1 pipeline: survivor reads
+of batch N+1 run while batch N decodes and its results come back to the
+host. By default the batches go to the shared codec service
+(`ServicePipeline`), where batches of concurrent reads with the same
+erasure pattern share launches; with OZONE_TPU_CODEC_SERVICE=0 each is
+one launch of its own (`DeviceBatchPipeline`).
 
 Straggler tolerance (client/resilience.py): survivor choice skips
 breaker-open peers, every read feeds the per-peer latency EWMA, and a
@@ -22,6 +28,7 @@ decode around a spare. First result wins; the loser's bytes are dropped.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -33,7 +40,8 @@ import numpy as np
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.client.ec_writer import BlockGroup, block_lengths
-from ozone_tpu_torch.codec import hostmem
+from ozone_tpu_torch.codec import hostmem, lrc_math
+from ozone_tpu_torch.codec import service as codec_service
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.codec.fused import FusedSpec, make_fused_decoder, resolve_device
 from ozone_tpu_torch.codec.pipeline import (
@@ -75,7 +83,8 @@ class _StragglerHedge(Exception):
 class ECBlockGroupReader:
     """Reads one block group. The decode runs on `device`: "cuda" launches
     the fused kernel (and raises when CUDA is absent), "cpu" runs its
-    plain version."""
+    plain version. `qos_class` is the codec service's scheduling class of
+    this reader's decode batches."""
 
     def __init__(
         self,
@@ -86,6 +95,7 @@ class ECBlockGroupReader:
         checksum: ChecksumType = ChecksumType.CRC32C,
         bytes_per_checksum: int = 16 * 1024,
         device="cuda",
+        qos_class: str = "interactive",
     ):
         self.group = group
         self.opts = options
@@ -98,6 +108,7 @@ class ECBlockGroupReader:
         self.verify = verify
         self.spec = FusedSpec(options, checksum, bytes_per_checksum)
         self.device = resolve_device(device)
+        self._qos = qos_class
         self._block_meta: dict[int, Optional[BlockData]] = {}
         self._read_pool: Optional[ThreadPoolExecutor] = None
         #: (unit, stripe) -> full-cell array, filled by _prefetch_unit's
@@ -113,8 +124,10 @@ class ECBlockGroupReader:
         #: operation deadline captured at the public entry points and
         #: re-activated on reader-pool worker threads
         self._deadline: Optional[resilience.Deadline] = None
-        #: decode batches dispatched (one fused launch each on CUDA),
-        #: the hedge's single-cell decodes included
+        #: decode batches submitted, the hedge's single-cell decodes
+        #: included: one fused launch each on the direct route; on the
+        #: service route they coalesce, so launches are the service's
+        #: dispatches
         self.dispatches = 0
         self._dispatch_lock = threading.Lock()  # hedges count from pool threads
 
@@ -398,22 +411,34 @@ class ECBlockGroupReader:
 
     def _decode_cell_traced(self, u: int, stripe: int) -> np.ndarray:
         if self.spec.options.codec == "lrc":
-            raise NotImplementedError("the lrc codec is not ported yet")
-        others = [x for x in self.available_units() if x != u]
-        nodes = self.group.pipeline.nodes
-        order = {dn: i for i, dn in enumerate(
-            self._health.preferred([nodes[x] for x in others]))}
-        valid = sorted(sorted(
-            others, key=lambda x: order.get(nodes[x], len(order)))[: self.k])
-        if len(valid) < self.k:
-            raise InsufficientLocationsError(
-                f"hedge decode needs {self.k} units, reachable: {valid}")
+            # the repair planner picks the read set (the local group's
+            # survivors when u is the only loss of its group)
+            valid = self._choose_valid([u])
+        else:
+            others = [x for x in self.available_units() if x != u]
+            nodes = self.group.pipeline.nodes
+            order = {dn: i for i, dn in enumerate(
+                self._health.preferred([nodes[x] for x in others]))}
+            valid = sorted(sorted(
+                others,
+                key=lambda x: order.get(nodes[x], len(order)))[: self.k])
+            if len(valid) < self.k:
+                raise InsufficientLocationsError(
+                    f"hedge decode needs {self.k} units, reachable: {valid}")
         fn = make_fused_decoder(self.spec, valid, [u], device=self.device)
         batch = host_buffer((1, len(valid), self.cell), self.device)
         for vi, x in enumerate(valid):
             batch.numpy()[0, vi] = self._peek_cell(x, stripe)
-        rec, _crcs = fn(batch)
+        svc = codec_service.maybe_service()
         self._count_dispatch()
+        if svc is not None:
+            # a lone stripe at width 1: no linger on the latency-critical
+            # hedge, but concurrent hedges still share one dispatcher
+            rec, _crcs = codec_service.wait_result(svc.submit(
+                codec_service.decode_key(self.spec, valid, (u,)), fn,
+                batch, width=1, qos=self._qos, deadline=self._deadline))
+            return rec[0, 0]
+        rec, _crcs = fn(batch)
         return rec[0, 0].cpu().numpy()
 
     def _count_dispatch(self) -> None:
@@ -460,9 +485,25 @@ class ECBlockGroupReader:
 
     # ------------------------------------------------------------- degraded
     def _choose_valid(self, erased: Sequence[int]) -> list[int]:
-        if self.spec.options.codec == "lrc":
-            raise NotImplementedError("the lrc codec is not ported yet")
         avail = [u for u in self.available_units() if u not in erased]
+        if self.spec.options.codec == "lrc":
+            # LRC: the repair planner classifies the pattern. One loss per
+            # group reads that group's survivors (group_size units, not
+            # k); anything else grows a minimal global read set. Health
+            # shapes only the preference order of the global path: usable
+            # peers first. A data unit holding no bytes of the group is
+            # available (known zeros), so a short group repairs locally.
+            nodes = self.group.pipeline.nodes
+            pref = sorted(avail)
+            usable = {u for u in pref if self._health.usable(nodes[u])}
+            if usable:
+                pref.sort(key=lambda u: u not in usable)  # stable
+            try:
+                valid, _kind = lrc_math.plan_valid(
+                    self.spec.options, list(erased), avail, prefer=pref)
+            except ValueError as e:
+                raise InsufficientLocationsError(str(e)) from None
+            return valid
         if len(avail) < self.k:
             raise InsufficientLocationsError(
                 f"need {self.k} units, reachable: {avail}, erased: {list(erased)}"
@@ -558,12 +599,13 @@ class ECBlockGroupReader:
         stripes = list(
             stripes if stripes is not None else range(self.num_stripes))
         valid = self._choose_valid(list(targets))
-        pipe = DeviceBatchPipeline(make_fused_decoder(
-            self.spec, valid, list(targets), device=self.device))
+        pipe = self._decode_pipe(valid, list(targets))
+        direct = isinstance(pipe, DeviceBatchPipeline)
         pool = self._ensure_pool()
         for sb in batched(stripes, self._decode_batch):
             # a fresh (pinned, on CUDA) buffer per batch: the previous one
-            # may still be in its copy to the device
+            # may still be in its copy to the device. Its width is the
+            # read set's, not k: an LRC local repair reads group_size units
             staged = host_buffer((len(sb), len(valid), self.cell), self.device)
             batch = staged.numpy()
 
@@ -578,16 +620,36 @@ class ECBlockGroupReader:
             # one reader thread per survivor unit: the k unit streams come
             # off k datanodes, so the fan-in costs the slowest, not the sum
             self._fanout_survivors(pool, fill_unit, valid, len(sb))
-            # the launch, and the wait for the previous batch's results
-            with Tracer.instance().span("codec:device_dispatch", rows=len(sb)):
+            # the launch (the service records its own dispatch spans),
+            # and the wait for the previous batch's results
+            with self._dispatch_span(direct, len(sb)):
                 out = pipe.submit(staged, sb)
             self._count_dispatch()
             if out is not None:
                 yield out
-        with Tracer.instance().span("codec:device_dispatch", rows=0):
+        with self._dispatch_span(direct, 0):
             out = pipe.drain()
         if out is not None:
             yield out
+
+    @staticmethod
+    def _dispatch_span(direct: bool, rows: int):
+        if not direct:
+            return contextlib.nullcontext()
+        return Tracer.instance().span("codec:device_dispatch", rows=rows)
+
+    def _decode_pipe(self, valid: list[int], targets: list[int]):
+        """The recovery dispatch pipeline: the shared codec service, where
+        this read's batches share launches with every other operation on
+        the same erasure pattern, or a per-operation pipeline when the
+        service is off."""
+        fn = make_fused_decoder(self.spec, valid, targets, device=self.device)
+        svc = codec_service.maybe_service()
+        if svc is not None:
+            return codec_service.ServicePipeline(
+                svc, codec_service.decode_key(self.spec, valid, targets),
+                fn, width=self._decode_batch, qos=self._qos)
+        return DeviceBatchPipeline(fn)
 
     # ---------------------------------------------------------------- ranged
     def read(self, offset: int, length: int) -> np.ndarray:

@@ -1,21 +1,24 @@
 """EC key write pipeline: cell accumulation -> batched device encode ->
 striped chunk writes -> run commit with rollback.
 
-Port of `ozone_tpu/client/ec_writer.py` on its direct-dispatch path (the
-path the JAX writer takes with the shared codec service off). Semantics
-are the reference's ECKeyOutputStream: 1 MiB cells round-robin striped
-over k data blocks, short final cells zero-padded for parity but written
-at true length, parity cells always full, commits carrying the
-block-group length, and on failure: finalize the group at the last acked
-stripe, exclude the failed nodes, allocate a fresh group and replay there.
+Port of `ozone_tpu/client/ec_writer.py`. Semantics are the reference's
+ECKeyOutputStream: 1 MiB cells round-robin striped over k data blocks,
+short final cells zero-padded for parity but written at true length,
+parity cells always full, commits carrying the block-group length, and on
+failure: finalize the group at the last acked stripe, exclude the failed
+nodes, allocate a fresh group and replay there.
 
-Complete stripes queue up and are encoded (and CRC'd) in one launch of
-the fused kernel per `stripe_batch` stripes. The batch goes to the card
-from pinned host memory; parity and CRCs come back with a non-blocking
-copy that is waited for only when the batch is written, so batch N's
-chunk writes overlap batch N+1's transfer and encode. Each run of stripes
-bound for one group travels as one WriteChunksCommit per unit: all the
-run's chunks plus the commit.
+Complete stripes queue up and are encoded (and CRC'd) by the fused kernel
+`stripe_batch` stripes at a time, staged in pinned host memory. By
+default a batch is submitted to the shared codec service
+(`codec/service.py`) at width `stripe_batch`, where stripes of concurrent
+PUTs coalesce into one launch; a partial final batch is marked as a tail
+and rides the service's linger. With OZONE_TPU_CODEC_SERVICE=0 each batch
+is one launch of its own, and its parity and CRCs come back with a
+non-blocking copy. Either way the batch's results are waited for only
+when it is written, so batch N's chunk writes overlap batch N+1's encode.
+Each run of stripes bound for one group travels as one WriteChunksCommit
+per unit: all the run's chunks plus the commit.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import inspect
 import logging
 import uuid
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -33,6 +36,7 @@ import torch
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.codec import hostmem
+from ozone_tpu_torch.codec import service as codec_service
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.codec.fused import (
     FusedSpec,
@@ -136,7 +140,8 @@ class ECKeyWriter:
     the allocation callback; close() returns the committed groups with
     their final lengths. The encode runs on `device`: "cuda" launches the
     fused kernel (and raises when CUDA is absent), "cpu" runs its plain
-    version.
+    version. `qos_class` is the codec service's scheduling class of this
+    writer's batches.
     """
 
     def __init__(
@@ -150,6 +155,7 @@ class ECKeyWriter:
         stripe_batch: int = 8,
         max_retries: int = 3,
         device="cuda",
+        qos_class: str = "interactive",
     ):
         self.opts = options
         self.k, self.p, self.cell = (
@@ -171,7 +177,10 @@ class ECKeyWriter:
         self._spec = FusedSpec(options, checksum, self.bpc)
         self._fused = make_fused_encoder(self._spec, device=self.device)
         self._host_checksum = Checksum(checksum, self.bpc)
-        #: encode batches dispatched (one fused launch each on CUDA)
+        self._qos = qos_class
+        #: encode batches submitted: one fused launch each on the direct
+        #: route; on the service route they coalesce, so launches are the
+        #: service's dispatches
         self.dispatches = 0
 
         self._groups: list[BlockGroup] = []
@@ -196,7 +205,8 @@ class ECKeyWriter:
         # one worker per unit stream: the k+p unit writes of a run go out
         # concurrently
         self._rpc_pool: Optional[ThreadPoolExecutor] = None
-        # the batch in flight: (stripes, start_pull's copies and event)
+        # the batch in flight: (stripes, the service's future or
+        # start_pull's copies and event)
         self._pending: Optional[tuple] = None
 
     # ------------------------------------------------------------------ write
@@ -230,16 +240,26 @@ class ECKeyWriter:
 
     # ------------------------------------------------------------------ flush
     def _flush_queue(self) -> None:
-        """Encode all queued stripes in one dispatch; the batch goes in
+        """Encode all queued stripes as one batch; the batch goes in
         flight and the previous in-flight batch is written now."""
         if not self._queue:
             return
         stripes, self._queue = self._queue, []
-        with Tracer.instance().span("codec:device_dispatch",
-                                    rows=len(stripes),
-                                    width=self.stripe_batch, direct=True):
-            pending = (stripes,
-                       start_pull(self._fused(self._stage(stripes))))
+        staged = self._stage(stripes)
+        svc = codec_service.maybe_service()
+        if svc is not None:
+            # a partial batch (the tail of a small PUT) rides the linger
+            # to share its launch with other operations' stripes
+            pending = (stripes, svc.submit(
+                codec_service.encode_key(self._spec), self._fused, staged,
+                width=self.stripe_batch, qos=self._qos,
+                tail=len(stripes) < self.stripe_batch,
+                deadline=self._deadline))
+        else:
+            with Tracer.instance().span("codec:device_dispatch",
+                                        rows=len(stripes),
+                                        width=self.stripe_batch, direct=True):
+                pending = (stripes, start_pull(self._fused(staged)))
         self.dispatches += 1
         prev, self._pending = self._pending, pending
         if prev is not None:
@@ -254,9 +274,12 @@ class ECKeyWriter:
     @staticmethod
     def _resolve_pending(prev: tuple) -> tuple:
         """(stripes, parity uint8 [B, p, C], crcs uint32 [B, k+p, S]) of an
-        in-flight batch as numpy, once its copy to the host is done."""
-        stripes, pulled = prev
-        return (stripes, *finish_pull(pulled))
+        in-flight batch as numpy, once the service has resolved it or its
+        copy to the host is done."""
+        stripes, pending = prev
+        if isinstance(pending, Future):
+            return (stripes, *codec_service.wait_result(pending))
+        return (stripes, *finish_pull(pending))
 
     def _drain_pending(self) -> None:
         prev, self._pending = self._pending, None

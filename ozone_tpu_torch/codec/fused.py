@@ -19,7 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ozone_tpu_torch.codec import rs_math
+from ozone_tpu_torch.codec import lrc_math, rs_math
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.codec.fused_kernel import fused_encode_crc
 from ozone_tpu_torch.utils import checksum as hostsum
@@ -58,13 +58,15 @@ class FusedSpec:
 
 def _parity_matrix(options: CoderOptions) -> np.ndarray:
     """p x k GF(2^8) parity generator: Cauchy for RS, the all-ones row for
-    XOR single parity."""
+    XOR single parity; LRC stacks its l local XOR rows on its r global
+    Cauchy rows (lrc_math.parity_matrix), so all its parities are one
+    launch."""
     if options.codec == "xor":
         if options.parity_units != 1:
             raise ValueError("xor codec has exactly one parity unit")
         return np.ones((1, options.data_units), dtype=np.uint8)
     if options.codec == "lrc":
-        raise NotImplementedError("the lrc codec is not ported yet")
+        return lrc_math.parity_matrix(options)
     return rs_math.parity_matrix(options.data_units, options.parity_units)
 
 
@@ -72,14 +74,19 @@ def _decode_matrix(options: CoderOptions, valid: list[int],
                    erased: list[int]) -> np.ndarray:
     """e x len(valid) GF(2^8) recovery matrix. RS inverts the surviving
     k x k submatrix; XOR recovers its one erasable unit as the XOR of the
-    k others, the parity unit included (its decode is a re-encode)."""
+    k others. LRC solves over any spanning read set (len(valid) may be
+    the local group's size instead of k, lrc_math.recovery_rows); the
+    kernel takes the narrower matrix as it is."""
     if options.codec == "lrc":
-        raise NotImplementedError("the lrc codec is not ported yet")
+        return lrc_math.recovery_rows(options, list(valid), list(erased))
     if options.codec == "xor":
         if len(erased) != 1:
             raise ValueError("xor codec recovers at most one erasure")
         if len(valid) != options.data_units:
             raise ValueError("xor decode needs all other units")
+        if erased[0] == options.data_units:
+            # the parity itself: re-encode from the k data units
+            return np.ones((1, options.data_units), dtype=np.uint8)
         return np.ones((1, len(valid)), dtype=np.uint8)
     return rs_math.decode_matrix(
         options.data_units, options.parity_units, list(erased), list(valid))

@@ -12,8 +12,9 @@ the device->host copy of the next, as the writer's in-flight encode
 batch does.
 
 `host_buffer`, `start_pull` and `finish_pull` are that edge, used by the
-pipeline and by `client/ec_writer.py` alike. On the CPU they do no
-copies and record no event.
+pipeline, by `client/ec_writer.py` and by the shared codec service
+(`codec/service.py`) alike. On the CPU they do no copies and record no
+event, and outputs that are already numpy arrays pass through.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ def host_buffer(shape, device: torch.device) -> torch.Tensor:
 def start_pull(outs: tuple) -> tuple:
     """Start the device->host copy of a batch's output tensors on the
     current stream (the one that ran the kernel); returns (host tensors,
-    event), the event None for CPU tensors."""
-    if outs[0].device.type != "cuda":
+    event), the event None for CPU tensors and numpy arrays."""
+    if not isinstance(outs[0], torch.Tensor) or outs[0].device.type != "cuda":
         return tuple(outs), None
     hosts = []
     for t in outs:
@@ -72,8 +73,13 @@ def finish_pull(pulled: tuple) -> tuple:
     hosts, done = pulled
     if done is not None:
         done.synchronize()
-    return tuple(h.numpy().view(np.uint32) if h.dtype == torch.int32
-                 else h.numpy() for h in hosts)
+    return tuple(_host_array(h) for h in hosts)
+
+
+def _host_array(h) -> np.ndarray:
+    if not isinstance(h, torch.Tensor):
+        return np.asarray(h)
+    return h.numpy().view(np.uint32) if h.dtype == torch.int32 else h.numpy()
 
 
 class DeviceBatchPipeline:

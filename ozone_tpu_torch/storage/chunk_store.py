@@ -153,6 +153,17 @@ class FilePerBlockStore:
             buf = buf + b"\x00" * (info.length - len(buf))
         return np.frombuffer(buf, dtype=np.uint8).copy()
 
+    def delete_block(self, block_id: BlockID) -> None:
+        """Drop a block's file and its cached descriptor."""
+        with self._lock:
+            ent = self._fds.pop(block_id.local_id, None)
+            if ent is not None:
+                if ent.refs == 0:
+                    self._close_entry(ent)
+                else:
+                    ent.evicted = True  # the last _release closes it
+        self.block_path(block_id).unlink(missing_ok=True)
+
     def fsync_block(self, block_id: BlockID) -> None:
         with self._lock:
             ent = self._fds.get(block_id.local_id)

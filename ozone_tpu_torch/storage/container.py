@@ -94,6 +94,15 @@ class VolumeDB:
         return [BlockData.from_json(json.loads(r[0])) for r in rows]
 
     @_guard_sqlite
+    def delete_block(self, block_id: BlockID) -> None:
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM blocks WHERE container_id=? AND local_id=?",
+                (block_id.container_id, block_id.local_id),
+            )
+            self._conn.commit()
+
+    @_guard_sqlite
     def delete_container(self, container_id: int) -> None:
         with self._lock:
             self._conn.execute(

@@ -1,11 +1,14 @@
 """Datanode: volumes + container set + the chunk/block verbs.
 
-Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC write and
-its read-back use (the reference's KeyValueHandler verb switch):
-CreateContainer, WriteChunk, ReadChunk (with checksum verification),
-PutBlock, GetBlock, ListBlock, CloseContainer, DeleteContainer, and the
-single-writer block fence. The scanners and their scan queue, the volume
-checker and block deletion are not ported yet.
+Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC write,
+its read-back and the scrubber use (the reference's KeyValueHandler verb
+switch): CreateContainer, WriteChunk, ReadChunk (with checksum
+verification), PutBlock, GetBlock, ListBlock, CloseContainer,
+DeleteContainer, the single-writer block fence, the container list and
+the host full-data scan (`scan_container`) that the device scrubber
+(`storage/scrubber.py`) is held against. The scan queue and the daemon
+that runs the scrubber in the background, the volume checker and block
+deletion are not ported yet.
 """
 
 from __future__ import annotations
@@ -83,6 +86,28 @@ class Datanode:
         shutil.rmtree(c.root, ignore_errors=True)
         self.containers.remove(container_id)
         self.metrics.counter("container_deleted").inc()
+
+    def list_containers(self) -> list[Container]:
+        return list(self.containers)
+
+    def scan_container(self, container_id: int) -> list[str]:
+        """Full-data scan on the host: verify every chunk checksum (the
+        reference's BackgroundContainerDataScanner). Returns error strings
+        and marks the container UNHEALTHY if there are any."""
+        c = self.containers.get(container_id)
+        errors: list[str] = []
+        for block in c.list_blocks():
+            for info in block.chunks:
+                try:
+                    data = c.chunks.read_chunk(block.block_id, info)
+                    if info.checksum.checksums:
+                        Checksum().verify(data, info.checksum)
+                except (StorageError, ChecksumError) as e:
+                    errors.append(f"{block.block_id}/{info.name}: {e}")
+        if errors:
+            c.mark_unhealthy()
+        self.metrics.counter("containers_scanned").inc()
+        return errors
 
     # -- chunk/block verbs --
     def write_chunk(

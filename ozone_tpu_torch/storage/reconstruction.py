@@ -7,10 +7,13 @@ the source replica-index -> node and target index -> node maps, it
 
   1. creates RECOVERING containers on the targets,
   2. lists the blocks on every source and takes their union,
-  3. per block, recovers the missing units' cells from any k survivors
-     through the reader's depth-1 decode pipeline (batch N's recovered
-     chunks go to the targets while batch N+1 reads survivors and
-     decodes), with up to `max_parallel_blocks` blocks in flight,
+  3. per block, recovers the missing units' cells through the reader's
+     depth-1 decode pipeline (batch N's recovered chunks go to the
+     targets while batch N+1 reads survivors and decodes), with up to
+     `max_parallel_blocks` blocks in flight; the reader picks the read
+     set (k survivors for RS, the lost unit's local group for an LRC
+     single loss) and submits to the shared codec service in its "bulk"
+     class unless the service is off,
   4. commits each target's block once every batch has landed, and closes
      the targets,
   5. deletes the RECOVERING containers on any failure.
@@ -198,7 +201,8 @@ class ECReconstructionCoordinator:
         group = self._group_for(cmd, bd)
         reader = ECBlockGroupReader(
             group, opts, self.clients, checksum=self.checksum,
-            bytes_per_checksum=bpc, device=self.device)
+            bytes_per_checksum=bpc, device=self.device,
+            qos_class="bulk")  # repair defers to interactive reads
         lengths = unit_true_lengths(group, opts)
         host_checksum = Checksum(self.checksum, bpc)
 

@@ -1,8 +1,11 @@
-"""Minimal metrics: named counters and latency histograms.
+"""Minimal metrics: named counters, gauges and latency histograms.
 
-A trimmed copy of `ozone_tpu/utils/metrics.py` holding only what the
-port's datanode records (counters and a timing histogram); no gauges,
-exporters or exemplars yet.
+A trimmed copy of `ozone_tpu/utils/metrics.py` holding what the port's
+datanode and codec service record: counters, gauges, and timing
+histograms whose observations may carry the trace id of the operation
+they belong to (the latest per bucket is kept as its exemplar).
+`registry(name)` returns the process-wide registry of that name. No
+exporters yet.
 """
 
 from __future__ import annotations
@@ -23,6 +26,16 @@ class Counter:
             self.value += n
 
 
+class Gauge:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = v
+
+
 #: log-spaced latency bucket bounds in seconds (100 us .. 10 s)
 DEFAULT_BUCKETS = tuple(1e-4 * (10 ** (i / 4)) for i in range(21))
 
@@ -36,14 +49,22 @@ class Histogram:
         self._lock = threading.Lock()
         self.count = 0
         self.total = 0.0
+        #: bucket index -> (seconds, trace id) of its latest traced sample
+        self.exemplars: dict[int, tuple[float, str]] = {}
 
-    def observe(self, seconds: float) -> None:
+    def observe(self, seconds: float, trace_id: str = "") -> None:
         idx = next((i for i, b in enumerate(self.bounds) if seconds <= b),
                    len(self.bounds))
         with self._lock:
             self._counts[idx] += 1
             self.count += 1
             self.total += seconds
+            if trace_id:
+                self.exemplars[idx] = (seconds, trace_id)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
 
     @contextmanager
     def time(self):
@@ -59,12 +80,43 @@ class MetricsRegistry:
         self.name = name
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
             return self._counters.setdefault(name, Counter())
 
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            return self._gauges.setdefault(name, Gauge())
+
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             return self._histograms.setdefault(name, Histogram())
+
+    def snapshot(self) -> dict:
+        """Counter and gauge values by name, and `<name>_mean_s` of every
+        histogram that has observations."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = dict(self._histograms)
+        return {
+            **{k: c.value for k, c in counters.items()},
+            **{k: g.value for k, g in gauges.items()},
+            **{f"{k}_mean_s": h.mean for k, h in hists.items() if h.count},
+        }
+
+
+_registries: dict[str, MetricsRegistry] = {}
+_registries_lock = threading.Lock()
+
+
+def registry(name: str) -> MetricsRegistry:
+    """The process-wide registry of this name, created on first use."""
+    with _registries_lock:
+        r = _registries.get(name)
+        if r is None:
+            r = _registries[name] = MetricsRegistry(name)
+        return r

@@ -77,6 +77,28 @@ class Tracer:
             with self._lock:
                 self.spans.append(s)
 
+    def record_span(self, name: str, *, child_of: str = "",
+                    start: float, duration: float, span_id: str = "",
+                    **tags) -> Span:
+        """Record an interval measured on another thread as a finished
+        span: the codec service's dispatcher closes a submission's queue
+        wait and dispatch on behalf of the submitting operation, so no
+        `span` context can bracket them. `child_of` is an `inject`
+        context; without one the span joins the current trace."""
+        if child_of:
+            trace_id, parent_id = (child_of.split(":") + [""])[:2]
+        else:
+            cur = self.current()
+            if cur is not None:
+                trace_id, parent_id = cur.trace_id, cur.span_id
+            else:
+                trace_id, parent_id = self._new_id(), ""
+        s = Span(trace_id, span_id or self._new_id(), parent_id, name,
+                 start, duration, tags=dict(tags))
+        with self._lock:
+            self.spans.append(s)
+        return s
+
     def event(self, name: str, **attrs) -> None:
         """Annotate the current span (no-op outside any span): hedge,
         breaker and deadline decisions show why a path was taken."""

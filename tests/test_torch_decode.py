@@ -147,10 +147,10 @@ def test_new_patterns_add_plans_not_libraries():
 
 
 def test_decoder_rejects_what_it_cannot_decode():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # lrc: the read set must span unit 0
         make_fused_decoder(FusedSpec(CoderOptions(4, 4, "lrc", cell_size=CELL,
                                                   local_groups=2)),
-                           list(range(1, 5)), [0], device="cpu")
+                           [2, 3, 5], [0], device="cpu")
     with pytest.raises(ValueError):  # xor recovers one unit only
         make_fused_decoder(FusedSpec(CoderOptions(3, 1, "xor", cell_size=CELL)),
                            [0, 1], [2, 3], device="cpu")

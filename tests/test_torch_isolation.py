@@ -32,8 +32,30 @@ def test_port_imports_no_jax_and_no_reference():
         print(len(names), bad)
     """)
     count, bad = out.split(" ", 1)
-    assert int(count) >= 28, out
+    assert int(count) >= 32, out
     assert bad.strip() == "[]", out
+
+
+@pytest.mark.parametrize("module", [
+    "ozone_tpu_torch.codec.service",
+    "ozone_tpu_torch.codec.lrc_math",
+    "ozone_tpu_torch.storage.scrubber",
+    "ozone_tpu_torch.utils.config",
+])
+def test_slice_modules_import_alone_without_jax(module):
+    """Each module of the codec-service, LRC and scrubber slice, imported
+    on its own, pulls in neither jax nor the reference package, and
+    importing the service starts no dispatcher thread."""
+    out = _run(f"""
+        import importlib, sys, threading
+        importlib.import_module("{module}")
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "ozone_tpu" or m.startswith("ozone_tpu."))
+        print(bad, [t.name for t in threading.enumerate()
+                    if t.name == "codec-service"])
+    """)
+    assert out.strip() == "[] []", out
 
 
 def test_default_device_raises_without_cuda():
@@ -48,6 +70,7 @@ def test_default_device_raises_without_cuda():
         from ozone_tpu_torch.scm.pipeline import Pipeline, ReplicationConfig
         from ozone_tpu_torch.storage.reconstruction import (
             ECReconstructionCoordinator)
+        from ozone_tpu_torch.storage.scrubber import DeviceScrubber
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
         clients = DatanodeClientFactory()
@@ -57,7 +80,8 @@ def test_default_device_raises_without_cuda():
                      lambda: make_fused_decoder(FusedSpec(opts), [0, 1, 2], [3]),
                      lambda: ECKeyWriter(opts, None, clients, block_size=4096),
                      lambda: ECBlockGroupReader(group, opts, clients),
-                     lambda: ECReconstructionCoordinator(clients)):
+                     lambda: ECReconstructionCoordinator(clients),
+                     lambda: DeviceScrubber()):
             try:
                 make()
             except RuntimeError as e:
@@ -79,7 +103,7 @@ def test_cuda_build_is_lazy():
     assert out.split() == ["0", "0"]
 
 
-@pytest.mark.parametrize("path", sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
     p.relative_to(REPO).as_posix()
     for p in (REPO / "ozone_tpu_torch").rglob("*.py")
     if "_build" not in p.relative_to(REPO).parts))  # build outputs
