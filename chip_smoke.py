@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--seed N] [--kernel-only]
 
-Builds the port's CUDA kernels from `ozone_tpu_torch/csrc` (nvcc, sm_90a),
-holds every kernel against its plain PyTorch version on the card, in its
-RS and LRC encode forms, its decode forms (RS, LRC local, across groups
-and global) and its scrub form (slice CRCs, no coding rows), then drives
-the port's main paths, on the shared codec service (the default route)
-unless a phase says otherwise:
+Builds the port's CUDA kernels (nvcc, sm_90a) and its host CRC32C library
+(g++ -msse4.2) from `ozone_tpu_torch/csrc`, fails unless the host library
+reports the SSE4.2 CRC, holds every kernel against its plain PyTorch
+version on the card, in its RS, XOR and LRC encode forms, its XOR(1)->RS
+re-encode form, its decode forms (RS, LRC local, across groups and
+global) and its scrub form (slice CRCs, no coding rows), then drives the
+port's main paths, on the shared codec service (the default route) unless
+a phase says otherwise:
 
 - four concurrent RS(6,3) key PUTs through `ECKeyWriter` into nine
   in-process datanodes, read back and checked against the source bytes
@@ -17,7 +19,9 @@ unless a phase says otherwise:
 - 32 concurrent small RS(6,3) PUTs (one stripe and a 4 KiB tail each)
   whose tails coalesce in the service;
 - RS(10,4) read and repair: two keys PUT into 16 datanodes, read whole
-  through `ECBlockGroupReader` healthy, then with two data units down
+  through `ECBlockGroupReader` healthy (alternately with the datanodes'
+  CRC check on the native and on the numpy route), then with two data
+  units down
   (whole and ranged), their replicas rebuilt onto two spares by
   `ECReconstructionCoordinator`, and read again through the rebuilt
   replicas with two other units down;
@@ -27,7 +31,14 @@ unless a phase says otherwise:
   two units of one group down (global decode), and unit 2 rebuilt onto a
   spare from its group;
 - the device scrubber over every closed container of those datanodes,
-  then over a container with one flipped byte, against the host scan.
+  then over a container with one flipped byte, against the host scan;
+- the control plane: a `MiniOzoneCluster` (SCM, OM, 12 datanodes on 3
+  racks) takes an XOR(6,1) key, a RATIS/THREE key and a second XOR key
+  through `OzoneClient`; the replicated key is re-encoded to RS(6,3), the
+  first XOR key with unit 2's datanode down (the fused re-encode), the
+  second with its parity's datanode down (a plain encode); every key is
+  re-read byte-exact; then one RS datanode dies and the SCM's own
+  reconstruction commands rebuild its replicas onto spares.
 
 Every failure raises. The last line is one JSON object with "ok" and the
 device; the line before it is nvidia-smi's name and power limit, and the
@@ -203,6 +214,78 @@ def check_decode_cases(device, cases, seed: int) -> float:
             if int(words[bi, u, sl]) != host(rec_np[bi, u, sl * bpc:(sl + 1) * bpc]):
                 raise AssertionError(f"CRC of slice {(bi, u, sl)} of {name} != host")
     return worst
+
+
+def reencode_inputs(device, k: int, lost: int, cell: int, b: int, seed: int):
+    """(units, data, matrix): a seeded XOR(1) group `data` [B, k, cell] on
+    `device`, `units` the same with the XOR parity in slot `lost`, and the
+    re-encode's [1+p, k] matrix for RS(k, 3)."""
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import _reencode_matrix
+
+    rng = np.random.default_rng(seed + lost)
+    data = rng.integers(0, 256, (b, k, cell), dtype=np.uint8)
+    units = data.copy()
+    units[:, lost] = np.bitwise_xor.reduce(data, axis=1)
+    matrix = _reencode_matrix(CoderOptions(k, 3, "rs", cell_size=cell), lost)
+    return (torch.from_numpy(units).to(device), torch.from_numpy(data).to(device),
+            torch.from_numpy(matrix).to(device))
+
+
+def check_reencode_cases(device, lost_units, cell: int, bpc: int, b: int,
+                         seed: int) -> float:
+    """The kernel in re-encode form (RS(6,3): the [4, 6] matrix [D[lost];
+    P D], CRCs of the 6 inputs and the 4 outputs) against plain for each
+    lost unit, exact; the recovered row must equal the lost data unit,
+    the rest the RS parity of the group, and sampled slices the host CRC.
+    Returns the largest difference seen."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import _parity_matrix
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, crc32c
+
+    k = 6
+    rng = np.random.default_rng(seed)
+    rs = torch.from_numpy(_parity_matrix(CoderOptions(k, 3, "rs", cell_size=cell))).to(device)
+    worst = 0
+    for lost in lost_units:
+        units, data, matrix = reencode_inputs(device, k, lost, cell, b, seed)
+        out, crcs = fused_kernel.fused_encode_crc(units, matrix, CRC32C_POLY, bpc)
+        pout, pcrcs = fused_kernel.fused_encode_crc_plain(units, matrix, CRC32C_POLY, bpc)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        diff = max((out.int() - pout.int()).abs().max().item(),
+                   (crcs.long() - pcrcs.long()).abs().max().item())
+        worst = max(worst, diff)
+        name = f"re-encode rs-6-3 lost={lost} matrix={tuple(matrix.shape)} B={b}"
+        print(f"re-encode kernel vs plain {name}: max_abs_err={diff} "
+              f"crcs={tuple(crcs.shape)}")
+        parity, _ = fused_kernel.fused_encode_crc_plain(data, rs, None, bpc)
+        if diff or crcs.shape != (b, k + 4, cell // bpc):
+            raise AssertionError(f"re-encode kernel disagrees with plain on {name}")
+        if not (torch.equal(out[:, 0], data[:, lost]) and torch.equal(out[:, 1:], parity)):
+            raise AssertionError(f"{name} does not give the lost unit and the RS parity")
+        rows = torch.cat([units, out], 1).cpu().numpy()
+        words = crcs.cpu().numpy().view(np.uint32)
+        for _ in range(32):
+            bi, u, sl = (int(rng.integers(n)) for n in (b, k + 4, cell // bpc))
+            if int(words[bi, u, sl]) != crc32c(rows[bi, u, sl * bpc:(sl + 1) * bpc]):
+                raise AssertionError(f"CRC of slice {(bi, u, sl)} of {name} != host")
+    return worst
+
+
+def time_reencode(device, cell: int, bpc: int, b: int, seed: int) -> dict:
+    """The re-encode form at the XOR->RS path's shape: RS(6,3), B=8, unit 2
+    lost, CRC32C over the 6 inputs and 4 outputs."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY
+
+    units, _, matrix = reencode_inputs(device, 6, 2, cell, b, seed)
+    return time_form(
+        f"re-encode rs-6-3 [4, 6] lost=2 B={b}",
+        lambda: fused_kernel.fused_encode_crc(units, matrix, CRC32C_POLY, bpc),
+        lambda: fused_kernel.fused_encode_crc_plain(units, matrix, CRC32C_POLY, bpc),
+        fused_bound(b, 6, 4, cell, bpc, rows=10), b * 6 * cell)
 
 
 def time_form(name: str, run, plain, bound: tuple[float, str], in_bytes: int) -> dict:
@@ -579,6 +662,8 @@ def put_run(device, opts, keys, bpc: int, seed: int, route: str, what: str,
 #: run on each route (the first runs pay for new pinned and device
 #: memory): the direct route against the service, alternated
 WARMUP, ROUTES = ("service", "direct"), ("direct", "service", "service", "direct")
+#: host CRC32C routes of the healthy RS(10,4) GET, alternated in one call
+CRC_ROUTES = ("native", "numpy", "numpy", "native")
 
 
 def compare_routes(device, opts, keys, bpc: int, seed: int, what: str,
@@ -775,6 +860,7 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
         ECReconstructionCoordinator,
         ReconstructionCommand,
     )
+    from ozone_tpu_torch.utils import checksum
 
     opts = CoderOptions(10, 4, "rs", cell_size=cell)
     rng = np.random.default_rng(seed + 1)
@@ -798,16 +884,30 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
             if device.type == "cuda" and out["put_launches"] != svc["dispatches"]:
                 raise AssertionError("rs-10-4 PUT: launches differ from service dispatches")
 
-            fused_kernel.launches.reset()
-            since = time.time()
-            healthy = read_groups(cluster, keys, groups_per_key, device, bpc)
-            launches = fused_kernel.launches.count
-            print(f"healthy GET spans: {span_totals(since)}")
-            print(f"healthy GET: {healthy['bytes'] / healthy['wall_s'] / 2**30:.3f} GiB/s "
-                  f"(wall), {healthy['bytes']} B byte-exact in {healthy['wall_s']:.3f} s; "
-                  f"decode launches {launches}, dispatches {healthy['dispatches']}")
-            if launches or healthy["dispatches"]:
-                raise AssertionError("a healthy read decoded")
+            # the healthy GET with the datanodes' CRC check on each host
+            # CRC32C route, alternated: native, numpy, numpy, native
+            crc_rates: dict[str, list[float]] = {"native": [], "numpy": []}
+            for route in CRC_ROUTES:
+                fused_kernel.launches.reset()
+                since = time.time()
+                with (checksum.numpy_route() if route == "numpy"
+                      else contextlib.nullcontext()):
+                    if checksum.route() != route:
+                        raise AssertionError(f"host CRC32C runs on {checksum.route()}, "
+                                             f"not {route}")
+                    healthy = read_groups(cluster, keys, groups_per_key, device, bpc)
+                launches = fused_kernel.launches.count
+                rate = healthy["bytes"] / healthy["wall_s"] / 2**30
+                crc_rates[route].append(rate)
+                print(f"healthy GET spans ({route} CRC32C): {span_totals(since)}")
+                print(f"healthy GET ({route} host CRC32C): {rate:.3f} GiB/s (wall), "
+                      f"{healthy['bytes']} B byte-exact in {healthy['wall_s']:.3f} s; "
+                      f"decode launches {launches}, dispatches {healthy['dispatches']}")
+                if launches or healthy["dispatches"]:
+                    raise AssertionError("a healthy read decoded")
+            print("healthy GET by host CRC32C route: " + ", ".join(
+                f"{route} {' '.join(f'{r:.3f}' for r in rates)} GiB/s"
+                for route, rates in crc_rates.items()))
             unverified = read_groups(cluster, keys, groups_per_key, device, bpc, verify=False)
             print(f"healthy GET without the datanodes' CRC check: "
                   f"{unverified['bytes'] / unverified['wall_s'] / 2**30:.3f} GiB/s (wall)")
@@ -877,7 +977,7 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
             cluster.close()
     out["decode_launches"] = sum(out[k] for k in ("degraded_launches", "ranged_launches",
                                                   "repair_launches", "reread_launches"))
-    out.update(healthy_gib_s=healthy["bytes"] / healthy["wall_s"] / 2**30,
+    out.update(healthy_gib_s=crc_rates,
                degraded_gib_s=degraded["bytes"] / degraded["wall_s"] / 2**30,
                repair_mib_s_per_target=per_target / repair_s / MIB)
     return out
@@ -1096,6 +1196,259 @@ def scrub_path(cluster: Cluster, device, groups) -> dict:
             "dispatches": scrubber.dispatches}
 
 
+def kill_datanode(cluster, dn_id: str) -> None:
+    """Stop a datanode (its client raises, it heartbeats no more) and let
+    the SCM's liveness sweep find it dead."""
+    from ozone_tpu_torch.scm.node_manager import NodeState
+
+    cluster.stop_datanode(dn_id)
+    cluster.scm.nodes.get(dn_id).last_heartbeat = -1e9
+    cluster.scm.nodes.check_liveness()
+    if cluster.scm.nodes.get(dn_id).state is not NodeState.DEAD:
+        raise AssertionError(f"the SCM does not see {dn_id} dead")
+
+
+def ec_missing(cluster) -> dict:
+    """{container id: missing replica indexes} of every closed EC container,
+    as the SCM's replica reports show them (read only: no commands)."""
+    from ozone_tpu_torch.scm.pipeline import ReplicationType
+    from ozone_tpu_torch.scm.replication_manager import ECReplicaCount
+    from ozone_tpu_torch.storage.ids import ContainerState
+
+    out = {}
+    for c in cluster.scm.containers.containers():
+        if c.replication.type is ReplicationType.EC and c.state in (
+                ContainerState.CLOSED, ContainerState.QUASI_CLOSED):
+            missing = ECReplicaCount(c, cluster.scm.nodes).missing_indexes
+            if missing:
+                out[c.id] = missing
+    return out
+
+
+def revive_datanode(cluster, dn_id: str) -> None:
+    cluster.restart_datanode(dn_id)
+    cluster.tick()
+
+
+def reencode(cluster, device, what: str, volume: str, bucket: str, key: str,
+             ec: str, size: int) -> dict:
+    """One re-encode through `client/re_encode.py` on the codec service:
+    MiB/s of user data (wall), and kernel launches against the service's
+    dispatches in the run."""
+    from ozone_tpu_torch.client.re_encode import re_encode_key_to_ec
+    from ozone_tpu_torch.codec import fused_kernel
+
+    before = service_counts()
+    fused_kernel.launches.reset()
+    since, t0 = time.time(), time.perf_counter()
+    info = re_encode_key_to_ec(cluster.om, cluster.clients, volume, bucket, key,
+                               ec=ec, device=device)
+    wall = time.perf_counter() - t0
+    launches = fused_kernel.launches.count
+    svc = service_delta(before)
+    print(f"{what} spans: {span_totals(since)}")
+    print(f"{what}: {size} B to {info['replication']} in {wall:.3f} s = "
+          f"{size / wall / MIB:.1f} MiB/s of user data (wall), "
+          f"{len(info['block_groups'])} groups; kernel launches {launches}, service "
+          f"dispatches {svc['dispatches']} of {svc['submissions']} submissions")
+    if info["size"] != size or info["replication"] != ec:
+        raise AssertionError(f"{what}: key info {info['size']} B {info['replication']}")
+    if device.type == "cuda" and (launches <= 0 or launches != svc["dispatches"]):
+        raise AssertionError(f"{what}: {launches} kernel launches for "
+                             f"{svc['dispatches']} service dispatches")
+    return {"launches": launches, "dispatches": svc["dispatches"],
+            "mib_s": size / wall / MIB}
+
+
+def control_plane_path(device, cell: int, bpc: int, seed: int) -> dict:
+    """The control plane on the codec service: a MiniOzoneCluster of 12
+    datanodes on 3 racks (SCM with rack-scatter placement, OM on sqlite),
+    blocks of 16 cells. Through OzoneClient: an xor-6-1 key of three full
+    groups and a short one, a RATIS/THREE key of one group and 7 B, and a
+    second xor-6-1 key of one group and 12 345 B. Then the replicated key
+    is re-encoded to rs-6-3, the first XOR key with unit 2's datanode down
+    (the fused re-encode), the second with its parity's datanode down (a
+    plain encode); every key is re-read byte-exact through OzoneClient.
+    Last, every container is closed, one datanode of the RS groups dies,
+    and ticks run until the SCM's reconstruction commands have rebuilt
+    its replicas onto spares; the rebuilt chunks must equal the lost ones
+    and the keys must read back byte-exact."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.storage.ids import BlockID, ContainerState, StorageError
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    block = 16 * cell
+    rs, xor = f"rs-6-3-{cell // 1024}k", f"xor-6-1-{cell // 1024}k"
+    rng = np.random.default_rng(seed + 4)
+    sizes = {"x1": 3 * 6 * block + 12345, "rep": 6 * block + 7,
+             "x2": 6 * block + 12345}
+    data = {k: rng.integers(0, 256, n, dtype=np.uint8) for k, n in sizes.items()}
+    out: dict = {}
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-cp-") as tmp:
+        cluster = MiniOzoneCluster(Path(tmp), num_datanodes=12, racks=3, block_size=block,
+                                   container_size=16 * block, stale_after_s=1e6,
+                                   dead_after_s=2e6, placement_seed=seed, device=device)
+        try:
+            oz = cluster.client()
+            vol = oz.create_volume("v")
+            buckets = {"x1": vol.create_bucket("xor", replication=xor),
+                       "rep": vol.create_bucket("rep", replication="RATIS/THREE"),
+                       "x2": vol.create_bucket("xor2", replication=xor)}
+            before = service_counts()
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+            for name, b in buckets.items():
+                b.write_key("k", data[name])
+            put_s = time.perf_counter() - t0
+            out["put_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            print(f"control plane: 12 datanodes on 3 racks; PUT of {sum(sizes.values())} B "
+                  f"({xor} {sizes['x1']} B, RATIS/THREE {sizes['rep']} B, {xor} "
+                  f"{sizes['x2']} B) through OzoneClient in {put_s:.3f} s; XOR encode "
+                  f"launches {out['put_launches']} for {svc['dispatches']} service "
+                  f"dispatches")
+            if device.type == "cuda" and out["put_launches"] != svc["dispatches"]:
+                raise AssertionError("XOR PUT: launches differ from service dispatches")
+
+            out["reencode_replicated"] = reencode(
+                cluster, device, "re-encode RATIS/THREE -> rs-6-3", "v", "rep", "k", rs,
+                sizes["rep"])
+            x1 = oz.om.lookup_key("v", "xor", "k")
+            victim = {g["nodes"][2] for g in x1["block_groups"]}
+            for dn_id in victim:
+                kill_datanode(cluster, dn_id)
+            out["reencode_xor"] = reencode(
+                cluster, device, f"re-encode {xor} -> rs-6-3, unit 2 down {sorted(victim)}",
+                "v", "xor", "k", rs, sizes["x1"])
+            for dn_id in victim:
+                revive_datanode(cluster, dn_id)
+            x2 = oz.om.lookup_key("v", "xor2", "k")
+            victim = {g["nodes"][6] for g in x2["block_groups"]}
+            for dn_id in victim:
+                kill_datanode(cluster, dn_id)
+            out["reencode_xor_parity_lost"] = reencode(
+                cluster, device, f"re-encode {xor} -> rs-6-3, XOR parity down "
+                f"{sorted(victim)}", "v", "xor2", "k", rs, sizes["x2"])
+            for dn_id in victim:
+                revive_datanode(cluster, dn_id)
+            for name, b in buckets.items():
+                if not np.array_equal(b.read_key("k"), data[name]):
+                    raise AssertionError(f"re-read of {name} differs from the source")
+                off, n = sizes[name] // 3, sizes[name] // 2
+                if not np.array_equal(b.read_key_range("k", off, n),
+                                      data[name][off:off + n]):
+                    raise AssertionError(f"ranged re-read of {name} differs")
+            print("control plane: every re-encoded key re-read byte-exact through "
+                  "OzoneClient (whole and ranged)")
+            # the old versions retire through the SCM's deletion chain
+            purged = cluster.om.run_key_deleting_service_once()
+            cluster.tick(rounds=2)
+            if purged != 3 or cluster.scm.deleted_blocks.pending_count():
+                raise AssertionError(f"purge: {purged} keys, "
+                                     f"{cluster.scm.deleted_blocks.pending_count()} pending")
+
+            # SCM-driven repair: close everything, one RS datanode dies
+            for dn in cluster.datanodes:
+                for c in dn.list_containers():
+                    if c.state is ContainerState.OPEN:
+                        dn.close_container(c.id)
+            cluster.tick()
+            infos = {name: oz.om.lookup_key("v", b.name, "k") for name, b in buckets.items()}
+            groups = [g for info in infos.values() for g in info["block_groups"]]
+            victim = groups[0]["nodes"][0]
+            lost = {}  # BlockID -> (unit, [(ChunkInfo, bytes)])
+            vdn = cluster.datanode(victim)
+            for g in groups:
+                if victim in g["nodes"]:
+                    bid = BlockID(int(g["container_id"]), int(g["local_id"]))
+                    try:
+                        chunks = vdn.get_block(bid).chunks
+                    except StorageError:  # a unit holding no bytes of a short group
+                        chunks = []
+                    lost[bid] = (g["nodes"].index(victim),
+                                 [(c, vdn.read_chunk(bid, c)) for c in chunks])
+            kill_datanode(cluster, victim)
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since, t0 = time.time(), time.perf_counter()
+            ticks = 0
+            while True:
+                cluster.tick()
+                cluster.heartbeat_all()  # the rebuilt replicas report
+                ticks += 1
+                missing = ec_missing(cluster)
+                if not missing or ticks >= 5:
+                    break
+            repair_s = time.perf_counter() - t0
+            out["repair_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            print(f"SCM repair spans: {span_totals(since)}")
+            if missing:
+                raise AssertionError(f"after {ticks} ticks, replicas still missing: {missing}")
+            host = Checksum(ChecksumType.CRC32C, bpc)
+            per_target: dict[str, int] = {}
+            n_chunks = 0
+            for bid, (u, chunks) in lost.items():
+                cinfo = cluster.scm.containers.get(bid.container_id)
+                holders = [dn for dn, r in cinfo.replicas.items() if r.replica_index == u + 1]
+                if len(holders) != 1 or holders[0] == victim:
+                    raise AssertionError(f"{bid} replica index {u + 1}: {holders}")
+                dst = cluster.datanode(holders[0])
+                c = dst.containers.get(bid.container_id)
+                if c.state is not ContainerState.CLOSED:
+                    raise AssertionError(f"rebuilt container {bid.container_id} is "
+                                         f"{c.state.value}")
+                rebuilt = dst.get_block(bid).chunks if chunks else []
+                if [(i.offset, i.length) for i, _ in chunks] != \
+                        [(i.offset, i.length) for i in rebuilt]:
+                    raise AssertionError(f"rebuilt chunk list of {bid} differs")
+                for (_, want), info in zip(chunks, rebuilt):
+                    got = dst.read_chunk(bid, info)
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"rebuilt chunk {info.name} differs")
+                    if host.compute(got).checksums != info.checksum.checksums:
+                        raise AssertionError(f"stored CRCs of rebuilt {info.name} != host")
+                    per_target[holders[0]] = per_target.get(holders[0], 0) + info.length
+                    n_chunks += 1
+            rebuilt_mib_s = {t: n / repair_s / MIB for t, n in per_target.items()}
+            print(f"SCM repair: {victim} dead; {len(lost)} blocks of its replicas rebuilt onto "
+                  f"{sorted(per_target)} by the replication manager's commands in {ticks} "
+                  f"ticks, {repair_s:.3f} s: " + ", ".join(
+                      f"{t} {per_target[t]} B = {r:.1f} MiB/s" for t, r in
+                      sorted(rebuilt_mib_s.items())) + " per target (wall); "
+                  f"{n_chunks} rebuilt chunks equal the lost ones, CRCs equal host CRC32C; "
+                  f"decode launches {out['repair_launches']}, service dispatches "
+                  f"{svc['dispatches']}")
+            if device.type == "cuda" and (out["repair_launches"] <= 0
+                                          or out["repair_launches"] != svc["dispatches"]):
+                raise AssertionError(f"SCM repair: {out['repair_launches']} kernel launches "
+                                     f"for {svc['dispatches']} service dispatches")
+            if not per_target:
+                raise AssertionError("the SCM repair rebuilt no bytes")
+            before = service_counts()
+            fused_kernel.launches.reset()
+            for name, b in buckets.items():
+                if not np.array_equal(b.read_key("k"), data[name]):
+                    raise AssertionError(f"re-read of {name} after the repair differs")
+            out["degraded_launches"] = fused_kernel.launches.count
+            check_launches_equal("re-read with the victim down", device,
+                                 out["degraded_launches"], service_delta(before))
+            print("control plane: every key re-read byte-exact with the dead datanode "
+                  "still down")
+            out["repair_mib_s_per_target"] = rebuilt_mib_s
+        finally:
+            cluster.close()
+    return out
+
+
+def check_launches_equal(what: str, device, launches: int, svc: dict) -> None:
+    print(f"{what}: kernel launches {launches}, service dispatches {svc['dispatches']}")
+    if device.type == "cuda" and launches != svc["dispatches"]:
+        raise AssertionError(f"{what}: {launches} kernel launches for "
+                             f"{svc['dispatches']} service dispatches")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1117,7 +1470,14 @@ def main() -> int:
     logs = cuda_build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for lib, (secs, log) in sorted(logs.items()):
-        print(f"nvcc {lib} ({secs:.2f} s):\n{log.strip()}")
+        print(f"compile {lib} ({secs:.2f} s):\n{log.strip()}")
+    from ozone_tpu_torch.utils import checksum
+
+    probe = checksum.native_probe()
+    print(f"host CRC32C: route {checksum.route()}, native_probe() = {probe} "
+          "(1 = SSE4.2 crc32, 2 = AVX2 build, 0 = bitwise loop, -1 = numpy)")
+    if checksum.route() != "native" or probe < 1:
+        raise AssertionError("the host CRC32C library is not on the SSE4.2 route")
 
     from ozone_tpu_torch.codec import fused_kernel
 
@@ -1140,6 +1500,7 @@ def main() -> int:
         (12, 4, MIB, bpc, 8, "CRC32C", True, "lrc-12-2-2"),  # LRC encode, [4, 12]
         (1, 0, bpc, bpc, 4096, "CRC32C"),  # the scrubber's batch at its 64 MiB cap
         (1, 0, bpc, bpc, 1024, "CRC32C"),  # the scrub of one 16 MiB container
+        (6, 1, MIB, bpc, 8, "CRC32C", True, "xor-6-1"),  # XOR encode, [1, 6]
     ]
     err = check_kernel_cases(device, cases, args.seed)
     from ozone_tpu_torch.codec import lrc_math
@@ -1162,11 +1523,14 @@ def main() -> int:
         ("lrc-12-2-2", lrc_read_set([0, 1, 12]), [0, 1, 12], MIB, bpc, 8, "CRC32C"),
     ]
     err = max(err, check_decode_cases(device, decode_cases, args.seed))
+    # the XOR(1)->RS re-encode form: [4, 6], crc_in and crc_out
+    err = max(err, check_reencode_cases(device, (0, 2, 5), MIB, bpc, 8, args.seed))
     timed = time_kernel(device, 6, 3, MIB, bpc, 8, args.seed, plain=True)
     time_kernel(device, 6, 3, MIB, bpc, 128, args.seed, plain=False)
     time_parts(device, 6, 3, MIB, bpc, 128, args.seed)
     decode = time_decode(device, MIB, bpc, 8, args.seed)
     forms = time_lrc_and_scrub(device, MIB, bpc, args.seed)
+    forms["reencode"] = time_reencode(device, MIB, bpc, 8, args.seed)
     print("library_ms: none; no single PyTorch call computes a GF(2^8) "
           "matrix apply with slice CRCs")
 
@@ -1178,6 +1542,7 @@ def main() -> int:
         rr = read_repair_path(device, [320 * MIB, 161 * MIB + 12345], MIB, bpc,
                               args.seed)
         lrc = lrc_path(device, [384 * MIB, MIB + 12345], MIB, bpc, args.seed)
+        cp = control_plane_path(device, MIB, bpc, args.seed)
         paths = {
             f"rs63_{name}_{route}": sum(r["launches"] for r in runs[route])
             for name, runs in (("put", put), ("small_puts", small))
@@ -1186,6 +1551,12 @@ def main() -> int:
             "rs104_put": rr["put_launches"], "rs104_decode": rr["decode_launches"],
             "lrc_put": lrc["put_launches"], "lrc_decode": lrc["decode_launches"],
             "scrub": lrc["scrub"]["launches"],
+            "control_plane_xor_put": cp["put_launches"],
+            "reencode_replicated": cp["reencode_replicated"]["launches"],
+            "reencode_xor": cp["reencode_xor"]["launches"],
+            "reencode_xor_parity_lost": cp["reencode_xor_parity_lost"]["launches"],
+            "scm_repair": cp["repair_launches"],
+            "control_plane_degraded_get": cp["degraded_launches"],
         })
         launches = sum(paths.values())
         print(f"kernel launches on the main paths: {launches} {paths}")

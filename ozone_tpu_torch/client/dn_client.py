@@ -140,6 +140,12 @@ class LocalDatanodeClient:
     def list_blocks(self, container_id):
         return self.dn.list_blocks(container_id)
 
+    def get_committed_block_length(self, block_id):
+        return self.dn.get_committed_block_length(block_id)
+
+    def delete_block(self, block_id):
+        self.dn.delete_block(block_id)
+
 
 class DatanodeClientFactory:
     """dn_id -> client resolver for in-process datanodes, with the per-peer

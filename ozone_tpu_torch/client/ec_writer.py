@@ -67,6 +67,33 @@ class BlockGroup:
     def block_id(self) -> BlockID:
         return BlockID(self.container_id, self.local_id)
 
+    def to_json(self) -> dict:
+        """The group as the OM stores it in a key row (the reference's
+        fields, so either package reads the other's rows)."""
+        return {
+            "container_id": self.container_id,
+            "local_id": self.local_id,
+            "length": self.length,
+            "nodes": self.pipeline.nodes,
+            "replication": str(self.pipeline.replication),
+            "pipeline_id": self.pipeline.id,
+        }
+
+    @classmethod
+    def from_json(cls, g: dict) -> "BlockGroup":
+        from ozone_tpu_torch.scm.pipeline import ReplicationConfig
+
+        kw = {}
+        if g.get("pipeline_id") is not None:
+            kw["id"] = int(g["pipeline_id"])
+        return cls(
+            container_id=g["container_id"],
+            local_id=g["local_id"],
+            pipeline=Pipeline(ReplicationConfig.parse(g["replication"]),
+                              list(g["nodes"]), **kw),
+            length=g.get("length", 0),
+        )
+
 
 class StripeWriteError(Exception):
     def __init__(self, failed_nodes: list[str], cause: Exception):
@@ -87,17 +114,23 @@ def call_allocate(allocate_group, excluded, excluded_containers):
     return allocate_group(excluded)
 
 
-def create_group_containers(clients, group: BlockGroup) -> None:
-    """Create the group's replica-indexed container on every member,
-    collecting unreachable members into one StripeWriteError so the retry
-    path excludes them and reallocates."""
+def create_group_containers(clients, group: BlockGroup,
+                            replica_indexed: bool) -> None:
+    """Create the group's container on every member, replica-indexed (EC:
+    member i holds index i+1) or not (replicated), collecting unreachable
+    members into one StripeWriteError so the retry path excludes them and
+    reallocates."""
     health = getattr(clients, "health", None)
     failed: list[str] = []
     cause: Optional[Exception] = None
     for i, dn_id in enumerate(group.pipeline.nodes):
         try:
-            clients.get(dn_id).create_container(group.container_id,
-                                                replica_index=i + 1)
+            client = clients.get(dn_id)
+            if replica_indexed:
+                client.create_container(group.container_id,
+                                        replica_index=i + 1)
+            else:
+                client.create_container(group.container_id)
         except StorageError as e:
             if e.code != "CONTAINER_EXISTS":
                 failed.append(dn_id)
@@ -484,7 +517,8 @@ class ECKeyWriter:
                     tuple(self._excluded_containers))
             self._group_chunks = [[] for _ in range(self.k + self.p)]
             try:
-                create_group_containers(self.clients, self._group)
+                create_group_containers(self.clients, self._group,
+                                        replica_indexed=True)
             except StripeWriteError:
                 # discard the group before any data hits it
                 self._group = None

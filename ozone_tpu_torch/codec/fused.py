@@ -1,14 +1,19 @@
-"""Fused EC encode + CRC and decode + CRC: one device pass per stripe batch.
+"""Fused EC encode + CRC, decode + CRC and XOR(1)->RS re-encode + CRC: one
+device pass per stripe batch.
 
-Port of the encoder and decoder of `ozone_tpu/codec/fused.py`. The
-encoder takes a stripe batch [B, k, C] and returns the parity [B, p, C]
-and the CRC of every bytes_per_checksum slice of all k+p units
-[B, k+p, C / bpc]. The decoder takes the v valid units of a batch
-[B, v, C] and returns the e erased units [B, e, C] and their slice CRCs
-[B, e, C / bpc]. Both are one launch of the fused kernel
+Port of `ozone_tpu/codec/fused.py`. The encoder takes a stripe batch
+[B, k, C] and returns the parity [B, p, C] and the CRC of every
+bytes_per_checksum slice of all k+p units [B, k+p, C / bpc]. The decoder
+takes the v valid units of a batch [B, v, C] and returns the e erased
+units [B, e, C] and their slice CRCs [B, e, C / bpc]. The re-encoder
+takes an XOR(1) group [B, k, C] with the XOR parity in the lost data
+unit's slot and returns the recovered unit with the RS parity
+[B, 1+p, C], the CRCs of its k inputs [B, k, S] and of its 1+p outputs
+[B, 1+p, S]. Each is one launch of the fused kernel
 (codec/fused_kernel.py) with the coding matrix as its runtime argument:
 the parity generator for encode, a per-pattern [e, v] recovery matrix for
-decode, so a new erasure pattern builds a small matrix, never a kernel.
+decode, the composed [1+p, k] matrix for re-encode, so a new pattern
+builds a small matrix, never a kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ozone_tpu_torch.codec import lrc_math, rs_math
+from ozone_tpu_torch.codec.gf256 import gf_matmul
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.codec.fused_kernel import fused_encode_crc
 from ozone_tpu_torch.utils import checksum as hostsum
@@ -173,3 +179,65 @@ def make_fused_decoder(spec: FusedSpec, valid: list[int], erased: list[int],
         return rec, crcs
 
     return fn
+
+
+def _reencode_matrix(options: CoderOptions, lost: int) -> np.ndarray:
+    """[1+p, k] GF(2^8) matrix of XOR(1)-decode composed with RS-encode:
+    M = [D[lost]; P D], where D is the k x k XOR-decode matrix (identity
+    rows for the survivors, the all-ones row for slot `lost`, which holds
+    the XOR parity: over GF(2) the lost unit is the XOR of all k slots)
+    and P the Cauchy parity matrix."""
+    k, p = options.data_units, options.parity_units
+    if not 0 <= lost < k:
+        raise ValueError(f"lost unit {lost} is not a data unit of {k}")
+    d = np.eye(k, dtype=np.uint8)
+    d[lost, :] = 1
+    pm = rs_math.parity_matrix(k, p)
+    return np.vstack([d[lost:lost + 1], gf_matmul(pm, d)])
+
+
+@lru_cache(maxsize=64)
+def _reencode_plan_cached(options: CoderOptions, lost: int,
+                          device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_reencode_matrix(options, lost)).to(device)
+
+
+def make_fused_reencoder(spec: FusedSpec, lost: int = 0, device="cuda"):
+    """fn(units uint8 [B, k, C]) -> (out uint8 [B, 1+p, C],
+    units_crcs int32 [B, k, S], out_crcs int32 [B, 1+p, S]), torch tensors
+    on `device`, S = C // bpc (0 when the checksum is not CRC32/CRC32C).
+
+    `units` carries the XOR(1) group with data unit `lost` replaced by the
+    XOR parity in its slot. One launch (crc_in and crc_out) recovers the
+    lost unit (out[:, 0]), computes the RS parity of the full group
+    (out[:, 1:]) and checksums every input and output; its [B, k+1+p, S]
+    CRC rows, inputs first, are split into the two CRC tensors.
+    `reencode_layout_crcs` assembles the k+p EC-layout order on the host;
+    units_crcs[:, lost] checksums the XOR parity slot and goes unused."""
+    dev = resolve_device(device)
+    matrix = _reencode_plan_cached(spec.options, int(lost), dev)
+    poly = _POLY.get(spec.checksum)
+    bpc = spec.bytes_per_checksum
+    k = spec.options.data_units
+
+    def fn(units):
+        units = _to_device(units, dev)
+        out, crcs = fused_encode_crc(units, matrix, poly, bpc)
+        if poly is None:
+            empty = torch.zeros((units.shape[0], 0, 0), dtype=torch.int32,
+                                device=dev)
+            return out, empty, empty
+        return out, crcs[:, :k], crcs[:, k:]
+
+    return fn
+
+
+def reencode_layout_crcs(units_crcs: np.ndarray, out_crcs: np.ndarray,
+                         lost: int) -> np.ndarray:
+    """Assemble re-encode CRCs into EC layout order [B, k+p, S]: data
+    units 0..k-1 (the recovered unit in slot `lost`), then parity."""
+    return np.concatenate(
+        [units_crcs[:, :lost], out_crcs[:, :1],
+         units_crcs[:, lost + 1:], out_crcs[:, 1:]],
+        axis=1,
+    )

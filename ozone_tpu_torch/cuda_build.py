@@ -1,12 +1,16 @@
-"""Build the port's CUDA sources into shared libraries at first use.
+"""Build the port's native sources into shared libraries at first use.
 
-Each `csrc/<name>.cu` exports a plain C interface. It is compiled with
-`nvcc` for `sm_90a` into `_build/lib<name>-<hash>.so`, where the hash
-covers the source and the flags, so an edited source never loads a
-stale library. The library is then loaded with ctypes. Nothing is
-compiled at import time; `load(name)` compiles on its first call in a
-process and caches the handle, and `build_all()` compiles every source
-at once, one `nvcc` process per file.
+Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
+exports a plain C interface. A `.cu` file is compiled with `nvcc` for
+`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2`, into
+`_build/lib<name>-<hash>.so`, where the hash covers the source and the
+flags, so an edited source never loads a stale library. Each compiler
+writes a temporary file that is renamed into place, so processes that
+build the same library at once never load a half-written one. The
+library is then loaded with ctypes. Nothing is compiled at import time;
+`load(name)` compiles on its first call in a process and caches the
+handle, and `build_all()` compiles every source at once, one compiler
+process per file.
 """
 
 from __future__ import annotations
@@ -26,10 +30,13 @@ BUILD = PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: host sources: SSE4.2 for the crc32 instruction (without it the
+#: reference's bitwise fallback compiles instead)
+GXX_FLAGS = ("-O3", "-msse4.2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: name -> (seconds, nvcc's stderr) of the builds this process ran
+#: name -> (seconds, the compiler's output) of the builds this process ran
 build_log: dict[str, tuple[float, str]] = {}
 
 
@@ -41,22 +48,45 @@ def nvcc() -> str:
     return path
 
 
+def gxx() -> str:
+    path = shutil.which("g++") or shutil.which("c++")
+    if path is None:
+        raise RuntimeError("g++ not found: a C++ compiler is required to "
+                           "build the port's host libraries")
+    return path
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cpp"):
+        src = CSRC / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _command(src: Path) -> list[str]:
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS]
+    return [gxx(), *GXX_FLAGS]
+
+
 def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(flags).encode()).hexdigest()[:12]
     return src, BUILD / f"lib{name}-{digest}.so"
 
 
 def _start(name: str):
-    """Start nvcc for `name` unless its library exists; returns
+    """Start the compiler for `name` unless its library exists; returns
     (target, tmp, process, t0) or None."""
     src, so = _target(name)
     if so.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen([*_command(src), "-o", str(tmp), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return so, tmp, proc, time.perf_counter()
@@ -67,14 +97,16 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"compiling csrc/{name} failed:\n{log}")
     os.replace(tmp, so)
     build_log[name] = (time.perf_counter() - t0, log)
 
 
 def build_all() -> dict[str, tuple[float, str]]:
-    """Compile every csrc/*.cu in parallel (one nvcc each) and load them."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    """Compile every csrc source, kernels and host libraries, in parallel
+    (one compiler process each) and load them."""
+    names = sorted({p.stem for p in CSRC.glob("*.cu")}
+                   | {p.stem for p in CSRC.glob("*.cpp")})
     with _lock:
         jobs = {n: _start(n) for n in names if n not in _libs}
         for n, job in jobs.items():
@@ -86,7 +118,7 @@ def build_all() -> dict[str, tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, compiling it if needed."""
+    """The loaded library of csrc/<name>, compiling it if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

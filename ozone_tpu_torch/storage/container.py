@@ -207,6 +207,10 @@ class Container:
                     f"interleaved stream from {writer!r}",
                 )
 
+    def release_writer(self, block_id: BlockID) -> None:
+        with self._lock:
+            self._block_writers.pop(block_id.local_id, None)
+
     # -- block ops --
     def put_block(self, block: BlockData) -> None:
         self.db.put_block(block)
@@ -219,6 +223,9 @@ class Container:
 
     def list_blocks(self) -> list[BlockData]:
         return self.db.list_blocks(self.id)
+
+    def used_bytes(self) -> int:
+        return sum(b.length for b in self.list_blocks())
 
 
 class HddsVolume:

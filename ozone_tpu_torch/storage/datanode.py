@@ -1,14 +1,15 @@
 """Datanode: volumes + container set + the chunk/block verbs.
 
-Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC write,
-its read-back and the scrubber use (the reference's KeyValueHandler verb
-switch): CreateContainer, WriteChunk, ReadChunk (with checksum
-verification), PutBlock, GetBlock, ListBlock, CloseContainer,
-DeleteContainer, the single-writer block fence, the container list and
-the host full-data scan (`scan_container`) that the device scrubber
+Port of the verbs of `ozone_tpu/storage/datanode.py` that the EC and
+replicated writes, their read-back, the scrubber and the SCM use (the
+reference's KeyValueHandler verb switch): CreateContainer, WriteChunk,
+ReadChunk (with checksum verification), PutBlock, GetBlock, ListBlock,
+GetCommittedBlockLength, DeleteBlock, CloseContainer, DeleteContainer,
+the single-writer block fence, the container list and report, and the
+host full-data scan (`scan_container`) that the device scrubber
 (`storage/scrubber.py`) is held against. The scan queue and the daemon
-that runs the scrubber in the background, the volume checker and block
-deletion are not ported yet.
+that runs the scrubber in the background and the volume checker are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -166,6 +167,29 @@ class Datanode:
 
     def list_blocks(self, container_id: int) -> list[BlockData]:
         return self.containers.get(container_id).list_blocks()
+
+    def get_committed_block_length(self, block_id: BlockID) -> int:
+        return self.get_block(block_id).length
+
+    def delete_block(self, block_id: BlockID) -> None:
+        c = self.containers.get(block_id.container_id)
+        c.db.delete_block(block_id)
+        c.chunks.delete_block(block_id)
+        c.release_writer(block_id)
+
+    def container_report(self) -> list[dict]:
+        """Per-container replica report for SCM heartbeats (the reference's
+        full container report)."""
+        return [
+            {
+                "container_id": c.id,
+                "state": c.state.value,
+                "replica_index": c.replica_index,
+                "block_count": len(c.list_blocks()),
+                "used_bytes": c.used_bytes(),
+            }
+            for c in self.containers
+        ]
 
     def close(self) -> None:
         for c in self.containers:

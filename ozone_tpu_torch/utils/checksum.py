@@ -1,18 +1,23 @@
 """Host-side checksums: CRC32 / CRC32C / SHA256 / MD5 over chunk slices.
 
-Port of `ozone_tpu/utils/checksum.py` without the native library: CRC32C
-runs the numpy linear decomposition (crc = L(M) xor crc(0^N)), by bytes
-through a position table for the whole slices of a chunk and by bits for
-other large inputs, and the table-driven loop for small ones; CRC32 is
-zlib. The
-same `_table` backs the CUDA kernel's byte table and its zero-advance
-operators (codec/fused_kernel.py), so device and host CRCs share one
-definition.
+Port of `ozone_tpu/utils/checksum.py`. CRC32C runs on the SSE4.2 crc32
+instruction through the port's own host library (`csrc/host_crc32c.cpp`,
+built by `cuda_build` with g++ at first use and loaded with ctypes, which
+releases the interpreter lock for the call); on a host with no compiler
+it runs the numpy linear decomposition (crc = L(M) xor crc(0^N)), by
+bytes through a position table for the whole slices of a chunk and by
+bits for other large inputs, and the table-driven loop for small ones.
+CRC32 is zlib. The same `_table` backs the CUDA kernel's byte table and
+its zero-advance operators (codec/fused_kernel.py), so device and host
+CRCs share one definition.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import hashlib
+import logging
 import threading
 import zlib
 from dataclasses import dataclass
@@ -20,6 +25,8 @@ from enum import Enum
 from functools import lru_cache
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 #: Reflected polynomials.
 CRC32_POLY = 0xEDB88320  # IEEE, matches zlib.crc32
@@ -128,13 +135,98 @@ def crc_slices(data, n: int, poly: int) -> np.ndarray:
     return np.bitwise_xor.reduce(table[rows + slices], axis=1) ^ zeros_crc
 
 
+_native = False  # tri-state: False = not loaded yet, None = unavailable
+_native_lock = threading.Lock()
+_numpy_forced = False
+
+
+def _native_lib():
+    """The host CRC32C library, built and loaded on first use; None on a
+    host where it cannot be built (no compiler), which then keeps the
+    numpy route, as the reference does without its native library."""
+    global _native
+    if _native is False:
+        with _native_lock:
+            if _native is False:
+                try:
+                    from ozone_tpu_torch import cuda_build
+
+                    lib = cuda_build.load("host_crc32c")
+                    p, i64 = ctypes.c_void_p, ctypes.c_int64
+                    lib.crc32c_hw.argtypes = [p, i64, ctypes.c_uint32]
+                    lib.crc32c_hw.restype = ctypes.c_uint32
+                    lib.crc32c_slices.argtypes = [p, i64, i64, p]
+                    lib.crc32c_slices.restype = None
+                    lib.native_probe.argtypes = []
+                    lib.native_probe.restype = ctypes.c_int
+                    _native = lib
+                except Exception as e:  # noqa: BLE001 - the numpy route
+                    log.warning("host CRC32C library unavailable, using "
+                                "numpy: %s", e)
+                    _native = None
+    return None if _numpy_forced else _native
+
+
+def native_probe() -> int:
+    """What the loaded host library computes CRC32C with: 2 (AVX2 host
+    build) or 1 (SSE4.2 crc32 instruction), 0 for its bitwise loop, -1
+    when no library is loaded (the numpy route)."""
+    lib = _native_lib()
+    return -1 if lib is None else int(lib.native_probe())
+
+
+def route() -> str:
+    """"native" when CRC32C runs in the host library, else "numpy"."""
+    return "numpy" if _native_lib() is None else "native"
+
+
+@contextlib.contextmanager
+def numpy_route():
+    """Run CRC32C on the numpy route inside the block, whether or not the
+    host library is loaded (to hold the two routes against each other)."""
+    global _numpy_forced
+    prev, _numpy_forced = _numpy_forced, True
+    try:
+        yield
+    finally:
+        _numpy_forced = prev
+
+
 def crc32c(data, crc: int = 0) -> int:
-    """CRC32C (Castagnoli), numpy only: the linear decomposition for a
-    fresh CRC over more than 256 bytes, the table loop otherwise."""
+    """CRC32C (Castagnoli): the host library's hardware CRC when it is
+    loaded; else the numpy linear decomposition for a fresh CRC over more
+    than 256 bytes and the table loop otherwise."""
     data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    lib = _native_lib()
+    if lib is not None:
+        return int(lib.crc32c_hw(data.ctypes.data, data.size, crc))
     if crc == 0 and data.size > 256:
         return crc_linear(data, CRC32C_POLY)
     return crc_table_driven(data, CRC32C_POLY, crc)
+
+
+def crc32c_slices(data, bpc: int) -> np.ndarray:
+    """uint32 CRC32C of every bpc-byte slice of `data`, the last one as
+    short as `data` leaves it: one call into the host library, or the
+    numpy route (whole slices by position table up to POSITION_TABLE_MAX
+    bytes, the rest one by one)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    n = -(-data.size // bpc)
+    lib = _native_lib()
+    if lib is not None:
+        out = np.empty(n, dtype=np.uint32)
+        if n:
+            lib.crc32c_slices(data.ctypes.data, data.size, bpc,
+                              out.ctypes.data)
+        return out
+    whole = data.size - data.size % bpc
+    if 0 < whole and bpc <= POSITION_TABLE_MAX:
+        head = crc_slices(data[:whole], bpc, CRC32C_POLY)
+    else:
+        whole = 0
+        head = np.empty(0, dtype=np.uint32)
+    tail = [crc32c(data[o:o + bpc]) for o in range(whole, data.size, bpc)]
+    return np.concatenate([head, np.asarray(tail, dtype=np.uint32)])
 
 
 def crc32(data, crc: int = 0) -> int:
@@ -204,17 +296,14 @@ class Checksum:
         if self.type is ChecksumType.NONE:
             return ChecksumData(self.type, self.bpc)
         data = np.asarray(data, dtype=np.uint8).reshape(-1)
-        start = 0
-        sums: list[bytes] = []
-        if self.type is ChecksumType.CRC32C and self.bpc <= POSITION_TABLE_MAX:
-            # whole slices at once; the short tail, if any, below
-            start = data.size - data.size % self.bpc
-            if start:
-                sums = [int(v).to_bytes(4, "big") for v in
-                        crc_slices(data[:start], self.bpc, CRC32C_POLY).tolist()]
-        sums += [self._one(data[o : o + self.bpc])
-                 for o in range(start, data.size, self.bpc)]
-        return ChecksumData(self.type, self.bpc, tuple(sums))
+        if self.type is ChecksumType.CRC32C:
+            # every slice in one call, the short tail included
+            return ChecksumData(self.type, self.bpc, tuple(
+                int(v).to_bytes(4, "big")
+                for v in crc32c_slices(data, self.bpc).tolist()))
+        return ChecksumData(self.type, self.bpc, tuple(
+            self._one(data[o:o + self.bpc])
+            for o in range(0, data.size, self.bpc)))
 
     def verify(self, data, expected: ChecksumData, offset_hint: str = "") -> None:
         if expected.type is ChecksumType.NONE:

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference():
         print(len(names), bad)
     """)
     count, bad = out.split(" ", 1)
-    assert int(count) >= 32, out
+    assert int(count) >= 49, out
     assert bad.strip() == "[]", out
 
 
@@ -41,11 +41,17 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.codec.lrc_math",
     "ozone_tpu_torch.storage.scrubber",
     "ozone_tpu_torch.utils.config",
+    # the control plane (the minicluster imports every scm/, om/ and
+    # client/ module of it), the re-encode and the host CRC32C
+    "ozone_tpu_torch.testing.minicluster",
+    "ozone_tpu_torch.client.re_encode",
+    "ozone_tpu_torch.utils.checksum",
 ])
 def test_slice_modules_import_alone_without_jax(module):
-    """Each module of the codec-service, LRC and scrubber slice, imported
-    on its own, pulls in neither jax nor the reference package, and
-    importing the service starts no dispatcher thread."""
+    """Each entry module of the codec-service, LRC, scrubber and
+    control-plane slices, imported on its own, pulls in neither jax nor
+    the reference package, and importing the service starts no dispatcher
+    thread."""
     out = _run(f"""
         import importlib, sys, threading
         importlib.import_module("{module}")
@@ -71,6 +77,12 @@ def test_default_device_raises_without_cuda():
         from ozone_tpu_torch.storage.reconstruction import (
             ECReconstructionCoordinator)
         from ozone_tpu_torch.storage.scrubber import DeviceScrubber
+        from ozone_tpu_torch.client.ozone_client import OzoneClient
+        from ozone_tpu_torch.client.re_encode import (
+            re_encode_key_to_ec, re_encode_xor_key_to_rs)
+        from ozone_tpu_torch.codec.fused import make_fused_reencoder
+        from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+        import tempfile
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
         clients = DatanodeClientFactory()
@@ -81,7 +93,13 @@ def test_default_device_raises_without_cuda():
                      lambda: ECKeyWriter(opts, None, clients, block_size=4096),
                      lambda: ECBlockGroupReader(group, opts, clients),
                      lambda: ECReconstructionCoordinator(clients),
-                     lambda: DeviceScrubber()):
+                     lambda: DeviceScrubber(),
+                     lambda: make_fused_reencoder(FusedSpec(opts), 1),
+                     lambda: OzoneClient(None, clients),
+                     lambda: MiniOzoneCluster(tempfile.mkdtemp()),
+                     lambda: re_encode_key_to_ec(None, clients, "v", "b", "k"),
+                     lambda: re_encode_xor_key_to_rs(None, clients, "v", "b",
+                                                     "k")):
             try:
                 make()
             except RuntimeError as e:
@@ -94,10 +112,13 @@ def test_default_device_raises_without_cuda():
 
 
 def test_cuda_build_is_lazy():
-    """Importing the kernel's module compiles nothing and needs no nvcc."""
+    """Importing the kernel's module, the host CRC32C's or the control
+    plane compiles nothing and needs no nvcc or g++."""
     out = _run("""
         from ozone_tpu_torch import cuda_build
         from ozone_tpu_torch.codec import fused_kernel
+        from ozone_tpu_torch.utils import checksum
+        import ozone_tpu_torch.testing.minicluster
         print(len(cuda_build._libs), fused_kernel.launches.count)
     """)
     assert out.split() == ["0", "0"]
@@ -115,3 +136,21 @@ def test_source_names_no_jax(path):
             assert "jax" not in stripped and "ozone_tpu." not in stripped \
                 and not stripped.startswith(("import ozone_tpu ", "from ozone_tpu ")), \
                 f"{path}: {stripped}"
+
+
+def test_host_crc_builds_from_the_port_alone(tmp_path):
+    """The host CRC32C library compiles from the port's own source with
+    SSE4.2 (never from a file under ozone_tpu/), into the port's build
+    directory, and its probe reports the hardware CRC."""
+    out = _run("""
+        from ozone_tpu_torch import cuda_build
+        from ozone_tpu_torch.utils import checksum
+        src, so = cuda_build._target("host_crc32c")
+        cmd = cuda_build._command(src)
+        print(src.relative_to(cuda_build.PKG).as_posix(),
+              so.parent == cuda_build.BUILD, "-msse4.2" in cmd,
+              any("ozone_tpu/" in str(a) for a in cmd),
+              checksum.route(), checksum.native_probe() >= 1)
+    """)
+    assert out.split() == ["csrc/host_crc32c.cpp", "True", "True", "False",
+                           "native", "True"]
