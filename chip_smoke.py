@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--seed N] [--kernel-only]
 
-Builds the port's CUDA kernels (nvcc, sm_90a) and its host CRC32C library
-(g++ -msse4.2) from `ozone_tpu_torch/csrc`, fails unless the host library
-reports the SSE4.2 CRC, holds every kernel against its plain PyTorch
-version on the card, in its RS, XOR and LRC encode forms, its XOR(1)->RS
-re-encode form, its decode forms (RS, LRC local, across groups and
-global) and its scrub form (slice CRCs, no coding rows), then drives the
+Builds the port's CUDA kernels (nvcc, sm_90a) and its host libraries
+(the CRC32C with g++ -msse4.2, the GF coder with -march=native) from
+`ozone_tpu_torch/csrc`, fails unless the host CRC library reports the
+SSE4.2 CRC and the GF coder the AVX2 build, holds every kernel against
+its plain PyTorch version on the card, in its RS, XOR and LRC encode
+forms, its XOR(1)->RS re-encode form, its decode forms (RS, LRC local,
+across groups and global), its scrub form (slice CRCs, no coding rows)
+and the coder SPI's forms (no CRC rows, below), then drives the
 port's main paths, on the shared codec service (the default route) unless
 a phase says otherwise:
 
@@ -38,7 +40,21 @@ a phase says otherwise:
   first XOR key with unit 2's datanode down (the fused re-encode), the
   second with its parity's datanode down (a plain encode); every key is
   re-read byte-exact; then one RS datanode dies and the SCM's own
-  reconstruction commands rebuild its replicas onto spares.
+  reconstruction commands rebuild its replicas onto spares;
+- freon (`freon_path`): the raw coder SPI's rawcoder_bench (rs-6-3 and
+  rs-10-4 on the torch, cpp and numpy coders, xor-6-1 on torch and numpy,
+  B=8, 1 MiB cells; torch's outputs equal numpy's); then on a
+  `MiniOzoneCluster` of 12 datanodes on 3 racks (rs-6-3-1024k, 16 MiB
+  blocks): ockg (48 keys of 16 MiB), ockv, ockrr (64 ranged reads of
+  1 MiB), ecrd (64 MiB, 3 rounds), and the reconstruction storm: the
+  datanode holding the most closed EC containers (at least 8) dies and
+  `ReconstructionStorm.repair_datanode` rebuilds every one, byte-exact.
+
+The kernel cases also hold the coder SPI's two forms of the kernel (no
+CRC rows) against their plain versions: the matrix apply
+(`torch_coder.gf_apply`: RS(6,3) at cells of 1, 100, 4097 B and 1 MiB,
+an RS(10,4) [4, 10] decode) and the XOR reduce (k = 3, 6, 10); the
+kernels' JSON has one entry for each form beside the kernel's own.
 
 Every failure raises. The last line is one JSON object with "ok" and the
 device; the line before it is nvidia-smi's name and power limit, and the
@@ -1442,6 +1458,317 @@ def control_plane_path(device, cell: int, bpc: int, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------- raw coder SPI
+def check_coder_forms(device, cell: int, seed: int) -> dict:
+    """The raw coder SPI's two forms of the kernel (no CRC rows) against
+    their plain versions, exact: the matrix apply (`torch_coder.gf_apply`)
+    with the RS(6,3) generator at cells of 1, 100 and 4097 B and `cell`,
+    and an RS(10,4) [4, 10] decode (units 0-3 from units 4-13), which must
+    also give the erased units; the XOR reduce (`torch_coder.xor_reduce`)
+    over k = 3, 6 and 10 units. Returns the largest difference per form."""
+    from ozone_tpu_torch.codec import rs_math, torch_coder
+    from ozone_tpu_torch.codec.fused_kernel import gf_apply_plain
+
+    rng = np.random.default_rng(seed + 7)
+    worst = {"gf_apply": 0, "xor_reduce": 0}
+
+    def data(b, k, c):
+        return torch.from_numpy(rng.integers(0, 256, (b, k, c), dtype=np.uint8)).to(device)
+
+    def compare(form, name, got, want):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        diff = (got.int() - want.int()).abs().max().item()
+        print(f"{form} kernel vs plain {name}: max_abs_err={diff} out={tuple(got.shape)}")
+        if diff or got.shape != want.shape:
+            raise AssertionError(f"{form} kernel disagrees with plain on {name}")
+        worst[form] = max(worst[form], diff)
+
+    pm = torch.from_numpy(rs_math.parity_matrix(6, 3)).to(device)
+    for c, b in ((1, 8), (100, 8), (4097, 4), (cell, 8)):
+        x = data(b, 6, c)
+        compare("gf_apply", f"rs-6-3 [3, 6] cell={c} B={b} slice="
+                f"{torch_coder.apply_slice(c)}", torch_coder.gf_apply(x, pm),
+                gf_apply_plain(x, pm))
+    x = data(8, 10, cell)
+    units = torch.cat([x, gf_apply_plain(x, torch.from_numpy(
+        rs_math.parity_matrix(10, 4)).to(device))], 1)
+    valid, erased = list(range(4, 14)), [0, 1, 2, 3]
+    dm = torch.from_numpy(rs_math.decode_matrix(10, 4, erased, valid)).to(device)
+    inputs = units[:, valid].contiguous()
+    rec = torch_coder.gf_apply(inputs, dm)
+    compare("gf_apply", f"rs-10-4 decode [4, 10] erased={erased} cell={cell} B=8",
+            rec, gf_apply_plain(inputs, dm))
+    if not torch.equal(rec, units[:, erased]):
+        raise AssertionError("the RS(10,4) decode does not give the erased units")
+    for k in (3, 6, 10):
+        x = data(8, k, cell)
+        compare("xor_reduce", f"[1, {k}] cell={cell} B=8", torch_coder.xor_reduce(x),
+                torch_coder.xor_reduce_plain(x))
+    return worst
+
+
+def time_coder_forms(device, cell: int, seed: int) -> dict:
+    """The two SPI forms at the rawcoder bench's RS(6,3) shape, B=8: the
+    matrix apply [3, 6] (bound: 48 + 24 MiB moved at 1 MiB cells) and the
+    XOR reduce [1, 6] (48 + 8 MiB)."""
+    from ozone_tpu_torch.codec import rs_math, torch_coder
+    from ozone_tpu_torch.codec.fused_kernel import gf_apply_plain
+
+    rng = np.random.default_rng(seed + 8)
+    b = 8
+    x = torch.from_numpy(rng.integers(0, 256, (b, 6, cell), dtype=np.uint8)).to(device)
+    pm = torch.from_numpy(rs_math.parity_matrix(6, 3)).to(device)
+    out = {}
+    for form, p, run, plain in (
+            ("gf_apply", 3, lambda: torch_coder.gf_apply(x, pm),
+             lambda: gf_apply_plain(x, pm)),
+            ("xor_reduce", 1, lambda: torch_coder.xor_reduce(x),
+             lambda: torch_coder.xor_reduce_plain(x))):
+        bound = fused_bound(b, 6, p, cell, cell, rows=0)
+        out[form] = {**time_form(f"{form} [{p}, 6] (no CRC rows) cell={cell} B={b}",
+                                 run, plain, bound, b * 6 * cell),
+                     "bound_by": bound[1]}
+    print("library_ms: none for gf_apply and xor_reduce; no single PyTorch call "
+          "computes a GF(2^8) matrix product, and torch has no bitwise-XOR reduction")
+    return out
+
+
+def rawcoder_phase(device, cell: int) -> dict:
+    """freon's rawcoder_bench at B=8: rs-6-3 and rs-10-4 for the torch,
+    cpp and numpy coders, xor-6-1 for torch and numpy (numpy one timed
+    call, the others three). Fails on an "error" row; the registry must
+    answer torch, cpp, numpy for rs, the cpp coder must be the AVX2 build,
+    kernel launches must equal the torch coder's calls, and the torch
+    coder's parity and decoded units must equal numpy's."""
+    from ozone_tpu_torch.codec import (
+        CoderOptions,
+        cpp_coder,
+        create_decoder,
+        create_encoder,
+        fused_kernel,
+        torch_coder,
+    )
+    from ozone_tpu_torch.codec.registry import CodecRegistry
+    from ozone_tpu_torch.tools import freon
+
+    reg = CodecRegistry.instance()
+    probe = cpp_coder.probe()
+    print(f"coder registry: rs {reg.backends('rs')}, xor {reg.backends('xor')}, "
+          f"lrc {reg.backends('lrc')}, dummy {reg.backends('dummy')}; "
+          f"cpp coder probe {probe} (2 = AVX2 nibble shuffle, 0 = scalar loop)")
+    if reg.backends("rs") != ["torch", "cpp", "numpy"]:
+        raise AssertionError(f"registry order for rs: {reg.backends('rs')}")
+    if probe < 2:
+        raise AssertionError("the cpp coder is not the AVX2 build")
+    enc = create_encoder(CoderOptions(6, 3, "rs", cell), device=device)
+    before = fused_kernel.launches.count
+    enc.encode(np.zeros((1, 6, cell), dtype=np.uint8))
+    if not isinstance(enc, torch_coder.TorchRSEncoder) or (
+            device.type == "cuda" and fused_kernel.launches.count - before != 1):
+        raise AssertionError(f"the registry's default rs encoder ({type(enc).__name__}) "
+                             "did not launch the kernel")
+
+    runs = (("rs-6-3", ["torch", "cpp"], 3), ("rs-6-3", ["numpy"], 1),
+            ("rs-10-4", ["torch", "cpp"], 3), ("rs-10-4", ["numpy"], 1),
+            ("xor-6-1", ["torch"], 3), ("xor-6-1", ["numpy"], 1))
+    calls = {"gf_apply": 0, "xor_reduce": 0}
+    fused_kernel.launches.reset()
+    torch_coder.apply_launches.reset()
+    torch_coder.xor_launches.reset()
+    rows = []
+    for schema, backends, iters in runs:
+        rows += freon.rawcoder_bench(backends, schema, cell, 8, iters, device=device)
+        if "torch" in backends:  # a warm-up and `iters` calls, each way
+            calls["xor_reduce" if schema.startswith("xor") else "gf_apply"] += 2 * (iters + 1)
+    out = {"rows": rows, "launches": fused_kernel.launches.count,
+           "gf_apply_launches": torch_coder.apply_launches.count,
+           "xor_reduce_launches": torch_coder.xor_launches.count}
+    for r in rows:
+        print(f"rawcoder_bench cell={cell} B=8: {json.dumps(r)}")
+    if any("error" in r for r in rows):
+        raise AssertionError("a rawcoder_bench row failed")
+    print(f"rawcoder_bench: kernel launches {out['launches']} (gf_apply "
+          f"{out['gf_apply_launches']}, xor_reduce {out['xor_reduce_launches']}) for "
+          f"torch coder calls {calls}")
+    if device.type == "cuda" and (
+            out["gf_apply_launches"] != calls["gf_apply"]
+            or out["xor_reduce_launches"] != calls["xor_reduce"]
+            or out["launches"] != sum(calls.values())):
+        raise AssertionError("rawcoder_bench: kernel launches differ from the torch "
+                             "coder's calls")
+    for schema in ("rs-6-3", "rs-10-4", "xor-6-1"):
+        codec, k, p = schema.split("-")
+        opts = CoderOptions(int(k), int(p), codec, cell)
+        data = np.random.default_rng(2).integers(0, 256, (8, opts.data_units, cell),
+                                                 dtype=np.uint8)
+        parity = create_encoder(opts, "numpy").encode(data)
+        if not np.array_equal(create_encoder(opts, "torch", device).encode(data), parity):
+            raise AssertionError(f"{schema}: torch parity differs from numpy's")
+        units = np.concatenate([data, parity], axis=1)
+        erased = list(range(min(2, opts.parity_units)))
+        inputs = [None if i in erased else units[:, i] for i in range(opts.all_units)]
+        got = create_decoder(opts, "torch", device).decode(inputs, erased)
+        if not (np.array_equal(got, create_decoder(opts, "numpy").decode(inputs, erased))
+                and np.array_equal(got, units[:, erased])):
+            raise AssertionError(f"{schema}: torch decode differs from numpy's")
+    print("rawcoder_bench: torch parity and decoded units equal numpy's (rs-6-3, "
+          "rs-10-4, xor-6-1)")
+    return out
+
+
+def freon_path(device, cell: int, bpc: int, seed: int) -> dict:
+    """Freon's EC generators and the reconstruction storm, on the codec
+    service, after the rawcoder bench: a MiniOzoneCluster of 12 datanodes
+    on 3 racks, rs-6-3 at `cell`, CRC32C over bpc, blocks of 16 cells and
+    containers of three blocks.
+    - ockg: 48 keys of one block (8 threads, one warm-up key), then ockv
+      over all 48 and ockrr with 64 ranged reads of one cell; no failures,
+      launches = service dispatches;
+    - ecrd: a key of 64 cells, 3 rounds (freon's defaults at 1 MiB);
+    - the storm: every container closed, the datanode with the most
+      closed EC containers (at least 8) dies (the SCM's liveness sweep
+      declares it DEAD), and `ReconstructionStorm.repair_datanode` rebuilds
+      all of them; every rebuilt chunk must equal the lost one, with
+      stored CRCs equal to the host CRC32C, and launches = dispatches."""
+    from ozone_tpu_torch.client.reconstruction import ReconstructionStorm
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.scm.pipeline import ReplicationType
+    from ozone_tpu_torch.storage.ids import ContainerState
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+    from ozone_tpu_torch.tools import freon
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    out = {"rawcoder": rawcoder_phase(device, cell)}
+    block = 16 * cell
+    ec = f"rs-6-3-{cell // 1024}k"
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-freon-") as tmp:
+        cluster = MiniOzoneCluster(Path(tmp), num_datanodes=12, racks=3, block_size=block,
+                                   container_size=3 * block, stale_after_s=1e6,
+                                   dead_after_s=2e6, placement_seed=seed, device=device)
+        try:
+            oz = cluster.client()
+
+            def generator(what, run):
+                before = service_counts()
+                fused_kernel.launches.reset()
+                rep = run()
+                launches = fused_kernel.launches.count
+                check_launches_equal(what, device, launches, service_delta(before))
+                if isinstance(rep, dict):
+                    print(f"{what}: {json.dumps(rep)}")
+                    return rep, launches
+                summary = {k: v for k, v in rep.summary().items() if k != "histogram"}
+                print(f"{what}: {json.dumps(summary)}")
+                if rep.failures or not rep.ops:
+                    raise AssertionError(f"{what}: {rep.failures} failures of {rep.ops}")
+                return summary, launches
+
+            out["ockg"], out["ockg_launches"] = generator(
+                f"ockg 48 keys of {block} B {ec}, 8 threads", lambda: freon.ockg(
+                    oz, n_keys=48, size=block, threads=8, replication=ec, warmup=1))
+            out["ockv"], out["ockv_launches"] = generator(
+                "ockv 48 keys", lambda: freon.ockv(oz, n_keys=48, size=block, threads=8))
+            out["ockrr"], out["ockrr_launches"] = generator(
+                f"ockrr 64 reads of {cell} B", lambda: freon.ockrr(
+                    oz, 64, threads=8, size=cell, n_keys=48))
+            out["ecrd"], out["ecrd_launches"] = generator(
+                f"ecrd {64 * cell} B, 3 rounds", lambda: freon.ecrd(
+                    oz, cluster.scm, size=64 * cell, rounds=3, replication=ec))
+            print(f"ecrd: reconstruct_mib_s_per_datanode "
+                  f"{out['ecrd']['reconstruct_mib_s_per_datanode']}")
+
+            # the storm: close every container, let the SCM see the reports
+            for dn in cluster.datanodes:
+                for c in dn.list_containers():
+                    if c.state is ContainerState.OPEN:
+                        dn.close_container(c.id)
+            cluster.tick()
+            cluster.heartbeat_all()
+            held: dict[str, list] = {}
+            for c in cluster.scm.containers.containers():
+                if c.replication.type is ReplicationType.EC \
+                        and c.state is ContainerState.CLOSED:
+                    for dn_id in c.replicas:
+                        held.setdefault(dn_id, []).append(c)
+            victim = max(sorted(held), key=lambda d: len(held[d]))
+            if len(held[victim]) < 8:
+                raise AssertionError(f"{victim} holds {len(held[victim])} closed EC "
+                                     "containers; the storm needs 8")
+            vdn = cluster.datanode(victim)
+            lost = {}  # container id -> (replica index, [(BlockID, [(ChunkInfo, bytes)])])
+            for c in held[victim]:
+                lost[c.id] = (c.replicas[victim].replica_index, [
+                    (bd.block_id, [(i, vdn.read_chunk(bd.block_id, i)) for i in bd.chunks])
+                    for bd in vdn.list_blocks(c.id)])
+            kill_datanode(cluster, victim)
+            storm = ReconstructionStorm(cluster.scm, cluster.clients, device=device)
+            plans: list = []
+            plan = storm.plan
+            storm.plan = lambda dn_id: plans.append(plan(dn_id)) or plans[-1]
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since = time.time()
+            report = storm.repair_datanode(victim)
+            out["storm_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            print(f"storm spans: {span_totals(since)}")
+            planned = {cmd.container_id: cmd for cmd in plans[0]}
+            print(f"storm plan: {len(planned)} containers, {len(lost)} closed ones held "
+                  f"by {victim}: " + ", ".join(
+                      f"{cid} {sorted(cmd.targets.items())}" for cid, cmd in
+                      sorted(planned.items())))
+            if not report.ok or report.containers_repaired != report.containers_planned \
+                    or set(lost) != set(planned):
+                raise AssertionError(f"storm: {report}")
+            host = Checksum(ChecksumType.CRC32C, bpc)
+            per_target: dict[str, int] = {}
+            n_chunks = 0
+            for cmd in plans[0]:
+                idx, blocks = lost[cmd.container_id]
+                target = cmd.targets[idx]
+                dst = cluster.datanode(target)
+                c = dst.containers.get(cmd.container_id)
+                if c.state is not ContainerState.CLOSED or c.replica_index != idx:
+                    raise AssertionError(f"rebuilt container {cmd.container_id} on {target}"
+                                         f" is {c.state.value}, index {c.replica_index}")
+                for bid, chunks in blocks:
+                    rebuilt = dst.get_block(bid).chunks
+                    if [(i.offset, i.length) for i, _ in chunks] != \
+                            [(i.offset, i.length) for i in rebuilt]:
+                        raise AssertionError(f"rebuilt chunk list of {bid} differs")
+                    for (_, want), info in zip(chunks, rebuilt):
+                        got = dst.read_chunk(bid, info)
+                        if not np.array_equal(got, want):
+                            raise AssertionError(f"rebuilt chunk {info.name} differs")
+                        if host.compute(got).checksums != info.checksum.checksums:
+                            raise AssertionError(f"stored CRCs of rebuilt {info.name} "
+                                                 "!= host CRC32C")
+                        per_target[target] = per_target.get(target, 0) + info.length
+                        n_chunks += 1
+            mib_s = {t: n / report.elapsed_s / MIB for t, n in sorted(per_target.items())}
+            print(f"storm: {victim} dead; {report.containers_repaired} of "
+                  f"{report.containers_planned} planned containers repaired in "
+                  f"{report.elapsed_s:.3f} s, {n_chunks} rebuilt chunks equal the lost "
+                  f"ones, CRCs equal host CRC32C; " + ", ".join(
+                      f"{t} {per_target[t]} B = {r:.1f} MiB/s" for t, r in mib_s.items())
+                  + f" per target, {sum(per_target.values()) / report.elapsed_s / MIB:.1f} "
+                  f"MiB/s in all; decode launches {out['storm_launches']}, service "
+                  f"dispatches {svc['dispatches']} of {svc['submissions']} submissions, "
+                  f"multi_op_dispatches {svc['multi_op_dispatches']}")
+            if device.type == "cuda" and (out["storm_launches"] <= 0
+                                          or out["storm_launches"] != svc["dispatches"]):
+                raise AssertionError(f"storm: {out['storm_launches']} kernel launches for "
+                                     f"{svc['dispatches']} service dispatches")
+            out["storm"] = {"containers": report.containers_repaired,
+                            "elapsed_s": report.elapsed_s, "mib_s_per_target": mib_s,
+                            "multi_op_dispatches": svc["multi_op_dispatches"],
+                            "dispatches": svc["dispatches"]}
+        finally:
+            cluster.close()
+    return out
+
+
 def check_launches_equal(what: str, device, launches: int, svc: dict) -> None:
     print(f"{what}: kernel launches {launches}, service dispatches {svc['dispatches']}")
     if device.type == "cuda" and launches != svc["dispatches"]:
@@ -1478,6 +1805,11 @@ def main() -> int:
           "(1 = SSE4.2 crc32, 2 = AVX2 build, 0 = bitwise loop, -1 = numpy)")
     if checksum.route() != "native" or probe < 1:
         raise AssertionError("the host CRC32C library is not on the SSE4.2 route")
+    from ozone_tpu_torch.codec import cpp_coder
+
+    print(f"host GF coder: probe() = {cpp_coder.probe()} (2 = AVX2, 0 = scalar loop)")
+    if cpp_coder.probe() < 2:
+        raise AssertionError("the host GF coder is not the AVX2 build")
 
     from ozone_tpu_torch.codec import fused_kernel
 
@@ -1533,6 +1865,9 @@ def main() -> int:
     forms["reencode"] = time_reencode(device, MIB, bpc, 8, args.seed)
     print("library_ms: none; no single PyTorch call computes a GF(2^8) "
           "matrix apply with slice CRCs")
+    # the raw coder SPI's forms: no CRC rows
+    coder_err = check_coder_forms(device, MIB, args.seed)
+    coder_timed = time_coder_forms(device, MIB, args.seed)
 
     launches = paths = None
     if not args.kernel_only:
@@ -1543,6 +1878,9 @@ def main() -> int:
                               args.seed)
         lrc = lrc_path(device, [384 * MIB, MIB + 12345], MIB, bpc, args.seed)
         cp = control_plane_path(device, MIB, bpc, args.seed)
+        t_freon = time.perf_counter()
+        fr = freon_path(device, MIB, bpc, args.seed)
+        print(f"freon_path: {time.perf_counter() - t_freon:.1f} s")
         paths = {
             f"rs63_{name}_{route}": sum(r["launches"] for r in runs[route])
             for name, runs in (("put", put), ("small_puts", small))
@@ -1557,9 +1895,18 @@ def main() -> int:
             "reencode_xor_parity_lost": cp["reencode_xor_parity_lost"]["launches"],
             "scm_repair": cp["repair_launches"],
             "control_plane_degraded_get": cp["degraded_launches"],
+            "rawcoder_bench": fr["rawcoder"]["launches"],
+            "freon_ockg": fr["ockg_launches"], "freon_ockv": fr["ockv_launches"],
+            "freon_ockrr": fr["ockrr_launches"], "freon_ecrd": fr["ecrd_launches"],
+            "storm": fr["storm_launches"],
         })
         launches = sum(paths.values())
-        print(f"kernel launches on the main paths: {launches} {paths}")
+        form_launches = {form: fr["rawcoder"][f"{form}_launches"]
+                         for form in ("gf_apply", "xor_reduce")}
+        print(f"kernel launches on the main paths: {launches} {paths}; of them "
+              f"through the coder SPI's forms {form_launches}")
+    else:
+        form_launches = {"gf_apply": None, "xor_reduce": None}
     from ozone_tpu_torch.codec import service as codec_service
 
     codec_service.reset_for_tests()  # stops the service's dispatcher thread
@@ -1576,7 +1923,17 @@ def main() -> int:
         **{f"{form}_{key}": value for form, timing in forms.items()
            for key, value in timing.items()},
         "launches_by_path": paths,
-    }]}))
+    }] + [{
+        "name": f"fused_encode_crc as {form} (no CRC rows)", "route": "cuda",
+        "source": "ozone_tpu_torch/csrc/fused_encode_crc.cu",
+        "replaces": replaces, "launches": form_launches[form],
+        "max_abs_err": coder_err[form], "ms": coder_timed[form]["ms"],
+        "ms_in_run": coder_timed[form]["ms_in_run"],
+        "plain_ms": coder_timed[form]["plain_ms"],
+        "bound_ms": coder_timed[form]["bound_ms"],
+        "bound_by": coder_timed[form]["bound_by"], "library_ms": None,
+    } for form, replaces in (("gf_apply", "ozone_tpu/codec/jax_coder.py:108"),
+                             ("xor_reduce", "ozone_tpu/codec/jax_coder.py:177"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

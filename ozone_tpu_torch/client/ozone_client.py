@@ -118,9 +118,12 @@ class OzoneBucket:
         METRICS.histogram("put_seconds").observe(
             time.perf_counter() - t0, sp.trace_id)
 
+    def lookup_key_info(self, key: str) -> dict:
+        """The key's info row (snapshot paths are not ported)."""
+        return self.client.om.lookup_key(self.volume, self.name, key)
+
     def read_key(self, key: str) -> np.ndarray:
-        return self.read_key_info(self.client.om.lookup_key(
-            self.volume, self.name, key))
+        return self.read_key_info(self.lookup_key_info(key))
 
     def read_key_info(self, info: dict) -> np.ndarray:
         """A key's bytes from already-fetched key info."""

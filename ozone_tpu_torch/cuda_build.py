@@ -2,15 +2,17 @@
 
 Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
 exports a plain C interface. A `.cu` file is compiled with `nvcc` for
-`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2`, into
-`_build/lib<name>-<hash>.so`, where the hash covers the source and the
-flags, so an edited source never loads a stale library. Each compiler
-writes a temporary file that is renamed into place, so processes that
-build the same library at once never load a half-written one. The
-library is then loaded with ctypes. Nothing is compiled at import time;
-`load(name)` compiles on its first call in a process and caches the
-handle, and `build_all()` compiles every source at once, one compiler
-process per file.
+`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2` (the GF coder with
+`-O3 -march=native -pthread`, as the reference builds its native coder),
+into `_build/lib<name>-<hash>.so`, where the hash covers the source and
+the flags, and for `-march=native` what the compiler makes of it on this
+host, so an edited source, or a library built for another CPU, never
+loads. Each compiler writes a temporary file that is renamed into place,
+so processes that build the same library at once never load a
+half-written one. The library is then loaded with ctypes. Nothing is
+compiled at import time; `load(name)` compiles on its first call in a
+process and caches the handle, and `build_all()` compiles every source
+at once, one compiler process per file.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from functools import lru_cache
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -33,6 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: host sources: SSE4.2 for the crc32 instruction (without it the
 #: reference's bitwise fallback compiles instead)
 GXX_FLAGS = ("-O3", "-msse4.2", "-shared", "-fPIC", "-std=c++17")
+#: host sources with flags of their own: the GF coder is built for the
+#: host's own vector units (AVX2 where it has them), with the flags of
+#: the reference's native coder (ozone_tpu/native/__init__.py:53-54)
+HOST_FLAGS = {
+    "gf_coder": ("-O3", "-march=native", "-pthread", "-shared", "-fPIC",
+                 "-std=c++17"),
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -64,17 +74,32 @@ def _source(name: str) -> Path:
     raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
 
 
-def _command(src: Path) -> list[str]:
+def _flags(src: Path) -> tuple[str, ...]:
     if src.suffix == ".cu":
-        return [nvcc(), *NVCC_FLAGS]
-    return [gxx(), *GXX_FLAGS]
+        return NVCC_FLAGS
+    return HOST_FLAGS.get(src.stem, GXX_FLAGS)
+
+
+def _command(src: Path) -> list[str]:
+    return [nvcc() if src.suffix == ".cu" else gxx(), *_flags(src)]
+
+
+@lru_cache(maxsize=None)
+def _native_target() -> bytes:
+    """The compiler's predefined macros under -march=native: which vector
+    extensions "native" turns on for this host's CPU."""
+    return subprocess.run(
+        [gxx(), "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+        capture_output=True, check=True, timeout=120).stdout
 
 
 def _target(name: str) -> tuple[Path, Path]:
     src = _source(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:12]
+    flags = _flags(src)
+    key = src.read_bytes() + " ".join(flags).encode()
+    if "-march=native" in flags:
+        key += _native_target()
+    digest = hashlib.sha256(key).hexdigest()[:12]
     return src, BUILD / f"lib{name}-{digest}.so"
 
 

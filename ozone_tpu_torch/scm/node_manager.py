@@ -135,6 +135,9 @@ class NodeManager:
     def get(self, dn_id: str) -> Optional[NodeInfo]:
         return self._nodes.get(dn_id)
 
+    def nodes(self) -> list[NodeInfo]:
+        return list(self._nodes.values())
+
     def healthy_in_service(self) -> list[NodeInfo]:
         return [
             n

@@ -64,6 +64,9 @@ class StorageContainerManager:
             self.deleted_blocks, self.nodes
         )
         self.metrics = MetricsRegistry("scm")
+        #: dead node -> ids of the containers whose replicas the SCM
+        #: forgot at its death (the reconstruction storm's plan reads it)
+        self.dead_node_containers: dict[str, list[int]] = {}
         self.events.subscribe(nm.DEAD_NODE, self._on_dead_node)
 
     # ------------------------------------------------------------- datanodes
@@ -107,6 +110,7 @@ class StorageContainerManager:
                      dn_id)
             return
         affected = self.containers.remove_replicas_of_node(dn_id)
+        self.dead_node_containers[dn_id] = affected
         log.info("node %s dead; %d containers affected", dn_id, len(affected))
         self.metrics.counter("dead_nodes").inc()
 
@@ -131,6 +135,33 @@ class StorageContainerManager:
         ]
         self.metrics.counter("block_delete_txs").inc(len(tx_ids))
         return tx_ids
+
+    def status(self) -> dict:
+        """Safemode, the nodes with their usage columns and the container
+        count: the body of the SCM service's Status answer
+        (ozone_tpu/net/scm_service.py `_status`), read in process. The
+        port has no block tokens, layout versions or pipeline safemode
+        rules yet, so their fields are left out."""
+        return {
+            "safemode": self.safemode.in_safemode(),
+            "safemode_status": self.safemode.status(),
+            "nodes": [
+                {
+                    "dn_id": n.dn_id,
+                    "rack": n.rack,
+                    "state": n.state.value,
+                    "op_state": n.op_state.value,
+                    "capacity_bytes": n.capacity_bytes,
+                    "used_bytes": n.used_bytes,
+                    "used_pct": round(
+                        100.0 * n.used_bytes / n.capacity_bytes, 2)
+                    if n.capacity_bytes else None,
+                    "healthy_volumes": n.healthy_volumes,
+                }
+                for n in self.nodes.nodes()
+            ],
+            "containers": len(self.containers.containers()),
+        }
 
     # ------------------------------------------------------------- background
     def run_background_once(self) -> None:

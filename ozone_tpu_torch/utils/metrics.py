@@ -3,13 +3,15 @@
 A trimmed copy of `ozone_tpu/utils/metrics.py` holding what the port's
 datanode and codec service record: counters, gauges, and timing
 histograms whose observations may carry the trace id of the operation
-they belong to (the latest per bucket is kept as its exemplar).
+they belong to (the latest per bucket is kept as its exemplar), with the
+reference's bucket bounds and bucket-quantile estimates.
 `registry(name)` returns the process-wide registry of that name. No
 exporters yet.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -36,8 +38,17 @@ class Gauge:
             self.value = v
 
 
-#: log-spaced latency bucket bounds in seconds (100 us .. 10 s)
-DEFAULT_BUCKETS = tuple(1e-4 * (10 ** (i / 4)) for i in range(21))
+def log_buckets(lo: float = 1e-4, hi: float = 100.0,
+                per_decade: int = 3) -> tuple[float, ...]:
+    """Log-spaced bucket upper bounds covering [lo, hi]."""
+    n = int(round(per_decade * math.log10(hi / lo)))
+    return tuple(
+        round(lo * (hi / lo) ** (i / n), 10) for i in range(n + 1)
+    )
+
+
+#: latency bucket bounds in seconds: 100 us .. 100 s, 3 per decade
+DEFAULT_BUCKETS = log_buckets()
 
 
 class Histogram:
@@ -49,6 +60,8 @@ class Histogram:
         self._lock = threading.Lock()
         self.count = 0
         self.total = 0.0
+        self.min = float("inf")
+        self.max = 0.0
         #: bucket index -> (seconds, trace id) of its latest traced sample
         self.exemplars: dict[int, tuple[float, str]] = {}
 
@@ -59,12 +72,38 @@ class Histogram:
             self._counts[idx] += 1
             self.count += 1
             self.total += seconds
+            self.min = min(self.min, seconds)
+            self.max = max(self.max, seconds)
             if trace_id:
                 self.exemplars[idx] = (seconds, trace_id)
 
     @property
     def mean(self) -> float:
         return self.total / self.count if self.count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Estimate the q-quantile by linear interpolation within the
+        containing bucket (what a PromQL histogram_quantile would see)."""
+        with self._lock:
+            if not self.count:
+                return 0.0
+            target = q * self.count
+            cum = 0
+            for i, c in enumerate(self._counts):
+                if not c:
+                    continue
+                if cum + c >= target:
+                    lo = self.bounds[i - 1] if i > 0 else 0.0
+                    hi = (self.bounds[i] if i < len(self.bounds)
+                          else max(self.max, lo))
+                    frac = (target - cum) / c
+                    return lo + (hi - lo) * frac
+                cum += c
+            return self.max
+
+    def percentiles(self) -> dict:
+        return {"p50": self.quantile(0.50), "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99)}
 
     @contextmanager
     def time(self):

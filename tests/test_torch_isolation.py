@@ -46,6 +46,14 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.testing.minicluster",
     "ozone_tpu_torch.client.re_encode",
     "ozone_tpu_torch.utils.checksum",
+    # the raw coder SPI, freon and the reconstruction storm
+    "ozone_tpu_torch.codec",
+    "ozone_tpu_torch.codec.registry",
+    "ozone_tpu_torch.codec.torch_coder",
+    "ozone_tpu_torch.codec.cpp_coder",
+    "ozone_tpu_torch.codec.numpy_coder",
+    "ozone_tpu_torch.client.reconstruction",
+    "ozone_tpu_torch.tools.freon",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -109,6 +117,53 @@ def test_default_device_raises_without_cuda():
         print("ok")
     """)
     assert out.strip() == "ok"
+
+
+def test_coder_spi_entry_points_raise_without_cuda():
+    """The torch coders, the storm and the registry's torch backend take
+    the card by default and raise without it; the registry then falls
+    back at construction to the host coders."""
+    out = _run("""
+        import torch
+        from ozone_tpu_torch.codec import CoderOptions, create_encoder
+        from ozone_tpu_torch.codec import torch_coder
+        from ozone_tpu_torch.client.reconstruction import ReconstructionStorm
+        from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+        assert not torch.cuda.is_available()
+        rs, xor = CoderOptions.parse("rs-6-3"), CoderOptions.parse("xor-6-1")
+        for make in (lambda: torch_coder.TorchRSEncoder(rs),
+                     lambda: torch_coder.TorchRSDecoder(rs),
+                     lambda: torch_coder.TorchXOREncoder(xor),
+                     lambda: torch_coder.TorchXORDecoder(xor),
+                     lambda: torch_coder.encode_fn(rs),
+                     lambda: create_encoder(rs, "torch"),
+                     lambda: ReconstructionStorm(None, DatanodeClientFactory())):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError("no error without CUDA")
+        print(type(create_encoder(rs)).__name__,
+              type(create_encoder(xor)).__name__)
+    """)
+    assert out.split() == ["CppRSEncoder", "NumpyXOREncoder"]
+
+
+def test_registry_builds_nothing_for_the_card():
+    """Creating the registry builds the host GF coder (g++) and neither
+    the CUDA kernel nor a CUDA context; importing the codec package
+    creates no registry."""
+    out = _run("""
+        import torch
+        import ozone_tpu_torch.codec as codec
+        from ozone_tpu_torch import cuda_build
+        from ozone_tpu_torch.codec.registry import CodecRegistry
+        before = CodecRegistry._instance is None
+        CodecRegistry.instance()
+        print(before, sorted(cuda_build._libs), torch.cuda.is_initialized())
+    """)
+    assert out.split() == ["True", "['gf_coder']", "False"]
 
 
 def test_cuda_build_is_lazy():
