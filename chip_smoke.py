@@ -48,7 +48,20 @@ a phase says otherwise:
   blocks): ockg (48 keys of 16 MiB), ockv, ockrr (64 ranged reads of
   1 MiB), ecrd (64 MiB, 3 rounds), and the reconstruction storm: the
   datanode holding the most closed EC containers (at least 8) dies and
-  `ReconstructionStorm.repair_datanode` rebuilds every one, byte-exact.
+  `ReconstructionStorm.repair_datanode` rebuilds every one, byte-exact;
+- the daemon cluster (`daemon_path`): an ScmOmDaemon and 12
+  DatanodeDaemons on loopback on 3 racks, driven through a remote
+  OzoneClient over the port's RPC: the PUT phase's four keys
+  concurrently (GiB/s beside the in-process rate of the same keys), a GET
+  over the RPC and through in-process clients, a degraded GET with two
+  holders' servers stopped, an admin close of the containers, a
+  datanode's death and the SCM's ReconstructionCommands over heartbeats
+  (the rebuilt chunks equal the lost ones), and `scan_once` on every live
+  daemon; then `python -m ozone_tpu_torch.tools cluster --datanodes 10
+  --device cuda` as processes, driven through the CLI (`sh volume/bucket
+  create`, `sh key put/get` of 64 MiB + 12 345 B with a byte compare,
+  `freon ockg -n 16 -s 16777216`, `admin status`: 10 HEALTHY) and torn
+  down by pid.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -56,9 +69,10 @@ CRC rows) against their plain versions: the matrix apply
 an RS(10,4) [4, 10] decode) and the XOR reduce (k = 3, 6, 10); the
 kernels' JSON has one entry for each form beside the kernel's own.
 
-Every failure raises. The last line is one JSON object with "ok" and the
-device; the line before it is nvidia-smi's name and power limit, and the
-one before that the kernels' JSON line. --kernel-only stops after the
+Every failure raises. A line "phase seconds" gives each phase's command
+time. The last line is one JSON object with "ok" and the device; the line
+before it is nvidia-smi's name and power limit, and the one before that
+the kernels' JSON line. --kernel-only stops after the
 build, the kernel cases and the timings (no main paths; the kernels' JSON
 then has "launches": null) and prints the same last lines.
 
@@ -676,10 +690,11 @@ def put_run(device, opts, keys, bpc: int, seed: int, route: str, what: str,
 
 #: route order of a paired comparison in one call, after one unmeasured
 #: run on each route (the first runs pay for new pinned and device
-#: memory): the direct route against the service, alternated
-WARMUP, ROUTES = ("service", "direct"), ("direct", "service", "service", "direct")
-#: host CRC32C routes of the healthy RS(10,4) GET, alternated in one call
-CRC_ROUTES = ("native", "numpy", "numpy", "native")
+#: memory): one run on the direct route, one on the service (two of each
+#: until the daemon phase needed the run time)
+WARMUP, ROUTES = ("service", "direct"), ("direct", "service")
+#: host CRC32C routes of the healthy RS(10,4) GET, one run each
+CRC_ROUTES = ("native", "numpy")
 
 
 def compare_routes(device, opts, keys, bpc: int, seed: int, what: str,
@@ -901,7 +916,7 @@ def read_repair_path(device, key_sizes, cell: int, bpc: int, seed: int) -> dict:
                 raise AssertionError("rs-10-4 PUT: launches differ from service dispatches")
 
             # the healthy GET with the datanodes' CRC check on each host
-            # CRC32C route, alternated: native, numpy, numpy, native
+            # CRC32C route: native, then numpy
             crc_rates: dict[str, list[float]] = {"native": [], "numpy": []}
             for route in CRC_ROUTES:
                 fused_kernel.launches.reset()
@@ -1776,6 +1791,440 @@ def check_launches_equal(what: str, device, launches: int, svc: dict) -> None:
                              f"{svc['dispatches']} service dispatches")
 
 
+# ------------------------------------------------------------- daemon path
+def restart_server(d) -> None:
+    """Serve a daemon's datanode verbs again on its old port after its server
+    was stopped (the registered address stays valid)."""
+    from ozone_tpu_torch.net.dn_service import DatanodeRpcService
+    from ozone_tpu_torch.net.rpc import RpcServer
+
+    d.server = RpcServer(port=d.server.port)
+    d.service = DatanodeRpcService(d.dn, d.server)
+    d.server.start()
+
+
+def wait_for(what: str, cond, timeout_s: float, poll_s: float = 0.1) -> float:
+    """Poll cond() until true; seconds waited. Raises after timeout_s."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{what}: not within {timeout_s} s")
+        time.sleep(poll_s)
+    return time.perf_counter() - t0
+
+
+def concurrent(fn, items) -> list:
+    """fn(item) for every item, each on its own thread, in item order."""
+    out: list = [None] * len(items)
+    errors: list = []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise TimeoutError("a concurrent operation did not finish")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
+                              in_process_put_gib_s: float) -> dict:
+    """One ScmOmDaemon and 12 DatanodeDaemons on loopback on 3 racks, the
+    codec on `device`, driven through a remote OzoneClient: the PUT phase's
+    four keys concurrently, a GET, a degraded GET with two holders'
+    servers stopped, an admin close of the containers, a datanode's death
+    and the SCM's reconstruction over heartbeats, and a scrub of every
+    live daemon's closed containers."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.scm.node_manager import NodeState
+    from ozone_tpu_torch.storage.ids import BlockID, ContainerState, StorageError
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    rng = np.random.default_rng(seed)
+    sizes = [192 * cell, 192 * cell, 96 * cell + 12345, cell + 7]
+    keys = [rng.integers(0, 256, n, dtype=np.uint8) for n in sizes]
+    total = sum(sizes)
+    out: dict = {}
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-dm-") as tmp:
+        root = Path(tmp)
+        meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
+                           container_size=256 * cell, stale_after_s=3.0,
+                           dead_after_s=6.0, background_interval_s=0.5,
+                           placement_seed=seed)
+        meta.start()
+        dns = []
+        clients = DatanodeClientFactory()
+        om = RemoteOmClient(meta.address, clients=clients)
+        scm = RemoteScmClient(meta.address)
+        try:
+            for i in range(12):
+                d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address,
+                                   rack=f"/rack{i % 3}", heartbeat_interval_s=0.5,
+                                   device=device)
+                d.start()
+                dns.append(d)
+            by_id = {d.dn.id: d for d in dns}
+            wait_for("12 datanodes registered",
+                     lambda: len(scm.status()["nodes"]) == 12, 30)
+            oz = OzoneClient(om, clients, device=device)
+            bucket = oz.create_volume("v").create_bucket("b", replication=rs)
+            names = [f"k{i}" for i in range(len(keys))]
+
+            # PUT over the wire: the client's launches are the service's
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since, t0 = time.time(), time.perf_counter()
+            concurrent(lambda i: bucket.write_key(names[i], keys[i]), range(len(keys)))
+            put_s = time.perf_counter() - t0
+            out["put_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            print(f"daemon PUT spans: {span_totals(since)}")
+            print(f"daemon PUT: 4 concurrent {rs} PUTs through a remote OzoneClient into "
+                  f"12 DatanodeDaemons over the RPC, {total} B in {put_s:.3f} s = "
+                  f"{total / put_s / 2**30:.3f} GiB/s (wall), next to "
+                  f"{in_process_put_gib_s:.3f} GiB/s for the same keys in process (main "
+                  f"path, service route, earlier in this run); kernel launches "
+                  f"{out['put_launches']}, service dispatches {svc['dispatches']}, queue "
+                  f"wait {svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms "
+                  f"(means)")
+            if device.type == "cuda" and (out["put_launches"] <= 0
+                                          or out["put_launches"] != svc["dispatches"]):
+                raise AssertionError(f"daemon PUT: {out['put_launches']} launches for "
+                                     f"{svc['dispatches']} service dispatches")
+            infos = [om.lookup_key("v", "b", n) for n in names]
+            if [i["size"] for i in infos] != sizes:
+                raise AssertionError(f"daemon PUT: key sizes {[i['size'] for i in infos]}")
+
+            # GET over the wire, then the same keys through in-process clients
+            local = DatanodeClientFactory()
+            for d in dns:
+                local.register_local(d.dn)
+            for what, factory in (("over the RPC", clients), ("in process", local)):
+                reader = OzoneClient(om, factory, device=device).get_volume(
+                    "v").get_bucket("b")
+                t0 = time.perf_counter()
+                got = concurrent(reader.read_key_info, infos)
+                get_s = time.perf_counter() - t0
+                if not all(np.array_equal(g, k) for g, k in zip(got, keys)):
+                    raise AssertionError(f"daemon GET {what}: bytes differ")
+                out[f"get_gib_s_{'rpc' if factory is clients else 'local'}"] = \
+                    total / get_s / 2**30
+                print(f"daemon GET {what}: {total} B byte-exact in {get_s:.3f} s = "
+                      f"{total / get_s / 2**30:.3f} GiB/s (wall)")
+
+            # degraded GET: two holders' servers stop
+            g0 = infos[0]["block_groups"][0]
+            down = g0["nodes"][:2]
+            for dn_id in down:
+                by_id[dn_id].server.stop()
+            before = service_counts()
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+            got = concurrent(bucket.read_key_info, infos)
+            deg_s = time.perf_counter() - t0
+            out["degraded_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            if not all(np.array_equal(g, k) for g, k in zip(got, keys)):
+                raise AssertionError("daemon degraded GET: bytes differ")
+            print(f"daemon degraded GET ({down} servers stopped): {total} B byte-exact in "
+                  f"{deg_s:.3f} s = {total / deg_s / 2**30:.3f} GiB/s (wall); decode "
+                  f"launches {out['degraded_launches']}, service dispatches "
+                  f"{svc['dispatches']}")
+            if device.type == "cuda" and (out["degraded_launches"] <= 0 or
+                                          out["degraded_launches"] != svc["dispatches"]):
+                raise AssertionError("daemon degraded GET: launches differ from dispatches")
+            for dn_id in down:
+                restart_server(by_id[dn_id])
+
+            # admin close of every container; the replicas report CLOSED
+            cids = [c["id"] for c in scm.list_containers()]
+            for cid in cids:
+                scm.admin("close-container", str(cid))
+            waited = wait_for("containers closed", lambda: all(
+                c["state"] == "CLOSED" and all(r["state"] == "CLOSED"
+                                               for r in c["replicas"])
+                for c in scm.list_containers()), 30)
+            print(f"daemon admin close: containers {cids} CLOSED on the SCM and on "
+                  f"every replica in {waited:.2f} s")
+
+            # one datanode dies; the SCM's commands rebuild its replicas
+            victim = g0["nodes"][2]
+            vdn = by_id[victim].dn
+            lost = {}  # BlockID -> (unit, [(ChunkInfo, bytes)])
+            for info in infos:
+                for g in info["block_groups"]:
+                    if victim in g["nodes"]:
+                        bid = BlockID(int(g["container_id"]), int(g["local_id"]))
+                        try:
+                            chunks = vdn.get_block(bid).chunks
+                        except StorageError:  # no bytes of a short group
+                            chunks = []
+                        lost[bid] = (g["nodes"].index(victim),
+                                     [(c, vdn.read_chunk(bid, c).copy()) for c in chunks])
+            by_id[victim].stop()
+            dead_s = wait_for(f"{victim} declared dead", lambda: meta.scm.nodes.get(
+                victim).state is NodeState.DEAD, 30)
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since, t0 = time.time(), time.perf_counter()
+
+            def rebuilt():
+                with meta.scm_service.lock:
+                    for bid, (u, _) in lost.items():
+                        c = meta.scm.containers.get(bid.container_id)
+                        held = [dn for dn, r in c.replicas.items()
+                                if r.replica_index == u + 1 and dn != victim
+                                and r.state == "CLOSED"]
+                        if len(held) != 1:
+                            return False
+                return True
+
+            wait_for("reconstruction over heartbeats", rebuilt, 60, poll_s=0.05)
+            repair_s = time.perf_counter() - t0
+            out["repair_launches"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            print(f"daemon repair spans: {span_totals(since)}")
+            host = Checksum(ChecksumType.CRC32C, bpc)
+            per_target: dict[str, int] = {}
+            n_chunks = 0
+            for bid, (u, chunks) in lost.items():
+                c = meta.scm.containers.get(bid.container_id)
+                holder = next(dn for dn, r in c.replicas.items()
+                              if r.replica_index == u + 1 and dn != victim)
+                dst = by_id[holder].dn
+                if dst.containers.get(bid.container_id).state is not ContainerState.CLOSED:
+                    raise AssertionError(f"rebuilt container {bid.container_id} not CLOSED")
+                rebuilt_chunks = dst.get_block(bid).chunks if chunks else []
+                if [(i.offset, i.length) for i, _ in chunks] != \
+                        [(i.offset, i.length) for i in rebuilt_chunks]:
+                    raise AssertionError(f"rebuilt chunk list of {bid} differs")
+                for (_, want), info in zip(chunks, rebuilt_chunks):
+                    got = dst.read_chunk(bid, info)
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"rebuilt chunk {info.name} differs")
+                    if host.compute(got).checksums != info.checksum.checksums:
+                        raise AssertionError(f"stored CRCs of rebuilt {info.name} != host")
+                    per_target[holder] = per_target.get(holder, 0) + info.length
+                    n_chunks += 1
+            out["repair_mib_s_per_target"] = {t: n / repair_s / MIB
+                                              for t, n in per_target.items()}
+            print(f"daemon repair: {victim} stopped, DEAD on the SCM after {dead_s:.2f} s; "
+                  f"{len(lost)} blocks rebuilt by ReconstructionCommands over heartbeats "
+                  f"in {repair_s:.3f} s: " + ", ".join(
+                      f"{t} {per_target[t]} B = {r:.1f} MiB/s" for t, r in
+                      sorted(out["repair_mib_s_per_target"].items())) +
+                  f" per target (wall, from the death); {n_chunks} rebuilt chunks equal "
+                  f"the lost ones, CRCs equal host CRC32C; decode launches "
+                  f"{out['repair_launches']}, service dispatches {svc['dispatches']}")
+            if not per_target:
+                raise AssertionError("the daemon repair rebuilt no bytes")
+            if any(d.failed_commands for d in dns if d.dn.id != victim):
+                raise AssertionError(f"commands failed: "
+                                     f"{[d.failed_commands for d in dns]}")
+            if device.type == "cuda" and (out["repair_launches"] <= 0 or
+                                          out["repair_launches"] != svc["dispatches"]):
+                raise AssertionError("daemon repair: launches differ from dispatches")
+
+            # the daemons' scrub of their closed containers
+            live = [d for d in dns if d.dn.id != victim]
+            scanned = sum(i.length for d in live for c in d.dn.list_containers()
+                          for b in c.list_blocks() for i in b.chunks)
+            disp0 = sum(d._scrubber.dispatches for d in live)
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+            found = {}
+            for d in live:
+                for _ in d.dn.list_containers():
+                    errs = d.scan_once()
+                    if errs:
+                        found[d.dn.id] = errs
+            scrub_s = time.perf_counter() - t0
+            out["scrub_launches"] = fused_kernel.launches.count
+            dispatches = sum(d._scrubber.dispatches for d in live) - disp0
+            out["scrub_gib_s"] = scanned / scrub_s / 2**30
+            print(f"daemon scrub: scan_once over the closed containers of {len(live)} "
+                  f"daemons, {scanned} B in {scrub_s:.3f} s = {out['scrub_gib_s']:.3f} "
+                  f"GiB/s (wall); kernel launches {out['scrub_launches']}, scrub "
+                  f"dispatches {dispatches}")
+            if found:
+                raise AssertionError(f"the daemons' scrub found errors: {found}")
+            if device.type == "cuda" and (out["scrub_launches"] <= 0
+                                          or out["scrub_launches"] != dispatches):
+                raise AssertionError("daemon scrub: launches differ from dispatches")
+            out.update(put_gib_s=total / put_s / 2**30, degraded_gib_s=total / deg_s / 2**30)
+        finally:
+            om.close()
+            scm.close()
+            clients.close()
+            for d in dns:
+                d.stop()
+            meta.stop()
+    return out
+
+
+def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
+    """`python -m ozone_tpu_torch.tools cluster --datanodes 10` (the supervisor,
+    an scm-om and ten datanode processes) driven through the CLI: a volume,
+    an rs-6-3 bucket, a key put and get with a byte compare, freon ockg and
+    admin status; then every process is torn down by pid."""
+    import signal
+    import socket
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    dev = "cpu" if device.type == "cpu" else "cuda"
+    rs = f"rs-6-3-{cell // 1024}k"
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    om = f"127.0.0.1:{port}"
+
+    def cli(*argv, timeout=180):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ozone_tpu_torch.tools", *argv],
+                              capture_output=True, text=True, timeout=timeout,
+                              cwd=str(repo), env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {argv[:3]} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        with open(root / "supervisor.log", "w") as log:
+            sup = subprocess.Popen(
+                [sys.executable, "-m", "ozone_tpu_torch.tools", "cluster",
+                 "--datanodes", "10", "--port", str(port), "--root", str(root / "c"),
+                 "--device", dev],
+                stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+                cwd=str(repo), env=env)
+        pids: list[int] = []
+        try:
+            def up():
+                text = (root / "supervisor.log").read_text()
+                if sup.poll() is not None:
+                    raise AssertionError(f"the cluster supervisor exited: {text[-2000:]}")
+                for line in text.splitlines():
+                    if line.startswith("cluster up:"):
+                        pids[:] = json.loads(line.split("pids=")[1])
+                        return True
+                return False
+
+            up_s = wait_for("the CLI cluster up", up, 180, poll_s=0.25)
+            print(f"cli cluster: supervisor {sup.pid}, children {pids}, up in {up_s:.2f} s")
+            rng = np.random.default_rng(seed + 8)
+            payload = rng.integers(0, 256, 64 * cell + 12345, dtype=np.uint8)
+            src, dst = root / "in.bin", root / "out.bin"
+            src.write_bytes(payload.tobytes())
+            times: dict[str, float] = {}
+
+            def key_chain():
+                """sh volume and bucket create, key put, key get."""
+                for name, argv in (
+                        ("volume create", ("sh", "volume", "create", "/cv", "--om", om)),
+                        ("bucket create", ("sh", "bucket", "create", "/cv/b", "--om", om,
+                                           "--replication", rs)),
+                        ("key put", ("sh", "key", "put", "/cv/b/key", str(src), "--om", om,
+                                     "--device", dev)),
+                        ("key get", ("sh", "key", "get", "/cv/b/key", str(dst), "--om", om,
+                                     "--device", dev))):
+                    times[name] = cli(*argv)[1]
+                return dst.read_bytes() == payload.tobytes()
+
+            def ockg():
+                text, times["freon ockg"] = cli(
+                    "freon", "ockg", "-n", "16", "-s", str(16 * cell), "--om", om,
+                    "--device", dev, "--replication", rs)
+                return json.loads(text)
+
+            def status():
+                text, times["admin status"] = cli("admin", "status", "--om", om)
+                return json.loads(text)
+
+            t1 = time.perf_counter()
+            same, rep, st = concurrent(lambda f: f(), [key_chain, ockg, status])
+            print(f"cli commands, the key chain beside freon and admin status: "
+                  f"{time.perf_counter() - t1:.2f} s; per process (interpreter start, "
+                  f"torch, CUDA and all): " + ", ".join(f"{k} {v:.2f} s"
+                                                        for k, v in times.items()))
+            if not same:
+                raise AssertionError("cli key get differs from the file put")
+            print(f"cli sh key put / get of {payload.size} B: byte-exact")
+            print(f"cli freon ockg -n 16 -s {16 * cell} (beside the key chain): ops "
+                  f"{rep['ops']}, failures {rep['failures']}, {rep['throughput_mib_s']} "
+                  f"MiB/s, p50 {rep['p50_ms']} ms in the freon process")
+            if rep["ops"] != 16 or rep["failures"] != 0:
+                raise AssertionError(f"cli freon ockg: {rep}")
+            states = [n["state"] for n in st["nodes"]]
+            print(f"cli admin status: {len(states)} datanodes {sorted(set(states))}, "
+                  f"safemode {st['safemode']}, {st['containers']} containers")
+            if states != ["HEALTHY"] * 10:
+                raise AssertionError(f"cli admin status: {states}")
+            devices = []
+            for i in range(10):
+                line = next(l for l in (root / "c" / f"dn{i}.log").read_text().splitlines()
+                            if l.startswith(f"datanode dn{i} serving"))
+                devices.append(line.rsplit("device=", 1)[1])
+            print(f"cli datanode logs: devices {devices}")
+            if devices != [str(torch.device(dev))] * 10:
+                raise AssertionError(f"datanode devices {devices}")
+            out.update(ockg_mib_s=rep["throughput_mib_s"], **times)
+        finally:
+            if sup.poll() is None:
+                sup.send_signal(signal.SIGTERM)
+            try:
+                sup.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                sup.kill()
+                sup.wait()
+            alive = []
+            for pid in pids:
+                try:
+                    os.kill(pid, 0)
+                    alive.append(pid)
+                except ProcessLookupError:
+                    pass
+            for pid in alive:
+                os.kill(pid, signal.SIGKILL)
+            print(f"cli cluster torn down in {time.perf_counter() - t0:.2f} s of phase "
+                  f"time; children still alive after the supervisor's teardown: {alive}")
+            if alive:
+                raise AssertionError(f"processes left behind: {alive}")
+    return out
+
+
+def daemon_path(device, cell: int, bpc: int, seed: int,
+                in_process_put_gib_s: float = float("nan")) -> dict:
+    """The port as a cluster of daemons: in process on loopback, then as
+    processes through the CLI. Every library is built before anything is
+    spawned, so the datanode processes load them instead of compiling."""
+    from ozone_tpu_torch import cuda_build
+
+    if device.type == "cuda":
+        cuda_build.build_all()
+    out = daemon_cluster_in_process(device, cell, bpc, seed, in_process_put_gib_s)
+    out["cli"] = daemon_cluster_processes(device, cell, seed)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1788,6 +2237,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from ozone_tpu_torch import cuda_build  # fails outside a checkout
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1870,17 +2320,30 @@ def main() -> int:
     coder_timed = time_coder_forms(device, MIB, args.seed)
 
     launches = paths = None
+    phase_s = {"build_and_kernel_cases": time.perf_counter() - t_start}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.perf_counter() - t
+
     if not args.kernel_only:
-        put = main_path(device, [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7],
-                        MIB, bpc, args.seed)
-        small = small_puts(device, 32, 6 * MIB + 4096, MIB, bpc, args.seed)
-        rr = read_repair_path(device, [320 * MIB, 161 * MIB + 12345], MIB, bpc,
-                              args.seed)
-        lrc = lrc_path(device, [384 * MIB, MIB + 12345], MIB, bpc, args.seed)
-        cp = control_plane_path(device, MIB, bpc, args.seed)
-        t_freon = time.perf_counter()
-        fr = freon_path(device, MIB, bpc, args.seed)
-        print(f"freon_path: {time.perf_counter() - t_freon:.1f} s")
+        put = phase("main_path", main_path, device,
+                    [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7], MIB, bpc, args.seed)
+        small = phase("small_puts", small_puts, device, 32, 6 * MIB + 4096, MIB, bpc,
+                      args.seed)
+        rr = phase("read_repair_path", read_repair_path, device,
+                   [320 * MIB, 161 * MIB + 12345], MIB, bpc, args.seed)
+        lrc = phase("lrc_path", lrc_path, device, [384 * MIB, MIB + 12345], MIB, bpc,
+                    args.seed)
+        cp = phase("control_plane_path", control_plane_path, device, MIB, bpc, args.seed)
+        fr = phase("freon_path", freon_path, device, MIB, bpc, args.seed)
+        dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
+                   statistics.mean(r["gib_s"] for r in put["service"]))
+        print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+              + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
             f"rs63_{name}_{route}": sum(r["launches"] for r in runs[route])
             for name, runs in (("put", put), ("small_puts", small))
@@ -1899,6 +2362,10 @@ def main() -> int:
             "freon_ockg": fr["ockg_launches"], "freon_ockv": fr["ockv_launches"],
             "freon_ockrr": fr["ockrr_launches"], "freon_ecrd": fr["ecrd_launches"],
             "storm": fr["storm_launches"],
+            "daemon_put": dm["put_launches"],
+            "daemon_degraded_get": dm["degraded_launches"],
+            "daemon_repair": dm["repair_launches"],
+            "daemon_scrub": dm["scrub_launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -1,12 +1,17 @@
 """Datanode clients: the in-process client and the dn_id -> client factory.
 
-Port of the in-process part of `ozone_tpu/client/dn_client.py` (the
-reference's XceiverClient family). The gRPC and native-datapath clients,
-block tokens and topology ordering are not ported yet.
+Port of `ozone_tpu/client/dn_client.py` (the reference's XceiverClient
+family): the in-process client, and a factory that resolves in-process
+datanodes first, then remote addresses registered with `register_remote`,
+whose `RpcDatanodeClient` (`net/dn_service.py`) it builds lazily on first
+use. The native-datapath client, block tokens and nearest-first
+ordering are not ported yet (`learn_locations` keeps the topology the
+SCM ships).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 from ozone_tpu_torch.client.resilience import HealthRegistry
@@ -148,20 +153,68 @@ class LocalDatanodeClient:
 
 
 class DatanodeClientFactory:
-    """dn_id -> client resolver for in-process datanodes, with the per-peer
-    health registry every writer built over it shares."""
+    """dn_id -> client resolver (the XceiverClientManager pool analog), with
+    the per-peer health registry every writer built over it shares."""
 
     def __init__(self):
         self._local: dict[str, LocalDatanodeClient] = {}
+        self._addresses: dict[str, str] = {}
+        self._remote: dict = {}
+        # maybe_get runs on writer and reader worker threads at once
+        self._remote_lock = threading.Lock()
         self.health = HealthRegistry()
+        #: dn_id -> topology location ("/rack"), learned from the SCM
+        self.locations: dict[str, str] = {}
+
+    def learn_locations(self, locations: dict[str, str]) -> None:
+        if locations:
+            self.locations.update(locations)
 
     def register_local(self, dn: Datanode) -> LocalDatanodeClient:
         c = LocalDatanodeClient(dn)
         self._local[dn.id] = c
         return c
 
-    def get(self, dn_id: str) -> LocalDatanodeClient:
+    def register_remote(self, dn_id: str, address: str) -> None:
+        with self._remote_lock:
+            self._addresses[dn_id] = address
+            old = self._remote.pop(dn_id, None)  # reconnect on next use
+        if old is not None:
+            old.close()
+
+    def update_remote(self, dn_id: str, address: str) -> None:
+        """Refresh a remote address if it changed (a restarted daemon binds
+        a new port); in-process datanodes are left alone."""
+        if dn_id in self._local:
+            return
+        if self._addresses.get(dn_id) != address:
+            self.register_remote(dn_id, address)
+
+    def known_ids(self) -> list[str]:
+        return sorted(set(self._local) | set(self._addresses))
+
+    def maybe_get(self, dn_id: str):
         c = self._local.get(dn_id)
+        if c is not None:
+            return c
+        with self._remote_lock:
+            c = self._remote.get(dn_id)
+            if c is None and dn_id in self._addresses:
+                from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
+
+                c = self._remote[dn_id] = RpcDatanodeClient(
+                    dn_id, self._addresses[dn_id])
+            return c
+
+    def get(self, dn_id: str):
+        c = self.maybe_get(dn_id)
         if c is None:
             raise KeyError(f"no client for datanode {dn_id}")
         return c
+
+    def close(self) -> None:
+        with self._remote_lock:
+            clients = list(self._remote.values())
+            self._remote.clear()
+        for c in clients:
+            c.close()

@@ -18,13 +18,19 @@ is one launch of its own, and its parity and CRCs come back with a
 non-blocking copy. Either way the batch's results are waited for only
 when it is written, so batch N's chunk writes overlap batch N+1's encode.
 Each run of stripes bound for one group travels as one WriteChunksCommit
-per unit: all the run's chunks plus the commit.
+per unit: all the run's chunks plus the commit. With batched_rpc=False
+(or OZONE_TPU_BATCH_WRITES=0), and for good once a member refuses the
+batched verb (a protocol downgrade, not a device fallback), each stripe
+is written on its own: k+p WriteChunk calls, then a PutBlock barrier on
+every unit, whose order defines the ack watermark (the reference's
+flushStripeFromQueue).
 """
 
 from __future__ import annotations
 
 import inspect
 import logging
+import os
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
@@ -34,7 +40,10 @@ import numpy as np
 import torch
 
 from ozone_tpu_torch.client import resilience
-from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+from ozone_tpu_torch.client.dn_client import (
+    DatanodeClientFactory,
+    batch_unsupported,
+)
 from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.codec import service as codec_service
 from ozone_tpu_torch.codec.api import CoderOptions
@@ -93,6 +102,10 @@ class BlockGroup:
                               list(g["nodes"]), **kw),
             length=g.get("length", 0),
         )
+
+
+class _StreamUnsupported(Exception):
+    """A member refused WriteChunksCommit; the run rolled back cleanly."""
 
 
 class StripeWriteError(Exception):
@@ -189,6 +202,7 @@ class ECKeyWriter:
         max_retries: int = 3,
         device="cuda",
         qos_class: str = "interactive",
+        batched_rpc: Optional[bool] = None,
     ):
         self.opts = options
         self.k, self.p, self.cell = (
@@ -223,6 +237,11 @@ class ECKeyWriter:
         self._writer_id = uuid.uuid4().hex
         self._excluded: list[str] = []
         self._excluded_containers: list[int] = []
+        # batched WriteChunksCommit streams (one per unit per run) unless
+        # disabled; off for good once a member refuses the verb
+        if batched_rpc is None:
+            batched_rpc = os.environ.get("OZONE_TPU_BATCH_WRITES", "1") != "0"
+        self._stream_writes = batched_rpc
         #: shared per-peer health: reallocation skips breaker-open peers
         self._health = getattr(clients, "health", None) \
             or resilience.default_registry()
@@ -326,6 +345,11 @@ class ECKeyWriter:
         with Tracer.instance().span("ec:flush", stripes=len(stripes)):
             b = 0
             while b < len(stripes):
+                if not self._stream_writes:
+                    self._write_stripe_retrying(stripes[b], parity[b],
+                                                crcs[b])
+                    b += 1
+                    continue
                 if self._group is not None and \
                         self._stripe_in_group >= self.stripes_per_group:
                     self._finalize_group()
@@ -337,6 +361,13 @@ class ECKeyWriter:
                         self._write_stripe_run(
                             stripes[b:b + n], parity[b:b + n], crcs[b:b + n])
                         b += n
+                        break
+                    except _StreamUnsupported:
+                        # a member without the verb: replay per stripe
+                        # from here on
+                        log.info("WriteChunksCommit refused; writing per "
+                                 "stripe from here on")
+                        self._stream_writes = False
                         break
                     except StripeWriteError as e:
                         log.warning("stripe run at %d failed (attempt %d): %s",
@@ -391,9 +422,13 @@ class ECKeyWriter:
             try:
                 client = self.clients.get(dn_id)
                 if new:
-                    self._observed(dn_id, client.write_chunks_commit,
-                                   group.block_id, new, commit=bd,
-                                   writer=self._writer_id)
+                    fn = getattr(client, "write_chunks_commit", None)
+                    if fn is None:  # a duck-typed client without the verb
+                        return u, StorageError(
+                            "IO_EXCEPTION",
+                            "UNIMPLEMENTED: client lacks write_chunks_commit")
+                    self._observed(dn_id, fn, group.block_id, new,
+                                   commit=bd, writer=self._writer_id)
                 else:
                     # no new bytes on this unit (short final stripes):
                     # just advance its committed group length
@@ -407,13 +442,16 @@ class ECKeyWriter:
                 return u, e
 
         failed: list[str] = []
-        closed = False
+        closed = unsupported = False
         cause: Optional[Exception] = None
         ok_units: list[int] = []
         for u, err in self._ensure_pool().map(self._act(write_unit),
                                               range(self.k + self.p)):
             if err is None:
                 ok_units.append(u)
+            elif batch_unsupported(err):
+                unsupported = True
+                cause = err
             elif isinstance(err, StorageError) \
                     and err.code == "INVALID_CONTAINER_STATE":
                 # container closed under us: a reallocation signal, not a
@@ -424,7 +462,7 @@ class ECKeyWriter:
             else:
                 failed.append(group.pipeline.nodes[u])
                 cause = err
-        if not failed and not closed:
+        if not failed and not closed and not unsupported:
             for u in range(self.k + self.p):
                 self._group_chunks[u] = pre_chunks[u] + [
                     info for info, _ in unit_chunks[u]]
@@ -452,7 +490,134 @@ class ECKeyWriter:
             if res is not None:
                 log.warning("putBlock rollback failed on %s: %s",
                             res[0], res[1])
+        if unsupported:
+            raise _StreamUnsupported()
         raise StripeWriteError(failed, cause)
+
+    def _write_stripe_retrying(self, stripe: _Stripe, parity: np.ndarray,
+                               crcs: np.ndarray) -> None:
+        """The per-stripe path with its retries: a failed stripe finalizes
+        the group at its committed length and replays into a fresh one."""
+        for attempt in range(self.max_retries + 1):
+            try:
+                self._write_stripe(stripe, parity, crcs)
+                return
+            except StripeWriteError as e:
+                log.warning("stripe %d failed (attempt %d): %s",
+                            stripe.index, attempt, e)
+                if attempt == self.max_retries:
+                    raise
+                self._excluded.extend(e.failed_nodes)
+                self._finalize_group()
+
+    def _write_stripe(self, stripe: _Stripe, parity: np.ndarray,
+                      crcs: np.ndarray) -> None:
+        """One stripe: its k+p chunk writes in parallel, then a PutBlock
+        barrier on every unit that holds chunks. A failed barrier rolls the
+        survivors back to the pre-stripe record, so no datanode reports
+        bytes the client never acked."""
+        if self._group is not None and \
+                self._stripe_in_group >= self.stripes_per_group:
+            self._finalize_group()
+        group = self._ensure_group()
+        stripe.index = self._stripe_in_group
+        new_chunks: list[Optional[ChunkInfo]] = [None] * (self.k + self.p)
+
+        def write_unit(u: int):
+            is_data = u < self.k
+            length = stripe.lengths[u] if is_data else self.cell
+            if length == 0:
+                return u, None, None
+            cell_data = stripe.data[u] if is_data else parity[u - self.k]
+            info = ChunkInfo(
+                name=f"{group.block_id}_chunk_{stripe.index}",
+                offset=stripe.index * self.cell,
+                length=length,
+                checksum=self._chunk_checksum(crcs[u], length, cell_data),
+            )
+            dn_id = group.pipeline.nodes[u]
+            try:
+                self._observed(dn_id, self.clients.get(dn_id).write_chunk,
+                               group.block_id, info, cell_data[:length],
+                               writer=self._writer_id)
+                return u, info, None
+            except (StorageError, KeyError, OSError) as e:
+                if isinstance(e, StorageError) \
+                        and e.code == resilience.DEADLINE_EXCEEDED:
+                    raise  # op budget spent: abort, don't exclude peers
+                return u, None, e
+
+        failed: list[str] = []
+        closed = False
+        cause: Optional[Exception] = None
+        for u, info, err in self._ensure_pool().map(
+                self._act(write_unit), range(self.k + self.p)):
+            if info is not None:
+                new_chunks[u] = info
+            elif err is not None:
+                cause = err
+                if isinstance(err, StorageError) \
+                        and err.code == "INVALID_CONTAINER_STATE":
+                    # container closed under us: reallocate, never
+                    # blacklist the pipeline
+                    closed = True
+                    self._excluded_containers.append(group.container_id)
+                else:
+                    failed.append(group.pipeline.nodes[u])
+        if failed or closed:
+            raise StripeWriteError(failed, cause)
+
+        # the stripe barrier: PutBlock on every unit holding chunks
+        len_after = group.length + sum(stripe.lengths)
+        pre_chunks = [list(c) for c in self._group_chunks]
+        puts: list[tuple[str, BlockData]] = []
+        for u in range(self.k + self.p):
+            chunks = pre_chunks[u] + ([new_chunks[u]] if new_chunks[u]
+                                      else [])
+            if chunks:
+                puts.append((group.pipeline.nodes[u], BlockData(
+                    group.block_id, chunks, block_group_length=len_after)))
+
+        def put_unit(entry):
+            dn_id, bd = entry
+            try:
+                self._observed(dn_id, self.clients.get(dn_id).put_block,
+                               bd, writer=self._writer_id)
+                return None
+            except (StorageError, KeyError, OSError) as e:
+                return dn_id, e
+
+        errors = [r for r in self._ensure_pool().map(self._act(put_unit),
+                                                      puts) if r is not None]
+        if errors:
+            if all(isinstance(e, StorageError)
+                   and e.code == "INVALID_CONTAINER_STATE"
+                   for _, e in errors):
+                # closed between the chunks and the barrier: reallocate
+                self._excluded_containers.append(group.container_id)
+                raise StripeWriteError([], errors[0][1])
+            failed_dns = {dn_id for dn_id, _ in errors}
+            rollbacks = [
+                (group.pipeline.nodes[u], BlockData(
+                    group.block_id, pre_chunks[u],
+                    block_group_length=group.length))
+                for u in range(self.k + self.p)
+                if pre_chunks[u]
+                and group.pipeline.nodes[u] not in failed_dns]
+            for res in self._ensure_pool().map(self._act(put_unit),
+                                               rollbacks):
+                if res is not None:
+                    log.warning("putBlock rollback failed on %s: %s",
+                                res[0], res[1])
+            bad = [d for d, e in errors
+                   if not (isinstance(e, StorageError)
+                           and e.code == "INVALID_CONTAINER_STATE")]
+            raise StripeWriteError(bad, errors[0][1])
+        for u in range(self.k + self.p):
+            if new_chunks[u] is not None:
+                self._group_chunks[u].append(new_chunks[u])
+        group.length = len_after
+        self._stripe_in_group += 1
 
     def _chunk_checksum(self, device_crcs: np.ndarray, length: int,
                         cell_data: np.ndarray) -> ChecksumData:

@@ -6,7 +6,10 @@ bucket CRUD, and key writes and reads that take the EC datapath or the
 replicated one by the key's replication config, as `_make_writer` and
 the group reader choose. EC encodes and decodes run on `device` ("cuda"
 launches the fused kernel and raises when CUDA is absent; "cpu" runs its
-plain version). Left out for later slices: the Raft-ordered replicated
+plain version). `om` is duck-typed, as in the reference: an in-process
+`OzoneManager`, or a `net/om_service.RemoteOmClient` that talks to a
+metadata daemon, with the datanode factory resolving the remote
+addresses the OM's answers carry. Left out for later slices: the Raft-ordered replicated
 writer, small objects (inline values and slabs), multipart uploads,
 encryption, snapshot paths, admission QoS, file checksums, rename,
 rewrite and copy.
@@ -215,9 +218,10 @@ class OzoneVolume:
 
 
 class OzoneClient:
-    """Entry point (the ObjectStore analog). `device` is where the EC
-    writers and readers run the codec; `qos_class` the codec service's
-    scheduling class of this client's batches."""
+    """Entry point (the ObjectStore analog). `om` is an `OzoneManager` or a
+    remote OM client; `device` is where the EC writers and readers run the
+    codec; `qos_class` the codec service's scheduling class of this
+    client's batches."""
 
     def __init__(self, om: OzoneManager, clients: DatanodeClientFactory,
                  device="cuda", qos_class: str = "interactive"):

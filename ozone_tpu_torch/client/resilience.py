@@ -15,8 +15,10 @@ writer, reader and reconstruction coordinator use it:
 - `HedgeGroup`: first-result-wins racing of a primary call against
   hedges fired after the peer's hedge delay (its P95, floored by
   OZONE_TPU_HEDGE_MS).
-
-Retry policies, server pushback and failover are not ported yet.
+- `RetryPolicy` / `failover_retry_policy`: capped exponential backoff
+  with jitter for the remote OM and SCM clients' failover loops, and
+  `server_pushback_floor`, the Retry-After floor of a SERVER_BUSY
+  answer.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import contextlib
 import contextvars
 import math
 import os
+import random
+import re
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
 from concurrent.futures import wait as _fwait
+from dataclasses import dataclass
 from enum import Enum
 from typing import Callable, Iterable, Optional, Sequence
 
@@ -39,8 +44,39 @@ from ozone_tpu_torch.utils.tracing import Tracer
 #: StorageError code for a spent operation budget
 DEADLINE_EXCEEDED = "DEADLINE_EXCEEDED"
 
+#: StorageError code of server pushback: a deliberate answer from a
+#: healthy peer, retried after the server's hint, never a transport fault
+SERVER_BUSY = "SERVER_BUSY"
+
 #: every resilience signal (hedges, breakers, deadlines) in one registry
 METRICS = MetricsRegistry("client.resilience")
+
+_RETRY_AFTER_RE = re.compile(r"retry_after_s=([0-9][0-9.]*)")
+
+
+def retry_after_hint(msg: object) -> Optional[float]:
+    """The ``retry_after_s=<float>`` hint of a SERVER_BUSY message, capped
+    at 30 s; None when absent or garbled."""
+    m = _RETRY_AFTER_RE.search(str(msg))
+    if not m:
+        return None
+    try:
+        return min(30.0, float(m.group(1)))
+    except ValueError:
+        return None
+
+
+def server_pushback_floor(e: BaseException,
+                          verb: str = "") -> Optional[float]:
+    """For a SERVER_BUSY StorageError: count it and return the server's
+    Retry-After hint in seconds (0.0 without one) as the backoff floor.
+    None for anything that is not server pushback."""
+    if not (isinstance(e, StorageError) and e.code == SERVER_BUSY):
+        return None
+    METRICS.counter("server_busy").inc()
+    if verb:
+        METRICS.counter(f"server_busy_{verb}").inc()
+    return retry_after_hint(getattr(e, "msg", str(e))) or 0.0
 
 
 def _env_f(name: str, default: float) -> float:
@@ -144,6 +180,67 @@ def op_timeout(default: Optional[float],
     if d is None:
         return default
     return d.timeout(default, verb)
+
+
+def check_deadline(verb: str = "") -> None:
+    """Fail fast with DEADLINE_EXCEEDED when the ambient budget is spent."""
+    d = _current.get()
+    if d is not None:
+        d.check(verb)
+
+
+# ----------------------------------------------------------------- retry
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Capped exponential backoff with jitter: ``backoff_s(attempt)`` draws
+    uniform(lo, hi) with hi = min(cap, base * 2**attempt) and lo = hi *
+    floor_fraction (0.0 is full jitter, 0.5 equal jitter)."""
+
+    base_s: float = 0.25
+    cap_s: float = 5.0
+    max_attempts: int = 8
+    floor_fraction: float = 0.0
+
+    def backoff_s(self, attempt: int,
+                  rng: Optional[random.Random] = None) -> float:
+        hi = min(self.cap_s, self.base_s * (2.0 ** max(0, attempt)))
+        lo = hi * min(1.0, max(0.0, self.floor_fraction))
+        return rng.uniform(lo, hi) if rng is not None \
+            else random.uniform(lo, hi)
+
+    def sleep(self, attempt: int,
+              deadline: Optional[Deadline] = None,
+              rng: Optional[random.Random] = None,
+              floor_s: Optional[float] = None) -> bool:
+        """Sleep the jittered backoff (at least `floor_s`, the server's
+        hint), clipped to the deadline. False, without sleeping the full
+        interval, when the attempt cap is reached or the budget cannot
+        cover another attempt: the caller stops retrying."""
+        if attempt >= self.max_attempts - 1:
+            return False
+        d = self.backoff_s(attempt, rng)
+        if floor_s is not None and floor_s > 0:
+            d = max(d, floor_s)
+        if deadline is None:
+            deadline = _current.get()
+        if deadline is not None:
+            left = deadline.remaining()
+            if left <= 0:
+                return False
+            d = min(d, left)
+        METRICS.counter("retries_slept").inc()
+        Tracer.instance().event("retry", attempt=attempt + 1,
+                                backoff_ms=round(d * 1e3, 1))
+        time.sleep(d)
+        return not (deadline is not None and deadline.expired())
+
+
+def failover_retry_policy(attempts: int) -> RetryPolicy:
+    """The one tuning of leader-failover loops (OM and SCM clients): equal
+    jitter, so the summed window outlives an election while retries of
+    clients that failed together still decorrelate."""
+    return RetryPolicy(base_s=0.2, cap_s=0.6, max_attempts=attempts,
+                       floor_fraction=0.5)
 
 
 # ---------------------------------------------------------------- health

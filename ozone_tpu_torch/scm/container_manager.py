@@ -7,8 +7,10 @@ replica maps fed by container reports, BlockManagerImpl.allocateBlock
 and the writable-container providers: a pool of open containers, one
 pipeline each, a new container when none fits). Left out for later
 slices: the SCM store (persistence and recovery), the HA id source and
-mutation records, the pipeline and container lifecycle hooks that a
-daemon wires to datanode commands, and the stateful-service rows.
+mutation records, the pipeline lifecycle hooks, and the stateful-service
+rows. Of the lifecycle hooks, `on_container_closing` is ported: the
+metadata daemon (`net/daemons.py`) turns it into close commands to the
+replicas.
 """
 
 from __future__ import annotations
@@ -67,6 +69,8 @@ class ContainerManager:
         # open writable containers by replication-scheme string
         self._writable: dict[str, list[int]] = {}
         self._lock = threading.RLock()
+        #: callable(ContainerInfo) run when a container goes OPEN -> CLOSING
+        self.on_container_closing = None
 
     # --------------------------------------------------------------- queries
     def get(self, container_id: int) -> ContainerInfo:
@@ -150,6 +154,8 @@ class ContainerManager:
         c = self._containers[container_id]
         if c.state is ContainerState.OPEN:
             c.state = ContainerState.CLOSING
+            if self.on_container_closing is not None:
+                self.on_container_closing(c)
 
     def mark_closed(self, container_id: int) -> None:
         c = self._containers[container_id]

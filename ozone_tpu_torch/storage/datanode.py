@@ -7,9 +7,10 @@ ReadChunk (with checksum verification), PutBlock, GetBlock, ListBlock,
 GetCommittedBlockLength, DeleteBlock, CloseContainer, DeleteContainer,
 the single-writer block fence, the container list and report, and the
 host full-data scan (`scan_container`) that the device scrubber
-(`storage/scrubber.py`) is held against. The scan queue and the daemon
-that runs the scrubber in the background and the volume checker are not
-ported yet.
+(`storage/scrubber.py`) is held against. `mutation_count` moves with
+every change a container report shows, so the datanode daemon
+(`net/daemons.py`) sends a full report only when something changed. The
+scan queue and the volume checker are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class Datanode:
         self.metrics = MetricsRegistry(f"datanode.{dn_id}")
         self._rr = itertools.count()
         self._lock = threading.Lock()
+        #: bumped by every verb that changes what a container report shows
+        self.mutation_count = 0
         for vol in self.volumes:
             for c in vol.load_containers():
                 self.containers.add(c)
@@ -67,11 +70,13 @@ class Datanode:
             c.root.mkdir(parents=True, exist_ok=True)
             c.save_descriptor()
             self.containers.add(c)
+            self.mutation_count += 1
             self.metrics.counter("container_created").inc()
             return c
 
     def close_container(self, container_id: int) -> None:
         self.containers.get(container_id).close()
+        self.mutation_count += 1
         self.metrics.counter("container_closed").inc()
 
     def delete_container(self, container_id: int, force: bool = False) -> None:
@@ -86,6 +91,7 @@ class Datanode:
         c.chunks.close()  # release cached block-file descriptors
         shutil.rmtree(c.root, ignore_errors=True)
         self.containers.remove(container_id)
+        self.mutation_count += 1
         self.metrics.counter("container_deleted").inc()
 
     def list_containers(self) -> list[Container]:
@@ -160,6 +166,7 @@ class Datanode:
             c.chunks.fsync_block(block.block_id)
         block.committed = True
         c.put_block(block)
+        self.mutation_count += 1
         self.metrics.counter("blocks_committed").inc()
 
     def get_block(self, block_id: BlockID) -> BlockData:
@@ -176,6 +183,7 @@ class Datanode:
         c.db.delete_block(block_id)
         c.chunks.delete_block(block_id)
         c.release_writer(block_id)
+        self.mutation_count += 1
 
     def container_report(self) -> list[dict]:
         """Per-container replica report for SCM heartbeats (the reference's

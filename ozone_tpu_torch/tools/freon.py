@@ -14,8 +14,11 @@ harness (thread-pool task loop, latency report) and
   datanode.
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
-runs on. The other generators of the reference wait for the port's
-gateways, raft, lifecycle and RPC layers.
+runs on: one over an in-process cluster, or one the CLI builds from
+`--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
+does); `ecrd` also takes an SCM, in process or `RemoteScmClient`. The
+other generators of the reference wait for the port's gateways, raft and
+lifecycle.
 """
 
 from __future__ import annotations
@@ -297,8 +300,9 @@ def rawcoder_bench(
                 {
                     "backend": be,
                     "schema": schema,
-                    "encode_gib_s": round(gib / enc_dt, 3),
-                    "decode_gib_s": round(gib / dec_dt, 3),
+                    # unrounded: a small shape's rate is below 0.001
+                    "encode_gib_s": gib / enc_dt,
+                    "decode_gib_s": gib / dec_dt,
                 }
             )
         except Exception as e:  # noqa: BLE001 - reported in the row

@@ -19,6 +19,9 @@ def _run(code: str) -> str:
 
 
 def test_port_imports_no_jax_and_no_reference():
+    """Every module of the port, the daemons and the CLI included, imports
+    without jax, the reference package or grpc (the port's RPC is the
+    standard library's)."""
     out = _run("""
         import importlib, pkgutil, sys
         import ozone_tpu_torch
@@ -28,11 +31,13 @@ def test_port_imports_no_jax_and_no_reference():
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
+                     or m == "grpc" or m.startswith("grpc.")
                      or m == "ozone_tpu" or m.startswith("ozone_tpu."))
-        print(len(names), bad)
+        print(len(names), "ozone_tpu_torch.tools.cli" in names,
+              "ozone_tpu_torch.net.daemons" in names, bad)
     """)
-    count, bad = out.split(" ", 1)
-    assert int(count) >= 49, out
+    count, cli, net, bad = out.split(" ", 3)
+    assert int(count) >= 58 and cli == net == "True", out
     assert bad.strip() == "[]", out
 
 
@@ -54,6 +59,15 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.codec.numpy_coder",
     "ozone_tpu_torch.client.reconstruction",
     "ozone_tpu_torch.tools.freon",
+    # the daemon cluster: the RPC, the services, the daemons and the CLI
+    "ozone_tpu_torch.net.wire",
+    "ozone_tpu_torch.net.rpc",
+    "ozone_tpu_torch.net.dn_service",
+    "ozone_tpu_torch.net.scm_service",
+    "ozone_tpu_torch.net.om_service",
+    "ozone_tpu_torch.net.daemons",
+    "ozone_tpu_torch.tools.cli",
+    "ozone_tpu_torch.tools.__main__",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -65,11 +79,27 @@ def test_slice_modules_import_alone_without_jax(module):
         importlib.import_module("{module}")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
+                     or m == "grpc" or m.startswith("grpc.")
                      or m == "ozone_tpu" or m.startswith("ozone_tpu."))
         print(bad, [t.name for t in threading.enumerate()
                     if t.name == "codec-service"])
     """)
     assert out.strip() == "[] []", out
+
+
+def test_light_cli_verbs_import_no_torch():
+    """The CLI's namespace and admin verbs, and the remote OM and SCM
+    clients under them, start without importing torch."""
+    out = _run("""
+        import sys
+        from ozone_tpu_torch.tools import cli
+        from ozone_tpu_torch.net.om_service import RemoteOmClient
+        from ozone_tpu_torch.net.scm_service import RemoteScmClient
+        from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+        cli.build_parser().parse_args(["admin", "status"])
+        print("torch" in sys.modules)
+    """)
+    assert out.strip() == "False"
 
 
 def test_default_device_raises_without_cuda():
@@ -90,6 +120,7 @@ def test_default_device_raises_without_cuda():
             re_encode_key_to_ec, re_encode_xor_key_to_rs)
         from ozone_tpu_torch.codec.fused import make_fused_reencoder
         from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+        from ozone_tpu_torch.net.daemons import DatanodeDaemon
         import tempfile
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
@@ -105,6 +136,8 @@ def test_default_device_raises_without_cuda():
                      lambda: make_fused_reencoder(FusedSpec(opts), 1),
                      lambda: OzoneClient(None, clients),
                      lambda: MiniOzoneCluster(tempfile.mkdtemp()),
+                     lambda: DatanodeDaemon(tempfile.mkdtemp(), "dn0",
+                                            "127.0.0.1:1"),
                      lambda: re_encode_key_to_ec(None, clients, "v", "b", "k"),
                      lambda: re_encode_xor_key_to_rs(None, clients, "v", "b",
                                                      "k")):
