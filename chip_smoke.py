@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--kernel-only]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) and its host libraries
-(the CRC32C with g++ -msse4.2, the GF coder with -march=native) from
+(the CRC32C with g++ -msse4.2, the GF coder and the chunk datapath
+sidecar with -march=native) from
 `ozone_tpu_torch/csrc`, fails unless the host CRC library reports the
 SSE4.2 CRC and the GF coder the AVX2 build, holds every kernel against
 its plain PyTorch version on the card, in its RS, XOR and LRC encode
@@ -50,18 +51,24 @@ a phase says otherwise:
   datanode holding the most closed EC containers (at least 8) dies and
   `ReconstructionStorm.repair_datanode` rebuilds every one, byte-exact;
 - the daemon cluster (`daemon_path`): an ScmOmDaemon and 12
-  DatanodeDaemons on loopback on 3 racks, driven through a remote
-  OzoneClient over the port's RPC: the PUT phase's four keys
-  concurrently (GiB/s beside the in-process rate of the same keys), a GET
-  over the RPC and through in-process clients, a degraded GET with two
-  holders' servers stopped, an admin close of the containers, a
-  datanode's death and the SCM's ReconstructionCommands over heartbeats
-  (the rebuilt chunks equal the lost ones), and `scan_once` on every live
-  daemon; then `python -m ozone_tpu_torch.tools cluster --datanodes 10
-  --device cuda` as processes, driven through the CLI (`sh volume/bucket
-  create`, `sh key put/get` of 64 MiB + 12 345 B with a byte compare,
-  `freon ockg -n 16 -s 16777216`, `admin status`: 10 HEALTHY) and torn
-  down by pid.
+  DatanodeDaemons on loopback on 3 racks, each with its native chunk
+  datapath sidecar (`csrc/datapath.cpp`), driven through a remote
+  OzoneClient: the PUT phase's four keys concurrently over the native
+  lane, then again over the RPC lane (GiB/s of each beside the in-process
+  rate of the same keys), a GET over each lane and through in-process
+  clients, a degraded GET with two holders' servers and sidecars stopped,
+  an admin close of the containers, a datanode's death and the SCM's
+  ReconstructionCommands over heartbeats (the rebuilt chunks equal the
+  lost ones), and `scan_once` on every live daemon. The native PUT, GET,
+  degraded GET and repair must move every chunk over the native lane (no
+  RPC chunk call, no server-side chunk span; on the PUT and GET no
+  fallback and every payload byte counted as moved), and each prints its
+  host copies per chunk. Then `python -m ozone_tpu_torch.tools cluster
+  --datanodes 10 --device cuda` as processes, driven through the CLI (`sh
+  volume/bucket create`, `sh key put/get` of 64 MiB + 12 345 B with a byte
+  compare, `freon ockg -n 16 -s 16777216`, `admin status`: 10 HEALTHY),
+  torn down by pid; every datanode log names its native port, and their
+  lane counts show the chunks rode the native lane only.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -1792,15 +1799,76 @@ def check_launches_equal(what: str, device, launches: int, svc: dict) -> None:
 
 
 # ------------------------------------------------------------- daemon path
+def stop_server(d) -> None:
+    """Stop a daemon's datanode RPC server and its native datapath sidecar."""
+    d.server.stop()
+    d.stop_datapath()
+
+
 def restart_server(d) -> None:
-    """Serve a daemon's datanode verbs again on its old port after its server
-    was stopped (the registered address stays valid)."""
+    """Serve a daemon's datanode verbs again on its old port, with a new
+    native sidecar, after stop_server (the registered address stays valid;
+    clients discover the sidecar's new port)."""
     from ozone_tpu_torch.net.dn_service import DatanodeRpcService
     from ozone_tpu_torch.net.rpc import RpcServer
+    from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
 
+    d.datapath = DatapathSidecar(d.dn)
+    d.datapath.start()
     d.server = RpcServer(port=d.server.port)
-    d.service = DatanodeRpcService(d.dn, d.server)
+    d.service = DatanodeRpcService(d.dn, d.server, datapath_port=d.advertise)
     d.server.start()
+
+
+LANE_COUNTERS = ("copies", "bytes_copied", "bytes_moved", "native_fallbacks")
+
+
+class LaneMeter:
+    """Deltas across a with-block of the client's `datapath` registry (host
+    copies, bytes moved without a copy, native-lane fallbacks) and of the
+    daemons' lane counters (native streams, RPC chunk calls, chunks and
+    bytes written)."""
+
+    DN_COUNTERS = ("native_write_streams", "native_read_streams",
+                   "rpc_chunk_calls", "batched_write_chunks", "batched_read_chunks",
+                   "bytes_written")
+
+    def __init__(self, daemons):
+        from ozone_tpu_torch.codec import hostmem
+
+        self._reg = hostmem.METRICS
+        self._dns = list(daemons)
+
+    def _read(self) -> dict:
+        out = {n: self._reg.counter(n).value for n in LANE_COUNTERS}
+        for n in self.DN_COUNTERS:
+            out[n] = sum(d.dn.metrics.counter(n).value for d in self._dns)
+        return out
+
+    def __enter__(self):
+        self._v0 = self._read()
+        return self
+
+    def __exit__(self, *exc):
+        self.d = {k: v - self._v0[k] for k, v in self._read().items()}
+
+    def line(self, chunks_key: str) -> str:
+        d = self.d
+        chunks = d[chunks_key]
+        per = d["copies"] / chunks if chunks else float("nan")
+        return (f"native streams w{d['native_write_streams']}/r{d['native_read_streams']}, "
+                f"RPC chunk calls {d['rpc_chunk_calls']}, {chunks} chunks, bytes moved "
+                f"natively {d['bytes_moved']}, host copies {d['copies']} "
+                f"({d['bytes_copied']} B) = {per:.3f} per chunk, native fallbacks "
+                f"{d['native_fallbacks']}")
+
+
+def span_stat(since: float, name: str) -> tuple[int, float]:
+    """Count and summed seconds of the tracer's spans `name` since `since`."""
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    spans = [sp for sp in Tracer.instance().traces() if sp.start >= since and sp.name == name]
+    return len(spans), sum(sp.duration for sp in spans)
 
 
 def wait_for(what: str, cond, timeout_s: float, poll_s: float = 0.1) -> float:
@@ -1840,10 +1908,13 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                               in_process_put_gib_s: float) -> dict:
     """One ScmOmDaemon and 12 DatanodeDaemons on loopback on 3 racks, the
     codec on `device`, driven through a remote OzoneClient: the PUT phase's
-    four keys concurrently, a GET, a degraded GET with two holders'
-    servers stopped, an admin close of the containers, a datanode's death
-    and the SCM's reconstruction over heartbeats, and a scrub of every
-    live daemon's closed containers."""
+    four keys concurrently over the native datapath, then again over the
+    RPC lane; a GET over each lane and in process; a degraded GET with two
+    holders' servers and sidecars stopped; an admin close of the
+    containers, a datanode's death and the SCM's reconstruction over
+    heartbeats; and a scrub of every live daemon's closed containers. The
+    native runs must move every chunk over the native lane: no fallback,
+    no RPC chunk call, no server-side chunk span."""
     from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
     from ozone_tpu_torch.client.ozone_client import OzoneClient
     from ozone_tpu_torch.codec import fused_kernel
@@ -1860,6 +1931,14 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
     keys = [rng.integers(0, 256, n, dtype=np.uint8) for n in sizes]
     total = sum(sizes)
     out: dict = {}
+
+    def no_rpc_chunks(what: str, meter: LaneMeter, since: float, verbs) -> None:
+        spans = {v: span_stat(since, f"server:{v}")[0] for v in verbs}
+        if meter.d["rpc_chunk_calls"] or any(spans.values()) \
+                or meter.d["bytes_moved"] <= 0:
+            raise AssertionError(f"{what}: chunk bytes left the native lane: "
+                                 f"{meter.d}, server spans {spans}")
+
     with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-dm-") as tmp:
         root = Path(tmp)
         meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
@@ -1870,6 +1949,8 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
         dns = []
         clients = DatanodeClientFactory()
         om = RemoteOmClient(meta.address, clients=clients)
+        rpc_clients = DatanodeClientFactory(native_datapath=False)
+        om_rpc = RemoteOmClient(meta.address, clients=rpc_clients)
         scm = RemoteScmClient(meta.address)
         try:
             for i in range(12):
@@ -1883,68 +1964,109 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                      lambda: len(scm.status()["nodes"]) == 12, 30)
             oz = OzoneClient(om, clients, device=device)
             bucket = oz.create_volume("v").create_bucket("b", replication=rs)
+            rpc_bucket = OzoneClient(om_rpc, rpc_clients, device=device).get_volume(
+                "v").create_bucket("r", replication=rs)
             names = [f"k{i}" for i in range(len(keys))]
+            lanes = [d.advertise() for d in dns]
+            if any(not lane or not lane["port"] for lane in lanes):
+                raise AssertionError(f"a daemon advertises no native datapath: {lanes}")
+            print(f"daemon native datapath: 12 sidecars, ports "
+                  f"{[lane['port'] for lane in lanes]}, unix sockets "
+                  f"{sum(bool(lane['uds']) for lane in lanes)}")
 
-            # PUT over the wire: the client's launches are the service's
-            before = service_counts()
-            fused_kernel.launches.reset()
-            since, t0 = time.time(), time.perf_counter()
-            concurrent(lambda i: bucket.write_key(names[i], keys[i]), range(len(keys)))
-            put_s = time.perf_counter() - t0
-            out["put_launches"] = fused_kernel.launches.count
-            svc = service_delta(before)
-            print(f"daemon PUT spans: {span_totals(since)}")
-            print(f"daemon PUT: 4 concurrent {rs} PUTs through a remote OzoneClient into "
-                  f"12 DatanodeDaemons over the RPC, {total} B in {put_s:.3f} s = "
-                  f"{total / put_s / 2**30:.3f} GiB/s (wall), next to "
-                  f"{in_process_put_gib_s:.3f} GiB/s for the same keys in process (main "
-                  f"path, service route, earlier in this run); kernel launches "
-                  f"{out['put_launches']}, service dispatches {svc['dispatches']}, queue "
-                  f"wait {svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms "
-                  f"(means)")
-            if device.type == "cuda" and (out["put_launches"] <= 0
-                                          or out["put_launches"] != svc["dispatches"]):
-                raise AssertionError(f"daemon PUT: {out['put_launches']} launches for "
-                                     f"{svc['dispatches']} service dispatches")
+            # PUT over the native lane, then the same keys over the RPC lane:
+            # the client's launches are the service's
+            def put_phase(lane: str, bkt) -> float:
+                before = service_counts()
+                fused_kernel.launches.reset()
+                since, t0 = time.time(), time.perf_counter()
+                with LaneMeter(dns) as m:
+                    concurrent(lambda i: bkt.write_key(names[i], keys[i]), range(len(keys)))
+                put_s = time.perf_counter() - t0
+                launches = fused_kernel.launches.count
+                svc = service_delta(before)
+                print(f"daemon PUT ({lane} lane) spans: {span_totals(since)}")
+                print(f"daemon PUT over the {lane} lane: 4 concurrent {rs} PUTs through a "
+                      f"remote OzoneClient into 12 DatanodeDaemons, {total} B in "
+                      f"{put_s:.3f} s = {total / put_s / 2**30:.3f} GiB/s (wall), next to "
+                      f"{in_process_put_gib_s:.3f} GiB/s for the same keys in process (main "
+                      f"path, service route, earlier in this run); kernel launches "
+                      f"{launches}, service dispatches {svc['dispatches']}, queue wait "
+                      f"{svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms "
+                      f"(means); {m.line('batched_write_chunks')}")
+                if device.type == "cuda" and (launches <= 0 or launches != svc["dispatches"]):
+                    raise AssertionError(f"daemon PUT ({lane}): {launches} launches for "
+                                         f"{svc['dispatches']} service dispatches")
+                if lane == "native":
+                    no_rpc_chunks("daemon PUT (native)", m, since,
+                                  ("WriteChunksCommit", "WriteChunk", "StreamWriteBlock"))
+                    if m.d["native_fallbacks"] or m.d["bytes_moved"] != m.d["bytes_written"] \
+                            or m.d["bytes_moved"] < total:
+                        raise AssertionError(f"daemon PUT (native): {m.d}")
+                    out["put_launches"] = launches
+                    out["put_copies_per_chunk"] = m.d["copies"] / m.d["batched_write_chunks"]
+                elif m.d["native_write_streams"] or not m.d["rpc_chunk_calls"]:
+                    raise AssertionError(f"daemon PUT (rpc): {m.d}")
+                else:
+                    out["put_rpc_launches"] = launches
+                return total / put_s / 2**30
+
+            out["put_gib_s"] = put_phase("native", bucket)
+            out["put_rpc_gib_s"] = put_phase("RPC", rpc_bucket)
             infos = [om.lookup_key("v", "b", n) for n in names]
-            if [i["size"] for i in infos] != sizes:
-                raise AssertionError(f"daemon PUT: key sizes {[i['size'] for i in infos]}")
+            rpc_infos = [om.lookup_key("v", "r", n) for n in names]
+            if [i["size"] for i in infos] != sizes or [i["size"] for i in rpc_infos] != sizes:
+                raise AssertionError(f"daemon PUT: key sizes {[i['size'] for i in infos]}, "
+                                     f"{[i['size'] for i in rpc_infos]}")
 
-            # GET over the wire, then the same keys through in-process clients
+            # GET over each lane, then the same chunks through in-process clients
             local = DatanodeClientFactory()
             for d in dns:
                 local.register_local(d.dn)
-            for what, factory in (("over the RPC", clients), ("in process", local)):
+            for what, factory in (("over the native lane", clients),
+                                  ("over the RPC lane", rpc_clients), ("in process", local)):
                 reader = OzoneClient(om, factory, device=device).get_volume(
                     "v").get_bucket("b")
-                t0 = time.perf_counter()
-                got = concurrent(reader.read_key_info, infos)
+                since, t0 = time.time(), time.perf_counter()
+                with LaneMeter(dns) as m:
+                    got = concurrent(reader.read_key_info, infos)
                 get_s = time.perf_counter() - t0
                 if not all(np.array_equal(g, k) for g, k in zip(got, keys)):
                     raise AssertionError(f"daemon GET {what}: bytes differ")
-                out[f"get_gib_s_{'rpc' if factory is clients else 'local'}"] = \
-                    total / get_s / 2**30
+                del got
+                key = {clients: "native", rpc_clients: "rpc", local: "local"}[factory]
+                out[f"get_gib_s_{key}"] = total / get_s / 2**30
                 print(f"daemon GET {what}: {total} B byte-exact in {get_s:.3f} s = "
-                      f"{total / get_s / 2**30:.3f} GiB/s (wall)")
+                      f"{total / get_s / 2**30:.3f} GiB/s (wall); "
+                      f"{m.line('batched_read_chunks')}")
+                if key == "native":
+                    no_rpc_chunks("daemon GET (native)", m, since, ("ReadChunks", "ReadChunk"))
+                    if m.d["native_fallbacks"] or m.d["bytes_moved"] < total:
+                        raise AssertionError(f"daemon GET (native): {m.d}")
+                    out["get_copies_per_chunk"] = m.d["copies"] / max(
+                        1, m.d["batched_read_chunks"])
 
-            # degraded GET: two holders' servers stop
+            # degraded GET: two holders' servers and sidecars stop
             g0 = infos[0]["block_groups"][0]
             down = g0["nodes"][:2]
             for dn_id in down:
-                by_id[dn_id].server.stop()
+                stop_server(by_id[dn_id])
             before = service_counts()
             fused_kernel.launches.reset()
-            t0 = time.perf_counter()
-            got = concurrent(bucket.read_key_info, infos)
+            since, t0 = time.time(), time.perf_counter()
+            with LaneMeter([d for d in dns if d.dn.id not in down]) as m:
+                got = concurrent(bucket.read_key_info, infos)
             deg_s = time.perf_counter() - t0
             out["degraded_launches"] = fused_kernel.launches.count
             svc = service_delta(before)
             if not all(np.array_equal(g, k) for g, k in zip(got, keys)):
                 raise AssertionError("daemon degraded GET: bytes differ")
-            print(f"daemon degraded GET ({down} servers stopped): {total} B byte-exact in "
-                  f"{deg_s:.3f} s = {total / deg_s / 2**30:.3f} GiB/s (wall); decode "
-                  f"launches {out['degraded_launches']}, service dispatches "
-                  f"{svc['dispatches']}")
+            del got
+            print(f"daemon degraded GET ({down} servers and sidecars stopped): {total} B "
+                  f"byte-exact in {deg_s:.3f} s = {total / deg_s / 2**30:.3f} GiB/s (wall); "
+                  f"decode launches {out['degraded_launches']}, service dispatches "
+                  f"{svc['dispatches']}; {m.line('batched_read_chunks')}")
+            no_rpc_chunks("daemon degraded GET", m, since, ("ReadChunks", "ReadChunk"))
             if device.type == "cuda" and (out["degraded_launches"] <= 0 or
                                           out["degraded_launches"] != svc["dispatches"]):
                 raise AssertionError("daemon degraded GET: launches differ from dispatches")
@@ -1966,7 +2088,7 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
             victim = g0["nodes"][2]
             vdn = by_id[victim].dn
             lost = {}  # BlockID -> (unit, [(ChunkInfo, bytes)])
-            for info in infos:
+            for info in infos + rpc_infos:
                 for g in info["block_groups"]:
                     if victim in g["nodes"]:
                         bid = BlockID(int(g["container_id"]), int(g["local_id"]))
@@ -1982,6 +2104,8 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
             before = service_counts()
             fused_kernel.launches.reset()
             since, t0 = time.time(), time.perf_counter()
+            meter = LaneMeter([d for d in dns if d.dn.id != victim])
+            meter.__enter__()
 
             def rebuilt():
                 with meta.scm_service.lock:
@@ -1998,7 +2122,12 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
             repair_s = time.perf_counter() - t0
             out["repair_launches"] = fused_kernel.launches.count
             svc = service_delta(before)
+            meter.__exit__()
             print(f"daemon repair spans: {span_totals(since)}")
+            print(f"daemon repair reads: {meter.line('batched_read_chunks')}")
+            no_rpc_chunks("daemon repair", meter, since, ("ReadChunks", "ReadChunk"))
+            if meter.d["native_fallbacks"]:
+                raise AssertionError(f"daemon repair: native fallbacks {meter.d}")
             host = Checksum(ChecksumType.CRC32C, bpc)
             per_target: dict[str, int] = {}
             n_chunks = 0
@@ -2066,11 +2195,13 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
             if device.type == "cuda" and (out["scrub_launches"] <= 0
                                           or out["scrub_launches"] != dispatches):
                 raise AssertionError("daemon scrub: launches differ from dispatches")
-            out.update(put_gib_s=total / put_s / 2**30, degraded_gib_s=total / deg_s / 2**30)
+            out["degraded_gib_s"] = total / deg_s / 2**30
         finally:
             om.close()
+            om_rpc.close()
             scm.close()
             clients.close()
+            rpc_clients.close()
             for d in dns:
                 d.stop()
             meta.stop()
@@ -2178,14 +2309,17 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
                   f"safemode {st['safemode']}, {st['containers']} containers")
             if states != ["HEALTHY"] * 10:
                 raise AssertionError(f"cli admin status: {states}")
-            devices = []
+            devices, native = [], []
             for i in range(10):
                 line = next(l for l in (root / "c" / f"dn{i}.log").read_text().splitlines()
                             if l.startswith(f"datanode dn{i} serving"))
                 devices.append(line.rsplit("device=", 1)[1])
-            print(f"cli datanode logs: devices {devices}")
+                native.append(line.split("native datapath=", 1)[1].split(",", 1)[0])
+            print(f"cli datanode logs: devices {devices}; native datapath {native}")
             if devices != [str(torch.device(dev))] * 10:
                 raise AssertionError(f"datanode devices {devices}")
+            if not all(n.split(" ")[0].isdigit() for n in native):
+                raise AssertionError(f"a datanode advertises no native datapath: {native}")
             out.update(ockg_mib_s=rep["throughput_mib_s"], **times)
         finally:
             if sup.poll() is None:
@@ -2208,6 +2342,18 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
                   f"time; children still alive after the supervisor's teardown: {alive}")
             if alive:
                 raise AssertionError(f"processes left behind: {alive}")
+        # every chunk of the key chain and of freon rode the native lane
+        lanes: dict[str, int] = {}
+        for i in range(10):
+            line = next(l for l in (root / "c" / f"dn{i}.log").read_text().splitlines()
+                        if l.startswith(f"datanode dn{i} stopped"))
+            for k, v in json.loads(line.split("by lane: ", 1)[1]).items():
+                lanes[k] = lanes.get(k, 0) + v
+        print(f"cli datanodes' chunk traffic by lane, summed: {lanes}")
+        if lanes["native_write_streams"] <= 0 or lanes["native_read_streams"] <= 0 \
+                or lanes["rpc_chunk_calls"]:
+            raise AssertionError(f"cli cluster: chunks left the native lane: {lanes}")
+        out["lanes"] = lanes
     return out
 
 
@@ -2363,6 +2509,7 @@ def main() -> int:
             "freon_ockrr": fr["ockrr_launches"], "freon_ecrd": fr["ecrd_launches"],
             "storm": fr["storm_launches"],
             "daemon_put": dm["put_launches"],
+            "daemon_put_rpc_lane": dm["put_rpc_launches"],
             "daemon_degraded_get": dm["degraded_launches"],
             "daemon_repair": dm["repair_launches"],
             "daemon_scrub": dm["scrub_launches"],

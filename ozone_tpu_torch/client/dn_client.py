@@ -3,10 +3,10 @@
 Port of `ozone_tpu/client/dn_client.py` (the reference's XceiverClient
 family): the in-process client, and a factory that resolves in-process
 datanodes first, then remote addresses registered with `register_remote`,
-whose `RpcDatanodeClient` (`net/dn_service.py`) it builds lazily on first
-use. The native-datapath client, block tokens and nearest-first
-ordering are not ported yet (`learn_locations` keeps the topology the
-SCM ships).
+whose `NativeDatanodeClient` (`client/native_dn.py`: the bulk verbs over
+the datanode's native datapath, the rest over the RPC) it builds lazily
+on first use. Block tokens and nearest-first ordering are not ported yet
+(`learn_locations` keeps the topology the SCM ships).
 """
 
 from __future__ import annotations
@@ -156,7 +156,10 @@ class DatanodeClientFactory:
     """dn_id -> client resolver (the XceiverClientManager pool analog), with
     the per-peer health registry every writer built over it shares."""
 
-    def __init__(self):
+    def __init__(self, native_datapath: Optional[bool] = None):
+        #: whether remote clients take the native datapath for the bulk
+        #: verbs; None reads OZONE_TPU_NATIVE_DATAPATH (on by default)
+        self.native_datapath = native_datapath
         self._local: dict[str, LocalDatanodeClient] = {}
         self._addresses: dict[str, str] = {}
         self._remote: dict = {}
@@ -200,10 +203,13 @@ class DatanodeClientFactory:
         with self._remote_lock:
             c = self._remote.get(dn_id)
             if c is None and dn_id in self._addresses:
-                from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
+                from ozone_tpu_torch.client.native_dn import (
+                    NativeDatanodeClient,
+                )
 
-                c = self._remote[dn_id] = RpcDatanodeClient(
-                    dn_id, self._addresses[dn_id])
+                c = self._remote[dn_id] = NativeDatanodeClient(
+                    dn_id, self._addresses[dn_id],
+                    native=self.native_datapath)
             return c
 
     def get(self, dn_id: str):

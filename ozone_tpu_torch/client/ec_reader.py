@@ -211,7 +211,8 @@ class ECBlockGroupReader:
             return hostmem.as_array(data)
         out = np.zeros(self.cell, dtype=np.uint8)
         out[: data.size] = data
-        hostmem.count_copy(int(data.size))
+        hostmem.count_copy(int(data.size), site="ec_reader._cell_array",
+                           warn=False)
         return out
 
     def _prefetch_unit(self, u: int, stripes: Sequence[int]) -> None:

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
 exports a plain C interface. A `.cu` file is compiled with `nvcc` for
-`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2` (the GF coder with
-`-O3 -march=native -pthread`, as the reference builds its native coder),
-into `_build/lib<name>-<hash>.so`, where the hash covers the source and
+`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2` (the GF coder and the
+chunk datapath sidecar with `-O3 -march=native -pthread`, as the
+reference builds its own copies), into `_build/lib<name>-<hash>.so`, where the hash covers the source and
 the flags, and for `-march=native` what the compiler makes of it on this
 host, so an edited source, or a library built for another CPU, never
 loads. Each compiler writes a temporary file that is renamed into place,
@@ -42,6 +42,10 @@ GXX_FLAGS = ("-O3", "-msse4.2", "-shared", "-fPIC", "-std=c++17")
 HOST_FLAGS = {
     "gf_coder": ("-O3", "-march=native", "-pthread", "-shared", "-fPIC",
                  "-std=c++17"),
+    #: the chunk datapath sidecar, with the reference's flags
+    #: (ozone_tpu/storage/fast_datapath.py:69-71)
+    "datapath": ("-O3", "-march=native", "-std=c++17", "-pthread", "-shared",
+                 "-fPIC"),
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,11 @@ with the DatanodeStateMachine register -> heartbeat loop and command
 handlers; StorageContainerManagerStarter and OzoneManagerStarter, here
 co-located behind one server).
 
-`DatanodeDaemon` serves the datanode verbs (`net/dn_service.py`),
-registers with the SCM with its filesystem capacity, heartbeats with a
+`DatanodeDaemon` serves the datanode verbs (`net/dn_service.py`), starts
+the native chunk datapath sidecar (`storage/fast_datapath.py`) that the
+bulk verbs ride and advertises it through `GetDatapathInfo` (on unless
+OZONE_TPU_NATIVE_DATAPATH=0; a sidecar that cannot be built or bound
+raises, the daemon never serves the RPC alone in its place), registers with the SCM with its filesystem capacity, heartbeats with a
 full container report whenever one changed (or every 10 s), and runs the
 commands that come back: close, EC reconstruction on the port's
 `ECReconstructionCoordinator`, replication (a container export pulled
@@ -36,6 +39,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from ozone_tpu_torch.client import native_dn
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.net.dn_service import DatanodeRpcService
@@ -51,6 +55,7 @@ from ozone_tpu_torch.scm.replication_manager import (
 from ozone_tpu_torch.scm.scm import StorageContainerManager
 from ozone_tpu_torch.storage.container_packer import import_container
 from ozone_tpu_torch.storage.datanode import Datanode
+from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
 from ozone_tpu_torch.storage.ids import StorageError
 from ozone_tpu_torch.storage.reconstruction import (
     ECReconstructionCoordinator,
@@ -82,8 +87,19 @@ class DatanodeDaemon:
         # first: a datanode that cannot reach its device refuses to start
         self.device = resolve_device(device)
         self.dn = Datanode(Path(root), dn_id=dn_id)
-        self.server = RpcServer(host, port)
-        self.service = DatanodeRpcService(self.dn, self.server)
+        #: the native datapath sidecar, or None when it is turned off
+        self.datapath: Optional[DatapathSidecar] = None
+        try:
+            if native_dn.enabled():
+                self.datapath = DatapathSidecar(self.dn, host=host)
+                self.datapath.start()  # raises when it cannot build or bind
+            self.server = RpcServer(host, port)
+        except BaseException:
+            self.stop_datapath()
+            self.dn.close()
+            raise
+        self.service = DatanodeRpcService(self.dn, self.server,
+                                          datapath_port=self.advertise)
         self.scm = RemoteScmClient(scm_address)
         self.rack = rack
         self.heartbeat_interval = heartbeat_interval_s
@@ -108,6 +124,21 @@ class DatanodeDaemon:
     @property
     def address(self) -> str:
         return self.server.address
+
+    def advertise(self) -> Optional[dict]:
+        """GetDatapathInfo's answer: the sidecar's port and unix socket."""
+        return self.datapath.advertise() if self.datapath else None
+
+    def lane_counts(self) -> dict:
+        """Chunk traffic served by each lane since start: the native
+        datapath's write and read streams, and the RPC's chunk verbs."""
+        return {k: self.dn.metrics.counter(k).value
+                for k in ("native_write_streams", "native_read_streams",
+                          "rpc_chunk_calls")}
+
+    def stop_datapath(self) -> None:
+        if self.datapath is not None:
+            self.datapath.stop()
 
     def _capacity_bytes(self) -> int:
         """Capacity of the filesystem under the datanode's volume."""
@@ -261,6 +292,7 @@ class DatanodeDaemon:
             if t is not None:
                 t.join(timeout=5)
         self.server.stop()
+        self.stop_datapath()
         self.scm.close()
         self.clients.close()
         self.dn.close()

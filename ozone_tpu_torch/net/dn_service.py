@@ -6,9 +6,11 @@ HddsDispatcher does): `DatanodeRpcService` is `DatanodeGrpcService` and
 `RpcDatanodeClient` is `GrpcDatanodeClient`, with the same method names
 on the wire. The client is a drop-in datanode client
 (`client/dn_client.py`), so the EC writer, reader and reconstruction
-coordinator work unchanged across processes. Left out: block and
-container tokens, layout-version gating, the native datapath sidecar and
-the replication throttle.
+coordinator work unchanged across processes. `GetDatapathInfo` answers
+the native datapath sidecar's port and unix socket
+(`storage/fast_datapath.py`), which `client/native_dn.py` takes for the
+bulk verbs. Left out: block and container tokens, layout-version gating
+and the replication throttle.
 """
 
 from __future__ import annotations
@@ -38,12 +40,16 @@ _EXPORT_FRAME = 4 * 1024 * 1024
 class DatanodeRpcService:
     """The HddsDispatcher boundary: every externally reachable verb."""
 
-    def __init__(self, dn: Datanode, server: RpcServer):
+    def __init__(self, dn: Datanode, server: RpcServer, datapath_port=None):
         self.dn = dn
+        #: callable() -> the native sidecar's advertisement ({"port",
+        #: "uds"}) or None: clients discover the native lane through
+        #: GetDatapathInfo and take the RPC verbs when it answers no port
+        self.datapath_port = datapath_port
         server.add_service(
             SERVICE,
             {
-                "GetDatapathInfo": lambda req: wire.pack({"port": None}),
+                "GetDatapathInfo": self._datapath_info,
                 "CreateContainer": self._create_container,
                 "CloseContainer": self._close_container,
                 "DeleteContainer": self._delete_container,
@@ -73,6 +79,7 @@ class DatanodeRpcService:
         bytes_per_checksum}, every later frame a raw payload slab. Chunks
         are cut here at chunk_size and written as they arrive, and one
         PutBlock commits them; the answer is the committed BlockData."""
+        self._count_chunk_call()
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])
@@ -107,7 +114,8 @@ class DatanodeRpcService:
             pending_bytes -= n
             if len(take) == 1:
                 return hostmem.as_array(take[0])
-            hostmem.count_copy(n)
+            hostmem.count_copy(n, site="dn_service._stream_write_block",
+                               warn=False)
             return hostmem.as_array(b"".join(take))
 
         def flush(final: bool) -> None:
@@ -138,6 +146,7 @@ class DatanodeRpcService:
         every later frame wire.pack({chunk}, payload). The client cut the
         chunks and computed their checksums; the commit applies only after
         every chunk landed."""
+        self._count_chunk_call()
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])
@@ -162,6 +171,15 @@ class DatanodeRpcService:
             self.dn.put_block(bd, sync=sync, writer=writer)
         return wire.pack({})
 
+    def _count_chunk_call(self) -> None:
+        """Chunk bytes served over the RPC (the native lane's streams are
+        counted by the sidecar)."""
+        self.dn.metrics.counter("rpc_chunk_calls").inc()
+
+    def _datapath_info(self, req) -> bytes:
+        v = self.datapath_port() if self.datapath_port else None
+        return wire.pack(v if isinstance(v, dict) else {"port": v})
+
     def _create_container(self, req) -> bytes:
         m, _ = wire.unpack(req)
         self.dn.create_container(m["container_id"], m.get("replica_index", 0),
@@ -179,6 +197,7 @@ class DatanodeRpcService:
         return wire.pack({})
 
     def _write_chunk(self, req) -> bytes:
+        self._count_chunk_call()
         m, payload = wire.unpack(req)
         self.dn.write_chunk(BlockID.from_json(m["block_id"]),
                             ChunkInfo.from_json(m["chunk"]),
@@ -222,6 +241,7 @@ class DatanodeRpcService:
         return wire.pack({"container_id": c.id})
 
     def _read_chunk(self, req):
+        self._count_chunk_call()
         m, _ = wire.unpack(req)
         data = self.dn.read_chunk(BlockID.from_json(m["block_id"]),
                                   ChunkInfo.from_json(m["chunk"]),
@@ -231,6 +251,7 @@ class DatanodeRpcService:
     def _read_chunks(self, req):
         """Server-streamed batch read: one payload frame per named chunk,
         in request order (the read-side twin of WriteChunksCommit)."""
+        self._count_chunk_call()
         m, _ = wire.unpack(req)
         block_id = BlockID.from_json(m["block_id"])
         verify = m.get("verify", False)

@@ -119,7 +119,8 @@ def _send(sock: socket.socket, frames: list[tuple[int, list]],
             for p in parts:
                 if len(p) < _COALESCE:
                     if not isinstance(p, bytes):
-                        hostmem.count_copy(len(p))
+                        hostmem.count_copy(len(p), site="rpc._send",
+                                           warn=False)
                     pending.append(p)
                 else:
                     flush()

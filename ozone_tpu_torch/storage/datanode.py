@@ -5,8 +5,9 @@ replicated writes, their read-back, the scrubber and the SCM use (the
 reference's KeyValueHandler verb switch): CreateContainer, WriteChunk,
 ReadChunk (with checksum verification), PutBlock, GetBlock, ListBlock,
 GetCommittedBlockLength, DeleteBlock, CloseContainer, DeleteContainer,
-the single-writer block fence, the container list and report, and the
-host full-data scan (`scan_container`) that the device scrubber
+the single-writer block fence, the container list and report, the
+read-error hook the native datapath's `fail` callback calls
+(`on_read_error`), and the host full-data scan (`scan_container`) that the device scrubber
 (`storage/scrubber.py`) is held against. `mutation_count` moves with
 every change a container report shows, so the datanode daemon
 (`net/daemons.py`) sends a full report only when something changed. The
@@ -150,10 +151,18 @@ class Datanode:
                                       offset_hint=str(block_id))
                 except ChecksumError as e:
                     self.metrics.counter("checksum_failures").inc()
-                    c.mark_unhealthy()
+                    self.on_read_error(c)
                     raise StorageError(CHECKSUM_MISMATCH, str(e)) from e
             self.metrics.counter("bytes_read").inc(info.length)
             return data
+
+    def on_read_error(self, container: Container) -> None:
+        """A chunk failed its checksum on a read (the RPC verb's check or
+        the native datapath's): the container goes UNHEALTHY, and the next
+        container report carries it to the SCM, whose replication manager
+        rebuilds it (the reference's on-demand scan trigger)."""
+        container.mark_unhealthy()
+        self.mutation_count += 1
 
     def put_block(self, block: BlockData, sync: bool = False,
                   writer: Optional[str] = None) -> None:

@@ -251,9 +251,14 @@ def cmd_datanode(args) -> int:
                        heartbeat_interval_s=args.heartbeat_interval,
                        scan_interval_s=args.scan_interval, device=device)
     d.start()
+    lane = d.advertise()
+    native = f"{lane['port']} uds={lane['uds']}" if lane else "off"
     print(f"datanode {dn_id} serving on {d.address}, scm={args.scm}, "
-          f"device={d.device}", flush=True)
-    return _serve(d.stop)
+          f"native datapath={native}, device={d.device}", flush=True)
+    rc = _serve(d.stop)
+    print(f"datanode {dn_id} stopped; chunk streams by lane: "
+          f"{json.dumps(d.lane_counts())}", flush=True)
+    return rc
 
 
 def cmd_scm_om(args) -> int:
@@ -290,15 +295,17 @@ def cmd_cluster(args) -> int:
     under one supervisor (spawned together with fork and exec), up when
     every datanode registered; serves until SIGTERM or SIGINT, then stops every
     child. With --device cuda the supervisor builds every kernel and host
-    library first, so the datanodes load them instead of each compiling
-    them at once."""
+    library first (on the CPU, the native datapath's), so the datanodes
+    load them instead of each compiling them at once."""
+    from ozone_tpu_torch import cuda_build
+    from ozone_tpu_torch.client import native_dn
     from ozone_tpu_torch.net.scm_service import RemoteScmClient
 
     device = _device(args)
     if device != "cpu":
-        from ozone_tpu_torch import cuda_build
-
         cuda_build.build_all()
+    elif native_dn.enabled():
+        cuda_build.load("datapath")
     root = Path(args.root or tempfile.mkdtemp(prefix="ozone-cluster-"))
     root.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(REPO))

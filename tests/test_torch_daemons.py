@@ -29,6 +29,7 @@ from ozone_tpu.storage import ids as j_ids
 from ozone_tpu.utils import checksum as j_checksum
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.client.ozone_client import OzoneClient
+from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.net import daemons
 from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
 from ozone_tpu_torch.net.om_service import RemoteOmClient
@@ -370,26 +371,34 @@ def test_container_close_converges(tmp_path):
 # ----------------------------------------------------- beyond the reference
 def test_per_stripe_writes_match_the_reference(pair, monkeypatch):
     """OZONE_TPU_BATCH_WRITES=0: each stripe is k+p WriteChunk calls and a
-    PutBlock barrier, in both packages; the stored chunks are equal."""
+    PutBlock barrier, in both packages; the stored chunks are equal. On the
+    native datapath each WriteChunk is a stream of one chunk."""
     monkeypatch.setenv("OZONE_TPU_BATCH_WRITES", "0")
     data = _data(11, 3 * 4096 * 5 + 777)
     for s in pair:
         s.oz.create_volume("v").create_bucket("b", replication=EC)
         s.oz.get_volume("v").get_bucket("b").write_key("k", data)
     infos = both(pair, lambda s: s.oz.om.lookup_key("v", "b", "k"))
-    assert pair[0].chunks(infos[0]) == pair[1].chunks(infos[1])
+    stored = pair[0].chunks(infos[0])
+    assert stored == pair[1].chunks(infos[1])
     streams = sum(d.dn.metrics.counter("batched_write_streams").value
                   for d in pair[0].dns)
-    assert streams == 0
+    chunks = sum(d.dn.metrics.counter("batched_write_chunks").value
+                 for d in pair[0].dns)
+    assert streams == chunks == len(stored)
     assert np.array_equal(pair[0].oz.get_volume("v").get_bucket("b")
                           .read_key("k"), data)
 
 
 def test_refused_batch_verb_downgrades_for_good(pair):
     """One datanode refuses WriteChunksCommit: the writer rolls the run back,
-    replays per stripe and keeps to it; the key equals the reference's."""
+    replays per stripe and keeps to it; the key equals the reference's. The
+    port's sidecars are stopped, so the bulk verbs fall back to the RPC
+    (counted) and meet the refusal there."""
     port = pair[0]
+    fallbacks = hostmem.METRICS.counter("native_fallbacks").value
     for d in port.dns:
+        d.stop_datapath()
         d.server._methods.pop("/ozone.tpu.DatanodeService/WriteChunksCommit")
     data = _data(12, 3 * 4096 * 9 + 5)
     for s in pair:
@@ -401,6 +410,7 @@ def test_refused_batch_verb_downgrades_for_good(pair):
                           .read_key("k"), data)
     assert sum(d.dn.metrics.counter("batched_write_streams").value
                for d in port.dns) == 0
+    assert hostmem.METRICS.counter("native_fallbacks").value > fallbacks
 
 
 def test_replication_moves_the_container(pair, tmp_path):

@@ -68,6 +68,10 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.net.daemons",
     "ozone_tpu_torch.tools.cli",
     "ozone_tpu_torch.tools.__main__",
+    # the native chunk datapath: the pooled leases, the sidecar, the client
+    "ozone_tpu_torch.codec.hostmem",
+    "ozone_tpu_torch.storage.fast_datapath",
+    "ozone_tpu_torch.client.native_dn",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
