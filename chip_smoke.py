@@ -68,7 +68,27 @@ a phase says otherwise:
   volume/bucket create`, `sh key put/get` of 64 MiB + 12 345 B with a byte
   compare, `freon ockg -n 16 -s 16777216`, `admin status`: 10 HEALTHY),
   torn down by pid; every datanode log names its native port, and their
-  lane counts show the chunks rode the native lane only.
+  lane counts show the chunks rode the native lane only. Beside those CLI
+  commands, `s3g --require-auth --device cuda` runs as a process in front
+  of that cluster: `s3 getsecret`, a signed PUT and GET of the same key's
+  bytes, a 3-part multipart upload and `freon s3kg -n 16`, each
+  byte-exact; stopped, it prints its kernel launches and service
+  dispatches, which must be equal;
+- the S3 gateway (`s3_path`): an `S3Gateway` with require_auth in this
+  process, in front of an OzoneClient over an ScmOmDaemon and 12
+  DatanodeDaemons (native lane), bucket rs-6-3-1024k, every request
+  SigV4-signed with a secret from `s3 getsecret`: four concurrent
+  clients each PUT 64 MiB (payload hash signed) and upload 96 MiB +
+  12 345 B in 8 MiB parts, four in flight (ListParts and
+  ListMultipartUploads checked before the complete); GETs whole, 8 MiB
+  ranges across part boundaries and a suffix range; HEAD; ListObjectsV2
+  with a delimiter and max-keys paging; an aws-chunked PUT of 16 MiB and a
+  presigned GET; unsigned and badly signed PUTs refused (403); the same
+  bytes PUT and GET through the OzoneClient alone; and a degraded GET of
+  the multipart objects with two holders of their data units stopped.
+  Every body is byte-exact, every ETag the body's MD5 or the multipart
+  composite, launches equal service dispatches, and the native lane sees
+  no fallback and no RPC chunk call.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -90,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -1908,8 +1929,9 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                               in_process_put_gib_s: float) -> dict:
     """One ScmOmDaemon and 12 DatanodeDaemons on loopback on 3 racks, the
     codec on `device`, driven through a remote OzoneClient: the PUT phase's
-    four keys concurrently over the native datapath, then again over the
-    RPC lane; a GET over each lane and in process; a degraded GET with two
+    four keys concurrently over the native datapath, then the two smaller
+    ones again over the RPC lane; a GET over each lane (the RPC lane's of
+    the two smaller keys) and in process; a degraded GET with two
     holders' servers and sidecars stopped; an admin close of the
     containers, a datanode's death and the SCM's reconstruction over
     heartbeats; and a scrub of every live daemon's closed containers. The
@@ -1976,20 +1998,21 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
 
             # PUT over the native lane, then the same keys over the RPC lane:
             # the client's launches are the service's
-            def put_phase(lane: str, bkt) -> float:
+            def put_phase(lane: str, bkt, idx: list) -> float:
                 before = service_counts()
                 fused_kernel.launches.reset()
+                nbytes = sum(sizes[i] for i in idx)
                 since, t0 = time.time(), time.perf_counter()
                 with LaneMeter(dns) as m:
-                    concurrent(lambda i: bkt.write_key(names[i], keys[i]), range(len(keys)))
+                    concurrent(lambda i: bkt.write_key(names[i], keys[i]), idx)
                 put_s = time.perf_counter() - t0
                 launches = fused_kernel.launches.count
                 svc = service_delta(before)
                 print(f"daemon PUT ({lane} lane) spans: {span_totals(since)}")
-                print(f"daemon PUT over the {lane} lane: 4 concurrent {rs} PUTs through a "
-                      f"remote OzoneClient into 12 DatanodeDaemons, {total} B in "
-                      f"{put_s:.3f} s = {total / put_s / 2**30:.3f} GiB/s (wall), next to "
-                      f"{in_process_put_gib_s:.3f} GiB/s for the same keys in process (main "
+                print(f"daemon PUT over the {lane} lane: {len(idx)} concurrent {rs} PUTs "
+                      f"through a remote OzoneClient into 12 DatanodeDaemons, {nbytes} B in "
+                      f"{put_s:.3f} s = {nbytes / put_s / 2**30:.3f} GiB/s (wall), next to "
+                      f"{in_process_put_gib_s:.3f} GiB/s for the four keys in process (main "
                       f"path, service route, earlier in this run); kernel launches "
                       f"{launches}, service dispatches {svc['dispatches']}, queue wait "
                       f"{svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms "
@@ -2009,13 +2032,16 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                     raise AssertionError(f"daemon PUT (rpc): {m.d}")
                 else:
                     out["put_rpc_launches"] = launches
-                return total / put_s / 2**30
+                return nbytes / put_s / 2**30
 
-            out["put_gib_s"] = put_phase("native", bucket)
-            out["put_rpc_gib_s"] = put_phase("RPC", rpc_bucket)
+            # the RPC lane's repeat is cut to the two smaller keys (depth)
+            small = [2, 3]
+            out["put_gib_s"] = put_phase("native", bucket, list(range(len(keys))))
+            out["put_rpc_gib_s"] = put_phase("RPC", rpc_bucket, small)
             infos = [om.lookup_key("v", "b", n) for n in names]
-            rpc_infos = [om.lookup_key("v", "r", n) for n in names]
-            if [i["size"] for i in infos] != sizes or [i["size"] for i in rpc_infos] != sizes:
+            rpc_infos = [om.lookup_key("v", "r", names[i]) for i in small]
+            if [i["size"] for i in infos] != sizes or \
+                    [i["size"] for i in rpc_infos] != [sizes[i] for i in small]:
                 raise AssertionError(f"daemon PUT: key sizes {[i['size'] for i in infos]}, "
                                      f"{[i['size'] for i in rpc_infos]}")
 
@@ -2027,17 +2053,19 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                                   ("over the RPC lane", rpc_clients), ("in process", local)):
                 reader = OzoneClient(om, factory, device=device).get_volume(
                     "v").get_bucket("b")
+                key = {clients: "native", rpc_clients: "rpc", local: "local"}[factory]
+                idx = small if key == "rpc" else list(range(len(keys)))
+                nbytes = sum(sizes[i] for i in idx)
                 since, t0 = time.time(), time.perf_counter()
                 with LaneMeter(dns) as m:
-                    got = concurrent(reader.read_key_info, infos)
+                    got = concurrent(reader.read_key_info, [infos[i] for i in idx])
                 get_s = time.perf_counter() - t0
-                if not all(np.array_equal(g, k) for g, k in zip(got, keys)):
+                if not all(np.array_equal(g, keys[i]) for g, i in zip(got, idx)):
                     raise AssertionError(f"daemon GET {what}: bytes differ")
                 del got
-                key = {clients: "native", rpc_clients: "rpc", local: "local"}[factory]
-                out[f"get_gib_s_{key}"] = total / get_s / 2**30
-                print(f"daemon GET {what}: {total} B byte-exact in {get_s:.3f} s = "
-                      f"{total / get_s / 2**30:.3f} GiB/s (wall); "
+                out[f"get_gib_s_{key}"] = nbytes / get_s / 2**30
+                print(f"daemon GET {what}: {nbytes} B byte-exact in {get_s:.3f} s = "
+                      f"{nbytes / get_s / 2**30:.3f} GiB/s (wall); "
                       f"{m.line('batched_read_chunks')}")
                 if key == "native":
                     no_rpc_chunks("daemon GET (native)", m, since, ("ReadChunks", "ReadChunk"))
@@ -2290,8 +2318,11 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
                 text, times["admin status"] = cli("admin", "status", "--om", om)
                 return json.loads(text)
 
+            def s3_chain():
+                return s3g_process(cli, root, om, rs, dev, cell, payload.tobytes(), times)
+
             t1 = time.perf_counter()
-            same, rep, st = concurrent(lambda f: f(), [key_chain, ockg, status])
+            same, rep, st, s3g = concurrent(lambda f: f(), [key_chain, ockg, status, s3_chain])
             print(f"cli commands, the key chain beside freon and admin status: "
                   f"{time.perf_counter() - t1:.2f} s; per process (interpreter start, "
                   f"torch, CUDA and all): " + ", ".join(f"{k} {v:.2f} s"
@@ -2320,7 +2351,7 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
                 raise AssertionError(f"datanode devices {devices}")
             if not all(n.split(" ")[0].isdigit() for n in native):
                 raise AssertionError(f"a datanode advertises no native datapath: {native}")
-            out.update(ockg_mib_s=rep["throughput_mib_s"], **times)
+            out.update(ockg_mib_s=rep["throughput_mib_s"], s3g=s3g, **times)
         finally:
             if sup.poll() is None:
                 sup.send_signal(signal.SIGTERM)
@@ -2357,6 +2388,86 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
     return out
 
 
+def s3g_process(cli, root: Path, om: str, rs: str, dev: str, cell: int, payload: bytes,
+                times: dict) -> dict:
+    """`python -m ozone_tpu_torch.tools s3g --require-auth` in front of the CLI
+    cluster: `s3 getsecret`, one signed PUT and GET of `payload` byte-exact
+    with its MD5 ETag, a 3-part multipart upload, `freon s3kg -n 16` signed
+    with the secret; stopped, the gateway prints its kernel launches and
+    codec-service dispatches, which must be equal."""
+    import re
+    import signal
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = Path(__file__).resolve().parent
+    log_path = root / "s3g.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        gw = subprocess.Popen(
+            [sys.executable, "-m", "ozone_tpu_torch.tools", "s3g", "--om", om, "--port",
+             str(port), "--replication", rs, "--device", dev, "--require-auth"],
+            stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL, cwd=str(repo),
+            env=dict(os.environ, PYTHONPATH=str(repo)))
+    out: dict = {}
+    try:
+        def serving():
+            if gw.poll() is not None:
+                raise AssertionError(f"s3g exited: {log_path.read_text()[-2000:]}")
+            return "s3 gateway serving" in log_path.read_text()
+
+        times["s3g up"] = wait_for("s3g serving", serving, 180, poll_s=0.25)
+        text, times["s3 getsecret"] = cli("s3", "getsecret", "smoke", "--om", om)
+        s3 = S3Client(f"127.0.0.1:{port}", "smoke", json.loads(text)["secret"])
+        s3.ok("PUT", "/cs3")
+        t1 = time.perf_counter()
+        h, _ = s3.ok("PUT", "/cs3/obj", payload)
+        times["s3g PUT"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        back = s3.ok("GET", "/cs3/obj")[1]
+        times["s3g GET"] = time.perf_counter() - t1
+        if back != payload or h["etag"].strip('"') != hashlib.md5(payload).hexdigest():
+            raise AssertionError("s3g PUT/GET differs")
+        part = -(-len(payload) // 3)
+        t1 = time.perf_counter()
+        etag, parts = s3_multipart(s3, "/cs3/mp", payload, part, 3)
+        times["s3g multipart"] = time.perf_counter() - t1
+        if len(parts) != 3 or s3.ok("GET", "/cs3/mp")[1] != payload or not etag.endswith("-3"):
+            raise AssertionError(f"s3g multipart: {etag} {len(parts)} parts")
+        text, times["freon s3kg"] = cli("freon", "s3kg", "-n", "16", "-s", str(cell),
+                                        "--endpoint", f"127.0.0.1:{port}", "--access-id",
+                                        "smoke", "--validate", "--om", om)
+        out["s3kg"] = json.loads(text)
+        if out["s3kg"]["ops"] != 16 or out["s3kg"]["failures"]:
+            raise AssertionError(f"freon s3kg: {out['s3kg']}")
+    finally:
+        gw.send_signal(signal.SIGTERM)
+        try:
+            gw.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            gw.kill()
+            gw.wait()
+    last = log_path.read_text().strip().splitlines()[-1]
+    m = re.match(r"s3 gateway stopped; kernel launches (\d+), service dispatches (\d+)$", last)
+    if not m:
+        raise AssertionError(f"s3g did not report its counts: {last!r}")
+    out["launches"], out["dispatches"] = int(m.group(1)), int(m.group(2))
+    print(f"cli s3g (--require-auth, {rs}, device {dev}): up in {times['s3g up']:.2f} s; "
+          f"signed PUT / GET of {len(payload)} B byte-exact, ETag = MD5 "
+          f"({times['s3g PUT']:.3f} / {times['s3g GET']:.3f} s); 3-part multipart upload "
+          f"byte-exact, ETag {etag} ({times['s3g multipart']:.3f} s); freon s3kg -n 16 -s "
+          f"{cell} --validate: {out['s3kg']['throughput_mib_s']} MiB/s, p50 "
+          f"{out['s3kg']['p50_ms']} ms; stopped after {time.perf_counter() - t0:.2f} s: "
+          f"kernel launches {out['launches']}, service dispatches {out['dispatches']}")
+    if dev == "cuda" and (out["launches"] <= 0 or out["launches"] != out["dispatches"]):
+        raise AssertionError(f"s3g: {out['launches']} launches for {out['dispatches']} "
+                             f"service dispatches")
+    return out
+
+
 def daemon_path(device, cell: int, bpc: int, seed: int,
                 in_process_put_gib_s: float = float("nan")) -> dict:
     """The port as a cluster of daemons: in process on loopback, then as
@@ -2368,6 +2479,374 @@ def daemon_path(device, cell: int, bpc: int, seed: int,
         cuda_build.build_all()
     out = daemon_cluster_in_process(device, cell, bpc, seed, in_process_put_gib_s)
     out["cli"] = daemon_cluster_processes(device, cell, seed)
+    return out
+
+
+# ------------------------------------------------------------------ S3 path
+class S3Client:
+    """A SigV4 S3 client over keep-alive HTTP (one connection per
+    thread), with the port's signers: the payload hash is signed, as the
+    AWS CLI does over plain HTTP. `sign_s` sums the seconds spent signing
+    (hashing the bodies), so the gateway's own time can be split off."""
+
+    def __init__(self, endpoint: str, access_id: str, secret: str):
+        self.endpoint, self.access_id, self.secret = endpoint, access_id, secret
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.sign_s = 0.0
+
+    def _conn(self):
+        import http.client
+
+        c = getattr(self._local, "conn", None)
+        if c is None:
+            c = self._local.conn = http.client.HTTPConnection(self.endpoint, timeout=600)
+        return c
+
+    def url(self, path: str) -> str:
+        return f"http://{self.endpoint}{path}"
+
+    def headers(self, method: str, path: str, body=b"", extra=None, sign=True,
+                streaming=False, secret=None) -> tuple[dict, bytes]:
+        from ozone_tpu_torch.gateway.s3_auth import request_headers
+
+        t0 = time.perf_counter()
+        hdrs, body = request_headers(self.endpoint, method, path, body, extra,
+                                     self.access_id if sign or streaming else None,
+                                     secret or self.secret, streaming)
+        with self._lock:
+            self.sign_s += time.perf_counter() - t0
+        return hdrs, body
+
+    def send(self, method: str, path: str, body=b"", hdrs=None) -> tuple[int, dict, bytes]:
+        c = self._conn()
+        c.request(method, path, body=body, headers=hdrs or {})
+        r = c.getresponse()
+        data = r.read()
+        if r.getheader("Connection", "").lower() == "close":
+            c.close()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+
+    def req(self, method: str, path: str, body=b"", extra=None, **kw) -> tuple[int, dict, bytes]:
+        hdrs, body = self.headers(method, path, body, extra, **kw)
+        return self.send(method, path, body, hdrs)
+
+    def ok(self, method: str, path: str, body=b"", extra=None, status=200, **kw):
+        st, h, data = self.req(method, path, body, extra, **kw)
+        if st != status:
+            raise AssertionError(f"S3 {method} {path}: {st} {data[:300]!r}")
+        return h, data
+
+
+def xml_text(data: bytes, tag: str) -> list[str]:
+    """The texts of every element `tag` of an S3 XML answer."""
+    import xml.etree.ElementTree as ET
+
+    return [el.text or "" for el in ET.fromstring(data).iter()
+            if el.tag.rpartition("}")[2] == tag]
+
+
+def s3_multipart(s3: S3Client, path: str, data, part: int, in_flight: int) -> tuple[str, list]:
+    """One multipart upload of `data` in parts of `part` bytes, `in_flight`
+    parts at once; ListParts and ListMultipartUploads are checked before
+    the complete. Returns (the complete's ETag, the parts' ETags)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    _, body = s3.ok("POST", f"{path}?uploads")
+    uid = xml_text(body, "UploadId")[0]
+    chunks = [memoryview(data)[o:o + part] for o in range(0, len(data), part)]
+
+    def put(i):
+        h, _ = s3.ok("PUT", f"{path}?partNumber={i + 1}&uploadId={uid}", chunks[i])
+        return h["etag"].strip('"')
+
+    with ThreadPoolExecutor(in_flight) as pool:
+        etags = list(pool.map(put, range(len(chunks))))
+    _, listed = s3.ok("GET", f"{path}?uploadId={uid}")
+    if xml_text(listed, "PartNumber") != [str(i + 1) for i in range(len(chunks))] or \
+            [e.strip('"') for e in xml_text(listed, "ETag")] != etags:
+        raise AssertionError(f"ListParts of {path}: {listed[:500]!r}")
+    bucket, key = path.lstrip("/").split("/", 1)
+    _, uploads = s3.ok("GET", f"/{bucket}?uploads&prefix={key}")
+    if uid not in xml_text(uploads, "UploadId"):
+        raise AssertionError(f"ListMultipartUploads misses {uid}")
+    complete = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{i + 1}</PartNumber><ETag>\"{e}\"</ETag></Part>"
+        for i, e in enumerate(etags)) + "</CompleteMultipartUpload>").encode()
+    _, done = s3.ok("POST", f"{path}?uploadId={uid}", complete)
+    return xml_text(done, "ETag")[0].strip('"'), etags
+
+
+def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
+    """The S3 gateway in this process (require_auth) in front of an
+    OzoneClient on `device` over an ScmOmDaemon (through RemoteOmClient)
+    and 12 DatanodeDaemons on the native lane; the bucket rs-6-3. Four
+    concurrent clients each PUT a 64-cell object (payload hash signed)
+    and upload a 96-cell + 12 345 B object in 8-cell parts, four parts in
+    flight; GETs whole, ranged across part boundaries and by suffix; HEAD;
+    ListObjectsV2 with a delimiter and paging; an aws-chunked PUT and a
+    presigned GET; the refusals of unsigned and badly signed requests;
+    the same PUTs and GETs through the OzoneClient alone; then two holders
+    of the multipart objects' data units stopped, one object read untimed,
+    and the objects read whole (degraded), through the gateway and the
+    client. Every rate is
+    printed beside the client's of the same bytes. Every body is byte-exact, every ETag the body's
+    MD5 or the multipart composite, kernel launches equal the codec
+    service's dispatches, and the native lane sees no fallback and no RPC
+    chunk call."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.om.multipart import _final_etag
+    from ozone_tpu_torch.tools import cli
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    n_clients, part, in_flight = 4, 8 * cell, 4
+    rng = np.random.default_rng(seed + 10)
+    singles = [rng.integers(0, 256, 64 * cell, dtype=np.uint8).tobytes()
+               for _ in range(n_clients)]
+    multis = [rng.integers(0, 256, 96 * cell + 12345, dtype=np.uint8).tobytes()
+              for _ in range(n_clients)]
+    put_bytes = sum(map(len, singles)) + sum(map(len, multis))
+    out: dict = {}
+
+    def md5(b) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-s3-") as tmp:
+        root = Path(tmp)
+        meta = ScmOmDaemon(root / "om.db", block_size=16 * cell, container_size=256 * cell,
+                           stale_after_s=30.0, dead_after_s=60.0, background_interval_s=0.5,
+                           placement_seed=seed)
+        meta.start()
+        dns, gw = [], None
+        clients = DatanodeClientFactory()
+        om = RemoteOmClient(meta.address, clients=clients)
+        scm = RemoteScmClient(meta.address)
+        try:
+            for i in range(12):
+                d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address, rack=f"/rack{i % 3}",
+                                   heartbeat_interval_s=0.5, device=device)
+                d.start()
+                dns.append(d)
+            by_id = {d.dn.id: d for d in dns}
+            wait_for("12 datanodes registered", lambda: len(scm.status()["nodes"]) == 12, 30)
+            oz = OzoneClient(om, clients, device=device)
+            gw = S3Gateway(oz, replication=rs, require_auth=True)
+            gw.start()
+            # the secret the way a user gets it: `s3 getsecret` (in process)
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if cli.main(["s3", "getsecret", "chip", "--om", meta.address]) != 0:
+                    raise AssertionError("s3 getsecret failed")
+            secret = json.loads(buf.getvalue())["secret"]
+            s3 = S3Client(gw.address, "chip", secret)
+            s3.ok("PUT", "/s3b")
+            print(f"s3 gateway: {gw.address} (require_auth) over RemoteOmClient -> ScmOmDaemon "
+                  f"and 12 DatanodeDaemons, bucket {rs}, device {oz.device}")
+
+            # 1. four clients: a signed single PUT each, then a multipart upload
+            #    each, the gateway's launches equal to the service's dispatches
+            def timed(what: str, fn, items, meter_dns=None) -> tuple[list, float, int]:
+                before = service_counts()
+                fused_kernel.launches.reset()
+                since, t0 = time.time(), time.perf_counter()
+                with LaneMeter(meter_dns if meter_dns is not None else dns) as m:
+                    res = concurrent(fn, items)
+                secs = time.perf_counter() - t0
+                launches = fused_kernel.launches.count
+                svc = service_delta(before)
+                print(f"{what} spans: {span_totals(since)}")
+                print(f"{what}: {m.line('batched_write_chunks' if 'PUT' in what else 'batched_read_chunks')}")
+                if m.d["rpc_chunk_calls"] or (meter_dns is None and m.d["native_fallbacks"]):
+                    raise AssertionError(f"{what} left the native lane: {m.d}")
+                check_launches_equal(what, device, launches, svc)
+                key = what.lower().replace(" ", "_")
+                out["launches"][key if key.startswith("s3") else f"s3_{key}"] = launches
+                return res, secs, launches
+
+            def part_md5s(data) -> list[str]:
+                return [md5(data[o:o + part]) for o in range(0, len(data), part)]
+
+            def gw_single(i):
+                h, _ = s3.ok("PUT", f"/s3b/c{i}/single", singles[i], {"x-amz-meta-client": str(i)})
+                if h["etag"].strip('"') != md5(singles[i]):
+                    raise AssertionError(f"single PUT {i}: ETag {h['etag']}")
+
+            def gw_multi(i):
+                etag, parts = s3_multipart(s3, f"/s3b/c{i}/multi", multis[i], part, in_flight)
+                want = part_md5s(multis[i])
+                if parts != want or etag != _final_etag([{"etag": e} for e in want]):
+                    raise AssertionError(f"multipart {i}: ETag {etag}")
+
+            s3.sign_s, out["launches"] = 0.0, {}
+            _, single_s, single_n = timed("s3 single PUT", gw_single, list(range(n_clients)))
+            _, mp_s, multi_n = timed("s3 multipart PUT", gw_multi, list(range(n_clients)))
+            single_b, multi_b = sum(map(len, singles)), sum(map(len, multis))
+            rates = {"single_put": single_b / single_s / 2**30,
+                     "multipart_put": multi_b / mp_s / 2**30,
+                     "put": put_bytes / (single_s + mp_s) / 2**30}
+            print(f"s3 PUT: {n_clients} clients, each a signed {len(singles[0])} B PUT "
+                  f"({rates['single_put']:.3f} GiB/s), then a {len(multis[0])} B multipart "
+                  f"upload in {part} B parts, {in_flight} in flight "
+                  f"({rates['multipart_put']:.3f} GiB/s); {put_bytes} B in "
+                  f"{single_s + mp_s:.3f} s = {rates['put']:.3f} GiB/s (wall; client signing "
+                  f"{s3.sign_s:.3f} s summed over threads); every ETag the MD5 or the composite")
+            if device.type == "cuda" and min(single_n, multi_n) <= 0:
+                raise AssertionError("an s3 PUT launched no kernel")
+
+            # 2. GETs: whole, ranged across part boundaries, suffix; HEAD; listings
+            names = [f"/s3b/c{i}/{k}" for i in range(n_clients) for k in ("single", "multi")]
+            want = {f"/s3b/c{i}/single": singles[i] for i in range(n_clients)}
+            want.update({f"/s3b/c{i}/multi": multis[i] for i in range(n_clients)})
+
+            def gw_get(n):
+                if s3.ok("GET", n)[1] != want[n]:
+                    raise AssertionError(f"s3 GET {n}: bytes differ")
+
+            _, get_s, _ = timed("s3 GET whole", gw_get, names)
+            rates["get"] = put_bytes / get_s / 2**30
+            ranges = [(f"/s3b/c{i}/multi", j * part + part // 2 + 777 + i, part)
+                      for i in range(n_clients) for j in range(10)]
+
+            def gw_ranged(r):
+                name, lo, n = r
+                h, data = s3.ok("GET", name, extra={"Range": f"bytes={lo}-{lo + n - 1}"},
+                                status=206)
+                if data != want[name][lo:lo + n] or \
+                        h["content-range"] != f"bytes {lo}-{lo + n - 1}/{len(want[name])}":
+                    raise AssertionError(f"ranged GET {name} {lo}+{n}")
+
+            _, rng_s, _ = timed("s3 GET ranged", gw_ranged, ranges)
+            ranged_b = part * len(ranges)
+            rates["ranged_get"] = ranged_b / rng_s / 2**30
+            h, tail = s3.ok("GET", "/s3b/c0/multi", extra={"Range": "bytes=-1000000"},
+                            status=206)
+            if tail != multis[0][-1000000:]:
+                raise AssertionError("suffix GET differs")
+            print(f"s3 GET whole: {put_bytes} B byte-exact in {get_s:.3f} s = "
+                  f"{rates['get']:.3f} GiB/s; ranged: {len(ranges)} GETs of {part} B at odd "
+                  f"offsets across part boundaries, {ranged_b} B byte-exact in {rng_s:.3f} s = "
+                  f"{rates['ranged_get']:.3f} GiB/s; suffix bytes=-1000000 byte-exact")
+            st, h, _ = s3.req("HEAD", "/s3b/c1/single")
+            if st != 200 or int(h["content-length"]) != len(singles[1]) or \
+                    h.get("x-amz-meta-client") != "1":
+                raise AssertionError(f"HEAD: {st} {h}")
+            _, top = s3.ok("GET", "/s3b?list-type=2&delimiter=/")
+            prefixes = xml_text(top, "Prefix")[1:]
+            listed, token = [], ""
+            while True:
+                q = "/s3b?list-type=2&prefix=c2/&delimiter=/&max-keys=1"
+                _, page = s3.ok("GET", q + (f"&continuation-token={token}" if token else ""))
+                listed += xml_text(page, "Key")
+                token = (xml_text(page, "NextContinuationToken") or [""])[0]
+                if not token:
+                    break
+            if prefixes != [f"c{i}/" for i in range(n_clients)] or \
+                    listed != ["c2/multi", "c2/single"]:
+                raise AssertionError(f"ListObjectsV2: {prefixes} {listed}")
+            print(f"s3 HEAD (size, metadata) and ListObjectsV2 (delimiter: {prefixes}; "
+                  f"max-keys=1 paging: {listed}): right")
+
+            # 3. aws-chunked PUT of 16 cells, presigned GET of it
+            from ozone_tpu_torch.gateway.s3_auth import presign_url
+
+            chunked = rng.integers(0, 256, 16 * cell, dtype=np.uint8).tobytes()
+            t0 = time.perf_counter()
+            h, _ = s3.ok("PUT", "/s3b/chunked", chunked, streaming=True)
+            ch_s = time.perf_counter() - t0
+            url = presign_url("chip", secret, "GET", s3.url("/s3b/chunked"), 300)
+            _, back = s3.ok("GET", url.split(gw.address, 1)[1], sign=False)
+            if back != chunked or h["etag"].strip('"') != md5(chunked):
+                raise AssertionError("aws-chunked PUT / presigned GET differ")
+            print(f"s3 aws-chunked PUT of {len(chunked)} B (64 KiB chunks, one HMAC each) in "
+                  f"{ch_s:.3f} s, presigned GET byte-exact, ETag = MD5")
+
+            # 4. refusals
+            st, _, err = s3.req("PUT", "/s3b/anon", b"x" * 1000, sign=False)
+            st2, _, err2 = s3.req("PUT", "/s3b/forged", b"y" * 1000, secret="0" * 64)
+            if (st, xml_text(err, "Code"), st2, xml_text(err2, "Code")) != \
+                    (403, ["AccessDenied"], 403, ["SignatureDoesNotMatch"]):
+                raise AssertionError(f"refusals: {st} {err[:200]!r} {st2} {err2[:200]!r}")
+            print("s3 refusals: unsigned PUT 403 AccessDenied, bad signature 403 "
+                  "SignatureDoesNotMatch")
+
+            # 5. the same bytes through the OzoneClient alone: PUTs into a
+            #    bucket of their own, GETs of the objects the gateway wrote
+            direct = oz.get_volume("s3v").create_bucket("direct", replication=rs)
+            s3b = oz.get_volume("s3v").get_bucket("s3b")
+
+            def oz_multi(i):
+                up = direct.initiate_multipart_upload(f"c{i}/multi")
+                chunks = [memoryview(multis[i])[o:o + part] for o in range(0, len(multis[i]), part)]
+                with ThreadPoolExecutor(in_flight) as pool:
+                    list(pool.map(lambda j: up.write_part(j + 1, chunks[j]), range(len(chunks))))
+                up.complete()
+
+            def oz_get(n):
+                if s3b.read_key(n[len("/s3b/"):]).tobytes() != want[n]:
+                    raise AssertionError(f"OzoneClient GET {n}: bytes differ")
+
+            def oz_ranged(r):
+                name, lo, n = r
+                if s3b.read_key_range(name[len("/s3b/"):], lo, n).tobytes() != \
+                        want[name][lo:lo + n]:
+                    raise AssertionError(f"OzoneClient ranged GET {name}")
+
+            _, s, _ = timed("OzoneClient single PUT",
+                            lambda i: direct.write_key(f"c{i}/single", singles[i]),
+                            list(range(n_clients)))
+            client = {"single_put": single_b / s / 2**30}
+            _, s2, _ = timed("OzoneClient multipart PUT", oz_multi, list(range(n_clients)))
+            client["multipart_put"] = multi_b / s2 / 2**30
+            client["put"] = put_bytes / (s + s2) / 2**30
+            _, s, _ = timed("OzoneClient GET whole", oz_get, names)
+            client["get"] = put_bytes / s / 2**30
+            _, s, _ = timed("OzoneClient GET ranged", oz_ranged, ranges)
+            client["ranged_get"] = ranged_b / s / 2**30
+
+            # 6. two holders of the multipart objects' data units stop: degraded GET
+            info = om.lookup_key("s3v", "s3b", "c0/multi")
+            down = info["block_groups"][0]["nodes"][:2]
+            for dn_id in down:
+                stop_server(by_id[dn_id])
+            live = [d for d in dns if d.dn.id not in down]
+            multi_names = [f"/s3b/c{i}/multi" for i in range(n_clients)]
+            # one untimed read first: the first reader after the stop would
+            # pay alone for finding the dead nodes (the gateway and the
+            # OzoneClient below share one client and its health registry)
+            oz_get(multi_names[0])
+            _, deg_s, gw_n = timed("s3 degraded GET", gw_get, multi_names, live)
+            rates["degraded_get"] = multi_b / deg_s / 2**30
+            _, s, client_n = timed("OzoneClient degraded GET", oz_get, multi_names, live)
+            client["degraded_get"] = multi_b / s / 2**30
+            if device.type == "cuda" and min(gw_n, client_n) <= 0:
+                raise AssertionError("a degraded GET launched no decode")
+            print(f"s3 degraded GET ({down} stopped: data units 0 and 1 of c0/multi's first "
+                  f"group): {multi_b} B of the multipart objects byte-exact in {deg_s:.3f} s")
+            for k in ("single_put", "multipart_put", "put", "get", "ranged_get",
+                      "degraded_get"):
+                print(f"s3 rate {k}: {rates[k]:.3f} GiB/s through the gateway, "
+                      f"{client[k]:.3f} GiB/s through the OzoneClient alone "
+                      f"({rates[k] / client[k]:.2f}x; wall, this run)")
+            out["gib_s"], out["client_gib_s"] = rates, client
+        finally:
+            if gw is not None:
+                gw.stop()
+            om.close()
+            scm.close()
+            clients.close()
+            for d in dns:
+                d.stop()
+            meta.stop()
     return out
 
 
@@ -2488,6 +2967,7 @@ def main() -> int:
         fr = phase("freon_path", freon_path, device, MIB, bpc, args.seed)
         dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
                    statistics.mean(r["gib_s"] for r in put["service"]))
+        s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -2513,6 +2993,7 @@ def main() -> int:
             "daemon_degraded_get": dm["degraded_launches"],
             "daemon_repair": dm["repair_launches"],
             "daemon_scrub": dm["scrub_launches"],
+            **s3["launches"], "s3g_process": dm["cli"]["s3g"]["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -9,19 +9,24 @@ launches the fused kernel and raises when CUDA is absent; "cpu" runs its
 plain version). `om` is duck-typed, as in the reference: an in-process
 `OzoneManager`, or a `net/om_service.RemoteOmClient` that talks to a
 metadata daemon, with the datanode factory resolving the remote
-addresses the OM's answers carry. Left out for later slices: the Raft-ordered replicated
-writer, small objects (inline values and slabs), multipart uploads,
-encryption, snapshot paths, admission QoS, file checksums, rename,
-rewrite and copy.
+addresses the OM's answers carry. Multipart uploads write each part
+through the same datapath as a key (`MultipartUpload`). A tenant context
+set by the S3 gateway (`admission.tenant_context`) gives the writers and
+readers their QoS class, as in the reference. Left out for later slices:
+the Raft-ordered replicated writer, small objects (inline values and
+slabs), encryption (and so encrypted multipart uploads), snapshot paths,
+file checksums, rename, rewrite and copy.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Optional
 
 import numpy as np
 
+from ozone_tpu_torch import admission
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.client.ec_reader import ECBlockGroupReader
@@ -30,6 +35,7 @@ from ozone_tpu_torch.client.replicated import (
     ReplicatedKeyReader,
     ReplicatedKeyWriter,
 )
+from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.om.om import OpenKeySession, OzoneManager
 from ozone_tpu_torch.scm.pipeline import ReplicationType
@@ -70,6 +76,50 @@ class KeyWriteHandle:
             self.close()
 
 
+class MultipartUpload:
+    """Client handle of one multipart upload (the reference's
+    createMultipartKey flow): each part streams through the same EC or
+    replicated datapath as a whole key, and the complete stitches the
+    parts at the OM."""
+
+    def __init__(self, bucket: "OzoneBucket", key: str, upload_id: str):
+        self.bucket = bucket
+        self.key = key
+        self.upload_id = upload_id
+        self._etags: dict[int, str] = {}
+
+    def write_part(self, part_number: int, data) -> str:
+        om = self.bucket.client.om
+        session = om.open_multipart_part(
+            self.bucket.volume, self.bucket.name, self.key, self.upload_id)
+        writer = self.bucket._make_writer(session)
+        # the MD5 reads the caller's buffer in place (no copy of the part)
+        view = hostmem.as_array(data)
+        etag = hashlib.md5(view).hexdigest()
+        writer.write(view)
+        groups = writer.close()
+        om.commit_multipart_part(session, part_number, groups,
+                                 writer.bytes_written, etag)
+        self._etags[part_number] = etag
+        return etag
+
+    def complete(self, parts: Optional[list[dict]] = None) -> dict:
+        if parts is None:
+            parts = [{"part_number": n, "etag": self._etags[n]}
+                     for n in sorted(self._etags)]
+        return self.bucket.client.om.complete_multipart_upload(
+            self.bucket.volume, self.bucket.name, self.key, self.upload_id,
+            parts)
+
+    def abort(self) -> None:
+        self.bucket.client.om.abort_multipart_upload(
+            self.bucket.volume, self.bucket.name, self.key, self.upload_id)
+
+    def list_parts(self) -> list[dict]:
+        return self.bucket.client.om.list_parts(
+            self.bucket.volume, self.bucket.name, self.key, self.upload_id)
+
+
 class OzoneBucket:
     def __init__(self, client: "OzoneClient", volume: str, name: str):
         self.client = client
@@ -91,7 +141,8 @@ class OzoneBucket:
                 checksum=ChecksumType(session.checksum_type),
                 bytes_per_checksum=session.bytes_per_checksum,
                 device=self.client.device,
-                qos_class=self.client.qos_class,
+                # a gateway's tenant context wins over the client's class
+                qos_class=admission.ambient_qos(self.client.qos_class),
             )
         return ReplicatedKeyWriter(
             allocate,
@@ -101,22 +152,33 @@ class OzoneBucket:
             bytes_per_checksum=session.bytes_per_checksum,
         )
 
-    def open_key(self, key: str,
-                 replication: Optional[str] = None) -> KeyWriteHandle:
+    def initiate_multipart_upload(
+        self, key: str, replication: Optional[str] = None,
+        metadata: Optional[dict] = None,
+    ) -> MultipartUpload:
+        upload_id = self.client.om.initiate_multipart_upload(
+            self.volume, self.name, key, replication, metadata=metadata)
+        return MultipartUpload(self, key, upload_id)
+
+    def open_key(self, key: str, replication: Optional[str] = None,
+                 metadata: Optional[dict] = None) -> KeyWriteHandle:
         om = self.client.om
         with Tracer.instance().span("om:open_key", key=key):
-            session = om.open_key(self.volume, self.name, key, replication)
+            session = om.open_key(self.volume, self.name, key, replication,
+                                  metadata=metadata)
         return KeyWriteHandle(session, om, self._make_writer(session))
 
     def write_key(self, key: str, data,
-                  replication: Optional[str] = None) -> None:
+                  replication: Optional[str] = None,
+                  metadata: Optional[dict] = None) -> None:
         # one operation deadline (OZONE_TPU_OP_DEADLINE_S, opt-in) spans
         # the open, every stripe or chunk RPC and the commit
         t0 = time.perf_counter()
         with Tracer.instance().span("client:put", volume=self.volume,
                                     bucket=self.name, key=key) as sp:
             with resilience.start("key_write"):
-                with self.open_key(key, replication) as h:
+                with self.open_key(key, replication,
+                                   metadata=metadata) as h:
                     h.write(data)
         METRICS.histogram("put_seconds").observe(
             time.perf_counter() - t0, sp.trace_id)
@@ -181,7 +243,8 @@ class OzoneBucket:
                         bytes_per_checksum=info.get(
                             "bytes_per_checksum", 16 * 1024),
                         device=self.client.device,
-                        qos_class=self.client.qos_class,
+                        qos_class=admission.ambient_qos(
+                            self.client.qos_class),
                     )
                 else:
                     reader = ReplicatedKeyReader(g, self.client.clients)

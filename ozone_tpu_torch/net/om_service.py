@@ -3,14 +3,16 @@
 Port of `ozone_tpu/net/om_service.py` (the reference's OmClientProtocol
 served by OzoneManagerProtocolServerSideTranslatorPB, at the verb
 level), for the verbs the port's `om/om.py` has: volume and bucket
-create, info, list and delete; open_key, allocate_block and commit_key;
-lookup_key (with the address book of the key's datanodes), list_keys and
-delete_key. `RemoteOmClient` (the reference's GrpcOmClient) has the
-attribute surface `OzoneClient` needs from `OzoneManager`, so the client
-API works unchanged against a remote OM, and fails over across a
-comma-separated address list. Left out: sharding, delegation tokens and
-the caller identity, ACLs, snapshots, multipart, quotas, small objects,
-lifecycle and geo replication.
+create, info, list and delete; open_key (with user metadata),
+allocate_block and commit_key; lookup_key (with the address book of the
+key's datanodes), list_keys and delete_key; key attributes, S3 secrets
+and the upgrade status; the multipart verbs, whose part commit carries
+block groups as commit_key does. `RemoteOmClient` (the reference's
+GrpcOmClient) has the attribute surface `OzoneClient` and the S3 gateway
+need from `OzoneManager`, so both work unchanged against a remote OM, and
+fails over across a comma-separated address list. Left out: sharding,
+delegation tokens and the caller identity, ACLs, tenants, snapshots,
+quotas, small objects, lifecycle and geo replication.
 """
 
 from __future__ import annotations
@@ -76,6 +78,29 @@ class OmRpcService:
                 m.get("start_after", ""), m.get("limit"))),
             "DeleteKey": w(lambda m: om.delete_key(m["volume"], m["bucket"],
                                                    m["key"])),
+            "SetKeyAttrs": w(lambda m: om.set_key_attrs(
+                m["volume"], m["bucket"], m["key"], m["attrs"],
+                m.get("preconds"))),
+            "GetS3Secret": w(lambda m: om.get_s3_secret(
+                m["access_id"], m.get("create", True))),
+            "RevokeS3Secret": w(lambda m: om.revoke_s3_secret(
+                m["access_id"])),
+            "UpgradeStatus": w(lambda m: om.upgrade_status()),
+            "InitiateMultipartUpload": w(lambda m: om.initiate_multipart_upload(
+                m["volume"], m["bucket"], m["key"], m.get("replication"),
+                m.get("metadata"))),
+            "MultipartInfo": w(lambda m: om.multipart_info(
+                m["volume"], m["bucket"], m["key"], m["upload_id"])),
+            "CommitMultipartPart": self._commit_multipart_part,
+            "CompleteMultipartUpload": w(lambda m: om.complete_multipart_upload(
+                m["volume"], m["bucket"], m["key"], m["upload_id"],
+                m["parts"])),
+            "AbortMultipartUpload": w(lambda m: om.abort_multipart_upload(
+                m["volume"], m["bucket"], m["key"], m["upload_id"])),
+            "ListParts": w(lambda m: om.list_parts(
+                m["volume"], m["bucket"], m["key"], m["upload_id"])),
+            "ListMultipartUploads": w(lambda m: om.list_multipart_uploads(
+                m["volume"], m["bucket"], m.get("prefix", ""))),
         })
 
     def _wrap(self, fn, with_addresses: bool = False):
@@ -106,7 +131,8 @@ class OmRpcService:
         m, _ = wire.unpack(req)
         try:
             s = self.om.open_key(m["volume"], m["bucket"], m["key"],
-                                 m.get("replication"))
+                                 m.get("replication"),
+                                 metadata=m.get("metadata"))
         except OMError as e:
             raise StorageError(e.code, e.msg)
         return wire.pack({
@@ -148,6 +174,25 @@ class OmRpcService:
         except OMError as e:
             raise StorageError(e.code, e.msg)
         return wire.pack({})
+
+
+    def _commit_multipart_part(self, req) -> bytes:
+        m, _ = wire.unpack(req)
+
+        class _S:  # the session fields a part commit reads
+            volume = m["volume"]
+            bucket = m["bucket"]
+            key = m["key"]
+            client_id = m["upload_id"]
+
+        try:
+            etag = self.om.commit_multipart_part(
+                _S(), m["part_number"],
+                [_block_group().from_json(g) for g in m["groups"]],
+                m["size"], m["etag"])
+        except OMError as e:
+            raise StorageError(e.code, e.msg)
+        return wire.pack({"result": etag})
 
 
 class RemoteOpenKeySession:
@@ -255,10 +300,13 @@ class RemoteOmClient:
     def list_buckets(self, volume):
         return self._call("ListBuckets", volume=volume)["result"]
 
+    def upgrade_status(self):
+        return self._call("UpgradeStatus")["result"]
+
     # keys
-    def open_key(self, volume, bucket, key, replication=None):
+    def open_key(self, volume, bucket, key, replication=None, metadata=None):
         meta = self._call("OpenKey", volume=volume, bucket=bucket, key=key,
-                          replication=replication)
+                          replication=replication, metadata=metadata)
         self.block_size = meta.get("block_size", self.block_size)
         return RemoteOpenKeySession(volume, bucket, key, meta)
 
@@ -293,6 +341,67 @@ class RemoteOmClient:
 
     def delete_key(self, volume, bucket, key):
         self._call("DeleteKey", volume=volume, bucket=bucket, key=key)
+
+    def set_key_attrs(self, volume, bucket, key, attrs, preconds=None):
+        return self._call("SetKeyAttrs", volume=volume, bucket=bucket,
+                          key=key, attrs=attrs, preconds=preconds)["result"]
+
+    # s3 secrets
+    def get_s3_secret(self, access_id, create=True):
+        return self._call("GetS3Secret", access_id=access_id,
+                          create=create)["result"]
+
+    def revoke_s3_secret(self, access_id):
+        self._call("RevokeS3Secret", access_id=access_id)
+
+    # multipart upload
+    def initiate_multipart_upload(self, volume, bucket, key,
+                                  replication=None, metadata=None):
+        return self._call("InitiateMultipartUpload", volume=volume,
+                          bucket=bucket, key=key, replication=replication,
+                          metadata=metadata)["result"]
+
+    def multipart_info(self, volume, bucket, key, upload_id):
+        return self._call("MultipartInfo", volume=volume, bucket=bucket,
+                          key=key, upload_id=upload_id)["result"]
+
+    def open_multipart_part(self, volume, bucket, key, upload_id):
+        info = self.multipart_info(volume, bucket, key, upload_id)
+        return RemoteOpenKeySession(volume, bucket, key, {
+            "client_id": upload_id,
+            "replication": info["replication"],
+            "checksum_type": info["checksum_type"],
+            "bytes_per_checksum": info["bytes_per_checksum"],
+            "volume": info["volume"],
+            "bucket": info["bucket"],
+        })
+
+    def commit_multipart_part(self, session, part_number, groups, size,
+                              etag):
+        return self._call("CommitMultipartPart", volume=session.volume,
+                          bucket=session.bucket, key=session.key,
+                          upload_id=session.client_id,
+                          part_number=part_number,
+                          groups=[g.to_json() for g in groups], size=size,
+                          etag=etag)["result"]
+
+    def complete_multipart_upload(self, volume, bucket, key, upload_id,
+                                  parts):
+        return self._call("CompleteMultipartUpload", volume=volume,
+                          bucket=bucket, key=key, upload_id=upload_id,
+                          parts=parts)["result"]
+
+    def abort_multipart_upload(self, volume, bucket, key, upload_id):
+        self._call("AbortMultipartUpload", volume=volume, bucket=bucket,
+                   key=key, upload_id=upload_id)
+
+    def list_parts(self, volume, bucket, key, upload_id):
+        return self._call("ListParts", volume=volume, bucket=bucket,
+                          key=key, upload_id=upload_id)["result"]
+
+    def list_multipart_uploads(self, volume, bucket, prefix=""):
+        return self._call("ListMultipartUploads", volume=volume,
+                          bucket=bucket, prefix=prefix)["result"]
 
     def close(self) -> None:
         self._pool.close()

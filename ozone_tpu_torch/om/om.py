@@ -3,24 +3,29 @@
 Port of `ozone_tpu/om/om.py` (the reference's OzoneManager and
 KeyManagerImpl surface): volume and bucket CRUD, open-key sessions with
 SCM block allocation, commit (with the rewrite fence), lookup, list and
-delete. Writes go through the request/apply split (om/requests.py) with
-a group commit before the acknowledgement; reads go to the store
-directly. The key-deleting service hands deleted keys' blocks to the
-SCM's deletion log. Left out for later slices: HA, ACL checks and the
-authorizer, tenants, block tokens, encryption (TDE/GDPR), link buckets,
-sharding, prepare/upgrade, FSO, snapshots, multipart, small objects,
-lifecycle and geo replication, hsync and lease recovery.
+delete; key attributes; S3 secrets; multipart uploads and the open-key
+and multipart expiry services (om/multipart.py); the upgrade status, in
+its finalized form. Writes go through the request/apply split
+(om/requests.py) with a group commit before the acknowledgement; reads
+go to the store directly. The key-deleting service hands deleted keys'
+blocks to the SCM's deletion log. Left out for later slices: HA, ACL
+checks and the authorizer, tenants, block tokens, encryption (TDE/GDPR),
+link buckets, sharding, prepare and the upgrade finalizer, FSO,
+snapshots, small objects, lifecycle and geo replication, hsync and lease
+recovery.
 """
 
 from __future__ import annotations
 
 import logging
+import secrets
 import threading
 import uuid
 from pathlib import Path
 from typing import Any, Optional
 
 from ozone_tpu_torch.client.ec_writer import BlockGroup
+from ozone_tpu_torch.om import multipart as mpu
 from ozone_tpu_torch.om import requests as rq
 from ozone_tpu_torch.om.metadata import (
     OMMetadataStore,
@@ -35,6 +40,18 @@ from ozone_tpu_torch.utils.metrics import MetricsRegistry
 from ozone_tpu_torch.utils.tracing import Tracer
 
 log = logging.getLogger(__name__)
+
+#: the layout features `ozone_tpu/utils/upgrade.py` catalogs, (name,
+#: version); the port has no finalizer, so all of them are allowed
+FEATURES = (
+    ("INITIAL", 0),
+    ("EC_DEVICE_CODEC", 1),
+    ("OM_REPLICATED_LOG", 2),
+    ("BUCKET_SNAPSHOTS", 3),
+    ("S3_CHUNKED_UPLOAD", 4),
+    ("RATIS_STREAMING_WRITE", 5),
+)
+LATEST_VERSION = max(v for _, v in FEATURES)
 
 
 class OpenKeySession:
@@ -79,6 +96,18 @@ class OzoneManager:
             self.store.flush_group()
             self.metrics.counter("write_ops").inc()
             return result
+
+    def upgrade_status(self) -> dict:
+        """The cluster's finalization view, the reference's answer with
+        no finalizer: every feature allowed. Served for clients that read
+        it (the `UpgradeStatus` RPC); nothing in the port gates on it."""
+        return {
+            "metadata_version": LATEST_VERSION,
+            "software_version": LATEST_VERSION,
+            "needs_finalization": False,
+            "features": [{"name": n, "version": v, "allowed": True}
+                         for n, v in FEATURES],
+        }
 
     # ----------------------------------------------------------- volumes
     def create_volume(self, volume: str, owner: str = "root") -> None:
@@ -133,6 +162,7 @@ class OzoneManager:
         bucket: str,
         key: str,
         replication: Optional[str] = None,
+        metadata: Optional[dict] = None,
     ) -> OpenKeySession:
         binfo = self.bucket_info(volume, bucket)
         repl = replication or binfo["replication"]
@@ -149,7 +179,7 @@ class OzoneManager:
         if legacy:
             key = rq.normalize_fs_path(key)
         self.submit(rq.OpenKey(volume, bucket, key, client_id, repl,
-                               fs_paths=legacy))
+                               metadata=metadata or {}, fs_paths=legacy))
         info = self.store.get("open_keys",
                               f"{key_key(volume, bucket, key)}/{client_id}")
         self.metrics.counter("keys_opened").inc()
@@ -216,6 +246,109 @@ class OzoneManager:
             key = rq.normalize_fs_path(key)
         self.submit(rq.DeleteKey(volume, bucket, key))
         self.metrics.counter("keys_deleted").inc()
+
+    def set_key_attrs(self, volume: str, bucket: str, key: str,
+                      attrs: dict, preconds: Optional[dict] = None) -> dict:
+        """Merge attributes onto a key (None values delete them);
+        `preconds` maps attribute -> must-exist, checked in the apply."""
+        self.bucket_info(volume, bucket)  # BUCKET_NOT_FOUND, FSO refused
+        return self.submit(rq.SetKeyAttrs(volume, bucket, key, attrs,
+                                          preconds or {}))
+
+    # ----------------------------------------------------------- s3 secrets
+    def get_s3_secret(self, access_id: str,
+                      create: bool = True) -> Optional[str]:
+        """The SigV4 secret of an access id, created on first use."""
+        row = self.store.get("s3_secrets", access_id)
+        if row is not None:
+            return row["secret"]
+        if not create:
+            return None
+        return self.submit(rq.SetS3Secret(access_id, secrets.token_hex(32),
+                                          if_absent=True))
+
+    def revoke_s3_secret(self, access_id: str) -> None:
+        self.submit(rq.RevokeS3Secret(access_id))
+
+    # ----------------------------------------------------------- multipart
+    def _mpu_key_name(self, volume: str, bucket: str, key: str) -> str:
+        if self._is_legacy(self.bucket_info(volume, bucket)):
+            return rq.normalize_fs_path(key)
+        return key
+
+    def initiate_multipart_upload(
+        self, volume: str, bucket: str, key: str,
+        replication: Optional[str] = None, metadata: Optional[dict] = None,
+    ) -> str:
+        legacy = self._is_legacy(self.bucket_info(volume, bucket))
+        if legacy:
+            key = rq.normalize_fs_path(key)
+        if replication:
+            try:
+                ReplicationConfig.parse(replication)
+            except Exception as e:
+                raise rq.OMError(
+                    rq.INVALID_REQUEST,
+                    f"bad per-key replication {replication!r}: {e}")
+        return self.submit(mpu.InitiateMultipartUpload(
+            volume, bucket, key, replication=replication or "",
+            metadata=metadata or {}, fs_paths=legacy))
+
+    def multipart_info(self, volume: str, bucket: str, key: str,
+                       upload_id: str) -> dict:
+        key = self._mpu_key_name(volume, bucket, key)
+        info = self.store.get("multipart",
+                              mpu.mpu_key(volume, bucket, key, upload_id))
+        if info is None:
+            raise rq.OMError(mpu.NO_SUCH_UPLOAD,
+                             f"{volume}/{bucket}/{key}/{upload_id}")
+        return info
+
+    def open_multipart_part(self, volume: str, bucket: str, key: str,
+                            upload_id: str) -> OpenKeySession:
+        """The session one part's blocks are written under: the key
+        datapath, recorded by commit_multipart_part."""
+        info = self.multipart_info(volume, bucket, key, upload_id)
+        return OpenKeySession(info, client_id=upload_id)
+
+    def commit_multipart_part(self, session, part_number: int,
+                              groups: list[BlockGroup], size: int,
+                              etag: str) -> str:
+        return self.submit(mpu.CommitMultipartPart(
+            session.volume, session.bucket, session.key, session.client_id,
+            part_number, size, etag, [g.to_json() for g in groups]))
+
+    def complete_multipart_upload(self, volume: str, bucket: str, key: str,
+                                  upload_id: str, parts: list[dict]) -> dict:
+        legacy = self._is_legacy(self.bucket_info(volume, bucket))
+        if legacy:
+            key = rq.normalize_fs_path(key)
+        return self.submit(mpu.CompleteMultipartUpload(
+            volume, bucket, key, upload_id, parts, fs_paths=legacy))
+
+    def abort_multipart_upload(self, volume: str, bucket: str, key: str,
+                               upload_id: str) -> None:
+        key = self._mpu_key_name(volume, bucket, key)
+        self.submit(mpu.AbortMultipartUpload(volume, bucket, key, upload_id))
+
+    def list_parts(self, volume: str, bucket: str, key: str,
+                   upload_id: str) -> list[dict]:
+        info = self.multipart_info(volume, bucket, key, upload_id)
+        return sorted(info["parts"].values(), key=lambda p: p["part_number"])
+
+    def list_multipart_uploads(self, volume: str, bucket: str,
+                               prefix: str = "") -> list[dict]:
+        base = bucket_key(volume, bucket) + "/"
+        return [m for _, m in self.store.iterate("multipart", base + prefix)]
+
+    def run_open_key_cleanup_once(self, max_age_s: float = 7 * 24 * 3600.0,
+                                  limit: int = 256) -> int:
+        return mpu.OpenKeyCleanupService(self, max_age_s).run_once(limit)
+
+    def run_mpu_cleanup_once(self, max_age_s: float = 7 * 24 * 3600.0,
+                             limit: int = 256) -> int:
+        return mpu.MultipartUploadCleanupService(self, max_age_s).run_once(
+            limit)
 
     # ----------------------------------------------------------- services
     def run_key_deleting_service_once(self, limit: int = 100) -> int:

@@ -5,11 +5,13 @@ reference's OMClientRequest pattern: `pre_execute(om)` normalizes and
 assigns ids and timestamps on the leader, `apply(store)` is the
 deterministic mutation every replica would run). Rows are the
 reference's JSON, field for field. Kept: volume and bucket create and
-delete, key open, commit (with the quota charge, the overwrite's move to
-the purge chain and the rewrite fence), delete and purge, for OBJECT_STORE
-and LEGACY buckets. Left out for later slices: FSO, snapshots (and so
-their copy-on-write pre-images), multipart, small objects, hsync leases,
-ACL and tenant verbs, S3 secrets, delegation tokens, lifecycle and geo
+delete, key open (with the user metadata an S3 PUT carries), commit
+(with the quota charge, the overwrite's move to the purge chain and the
+rewrite fence), delete and purge, for OBJECT_STORE and LEGACY buckets;
+key attributes (S3 object tags ride them); S3 secrets. The multipart
+requests are in `om/multipart.py`. Left out for later slices: FSO,
+snapshots (and so their copy-on-write pre-images), small objects, hsync
+leases, ACL and tenant verbs, delegation tokens, lifecycle and geo
 replication, quotas' set and repair verbs.
 """
 
@@ -415,6 +417,8 @@ class OpenKey(OMRequest):
     checksum_type: str = "CRC32C"
     bytes_per_checksum: int = 16 * 1024
     created: float = 0.0
+    #: user metadata (the S3 x-amz-meta-* pairs), kept on the key row
+    metadata: dict = field(default_factory=dict)
     fs_paths: bool = False
     #: stable identity of this key version (OmKeyInfo objectID)
     key_id: str = ""
@@ -442,6 +446,8 @@ class OpenKey(OMRequest):
             "created": self.created,
             "modified": self.created,
         }
+        if self.metadata:
+            row["metadata"] = dict(self.metadata)
         if self.fs_paths:
             row["fs_paths"] = True  # the commit materializes parent markers
         store.put("open_keys", f"{kk}/{self.client_id}", row)
@@ -486,3 +492,74 @@ class PurgeDeletedKeys(OMRequest):
     def apply(self, store):
         for k in self.entries:
             store.delete("deleted_keys", k)
+
+
+def check_attr_preconds(info: dict, preconds: dict) -> None:
+    """Attribute flags, checked inside the serialized apply: True = the
+    attribute must exist, False = it must not."""
+    have = info.get("attrs", {})
+    for name, must_exist in (preconds or {}).items():
+        if must_exist and name not in have:
+            raise OMError("XATTR_NOT_FOUND", name)
+        if not must_exist and name in have:
+            raise OMError("XATTR_EXISTS", name)
+
+
+@dataclass
+class SetKeyAttrs(OMRequest):
+    """Merge attributes into a key or directory-marker row (S3 object
+    tags, filesystem owner and times). A None value deletes the
+    attribute; `preconds` maps attribute -> must-exist."""
+
+    volume: str
+    bucket: str
+    key: str
+    attrs: dict
+    preconds: dict = field(default_factory=dict)
+
+    def apply(self, store):
+        kk = key_key(self.volume, self.bucket, self.key)
+        info = store.get("keys", kk)
+        if info is None:  # directory marker
+            kk = key_key(self.volume, self.bucket, self.key + "/")
+            info = store.get("keys", kk)
+        if info is None:
+            raise OMError(KEY_NOT_FOUND, kk)
+        check_attr_preconds(info, self.preconds)
+        merged = dict(info.get("attrs", {}))
+        for k, v in self.attrs.items():
+            if v is None:
+                merged.pop(k, None)
+            else:
+                merged[k] = v
+        info["attrs"] = merged
+        store.put("keys", kk, info)
+        return info
+
+
+@dataclass
+class SetS3Secret(OMRequest):
+    """Store an access id's S3 secret. With if_absent the get-or-create
+    is atomic inside apply, so concurrent first fetches converge on one
+    secret."""
+
+    access_id: str
+    secret: str
+    if_absent: bool = False
+
+    def apply(self, store):
+        if self.if_absent:
+            row = store.get("s3_secrets", self.access_id)
+            if row is not None:
+                return row["secret"]
+        store.put("s3_secrets", self.access_id,
+                  {"access_id": self.access_id, "secret": self.secret})
+        return self.secret
+
+
+@dataclass
+class RevokeS3Secret(OMRequest):
+    access_id: str
+
+    def apply(self, store):
+        store.delete("s3_secrets", self.access_id)

@@ -13,10 +13,12 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools sh key put /v/b/k ./file --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools admin status --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools freon ockg -n 16 -s 16777216 --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools s3 getsecret alice --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools s3g --om 127.0.0.1:9860 --port 9878 --require-auth
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
-put/get`, `freon` and `cluster`, which passes it to its datanodes.
+put/get`, `freon`, `s3g` and `cluster`, which passes it to its datanodes.
 Without CUDA, "cuda" is an error that names CUDA. `scm-om` holds no codec.
 The namespace and admin verbs import no torch, so they start in about a
 second. Errors print as `error CODE: message` and exit 1.
@@ -220,6 +222,17 @@ def cmd_admin(args) -> int:
 def cmd_freon(args) -> int:
     from ozone_tpu_torch.tools import freon
 
+    if args.generator == "s3kg":
+        # an HTTP client of the gateway: no codec in this process
+        secret = None
+        if args.access_id:
+            with _Session(args.om) as s:
+                secret = s.om.get_s3_secret(args.access_id)
+        _emit(freon.s3kg(args.endpoint, n_keys=args.num, size=args.size,
+                         threads=args.threads, validate=args.validate,
+                         access_id=args.access_id or None,
+                         secret=secret).summary())
+        return 0
     device = _device(args)
     with _Session(args.om) as s:
         oz = s.client(device)
@@ -233,10 +246,52 @@ def cmd_freon(args) -> int:
         elif args.generator == "ockv":
             _emit(freon.ockv(oz, n_keys=args.num, size=args.size,
                              threads=args.threads).summary())
+        elif args.generator == "mpug":
+            _emit(freon.mpug(oz, n_uploads=args.num, part_size=args.size,
+                             threads=args.threads,
+                             replication=repl).summary())
         else:  # ecrd
             _emit(freon.ecrd(oz, s.scm, size=args.size, rounds=args.num,
                              replication=repl or "rs-6-3-1048576"))
     return 0
+
+
+# ---------------------------------------------------------------------- s3
+def cmd_s3(args) -> int:
+    """S3 secret management (`ozone s3 getsecret` / `revokesecret`)."""
+    with _Session(args.om) as s:
+        if args.verb == "getsecret":
+            _emit({"access_id": args.access_id,
+                   "secret": s.om.get_s3_secret(args.access_id)})
+        else:
+            s.om.revoke_s3_secret(args.access_id)
+            _emit({"access_id": args.access_id, "revoked": True})
+    return 0
+
+
+def cmd_s3g(args) -> int:
+    """The S3 gateway daemon in front of a remote OM (`ozone s3g`). On
+    stop it prints the fused kernel's launches and the codec service's
+    dispatches of its PUTs and GETs."""
+    device = _device(args)
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec import service as codec_service
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+
+    logging.basicConfig(level=logging.INFO)
+    with _Session(args.om) as s:
+        oz = s.client(device)
+        gw = S3Gateway(oz, port=args.port, replication=args.replication,
+                       require_auth=args.require_auth,
+                       domain=args.domain or None)
+        gw.start()
+        print(f"s3 gateway serving on {gw.address}, om={args.om}, "
+              f"device={oz.device}", flush=True)
+        rc = _serve(gw.stop)
+    print(f"s3 gateway stopped; kernel launches {fused_kernel.launches.count}, "
+          f"service dispatches "
+          f"{codec_service.METRICS.counter('dispatches').value}", flush=True)
+    return rc
 
 
 # ------------------------------------------------------------------ daemons
@@ -389,14 +444,40 @@ def build_parser() -> argparse.ArgumentParser:
     ad.set_defaults(fn=cmd_admin)
 
     fr = sub.add_parser("freon", help="load generators")
-    fr.add_argument("generator", choices=["ockg", "ockr", "ockv", "ecrd"])
+    fr.add_argument("generator",
+                    choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
     fr.add_argument("-t", "--threads", type=int, default=4)
     fr.add_argument("--om", default="127.0.0.1:9860")
     fr.add_argument("--replication", default="")
+    fr.add_argument("--validate", action="store_true",
+                    help="s3kg: GET each key back and compare")
+    fr.add_argument("--endpoint", default="127.0.0.1:9878",
+                    help="s3kg: S3 gateway host:port")
+    fr.add_argument("--access-id", default="",
+                    help="s3kg: sign every request with this access id's "
+                         "secret, fetched from --om (default: unsigned)")
     device_flag(fr)
     fr.set_defaults(fn=cmd_freon)
+
+    s3g = sub.add_parser("s3g", help="run the S3 gateway daemon")
+    s3g.add_argument("--om", default="127.0.0.1:9860")
+    s3g.add_argument("--port", type=int, default=9878)
+    s3g.add_argument("--replication", default="rs-6-3-1024k")
+    s3g.add_argument("--domain", default="",
+                     help="serve virtual-host-style addressing for "
+                          "Host: <bucket>.<domain>")
+    s3g.add_argument("--require-auth", action="store_true",
+                     help="enforce SigV4 signatures")
+    device_flag(s3g)
+    s3g.set_defaults(fn=cmd_s3g)
+
+    s3 = sub.add_parser("s3", help="s3 secret management")
+    s3.add_argument("verb", choices=["getsecret", "revokesecret"])
+    s3.add_argument("access_id")
+    s3.add_argument("--om", default="127.0.0.1:9860")
+    s3.set_defaults(fn=cmd_s3)
 
     dn = sub.add_parser("datanode", help="run a datanode daemon")
     dn.add_argument("--root", required=True)

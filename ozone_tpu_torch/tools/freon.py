@@ -8,6 +8,11 @@ harness (thread-pool task loop, latency report) and
   full client stack;
 - ockr / ockv: read, and read-and-validate, ockg's keys;
 - ockrr: random ranged reads over ockg's keys;
+- mpug: multipart uploads (initiate, N parts, complete) through the
+  client;
+- s3kg: PUTs (optionally GET-validated) through the S3 gateway's HTTP
+  endpoint, unsigned as in the reference or SigV4-signed with an access
+  id's secret;
 - rawcoder_bench: RawErasureCoderBenchmark, encode and decode GiB/s per
   coder backend (torch, cpp, numpy);
 - ecrd: the EC reconstruction drill, end-to-end repair MiB/s per
@@ -16,9 +21,9 @@ harness (thread-pool task loop, latency report) and
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
 `--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
-does); `ecrd` also takes an SCM, in process or `RemoteScmClient`. The
-other generators of the reference wait for the port's gateways, raft and
-lifecycle.
+does); `ecrd` also takes an SCM, in process or `RemoteScmClient`; `s3kg`
+takes a gateway's host:port. The other generators of the reference wait
+for the port's filesystem gateways, raft and lifecycle.
 """
 
 from __future__ import annotations
@@ -250,6 +255,68 @@ def ockv(client, n_keys: int = 100, size: int = 10 * 1024,
         return int(got.size)
 
     return BaseFreonGenerator("ockv", n_keys, threads).run(op)
+
+
+def mpug(client, n_uploads: int = 20, parts: int = 3,
+         part_size: int = 16 * 1024, threads: int = 4,
+         volume: str = "freon-vol", bucket: str = "freon-mpu",
+         replication: Optional[str] = None) -> FreonReport:
+    """Multipart upload generator: each op runs initiate, `parts` part
+    writes and complete, and counts the whole upload."""
+    _ensure_bucket(client, volume, bucket, replication or "rs-6-3-1024k")
+    b = client.get_volume(volume).get_bucket(bucket)
+    payload = np.random.default_rng(2).integers(0, 256, part_size,
+                                                dtype=np.uint8)
+
+    def op(i: int) -> int:
+        up = b.initiate_multipart_upload(f"mpu-{i}", replication)
+        for p in range(1, parts + 1):
+            up.write_part(p, payload)
+        up.complete()
+        return part_size * parts
+
+    return BaseFreonGenerator("mpug", n_uploads, threads).run(op)
+
+
+def s3kg(endpoint: str, n_keys: int = 100, size: int = 10 * 1024,
+         threads: int = 4, bucket: str = "freon-s3",
+         validate: bool = False, access_id: Optional[str] = None,
+         secret: Optional[str] = None) -> FreonReport:
+    """S3 gateway key generator: PUTs (and, with `validate`, GETs compared
+    with what was put) over HTTP, the XML, HTTP and auth surface rather
+    than the client's RPC. With `access_id` and `secret` every request is
+    SigV4-signed, payload hash included; without them it is anonymous."""
+    import urllib.request
+
+    from ozone_tpu_torch.gateway.s3_auth import request_headers
+
+    def request(method: str, path: str, data: bytes = b"",
+                check: bool = True) -> bytes:
+        headers, _ = request_headers(endpoint, method, path, data,
+                                     access_id=access_id or None,
+                                     secret=secret)
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://{endpoint}{path}", data=data or None,
+                    method=method, headers=headers)) as r:
+                return r.read()
+        except Exception:  # noqa: BLE001 - the bucket may exist
+            if check:
+                raise
+            return b""
+
+    request("PUT", f"/{bucket}", check=False)
+    payload = bytes(np.random.default_rng(3).integers(0, 256, size,
+                                                      dtype=np.uint8))
+
+    def op(i: int) -> int:
+        request("PUT", f"/{bucket}/k{i}", payload)
+        if validate:
+            got = request("GET", f"/{bucket}/k{i}")
+            assert got == payload, f"corrupt s3 key k{i}"
+        return size * (2 if validate else 1)
+
+    return BaseFreonGenerator("s3kg", n_keys, threads).run(op)
 
 
 def rawcoder_bench(

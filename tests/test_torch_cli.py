@@ -9,6 +9,7 @@ compare, `freon ockg`, `admin status`, and a `datanode` started without
 """
 
 import json
+import re
 import os
 import signal
 import socket
@@ -184,3 +185,114 @@ def test_datanode_without_cpu_flag_names_cuda(live_cluster, tmp_path):
         assert "dnx" not in [n["dn_id"] for n in scm.status()["nodes"]]
     finally:
         scm.close()
+
+
+# ---------------------------------------------------------------------- s3
+def test_s3_getsecret_and_revokesecret(live_cluster, sh):
+    """`s3 getsecret` creates an access id's secret once and returns the
+    same one after; `revokesecret` forgets it, and the next getsecret
+    makes a new one."""
+    om, _ = live_cluster
+    rc, out, _ = sh("s3", "getsecret", "alice", "--om", om)
+    first = json.loads(out)
+    assert rc == 0 and first["access_id"] == "alice"
+    assert len(first["secret"]) == 64
+    assert json.loads(sh("s3", "getsecret", "alice", "--om", om)[1]) == first
+    rc, out, _ = sh("s3", "revokesecret", "alice", "--om", om)
+    assert rc == 0 and json.loads(out) == {"access_id": "alice",
+                                           "revoked": True}
+    again = json.loads(sh("s3", "getsecret", "alice", "--om", om)[1])
+    assert again["secret"] != first["secret"]
+
+
+def test_s3g_without_cpu_flag_names_cuda(live_cluster):
+    om, _ = live_cluster
+    proc = _run("s3g", "--om", om, "--port", str(_free_port()), check=False)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+
+
+def test_s3g_process_signed_put_get_multipart_and_freon(live_cluster, sh,
+                                                        tmp_path):
+    """`s3g --require-auth --device cpu` against the cluster: a signed PUT
+    and GET byte-exact (its ETag the body's MD5), an unsigned PUT
+    refused, a 3-part multipart upload with the composite ETag, `freon
+    s3kg` signed with a secret from `s3 getsecret`, `freon mpug`; on
+    SIGTERM the gateway prints its launch and dispatch counts."""
+    import hashlib
+    import urllib.error
+    import urllib.request
+
+    from ozone_tpu_torch.gateway.s3_auth import sign_request
+
+    om, _ = live_cluster
+    port = _free_port()
+    log = tmp_path / "s3g.log"
+    with open(log, "w") as f:
+        gw = subprocess.Popen(
+            [sys.executable, "-m", "ozone_tpu_torch.tools", "s3g", "--om",
+             om, "--port", str(port), "--replication", "rs-3-2-4096",
+             "--require-auth", "--device", "cpu"],
+            stdout=f, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            cwd=str(REPO), env=ENV)
+    try:
+        t_end = time.monotonic() + WAIT_S
+        while "s3 gateway serving" not in log.read_text():
+            assert gw.poll() is None and time.monotonic() < t_end, \
+                log.read_text()
+            time.sleep(0.2)
+        secret = json.loads(sh("s3", "getsecret", "s3user", "--om",
+                               om)[1])["secret"]
+        endpoint = f"127.0.0.1:{port}"
+
+        def req(method, path, data=b"", sign=True):
+            url = f"http://{endpoint}{path}"
+            headers = {"host": endpoint, "x-amz-date": time.strftime(
+                "%Y%m%dT%H%M%SZ", time.gmtime())}
+            if sign:
+                headers = sign_request("s3user", secret, method, url,
+                                       headers, data)
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        url, data=data or None, method=method,
+                        headers=headers), timeout=WAIT_S) as r:
+                    return r.status, r.headers, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.headers, e.read()
+
+        body = np.random.default_rng(5).integers(
+            0, 256, 3 * 4096 * 5 + 12345, dtype=np.uint8).tobytes()
+        assert req("PUT", "/s3b")[0] == 200
+        st, headers, _ = req("PUT", "/s3b/obj", body)
+        assert st == 200 and headers["ETag"] == \
+            f'"{hashlib.md5(body).hexdigest()}"'
+        assert req("GET", "/s3b/obj")[2] == body
+        st, _, err = req("PUT", "/s3b/anon", b"x", sign=False)
+        assert st == 403 and b"AccessDenied" in err
+        uid = re.search(rb"<UploadId>([^<]+)<",
+                        req("POST", "/s3b/mp?uploads")[2]).group(1).decode()
+        parts = [body[:20000], body[20000:40000], body[40000:]]
+        md5s = []
+        for n, p in enumerate(parts, 1):
+            st, headers, _ = req("PUT", f"/s3b/mp?partNumber={n}"
+                                        f"&uploadId={uid}", p)
+            md5s.append(headers["ETag"].strip('"'))
+        st, _, done = req("POST", f"/s3b/mp?uploadId={uid}")
+        composite = hashlib.md5("".join(md5s).encode()).hexdigest() + "-3"
+        assert st == 200 and composite.encode() in done
+        assert req("GET", "/s3b/mp")[2] == body
+        rc, out, _ = sh("freon", "s3kg", "-n", "4", "-s", "5000", "-t", "2",
+                        "--endpoint", endpoint, "--access-id", "s3user",
+                        "--validate", "--om", om)
+        rep = json.loads(out)
+        assert rc == 0 and rep["ops"] == 4 and rep["failures"] == 0
+        rc, out, _ = sh("freon", "mpug", "-n", "2", "-s", "5000", "-t", "2",
+                        "--om", om, "--replication", "rs-3-2-4096",
+                        "--device", "cpu")
+        rep = json.loads(out)
+        assert rc == 0 and rep["ops"] == 2 and rep["failures"] == 0
+    finally:
+        gw.send_signal(signal.SIGTERM)
+        gw.wait(timeout=WAIT_S)
+    last = log.read_text().strip().splitlines()[-1]
+    assert re.match(r"s3 gateway stopped; kernel launches \d+, service "
+                    r"dispatches \d+$", last), last

@@ -8,10 +8,11 @@ reconstruction after a dead node, and container close converging. The
 same seeded keys go through `ozone_tpu.net.daemons`, and bytes read, key
 sizes, per-group lengths, every chunk's CRC32C words and the error codes
 of the same bad requests must be equal. Beyond the reference's tests:
-the per-stripe write path and the permanent downgrade when a member
-refuses WriteChunksCommit, container replication through export and
-import (a tarball the reference's datanode packed included), and the
-daemon's background scrub.
+the S3 gateway's OM verbs (multipart, key attributes, secrets, the
+upgrade status), the per-stripe write path and the permanent downgrade
+when a member refuses WriteChunksCommit, container replication through
+export and import (a tarball the reference's datanode packed included),
+and the daemon's background scrub.
 """
 
 import time
@@ -256,6 +257,42 @@ def test_ec_key_over_the_wire_and_degraded_read(pair):
         ["VOLUME_ALREADY_EXISTS"] * 2
     assert codes(pair, lambda s: s.oz.om.bucket_info("v", "nope")) == \
         ["BUCKET_NOT_FOUND"] * 2
+
+
+def test_s3_verbs_over_the_wire(pair):
+    """The gateway's OM verbs through RemoteOmClient against the
+    reference's gRPC client: a multipart upload with a replaced part and
+    its listings, the composite ETag and the key bytes; key attributes;
+    S3 secrets; the upgrade status; and the error codes."""
+    parts = [_data(20, 9_000), _data(21, 4_096), _data(22, 5)]
+
+    def run(s):
+        b = s.oz.create_volume("v").create_bucket("b", replication=EC)
+        up = b.initiate_multipart_upload("mp", metadata={"m": "1"})
+        for n in (2, 1, 3, 2):
+            up.write_part(n, parts[n - 1])
+        listed = [(p["part_number"], p["size"], p["etag"])
+                  for p in up.list_parts()]
+        uploads = [u["name"] for u in
+                   s.oz.om.list_multipart_uploads("v", "b", "")]
+        etag = up.complete()["etag"]
+        s.oz.om.set_key_attrs("v", "b", "mp", {"tags": {"t": "1"}})
+        info = s.oz.om.lookup_key("v", "b", "mp")
+        om = s.oz.om
+        om_secret = om.get_s3_secret("wire")
+        return (listed, uploads, etag, info["size"], info["attrs"],
+                info.get("metadata"), b.read_key("mp").tobytes(),
+                om.get_s3_secret("wire") == om_secret,
+                om.get_s3_secret("nobody", create=False),
+                om.revoke_s3_secret("wire"),
+                om.get_s3_secret("wire", create=False),
+                om.upgrade_status())
+
+    got, want = both(pair, run)
+    assert got == want
+    assert got[6] == b"".join(parts)
+    assert codes(pair, lambda s: s.oz.om.abort_multipart_upload(
+        "v", "b", "mp", "no-such-upload")) == ["NO_SUCH_MULTIPART_UPLOAD"] * 2
 
 
 def test_fresh_client_reads_via_located_lookup(pair):

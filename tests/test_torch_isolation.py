@@ -34,10 +34,11 @@ def test_port_imports_no_jax_and_no_reference():
                      or m == "grpc" or m.startswith("grpc.")
                      or m == "ozone_tpu" or m.startswith("ozone_tpu."))
         print(len(names), "ozone_tpu_torch.tools.cli" in names,
-              "ozone_tpu_torch.net.daemons" in names, bad)
+              "ozone_tpu_torch.net.daemons" in names,
+              "ozone_tpu_torch.gateway.s3" in names, bad)
     """)
-    count, cli, net, bad = out.split(" ", 3)
-    assert int(count) >= 58 and cli == net == "True", out
+    count, cli, net, gw, bad = out.split(" ", 4)
+    assert int(count) >= 66 and cli == net == gw == "True", out
     assert bad.strip() == "[]", out
 
 
@@ -72,6 +73,14 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.codec.hostmem",
     "ozone_tpu_torch.storage.fast_datapath",
     "ozone_tpu_torch.client.native_dn",
+    # the S3 gateway: SigV4, admission, the OM's multipart requests
+    "ozone_tpu_torch.gateway.s3",
+    "ozone_tpu_torch.gateway.s3_auth",
+    "ozone_tpu_torch.admission",
+    "ozone_tpu_torch.admission.controller",
+    "ozone_tpu_torch.admission.bucket",
+    "ozone_tpu_torch.admission.shed",
+    "ozone_tpu_torch.om.multipart",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -125,6 +134,7 @@ def test_default_device_raises_without_cuda():
         from ozone_tpu_torch.codec.fused import make_fused_reencoder
         from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
         from ozone_tpu_torch.net.daemons import DatanodeDaemon
+        from ozone_tpu_torch.gateway.s3 import S3Gateway
         import tempfile
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
@@ -144,7 +154,8 @@ def test_default_device_raises_without_cuda():
                                             "127.0.0.1:1"),
                      lambda: re_encode_key_to_ec(None, clients, "v", "b", "k"),
                      lambda: re_encode_xor_key_to_rs(None, clients, "v", "b",
-                                                     "k")):
+                                                     "k"),
+                     lambda: S3Gateway(OzoneClient(None, clients))):
             try:
                 make()
             except RuntimeError as e:
