@@ -88,7 +88,27 @@ a phase says otherwise:
   the multipart objects with two holders of their data units stopped.
   Every body is byte-exact, every ETag the body's MD5 or the multipart
   composite, launches equal service dispatches, and the native lane sees
-  no fallback and no RPC chunk call.
+  no fallback and no RPC chunk call;
+- lifecycle tiering (`lifecycle_path`): a MiniOzoneCluster of 9
+  datanodes with OZONE_TPU_TIER_BATCH=16; a RATIS/THREE bucket of 16 keys
+  of 16 MiB, 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
+  tiered to rs-6-3-1024k by one sweep of an age-0 rule (the XOR keys
+  through the fused re-encode, the rest in [16, 6, 1 MiB] windows of many
+  keys); every key re-read byte-exact and every unit's chunks, parity and
+  CRC words equal to the numpy coder's and the host CRC32C; an EXPIRE rule
+  on half the short keys; then, over 9 DatanodeDaemons, the rule PUT
+  through the S3 gateway's `?lifecycle` and `lifecycle run-now` over the
+  remote OM on two keys, read back through the gateway;
+- the small-object path (`small_object_path`): over an ScmOmDaemon and 9
+  DatanodeDaemons, `sh bucket set-smallobj` on an rs-6-3-1024k bucket,
+  `freon tinyg` of 2000 keys of 64 KiB on 16 threads (needles packed into
+  slabs), 2000 keys of the tiny mix (inline values and needles), and 500
+  keys of 64 KiB with packer=False (the stripe path), all read back
+  byte-exact, the first slab's units against the numpy coder and host
+  CRC32C; then half the needles deleted, their bytes booked dead, a
+  bounded `compact_slabs_once`, the survivors read back byte-exact. Both
+  print the metadata RPCs per step (CreateContainer, GetBlock, ...), and
+  kernel launches equal the codec service's dispatches in every step.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -2850,6 +2870,490 @@ def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------- lifecycle and small objects
+def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str) -> int:
+    """Every chunk of every unit of EC `groups` holding `data`: data chunks
+    equal the source bytes, parity chunks equal the numpy coder's, and
+    each chunk's stored CRC words equal the host CRC32C (numpy route) of
+    its bytes; every unit holds all its bytes. Returns the chunks held."""
+    from ozone_tpu_torch.codec.numpy_coder import NumpyRSEncoder
+    from ozone_tpu_torch.storage.ids import StorageError
+    from ozone_tpu_torch.utils import checksum
+
+    opts = groups[0].pipeline.replication.ec
+    k, p, cell = opts.data_units, opts.parity_units, opts.cell_size
+    enc = NumpyRSEncoder(opts)
+    chunks, base = 0, 0
+    with checksum.numpy_route():
+        for g in groups:
+            n = -(-g.length // (k * cell))
+            stripes = np.zeros((n, k, cell), dtype=np.uint8)
+            stripes.reshape(-1)[:g.length] = data[base:base + g.length]
+            base += g.length
+            parity = enc.encode(stripes)
+            held = 0
+            for u, dn_id in enumerate(g.pipeline.nodes):
+                try:
+                    block = dn_of(dn_id).get_block(g.block_id)
+                except StorageError:  # a unit the group's data never reached
+                    block = None
+                infos = block.chunks if block else []
+                for ch in infos:
+                    s = ch.offset // cell
+                    want = (stripes[s, u] if u < k else parity[s, u - k])[:ch.length]
+                    got = dn_of(dn_id).read_chunk(g.block_id, ch)
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"{what}: chunk {ch.name} unit {u} differs "
+                                             "from the numpy coder's")
+                    words = [int.from_bytes(c, "big") for c in ch.checksum.checksums]
+                    if words != checksum.crc32c_slices(got, bpc).tolist():
+                        raise AssertionError(f"{what}: stored CRCs of {ch.name} unit {u} "
+                                             "differ from the host CRC32C")
+                    held += ch.length if u < k else 0
+                    chunks += 1
+                if u >= k and len(infos) != n:
+                    raise AssertionError(f"{what}: parity unit {u} holds {len(infos)} "
+                                         f"of {n} chunks")
+            if held != g.length:
+                raise AssertionError(f"{what}: data units hold {held} of {g.length} B")
+    if base != data.size:
+        raise AssertionError(f"{what}: groups cover {base} of {data.size} B")
+    return chunks
+
+
+@contextlib.contextmanager
+def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str):
+    """An ScmOmDaemon (its lifecycle sweep on `device`) and `n_dn`
+    DatanodeDaemons on loopback, each with its native datapath, and an
+    OzoneClient over RemoteOmClient; yields (meta, daemons, client)."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+
+    old_period = os.environ.get("OZONE_TPU_LIFECYCLE_PERIOD_S")
+    # no sweep of the daemon's own cadence: the phase drives them
+    os.environ["OZONE_TPU_LIFECYCLE_PERIOD_S"] = "1e9"
+    with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{tag}-") as tmp:
+        root = Path(tmp)
+        try:
+            meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
+                               container_size=4096 * cell, stale_after_s=30.0,
+                               dead_after_s=60.0, background_interval_s=0.5,
+                               placement_seed=seed, device=device)
+        finally:
+            if old_period is None:
+                os.environ.pop("OZONE_TPU_LIFECYCLE_PERIOD_S")
+            else:
+                os.environ["OZONE_TPU_LIFECYCLE_PERIOD_S"] = old_period
+        meta.start()
+        dns = []
+        clients = DatanodeClientFactory()
+        om = RemoteOmClient(meta.address, clients=clients)
+        scm = RemoteScmClient(meta.address)
+        try:
+            for i in range(n_dn):
+                d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address,
+                                   heartbeat_interval_s=0.5, device=device)
+                d.start()
+                dns.append(d)
+            wait_for(f"{n_dn} datanodes registered",
+                     lambda: len(scm.status()["nodes"]) == n_dn, 30)
+            yield meta, dns, OzoneClient(om, clients, device=device)
+        finally:
+            scm.close()
+            om.close()
+            clients.close()
+            for d in dns:
+                d.stop()
+            meta.stop()
+
+
+#: the metadata verbs whose count per operation sets the small-object and
+#: tiering rates (each a client span of the port's RPC)
+METADATA_RPCS = ("DatanodeService/CreateContainer", "DatanodeService/GetBlock",
+                 "OmService/AllocateSlabGroup", "OmService/AllocateBlock",
+                 "OmService/CommitKeys", "OmService/CommitKey",
+                 "OmService/PutInlineKey", "OmService/LookupKey")
+
+
+def rpc_counts(since: float) -> str:
+    """Client RPCs of METADATA_RPCS since `since`: count and seconds summed
+    over threads."""
+    out = []
+    for verb in METADATA_RPCS:
+        n, secs = span_stat(since, f"client:/ozone.tpu.{verb}")
+        if n:
+            out.append(f"{verb.split('/')[1]} {n} x {secs:.2f} s")
+    return ", ".join(out) or "none"
+
+
+def cli_json(*argv) -> object:
+    """The port's CLI in this process; its printed JSON answer."""
+    import io
+
+    from ozone_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"CLI {' '.join(argv)} exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def lifecycle_path(device, cell: int, bpc: int, seed: int, big_keys: int = 16,
+                   big_cells: int = 16, short_keys: int = 8, xor_keys: int = 4,
+                   xor_cells: int = 12, window: int = 16) -> dict:
+    """Lifecycle tiering on the device. A MiniOzoneCluster of 9 datanodes
+    (as bench.py's tiering bench) with OZONE_TPU_TIER_BATCH=`window`, a
+    RATIS/THREE bucket: `big_keys` keys of `big_cells` cells, `short_keys`
+    of a cell + 12 345 B (short groups) and `xor_keys` written as XOR(6,1)
+    of `xor_cells` cells + 7 B. An age-0 TRANSITION_TO_EC rule to rs-6-3,
+    swept by one LifecycleService.run_once on the codec service: the XOR
+    keys (first in name order) through the fused re-encode, the rest
+    packed into [window, 6, cell] windows. Every key re-reads byte-exact,
+    and every unit's chunks, parity and stored CRCs equal the numpy
+    coder's and the host CRC32C. Then an EXPIRE rule on half the short
+    keys and a second sweep; the survivors re-read byte-exact. Last, on a
+    daemon cluster of 9 DatanodeDaemons: the rule PUT through an
+    S3Gateway's `?lifecycle` on a RATIS/THREE bucket, two keys PUT through
+    the gateway, `lifecycle run-now` over the remote OM (the sweep runs in
+    the ScmOmDaemon on `device`), and both keys GET through the gateway
+    byte-exact and rs-6-3. Kernel launches equal the codec service's
+    dispatches in each sweep, and the tiering sweep takes fewer
+    dispatches than keys."""
+    import http.client
+
+    from ozone_tpu_torch.client import re_encode
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+    from ozone_tpu_torch.lifecycle.service import LifecycleService
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+
+    rs, xor = f"rs-6-3-{cell // 1024}k", f"xor-6-1-{cell // 1024}k"
+    rng = np.random.default_rng(seed + 20)
+    sizes = {f"a-xor-{i}": xor_cells * cell + 7 for i in range(xor_keys)}
+    sizes.update({f"cold-{i:02d}": big_cells * cell for i in range(big_keys)})
+    sizes.update({f"short-{'ab'[i % 2]}{i // 2}": cell + 12345
+                  for i in range(short_keys)})
+    data = {k: rng.integers(0, 256, n, dtype=np.uint8) for k, n in sizes.items()}
+    out: dict = {}
+    old_batch = os.environ.get("OZONE_TPU_TIER_BATCH")
+    os.environ["OZONE_TPU_TIER_BATCH"] = str(window)
+    try:
+        with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-lc-") as tmp:
+            cluster = MiniOzoneCluster(Path(tmp), num_datanodes=9, block_size=32 * cell,
+                                       container_size=1024 * cell, stale_after_s=1e6,
+                                       dead_after_s=2e6, placement_seed=seed, device=device)
+            try:
+                oz = cluster.client()
+                b = oz.create_volume("tier").create_bucket("b", replication="RATIS/THREE")
+                for name, d in data.items():
+                    b.write_key(name, d, xor if name.startswith("a-xor") else None)
+                cluster.om.set_bucket_lifecycle("tier", "b", [{
+                    "id": "warm", "prefix": "", "age_days": 0,
+                    "action": "TRANSITION_TO_EC", "target": rs}])
+                svc = LifecycleService(cluster.om, clients=cluster.clients, device=device)
+                xor_launches = [0]
+                real = re_encode.re_encode_xor_key_to_rs
+
+                def counted(*a, **kw):  # the XOR keys' share of the launches
+                    before = fused_kernel.launches.count
+                    try:
+                        return real(*a, **kw)
+                    finally:
+                        xor_launches[0] += fused_kernel.launches.count - before
+
+                re_encode.re_encode_xor_key_to_rs = counted
+                before = service_counts()
+                fused_kernel.launches.reset()
+                since, t0 = time.time(), time.perf_counter()
+                try:
+                    stats = svc.run_once()
+                finally:
+                    re_encode.re_encode_xor_key_to_rs = real
+                secs = time.perf_counter() - t0
+                launches = fused_kernel.launches.count
+                svc_d = service_delta(before)
+                stripes = sum(-(-n // (6 * cell)) for k, n in sizes.items()
+                              if not k.startswith("a-xor"))
+                print(f"lifecycle sweep spans: {span_totals(since)}")
+                print(f"lifecycle sweep: {stats['transitioned']} of {len(sizes)} keys "
+                      f"({big_keys} x {big_cells} cells, {short_keys} x 1 cell + 12345 B "
+                      f"replicated; {xor_keys} x {xor} {xor_cells} cells + 7 B) -> {rs}, "
+                      f"{stats['bytes']} B in {secs:.3f} s = "
+                      f"{stats['bytes'] / secs / 2**30:.3f} GiB/s; tier dispatches "
+                      f"{stats['dispatches']} for {stripes} replicated stripes at window "
+                      f"{window}; kernel launches {launches} (XOR re-encode "
+                      f"{xor_launches[0]}), service dispatches {svc_d['dispatches']} of "
+                      f"{svc_d['submissions']} submissions, fill {svc_d['fill_ratio']:.3f}")
+                if stats["transitioned"] != len(sizes) or stats["failed"] \
+                        or stats["conflicts"] or not stats["complete"]:
+                    raise AssertionError(f"lifecycle sweep: {stats}")
+                if stats["dispatches"] != -(-stripes // window) \
+                        or stats["dispatches"] >= len(sizes):
+                    raise AssertionError(f"tier dispatches {stats['dispatches']} for "
+                                         f"{stripes} stripes, {len(sizes)} keys")
+                check_launches_equal("lifecycle sweep", device, launches, svc_d)
+                out.update(tier_launches=launches - xor_launches[0],
+                           xor_launches=xor_launches[0], gib_s=stats["bytes"] / secs / 2**30,
+                           seconds=secs, dispatches=stats["dispatches"], stripes=stripes)
+                if device.type == "cuda" and (xor_launches[0] < xor_keys
+                                              or out["tier_launches"] != stats["dispatches"]):
+                    raise AssertionError(f"lifecycle launches: {out}")
+                chunks = groups = 0
+                dn_of = cluster.datanode
+                for name, want in data.items():
+                    info = cluster.om.lookup_key("tier", "b", name)
+                    groups += len(info["block_groups"])
+                    if info["replication"] != rs:
+                        raise AssertionError(f"{name} is {info['replication']}")
+                    if not np.array_equal(b.read_key(name), want):
+                        raise AssertionError(f"tiered {name} re-read differs")
+                    chunks += check_ec_units(dn_of, cluster.om.key_block_groups(info),
+                                             want, bpc, name)
+                print(f"lifecycle: {len(data)} tiered keys re-read byte-exact; {chunks} "
+                      "chunks' data, parity and CRC words equal the numpy coder's and the "
+                      f"host CRC32C; the sweep wrote {groups} groups ({9 * groups} "
+                      "CreateContainer calls, one per member of each)")
+                # expiry of half the short keys
+                cluster.om.set_bucket_lifecycle("tier", "b", [{
+                    "id": "ttl", "prefix": "short-b", "age_days": 0,
+                    "action": "EXPIRE"}])
+                before = service_counts()
+                fused_kernel.launches.reset()
+                stats2 = svc.run_once()
+                expired = [k for k in data if k.startswith("short-b")]
+                if stats2["expired"] != len(expired) or fused_kernel.launches.count:
+                    raise AssertionError(f"expiry sweep: {stats2}")
+                for name, want in data.items():
+                    if name in expired:
+                        try:
+                            cluster.om.lookup_key("tier", "b", name)
+                        except Exception:  # noqa: BLE001 - KEY_NOT_FOUND
+                            continue
+                        raise AssertionError(f"expired {name} still listed")
+                    if not np.array_equal(b.read_key(name), want):
+                        raise AssertionError(f"survivor {name} re-read differs")
+                print(f"lifecycle expiry: {stats2['expired']} keys expired, "
+                      f"{len(data) - len(expired)} survivors re-read byte-exact")
+            finally:
+                cluster.close()
+
+        # the same rule through the S3 gateway and `lifecycle run-now` over
+        # the daemon cluster's remote OM
+        with codec_route(True), daemon_cluster(device, 9, cell, seed, "lc") as (meta, _, oz):
+            gw = S3Gateway(oz, replication="RATIS/THREE")
+            gw.start()
+            try:
+                conn = http.client.HTTPConnection(gw.address, timeout=120)
+
+                def req(method, path, body=b""):
+                    conn.request(method, path, body=body)
+                    r = conn.getresponse()
+                    return r.status, r.read()
+
+                rule = (f"<LifecycleConfiguration><Rule><ID>warm</ID><Filter><Prefix>"
+                        f"</Prefix></Filter><Status>Enabled</Status><Transition><Days>0"
+                        f"</Days><StorageClass>{rs}</StorageClass></Transition></Rule>"
+                        f"</LifecycleConfiguration>").encode()
+                bodies = {f"k{i}": rng.integers(0, 256, big_cells * cell + 7,
+                                                dtype=np.uint8).tobytes() for i in range(2)}
+                steps = [req("PUT", "/lcb"), req("PUT", "/lcb?lifecycle", rule)]
+                steps += [req("PUT", f"/lcb/{k}", v) for k, v in bodies.items()]
+                status, got = req("GET", "/lcb?lifecycle")
+                if any(s[0] != 200 for s in steps) or status != 200 \
+                        or rs.encode() not in got:
+                    raise AssertionError(f"?lifecycle through the gateway: {steps} {status}")
+                before = service_counts()
+                fused_kernel.launches.reset()
+                t0 = time.perf_counter()
+                since = time.time()
+                run = cli_json("lifecycle", "run-now", "--om", meta.address)
+                secs = time.perf_counter() - t0
+                print(f"lifecycle run-now metadata RPCs: {rpc_counts(since)}")
+                launches = fused_kernel.launches.count
+                svc_d = service_delta(before)
+                if run["transitioned"] != 2 or run["failed"]:
+                    raise AssertionError(f"lifecycle run-now: {run}")
+                check_launches_equal("lifecycle run-now (daemon)", device, launches, svc_d)
+                for k, v in bodies.items():
+                    status, got = req("GET", f"/lcb/{k}")
+                    if status != 200 or got != v:
+                        raise AssertionError(f"gateway GET of tiered {k} differs")
+                    info = oz.om.lookup_key("s3v", "lcb", k)
+                    if info["replication"] != rs:
+                        raise AssertionError(f"{k} is {info['replication']} after run-now")
+                status = cli_json("lifecycle", "status", "--om", meta.address)
+                print(f"lifecycle over the daemons: ?lifecycle PUT and GET through the "
+                      f"gateway, 2 keys tiered by `lifecycle run-now` in {secs:.3f} s "
+                      f"({run['bytes']} B, {run['dispatches']} dispatches; kernel launches "
+                      f"{launches}, service dispatches {svc_d['dispatches']}), GET "
+                      f"byte-exact; status term {status['term']}, cursor "
+                      f"{status['cursor']}")
+                out["daemon_launches"] = launches
+                conn.close()
+            finally:
+                gw.stop()
+    finally:
+        if old_batch is None:
+            os.environ.pop("OZONE_TPU_TIER_BATCH", None)
+        else:
+            os.environ["OZONE_TPU_TIER_BATCH"] = old_batch
+    return out
+
+
+def small_object_path(device, cell: int, bpc: int, seed: int, n_keys: int = 2000,
+                      size: int = 64 * 1024, n_plain: int = 500, threads: int = 16,
+                      compact_slabs: int = 32) -> dict:
+    """The small-object path on a daemon cluster (ScmOmDaemon and 9
+    DatanodeDaemons, native lane): an rs-6-3 bucket opted in by `sh bucket
+    set-smallobj`; freon tinyg of `n_keys` keys of `size` B on `threads`
+    threads (needles through the client's SlabPacker), then `n_keys` keys of
+    the tiny mix (inline values and needles); `n_plain` keys of `size` B
+    with packer=False (every key down the stripe path), the before/after
+    pair. Every key reads back byte-exact; the first slab's units hold the
+    numpy coder's parity and the host CRC32C words. Then every other needle
+    of the first run is deleted, the purge books them dead on their slabs,
+    one `compact_slabs_once` over the remote OM (dead ratio 0.4, at most
+    `compact_slabs` slabs) rewrites their survivors, and every survivor
+    reads back byte-exact. Kernel launches equal the codec service's
+    dispatches in every step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ozone_tpu_torch.client import slab
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.tools import freon
+
+    from collections import deque
+
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    out: dict = {"launches": {}}
+    tracer = Tracer.instance()
+    # room for every span of the phase: its RPC counts are read from them
+    tracer.spans = deque(tracer.spans, maxlen=max(tracer.spans.maxlen, 500_000))
+    with codec_route(True), daemon_cluster(device, 9, cell, seed, "so") as (meta, dns, oz):
+        om = oz.om
+        om.create_volume("so")
+        for bucket in ("tiny", "mix", "plain"):
+            om.create_bucket("so", bucket, rs)
+        for bucket in ("tiny", "mix"):
+            row = cli_json("sh", "bucket", "set-smallobj", f"/so/{bucket}",
+                           "--om", meta.address)
+            if row.get("smallobj") is None:
+                raise AssertionError(f"set-smallobj: {row}")
+        by_id = {d.dn.id: d.dn for d in dns}
+
+        def step(what, fn):
+            before, s0 = service_counts(), slab.METRICS.snapshot()
+            fused_kernel.launches.reset()
+            since, t0 = time.time(), time.perf_counter()
+            res = fn()
+            secs = time.perf_counter() - t0
+            launches = fused_kernel.launches.count
+            svc_d = service_delta(before)
+            s1 = slab.METRICS.snapshot()
+            d = {k: s1.get(k, 0) - s0.get(k, 0) for k in
+                 ("slabs_flushed", "needles_packed", "slab_bytes", "inline_puts")}
+            print(f"{what} metadata RPCs: {rpc_counts(since)}")
+            check_launches_equal(what, device, launches, svc_d)
+            return res, secs, launches, svc_d, d
+
+        def readback(bucket, names, want):
+            b = oz.get_volume("so").get_bucket(bucket)
+
+            def one(i):
+                if not np.array_equal(b.read_key(names[i]), want(i)):
+                    raise AssertionError(f"{bucket}/{names[i]} read back differs")
+
+            since = time.time()
+            with ThreadPoolExecutor(threads) as ex:
+                list(ex.map(one, range(len(names))))
+            print(f"{bucket} read back, metadata RPCs: {rpc_counts(since)}")
+
+        reps = {}
+        for what, bucket, n, kw in (
+                ("tinyg needles", "tiny", n_keys, dict(size=size)),
+                ("tinyg mix", "mix", n_keys, dict(size=size, mix=True)),
+                ("tinyg packer=False", "plain", n_plain, dict(size=size, packer=False))):
+            rep, secs, launches, svc_d, d = step(what, lambda: freon.tinyg(
+                oz, n_keys=n, threads=threads, volume="so", bucket=bucket,
+                replication=rs, validate=False, **kw).summary())
+            if rep["failures"]:
+                raise AssertionError(f"{what}: {rep['failures']} failures")
+            names = [f"tiny-{i}" for i in range(n)]
+            t0 = time.perf_counter()
+            readback(bucket, names, lambda i, kw=kw: freon._det_payload(
+                freon._tiny_size(i, size, kw.get("mix", False)), seed=i))
+            read_s = time.perf_counter() - t0
+            per_slab = d["needles_packed"] / d["slabs_flushed"] if d["slabs_flushed"] else 0
+            fill = (100.0 * d["slab_bytes"] / (d["slabs_flushed"] * oz.packer.target_bytes)
+                    if d["slabs_flushed"] else 0.0)
+            print(f"small objects, {what}: {n} keys on {threads} threads in "
+                  f"{rep['elapsed_s']} s, {rep['ops_per_s']} ops/s, p50 {rep['p50_ms']} ms, p99 "
+                  f"{rep['p99_ms']} ms; inline {rep['inline_keys']}, needles "
+                  f"{rep['needle_keys']}, stripe path {rep['regular_keys']}; slabs "
+                  f"flushed {d['slabs_flushed']}, {per_slab:.1f} needles per slab, fill "
+                  f"{fill:.1f}%; kernel launches {launches}, service dispatches "
+                  f"{svc_d['dispatches']}; read back byte-exact in {read_s:.3f} s "
+                  f"({n / read_s:.1f} GETs/s)")
+            reps[bucket] = dict(rep, launches=launches, slabs=d["slabs_flushed"],
+                                needles_per_slab=per_slab, fill_pct=fill, read_s=read_s)
+        if (reps["tiny"]["needle_keys"], reps["plain"]["regular_keys"]) != (n_keys, n_plain):
+            raise AssertionError(f"small-object routing: {reps}")
+        out["launches"]["slab_flush"] = reps["tiny"]["launches"] + reps["mix"]["launches"]
+        out["launches"]["small_object_stripe_path"] = reps["plain"]["launches"]
+        out["reps"] = reps
+        # the first slab: its units against the numpy coder and host CRCs
+        first = min(om.list_slabs("so", "tiny"), key=lambda s: s["created"])
+        payload = np.zeros(first["length"], np.uint8)
+        for name, nd in first["needles"].items():
+            i = int(name.rsplit("-", 1)[1])
+            payload[nd["off"]:nd["off"] + nd["len"]] = freon._det_payload(size, seed=i)
+        groups = om.key_block_groups({"block_groups": first["block_groups"]})
+        chunks = check_ec_units(lambda dn_id: by_id[dn_id], groups, payload, bpc,
+                                "slab " + first["slab_id"])
+        print(f"small objects: slab {first['slab_id']} ({len(first['needles'])} needles, "
+              f"{first['length']} B): {chunks} chunks' data, parity and CRC words equal "
+              f"the numpy coder's and the host CRC32C")
+
+        # delete every other needle, purge, compact, read the survivors
+        b = oz.get_volume("so").get_bucket("tiny")
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(lambda i: b.delete_key(f"tiny-{i}"), range(0, n_keys, 2)))
+        with meta.scm_service.lock:  # not beside the daemon's own pass
+            while meta.om.run_key_deleting_service_once(limit=10_000):
+                pass
+        os.environ["OZONE_TPU_SLAB_DEAD_RATIO"] = "0.4"
+        try:
+            # at most `compact_slabs` slabs: the daemon's sweep budget
+            # (OZONE_TPU_LIFECYCLE_DEADLINE_S, 30 s) bounds one call
+            stats, secs, launches, svc_d, _ = step(
+                "slab compaction",
+                lambda: om.run_slab_compaction_once(max_slabs=compact_slabs))
+        finally:
+            os.environ.pop("OZONE_TPU_SLAB_DEAD_RATIO", None)
+        survivors = [f"tiny-{i}" for i in range(1, n_keys, 2)]
+        readback("tiny", survivors,
+                 lambda i: freon._det_payload(size, seed=2 * i + 1))
+        print(f"small objects, compaction: {stats['compacted']} of {stats['slabs_scanned']} "
+              f"slabs compacted, {stats['needles_rewritten']} needles "
+              f"({stats['bytes_rewritten']} B) rewritten in {secs:.3f} s "
+              f"({stats['bytes_rewritten'] / secs / MIB:.1f} MiB/s), "
+              f"{stats['blocks_released']} blocks released, conflicts "
+              f"{stats['conflicts']}; kernel launches {launches}, service dispatches "
+              f"{svc_d['dispatches']}; {len(survivors)} survivors read back byte-exact")
+        if stats["compacted"] < 1 or stats["needles_rewritten"] < 1 or stats["conflicts"]:
+            raise AssertionError(f"slab compaction: {stats}")
+        out["launches"]["slab_compaction"] = launches
+        out["compaction"] = dict(stats, seconds=secs)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2908,6 +3412,7 @@ def main() -> int:
         (1, 0, bpc, bpc, 4096, "CRC32C"),  # the scrubber's batch at its 64 MiB cap
         (1, 0, bpc, bpc, 1024, "CRC32C"),  # the scrub of one 16 MiB container
         (6, 1, MIB, bpc, 8, "CRC32C", True, "xor-6-1"),  # XOR encode, [1, 6]
+        (6, 3, MIB, bpc, 16, "CRC32C"),  # the tiering window, W = 16
     ]
     err = check_kernel_cases(device, cases, args.seed)
     from ozone_tpu_torch.codec import lrc_math
@@ -2938,6 +3443,9 @@ def main() -> int:
     decode = time_decode(device, MIB, bpc, 8, args.seed)
     forms = time_lrc_and_scrub(device, MIB, bpc, args.seed)
     forms["reencode"] = time_reencode(device, MIB, bpc, 8, args.seed)
+    # the lifecycle executor's window: [16, 6, 1 MiB] with all nine CRC rows
+    forms["tier_window"] = time_kernel(device, 6, 3, MIB, bpc, 16, args.seed, plain=True)
+    forms["tier_window"].pop("bound_by")
     print("library_ms: none; no single PyTorch call computes a GF(2^8) "
           "matrix apply with slice CRCs")
     # the raw coder SPI's forms: no CRC rows
@@ -2968,6 +3476,8 @@ def main() -> int:
         dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
                    statistics.mean(r["gib_s"] for r in put["service"]))
         s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed)
+        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed)
+        so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -2994,6 +3504,10 @@ def main() -> int:
             "daemon_repair": dm["repair_launches"],
             "daemon_scrub": dm["scrub_launches"],
             **s3["launches"], "s3g_process": dm["cli"]["s3g"]["launches"],
+            "lifecycle_tier": lc["tier_launches"],
+            "lifecycle_xor_reencode": lc["xor_launches"],
+            "lifecycle_daemon_run_now": lc["daemon_launches"],
+            **so["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

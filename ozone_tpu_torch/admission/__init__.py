@@ -27,6 +27,7 @@ from ozone_tpu_torch.admission.controller import (
     ambient_qos,
     busy_error,
     controller,
+    current_tenant,
     qos_class_for,
     reset_for_tests,
     retry_after_hint,
@@ -44,6 +45,7 @@ __all__ = [
     "ambient_qos",
     "busy_error",
     "controller",
+    "current_tenant",
     "qos_class_for",
     "reset_for_tests",
     "retry_after_hint",

@@ -243,6 +243,12 @@ def tenant_context(tenant: str, qos: Optional[str] = None):
         _tenant_ctx.reset(tok)
 
 
+def current_tenant() -> Optional[str]:
+    """The ambient tenant (the gateway's request identity), or None."""
+    ctx = _tenant_ctx.get()
+    return ctx[0] if ctx is not None else None
+
+
 def ambient_qos(default: str = "interactive") -> str:
     """The ambient tenant's QoS class, or `default` outside any tenant
     context: how OzoneClient carries the gateway's identity into the

@@ -12,15 +12,21 @@ metadata daemon, with the datanode factory resolving the remote
 addresses the OM's answers carry. Multipart uploads write each part
 through the same datapath as a key (`MultipartUpload`). A tenant context
 set by the S3 gateway (`admission.tenant_context`) gives the writers and
-readers their QoS class, as in the reference. Left out for later slices:
-the Raft-ordered replicated writer, small objects (inline values and
-slabs), encryption (and so encrypted multipart uploads), snapshot paths,
-file checksums, rename, rewrite and copy.
+readers their QoS class, as in the reference. On a bucket opted into
+small objects, a PUT without an explicit replication takes the tiny-key
+path: at or under `inline_max` bytes the value rides the OM key row
+(`put_inline_key`), at or under `needle_max` it goes through the
+process-wide `client/slab.SlabPacker` (`OzoneClient.packer`); a GET of
+either reads the row or slices the needle out of its slab behind the
+needle's CRC gate. Left out for later slices: the Raft-ordered
+replicated writer, encryption (and so encrypted multipart uploads),
+snapshot paths, file checksums, rename, rewrite and copy.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from typing import Optional
 
@@ -125,6 +131,9 @@ class OzoneBucket:
         self.client = client
         self.volume = volume
         self.name = name
+        #: the bucket's small-object thresholds, fetched once (False =
+        #: not fetched yet, None = the bucket never opted in)
+        self._smallobj = False
 
     def _make_writer(self, session: OpenKeySession):
         om = self.client.om
@@ -168,6 +177,16 @@ class OzoneBucket:
                                   metadata=metadata)
         return KeyWriteHandle(session, om, self._make_writer(session))
 
+    def _smallobj_conf(self) -> Optional[dict]:
+        """The bucket's small-object thresholds, fetched once per handle
+        (a cached miss keeps the regular PUT at no extra OM call)."""
+        if self._smallobj is False:
+            from ozone_tpu_torch.client.slab import smallobj_conf
+
+            self._smallobj = smallobj_conf(
+                self.client.om.bucket_info(self.volume, self.name))
+        return self._smallobj
+
     def write_key(self, key: str, data,
                   replication: Optional[str] = None,
                   metadata: Optional[dict] = None) -> None:
@@ -177,6 +196,27 @@ class OzoneBucket:
         with Tracer.instance().span("client:put", volume=self.volume,
                                     bucket=self.name, key=key) as sp:
             with resilience.start("key_write"):
+                # tiny-object routing: only for scheme-default writes on
+                # an opted-in bucket (an explicit per-key replication
+                # always takes the stripe path)
+                conf = None if replication else self._smallobj_conf()
+                if conf is not None:
+                    raw = (data.tobytes() if isinstance(data, np.ndarray)
+                           else bytes(data))
+                    if len(raw) <= conf["inline_max"]:
+                        self.client.om.put_inline_key(
+                            self.volume, self.name, key, raw,
+                            metadata=metadata)
+                        raw = None
+                    elif len(raw) <= conf["needle_max"]:
+                        self.client.packer.put(
+                            self.volume, self.name, key, raw,
+                            metadata=metadata)
+                        raw = None
+                    if raw is None:
+                        METRICS.histogram("put_seconds").observe(
+                            time.perf_counter() - t0, sp.trace_id)
+                        return
                 with self.open_key(key, replication,
                                    metadata=metadata) as h:
                     h.write(data)
@@ -210,20 +250,58 @@ class OzoneBucket:
         if offset < 0 or length < 0 or offset + length > size:
             raise ValueError(f"range [{offset},{offset + length}) out of "
                              f"bounds for size {size}")
-        if info.get("inline") is not None or info.get("needle") \
-                or info.get("encryption"):
-            raise ValueError("small-object and encrypted keys are not "
-                             "served by this port")
+        if info.get("encryption"):
+            raise ValueError("encrypted keys are not served by this port")
         t0 = time.perf_counter()
         with Tracer.instance().span("client:get", volume=self.volume,
                                     bucket=self.name,
                                     key=info.get("name", ""),
                                     bytes=length) as sp:
             with resilience.start("key_read"):
-                out = self._read_groups_range(info, offset, length)
+                if info.get("inline") is not None:
+                    out = self._read_inline(info, offset, length)
+                elif info.get("needle"):
+                    out = self._read_needle(info, offset, length)
+                else:
+                    out = self._read_groups_range(info, offset, length)
         METRICS.histogram("get_seconds").observe(
             time.perf_counter() - t0, sp.trace_id)
         return out
+
+    @staticmethod
+    def _read_inline(info: dict, offset: int, length: int) -> np.ndarray:
+        """An inline value's GET: the bytes rode the OM key row."""
+        import base64
+
+        from ozone_tpu_torch.client.slab import METRICS as SMALLOBJ
+
+        raw = base64.b64decode(info["inline"])
+        SMALLOBJ.counter("inline_gets").inc()
+        return np.frombuffer(raw, np.uint8)[offset:offset + length].copy()
+
+    def _read_needle(self, info: dict, offset: int,
+                     length: int) -> np.ndarray:
+        """A needle's GET: the whole needle is sliced out of its slab with
+        ranged group reads, so its commit-time CRC can gate the answer; a
+        torn or mis-pointed needle is an error, never bytes."""
+        from ozone_tpu_torch.client.slab import (
+            METRICS as SMALLOBJ,
+            NEEDLE_CRC_MISMATCH,
+        )
+        from ozone_tpu_torch.om.requests import OMError
+        from ozone_tpu_torch.utils.checksum import crc32c
+
+        nd = info["needle"]
+        whole = self._read_groups_range(info, int(nd["offset"]),
+                                        int(nd["length"]))
+        if int(crc32c(whole)) != int(nd["crc"]):
+            SMALLOBJ.counter("needle_crc_errors").inc()
+            raise OMError(
+                NEEDLE_CRC_MISMATCH,
+                f"needle {info.get('key', '')} in slab {nd['slab']} "
+                f"failed its CRC gate")
+        SMALLOBJ.counter("needle_gets").inc()
+        return whole[offset:offset + length].copy()
 
     def _read_groups_range(self, info: dict, offset: int,
                            length: int) -> np.ndarray:
@@ -292,6 +370,22 @@ class OzoneClient:
         self.clients = clients
         self.device = resolve_device(device)
         self.qos_class = qos_class
+        self._packer = None
+        self._packer_lock = threading.Lock()
+
+    @property
+    def packer(self):
+        """The process-wide needle packer, started on the first small PUT;
+        its flushes ride the codec service's bulk class on this client's
+        device."""
+        with self._packer_lock:  # concurrent first PUTs share one packer
+            if self._packer is None:
+                from ozone_tpu_torch.client.slab import SlabPacker
+
+                self._packer = SlabPacker(self.om, self.clients,
+                                          qos_class="bulk",
+                                          device=self.device)
+            return self._packer
 
     def create_volume(self, volume: str) -> OzoneVolume:
         self.om.create_volume(volume)

@@ -16,9 +16,13 @@ streaming bodies chunk by chunk (`gateway/s3_auth.py`). Admission
 the body is read and bounds the requests in flight; a refusal answers
 503 `SlowDown` with `Retry-After`.
 
-Where the reference answers from a module the port does not have yet,
-the gateway answers as Apache Ozone 1.5 does: bucket and object `?acl`,
-`?lifecycle` and `?replication` answer 501 NotImplemented; no bucket is
+Bucket `?lifecycle` PUT, GET and DELETE translate the AWS
+LifecycleConfiguration XML to and from the OM's rules
+(`lifecycle/policy.py`, the reference's tiering extension; warm storage
+classes map to this gateway's RS scheme). Where the reference answers
+from a module the port does not have yet, the gateway answers as Apache
+Ozone 1.5 does: bucket and object `?acl` and `?replication` answer 501
+NotImplemented; no bucket is
 public, so an anonymous request under require_auth is refused (403);
 every access id maps to the `s3v` volume (no tenants); and aws-chunked
 uploads are not gated on the `S3_CHUNKED_UPLOAD` layout feature, which
@@ -56,6 +60,7 @@ from ozone_tpu_torch.gateway.s3_auth import (
     verify_request,
 )
 from ozone_tpu_torch.om.requests import OMError
+from ozone_tpu_torch.scm.pipeline import ReplicationConfig, ReplicationType
 from ozone_tpu_torch.storage.ids import StorageError
 from ozone_tpu_torch.utils.tracing import Tracer
 
@@ -85,10 +90,10 @@ _ERROR_MAP = {
 }
 
 #: bucket sub-resources answered 501: S3 features the store lacks, and
-#: `acl`, `lifecycle` and `replication`, which wait for the port of the
-#: OM's ACLs, the lifecycle sweeper and geo replication
+#: `acl` and `replication`, which wait for the port of the OM's ACLs and
+#: geo replication
 _UNSUPPORTED_BUCKET_SUBS = (
-    "acl", "lifecycle", "replication", "policy", "website", "cors",
+    "acl", "replication", "policy", "website", "cors",
     "encryption", "accelerate", "requestPayment", "logging", "notification",
     "inventory", "analytics", "metrics", "intelligent-tiering",
     "ownershipControls", "publicAccessBlock")
@@ -386,6 +391,52 @@ class S3Gateway:
             h._reply(*_err("InternalError", str(e), 500))
 
     # ------------------------------------------------------------- buckets
+    def _default_ec_target(self) -> str:
+        """The scheme warm storage classes map to: this gateway's when it
+        is an RS scheme, else the cluster default."""
+        try:
+            conf = ReplicationConfig.parse(self.replication)
+        except ValueError:
+            return "rs-6-3-1024k"
+        return (self.replication if conf.type is ReplicationType.EC
+                and conf.ec.codec == "rs" else "rs-6-3-1024k")
+
+    def _bucket_lifecycle_op(self, h, method: str, bucket: str) -> None:
+        """`?lifecycle`: PUT parses the AWS LifecycleConfiguration into the
+        OM's rules, GET renders them back, DELETE clears them."""
+        from ozone_tpu_torch.lifecycle.policy import (
+            LifecycleError,
+            rules_from_s3_xml,
+            rules_to_s3_xml,
+        )
+
+        om = self.client.om
+        if method in ("PUT", "POST", "DELETE"):
+            body = h._body()  # drained before any call that may raise
+        if method == "PUT":
+            try:
+                rules = rules_from_s3_xml(
+                    body, default_target=self._default_ec_target())
+            except LifecycleError as e:
+                h._reply(*_err("MalformedXML", str(e), 400))
+                return
+            om.set_bucket_lifecycle(S3_VOLUME, bucket, rules)
+            h._reply(200)
+        elif method == "GET":
+            rules = om.get_bucket_lifecycle(S3_VOLUME, bucket)
+            if not rules:
+                h._reply(*_err(
+                    "NoSuchLifecycleConfiguration",
+                    "The lifecycle configuration does not exist", 404))
+                return
+            h._reply(200, rules_to_s3_xml(rules),
+                     {"Content-Type": "application/xml"})
+        elif method == "DELETE":
+            om.delete_bucket_lifecycle(S3_VOLUME, bucket)
+            h._reply(204)
+        else:
+            h._reply(*_err("MethodNotAllowed", method, 405))
+
     def _list_buckets(self, h) -> None:
         root = ET.Element("ListAllMyBucketsResult", xmlns=_NS)
         buckets = ET.SubElement(root, "Buckets")
@@ -446,6 +497,9 @@ class S3Gateway:
             return
         if method == "GET" and "uploads" in q:
             self._list_uploads(h, bucket, q)
+            return
+        if "lifecycle" in q:
+            self._bucket_lifecycle_op(h, method, bucket)
             return
         # the sub-resources the store does not serve answer 501 instead
         # of falling through to a bucket create or list: a silent 200

@@ -23,11 +23,16 @@ it; nothing is re-run on the CPU.
 `ScmOmDaemon` runs the SCM and the OM behind one RPC server, with the
 SCM's control loops and the OM's key-deleting service on a background
 thread, and turns a container going CLOSING into close commands to its
-replicas. It holds no codec.
+replicas. The same thread runs the lifecycle sweep and the slab
+compaction every OZONE_TPU_LIFECYCLE_PERIOD_S (60 s) on the OM's
+`LifecycleService`, whose datanode clients follow the heartbeat-learned
+address book; a `lifecycle run-now` runs the same service. Its codec (the
+tiering encode, the compaction's slab flush) runs on `device`, resolved
+at the first sweep that has work for it.
 
-Left out: HA, secure mode and certificate enrolment, block tokens, raft
-pipelines, operational state, Recon, the HTTP server, lifecycle, geo
-replication and sharding.
+Left out: HA (so the sweeper's fencing term is 0), secure mode and
+certificate enrolment, block tokens, raft pipelines, operational state,
+Recon, the HTTP server, geo replication and its cadence, and sharding.
 """
 
 from __future__ import annotations
@@ -313,6 +318,7 @@ class ScmOmDaemon:
         dead_after_s: float = 30.0,
         background_interval_s: float = 1.0,
         placement_seed: Optional[int] = None,
+        device="cuda",
     ):
         self.scm = StorageContainerManager(
             min_datanodes=min_datanodes, container_size=container_size,
@@ -330,6 +336,33 @@ class ScmOmDaemon:
         self._bg_interval = background_interval_s
         self._bg_stop = threading.Event()
         self._bg: Optional[threading.Thread] = None
+        # the lifecycle sweeper: leader-singleton and term-fenced in the
+        # reference; here the only OM, at term 0. Its datanode clients
+        # resolve lazily from heartbeat-learned addresses, and
+        # OZONE_TPU_LIFECYCLE_MBPS paces its source reads
+        from ozone_tpu_torch.lifecycle.service import LifecycleService
+        from ozone_tpu_torch.utils.config import env_float
+
+        self._lifecycle_clients: Optional[DatanodeClientFactory] = None
+        mbps = env_float("OZONE_TPU_LIFECYCLE_MBPS", 0.0)
+        throttle = None
+        if mbps > 0:
+            from ozone_tpu_torch.utils.throttle import Throttle
+
+            throttle = Throttle(mbps * 1024 * 1024, metrics=self.om.metrics)
+        self.lifecycle = LifecycleService(
+            self.om, clients_fn=self._lifecycle_client_factory,
+            throttle=throttle,
+            # tighter than the standalone 300 s: the sweep shares the
+            # background thread with the SCM loops and key deletion
+            sweep_deadline_s=env_float("OZONE_TPU_LIFECYCLE_DEADLINE_S",
+                                       30.0),
+            device=device)
+        self.om.lifecycle = self.lifecycle
+        self.om.scm_lock = self.scm_service.lock
+        #: seconds between lifecycle sweeps (and slab compactions)
+        self._lc_period = env_float("OZONE_TPU_LIFECYCLE_PERIOD_S", 60.0)
+        self._lc_last = time.monotonic()
 
     @property
     def address(self) -> str:
@@ -342,12 +375,32 @@ class ScmOmDaemon:
             self.scm.nodes.queue_command(
                 dn, {"type": "close-container", "container_id": c.id})
 
+    def _lifecycle_client_factory(self) -> DatanodeClientFactory:
+        """Datanode clients for the lifecycle executor, refreshed from the
+        heartbeat-learned address book before each sweep."""
+        if self._lifecycle_clients is None:
+            self._lifecycle_clients = DatanodeClientFactory()
+        for dn_id, addr in dict(self.scm_service.addresses).items():
+            # update, not register: an unchanged address keeps its
+            # pooled connection
+            self._lifecycle_clients.update_remote(dn_id, addr)
+        self._lifecycle_clients.learn_locations(
+            self.scm_service.node_locations())
+        return self._lifecycle_clients
+
     def run_background_once(self) -> None:
         """One pass of the SCM's control loops and the OM's key-deleting
-        service."""
+        service; every OZONE_TPU_LIFECYCLE_PERIOD_S, a lifecycle sweep
+        and a slab compaction after it (outside the SCM lock: they
+        allocate blocks and write to datanodes through the RPC)."""
         with self.scm_service.lock:
             self.scm.run_background_once()
             self.om.run_key_deleting_service_once()
+        now = time.monotonic()
+        if now - self._lc_last >= self._lc_period:
+            self._lc_last = now
+            self.lifecycle.run_once()
+            self.lifecycle.compact_slabs_once()
 
     def start(self) -> None:
         self.server.start()
@@ -368,4 +421,6 @@ class ScmOmDaemon:
         if self._bg is not None:
             self._bg.join(timeout=30)
         self.server.stop()
+        if self._lifecycle_clients is not None:
+            self._lifecycle_clients.close()
         self.om.close()

@@ -7,16 +7,21 @@ create, info, list and delete; open_key (with user metadata),
 allocate_block and commit_key; lookup_key (with the address book of the
 key's datanodes), list_keys and delete_key; key attributes, S3 secrets
 and the upgrade status; the multipart verbs, whose part commit carries
-block groups as commit_key does. `RemoteOmClient` (the reference's
-GrpcOmClient) has the attribute surface `OzoneClient` and the S3 gateway
-need from `OzoneManager`, so both work unchanged against a remote OM, and
-fails over across a comma-separated address list. Left out: sharding,
-delegation tokens and the caller identity, ACLs, tenants, snapshots,
-quotas, small objects, lifecycle and geo replication.
+block groups as commit_key does; the small-object verbs (the bucket
+opt-in, inline PUTs with the value in base64, the batched needle commit,
+slab allocation, info and listing, compaction) and the lifecycle verbs
+(rules set, get and clear, the sweeper's status, and a sweep run now,
+which runs in the metadata daemon's process). `RemoteOmClient` (the
+reference's GrpcOmClient) has the attribute surface `OzoneClient`, the
+slab packer and the S3 gateway need from `OzoneManager`, so all work
+unchanged against a remote OM, and fails over across a comma-separated
+address list. Left out: sharding, delegation tokens and the caller
+identity, ACLs, tenants, snapshots, quotas and geo replication.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 from typing import TYPE_CHECKING, Optional
 
@@ -76,8 +81,9 @@ class OmRpcService:
             "ListKeys": w(lambda m: om.list_keys(
                 m["volume"], m["bucket"], m.get("prefix", ""),
                 m.get("start_after", ""), m.get("limit"))),
-            "DeleteKey": w(lambda m: om.delete_key(m["volume"], m["bucket"],
-                                                   m["key"])),
+            "DeleteKey": w(lambda m: om.delete_key(
+                m["volume"], m["bucket"], m["key"],
+                expect_object_id=m.get("expect_object_id", ""))),
             "SetKeyAttrs": w(lambda m: om.set_key_attrs(
                 m["volume"], m["bucket"], m["key"], m["attrs"],
                 m.get("preconds"))),
@@ -101,6 +107,34 @@ class OmRpcService:
                 m["volume"], m["bucket"], m["key"], m["upload_id"])),
             "ListMultipartUploads": w(lambda m: om.list_multipart_uploads(
                 m["volume"], m["bucket"], m.get("prefix", ""))),
+            # the small-object path (inline values and needle slabs)
+            "SetBucketSmallObj": w(lambda m: om.set_bucket_smallobj(
+                m["volume"], m["bucket"],
+                enabled=bool(m.get("enabled", True)),
+                inline_max=m.get("inline_max", 0),
+                needle_max=m.get("needle_max", 0))),
+            "PutInlineKey": w(lambda m: om.put_inline_key(
+                m["volume"], m["bucket"], m["key"],
+                base64.b64decode(m["data"]), metadata=m.get("metadata"))),
+            "CommitKeys": w(lambda m: om.commit_keys(
+                m["volume"], m["bucket"], m["slab"], m["entries"])),
+            "SlabInfo": w(lambda m: om.slab_info(
+                m["volume"], m["bucket"], m["slab_id"])),
+            "ListSlabs": w(lambda m: om.list_slabs(m["volume"],
+                                                   m["bucket"])),
+            "AllocateSlabGroup": self._allocate_slab_group,
+            # bucket lifecycle (the reference's tiering extension)
+            "SetBucketLifecycle": w(lambda m: om.set_bucket_lifecycle(
+                m["volume"], m["bucket"], m["rules"])),
+            "GetBucketLifecycle": w(lambda m: om.get_bucket_lifecycle(
+                m["volume"], m["bucket"])),
+            "DeleteBucketLifecycle": w(lambda m: om.delete_bucket_lifecycle(
+                m["volume"], m["bucket"])),
+            "LifecycleStatus": w(lambda m: om.lifecycle_status()),
+            "LifecycleRunNow": w(lambda m: om.run_lifecycle_once(
+                m.get("max_keys"))),
+            "SlabCompactionRunNow": w(lambda m: om.run_slab_compaction_once(
+                m.get("max_slabs"))),
         })
 
     def _wrap(self, fn, with_addresses: bool = False):
@@ -156,6 +190,16 @@ class OmRpcService:
                           "addresses": self.addresses_provider(),
                           "locations": self.locations_provider()})
 
+    def _allocate_slab_group(self, req) -> bytes:
+        m, _ = wire.unpack(req)
+        with self.scm_lock:
+            g = self.om.allocate_slab_group(
+                m["replication"], m.get("excluded"),
+                m.get("excluded_containers"))
+        return wire.pack({"group": g.to_json(),
+                          "addresses": self.addresses_provider(),
+                          "locations": self.locations_provider()})
+
     def _commit_key(self, req) -> bytes:
         m, _ = wire.unpack(req)
 
@@ -195,6 +239,11 @@ class OmRpcService:
         return wire.pack({"result": etag})
 
 
+#: verbs whose answer waits for a whole background sweep in the daemon
+_SWEEP_VERBS = ("LifecycleRunNow", "SlabCompactionRunNow")
+_SWEEP_VERB_TIMEOUT_S = 600.0
+
+
 class RemoteOpenKeySession:
     def __init__(self, volume, bucket, key, meta):
         self.volume = meta.get("volume", volume)
@@ -227,6 +276,8 @@ class RemoteOmClient:
 
     def _call(self, method: str, **meta) -> dict:
         payload = wire.pack(meta)
+        # a sweep run now works in the daemon for as long as its budget
+        hop_s = _SWEEP_VERB_TIMEOUT_S if method in _SWEEP_VERBS else 30.0
         last: Optional[Exception] = None
         attempts = max(4, 3 * len(self.addresses))
         policy = resilience.failover_retry_policy(attempts)
@@ -236,7 +287,7 @@ class RemoteOmClient:
             try:
                 m, _ = wire.unpack(ch.call(
                     SERVICE, method, payload,
-                    timeout=resilience.op_timeout(30.0, method)))
+                    timeout=resilience.op_timeout(hop_s, method)))
                 self.address = addr
                 return m
             except StorageError as e:
@@ -339,8 +390,9 @@ class RemoteOmClient:
                           prefix=prefix, start_after=start_after,
                           limit=limit)["result"]
 
-    def delete_key(self, volume, bucket, key):
-        self._call("DeleteKey", volume=volume, bucket=bucket, key=key)
+    def delete_key(self, volume, bucket, key, expect_object_id=""):
+        self._call("DeleteKey", volume=volume, bucket=bucket, key=key,
+                   expect_object_id=expect_object_id)
 
     def set_key_attrs(self, volume, bucket, key, attrs, preconds=None):
         return self._call("SetKeyAttrs", volume=volume, bucket=bucket,
@@ -402,6 +454,64 @@ class RemoteOmClient:
     def list_multipart_uploads(self, volume, bucket, prefix=""):
         return self._call("ListMultipartUploads", volume=volume,
                           bucket=bucket, prefix=prefix)["result"]
+
+    # small objects: inline values ride the wire in base64 (the wire
+    # format is JSON-shaped; they are at most inline_max bytes)
+    def set_bucket_smallobj(self, volume, bucket, enabled=True,
+                            inline_max=0, needle_max=0):
+        return self._call("SetBucketSmallObj", volume=volume,
+                          bucket=bucket, enabled=enabled,
+                          inline_max=inline_max,
+                          needle_max=needle_max)["result"]
+
+    def put_inline_key(self, volume, bucket, key, data, metadata=None):
+        return self._call(
+            "PutInlineKey", volume=volume, bucket=bucket, key=key,
+            data=base64.b64encode(bytes(data)).decode("ascii"),
+            metadata=metadata)["result"]
+
+    def commit_keys(self, volume, bucket, slab, entries):
+        return self._call("CommitKeys", volume=volume, bucket=bucket,
+                          slab=slab, entries=list(entries))["result"]
+
+    def slab_info(self, volume, bucket, slab_id):
+        return self._call("SlabInfo", volume=volume, bucket=bucket,
+                          slab_id=slab_id)["result"]
+
+    def list_slabs(self, volume, bucket):
+        return self._call("ListSlabs", volume=volume,
+                          bucket=bucket)["result"]
+
+    def allocate_slab_group(self, replication, excluded=None,
+                            excluded_containers=None):
+        m = self._call(
+            "AllocateSlabGroup", replication=str(replication),
+            excluded=excluded or [],
+            excluded_containers=list(excluded_containers or ()))
+        self._learn_from(m)
+        return _block_group().from_json(m["group"])
+
+    def run_slab_compaction_once(self, max_slabs=None):
+        return self._call("SlabCompactionRunNow",
+                          max_slabs=max_slabs)["result"]
+
+    # bucket lifecycle
+    def set_bucket_lifecycle(self, volume, bucket, rules):
+        return self._call("SetBucketLifecycle", volume=volume,
+                          bucket=bucket, rules=rules)["result"]
+
+    def get_bucket_lifecycle(self, volume, bucket):
+        return self._call("GetBucketLifecycle", volume=volume,
+                          bucket=bucket)["result"]
+
+    def delete_bucket_lifecycle(self, volume, bucket):
+        self._call("DeleteBucketLifecycle", volume=volume, bucket=bucket)
+
+    def lifecycle_status(self):
+        return self._call("LifecycleStatus")["result"]
+
+    def run_lifecycle_once(self, max_keys=None):
+        return self._call("LifecycleRunNow", max_keys=max_keys)["result"]
 
     def close(self) -> None:
         self._pool.close()

@@ -289,3 +289,8 @@ def bucket_key(volume: str, bucket: str) -> str:
 
 def key_key(volume: str, bucket: str, key: str) -> str:
     return f"/{volume}/{bucket}/{key}"
+
+
+def slab_key(volume: str, bucket: str, slab_id: str) -> str:
+    """A slab row's key: under its bucket, so it sorts with the bucket."""
+    return f"/{volume}/{bucket}/{slab_id}"

@@ -5,18 +5,24 @@ KeyManagerImpl surface): volume and bucket CRUD, open-key sessions with
 SCM block allocation, commit (with the rewrite fence), lookup, list and
 delete; key attributes; S3 secrets; multipart uploads and the open-key
 and multipart expiry services (om/multipart.py); the upgrade status, in
-its finalized form. Writes go through the request/apply split
+its finalized form; the small-object surface (the bucket opt-in, inline
+PUTs, the batched needle commit, slab allocation and listing, needle
+lookups joined to their slab's groups, slab compaction); bucket
+lifecycle rules and the sweeper's triggers (`lifecycle/service.py`,
+built on first use over `clients` and `device` unless a daemon installs
+its own in `self.lifecycle`). Writes go through the request/apply split
 (om/requests.py) with a group commit before the acknowledgement; reads
 go to the store directly. The key-deleting service hands deleted keys'
-blocks to the SCM's deletion log. Left out for later slices: HA, ACL
-checks and the authorizer, tenants, block tokens, encryption (TDE/GDPR),
-link buckets, sharding, prepare and the upgrade finalizer, FSO,
-snapshots, small objects, lifecycle and geo replication, hsync and lease
-recovery.
+blocks to the SCM's deletion log, and a dead needle's bytes to its
+slab's counters. Left out for later slices: HA, ACL checks and the
+authorizer, tenants, block tokens, encryption (TDE/GDPR), link buckets,
+sharding, prepare and the upgrade finalizer, FSO, snapshots, geo
+replication, hsync and lease recovery.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import secrets
 import threading
@@ -31,6 +37,7 @@ from ozone_tpu_torch.om.metadata import (
     OMMetadataStore,
     bucket_key,
     key_key,
+    slab_key,
     volume_key,
 )
 from ozone_tpu_torch.scm.pipeline import ReplicationConfig
@@ -74,12 +81,24 @@ class OzoneManager:
         db_path: Path,
         scm: StorageContainerManager,
         block_size: int = 16 * 1024 * 1024,
+        clients=None,
+        device="cuda",
     ):
         self.store = OMMetadataStore(Path(db_path))
         self.scm = scm
         self.block_size = block_size
+        #: datanode clients and codec device of the lifecycle service
+        #: built on first use (tiering, slab compaction)
+        self.clients = clients
+        self.device = device
         self.metrics = MetricsRegistry("om")
         self._lock = threading.RLock()
+        #: serializes this OM's SCM calls with the SCM's other users (a
+        #: daemon sets the SCM service's lock here)
+        self.scm_lock = contextlib.nullcontext()
+        #: the lifecycle sweeper: a daemon installs its own; otherwise
+        #: built with defaults by the first run_*_once
+        self.lifecycle = None
 
     # ----------------------------------------------------------- requests
     def submit(self, request: rq.OMRequest) -> Any:
@@ -190,10 +209,11 @@ class OzoneManager:
         excluded_containers: Optional[list[int]] = None,
     ) -> BlockGroup:
         """SCM block allocation for an open key."""
-        return self.scm.allocate_block(
-            session.replication, self.block_size, excluded,
-            excluded_containers,
-        )
+        with self.scm_lock:
+            return self.scm.allocate_block(
+                session.replication, self.block_size, excluded,
+                excluded_containers,
+            )
 
     def commit_key(self, session: OpenKeySession, groups: list[BlockGroup],
                    size: int) -> None:
@@ -218,6 +238,23 @@ class OzoneManager:
         if info is None:
             raise rq.OMError(rq.KEY_NOT_FOUND, f"{volume}/{bucket}/{key}")
         self.metrics.counter("key_lookups").inc()
+        return self._join_needle(volume, bucket, info)
+
+    def _join_needle(self, volume: str, bucket: str, info: dict) -> dict:
+        """A needle row holds only (slab, offset, length, crc): its lookup
+        carries the slab's block groups, so the read path slices the
+        needle out of the slab with ordinary ranged group reads."""
+        nd = info.get("needle")
+        if not nd:
+            return info
+        srow = self.store.get("slabs", slab_key(volume, bucket, nd["slab"]))
+        if srow is None:
+            raise rq.OMError(
+                "SLAB_NOT_FOUND",
+                f"slab {nd['slab']} missing for "
+                f"{volume}/{bucket}/{info.get('name')}")
+        info = dict(info)
+        info["block_groups"] = srow["block_groups"]
         return info
 
     def key_block_groups(self, info: dict) -> list[BlockGroup]:
@@ -240,11 +277,15 @@ class OzoneManager:
             )
         ]
 
-    def delete_key(self, volume: str, bucket: str, key: str) -> None:
+    def delete_key(self, volume: str, bucket: str, key: str,
+                   expect_object_id: str = "") -> None:
+        """Delete a key; `expect_object_id` ("" = unfenced) makes the
+        delete conditional on the live row still being that version."""
         binfo = self.bucket_info(volume, bucket)
         if self._is_legacy(binfo):
             key = rq.normalize_fs_path(key)
-        self.submit(rq.DeleteKey(volume, bucket, key))
+        self.submit(rq.DeleteKey(volume, bucket, key,
+                                 expect_object_id=expect_object_id))
         self.metrics.counter("keys_deleted").inc()
 
     def set_key_attrs(self, volume: str, bucket: str, key: str,
@@ -269,6 +310,128 @@ class OzoneManager:
 
     def revoke_s3_secret(self, access_id: str) -> None:
         self.submit(rq.RevokeS3Secret(access_id))
+
+    # ----------------------------------------------------------- small objects
+    def set_bucket_smallobj(self, volume: str, bucket: str,
+                            enabled: bool = True, inline_max: int = 0,
+                            needle_max: int = 0) -> dict:
+        """Opt a bucket into (or out of) the small-object path; the
+        eligibility check runs in the apply."""
+        return self.submit(rq.SetBucketSmallObj(
+            volume, bucket, enabled=enabled,
+            inline_max=int(inline_max), needle_max=int(needle_max)))
+
+    def smallobj_conf(self, binfo: dict) -> Optional[dict]:
+        """A bucket's effective inline/needle thresholds, or None."""
+        from ozone_tpu_torch.client.slab import smallobj_conf
+
+        return smallobj_conf(binfo)
+
+    def put_inline_key(self, volume: str, bucket: str, key: str,
+                       data: bytes, metadata: Optional[dict] = None
+                       ) -> dict:
+        """A tiny PUT in one request, the value on the key row. The size
+        is gated against the bucket's inline threshold here."""
+        import base64
+
+        from ozone_tpu_torch.client.slab import METRICS as SMALLOBJ
+
+        conf = self.smallobj_conf(self.bucket_info(volume, bucket))
+        if conf is None:
+            raise rq.OMError(
+                rq.SMALLOBJ_NOT_SUPPORTED,
+                f"{volume}/{bucket} has no small-object config")
+        raw = bytes(data)
+        if len(raw) > conf["inline_max"]:
+            raise rq.OMError(
+                rq.INVALID_REQUEST,
+                f"{len(raw)} bytes exceeds inline_max "
+                f"{conf['inline_max']}")
+        info = self.submit(rq.PutInlineKey(
+            volume, bucket, key, base64.b64encode(raw).decode("ascii"),
+            len(raw), metadata or {}))
+        SMALLOBJ.counter("inline_puts").inc()
+        SMALLOBJ.counter("inline_bytes").inc(len(raw))
+        return info
+
+    def commit_keys(self, volume: str, bucket: str, slab: dict,
+                    entries: list[dict]) -> dict:
+        """Batched needle commit: N keys and the sealed slab directory in
+        one request; per-entry rewrite fences are honoured one by one."""
+        from ozone_tpu_torch.client.slab import METRICS as SMALLOBJ
+
+        out = self.submit(rq.CommitKeys(volume, bucket, slab=slab,
+                                        entries=list(entries)))
+        SMALLOBJ.counter("commit_batches").inc()
+        SMALLOBJ.counter("needles_committed").inc(
+            len(out.get("committed", ())))
+        return out
+
+    def allocate_slab_group(self, replication: str,
+                            excluded: Optional[list[str]] = None,
+                            excluded_containers: Optional[list[int]]
+                            = None) -> BlockGroup:
+        """SCM allocation for a slab block (a slab is not a key: no open
+        session)."""
+        with self.scm_lock:
+            return self.scm.allocate_block(
+                ReplicationConfig.parse(replication), self.block_size,
+                excluded, excluded_containers)
+
+    def slab_info(self, volume: str, bucket: str, slab_id: str) -> dict:
+        row = self.store.get("slabs", slab_key(volume, bucket, slab_id))
+        if row is None:
+            raise rq.OMError(rq.KEY_NOT_FOUND, f"slab {slab_id}")
+        return row
+
+    def list_slabs(self, volume: str, bucket: str) -> list[dict]:
+        return [v for _, v in self.store.iterate(
+            "slabs", bucket_key(volume, bucket) + "/")]
+
+    def _lifecycle_service(self):
+        if self.lifecycle is None:
+            from ozone_tpu_torch.lifecycle.service import LifecycleService
+
+            self.lifecycle = LifecycleService(self, clients=self.clients,
+                                              device=self.device)
+        return self.lifecycle
+
+    def run_slab_compaction_once(self, max_slabs: Optional[int] = None
+                                 ) -> dict:
+        """One needle-compaction sweep, on the lifecycle service."""
+        return self._lifecycle_service().compact_slabs_once(
+            max_slabs=max_slabs)
+
+    # ----------------------------------------------------------- lifecycle
+    def set_bucket_lifecycle(self, volume: str, bucket: str,
+                             rules: list[dict]) -> dict:
+        """Install a bucket's lifecycle rules (prefix, age_days, action
+        TRANSITION_TO_EC(target) or EXPIRE) on its row."""
+        return self.submit(rq.SetBucketLifecycle(volume, bucket, rules))
+
+    def get_bucket_lifecycle(self, volume: str, bucket: str) -> list[dict]:
+        return self.bucket_info(volume, bucket).get("lifecycle", [])
+
+    def delete_bucket_lifecycle(self, volume: str, bucket: str) -> None:
+        self.submit(rq.DeleteBucketLifecycle(volume, bucket))
+
+    def lifecycle_status(self) -> dict:
+        """The sweeper's state (fencing term, cursor, last stats) and its
+        live counters."""
+        from ozone_tpu_torch.utils.metrics import registry
+
+        row = self.store.get("system", "lifecycle_state") or {}
+        return {
+            "term": row.get("term"),
+            "cursor": row.get("cursor") or {},
+            "stats": row.get("stats") or {},
+            "in_progress": bool(row.get("cursor")),
+            "metrics": registry("lifecycle").snapshot(),
+        }
+
+    def run_lifecycle_once(self, max_keys: Optional[int] = None) -> dict:
+        """One lifecycle sweep (the `lifecycle run-now` verb)."""
+        return self._lifecycle_service().run_once(max_keys=max_keys)
 
     # ----------------------------------------------------------- multipart
     def _mpu_key_name(self, volume: str, bucket: str, key: str) -> str:
@@ -360,6 +523,7 @@ class OzoneManager:
             return 0
         purged: list[str] = []
         txs: list[tuple] = []
+        dead_needles: dict[tuple, list[int]] = {}
         for dk, info in entries:
             vol, bkt = info.get("volume"), info.get("bucket")
             # a bucket with snapshots (written by the reference) defers:
@@ -367,14 +531,26 @@ class OzoneManager:
             if vol and bkt and next(self.store.iterate(
                     "open_keys", f"/.snapmeta/{vol}/{bkt}/"), None):
                 continue
-            if info.get("needle"):
-                continue  # a slab's shared blocks: not this port's to purge
+            nd = info.get("needle")
+            if nd:
+                # the shared slab's blocks are never handed to the SCM
+                # here: the needle's death is booked on the slab row, so
+                # compaction sees the dead ratio grow
+                acc = dead_needles.setdefault((vol, bkt, nd["slab"]),
+                                              [0, 0])
+                acc[0] += 1
+                acc[1] += int(nd.get("length", info.get("size", 0)))
+                purged.append(dk)
+                continue
             for g in info.get("block_groups", []):
                 txs.append((BlockID(g["container_id"], g["local_id"]),
                             list(g["nodes"])))
             purged.append(dk)
         if txs:
-            self.scm.delete_blocks(txs)
+            with self.scm_lock:
+                self.scm.delete_blocks(txs)
+        for (vol, bkt, sid), (count, nbytes) in dead_needles.items():
+            self.submit(rq.AccountDeadNeedles(vol, bkt, sid, count, nbytes))
         self.submit(rq.PurgeDeletedKeys(purged))
         return len(purged)
 

@@ -7,11 +7,14 @@ deterministic mutation every replica would run). Rows are the
 reference's JSON, field for field. Kept: volume and bucket create and
 delete, key open (with the user metadata an S3 PUT carries), commit
 (with the quota charge, the overwrite's move to the purge chain and the
-rewrite fence), delete and purge, for OBJECT_STORE and LEGACY buckets;
-key attributes (S3 object tags ride them); S3 secrets. The multipart
-requests are in `om/multipart.py`. Left out for later slices: FSO,
-snapshots (and so their copy-on-write pre-images), small objects, hsync
-leases, ACL and tenant verbs, delegation tokens, lifecycle and geo
+rewrite fence), delete (with the expiry's object-id fence) and purge,
+for OBJECT_STORE and LEGACY buckets; key attributes (S3 object tags ride
+them); S3 secrets; the small-object verbs (the bucket opt-in, inline
+keys, the batched needle commit, dead-needle accounting and slab
+retirement); bucket lifecycle rules and the sweeper's term-fenced
+checkpoint. The multipart requests are in `om/multipart.py`. Left out
+for later slices: FSO, snapshots (and so their copy-on-write
+pre-images), hsync leases, ACL and tenant verbs, delegation tokens, geo
 replication, quotas' set and repair verbs.
 """
 
@@ -26,6 +29,7 @@ from ozone_tpu_torch.om.metadata import (
     OMMetadataStore,
     bucket_key,
     key_key,
+    slab_key,
     volume_key,
 )
 
@@ -49,6 +53,8 @@ QUOTA_EXCEEDED = "QUOTA_EXCEEDED"
 FILE_ALREADY_EXISTS = "FILE_ALREADY_EXISTS"
 NOT_A_DIRECTORY = "NOT_A_DIRECTORY"
 INVALID_REQUEST = "INVALID_REQUEST"
+SMALLOBJ_NOT_SUPPORTED = "SMALLOBJ_NOT_SUPPORTED"
+LIFECYCLE_FENCED = "LIFECYCLE_FENCED"
 
 
 @dataclass
@@ -455,12 +461,16 @@ class OpenKey(OMRequest):
 
 @dataclass
 class DeleteKey(OMRequest):
-    """Move a key to the deleted table for the purge chain."""
+    """Move a key to the deleted table for the purge chain.
+    `expect_object_id` ("" = unfenced) makes the delete conditional on
+    the live row still being the scanned version: the lifecycle expiry
+    uses it, so a user overwrite racing the sweep wins."""
 
     volume: str
     bucket: str
     key: str
     ts: float = 0.0
+    expect_object_id: str = ""
 
     def pre_execute(self, om) -> None:
         self.ts = time.time()
@@ -470,6 +480,10 @@ class DeleteKey(OMRequest):
         info = store.get("keys", kk)
         if info is None:
             raise OMError(KEY_NOT_FOUND, kk)
+        if self.expect_object_id and \
+                info.get("object_id") != self.expect_object_id:
+            raise OMError(KEY_MODIFIED,
+                          f"{kk} overwritten since the expiry scan")
         store.delete("keys", kk)
         # deleting a live hsync stream: fence its writer first
         stale_writer = info.get("hsync_client_id")
@@ -563,3 +577,365 @@ class RevokeS3Secret(OMRequest):
 
     def apply(self, store):
         store.delete("s3_secrets", self.access_id)
+
+
+# ----------------------------------------------------------- small objects
+def check_smallobj_bucket(b: dict) -> None:
+    """Small-object eligibility, shared by the opt-in verb and the
+    applies: inline values and needle packing need a flat key table and
+    no per-key DEK. Refused with a typed error at config or PUT time,
+    never mid-flush. (The port serves no FSO bucket; the FSO refusal
+    answers the reference's code for a row the reference wrote.)"""
+    if b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+        raise OMError(
+            SMALLOBJ_NOT_SUPPORTED,
+            f"/{b.get('volume')}/{b.get('name')} is FILE_SYSTEM_OPTIMIZED"
+            " — inline/needle packing needs a flat key table")
+    if b.get("encryption_key") or b.get("gdpr"):
+        raise OMError(
+            SMALLOBJ_NOT_SUPPORTED,
+            f"/{b.get('volume')}/{b.get('name')} is encrypted — small-"
+            "object commits mint no per-key DEK")
+    if b.get("source"):
+        raise OMError(
+            SMALLOBJ_NOT_SUPPORTED,
+            "configure small objects on the link SOURCE bucket")
+
+
+@dataclass
+class SetBucketSmallObj(OMRequest):
+    """Opt a bucket into (or out of) the small-object path: keys at or
+    under `inline_max` bytes ride the key row, keys at or under
+    `needle_max` the slab packer. Zeros defer to the env knobs at read
+    time (`client/slab.smallobj_conf`)."""
+
+    volume: str
+    bucket: str
+    enabled: bool = True
+    inline_max: int = 0
+    needle_max: int = 0
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        if not self.enabled:
+            b.pop("smallobj", None)
+        else:
+            check_smallobj_bucket(b)
+            if self.inline_max and self.needle_max and \
+                    self.inline_max > self.needle_max:
+                raise OMError(
+                    INVALID_REQUEST,
+                    f"inline_max {self.inline_max} > needle_max "
+                    f"{self.needle_max}")
+            b["smallobj"] = {"inline_max": int(self.inline_max),
+                             "needle_max": int(self.needle_max)}
+        store.put("buckets", k, b)
+        return b
+
+
+@dataclass
+class PutInlineKey(OMRequest):
+    """A tiny PUT as one request: open, data and commit fused, the value
+    riding the key row itself (base64). No blocks: a GET is served from
+    the OM alone."""
+
+    volume: str
+    bucket: str
+    key: str
+    data: str = ""  # base64, bounded by the bucket's inline_max
+    size: int = 0
+    metadata: dict = field(default_factory=dict)
+    modified: float = 0.0
+    key_id: str = ""
+    #: rewrite fence, as CommitKey's ("" = plain overwrite)
+    expect_object_id: str = ""
+    expect_generation: int = -1
+
+    def pre_execute(self, om) -> None:
+        self.modified = time.time()
+        self.key_id = uuid.uuid4().hex[:16]
+
+    def apply(self, store):
+        b = store.get("buckets", bucket_key(self.volume, self.bucket))
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND,
+                          f"{self.volume}/{self.bucket}")
+        check_smallobj_bucket(b)
+        kk = key_key(self.volume, self.bucket, self.key)
+        old = store.get("keys", kk)
+        if self.expect_object_id and not (
+                old is not None
+                and old.get("object_id") == self.expect_object_id
+                and (self.expect_generation < 0
+                     or int(old.get("generation", 0))
+                     == self.expect_generation)):
+            raise OMError(KEY_MODIFIED,
+                          f"{kk} changed during inline rewrite")
+        info = {
+            "volume": self.volume,
+            "bucket": self.bucket,
+            "name": self.key,
+            "object_id": self.key_id,
+            "replication": "inline",
+            "checksum_type": "CRC32C",
+            "size": int(self.size),
+            "block_groups": [],
+            "inline": self.data,
+            "created": self.modified,
+            "modified": self.modified,
+            "acls": inherit_defaults(b.get("acls", [])),
+        }
+        if self.metadata:
+            info["metadata"] = dict(self.metadata)
+        finalize_commit(store, "keys", kk, info, old, "", self.modified)
+        return info
+
+
+@dataclass
+class CommitKeys(OMRequest):
+    """Batched needle commit: N tiny keys land in one request, each a
+    needle (slab_id, offset, length, crc) into a freshly sealed slab
+    whose block groups ride the same apply. A fenced entry whose live row
+    moved, or one superseded later in the batch, is skipped (its bytes
+    are born dead in the slab), not the batch aborted. The batch is
+    all-or-nothing: every precondition (bucket, slab uniqueness,
+    aggregate quota) is checked before the first mutation."""
+
+    volume: str
+    bucket: str
+    slab: dict = field(default_factory=dict)
+    entries: list = field(default_factory=list)
+    modified: float = 0.0
+    key_ids: list = field(default_factory=list)
+
+    def pre_execute(self, om) -> None:
+        self.modified = time.time()
+        self.key_ids = [uuid.uuid4().hex[:16] for _ in self.entries]
+
+    def apply(self, store):  # noqa: C901 - one validate+mutate pass
+        bk = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", bk)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, bk)
+        check_smallobj_bucket(b)
+        sid = self.slab.get("slab_id", "")
+        if not sid or not self.slab.get("block_groups"):
+            raise OMError(INVALID_REQUEST, "slab id/groups missing")
+        sk = slab_key(self.volume, self.bucket, sid)
+        if store.exists("slabs", sk):
+            raise OMError(INVALID_REQUEST,
+                          f"slab {sid} already sealed")
+        # validation pass: fences and the aggregate quota, no mutation
+        last: dict = {}  # key -> entry index (duplicates: last wins)
+        for i, e in enumerate(self.entries):
+            last[e["key"]] = i
+        live, skipped = [], []
+        dead_bytes, bytes_delta, keys_delta = 0, 0, 0
+        for i, e in enumerate(self.entries):
+            key = e["key"]
+            if last[key] != i:
+                skipped.append(key)  # superseded within the batch
+                dead_bytes += int(e["length"])
+                continue
+            old = store.get("keys",
+                            key_key(self.volume, self.bucket, key))
+            fence = e.get("expect_object_id", "")
+            gen = int(e.get("expect_generation", -1))
+            if fence and not (
+                    old is not None
+                    and old.get("object_id") == fence
+                    and (gen < 0
+                         or int(old.get("generation", 0)) == gen)):
+                skipped.append(key)  # fenced out: its bytes go dead
+                dead_bytes += int(e["length"])
+                continue
+            bytes_delta += int(e["length"]) - (
+                int(old.get("size", 0)) if old is not None else 0)
+            keys_delta += 0 if old is not None else 1
+            live.append((i, e, old))
+        check_and_charge_quota(store, self.volume, self.bucket,
+                               bytes_delta, keys_delta)
+        # mutation pass: cannot fail past this point
+        default_acls = inherit_defaults(b.get("acls", []))
+        needles: dict = {}
+        committed = []
+        for i, e, old in live:
+            key = e["key"]
+            kk = key_key(self.volume, self.bucket, key)
+            info = {
+                "volume": self.volume,
+                "bucket": self.bucket,
+                "name": key,
+                "object_id": self.key_ids[i],
+                "replication": self.slab.get("replication", ""),
+                "checksum_type": "CRC32C",
+                "size": int(e["length"]),
+                "block_groups": [],
+                "needle": {"slab": sid, "offset": int(e["offset"]),
+                           "length": int(e["length"]),
+                           "crc": int(e["crc"])},
+                "created": self.modified,
+                "modified": self.modified,
+                "acls": e.get("acls") or default_acls,
+            }
+            if e.get("metadata"):
+                info["metadata"] = dict(e["metadata"])
+            info["generation"] = (int(old.get("generation", 0)) + 1
+                                  if old is not None else 1)
+            if old is not None and (old.get("block_groups")
+                                    or old.get("needle")):
+                stale_writer = old.get("hsync_client_id")
+                if stale_writer:
+                    store.delete("open_keys", f"{kk}/{stale_writer}")
+                erase_gdpr_secret(old)
+                store.put("deleted_keys", f"{kk}:{self.modified}", old)
+            store.put("keys", kk, info)
+            needles[key] = {"off": int(e["offset"]),
+                            "len": int(e["length"]),
+                            "oid": self.key_ids[i]}
+            committed.append(key)
+        store.put("slabs", sk, {
+            "slab_id": sid,
+            "volume": self.volume,
+            "bucket": self.bucket,
+            "replication": self.slab.get("replication", ""),
+            "length": int(self.slab.get("length", 0)),
+            "block_groups": list(self.slab.get("block_groups", [])),
+            "needles": needles,
+            "dead_bytes": dead_bytes,
+            "dead_count": len(skipped),
+            "created": self.modified,
+        })
+        return {"slab_id": sid, "committed": committed,
+                "skipped": skipped}
+
+
+@dataclass
+class AccountDeadNeedles(OMRequest):
+    """A purged needle version hands its bytes back to its slab's dead
+    counters (the shared slab blocks are not the purge chain's to free).
+    Against a retired slab it is a no-op."""
+
+    volume: str
+    bucket: str
+    slab_id: str
+    count: int = 0
+    nbytes: int = 0
+
+    def apply(self, store):
+        sk = slab_key(self.volume, self.bucket, self.slab_id)
+        row = store.get("slabs", sk)
+        if row is None:
+            return None  # slab already compacted away
+        row["dead_count"] = int(row.get("dead_count", 0)) + self.count
+        row["dead_bytes"] = int(row.get("dead_bytes", 0)) + self.nbytes
+        store.put("slabs", sk, row)
+        return row
+
+
+@dataclass
+class RetireSlab(OMRequest):
+    """Drop a compacted slab's directory row. The caller releases the
+    slab's blocks to the SCM's deletion log after this commits: blocks
+    outliving metadata is safe, the reverse is data loss."""
+
+    volume: str
+    bucket: str
+    slab_id: str
+
+    def apply(self, store):
+        sk = slab_key(self.volume, self.bucket, self.slab_id)
+        row = store.get("slabs", sk)
+        if row is None:
+            raise OMError(KEY_NOT_FOUND, f"slab {sk}")
+        store.delete("slabs", sk)
+        return row
+
+
+# ------------------------------------------------------- bucket lifecycle
+@dataclass
+class SetBucketLifecycle(OMRequest):
+    """Install a bucket's lifecycle rules (the S3
+    PutBucketLifecycleConfiguration analog); they ride the bucket row."""
+
+    volume: str
+    bucket: str
+    rules: list = field(default_factory=list)
+
+    def pre_execute(self, om) -> None:
+        from ozone_tpu_torch.lifecycle.policy import (
+            LifecycleError,
+            validate_rules,
+        )
+
+        try:
+            self.rules = validate_rules(self.rules)
+        except LifecycleError as e:
+            raise OMError(INVALID_REQUEST, str(e))
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        if b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+            # the sweeper's prefix rules walk the flat key table
+            raise OMError(
+                INVALID_REQUEST,
+                "lifecycle rules are not supported on "
+                "FILE_SYSTEM_OPTIMIZED buckets")
+        b["lifecycle"] = list(self.rules)
+        store.put("buckets", k, b)
+        return b
+
+
+@dataclass
+class DeleteBucketLifecycle(OMRequest):
+    volume: str
+    bucket: str
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        b.pop("lifecycle", None)
+        store.put("buckets", k, b)
+        return b
+
+
+@dataclass
+class LifecycleCheckpoint(OMRequest):
+    """The sweeper's state: fencing term and resumable cursor. A `fence`
+    checkpoint claims the sweeper role for `term` and is refused when a
+    higher term already holds it; a plain checkpoint is refused unless
+    its term is the fenced one. A deposed sweeper's late cursor can
+    never regress the scan."""
+
+    term: int
+    cursor: dict = field(default_factory=dict)
+    stats: dict = field(default_factory=dict)
+    fence: bool = False
+
+    def apply(self, store):
+        row = store.get("system", "lifecycle_state") or {"term": -1}
+        fenced = int(row.get("term", -1))
+        if self.fence:
+            if int(self.term) < fenced:
+                raise OMError(
+                    LIFECYCLE_FENCED,
+                    f"fence term {self.term} < current {fenced}")
+            row["term"] = int(self.term)
+        else:
+            if int(self.term) != fenced:
+                raise OMError(
+                    LIFECYCLE_FENCED,
+                    f"checkpoint term {self.term} != fenced {fenced}")
+            row["cursor"] = dict(self.cursor)
+            if self.stats:
+                row["stats"] = dict(self.stats)
+        store.put("system", "lifecycle_state", row)
+        return dict(row)

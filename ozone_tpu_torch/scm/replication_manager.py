@@ -10,11 +10,21 @@ containers). Commands are queued on datanodes through the NodeManager
 and ride heartbeat responses; a reconstruction is the port's
 `storage/reconstruction.ReconstructionCommand`, which the minicluster's
 command loop runs on the port's coordinator.
+
+Where the port departs from the reference on purpose: a planned
+(container, index) is no longer pending once a replica of that index is
+reported, and a plan not done within `PENDING_TIMEOUT_S` (the upstream
+event timeout, 10 minutes) is planned again. The reference clears its
+pending set only through `op_completed`, which no daemon calls: a plan
+that failed (a target that already held the container, because the SCM
+planned a replica it had not heard of yet) blocked that index's repair
+for good, and a rebuilt index could never be rebuilt again.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 
 from ozone_tpu_torch.scm.container_manager import ContainerInfo, ContainerManager
@@ -94,6 +104,10 @@ class ECReplicaCount:
 
 
 class ReplicationManager:
+    #: seconds after which a planned op that never completed is planned
+    #: again (upstream's hdds.scm.replication.event.timeout)
+    PENDING_TIMEOUT_S = 600.0
+
     def __init__(
         self,
         containers: ContainerManager,
@@ -103,13 +117,21 @@ class ReplicationManager:
         self.containers = containers
         self.nodes = nodes
         self.placement = placement
+        #: when a plan is made (a test substitutes a fake)
+        self.clock = time.monotonic
         self.metrics = MetricsRegistry("scm.replication")
-        # in-flight op dedup (ContainerReplicaPendingOps analog)
-        self._pending: set[tuple[int, int]] = set()  # (container, index)
+        # in-flight op dedup (ContainerReplicaPendingOps analog):
+        # (container, index) -> when it was planned
+        self._pending: dict[tuple[int, int], float] = {}
 
     # ------------------------------------------------------------------ scan
     def run_once(self) -> HealthReport:
         report = HealthReport()
+        now = self.clock()
+        for op, t in list(self._pending.items()):
+            if now - t > self.PENDING_TIMEOUT_S:
+                del self._pending[op]  # never completed: plan it again
+                self.metrics.counter("pending_expired").inc()
         for c in self.containers.containers():
             if c.state in (ContainerState.DELETED, ContainerState.OPEN):
                 continue  # open containers are the write path's business
@@ -131,6 +153,8 @@ class ReplicationManager:
     # ------------------------------------------------------------------ EC
     def _process_ec(self, c: ContainerInfo, report: HealthReport) -> None:
         count = ECReplicaCount(c, self.nodes)
+        for i in count.present:  # completed: the index is reported
+            self._pending.pop((c.id, i), None)
         missing = [
             i for i in count.missing_indexes if (c.id, i) not in self._pending
         ]
@@ -158,7 +182,7 @@ class ReplicationManager:
                     ReplicateCommand(c.id, source=src, target=target.dn_id,
                                      replica_index=i),
                 )
-                self._pending.add((c.id, i))
+                self._pending[(c.id, i)] = self.clock()
             if rebuild:
                 self._emit_reconstruction(c, count, rebuild)
         for idx, extra_dns in count.excess_indexes.items():
@@ -189,7 +213,7 @@ class ReplicationManager:
         # which rebuilds every target
         self.nodes.queue_command(chosen[0].dn_id, cmd)
         for i in missing:
-            self._pending.add((c.id, i))
+            self._pending[(c.id, i)] = self.clock()
         self.metrics.counter("reconstructions_emitted").inc()
 
     # ------------------------------------------------------------------ Ratis
@@ -202,6 +226,8 @@ class ReplicationManager:
             and r.state not in ("UNHEALTHY", "DELETED")
         ]
         want = c.replication.factor
+        if len(live) >= want:
+            self._pending.pop((c.id, 0), None)  # completed by a report
         if len(live) < want:
             if not live:
                 report.unrecoverable.append(c.id)
@@ -219,7 +245,7 @@ class ReplicationManager:
                     n.dn_id,
                     ReplicateCommand(c.id, source=live[0], target=n.dn_id),
                 )
-            self._pending.add((c.id, 0))
+            self._pending[(c.id, 0)] = self.clock()
         elif len(live) > want:
             report.over_replicated.append(c.id)
             for dn in live[want:]:
@@ -227,4 +253,4 @@ class ReplicationManager:
 
     # ------------------------------------------------------------------ acks
     def op_completed(self, container_id: int, replica_index: int = 0) -> None:
-        self._pending.discard((container_id, replica_index))
+        self._pending.pop((container_id, replica_index), None)

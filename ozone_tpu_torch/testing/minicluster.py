@@ -71,7 +71,8 @@ class MiniOzoneCluster:
             self.scm.register_datanode(dn.id, rack=rack,
                                        capacity_bytes=10 * container_size)
         self.om = OzoneManager(self.root / "om" / "om.db", self.scm,
-                               block_size=block_size)
+                               block_size=block_size, clients=self.clients,
+                               device=self.device)
         self.reconstruction = ECReconstructionCoordinator(
             self.clients, device=self.device)
         self._stopped_dns: set[str] = set()

@@ -15,13 +15,18 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools freon ockg -n 16 -s 16777216 --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools s3 getsecret alice --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools s3g --om 127.0.0.1:9860 --port 9878 --require-auth
+    python -m ozone_tpu_torch.tools sh bucket set-smallobj /v/b --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools lifecycle set /v/b --target rs-6-3-1024k --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools lifecycle run-now --om 127.0.0.1:9860
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
-put/get`, `freon`, `s3g` and `cluster`, which passes it to its datanodes.
-Without CUDA, "cuda" is an error that names CUDA. `scm-om` holds no codec.
-The namespace and admin verbs import no torch, so they start in about a
-second. Errors print as `error CODE: message` and exit 1.
+put/get`, `freon`, `s3g`, `scm-om` (its lifecycle sweep and slab
+compaction encode there) and `cluster`, which passes it to its children.
+Without CUDA, "cuda" is an error that names CUDA (for `scm-om`, at its
+first sweep with work). The namespace, admin and lifecycle verbs import
+no torch, so they start in about a second. Errors print as
+`error CODE: message` and exit 1.
 """
 
 from __future__ import annotations
@@ -122,7 +127,7 @@ def _usage(msg: str) -> int:
 # ---------------------------------------------------------------------- sh
 _SH_VERBS = {
     "volume": {"create", "delete", "info", "list"},
-    "bucket": {"create", "delete", "info", "list"},
+    "bucket": {"create", "delete", "info", "list", "set-smallobj"},
     "key": {"put", "get", "info", "list", "delete"},
 }
 
@@ -157,6 +162,8 @@ def cmd_sh(args) -> int:
                                  args.replication or "rs-6-3-1024k")
             elif verb == "delete":
                 om.delete_bucket(vol, bucket)
+            elif verb == "set-smallobj":
+                _emit(om.set_bucket_smallobj(vol, bucket))
             else:
                 _emit(om.bucket_info(vol, bucket))
         else:
@@ -250,9 +257,70 @@ def cmd_freon(args) -> int:
             _emit(freon.mpug(oz, n_uploads=args.num, part_size=args.size,
                              threads=args.threads,
                              replication=repl).summary())
+        elif args.generator == "lcg":
+            _emit(freon.lcg(oz, n_keys=args.num, size=args.size,
+                            threads=args.threads,
+                            replication=repl or "RATIS/THREE",
+                            target=args.target).summary())
+        elif args.generator == "tinyg":
+            _emit(freon.tinyg(oz, n_keys=args.num, size=args.size,
+                              threads=args.threads,
+                              replication=repl or "rs-3-2-4096",
+                              packer=not args.no_packer, mix=args.tiny,
+                              validate=args.validate).summary())
         else:  # ecrd
             _emit(freon.ecrd(oz, s.scm, size=args.size, rounds=args.num,
                              replication=repl or "rs-6-3-1048576"))
+    return 0
+
+
+# ---------------------------------------------------------------- lifecycle
+def cmd_lifecycle(args) -> int:
+    """Bucket lifecycle admin (`lifecycle set|get|clear|run-now|status|
+    compact-slabs`): age-based replicated->EC tiering and TTL expiry
+    rules, enforced by the metadata daemon's sweeper."""
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    om = RemoteOmClient(args.om)
+    try:
+        verb = args.verb
+        if verb == "run-now":
+            _emit(om.run_lifecycle_once(args.max_keys))
+            return 0
+        if verb == "compact-slabs":
+            _emit(om.run_slab_compaction_once())
+            return 0
+        if verb == "status":
+            _emit(om.lifecycle_status())
+            return 0
+        if not args.path:
+            return _usage(f"lifecycle {verb} needs a /volume/bucket path")
+        parts = _parse_path(args.path)
+        if len(parts) != 2:
+            return _usage(f"expected /volume/bucket, got {args.path!r}")
+        vol, bucket = parts
+        if verb == "get":
+            _emit(om.get_bucket_lifecycle(vol, bucket))
+        elif verb == "clear":
+            om.delete_bucket_lifecycle(vol, bucket)
+            print(f"lifecycle cleared on /{vol}/{bucket}")
+        else:  # set
+            action = {"transition": "TRANSITION_TO_EC",
+                      "expire": "EXPIRE"}.get(args.action)
+            if action is None:
+                return _usage(f"unknown action {args.action!r} "
+                              "(expected transition|expire)")
+            rules = (om.get_bucket_lifecycle(vol, bucket)
+                     if args.append else [])
+            rule = {"id": args.id or f"rule-{len(rules)}",
+                    "prefix": args.prefix, "age_days": args.age_days,
+                    "action": action, "enabled": True}
+            if action == "TRANSITION_TO_EC":
+                rule["target"] = args.target
+            _emit(om.set_bucket_lifecycle(
+                vol, bucket, [*rules, rule]).get("lifecycle", []))
+    finally:
+        om.close()
     return 0
 
 
@@ -321,7 +389,7 @@ def cmd_scm_om(args) -> int:
 
     logging.basicConfig(level=logging.INFO)
     d = ScmOmDaemon(Path(args.db), port=args.port,
-                    min_datanodes=args.min_datanodes)
+                    min_datanodes=args.min_datanodes, device=args.device)
     d.start()
     print(f"scm+om serving on {d.address}", flush=True)
     return _serve(d.stop)
@@ -397,7 +465,7 @@ def cmd_cluster(args) -> int:
         # all at once: a datanode that comes up before the metadata server
         # registers on a later heartbeat
         spawn(["scm-om", "--db", str(root / "om.db"), "--port",
-               str(args.port)], "scm-om.log")
+               str(args.port), "--device", device], "scm-om.log")
         for i in range(args.datanodes):
             spawn(["datanode", "--root", str(root / f"dn{i}"), "--scm", om,
                    "--id", f"dn{i}", "--device", device], f"dn{i}.log")
@@ -445,14 +513,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
-                    choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg"])
+                    choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg",
+                             "lcg", "tinyg"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
     fr.add_argument("-t", "--threads", type=int, default=4)
     fr.add_argument("--om", default="127.0.0.1:9860")
     fr.add_argument("--replication", default="")
     fr.add_argument("--validate", action="store_true",
-                    help="s3kg: GET each key back and compare")
+                    help="s3kg, tinyg: GET each key back and compare")
+    fr.add_argument("--target", default="rs-3-2-4096",
+                    help="lcg: the EC scheme the lifecycle rule tiers to")
+    fr.add_argument("--no-packer", action="store_true",
+                    help="tinyg: every key down the per-key stripe path "
+                         "(the small-object before/after baseline)")
+    fr.add_argument("--tiny", action="store_true",
+                    help="tinyg: sizes from the tiny-key mix instead of "
+                         "--size")
     fr.add_argument("--endpoint", default="127.0.0.1:9878",
                     help="s3kg: S3 gateway host:port")
     fr.add_argument("--access-id", default="",
@@ -495,7 +572,32 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--db", required=True)
     so.add_argument("--port", type=int, default=9860)
     so.add_argument("--min-datanodes", type=int, default=1)
+    device_flag(so)
     so.set_defaults(fn=cmd_scm_om)
+
+    lc = sub.add_parser("lifecycle",
+                        help="bucket lifecycle: age-based tiering "
+                             "(replicated->EC) and TTL expiry")
+    lc.add_argument("verb", choices=["set", "get", "clear", "run-now",
+                                     "status", "compact-slabs"])
+    lc.add_argument("path", nargs="?", default="",
+                    help="/volume/bucket (set, get, clear)")
+    lc.add_argument("--om", default="127.0.0.1:9860")
+    lc.add_argument("--prefix", default="",
+                    help="set: key-name prefix filter")
+    lc.add_argument("--age-days", type=float, default=0.0,
+                    help="set: minimum age before the action applies")
+    lc.add_argument("--action", default="transition",
+                    help="set: transition (replicated->EC) or expire")
+    lc.add_argument("--target", default="rs-6-3-1024k",
+                    help="set: EC scheme of a transition rule")
+    lc.add_argument("--id", default="", help="set: rule id (rule-<n>)")
+    lc.add_argument("--append", action="store_true",
+                    help="set: append to the bucket's rules instead of "
+                         "replacing them")
+    lc.add_argument("--max-keys", type=int, default=None,
+                    help="run-now: bound the sweep's scan")
+    lc.set_defaults(fn=cmd_lifecycle)
 
     cl = sub.add_parser("cluster",
                         help="one-command local cluster: scm-om + N datanodes")

@@ -16,14 +16,19 @@ harness (thread-pool task loop, latency report) and
 - rawcoder_bench: RawErasureCoderBenchmark, encode and decode GiB/s per
   coder backend (torch, cpp, numpy);
 - ecrd: the EC reconstruction drill, end-to-end repair MiB/s per
-  datanode.
+  datanode;
+- lcg: lifecycle churn: replicated keys under an age-0 TRANSITION_TO_EC
+  rule, one sweep, then every key read back and checked EC-coded;
+- tinyg: tiny keys into a small-object bucket (inline values and slab
+  needles), or with `packer=False` the same keys down the per-key stripe
+  path, the before/after pair; `mix` draws sizes from TINY_SIZES.
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
 `--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
 does); `ecrd` also takes an SCM, in process or `RemoteScmClient`; `s3kg`
 takes a gateway's host:port. The other generators of the reference wait
-for the port's filesystem gateways, raft and lifecycle.
+for the port's filesystem gateways, raft and geo replication.
 """
 
 from __future__ import annotations
@@ -446,3 +451,127 @@ def ecrd(
         "best_mib_s_per_datanode": round(per_dn[-1], 2),
         "times_s": [round(dt, 3) for _, dt in results],
     }
+
+
+def lcg(client, n_keys: int = 20, size: int = 10 * 1024,
+        threads: int = 4, volume: str = "freon-vol",
+        bucket: str = "freon-tier", replication: str = "RATIS/THREE",
+        target: str = "rs-3-2-4096", prefix: str = "tier",
+        age_days: float = 0.0) -> FreonReport:
+    """Lifecycle churn (write, sweep, verify): `n_keys` replicated keys
+    under an age-based TRANSITION_TO_EC rule, one sweep (`lifecycle
+    run-now`), then every key read back byte-exact and checked EC-coded.
+    The timer covers the writes; the sweep's outcome rides the extras
+    (`transitioned`, `ec_keys`, `verify_failures`, `sweep_bytes`,
+    `sweep_dispatches`)."""
+    _ensure_bucket(client, volume, bucket, replication)
+    client.om.set_bucket_lifecycle(volume, bucket, [{
+        "id": "freon-tier", "prefix": prefix, "age_days": age_days,
+        "action": "TRANSITION_TO_EC", "target": target,
+    }])
+    b = client.get_volume(volume).get_bucket(bucket)
+
+    def op(i: int) -> int:
+        b.write_key(f"{prefix}-{i}", _det_payload(size, seed=i),
+                    replication)
+        return size
+
+    rep = BaseFreonGenerator("lcg", n_keys, threads).run(op)
+    sweep = client.om.run_lifecycle_once()
+    verify_failures = 0
+    ec_count = 0
+    for i in range(n_keys):
+        try:
+            info = client.om.lookup_key(volume, bucket, f"{prefix}-{i}")
+            got = b.read_key_info(info)
+            if not np.array_equal(got, _det_payload(size, seed=i)):
+                verify_failures += 1
+                continue
+            if str(info.get("replication", "")).startswith("rs-"):
+                ec_count += 1
+        except Exception:  # noqa: BLE001 - counted, the run goes on
+            verify_failures += 1
+    rep.extras.update({
+        "transitioned": sweep.get("transitioned", 0),
+        "ec_keys": ec_count,
+        "verify_failures": verify_failures,
+        "sweep_bytes": sweep.get("bytes", 0),
+        "sweep_dispatches": sweep.get("dispatches", 0),
+    })
+    return rep
+
+
+#: the tiny-key size mix, 80/15/5: inline, needle, large needle
+TINY_SIZES = (512, 4 * 1024, 48 * 1024)
+
+
+def _tiny_size(i: int, size: int, mix: bool) -> int:
+    if not mix:
+        return size
+    r = i % 20
+    if r < 16:
+        return TINY_SIZES[0]
+    if r < 19:
+        return TINY_SIZES[1]
+    return TINY_SIZES[2]
+
+
+def tinyg(client, n_keys: int = 200, size: int = 4 * 1024,
+          threads: int = 8, volume: str = "freon-vol",
+          bucket: str = "freon-tiny",
+          replication: str = "rs-3-2-4096", prefix: str = "tiny",
+          packer: bool = True, mix: bool = False,
+          validate: bool = True) -> FreonReport:
+    """Tiny keys into a small-object EC bucket: inline values land in the
+    OM key row, needles coalesce through the client's SlabPacker into
+    shared EC stripes committed by CommitKeys. `packer=False` writes the
+    same keys with an explicit per-key replication, so every key takes
+    the open/allocate/commit stripe path (the before/after pair).
+    `mix=True` draws sizes from TINY_SIZES instead of `size`. The extras
+    say how the keys landed (inline, needle and regular counts, distinct
+    slabs) and count byte-exact `verify_failures`."""
+    _ensure_bucket(client, volume, bucket, replication)
+    if packer:
+        client.om.set_bucket_smallobj(volume, bucket)
+    b = client.get_volume(volume).get_bucket(bucket)
+    # an explicit replication pins the per-key stripe path: write_key
+    # routes tiny keys only when the caller leaves it unset
+    per_key_repl = None if packer else replication
+
+    def op(i: int) -> int:
+        sz = _tiny_size(i, size, mix)
+        b.write_key(f"{prefix}-{i}", _det_payload(sz, seed=i), per_key_repl)
+        return sz
+
+    rep = BaseFreonGenerator("tinyg", n_keys, threads).run(op)
+    if packer:
+        client.packer.flush()
+    inline = needle = regular = verify_failures = 0
+    slabs: set = set()
+    for i in range(n_keys):
+        try:
+            info = client.om.lookup_key(volume, bucket, f"{prefix}-{i}")
+            if info.get("inline") is not None:
+                inline += 1
+            elif info.get("needle"):
+                needle += 1
+                slabs.add(info["needle"]["slab"])
+            else:
+                regular += 1
+            if validate:
+                got = b.read_key_info(info)
+                want = _det_payload(_tiny_size(i, size, mix), seed=i)
+                if not np.array_equal(got, want):
+                    verify_failures += 1
+        except Exception:  # noqa: BLE001 - counted, the run goes on
+            verify_failures += 1
+    rep.extras.update({
+        "packer": packer,
+        "inline_keys": inline,
+        "needle_keys": needle,
+        "regular_keys": regular,
+        "slabs": len(slabs),
+        "verify_failures": verify_failures,
+    })
+    rep.extras.update(_client_hist_extras())
+    return rep

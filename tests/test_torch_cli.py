@@ -6,6 +6,11 @@ through the CLI's entry point, mirroring tests/test_acceptance.py: the
 namespace verbs, `sh key put/get` in processes of their own with a byte
 compare, `freon ockg`, `admin status`, and a `datanode` started without
 `--device cpu` on a rig without CUDA, which exits non-zero naming CUDA.
+The scm-om runs with `--device cpu` too: its lifecycle sweep encodes.
+Then the lifecycle verbs (`set`, `get`, `clear`, `run-now`, `status`,
+`compact-slabs`) with `freon lcg`, and `sh bucket set-smallobj` with
+inline and needle keys through `sh key put/get` and `freon tinyg` with
+and without the packer.
 """
 
 import json
@@ -64,7 +69,7 @@ def live_cluster(tmp_path_factory):
     scm = RemoteScmClient(om)
     try:
         spawn("scm-om", "scm-om", "--db", str(tmp / "om.db"),
-              "--port", om.rpartition(":")[2])
+              "--port", om.rpartition(":")[2], "--device", "cpu")
         for i in range(5):
             spawn(f"dn{i}", "datanode", "--root", str(tmp / f"dn{i}"),
                   "--scm", om, "--id", f"dn{i}", "--heartbeat-interval",
@@ -296,3 +301,110 @@ def test_s3g_process_signed_put_get_multipart_and_freon(live_cluster, sh,
     last = log.read_text().strip().splitlines()[-1]
     assert re.match(r"s3 gateway stopped; kernel launches \d+, service "
                     r"dispatches \d+$", last), last
+
+
+# ------------------------------------------------- lifecycle and tiny keys
+def test_lifecycle_verbs_and_freon_lcg(live_cluster, sh, tmp_path):
+    om, _ = live_cluster
+    sh("sh", "volume", "create", "/lcv", "--om", om)
+    sh("sh", "bucket", "create", "/lcv/b", "--om", om, "--replication",
+       "RATIS/THREE")
+    rc, out, _ = sh("lifecycle", "set", "/lcv/b", "--prefix", "cold-",
+                    "--target", "rs-3-2-4096", "--om", om)
+    assert rc == 0 and json.loads(out)[0]["action"] == "TRANSITION_TO_EC"
+    rc, out, _ = sh("lifecycle", "set", "/lcv/b", "--action", "expire",
+                    "--prefix", "ttl-", "--append", "--om", om)
+    assert [r["id"] for r in json.loads(out)] == ["rule-0", "rule-1"]
+    rc, out, _ = sh("lifecycle", "get", "/lcv/b", "--om", om)
+    assert [r["action"] for r in json.loads(out)] == [
+        "TRANSITION_TO_EC", "EXPIRE"]
+    assert sh("lifecycle", "set", "/lcv/b", "--action", "shred",
+              "--om", om)[0] == 2
+    assert sh("lifecycle", "get", "--om", om)[0] == 2
+    rc, _, err = sh("lifecycle", "set", "/lcv/b", "--target", "RATIS/ONE",
+                    "--om", om)
+    assert rc == 1 and err.startswith("error INVALID_REQUEST:")
+    payload = np.random.default_rng(1).integers(0, 256, 40_000,
+                                                dtype=np.uint8)
+    src, dst = tmp_path / "cold.bin", tmp_path / "back.bin"
+    src.write_bytes(payload.tobytes())
+    for key in ("cold-1", "ttl-1", "hot-1"):
+        assert sh("sh", "key", "put", f"/lcv/b/{key}", str(src), "--om", om,
+                  "--device", "cpu")[0] == 0
+    rc, out, _ = sh("lifecycle", "run-now", "--om", om)
+    stats = json.loads(out)
+    assert rc == 0 and stats["expired"] == 1 and stats["complete"]
+    assert stats["transitioned"] + stats["failed"] == 1
+    if stats["failed"]:
+        # its group's container closed under the write (the rs-3-2 pool
+        # this module's tests share fills up): the key stays replicated
+        # and the next sweep tiers it
+        assert json.loads(sh("lifecycle", "run-now", "--om", om)[1])[
+            "transitioned"] == 1
+    assert sh("sh", "key", "get", "/lcv/b/cold-1", str(dst), "--om", om,
+              "--device", "cpu")[0] == 0
+    assert dst.read_bytes() == payload.tobytes()
+    rc, out, _ = sh("sh", "key", "info", "/lcv/b/cold-1", "--om", om)
+    assert json.loads(out)["replication"] == "rs-3-2-4096"
+    rc, out, _ = sh("sh", "key", "info", "/lcv/b/hot-1", "--om", om)
+    assert json.loads(out)["replication"] == "RATIS/THREE"
+    rc, _, err = sh("sh", "key", "info", "/lcv/b/ttl-1", "--om", om)
+    assert rc == 1 and err.startswith("error KEY_NOT_FOUND:")
+    rc, out, _ = sh("lifecycle", "status", "--om", om)
+    st = json.loads(out)
+    assert st["term"] == 0 and st["in_progress"] is False
+    assert st["stats"]["transitioned"] >= 1
+    rc, out, _ = sh("lifecycle", "clear", "/lcv/b", "--om", om)
+    assert rc == 0 and json.loads(sh("lifecycle", "get", "/lcv/b", "--om",
+                                     om)[1]) == []
+    rc, out, _ = sh("freon", "lcg", "-n", "4", "-s", "20000", "-t", "2",
+                    "--target", "rs-3-2-4096", "--om", om, "--device", "cpu")
+    rep = json.loads(out)
+    assert rc == 0 and rep["ops"] == 4 and rep["failures"] == 0
+    assert rep["verify_failures"] == 0 and rep["sweep_dispatches"] >= 1
+    assert rep["transitioned"] == rep["ec_keys"] >= 1
+    if rep["ec_keys"] < 4:  # as above: a closed container, the next sweep
+        assert json.loads(sh("lifecycle", "run-now", "--om", om)[1])[
+            "transitioned"] == 4 - rep["ec_keys"]
+    for i in range(4):
+        rc, out, _ = sh("sh", "key", "info", f"/freon-vol/freon-tier/tier-{i}",
+                        "--om", om)
+        assert json.loads(out)["replication"] == "rs-3-2-4096"
+
+
+def test_set_smallobj_and_freon_tinyg(live_cluster, sh, tmp_path):
+    om, _ = live_cluster
+    sh("sh", "volume", "create", "/tv", "--om", om)
+    sh("sh", "bucket", "create", "/tv/b", "--om", om, "--replication",
+       "rs-3-2-4096")
+    rc, out, _ = sh("sh", "bucket", "set-smallobj", "/tv/b", "--om", om)
+    assert rc == 0 and json.loads(out)["smallobj"] == {"inline_max": 0,
+                                                       "needle_max": 0}
+    rng = np.random.default_rng(2)
+    for key, size, kind in (("tiny", 2_000, "inline"),
+                            ("small", 20_000, "needle")):
+        payload = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        src, dst = tmp_path / f"{key}.in", tmp_path / f"{key}.out"
+        src.write_bytes(payload)
+        assert sh("sh", "key", "put", f"/tv/b/{key}", str(src), "--om", om,
+                  "--device", "cpu")[0] == 0
+        assert sh("sh", "key", "get", f"/tv/b/{key}", str(dst), "--om", om,
+                  "--device", "cpu")[0] == 0
+        assert dst.read_bytes() == payload
+        info = json.loads(sh("sh", "key", "info", f"/tv/b/{key}", "--om",
+                             om)[1])
+        assert (info.get("inline") is not None) == (kind == "inline")
+        assert bool(info.get("needle")) == (kind == "needle")
+    rc, _, err = sh("sh", "bucket", "set-smallobj", "/tv/nob", "--om", om)
+    assert rc == 1 and err.startswith("error BUCKET_NOT_FOUND:")
+    rc, out, _ = sh("freon", "tinyg", "-n", "40", "-t", "4", "--tiny",
+                    "--validate", "--om", om, "--device", "cpu")
+    rep = json.loads(out)
+    assert rc == 0 and rep["failures"] == 0 and rep["verify_failures"] == 0
+    assert (rep["inline_keys"], rep["needle_keys"]) == (38, 2)
+    rc, out, _ = sh("freon", "tinyg", "-n", "10", "-t", "2", "--no-packer",
+                    "--validate", "--om", om, "--device", "cpu")
+    rep = json.loads(out)
+    assert rep["regular_keys"] == 10 and rep["verify_failures"] == 0
+    rc, out, _ = sh("lifecycle", "compact-slabs", "--om", om)
+    assert rc == 0 and json.loads(out)["slabs_scanned"] >= 1

@@ -382,3 +382,57 @@ def test_background_heartbeats_drive_the_deletion_chain(clusters):
         for dn_id in g["nodes"]:
             with pytest.raises(StorageError):
                 port.datanode(dn_id).get_block(_block_id(port, g))
+
+
+def test_replication_plans_complete_by_report_and_expire(tmp_path):
+    """Where the port departs from the reference's replication manager on
+    purpose (its pending set clears only through `op_completed`, which no
+    daemon calls): a plan whose command never ran is planned again once
+    `PENDING_TIMEOUT_S` has passed, and a planned index is no longer
+    pending once a replica of it is reported, so the same index is
+    rebuilt again when its new holder dies."""
+    c = MiniOzoneCluster(tmp_path, num_datanodes=7, block_size=BLOCK,
+                         container_size=4 * 1024 * 1024, stale_after_s=1000.0,
+                         dead_after_s=2000.0, device="cpu")
+    try:
+        rm = c.scm.replication
+        now = [0.0]
+        rm.clock = lambda: now[0]
+        oz = c.client()
+        b = oz.create_volume("v").create_bucket("b", replication=EC)
+        data = np.random.default_rng(7).integers(0, 256, 40_000,
+                                                 dtype=np.uint8)
+        b.write_key("k", data)
+        g = oz.om.lookup_key("v", "b", "k")["block_groups"][0]
+        cid = int(g["container_id"])
+        for dn_id in g["nodes"]:
+            c.datanode(dn_id).close_container(cid)
+        c.tick()
+        _kill(c, g["nodes"][1], NodeState.DEAD)
+        rm.run_once()
+        assert (cid, 2) in rm._pending
+        # the command is lost (as a failed one is, in the daemons)
+        c.scm.nodes._commands.clear()
+        rm.run_once()
+        assert rm.metrics.counter("reconstructions_emitted").value == 1
+        now[0] += rm.PENDING_TIMEOUT_S + 1
+        rm.run_once()  # expired: planned again
+        assert rm.metrics.counter("reconstructions_emitted").value == 2
+        assert rm.metrics.counter("pending_expired").value == 1
+        c.heartbeat_all()  # the command runs; the rebuilt replica reports
+        c.heartbeat_all()
+        holder = next(dn for dn, r in c.scm.containers.get(cid)
+                      .replicas.items() if r.replica_index == 2
+                      and dn != g["nodes"][1])
+        rm.run_once()
+        assert (cid, 2) not in rm._pending
+        # the new holder dies: the same index is planned and rebuilt again
+        _kill(c, holder, NodeState.DEAD)
+        c.tick(rounds=2)
+        idx = {r.replica_index for dn, r in c.scm.containers.get(cid)
+               .replicas.items() if dn not in (holder, g["nodes"][1])}
+        assert idx == {1, 2, 3, 4, 5}
+        assert rm.metrics.counter("reconstructions_emitted").value == 3
+        assert np.array_equal(b.read_key("k"), data)
+    finally:
+        c.close()

@@ -9,7 +9,8 @@ same seeded keys go through `ozone_tpu.net.daemons`, and bytes read, key
 sizes, per-group lengths, every chunk's CRC32C words and the error codes
 of the same bad requests must be equal. Beyond the reference's tests:
 the S3 gateway's OM verbs (multipart, key attributes, secrets, the
-upgrade status), the per-stripe write path and the permanent downgrade
+upgrade status), the metadata daemon's lifecycle cadence (a sweep on its
+own that tiers keys over the wire), the per-stripe write path and the permanent downgrade
 when a member refuses WriteChunksCommit, container replication through
 export and import (a tarball the reference's datanode packed included),
 and the daemon's background scrub.
@@ -66,12 +67,12 @@ class Side:
         mod = daemons if port else j_daemons
         self.port = port
         self.ids = port_ids if port else j_ids
+        kw = {"device": "cpu"} if port else {}
         self.meta = mod.ScmOmDaemon(
             root / "om.db", block_size=block_size,
             container_size=container_size, stale_after_s=1000.0,
-            dead_after_s=2000.0, background_interval_s=0.2)
+            dead_after_s=2000.0, background_interval_s=0.2, **kw)
         self.meta.start()
-        kw = {"device": "cpu"} if port else {}
         self.dns = [mod.DatanodeDaemon(root / f"dn{i}", f"dn{i}",
                                        self.meta.address,
                                        heartbeat_interval_s=heartbeat_s, **kw)
@@ -151,11 +152,14 @@ def _data(seed: int, n: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
 
 
-def _wait(what: str, cond, timeout_s: float = WAIT_S) -> None:
+def _wait(what: str, cond, timeout_s: float = WAIT_S, detail=None) -> None:
+    """Poll `cond` until it holds; on timeout the message carries
+    `detail()`, what the caller saw last."""
     t_end = time.monotonic() + timeout_s
     while not cond():
         if time.monotonic() > t_end:
-            raise AssertionError(f"{what} within {timeout_s} s")
+            seen = f"; {detail()}" if detail is not None else ""
+            raise AssertionError(f"{what} within {timeout_s} s{seen}")
         time.sleep(0.1)
 
 
@@ -333,40 +337,79 @@ def _rebuilt_unit(s, g, unit: int, victim: str) -> list:
             for ch in dn.get_block(bid).chunks]
 
 
-def test_reconstruction_over_the_wire(pair):
+def test_reconstruction_over_the_wire(tmp_path):
+    """One datanode of a closed group dies; the SCM plans the rebuild and
+    a daemon's coordinator rebuilds the lost unit over the wire, in each
+    cluster. The sides run one after the other (their daemons share this
+    process's cores). The groups close only once the SCM holds every
+    replica, and the victim dies only once they are CLOSED there: the
+    replication manager of both packages plans a replica it has not
+    heard of yet as lost, and never plans again an index whose plan
+    failed (ROADMAP, Queue 3)."""
     data = _data(2, 40_000)
-    lost, rebuilt = [], []
-    for s in pair:
-        b = s.oz.create_volume("v").create_bucket("b", replication=EC)
-        b.write_key("k", data)
-        groups = s.oz.om.key_block_groups(s.oz.om.lookup_key("v", "b", "k"))
-        _close_groups(s, groups)
-        victim_id = groups[0].pipeline.nodes[1]
-        victim = s.daemon(victim_id)
-        bid = s.ids.BlockID(groups[0].container_id, groups[0].local_id)
-        lost.append([(ch.offset, ch.length, ch.checksum.checksums,
-                      victim.dn.read_chunk(bid, ch).tobytes())
-                     for ch in victim.dn.get_block(bid).chunks])
-        victim.stop()
-        # age out only the victim: an ancient heartbeat passes dead_after
-        s.meta.scm.nodes.get(victim_id).last_heartbeat = -1e9
-        s.meta.scm.nodes.check_liveness()
+    lost, rebuilt, coordinated = [], [], []
+    for port in (True, False):
+        s = Side(port, tmp_path / ("port" if port else "ref"))
+        side = "port" if port else "reference"
+        try:
+            b = s.oz.create_volume("v").create_bucket("b", replication=EC)
+            b.write_key("k", data)
+            groups = s.oz.om.key_block_groups(
+                s.oz.om.lookup_key("v", "b", "k"))
+            victim_id = groups[0].pipeline.nodes[1]
 
-        def rebuilt_all():
-            return all(
-                {r.replica_index for dn_id, r in
-                 s.meta.scm.containers.get(g.container_id).replicas.items()
-                 if dn_id != victim_id} == {1, 2, 3, 4, 5}
-                for g in groups)
+            def indexes(skip=None):
+                return {g.container_id: sorted(
+                    r.replica_index for dn_id, r in
+                    s.meta.scm.containers.get(g.container_id)
+                    .replicas.items() if dn_id != skip) for g in groups}
 
-        _wait("reconstruction over the wire", rebuilt_all)
-        rebuilt.append(_rebuilt_unit(s, groups[0], 1, victim_id))
+            def detail(skip=None):
+                failed = {d.dn.id: d.failed_commands for d in s.dns
+                          if getattr(d, "failed_commands", None)}
+                states = {g.container_id: s.meta.scm.containers.get(
+                    g.container_id).state.name for g in groups}
+                victim_state = s.meta.scm.nodes.get(victim_id).state.name
+                return f"replica indexes seen per group {indexes(skip)}, " \
+                    f"container states {states}, victim {victim_id} " \
+                    f"{victim_state}, failed commands {failed}"
+
+            def whole(skip=None):
+                return all(set(v) == {1, 2, 3, 4, 5}
+                           for v in indexes(skip).values())
+
+            _wait(f"{side}: the SCM's replica map of the written groups",
+                  whole, detail=detail)
+            _close_groups(s, groups)
+            _wait(f"{side}: the groups CLOSED on the SCM",
+                  lambda: whole() and all(
+                      s.meta.scm.containers.get(g.container_id).state.name
+                      == "CLOSED" for g in groups),
+                  detail=detail)
+            victim = s.daemon(victim_id)
+            bid = s.ids.BlockID(groups[0].container_id, groups[0].local_id)
+            lost.append([(ch.offset, ch.length, ch.checksum.checksums,
+                          victim.dn.read_chunk(bid, ch).tobytes())
+                         for ch in victim.dn.get_block(bid).chunks])
+            victim.stop()
+            # age out only the victim: an ancient heartbeat passes dead_after
+            s.meta.scm.nodes.get(victim_id).last_heartbeat = -1e9
+            s.meta.scm.nodes.check_liveness()
+            _wait(f"{side}: reconstruction over the wire",
+                  lambda: whole(victim_id),
+                  detail=lambda: detail(victim_id))
+            rebuilt.append(_rebuilt_unit(s, groups[0], 1, victim_id))
+            if port:
+                # the port's SCM-driven rebuild ran on a daemon's coordinator
+                coordinated = [
+                    sum(d.reconstruction.metrics.counter(
+                        "groups_reconstructed").value for d in s.dns),
+                    [d.failed_commands for d in s.dns]]
+        finally:
+            s.stop()
     assert lost[0] == lost[1] == rebuilt[0] == rebuilt[1]
-    # the port's SCM-driven rebuild ran on a daemon's coordinator
-    port = pair[0]
-    assert sum(d.reconstruction.metrics.counter("groups_reconstructed").value
-               for d in port.dns) >= 1
-    assert all(not d.failed_commands for d in port.dns)
+    assert coordinated[0] >= 1
+    assert all(not f for f in coordinated[1])
 
 
 def test_container_close_converges(tmp_path):
@@ -517,3 +560,40 @@ def test_background_scrub_matches_the_host_scan(pair):
     errs = d.scan_once()
     assert errs and len(errs) == len(d.dn.scan_container(g.container_id))
     assert c.state is ContainerState.UNHEALTHY
+
+
+def test_daemon_lifecycle_cadence_tiers_over_the_wire(tmp_path, monkeypatch):
+    """With OZONE_TPU_LIFECYCLE_PERIOD_S short, the metadata daemon's own
+    background loop sweeps: replicated keys under an age-0 rule become
+    EC with no call from the client, and read back byte-exact; the
+    stored chunks with their CRC words equal the reference's."""
+    monkeypatch.setenv("OZONE_TPU_LIFECYCLE_PERIOD_S", "0.5")
+    datas = {f"cold-{i}": _data(30 + i, 20_000 + 4096 * i) for i in range(3)}
+    out = []
+    for port in (True, False):
+        s = Side(port, tmp_path / ("port" if port else "ref"))
+        side = "port" if port else "reference"
+        try:
+            b = s.oz.create_volume("v").create_bucket(
+                "b", replication="RATIS/THREE")
+            for k, d in datas.items():
+                b.write_key(k, d)
+            s.oz.om.set_bucket_lifecycle("v", "b", [
+                {"id": "warm", "prefix": "cold-", "age_days": 0,
+                 "action": "TRANSITION_TO_EC", "target": EC}])
+
+            def reps():
+                return [s.oz.om.lookup_key("v", "b", k)["replication"]
+                        for k in datas]
+
+            _wait(f"{side}: the daemon's sweep",
+                  lambda: reps() == [EC] * len(datas),
+                  detail=lambda: f"replications {reps()}, lifecycle "
+                  f"{s.oz.om.lifecycle_status()['stats']}")
+            for k, d in datas.items():
+                assert np.array_equal(b.read_key(k), d), (side, k)
+            out.append([[c[1:] for c in s.chunks(
+                s.oz.om.lookup_key("v", "b", k))] for k in datas])
+        finally:
+            s.stop()
+    assert out[0] == out[1]

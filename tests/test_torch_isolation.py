@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_no_reference():
               "ozone_tpu_torch.gateway.s3" in names, bad)
     """)
     count, cli, net, gw, bad = out.split(" ", 4)
-    assert int(count) >= 66 and cli == net == gw == "True", out
+    assert int(count) >= 72 and cli == net == gw == "True", out
     assert bad.strip() == "[]", out
 
 
@@ -81,6 +81,13 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.admission.bucket",
     "ozone_tpu_torch.admission.shed",
     "ozone_tpu_torch.om.multipart",
+    # lifecycle tiering and the small-object path
+    "ozone_tpu_torch.lifecycle",
+    "ozone_tpu_torch.lifecycle.policy",
+    "ozone_tpu_torch.lifecycle.service",
+    "ozone_tpu_torch.lifecycle.executor",
+    "ozone_tpu_torch.client.slab",
+    "ozone_tpu_torch.utils.throttle",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and

@@ -476,14 +476,31 @@ def test_port_refusal_drains_the_body(sides):
     ("PUT", "/dep/o?acl", b"<AccessControlPolicy/>"),
 ])
 def test_port_departures_answer_501(sides, method, path, body):
-    """Where the port has no module yet (ACLs, lifecycle, geo
-    replication) it answers 501 NotImplemented as Apache Ozone 1.5 does,
-    after draining the body, so the keep-alive connection serves the
-    next request."""
-    port, _ = sides
+    """Where the port has no module yet (ACLs, geo replication) it
+    answers 501 NotImplemented as Apache Ozone 1.5 does, after draining
+    the body, so the keep-alive connection serves the next request.
+    `?lifecycle` is served since the lifecycle slice: its cases answer
+    as the reference's gateway does (no configuration yet: 404; an empty
+    one: 400 MalformedXML), with the same drain and keep-alive."""
+    port, ref = sides
     port.req("PUT", "/dep")
     port.req("PUT", "/dep/o", b"o")
     st, _, data = port.req(method, path, body)
-    assert st == 501 and b"<Code>NotImplemented</Code>" in data
+    if "lifecycle" in path:
+        code = (b"NoSuchLifecycleConfiguration" if method == "GET"
+                else b"MalformedXML")
+        assert (st, f"<Code>{code.decode()}</Code>".encode() in data) == \
+            ((404 if method == "GET" else 400), True)
+        ref.req("PUT", "/dep")
+        assert ref.req(method, path, body)[0] == st
+    else:
+        assert st == 501 and b"<Code>NotImplemented</Code>" in data
     assert port.req("GET", "/dep/o")[2] == b"o"
-    assert port.req(method, path.replace("/dep", "/nodep", 1), body)[0] == 404
+    missing = path.replace("/dep", "/nodep", 1)
+    # a missing bucket: 404, except that both gateways parse a lifecycle
+    # configuration before they look the bucket up
+    want = (ref.req(method, missing, body)[0] if "lifecycle" in path
+            else 404)
+    assert port.req(method, missing, body)[0] == want
+    assert want == (400 if method == "PUT" and "lifecycle" in path
+                    else 404)
