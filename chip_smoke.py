@@ -109,6 +109,22 @@ a phase says otherwise:
   bounded `compact_slabs_once`, the survivors read back byte-exact. Both
   print the metadata RPCs per step (CreateContainer, GetBlock, ...), and
   kernel launches equal the codec service's dispatches in every step.
+  `main` runs it at a cut depth (1000 keys per tinyg run, 200 on the
+  stripe path) to leave room for the next phase;
+- consensus and HA (`ha_path`): three ScmOmDaemons on one metadata ring
+  (OM and SCM state on one Raft ring over the port's RPC) and 9
+  DatanodeDaemons on 3 racks, rs-6-3-1024k on the card: (a) 8 × 64 MiB
+  keys through the ring on 4 threads (GiB/s, the leader's raft
+  commit_seconds p50/p99, `om:submit` seconds, every chunk against the
+  numpy coder's parity and the host CRC32C), (b) 16 × 16 MiB keys while
+  the leader is stopped after the 4th acknowledged key (failover seconds,
+  retries; every acknowledged key read back byte-exact from the new
+  leader), the old leader revived and caught up, `admin ring-status`
+  from every replica in sync, (c) 8 × 16 MiB RATIS/THREE keys through the
+  datanode pipeline rings with one member stopped after the 2nd key
+  (GiB/s, the raft round trips of `write_chunk_commit` and `put_block`),
+  (d) a degraded GET of (a)'s keys with two datanodes down through the
+  decode form. Launches equal dispatches in (a), (b) and (d).
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -130,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -496,14 +513,20 @@ def time_lrc_and_scrub(device, cell: int, bpc: int, seed: int) -> dict:
 
 # --------------------------------------------------------------- main path
 def service_counts() -> dict:
-    """The shared codec service's dispatch counters, and the observation
+    """The shared codec service's dispatch counters, the kernel's launches
+    since start read with them under its lock (the service holds it from a
+    launch to that dispatch's count, so a dispatch of other work in
+    flight at the read is in both or neither), and the observation
     counts and sums of its queue-wait and dispatch histograms
     (process-wide)."""
+    from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.codec import service as codec_service
 
-    out = {name: codec_service.METRICS.counter(name).value
-           for name in ("submissions", "dispatches", "multi_op_dispatches",
-                        "stripes_dispatched", "slots_dispatched")}
+    with fused_kernel.launches.held():
+        out = {name: codec_service.METRICS.counter(name).value
+               for name in ("submissions", "dispatches", "multi_op_dispatches",
+                            "stripes_dispatched", "slots_dispatched")}
+        out["launches_total"] = fused_kernel.launches.total
     for name in ("queue_wait_seconds", "dispatch_seconds"):
         h = codec_service.METRICS.histogram(name)
         out[name], out[f"{name}_n"] = h.total, h.count
@@ -1833,9 +1856,13 @@ def freon_path(device, cell: int, bpc: int, seed: int) -> dict:
 
 
 def check_launches_equal(what: str, device, launches: int, svc: dict) -> None:
-    print(f"{what}: kernel launches {launches}, service dispatches {svc['dispatches']}")
-    if device.type == "cuda" and launches != svc["dispatches"]:
-        raise AssertionError(f"{what}: {launches} kernel launches for "
+    """Every service dispatch of the step was one kernel launch: the
+    launches and dispatches read together (service_counts) must agree.
+    `launches` is the step's own count since its reset, printed beside."""
+    print(f"{what}: kernel launches {launches} ({svc['launches_total']} read with the "
+          f"dispatches), service dispatches {svc['dispatches']}")
+    if device.type == "cuda" and svc["launches_total"] != svc["dispatches"]:
+        raise AssertionError(f"{what}: {svc['launches_total']} kernel launches for "
                              f"{svc['dispatches']} service dispatches")
 
 
@@ -2037,9 +2064,11 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                       f"{launches}, service dispatches {svc['dispatches']}, queue wait "
                       f"{svc['queue_wait_ms']:.3f} ms, dispatch {svc['dispatch_ms']:.3f} ms "
                       f"(means); {m.line('batched_write_chunks')}")
-                if device.type == "cuda" and (launches <= 0 or launches != svc["dispatches"]):
-                    raise AssertionError(f"daemon PUT ({lane}): {launches} launches for "
-                                         f"{svc['dispatches']} service dispatches")
+                if device.type == "cuda" and (launches <= 0 or svc["launches_total"]
+                                              != svc["dispatches"]):
+                    raise AssertionError(f"daemon PUT ({lane}): {svc['launches_total']} "
+                                         f"launches for {svc['dispatches']} service "
+                                         "dispatches")
                 if lane == "native":
                     no_rpc_chunks("daemon PUT (native)", m, since,
                                   ("WriteChunksCommit", "WriteChunk", "StreamWriteBlock"))
@@ -2116,7 +2145,7 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                   f"{svc['dispatches']}; {m.line('batched_read_chunks')}")
             no_rpc_chunks("daemon degraded GET", m, since, ("ReadChunks", "ReadChunk"))
             if device.type == "cuda" and (out["degraded_launches"] <= 0 or
-                                          out["degraded_launches"] != svc["dispatches"]):
+                                          svc["launches_total"] != svc["dispatches"]):
                 raise AssertionError("daemon degraded GET: launches differ from dispatches")
             for dn_id in down:
                 restart_server(by_id[dn_id])
@@ -2214,7 +2243,7 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
                 raise AssertionError(f"commands failed: "
                                      f"{[d.failed_commands for d in dns]}")
             if device.type == "cuda" and (out["repair_launches"] <= 0 or
-                                          out["repair_launches"] != svc["dispatches"]):
+                                          svc["launches_total"] != svc["dispatches"]):
                 raise AssertionError("daemon repair: launches differ from dispatches")
 
             # the daemons' scrub of their closed containers
@@ -2871,11 +2900,13 @@ def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
 
 
 # ---------------------------------------------- lifecycle and small objects
-def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str) -> int:
+def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str,
+                   crc_route: str = "numpy") -> int:
     """Every chunk of every unit of EC `groups` holding `data`: data chunks
     equal the source bytes, parity chunks equal the numpy coder's, and
-    each chunk's stored CRC words equal the host CRC32C (numpy route) of
-    its bytes; every unit holds all its bytes. Returns the chunks held."""
+    each chunk's stored CRC words equal the host CRC32C (numpy route, or
+    the native library's with crc_route="native") of its bytes; every
+    unit holds all its bytes. Returns the chunks held."""
     from ozone_tpu_torch.codec.numpy_coder import NumpyRSEncoder
     from ozone_tpu_torch.storage.ids import StorageError
     from ozone_tpu_torch.utils import checksum
@@ -2884,7 +2915,8 @@ def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str) -> int:
     k, p, cell = opts.data_units, opts.parity_units, opts.cell_size
     enc = NumpyRSEncoder(opts)
     chunks, base = 0, 0
-    with checksum.numpy_route():
+    with (checksum.numpy_route() if crc_route == "numpy"
+          else contextlib.nullcontext()):
         for g in groups:
             n = -(-g.length // (k * cell))
             stripes = np.zeros((n, k, cell), dtype=np.uint8)
@@ -3354,6 +3386,411 @@ def small_object_path(device, cell: int, bpc: int, seed: int, n_keys: int = 2000
     return out
 
 
+def hist_window(hs: list, before: list) -> dict:
+    """p50 and p99 (the histograms' own bucket interpolation) and count of
+    the observations of metrics Histograms (one bucket layout) since their
+    bucket counts `before`, pooled."""
+    h = hs[0]
+    counts = [sum(x._counts[i] - b[i] for x, b in zip(hs, before))
+              for i in range(len(h._counts))]
+    n = sum(counts)
+    out = {"n": n}
+    for name, q in (("p50", 0.50), ("p99", 0.99)):
+        target, cum, v = q * n, 0, 0.0
+        for i, c in enumerate(counts):
+            if c and cum + c >= target:
+                lo = h.bounds[i - 1] if i > 0 else 0.0
+                hi = h.bounds[i] if i < len(h.bounds) else max(h.max, lo)
+                v = lo + (hi - lo) * (target - cum) / c
+                break
+            cum += c
+        out[name] = v
+    return out
+
+
+def elections(cluster) -> str:
+    """Each metadata replica's role, term and election counters."""
+    out = []
+    for mid, d in sorted(cluster.metas.items()):
+        n = d.ha.node
+        c = {k: n.metrics.counter(k).value
+             for k in ("elections_started", "elections_won", "step_downs")}
+        out.append(f"{mid} {n.role} term {n.storage.term} elections started "
+                   f"{c['elections_started']} won {c['elections_won']} step-downs "
+                   f"{c['step_downs']}")
+    return "; ".join(out)
+
+
+def ha_path(device, cell: int, bpc: int, seed: int, n_ec: int = 8,
+            ec_size: int = 64 * MIB, n_fail: int = 16, fail_size: int = 16 * MIB,
+            n_ratis: int = 8, ratis_size: int = 16 * MIB, threads: int = 4) -> dict:
+    """Consensus and HA: three ScmOmDaemons on one metadata ring over the
+    port's RPC and 9 DatanodeDaemons on 3 racks (MiniOzoneHACluster; the
+    daemon path's heartbeat timings, 16 MiB blocks, rs-6-3-1024k on
+    `device`). (a) `n_ec` EC keys through the ring on `threads` threads:
+    GiB/s, the leader's raft `commit_seconds` p50/p99, `om:submit` seconds,
+    launches = dispatches, every chunk against the numpy coder's parity and
+    the host CRC32C. (b) `n_fail` keys while the leader is stopped after the
+    4th acknowledged key: failover seconds (stop to the first key the new
+    leader committed and acknowledged; CommitKey answers are recorded by
+    replica) beside the stop's own seconds, retried operations; every acknowledged key reads
+    back byte-exact from the new leader; the old leader revived and caught
+    up (seconds until its last_applied reaches the leader's); `admin
+    ring-status` from every replica shows three members in sync. (c)
+    `n_ratis` RATIS/THREE keys through the pipeline rings, one pipeline
+    member stopped after the 2nd key: GiB/s and the raft round trips of
+    `write_chunk_commit` and `put_block`; every key reads back byte-exact
+    from the live members, which hold its committed length. (d) a degraded
+    GET of (a)'s keys with two datanodes down, through the decode form."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ozone_tpu_torch.client import ratis_client, resilience
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.net import rpc
+    from ozone_tpu_torch.storage.ids import StorageError
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneHACluster
+
+    import logging
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    gib = float(1 << 30)
+    rng = np.random.default_rng(seed)
+    out: dict = {"launches": {}}
+    # every election of the phase in the log ("leader of term N")
+    logging.basicConfig(level=logging.WARNING)
+    logging.getLogger("ozone_tpu_torch.consensus.raft").setLevel(logging.INFO)
+    # the earlier phases' spans (up to 500 000) leave the tracer's buffer:
+    # a full collection over them pauses every thread, the ring's
+    # heartbeat timers too
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    Tracer.instance().spans.clear()
+    gc.collect()
+    old_period = os.environ.get("OZONE_TPU_LIFECYCLE_PERIOD_S")
+    os.environ["OZONE_TPU_LIFECYCLE_PERIOD_S"] = "1e9"  # no sweeps of its own
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-ha-") as tmp:
+        try:
+            cluster = MiniOzoneHACluster(
+                Path(tmp), num_meta=3, num_datanodes=9, block_size=16 * cell,
+                heartbeat_interval_s=0.5, device=device, racks=3,
+                container_size=4096 * cell, stale_after_s=30.0, dead_after_s=60.0,
+                background_interval_s=0.5, placement_seed=seed)
+        finally:
+            if old_period is None:
+                os.environ.pop("OZONE_TPU_LIFECYCLE_PERIOD_S")
+            else:
+                os.environ["OZONE_TPU_LIFECYCLE_PERIOD_S"] = old_period
+        try:
+            wait_for("9 datanodes registered on the ring's leader",
+                     lambda: len(cluster.metas[cluster.await_leader()].scm.nodes.nodes())
+                     == 9, 30)
+            oz = cluster.client()
+            by_id = {d.dn.id: d for d in cluster.datanodes}
+
+            def once(fn, *a):
+                """A setup verb through the ring: a write retried across a
+                leader change may find its first attempt committed."""
+                try:
+                    fn(*a)
+                except StorageError as e:
+                    if not e.code.endswith("_ALREADY_EXISTS"):
+                        raise
+                    print(f"ha: {fn.__name__}{a} found its first attempt committed")
+
+            once(oz.om.create_volume, "ha")
+            vol = oz.get_volume("ha")
+            once(oz.om.create_bucket, "ha", "ec", rs)
+            ec = vol.get_bucket("ec")
+            # what one fsync'd append costs on this host's disk (the floor
+            # under every raft commit)
+            from ozone_tpu_torch.consensus.raft import RaftStorage
+
+            probe = RaftStorage(Path(tmp) / "fsync-probe")
+            t0 = time.perf_counter()
+            for i in range(200):
+                probe.append([{"term": 1, "data": {"i": i}}])
+            fsync_ms = 1e3 * (time.perf_counter() - t0) / 200
+            probe.close()
+            print(f"ha: one fsync'd raft log append takes {fsync_ms:.3f} ms on this "
+                  "host's disk (mean of 200)")
+            out["fsync_append_ms"] = fsync_ms
+
+            def put_all(bucket, names, datas, n_threads, on_ack=None):
+                """write_key of every key; a key whose write raised is written
+                again (at most 3 times). Returns (seconds, retried keys)."""
+                retried = [0]
+
+                def one(i):
+                    for attempt in range(3):
+                        try:
+                            bucket.write_key(names[i], datas[i])
+                            break
+                        except Exception as e:
+                            if attempt == 2:
+                                raise
+                            retried[0] += 1
+                            print(f"ha: write of {names[i]} retried after {e!r}")
+                    if on_ack is not None:
+                        on_ack(i)
+
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(n_threads) as ex:
+                    list(ex.map(one, range(len(names))))
+                return time.perf_counter() - t0, retried[0]
+
+            # ---- (a) EC keys through the ring
+            names = [f"ec-{i}" for i in range(n_ec)]
+            datas = [np.frombuffer(rng.bytes(ec_size), np.uint8) for _ in names]
+            leader = cluster.await_leader()
+            hs = [d.ha.node.metrics.histogram("commit_seconds")
+                  for d in cluster.metas.values()]
+            h0 = [list(h._counts) for h in hs]
+            before = service_counts()
+            fused_kernel.launches.reset()
+            since = time.time()
+            secs, retried_a = put_all(ec, names, datas, threads)
+            launches = fused_kernel.launches.count
+            svc_d = service_delta(before)
+            check_launches_equal("ha (a) EC PUT through the ring", device, launches, svc_d)
+            commit = hist_window(hs, h0)
+            n_sub, sub_s = span_stat(since, "om:submit")
+            gib_s = n_ec * ec_size / secs / gib
+            print(f"ha (a): {n_ec} x {ec_size >> 20} MiB {rs} PUT on {threads} threads "
+                  f"through the ring (leader {leader} at the start) in {secs:.3f} s = "
+                  f"{gib_s:.3f} GiB/s; raft commit_seconds on the leaders: {commit['n']} "
+                  f"proposals, p50 "
+                  f"{1e3 * commit['p50']:.3f} ms, p99 {1e3 * commit['p99']:.3f} ms "
+                  f"(every append fsync'd); om:submit {n_sub} spans, "
+                  f"{1e3 * sub_s / max(1, n_sub):.3f} ms mean; kernel launches {launches}, "
+                  f"service dispatches {svc_d['dispatches']}")
+            print(f"ha (a) spans: {span_totals(since)}")
+            print(f"ha (a): keys written again after a failed attempt: {retried_a}; "
+                  + elections(cluster))
+            lead_om = cluster.metas[cluster.await_leader()].om
+            chunks = 0
+            for name, data in zip(names, datas):
+                info = lead_om.lookup_key("ha", "ec", name)
+                groups = lead_om.key_block_groups(info)
+                chunks += check_ec_units(lambda dn_id: by_id[dn_id].dn, groups, data, bpc,
+                                         f"ha {name}", crc_route="native")
+            print(f"ha (a): {chunks} chunks' data, parity and CRC words equal the numpy "
+                  "coder's and the host CRC32C (native route)")
+            out["launches"]["ha_put"] = launches
+            out["a"] = dict(gib_s=gib_s, seconds=secs, commit_p50_s=commit["p50"],
+                            commit_p99_s=commit["p99"], proposals=commit["n"],
+                            om_submit_n=n_sub, om_submit_s=sub_s, chunks=chunks)
+
+            # ---- (b) the leader stops under writes
+            once(oz.om.create_bucket, "ha", "failover", rs)
+            fb = vol.get_bucket("failover")
+            fnames = [f"fo-{i}" for i in range(n_fail)]
+            fdatas = [np.frombuffer(rng.bytes(fail_size), np.uint8) for _ in fnames]
+            acks: list = []
+            lock = threading.Lock()
+            fourth = threading.Event()
+            stop_t: dict = {}
+
+            def on_ack(i):
+                with lock:
+                    acks.append((time.perf_counter(), fnames[i]))
+                    if len(acks) == 4:
+                        fourth.set()
+
+            def stopper():
+                fourth.wait(600)
+                stop_t["id"] = cluster.await_leader()
+                stop_t["t0"] = time.perf_counter()
+                cluster.stop_meta(stop_t["id"])
+                stop_t["t1"] = time.perf_counter()
+
+            # the replica that answered each key's CommitKey: the failover
+            # ends at the first key the new leader committed and answered
+            answered: dict = {}
+
+            def recording(rid, commit_key):
+                def wrapped(session, groups, size):
+                    commit_key(session, groups, size)
+                    answered[session.key] = rid
+
+                return wrapped
+
+            for rid, d in cluster.metas.items():
+                d.om.commit_key = recording(rid, d.om.commit_key)
+            st = threading.Thread(target=stopper)
+            st.start()
+            r0 = resilience.METRICS.counter("retries_slept").value
+            before = service_counts()
+            fused_kernel.launches.reset()
+            secs, retried_keys = put_all(fb, fnames, fdatas, threads, on_ack)
+            st.join(60)
+            launches = fused_kernel.launches.count
+            svc_d = service_delta(before)
+            for d in cluster.metas.values():
+                d.om.__dict__.pop("commit_key", None)
+            check_launches_equal("ha (b) PUT across the failover", device, launches, svc_d)
+            retried_rpcs = resilience.METRICS.counter("retries_slept").value - r0
+            new_leader = cluster.await_leader()
+            leader = stop_t["id"]
+            print("ha (b): " + elections(cluster))
+            after = sorted(t for t, n in acks
+                           if t > stop_t["t0"] and answered.get(n) == new_leader)
+            if new_leader == leader or not after:
+                raise AssertionError(f"ha (b): no key acknowledged by the new leader "
+                                     f"(leader {leader} -> {new_leader})")
+            failover_s = after[0] - stop_t["t0"]
+            stop_s = stop_t["t1"] - stop_t["t0"]
+            by_old = sum(1 for t, n in acks
+                         if t > stop_t["t0"] and answered.get(n) == leader)
+            # every acknowledged key reads back byte-exact from the new leader
+            acked = {n for _, n in acks}
+            if acked != set(fnames):
+                raise AssertionError(f"ha (b): keys never acknowledged: "
+                                     f"{set(fnames) - acked}")
+            listed = {k["name"] for k in cluster.metas[new_leader].om.list_keys(
+                "ha", "failover")}
+            if listed != set(fnames):
+                raise AssertionError(f"ha (b): acknowledged keys lost: {acked - listed}")
+            for name, data in zip(fnames, fdatas):
+                if not np.array_equal(fb.read_key(name), data):
+                    raise AssertionError(f"ha (b): {name} read back differs")
+            leader_node = cluster.metas[new_leader].ha.node
+            snap = len(json.dumps(cluster.metas[new_leader].ha._snapshot_all()))
+            print(f"ha (b): {n_fail} x {fail_size >> 20} MiB on {threads} threads in "
+                  f"{secs:.3f} s; leader {leader} stopped after the 4th acknowledged key "
+                  f"({stop_s:.3f} s to stop; {by_old} keys the old leader committed "
+                  f"were acknowledged after the stop began), new leader {new_leader} "
+                  f"(term {leader_node.storage.term}); failover {failover_s:.3f} s to the "
+                  f"first key it committed and acknowledged; retried: {retried_keys} keys, "
+                  f"{retried_rpcs} RPC backoffs; every key acknowledged and read back "
+                  f"byte-exact from the new leader; kernel launches {launches}, service "
+                  f"dispatches {svc_d['dispatches']}; ring snapshot {snap} B against the "
+                  f"RPC's {rpc.MAX_MESSAGE} B frame limit")
+            if snap >= rpc.MAX_MESSAGE:
+                raise AssertionError("ha: the ring's snapshot exceeds the frame limit")
+            t0 = time.perf_counter()
+            cluster.revive_meta(leader)
+            revived = cluster.metas[leader].ha.node
+            wait_for("the revived replica caught up",
+                     lambda: revived.last_applied >= leader_node.last_applied, 60,
+                     poll_s=0.01)
+            catchup_s = time.perf_counter() - t0
+            def in_sync():
+                ns = [d.ha.node for d in cluster.metas.values()]
+                hints = {n.node_id if n.is_leader else n.leader_hint for n in ns}
+                return len({n.last_applied for n in ns}) == 1 and len(hints) == 1 \
+                    and None not in hints
+
+            wait_for("three members in sync", in_sync, 30)
+            views = [cli_json("admin", "ring-status", "--om", cluster.peers[m])
+                     for m in sorted(cluster.metas)]
+            print("ha (b): ring-status " + "; ".join(
+                f"{v['replica_id']} {v['role']} term {v['term']} applied "
+                f"{v['last_applied']} leader {v['leader']}" for v in views))
+            if {len(v["members"]) for v in views} != {3} or \
+                    len({v["last_applied"] for v in views}) != 1 or \
+                    len({v["leader"] for v in views}) != 1:
+                raise AssertionError(f"ha (b): ring-status not three members in sync: {views}")
+            print(f"ha (b): the revived {leader} caught up in {catchup_s:.3f} s "
+                  f"(log to index {revived.last_applied})")
+            out["launches"]["ha_put_failover"] = launches
+            out["b"] = dict(failover_s=failover_s, stop_s=stop_s, catchup_s=catchup_s,
+                            retried_keys=retried_keys, retried_rpcs=retried_rpcs,
+                            seconds=secs, snapshot_bytes=snap)
+
+            # ---- (c) RATIS/THREE through the pipeline rings
+            once(oz.om.create_bucket, "ha", "ratis", "RATIS/THREE")
+            rb = vol.get_bucket("ratis")
+            rnames = [f"r-{i}" for i in range(n_ratis)]
+            rdatas = [np.frombuffer(rng.bytes(ratis_size), np.uint8) for _ in rnames]
+            rtt: dict = {}
+            orig_submit = ratis_client.XceiverClientRatis.submit
+
+            def timed_submit(self, request, timeout=30.0):
+                t = time.perf_counter()
+                try:
+                    return orig_submit(self, request, timeout)
+                finally:
+                    with lock:
+                        rtt.setdefault(request.get("verb"), []).append(
+                            time.perf_counter() - t)
+
+            ratis_client.XceiverClientRatis.submit = timed_submit
+            since = time.time()
+            try:
+                first_s, _ = put_all(rb, rnames[:2], rdatas[:2], 1)
+                info = cluster.metas[cluster.await_leader()].om.lookup_key(
+                    "ha", "ratis", rnames[1])
+                pipe = info["block_groups"][0]
+                members = list(pipe["nodes"])
+                raft_leader = next((m for m in members if by_id[m].xceiver_ratis.leader_of(
+                    int(pipe["pipeline_id"])) == m), None)
+                victim = next(m for m in members if m != raft_leader)
+                by_id[victim].stop()
+                cluster.datanodes.remove(by_id[victim])
+                rest_s, _ = put_all(rb, rnames[2:], rdatas[2:], 3)
+            finally:
+                ratis_client.XceiverClientRatis.submit = orig_submit
+            for name, data in zip(rnames, rdatas):
+                if not np.array_equal(rb.read_key(name), data):
+                    raise AssertionError(f"ha (c): {name} read back differs")
+                info = cluster.metas[cluster.await_leader()].om.lookup_key(
+                    "ha", "ratis", name)
+                for g in cluster.metas[cluster.await_leader()].om.key_block_groups(info):
+                    for m in g.pipeline.nodes:
+                        if m != victim and by_id[m].dn.get_committed_block_length(
+                                g.block_id) != g.length:
+                            raise AssertionError(f"ha (c): {m} holds a short {name}")
+            print(f"ha (c) spans: {span_totals(since)}")
+            ratis_s = first_s + rest_s
+            ratis_gib_s = n_ratis * ratis_size / ratis_s / gib
+            stats = {v: (len(t), statistics.median(t)) for v, t in rtt.items()}
+            print(f"ha (c): {n_ratis} x {ratis_size >> 20} MiB RATIS/THREE through the "
+                  f"pipeline ring of {members} (raft leader {raft_leader}): 2 keys in "
+                  f"{first_s:.3f} s, then {victim} stopped, {n_ratis - 2} keys on 3 threads "
+                  f"with a majority in {rest_s:.3f} s; {ratis_gib_s:.3f} GiB/s over all; raft "
+                  "round trips (client submit to applied answer) " + ", ".join(
+                      f"{v} {n} x {1e3 * med:.3f} ms median" for v, (n, med) in
+                      sorted(stats.items())) + "; every key read back byte-exact, the live "
+                  "members hold every committed length")
+            out["c"] = dict(gib_s=ratis_gib_s, seconds=ratis_s, victim=victim,
+                            rtt_s={v: med for v, (_, med) in stats.items()})
+
+            # ---- (d) a degraded GET of (a)'s keys, two datanodes down
+            info = cluster.metas[cluster.await_leader()].om.lookup_key("ha", "ec", names[0])
+            data_units = info["block_groups"][0]["nodes"][:6]
+            second = next(m for m in data_units if m != victim)
+            stop_server(by_id[second])
+            before = service_counts()
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+            for name, data in zip(names, datas):
+                if not np.array_equal(ec.read_key(name), data):
+                    raise AssertionError(f"ha (d): degraded {name} differs")
+            secs = time.perf_counter() - t0
+            launches = fused_kernel.launches.count
+            svc_d = service_delta(before)
+            check_launches_equal("ha (d) degraded GET", device, launches, svc_d)
+            if device.type == "cuda" and launches < 1:
+                raise AssertionError("ha (d): the degraded GET launched no decode")
+            restart_server(by_id[second])
+            failed = {}
+            for d in cluster.datanodes:
+                for k, v in d.failed_commands.items():
+                    failed[k] = failed.get(k, 0) + v
+            print(f"ha (d): degraded GET of {n_ec} x {ec_size >> 20} MiB with {victim} and "
+                  f"{second} down in {secs:.3f} s = {n_ec * ec_size / secs / gib:.3f} GiB/s, "
+                  f"byte-exact; decode launches {launches}, service dispatches "
+                  f"{svc_d['dispatches']}; failed SCM commands on the datanodes {failed}")
+            out["launches"]["ha_degraded_get"] = launches
+            out["d"] = dict(gib_s=n_ec * ec_size / secs / gib, failed_commands=failed)
+            oz.om.close()
+            oz.clients.close()
+            oz.ratis_clients.close()
+        finally:
+            cluster.shutdown()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3477,7 +3914,11 @@ def main() -> int:
                    statistics.mean(r["gib_s"] for r in put["service"]))
         s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed)
         lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed)
-        so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed)
+        # depth cut for ha_path's room (PERF.md section 4): 1000 keys per
+        # tinyg run and 200 on the stripe path, of the cell's 2000 and 500
+        so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed,
+                   1000, 64 * 1024, 200)
+        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -3507,7 +3948,7 @@ def main() -> int:
             "lifecycle_tier": lc["tier_launches"],
             "lifecycle_xor_reencode": lc["xor_launches"],
             "lifecycle_daemon_run_now": lc["daemon_launches"],
-            **so["launches"],
+            **so["launches"], **ha["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -196,6 +196,11 @@ class DatanodeClientFactory:
     def known_ids(self) -> list[str]:
         return sorted(set(self._local) | set(self._addresses))
 
+    def remote_address(self, dn_id: str) -> Optional[str]:
+        """The RPC address a remote datanode was registered with (the raft
+        pipeline clients share this address book)."""
+        return self._addresses.get(dn_id)
+
     def maybe_get(self, dn_id: str):
         c = self._local.get(dn_id)
         if c is not None:

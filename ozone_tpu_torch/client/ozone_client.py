@@ -18,9 +18,12 @@ path: at or under `inline_max` bytes the value rides the OM key row
 (`put_inline_key`), at or under `needle_max` it goes through the
 process-wide `client/slab.SlabPacker` (`OzoneClient.packer`); a GET of
 either reads the row or slices the needle out of its slab behind the
-needle's CRC gate. Left out for later slices: the Raft-ordered
-replicated writer, encryption (and so encrypted multipart uploads),
-snapshot paths, file checksums, rename, rewrite and copy.
+needle's CRC gate. With `ratis_clients` (a
+`net/ratis_service.RatisClientFactory`) a RATIS key of factor > 1 is
+written through the pipeline's Raft ring (`client/ratis_client.py`), as
+in the reference. Left out for later slices: encryption (and so
+encrypted multipart uploads), snapshot paths, file checksums, rename,
+rewrite and copy.
 """
 
 from __future__ import annotations
@@ -152,6 +155,19 @@ class OzoneBucket:
                 device=self.client.device,
                 # a gateway's tenant context wins over the client's class
                 qos_class=admission.ambient_qos(self.client.qos_class),
+            )
+        if (session.replication.type is ReplicationType.RATIS
+                and session.replication.factor > 1
+                and self.client.ratis_clients is not None):
+            from ozone_tpu_torch.client.ratis_client import RatisKeyWriter
+
+            return RatisKeyWriter(
+                allocate,
+                self.client.clients,
+                self.client.ratis_clients,
+                block_size=om.block_size,
+                checksum=ChecksumType(session.checksum_type),
+                bytes_per_checksum=session.bytes_per_checksum,
             )
         return ReplicatedKeyWriter(
             allocate,
@@ -362,12 +378,15 @@ class OzoneClient:
     """Entry point (the ObjectStore analog). `om` is an `OzoneManager` or a
     remote OM client; `device` is where the EC writers and readers run the
     codec; `qos_class` the codec service's scheduling class of this
-    client's batches."""
+    client's batches; `ratis_clients` (optional) orders RATIS/THREE writes
+    through the pipeline's Raft ring."""
 
     def __init__(self, om: OzoneManager, clients: DatanodeClientFactory,
-                 device="cuda", qos_class: str = "interactive"):
+                 device="cuda", qos_class: str = "interactive",
+                 ratis_clients=None):
         self.om = om
         self.clients = clients
+        self.ratis_clients = ratis_clients
         self.device = resolve_device(device)
         self.qos_class = qos_class
         self._packer = None

@@ -5,11 +5,11 @@ Port of `ozone_tpu/client/replicated.py` (the reference's KeyOutputStream
 replicas of the pipeline, one combined chunk-write-and-commit per member
 (the put-block piggyback), with a rollback of the members that took it
 when another member fails; reads fail over and hedge between replicas.
-The reference's downgrade to split chunk-write and put-block calls, for
-remote peers without the combined verb, waits for the remote transport.
-Chunk checksums are the host CRC32C (`utils/checksum.py`, the native
-library when it is built). The Raft-ordered writer is not ported: the
-port's OzoneClient writes every replicated key through this one.
+A subclass whose commits are ordered elsewhere (the Raft pipeline
+writer, `client/ratis_client.py`) turns the combined call off and takes
+the split phases: the chunk to every member, then `_commit_chunk` once
+`_data_phase_ok` holds. Chunk checksums are the host CRC32C
+(`utils/checksum.py`, the native library when it is built).
 """
 
 from __future__ import annotations
@@ -37,6 +37,11 @@ log = logging.getLogger(__name__)
 class ReplicatedKeyWriter:
     """Writes a key as replicated blocks: chunks fanned to every pipeline
     node, a block commit with each chunk."""
+
+    #: one combined chunk-write-and-commit call per member (the
+    #: reference's put-block piggyback); subclasses that order commits
+    #: through another path (the Raft ring) turn it off
+    _combined_commit = True
 
     def __init__(
         self,
@@ -92,13 +97,27 @@ class ReplicatedKeyWriter:
                 self.allocate_group, list(self._excluded),
                 tuple(self._excluded_containers))
             self._chunks = []
-            try:
-                create_group_containers(self.clients, self._group,
-                                        replica_indexed=False)
-            except StripeWriteError:
-                self._group = None  # the retry allocates without the failed
-                raise
+            self._create_containers(self._group)
         return self._group
+
+    def _create_containers(self, group: BlockGroup) -> None:
+        """Open the block's container on every member (the Raft path
+        orders the create through the pipeline leader). An unreachable
+        member raises StripeWriteError, so the retry excludes it."""
+        try:
+            create_group_containers(self.clients, group,
+                                    replica_indexed=False)
+        except StripeWriteError:
+            self._group = None  # the retry allocates without the failed
+            raise
+
+    def _commit_chunk(self, group: BlockGroup, info: ChunkInfo) -> None:
+        """Commit point of the split phases once the data phase holds: a
+        putBlock on every member here; the Raft path orders it through
+        the leader."""
+        bd = BlockData(group.block_id, [*self._chunks, info])
+        for dn_id in group.pipeline.nodes:
+            self.clients.get(dn_id).put_block(bd, writer=self._writer_id)
 
     def _flush_chunk(self) -> None:
         if self._buf_fill == 0:
@@ -141,11 +160,49 @@ class ReplicatedKeyWriter:
 
     def _write_and_commit(self, group: BlockGroup, info: ChunkInfo,
                           data) -> tuple:
-        """Data fan-out and block commit of one chunk, one combined call per
-        member (every port datanode client serves it). On a partial
-        failure the members that took the call roll back to the pre-chunk
-        record, so replicas never disagree on committed length. Returns
-        (ok, failed_nodes, container_closed, error)."""
+        """Data fan-out and block commit of one chunk: one combined call
+        per member (every port datanode client serves it), or the split
+        phases when the commit is ordered elsewhere. Returns (ok,
+        failed_nodes, container_closed, error)."""
+        if self._combined_commit:
+            return self._combined_write(group, info, data)
+        failed: list[str] = []
+        closed = False
+        err: Optional[Exception] = None
+        for dn_id in group.pipeline.nodes:
+            try:
+                self.clients.get(dn_id).write_chunk(
+                    group.block_id, info, data, writer=self._writer_id)
+            except StorageError as e:
+                err = e
+                if e.code == "INVALID_CONTAINER_STATE":
+                    # closed under us: reallocate without excluding a
+                    # healthy node, but never take this container again
+                    closed = True
+                    self._excluded_containers.append(group.container_id)
+                else:
+                    failed.append(dn_id)
+            except (KeyError, OSError) as e:
+                failed.append(dn_id)
+                err = e
+        if not closed and self._data_phase_ok(group, failed):
+            try:
+                self._commit_chunk(group, info)
+                return True, [], False, None
+            except (StorageError, KeyError, OSError) as e:
+                return False, [], False, e  # a commit failure: no node
+        return False, failed, closed, err  # to exclude
+
+    def _data_phase_ok(self, group: BlockGroup, failed: list[str]) -> bool:
+        """Whether the chunk fan-out suffices to commit: every member here;
+        the Raft path overrides it with a majority."""
+        return not failed
+
+    def _combined_write(self, group: BlockGroup, info: ChunkInfo,
+                        data) -> tuple:
+        """One combined call per member. On a partial failure the members
+        that took it roll back to the pre-chunk record, so replicas never
+        disagree on committed length."""
         failed: list[str] = []
         ok_nodes: list[str] = []
         closed = False

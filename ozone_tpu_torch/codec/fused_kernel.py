@@ -19,10 +19,11 @@ other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from functools import lru_cache
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -43,15 +44,45 @@ MIN_TILE, MAX_TILE = LANES * 16, 4096
 
 
 class LaunchCounter:
-    """Thread-safe count of kernel launches (writers run on many threads)."""
+    """Thread-safe count of kernel launches (writers run on many threads):
+    `count` since the last `reset()`, `total` since start. A caller that
+    counts its own dispatches passes the increment to `tallied()`; the
+    next launch on its thread runs it inside the same critical section,
+    so a reader that holds `held()` sees a launch and its dispatch
+    counted both or neither. Only the increments share the lock."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._local = threading.local()
         self.count = 0
+        self.total = 0
+
+    def held(self):
+        return self._lock
 
     def add(self) -> None:
         with self._lock:
             self.count += 1
+            self.total += 1
+            tally = getattr(self._local, "tally", None)
+            if tally is not None:
+                self._local.tally = None
+                tally()
+
+    @contextlib.contextmanager
+    def tallied(self, tally: Callable[[], None]):
+        """Run `tally` with the first launch this thread makes inside the
+        block; if it makes none (a CPU tensor runs the plain version),
+        run it when the block ends without an error."""
+        self._local.tally = tally
+        ok = False
+        try:
+            yield
+            ok = True
+        finally:
+            pending, self._local.tally = self._local.tally, None
+            if ok and pending is not None:
+                pending()
 
     def reset(self) -> None:
         with self._lock:

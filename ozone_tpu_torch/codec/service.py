@@ -58,6 +58,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ozone_tpu_torch.codec import fused_kernel
 from ozone_tpu_torch.codec.pipeline import finish_pull, host_buffer, start_pull
 from ozone_tpu_torch.storage.ids import StorageError
 from ozone_tpu_torch.utils.config import env_float
@@ -448,15 +449,19 @@ class CodecService:
                     METRICS.counter("tail_flushes").inc()
         t0 = time.monotonic()
         try:
-            outs = lane.fn(self._stage(lane, entries, rows))
-            if not isinstance(outs, tuple):
-                outs = (outs,)
-            # the copy back starts now, under the next batch's packing
-            pulled = start_pull(outs)
+            # the dispatch is counted with its launch, in the launch
+            # counter's critical section: a reader of both never sees one
+            # without the other
+            with fused_kernel.launches.tallied(
+                    METRICS.counter("dispatches").inc):
+                outs = lane.fn(self._stage(lane, entries, rows))
+                if not isinstance(outs, tuple):
+                    outs = (outs,)
+                # the copy back starts now, under the next batch's packing
+                pulled = start_pull(outs)
         except Exception as e:  # a fault of this dispatch: its submitters'
             self._resolve_error(entries, e)
             return
-        METRICS.counter("dispatches").inc()
         METRICS.counter("stripes_dispatched").inc(rows)
         METRICS.counter("slots_dispatched").inc(lane.width)
         METRICS.counter("coalesced_operations").inc(ops)

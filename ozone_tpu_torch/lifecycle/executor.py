@@ -118,6 +118,10 @@ class TieringExecutor:
         #: test hook: called as fn(key_state) right before each key's
         #: EC commit (the fence regression tests race an overwrite here)
         self.pre_commit_hook: Optional[Callable] = None
+        #: HA quorum barrier after each block allocation: the SCM
+        #: decision records must commit before data lands on the group
+        #: (a remote client gets this from the OM service)
+        self.alloc_barrier: Optional[Callable] = None
         #: device dispatches issued by the last transition_keys call
         self.last_dispatches = 0
 
@@ -271,6 +275,8 @@ class TieringExecutor:
         for g in old_groups:
             stripes = max(1, -(-g.length // (k * cell)))
             ng = self.om.allocate_block(session)
+            if self.alloc_barrier is not None:
+                self.alloc_barrier()
             create_group_containers(self.clients, ng,
                                     replica_indexed=True)
             gs = _GroupState(

@@ -6,9 +6,9 @@ crash of the sweeper comes from three properties:
 1. **Term fencing**: every cursor checkpoint carries the sweeper's
    fencing term, and the deterministic apply
    (`om/requests.LifecycleCheckpoint`) rejects any checkpoint whose term
-   is not the fenced one. The port has no metadata ring yet, so
-   `term_fn` answers 0 unless the caller passes one; the rejection codes
-   are the reference's at every term.
+   is not the fenced one. Under HA the metadata daemon passes the ring's
+   raft term and its readiness as leader; standalone, `term_fn` answers
+   0. The rejection codes are the reference's at every term.
 2. **Transitions commit before the cursor does**: a crash between the
    two re-scans at most one page, and re-scans are harmless (a
    transitioned key is EC and no longer matches; an expired key has no
@@ -78,7 +78,8 @@ class LifecycleService:
                  leader_fn: Optional[Callable[[], bool]] = None,
                  throttle=None, page: int = 256, batch_keys: int = 128,
                  sweep_deadline_s: Optional[float] = None,
-                 device="cuda"):
+                 device="cuda",
+                 alloc_barrier: Optional[Callable] = None):
         self.om = om
         #: where the tiering encode and the compaction's slab flush run
         #: (resolved at the first sweep that needs it)
@@ -97,6 +98,9 @@ class LifecycleService:
                 "OZONE_TPU_LIFECYCLE_DEADLINE_S",
                 DEFAULT_SWEEP_DEADLINE_S)
         self.sweep_deadline_s = sweep_deadline_s
+        #: HA quorum barrier after block allocations (the SCM decision
+        #: records must commit before data lands on them)
+        self.alloc_barrier = alloc_barrier
         self._fenced_term: Optional[int] = None
         self._executor = None
         # one sweep at a time per service: a run-now RPC racing the
@@ -119,6 +123,7 @@ class LifecycleService:
             self._executor = TieringExecutor(self.om, clients,
                                              throttle=self.throttle,
                                              device=self.device)
+            self._executor.alloc_barrier = self.alloc_barrier
         return self._executor
 
     def state(self) -> dict:

@@ -20,23 +20,45 @@ raising when CUDA is absent; "cpu" runs the plain versions). A command
 that fails is logged and its error raised from the heartbeat that ran
 it; nothing is re-run on the CPU.
 
+Every datanode also hosts the raft groups of its RATIS pipelines
+(`storage/ratis.RatisXceiverServer`, XceiverServerRatis): the SCM's
+`join-pipeline` command opens a group (recorded in `ratis/groups.json`
+and re-opened after a restart), `leave-pipeline` retires it, and a
+RATIS container's close is ordered through its group (the leader
+submits it; the others apply it from the log). The raft RPCs and the
+client's Submit/Watch ride the same RpcServer.
+
 `ScmOmDaemon` runs the SCM and the OM behind one RPC server, with the
 SCM's control loops and the OM's key-deleting service on a background
 thread, and turns a container going CLOSING into close commands to its
-replicas. The same thread runs the lifecycle sweep and the slab
-compaction every OZONE_TPU_LIFECYCLE_PERIOD_S (60 s) on the OM's
-`LifecycleService`, whose datanode clients follow the heartbeat-learned
-address book; a `lifecycle run-now` runs the same service. Its codec (the
-tiering encode, the compaction's slab flush) runs on `device`, resolved
-at the first sweep that has work for it.
+replicas and a RATIS pipeline's creation and retirement into join and
+leave commands to its members. The same thread runs the lifecycle
+sweep and the slab compaction every OZONE_TPU_LIFECYCLE_PERIOD_S (60 s)
+on the OM's `LifecycleService`, whose datanode clients follow the
+heartbeat-learned address book; a `lifecycle run-now` runs the same
+service. Its codec (the tiering encode, the compaction's slab flush)
+runs on `device`, resolved at the first sweep that has work for it.
 
-Left out: HA (so the sweeper's fencing term is 0), secure mode and
-certificate enrolment, block tokens, raft pipelines, operational state,
-Recon, the HTTP server, geo replication and its cadence, and sharding.
+With `ha_id` and `ha_peers` the daemon is one replica of the metadata
+ring (`consensus/meta_ring.MetaHARing`, the reference's OM HA and SCM
+HA on one ring): every OM write goes through the ring; the OM and SCM
+services refuse clients on a replica that is not the ready leader
+(OM_NOT_LEADER / SCM_NOT_LEADER with the leader's address), an
+allocation is answered after its SCM decision records commit, the
+container close and the ring's operator verbs go through the ring, and
+the address book follows the ring's membership. Only the leader runs
+the background loops; every replica compacts its own raft log. The
+lifecycle sweeper is fenced with the ring's term and runs on the ready
+leader only.
+
+Left out: secure mode and certificate enrolment, block tokens,
+operational state, Recon, the HTTP server, geo replication and its
+cadence, and sharding.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import shutil
 import threading
@@ -49,10 +71,13 @@ from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.net.dn_service import DatanodeRpcService
 from ozone_tpu_torch.net.om_service import OmRpcService
+from ozone_tpu_torch.net.raft_transport import RaftRpcService
+from ozone_tpu_torch.net.ratis_service import RatisRpcService
 from ozone_tpu_torch.net.rpc import RpcServer
 from ozone_tpu_torch.net.scm_service import RemoteScmClient, ScmRpcService
 from ozone_tpu_torch.om.om import OzoneManager
 from ozone_tpu_torch.scm.block_deletion import DeleteBlocksCommand
+from ozone_tpu_torch.scm.pipeline import ReplicationType
 from ozone_tpu_torch.scm.replication_manager import (
     DeleteReplicaCommand,
     ReplicateCommand,
@@ -62,6 +87,7 @@ from ozone_tpu_torch.storage.container_packer import import_container
 from ozone_tpu_torch.storage.datanode import Datanode
 from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
 from ozone_tpu_torch.storage.ids import StorageError
+from ozone_tpu_torch.storage.ratis import RatisXceiverServer
 from ozone_tpu_torch.storage.reconstruction import (
     ECReconstructionCoordinator,
     ReconstructionCommand,
@@ -105,6 +131,14 @@ class DatanodeDaemon:
             raise
         self.service = DatanodeRpcService(self.dn, self.server,
                                           datapath_port=self.advertise)
+        # raft pipelines (XceiverServerRatis): the raft RPCs and the
+        # client's Submit/Watch ride the same RpcServer
+        self.raft_rpc = RaftRpcService(self.server)
+        self.xceiver_ratis = RatisXceiverServer(
+            self.dn, Path(root), self.server.address,
+            rpc_service=self.raft_rpc)
+        self.ratis_service = RatisRpcService(self.xceiver_ratis, self.server)
+        self._groups_file = Path(root) / "ratis" / "groups.json"
         self.scm = RemoteScmClient(scm_address)
         self.rack = rack
         self.heartbeat_interval = heartbeat_interval_s
@@ -155,6 +189,7 @@ class DatanodeDaemon:
 
     def start(self) -> None:
         self.server.start()
+        self._rejoin_pipelines()
         try:
             self._register()
         except StorageError as e:
@@ -275,13 +310,87 @@ class DatanodeDaemon:
             self._replicate(cmd)
         elif isinstance(cmd, dict) and cmd.get("type") == "register":
             self._register()
+        elif isinstance(cmd, dict) and cmd.get("type") == "join-pipeline":
+            self._join_pipeline(cmd)
+        elif isinstance(cmd, dict) and cmd.get("type") == "leave-pipeline":
+            self._leave_pipeline(int(cmd["pipeline_id"]))
+            # the group stopped: a replica that missed the raft close
+            # converges by a direct close
+            if cmd.get("container_id") is not None:
+                try:
+                    self.dn.close_container(int(cmd["container_id"]))
+                except StorageError:  # already closed, or absent
+                    pass
         elif isinstance(cmd, dict) and cmd.get("type") == "close-container":
-            try:
-                self.dn.close_container(int(cmd["container_id"]))
-            except StorageError:  # already closed, or not here yet
-                pass
+            self._close_container(cmd)
         else:
             log.debug("%s ignoring command %r", self.dn.id, cmd)
+
+    # ------------------------------------------------------ raft pipelines
+    def _read_groups(self) -> dict:
+        if not self._groups_file.exists():
+            return {}
+        try:
+            return json.loads(self._groups_file.read_text())
+        except ValueError:
+            log.exception("%s: corrupt %s", self.dn.id, self._groups_file)
+            return {}
+
+    def _write_groups(self, groups: dict) -> None:
+        self._groups_file.parent.mkdir(parents=True, exist_ok=True)
+        tmp = self._groups_file.with_suffix(".tmp")
+        tmp.write_text(json.dumps(groups))
+        tmp.replace(self._groups_file)
+
+    def _rejoin_pipelines(self) -> None:
+        """Re-open the raft groups this node served before a restart (the
+        reference reloads its RaftGroups from the ratis storage)."""
+        for g in self._read_groups().values():
+            try:
+                self.xceiver_ratis.join(int(g["pipeline_id"]), g["peers"])
+            except Exception:
+                log.exception("%s: rejoin of pipeline %s failed",
+                              self.dn.id, g.get("pipeline_id"))
+
+    def _join_pipeline(self, cmd: dict) -> None:
+        pid = int(cmd["pipeline_id"])
+        peers = dict(cmd["peers"])
+        self.xceiver_ratis.join(pid, peers)
+        groups = self._read_groups()
+        groups[str(pid)] = {"pipeline_id": pid, "peers": peers}
+        self._write_groups(groups)
+
+    def _leave_pipeline(self, pid: int) -> None:
+        """Retire a closed pipeline's raft group: stop the node, drop it
+        from the rejoin record, delete its log (the data stays)."""
+        self.xceiver_ratis.leave(pid)
+        groups = self._read_groups()
+        if groups.pop(str(pid), None) is not None:
+            self._write_groups(groups)
+        shutil.rmtree(self._groups_file.parent
+                      / self.xceiver_ratis.group_id(pid), ignore_errors=True)
+
+    def _close_container(self, cmd: dict) -> None:
+        cid = int(cmd["container_id"])
+        pid = cmd.get("pipeline_id")
+        if pid is not None and self.xceiver_ratis.get(int(pid)) is not None:
+            # RATIS: ordered through the ring after the writes in flight;
+            # only the leader submits, the others apply it from the log
+            from ozone_tpu_torch.client import resilience
+
+            try:
+                self.xceiver_ratis.submit(int(pid), {
+                    "verb": "close_container", "container_id": cid,
+                }, timeout=resilience.op_timeout(10.0, "close_container"))
+            except StorageError as e:
+                if e.code != "NOT_LEADER":
+                    log.warning("%s: raft close of container %d failed: %s",
+                                self.dn.id, cid, e)
+            return
+        try:
+            self.dn.close_container(cid)
+        except StorageError:  # already closed, or not here yet
+            pass
 
     def _replicate(self, cmd: ReplicateCommand) -> None:
         """Pull the source's packed replica and import it here
@@ -296,6 +405,7 @@ class DatanodeDaemon:
         for t in (self._hb, self._scanner):
             if t is not None:
                 t.join(timeout=5)
+        self.xceiver_ratis.stop()
         self.server.stop()
         self.stop_datapath()
         self.scm.close()
@@ -304,7 +414,9 @@ class DatanodeDaemon:
 
 
 class ScmOmDaemon:
-    """Metadata server process: SCM + OM behind one RPC endpoint."""
+    """Metadata server process: SCM + OM behind one RPC endpoint; with
+    `ha_id` and `ha_peers` ({id: "host:port"}, this replica included)
+    one replica of the metadata ring."""
 
     def __init__(
         self,
@@ -319,14 +431,16 @@ class ScmOmDaemon:
         background_interval_s: float = 1.0,
         placement_seed: Optional[int] = None,
         device="cuda",
+        ha_id: Optional[str] = None,
+        ha_peers: Optional[dict[str, str]] = None,
     ):
         self.scm = StorageContainerManager(
             min_datanodes=min_datanodes, container_size=container_size,
             placement_seed=placement_seed, stale_after_s=stale_after_s,
-            dead_after_s=dead_after_s)
+            dead_after_s=dead_after_s, db_path=Path(om_db).parent / "scm.db")
         self.server = RpcServer(host, port)
         self.scm_service = ScmRpcService(self.scm, self.server)
-        self.scm.containers.on_container_closing = self._announce_close
+        self._wire_pipeline_hooks()
         self.om = OzoneManager(Path(om_db), self.scm, block_size=block_size)
         self.om_service = OmRpcService(
             self.om, self.server,
@@ -336,9 +450,9 @@ class ScmOmDaemon:
         self._bg_interval = background_interval_s
         self._bg_stop = threading.Event()
         self._bg: Optional[threading.Thread] = None
-        # the lifecycle sweeper: leader-singleton and term-fenced in the
-        # reference; here the only OM, at term 0. Its datanode clients
-        # resolve lazily from heartbeat-learned addresses, and
+        # the lifecycle sweeper: leader-singleton on the metadata ring and
+        # fenced with its raft term (term 0 without a ring). Its datanode
+        # clients resolve lazily from heartbeat-learned addresses, and
         # OZONE_TPU_LIFECYCLE_MBPS paces its source reads
         from ozone_tpu_torch.lifecycle.service import LifecycleService
         from ozone_tpu_torch.utils.config import env_float
@@ -350,31 +464,185 @@ class ScmOmDaemon:
             from ozone_tpu_torch.utils.throttle import Throttle
 
             throttle = Throttle(mbps * 1024 * 1024, metrics=self.om.metrics)
+        self.ha = None
+        self._ha_peers = dict(ha_peers or {})
         self.lifecycle = LifecycleService(
             self.om, clients_fn=self._lifecycle_client_factory,
+            term_fn=lambda: (self.ha.node.storage.term
+                             if self.ha is not None else 0),
+            leader_fn=lambda: (self.ha.is_ready
+                               if self.ha is not None else True),
             throttle=throttle,
             # tighter than the standalone 300 s: the sweep shares the
             # background thread with the SCM loops and key deletion
             sweep_deadline_s=env_float("OZONE_TPU_LIFECYCLE_DEADLINE_S",
                                        30.0),
-            device=device)
+            device=device,
+            alloc_barrier=lambda: (self.ha._await_records()
+                                   if self.ha is not None else None))
         self.om.lifecycle = self.lifecycle
         self.om.scm_lock = self.scm_service.lock
         #: seconds between lifecycle sweeps (and slab compactions)
         self._lc_period = env_float("OZONE_TPU_LIFECYCLE_PERIOD_S", 60.0)
         self._lc_last = time.monotonic()
+        if ha_id is not None:
+            self._init_ha(ha_id, Path(om_db).parent / "meta-raft")
 
     @property
     def address(self) -> str:
         return self.server.address
 
-    def _announce_close(self, c) -> None:
-        """A container went CLOSING: every replica gets a close command on
-        its next heartbeat; their CLOSED reports mark it CLOSED."""
-        for dn in (c.pipeline.nodes if c.pipeline else []):
-            self.scm.nodes.queue_command(
-                dn, {"type": "close-container", "container_id": c.id})
+    # ------------------------------------------------------- SCM hooks
+    def _wire_pipeline_hooks(self) -> None:
+        """RATIS pipelines become raft groups on their members
+        (RatisPipelineProvider): join on creation, leave on retirement,
+        and a RATIS container closes through its group."""
+        from ozone_tpu_torch.scm.pipeline import PipelineState
 
+        def raft_pipeline(p) -> bool:
+            return (p is not None
+                    and p.replication.type is ReplicationType.RATIS
+                    and p.replication.factor > 1)
+
+        def announce_pipeline(p) -> None:
+            if not raft_pipeline(p):
+                return
+            peers = {dn: self.scm_service.addresses.get(dn, "")
+                     for dn in p.nodes}
+            for dn in p.nodes:
+                self.scm.nodes.queue_command(dn, {
+                    "type": "join-pipeline", "pipeline_id": p.id,
+                    "peers": peers})
+
+        def announce_close(c) -> None:
+            # a RATIS close is ordered after every replicated write in
+            # flight; EC replicas close directly
+            via_raft = raft_pipeline(c.pipeline)
+            for dn in (c.pipeline.nodes if c.pipeline else []):
+                self.scm.nodes.queue_command(dn, {
+                    "type": "close-container", "container_id": c.id,
+                    "pipeline_id": c.pipeline.id if via_raft else None})
+
+        def retire_pipeline(p) -> None:
+            if not raft_pipeline(p):
+                return
+            # the (1:1) container rides along, so a member that missed
+            # the raft close still converges once the group stops
+            cid = next((c.id for c in self.scm.containers.containers()
+                        if c.pipeline is not None and c.pipeline.id == p.id),
+                       None)
+            for dn in p.nodes:
+                self.scm.nodes.queue_command(dn, {
+                    "type": "leave-pipeline", "pipeline_id": p.id,
+                    "container_id": cid})
+
+        def reannounce_pipelines_of(dn_id: str) -> None:
+            for p in self.scm.containers.pipelines():
+                # a retired pipeline is never revived by a re-registration
+                if dn_id in p.nodes and p.state is PipelineState.OPEN:
+                    announce_pipeline(p)
+
+        self.scm.containers.on_pipeline_created = announce_pipeline
+        self.scm.containers.on_container_closing = announce_close
+        self.scm.containers.on_pipeline_closed = retire_pipeline
+        self.scm_service.on_register = reannounce_pipelines_of
+
+    # --------------------------------------------------------------- HA
+    def _leader_address(self, hint: Optional[str]) -> str:
+        return self._ha_peers.get(hint or "", "")
+
+    def _ha_call(self, fn, not_leader_code: str):
+        """Run a ring operation, turning NotRaftLeaderError into the wire
+        error (with the leader's address) clients fail over on, and an
+        operator's input error into INVALID."""
+        from ozone_tpu_torch.consensus.raft import NotRaftLeaderError
+
+        try:
+            return fn()
+        except NotRaftLeaderError as e:
+            raise StorageError(not_leader_code,
+                               self._leader_address(e.leader_hint))
+        except (ValueError, RuntimeError) as e:
+            raise StorageError("INVALID", str(e))
+
+    def _init_ha(self, ha_id: str, raft_dir: Path) -> None:
+        from ozone_tpu_torch.consensus.meta_ring import MetaHARing
+        from ozone_tpu_torch.net.raft_transport import RpcRaftTransport
+        from ozone_tpu_torch.om import requests as rq
+
+        raft_rpc = RaftRpcService(self.server)
+        self._ha_transport = RpcRaftTransport("meta-ha", self._ha_peers)
+        self.ha = MetaHARing(self.om, self.scm, raft_dir, ha_id,
+                             list(self._ha_peers),
+                             transport=self._ha_transport)
+        raft_rpc.register("meta-ha", self.ha.node)
+        om = self.om
+
+        def ha_submit(request):
+            with om.metrics.histogram(type(request).__name__).time():
+                result = self._ha_call(lambda: self.ha.submit_om(request),
+                                       "OM_NOT_LEADER")
+            om.metrics.counter("write_ops").inc()
+            return result
+
+        # every OM write goes through the ring (the OM's methods all
+        # funnel into submit); reads are leader-gated at the service edge
+        om.submit = ha_submit
+        om.prepare = lambda: self._ha_call(self.ha.prepare_om,
+                                           "OM_NOT_LEADER")
+        om.cancel_prepare = lambda: self._ha_call(self.ha.cancel_prepare_om,
+                                                  "OM_NOT_LEADER")
+        self.om_service.gate = self._leader_gate
+        self.om_service.scm_barrier = lambda: self._ha_call(
+            self.ha._await_records, "OM_NOT_LEADER")
+        self.om_service.applied_index_fn = lambda: self.ha.node.last_applied
+
+        def scm_gate():
+            if not self.ha.is_ready:
+                raise StorageError("SCM_NOT_LEADER",
+                                   self._leader_address(self.ha.leader_hint))
+
+        self.scm_service.gate = scm_gate
+        self.scm_service.barrier = lambda: self._ha_call(
+            self.ha._await_records, "SCM_NOT_LEADER")
+        self.scm_service.admin_submitter = lambda op, target: self._ha_call(
+            lambda: self.ha.submit_admin(op, target), "SCM_NOT_LEADER")
+
+        def ring_ops(op, target):
+            if op == "ring-add":
+                node_id, _, address = str(target).partition("=")
+                if not address:
+                    raise StorageError("INVALID",
+                                       "ring-add needs id=host:port")
+                return self.ha.ring_add(node_id, address)
+            if op == "ring-transfer":
+                return self.ha.ring_transfer(str(target))
+            return self.ha.ring_remove(str(target))
+
+        self.scm_service.ring_ops = lambda op, target: self._ha_call(
+            lambda: ring_ops(op, target), "SCM_NOT_LEADER")
+        self.scm_service.ring_status = self.ha.ring_status
+
+        def on_ring_config(members: dict) -> None:
+            # config entries carry the peers' addresses: the leader-hint
+            # address book follows the ring
+            self._ha_peers = {k: (v or self._ha_peers.get(k, ""))
+                              for k, v in members.items()}
+
+        self.ha.node.on_config = on_ring_config
+        self.scm_service.ring_provider = \
+            lambda: [a for a in self._ha_peers.values() if a]
+
+    def _leader_gate(self) -> None:
+        # the ready leader, not just the leader: a fresh leader applies
+        # the earlier terms' committed entries (its no-op) before it
+        # serves, or a failover client could read stale state
+        if self.ha is None or self.ha.is_ready:
+            return
+        raise StorageError("OM_NOT_LEADER",
+                           self._leader_address(self.ha.leader_hint))
+
+    # -------------------------------------------------------- lifecycle
     def _lifecycle_client_factory(self) -> DatanodeClientFactory:
         """Datanode clients for the lifecycle executor, refreshed from the
         heartbeat-learned address book before each sweep."""
@@ -392,7 +660,19 @@ class ScmOmDaemon:
         """One pass of the SCM's control loops and the OM's key-deleting
         service; every OZONE_TPU_LIFECYCLE_PERIOD_S, a lifecycle sweep
         and a slab compaction after it (outside the SCM lock: they
-        allocate blocks and write to datanodes through the RPC)."""
+        allocate blocks and write to datanodes through the RPC). Under
+        HA every replica first compacts its raft log behind a snapshot
+        once 512 entries sit past the last one; the rest runs on the
+        leader only."""
+        if self.ha is not None:
+            node = self.ha.node
+            if node.last_applied - node.storage.snapshot_index > 512:
+                try:
+                    node.take_snapshot()
+                except Exception:
+                    log.exception("raft log compaction failed")
+            if not self.ha.is_leader:
+                return
         with self.scm_service.lock:
             self.scm.run_background_once()
             self.om.run_key_deleting_service_once()
@@ -404,6 +684,8 @@ class ScmOmDaemon:
 
     def start(self) -> None:
         self.server.start()
+        if self.ha is not None:
+            self.ha.start()
 
         def loop():
             while not self._bg_stop.wait(self._bg_interval):
@@ -420,7 +702,12 @@ class ScmOmDaemon:
         self._bg_stop.set()
         if self._bg is not None:
             self._bg.join(timeout=30)
+        # the server first: calls in flight finish (within its grace)
+        # against a ring that still commits
         self.server.stop()
+        if self.ha is not None:
+            self.ha.stop()
+            self._ha_transport.close()
         if self._lifecycle_clients is not None:
             self._lifecycle_clients.close()
         self.om.close()

@@ -15,8 +15,14 @@ which runs in the metadata daemon's process). `RemoteOmClient` (the
 reference's GrpcOmClient) has the attribute surface `OzoneClient`, the
 slab packer and the S3 gateway need from `OzoneManager`, so all work
 unchanged against a remote OM, and fails over across a comma-separated
-address list. Left out: sharding, delegation tokens and the caller
-identity, ACLs, tenants, snapshots, quotas and geo replication.
+address list. Under HA the daemon sets `gate` (every verb on a replica
+that is not the ready leader answers OM_NOT_LEADER with the leader's
+address),
+`scm_barrier` (an allocation is answered only once its SCM decision
+records are quorum-committed) and `applied_index_fn` (the replica's
+applied index, stamped on answers as `_applied`). Left out: sharding,
+delegation tokens and the caller identity, ACLs, tenants, snapshots,
+quotas and geo replication.
 """
 
 from __future__ import annotations
@@ -58,8 +64,12 @@ class OmRpcService:
         self.addresses_provider = addresses_provider or (lambda: {})
         #: callable -> dn_id -> topology location, shipped with allocations
         self.locations_provider = locations_provider or (lambda: {})
+        #: HA hooks, set by the daemon (see the module docstring)
+        self.gate = None
+        self.scm_barrier = None
+        self.applied_index_fn = None
         w = self._wrap
-        server.add_service(SERVICE, {
+        methods = {
             "CreateVolume": w(lambda m: om.create_volume(m["volume"])),
             "DeleteVolume": w(lambda m: om.delete_volume(m["volume"])),
             "VolumeInfo": w(lambda m: om.volume_info(m["volume"])),
@@ -135,7 +145,17 @@ class OmRpcService:
                 m.get("max_keys"))),
             "SlabCompactionRunNow": w(lambda m: om.run_slab_compaction_once(
                 m.get("max_slabs"))),
-        })
+        }
+        server.add_service(SERVICE, {n: self._gated(fn)
+                                     for n, fn in methods.items()})
+
+    def _gated(self, fn):
+        def method(req) -> bytes:
+            if self.gate is not None:
+                self.gate()
+            return fn(req)
+
+        return method
 
     def _wrap(self, fn, with_addresses: bool = False):
         def method(req) -> bytes:
@@ -145,6 +165,8 @@ class OmRpcService:
             except OMError as e:
                 raise StorageError(e.code, e.msg)
             resp = {"result": out}
+            if self.applied_index_fn is not None:
+                resp["_applied"] = self.applied_index_fn()
             if with_addresses:
                 # located reads: the address book of the key's own
                 # datanodes, so a client that never wrote can read
@@ -186,6 +208,10 @@ class OmRpcService:
             g = self.om.scm.allocate_block(
                 ReplicationConfig.parse(m["replication"]), self.om.block_size,
                 m.get("excluded"), m.get("excluded_containers"))
+        if self.scm_barrier is not None:
+            # HA: the allocation must survive a leader failover before
+            # the client writes data against it
+            self.scm_barrier()
         return wire.pack({"group": g.to_json(),
                           "addresses": self.addresses_provider(),
                           "locations": self.locations_provider()})
@@ -196,6 +222,8 @@ class OmRpcService:
             g = self.om.allocate_slab_group(
                 m["replication"], m.get("excluded"),
                 m.get("excluded_containers"))
+        if self.scm_barrier is not None:
+            self.scm_barrier()
         return wire.pack({"group": g.to_json(),
                           "addresses": self.addresses_provider(),
                           "locations": self.locations_provider()})
@@ -217,7 +245,10 @@ class OmRpcService:
                                       for g in m["groups"]], m["size"])
         except OMError as e:
             raise StorageError(e.code, e.msg)
-        return wire.pack({})
+        resp = {}
+        if self.applied_index_fn is not None:
+            resp["_applied"] = self.applied_index_fn()
+        return wire.pack(resp)
 
 
     def _commit_multipart_part(self, req) -> bytes:

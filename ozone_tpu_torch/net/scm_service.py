@@ -8,10 +8,17 @@ serialized with a type tag and the node address book so a remote
 datanode can rebuild against peers it has never met; the OM and tools
 allocate blocks, list containers and read the cluster status.
 `ScmRpcService` is `ScmGrpcService` and `RemoteScmClient` is
-`GrpcScmClient`. Of the admin verbs, container info, container close and
-safemode status are ported. Left out: HA gates and barriers, secret-key
-distribution, ring and certificate verbs, decommission, the balancer and
-pipeline verbs.
+`GrpcScmClient`. Of the admin verbs, container info, container close,
+safemode status and the metadata ring's verbs (`ring-status` from any
+replica; `ring-add`, `ring-remove`, `ring-transfer` on the leader) are
+ported. Under HA the daemon sets the hooks: `gate` refuses an
+allocation or a mutating verb on a follower with SCM_NOT_LEADER and the
+leader's address, `barrier` holds the answer until the decision records
+of an allocation are quorum-committed, `admin_submitter` sends the
+container close through the ring, and `ring_provider` ships the ring's
+addresses on every register and heartbeat answer, which the remote
+client adopts. Left out: secret-key distribution, certificate verbs,
+decommission, the balancer and pipeline verbs.
 """
 
 from __future__ import annotations
@@ -101,16 +108,32 @@ class ScmRpcService:
         #: serializes the SCM's state between the RPC workers, the OM's
         #: allocations and the daemon's background loops
         self.lock = threading.RLock()
-        server.add_service(SERVICE, {
-            name: self._locked(fn) for name, fn in {
-                "Register": self._register,
-                "Heartbeat": self._heartbeat,
-                "AllocateBlock": self._allocate_block,
-                "NodeAddresses": self._node_addresses,
-                "Status": self._status,
-                "ListContainers": self._list_containers,
-                "AdminOp": self._admin_op,
-            }.items()})
+        #: hook fired when a node (re)registers with a new address (the
+        #: daemon re-announces the node's pipelines through it)
+        self.on_register = None
+        #: HA hooks, set by the daemon (see the module docstring);
+        #: registration and heartbeats stay open on every replica
+        self.gate = None
+        self.barrier = None
+        self.admin_submitter = None
+        #: callable(op, target) for ring-add/ring-remove/ring-transfer
+        self.ring_ops = None
+        #: callable -> this replica's ring view; any replica answers
+        self.ring_status = None
+        #: callable -> the ring's replica addresses
+        self.ring_provider = None
+        locked = {name: self._locked(fn) for name, fn in {
+            "Register": self._register,
+            "Heartbeat": self._heartbeat,
+            "NodeAddresses": self._node_addresses,
+            "Status": self._status,
+            "ListContainers": self._list_containers,
+        }.items()}
+        # these take the lock themselves: a ring operation or a quorum
+        # barrier must not hold heartbeats back while it waits
+        server.add_service(SERVICE, {**locked,
+                                     "AllocateBlock": self._allocate_block,
+                                     "AdminOp": self._admin_op})
 
     def _locked(self, fn):
         @functools.wraps(fn)
@@ -122,10 +145,21 @@ class ScmRpcService:
 
     def _register(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        changed = self.addresses.get(m["dn_id"]) != m["address"]
         self.addresses[m["dn_id"]] = m["address"]
         self.scm.register_datanode(m["dn_id"], m.get("rack", "/default-rack"),
                                    m.get("capacity_bytes", 0))
-        return wire.pack({})
+        if changed and self.on_register is not None:
+            # a restarted node binds a new port: its pipelines' peers
+            # learn the new address
+            self.on_register(m["dn_id"])
+        return wire.pack(self._ring_fields())
+
+    def _ring_fields(self) -> dict:
+        """The ring's addresses, so datanodes follow a grown ring."""
+        if self.ring_provider is None:
+            return {}
+        return {"ring": list(self.ring_provider())}
 
     def _heartbeat(self, req) -> bytes:
         m, _ = wire.unpack(req)
@@ -135,13 +169,19 @@ class ScmRpcService:
             deleted_block_acks=m.get("deleted_block_acks"))
         book = dict(self.addresses)
         return wire.pack({"commands": [serialize_command(c, book)
-                                       for c in cmds]})
+                                       for c in cmds],
+                          **self._ring_fields()})
 
     def _allocate_block(self, req) -> bytes:
+        if self.gate is not None:
+            self.gate()  # a follower-local allocation would never replicate
         m, _ = wire.unpack(req)
-        g = self.scm.allocate_block(ReplicationConfig.parse(m["replication"]),
-                                    m["block_size"], m.get("excluded"),
-                                    m.get("excluded_containers"))
+        with self.lock:
+            g = self.scm.allocate_block(
+                ReplicationConfig.parse(m["replication"]), m["block_size"],
+                m.get("excluded"), m.get("excluded_containers"))
+        if self.barrier is not None:
+            self.barrier()  # the allocation must survive a leader failover
         return wire.pack({"group": g.to_json(),
                           "addresses": dict(self.addresses)})
 
@@ -157,11 +197,40 @@ class ScmRpcService:
         """Operator verbs (the `ozone admin` analog)."""
         m, _ = wire.unpack(req)
         op, target = m["op"], m.get("target")
+        if op == "ring-status":
+            # any replica answers (followers report the leader hint)
+            if self.ring_status is None:
+                raise StorageError("UNSUPPORTED_REQUEST",
+                                   "not an HA deployment")
+            return wire.pack(self.ring_status())
+        if op in ("ring-add", "ring-remove", "ring-transfer"):
+            # a membership change is its own replication (the config
+            # entry rides the raft log); a transfer acts on the leader
+            if self.ring_ops is None:
+                raise StorageError("UNSUPPORTED_REQUEST",
+                                   "not an HA deployment")
+            if self.gate is not None:
+                self.gate()
+            out = self.ring_ops(op, target)
+            return wire.pack(out if op == "ring-transfer"
+                             else {"members": out})
+        if op == "close-container":
+            if self.gate is not None:
+                self.gate()
+            if self.admin_submitter is not None:
+                return wire.pack(self.admin_submitter(op, target))
+            with self.lock:
+                return wire.pack(self.scm.apply_admin_op(op, target))
+        with self.lock:
+            return self._local_admin_op(op, target)
+
+    def _local_admin_op(self, op: str, target) -> bytes:
+        """The read-only admin verbs, answered from this replica."""
         scm = self.scm
         if op == "safemode-status":
             out = {"safemode": scm.safemode.in_safemode(),
                    **scm.safemode.status()}
-        elif op in ("container-info", "close-container"):
+        elif op == "container-info":
             try:
                 cid = int(str(target), 0)
             except (TypeError, ValueError):
@@ -170,13 +239,7 @@ class ScmRpcService:
             if c is None:
                 raise StorageError("CONTAINER_NOT_FOUND",
                                    f"no container {target}")
-            if op == "close-container":
-                # the normal close flow: CLOSING, and close commands to
-                # the replicas; their reports mark it CLOSED
-                scm.containers.finalize_container(c.id)
-                out = {"container": c.id, "state": c.state.value}
-            else:
-                out = {
+            out = {
                     "id": c.id, "state": c.state.value,
                     "replication": str(c.replication),
                     "pipeline": c.pipeline.id if c.pipeline else None,
@@ -270,11 +333,18 @@ class RemoteScmClient:
             raise last
         return out
 
+    def _follow_ring(self, responses: list[dict]) -> None:
+        """Adopt the ring's addresses shipped on the answers, so a
+        datanode follows a metadata ring that grew or shrank online."""
+        for m in responses:
+            if m.get("ring"):
+                self._pool.reconcile(m["ring"])
+
     def register(self, dn_id: str, address: str, rack: str = "/default-rack",
                  capacity_bytes: int = 0) -> None:
-        self._broadcast("Register", {"dn_id": dn_id, "address": address,
-                                     "rack": rack,
-                                     "capacity_bytes": capacity_bytes})
+        self._follow_ring(self._broadcast("Register", {
+            "dn_id": dn_id, "address": address, "rack": rack,
+            "capacity_bytes": capacity_bytes}))
 
     def heartbeat(self, dn_id: str, container_report=None, used_bytes: int = 0,
                   deleted_block_acks: Optional[list[int]] = None) -> list:
@@ -283,6 +353,7 @@ class RemoteScmClient:
             "used_bytes": used_bytes,
             "deleted_block_acks": deleted_block_acks or [],
         })
+        self._follow_ring(responses)
         return [deserialize_command(c) for m in responses
                 for c in m["commands"]]
 

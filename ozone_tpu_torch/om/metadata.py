@@ -8,9 +8,10 @@ flushed to sqlite in batches; a request is acknowledged only after a
 group commit covers it). The schema is the reference's, table for table,
 and rows are the same JSON, so either package opens a database the other
 wrote. The rolling digest of the `keys` table rides the same commits, as
-in the reference. Left out for later slices: the update journal
-(WAL-delta shipping to Recon and snapshot diffs), snapshot markers,
-full-table export and import (HA bootstrap) and row counts.
+in the reference. `export_state` and `import_state` ship the whole store as an HA
+snapshot (the OM follower bootstrap checkpoint), in the reference's
+form. Left out for later slices: the update journal (WAL-delta shipping
+to Recon and snapshot diffs), snapshot markers and row counts.
 """
 
 from __future__ import annotations
@@ -105,6 +106,12 @@ class OMMetadataStore:
         for k, v in self._conn.execute(f"SELECT k, v FROM {table}"):
             d ^= _row_hash(k, json.loads(v))
         return d
+
+    def table_digest(self, table: str) -> str:
+        """Deterministic state digest of a digested table: equal states
+        digest equal across replicas, whatever the mutation order."""
+        with self._lock:
+            return f"{self._digests[table]:032x}"
 
     def _digest_mutate(self, table: str, key: str,
                        dumped: Optional[str]) -> None:
@@ -218,6 +225,14 @@ class OMMetadataStore:
             return out
 
     # ------------------------------------------------------------------ flush
+    def flush(self) -> None:
+        with self._lock:
+            seq = self._txid
+            self._flush_locked()
+        with self._flush_cv:
+            self._flushed_txid = max(self._flushed_txid, seq)
+            self._flush_cv.notify_all()
+
     def flush_group(self) -> None:
         """Group commit: make everything this caller applied durable,
         batched with whatever concurrent callers applied meanwhile (one
@@ -272,6 +287,43 @@ class OMMetadataStore:
         for t, k, _ in batch:
             self._cache[t].pop(k, None)
             self._digest_hashes.pop((t, k), None)
+
+    # --------------------------------------------------------------- snapshot
+    def export_state(self) -> dict:
+        """Full-table dump for HA snapshot shipping."""
+        with self._lock:
+            self._flush_locked()
+            return {
+                "txid": self._txid,
+                "tables": {t: {k: v for k, v in self.iterate(t)}
+                           for t in _TABLES},
+            }
+
+    def import_state(self, state: dict) -> None:
+        """Replace every table with a shipped checkpoint."""
+        with self._lock:
+            self._dirty.clear()
+            self._digest_hashes.clear()
+            cur = self._conn.cursor()
+            for t in _TABLES:
+                self._cache[t].clear()
+                cur.execute(f"DELETE FROM {t}")
+                for k, v in state["tables"].get(t, {}).items():
+                    cur.execute(f"INSERT OR REPLACE INTO {t} VALUES (?, ?)",
+                                (k, json.dumps(v)))
+            self._conn.commit()
+            self._txid = max(self._txid, int(state.get("txid", 0)))
+            # the shipped system table carries the sender's digest rows
+            # for exactly these tables; absent, recompute them
+            shipped = state["tables"].get("system", {})
+            for t in self._digests:
+                row = shipped.get(f"__digest_{t}")
+                self._digests[t] = (int(row["xor"], 16) if row
+                                    else self._scan_digest(t))
+
+    @property
+    def txid(self) -> int:
+        return self._txid
 
     def close(self) -> None:
         with self._lock:

@@ -14,10 +14,11 @@ its own in `self.lifecycle`). Writes go through the request/apply split
 (om/requests.py) with a group commit before the acknowledgement; reads
 go to the store directly. The key-deleting service hands deleted keys'
 blocks to the SCM's deletion log, and a dead needle's bytes to its
-slab's counters. Left out for later slices: HA, ACL checks and the
-authorizer, tenants, block tokens, encryption (TDE/GDPR), link buckets,
-sharding, prepare and the upgrade finalizer, FSO, snapshots, geo
-replication, hsync and lease recovery.
+slab's counters. `prepare` quiesces writes behind a durable marker (the
+HA ring replicates it, `consensus/meta_ring.py`). Left out for later
+slices: ACL checks and the authorizer, tenants, block tokens, encryption
+(TDE/GDPR), link buckets, sharding, the upgrade finalizer and its layout
+gate, FSO, snapshots, geo replication, hsync and lease recovery.
 """
 
 from __future__ import annotations
@@ -99,22 +100,62 @@ class OzoneManager:
         #: the lifecycle sweeper: a daemon installs its own; otherwise
         #: built with defaults by the first run_*_once
         self.lifecycle = None
+        # durable upgrade-quiesce marker (OzoneManagerPrepareState)
+        self._prepared = self.store.get("system", "om_prepared") is not None
 
     # ----------------------------------------------------------- requests
     def submit(self, request: rq.OMRequest) -> Any:
         """preExecute, then apply under the OM lock in one atomic batch,
         then a group commit: the request is durable before it is
         acknowledged, and concurrent submits share one sqlite commit."""
+        self._check_not_prepared()
         with self.metrics.histogram(type(request).__name__).time(), \
                 Tracer.instance().span("om:submit",
                                        request=type(request).__name__):
             request.pre_execute(self)
             with self._lock:
+                # again under the lock: a write that passed the first
+                # check must not apply after prepare()'s flush point
+                self._check_not_prepared()
                 with self.store.atomic():
                     result = request.apply(self.store)
             self.store.flush_group()
             self.metrics.counter("write_ops").inc()
             return result
+
+    def _check_not_prepared(self) -> None:
+        if self.prepared:
+            raise rq.OMError(
+                "OM_PREPARED", "OM is prepared for upgrade; writes are "
+                "rejected until cancelprepare")
+
+    # ----------------------------------------------------------- prepare
+    def prepare(self) -> int:
+        """Quiesce writes for a coordinated upgrade (`ozone om prepare`):
+        flush, reject writes until cancel_prepare, return the prepared
+        txid. The marker is durable, so a restart stays prepared."""
+        with self._lock:
+            self.store.put("system", "om_prepared", {"prepared": True})
+            self.store.flush()
+            self._prepared = True
+            return self.store.txid
+
+    def cancel_prepare(self) -> None:
+        with self._lock:
+            self.store.delete("system", "om_prepared")
+            self.store.flush()
+            self._prepared = False
+
+    def reload_prepared(self) -> None:
+        """Re-read the durable marker (after a snapshot install replaced
+        the tables)."""
+        with self._lock:
+            self._prepared = \
+                self.store.get("system", "om_prepared") is not None
+
+    @property
+    def prepared(self) -> bool:
+        return self._prepared
 
     def upgrade_status(self) -> dict:
         """The cluster's finalization view, the reference's answer with

@@ -15,7 +15,9 @@ retirement); bucket lifecycle rules and the sweeper's term-fenced
 checkpoint. The multipart requests are in `om/multipart.py`. Left out
 for later slices: FSO, snapshots (and so their copy-on-write
 pre-images), hsync leases, ACL and tenant verbs, delegation tokens, geo
-replication, quotas' set and repair verbs.
+replication, quotas' set and repair verbs. `to_json` and `from_json`
+are the reference's wire form for the replicated log (`om/ha.py`,
+`consensus/meta_ring.py`).
 """
 
 from __future__ import annotations
@@ -57,13 +59,34 @@ SMALLOBJ_NOT_SUPPORTED = "SMALLOBJ_NOT_SUPPORTED"
 LIFECYCLE_FENCED = "LIFECYCLE_FENCED"
 
 
+#: request class name -> class, for the replicated log's wire form
+_REQUEST_TYPES: dict[str, type] = {}
+
+
 @dataclass
 class OMRequest:
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        _REQUEST_TYPES[cls.__name__] = cls
+
     def pre_execute(self, om: Any) -> None:  # noqa: D401
         """Leader-side phase; default no-op."""
 
     def apply(self, store: OMMetadataStore) -> Any:
         raise NotImplementedError
+
+    def to_json(self) -> dict:
+        """Wire form for the replicated log: the post-preExecute state,
+        so followers apply without running preExecute again."""
+        import dataclasses
+
+        return {"type": type(self).__name__, **dataclasses.asdict(self)}
+
+    @staticmethod
+    def from_json(d: dict) -> "OMRequest":
+        d = dict(d)
+        cls = _REQUEST_TYPES[d.pop("type")]
+        return cls(**d)
 
 
 def inherit_defaults(parent_acls: list[dict]) -> list[dict]:

@@ -7,7 +7,6 @@ scheme; for EC, node i holds replica index i+1).
 
 from __future__ import annotations
 
-import itertools
 import threading
 from dataclasses import dataclass, field
 from enum import Enum
@@ -66,13 +65,26 @@ class PipelineState(Enum):
     CLOSED = "CLOSED"
 
 
-_ids_lock = threading.Lock()
-_ids = itertools.count(1)
+class _PipelineIdAllocator:
+    """Monotonic pipeline-id source that can be advanced past persisted
+    or ring-issued ids: a regenerated id colliding with one a datanode
+    still serves a raft group under would mis-address writes."""
+
+    def __init__(self):
+        self._last = 0
+        self._lock = threading.Lock()
+
+    def next(self) -> int:
+        with self._lock:
+            self._last += 1
+            return self._last
+
+    def advance_past(self, pipeline_id: int) -> None:
+        with self._lock:
+            self._last = max(self._last, int(pipeline_id))
 
 
-def _next_pipeline_id() -> int:
-    with _ids_lock:
-        return next(_ids)
+_pipeline_ids = _PipelineIdAllocator()
 
 
 @dataclass
@@ -82,7 +94,7 @@ class Pipeline:
 
     replication: ReplicationConfig
     nodes: list[str]  # datanode ids, ordered
-    id: int = field(default_factory=_next_pipeline_id)
+    id: int = field(default_factory=_pipeline_ids.next)
     state: PipelineState = PipelineState.OPEN
 
     def __post_init__(self):

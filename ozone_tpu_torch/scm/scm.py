@@ -7,10 +7,12 @@ minicluster talk to. Heartbeats carry container reports and take back
 queued commands (SCMNodeManager.processHeartbeat); a node's death
 forgets its replicas (DeadNodeHandler) so the replication scan rebuilds
 them. The minicluster's ticks drive the control loops
-(`run_background_once`). Left out for later slices: HA, the SCM store
-and layout versions, block and container tokens (secret keys), the
-balancer, decommission and maintenance, the admin verbs and the
-background thread a daemon runs the loops on.
+(`run_background_once`). With `db_path` the container manager persists
+in the SCM store. Of the admin verbs, `apply_admin_op` serves the
+container close, the one the HA ring replicates (`net/scm_service.py`
+reads the rest locally). Left out for later slices: layout versions,
+block and container tokens (secret keys), the balancer, decommission and
+maintenance, and the background thread a daemon runs the loops on.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ class StorageContainerManager:
         placement_seed: Optional[int] = None,
         stale_after_s: float = 9.0,
         dead_after_s: float = 30.0,
+        db_path=None,
     ):
         self.events = EventQueue()
         self.nodes = NodeManager(
@@ -51,7 +54,8 @@ class StorageContainerManager:
         )
         self.placement = RackScatterPlacement(self.nodes, seed=placement_seed)
         self.containers = ContainerManager(
-            self.nodes, self.placement, container_size=container_size
+            self.nodes, self.placement, container_size=container_size,
+            db_path=db_path,
         )
         self.safemode = SafeModeManager(
             self.nodes, self.containers, SafeModeConfig(min_datanodes)
@@ -135,6 +139,27 @@ class StorageContainerManager:
         ]
         self.metrics.counter("block_delete_txs").inc(len(tx_ids))
         return tx_ids
+
+    def apply_admin_op(self, op: str, target=None) -> dict:
+        """Deterministic admin mutation and its state read-back: one
+        function for the direct path and the HA ring's replicated apply,
+        so every replica ends in the same state."""
+        from ozone_tpu_torch.storage.ids import ContainerState, StorageError
+
+        if op != "close-container":
+            raise StorageError("UNSUPPORTED_REQUEST", f"admin op {op!r}")
+        try:
+            cid = int(str(target), 0)
+        except (TypeError, ValueError):
+            raise StorageError("INVALID", f"bad container id {target!r}")
+        c = self.containers.get_or_none(cid)
+        if c is None:
+            raise StorageError("CONTAINER_NOT_FOUND", f"no container {target}")
+        if c.state is ContainerState.OPEN:
+            # the normal close flow: CLOSING, and close commands to the
+            # replicas; their reports mark it CLOSED
+            self.containers.finalize_container(c.id)
+        return {"container": c.id, "state": c.state.value}
 
     def status(self) -> dict:
         """Safemode, the nodes with their usage columns and the container

@@ -153,6 +153,12 @@ class FilePerBlockStore:
             buf = buf + b"\x00" * (info.length - len(buf))
         return np.frombuffer(buf, dtype=np.uint8).copy()
 
+    def block_length(self, block_id: BlockID) -> int:
+        """Bytes of the block file on disk (0 when absent): what a raft
+        pipeline's commit apply checks the data phase left here."""
+        path = self.block_path(block_id)
+        return path.stat().st_size if path.exists() else 0
+
     def delete_block(self, block_id: BlockID) -> None:
         """Drop a block's file and its cached descriptor."""
         with self._lock:

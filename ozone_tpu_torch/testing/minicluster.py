@@ -9,13 +9,22 @@ DatanodeStateMachine's handlers do: reconstruction on the port's
 `ECReconstructionCoordinator` (one device, no mesh), block deletion,
 replica deletion and container copies. The codec runs on `device`
 ("cuda" launches the fused kernel and raises when CUDA is absent; "cpu"
-runs its plain version). The HA and sharded clusters are not ported.
+runs its plain version).
+
+`MiniOzoneHACluster` (the reference's MiniOzoneHAClusterImpl) boots N
+`ScmOmDaemon` replicas on one metadata ring over the port's RPC and M
+`DatanodeDaemon`s heartbeating every replica, hands out failover-aware
+clients, and stops and revives replicas by id. `make_meta_daemon` and
+`await_meta_leader` are the helpers the HA tests share. The sharded
+cluster is not ported.
 """
 
 from __future__ import annotations
 
 import logging
+import socket
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -184,3 +193,132 @@ class MiniOzoneCluster:
         self.om.close()
         for dn in self.datanodes:
             dn.close()
+
+
+def free_ports(n: int) -> list[int]:
+    """n distinct free loopback ports (bound together, then released)."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class MiniOzoneHACluster:
+    """A metadata ring of `num_meta` ScmOmDaemons and `num_datanodes`
+    DatanodeDaemons (on `racks` racks, round robin) in one process, all
+    over the port's RPC. Extra keywords go to every ScmOmDaemon."""
+
+    def __init__(self, root: Path, num_meta: int = 3,
+                 num_datanodes: int = 5,
+                 block_size: int = 256 * 1024,
+                 heartbeat_interval_s: float = 0.15,
+                 device="cuda", racks: int = 1, **meta_kw):
+        from ozone_tpu_torch.net.daemons import DatanodeDaemon
+
+        self.root = Path(root)
+        self.block_size = block_size
+        self.device = device
+        self._meta_kw = meta_kw
+        self.peers = {f"m{i}": f"127.0.0.1:{p}"
+                      for i, p in enumerate(free_ports(num_meta))}
+        self.metas: dict = {}
+        self.datanodes: list = []
+        try:
+            for mid in self.peers:
+                d = self._make_meta(mid)
+                d.start()
+                self.metas[mid] = d
+            self.await_leader()
+            scm_addrs = ",".join(self.peers.values())
+            for i in range(num_datanodes):
+                d = DatanodeDaemon(self.root / f"dn{i}", f"dn{i}", scm_addrs,
+                                   rack=f"/rack{i % racks}",
+                                   heartbeat_interval_s=heartbeat_interval_s,
+                                   device=device)
+                d.start()
+                self.datanodes.append(d)
+        except BaseException:
+            self.shutdown()
+            raise
+
+    def _make_meta(self, mid: str):
+        kw = dict(block_size=self.block_size, device=self.device)
+        kw.update(self._meta_kw)
+        return make_meta_daemon(self.root, int(mid[1:]), self.peers, **kw)
+
+    # ------------------------------------------------------------ control
+    def await_leader(self, timeout: float = 15.0) -> str:
+        return await_meta_leader(self.metas, timeout=timeout)
+
+    def stop_meta(self, mid: str) -> None:
+        self.metas.pop(mid).stop()
+
+    def revive_meta(self, mid: str) -> None:
+        d = self._make_meta(mid)
+        d.start()
+        self.metas[mid] = d
+
+    # ------------------------------------------------------------ clients
+    def client(self) -> OzoneClient:
+        """An OzoneClient over a failover RemoteOmClient, with raft
+        pipeline clients for RATIS/THREE keys."""
+        from ozone_tpu_torch.net.om_service import RemoteOmClient
+        from ozone_tpu_torch.net.ratis_service import RatisClientFactory
+        from ozone_tpu_torch.net.scm_service import RemoteScmClient
+
+        addrs = ",".join(self.peers.values())
+        clients = DatanodeClientFactory()
+        om = RemoteOmClient(addrs, clients=clients)
+        # datanode addresses up front, so a client that reads before it
+        # writes resolves the replicas
+        scm = RemoteScmClient(addrs)
+        try:
+            for dn_id, addr in scm.node_addresses().items():
+                clients.register_remote(dn_id, addr)
+        except StorageError:
+            pass  # learned from the allocations instead
+        finally:
+            scm.close()
+        ratis = RatisClientFactory(address_source=clients.remote_address)
+        return OzoneClient(om, clients, device=self.device,
+                           ratis_clients=ratis)
+
+    def shutdown(self) -> None:
+        for d in self.datanodes:
+            d.stop()
+        for d in list(self.metas.values()):
+            d.stop()
+        self.metas.clear()
+        self.datanodes = []
+
+
+def make_meta_daemon(root, i: int, peers: dict, **overrides):
+    """One metadata-ring replica with test-friendly defaults; `peers`
+    maps 'm<i>' -> host:port. Shared by the HA suites."""
+    from ozone_tpu_torch.net.daemons import ScmOmDaemon
+
+    kw = dict(stale_after_s=1000.0, dead_after_s=2000.0,
+              background_interval_s=0.2, ha_id=f"m{i}", ha_peers=peers)
+    kw.update(overrides)
+    return ScmOmDaemon(Path(root) / f"meta{i}" / "om.db",
+                       port=int(peers[f"m{i}"].rsplit(":", 1)[1]), **kw)
+
+
+def await_meta_leader(metas: dict, timeout: float = 10.0, among=None) -> str:
+    """Wait until exactly one replica (optionally among `among`) leads;
+    returns its id."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        leaders = [mid for mid, d in metas.items()
+                   if (among is None or mid in among)
+                   and d.ha is not None and d.ha.is_leader]
+        if len(leaders) == 1:
+            return leaders[0]
+        time.sleep(0.05)
+    raise AssertionError(f"no single leader among {among or list(metas)}")

@@ -18,6 +18,12 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools sh bucket set-smallobj /v/b --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools lifecycle set /v/b --target rs-6-3-1024k --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools lifecycle run-now --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools scm-om --db /data/m0/om.db --port 9860 \
+        --ha-id m0 --peer m0=127.0.0.1:9860 --peer m1=127.0.0.1:9861 \
+        --peer m2=127.0.0.1:9862
+    python -m ozone_tpu_torch.tools admin ring-status --om 127.0.0.1:9861
+    python -m ozone_tpu_torch.tools admin ring-transfer m1 \
+        --om 127.0.0.1:9860,127.0.0.1:9861,127.0.0.1:9862
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -25,7 +31,9 @@ put/get`, `freon`, `s3g`, `scm-om` (its lifecycle sweep and slab
 compaction encode there) and `cluster`, which passes it to its children.
 Without CUDA, "cuda" is an error that names CUDA (for `scm-om`, at its
 first sweep with work). The namespace, admin and lifecycle verbs import
-no torch, so they start in about a second. Errors print as
+no torch, so they start in about a second. Against a metadata ring,
+`--om` takes the replicas as a comma-separated list; the clients follow
+the leader. Errors print as
 `error CODE: message` and exit 1.
 """
 
@@ -209,6 +217,14 @@ def cmd_admin(args) -> int:
                 return _usage(f"unknown safemode verb {verb!r} "
                               "(expected status)")
             _emit(scm.admin("safemode-status"))
+        elif subject.startswith("ring-"):
+            # the metadata ring; status is answered by any replica
+            target = verb  # ring-<op> <target>
+            if subject == "ring-add" and (not target or "=" not in target):
+                return _usage("ring-add needs <id>=<host:port>")
+            if subject in ("ring-remove", "ring-transfer") and not target:
+                return _usage(f"{subject} needs the replica id")
+            _emit(scm.admin(subject, target))
         else:  # container
             if verb in (None, "list"):
                 _emit(scm.list_containers())
@@ -388,10 +404,20 @@ def cmd_scm_om(args) -> int:
     from ozone_tpu_torch.net.daemons import ScmOmDaemon
 
     logging.basicConfig(level=logging.INFO)
+    ha_peers = None
+    if args.peer:
+        ha_peers = dict(p.split("=", 1) for p in args.peer)
+        if not args.ha_id or args.ha_id not in ha_peers:
+            print("--ha-id must name one of the --peer entries",
+                  file=sys.stderr)
+            return 1
     d = ScmOmDaemon(Path(args.db), port=args.port,
-                    min_datanodes=args.min_datanodes, device=args.device)
+                    min_datanodes=args.min_datanodes, device=args.device,
+                    ha_id=args.ha_id if ha_peers else None,
+                    ha_peers=ha_peers)
     d.start()
-    print(f"scm+om serving on {d.address}", flush=True)
+    print(f"scm+om serving on {d.address}"
+          + (f" as HA node {args.ha_id}" if ha_peers else ""), flush=True)
     return _serve(d.stop)
 
 
@@ -504,9 +530,12 @@ def build_parser() -> argparse.ArgumentParser:
     sh.set_defaults(fn=cmd_sh)
 
     ad = sub.add_parser("admin", help="cluster admin (ozone admin)")
-    ad.add_argument("subject", choices=["status", "safemode", "container"])
+    ad.add_argument("subject", choices=["status", "safemode", "container",
+                                        "ring-status", "ring-add",
+                                        "ring-remove", "ring-transfer"])
     ad.add_argument("verb", nargs="?", default=None,
-                    help="container: list|info <id>|close <id>")
+                    help="container: list|info <id>|close <id>; ring-add: "
+                         "<id>=<host:port>; ring-remove, ring-transfer: <id>")
     ad.add_argument("target", nargs="?", default=None)
     ad.add_argument("--om", default="127.0.0.1:9860")
     ad.set_defaults(fn=cmd_admin)
@@ -572,6 +601,11 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--db", required=True)
     so.add_argument("--port", type=int, default=9860)
     so.add_argument("--min-datanodes", type=int, default=1)
+    so.add_argument("--ha-id", default="",
+                    help="this replica's id on the metadata ring")
+    so.add_argument("--peer", action="append", default=[],
+                    help="a ring member as ID=host:port (repeat for each, "
+                         "this replica included)")
     device_flag(so)
     so.set_defaults(fn=cmd_scm_om)
 

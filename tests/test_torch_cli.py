@@ -10,7 +10,9 @@ The scm-om runs with `--device cpu` too: its lifecycle sweep encodes.
 Then the lifecycle verbs (`set`, `get`, `clear`, `run-now`, `status`,
 `compact-slabs`) with `freon lcg`, and `sh bucket set-smallobj` with
 inline and needle keys through `sh key put/get` and `freon tinyg` with
-and without the packer.
+and without the packer. Apart from that cluster, three `scm-om --ha-id
+--peer` processes form a metadata ring: `admin ring-status` from every
+replica and `admin ring-transfer` to a follower.
 """
 
 import json
@@ -408,3 +410,64 @@ def test_set_smallobj_and_freon_tinyg(live_cluster, sh, tmp_path):
     assert rep["regular_keys"] == 10 and rep["verify_failures"] == 0
     rc, out, _ = sh("lifecycle", "compact-slabs", "--om", om)
     assert rc == 0 and json.loads(out)["slabs_scanned"] >= 1
+
+
+def test_scm_om_ring_status_and_transfer(tmp_path, sh):
+    """Three scm-om processes on one metadata ring: every replica answers
+    ring-status with one leader, ring-transfer hands leadership to a
+    follower, and a write through the address list lands on it."""
+    peers = {f"m{i}": f"127.0.0.1:{_free_port()}" for i in range(3)}
+    flags = [a for m, addr in peers.items() for a in ("--peer", f"{m}={addr}")]
+    everyone = ",".join(peers.values())
+    procs = []
+    try:
+        for m, addr in peers.items():
+            with open(tmp_path / f"{m}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "ozone_tpu_torch.tools", "scm-om",
+                     "--db", str(tmp_path / m / "om.db"),
+                     "--port", addr.rpartition(":")[2], "--ha-id", m,
+                     *flags], stdout=log, stderr=subprocess.STDOUT,
+                    stdin=subprocess.DEVNULL, cwd=str(REPO), env=ENV))
+
+        def status(addr):
+            rc, out, _ = sh("admin", "ring-status", "--om", addr)
+            return json.loads(out) if rc == 0 else None
+
+        t_end = time.monotonic() + WAIT_S
+        views = {}
+        while time.monotonic() < t_end:
+            views = {m: status(a) for m, a in peers.items()}
+            if all(v and v["leader"] for v in views.values()) and \
+                    len({v["leader"] for v in views.values()}) == 1:
+                break
+            time.sleep(0.25)
+        leaders = {v["leader"] for v in views.values() if v}
+        assert len(leaders) == 1 and None not in leaders, views
+        leader = leaders.pop()
+        for m, v in views.items():
+            assert v["replica_id"] == m
+            assert v["members"] == sorted(peers)
+            assert v["role"] == ("LEADER" if m == leader else "FOLLOWER")
+        target = next(m for m in peers if m != leader)
+        rc, out, err = sh("admin", "ring-transfer", target, "--om", everyone)
+        assert rc == 0, err
+        assert json.loads(out)["transferred"] is True
+        t_end = time.monotonic() + WAIT_S
+        while time.monotonic() < t_end:
+            if (status(peers[target]) or {}).get("role") == "LEADER":
+                break
+            time.sleep(0.2)
+        assert status(peers[target])["role"] == "LEADER"
+        assert sh("sh", "volume", "create", "/vring", "--om", everyone)[0] == 0
+        rc, out, _ = sh("sh", "volume", "info", "/vring", "--om", everyone)
+        assert rc == 0 and "vring" in out
+    finally:
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()

@@ -88,6 +88,19 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.lifecycle.executor",
     "ozone_tpu_torch.client.slab",
     "ozone_tpu_torch.utils.throttle",
+    # consensus and HA: the Raft core, the metadata ring, the pipelines
+    "ozone_tpu_torch.consensus",
+    "ozone_tpu_torch.consensus.raft",
+    "ozone_tpu_torch.consensus.meta_ring",
+    "ozone_tpu_torch.net.raft_transport",
+    "ozone_tpu_torch.net.ratis_service",
+    "ozone_tpu_torch.om.ha",
+    "ozone_tpu_torch.om.sharding.leases",
+    "ozone_tpu_torch.scm.ha",
+    "ozone_tpu_torch.scm.scm_store",
+    "ozone_tpu_torch.scm.sequence_id",
+    "ozone_tpu_torch.storage.ratis",
+    "ozone_tpu_torch.client.ratis_client",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
