@@ -77,8 +77,8 @@ a phase says otherwise:
 - the S3 gateway (`s3_path`): an `S3Gateway` with require_auth in this
   process, in front of an OzoneClient over an ScmOmDaemon and 12
   DatanodeDaemons (native lane), bucket rs-6-3-1024k, every request
-  SigV4-signed with a secret from `s3 getsecret`: four concurrent
-  clients each PUT 64 MiB (payload hash signed) and upload 96 MiB +
+  SigV4-signed with a secret from `s3 getsecret`: concurrent clients
+  (four in the cell, two in `main`) each PUT 64 MiB (payload hash signed) and upload 96 MiB +
   12 345 B in 8 MiB parts, four in flight (ListParts and
   ListMultipartUploads checked before the complete); GETs whole, 8 MiB
   ranges across part boundaries and a suffix range; HEAD; ListObjectsV2
@@ -91,7 +91,7 @@ a phase says otherwise:
   no fallback and no RPC chunk call;
 - lifecycle tiering (`lifecycle_path`): a MiniOzoneCluster of 9
   datanodes with OZONE_TPU_TIER_BATCH=16; a RATIS/THREE bucket of 16 keys
-  of 16 MiB, 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
+  of 16 MiB (8 in `main`), 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
   tiered to rs-6-3-1024k by one sweep of an age-0 rule (the XOR keys
   through the fused re-encode, the rest in [16, 6, 1 MiB] windows of many
   keys); every key re-read byte-exact and every unit's chunks, parity and
@@ -109,8 +109,8 @@ a phase says otherwise:
   bounded `compact_slabs_once`, the survivors read back byte-exact. Both
   print the metadata RPCs per step (CreateContainer, GetBlock, ...), and
   kernel launches equal the codec service's dispatches in every step.
-  `main` runs it at a cut depth (1000 keys per tinyg run, 200 on the
-  stripe path) to leave room for the next phase;
+  `main` runs it at a cut depth (250 keys per tinyg run, 50 on the
+  stripe path) to leave room for the later phases;
 - consensus and HA (`ha_path`): three ScmOmDaemons on one metadata ring
   (OM and SCM state on one Raft ring over the port's RPC) and 9
   DatanodeDaemons on 3 racks, rs-6-3-1024k on the card: (a) 8 × 64 MiB
@@ -124,7 +124,23 @@ a phase says otherwise:
   datanode pipeline rings with one member stopped after the 2nd key
   (GiB/s, the raft round trips of `write_chunk_commit` and `put_block`),
   (d) a degraded GET of (a)'s keys with two datanodes down through the
-  decode form. Launches equal dispatches in (a), (b) and (d).
+  decode form. Launches equal dispatches in (a), (b) and (d). `main` cuts
+  (a) to 4 keys and (b) to 8;
+- the filesystem namespace (`fs_path`): an ScmOmDaemon and 9
+  DatanodeDaemons, an FSO bucket at rs-6-3-1024k: (a) TestDFSIO, 8 ×
+  64 MiB through `RootedOzoneFileSystem` on 4 threads, read back, each
+  file's composite checksum (from the stored chunk CRCs) equal to the
+  host CRC32C; (b) `HttpFSGateway`: 2 × 64 MiB by the two-step CREATE,
+  OPEN whole and ranged, GETFILECHECKSUM, LISTSTATUS, RENAME, DELETE, a
+  degraded OPEN with two datanodes down (the decode form), 16 MiB through
+  libo3fs (`csrc/libo3fs/o3fs.c`, gcc) with ctypes; (c) mdtest-easy, 4 ×
+  500 empty files created, stat'ed and listed in pages; (d) that tree
+  renamed (one row) and deleted recursively with two of (a)'s files, the
+  daemon's directory-deleting pass timed until the files' blocks are gone;
+  (e) a RATIS/THREE file hsynced after each of 4 × 4 MiB, read by a second
+  client, its writer abandoned, `recover_lease`, the stale hsync and an EC
+  hsync refused; (f) `freon fsg` and `fskg` of 128 × 3901 B on 8 threads.
+  Launches equal dispatches in every part that codes.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -1874,17 +1890,21 @@ def stop_server(d) -> None:
 
 
 def restart_server(d) -> None:
-    """Serve a daemon's datanode verbs again on its old port, with a new
-    native sidecar, after stop_server (the registered address stays valid;
-    clients discover the sidecar's new port)."""
+    """Serve a daemon's datanode and pipeline-ring verbs again on its old
+    port, with a new native sidecar, after stop_server (the registered
+    address stays valid; clients discover the sidecar's new port)."""
     from ozone_tpu_torch.net.dn_service import DatanodeRpcService
     from ozone_tpu_torch.net.rpc import RpcServer
     from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
+
+    from ozone_tpu_torch.net.ratis_service import RatisRpcService
 
     d.datapath = DatapathSidecar(d.dn)
     d.datapath.start()
     d.server = RpcServer(port=d.server.port)
     d.service = DatanodeRpcService(d.dn, d.server, datapath_port=d.advertise)
+    # its pipeline rings answer again too (their raft state lived on)
+    d.ratis_service = RatisRpcService(d.xceiver_ratis, d.server)
     d.server.start()
 
 
@@ -2626,11 +2646,11 @@ def s3_multipart(s3: S3Client, path: str, data, part: int, in_flight: int) -> tu
     return xml_text(done, "ETag")[0].strip('"'), etags
 
 
-def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
+def s3_path(device, cell: int, bpc: int, seed: int, n_clients: int = 4) -> dict:
     """The S3 gateway in this process (require_auth) in front of an
     OzoneClient on `device` over an ScmOmDaemon (through RemoteOmClient)
-    and 12 DatanodeDaemons on the native lane; the bucket rs-6-3. Four
-    concurrent clients each PUT a 64-cell object (payload hash signed)
+    and 12 DatanodeDaemons on the native lane; the bucket rs-6-3.
+    `n_clients` concurrent clients each PUT a 64-cell object (payload hash signed)
     and upload a 96-cell + 12 345 B object in 8-cell parts, four parts in
     flight; GETs whole, ranged across part boundaries and by suffix; HEAD;
     ListObjectsV2 with a delimiter and paging; an aws-chunked PUT and a
@@ -2656,7 +2676,7 @@ def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
     from ozone_tpu_torch.tools import cli
 
     rs = f"rs-6-3-{cell // 1024}k"
-    n_clients, part, in_flight = 4, 8 * cell, 4
+    part, in_flight = 8 * cell, 4
     rng = np.random.default_rng(seed + 10)
     singles = [rng.integers(0, 256, 64 * cell, dtype=np.uint8).tobytes()
                for _ in range(n_clients)]
@@ -2792,15 +2812,16 @@ def s3_path(device, cell: int, bpc: int, seed: int) -> dict:
             _, top = s3.ok("GET", "/s3b?list-type=2&delimiter=/")
             prefixes = xml_text(top, "Prefix")[1:]
             listed, token = [], ""
+            last = n_clients - 1
             while True:
-                q = "/s3b?list-type=2&prefix=c2/&delimiter=/&max-keys=1"
+                q = f"/s3b?list-type=2&prefix=c{last}/&delimiter=/&max-keys=1"
                 _, page = s3.ok("GET", q + (f"&continuation-token={token}" if token else ""))
                 listed += xml_text(page, "Key")
                 token = (xml_text(page, "NextContinuationToken") or [""])[0]
                 if not token:
                     break
             if prefixes != [f"c{i}/" for i in range(n_clients)] or \
-                    listed != ["c2/multi", "c2/single"]:
+                    listed != [f"c{last}/multi", f"c{last}/single"]:
                 raise AssertionError(f"ListObjectsV2: {prefixes} {listed}")
             print(f"s3 HEAD (size, metadata) and ListObjectsV2 (delimiter: {prefixes}; "
                   f"max-keys=1 paging: {listed}): right")
@@ -2954,10 +2975,13 @@ def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str,
 
 
 @contextlib.contextmanager
-def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str):
-    """An ScmOmDaemon (its lifecycle sweep on `device`) and `n_dn`
-    DatanodeDaemons on loopback, each with its native datapath, and an
-    OzoneClient over RemoteOmClient; yields (meta, daemons, client)."""
+def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str,
+                   background_interval_s: float = 0.5, ratis: bool = False):
+    """An ScmOmDaemon (its lifecycle sweep on `device`, its background pass
+    every `background_interval_s`) and `n_dn` DatanodeDaemons on loopback,
+    each with its native datapath, and an OzoneClient over RemoteOmClient
+    (with `ratis`, RATIS/THREE keys go through the pipeline rings); yields
+    (meta, daemons, client)."""
     from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
     from ozone_tpu_torch.client.ozone_client import OzoneClient
     from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
@@ -2972,7 +2996,8 @@ def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str):
         try:
             meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
                                container_size=4096 * cell, stale_after_s=30.0,
-                               dead_after_s=60.0, background_interval_s=0.5,
+                               dead_after_s=60.0,
+                               background_interval_s=background_interval_s,
                                placement_seed=seed, device=device)
         finally:
             if old_period is None:
@@ -2992,7 +3017,20 @@ def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str):
                 dns.append(d)
             wait_for(f"{n_dn} datanodes registered",
                      lambda: len(scm.status()["nodes"]) == n_dn, 30)
-            yield meta, dns, OzoneClient(om, clients, device=device)
+            ratis_clients = None
+            if ratis:
+                from ozone_tpu_torch.net.ratis_service import RatisClientFactory
+
+                for d in dns:
+                    clients.register_remote(d.dn.id, d.address)
+                ratis_clients = RatisClientFactory(
+                    address_source=clients.remote_address)
+            try:
+                yield meta, dns, OzoneClient(om, clients, device=device,
+                                             ratis_clients=ratis_clients)
+            finally:
+                if ratis_clients is not None:
+                    ratis_clients.close()
         finally:
             scm.close()
             om.close()
@@ -3608,8 +3646,8 @@ def ha_path(device, cell: int, bpc: int, seed: int, n_ec: int = 8,
             answered: dict = {}
 
             def recording(rid, commit_key):
-                def wrapped(session, groups, size):
-                    commit_key(session, groups, size)
+                def wrapped(session, groups, size, **kw):
+                    commit_key(session, groups, size, **kw)
                     answered[session.key] = rid
 
                 return wrapped
@@ -3791,6 +3829,448 @@ def ha_path(device, cell: int, bpc: int, seed: int, n_ec: int = 8,
     return out
 
 
+# ------------------------------------------------------------ filesystem path
+def fs_path(device, cell: int, bpc: int, seed: int, n_io: int = 8,
+            io_size: int = 64 * MIB, threads: int = 4, n_http: int = 2,
+            http_size: int = 64 * MIB, o3fs_size: int = 16 * MIB,
+            md_files: int = 500, md_page: int = 100, hsync_parts: int = 4,
+            hsync_part: int = 4 * MIB, n_small: int = 128,
+            small_size: int = 3901, small_threads: int = 8) -> dict:
+    """The filesystem namespace on a daemon cluster (an ScmOmDaemon, its
+    background pass every 0.1 s, and 9 DatanodeDaemons on loopback, native
+    lane), an FSO bucket at rs-6-3 on `device`:
+    (a) TestDFSIO shape: `n_io` files of `io_size` under
+        /benchmarks/TestDFSIO/io_data through RootedOzoneFileSystem on
+        `threads` threads, read back on `threads` threads; each file's
+        composite checksum (from the stored chunk CRCs, the kernel's words)
+        equals the host CRC32C of its bytes.
+    (b) HttpFS on the same client: `n_http` files of `http_size` by the
+        two-step CREATE, OPEN whole and ranged, GETFILECHECKSUM, LISTSTATUS,
+        RENAME, DELETE; a degraded OPEN with two datanodes of the first
+        group stopped (the decode form); one `o3fs_size` write and read
+        through libo3fs; GiB/s beside (a)'s.
+    (c) mdtest-easy shape: `threads` directories of `md_files` empty files,
+        created, stat'ed, and listed `md_page` at a time.
+    (d) (c)'s tree renamed (one row) beside a one-file directory; every
+        entry answers under the new path and none under the old; the tree
+        deleted recursively with two of (a)'s files, and the daemon's
+        directory-deleting pass timed until deleted_dirs is empty and those
+        files' blocks are gone from the datanodes.
+    (e) a RATIS/THREE file written as `hsync_parts` parts of `hsync_part`,
+        hsync after each, a second client reading the synced length; the
+        writer abandoned mid-part, `recover_lease` seals the last synced
+        length, and the stale writer's next hsync is refused; an EC file's
+        hsync is refused.
+    (f) IO500 mdtest-hard shape: `freon fsg` and `freon fskg` (depth 3),
+        `n_small` files of `small_size` each on `small_threads` threads,
+        every file read back byte-exact; ops/s.
+    Every read is byte-exact and launches equal service dispatches in every
+    part that codes."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.fs import RootedOzoneFileSystem
+    from ozone_tpu_torch.gateway.httpfs import HttpFSGateway
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.storage.ids import StorageError
+    from ozone_tpu_torch.tools import freon
+    from ozone_tpu_torch.utils import checksum
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    gib = float(1 << 30)
+    rng = np.random.default_rng(seed)
+    out: dict = {"launches": {}}
+    from collections import deque
+
+    tracer = Tracer.instance()
+    tracer.spans.clear()
+    gc.collect()
+    # room for every span of the phase: its span sums are read from them
+    tracer.spans = deque(maxlen=max(tracer.spans.maxlen, 100_000))
+
+    def step(what, fn):
+        """fn() with the phase's launch and dispatch counts: launches =
+        dispatches; returns (result, seconds, launches)."""
+        before = service_counts()
+        fused_kernel.launches.reset()
+        since, t0 = time.time(), time.perf_counter()
+        res = fn()
+        secs = time.perf_counter() - t0
+        launches = fused_kernel.launches.count
+        check_launches_equal(f"fs {what}", device, launches, service_delta(before))
+        print(f"fs {what} spans: {span_totals(since)}")
+        return res, secs, launches
+
+    def parallel(fn, items, n):
+        with ThreadPoolExecutor(n) as ex:
+            return list(ex.map(fn, items))
+
+    def code(fn) -> str:
+        try:
+            fn()
+        except StorageError as e:
+            return e.code
+        return "no error"
+
+    with codec_route(True), daemon_cluster(device, 9, cell, seed, "fs",
+                                           background_interval_s=0.1,
+                                           ratis=True) as (meta, dns, oz):
+        om = oz.om
+        by_id = {d.dn.id: d for d in dns}
+        om.create_volume("fs")
+        om.create_bucket("fs", "b", rs, "FILE_SYSTEM_OPTIMIZED")
+        ofs = RootedOzoneFileSystem(oz)
+
+        # ---- (a) TestDFSIO: one file per task
+        io_dir = "/fs/b/benchmarks/TestDFSIO/io_data"
+        io_paths = [f"{io_dir}/test_io_{i}" for i in range(n_io)]
+        io_data = [np.frombuffer(rng.bytes(io_size), np.uint8) for _ in io_paths]
+        _, w_s, w_l = step("(a) write", lambda: parallel(
+            lambda i: ofs.create(io_paths[i], io_data[i]), range(n_io), threads))
+
+        def read_one(i):
+            with ofs.open(io_paths[i]) as f:
+                got = f.read()
+            if got != io_data[i].tobytes():
+                raise AssertionError(f"fs (a): {io_paths[i]} read back differs")
+
+        _, r_s, r_l = step("(a) read", lambda: parallel(read_one, range(n_io), threads))
+        t0 = time.perf_counter()
+        sums = [ofs.checksum(p) for p in io_paths]
+        ck_s = time.perf_counter() - t0
+        for i, ck in enumerate(sums):
+            want = checksum.crc32c(io_data[i])
+            if ck["algorithm"] != "COMPOSITE-CRC32C" or int(ck["checksum"], 16) != want \
+                    or ck["length"] != io_size:
+                raise AssertionError(f"fs (a): checksum of {io_paths[i]} {ck} is not the "
+                                     f"host CRC32C {want:08x}")
+        io_bytes = n_io * io_size
+        out["a"] = dict(write_gib_s=io_bytes / w_s / gib, read_gib_s=io_bytes / r_s / gib,
+                        checksum_s=ck_s / n_io)
+        out["launches"]["fs_dfsio_write"] = w_l
+        print(f"fs (a) TestDFSIO: {n_io} x {io_size >> 20} MiB through ofs on {threads} "
+              f"threads: write {w_s:.3f} s = {out['a']['write_gib_s']:.3f} GiB/s ({w_l} "
+              f"launches), read {r_s:.3f} s = {out['a']['read_gib_s']:.3f} GiB/s, "
+              f"byte-exact; composite checksums = host CRC32C, {1e3 * ck_s / n_io:.1f} ms "
+              "per file from chunk metadata")
+
+        # ---- (b) HttpFS (WebHDFS) on the same client
+        gw = HttpFSGateway(oz, replication=rs)
+        gw.start()
+        try:
+            base = f"http://{gw.address}/webhdfs/v1"
+
+            class _NoRedirect(urllib.request.HTTPRedirectHandler):
+                def redirect_request(self, *a, **kw):
+                    return None
+
+            opener = urllib.request.build_opener(_NoRedirect)
+
+            def call(method, path, data=None, **params):
+                qs = "&".join(f"{k}={v}" for k, v in params.items())
+                req = urllib.request.Request(f"{base}{path}?{qs}", data=data,
+                                             method=method)
+                try:
+                    with opener.open(req, timeout=600) as r:
+                        return r.status, r.read(), r.headers
+                except urllib.error.HTTPError as e:
+                    body = e.read()
+                    e.close()
+                    return e.code, body, e.headers
+
+            h_paths = [f"/fs/b/httpfs/f{i}" for i in range(n_http)]
+            h_data = [rng.bytes(http_size) for _ in h_paths]
+
+            def create(i):
+                st, _, hd = call("PUT", h_paths[i], op="CREATE")
+                if st != 307:
+                    raise AssertionError(f"fs (b): CREATE step 1 answered {st}")
+                r = urllib.request.urlopen(urllib.request.Request(
+                    hd["Location"], data=h_data[i], method="PUT"), timeout=600)
+                if r.status != 201:
+                    raise AssertionError(f"fs (b): CREATE step 2 answered {r.status}")
+
+            _, hw_s, hw_l = step("(b) HttpFS CREATE", lambda: parallel(
+                create, range(n_http), n_http))
+
+            def open_all():
+                for i, p in enumerate(h_paths):
+                    st, body, _ = call("GET", p, op="OPEN")
+                    if st != 200 or body != h_data[i]:
+                        raise AssertionError(f"fs (b): OPEN {p} differs")
+
+            _, hr_s, _ = step("(b) HttpFS OPEN", open_all)
+            off, ln = http_size // 3 + 17, http_size // 2 + 3
+            st, body, _ = call("GET", h_paths[0], op="OPEN", offset=off, length=ln)
+            if st != 200 or body != h_data[0][off:off + ln]:
+                raise AssertionError("fs (b): ranged OPEN differs")
+            st, body, _ = call("GET", h_paths[0], op="GETFILECHECKSUM")
+            ck = json.loads(body)["FileChecksum"]
+            want = checksum.crc32c(np.frombuffer(h_data[0], np.uint8))
+            if ck["algorithm"] != sums[0]["algorithm"] or int(ck["bytes"], 16) != want:
+                raise AssertionError(f"fs (b): GETFILECHECKSUM {ck} is not {want:08x}")
+            st, body, _ = call("GET", "/fs/b/httpfs", op="LISTSTATUS")
+            listed = [(e["pathSuffix"], e["length"]) for e in
+                      json.loads(body)["FileStatuses"]["FileStatus"]]
+            if listed != [(f"f{i}", http_size) for i in range(n_http)]:
+                raise AssertionError(f"fs (b): LISTSTATUS {listed}")
+            # the degraded OPEN: two datanodes of the first group stopped
+            info = om.lookup_key("fs", "b", "httpfs/f0")
+            first = info["block_groups"][0]["nodes"]
+            down = [first[1], first[4]]
+            for n in down:
+                stop_server(by_id[n])
+            try:
+                def degraded():
+                    st, body, _ = call("GET", h_paths[0], op="OPEN")
+                    if st != 200 or body != h_data[0]:
+                        raise AssertionError("fs (b): degraded OPEN differs")
+
+                _, hd_s, hd_l = step("(b) degraded OPEN", degraded)
+                if device.type == "cuda" and hd_l < 1:
+                    raise AssertionError("fs (b): the degraded OPEN launched no decode")
+            finally:
+                for n in down:
+                    restart_server(by_id[n])
+            st, body, _ = call("PUT", h_paths[1], op="RENAME",
+                               destination="/fs/b/httpfs/renamed")
+            if json.loads(body) != {"boolean": True}:
+                raise AssertionError(f"fs (b): RENAME answered {st} {body!r}")
+            st, body, _ = call("DELETE", "/fs/b/httpfs/renamed", op="DELETE")
+            st2, _, _ = call("GET", "/fs/b/httpfs/renamed", op="GETFILESTATUS")
+            if json.loads(body) != {"boolean": True} or st2 != 404:
+                raise AssertionError("fs (b): DELETE did not remove the file")
+            # libo3fs: the C client over the gateway
+            import ctypes
+
+            from ozone_tpu_torch.client import libo3fs
+
+            lib = libo3fs.library()
+            c_data = rng.bytes(o3fs_size)
+            fs_h = lib.o3fsConnect(b"127.0.0.1", gw.port)
+            t0 = time.perf_counter()
+            f = lib.o3fsOpenFile(fs_h, b"/fs/b/o3fs/c.bin", libo3fs.O3FS_WRONLY, 0, 0, 0)
+            if not f or lib.o3fsWrite(fs_h, f, c_data, len(c_data)) != len(c_data) \
+                    or lib.o3fsCloseFile(fs_h, f) != 0:
+                raise AssertionError("fs (b): libo3fs write failed")
+            cw_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            f = lib.o3fsOpenFile(fs_h, b"/fs/b/o3fs/c.bin", libo3fs.O3FS_RDONLY, 0, 0, 0)
+            buf = ctypes.create_string_buffer(len(c_data))
+            got, pos = 0, 0
+            while pos < len(c_data):
+                got = lib.o3fsRead(fs_h, f, ctypes.byref(buf, pos), len(c_data) - pos)
+                if got <= 0:
+                    break
+                pos += got
+            lib.o3fsCloseFile(fs_h, f)
+            cr_s = time.perf_counter() - t0
+            lib.o3fsDisconnect(fs_h)
+            if buf.raw != c_data:
+                raise AssertionError("fs (b): libo3fs read back differs")
+        finally:
+            gw.stop()
+        h_bytes = n_http * http_size
+        out["b"] = dict(write_gib_s=h_bytes / hw_s / gib, read_gib_s=h_bytes / hr_s / gib,
+                        degraded_gib_s=http_size / hd_s / gib,
+                        o3fs_write_gib_s=o3fs_size / cw_s / gib,
+                        o3fs_read_gib_s=o3fs_size / cr_s / gib)
+        out["launches"]["fs_httpfs_create"] = hw_l
+        out["launches"]["fs_httpfs_degraded_open"] = hd_l
+        print(f"fs (b) HttpFS: {n_http} x {http_size >> 20} MiB two-step CREATE "
+              f"{out['b']['write_gib_s']:.3f} GiB/s (ofs in (a): {out['a']['write_gib_s']:.3f}, "
+              f"ratio {out['b']['write_gib_s'] / out['a']['write_gib_s']:.3f}), OPEN "
+              f"{out['b']['read_gib_s']:.3f} GiB/s (ofs {out['a']['read_gib_s']:.3f}, ratio "
+              f"{out['b']['read_gib_s'] / out['a']['read_gib_s']:.3f}); ranged OPEN, "
+              f"GETFILECHECKSUM = host CRC32C, LISTSTATUS, RENAME, DELETE; degraded OPEN "
+              f"with {down} down {out['b']['degraded_gib_s']:.3f} GiB/s, {hd_l} decode "
+              f"launches; libo3fs {o3fs_size >> 20} MiB write "
+              f"{out['b']['o3fs_write_gib_s']:.3f}, read {out['b']['o3fs_read_gib_s']:.3f} "
+              "GiB/s, byte-exact")
+
+        # ---- (c) mdtest-easy: empty files, one directory per process
+        md = [[f"/fs/b/mdtest/proc{t}/file.mdtest.{t}.{i}" for i in range(md_files)]
+              for t in range(threads)]
+        _, mc_s, mc_l = step("(c) create", lambda: parallel(
+            lambda t: [ofs.create(p, b"") for p in md[t]], range(threads), threads))
+
+        def stat_all(t):
+            for p in md[t]:
+                st = ofs.get_file_status(p)
+                if st.is_dir or st.length != 0:
+                    raise AssertionError(f"fs (c): stat {p} {st}")
+
+        t0 = time.perf_counter()
+        parallel(stat_all, range(threads), threads)
+        ms_s = time.perf_counter() - t0
+
+        def list_all(t):
+            seen, after, pages = [], "", 0
+            while True:
+                page, more = ofs.list_status_page(f"/fs/b/mdtest/proc{t}",
+                                                  start_after=after, limit=md_page)
+                pages += 1
+                seen += [s.path.rpartition("/")[2] for s in page]
+                if not more:
+                    break
+                after = seen[-1]
+            if sorted(seen) != sorted(p.rpartition("/")[2] for p in md[t]):
+                raise AssertionError(f"fs (c): listing of proc{t} differs")
+            return pages
+
+        t0 = time.perf_counter()
+        pages = sum(parallel(list_all, range(threads), threads))
+        ml_s = time.perf_counter() - t0
+        n_md = threads * md_files
+        out["c"] = dict(create_ops_s=n_md / mc_s, stat_ops_s=n_md / ms_s,
+                        list_entries_s=n_md / ml_s)
+        out["launches"]["fs_mdtest"] = mc_l
+        print(f"fs (c) mdtest-easy: {threads} x {md_files} empty files: create "
+              f"{out['c']['create_ops_s']:.1f} ops/s ({mc_l} launches), stat "
+              f"{out['c']['stat_ops_s']:.1f} ops/s, list {pages} pages of {md_page} "
+              f"{out['c']['list_entries_s']:.1f} entries/s")
+
+        # ---- (d) rename and recursive delete
+        ofs.create("/fs/b/single/only", b"x")
+        t0 = time.perf_counter()
+        ofs.rename("/fs/b/mdtest", "/fs/b/mdtest-renamed")
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ofs.rename("/fs/b/single", "/fs/b/single-renamed")
+        one_s = time.perf_counter() - t0
+
+        def moved(t):
+            for p in md[t]:
+                new = p.replace("/mdtest/", "/mdtest-renamed/", 1)
+                if ofs.get_file_status(new).length != 0 or ofs.exists(p):
+                    raise AssertionError(f"fs (d): {p} not moved to {new}")
+
+        parallel(moved, range(threads), threads)
+        doomed = io_paths[:2]
+        doomed_groups = [om.key_block_groups(om.lookup_key(
+            "fs", "b", p.split("/", 3)[3])) for p in doomed]
+        t0 = time.perf_counter()
+        ofs.delete("/fs/b/mdtest-renamed", recursive=True)
+        for p in doomed:
+            ofs.delete(p)
+        store = meta.om.store
+
+        def blocks_gone():
+            for groups in doomed_groups:
+                for g in groups:
+                    for n in g.pipeline.nodes:
+                        try:
+                            by_id[n].dn.get_block(g.block_id)
+                            return False
+                        except StorageError:
+                            pass
+            return True
+
+        dirs_s = wait_for("fs (d): deleted_dirs empty",
+                          lambda: not list(store.iterate("deleted_dirs")), 120, 0.02)
+        blocks_s = wait_for("fs (d): the deleted files' blocks gone", blocks_gone,
+                            120, 0.05) + dirs_s
+        if ofs.exists("/fs/b/mdtest-renamed") or any(ofs.exists(p) for p in doomed):
+            raise AssertionError("fs (d): a deleted entry still answers")
+        out["d"] = dict(rename_tree_s=tree_s, rename_one_s=one_s, purge_dirs_s=dirs_s,
+                        purge_blocks_s=blocks_s)
+        print(f"fs (d): rename of the {n_md}-entry tree {1e3 * tree_s:.2f} ms, of a "
+              f"one-file directory {1e3 * one_s:.2f} ms; every entry answers under the new "
+              f"path only; recursive delete + 2 files: deleted_dirs empty after "
+              f"{dirs_s:.3f} s, their blocks gone from the datanodes after {blocks_s:.3f} s")
+
+        # ---- (e) hsync and lease recovery (RATIS/THREE in the FSO bucket)
+        b = oz.get_volume("fs").get_bucket("b")
+        rclients = DatanodeClientFactory()
+        reader = OzoneClient(RemoteOmClient(meta.address, clients=rclients), rclients,
+                             device=device)
+        rb = reader.get_volume("fs").get_bucket("b")
+        parts = [np.frombuffer(rng.bytes(hsync_part), np.uint8)
+                 for _ in range(hsync_parts + 1)]
+        h = b.open_key("logs/hsync.log", "RATIS/THREE")
+        sync_ms = []
+        try:
+            for i in range(hsync_parts):
+                h.write(parts[i])
+                t0 = time.perf_counter()
+                h.hsync()
+                sync_ms.append(1e3 * (time.perf_counter() - t0))
+                want = np.concatenate(parts[:i + 1])
+                if not np.array_equal(rb.read_key("logs/hsync.log"), want):
+                    raise AssertionError(f"fs (e): second reader after hsync {i + 1} differs")
+            h.write(parts[-1][:hsync_part // 2])  # never synced
+            t0 = time.perf_counter()
+            if not ofs.recover_lease("/fs/b/logs/hsync.log"):
+                raise AssertionError("fs (e): recover_lease found no synced write")
+            rl_s = time.perf_counter() - t0
+            sealed = np.concatenate(parts[:hsync_parts])
+            info = rb.lookup_key_info("logs/hsync.log")
+            if info["size"] != sealed.size or "hsync_client_id" in info or \
+                    not np.array_equal(rb.read_key("logs/hsync.log"), sealed):
+                raise AssertionError("fs (e): not sealed at the last synced length")
+            stale = code(h.hsync)
+            if stale != "KEY_NOT_FOUND":
+                raise AssertionError(f"fs (e): the stale writer's hsync answered {stale}")
+        finally:
+            reader.om.close()
+            reader.clients.close()
+        e = b.open_key("logs/ec.bin")
+        e.write(parts[0][:MIB])
+        ec_code = code(e.hsync)
+        e.close()
+        if ec_code != "NOT_SUPPORTED_OPERATION":
+            raise AssertionError(f"fs (e): EC hsync answered {ec_code}")
+        out["e"] = dict(hsync_ms=statistics.median(sync_ms), recover_lease_s=rl_s)
+        print(f"fs (e): {hsync_parts} x {hsync_part / MIB:g} MiB RATIS/THREE with hsync "
+              f"after each ({', '.join(f'{m:.1f}' for m in sync_ms)} ms), the second "
+              f"client read every synced length byte-exact; recover_lease "
+              f"{1e3 * rl_s:.2f} ms sealed {sealed.size} B; stale hsync {stale}; EC "
+              f"hsync {ec_code}")
+
+        # ---- (f) small files, IO500 mdtest-hard shape
+        # fsg's bucket made FSO first (its mkdirs would make an OBS one)
+        om.create_volume("freon-vol")
+        om.create_bucket("freon-vol", "freon-ofs", rs, "FILE_SYSTEM_OPTIMIZED")
+        fsg, fsg_s, fsg_l = step("(f) fsg", lambda: freon.fsg(
+            oz, n_files=n_small, size=small_size, threads=small_threads,
+            replication=rs).summary())
+        fskg, fskg_s, fskg_l = step("(f) fskg", lambda: freon.fskg(
+            oz, n_files=n_small, size=small_size, depth=3, threads=small_threads,
+            replication=rs).summary())
+        for rep in (fsg, fskg):
+            if rep["failures"] or rep["ops"] != n_small:
+                raise AssertionError(f"fs (f): {rep}")
+        want4 = np.random.default_rng(4).integers(0, 256, small_size, dtype=np.uint8)
+        want1 = np.random.default_rng(1).integers(0, 256, small_size, dtype=np.uint8)
+        fb, kb = (oz.get_volume("freon-vol").get_bucket(x)
+                  for x in ("freon-ofs", "freon-fso"))
+
+        def check_small(i):
+            if not np.array_equal(fb.read_key(f"d{i % 8}/f{i}"), want4):
+                raise AssertionError(f"fs (f): fsg file {i} differs")
+            parts_ = [f"d{(i >> (4 * d)) & 0xF}" for d in range(3)]
+            if not np.array_equal(kb.read_key("/".join(parts_) + f"/f{i}"), want1):
+                raise AssertionError(f"fs (f): fskg file {i} differs")
+
+        parallel(check_small, range(n_small), small_threads)
+        if om.bucket_info("freon-vol", "freon-ofs")["layout"] != "FILE_SYSTEM_OPTIMIZED":
+            raise AssertionError("fs (f): fsg did not write into the FSO bucket")
+        out["f"] = dict(fsg_ops_s=fsg["ops_per_s"], fskg_ops_s=fskg["ops_per_s"],
+                        fsg_p99_ms=fsg["p99_ms"], fskg_p99_ms=fskg["p99_ms"])
+        out["launches"]["fs_fsg"] = fsg_l
+        out["launches"]["fs_fskg"] = fskg_l
+        print(f"fs (f): fsg {n_small} x {small_size} B on {small_threads} threads "
+              f"{fsg['ops_per_s']} ops/s (create + read back, p99 {fsg['p99_ms']} ms, "
+              f"{fsg_l} launches), fskg depth 3 {fskg['ops_per_s']} ops/s (p99 "
+              f"{fskg['p99_ms']} ms, {fskg_l} launches); every file read back byte-exact")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3912,13 +4392,17 @@ def main() -> int:
         fr = phase("freon_path", freon_path, device, MIB, bpc, args.seed)
         dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
                    statistics.mean(r["gib_s"] for r in put["service"]))
-        s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed)
-        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed)
-        # depth cut for ha_path's room (PERF.md section 4): 1000 keys per
-        # tinyg run and 200 on the stripe path, of the cell's 2000 and 500
+        # depth cuts for fs_path's room (PERF.md section 4): two S3 clients of four
+        s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed, 2)
+        # depth cut: 8 big keys of 16
+        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed, 8)
+        # depth cut (PERF.md section 4): 250 keys per tinyg run and 50 on the
+        # stripe path, of the cell's 2000 and 500
         so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed,
-                   1000, 64 * 1024, 200)
-        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed)
+                   250, 64 * 1024, 50)
+        # depth cut: (a) and (d) take 4 keys of 8, (b) 8 keys of 16
+        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 4, 64 * MIB, 8)
+        fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -3948,7 +4432,7 @@ def main() -> int:
             "lifecycle_tier": lc["tier_launches"],
             "lifecycle_xor_reencode": lc["xor_launches"],
             "lifecycle_daemon_run_now": lc["daemon_launches"],
-            **so["launches"], **ha["launches"],
+            **so["launches"], **ha["launches"], **fs["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

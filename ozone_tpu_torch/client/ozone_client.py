@@ -21,9 +21,13 @@ either reads the row or slices the needle out of its slab behind the
 needle's CRC gate. With `ratis_clients` (a
 `net/ratis_service.RatisClientFactory`) a RATIS key of factor > 1 is
 written through the pipeline's Raft ring (`client/ratis_client.py`), as
-in the reference. Left out for later slices: encryption (and so
-encrypted multipart uploads), snapshot paths, file checksums, rename,
-rewrite and copy.
+in the reference. A write handle's `hsync` commits the durable prefix
+mid-write (replicated keys; an EC writer refuses it). `file_checksum`
+composes the whole-key CRC from the chunk CRCs the datanodes store
+(`client/file_checksum.py`); `rename_key`, the fenced `rewrite_key` and
+`copy_key` are the `sh key` verbs of the same names. Left out for later
+slices: encryption (and so encrypted multipart uploads) and snapshot
+paths.
 """
 
 from __future__ import annotations
@@ -67,6 +71,16 @@ class KeyWriteHandle:
 
     def write(self, data) -> None:
         self._writer.write(data)
+
+    def hsync(self) -> None:
+        """Make everything written so far durable and readable while the
+        stream stays open (KeyOutputStream.hsync): flush to the datanodes,
+        then commit the key at the synced length with the session kept
+        alive. EC keys refuse it, as in the reference."""
+        groups = self._writer.hsync()
+        with Tracer.instance().span("om:commit", hsync=True):
+            self._om.hsync_key(self._session, groups,
+                               self._writer.bytes_written)
 
     def close(self) -> None:
         if self._committed:
@@ -349,8 +363,40 @@ class OzoneBucket:
             raise ValueError(f"key groups cover {out.size} of {length} B")
         return out
 
+    def file_checksum(self, key: str) -> dict:
+        """Composite whole-key checksum from the stored chunk CRCs; no
+        data is read (getFileChecksum)."""
+        from ozone_tpu_torch.client.file_checksum import file_checksum
+
+        return file_checksum(self.client, self.volume, self.name, key)
+
+    def rewrite_key(self, key: str, replication: str) -> None:
+        """Re-write a key's data in place under another replication config
+        (`sh key rewrite`). Fenced: the commit carries the source's object
+        id and generation, and a key overwritten meanwhile refuses it with
+        KEY_MODIFIED, its new blocks discarded."""
+        info = self.client.om.lookup_key(self.volume, self.name, key)
+        data = self.read_key_info(info)
+        h = self.open_key(key, replication, metadata=info.get("metadata"))
+        h._session.expect_object_id = info.get("object_id", "")
+        h._session.expect_generation = int(info.get("generation", 0))
+        h.write(data)
+        h.close()
+
+    def copy_key(self, key: str, dst_bucket: "OzoneBucket", dst_key: str,
+                 replication: Optional[str] = None) -> None:
+        """Key copy (`sh key cp`): read once, write under the destination
+        bucket's (or an explicit) replication config."""
+        info = self.client.om.lookup_key(self.volume, self.name, key)
+        dst_bucket.write_key(dst_key, self.read_key_info(info),
+                             replication=replication,
+                             metadata=info.get("metadata"))
+
     def delete_key(self, key: str) -> None:
         self.client.om.delete_key(self.volume, self.name, key)
+
+    def rename_key(self, key: str, new_key: str) -> None:
+        self.client.om.rename_key(self.volume, self.name, key, new_key)
 
     def list_keys(self, prefix: str = "") -> list[dict]:
         return self.client.om.list_keys(self.volume, self.name, prefix)

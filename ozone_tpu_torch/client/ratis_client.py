@@ -7,7 +7,8 @@ applied the write, degrading from ALL to MAJORITY when a follower lags).
 `RatisKeyWriter` composes it with the replicated writer: chunk BYTES
 still fan out over the datapath to every member, while the create and
 commit verbs are proposed to the leader, so every replica applies the
-same ordered history; it commits once a majority took a chunk's bytes.
+same ordered history; it commits once a majority took a chunk's bytes,
+and its `hsync` and `close` wait for the commit watermark on all members.
 Left out: block and container tokens on the proposals.
 """
 
@@ -207,6 +208,19 @@ class RatisKeyWriter(ReplicatedKeyWriter):
                 (self._xceiver(self._group), self._last_index))
             self._last_index = 0
         super()._finalize_group()
+
+    def hsync(self) -> list[BlockGroup]:
+        """The parent's hsync, then the hflush barrier over every block
+        it covers: the finalized blocks' and the open block's last commit
+        indexes applied on all replicas, so a reader of the synced length
+        finds it on any member."""
+        groups = super().hsync()
+        targets, self._watch_targets = self._watch_targets, []
+        if self._group is not None and self._last_index:
+            targets.append((self._xceiver(self._group), self._last_index))
+        for xceiver, index in targets:
+            xceiver.watch_for_commit(index, timeout=self.watch_timeout_s)
+        return groups
 
     def close(self) -> list[BlockGroup]:
         groups = super().close()

@@ -4,7 +4,9 @@ Port of `ozone_tpu/client/replicated.py` (the reference's KeyOutputStream
 -> BlockOutputStream over a replicated pipeline): every chunk goes to all
 replicas of the pipeline, one combined chunk-write-and-commit per member
 (the put-block piggyback), with a rollback of the members that took it
-when another member fails; reads fail over and hedge between replicas.
+when another member fails; `hsync` flushes the buffered chunk and hands
+back the groups of the durable prefix while the block stays open; reads
+fail over and hedge between replicas.
 A subclass whose commits are ordered elsewhere (the Raft pipeline
 writer, `client/ratis_client.py`) turns the combined call off and takes
 the split phases: the chunk to every member, then `_commit_chunk` once
@@ -252,6 +254,19 @@ class ReplicatedKeyWriter:
             self._groups.append(self._group)
         self._group = None
         self._chunks = []
+
+    def hsync(self) -> list[BlockGroup]:
+        """Flush the buffered bytes to every replica and return the block
+        groups of everything written so far; the current block stays open
+        for more writes (KeyOutputStream.hsync: the durable prefix the OM
+        commits mid-write)."""
+        if self._closed:
+            raise ValueError("writer is closed")
+        self._flush_chunk()
+        groups = list(self._groups)
+        if self._group is not None and self._group.length > 0:
+            groups.append(self._group)
+        return groups
 
     def close(self) -> list[BlockGroup]:
         if self._closed:

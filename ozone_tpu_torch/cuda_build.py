@@ -1,10 +1,12 @@
 """Build the port's native sources into shared libraries at first use.
 
-Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
-exports a plain C interface. A `.cu` file is compiled with `nvcc` for
-`sm_90a`, a `.cpp` file with `g++ -O3 -msse4.2` (the GF coder and the
-chunk datapath sidecar with `-O3 -march=native -pthread`, as the
-reference builds its own copies), into `_build/lib<name>-<hash>.so`, where the hash covers the source and
+Each `csrc/<name>.cu` (a CUDA kernel), `csrc/<name>.cpp` (host code) or
+`csrc/lib<name>/<name>.c` (the C client libo3fs) exports a plain C
+interface. A `.cu` file is compiled with `nvcc` for `sm_90a`, a `.cpp`
+file with `g++ -O3 -msse4.2` (the GF coder and the chunk datapath sidecar
+with `-O3 -march=native -pthread`, as the reference builds its own
+copies), a `.c` file with `gcc -O2` (the reference's flags), into
+`_build/lib<name>-<hash>.so`, where the hash covers the source and
 the flags, and for `-march=native` what the compiler makes of it on this
 host, so an edited source, or a library built for another CPU, never
 loads. Each compiler writes a temporary file that is renamed into place,
@@ -48,6 +50,10 @@ HOST_FLAGS = {
                  "-fPIC"),
 }
 
+#: C sources (libo3fs), with the reference's flags
+#: (ozone_tpu/native/__init__.py build_shared)
+GCC_FLAGS = ("-O2", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> (seconds, the compiler's output) of the builds this process ran
@@ -70,22 +76,34 @@ def gxx() -> str:
     return path
 
 
+def gcc() -> str:
+    path = shutil.which("gcc") or shutil.which("cc")
+    if path is None:
+        raise RuntimeError("gcc not found: a C compiler is required to "
+                           "build libo3fs")
+    return path
+
+
 def _source(name: str) -> Path:
-    for suffix in (".cu", ".cpp"):
-        src = CSRC / f"{name}{suffix}"
+    for src in (CSRC / f"{name}.cu", CSRC / f"{name}.cpp",
+                CSRC / f"lib{name}" / f"{name}.c"):
         if src.exists():
             return src
-    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+    raise FileNotFoundError(f"no csrc/{name}.cu, csrc/{name}.cpp or "
+                            f"csrc/lib{name}/{name}.c")
 
 
 def _flags(src: Path) -> tuple[str, ...]:
     if src.suffix == ".cu":
         return NVCC_FLAGS
+    if src.suffix == ".c":
+        return GCC_FLAGS
     return HOST_FLAGS.get(src.stem, GXX_FLAGS)
 
 
 def _command(src: Path) -> list[str]:
-    return [nvcc() if src.suffix == ".cu" else gxx(), *_flags(src)]
+    compiler = {".cu": nvcc, ".c": gcc}.get(src.suffix, gxx)
+    return [compiler(), *_flags(src)]
 
 
 @lru_cache(maxsize=None)
@@ -101,6 +119,8 @@ def _target(name: str) -> tuple[Path, Path]:
     src = _source(name)
     flags = _flags(src)
     key = src.read_bytes() + " ".join(flags).encode()
+    if src.suffix == ".c":  # the header beside it
+        key += b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.h")))
     if "-march=native" in flags:
         key += _native_target()
     digest = hashlib.sha256(key).hexdigest()[:12]
@@ -135,7 +155,8 @@ def build_all() -> dict[str, tuple[float, str]]:
     """Compile every csrc source, kernels and host libraries, in parallel
     (one compiler process each) and load them."""
     names = sorted({p.stem for p in CSRC.glob("*.cu")}
-                   | {p.stem for p in CSRC.glob("*.cpp")})
+                   | {p.stem for p in CSRC.glob("*.cpp")}
+                   | {p.stem for p in CSRC.glob("lib*/*.c")})
     with _lock:
         jobs = {n: _start(n) for n in names if n not in _libs}
         for n, job in jobs.items():

@@ -657,8 +657,10 @@ class ScmOmDaemon:
         return self._lifecycle_clients
 
     def run_background_once(self) -> None:
-        """One pass of the SCM's control loops and the OM's key-deleting
-        service; every OZONE_TPU_LIFECYCLE_PERIOD_S, a lifecycle sweep
+        """One pass of the SCM's control loops and the OM's directory-
+        deleting and key-deleting services (detached FSO subtrees move
+        into the deleted-key chain, whose blocks go to the SCM's deletion
+        log); every OZONE_TPU_LIFECYCLE_PERIOD_S, a lifecycle sweep
         and a slab compaction after it (outside the SCM lock: they
         allocate blocks and write to datanodes through the RPC). Under
         HA every replica first compacts its raft log behind a snapshot
@@ -673,6 +675,7 @@ class ScmOmDaemon:
                     log.exception("raft log compaction failed")
             if not self.ha.is_leader:
                 return
+        self.om.run_dir_deleting_service_once()
         with self.scm_service.lock:
             self.scm.run_background_once()
             self.om.run_key_deleting_service_once()

@@ -11,7 +11,11 @@ block groups as commit_key does; the small-object verbs (the bucket
 opt-in, inline PUTs with the value in base64, the batched needle commit,
 slab allocation, info and listing, compaction) and the lifecycle verbs
 (rules set, get and clear, the sweeper's status, and a sweep run now,
-which runs in the metadata daemon's process). `RemoteOmClient` (the
+which runs in the metadata daemon's process); the filesystem verbs
+(link buckets, bucket attributes, key rename, the hsync flag on a
+commit, lease recovery, the open-files listing, and the FSO directory
+verbs; an FSO open carries its tree position, parent id and file name,
+to the commit). `RemoteOmClient` (the
 reference's GrpcOmClient) has the attribute surface `OzoneClient`, the
 slab packer and the S3 gateway need from `OzoneManager`, so all work
 unchanged against a remote OM, and fails over across a comma-separated
@@ -78,6 +82,8 @@ class OmRpcService:
                 m["volume"], m["bucket"],
                 m.get("replication", "rs-6-3-1024k"),
                 m.get("layout", "OBJECT_STORE"))),
+            "CreateBucketLink": w(lambda m: om.create_bucket_link(
+                m["src_volume"], m["src_bucket"], m["volume"], m["bucket"])),
             "DeleteBucket": w(lambda m: om.delete_bucket(m["volume"],
                                                          m["bucket"])),
             "BucketInfo": w(lambda m: om.bucket_info(m["volume"],
@@ -86,6 +92,8 @@ class OmRpcService:
             "OpenKey": self._open_key,
             "AllocateBlock": self._allocate_block,
             "CommitKey": self._commit_key,
+            "RecoverLease": w(lambda m: om.recover_lease(
+                m["volume"], m["bucket"], m["key"])),
             "LookupKey": w(lambda m: om.lookup_key(
                 m["volume"], m["bucket"], m["key"]), with_addresses=True),
             "ListKeys": w(lambda m: om.list_keys(
@@ -94,9 +102,28 @@ class OmRpcService:
             "DeleteKey": w(lambda m: om.delete_key(
                 m["volume"], m["bucket"], m["key"],
                 expect_object_id=m.get("expect_object_id", ""))),
+            "RenameKey": w(lambda m: om.rename_key(
+                m["volume"], m["bucket"], m["key"], m["new_key"])),
             "SetKeyAttrs": w(lambda m: om.set_key_attrs(
                 m["volume"], m["bucket"], m["key"], m["attrs"],
                 m.get("preconds"))),
+            "SetBucketAttrs": w(lambda m: om.set_bucket_attrs(
+                m["volume"], m["bucket"], m["attrs"])),
+            # the FSO verbs (the reference's CreateDirectory, GetFileStatus,
+            # ListStatus, and DeleteKey with its recursive flag)
+            "CreateDirectory": w(lambda m: om.create_directory(
+                m["volume"], m["bucket"], m["path"])),
+            "DeleteDirectory": w(lambda m: om.delete_directory(
+                m["volume"], m["bucket"], m["path"],
+                m.get("recursive", False))),
+            "GetFileStatus": w(lambda m: om.get_file_status(
+                m["volume"], m["bucket"], m["path"])),
+            "ListStatus": w(lambda m: om.list_status(
+                m["volume"], m["bucket"], m["path"])),
+            "ListOpenFiles": w(lambda m: om.list_open_files(
+                m.get("volume", ""), m.get("bucket", ""),
+                m.get("prefix", ""), m.get("start_after", ""),
+                m.get("limit", 100))),
             "GetS3Secret": w(lambda m: om.get_s3_secret(
                 m["access_id"], m.get("create", True))),
             "RevokeS3Secret": w(lambda m: om.revoke_s3_secret(
@@ -200,6 +227,9 @@ class OmRpcService:
             "volume": s.volume,
             "bucket": s.bucket,
             "key": s.key,
+            # an FSO session carries its tree position across the wire
+            "parent_id": s.parent_id,
+            "file_name": s.file_name,
         })
 
     def _allocate_block(self, req) -> bytes:
@@ -239,10 +269,13 @@ class OmRpcService:
             replication = ReplicationConfig.parse(m["replication"])
             expect_object_id = m.get("expect_object_id", "")
             expect_generation = m.get("expect_generation", -1)
+            parent_id = m.get("parent_id")
+            file_name = m.get("file_name")
 
         try:
             self.om.commit_key(_S(), [_block_group().from_json(g)
-                                      for g in m["groups"]], m["size"])
+                                      for g in m["groups"]], m["size"],
+                               hsync=bool(m.get("hsync")))
         except OMError as e:
             raise StorageError(e.code, e.msg)
         resp = {}
@@ -287,6 +320,8 @@ class RemoteOpenKeySession:
         self.bytes_per_checksum = meta["bytes_per_checksum"]
         self.expect_object_id = ""
         self.expect_generation = -1
+        self.parent_id = meta.get("parent_id")
+        self.file_name = meta.get("file_name")
 
 
 class RemoteOmClient:
@@ -373,8 +408,16 @@ class RemoteOmClient:
         self._call("CreateBucket", volume=volume, bucket=bucket,
                    replication=replication, layout=layout)
 
+    def create_bucket_link(self, src_volume, src_bucket, volume, bucket):
+        self._call("CreateBucketLink", src_volume=src_volume,
+                   src_bucket=src_bucket, volume=volume, bucket=bucket)
+
     def delete_bucket(self, volume, bucket):
         self._call("DeleteBucket", volume=volume, bucket=bucket)
+
+    def set_bucket_attrs(self, volume, bucket, attrs):
+        return self._call("SetBucketAttrs", volume=volume, bucket=bucket,
+                          attrs=attrs)["result"]
 
     def bucket_info(self, volume, bucket):
         return self._call("BucketInfo", volume=volume, bucket=bucket)["result"]
@@ -400,13 +443,29 @@ class RemoteOmClient:
         self._learn_from(m)
         return _block_group().from_json(m["group"])
 
-    def commit_key(self, session, groups, size):
+    def commit_key(self, session, groups, size, hsync=False):
         self._call("CommitKey", volume=session.volume, bucket=session.bucket,
                    key=session.key, client_id=session.client_id,
                    replication=str(session.replication),
                    groups=[g.to_json() for g in groups], size=size,
                    expect_object_id=session.expect_object_id,
-                   expect_generation=session.expect_generation)
+                   expect_generation=session.expect_generation,
+                   parent_id=getattr(session, "parent_id", None),
+                   file_name=getattr(session, "file_name", None),
+                   hsync=hsync)
+
+    def hsync_key(self, session, groups, size):
+        self.commit_key(session, groups, size, hsync=True)
+
+    def recover_lease(self, volume, bucket, key):
+        return self._call("RecoverLease", volume=volume, bucket=bucket,
+                          key=key)["result"]
+
+    def list_open_files(self, volume="", bucket="", prefix="",
+                        start_after="", limit=100):
+        return self._call("ListOpenFiles", volume=volume, bucket=bucket,
+                          prefix=prefix, start_after=start_after,
+                          limit=limit)["result"]
 
     def lookup_key(self, volume, bucket, key):
         return self._learn_from(self._call("LookupKey", volume=volume,
@@ -425,9 +484,29 @@ class RemoteOmClient:
         self._call("DeleteKey", volume=volume, bucket=bucket, key=key,
                    expect_object_id=expect_object_id)
 
+    def rename_key(self, volume, bucket, key, new_key):
+        self._call("RenameKey", volume=volume, bucket=bucket, key=key,
+                   new_key=new_key)
+
     def set_key_attrs(self, volume, bucket, key, attrs, preconds=None):
         return self._call("SetKeyAttrs", volume=volume, bucket=bucket,
                           key=key, attrs=attrs, preconds=preconds)["result"]
+
+    # FSO file system
+    def create_directory(self, volume, bucket, path):
+        self._call("CreateDirectory", volume=volume, bucket=bucket, path=path)
+
+    def delete_directory(self, volume, bucket, path, recursive=False):
+        self._call("DeleteDirectory", volume=volume, bucket=bucket,
+                   path=path, recursive=recursive)
+
+    def get_file_status(self, volume, bucket, path):
+        return self._call("GetFileStatus", volume=volume, bucket=bucket,
+                          path=path)["result"]
+
+    def list_status(self, volume, bucket, path):
+        return self._call("ListStatus", volume=volume, bucket=bucket,
+                          path=path)["result"]
 
     # s3 secrets
     def get_s3_secret(self, access_id, create=True):

@@ -9,20 +9,23 @@ MultipartUploadCleanupService): upload state lives in the OM's
 its own block groups; complete stitches the listed parts in part-number
 order into the key row and routes every replaced or orphaned part's
 blocks into the deleted-keys purge chain. Rows are the reference's JSON.
-Left out: snapshot pre-images (snapshots are not ported), encrypted
-uploads, and the lease recovery of expired hsync sessions (hsync is not
-ported, so no open session carries a writer to recover).
+The open-key expiry seals an expired hsync session by lease recovery.
+Left out: snapshot pre-images (snapshots are not ported) and encrypted
+uploads.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import time
 import uuid
 from dataclasses import dataclass, field
 
 from ozone_tpu_torch.om import requests as rq
 from ozone_tpu_torch.om.metadata import bucket_key, key_key
+
+log = logging.getLogger(__name__)
 
 NO_SUCH_UPLOAD = "NO_SUCH_MULTIPART_UPLOAD"
 INVALID_PART = "INVALID_PART"
@@ -254,7 +257,10 @@ class PurgeExpiredOpenKeys(rq.OMRequest):
 
 
 class OpenKeyCleanupService:
-    """Purge open-key sessions older than max_age."""
+    """Purge open-key sessions older than max_age. An hsynced session
+    whose writer stopped syncing for max_age belongs to a dead writer:
+    its key is sealed at the last synced length by lease recovery
+    instead of being discarded."""
 
     def __init__(self, om, max_age_s: float = 7 * 24 * 3600.0):
         self.om = om
@@ -262,16 +268,31 @@ class OpenKeyCleanupService:
 
     def run_once(self, limit: int = 256) -> int:
         cutoff = time.time() - self.max_age_s
-        expired = [
-            k for k, info in self.om.store.iterate("open_keys")
+        expired = []
+        hsynced = []
+        for k, info in self.om.store.iterate("open_keys"):
             # snapshot markers (a database the reference wrote) are not
             # sessions
-            if not k.startswith("/.snapmeta/")
-            and info.get("created", 0) < cutoff
-        ][:limit]
+            if k.startswith("/.snapmeta/"):
+                continue
+            if info.get("hsync_client_id"):
+                # a live hsync stream refreshes "modified" on every sync
+                if max(info.get("created", 0),
+                       info.get("modified", 0)) < cutoff:
+                    hsynced.append(info)
+            elif info.get("created", 0) < cutoff:
+                expired.append(k)
+        expired = expired[:limit]
         if expired:
             self.om.submit(PurgeExpiredOpenKeys(expired))
-        return len(expired)
+        for info in hsynced[:limit]:
+            try:
+                self.om.recover_lease(info["volume"], info["bucket"],
+                                      info["name"])
+            except rq.OMError:
+                log.warning("lease recovery failed for %s/%s/%s",
+                            info["volume"], info["bucket"], info["name"])
+        return len(expired) + len(hsynced[:limit])
 
 
 class MultipartUploadCleanupService:

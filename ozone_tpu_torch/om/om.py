@@ -10,15 +10,19 @@ PUTs, the batched needle commit, slab allocation and listing, needle
 lookups joined to their slab's groups, slab compaction); bucket
 lifecycle rules and the sweeper's triggers (`lifecycle/service.py`,
 built on first use over `clients` and `device` unless a daemon installs
-its own in `self.lifecycle`). Writes go through the request/apply split
+its own in `self.lifecycle`); the filesystem namespace: FSO buckets
+(`om/fso.py`: directories, files keyed by parent id, one-row renames,
+recursive deletes reaped by the directory-deleting service), link
+buckets, key rename, hsync commits, lease recovery and the open-files
+listing. Writes go through the request/apply split
 (om/requests.py) with a group commit before the acknowledgement; reads
 go to the store directly. The key-deleting service hands deleted keys'
 blocks to the SCM's deletion log, and a dead needle's bytes to its
 slab's counters. `prepare` quiesces writes behind a durable marker (the
 HA ring replicates it, `consensus/meta_ring.py`). Left out for later
 slices: ACL checks and the authorizer, tenants, block tokens, encryption
-(TDE/GDPR), link buckets, sharding, the upgrade finalizer and its layout
-gate, FSO, snapshots, geo replication, hsync and lease recovery.
+(TDE/GDPR), sharding, the upgrade finalizer and its layout gate,
+snapshots and geo replication.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 from ozone_tpu_torch.client.ec_writer import BlockGroup
+from ozone_tpu_torch.om import fso
 from ozone_tpu_torch.om import multipart as mpu
 from ozone_tpu_torch.om import requests as rq
 from ozone_tpu_torch.om.metadata import (
@@ -74,6 +79,9 @@ class OpenKeySession:
         #: rewrite fence the commit carries ("" / -1 = unfenced)
         self.expect_object_id = ""
         self.expect_generation = -1
+        #: FSO sessions carry their resolved tree position
+        self.parent_id: Optional[str] = info.get("parent_id")
+        self.file_name: Optional[str] = info.get("file_name")
 
 
 class OzoneManager:
@@ -193,6 +201,33 @@ class OzoneManager:
         ReplicationConfig.parse(replication)
         self.submit(rq.CreateBucket(volume, bucket, replication, layout))
 
+    def create_bucket_link(self, src_volume: str, src_bucket: str,
+                           volume: str, bucket: str) -> None:
+        """A link bucket aliasing the source (`sh bucket link`)."""
+        self.submit(rq.CreateBucket(volume, bucket,
+                                    source_volume=src_volume,
+                                    source_bucket=src_bucket))
+
+    def resolve_bucket(self, volume: str, bucket: str) -> tuple[str, str]:
+        """Follow link chains to the real bucket: DANGLING_LINK when a
+        link's source is missing or the chain loops."""
+        seen = set()
+        while True:
+            row = self.store.get("buckets", bucket_key(volume, bucket))
+            if row is None:
+                if seen:  # reached by following a link
+                    raise rq.OMError(rq.DANGLING_LINK,
+                                     f"{volume}/{bucket} missing")
+                raise rq.OMError(rq.BUCKET_NOT_FOUND, f"{volume}/{bucket}")
+            src = row.get("source")
+            if not src:
+                return volume, bucket
+            if (volume, bucket) in seen:
+                raise rq.OMError(rq.DANGLING_LINK,
+                                 f"link loop at {volume}/{bucket}")
+            seen.add((volume, bucket))
+            volume, bucket = src["volume"], src["bucket"]
+
     def delete_bucket(self, volume: str, bucket: str) -> None:
         self.submit(rq.DeleteBucket(volume, bucket))
 
@@ -200,16 +235,31 @@ class OzoneManager:
         b = self.store.get("buckets", bucket_key(volume, bucket))
         if b is None:
             raise rq.OMError(rq.BUCKET_NOT_FOUND, f"{volume}/{bucket}")
-        if b.get("source") or b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
-            raise rq.OMError(rq.INVALID_REQUEST,
-                             f"{volume}/{bucket}: link and FSO buckets are "
-                             f"not served by this port")
+        if b.get("source"):
+            # a link reports its own identity but the source's effective
+            # replication and layout (that is where its keys live)
+            rv, rb = self.resolve_bucket(volume, bucket)
+            eff = self.store.get("buckets", bucket_key(rv, rb)) or {}
+            b = dict(b)
+            b["replication"] = eff.get("replication", b["replication"])
+            b["layout"] = eff.get("layout", b["layout"])
         return b
+
+    def set_bucket_attrs(self, volume: str, bucket: str,
+                         attrs: dict) -> dict:
+        """Filesystem attributes on the bucket row (ofs shows buckets as
+        directories; chmod on /volume/bucket lands here)."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self.submit(rq.SetBucketAttrs(volume, bucket, attrs))
 
     def list_buckets(self, volume: str) -> list[dict]:
         return [
             b for _, b in self.store.iterate("buckets", volume_key(volume) + "/")
         ]
+
+    @staticmethod
+    def _is_fso(binfo: dict) -> bool:
+        return binfo.get("layout") == "FILE_SYSTEM_OPTIMIZED"
 
     @staticmethod
     def _is_legacy(binfo: dict) -> bool:
@@ -224,6 +274,7 @@ class OzoneManager:
         replication: Optional[str] = None,
         metadata: Optional[dict] = None,
     ) -> OpenKeySession:
+        volume, bucket = self.resolve_bucket(volume, bucket)
         binfo = self.bucket_info(volume, bucket)
         repl = replication or binfo["replication"]
         if replication:
@@ -235,13 +286,19 @@ class OzoneManager:
                     rq.INVALID_REQUEST,
                     f"bad per-key replication {replication!r}: {e}")
         client_id = uuid.uuid4().hex[:16]
-        legacy = self._is_legacy(binfo)
-        if legacy:
-            key = rq.normalize_fs_path(key)
-        self.submit(rq.OpenKey(volume, bucket, key, client_id, repl,
-                               metadata=metadata or {}, fs_paths=legacy))
-        info = self.store.get("open_keys",
-                              f"{key_key(volume, bucket, key)}/{client_id}")
+        if self._is_fso(binfo):
+            parent = self.submit(fso.OpenFile(volume, bucket, key, client_id,
+                                              repl, metadata=metadata or {}))
+            name = fso.split_path(key)[-1]
+            open_k = f"{fso.dir_key(volume, bucket, parent, name)}/{client_id}"
+        else:
+            legacy = self._is_legacy(binfo)
+            if legacy:
+                key = rq.normalize_fs_path(key)
+            self.submit(rq.OpenKey(volume, bucket, key, client_id, repl,
+                                   metadata=metadata or {}, fs_paths=legacy))
+            open_k = f"{key_key(volume, bucket, key)}/{client_id}"
+        info = self.store.get("open_keys", open_k)
         self.metrics.counter("keys_opened").inc()
         return OpenKeySession(info, client_id)
 
@@ -257,25 +314,110 @@ class OzoneManager:
             )
 
     def commit_key(self, session: OpenKeySession, groups: list[BlockGroup],
-                   size: int) -> None:
-        self.submit(rq.CommitKey(
-            session.volume,
-            session.bucket,
-            session.key,
-            session.client_id,
-            size,
-            [g.to_json() for g in groups],
-            replication=str(session.replication),
-            expect_object_id=session.expect_object_id,
-            expect_generation=int(session.expect_generation),
-        ))
-        self.metrics.counter("keys_committed").inc()
+                   size: int, hsync: bool = False) -> None:
+        fence = getattr(session, "expect_object_id", "")
+        fence_gen = int(getattr(session, "expect_generation", -1))
+        if getattr(session, "parent_id", None) is not None:
+            self.submit(fso.CommitFile(
+                session.volume, session.bucket, session.parent_id,
+                session.file_name, session.client_id, size,
+                [g.to_json() for g in groups], hsync=hsync,
+                expect_object_id=fence, expect_generation=fence_gen))
+        else:
+            self.submit(rq.CommitKey(
+                session.volume,
+                session.bucket,
+                session.key,
+                session.client_id,
+                size,
+                [g.to_json() for g in groups],
+                replication=str(session.replication),
+                hsync=hsync,
+                expect_object_id=fence,
+                expect_generation=fence_gen,
+            ))
+        self.metrics.counter("keys_hsynced" if hsync
+                             else "keys_committed").inc()
+
+    def hsync_key(self, session: OpenKeySession, groups: list[BlockGroup],
+                  size: int) -> None:
+        """Mid-write durability commit: the key is readable at the synced
+        length while the write stream stays open."""
+        self.commit_key(session, groups, size, hsync=True)
+
+    def list_open_files(self, volume: str = "", bucket: str = "",
+                        prefix: str = "", start_after: str = "",
+                        limit: int = 100) -> dict:
+        """Page through open write sessions (`om list-open-files`): every
+        uncommitted open key with its client id, size so far, timestamps
+        and whether it holds an hsync lease. `start_after` is the previous
+        page's `continuation`."""
+        if limit is None or limit <= 0:
+            raise rq.OMError(rq.INVALID_REQUEST,
+                             f"limit must be positive, got {limit}")
+        if volume and bucket:
+            volume, bucket = self.resolve_bucket(volume, bucket)
+        # OBS (key_key) and FSO (dir_key) open rows share the
+        # /volume[/bucket]/ prefix, which also skips the /.snapmeta/ rows
+        # when a volume is given
+        base = ""
+        if volume:
+            base = (f"/{volume}/{bucket}/" if bucket else f"/{volume}/")
+        entries: list[dict] = []
+        truncated = False
+        cursor = start_after
+        while not truncated:
+            chunk = self.store.iterate_range("open_keys", base, cursor,
+                                             limit + 1)
+            for ok, info in chunk:
+                cursor = ok
+                if ok.startswith("/.snapmeta/"):
+                    continue  # snapshot chain metadata rides this table
+                if volume and info.get("volume") != volume:
+                    continue
+                if bucket and info.get("bucket") != bucket:
+                    continue
+                if prefix and not info.get("name", "").startswith(prefix):
+                    continue
+                if len(entries) >= limit:
+                    truncated = True
+                    break
+                entries.append({
+                    "open_key": ok,
+                    "volume": info.get("volume"),
+                    "bucket": info.get("bucket"),
+                    "key": info.get("name"),
+                    "client_id": ok.rsplit("/", 1)[-1],
+                    "size": info.get("size", 0),
+                    "created": info.get("created"),
+                    "modified": info.get("modified"),
+                    "hsync": bool(info.get("hsync_client_id")),
+                })
+            if len(chunk) < limit + 1:
+                break  # scan exhausted
+        return {
+            "open_files": entries,
+            "truncated": truncated,
+            "continuation": (entries[-1]["open_key"]
+                             if truncated and entries else ""),
+        }
+
+    def recover_lease(self, volume: str, bucket: str, key: str) -> dict:
+        """Seal an abandoned hsynced write and fence its dead writer."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        out = self.submit(rq.RecoverLease(volume, bucket, key))
+        self.metrics.counter("leases_recovered").inc()
+        return out
 
     def lookup_key(self, volume: str, bucket: str, key: str) -> dict:
+        volume, bucket = self.resolve_bucket(volume, bucket)
         binfo = self.bucket_info(volume, bucket)
-        if self._is_legacy(binfo):
-            key = rq.normalize_fs_path(key)
-        info = self.store.get("keys", key_key(volume, bucket, key))
+        if self._is_fso(binfo):
+            info = fso.lookup_file(self.store, volume, bucket, key)
+        else:
+            if self._is_legacy(binfo):
+                key = rq.normalize_fs_path(key)
+            info = self.store.get("keys", key_key(volume, bucket, key))
         if info is None:
             raise rq.OMError(rq.KEY_NOT_FOUND, f"{volume}/{bucket}/{key}")
         self.metrics.counter("key_lookups").inc()
@@ -306,8 +448,15 @@ class OzoneManager:
                   start_after: str = "",
                   limit: Optional[int] = None) -> list[dict]:
         """Key rows of a bucket, name-ordered, optionally resuming after
-        `start_after` and capped at `limit`."""
-        self.bucket_info(volume, bucket)  # raises BUCKET_NOT_FOUND
+        `start_after` and capped at `limit`: a bounded store scan on OBS
+        buckets, a pruned lexicographic tree walk on FSO buckets."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        binfo = self.bucket_info(volume, bucket)  # BUCKET_NOT_FOUND
+        if self._is_fso(binfo):
+            return fso.walk_files_paged(
+                self.store, volume, bucket, prefix=prefix,
+                start_after=start_after,
+                limit=None if limit is None else max(0, int(limit)))
         base = bucket_key(volume, bucket) + "/"
         floor = (base + start_after) if start_after else ""
         return [
@@ -322,20 +471,79 @@ class OzoneManager:
                    expect_object_id: str = "") -> None:
         """Delete a key; `expect_object_id` ("" = unfenced) makes the
         delete conditional on the live row still being that version."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
         binfo = self.bucket_info(volume, bucket)
-        if self._is_legacy(binfo):
-            key = rq.normalize_fs_path(key)
-        self.submit(rq.DeleteKey(volume, bucket, key,
-                                 expect_object_id=expect_object_id))
+        if self._is_fso(binfo):
+            if expect_object_id:
+                raise rq.OMError(
+                    rq.INVALID_REQUEST,
+                    "fenced deletes are not supported on "
+                    "FILE_SYSTEM_OPTIMIZED buckets")
+            self.submit(fso.DeleteFile(volume, bucket, key))
+        else:
+            if self._is_legacy(binfo):
+                key = rq.normalize_fs_path(key)
+            self.submit(rq.DeleteKey(volume, bucket, key,
+                                     expect_object_id=expect_object_id))
         self.metrics.counter("keys_deleted").inc()
+
+    def rename_key(self, volume: str, bucket: str, key: str,
+                   new_key: str) -> None:
+        """Rename a key; on an FSO bucket a file or a whole directory (one
+        row moves)."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        binfo = self.bucket_info(volume, bucket)
+        if self._is_fso(binfo):
+            self.submit(fso.RenameEntry(volume, bucket, key, new_key))
+        else:
+            legacy = self._is_legacy(binfo)
+            if legacy:
+                key = rq.normalize_fs_path(key)
+                new_key = rq.normalize_fs_path(new_key)
+            self.submit(rq.RenameKey(volume, bucket, key, new_key,
+                                     fs_paths=legacy))
 
     def set_key_attrs(self, volume: str, bucket: str, key: str,
                       attrs: dict, preconds: Optional[dict] = None) -> dict:
-        """Merge attributes onto a key (None values delete them);
-        `preconds` maps attribute -> must-exist, checked in the apply."""
-        self.bucket_info(volume, bucket)  # BUCKET_NOT_FOUND, FSO refused
+        """Merge attributes onto a key, file or directory (None values
+        delete them); `preconds` maps attribute -> must-exist, checked in
+        the apply."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        if self._is_fso(self.bucket_info(volume, bucket)):
+            return self.submit(fso.SetEntryAttrs(volume, bucket, key, attrs,
+                                                 preconds or {}))
         return self.submit(rq.SetKeyAttrs(volume, bucket, key, attrs,
                                           preconds or {}))
+
+    # ----------------------------------------------------------- FSO
+    def _require_fso(self, volume: str, bucket: str) -> tuple[str, str]:
+        """Resolve links, then demand an FSO layout; the real (volume,
+        bucket), so directory verbs act on the source tree."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        if not self._is_fso(self.bucket_info(volume, bucket)):
+            raise rq.OMError(fso.NOT_A_DIRECTORY,
+                             f"{volume}/{bucket} is not an FSO bucket")
+        return volume, bucket
+
+    def create_directory(self, volume: str, bucket: str, path: str) -> None:
+        volume, bucket = self._require_fso(volume, bucket)
+        self.submit(fso.CreateDirectory(volume, bucket, path))
+
+    def delete_directory(self, volume: str, bucket: str, path: str,
+                         recursive: bool = False) -> None:
+        volume, bucket = self._require_fso(volume, bucket)
+        self.submit(fso.DeleteDirectory(volume, bucket, path, recursive))
+
+    def get_file_status(self, volume: str, bucket: str, path: str) -> dict:
+        volume, bucket = self._require_fso(volume, bucket)
+        return fso.get_status(self.store, volume, bucket, path)
+
+    def list_status(self, volume: str, bucket: str, path: str) -> list[dict]:
+        volume, bucket = self._require_fso(volume, bucket)
+        return fso.list_status(self.store, volume, bucket, path)
+
+    def run_dir_deleting_service_once(self, limit: int = 256) -> int:
+        return fso.DirectoryDeletingService(self).run_once(limit)
 
     # ----------------------------------------------------------- s3 secrets
     def get_s3_secret(self, access_id: str,

@@ -12,10 +12,13 @@ for OBJECT_STORE and LEGACY buckets; key attributes (S3 object tags ride
 them); S3 secrets; the small-object verbs (the bucket opt-in, inline
 keys, the batched needle commit, dead-needle accounting and slab
 retirement); bucket lifecycle rules and the sweeper's term-fenced
-checkpoint. The multipart requests are in `om/multipart.py`. Left out
-for later slices: FSO, snapshots (and so their copy-on-write
-pre-images), hsync leases, ACL and tenant verbs, delegation tokens, geo
-replication, quotas' set and repair verbs. `to_json` and `from_json`
+checkpoint; the hsync-aware commit tail, lease recovery, the OBS and
+LEGACY key rename, link buckets (a bucket row naming its source) and
+filesystem attributes on the bucket row. The multipart requests are in
+`om/multipart.py`, the FSO directory-tree requests in `om/fso.py`. Left
+out for later slices: snapshots (and so their copy-on-write pre-images),
+ACL and tenant verbs, delegation tokens, geo replication, quotas' set
+and repair verbs. `to_json` and `from_json`
 are the reference's wire form for the replicated log (`om/ha.py`,
 `consensus/meta_ring.py`).
 """
@@ -51,6 +54,7 @@ BUCKET_ALREADY_EXISTS = "BUCKET_ALREADY_EXISTS"
 BUCKET_NOT_EMPTY = "BUCKET_NOT_EMPTY"
 KEY_NOT_FOUND = "KEY_NOT_FOUND"
 KEY_MODIFIED = "KEY_MODIFIED"
+DANGLING_LINK = "DANGLING_LINK"
 QUOTA_EXCEEDED = "QUOTA_EXCEEDED"
 FILE_ALREADY_EXISTS = "FILE_ALREADY_EXISTS"
 NOT_A_DIRECTORY = "NOT_A_DIRECTORY"
@@ -147,10 +151,15 @@ class CreateBucket(OMRequest):
     layout: str = "OBJECT_STORE"
     versioning: bool = False
     created: float = 0.0
+    #: a LINK bucket (`sh bucket link`): a named alias whose key
+    #: operations resolve to the source bucket
+    source_volume: str = ""
+    source_bucket: str = ""
 
-    #: the layouts this port serves: OBS (flat object table) and LEGACY
-    #: (flat table with filesystem path semantics); FSO is not ported
-    LAYOUTS = ("OBJECT_STORE", "LEGACY")
+    #: the reference's three bucket layouts: OBS (flat object table),
+    #: FSO (directory tree tables, `om/fso.py`) and LEGACY (flat table
+    #: with filesystem path semantics)
+    LAYOUTS = ("OBJECT_STORE", "FILE_SYSTEM_OPTIMIZED", "LEGACY")
 
     def pre_execute(self, om) -> None:
         self.created = time.time()
@@ -165,7 +174,7 @@ class CreateBucket(OMRequest):
         k = bucket_key(self.volume, self.bucket)
         if store.exists("buckets", k):
             raise OMError(BUCKET_ALREADY_EXISTS, k)
-        store.put("buckets", k, {
+        row = {
             "volume": self.volume,
             "name": self.bucket,
             "replication": self.replication,
@@ -173,7 +182,13 @@ class CreateBucket(OMRequest):
             "versioning": self.versioning,
             "created": self.created,
             "acls": inherit_defaults(vrow.get("acls", [])),
-        })
+        }
+        if self.source_volume and self.source_bucket:
+            # links may be created before their source: a dangling link
+            # resolves lazily and errors on use
+            row["source"] = {"volume": self.source_volume,
+                             "bucket": self.source_bucket}
+        store.put("buckets", k, row)
 
 
 @dataclass
@@ -257,13 +272,22 @@ def erase_gdpr_secret(info: dict) -> None:
         info["encryption"] = {"erased": True}
 
 
+def direct_sessions_of(store, ek: str) -> list[str]:
+    """Open-session storage keys of entry `ek` itself, not of longer key
+    names that extend it with a slash (OBS key names may hold slashes;
+    client ids never do)."""
+    return [k for k, _ in store.iterate("open_keys", f"{ek}/")
+            if "/" not in k[len(ek) + 1:]]
+
+
 def finalize_commit(store, table: str, ek: str, info: dict, old,
-                    client_id: str, modified: float) -> None:
-    """The commit tail: charge quota (the new size minus what the previous
-    version charged), bump the row's generation, drop the open session,
-    and route a superseded previous version to the purge chain, fencing
-    its writer first if it was a live hsync stream (a row the reference
-    wrote)."""
+                    client_id: str, hsync: bool, modified: float) -> None:
+    """The hsync-aware commit tail of OBS keys and FSO files: charge quota
+    (the new size minus what the previous version charged), bump the
+    row's generation (hsyncs included), stamp `hsync_client_id` and keep
+    the open session on an hsync or clear both on a final commit, and
+    route a superseded previous version to the purge chain, fencing its
+    writer first if it was a live hsync stream."""
     _, vol, bkt = ek.split("/", 3)[:3]
     check_and_charge_quota(
         store, vol, bkt,
@@ -274,8 +298,12 @@ def finalize_commit(store, table: str, ek: str, info: dict, old,
     # detects any commit in between by it
     info["generation"] = (int(old.get("generation", 0)) + 1
                           if old is not None else 1)
-    info.pop("hsync_client_id", None)
-    store.delete("open_keys", f"{ek}/{client_id}")
+    if hsync:
+        info["hsync_client_id"] = client_id
+        store.put("open_keys", f"{ek}/{client_id}", info)  # stays open
+    else:
+        info.pop("hsync_client_id", None)
+        store.delete("open_keys", f"{ek}/{client_id}")
     if (
         old is not None
         and (old.get("block_groups") or old.get("needle"))
@@ -312,7 +340,9 @@ def check_rewrite_fence(store, expect_object_id: str, old, open_k: str,
 
 @dataclass
 class CommitKey(OMRequest):
-    """Finalize a key: move the open-key session into the key table."""
+    """Finalize a key: move the open-key session into the key table. With
+    `hsync` it is the mid-write durability commit: the key is visible at
+    the synced length and the session stays open for more writes."""
 
     volume: str
     bucket: str
@@ -322,6 +352,7 @@ class CommitKey(OMRequest):
     block_groups: list[dict] = field(default_factory=list)
     replication: str = ""
     modified: float = 0.0
+    hsync: bool = False
     #: rewrite fence: commit only if the live row still carries this
     #: object id ("" = unfenced) ...
     expect_object_id: str = ""
@@ -364,7 +395,7 @@ class CommitKey(OMRequest):
                             kk, info, self.modified,
                             self.expect_generation)
         finalize_commit(store, "keys", kk, info, old, self.client_id,
-                        self.modified)
+                        self.hsync, self.modified)
         return info
 
 
@@ -517,6 +548,117 @@ class DeleteKey(OMRequest):
         check_and_charge_quota(store, self.volume, self.bucket,
                                -int(info.get("size", 0)), -1)
         return info
+
+
+@dataclass
+class RenameKey(OMRequest):
+    """Rename an OBS or LEGACY key: the row moves to the new name. On a
+    LEGACY bucket (`fs_paths`) the destination obeys the filesystem shape
+    (conflict checks, parent markers), as OpenKey and CommitKey do."""
+
+    volume: str
+    bucket: str
+    key: str
+    new_key: str
+    fs_paths: bool = False
+    ts: float = 0.0
+
+    def pre_execute(self, om) -> None:
+        self.ts = time.time()
+
+    def apply(self, store):
+        src = key_key(self.volume, self.bucket, self.key)
+        info = store.get("keys", src)
+        if info is None:
+            raise OMError(KEY_NOT_FOUND, src)
+        dst = key_key(self.volume, self.bucket, self.new_key)
+        if self.fs_paths:
+            check_fs_conflicts(store, self.volume, self.bucket,
+                               self.new_key)
+            markers = missing_parent_markers(store, self.volume,
+                                             self.bucket, self.new_key)
+            if markers:
+                check_and_charge_quota(store, self.volume, self.bucket,
+                                       0, len(markers))
+                put_parent_markers(store, self.volume, self.bucket,
+                                   markers, info.get("replication", ""),
+                                   self.ts or time.time())
+        info["name"] = self.new_key
+        store.delete("keys", src)
+        store.put("keys", dst, info)
+
+
+@dataclass
+class RecoverLease(OMRequest):
+    """Seal an abandoned hsynced write (the ozonefs adapter's recoverLease):
+    the key stays at its last synced length, every open session of it is
+    dropped, and so the dead writer's next hsync or commit fails on the
+    missing session. OBS keys and FSO files alike (the path resolves
+    against the bucket's layout)."""
+
+    volume: str
+    bucket: str
+    key: str
+    modified: float = 0.0
+
+    def pre_execute(self, om) -> None:
+        self.modified = time.time()
+
+    def apply(self, store):
+        from ozone_tpu_torch.om import fso
+
+        b = store.get("buckets", bucket_key(self.volume, self.bucket))
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, f"{self.volume}/{self.bucket}")
+        if b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+            parent_id, name = fso.resolve_parent(store, self.volume,
+                                                 self.bucket, self.key)
+            ek = fso.dir_key(self.volume, self.bucket, parent_id, name)
+            table = "files"
+        else:
+            ek = key_key(self.volume, self.bucket, self.key)
+            table = "keys"
+        cur = store.get(table, ek)
+        sessions = direct_sessions_of(store, ek)
+        for s in sessions:
+            store.delete("open_keys", s)
+        if cur is not None:
+            if cur.pop("hsync_client_id", None) is not None:
+                cur["modified"] = self.modified
+                store.put(table, ek, cur)
+            return {"recovered": True, "key": cur}
+        if sessions:
+            # never hsynced: nothing visible to seal; the uncommitted
+            # chunks are left unreferenced on the datanodes
+            return {"recovered": False, "key": None}
+        raise OMError(KEY_NOT_FOUND,
+                      f"{self.volume}/{self.bucket}/{self.key}")
+
+
+@dataclass
+class SetBucketAttrs(OMRequest):
+    """Merge filesystem attributes onto the bucket row: ofs shows
+    /volume/bucket as a directory, so chmod or chown of a mount's top
+    level lands here. None values delete."""
+
+    volume: str
+    bucket: str
+    attrs: dict = field(default_factory=dict)
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        merged = dict(b.get("attrs", {}))
+        for key, v in self.attrs.items():
+            if v is None:
+                merged.pop(key, None)
+            else:
+                merged[key] = v
+        b["attrs"] = merged
+        store.put("buckets", k, b)
+        return b
 
 
 @dataclass
@@ -713,7 +855,8 @@ class PutInlineKey(OMRequest):
         }
         if self.metadata:
             info["metadata"] = dict(self.metadata)
-        finalize_commit(store, "keys", kk, info, old, "", self.modified)
+        finalize_commit(store, "keys", kk, info, old, "", False,
+                        self.modified)
         return info
 
 

@@ -7,7 +7,9 @@ factory, with a manual or background heartbeat pump and a command loop
 that runs the SCM's commands on the datanodes the way
 DatanodeStateMachine's handlers do: reconstruction on the port's
 `ECReconstructionCoordinator` (one device, no mesh), block deletion,
-replica deletion and container copies. The codec runs on `device`
+replica deletion and container copies; `run_deletion_services` reaps what
+deletes leave (FSO subtrees, then blocks) as a daemon's background pass
+does. The codec runs on `device`
 ("cuda" launches the fused kernel and raises when CUDA is absent; "cpu"
 runs its plain version).
 
@@ -171,6 +173,23 @@ class MiniOzoneCluster:
             self.heartbeat_all()
             self.scm.run_background_once()
             self.heartbeat_all()  # deliver the commands the scan emitted
+
+    def run_deletion_services(self) -> int:
+        """Reap what deletes left behind, as the daemon's background pass
+        does: detached FSO subtrees into the deleted-key chain, its
+        blocks into the SCM's deletion log, and the deletes out to the
+        datanodes over heartbeats. Returns the keys purged."""
+        from ozone_tpu_torch.om.fso import DirectoryDeletingService
+
+        DirectoryDeletingService(self.om).run_to_completion()
+        purged = 0
+        while True:
+            n = self.om.run_key_deleting_service_once()
+            if n == 0:
+                break
+            purged += n
+        self.tick()
+        return purged
 
     def start_heartbeats(self, interval_s: float = 0.5) -> None:
         def loop():

@@ -24,17 +24,25 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools admin ring-status --om 127.0.0.1:9861
     python -m ozone_tpu_torch.tools admin ring-transfer m1 \
         --om 127.0.0.1:9860,127.0.0.1:9861,127.0.0.1:9862
+    python -m ozone_tpu_torch.tools sh bucket create /v/fs --layout FILE_SYSTEM_OPTIMIZED
+    python -m ozone_tpu_torch.tools fs mkdir /v/fs/a/b --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools fs ls /v/fs/a --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools sh key checksum /v/fs/a/b/f --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools admin om list-open-files /v/fs --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools httpfs --om 127.0.0.1:9860 --port 14000
+    python -m ozone_tpu_torch.tools csi --om 127.0.0.1:9860 --port 9899
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
-put/get`, `freon`, `s3g`, `scm-om` (its lifecycle sweep and slab
-compaction encode there) and `cluster`, which passes it to its children.
-Without CUDA, "cuda" is an error that names CUDA (for `scm-om`, at its
-first sweep with work). The namespace, admin and lifecycle verbs import
-no torch, so they start in about a second. Against a metadata ring,
-`--om` takes the replicas as a comma-separated list; the clients follow
-the leader. Errors print as
-`error CODE: message` and exit 1.
+put/get/cat/cp/rewrite`, `freon`, `s3g`, `httpfs`, `scm-om` (its
+lifecycle sweep and slab compaction encode there) and `cluster`, which
+passes it to its children. Without CUDA, "cuda" is an error that names
+CUDA (for `scm-om`, at its first sweep with work). The namespace, `fs`,
+admin, lifecycle and `csi` verbs, and `sh key checksum` (it reads chunk
+metadata, no data), import no torch, so they start in about a second.
+Against a metadata ring, `--om` takes the replicas as a comma-separated
+list; the clients follow the leader. Errors print as `error CODE:
+message` and exit 1.
 """
 
 from __future__ import annotations
@@ -135,8 +143,9 @@ def _usage(msg: str) -> int:
 # ---------------------------------------------------------------------- sh
 _SH_VERBS = {
     "volume": {"create", "delete", "info", "list"},
-    "bucket": {"create", "delete", "info", "list", "set-smallobj"},
-    "key": {"put", "get", "info", "list", "delete"},
+    "bucket": {"create", "delete", "info", "list", "set-smallobj", "link"},
+    "key": {"put", "get", "info", "list", "delete", "rename", "checksum",
+            "cat", "cp", "rewrite"},
 }
 
 
@@ -167,7 +176,14 @@ def cmd_sh(args) -> int:
             vol, bucket = parts
             if verb == "create":
                 om.create_bucket(vol, bucket,
-                                 args.replication or "rs-6-3-1024k")
+                                 args.replication or "rs-6-3-1024k",
+                                 args.layout)
+            elif verb == "link":
+                if not args.to:
+                    return _usage("bucket link requires --to /volume/bucket")
+                dvol, dbkt = _parse_path(args.to)
+                om.create_bucket_link(vol, bucket, dvol, dbkt)
+                print(f"linked /{dvol}/{dbkt} -> /{vol}/{bucket}")
             elif verb == "delete":
                 om.delete_bucket(vol, bucket)
             elif verb == "set-smallobj":
@@ -185,10 +201,35 @@ def cmd_sh(args) -> int:
                 _emit(om.lookup_key(vol, bucket, key))
             elif verb == "delete":
                 om.delete_key(vol, bucket, key)
+            elif verb == "rename":
+                if not args.to:
+                    return _usage("key rename requires --to <new key name>")
+                om.rename_key(vol, bucket, key, args.to)
+            elif verb == "checksum":
+                # chunk metadata only: no codec, no torch
+                from ozone_tpu_torch.client.file_checksum import file_checksum
+
+                _emit(file_checksum(s, vol, bucket, key))
             else:
+                if verb == "cp" and len(_parse_path(args.to)) < 3:
+                    return _usage("cp needs --to /volume/bucket/key, got "
+                                  f"{args.to!r}")
+                if verb == "rewrite" and not args.replication:
+                    return _usage("rewrite requires --replication")
                 oz = s.client(_device(args))
                 b = oz.get_volume(vol).get_bucket(bucket)
-                if verb == "put":
+                if verb == "cat":
+                    sys.stdout.buffer.write(b.read_key(key).tobytes())
+                elif verb == "cp":
+                    dv, db_, *drest = _parse_path(args.to)
+                    b.copy_key(key, oz.get_volume(dv).get_bucket(db_),
+                               "/".join(drest),
+                               replication=args.replication or None)
+                    print(f"copied {args.path} to {args.to}")
+                elif verb == "rewrite":
+                    b.rewrite_key(key, args.replication)
+                    print(f"rewrote {args.path} as {args.replication}")
+                elif verb == "put":
                     data = Path(args.file).read_bytes()
                     b.write_key(key, np.frombuffer(data, np.uint8),
                                 args.replication or None)
@@ -203,6 +244,38 @@ def cmd_sh(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------- fs
+def cmd_fs(args) -> int:
+    """Filesystem verbs against FSO buckets (`ozone fs`: mkdir, ls, stat,
+    rm, recover-lease)."""
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    om = RemoteOmClient(args.om)
+    try:
+        vol, bucket, *rest = _parse_path(args.path)
+        path = "/".join(rest)
+        if args.verb == "mkdir":
+            om.create_directory(vol, bucket, path)
+            print(f"created directory /{vol}/{bucket}/{path}")
+        elif args.verb == "ls":
+            _emit(om.list_status(vol, bucket, path))
+        elif args.verb == "stat":
+            _emit(om.get_file_status(vol, bucket, path))
+        elif args.verb == "rm":
+            st = om.get_file_status(vol, bucket, path)
+            if st["type"] == "DIRECTORY":
+                om.delete_directory(vol, bucket, path,
+                                    recursive=args.recursive)
+            else:
+                om.delete_key(vol, bucket, path)
+            print(f"deleted /{vol}/{bucket}/{path}")
+        else:  # recover-lease
+            _emit(om.recover_lease(vol, bucket, path))
+    finally:
+        om.close()
+    return 0
+
+
 # -------------------------------------------------------------------- admin
 def cmd_admin(args) -> int:
     from ozone_tpu_torch.net.scm_service import RemoteScmClient
@@ -212,6 +285,22 @@ def cmd_admin(args) -> int:
         subject, verb, target = args.subject, args.verb, args.target
         if subject == "status":
             _emit(scm.status())
+        elif subject == "om":
+            if verb != "list-open-files":
+                return _usage(f"unknown om verb {verb!r} "
+                              "(expected list-open-files)")
+            from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+            parts = _parse_path(target or "")
+            om = RemoteOmClient(args.om)
+            try:
+                _emit(om.list_open_files(
+                    parts[0] if parts else "",
+                    parts[1] if len(parts) > 1 else "",
+                    prefix=args.prefix, start_after=args.start_after,
+                    limit=args.limit if args.limit is not None else 100))
+            finally:
+                om.close()
         elif subject == "safemode":
             if verb not in (None, "status"):
                 return _usage(f"unknown safemode verb {verb!r} "
@@ -256,6 +345,14 @@ def cmd_freon(args) -> int:
                          access_id=args.access_id or None,
                          secret=secret).summary())
         return 0
+    if args.generator == "swarm":
+        # closed-loop multi-tenant swarm against the S3 gateway, with
+        # anonymous tenants (signed tenants need OM-provisioned secrets)
+        tenants = [{"name": f"tenant-{i}", "rate": 0.0}
+                   for i in range(max(1, args.threads))]
+        _emit(freon.swarm(args.endpoint, tenants, duration_s=args.duration,
+                          n_keys=args.num, tiny=args.tiny).summary())
+        return 0
     device = _device(args)
     with _Session(args.om) as s:
         oz = s.client(device)
@@ -284,6 +381,14 @@ def cmd_freon(args) -> int:
                               replication=repl or "rs-3-2-4096",
                               packer=not args.no_packer, mix=args.tiny,
                               validate=args.validate).summary())
+        elif args.generator == "fskg":
+            _emit(freon.fskg(oz, n_files=args.num, size=args.size,
+                             depth=args.depth, threads=args.threads,
+                             replication=repl).summary())
+        elif args.generator == "fsg":
+            _emit(freon.fsg(oz, n_files=args.num, size=args.size,
+                            threads=args.threads,
+                            replication=repl).summary())
         else:  # ecrd
             _emit(freon.ecrd(oz, s.scm, size=args.size, rounds=args.num,
                              replication=repl or "rs-6-3-1048576"))
@@ -376,6 +481,43 @@ def cmd_s3g(args) -> int:
           f"service dispatches "
           f"{codec_service.METRICS.counter('dispatches').value}", flush=True)
     return rc
+
+
+def cmd_httpfs(args) -> int:
+    """The WebHDFS-compatible HttpFS gateway daemon (`ozone httpfs`). On
+    stop it prints the fused kernel's launches, as `s3g` does."""
+    device = _device(args)
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.httpfs import HttpFSGateway
+
+    logging.basicConfig(level=logging.INFO)
+    with _Session(args.om) as s:
+        oz = s.client(device)
+        gw = HttpFSGateway(oz, port=args.port,
+                           replication=args.replication or None,
+                           trash_interval_s=args.trash_interval or None)
+        gw.start()
+        print(f"httpfs gateway serving on {gw.address}, om={args.om}, "
+              f"device={oz.device}", flush=True)
+        rc = _serve(gw.stop)
+    print(f"httpfs gateway stopped; kernel launches "
+          f"{fused_kernel.launches.count}", flush=True)
+    return rc
+
+
+def cmd_csi(args) -> int:
+    """The CSI driver daemon (`ozone csi`): volumes are buckets of the S3
+    volume; it runs no codec."""
+    from ozone_tpu_torch.gateway.csi import CsiServer
+
+    logging.basicConfig(level=logging.INFO)
+    with _Session(args.om) as s:
+        srv = CsiServer(s, s3_endpoint=args.s3_endpoint, port=args.port,
+                        replication=args.replication or None)
+        srv.start()
+        print(f"csi driver serving on {srv.address}, om={args.om}",
+              flush=True)
+        return _serve(srv.stop)
 
 
 # ------------------------------------------------------------------ daemons
@@ -526,24 +668,48 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("--om", default="127.0.0.1:9860")
     sh.add_argument("--replication", default="")
     sh.add_argument("--prefix", default="", help="key list: name prefix")
+    sh.add_argument("--to", default="",
+                    help="key rename: new name; key cp: /volume/bucket/key; "
+                         "bucket link: the link's /volume/bucket")
+    sh.add_argument("--layout", default="OBJECT_STORE",
+                    choices=["OBJECT_STORE", "FILE_SYSTEM_OPTIMIZED",
+                             "LEGACY"],
+                    help="bucket create: the bucket layout")
     device_flag(sh)
     sh.set_defaults(fn=cmd_sh)
 
     ad = sub.add_parser("admin", help="cluster admin (ozone admin)")
     ad.add_argument("subject", choices=["status", "safemode", "container",
-                                        "ring-status", "ring-add",
+                                        "om", "ring-status", "ring-add",
                                         "ring-remove", "ring-transfer"])
     ad.add_argument("verb", nargs="?", default=None,
-                    help="container: list|info <id>|close <id>; ring-add: "
+                    help="container: list|info <id>|close <id>; om: "
+                         "list-open-files [/volume[/bucket]]; ring-add: "
                          "<id>=<host:port>; ring-remove, ring-transfer: <id>")
     ad.add_argument("target", nargs="?", default=None)
     ad.add_argument("--om", default="127.0.0.1:9860")
+    ad.add_argument("--prefix", default="",
+                    help="om list-open-files: key-name prefix filter")
+    ad.add_argument("--start-after", default="",
+                    help="om list-open-files: resume after this row "
+                         "(the previous page's continuation)")
+    ad.add_argument("--limit", type=int, default=None,
+                    help="om list-open-files: page size")
     ad.set_defaults(fn=cmd_admin)
+
+    fs = sub.add_parser("fs", help="file-system verbs on FSO buckets "
+                                   "(ozone fs)")
+    fs.add_argument("verb", choices=["mkdir", "ls", "stat", "rm",
+                                     "recover-lease"])
+    fs.add_argument("path", help="/volume/bucket[/dir/path]")
+    fs.add_argument("-r", "--recursive", action="store_true")
+    fs.add_argument("--om", default="127.0.0.1:9860")
+    fs.set_defaults(fn=cmd_fs)
 
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
                     choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg",
-                             "lcg", "tinyg"])
+                             "lcg", "tinyg", "fskg", "fsg", "swarm"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
     fr.add_argument("-t", "--threads", type=int, default=4)
@@ -559,13 +725,35 @@ def build_parser() -> argparse.ArgumentParser:
     fr.add_argument("--tiny", action="store_true",
                     help="tinyg: sizes from the tiny-key mix instead of "
                          "--size")
+    fr.add_argument("--depth", type=int, default=3,
+                    help="fskg: directory depth of each file")
+    fr.add_argument("--duration", type=float, default=4.0,
+                    help="swarm: seconds to drive load")
     fr.add_argument("--endpoint", default="127.0.0.1:9878",
-                    help="s3kg: S3 gateway host:port")
+                    help="s3kg, swarm: S3 gateway host:port")
     fr.add_argument("--access-id", default="",
                     help="s3kg: sign every request with this access id's "
                          "secret, fetched from --om (default: unsigned)")
     device_flag(fr)
     fr.set_defaults(fn=cmd_freon)
+
+    hf = sub.add_parser("httpfs", help="run the WebHDFS-compatible gateway")
+    hf.add_argument("--om", default="127.0.0.1:9860")
+    hf.add_argument("--port", type=int, default=14000)
+    hf.add_argument("--replication", default="",
+                    help="replication of buckets that mkdirs creates")
+    hf.add_argument("--trash-interval", type=float, default=0.0,
+                    help="fs.trash.interval seconds: rotate and purge trash "
+                         "checkpoints on this cadence (0 = off)")
+    device_flag(hf)
+    hf.set_defaults(fn=cmd_httpfs)
+
+    csi = sub.add_parser("csi", help="run the CSI driver daemon")
+    csi.add_argument("--om", default="127.0.0.1:9860")
+    csi.add_argument("--port", type=int, default=9899)
+    csi.add_argument("--s3-endpoint", default="")
+    csi.add_argument("--replication", default="")
+    csi.set_defaults(fn=cmd_csi)
 
     s3g = sub.add_parser("s3g", help="run the S3 gateway daemon")
     s3g.add_argument("--om", default="127.0.0.1:9860")

@@ -21,14 +21,21 @@ harness (thread-pool task loop, latency report) and
   rule, one sweep, then every key read back and checked EC-coded;
 - tinyg: tiny keys into a small-object bucket (inline values and slab
   needles), or with `packer=False` the same keys down the per-key stripe
-  path, the before/after pair; `mix` draws sizes from TINY_SIZES.
+  path, the before/after pair; `mix` draws sizes from TINY_SIZES;
+- fskg: nested files `depth` directories down in an FSO bucket (the
+  directory-tree resolve and create path);
+- fsg: create and read back through the ofs adapter
+  (`gateway/fs.RootedOzoneFileSystem`);
+- swarm: the closed-loop multi-tenant overload workload over the S3
+  gateway (Zipfian keys, mixed sizes, PUT/GET mix; a 503 SlowDown counts
+  as shed, not failed).
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
 `--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
 does); `ecrd` also takes an SCM, in process or `RemoteScmClient`; `s3kg`
-takes a gateway's host:port. The other generators of the reference wait
-for the port's filesystem gateways, raft and geo replication.
+and `swarm` take a gateway's host:port. The other generators of the
+reference wait for the port's snapshots and geo replication.
 """
 
 from __future__ import annotations
@@ -575,3 +582,232 @@ def tinyg(client, n_keys: int = 200, size: int = 4 * 1024,
     })
     rep.extras.update(_client_hist_extras())
     return rep
+
+
+def fskg(client, n_files: int = 100, size: int = 10 * 1024,
+         depth: int = 3, threads: int = 4, volume: str = "freon-vol",
+         bucket: str = "freon-fso",
+         replication: Optional[str] = None) -> FreonReport:
+    """Nested-file generator over an FSO bucket (HadoopNestedDirGenerator
+    and the file-create family): each op creates a file `depth`
+    directories down, the directory-tree resolve and create path rather
+    than the flat key table."""
+    try:
+        client.om.create_volume(volume)
+    except Exception:
+        pass
+    try:
+        client.om.create_bucket(volume, bucket,
+                                replication or "rs-6-3-1024k",
+                                layout="FILE_SYSTEM_OPTIMIZED")
+    except Exception:
+        pass
+    b = client.get_volume(volume).get_bucket(bucket)
+    payload = np.random.default_rng(1).integers(0, 256, size,
+                                                dtype=np.uint8)
+
+    def op(i: int) -> int:
+        parts = [f"d{(i >> (4 * d)) & 0xF}" for d in range(depth)]
+        b.write_key("/".join(parts) + f"/f{i}", payload, replication)
+        return size
+
+    return BaseFreonGenerator("fskg", n_files, threads).run(op)
+
+
+def fsg(client, n_files: int = 50, size: int = 10 * 1024,
+        threads: int = 4, volume: str = "freon-vol",
+        bucket: str = "freon-ofs",
+        replication: Optional[str] = None) -> FreonReport:
+    """ofs filesystem generator (HadoopFsGenerator): each op is a create
+    and a read-back through the RootedOzoneFileSystem adapter, the path
+    HttpFS and Hadoop-compatible workloads take."""
+    from ozone_tpu_torch.gateway.fs import RootedOzoneFileSystem
+
+    fs = RootedOzoneFileSystem(client,
+                               replication=replication or "rs-6-3-1024k")
+    fs.mkdirs(f"/{volume}/{bucket}")
+    payload = bytes(np.random.default_rng(4).integers(
+        0, 256, size, dtype=np.uint8))
+
+    def op(i: int) -> int:
+        p = f"/{volume}/{bucket}/d{i % 8}/f{i}"
+        fs.create(p, payload)
+        with fs.open(p) as f:
+            got = f.read()
+        assert len(got) == size
+        return size * 2
+
+    return BaseFreonGenerator("fsg", n_files, threads).run(op)
+
+
+def swarm(endpoint: str, tenants: list, duration_s: float = 4.0,
+          threads_per_tenant: int = 2, n_keys: int = 64,
+          sizes: tuple = (4 * 1024, 64 * 1024), zipf_a: float = 1.2,
+          seed: int = 1234, bucket: str = "swarm",
+          tiny: bool = False) -> FreonReport:
+    """freon swarm: the standing multi-tenant overload workload, over the
+    S3 gateway and its admission control.
+
+    N simulated tenants drive the S3 gateway closed-loop through
+    SigV4-signed HTTP — Zipfian key popularity over a bounded working
+    set, mixed op sizes (mostly small, some bulk), mixed PUT/GET. Each
+    tenant dict carries {"name", "access_id", "secret", "rate"}: rate
+    is its offered ops/s (0 = unpaced, as fast as the loop turns), so
+    the caller ramps offered load — 1x capacity, then 2x with an
+    aggressor unpaced — without changing the workload shape.
+
+    503 SlowDown responses are counted as SHED, not failures: a shed op
+    is the admission system doing its job, and the report separates the
+    three outcomes (ok / shed / errors) per tenant so shed-not-collapse
+    is checkable — goodput and accepted-op latency per tenant, shed
+    fraction overall.
+    """
+    import bisect
+    import datetime
+    import random as _random
+    import urllib.error
+    import urllib.request
+
+    from ozone_tpu_torch.gateway.s3_auth import sign_request
+
+    if tiny:
+        # tiny-key churn mode: the tinyg size mix drives the swarm, so
+        # the overload drills exercise the inline/needle path too (the
+        # gateway-side bucket must be smallobj-enabled by the caller)
+        sizes = TINY_SIZES
+    base = f"http://{endpoint}"
+
+    def _amz_now() -> str:
+        return datetime.datetime.now(datetime.timezone.utc).strftime(
+            "%Y%m%dT%H%M%SZ")
+
+    def _request(t: dict, method: str, path: str,
+                 body: bytes = b"") -> None:
+        url = f"{base}{path}"
+        headers = {"host": endpoint, "x-amz-date": _amz_now()}
+        if t.get("access_id"):
+            headers = sign_request(t["access_id"], t["secret"], method,
+                                   url, headers, body)
+        req = urllib.request.Request(
+            url, data=body if method in ("PUT", "POST") else None,
+            method=method, headers=headers)
+        with urllib.request.urlopen(req) as r:
+            r.read()
+
+    # Zipfian popularity: cumulative weights over key ranks, sampled by
+    # bisect — rank 0 is the hot key, the tail cools as 1/rank^a
+    cum: list[float] = []
+    acc = 0.0
+    for r in range(max(1, n_keys)):
+        acc += 1.0 / (r + 1) ** zipf_a
+        cum.append(acc)
+    payloads = {sz: bytes(np.random.default_rng(11).integers(
+        0, 256, sz, dtype=np.uint8)) for sz in sizes}
+
+    for t in tenants:
+        try:
+            _request(t, "PUT", f"/{bucket}")
+        except Exception:
+            pass  # BucketAlreadyExists across phases
+
+    lock = threading.Lock()
+    stats = {t["name"]: {"offered": 0, "ok": 0, "shed": 0, "errors": 0,
+                         "bytes": 0, "lat": []} for t in tenants}
+    written: dict[str, set] = {t["name"]: set() for t in tenants}
+    start = time.monotonic()
+    end = start + duration_s
+
+    def worker(t: dict, wid: int) -> None:
+        st = stats[t["name"]]
+        seen = written[t["name"]]
+        rng = _random.Random(f"{seed}:{t['name']}:{wid}")
+        rate = float(t.get("rate") or 0.0)
+        interval = threads_per_tenant / rate if rate > 0 else 0.0
+        next_t = time.monotonic() + rng.uniform(0, interval or 0.001)
+        while True:
+            now = time.monotonic()
+            if now >= end:
+                return
+            if interval:
+                # paced offered load: ops fire on a schedule, late ops
+                # do NOT bunch up (the schedule advances regardless)
+                if next_t >= end:
+                    return
+                if next_t > now:
+                    time.sleep(next_t - now)
+                next_t += interval
+            rank = bisect.bisect_left(cum, rng.uniform(0.0, cum[-1]))
+            key = f"{t['name']}-k{rank}"
+            size = sizes[0] if rng.random() < 0.8 else sizes[-1]
+            do_put = rank not in seen or rng.random() < 0.5
+            s0 = time.perf_counter()
+            try:
+                if do_put:
+                    _request(t, "PUT", f"/{bucket}/{key}",
+                             payloads[size])
+                else:
+                    _request(t, "GET", f"/{bucket}/{key}")
+                dt = time.perf_counter() - s0
+                with lock:
+                    st["offered"] += 1
+                    st["ok"] += 1
+                    st["bytes"] += size
+                    st["lat"].append(dt)
+                if do_put:
+                    seen.add(rank)
+            except urllib.error.HTTPError as e:
+                e.close()
+                with lock:
+                    st["offered"] += 1
+                    if e.code == 503:
+                        st["shed"] += 1
+                    else:
+                        st["errors"] += 1
+            except Exception:
+                with lock:
+                    st["offered"] += 1
+                    st["errors"] += 1
+
+    threads = [threading.Thread(target=worker, args=(t, w), daemon=True)
+               for t in tenants for w in range(threads_per_tenant)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    elapsed = time.monotonic() - start
+
+    def _p99(lat: list) -> float:
+        if not lat:
+            return 0.0
+        ls = sorted(lat)
+        return ls[min(len(ls) - 1, int(0.99 * len(ls)))]
+
+    all_lat: list[float] = []
+    per_tenant = {}
+    offered = ok = shed = errors = nbytes = 0
+    for name, st in stats.items():
+        all_lat.extend(st["lat"])
+        offered += st["offered"]
+        ok += st["ok"]
+        shed += st["shed"]
+        errors += st["errors"]
+        nbytes += st["bytes"]
+        per_tenant[name] = {
+            "offered": st["offered"],
+            "ok": st["ok"],
+            "shed": st["shed"],
+            "errors": st["errors"],
+            "goodput_ops_s": round(st["ok"] / elapsed, 2)
+            if elapsed else 0.0,
+            "p99_ms": round(1e3 * _p99(st["lat"]), 3),
+        }
+    return FreonReport(
+        "swarm", ops=ok, failures=errors, elapsed_s=elapsed,
+        latencies_s=all_lat, bytes_processed=nbytes,
+        extras={
+            "per_tenant": per_tenant,
+            "offered": offered,
+            "shed": shed,
+            "shed_fraction": round(shed / offered, 4) if offered else 0.0,
+            "goodput_ops_s": round(ok / elapsed, 2) if elapsed else 0.0,
+        })

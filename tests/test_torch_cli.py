@@ -12,7 +12,12 @@ Then the lifecycle verbs (`set`, `get`, `clear`, `run-now`, `status`,
 inline and needle keys through `sh key put/get` and `freon tinyg` with
 and without the packer. Apart from that cluster, three `scm-om --ha-id
 --peer` processes form a metadata ring: `admin ring-status` from every
-replica and `admin ring-transfer` to a follower.
+replica and `admin ring-transfer` to a follower. The filesystem verbs:
+`sh bucket create --layout FILE_SYSTEM_OPTIMIZED`, `sh bucket link`,
+`fs mkdir|ls|stat|rm|recover-lease`, `sh key rename|checksum|cat|cp|
+rewrite`, `admin om list-open-files`, `freon fskg|fsg`, and an `httpfs`
+and a `csi` process; `sh key checksum` and the `fs` verbs import no
+torch.
 """
 
 import json
@@ -303,6 +308,177 @@ def test_s3g_process_signed_put_get_multipart_and_freon(live_cluster, sh,
     last = log.read_text().strip().splitlines()[-1]
     assert re.match(r"s3 gateway stopped; kernel launches \d+, service "
                     r"dispatches \d+$", last), last
+
+
+# ------------------------------------------------------------ filesystem
+def test_fs_and_sh_filesystem_verbs(live_cluster, sh, tmp_path):
+    om, _ = live_cluster
+    assert sh("sh", "volume", "create", "/fsv", "--om", om)[0] == 0
+    assert sh("sh", "bucket", "create", "/fsv/fb", "--om", om,
+              "--replication", "rs-3-2-4096", "--layout",
+              "FILE_SYSTEM_OPTIMIZED")[0] == 0
+    rc, out, _ = sh("sh", "bucket", "info", "/fsv/fb", "--om", om)
+    assert json.loads(out)["layout"] == "FILE_SYSTEM_OPTIMIZED"
+    assert sh("fs", "mkdir", "/fsv/fb/a/b", "--om", om)[0] == 0
+    payload = np.random.default_rng(3).integers(0, 256, 30_000,
+                                                dtype=np.uint8).tobytes()
+    src = tmp_path / "in.bin"
+    src.write_bytes(payload)
+    _run("sh", "key", "put", "/fsv/fb/a/b/f", str(src), "--om", om,
+         "--device", "cpu")
+    rc, out, _ = sh("fs", "ls", "/fsv/fb/a", "--om", om)
+    assert [(e["type"], e["path"]) for e in json.loads(out)] == [
+        ("DIRECTORY", "a/b")]
+    rc, out, _ = sh("fs", "stat", "/fsv/fb/a/b/f", "--om", om)
+    assert json.loads(out)["type"] == "FILE" and \
+        json.loads(out)["size"] == 30_000
+    rc, out, _ = sh("sh", "key", "checksum", "/fsv/fb/a/b/f", "--om", om)
+    from ozone_tpu_torch.utils.checksum import crc32c
+
+    ck = json.loads(out)
+    assert ck["algorithm"] == "COMPOSITE-CRC32C" and ck["length"] == 30_000
+    assert int(ck["checksum"], 16) == int(crc32c(np.frombuffer(payload,
+                                                               np.uint8)))
+    # a 100-byte file reaches data unit 0 only: units 1 and 2 answer
+    # NO_SUCH_BLOCK over the RPC, and the composition skips them
+    tiny = tmp_path / "tiny.bin"
+    tiny.write_bytes(payload[:100])
+    assert sh("sh", "key", "put", "/fsv/fb/a/tiny", str(tiny), "--om", om,
+              "--device", "cpu")[0] == 0
+    rc, out, _ = sh("sh", "key", "checksum", "/fsv/fb/a/tiny", "--om", om)
+    assert int(json.loads(out)["checksum"], 16) == int(
+        crc32c(np.frombuffer(payload[:100], np.uint8)))
+    assert sh("sh", "key", "rename", "/fsv/fb/a", "--to", "z", "--om",
+              om)[0] == 0
+    got = subprocess.run(
+        [sys.executable, "-m", "ozone_tpu_torch.tools", "sh", "key", "cat",
+         "/fsv/fb/z/b/f", "--om", om, "--device", "cpu"],
+        capture_output=True, timeout=WAIT_S, check=True, cwd=str(REPO),
+        env=ENV).stdout
+    assert got == payload
+    sh("sh", "bucket", "create", "/fsv/obs", "--om", om, "--replication",
+       "rs-3-2-4096")
+    rc, _, err = sh("sh", "key", "cp", "/fsv/fb/z/b/f", "--om", om,
+                    "--device", "cpu")
+    assert rc == 2 and "cp needs --to" in err
+    rc, _, _ = sh("sh", "key", "cp", "/fsv/fb/z/b/f", "--to",
+                  "/fsv/obs/copy", "--om", om, "--device", "cpu")
+    assert rc == 0
+    rc, _, _ = sh("sh", "key", "rewrite", "/fsv/obs/copy", "--replication",
+                  "RATIS/THREE", "--om", om, "--device", "cpu")
+    assert rc == 0
+    rc, out, _ = sh("sh", "key", "info", "/fsv/obs/copy", "--om", om)
+    assert json.loads(out)["replication"] == "RATIS/THREE"
+    rc, out, _ = sh("sh", "key", "checksum", "/fsv/obs/copy", "--om", om)
+    assert json.loads(out) == ck  # the distcp property, across layouts
+    assert sh("sh", "bucket", "link", "/fsv/fb", "--to", "/fsv/lnk", "--om",
+              om)[0] == 0
+    rc, out, _ = sh("fs", "ls", "/fsv/lnk/z/b", "--om", om)
+    assert [e["path"] for e in json.loads(out)] == ["z/b/f"]
+    rc, out, _ = sh("admin", "om", "list-open-files", "/fsv/fb", "--om", om)
+    assert rc == 0 and json.loads(out) == {
+        "open_files": [], "truncated": False, "continuation": ""}
+    rc, _, err = sh("fs", "recover-lease", "/fsv/fb/z/nope", "--om", om)
+    assert rc == 1 and err.startswith("error KEY_NOT_FOUND:")
+    rc, _, err = sh("fs", "rm", "/fsv/fb/z", "--om", om)
+    assert rc == 1 and err.startswith("error DIRECTORY_NOT_EMPTY:")
+    assert sh("fs", "rm", "/fsv/fb/z", "-r", "--om", om)[0] == 0
+    rc, _, err = sh("fs", "stat", "/fsv/fb/z/b/f", "--om", om)
+    assert rc == 1 and err.startswith("error KEY_NOT_FOUND:")
+    rc, out, _ = sh("freon", "fskg", "-n", "6", "-s", "3901", "-t", "2",
+                    "--depth", "3", "--om", om, "--replication",
+                    "rs-3-2-4096", "--device", "cpu")
+    assert rc == 0 and json.loads(out)["ops"] == 6
+    rc, out, _ = sh("freon", "fsg", "-n", "4", "-s", "3901", "-t", "2",
+                    "--om", om, "--replication", "rs-3-2-4096", "--device",
+                    "cpu")
+    rep = json.loads(out)
+    assert rc == 0 and rep["ops"] == 4 and rep["failures"] == 0
+
+
+def test_fs_and_checksum_verbs_import_no_torch(live_cluster):
+    """`fs ls` and `sh key checksum` run through the CLI's entry point in
+    a fresh process without importing torch."""
+    om, _ = live_cluster
+    code = f"""
+import sys
+from ozone_tpu_torch.tools import cli
+cli.main(["sh", "volume", "create", "/lightv", "--om", "{om}"])
+cli.main(["sh", "bucket", "create", "/lightv/b", "--om", "{om}",
+          "--replication", "RATIS/THREE", "--layout",
+          "FILE_SYSTEM_OPTIMIZED"])
+cli.main(["fs", "mkdir", "/lightv/b/d", "--om", "{om}"])
+cli.main(["fs", "ls", "/lightv/b", "--om", "{om}"])
+print("torch" in sys.modules, file=sys.stderr)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=WAIT_S, cwd=str(REPO), env=ENV)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.strip().splitlines()[-1] == "False"
+    assert json.loads(proc.stdout[proc.stdout.index("["):])[0]["path"] == "d"
+
+
+def _serve_until(argv, log, marker):
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ozone_tpu_torch.tools", *argv],
+            stdout=f, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            cwd=str(REPO), env=ENV)
+    t_end = time.monotonic() + WAIT_S
+    while marker not in log.read_text():
+        assert proc.poll() is None and time.monotonic() < t_end, \
+            log.read_text()
+        time.sleep(0.2)
+    return proc
+
+
+def test_httpfs_and_csi_processes(live_cluster, tmp_path):
+    """`httpfs --device cpu` serves a two-step CREATE and an OPEN and
+    prints its kernel launches on SIGTERM; `csi` provisions a volume as
+    a bucket of s3v; `httpfs` without --device cpu names CUDA."""
+    import urllib.request
+
+    from ozone_tpu_torch.gateway.csi import CsiClient
+
+    om, _ = live_cluster
+    proc = _run("httpfs", "--om", om, "--port", str(_free_port()),
+                check=False)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    hport, cport = _free_port(), _free_port()
+    hf = _serve_until(["httpfs", "--om", om, "--port", str(hport),
+                       "--replication", "rs-3-2-4096", "--device", "cpu"],
+                      tmp_path / "httpfs.log", "httpfs gateway serving")
+    csi = _serve_until(["csi", "--om", om, "--port", str(cport),
+                        "--replication", "rs-3-2-4096"],
+                       tmp_path / "csi.log", "csi driver serving")
+    try:
+        base = f"http://127.0.0.1:{hport}/webhdfs/v1/hv/hb/dir/f"
+        body = b"webhdfs over the daemon cluster" * 100
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{hport}/webhdfs/v1/hv/hb?op=MKDIRS",
+            method="PUT"), timeout=WAIT_S).read()
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "?op=CREATE&data=true", data=body, method="PUT"),
+                timeout=WAIT_S) as r:
+            assert r.status == 201
+        with urllib.request.urlopen(base + "?op=OPEN&offset=3&length=40",
+                                    timeout=WAIT_S) as r:
+            assert r.read() == body[3:43]
+        cli_ = CsiClient(f"127.0.0.1:{cport}")
+        try:
+            assert cli_.probe()["ready"] is True
+            cli_.create_volume("pvc-cli")
+            assert "pvc-cli" in [e["volume_id"] for e in cli_.list_volumes()]
+            cli_.delete_volume("pvc-cli")
+        finally:
+            cli_.close()
+    finally:
+        for p in (hf, csi):
+            p.send_signal(signal.SIGTERM)
+            p.wait(timeout=WAIT_S)
+    last = (tmp_path / "httpfs.log").read_text().strip().splitlines()[-1]
+    assert re.match(r"httpfs gateway stopped; kernel launches \d+$", last), \
+        last
 
 
 # ------------------------------------------------- lifecycle and tiny keys

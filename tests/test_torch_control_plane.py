@@ -12,6 +12,7 @@ ReconstructionCommand, byte-exact.
 """
 
 import time
+import types
 from contextlib import nullcontext
 
 import numpy as np
@@ -27,6 +28,8 @@ from ozone_tpu.storage import ids as j_ids
 from ozone_tpu.storage.ids import StorageError as JStorageError
 from ozone_tpu.testing.minicluster import MiniOzoneCluster as JCluster
 from ozone_tpu.utils import checksum as j_checksum
+from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+from ozone_tpu_torch.client.file_checksum import file_checksum
 from ozone_tpu_torch.om.om import OzoneManager
 from ozone_tpu_torch.om.requests import OMError
 from ozone_tpu_torch.scm import scm
@@ -34,6 +37,7 @@ from ozone_tpu_torch.scm.node_manager import NodeState
 from ozone_tpu_torch.scm.pipeline import ReplicationConfig
 from ozone_tpu_torch.scm.safemode import SafeModeError
 from ozone_tpu_torch.storage import ids as port_ids
+from ozone_tpu_torch.storage.datanode import Datanode
 from ozone_tpu_torch.storage.ids import StorageError
 from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
 from ozone_tpu_torch.utils import checksum
@@ -266,7 +270,12 @@ def test_safemode_gates_allocation_in_both():
 
 def test_port_om_reads_reference_om_db(tmp_path, monkeypatch):
     """Carrying state across: the JAX OM writes an om.db; the port's OM
-    opens it and its lookups and listings equal the JAX OM's rows."""
+    opens it and its lookups and listings equal the JAX OM's rows. The
+    store holds an FSO bucket too: a tree three levels deep, a renamed
+    directory, a deleted subtree still in deleted_dirs, and an hsynced
+    file still open; the port's file status, listings, lookups, open
+    files and file checksums (over port datanodes opened on the
+    reference's datanode directories) equal the reference's answers."""
     monkeypatch.setenv("OZONE_TPU_CODEC_SERVICE", "0")
     ref = JCluster(tmp_path / "ref", num_datanodes=6, block_size=BLOCK,
                    stale_after_s=1000.0, dead_after_s=2000.0)
@@ -282,6 +291,39 @@ def test_port_om_reads_reference_om_db(tmp_path, monkeypatch):
         for i, n in enumerate((0, 9_999, 3 * BLOCK + 5)):
             b.write_key(f"dir/k{i}", rng.integers(0, 256, n, dtype=np.uint8))
     oz.get_volume("v").get_bucket("ec").delete_key("dir/k1")
+    # the FSO bucket
+    ref.om.create_bucket("v", "fso", EC, layout="FILE_SYSTEM_OPTIMIZED")
+    fb = vol.get_bucket("fso")
+    for p, n in (("a/b/c/f1", 9_999), ("a/b/f2", 3 * BLOCK + 5),
+                 ("a/f3", 100), ("top", 0), ("gone/sub/f4", 777)):
+        fb.write_key(p, rng.integers(0, 256, n, dtype=np.uint8))
+    ref.om.rename_key("v", "fso", "a/b", "a/bb")
+    ref.om.delete_directory("v", "fso", "gone", recursive=True)
+    ref.om.create_bucket("v", "fsr", RATIS, layout="FILE_SYSTEM_OPTIMIZED")
+    h = vol.get_bucket("fsr").open_key("logs/h")
+    h.write(rng.integers(0, 256, 5000, dtype=np.uint8))
+    h.hsync()  # left open: the writer never closes
+    fso_paths = ["", "a", "a/bb", "a/bb/c", "a/bb/c/f1", "a/bb/f2", "a/f3",
+                 "top"]
+    want_fso = {
+        "status": {p: ref.om.get_file_status("v", "fso", p)
+                   for p in fso_paths},
+        "list": {p: ref.om.list_status("v", "fso", p)
+                 for p in ("", "a", "a/bb", "a/bb/c")},
+        "keys": ref.om.list_keys("v", "fso"),
+        "page": ref.om.list_keys("v", "fso", start_after="a/bb/c/f1",
+                                 limit=2),
+        "lookup": {p: ref.om.lookup_key("v", "fso", p)
+                   for p in ("a/bb/c/f1", "a/bb/f2", "a/f3", "top")},
+        "hsynced": ref.om.lookup_key("v", "fsr", "logs/h"),
+        "open": ref.om.list_open_files("v", "fsr"),
+        "deleted_dirs": list(ref.om.store.iterate("deleted_dirs")),
+        "checksum": {p: fb.file_checksum(p)
+                     for p in ("a/bb/c/f1", "a/bb/f2", "a/f3")},
+        "checksum_hsynced": vol.get_bucket("fsr").file_checksum("logs/h"),
+        "missing": [_code(lambda p=p: ref.om.get_file_status("v", "fso", p))
+                    for p in ("a/b", "gone", "gone/sub/f4")],
+    }
     want_lists = {b: ref.om.list_keys("v", b) for b in ("ec", "rep", "leg")}
     want_rows = {(b, k["name"]): ref.om.lookup_key("v", b, k["name"])
                  for b, rows in want_lists.items() for k in rows}
@@ -299,8 +341,43 @@ def test_port_om_reads_reference_om_db(tmp_path, monkeypatch):
         groups = om.key_block_groups(want_rows[("ec", "dir/k2")])
         assert [g.to_json()["nodes"] for g in groups] == \
             [g["nodes"] for g in want_rows[("ec", "dir/k2")]["block_groups"]]
+        # the FSO bucket, carried across
+        assert {p: om.get_file_status("v", "fso", p) for p in fso_paths} \
+            == want_fso["status"]
+        assert {p: om.list_status("v", "fso", p) for p in want_fso["list"]} \
+            == want_fso["list"]
+        assert om.list_keys("v", "fso") == want_fso["keys"]
+        assert om.list_keys("v", "fso", start_after="a/bb/c/f1",
+                            limit=2) == want_fso["page"]
+        assert {p: om.lookup_key("v", "fso", p) for p in want_fso["lookup"]} \
+            == want_fso["lookup"]
+        assert om.lookup_key("v", "fsr", "logs/h") == want_fso["hsynced"]
+        assert want_fso["hsynced"]["hsync_client_id"]
+        assert om.list_open_files("v", "fsr") == want_fso["open"]
+        assert list(om.store.iterate("deleted_dirs")) == \
+            want_fso["deleted_dirs"] != []
+        assert [_code(lambda p=p: om.get_file_status("v", "fso", p))
+                for p in ("a/b", "gone", "gone/sub/f4")] == \
+            want_fso["missing"] == ["KEY_NOT_FOUND"] * 3
+        factory = DatanodeClientFactory()
+        for d in sorted((tmp_path / "ref").glob("dn*")):
+            factory.register_local(Datanode(d, dn_id=d.name))
+        reader = types.SimpleNamespace(om=om, clients=factory)
+        assert {p: file_checksum(reader, "v", "fso", p)
+                for p in want_fso["checksum"]} == want_fso["checksum"]
+        assert file_checksum(reader, "v", "fsr", "logs/h") == \
+            want_fso["checksum_hsynced"]
     finally:
         om.close()
+
+
+def _code(fn):
+    """The OMError code (either package's) `fn` raises, or None."""
+    try:
+        fn()
+    except (OMError, JOMError) as e:
+        return e.code
+    return None
 
 
 def _kill(cluster, dn_id, dead_state):

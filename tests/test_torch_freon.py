@@ -251,3 +251,74 @@ def test_rawcoder_bench_rows_have_the_reference_keys(monkeypatch):
     xor = freon.rawcoder_bench(None, "xor-6-1", 4096, 2, 1, device="cpu")
     assert [r["backend"] for r in xor] == ["torch", "numpy"]
     assert all("error" not in r for r in xor)
+
+
+def fs_row(info: dict) -> dict:
+    """An FSO file row without its run-random ids, times and pipelines."""
+    row = {k: v for k, v in key_row(info).items()
+           if k not in ("parent_id",)}
+    return row
+
+
+def test_fs_generators_match_reference(clusters):
+    """fskg (nested files in an FSO bucket) and fsg (create and read back
+    through the ofs adapter) write the same rows and chunks, and report
+    the same counts, on both packages."""
+    results = []
+    for c, mod in zip(clusters, (freon, j_freon)):
+        oz = c.client()
+        fskg = mod.fskg(oz, n_files=6, size=3901, depth=3, threads=1,
+                        replication=EC)
+        fsg = mod.fsg(oz, n_files=4, size=3901, threads=1, replication=EC)
+        files = oz.om.list_keys("freon-vol", "freon-fso")
+        dirs = oz.om.list_status("freon-vol", "freon-fso", "d0/d0")
+        ofs_keys = oz.om.list_keys("freon-vol", "freon-ofs")
+        results.append(([counts(fskg), counts(fsg)],
+                        [fs_row(k) for k in files],
+                        [(d["type"], d["path"]) for d in dirs],
+                        [key_row(k) for k in ofs_keys],
+                        [stored_chunks(c, k) for k in files]))
+    got, want = results
+    assert got == want
+    assert got[0] == [("fskg", 6, 0), ("fsg", 4, 0)]
+    assert [r["name"] for r in got[1]] == [
+        f"d{i}/d0/d0/f{i}" for i in range(6)]
+
+
+def test_swarm_matches_reference_shape(tmp_path, monkeypatch):
+    """freon swarm over each package's S3 gateway (anonymous tenants, a
+    short closed loop): no errors, and the same report keys."""
+    from ozone_tpu.gateway.s3 import S3Gateway as JS3Gateway
+    from ozone_tpu_torch import admission
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+
+    from ozone_tpu import admission as j_admission
+
+    monkeypatch.setenv("OZONE_TPU_CODEC_SERVICE", "0")
+    admission.reset_for_tests()
+    j_admission.reset_for_tests()
+    kw = dict(num_datanodes=5, block_size=8 * 4096,
+              container_size=4 * 1024 * 1024, stale_after_s=1000.0,
+              dead_after_s=2000.0)
+    out = {}
+    for name, Cl, Gw, mod, ckw in (
+            ("port", MiniOzoneCluster, S3Gateway, freon, {"device": "cpu"}),
+            ("ref", JCluster, JS3Gateway, j_freon, {})):
+        c = Cl(tmp_path / name, **kw, **ckw)
+        gw = Gw(c.client(), replication="rs-3-2-4096")
+        gw.start()
+        try:
+            tenants = [{"name": f"t{i}", "rate": 0.0} for i in range(2)]
+            rep = mod.swarm(gw.address, tenants, duration_s=1.0,
+                            threads_per_tenant=1, n_keys=8,
+                            sizes=(512, 4096)).summary()
+        finally:
+            gw.stop()
+            c.close()
+        out[name] = rep
+    for rep in out.values():
+        assert rep["failures"] == 0 and rep["ops"] > 0 and rep["shed"] == 0
+        assert sorted(rep["per_tenant"]) == ["t0", "t1"]
+    assert sorted(out["port"]) == sorted(out["ref"])
+    assert sorted(out["port"]["per_tenant"]["t0"]) == \
+        sorted(out["ref"]["per_tenant"]["t0"])

@@ -101,6 +101,13 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.scm.sequence_id",
     "ozone_tpu_torch.storage.ratis",
     "ozone_tpu_torch.client.ratis_client",
+    # the filesystem namespace: FSO, checksums, ofs, HttpFS and CSI
+    "ozone_tpu_torch.om.fso",
+    "ozone_tpu_torch.client.file_checksum",
+    "ozone_tpu_torch.client.libo3fs",
+    "ozone_tpu_torch.gateway.fs",
+    "ozone_tpu_torch.gateway.httpfs",
+    "ozone_tpu_torch.gateway.csi",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -121,15 +128,22 @@ def test_slice_modules_import_alone_without_jax(module):
 
 
 def test_light_cli_verbs_import_no_torch():
-    """The CLI's namespace and admin verbs, and the remote OM and SCM
-    clients under them, start without importing torch."""
+    """The CLI's namespace, `fs` and admin verbs, the remote OM and SCM
+    clients under them, the file checksum, the ofs adapter and the CSI
+    driver start without importing torch."""
     out = _run("""
         import sys
         from ozone_tpu_torch.tools import cli
         from ozone_tpu_torch.net.om_service import RemoteOmClient
         from ozone_tpu_torch.net.scm_service import RemoteScmClient
         from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+        from ozone_tpu_torch.client.file_checksum import file_checksum
+        from ozone_tpu_torch.gateway.fs import RootedOzoneFileSystem
+        from ozone_tpu_torch.gateway.csi import CsiServer
+        from ozone_tpu_torch.om import fso
         cli.build_parser().parse_args(["admin", "status"])
+        cli.build_parser().parse_args(["fs", "ls", "/v/b"])
+        cli.build_parser().parse_args(["admin", "om", "list-open-files"])
         print("torch" in sys.modules)
     """)
     assert out.strip() == "False"

@@ -14,6 +14,11 @@ reference.
   five DatanodeDaemons, rs-3-2-4096 on the CPU codec): PUT, the leader
   stopped, GET byte-exact; followers answer with the leader's address;
   any replica answers ring-status.
+- FSO through the in-process ring (a tree, a directory rename, a
+  recursive delete whose purge batches replicate, a failover and a
+  revival): every replica's tree equals the reference ring's; and on the
+  daemon ring a renamed FSO tree read from the new leader after the old
+  one stopped.
 - The follower read gate's answers on a ring equal the reference's.
 - The promote-mode replicas (`ReplicatedOzoneManager`, `ReplicatedSCM`)
   on one script each: the same answers, indexes and state as the
@@ -30,12 +35,14 @@ import pytest
 import ozone_tpu.consensus.meta_ring as j_meta_ring
 import ozone_tpu.consensus.raft as j_raft
 import ozone_tpu.lifecycle.service as j_lc
+import ozone_tpu.om.fso as j_fso
 import ozone_tpu.om.om as j_om
 import ozone_tpu.om.requests as j_rq
 import ozone_tpu.scm.scm as j_scm
 import ozone_tpu_torch.consensus.meta_ring as t_meta_ring
 import ozone_tpu_torch.consensus.raft as t_raft
 import ozone_tpu_torch.lifecycle.service as t_lc
+import ozone_tpu_torch.om.fso as t_fso
 import ozone_tpu_torch.om.om as t_om
 import ozone_tpu_torch.om.requests as t_rq
 import ozone_tpu_torch.scm.scm as t_scm
@@ -45,9 +52,9 @@ from ozone_tpu_torch.storage.ids import StorageError
 WAIT_S = 15.0
 
 REF = types.SimpleNamespace(raft=j_raft, ring=j_meta_ring, om=j_om, rq=j_rq,
-                            scm=j_scm, lc=j_lc, om_kw={})
+                            scm=j_scm, lc=j_lc, fso=j_fso, om_kw={})
 PORT = types.SimpleNamespace(raft=t_raft, ring=t_meta_ring, om=t_om,
-                             rq=t_rq, scm=t_scm, lc=t_lc,
+                             rq=t_rq, scm=t_scm, lc=t_lc, fso=t_fso,
                              om_kw={"device": "cpu"})
 IDS = ["m0", "m1", "m2"]
 
@@ -175,6 +182,80 @@ def test_ring_state_equals_reference_across_failover(tmp_path):
         assert all(s == states[0] for s in states)
     keys = [k for k, _ in port["after"]["m0"][0]]
     assert keys == [f"/v/b/k{i}" for i in range(1, 6)]
+
+
+def _fso_tree(rep) -> dict:
+    """A replica's FSO namespace without its run-random object ids: the
+    file walk, every directory's listing and the deletion queues."""
+    om = rep.om
+    dirs = [""] + [k["path"] for k in om.list_status("v", "f", "")
+                   if k["type"] == "DIRECTORY"]
+    listing = {}
+    while dirs:
+        d = dirs.pop()
+        rows = om.list_status("v", "f", d)
+        listing[d] = [(r["type"], r["path"], r.get("size")) for r in rows]
+        dirs += [r["path"] for r in rows if r["type"] == "DIRECTORY"]
+    return {"files": [(k["name"], k["size"])
+                      for k in om.list_keys("v", "f")],
+            "listing": listing,
+            "deleted_dirs": len(list(om.store.iterate("deleted_dirs"))),
+            "deleted_keys": sorted(k.rsplit(":", 1)[0].rsplit("/", 1)[1]
+                                   for k, _ in om.store.iterate(
+                                       "deleted_keys"))}
+
+
+def _fso_ring_history(P, root) -> dict:
+    """FSO writes through the ring: a tree, a directory rename and a
+    recursive delete whose purge batches replicate; the leader stops and
+    the new leader and the revived replica hold the same tree."""
+    fso = P.fso
+    ring = Ring(P, root)
+    try:
+        assert ring.reps["m0"].node.start_election()
+        om = ring.reps["m0"].om
+        om.create_volume("v")
+        om.create_bucket("v", "f", "rs-3-2-4096", "FILE_SYSTEM_OPTIMIZED")
+        for i, path in enumerate(("a/b/c/f0", "a/b/f1", "a/f2", "x/y/f3",
+                                  "x/f4")):
+            s = om.open_key("v", "f", path)
+            g = om.allocate_block(s)
+            ring.reps["m0"]._await_records()
+            g.length = 100 * (i + 1)
+            om.commit_key(s, [g], g.length)
+        om.create_directory("v", "f", "a/b/empty")
+        om.rename_key("v", "f", "a/b", "a/moved")
+        om.delete_directory("v", "f", "x", recursive=True)
+        fso.DirectoryDeletingService(om).run_once(limit=2)
+        ring.tick("m0")
+        before = {m: _fso_tree(r) for m, r in ring.reps.items()}
+        ring.stop("m0")
+        assert ring.reps["m1"].node.start_election()
+        om1 = ring.reps["m1"].om
+        fso.DirectoryDeletingService(om1).run_to_completion()
+        om1.rename_key("v", "f", "a/moved/c", "a/c2")
+        ring.revive("m0")
+        ring.tick("m1", 3)
+        after = {m: _fso_tree(r) for m, r in ring.reps.items()}
+        return {"before": before, "after": after}
+    finally:
+        ring.stop_all()
+
+
+def test_fso_on_the_ring_equals_reference_across_failover(tmp_path):
+    random.seed(0)
+    ref = _fso_ring_history(REF, tmp_path / "ref")
+    random.seed(0)
+    port = _fso_ring_history(PORT, tmp_path / "port")
+    assert port == ref
+    for phase in ("before", "after"):
+        states = list(port[phase].values())
+        assert all(st == states[0] for st in states), phase
+    after = port["after"]["m0"]
+    assert after["files"] == [("a/c2/f0", 100), ("a/f2", 300),
+                              ("a/moved/f1", 200)]
+    assert after["deleted_dirs"] == 0
+    assert after["deleted_keys"] == ["f3", "f4"]
 
 
 def _fence_codes(P, root) -> dict:
@@ -328,6 +409,45 @@ def test_ha_put_leader_stop_get(ha_cluster):
           >= c.metas[new_leader].ha.node.last_applied)
     assert {k["name"] for k in revived.om.list_keys("v", "b")} \
         >= {"k1", "k2"}
+    oz.om.close()
+    oz.clients.close()
+
+
+def test_fso_rename_survives_a_leader_change(ha_cluster):
+    """An FSO tree written through the daemon ring: a directory renamed,
+    the leader stopped; the new leader serves the renamed tree, its
+    files byte-exact, and a directory-deleting pass of its own."""
+    c = ha_cluster
+    oz = c.client()
+    om = oz.om
+    oz.create_volume("fv")
+    om.create_bucket("fv", "fb", "rs-3-2-4096", "FILE_SYSTEM_OPTIMIZED")
+    b = oz.get_volume("fv").get_bucket("fb")
+    data = {f"d/e/f{i}": np.random.default_rng(i).integers(
+        0, 256, 20_000 + i, dtype=np.uint8).tobytes() for i in range(3)}
+    for k, v in data.items():
+        b.write_key(k, v)
+    om.create_directory("fv", "fb", "gone/x")
+    om.rename_key("fv", "fb", "d", "renamed")
+    om.delete_directory("fv", "fb", "gone", recursive=True)
+    leader = c.await_leader(timeout=WAIT_S)
+    c.stop_meta(leader)
+    new_leader = c.await_leader(timeout=WAIT_S)
+    assert new_leader != leader
+    assert [(e["type"], e["path"]) for e in
+            om.list_status("fv", "fb", "renamed/e")] == [
+        ("FILE", f"renamed/e/f{i}") for i in range(3)]
+    for k, v in data.items():
+        assert b.read_key(k.replace("d/", "renamed/", 1)).tobytes() == v
+    survivor = c.metas[new_leader].om
+    _wait("the new leader's directory-deleting pass",
+          lambda: not list(survivor.store.iterate("deleted_dirs")))
+    c.revive_meta(leader)
+    revived = c.metas[leader]
+    _wait("the revived replica caught up", lambda: revived.ha.node
+          .last_applied >= c.metas[new_leader].ha.node.last_applied)
+    assert [k["name"] for k in revived.om.list_keys("fv", "fb")] == [
+        f"renamed/e/f{i}" for i in range(3)]
     oz.om.close()
     oz.clients.close()
 
