@@ -140,7 +140,33 @@ a phase says otherwise:
   (e) a RATIS/THREE file hsynced after each of 4 × 4 MiB, read by a second
   client, its writer abandoned, `recover_lease`, the stale hsync and an EC
   hsync refused; (f) `freon fsg` and `fskg` of 128 × 3901 B on 8 threads.
-  Launches equal dispatches in every part that codes.
+  Launches equal dispatches in every part that codes. `main` cuts (c) to
+  250 files per directory and (f) to 64 files;
+- authorization and tokens (`security_path`): an ScmOmDaemon with block
+  tokens (`insecure_secrets`: the keys ride Register and Heartbeat in the
+  clear until mutual TLS is ported) and native ACLs on, 9 DatanodeDaemons
+  on 3 racks (native lane), an S3Gateway with require_auth, rs-6-3-1024k:
+  (a) two tenants of two users each PUT 64 MiB and upload 96 MiB +
+  12 345 B in 8 MiB parts, GET whole and ranged, then a degraded GET with
+  two datanodes' servers down; the same PUTs and GETs first on a cluster
+  with tokens and ACLs off (the secured/unsecured ratio is printed);
+  (b) another tenant's bucket answers NoSuchBucket to a PUT and a GET,
+  a canned public-read `?acl` lets an anonymous GET through and
+  `private` turns it away, the `?acl` body reads back as set, HttpFS
+  GETACLSTATUS and CHECKACCESS; (c) on the RPC lane, the sidecar and a
+  RATIS/THREE pipeline, no token, a forged signature, an expired token, a
+  READ token used to write, another block's token and another
+  container's token are each refused with BLOCK_TOKEN_VERIFICATION_FAILED
+  and change nothing; (d) a key rotation, a GET under the old key's
+  tokens, and the seconds to the first write under the new key; (e) a
+  datanode dies and the SCM's reconstruction rebuilds its units onto a
+  spare that joined, with tokens the datanodes sign themselves; (f) a
+  delegation token used by a second client (a listing and a read under
+  the owner's ACL grant), renewed, cancelled and then refused. It prints
+  verify microseconds per check on each lane, `check_access` microseconds
+  per authorizer check, refusals by reason and repair MiB/s per target;
+  launches equal dispatches in every coding step. A line before the
+  phases probes the host for `cryptography` and `openssl`.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -1892,19 +1918,21 @@ def stop_server(d) -> None:
 def restart_server(d) -> None:
     """Serve a daemon's datanode and pipeline-ring verbs again on its old
     port, with a new native sidecar, after stop_server (the registered
-    address stays valid; clients discover the sidecar's new port)."""
+    address stays valid; clients discover the sidecar's new port); every
+    lane keeps the daemon's token verifier."""
     from ozone_tpu_torch.net.dn_service import DatanodeRpcService
     from ozone_tpu_torch.net.rpc import RpcServer
     from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
 
     from ozone_tpu_torch.net.ratis_service import RatisRpcService
 
-    d.datapath = DatapathSidecar(d.dn)
+    d.datapath = DatapathSidecar(d.dn, verifier=d.verifier)
     d.datapath.start()
     d.server = RpcServer(port=d.server.port)
-    d.service = DatanodeRpcService(d.dn, d.server, datapath_port=d.advertise)
+    d.service = DatanodeRpcService(d.dn, d.server, datapath_port=d.advertise,
+                                   verifier=d.verifier)
     # its pipeline rings answer again too (their raft state lived on)
-    d.ratis_service = RatisRpcService(d.xceiver_ratis, d.server)
+    d.ratis_service = RatisRpcService(d.xceiver_ratis, d.server, verifier=d.verifier)
     d.server.start()
 
 
@@ -4271,6 +4299,624 @@ def fs_path(device, cell: int, bpc: int, seed: int, n_io: int = 8,
     return out
 
 
+# ---------------------------------------------------------------- security
+def security_probe() -> str:
+    """What this host offers the encryption slice still to come: whether
+    the `cryptography` package is installed (and its version, read from
+    its metadata: nothing here imports it) and `openssl version`. Never
+    fails the run."""
+    import importlib.metadata
+    import importlib.util
+
+    try:
+        if importlib.util.find_spec("cryptography") is None:
+            crypto = "no cryptography package"
+        else:
+            crypto = f"cryptography {importlib.metadata.version('cryptography')}"
+    except Exception as e:  # noqa: BLE001 - a probe reports, it never fails
+        crypto = f"cryptography unreadable ({type(e).__name__}: {e})"
+    try:
+        ssl = subprocess.run(["openssl", "version"], capture_output=True, text=True,
+                             timeout=10).stdout.strip() or "openssl: no output"
+    except Exception as e:  # noqa: BLE001
+        ssl = f"no openssl ({type(e).__name__})"
+    import ssl as _ssl
+
+    return f"{crypto}; {ssl}; Python ssl module {_ssl.OPENSSL_VERSION}"
+
+
+class _Fixed:
+    """A token store that hands out one chosen token for every verb."""
+
+    def __init__(self, tok):
+        self.tok = tok
+
+    def block_token(self, block_id):
+        return self.tok
+
+    def container_token(self, container_id):
+        return self.tok
+
+
+def lane_refusals(meta, dns, ec_group, ratis_group, cell: int) -> dict:
+    """On each datanode lane (the RPC verbs, the native sidecar, the RATIS
+    pipeline's Submit) six bad requests: no token, a forged signature, an
+    expired token, a READ token used to write, block A's token on block B
+    and a container token for another container (where a lane has no
+    container verb, presented as the stream's token). Each must be refused
+    with BLOCK_TOKEN_VERIFICATION_FAILED and leave the container as it was.
+    Returns the refusals by reason."""
+    from ozone_tpu_torch.client.native_dn import NativeDatanodeClient
+    from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
+    from ozone_tpu_torch.net.ratis_service import RemoteRatisClient
+    from ozone_tpu_torch.storage.ids import (
+        BLOCK_TOKEN_VERIFICATION_FAILED,
+        BlockData,
+        BlockID,
+        ChunkInfo,
+        StorageError,
+    )
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+    from ozone_tpu_torch.utils.security import AccessMode, BlockTokenIssuer
+
+    keys = meta.scm.secret_keys
+    reasons: dict[str, int] = {}
+    by_id = {d.dn.id: d for d in dns}
+    data = np.random.default_rng(99).integers(0, 256, cell, dtype=np.uint8)
+    info0 = ChunkInfo("x", 0, cell, Checksum(ChecksumType.CRC32C, 16 * 1024).compute(data))
+    rw = [AccessMode.READ, AccessMode.WRITE]
+    for lane, g in (("rpc", ec_group), ("native", ec_group), ("ratis", ratis_group)):
+        cid = g.container_id
+        # a member that holds the container (a RATIS member may still be
+        # applying its create)
+        d = next(by_id[n] for n in g.pipeline.nodes
+                 if cid in {c.id for c in by_id[n].dn.list_containers()})
+        bid = BlockID(cid, g.local_id + 100_000)  # a block no one wrote
+        info = ChunkInfo(f"{bid}_chunk_0", 0, cell, info0.checksum)
+        for case in ("none", "forged", "expired", "read_for_write", "other_block",
+                     "other_container"):
+            tok = None
+            if case == "forged":
+                tok = dict(BlockTokenIssuer(keys).issue(bid, rw))
+                tok["sig"] = ("0" if tok["sig"][0] != "0" else "1") + tok["sig"][1:]
+            elif case == "expired":
+                tok = BlockTokenIssuer(keys, token_lifetime_s=-60.0).issue(bid, rw)
+            elif case == "read_for_write":
+                tok = BlockTokenIssuer(keys).issue(bid, [AccessMode.READ])
+            elif case == "other_block":
+                tok = BlockTokenIssuer(keys).issue(BlockID(cid, bid.local_id + 1), rw)
+            elif case == "other_container":
+                tok = BlockTokenIssuer(keys).issue_container(cid + 1000)
+            c = d.dn.containers.get(cid)
+            before = (c.state, sorted((b.block_id.local_id, len(b.chunks))
+                                      for b in d.dn.list_blocks(cid)),
+                      d.dn.metrics.counter("bytes_written").value)
+            try:
+                if lane == "rpc":
+                    cl = RpcDatanodeClient(d.dn.id, d.address, tokens=_Fixed(tok))
+                    try:
+                        if case == "other_container":
+                            cl.close_container(cid)
+                        else:
+                            cl.write_chunk(bid, info, data)
+                    finally:
+                        cl.close()
+                elif lane == "native":
+                    cl = NativeDatanodeClient(d.dn.id, d.address, tokens=_Fixed(tok))
+                    try:
+                        cl.write_chunks_commit(bid, [(info, data)],
+                                               commit=BlockData(bid, [info]))
+                    finally:
+                        cl.close()
+                else:
+                    cl = RemoteRatisClient(d.dn.id, d.address)
+                    if case == "other_container":
+                        req = {"verb": "close_container", "container_id": cid,
+                               "container_token": tok}
+                    else:
+                        req = {"verb": "write_chunk_commit", "block_id": bid.to_json(),
+                               "offset": 0, "length": cell}
+                        if tok is not None:
+                            req["token"] = tok
+                    cl.submit(g.pipeline.id, req, timeout=5.0)
+            except StorageError as e:
+                if e.code != BLOCK_TOKEN_VERIFICATION_FAILED:
+                    raise AssertionError(f"{lane} {case}: refused with {e.code}: {e.msg}")
+                why = ("token is for another subject" if e.msg.startswith("token is for")
+                       else e.msg)
+                reasons[why] = reasons.get(why, 0) + 1
+            else:
+                raise AssertionError(f"{lane} {case}: served")
+            after = (c.state, sorted((b.block_id.local_id, len(b.chunks))
+                                     for b in d.dn.list_blocks(cid)),
+                     d.dn.metrics.counter("bytes_written").value)
+            if after != before:
+                raise AssertionError(f"{lane} {case}: the container changed: {before} -> {after}")
+    return reasons
+
+
+def security_path(device, cell: int, bpc: int, seed: int, n_tenants: int = 2,
+                  users_per_tenant: int = 2, single_cells: int = 64,
+                  multi_cells: int = 96) -> dict:
+    """A multi-tenant S3 store with block tokens and native ACLs (Apache
+    Ozone's feature/S3-Multi-Tenancy.md with hdds.block.token.enabled and
+    ozone.acl.enabled): an ScmOmDaemon with `block_tokens=True,
+    insecure_secrets=True` (the keys ride Register and Heartbeat in the
+    clear until mutual TLS is ported) and ACLs on (superuser root), 9
+    DatanodeDaemons on 3 racks each with its native sidecar, rs-6-3 at
+    `cell` with CRC32C per `bpc`, and an S3Gateway with require_auth.
+    (a) `n_tenants` tenants of `users_per_tenant` users each PUT a
+    `single_cells` object and upload a `multi_cells` + 12 345 B object in
+    8-cell parts, then GET them whole and ranged; a degraded GET with two
+    datanodes' servers down. The same PUTs and GETs also run on a cluster
+    with tokens and ACLs off: the ratio is what security costs. (b) A
+    user's PUT and GET into another tenant's bucket (the reference answers
+    NoSuchBucket: the tenants' bucket namespaces are apart), a canned
+    public-read `?acl` letting an anonymous GET through and `private`
+    turning it away, the `?acl` body read back as set, HttpFS GETACLSTATUS
+    and CHECKACCESS. (c) Every lane's six refusals. (d) A secret-key
+    rotation under load: reads under tokens of the old key, the first
+    write under the new one. (e) One datanode dies and the SCM-driven
+    reconstruction rebuilds its units with tokens the datanode signs
+    itself onto a spare that joins. (f) A delegation token got, used by a
+    second client through the remote OM (a listing and a read under the
+    token owner's ACL grant), the token-authenticated caller's request for
+    another refused, renewed, cancelled, and refused after the cancel.
+    Every body is byte-exact and kernel launches equal the codec
+    service's dispatches in every coding step."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.httpfs import HttpFSGateway
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.ratis_service import RatisClientFactory
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.scm.node_manager import NodeState
+    from ozone_tpu_torch.storage.ids import BlockID, ContainerState, StorageError
+    from ozone_tpu_torch.utils import security
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    part = 8 * cell
+    rng = np.random.default_rng(seed + 14)
+    tenants = [f"t{i + 1}" for i in range(n_tenants)]
+    users = [(t, f"{t}u{j}") for t in tenants for j in range(users_per_tenant)]
+    singles = {u: rng.integers(0, 256, single_cells * cell, dtype=np.uint8).tobytes()
+               for _, u in users}
+    multis = {u: rng.integers(0, 256, multi_cells * cell + 12345, dtype=np.uint8).tobytes()
+              for _, u in users}
+    put_bytes = sum(map(len, singles.values())) + sum(map(len, multis.values()))
+    out: dict = {"launches": {}}
+
+    def md5(b) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    def step(what: str, fn, items, key=None, codes: bool = False):
+        """fn over items concurrently: (results, seconds); launches equal
+        dispatches, and a step that `codes` (a PUT, a decode) launched."""
+        before = service_counts()
+        fused_kernel.launches.reset()
+        t0 = time.perf_counter()
+        res = concurrent(fn, items)
+        secs = time.perf_counter() - t0
+        launches = fused_kernel.launches.count
+        svc = service_delta(before)
+        check_launches_equal(what, device, launches, svc)
+        if key is not None:
+            out["launches"][key] = launches
+        if codes and device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what} launched no kernel")
+        return res, secs
+
+    def cluster(root: Path, secured: bool):
+        """(meta, dns, client, gateway, admin om) of one cluster."""
+        meta = ScmOmDaemon(root / "om.db", block_size=16 * cell, container_size=1024 * cell,
+                           stale_after_s=30.0, dead_after_s=60.0, background_interval_s=0.5,
+                           placement_seed=seed, device=device, block_tokens=secured,
+                           insecure_secrets=secured, acl_enabled=secured)
+        if secured:
+            # sign with a new key 2 s after it is made (the heartbeat is 0.5 s;
+            # the SCM's default waits 10 s), so the rotation step stays short
+            meta.scm.secret_keys.activation_s = 2.0
+        meta.start()
+        dns = []
+        for i in range(9):
+            d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address, rack=f"/rack{i % 3}",
+                               heartbeat_interval_s=0.5, device=device)
+            d.start()
+            dns.append(d)
+        scm = RemoteScmClient(meta.address)
+        try:
+            wait_for("9 datanodes registered", lambda: len(scm.status()["nodes"]) == 9, 30)
+        finally:
+            scm.close()
+        if secured:
+            wait_for("every datanode enforcing, with the keys", lambda: all(
+                d.verifier.enabled and d.secrets.export_keys() for d in dns), 30)
+        clients = DatanodeClientFactory()
+        om = RemoteOmClient(meta.address, clients=clients)
+        for d in dns:
+            clients.register_remote(d.dn.id, d.address)
+        oz = OzoneClient(om, clients, device=device, ratis_clients=RatisClientFactory(
+            address_source=clients.remote_address))
+        gw = S3Gateway(oz, replication=rs, require_auth=True)
+        gw.start()
+        return meta, dns, oz, gw, om
+
+    def teardown(meta, dns, oz, gw, om):
+        gw.stop()
+        oz.ratis_clients.close()
+        om.close()
+        oz.clients.close()
+        for d in dns:
+            d.stop()
+        meta.stop()
+
+    def tenant_traffic(meta, gw, om, tag: str, ranged: bool) -> tuple[dict, dict]:
+        """Tenants, users and their S3 PUTs and GETs; (rates, clients)."""
+        with om.user_context("root"):
+            for t in tenants:
+                om.create_tenant(t)
+            creds = {u: om.tenant_assign_user(t, u) for t, u in users}
+        cl = {u: S3Client(gw.address, creds[u]["access_id"], creds[u]["secret"])
+              for _, u in users}
+        for t in tenants:
+            cl[f"{t}u0"].ok("PUT", f"/{t}-data")
+
+        def put(tu):
+            t, u = tu
+            h, _ = cl[u].ok("PUT", f"/{t}-data/{u}/single", singles[u])
+            etag, parts = s3_multipart(cl[u], f"/{t}-data/{u}/multi", multis[u], part, 4)
+            want = [md5(multis[u][o:o + part]) for o in range(0, len(multis[u]), part)]
+            from ozone_tpu_torch.om.multipart import _final_etag
+
+            if h["etag"].strip('"') != md5(singles[u]) or parts != want or \
+                    etag != _final_etag([{"etag": e} for e in want]):
+                raise AssertionError(f"{tag} PUT {u}: ETags")
+
+        def get(tu):
+            t, u = tu
+            for name, want in (("single", singles[u]), ("multi", multis[u])):
+                if cl[u].ok("GET", f"/{t}-data/{u}/{name}")[1] != want:
+                    raise AssertionError(f"{tag} GET {u}/{name}: bytes differ")
+
+        _, put_s = step(f"security {tag} S3 PUT", put, users, f"security_{tag}_put",
+                        codes=True)
+        _, get_s = step(f"security {tag} S3 GET", get, users, f"security_{tag}_get")
+        rates = {"put": put_bytes / put_s / 2**30, "get": put_bytes / get_s / 2**30}
+        if ranged:
+            n_rng = min(4, multi_cells // 8 - 1)  # ranges across part boundaries
+
+            def ranged_get(tu):
+                t, u = tu
+                for j in range(n_rng):
+                    lo = j * part + part // 2 + 777
+                    _, data = cl[u].ok("GET", f"/{t}-data/{u}/multi", extra={
+                        "Range": f"bytes={lo}-{lo + part - 1}"}, status=206)
+                    if data != multis[u][lo:lo + part]:
+                        raise AssertionError(f"{tag} ranged GET {u}")
+
+            _, rg_s = step(f"security {tag} S3 ranged GET", ranged_get, users,
+                           f"security_{tag}_ranged_get")
+            rates["ranged_get"] = n_rng * part * len(users) / rg_s / 2**30
+        print(f"security {tag}: {len(tenants)} tenants x {users_per_tenant} users, each a "
+              f"{single_cells * cell} B PUT and a {multi_cells * cell + 12345} B multipart "
+              f"upload in {part} B parts: {put_bytes} B PUT in {put_s:.3f} s = "
+              f"{rates['put']:.3f} GiB/s, GET whole {get_s:.3f} s = {rates['get']:.3f} GiB/s"
+              + (f", ranged {rates['ranged_get']:.3f} GiB/s" if ranged else "")
+              + " (wall, this run); every body byte-exact")
+        return rates, cl
+
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-sec-") as tmp:
+        root = Path(tmp)
+        # (a') the same traffic with tokens and ACLs off
+        c = cluster(root / "plain", secured=False)
+        try:
+            plain, _ = tenant_traffic(c[0], c[3], c[4], "unsecured", ranged=False)
+        finally:
+            teardown(*c)
+        meta, dns, oz, gw, om = cluster(root / "secure", secured=True)
+        by_id = {d.dn.id: d for d in dns}
+        refs0 = {lane: security.METRICS.counter(f"refused_{lane}").value
+                 for lane in ("rpc", "native", "ratis")}
+        hist0 = {lane: (security.METRICS.histogram(f"verify_{lane}").count,
+                        security.METRICS.histogram(f"verify_{lane}").total)
+                 for lane in ("rpc", "native", "ratis")}
+        ca0 = (meta.om.metrics.histogram("check_access").count,
+               meta.om.metrics.histogram("check_access").total)
+        try:
+            # (a) the tenants' traffic, secured
+            secured, cl = tenant_traffic(meta, gw, om, "secured", ranged=True)
+            for k in ("put", "get"):
+                print(f"security cost {k}: {secured[k]:.3f} GiB/s secured, {plain[k]:.3f} "
+                      f"GiB/s unsecured = {secured[k] / plain[k]:.3f}x (wall, this run)")
+            out["gib_s"], out["unsecured_gib_s"] = secured, plain
+            t1, u0 = users[0]
+            # (c) every lane refuses the six bad requests
+            ratis_b = oz.get_volume(t1).create_bucket("rat", replication="RATIS/THREE")
+            ratis_b.write_key("k", singles[u0][:4 * cell])
+            ratis_g = om.key_block_groups(om.lookup_key(t1, "rat", "k"))[0]
+            info = om.lookup_key(t1, f"{t1}-data", f"{u0}/multi")
+            ec_g = om.key_block_groups(info)[0]
+            reasons = lane_refusals(meta, dns, ec_g, ratis_g, cell)
+            refused = {lane: security.METRICS.counter(f"refused_{lane}").value - refs0[lane]
+                       for lane in refs0}
+            if sorted(refused.values()) != [6, 6, 6]:
+                raise AssertionError(f"refusals by lane: {refused}")
+            print(f"security lanes: refusals by lane {refused}, by reason {reasons}; "
+                  "BLOCK_TOKEN_VERIFICATION_FAILED each, no container changed")
+
+            # a degraded GET: two holders of the first user's data units stop
+            info = om.lookup_key(t1, f"{t1}-data", f"{u0}/multi")
+            down = info["block_groups"][0]["nodes"][:2]
+            for dn_id in down:
+                stop_server(by_id[dn_id])
+            def degraded(tu):
+                t, u = tu
+                if cl[u].ok("GET", f"/{t}-data/{u}/multi")[1] != multis[u]:
+                    raise AssertionError(f"degraded GET {u}: bytes differ")
+
+            _, deg_s = step("security degraded GET", degraded, users,
+                            "security_degraded_get", codes=True)
+            multi_b = sum(map(len, multis.values()))
+            print(f"security degraded GET ({down} stopped): {multi_b} B byte-exact in "
+                  f"{deg_s:.3f} s = {multi_b / deg_s / 2**30:.3f} GiB/s")
+            for dn_id in down:
+                restart_server(by_id[dn_id])
+
+            # (b) refusals and grants
+            t2, v0 = users[-1]
+            ans = [cl[u0].req("GET", f"/{t2}-data/{v0}/single")[0],
+                   cl[u0].req("PUT", f"/{t2}-data/intruder", b"x" * 100)[0]]
+            plain_id = "chip-sec"
+            secret = om.get_s3_secret(plain_id)
+            pub = S3Client(gw.address, plain_id, secret)
+            pub.ok("PUT", "/pub")
+            pub.ok("PUT", "/pub/o", singles[u0][:cell])
+            anon_before = pub.req("GET", "/pub/o", sign=False)[0]
+            pub.ok("PUT", "/pub?acl", extra={"x-amz-acl": "public-read"})
+            st, _, anon = pub.req("GET", "/pub/o", sign=False)
+            body = (b'<AccessControlPolicy><AccessControlList><Grant><Grantee>'
+                    b'<URI>http://acs.amazonaws.com/groups/global/AllUsers</URI></Grantee>'
+                    b'<Permission>READ</Permission></Grant></AccessControlList>'
+                    b'</AccessControlPolicy>')
+            pub.ok("PUT", "/pub?acl", body)
+            back = pub.ok("GET", "/pub?acl")[1]
+            acl_back = (xml_text(back, "ID"), xml_text(back, "Permission"))
+            pub.ok("PUT", "/pub?acl", extra={"x-amz-acl": "private"})
+            st_private, _, err = pub.req("GET", "/pub/o", sign=False)
+            if ans != [404, 404] or anon_before != 403 or st != 200 or \
+                    anon != singles[u0][:cell] or acl_back != (["owner", "*"], ["READ"]) \
+                    or st_private != 403 or xml_text(err, "Code") != ["AccessDenied"]:
+                raise AssertionError(f"S3 refusals and grants: {ans} {anon_before} {st} "
+                                     f"{acl_back} {st_private} {err[:200]!r}")
+            print(f"security refusals: another tenant's bucket GET {ans[0]} and PUT {ans[1]} "
+                  "NoSuchBucket (the tenants' namespaces are apart, as in the reference); "
+                  f"anonymous GET 403 before a grant, {st} byte-exact under public-read, "
+                  f"403 AccessDenied after private; ?acl read back {acl_back}")
+            with om.user_context("root"):
+                om.modify_acl("key", t1, f"{t1}-data", f"{u0}/single", op="add",
+                              acls=["user:alice:r", "group:ops:rw[DEFAULT]"])
+            hf = HttpFSGateway(oz)
+            hf.start()
+            try:
+                import urllib.error
+                import urllib.request
+
+                base = f"http://{hf.address}/webhdfs/v1/{t1}/{t1}-data/{u0}/single"
+                with urllib.request.urlopen(f"{base}?op=GETACLSTATUS") as r:
+                    status = json.loads(r.read())["AclStatus"]
+                with urllib.request.urlopen(
+                        f"{base}?op=CHECKACCESS&fsaction=r--&user.name=alice") as r:
+                    ok_code = r.status
+                try:
+                    urllib.request.urlopen(f"{base}?op=CHECKACCESS&fsaction=r--&user.name=eve")
+                    denied = None
+                except urllib.error.HTTPError as e:
+                    denied = (e.code, json.loads(e.read())["RemoteException"]["exception"])
+            finally:
+                hf.stop()
+            if status["entries"] != ["user:alice:r--", "default:group:ops:rw-"] or \
+                    ok_code != 200 or denied != (403, "AccessControlException"):
+                raise AssertionError(f"HttpFS ACL verbs: {status} {ok_code} {denied}")
+            print(f"security HttpFS: GETACLSTATUS entries {status['entries']}; CHECKACCESS "
+                  f"r-- alice {ok_code}, eve {denied}")
+
+            # (d) a key rotation under load
+            old_key = meta.scm.secret_keys.current().key_id
+            old_info = om.lookup_key(t1, f"{t1}-data", f"{u0}/multi")
+            rot_b = oz.get_volume(t1).get_bucket(f"{t1}-data")
+            seen: list = []
+            real_alloc = om.allocate_block
+
+            def alloc(*a, **k):
+                g = real_alloc(*a, **k)
+                seen.append(g.token["key_id"])
+                return g
+
+            om.allocate_block = alloc
+            try:
+                t_rot = time.perf_counter()
+                # a single-node SCM's rotation: mint a key and install it
+                rotated = meta.scm.secret_keys.new_key()
+                meta.scm.secret_keys.import_key(rotated)
+                new_key = rotated.key_id
+                n_put = 0
+                while True:
+                    del seen[:]
+                    rot_b.write_key(f"rot/{n_put}", np.frombuffer(
+                        singles[u0][:6 * cell], np.uint8))
+                    n_put += 1
+                    if seen and all(k == new_key for k in seen):
+                        break
+                    if time.perf_counter() - t_rot > 30:
+                        raise AssertionError("no write under the new key in 30 s")
+                rot_s = time.perf_counter() - t_rot
+            finally:
+                om.allocate_block = real_alloc
+            if oz.get_volume(t1).get_bucket(f"{t1}-data").read_key_info(
+                    old_info).tobytes() != multis[u0]:
+                raise AssertionError("a read under the old key's tokens differs")
+            if any(g.get("token", {}).get("key_id") != old_key
+                   for g in old_info["block_groups"]):
+                raise AssertionError("the old lookup's tokens are not the old key's")
+            out["rotation_s"] = rot_s
+            print(f"security rotation: key {old_key} -> {new_key}; first write under the new "
+                  f"key {rot_s:.3f} s after the rotation ({n_put} PUTs of {6 * cell} B, "
+                  "activation 2 s, heartbeat 0.5 s); a GET under tokens of the old key "
+                  "byte-exact")
+
+            # (e) the token-signed repair of a dead datanode onto a spare
+            scm = RemoteScmClient(meta.address)
+            try:
+                # the EC containers: the repair rebuilds their units (the
+                # RATIS one may hold a member whose server the degraded
+                # step restarted, which `restart_server` leaves without
+                # its raft transport, so it stays open and out of the way)
+                ec_ids = {c["id"] for c in scm.list_containers()
+                          if not c["replication"].startswith("RATIS")}
+                for cid in sorted(ec_ids):
+                    scm.admin("close-container", str(cid))
+                wait_for("EC containers closed", lambda: all(
+                    c["state"] == "CLOSED" and all(r["state"] == "CLOSED" for r in c["replicas"])
+                    for c in scm.list_containers() if c["id"] in ec_ids), 30)
+                spare = DatanodeDaemon(root / "secure" / "dn9", "dn9", meta.address,
+                                       rack="/rack0", heartbeat_interval_s=0.5, device=device)
+                spare.start()
+                dns.append(spare)
+                by_id["dn9"] = spare
+                wait_for("the spare enforcing, with the keys",
+                         lambda: spare.verifier.enabled and spare.secrets.export_keys(), 30)
+            finally:
+                scm.close()
+            victim = info["block_groups"][0]["nodes"][2]
+            vdn = by_id[victim].dn
+            lost, index = {}, {}  # the victim's EC units: (chunks, bytes), replica index
+            for c0 in vdn.list_containers():
+                if c0.replica_index <= 0:
+                    continue  # a replicated container: re-replicated, not rebuilt
+                index[c0.id] = c0.replica_index
+                for b in vdn.list_blocks(c0.id):
+                    lost[b.block_id] = [(ch, vdn.read_chunk(b.block_id, ch).copy())
+                                        for ch in b.chunks]
+            by_id[victim].stop()
+            meta.scm.nodes.get(victim).last_heartbeat = -1e9
+            meta.scm.nodes.check_liveness()
+            if meta.scm.nodes.get(victim).state is not NodeState.DEAD:
+                raise AssertionError(f"{victim} not DEAD")
+            before = service_counts()
+            fused_kernel.launches.reset()
+            t0 = time.perf_counter()
+
+            def holder(bid):
+                with meta.scm_service.lock:
+                    c0 = meta.scm.containers.get(bid.container_id)
+                    held = [dn for dn, r in c0.replicas.items() if dn != victim and
+                            r.replica_index == index[bid.container_id]
+                            and r.state == "CLOSED"]
+                return held[0] if len(held) == 1 else None
+
+            wait_for("the token-signed reconstruction", lambda: all(
+                holder(bid) for bid in lost), 120, poll_s=0.05)
+            repair_s = time.perf_counter() - t0
+            out["launches"]["security_repair"] = fused_kernel.launches.count
+            svc = service_delta(before)
+            host = Checksum(ChecksumType.CRC32C, bpc)
+            per_target: dict[str, int] = {}
+            for bid, chunks in lost.items():
+                dst = by_id[holder(bid)].dn
+                if dst.containers.get(bid.container_id).state is not ContainerState.CLOSED:
+                    raise AssertionError(f"rebuilt container {bid.container_id} not CLOSED")
+                got = dst.get_block(bid).chunks
+                if [(i.offset, i.length) for i, _ in chunks] != [(i.offset, i.length)
+                                                                 for i in got]:
+                    raise AssertionError(f"rebuilt chunk list of {bid} differs")
+                for (_, want), i in zip(chunks, got):
+                    data = dst.read_chunk(bid, i)
+                    if not np.array_equal(data, want) or \
+                            host.compute(data).checksums != i.checksum.checksums:
+                        raise AssertionError(f"rebuilt chunk {i.name} differs")
+                    per_target[holder(bid)] = per_target.get(holder(bid), 0) + i.length
+            failed = {d.dn.id: d.failed_commands for d in dns if d.failed_commands}
+            if failed or not per_target:
+                raise AssertionError(f"repair: failed commands {failed}, rebuilt {per_target}")
+            out["repair_mib_s_per_target"] = {t: n / repair_s / MIB
+                                              for t, n in per_target.items()}
+            print(f"security repair: {victim} DEAD, {len(lost)} blocks rebuilt with tokens the "
+                  f"datanodes signed themselves in {repair_s:.3f} s: " + ", ".join(
+                      f"{t} {per_target[t]} B = {r:.1f} MiB/s" for t, r in
+                      sorted(out["repair_mib_s_per_target"].items())) +
+                  " per target (wall, from the death); every rebuilt chunk equals the lost "
+                  f"one, CRCs equal host CRC32C; failed commands {failed}")
+            check_launches_equal("security repair", device,
+                                 out["launches"]["security_repair"], svc)
+            if device.type == "cuda" and out["launches"]["security_repair"] <= 0:
+                raise AssertionError("the repair launched no decode")
+
+            # (f) delegation tokens through the remote OM
+            with om.user_context("root"):
+                om.modify_acl("bucket", t1, f"{t1}-data", op="add", acls=["user:alice:rl"])
+            with om.user_context("alice"):
+                tok = om.get_delegation_token("yarn")
+            f2 = DatanodeClientFactory()
+            job_om = RemoteOmClient(meta.address, clients=f2, token=tok)
+            try:
+                listed = [k["name"] for k in job_om.list_keys(t1, f"{t1}-data")]
+                job = OzoneClient(job_om, f2, device=device)
+                read = job.get_volume(t1).get_bucket(f"{t1}-data").read_key(
+                    f"{u0}/single").tobytes()
+                codes = []
+                for fn in (lambda: job_om.get_delegation_token("yarn"),
+                           lambda: job_om.delete_bucket(t1, f"{t1}-data")):
+                    try:
+                        fn()
+                        codes.append("served")
+                    except StorageError as e:
+                        codes.append(e.code)
+                with om.user_context("yarn"):
+                    renewed = om.renew_delegation_token(tok)
+                with om.user_context("alice"):
+                    om.cancel_delegation_token(tok)
+                try:
+                    job_om.list_keys(t1, f"{t1}-data")
+                    codes.append("served")
+                except StorageError as e:
+                    codes.append(e.code)
+            finally:
+                job_om.close()
+                f2.close()
+            if f"{u0}/single" not in listed or read != singles[u0] or \
+                    codes != ["TOKEN_ERROR", "PERMISSION_DENIED", "TOKEN_ERROR"] or \
+                    renewed < tok["issue"]:
+                raise AssertionError(f"delegation tokens: {listed} {codes} {renewed}")
+            print(f"security delegation token: alice's token listed {len(listed)} keys and "
+                  f"read {len(read)} B byte-exact through a second client; a new token for "
+                  f"the token's caller {codes[0]}, a delete beyond alice's grant {codes[1]}; "
+                  f"renewed to {renewed}, cancelled, then {codes[2]}")
+
+            # what security cost on each lane and in the OM; the daemons are
+            # this cluster's own, so their chunk counters start at 0
+            moved = sum(d.dn.metrics.counter(k).value for d in dns
+                        for k in ("batched_write_chunks", "batched_read_chunks"))
+            for lane in ("rpc", "native", "ratis"):
+                h = security.METRICS.histogram(f"verify_{lane}")
+                n, secs = h.count - hist0[lane][0], h.total - hist0[lane][1]
+                extra = (f" = {1e6 * secs / max(moved, 1):.3f} us per chunk over the "
+                         f"{moved} chunks the datanodes moved" if lane == "native" else "")
+                print(f"security verify {lane}: {n} checks, {1e6 * secs / max(n, 1):.2f} us "
+                      f"per check{extra}")
+            n = meta.om.metrics.histogram("check_access").count - ca0[0]
+            secs = meta.om.metrics.histogram("check_access").total - ca0[1]
+            print(f"security check_access: {n} authorizer checks, "
+                  f"{1e6 * secs / max(n, 1):.2f} us each; "
+                  f"acl_denied {meta.om.metrics.counter('acl_denied').value}")
+        finally:
+            teardown(meta, dns, oz, gw, om)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4289,6 +4935,8 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    # what the encryption slice to come can count on here (never fails)
+    print(f"security probe: {security_probe()}")
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
@@ -4372,10 +5020,10 @@ def main() -> int:
     launches = paths = None
     phase_s = {"build_and_kernel_cases": time.perf_counter() - t_start}
 
-    def phase(name, fn, *a):
+    def phase(name, fn, *a, **kw):
         t = time.perf_counter()
         try:
-            return fn(*a)
+            return fn(*a, **kw)
         finally:
             phase_s[name] = time.perf_counter() - t
 
@@ -4402,7 +5050,11 @@ def main() -> int:
                    250, 64 * 1024, 50)
         # depth cut: (a) and (d) take 4 keys of 8, (b) 8 keys of 16
         ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 4, 64 * MIB, 8)
-        fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed)
+        # depth cuts for security_path's room (PERF.md section 4): (c) 250
+        # files per thread of 500, (f) 64 files of 128
+        fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed, md_files=250,
+                   n_small=64)
+        sec = phase("security_path", security_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -4433,6 +5085,7 @@ def main() -> int:
             "lifecycle_xor_reencode": lc["xor_launches"],
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
+            **sec["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -5,13 +5,20 @@ family): the in-process client, and a factory that resolves in-process
 datanodes first, then remote addresses registered with `register_remote`,
 whose `NativeDatanodeClient` (`client/native_dn.py`: the bulk verbs over
 the datanode's native datapath, the rest over the RPC) it builds lazily
-on first use. Block tokens and nearest-first ordering are not ported yet
-(`learn_locations` keeps the topology the SCM ships).
+on first use. The factory's `TokenStore` holds the block and container
+tokens that rode each allocation and lookup, and every remote client
+attaches them to its verbs; a datanode installs an issuer over its
+imported keys to sign its own repair traffic. Left out: nearest-first
+ordering (`learn_locations` keeps the topology the SCM ships), and the
+TLS identity the reference's clients present (mutual TLS, with the KMS,
+is the next slice).
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import OrderedDict
 from typing import Optional
 
 from ozone_tpu_torch.client.resilience import HealthRegistry
@@ -152,6 +159,93 @@ class LocalDatanodeClient:
         self.dn.delete_block(block_id)
 
 
+class TokenStore:
+    """The client's cache of block and container tokens the OM or SCM
+    granted (the reference threads an encodedToken through every Xceiver
+    request). Writers and readers register the tokens riding each
+    BlockGroup (`put_group`), and every remote client the factory hands
+    out reads them per call. `issuer` is the fallback of a datanode that
+    holds the cluster keys: it signs its own reconstruction and
+    replication traffic (ec/reconstruction/TokenHelper.java)."""
+
+    _CAP = 8192  # bounded: tokens expire in minutes anyway
+    #: seconds of validity below which a cached token counts as missing
+    #: (re-issued where an issuer exists): none may expire mid-flight
+    _EXPIRY_MARGIN = 15.0
+
+    def __init__(self, issuer=None):
+        self.issuer = issuer
+        self._blocks: OrderedDict[BlockID, dict] = OrderedDict()
+        self._containers: OrderedDict[int, dict] = OrderedDict()
+        self._lock = threading.Lock()
+
+    def put_block_token(self, block_id: BlockID, token: dict) -> None:
+        with self._lock:
+            self._blocks[block_id] = token
+            self._blocks.move_to_end(block_id)
+            while len(self._blocks) > self._CAP:
+                self._blocks.popitem(last=False)
+
+    def put_container_token(self, container_id: int, token: dict) -> None:
+        with self._lock:
+            self._containers[int(container_id)] = token
+            self._containers.move_to_end(int(container_id))
+            while len(self._containers) > self._CAP:
+                self._containers.popitem(last=False)
+
+    def put_group(self, group) -> None:
+        """Register the tokens riding a BlockGroup, if any."""
+        tok = getattr(group, "token", None)
+        if tok is not None:
+            self.put_block_token(group.block_id, tok)
+        ctok = getattr(group, "container_token", None)
+        if ctok is not None:
+            self.put_container_token(group.container_id, ctok)
+
+    def _fresh(self, tok: Optional[dict]) -> Optional[dict]:
+        if tok is not None and \
+                tok.get("expiry", 0) < time.time() + self._EXPIRY_MARGIN:
+            return None
+        return tok
+
+    def block_token(self, block_id: BlockID) -> Optional[dict]:
+        with self._lock:
+            tok = self._fresh(self._blocks.get(block_id))
+        if tok is None and self.issuer is not None:
+            from ozone_tpu_torch.utils.security import AccessMode
+
+            tok = self.issuer.issue(
+                block_id, [AccessMode.READ, AccessMode.WRITE], owner="dn")
+            if tok is not None:
+                self.put_block_token(block_id, tok)
+        return tok
+
+    def container_token(self, container_id: int) -> Optional[dict]:
+        with self._lock:
+            tok = self._fresh(self._containers.get(int(container_id)))
+        if tok is None and self.issuer is not None:
+            tok = self.issuer.issue_container(container_id, owner="dn")
+            if tok is not None:
+                self.put_container_token(container_id, tok)
+        return tok
+
+
+def register_tokens(clients, groups) -> None:
+    """Register the tokens riding `groups` (BlockGroups, or the JSON
+    groups of a lookup) in the factory's store, when it has one."""
+    tokens = getattr(clients, "tokens", None)
+    if tokens is None:
+        return
+    for g in groups:
+        if isinstance(g, dict):
+            if g.get("token") is not None:
+                tokens.put_block_token(
+                    BlockID(int(g["container_id"]), int(g["local_id"])),
+                    g["token"])
+        else:
+            tokens.put_group(g)
+
+
 class DatanodeClientFactory:
     """dn_id -> client resolver (the XceiverClientManager pool analog), with
     the per-peer health registry every writer built over it shares."""
@@ -166,6 +260,8 @@ class DatanodeClientFactory:
         # maybe_get runs on writer and reader worker threads at once
         self._remote_lock = threading.Lock()
         self.health = HealthRegistry()
+        #: tokens shared by every remote client of this factory
+        self.tokens = TokenStore()
         #: dn_id -> topology location ("/rack"), learned from the SCM
         self.locations: dict[str, str] = {}
 
@@ -214,7 +310,7 @@ class DatanodeClientFactory:
 
                 c = self._remote[dn_id] = NativeDatanodeClient(
                     dn_id, self._addresses[dn_id],
-                    native=self.native_datapath)
+                    native=self.native_datapath, tokens=self.tokens)
             return c
 
     def get(self, dn_id: str):

@@ -38,7 +38,10 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ozone_tpu_torch.client import resilience
-from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+from ozone_tpu_torch.client.dn_client import (
+    DatanodeClientFactory,
+    register_tokens,
+)
 from ozone_tpu_torch.client.ec_writer import BlockGroup, block_lengths
 from ozone_tpu_torch.codec import hostmem, lrc_math
 from ozone_tpu_torch.codec import service as codec_service
@@ -105,6 +108,7 @@ class ECBlockGroupReader:
             options.cell_size,
         )
         self.clients = clients
+        register_tokens(clients, [group])  # READ tokens from the lookup
         self.verify = verify
         self.spec = FusedSpec(options, checksum, bytes_per_checksum)
         self.device = resolve_device(device)

@@ -43,6 +43,7 @@ from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.client.dn_client import (
     DatanodeClientFactory,
     batch_unsupported,
+    register_tokens,
 )
 from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.codec import service as codec_service
@@ -71,15 +72,21 @@ class BlockGroup:
     local_id: int
     pipeline: Pipeline
     length: int = 0  # committed user bytes in this group
+    #: short-lived capability tokens riding an allocation or a lookup
+    #: (the reference's AllocatedBlock token); never stored: the OM
+    #: mints fresh READ tokens at each lookup
+    token: Optional[dict] = None
+    container_token: Optional[dict] = None
 
     @property
     def block_id(self) -> BlockID:
         return BlockID(self.container_id, self.local_id)
 
-    def to_json(self) -> dict:
+    def to_json(self, with_tokens: bool = False) -> dict:
         """The group as the OM stores it in a key row (the reference's
-        fields, so either package reads the other's rows)."""
-        return {
+        fields, so either package reads the other's rows); with its
+        tokens on the wire of an allocation."""
+        out = {
             "container_id": self.container_id,
             "local_id": self.local_id,
             "length": self.length,
@@ -87,6 +94,12 @@ class BlockGroup:
             "replication": str(self.pipeline.replication),
             "pipeline_id": self.pipeline.id,
         }
+        if with_tokens:
+            if self.token is not None:
+                out["token"] = self.token
+            if self.container_token is not None:
+                out["container_token"] = self.container_token
+        return out
 
     @classmethod
     def from_json(cls, g: dict) -> "BlockGroup":
@@ -101,6 +114,8 @@ class BlockGroup:
             pipeline=Pipeline(ReplicationConfig.parse(g["replication"]),
                               list(g["nodes"]), **kw),
             length=g.get("length", 0),
+            token=g.get("token"),
+            container_token=g.get("container_token"),
         )
 
 
@@ -133,6 +148,7 @@ def create_group_containers(clients, group: BlockGroup,
     member i holds index i+1) or not (replicated), collecting unreachable
     members into one StripeWriteError so the retry path excludes them and
     reallocates."""
+    register_tokens(clients, [group])  # the tokens rode the allocation
     health = getattr(clients, "health", None)
     failed: list[str] = []
     cause: Optional[Exception] = None

@@ -122,6 +122,9 @@ def file_checksum(client, volume: str, bucket: str, key: str) -> dict:
     needs no codec (and no torch)."""
     info = client.om.lookup_key(volume, bucket, key)
     groups = info.get("block_groups", [])
+    from ozone_tpu_torch.client.dn_client import register_tokens
+
+    register_tokens(client.clients, groups)  # READ tokens from the lookup
     repl = ReplicationConfig.parse(info.get("replication") or "rs-6-3-1024k")
     ctype = ChecksumType(info.get("checksum_type", "CRC32C"))
     poly = _POLYS.get(ctype)

@@ -20,8 +20,11 @@ make), the verb runs over the RPC, as in the reference, but every such
 call is counted in `datapath.native_fallbacks` and the first is logged.
 A failed connect makes the next call discover again, so a restarted
 datanode's new sidecar is found. `OZONE_TPU_NATIVE_DATAPATH=0`, or
-`native=False`, keeps the client on the RPC (not counted). The reference's partition checks and
-block tokens are not ported yet.
+`native=False`, keeps the client on the RPC (not counted). Each stream's
+header carries the block token of its factory's `TokenStore`, which the
+sidecar's auth callback verifies once per stream. Left out: the
+reference's partition checks, and its rule that the lane is off under
+TLS (TLS, with the KMS, is the next slice).
 
 Frames (must match `csrc/datapath.cpp`): u32 length | u8 tag | body,
 little-endian; checksums travel as the u32 values of the stored
@@ -179,8 +182,8 @@ class _Conn:
 
 class NativeDatanodeClient(RpcDatanodeClient):
     def __init__(self, dn_id: str, address: str,
-                 native: Optional[bool] = None):
-        super().__init__(dn_id, address)
+                 native: Optional[bool] = None, tokens=None):
+        super().__init__(dn_id, address, tokens=tokens)
         #: the native lane is asked for: `native`, or the environment's
         self._np_enabled = enabled() if native is None else native
         self._np_port: Optional[int] = None
@@ -299,7 +302,7 @@ class NativeDatanodeClient(RpcDatanodeClient):
         """One write stream over the native lane; False (counted) when the
         listener cannot be reached, for the caller to take the RPC."""
         meta = {"op": "write", "block_id": block_id.to_json(),
-                "sync": bool(sync)}
+                "sync": bool(sync), **self._btok(block_id)}
         if writer is not None:
             meta["writer"] = writer
         if commit is not None:
@@ -381,7 +384,8 @@ class NativeDatanodeClient(RpcDatanodeClient):
         conn = self._connect(port, verb)
         if conn is None:
             return None
-        hdr = json.dumps({"op": "read", "block_id": block_id.to_json()},
+        hdr = json.dumps({"op": "read", "block_id": block_id.to_json(),
+                          **self._btok(block_id)},
                          separators=(",", ":")).encode()
         # the whole answer (DATA frames and the closing STATUS) lands in
         # one pooled lease; the chunks are views at their frame offsets,

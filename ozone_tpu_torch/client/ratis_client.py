@@ -18,7 +18,10 @@ import logging
 from typing import Optional
 
 from ozone_tpu_torch.client import resilience
-from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+from ozone_tpu_torch.client.dn_client import (
+    DatanodeClientFactory,
+    register_tokens,
+)
 from ozone_tpu_torch.client.ec_writer import BlockGroup, StripeWriteError
 from ozone_tpu_torch.client.replicated import ReplicatedKeyWriter
 from ozone_tpu_torch.net.ratis_service import RatisClientFactory
@@ -170,10 +173,15 @@ class RatisKeyWriter(ReplicatedKeyWriter):
         return ok
 
     def _create_containers(self, group: BlockGroup) -> None:
+        # the data phase's fan-out to every member needs the tokens too
+        register_tokens(self.clients, [group])
         try:
             x = self._xceiver(group)
-            out = x.submit({"verb": "create_container",
-                            "container_id": group.container_id})
+            req = {"verb": "create_container",
+                   "container_id": group.container_id}
+            if group.container_token is not None:
+                req["container_token"] = group.container_token
+            out = x.submit(req)
             # the data phase writes chunks straight to every member: the
             # container must exist everywhere before bytes arrive, so wait
             # for the create to apply on all replicas (short timeout — a
@@ -190,15 +198,17 @@ class RatisKeyWriter(ReplicatedKeyWriter):
 
     def _commit_chunk(self, group: BlockGroup, info: ChunkInfo) -> None:
         x = self._xceiver(group)
+        tok = {"token": group.token} if group.token is not None else {}
         x.submit({
             "verb": "write_chunk_commit",
             "block_id": group.block_id.to_json(),
             "offset": info.offset,
             "length": info.length,
+            **tok,
         })
         bd = BlockData(group.block_id, [*self._chunks, info])
         out = x.submit({"verb": "put_block", "block": bd.to_json(),
-                        "writer": self._writer_id})
+                        "writer": self._writer_id, **tok})
         self._last_index = int(out.get("index", 0))
 
     def _finalize_group(self) -> None:

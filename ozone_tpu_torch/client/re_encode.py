@@ -28,6 +28,7 @@ from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.client.dn_client import (
     DatanodeClientFactory,
     build_chunk_pairs,
+    register_tokens,
     write_unit_stream,
 )
 from ozone_tpu_torch.client.ec_writer import (
@@ -89,6 +90,7 @@ def re_encode_key_to_ec(
     device = resolve_device(device)
     info = om.lookup_key(volume, bucket, key)
     old_groups = om.key_block_groups(info)
+    register_tokens(clients, old_groups)  # READ tokens from the lookup
     repl = ReplicationConfig.parse(info["replication"])
     if repl.type is ReplicationType.EC:
         if repl.ec.codec == "xor":
@@ -204,6 +206,7 @@ def re_encode_xor_key_to_rs(
     device = resolve_device(device)
     info = om.lookup_key(volume, bucket, key)
     old_groups = om.key_block_groups(info)
+    register_tokens(clients, old_groups)  # READ tokens from the lookup
     src = ReplicationConfig.parse(info["replication"])
     dst = ReplicationConfig.parse(ec)
     if src.type is not ReplicationType.EC or src.ec.codec != "xor":

@@ -23,7 +23,10 @@ from typing import Callable, Optional
 import numpy as np
 
 from ozone_tpu_torch.client import resilience
-from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+from ozone_tpu_torch.client.dn_client import (
+    DatanodeClientFactory,
+    register_tokens,
+)
 from ozone_tpu_torch.client.ec_writer import (
     BlockGroup,
     StripeWriteError,
@@ -295,6 +298,7 @@ class ReplicatedKeyReader:
                  verify: bool = True):
         self.group = group
         self.clients = clients
+        register_tokens(clients, [group])  # READ tokens from the lookup
         self.verify = verify
         self._health = getattr(clients, "health", None) \
             or resilience.default_registry()

@@ -18,12 +18,15 @@ cluster-rooted filesystem (gateway/fs.py:RootedOzoneFileSystem):
          keys are immutable on the datapath), TRUNCATE (newlength=)
   DELETE DELETE (recursive=, skiptrash=)
 
+  GET    GETACLSTATUS (the native ACL grants in Hadoop's AclEntry
+         grammar), CHECKACCESS (?fsaction=rwx, the OM's authorizer)
+
 Responses follow the WebHDFS JSON schema (FileStatus.type FILE/DIRECTORY,
 modificationTime in ms, RemoteException envelope on errors). The verbs
-that need ACLs (GETACLSTATUS, CHECKACCESS) or snapshots (CREATESNAPSHOT,
-RENAMESNAPSHOT, DELETESNAPSHOT, GETSNAPSHOTDIFF) answer 501 with an
-UnsupportedOperationException: neither is ported yet, as the port's S3
-gateway answers `?acl` with 501.
+that need snapshots (CREATESNAPSHOT, RENAMESNAPSHOT, DELETESNAPSHOT,
+GETSNAPSHOTDIFF) answer 501 with an UnsupportedOperationException:
+snapshots are not ported yet. Encrypted buckets (the KMS) and TLS are
+the next slice.
 """
 
 from __future__ import annotations
@@ -171,9 +174,8 @@ class HttpFSGateway:
             }
         }
 
-    #: verbs of modules not ported yet: ACLs and snapshots
+    #: verbs of a module not ported yet: snapshots
     UNSUPPORTED = {
-        ("GET", "GETACLSTATUS"), ("GET", "CHECKACCESS"),
         ("GET", "GETSNAPSHOTDIFF"), ("PUT", "CREATESNAPSHOT"),
         ("PUT", "RENAMESNAPSHOT"), ("DELETE", "DELETESNAPSHOT"),
     }
@@ -377,6 +379,73 @@ class HttpFSGateway:
         h._json(200, {
             "XAttrNames": json.dumps(sorted(self._xattrs_of(path)))
         })
+
+    def _op_get_getaclstatus(self, h, path: str, q) -> None:
+        """GETACLSTATUS: the native ACL grants of the key (or bucket at
+        depth 2) rendered in the WebHDFS AclStatus shape. Entry strings
+        follow Hadoop's AclEntry grammar: ACCESS scope has NO prefix,
+        DEFAULT scope is 'default:'; entry types are limited to
+        user/group/other (native WORLD grants map to 'other')."""
+        st = self.fs.get_file_status(path)  # 404 on missing, first
+        vol, bkt, rest = self.fs._resolve(path)
+        om = self.fs.client.om
+        if bkt and rest:
+            acls = om.get_acls("key", vol, bkt, rest)
+        elif bkt:
+            acls = om.get_acls("bucket", vol, bkt)
+        else:
+            acls = om.get_acls("volume", vol)
+        entries = []
+        for g in acls:
+            prefix = "default:" if g.get("scope") == "DEFAULT" else ""
+            gtype = g.get("type", "user").lower()
+            name = g.get("name", "")
+            if gtype not in ("user", "group"):
+                gtype, name = "other", ""  # WORLD and friends
+            # native rights (r/w/l/...) condense to the rwx triad
+            rights = "".join(g.get("rights", []))
+            perm = ("r" if any(c in rights for c in "rl") else "-") + \
+                   ("w" if any(c in rights for c in "wcd") else "-") + "-"
+            entries.append(f"{prefix}{gtype}:{name}:{perm}")
+        fj = _status_json(st)
+        h._json(200, {"AclStatus": {
+            "owner": fj["owner"],
+            "group": fj["group"],
+            "permission": fj["permission"],
+            "stickyBit": False,
+            "entries": entries,
+        }})
+
+    def _op_get_checkaccess(self, h, path: str, q) -> None:
+        """CHECKACCESS (?fsaction=rwx): 200 when the caller holds the
+        asked rights, AccessControlException otherwise."""
+        action = q.get("fsaction", ["r--"])[0]
+        user = q.get("user.name", [None])[0]
+        vol, bkt, rest = self.fs._resolve(path)
+        if not vol:
+            raise OSError(f"no volume in path {path!r}")
+        self.fs.get_file_status(path)  # 404 on missing
+        om = self.fs.client.om
+        try:
+            wanted = []
+            if "r" in action:
+                wanted.append("READ")
+            if "w" in action:
+                wanted.append("WRITE")
+            if "x" in action:
+                wanted.append("LIST")
+            for right in wanted:
+                om.check_access(vol, bkt or None, rest or None, right,
+                                user=user)
+        except (OMError, StorageError) as e:
+            # PERMISSION_DENIED locally; the same code rides the rpc
+            # detail as a StorageError from a remote OM
+            if "PERMISSION_DENIED" not in str(e):
+                raise
+            h._json(*self._exception(403, "AccessControlException",
+                                     str(e)))
+            return
+        h._reply(200)
 
     def _op_get_getfileblocklocations(self, h, path: str, q) -> None:
         """GETFILEBLOCKLOCATIONS (?offset=&length=): the key's block

@@ -19,16 +19,27 @@ the body is read and bounds the requests in flight; a refusal answers
 Bucket `?lifecycle` PUT, GET and DELETE translate the AWS
 LifecycleConfiguration XML to and from the OM's rules
 (`lifecycle/policy.py`, the reference's tiering extension; warm storage
-classes map to this gateway's RS scheme). Where the reference answers
-from a module the port does not have yet, the gateway answers as Apache
-Ozone 1.5 does: bucket and object `?acl` and `?replication` answer 501
-NotImplemented; no bucket is
-public, so an anonymous request under require_auth is refused (403);
-every access id maps to the `s3v` volume (no tenants); and aws-chunked
-uploads are not gated on the `S3_CHUNKED_UPLOAD` layout feature, which
-the reference reads from the OM's upgrade status (the port has no
-finalizer, so the feature is always finalized). The wire
-protocol (paths, query verbs, XML bodies, ETags) follows S3.
+classes map to this gateway's RS scheme).
+
+Tenants (the reference's OMMultiTenantManager): an authenticated access
+id resolves to its tenant's volume, which is the request's bucket
+namespace (cached for 60 s); other access ids and anonymous requests
+use `s3v`. Admission charges the resolved volume, so a tenant's access
+ids share one budget. Bucket `?acl` GET and PUT (a canned `x-amz-acl`
+or an AccessControlPolicy body) keep the S3 grants on the bucket row;
+under require_auth an anonymous GET or HEAD passes where the bucket
+grants READ to everyone (`*`), and a mutation where it grants WRITE
+(`_anonymous_allowed`); everything else anonymous is refused (403).
+Object `?acl` GET renders the effective policy (owner FULL_CONTROL and
+the bucket's public grants); object grants do not exist, so its PUT
+answers 501, as the reference's does. Where the reference answers from a
+module the port does not have yet, the gateway answers as Apache Ozone
+1.5 does: bucket `?replication` answers 501 NotImplemented (geo
+replication), and aws-chunked uploads are not gated on the
+`S3_CHUNKED_UPLOAD` layout feature, which the reference reads from the
+OM's upgrade status (the port has no finalizer, so the feature is always
+finalized). Encrypted buckets (the KMS) and TLS are the next slice. The
+wire protocol (paths, query verbs, XML bodies, ETags) follows S3.
 """
 
 from __future__ import annotations
@@ -90,10 +101,9 @@ _ERROR_MAP = {
 }
 
 #: bucket sub-resources answered 501: S3 features the store lacks, and
-#: `acl` and `replication`, which wait for the port of the OM's ACLs and
-#: geo replication
+#: `replication`, which waits for the port of geo replication
 _UNSUPPORTED_BUCKET_SUBS = (
-    "acl", "replication", "policy", "website", "cors",
+    "replication", "policy", "website", "cors",
     "encryption", "accelerate", "requestPayment", "logging", "notification",
     "inventory", "analytics", "metrics", "intelligent-tiering",
     "ownershipControls", "publicAccessBlock")
@@ -183,6 +193,13 @@ class S3Gateway:
             client.om.create_volume(S3_VOLUME)
         except _OM_ERRORS:
             pass
+        # the request's bucket namespace: s3v, or the authenticated
+        # access id's tenant volume; each request runs on its own thread
+        self._request_ctx = threading.local()
+        #: access id -> (volume, expiry): tenant assignment is rare, so a
+        #: short cache keeps a request at one OM round trip (the secret)
+        self._tenant_cache: dict = {}
+        self._tenant_cache_ttl_s = 60.0
         gateway = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -322,6 +339,37 @@ class S3Gateway:
             secret, method, u.path, u.query, headers, parsed=parsed,
             max_skew_s=self.max_clock_skew_s or None)
 
+    def _public_grants(self, bucket: str) -> set:
+        try:
+            acl = self.client.om.get_bucket_acl(self._vol, bucket)
+        except _OM_ERRORS:
+            return set()
+        return {g.get("permission") for g in acl if g.get("grantee") == "*"}
+
+    def _anonymous_allowed(self, method: str, bucket: str) -> bool:
+        """An anonymous request passes where the bucket grants everyone
+        the right: READ for GET and HEAD, WRITE for the rest."""
+        grants = self._public_grants(bucket)
+        if "FULL_CONTROL" in grants:
+            return True
+        if method in ("GET", "HEAD"):
+            return "READ" in grants
+        return "WRITE" in grants
+
+    @property
+    def _vol(self) -> str:
+        return getattr(self._request_ctx, "volume", S3_VOLUME)
+
+    def _volume_for(self, access_id: str) -> str:
+        now = time.monotonic()
+        hit = self._tenant_cache.get(access_id)
+        if hit is not None and hit[1] > now:
+            return hit[0]
+        tenant = self.client.om.tenant_for_access_id(access_id)
+        vol = tenant["volume"] if tenant is not None else S3_VOLUME
+        self._tenant_cache[access_id] = (vol, now + self._tenant_cache_ttl_s)
+        return vol
+
     def _vhost_bucket(self, h) -> Optional[str]:
         """The bucket of virtual-host-style addressing, Host =
         <bucket>.<domain> (the port is ignored; the bare domain stays
@@ -343,20 +391,26 @@ class S3Gateway:
             parts = [vbucket] + parts
         try:
             principal = self._authenticate(h, method)
+            self._request_ctx.volume = (
+                self._volume_for(principal) if principal is not None
+                else S3_VOLUME)
             if principal is None and self.require_auth:
-                # no bucket is public: an anonymous request is refused
-                h._body()
-                h._reply(*_err("AccessDenied", "anonymous access", 403))
-                return
-            # every access id maps to the s3v volume: one tenant; looked
-            # up per request so reset_for_tests() re-reads the knobs
+                # anonymous: only where the bucket's public grants allow
+                if not (parts and self._anonymous_allowed(method, parts[0])):
+                    h._body()
+                    h._reply(*_err("AccessDenied", "anonymous access", 403))
+                    return
+            # the admission key is the resolved volume: a tenant's access
+            # ids share its budget (and the untenanted world shares s3v);
+            # looked up per request so reset_for_tests() re-reads knobs
+            tenant = self._vol
             ctl = admission.controller("gateway")
-            with admission.tenant_context(S3_VOLUME):
+            with admission.tenant_context(tenant):
                 # charge by the declared length before reading the body:
                 # a refusal must cost less than the work it sheds
                 nbytes = (int(h.headers.get("Content-Length") or 0)
                           if method in ("PUT", "POST") else 0)
-                ctl.charge(S3_VOLUME, nbytes,
+                ctl.charge(tenant, nbytes,
                            priority=admission.ambient_qos())
                 with ctl.admit():
                     if not parts:
@@ -420,10 +474,10 @@ class S3Gateway:
             except LifecycleError as e:
                 h._reply(*_err("MalformedXML", str(e), 400))
                 return
-            om.set_bucket_lifecycle(S3_VOLUME, bucket, rules)
+            om.set_bucket_lifecycle(self._vol, bucket, rules)
             h._reply(200)
         elif method == "GET":
-            rules = om.get_bucket_lifecycle(S3_VOLUME, bucket)
+            rules = om.get_bucket_lifecycle(self._vol, bucket)
             if not rules:
                 h._reply(*_err(
                     "NoSuchLifecycleConfiguration",
@@ -432,7 +486,7 @@ class S3Gateway:
             h._reply(200, rules_to_s3_xml(rules),
                      {"Content-Type": "application/xml"})
         elif method == "DELETE":
-            om.delete_bucket_lifecycle(S3_VOLUME, bucket)
+            om.delete_bucket_lifecycle(self._vol, bucket)
             h._reply(204)
         else:
             h._reply(*_err("MethodNotAllowed", method, 405))
@@ -440,7 +494,7 @@ class S3Gateway:
     def _list_buckets(self, h) -> None:
         root = ET.Element("ListAllMyBucketsResult", xmlns=_NS)
         buckets = ET.SubElement(root, "Buckets")
-        for b in self.client.om.list_buckets(S3_VOLUME):
+        for b in self.client.om.list_buckets(self._vol):
             be = ET.SubElement(buckets, "Bucket")
             ET.SubElement(be, "Name").text = b["name"]
             ET.SubElement(be, "CreationDate").text = str(b.get("created", ""))
@@ -453,20 +507,128 @@ class S3Gateway:
         if method in ("PUT", "POST", "DELETE"):
             h._body()
         if key is None:
-            self.client.om.bucket_info(S3_VOLUME, bucket)
+            self.client.om.bucket_info(self._vol, bucket)
         else:
-            self.client.om.lookup_key(S3_VOLUME, bucket, key)
+            self.client.om.lookup_key(self._vol, bucket, key)
         h._reply(*_err("NotImplemented", f"{what} is not supported", 501))
+
+    _CANNED_ACLS = {
+        "private": [],
+        "public-read": [{"grantee": "*", "permission": "READ"}],
+        "public-read-write": [
+            {"grantee": "*", "permission": "READ"},
+            {"grantee": "*", "permission": "WRITE"},
+        ],
+    }
+
+    def _bucket_acl_op(self, h, method: str, bucket: str) -> None:
+        """Bucket `?acl` (BucketEndpoint's get and put ACL): the S3 grants
+        on the bucket row."""
+        om = self.client.om
+        if method == "GET":
+            acl = om.get_bucket_acl(self._vol, bucket)
+            root = ET.Element("AccessControlPolicy", xmlns=_NS)
+            owner = ET.SubElement(root, "Owner")
+            ET.SubElement(owner, "ID").text = "owner"
+            grants = ET.SubElement(root, "AccessControlList")
+            for g in acl or [{"grantee": "owner",
+                              "permission": "FULL_CONTROL"}]:
+                ge = ET.SubElement(grants, "Grant")
+                gr = ET.SubElement(ge, "Grantee")
+                ET.SubElement(gr, "ID").text = g["grantee"]
+                ET.SubElement(ge, "Permission").text = g["permission"]
+            h._reply(200, _xml(root), {"Content-Type": "application/xml"})
+        elif method == "PUT":
+            canned = h.headers.get("x-amz-acl")
+            if canned is not None:
+                h._body()
+                if canned not in self._CANNED_ACLS:
+                    h._reply(*_err("InvalidArgument", canned, 400))
+                    return
+                acl = self._CANNED_ACLS[canned]
+            else:
+                try:
+                    acl = self._parse_acl_body(h._body())
+                except (ET.ParseError, KeyError) as e:
+                    h._reply(*_err("MalformedACLError", str(e), 400))
+                    return
+            om.set_bucket_acl(self._vol, bucket, acl)
+            h._reply(200)
+        else:
+            h._body()
+            h._reply(*_err("MethodNotAllowed", method, 405))
+
+    @staticmethod
+    def _parse_acl_body(body: bytes) -> list[dict]:
+        acl = []
+        if not body:
+            return acl
+        for ge in ET.fromstring(body).iter():
+            if ge.tag.rpartition("}")[2] != "Grant":
+                continue
+            fields = {c.tag.rpartition("}")[2]: c for c in ge}
+            grantee = fields.get("Grantee")
+            gid = ""
+            if grantee is not None:
+                for c in grantee:
+                    if c.tag.rpartition("}")[2] in ("ID", "URI"):
+                        gid = (c.text or "").rpartition("/")[2]
+            if gid in ("AllUsers",):
+                gid = "*"
+            acl.append({
+                "grantee": gid,
+                "permission": (fields["Permission"].text or "").strip(),
+            })
+        return acl
+
+    def _object_acl(self, h, method: str, bucket: str, key: str) -> None:
+        """Object `?acl`: object grants do not exist (as in the
+        reference), so GET renders the effective policy (owner
+        FULL_CONTROL and the bucket's public grants) and PUT answers 501
+        instead of accepting grants that could never be enforced."""
+        if method == "GET":
+            self.client.om.lookup_key(self._vol, bucket, key)  # 404s
+            root = ET.Element("AccessControlPolicy", xmlns=_NS)
+            owner = ET.SubElement(root, "Owner")
+            ET.SubElement(owner, "ID").text = "ozone"
+            acl = ET.SubElement(root, "AccessControlList")
+
+            def grant(grantee, perm):
+                g = ET.SubElement(acl, "Grant")
+                ge = ET.SubElement(g, "Grantee")
+                xsi = "{http://www.w3.org/2001/XMLSchema-instance}type"
+                if grantee == "*":
+                    # the AWS Group shape: clients spot public access by
+                    # the AllUsers URI
+                    ge.set(xsi, "Group")
+                    ET.SubElement(ge, "URI").text = (
+                        "http://acs.amazonaws.com/groups/global/AllUsers")
+                else:
+                    ge.set(xsi, "CanonicalUser")
+                    ET.SubElement(ge, "ID").text = grantee
+                ET.SubElement(g, "Permission").text = perm
+
+            grant("ozone", "FULL_CONTROL")
+            for p in sorted(self._public_grants(bucket)):
+                grant("*", p)
+            h._reply(200, _xml(root), {"Content-Type": "application/xml"})
+        elif method == "PUT":
+            h._body()
+            h._reply(*_err("NotImplemented",
+                           "object ACLs are bucket-derived", 501))
+        else:
+            h._body()
+            h._reply(*_err("MethodNotAllowed", method, 405))
 
     def _bucket_op(self, h, method: str, bucket: str, q) -> None:
         om = self.client.om
         if "acl" in q:
-            self._not_implemented(h, method, bucket, "bucket acl")
+            self._bucket_acl_op(h, method, bucket)
             return
         if "tagging" in q:
             # object tagging is served, bucket tagging is not: answer the
             # AWS way instead of a ListBucketResult
-            om.bucket_info(S3_VOLUME, bucket)  # 404 on a missing bucket
+            om.bucket_info(self._vol, bucket)  # 404 on a missing bucket
             if method == "GET":
                 h._reply(*_err("NoSuchTagSet",
                                "no tag set on this bucket", 404))
@@ -477,19 +639,19 @@ class S3Gateway:
             return
         if method == "GET" and "location" in q:
             # the SDKs' handshake: one region
-            om.bucket_info(S3_VOLUME, bucket)
+            om.bucket_info(self._vol, bucket)
             root = ET.Element("LocationConstraint", xmlns=_NS)
             root.text = "us-east-1"
             h._reply(200, _xml(root), {"Content-Type": "application/xml"})
             return
         if method == "PUT" and "versioning" in q:
-            om.bucket_info(S3_VOLUME, bucket)
+            om.bucket_info(self._vol, bucket)
             # not wired to object versions: fail loudly, not a silent 200
             h._reply(*_err("NotImplemented",
                            "bucket versioning is not supported", 501))
             return
         if method == "GET" and "versioning" in q:
-            info = om.bucket_info(S3_VOLUME, bucket)
+            info = om.bucket_info(self._vol, bucket)
             root = ET.Element("VersioningConfiguration", xmlns=_NS)
             if info.get("versioning"):
                 ET.SubElement(root, "Status").text = "Enabled"
@@ -510,21 +672,21 @@ class S3Gateway:
                 return
         if method == "PUT":
             try:
-                om.create_bucket(S3_VOLUME, bucket, self.replication)
+                om.create_bucket(self._vol, bucket, self.replication)
             except _OM_ERRORS as e:
                 # S3 answers success when the owner re-creates a bucket
                 if e.code != "BUCKET_ALREADY_EXISTS":
                     raise
             h._reply(200, headers={"Location": f"/{bucket}"})
         elif method == "DELETE":
-            om.delete_bucket(S3_VOLUME, bucket)
+            om.delete_bucket(self._vol, bucket)
             h._reply(204)
         elif method == "GET":
             self._list_objects(h, bucket, q)
         elif method == "POST" and "delete" in q:
             self._multi_delete(h, bucket)
         elif method == "HEAD":
-            om.bucket_info(S3_VOLUME, bucket)
+            om.bucket_info(self._vol, bucket)
             h._reply(200)
         else:
             h._reply(*_err("MethodNotAllowed", method, 405))
@@ -536,7 +698,7 @@ class S3Gateway:
         delimiter -> CommonPrefixes grouping, key-marker /
         upload-id-marker resume, and max-uploads truncation."""
         om = self.client.om
-        om.bucket_info(S3_VOLUME, bucket)  # NoSuchBucket -> 404
+        om.bucket_info(self._vol, bucket)  # NoSuchBucket -> 404
         prefix = q.get("prefix", [""])[0]
         delim = q.get("delimiter", [""])[0]
         try:
@@ -555,7 +717,7 @@ class S3Gateway:
         # — a superset when the prefix crosses the key/uploadId
         # boundary (key "a" matches prefix "a/"); re-check the key name
         entries = [
-            m for m in om.list_multipart_uploads(S3_VOLUME, bucket, prefix)
+            m for m in om.list_multipart_uploads(self._vol, bucket, prefix)
             if m["name"].startswith(prefix)
         ]
         # AWS ordering: ascending key, then ascending uploadId
@@ -671,7 +833,7 @@ class S3Gateway:
         window = (max_keys + 1) if max_keys else 0
         cursor = after
         while max_keys:  # AWS: MaxKeys=0 returns empty, not truncated
-            keys = om.list_keys(S3_VOLUME, bucket, prefix,
+            keys = om.list_keys(self._vol, bucket, prefix,
                                 start_after=cursor,
                                 limit=window or None)
             for k in keys:
@@ -787,7 +949,7 @@ class S3Gateway:
 
     # ------------------------------------------------------------- objects
     def _bucket_handle(self, bucket: str):
-        return self.client.get_volume(S3_VOLUME).get_bucket(bucket)
+        return self.client.get_volume(self._vol).get_bucket(bucket)
 
     def _object_op(self, h, method: str, bucket: str, key: str, q) -> None:
         if method == "POST" and "uploads" in q:
@@ -801,7 +963,7 @@ class S3Gateway:
         elif method == "GET" and "uploadId" in q:
             self._mpu_list_parts(h, bucket, key, q)
         elif "acl" in q:
-            self._not_implemented(h, method, bucket, "object acl", key)
+            self._object_acl(h, method, bucket, key)
         elif "tagging" in q:
             self._object_tagging(h, method, bucket, key)
         elif method == "PUT":
@@ -855,10 +1017,10 @@ class S3Gateway:
             if bad:
                 h._reply(*_err("InvalidTag", bad, 400))
                 return
-            om.set_key_attrs(S3_VOLUME, bucket, key, {"tags": tags})
+            om.set_key_attrs(self._vol, bucket, key, {"tags": tags})
             h._reply(200)
         elif method == "GET":
-            info = om.lookup_key(S3_VOLUME, bucket, key)
+            info = om.lookup_key(self._vol, bucket, key)
             tags = (info.get("attrs") or {}).get("tags", {})
             root = ET.Element("Tagging", xmlns=_NS)
             ts = ET.SubElement(root, "TagSet")
@@ -869,7 +1031,7 @@ class S3Gateway:
             h._reply(200, _xml(root),
                      {"Content-Type": "application/xml"})
         elif method == "DELETE":
-            om.set_key_attrs(S3_VOLUME, bucket, key, {"tags": None})
+            om.set_key_attrs(self._vol, bucket, key, {"tags": None})
             h._reply(204)
         else:
             h._reply(*_err("MethodNotAllowed", method, 405))
@@ -895,7 +1057,7 @@ class S3Gateway:
             return
         if src is not None:  # CopyObject (ObjectEndpoint.put copyHeader)
             h._body()  # drain any (ignored) request body
-            src_info = self.client.om.lookup_key(S3_VOLUME, src[0], src[1])
+            src_info = self.client.om.lookup_key(self._vol, src[0], src[1])
             data = self._bucket_handle(src[0]).read_key_info(src_info)
             # metadata directive: COPY (default) carries the source
             # object's user metadata; REPLACE takes this request's
@@ -915,7 +1077,7 @@ class S3Gateway:
                 tags = (src_info.get("attrs") or {}).get("tags", {})
             self._bucket_handle(bucket).write_key(key, data, metadata=meta)
             if tags:
-                self.client.om.set_key_attrs(S3_VOLUME, bucket, key,
+                self.client.om.set_key_attrs(self._vol, bucket, key,
                                              {"tags": tags})
             etag = hashlib.md5(data).hexdigest()
             root = ET.Element("CopyObjectResult", xmlns=_NS)
@@ -940,7 +1102,7 @@ class S3Gateway:
             metadata=self._user_metadata(h),
         )
         if tags:
-            self.client.om.set_key_attrs(S3_VOLUME, bucket, key,
+            self.client.om.set_key_attrs(self._vol, bucket, key,
                                          {"tags": tags})
         etag = hashlib.md5(body).hexdigest()
         h._reply(200, headers={"ETag": f'"{etag}"'})
@@ -965,7 +1127,7 @@ class S3Gateway:
 
     def _get_object(self, h, bucket: str, key: str) -> None:
         # one lookup serves metadata headers AND the block list
-        info = self.client.om.lookup_key(S3_VOLUME, bucket, key)
+        info = self.client.om.lookup_key(self._vol, bucket, key)
         bh = self._bucket_handle(bucket)
         meta = self._meta_headers_from(info)
         size = int(info["size"])
@@ -1021,7 +1183,7 @@ class S3Gateway:
         """HEAD must report the real object size in Content-Length with no
         body (S3 semantics; SDKs size objects this way before ranged
         GETs), so the reply is hand-rolled instead of using _reply."""
-        info = self.client.om.lookup_key(S3_VOLUME, bucket, key)
+        info = self.client.om.lookup_key(self._vol, bucket, key)
         h.send_response(200)
         h.send_header("Content-Type", "application/octet-stream")
         h.send_header("Content-Length", str(info["size"]))

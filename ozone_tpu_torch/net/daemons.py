@@ -51,9 +51,23 @@ the background loops; every replica compacts its own raft log. The
 lifecycle sweeper is fenced with the ring's term and runs on the ready
 leader only.
 
-Left out: secure mode and certificate enrolment, block tokens,
-operational state, Recon, the HTTP server, geo replication and its
-cadence, and sharding.
+Block tokens (`ScmOmDaemon(block_tokens=True, insecure_secrets=True)`,
+the reference's hdds.block.token.enabled): the SCM mints and rotates the
+secret keys (through the ring under HA), the OM signs a token onto every
+allocation and lookup, and each datanode verifies them on its three
+lanes (the RPC verbs, the native sidecar, the raft pipelines' Submit)
+with one verifier. A datanode turns the verifier on at the first SCM
+answer that says tokens are on, before it holds any key, so it fails
+closed until the keys arrive; it then signs its own reconstruction and
+replication traffic with an issuer over the keys it imported. The keys
+ride Register and Heartbeat in the clear, so tokens need
+`insecure_secrets=True` until mutual TLS is ported: `secure=True` raises
+and names that later slice. `acl_enabled` turns the OM's native
+authorizer on (the superuser root passes every check).
+
+Left out: mutual TLS and certificate enrolment (with the KMS, the next
+slice), operational state, Recon, the HTTP server, geo replication and
+its cadence, and sharding.
 """
 
 from __future__ import annotations
@@ -93,6 +107,11 @@ from ozone_tpu_torch.storage.reconstruction import (
     ReconstructionCommand,
 )
 from ozone_tpu_torch.storage.scrubber import SCANNABLE_STATES, DeviceScrubber
+from ozone_tpu_torch.utils.security import (
+    BlockTokenIssuer,
+    BlockTokenVerifier,
+    SecretKeyManager,
+)
 
 log = logging.getLogger(__name__)
 
@@ -118,11 +137,16 @@ class DatanodeDaemon:
         # first: a datanode that cannot reach its device refuses to start
         self.device = resolve_device(device)
         self.dn = Datanode(Path(root), dn_id=dn_id)
+        # token verification on every lane: off until the SCM's first
+        # answer says tokens are on, then on before any key arrives
+        self.secrets = SecretKeyManager(generate=False)
+        self.verifier = BlockTokenVerifier(self.secrets, enabled=False)
         #: the native datapath sidecar, or None when it is turned off
         self.datapath: Optional[DatapathSidecar] = None
         try:
             if native_dn.enabled():
-                self.datapath = DatapathSidecar(self.dn, host=host)
+                self.datapath = DatapathSidecar(self.dn, host=host,
+                                                verifier=self.verifier)
                 self.datapath.start()  # raises when it cannot build or bind
             self.server = RpcServer(host, port)
         except BaseException:
@@ -130,14 +154,16 @@ class DatanodeDaemon:
             self.dn.close()
             raise
         self.service = DatanodeRpcService(self.dn, self.server,
-                                          datapath_port=self.advertise)
+                                          datapath_port=self.advertise,
+                                          verifier=self.verifier)
         # raft pipelines (XceiverServerRatis): the raft RPCs and the
         # client's Submit/Watch ride the same RpcServer
         self.raft_rpc = RaftRpcService(self.server)
         self.xceiver_ratis = RatisXceiverServer(
             self.dn, Path(root), self.server.address,
             rpc_service=self.raft_rpc)
-        self.ratis_service = RatisRpcService(self.xceiver_ratis, self.server)
+        self.ratis_service = RatisRpcService(self.xceiver_ratis, self.server,
+                                             verifier=self.verifier)
         self._groups_file = Path(root) / "ratis" / "groups.json"
         self.scm = RemoteScmClient(scm_address)
         self.rack = rack
@@ -186,6 +212,24 @@ class DatanodeDaemon:
     def _register(self) -> None:
         self.scm.register(self.dn.id, self.address, rack=self.rack,
                           capacity_bytes=self._capacity_bytes())
+        self._sync_security()
+
+    def _sync_security(self) -> None:
+        """Take the token posture and keys from the SCM's answers: turn
+        the verifier on at the first answer that says tokens are on (with
+        no key yet every check fails: a request is refused, never served
+        unchecked), import the keys, and sign this node's own repair
+        traffic with them (TokenHelper)."""
+        sec = self.scm.security
+        if not sec.get("block_tokens"):
+            return
+        if not self.verifier.enabled:
+            self.verifier.enabled = True
+            log.info("%s: block-token enforcement on", self.dn.id)
+        if sec.get("secret_keys"):
+            self.secrets.import_keys(sec["secret_keys"])
+            if self.clients.tokens.issuer is None:
+                self.clients.tokens.issuer = BlockTokenIssuer(self.secrets)
 
     def start(self) -> None:
         self.server.start()
@@ -258,6 +302,7 @@ class DatanodeDaemon:
         if report is not None:  # only a delivered report counts
             self._last_report_fp = fp
             self._last_report_t = now
+        self._sync_security()
         first: Optional[BaseException] = None
         for cmd in commands:
             try:
@@ -433,15 +478,40 @@ class ScmOmDaemon:
         device="cuda",
         ha_id: Optional[str] = None,
         ha_peers: Optional[dict[str, str]] = None,
+        block_tokens: bool = False,
+        insecure_secrets: bool = False,
+        secure: bool = False,
+        acl_enabled: bool = False,
     ):
+        if secure:
+            raise ValueError(
+                "secure=True (mutual TLS, the CA and certificate "
+                "enrolment) is not ported yet: it is the next slice, "
+                "encryption at rest and in transit")
+        if block_tokens and not insecure_secrets:
+            raise ValueError(
+                "block_tokens without mutual TLS would hand the signing "
+                "keys to any caller of Register/Heartbeat; pass "
+                "insecure_secrets=True to accept that (mutual TLS is the "
+                "next slice)")
         self.scm = StorageContainerManager(
             min_datanodes=min_datanodes, container_size=container_size,
             placement_seed=placement_seed, stale_after_s=stale_after_s,
-            dead_after_s=dead_after_s, db_path=Path(om_db).parent / "scm.db")
+            dead_after_s=dead_after_s, db_path=Path(om_db).parent / "scm.db",
+            block_tokens=block_tokens)
         self.server = RpcServer(host, port)
         self.scm_service = ScmRpcService(self.scm, self.server)
+        self.scm_service.distribute_secrets = insecure_secrets
         self._wire_pipeline_hooks()
         self.om = OzoneManager(Path(om_db), self.scm, block_size=block_size)
+        if acl_enabled:
+            self.om.enable_acls()
+        if block_tokens:
+            # the first signing key before serving (single node: here;
+            # under HA the leader's replicated key replaces it)
+            if ha_id is None:
+                self.scm.ensure_secret_key()
+            self.om.enable_block_tokens(BlockTokenIssuer(self.scm.secret_keys))
         self.om_service = OmRpcService(
             self.om, self.server,
             addresses_provider=lambda: dict(self.scm_service.addresses),
@@ -485,6 +555,7 @@ class ScmOmDaemon:
         #: seconds between lifecycle sweeps (and slab compactions)
         self._lc_period = env_float("OZONE_TPU_LIFECYCLE_PERIOD_S", 60.0)
         self._lc_last = time.monotonic()
+        self._bg_ticks = 0
         if ha_id is not None:
             self._init_ha(ha_id, Path(om_db).parent / "meta-raft")
 
@@ -607,6 +678,10 @@ class ScmOmDaemon:
             self.ha._await_records, "SCM_NOT_LEADER")
         self.scm_service.admin_submitter = lambda op, target: self._ha_call(
             lambda: self.ha.submit_admin(op, target), "SCM_NOT_LEADER")
+        # a token-key rotation is a replicated decision: every replica's
+        # OM signs with the keys the datanodes verify against
+        self.scm.on_secret_rotate = lambda key: self.ha.submit_admin(
+            "import-secret-key", key.to_json())
 
         def ring_ops(op, target):
             if op == "ring-add":
@@ -648,6 +723,7 @@ class ScmOmDaemon:
         heartbeat-learned address book before each sweep."""
         if self._lifecycle_clients is None:
             self._lifecycle_clients = DatanodeClientFactory()
+            self._lifecycle_clients.tokens.issuer = self.om.token_issuer
         for dn_id, addr in dict(self.scm_service.addresses).items():
             # update, not register: an unchanged address keeps its
             # pooled connection
@@ -679,6 +755,11 @@ class ScmOmDaemon:
         with self.scm_service.lock:
             self.scm.run_background_once()
             self.om.run_key_deleting_service_once()
+        # the expired delegation tokens' sweep (ExpiredTokenRemover) on
+        # the reference's slow cadence: every 60 passes
+        self._bg_ticks += 1
+        if self._bg_ticks % 60 == 0:
+            self.om.run_dtoken_cleanup_once()
         now = time.monotonic()
         if now - self._lc_last >= self._lc_period:
             self._lc_last = now

@@ -9,11 +9,19 @@ on the wire. The client is a drop-in datanode client
 coordinator work unchanged across processes. `GetDatapathInfo` answers
 the native datapath sidecar's port and unix socket
 (`storage/fast_datapath.py`), which `client/native_dn.py` takes for the
-bulk verbs. Left out: block and container tokens, layout-version gating
-and the replication throttle.
+bulk verbs. Every verb is authorized before it touches the container
+store: with the verifier on (a token-enforcing cluster), a block verb
+needs a block token for its block and mode and a container verb a
+container token for its container, or it is refused with
+BLOCK_TOKEN_VERIFICATION_FAILED (the reference's HddsDispatcher
+validateToken). The client attaches the tokens of its factory's
+`TokenStore`. Left out: layout-version gating, the replication
+throttle, and TLS (with the KMS, the next slice).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -29,6 +37,7 @@ from ozone_tpu_torch.storage.ids import (
     ContainerState,
     StorageError,
 )
+from ozone_tpu_torch.utils import security
 from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
 
 SERVICE = "ozone.tpu.DatanodeService"
@@ -38,10 +47,14 @@ _EXPORT_FRAME = 4 * 1024 * 1024
 
 
 class DatanodeRpcService:
-    """The HddsDispatcher boundary: every externally reachable verb."""
+    """The HddsDispatcher boundary: every externally reachable verb, each
+    authorized by `verifier` (a BlockTokenVerifier shared with the native
+    sidecar and the raft pipelines' Submit) before it runs."""
 
-    def __init__(self, dn: Datanode, server: RpcServer, datapath_port=None):
+    def __init__(self, dn: Datanode, server: RpcServer, datapath_port=None,
+                 verifier=None):
         self.dn = dn
+        self.verifier = verifier
         #: callable() -> the native sidecar's advertisement ({"port",
         #: "uds"}) or None: clients discover the native lane through
         #: GetDatapathInfo and take the RPC verbs when it answers no port
@@ -73,6 +86,17 @@ class DatanodeRpcService:
             },
         )
 
+    # ------------------------------------------------------------ token gate
+    def _require_block(self, m: dict, mode: str,
+                       block_id: Optional[BlockID] = None) -> None:
+        security.gate(self.verifier, "rpc", m.get("token"),
+                      block_id=block_id or BlockID.from_json(m["block_id"]),
+                      mode=security.AccessMode(mode))
+
+    def _require_container(self, m: dict, container_id: int) -> None:
+        security.gate(self.verifier, "rpc", m.get("container_token"),
+                      container_id=int(container_id))
+
     def _stream_write_block(self, frames) -> bytes:
         """Streaming block write (the Ratis DataStream path): frame 0 is the
         header {block_id, chunk_size, sync, checksum_type,
@@ -83,6 +107,7 @@ class DatanodeRpcService:
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])
+        self._require_block(header, "WRITE", block_id)
         chunk_size = int(header.get("chunk_size", 4 * 1024 * 1024))
         if chunk_size <= 0:
             raise StorageError("INVALID_ARGUMENT",
@@ -150,6 +175,7 @@ class DatanodeRpcService:
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])
+        self._require_block(header, "WRITE", block_id)
         sync = bool(header.get("sync", False))
         writer = header.get("writer")
         self.dn.metrics.counter("batched_write_streams").inc()
@@ -182,23 +208,27 @@ class DatanodeRpcService:
 
     def _create_container(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_container(m, m["container_id"])
         self.dn.create_container(m["container_id"], m.get("replica_index", 0),
                                  ContainerState(m.get("state", "OPEN")))
         return wire.pack({})
 
     def _close_container(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_container(m, m["container_id"])
         self.dn.close_container(m["container_id"])
         return wire.pack({})
 
     def _delete_container(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_container(m, m["container_id"])
         self.dn.delete_container(m["container_id"], m.get("force", False))
         return wire.pack({})
 
     def _write_chunk(self, req) -> bytes:
         self._count_chunk_call()
         m, payload = wire.unpack(req)
+        self._require_block(m, "WRITE")
         self.dn.write_chunk(BlockID.from_json(m["block_id"]),
                             ChunkInfo.from_json(m["chunk"]),
                             wire.payload_array(payload),
@@ -216,6 +246,7 @@ class DatanodeRpcService:
         )
 
         m, _ = wire.unpack(req)
+        self._require_container(m, m["container_id"])
         c = self.dn.containers.get(int(m["container_id"]))
         if "accept" in m:
             codec = negotiate_codec(m["accept"])
@@ -234,6 +265,11 @@ class DatanodeRpcService:
 
         it = iter(frames)
         m, _ = wire.unpack(next(it))
+        # the authorization names a container id; the packer checks the
+        # tarball is that container before any byte lands
+        expect_id = m.get("container_id")
+        self._require_container(m, expect_id if expect_id is not None
+                                else -1)
         data = b"".join(it)  # one assembly copy
         c = import_container(self.dn, data,
                              replica_index=m.get("replica_index"),
@@ -243,6 +279,7 @@ class DatanodeRpcService:
     def _read_chunk(self, req):
         self._count_chunk_call()
         m, _ = wire.unpack(req)
+        self._require_block(m, "READ")
         data = self.dn.read_chunk(BlockID.from_json(m["block_id"]),
                                   ChunkInfo.from_json(m["chunk"]),
                                   verify=m.get("verify", False))
@@ -254,6 +291,7 @@ class DatanodeRpcService:
         self._count_chunk_call()
         m, _ = wire.unpack(req)
         block_id = BlockID.from_json(m["block_id"])
+        self._require_block(m, "READ", block_id)
         verify = m.get("verify", False)
         self.dn.metrics.counter("batched_read_streams").inc()
         self.dn.metrics.counter("batched_read_chunks").inc(len(m["chunks"]))
@@ -264,42 +302,52 @@ class DatanodeRpcService:
 
     def _put_block(self, req) -> bytes:
         m, _ = wire.unpack(req)
-        self.dn.put_block(BlockData.from_json(m["block"]),
-                          sync=m.get("sync", False), writer=m.get("writer"))
+        bd = BlockData.from_json(m["block"])
+        self._require_block(m, "WRITE", bd.block_id)
+        self.dn.put_block(bd, sync=m.get("sync", False),
+                          writer=m.get("writer"))
         return wire.pack({})
 
     def _get_block(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_block(m, "READ")
         bd = self.dn.get_block(BlockID.from_json(m["block_id"]))
         return wire.pack({"block": bd.to_json()})
 
     def _list_block(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_container(m, m["container_id"])
         blocks = self.dn.list_blocks(m["container_id"])
         return wire.pack({"blocks": [b.to_json() for b in blocks]})
 
     def _committed_len(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_block(m, "READ")
         n = self.dn.get_committed_block_length(BlockID.from_json(m["block_id"]))
         return wire.pack({"length": n})
 
     def _delete_block(self, req) -> bytes:
         m, _ = wire.unpack(req)
+        self._require_block(m, "WRITE")
         self.dn.delete_block(BlockID.from_json(m["block_id"]))
         return wire.pack({})
 
 
 class RpcDatanodeClient:
-    """Remote datanode client (the ECXceiverClientGrpc analog)."""
+    """Remote datanode client (the ECXceiverClientGrpc analog). `tokens`
+    (the factory's `client/dn_client.TokenStore`) supplies the block and
+    container tokens each verb carries; none is attached where it holds
+    none (an insecure cluster ignores them)."""
 
     #: per-verb default timeouts, capped by the ambient operation deadline
     _UNARY_TIMEOUT_S = 30.0
     _STREAM_TIMEOUT_S = 120.0
     _BULK_STREAM_TIMEOUT_S = 300.0
 
-    def __init__(self, dn_id: str, address: str):
+    def __init__(self, dn_id: str, address: str, tokens=None):
         self.dn_id = dn_id
         self.address = address
+        self.tokens = tokens
         self._ch = RpcChannel(address)
 
     def _call(self, method: str, meta: dict,
@@ -309,22 +357,34 @@ class RpcDatanodeClient:
             timeout=resilience.op_timeout(self._UNARY_TIMEOUT_S, method))
         return wire.unpack(resp)
 
+    def _btok(self, block_id: BlockID) -> dict:
+        tok = self.tokens.block_token(block_id) if self.tokens else None
+        return {"token": tok} if tok is not None else {}
+
+    def _ctok(self, container_id: int) -> dict:
+        tok = (self.tokens.container_token(container_id) if self.tokens
+               else None)
+        return {"container_token": tok} if tok is not None else {}
+
     def create_container(self, container_id, replica_index=0,
                          state=ContainerState.OPEN):
         self._call("CreateContainer", {"container_id": container_id,
                                        "replica_index": replica_index,
-                                       "state": state.value})
+                                       "state": state.value,
+                                       **self._ctok(container_id)})
 
     def close_container(self, container_id):
-        self._call("CloseContainer", {"container_id": container_id})
+        self._call("CloseContainer", {"container_id": container_id,
+                                      **self._ctok(container_id)})
 
     def delete_container(self, container_id, force=False):
         self._call("DeleteContainer", {"container_id": container_id,
-                                       "force": force})
+                                       "force": force,
+                                       **self._ctok(container_id)})
 
     def write_chunk(self, block_id, info, data, sync=False, writer=None):
         m = {"block_id": block_id.to_json(), "chunk": info.to_json(),
-             "sync": sync}
+             "sync": sync, **self._btok(block_id)}
         if writer is not None:
             m["writer"] = writer
         self._call("WriteChunk", m, hostmem.as_array(data))
@@ -332,7 +392,7 @@ class RpcDatanodeClient:
     def read_chunk(self, block_id, info, verify=False):
         _, payload = self._call("ReadChunk", {
             "block_id": block_id.to_json(), "chunk": info.to_json(),
-            "verify": verify})
+            "verify": verify, **self._btok(block_id)})
         # a view over the response buffer, no copy
         return wire.payload_array(payload)
 
@@ -343,7 +403,7 @@ class RpcDatanodeClient:
             SERVICE, "ReadChunks",
             wire.pack({"block_id": block_id.to_json(),
                        "chunks": [i.to_json() for i in infos],
-                       "verify": verify}),
+                       "verify": verify, **self._btok(block_id)}),
             timeout=resilience.op_timeout(self._BULK_STREAM_TIMEOUT_S,
                                           "ReadChunks"))
         out = [wire.payload_array(wire.unpack(f)[1]) for f in frames]
@@ -354,26 +414,31 @@ class RpcDatanodeClient:
         return out
 
     def put_block(self, block, sync=False, writer=None):
-        m = {"block": block.to_json(), "sync": sync}
+        m = {"block": block.to_json(), "sync": sync,
+             **self._btok(block.block_id)}
         if writer is not None:
             m["writer"] = writer
         self._call("PutBlock", m)
 
     def get_block(self, block_id):
-        m, _ = self._call("GetBlock", {"block_id": block_id.to_json()})
+        m, _ = self._call("GetBlock", {"block_id": block_id.to_json(),
+                                       **self._btok(block_id)})
         return BlockData.from_json(m["block"])
 
     def list_blocks(self, container_id):
-        m, _ = self._call("ListBlock", {"container_id": container_id})
+        m, _ = self._call("ListBlock", {"container_id": container_id,
+                                        **self._ctok(container_id)})
         return [BlockData.from_json(b) for b in m["blocks"]]
 
     def get_committed_block_length(self, block_id):
         m, _ = self._call("GetCommittedBlockLength",
-                          {"block_id": block_id.to_json()})
+                          {"block_id": block_id.to_json(),
+                           **self._btok(block_id)})
         return m["length"]
 
     def delete_block(self, block_id):
-        self._call("DeleteBlock", {"block_id": block_id.to_json()})
+        self._call("DeleteBlock", {"block_id": block_id.to_json(),
+                                   **self._btok(block_id)})
 
     def export_container(self, container_id: int,
                          compress: bool = True) -> bytes:
@@ -384,7 +449,8 @@ class RpcDatanodeClient:
             SERVICE, "ExportContainer",
             wire.pack({"container_id": container_id, "compress": compress,
                        "accept": (list(available_codecs()) if compress
-                                  else ["none"])}),
+                                  else ["none"]),
+                       **self._ctok(container_id)}),
             timeout=resilience.op_timeout(self._BULK_STREAM_TIMEOUT_S,
                                           "ExportContainer")))
         wire.unpack(next(frames))  # header: {container_id, size, compression}
@@ -397,7 +463,8 @@ class RpcDatanodeClient:
         container."""
         meta = {"replica_index": replica_index}
         if container_id is not None:
-            meta["container_id"] = int(container_id)
+            meta.update(container_id=int(container_id),
+                        **self._ctok(container_id))
         view = memoryview(data)
 
         def frames():
@@ -423,7 +490,8 @@ class RpcDatanodeClient:
             yield wire.pack({"block_id": block_id.to_json(),
                              "chunk_size": chunk_size, "sync": sync,
                              "checksum_type": checksum_type,
-                             "bytes_per_checksum": bytes_per_checksum})
+                             "bytes_per_checksum": bytes_per_checksum,
+                             **self._btok(block_id)})
             # slabs go out as views: the socket sends them as they are
             yield from data_frames
 
@@ -437,7 +505,8 @@ class RpcDatanodeClient:
                             sync=False, writer=None):
         """Write `chunks` ([(ChunkInfo, payload)]) and optionally commit
         `commit` (a BlockData) in one round trip."""
-        meta = {"block_id": block_id.to_json(), "sync": sync}
+        meta = {"block_id": block_id.to_json(), "sync": sync,
+                **self._btok(block_id)}
         if writer is not None:
             meta["writer"] = writer
         if commit is not None:

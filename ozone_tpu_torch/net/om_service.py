@@ -24,15 +24,24 @@ that is not the ready leader answers OM_NOT_LEADER with the leader's
 address),
 `scm_barrier` (an allocation is answered only once its SCM decision
 records are quorum-committed) and `applied_index_fn` (the replica's
-applied index, stamped on answers as `_applied`). Left out: sharding,
-delegation tokens and the caller identity, ACLs, tenants, snapshots,
-quotas and geo replication.
+applied index, stamped on answers as `_applied`).
+
+Security: every verb binds the caller's identity for the OM's ACL
+checks (`_identity`): a presented delegation token (`_dtoken`)
+authenticates its owner, and a bare `_user` / `_groups` is the trusted
+transport's assertion, ignored when a token is present. The client
+sends them from `user_context` and its `token`. The verbs: native ACLs
+(ModifyAcl, GetAcls, CheckAccess), S3 bucket grants (SetBucketAcl,
+GetBucketAcl), tenants and access ids, and the delegation tokens' get,
+renew and cancel; allocations carry their block and container tokens.
+Left out: sharding, snapshots, quotas and geo replication.
 """
 
 from __future__ import annotations
 
 import base64
 import contextlib
+import threading
 from typing import TYPE_CHECKING, Optional
 
 from ozone_tpu_torch.client import resilience
@@ -172,6 +181,39 @@ class OmRpcService:
                 m.get("max_keys"))),
             "SlabCompactionRunNow": w(lambda m: om.run_slab_compaction_once(
                 m.get("max_slabs"))),
+            # S3 bucket grants, native ACLs and tenants (the reference's
+            # AddAcl/RemoveAcl/SetAcl/GetAcl and tenant admin verbs)
+            "SetBucketAcl": w(lambda m: om.set_bucket_acl(
+                m["volume"], m["bucket"], m["acl"])),
+            "GetBucketAcl": w(lambda m: om.get_bucket_acl(m["volume"],
+                                                          m["bucket"])),
+            "ModifyAcl": w(lambda m: om.modify_acl(
+                m["obj_type"], m["volume"], m.get("bucket", ""),
+                m.get("path", ""), m.get("op", "add"), m.get("acls", []))),
+            "CheckAccess": w(lambda m: om.check_access(
+                m["volume"], m.get("bucket"), m.get("key"), m["right"],
+                user=m.get("user"), groups=m.get("groups", ()))),
+            "GetAcls": w(lambda m: om.get_acls(
+                m["obj_type"], m["volume"], m.get("bucket", ""),
+                m.get("path", ""))),
+            "CreateTenant": w(lambda m: om.create_tenant(
+                m["tenant"], m.get("volume", ""), m.get("owner", "root"))),
+            "DeleteTenant": w(lambda m: om.delete_tenant(m["tenant"])),
+            "ListTenants": w(lambda m: om.list_tenants()),
+            "TenantAssignUser": w(lambda m: om.tenant_assign_user(
+                m["tenant"], m["user"], m.get("access_id", ""))),
+            "TenantRevokeAccess": w(lambda m: om.tenant_revoke_access(
+                m["access_id"])),
+            "ListTenantUsers": w(lambda m: om.list_tenant_users(m["tenant"])),
+            "TenantForAccessId": w(lambda m: om.tenant_for_access_id(
+                m["access_id"])),
+            # delegation tokens
+            "GetDelegationToken": w(lambda m: om.get_delegation_token(
+                m["renewer"])),
+            "RenewDelegationToken": w(lambda m: om.renew_delegation_token(
+                m["token"])),
+            "CancelDelegationToken": w(lambda m: om.cancel_delegation_token(
+                m["token"])),
         }
         server.add_service(SERVICE, {n: self._gated(fn)
                                      for n, fn in methods.items()})
@@ -184,11 +226,32 @@ class OmRpcService:
 
         return method
 
+    def _identity(self, m: dict) -> tuple:
+        """The caller of this request. A presented delegation token
+        authenticates it (signature and live row); the bare `_user` and
+        `_groups` fields are the trusted transport's assertion, ignored
+        when a token is present so a field cannot outrank a token. The
+        third element marks a token-authenticated caller, who may not
+        mint further tokens."""
+        tok = m.pop("_dtoken", None)
+        user = m.pop("_user", None)
+        groups = m.pop("_groups", ())
+        if tok is not None:
+            row = self.om.verify_delegation_token(tok)  # raises OMError
+            return row["owner"], (), True
+        return user, groups, False
+
+    def _bound(self, m: dict):
+        """The OM's user context for this request's caller."""
+        user, groups, via_token = self._identity(m)
+        return self.om.user_context(user, groups, via_token=via_token)
+
     def _wrap(self, fn, with_addresses: bool = False):
         def method(req) -> bytes:
             m, _ = wire.unpack(req)
             try:
-                out = fn(m)
+                with self._bound(m):
+                    out = fn(m)
             except OMError as e:
                 raise StorageError(e.code, e.msg)
             resp = {"result": out}
@@ -213,9 +276,11 @@ class OmRpcService:
     def _open_key(self, req) -> bytes:
         m, _ = wire.unpack(req)
         try:
-            s = self.om.open_key(m["volume"], m["bucket"], m["key"],
-                                 m.get("replication"),
-                                 metadata=m.get("metadata"))
+            with self._bound(m):
+                s = self.om.open_key(m["volume"], m["bucket"], m["key"],
+                                     m.get("replication"),
+                                     metadata=m.get("metadata"),
+                                     acls=m.get("acls"))
         except OMError as e:
             raise StorageError(e.code, e.msg)
         return wire.pack({
@@ -238,11 +303,12 @@ class OmRpcService:
             g = self.om.scm.allocate_block(
                 ReplicationConfig.parse(m["replication"]), self.om.block_size,
                 m.get("excluded"), m.get("excluded_containers"))
+        g = self.om.grant_write_tokens(g)
         if self.scm_barrier is not None:
             # HA: the allocation must survive a leader failover before
             # the client writes data against it
             self.scm_barrier()
-        return wire.pack({"group": g.to_json(),
+        return wire.pack({"group": g.to_json(with_tokens=True),
                           "addresses": self.addresses_provider(),
                           "locations": self.locations_provider()})
 
@@ -254,7 +320,7 @@ class OmRpcService:
                 m.get("excluded_containers"))
         if self.scm_barrier is not None:
             self.scm_barrier()
-        return wire.pack({"group": g.to_json(),
+        return wire.pack({"group": g.to_json(with_tokens=True),
                           "addresses": self.addresses_provider(),
                           "locations": self.locations_provider()})
 
@@ -331,16 +397,41 @@ class RemoteOmClient:
     OMFailoverProxyProvider analog): calls stick to the known leader,
     follow OM_NOT_LEADER hints, rotate on an unreachable replica and back
     off on SERVER_BUSY. `clients` (a DatanodeClientFactory) learns the
-    datanode addresses that allocations and lookups carry."""
+    datanode addresses that allocations and lookups carry. Each call
+    carries the caller identity bound by `user_context` (`_user`,
+    `_groups`) and the delegation token the client was built with
+    (`_dtoken`, the authenticated path)."""
 
-    def __init__(self, address: str, clients=None):
+    def __init__(self, address: str, clients=None, token=None):
         self._pool = FailoverChannels(address)
         self.addresses = self._pool.addresses
         self.address = self.addresses[0]
         self.block_size = 16 * 1024 * 1024
         self.clients = clients
+        self._caller = threading.local()
+        self._token = token
+
+    def user_context(self, user, groups=()):
+        """Bind a caller identity to every call this thread makes."""
+
+        @contextlib.contextmanager
+        def _ctx():
+            prev = getattr(self._caller, "identity", None)
+            self._caller.identity = (user, tuple(groups))
+            try:
+                yield
+            finally:
+                self._caller.identity = prev
+
+        return _ctx()
 
     def _call(self, method: str, **meta) -> dict:
+        ident = getattr(self._caller, "identity", None)
+        if ident is not None and ident[0] is not None:
+            meta.setdefault("_user", ident[0])
+            meta.setdefault("_groups", list(ident[1]))
+        if self._token is not None:
+            meta.setdefault("_dtoken", self._token)
         payload = wire.pack(meta)
         # a sweep run now works in the daemon for as long as its budget
         hop_s = _SWEEP_VERB_TIMEOUT_S if method in _SWEEP_VERBS else 30.0
@@ -429,9 +520,11 @@ class RemoteOmClient:
         return self._call("UpgradeStatus")["result"]
 
     # keys
-    def open_key(self, volume, bucket, key, replication=None, metadata=None):
+    def open_key(self, volume, bucket, key, replication=None, metadata=None,
+                 acls=None):
         meta = self._call("OpenKey", volume=volume, bucket=bucket, key=key,
-                          replication=replication, metadata=metadata)
+                          replication=replication, metadata=metadata,
+                          acls=acls)
         self.block_size = meta.get("block_size", self.block_size)
         return RemoteOpenKeySession(volume, bucket, key, meta)
 
@@ -515,6 +608,65 @@ class RemoteOmClient:
 
     def revoke_s3_secret(self, access_id):
         self._call("RevokeS3Secret", access_id=access_id)
+
+    # delegation tokens
+    def get_delegation_token(self, renewer):
+        return self._call("GetDelegationToken", renewer=renewer)["result"]
+
+    def renew_delegation_token(self, token):
+        return self._call("RenewDelegationToken", token=token)["result"]
+
+    def cancel_delegation_token(self, token):
+        self._call("CancelDelegationToken", token=token)
+
+    # S3 bucket grants, native ACLs, tenants
+    def set_bucket_acl(self, volume, bucket, acl):
+        self._call("SetBucketAcl", volume=volume, bucket=bucket, acl=acl)
+
+    def get_bucket_acl(self, volume, bucket):
+        return self._call("GetBucketAcl", volume=volume,
+                          bucket=bucket)["result"]
+
+    def modify_acl(self, obj_type, volume, bucket="", path="", op="add",
+                   acls=None):
+        from ozone_tpu_torch.om.acl import normalize_acls
+
+        return self._call("ModifyAcl", obj_type=obj_type, volume=volume,
+                          bucket=bucket, path=path, op=op,
+                          acls=normalize_acls(acls))["result"]
+
+    def check_access(self, volume, bucket, key, right, user=None,
+                     groups=()):
+        self._call("CheckAccess", volume=volume, bucket=bucket, key=key,
+                   right=right if isinstance(right, str) else right.name,
+                   user=user, groups=list(groups))
+
+    def get_acls(self, obj_type, volume, bucket="", path=""):
+        return self._call("GetAcls", obj_type=obj_type, volume=volume,
+                          bucket=bucket, path=path)["result"]
+
+    def create_tenant(self, tenant, volume="", owner="root"):
+        self._call("CreateTenant", tenant=tenant, volume=volume, owner=owner)
+
+    def delete_tenant(self, tenant):
+        self._call("DeleteTenant", tenant=tenant)
+
+    def list_tenants(self):
+        return self._call("ListTenants")["result"]
+
+    def tenant_assign_user(self, tenant, user, access_id=""):
+        return self._call("TenantAssignUser", tenant=tenant, user=user,
+                          access_id=access_id)["result"]
+
+    def tenant_revoke_access(self, access_id):
+        self._call("TenantRevokeAccess", access_id=access_id)
+
+    def list_tenant_users(self, tenant):
+        return self._call("ListTenantUsers", tenant=tenant)["result"]
+
+    def tenant_for_access_id(self, access_id):
+        return self._call("TenantForAccessId",
+                          access_id=access_id)["result"]
 
     # multipart upload
     def initiate_multipart_upload(self, volume, bucket, key,

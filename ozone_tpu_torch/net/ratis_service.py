@@ -8,8 +8,12 @@ Submit (an ordered write through the local leader), Watch (a commit
 watermark wait) and Info (the leadership and groups probe a client uses
 to find the leader). `RatisRpcService` is the reference's
 `RatisGrpcService` and `RemoteRatisClient` its `GrpcRatisClient`, named
-after the port's `Rpc*` and `Remote*` classes. Left out: the block-token
-check of a proposal (the port has no block tokens yet) and TLS.
+after the port's `Rpc*` and `Remote*` classes. With a verifier on, a
+proposal is token-checked at the leader before it enters the ring
+(followers apply the committed log without checking again, as the
+reference's ContainerStateMachine does): a container create or close
+needs a container token, a chunk commit or block commit a WRITE block
+token. Left out: TLS.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from typing import Optional, Protocol
 
 from ozone_tpu_torch.net import wire
 from ozone_tpu_torch.net.rpc import RpcChannel, RpcServer
+from ozone_tpu_torch.storage.ids import BlockID
 from ozone_tpu_torch.storage.ratis import RatisXceiverServer
+from ozone_tpu_torch.utils import security
 
 log = logging.getLogger(__name__)
 
@@ -28,16 +34,34 @@ SERVICE = "xceiver-ratis"
 
 
 class RatisRpcService:
-    def __init__(self, xceiver: RatisXceiverServer, server: RpcServer):
+    def __init__(self, xceiver: RatisXceiverServer, server: RpcServer,
+                 verifier=None):
         self.xceiver = xceiver
+        #: the datanode's BlockTokenVerifier, shared with its other lanes
+        self.verifier = verifier
         server.add_service(SERVICE, {
             "Submit": self._submit,
             "Watch": self._watch,
             "Info": self._info,
         })
 
+    def _authorize(self, req: dict) -> None:
+        """Token-check a proposal at the leader."""
+        verb = req.get("verb")
+        if verb in ("create_container", "close_container"):
+            security.gate(self.verifier, "ratis", req.get("container_token"),
+                          container_id=int(req["container_id"]))
+        elif verb == "write_chunk_commit":
+            security.gate(self.verifier, "ratis", req.get("token"),
+                          block_id=BlockID.from_json(req["block_id"]))
+        elif verb == "put_block":
+            security.gate(self.verifier, "ratis", req.get("token"),
+                          block_id=BlockID.from_json(
+                              req["block"]["block_id"]))
+
     def _submit(self, request) -> bytes:
         meta, _ = wire.unpack(request)
+        self._authorize(meta.get("request") or {})
         out = self.xceiver.submit(int(meta["pipeline_id"]), meta["request"],
                                   timeout=float(meta.get("timeout", 30.0)))
         return wire.pack(out)

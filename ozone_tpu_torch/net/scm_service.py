@@ -17,7 +17,13 @@ leader's address, `barrier` holds the answer until the decision records
 of an allocation are quorum-committed, `admin_submitter` sends the
 container close through the ring, and `ring_provider` ships the ring's
 addresses on every register and heartbeat answer, which the remote
-client adopts. Left out: secret-key distribution, certificate verbs,
+client adopts. On a token-enforcing SCM every register and heartbeat
+answer says so (`block_tokens`), and carries the live secret keys when
+`distribute_secrets` is on (the reference's SecretKeyProtocol); the
+remote client merges them into `security` for the datanode daemon. The
+operator's `block-token` and `container-token` verbs mint tokens for
+dn-direct tools (`AdminTokenFetcher` is a TokenStore issuer over them).
+Left out: the certificate verbs and TLS (with the KMS, the next slice),
 decommission, the balancer and pipeline verbs.
 """
 
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 from dataclasses import asdict
 from typing import TYPE_CHECKING, Optional
 
@@ -103,6 +110,11 @@ def deserialize_command(d: dict):
 class ScmRpcService:
     def __init__(self, scm: "StorageContainerManager", server: RpcServer):
         self.scm = scm
+        #: secret keys leave the SCM only where the operator allowed it:
+        #: with no mutual TLS (a later slice), any caller of Register or
+        #: Heartbeat could read them and mint its own tokens, so the
+        #: daemon turns this on only under insecure_secrets
+        self.distribute_secrets = False
         #: dn_id -> RPC address, learned at registration
         self.addresses: dict[str, str] = {}
         #: serializes the SCM's state between the RPC workers, the OM's
@@ -153,13 +165,21 @@ class ScmRpcService:
             # a restarted node binds a new port: its pipelines' peers
             # learn the new address
             self.on_register(m["dn_id"])
-        return wire.pack(self._ring_fields())
+        return wire.pack(self._security_fields())
 
-    def _ring_fields(self) -> dict:
-        """The ring's addresses, so datanodes follow a grown ring."""
-        if self.ring_provider is None:
-            return {}
-        return {"ring": list(self.ring_provider())}
+    def _security_fields(self) -> dict:
+        """What every register and heartbeat answer carries: the ring's
+        addresses (datanodes follow a grown ring), whether tokens are
+        enforced, and the secret keys where they may be distributed."""
+        out = {}
+        if self.ring_provider is not None:
+            out["ring"] = list(self.ring_provider())
+        if not self.scm.block_tokens:
+            return out
+        out["block_tokens"] = True
+        if self.distribute_secrets:
+            out["secret_keys"] = self.scm.secret_keys.export_keys()
+        return out
 
     def _heartbeat(self, req) -> bytes:
         m, _ = wire.unpack(req)
@@ -170,7 +190,7 @@ class ScmRpcService:
         book = dict(self.addresses)
         return wire.pack({"commands": [serialize_command(c, book)
                                        for c in cmds],
-                          **self._ring_fields()})
+                          **self._security_fields()})
 
     def _allocate_block(self, req) -> bytes:
         if self.gate is not None:
@@ -230,6 +250,26 @@ class ScmRpcService:
         if op == "safemode-status":
             out = {"safemode": scm.safemode.in_safemode(),
                    **scm.safemode.status()}
+        elif op in ("container-token", "block-token"):
+            # operator tokens for dn-direct debug and repair tools
+            # (SCMSecurityProtocol.getContainerToken); None on an
+            # insecure cluster, so the tools need no mode switch
+            if not scm.block_tokens:
+                out = {"token": None}
+            else:
+                from ozone_tpu_torch.utils.security import (
+                    AccessMode,
+                    BlockTokenIssuer,
+                )
+
+                issuer = BlockTokenIssuer(scm.secret_keys)
+                if op == "container-token":
+                    tok = issuer.issue_container(int(target), owner="admin")
+                else:
+                    tok = issuer.issue(
+                        BlockID.from_json(target),
+                        [AccessMode.READ, AccessMode.WRITE], owner="admin")
+                out = {"token": tok}
         elif op == "container-info":
             try:
                 cid = int(str(target), 0)
@@ -283,6 +323,10 @@ class RemoteScmClient:
     def __init__(self, address: str):
         self._pool = FailoverChannels(address)
         self.addresses = self._pool.addresses
+        #: the security fields of the latest register and heartbeat
+        #: answers ({"block_tokens": bool, "secret_keys": [...]}); the
+        #: datanode daemon drains it into its verifier after each one
+        self.security: dict = {}
 
     def _call(self, method: str, meta: dict,
               timeout: Optional[float] = 30.0) -> dict:
@@ -335,10 +379,20 @@ class RemoteScmClient:
 
     def _follow_ring(self, responses: list[dict]) -> None:
         """Adopt the ring's addresses shipped on the answers, so a
-        datanode follows a metadata ring that grew or shrank online."""
+        datanode follows a metadata ring that grew or shrank online, and
+        merge their security fields (expired keys dropped)."""
         for m in responses:
             if m.get("ring"):
                 self._pool.reconcile(m["ring"])
+            if m.get("block_tokens"):
+                self.security["block_tokens"] = True
+                keys = {k["key_id"]: k
+                        for k in self.security.get("secret_keys", [])}
+                for k in m.get("secret_keys", []):
+                    keys[k["key_id"]] = k
+                now = time.time()
+                self.security["secret_keys"] = [
+                    k for k in keys.values() if k.get("expires", 0) >= now]
 
     def register(self, dn_id: str, address: str, rack: str = "/default-rack",
                  capacity_bytes: int = 0) -> None:
@@ -383,3 +437,27 @@ class RemoteScmClient:
 
     def close(self) -> None:
         self._pool.close()
+
+
+class AdminTokenFetcher:
+    """A TokenStore issuer that fetches operator tokens from the SCM
+    (SCMSecurityProtocol.getContainerToken): dn-direct tools run against
+    a token-enforcing cluster without holding the keys. An insecure SCM
+    answers None and the requests go out with no token."""
+
+    def __init__(self, scm_client: RemoteScmClient):
+        self.scm = scm_client
+
+    def issue(self, block_id, modes=None, owner="admin"):
+        try:
+            return self.scm.admin("block-token",
+                                  block_id.to_json()).get("token")
+        except StorageError:
+            return None
+
+    def issue_container(self, container_id, modes=None, owner="admin"):
+        try:
+            return self.scm.admin("container-token",
+                                  int(container_id)).get("token")
+        except StorageError:
+            return None

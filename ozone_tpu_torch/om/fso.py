@@ -18,10 +18,11 @@ Object ids are allocated in pre_execute on the leader and carried inside
 the request, so a follower's apply on the metadata ring is deterministic
 (the OMClientRequest preExecute/validateAndUpdateCache contract). The
 requests, error codes and rows are the reference's, field for field.
-Left out, as the port's OBS commit and `om/multipart.py` leave them out:
-the snapshots' copy-on-write pre-images of FSO rows (no snapshots in the
-port yet), and the envelope-encryption bundle and explicit ACLs an open
-may carry.
+An open carries the explicit ACLs a caller fixed for the file (as
+`requests.OpenKey` does). Left out, as the port's OBS commit and
+`om/multipart.py` leave them out: the snapshots' copy-on-write pre-images
+of FSO rows (no snapshots in the port yet), and the envelope-encryption
+bundle an open may carry (KMS is a later slice).
 """
 
 from __future__ import annotations
@@ -191,6 +192,8 @@ class OpenFile(OMRequest):
     #: stable identity of this file version (OmKeyInfo objectID) —
     #: rename-carried, overwrite-fresh; snapdiff pairs rows by it
     file_id: str = ""
+    #: explicit ACLs fixed at open (see requests.OpenKey.acls)
+    acls: list = field(default_factory=list)
 
     def pre_execute(self, om) -> None:
         self.created = time.time()
@@ -231,6 +234,8 @@ class OpenFile(OMRequest):
         }
         if self.metadata:
             row["metadata"] = dict(self.metadata)
+        if self.acls:
+            row["acls"] = list(self.acls)
         store.put("open_keys", f"{fk}/{self.client_id}", row)
         return parent
 

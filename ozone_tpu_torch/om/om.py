@@ -19,10 +19,14 @@ listing. Writes go through the request/apply split
 go to the store directly. The key-deleting service hands deleted keys'
 blocks to the SCM's deletion log, and a dead needle's bytes to its
 slab's counters. `prepare` quiesces writes behind a durable marker (the
-HA ring replicates it, `consensus/meta_ring.py`). Left out for later
-slices: ACL checks and the authorizer, tenants, block tokens, encryption
-(TDE/GDPR), sharding, the upgrade finalizer and its layout gate,
-snapshots and geo replication.
+HA ring replicates it, `consensus/meta_ring.py`). Security: the native
+authorizer (`om/acl.py`, on with `enable_acls`) checks the caller bound
+by `user_context` at each verb the reference checks; tenants map S3
+access ids to their volumes; block tokens (`enable_block_tokens`) ride
+every allocation and lookup; delegation tokens (`om/dtokens.py`) are
+got, renewed, cancelled and purged through replicated requests. Left out
+for later slices: encryption (the KMS, TDE and GDPR), sharding, the
+upgrade finalizer and its layout gate, snapshots and geo replication.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import contextlib
 import logging
 import secrets
 import threading
+import time
 import uuid
 from pathlib import Path
 from typing import Any, Optional
@@ -110,6 +115,154 @@ class OzoneManager:
         self.lifecycle = None
         # durable upgrade-quiesce marker (OzoneManagerPrepareState)
         self._prepared = self.store.get("system", "om_prepared") is not None
+        # the native authorizer (ozone.acl.enabled, off by default)
+        self.acl_enabled = False
+        self._authorizer = None
+        self._superusers = {"root"}
+        self._caller = threading.local()
+        #: block-token minting (hdds.block.token.enabled): a daemon
+        #: installs the issuer with enable_block_tokens; None = no tokens
+        self.token_issuer = None
+        # delegation-token lifetimes (the reference's defaults: renew
+        # interval 1 d, max lifetime 7 d; master keys live 30 d)
+        self.dtoken_renew_interval_s = 24 * 3600.0
+        self.dtoken_max_lifetime_s = 7 * 24 * 3600.0
+        self.dtoken_key_lifetime_s = 30 * 24 * 3600.0
+
+    # ----------------------------------------------------------- acl/tenant
+    def enable_acls(self, superusers=("root",)) -> None:
+        from ozone_tpu_torch.om.acl import NativeAuthorizer
+
+        self._superusers = set(superusers)
+        self._authorizer = NativeAuthorizer(self.store, superusers)
+        self.acl_enabled = True
+
+    def user_context(self, user: Optional[str], groups=(),
+                     via_token: bool = False):
+        """Bind the caller's identity for ACL checks on this thread (the
+        gateways and the OM RPC service wrap each request in one; an
+        unbound call runs as the in-process trusted caller). `via_token`
+        records an identity a delegation token authenticated: such a
+        caller may not mint further tokens (get_delegation_token)."""
+
+        @contextlib.contextmanager
+        def _ctx():
+            prev = getattr(self._caller, "identity", None)
+            self._caller.identity = (user, tuple(groups), bool(via_token))
+            try:
+                yield
+            finally:
+                self._caller.identity = prev
+
+        return _ctx()
+
+    def current_user(self) -> tuple[Optional[str], tuple]:
+        ident = getattr(self._caller, "identity", None)
+        return (ident[0], ident[1]) if ident else (None, ())
+
+    def caller_token_authenticated(self) -> bool:
+        ident = getattr(self._caller, "identity", None)
+        return bool(ident and len(ident) > 2 and ident[2])
+
+    def caller_identity_bound(self) -> bool:
+        """True when a transport bound an identity for this call, even an
+        anonymous one: a remote call, not an in-process trusted one."""
+        return getattr(self._caller, "identity", None) is not None
+
+    def check_access(self, volume: str, bucket: Optional[str],
+                     key: Optional[str], right,
+                     user: Optional[str] = None, groups=()) -> None:
+        """Raise ACLDeniedError (an OMError, PERMISSION_DENIED) unless the
+        caller holds `right` (an ACLRight or its name) on the object; a
+        no-op with ACLs off or no identity bound."""
+        if not self.acl_enabled:
+            return
+        if user is None:
+            user, groups = self.current_user()
+        if user is None:
+            return
+        from ozone_tpu_torch.om.acl import ACLDeniedError, ACLRight
+
+        if isinstance(right, str):
+            right = ACLRight[right]
+        with self.metrics.histogram("check_access").time():
+            allowed = self._authorizer.check(volume, bucket, key, user,
+                                             groups, right)
+        if not allowed:
+            path = "/".join(x for x in (volume, bucket, key) if x)
+            self.metrics.counter("acl_denied").inc()
+            raise ACLDeniedError(user, right, path)
+
+    def _check_superuser(self) -> None:
+        if not self.acl_enabled:
+            return
+        user, _ = self.current_user()
+        if user is not None and user not in self._superusers:
+            from ozone_tpu_torch.om.acl import ACLDeniedError, ACLRight
+
+            raise ACLDeniedError(user, ACLRight.CREATE, "<admin>")
+
+    def modify_acl(self, obj_type: str, volume: str, bucket: str = "",
+                   path: str = "", op: str = "add",
+                   acls: Optional[list] = None) -> bool:
+        """Add, remove or set grants; `acls` items are OzoneAcl objects,
+        dicts or CLI strings like `user:alice:rwl[DEFAULT]`."""
+        from ozone_tpu_torch.om.acl import normalize_acls
+
+        self.check_access(volume, bucket or None,
+                          path if (obj_type == "key" and path) else None,
+                          "WRITE_ACL")
+        return self.submit(rq.ModifyAcl(obj_type, volume, bucket, path,
+                                        op, normalize_acls(acls)))
+
+    def get_acls(self, obj_type: str, volume: str, bucket: str = "",
+                 path: str = "") -> list[dict]:
+        self.check_access(volume, bucket or None,
+                          path if (obj_type == "key" and path) else None,
+                          "READ_ACL")
+        table, k = rq._acl_target(self.store, obj_type, volume, bucket, path)
+        row = self.store.get(table, k)
+        if row is None:
+            if table == "prefixes":
+                return []
+            raise rq.OMError(rq.KEY_NOT_FOUND if table == "keys" else
+                             rq.VOLUME_NOT_FOUND if table == "volumes" else
+                             rq.BUCKET_NOT_FOUND, k)
+        return row.get("acls", [])
+
+    def create_tenant(self, tenant: str, volume: str = "",
+                      owner: str = "root") -> None:
+        self._check_superuser()
+        self.submit(rq.CreateTenant(tenant, volume, owner))
+
+    def delete_tenant(self, tenant: str) -> None:
+        self._check_superuser()
+        self.submit(rq.DeleteTenant(tenant))
+
+    def list_tenants(self) -> list[dict]:
+        return [t for _, t in self.store.iterate("tenants")]
+
+    def tenant_assign_user(self, tenant: str, user: str,
+                           access_id: str = "") -> dict:
+        self._check_superuser()
+        return self.submit(rq.AssignUserToTenant(tenant, user, access_id))
+
+    def tenant_revoke_access(self, access_id: str) -> None:
+        self._check_superuser()
+        self.submit(rq.RevokeUserAccessId(access_id))
+
+    def tenant_for_access_id(self, access_id: str) -> Optional[dict]:
+        """The S3 gateway's hook: an authenticated access id's tenant row
+        (its volume is the request's bucket namespace, the reference's
+        OMMultiTenantManager.getTenantVolumeName), or None."""
+        row = self.store.get("tenant_access", access_id)
+        if row is None:
+            return None
+        return self.store.get("tenants", row["tenant"])
+
+    def list_tenant_users(self, tenant: str) -> list[dict]:
+        return [r for _, r in self.store.iterate("tenant_access")
+                if r["tenant"] == tenant]
 
     # ----------------------------------------------------------- requests
     def submit(self, request: rq.OMRequest) -> Any:
@@ -179,9 +332,11 @@ class OzoneManager:
 
     # ----------------------------------------------------------- volumes
     def create_volume(self, volume: str, owner: str = "root") -> None:
+        self._check_superuser()
         self.submit(rq.CreateVolume(volume, owner))
 
     def delete_volume(self, volume: str) -> None:
+        self._check_superuser()
         self.submit(rq.DeleteVolume(volume))
 
     def volume_info(self, volume: str) -> dict:
@@ -197,6 +352,7 @@ class OzoneManager:
     def create_bucket(self, volume: str, bucket: str,
                       replication: str = "rs-6-3-1024k",
                       layout: str = "OBJECT_STORE") -> None:
+        self.check_access(volume, None, None, "CREATE")
         # fail fast on a bad scheme string instead of at the first PUT
         ReplicationConfig.parse(replication)
         self.submit(rq.CreateBucket(volume, bucket, replication, layout))
@@ -204,6 +360,7 @@ class OzoneManager:
     def create_bucket_link(self, src_volume: str, src_bucket: str,
                            volume: str, bucket: str) -> None:
         """A link bucket aliasing the source (`sh bucket link`)."""
+        self.check_access(volume, None, None, "CREATE")
         self.submit(rq.CreateBucket(volume, bucket,
                                     source_volume=src_volume,
                                     source_bucket=src_bucket))
@@ -229,6 +386,7 @@ class OzoneManager:
             volume, bucket = src["volume"], src["bucket"]
 
     def delete_bucket(self, volume: str, bucket: str) -> None:
+        self.check_access(volume, bucket, None, "DELETE")
         self.submit(rq.DeleteBucket(volume, bucket))
 
     def bucket_info(self, volume: str, bucket: str) -> dict:
@@ -250,6 +408,7 @@ class OzoneManager:
         """Filesystem attributes on the bucket row (ofs shows buckets as
         directories; chmod on /volume/bucket lands here)."""
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "WRITE")
         return self.submit(rq.SetBucketAttrs(volume, bucket, attrs))
 
     def list_buckets(self, volume: str) -> list[dict]:
@@ -273,8 +432,10 @@ class OzoneManager:
         key: str,
         replication: Optional[str] = None,
         metadata: Optional[dict] = None,
+        acls: Optional[list] = None,
     ) -> OpenKeySession:
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "CREATE")
         binfo = self.bucket_info(volume, bucket)
         repl = replication or binfo["replication"]
         if replication:
@@ -288,7 +449,8 @@ class OzoneManager:
         client_id = uuid.uuid4().hex[:16]
         if self._is_fso(binfo):
             parent = self.submit(fso.OpenFile(volume, bucket, key, client_id,
-                                              repl, metadata=metadata or {}))
+                                              repl, metadata=metadata or {},
+                                              acls=acls or []))
             name = fso.split_path(key)[-1]
             open_k = f"{fso.dir_key(volume, bucket, parent, name)}/{client_id}"
         else:
@@ -296,7 +458,8 @@ class OzoneManager:
             if legacy:
                 key = rq.normalize_fs_path(key)
             self.submit(rq.OpenKey(volume, bucket, key, client_id, repl,
-                                   metadata=metadata or {}, fs_paths=legacy))
+                                   metadata=metadata or {}, fs_paths=legacy,
+                                   acls=acls or []))
             open_k = f"{key_key(volume, bucket, key)}/{client_id}"
         info = self.store.get("open_keys", open_k)
         self.metrics.counter("keys_opened").inc()
@@ -306,12 +469,55 @@ class OzoneManager:
         self, session: OpenKeySession, excluded: Optional[list[str]] = None,
         excluded_containers: Optional[list[int]] = None,
     ) -> BlockGroup:
-        """SCM block allocation for an open key."""
+        """SCM block allocation for an open key, with its write tokens."""
         with self.scm_lock:
-            return self.scm.allocate_block(
+            g = self.scm.allocate_block(
                 session.replication, self.block_size, excluded,
                 excluded_containers,
             )
+        return self.grant_write_tokens(g)
+
+    # ----------------------------------------------------------- tokens
+    def enable_block_tokens(self, issuer) -> None:
+        """Install the token issuer (hdds.block.token.enabled): every
+        allocation carries write tokens, every lookup fresh read tokens,
+        and the OM's own datanode traffic signs through its clients."""
+        self.token_issuer = issuer
+        if self.clients is not None:
+            self.clients.tokens.issuer = issuer
+
+    def grant_write_tokens(self, g: BlockGroup) -> BlockGroup:
+        """Attach tokens to a fresh allocation (the reference's
+        AllocatedBlock token). READ rides along so the writer can probe
+        committed lengths on its own blocks."""
+        if self.token_issuer is not None:
+            from ozone_tpu_torch.utils.security import AccessMode
+
+            owner = self.current_user()[0] or "client"
+            g.token = self.token_issuer.issue(
+                g.block_id, [AccessMode.READ, AccessMode.WRITE], owner=owner)
+            g.container_token = self.token_issuer.issue_container(
+                g.container_id, owner=owner)
+        return g
+
+    def mint_read_tokens(self, info: dict) -> dict:
+        """Fresh READ tokens on a lookup's block groups (stored key rows
+        never hold tokens)."""
+        if self.token_issuer is None or not info.get("block_groups"):
+            return info
+        from ozone_tpu_torch.utils.security import AccessMode
+
+        owner = self.current_user()[0] or "client"
+        info = dict(info)
+        groups = []
+        for g in info["block_groups"]:
+            g = dict(g)
+            bid = BlockID(int(g["container_id"]), int(g["local_id"]))
+            g["token"] = self.token_issuer.issue(
+                bid, [AccessMode.READ], owner=owner)
+            groups.append(g)
+        info["block_groups"] = groups
+        return info
 
     def commit_key(self, session: OpenKeySession, groups: list[BlockGroup],
                    size: int, hsync: bool = False) -> None:
@@ -411,6 +617,7 @@ class OzoneManager:
 
     def lookup_key(self, volume: str, bucket: str, key: str) -> dict:
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, key, "READ")
         binfo = self.bucket_info(volume, bucket)
         if self._is_fso(binfo):
             info = fso.lookup_file(self.store, volume, bucket, key)
@@ -421,7 +628,7 @@ class OzoneManager:
         if info is None:
             raise rq.OMError(rq.KEY_NOT_FOUND, f"{volume}/{bucket}/{key}")
         self.metrics.counter("key_lookups").inc()
-        return self._join_needle(volume, bucket, info)
+        return self.mint_read_tokens(self._join_needle(volume, bucket, info))
 
     def _join_needle(self, volume: str, bucket: str, info: dict) -> dict:
         """A needle row holds only (slab, offset, length, crc): its lookup
@@ -451,6 +658,7 @@ class OzoneManager:
         `start_after` and capped at `limit`: a bounded store scan on OBS
         buckets, a pruned lexicographic tree walk on FSO buckets."""
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "LIST")
         binfo = self.bucket_info(volume, bucket)  # BUCKET_NOT_FOUND
         if self._is_fso(binfo):
             return fso.walk_files_paged(
@@ -472,6 +680,7 @@ class OzoneManager:
         """Delete a key; `expect_object_id` ("" = unfenced) makes the
         delete conditional on the live row still being that version."""
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, key, "DELETE")
         binfo = self.bucket_info(volume, bucket)
         if self._is_fso(binfo):
             if expect_object_id:
@@ -492,6 +701,7 @@ class OzoneManager:
         """Rename a key; on an FSO bucket a file or a whole directory (one
         row moves)."""
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, key, "WRITE")
         binfo = self.bucket_info(volume, bucket)
         if self._is_fso(binfo):
             self.submit(fso.RenameEntry(volume, bucket, key, new_key))
@@ -509,6 +719,7 @@ class OzoneManager:
         delete them); `preconds` maps attribute -> must-exist, checked in
         the apply."""
         volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, key, "WRITE")
         if self._is_fso(self.bucket_info(volume, bucket)):
             return self.submit(fso.SetEntryAttrs(volume, bucket, key, attrs,
                                                  preconds or {}))
@@ -560,12 +771,108 @@ class OzoneManager:
     def revoke_s3_secret(self, access_id: str) -> None:
         self.submit(rq.RevokeS3Secret(access_id))
 
+    def set_bucket_acl(self, volume: str, bucket: str,
+                       acl: list[dict]) -> None:
+        """Replace a bucket's S3 grants (`?acl`, OMBucketSetAclRequest)."""
+        self.submit(rq.SetBucketAcl(volume, bucket, acl))
+
+    def get_bucket_acl(self, volume: str, bucket: str) -> list[dict]:
+        return self.bucket_info(volume, bucket).get("acl", [])
+
+    # ----------------------------------------------------- delegation tokens
+    def get_delegation_token(self, renewer: str,
+                             owner: Optional[str] = None) -> dict:
+        """A signed delegation token for the current caller (the portable
+        dict: identifier and signature). A caller that a delegation token
+        authenticated is refused: chaining fresh tokens would outlive
+        max_date (Hadoop's AbstractDelegationTokenSecretManager)."""
+        from ozone_tpu_torch.om import dtokens
+
+        if self.caller_token_authenticated():
+            raise rq.OMError(
+                rq.TOKEN_ERROR,
+                "delegation token cannot be issued to a caller "
+                "authenticated by a delegation token")
+        user, _ = self.current_user()
+        owner = owner or user or "root"
+        key = dtokens.current_key(self.store)
+        if key is None:
+            self.submit(rq.NewDTokenMasterKey())
+            key = dtokens.current_key(self.store)
+        now = time.time()
+        ident = {
+            "owner": owner,
+            "renewer": renewer,
+            "real_user": user or owner,
+            "issue": round(now, 3),
+            "max_date": round(now + self.dtoken_max_lifetime_s, 3),
+            "token_id": secrets.token_hex(8),
+            "key_id": key["key_id"],
+        }
+        ident["sig"] = dtokens.sign(bytes.fromhex(key["material"]), ident)
+        expiry = round(min(now + self.dtoken_renew_interval_s,
+                           ident["max_date"]), 3)
+        self.submit(rq.StoreDelegationToken(ident, expiry))
+        return ident
+
+    def renew_delegation_token(self, token: dict) -> float:
+        """Extend the renewable expiry; only the named renewer may (the
+        replicated request checks). Standing in as the renewer is kept
+        for in-process callers: a remote call with no identity bound is
+        refused."""
+        from ozone_tpu_torch.om import dtokens
+
+        try:
+            dtokens.check_signature(self.store, token)
+        except dtokens.DTokenError as e:
+            raise rq.OMError(rq.TOKEN_ERROR, e.msg)
+        user, _ = self.current_user()
+        if user is None and self.caller_identity_bound():
+            raise rq.OMError(
+                rq.TOKEN_ERROR,
+                "renewing a delegation token requires an authenticated "
+                "caller identity")
+        return self.submit(rq.RenewDelegationToken(
+            str(token["token_id"]), user or str(token["renewer"])))
+
+    def cancel_delegation_token(self, token: dict) -> None:
+        from ozone_tpu_torch.om import dtokens
+
+        try:
+            dtokens.check_signature(self.store, token)
+        except dtokens.DTokenError as e:
+            raise rq.OMError(rq.TOKEN_ERROR, e.msg)
+        user, _ = self.current_user()
+        if user is None and self.caller_identity_bound():
+            raise rq.OMError(
+                rq.TOKEN_ERROR,
+                "cancelling a delegation token requires an "
+                "authenticated caller identity")
+        self.submit(rq.CancelDelegationToken(
+            str(token["token_id"]), user or str(token["owner"])))
+
+    def verify_delegation_token(self, token: dict) -> dict:
+        """Authenticate a presented token: its stored row (the owner and
+        renewer that count), or OMError(TOKEN_ERROR)."""
+        from ozone_tpu_torch.om import dtokens
+
+        try:
+            return dtokens.verify(self.store, token)
+        except dtokens.DTokenError as e:
+            raise rq.OMError(rq.TOKEN_ERROR, e.msg)
+
+    def run_dtoken_cleanup_once(self) -> int:
+        """Purge expired tokens and orphaned master keys (the reference's
+        ExpiredTokenRemover)."""
+        return self.submit(rq.PurgeExpiredDTokens())
+
     # ----------------------------------------------------------- small objects
     def set_bucket_smallobj(self, volume: str, bucket: str,
                             enabled: bool = True, inline_max: int = 0,
                             needle_max: int = 0) -> dict:
         """Opt a bucket into (or out of) the small-object path; the
         eligibility check runs in the apply."""
+        self.check_access(volume, bucket, None, "WRITE")
         return self.submit(rq.SetBucketSmallObj(
             volume, bucket, enabled=enabled,
             inline_max=int(inline_max), needle_max=int(needle_max)))
@@ -585,6 +892,7 @@ class OzoneManager:
 
         from ozone_tpu_torch.client.slab import METRICS as SMALLOBJ
 
+        self.check_access(volume, bucket, None, "CREATE")
         conf = self.smallobj_conf(self.bucket_info(volume, bucket))
         if conf is None:
             raise rq.OMError(
@@ -609,6 +917,7 @@ class OzoneManager:
         one request; per-entry rewrite fences are honoured one by one."""
         from ozone_tpu_torch.client.slab import METRICS as SMALLOBJ
 
+        self.check_access(volume, bucket, None, "CREATE")
         out = self.submit(rq.CommitKeys(volume, bucket, slab=slab,
                                         entries=list(entries)))
         SMALLOBJ.counter("commit_batches").inc()
@@ -621,11 +930,12 @@ class OzoneManager:
                             excluded_containers: Optional[list[int]]
                             = None) -> BlockGroup:
         """SCM allocation for a slab block (a slab is not a key: no open
-        session)."""
+        session); the same token grant as allocate_block."""
         with self.scm_lock:
-            return self.scm.allocate_block(
+            g = self.scm.allocate_block(
                 ReplicationConfig.parse(replication), self.block_size,
                 excluded, excluded_containers)
+        return self.grant_write_tokens(g)
 
     def slab_info(self, volume: str, bucket: str, slab_id: str) -> dict:
         row = self.store.get("slabs", slab_key(volume, bucket, slab_id))
@@ -656,12 +966,14 @@ class OzoneManager:
                              rules: list[dict]) -> dict:
         """Install a bucket's lifecycle rules (prefix, age_days, action
         TRANSITION_TO_EC(target) or EXPIRE) on its row."""
+        self.check_access(volume, bucket, None, "WRITE")
         return self.submit(rq.SetBucketLifecycle(volume, bucket, rules))
 
     def get_bucket_lifecycle(self, volume: str, bucket: str) -> list[dict]:
         return self.bucket_info(volume, bucket).get("lifecycle", [])
 
     def delete_bucket_lifecycle(self, volume: str, bucket: str) -> None:
+        self.check_access(volume, bucket, None, "WRITE")
         self.submit(rq.DeleteBucketLifecycle(volume, bucket))
 
     def lifecycle_status(self) -> dict:

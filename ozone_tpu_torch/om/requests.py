@@ -15,12 +15,16 @@ retirement); bucket lifecycle rules and the sweeper's term-fenced
 checkpoint; the hsync-aware commit tail, lease recovery, the OBS and
 LEGACY key rename, link buckets (a bucket row naming its source) and
 filesystem attributes on the bucket row. The multipart requests are in
-`om/multipart.py`, the FSO directory-tree requests in `om/fso.py`. Left
-out for later slices: snapshots (and so their copy-on-write pre-images),
-ACL and tenant verbs, delegation tokens, geo replication, quotas' set
-and repair verbs. `to_json` and `from_json`
-are the reference's wire form for the replicated log (`om/ha.py`,
-`consensus/meta_ring.py`).
+`om/multipart.py`, the FSO directory-tree requests in `om/fso.py`. The
+security requests: native ACL changes on volume, bucket, key and prefix
+rows (`ModifyAcl`, with the OBS/FSO key resolution of `_acl_target`), the
+S3 bucket grants (`SetBucketAcl`), tenants and their access ids, and the
+delegation tokens' master keys, rows, renewals, cancels and purge. Left
+out for later slices: snapshots (and so their copy-on-write pre-images,
+which an ACL change on a key would also keep), the KMS master keys and
+encryption bundles, geo replication, quotas' set and repair verbs.
+`to_json` and `from_json` are the reference's wire form for the
+replicated log (`om/ha.py`, `consensus/meta_ring.py`).
 """
 
 from __future__ import annotations
@@ -61,6 +65,14 @@ NOT_A_DIRECTORY = "NOT_A_DIRECTORY"
 INVALID_REQUEST = "INVALID_REQUEST"
 SMALLOBJ_NOT_SUPPORTED = "SMALLOBJ_NOT_SUPPORTED"
 LIFECYCLE_FENCED = "LIFECYCLE_FENCED"
+PREFIX_NOT_FOUND = "PREFIX_NOT_FOUND"
+TENANT_ALREADY_EXISTS = "TENANT_ALREADY_EXISTS"
+TENANT_NOT_FOUND = "TENANT_NOT_FOUND"
+TENANT_NOT_EMPTY = "TENANT_NOT_EMPTY"
+ACCESS_ID_NOT_FOUND = "ACCESS_ID_NOT_FOUND"
+ACCESS_ID_ALREADY_EXISTS = "ACCESS_ID_ALREADY_EXISTS"
+PERMISSION_DENIED = "PERMISSION_DENIED"
+TOKEN_ERROR = "TOKEN_ERROR"
 
 
 #: request class name -> class, for the replicated log's wire form
@@ -91,17 +103,6 @@ class OMRequest:
         d = dict(d)
         cls = _REQUEST_TYPES[d.pop("type")]
         return cls(**d)
-
-
-def inherit_defaults(parent_acls: list[dict]) -> list[dict]:
-    """DEFAULT grants on the parent become ACCESS grants on a new child
-    (the reference's OzoneAclUtil.inheritDefaultAcls, on the stored JSON
-    form of a grant)."""
-    return [
-        {"type": d["type"], "name": d.get("name", ""),
-         "rights": sorted(d["rights"]), "scope": "ACCESS"}
-        for d in parent_acls if d.get("scope", "ACCESS") == "DEFAULT"
-    ]
 
 
 @dataclass
@@ -165,6 +166,8 @@ class CreateBucket(OMRequest):
         self.created = time.time()
 
     def apply(self, store):
+        from ozone_tpu_torch.om.acl import inherit_defaults
+
         if self.layout not in self.LAYOUTS:
             raise OMError(INVALID_REQUEST,
                           f"unknown bucket layout {self.layout!r}")
@@ -376,6 +379,8 @@ class CommitKey(OMRequest):
             }
         )
         if "acls" not in info:
+            from ozone_tpu_torch.om.acl import inherit_defaults
+
             b = store.get("buckets", bucket_key(self.volume, self.bucket))
             if b is not None:
                 info["acls"] = inherit_defaults(b.get("acls", []))
@@ -482,6 +487,9 @@ class OpenKey(OMRequest):
     fs_paths: bool = False
     #: stable identity of this key version (OmKeyInfo objectID)
     key_id: str = ""
+    #: explicit key ACLs fixed at open (OmKeyArgs acls); empty = the
+    #: commit inherits the bucket's DEFAULT grants
+    acls: list = field(default_factory=list)
 
     def pre_execute(self, om) -> None:
         self.created = time.time()
@@ -508,6 +516,8 @@ class OpenKey(OMRequest):
         }
         if self.metadata:
             row["metadata"] = dict(self.metadata)
+        if self.acls:
+            row["acls"] = list(self.acls)
         if self.fs_paths:
             row["fs_paths"] = True  # the commit materializes parent markers
         store.put("open_keys", f"{kk}/{self.client_id}", row)
@@ -824,6 +834,8 @@ class PutInlineKey(OMRequest):
         self.key_id = uuid.uuid4().hex[:16]
 
     def apply(self, store):
+        from ozone_tpu_torch.om.acl import inherit_defaults
+
         b = store.get("buckets", bucket_key(self.volume, self.bucket))
         if b is None:
             raise OMError(BUCKET_NOT_FOUND,
@@ -882,6 +894,8 @@ class CommitKeys(OMRequest):
         self.key_ids = [uuid.uuid4().hex[:16] for _ in self.entries]
 
     def apply(self, store):  # noqa: C901 - one validate+mutate pass
+        from ozone_tpu_torch.om.acl import inherit_defaults
+
         bk = bucket_key(self.volume, self.bucket)
         b = store.get("buckets", bk)
         if b is None:
@@ -1105,3 +1119,340 @@ class LifecycleCheckpoint(OMRequest):
                 row["stats"] = dict(self.stats)
         store.put("system", "lifecycle_state", row)
         return dict(row)
+
+
+@dataclass
+class SetBucketAcl(OMRequest):
+    """Replace a bucket's ACL grant list (reference: OMBucketSetAclRequest;
+    S3 grants map onto the bucket record)."""
+
+    volume: str
+    bucket: str
+    acl: list[dict] = field(default_factory=list)
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        b["acl"] = self.acl
+        store.put("buckets", k, b)
+
+
+
+# ------------------------------------------------------ native ACLs, tenants
+_OBJ_TABLES = {"volume": "volumes", "bucket": "buckets", "key": "keys"}
+
+
+def _acl_target(store, obj_type: str, volume: str, bucket: str, path: str):
+    """(table, row_key) for an ACL object; prefix rows are created on
+    demand (the reference's prefixTable upserts). Keys resolve through
+    the flat table for OBS buckets and the parent-id-keyed file table for
+    FSO buckets (reference: BucketLayoutAwareOMKeyRequestFactory)."""
+    from ozone_tpu_torch.om import acl as aclmod
+
+    if obj_type == "volume":
+        return "volumes", volume_key(volume)
+    if obj_type == "bucket":
+        return "buckets", bucket_key(volume, bucket)
+    if obj_type == "key":
+        flat = f"/{volume}/{bucket}/{path}"
+        if store.exists("keys", flat):
+            return "keys", flat
+        b = store.get("buckets", bucket_key(volume, bucket))
+        if b is not None and b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+            from ozone_tpu_torch.om import fso
+
+            try:
+                parent_id, name = fso.resolve_parent(store, volume, bucket,
+                                                     path)
+            except OMError:
+                return "keys", flat  # unreachable path -> KEY_NOT_FOUND
+            fk = fso.dir_key(volume, bucket, parent_id, name)
+            if store.exists("files", fk):
+                return "files", fk
+        return "keys", flat
+    if obj_type == "prefix":
+        return "prefixes", aclmod.prefix_key(volume, bucket, path)
+    raise OMError(INVALID_REQUEST, f"unknown acl object type {obj_type}")
+
+
+@dataclass
+class ModifyAcl(OMRequest):
+    """Add/remove/replace native ACL grants on volume/bucket/key/prefix
+    (reference: OM*AddAclRequest / *RemoveAclRequest / *SetAclRequest
+    families + OMPrefixAclRequest)."""
+
+    obj_type: str  # volume | bucket | key | prefix
+    volume: str
+    bucket: str = ""
+    path: str = ""
+    op: str = "add"  # add | remove | set
+    acls: list[dict] = field(default_factory=list)
+
+    def apply(self, store):
+        from ozone_tpu_torch.om import acl as aclmod
+
+        if self.op not in ("add", "remove", "set"):
+            raise OMError(INVALID_REQUEST, f"unknown acl op {self.op!r}")
+        table, k = _acl_target(store, self.obj_type, self.volume,
+                               self.bucket, self.path)
+        row = store.get(table, k)
+        if row is None:
+            if table == "prefixes":
+                row = {"acls": []}
+            else:
+                raise OMError(
+                    {"volumes": VOLUME_NOT_FOUND,
+                     "buckets": BUCKET_NOT_FOUND,
+                     "keys": KEY_NOT_FOUND,
+                     "files": KEY_NOT_FOUND}[table], k)
+        existing = row.get("acls", [])
+        changed = False
+        if self.op == "set":
+            row["acls"] = list(self.acls)
+            changed = True
+        else:
+            fn = aclmod.add_acl if self.op == "add" else aclmod.remove_acl
+            for d in self.acls:
+                existing, ch = fn(existing, aclmod.OzoneAcl.from_json(d))
+                changed = changed or ch
+            row["acls"] = existing
+        if changed:
+            store.put(table, k, row)
+        return changed
+
+
+@dataclass
+class CreateTenant(OMRequest):
+    """Create a tenant backed by its own volume (reference:
+    OMTenantCreateRequest — tenant name == volume unless overridden)."""
+
+    tenant: str
+    volume: str = ""
+    owner: str = "root"
+    created: float = 0.0
+
+    def pre_execute(self, om) -> None:
+        self.created = time.time()
+        if not self.volume:
+            self.volume = self.tenant
+
+    def apply(self, store):
+        if store.exists("tenants", self.tenant):
+            raise OMError(TENANT_ALREADY_EXISTS, self.tenant)
+        vk = volume_key(self.volume)
+        # the tenant volume must be fresh: adopting an existing volume
+        # (s3v, another owner's namespace) would hand the tenant's users
+        # its entire contents (reference OMTenantCreateRequest fails the
+        # same way)
+        if store.exists("volumes", vk):
+            raise OMError(VOLUME_ALREADY_EXISTS,
+                          f"tenant volume {self.volume} already exists")
+        store.put("volumes", vk, {
+            "name": self.volume,
+            "owner": self.owner,
+            "quota_bytes": -1,
+            "created": self.created,
+        })
+        store.put("tenants", self.tenant, {
+            "tenant": self.tenant,
+            "volume": self.volume,
+            "created": self.created,
+        })
+
+
+@dataclass
+class DeleteTenant(OMRequest):
+    tenant: str
+
+    def apply(self, store):
+        if not store.exists("tenants", self.tenant):
+            raise OMError(TENANT_NOT_FOUND, self.tenant)
+        for _, row in store.iterate("tenant_access"):
+            if row["tenant"] == self.tenant:
+                raise OMError(TENANT_NOT_EMPTY,
+                              f"{self.tenant} still has access ids")
+        store.delete("tenants", self.tenant)
+
+
+@dataclass
+class AssignUserToTenant(OMRequest):
+    """Grant a user an S3 access id under a tenant (reference:
+    OMTenantAssignUserAccessIdRequest: accessId = tenant$user, S3 secret
+    minted and stored)."""
+
+    tenant: str
+    user: str
+    access_id: str = ""
+    secret: str = ""
+
+    def pre_execute(self, om) -> None:
+        import secrets as _secrets
+
+        if not self.access_id:
+            self.access_id = f"{self.tenant}${self.user}"
+        if not self.secret:
+            self.secret = _secrets.token_hex(20)
+
+    def apply(self, store):
+        if not store.exists("tenants", self.tenant):
+            raise OMError(TENANT_NOT_FOUND, self.tenant)
+        # never adopt or rotate an existing identity: that would silently
+        # invalidate issued credentials or re-point another tenant's
+        # access id here (reference: TENANT_ACCESS_ID_ALREADY_EXISTS)
+        if store.exists("tenant_access", self.access_id) or \
+                store.exists("s3_secrets", self.access_id):
+            raise OMError(ACCESS_ID_ALREADY_EXISTS, self.access_id)
+        store.put("tenant_access", self.access_id, {
+            "access_id": self.access_id,
+            "tenant": self.tenant,
+            "user": self.user,
+        })
+        store.put("s3_secrets", self.access_id, {
+            "access_id": self.access_id,
+            "secret": self.secret,
+        })
+        return {"access_id": self.access_id, "secret": self.secret}
+
+
+@dataclass
+class RevokeUserAccessId(OMRequest):
+    access_id: str
+
+    def apply(self, store):
+        if not store.exists("tenant_access", self.access_id):
+            raise OMError(ACCESS_ID_NOT_FOUND, self.access_id)
+        store.delete("tenant_access", self.access_id)
+        store.delete("s3_secrets", self.access_id)
+
+
+# ---------------------------------------------------- delegation tokens
+@dataclass
+class NewDTokenMasterKey(OMRequest):
+    """Install a delegation-token master key (reference: the
+    OzoneDelegationTokenSecretManager rolling its master key and
+    persisting it through OMUpdateDelegationTokenRequest so every HA
+    replica signs/verifies identically). The leader mints material in
+    pre_execute; apply installs it verbatim — deterministic on replicas."""
+
+    key_id: str = ""
+    material: str = ""
+    created: float = 0.0
+    expires: float = 0.0
+    if_absent: bool = True
+
+    def pre_execute(self, om) -> None:
+        import secrets as _secrets
+
+        self.key_id = _secrets.token_hex(8)
+        self.material = _secrets.token_bytes(32).hex()
+        self.created = time.time()
+        self.expires = self.created + om.dtoken_key_lifetime_s
+
+    def apply(self, store):
+        from ozone_tpu_torch.om import dtokens
+
+        if self.if_absent:
+            cur = dtokens.current_key(store, now=self.created)
+            if cur is not None:
+                return cur["key_id"]
+        store.put("dtoken_keys", self.key_id, {
+            "key_id": self.key_id,
+            "material": self.material,
+            "created": self.created,
+            "expires": self.expires,
+        })
+        return self.key_id
+
+
+@dataclass
+class StoreDelegationToken(OMRequest):
+    """Persist an issued token's server-side row (the dTokenTable write
+    in OMGetDelegationTokenRequest.validateAndUpdateCache)."""
+
+    ident: dict = field(default_factory=dict)
+    expiry: float = 0.0
+
+    def apply(self, store):
+        row = dict(self.ident)
+        row.pop("sig", None)
+        row["expiry"] = self.expiry
+        store.put("delegation_tokens", str(self.ident["token_id"]), row)
+        return row
+
+
+@dataclass
+class RenewDelegationToken(OMRequest):
+    """Extend a token's renewable expiry, bounded by its max_date
+    (OMRenewDelegationTokenRequest; only the named renewer may renew)."""
+
+    token_id: str
+    requester: str
+    now: float = 0.0
+    renew_interval_s: float = 86400.0
+
+    def pre_execute(self, om) -> None:
+        self.now = time.time()
+        self.renew_interval_s = om.dtoken_renew_interval_s
+
+    def apply(self, store):
+        row = store.get("delegation_tokens", self.token_id)
+        if row is None:
+            raise OMError(TOKEN_ERROR, "token cancelled or unknown")
+        if self.requester != row["renewer"]:
+            raise OMError(
+                TOKEN_ERROR,
+                f"{self.requester!r} is not the renewer ({row['renewer']!r})")
+        if row["expiry"] < self.now:
+            raise OMError(TOKEN_ERROR, "token expired; cannot renew")
+        row["expiry"] = round(min(self.now + self.renew_interval_s,
+                                  row["max_date"]), 3)
+        store.put("delegation_tokens", self.token_id, row)
+        return row["expiry"]
+
+
+@dataclass
+class CancelDelegationToken(OMRequest):
+    """Invalidate a token (OMCancelDelegationTokenRequest; owner or
+    renewer only)."""
+
+    token_id: str
+    requester: str
+
+    def apply(self, store):
+        row = store.get("delegation_tokens", self.token_id)
+        if row is None:
+            raise OMError(TOKEN_ERROR, "token cancelled or unknown")
+        if self.requester not in (row["owner"], row["renewer"]):
+            raise OMError(
+                TOKEN_ERROR,
+                f"{self.requester!r} is neither owner nor renewer")
+        store.delete("delegation_tokens", self.token_id)
+
+
+@dataclass
+class PurgeExpiredDTokens(OMRequest):
+    """Background sweep: drop tokens past expiry and master keys that are
+    both expired and unreferenced (the reference's ExpiredTokenRemover
+    thread inside OzoneDelegationTokenSecretManager)."""
+
+    now: float = 0.0
+
+    def pre_execute(self, om) -> None:
+        if not self.now:
+            self.now = time.time()
+
+    def apply(self, store):
+        dropped = 0
+        live_keys = set()
+        for tid, row in list(store.iterate("delegation_tokens")):
+            if min(row["expiry"], row["max_date"]) < self.now:
+                store.delete("delegation_tokens", tid)
+                dropped += 1
+            else:
+                live_keys.add(row["key_id"])
+        for kid, row in list(store.iterate("dtoken_keys")):
+            if row["expires"] < self.now and kid not in live_keys:
+                store.delete("dtoken_keys", kid)
+        return dropped

@@ -8,10 +8,17 @@ queued commands (SCMNodeManager.processHeartbeat); a node's death
 forgets its replicas (DeadNodeHandler) so the replication scan rebuilds
 them. The minicluster's ticks drive the control loops
 (`run_background_once`). With `db_path` the container manager persists
-in the SCM store. Of the admin verbs, `apply_admin_op` serves the
-container close, the one the HA ring replicates (`net/scm_service.py`
-reads the rest locally). Left out for later slices: layout versions,
-block and container tokens (secret keys), the balancer, decommission and
+in the SCM store. With `block_tokens` the SCM holds the symmetric secret
+keys of block and container tokens (`secret_keys`, the reference's
+SecretKeyManager): `ensure_secret_key` mints and rotates them, directly
+on a single node and through the metadata ring under HA (the daemon's
+`on_secret_rotate` hook; the ring applies the key as the admin op
+`import-secret-key`), and the SCM service ships them to datanodes on
+every register and heartbeat answer. Of the admin verbs,
+`apply_admin_op` serves the two the HA ring replicates: the container
+close and the key import (`net/scm_service.py` reads the rest locally).
+Left out for later slices: the CA and its certificates (with TLS and the
+KMS, the next slice), layout versions, the balancer, decommission and
 maintenance, and the background thread a daemon runs the loops on.
 """
 
@@ -47,8 +54,20 @@ class StorageContainerManager:
         stale_after_s: float = 9.0,
         dead_after_s: float = 30.0,
         db_path=None,
+        block_tokens: bool = False,
     ):
         self.events = EventQueue()
+        # the token keys; minted lazily by ensure_secret_key, so that HA
+        # replicas install the material the ring replicates instead of
+        # each making its own
+        from ozone_tpu_torch.utils.security import SecretKeyManager
+
+        self.block_tokens = block_tokens
+        self.secret_keys = SecretKeyManager(generate=False,
+                                            activation_s=10.0)
+        #: HA hook: the leader sends a new key through the ring; None =
+        #: single node, installed directly
+        self.on_secret_rotate = None
         self.nodes = NodeManager(
             self.events, stale_after_s=stale_after_s, dead_after_s=dead_after_s
         )
@@ -146,6 +165,12 @@ class StorageContainerManager:
         so every replica ends in the same state."""
         from ozone_tpu_torch.storage.ids import ContainerState, StorageError
 
+        if op == "import-secret-key":
+            # a token-key rotation, possibly applied from the ring
+            from ozone_tpu_torch.utils.security import SecretKey
+
+            self.secret_keys.import_key(SecretKey.from_json(target))
+            return {"key_id": target["key_id"]}
         if op != "close-container":
             raise StorageError("UNSUPPORTED_REQUEST", f"admin op {op!r}")
         try:
@@ -165,11 +190,12 @@ class StorageContainerManager:
         """Safemode, the nodes with their usage columns and the container
         count: the body of the SCM service's Status answer
         (ozone_tpu/net/scm_service.py `_status`), read in process. The
-        port has no block tokens, layout versions or pipeline safemode
-        rules yet, so their fields are left out."""
+        port has no layout versions or pipeline safemode rules yet, so
+        their fields are left out."""
         return {
             "safemode": self.safemode.in_safemode(),
             "safemode_status": self.safemode.status(),
+            "block_tokens": self.block_tokens,
             "nodes": [
                 {
                     "dn_id": n.dn_id,
@@ -188,10 +214,25 @@ class StorageContainerManager:
             "containers": len(self.containers.containers()),
         }
 
+    # ------------------------------------------------------------- security
+    def ensure_secret_key(self) -> None:
+        """Mint or rotate the token-signing key when due: installed here
+        on a single node, sent through the ring under HA (so every
+        replica, and every OM issuer, signs with the same keys)."""
+        if not self.block_tokens or not self.secret_keys.needs_rotation():
+            return
+        key = self.secret_keys.new_key()
+        if self.on_secret_rotate is not None:
+            self.on_secret_rotate(key)
+        else:
+            self.secret_keys.import_key(key)
+
     # ------------------------------------------------------------- background
     def run_background_once(self) -> None:
-        """One tick of the SCM control loops: liveness, then (out of
-        safemode) the replication scan and the block-deletion batches."""
+        """One tick of the SCM control loops: the token key's rotation,
+        liveness, then (out of safemode) the replication scan and the
+        block-deletion batches."""
+        self.ensure_secret_key()
         self.nodes.check_liveness()
         if not self.safemode.in_safemode():
             self.replication.run_once()

@@ -6,8 +6,11 @@ per-chunk work (frame parse, pwrite, pread, CRC32C verify, fsync) of the
 bulk verbs, and this module keeps the control plane in Python through
 three callbacks, each run once per stream:
 
-- auth: container resolution, writability and the single-writer fence,
-  and the block file's path;
+- auth: the block token (with a verifier on: the stream's header must
+  carry a token for its block and mode, or the stream is refused with
+  BLOCK_TOKEN_VERIFICATION_FAILED before a byte lands), container
+  resolution, writability and the single-writer fence, and the block
+  file's path;
 - done: the piggybacked block commit (`Datanode.put_block`), the
   stream, chunk and byte counters the RPC verbs keep, and the native
   lane's own stream counters (`native_write_streams`,
@@ -18,7 +21,8 @@ three callbacks, each run once per stream:
 The chunk bytes land exactly where the RPC verbs put them (one file per
 block, chunks at their offsets, zero-filled short reads), and a sync
 stream is fsynced by the native side before the commit callback runs.
-The reference's block-token verifier and layout gate are not ported yet.
+The token check runs in Python, once per stream. Left out: the
+reference's layout gate; the lane is plaintext (TLS is the next slice).
 A sidecar whose library cannot be built, or whose listener cannot bind,
 raises: a datanode asked for the native datapath never serves the RPC
 verbs alone in its place.
@@ -39,6 +43,7 @@ from ozone_tpu_torch.storage.ids import (
     BlockID,
     StorageError,
 )
+from ozone_tpu_torch.utils import security
 
 log = logging.getLogger(__name__)
 
@@ -118,8 +123,11 @@ def _error_body(code: str, message: str) -> bytes:
 class DatapathSidecar:
     """One native listener per datanode process."""
 
-    def __init__(self, dn, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, dn, host: str = "127.0.0.1", port: int = 0,
+                 verifier=None):
         self.dn = dn
+        #: the datanode's BlockTokenVerifier (shared with its RPC lanes)
+        self.verifier = verifier
         self.host = host
         self._want_port = port
         self.port: Optional[int] = None
@@ -141,6 +149,10 @@ class DatapathSidecar:
         try:
             m = self._hdr(hdr, hdr_len)
             block_id = BlockID.from_json(m["block_id"])
+            security.gate(self.verifier, "native", m.get("token"),
+                          block_id=block_id,
+                          mode=security.AccessMode.WRITE if is_write
+                          else security.AccessMode.READ)
             c = self.dn.containers.get(block_id.container_id)
             if is_write:
                 c.require_writable()

@@ -136,3 +136,7 @@ INVALID_WRITE_SIZE = "INVALID_WRITE_SIZE"
 # (container, local_id) can no longer be issued, and even if one were,
 # the datanode refuses to interleave two writers' bytes
 BLOCK_WRITE_CONFLICT = "BLOCK_WRITE_CONFLICT"
+# a refused block or container capability token (BlockTokenVerifier.java);
+# every datanode lane answers it: the RPC verbs, the native sidecar and
+# the raft pipelines' Submit
+BLOCK_TOKEN_VERIFICATION_FAILED = "BLOCK_TOKEN_VERIFICATION_FAILED"

@@ -31,6 +31,12 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools admin om list-open-files /v/fs --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools httpfs --om 127.0.0.1:9860 --port 14000
     python -m ozone_tpu_torch.tools csi --om 127.0.0.1:9860 --port 9899
+    python -m ozone_tpu_torch.tools scm-om --db /data/om.db --port 9860 \
+        --block-tokens --insecure-secrets --acl-enabled
+    python -m ozone_tpu_torch.tools acl bucket add /v/b -a user:alice:rwl
+    python -m ozone_tpu_torch.tools tenant create acme --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools tenant assign acme --user alice
+    python -m ozone_tpu_torch.tools sh token get --renewer yarn --token t.json
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -41,7 +47,11 @@ CUDA (for `scm-om`, at its first sweep with work). The namespace, `fs`,
 admin, lifecycle and `csi` verbs, and `sh key checksum` (it reads chunk
 metadata, no data), import no torch, so they start in about a second.
 Against a metadata ring, `--om` takes the replicas as a comma-separated
-list; the clients follow the leader. Errors print as `error CODE:
+list; the clients follow the leader. On a token-enforcing cluster
+(`scm-om --block-tokens --insecure-secrets`) the clients read the
+posture from the SCM's status and fetch operator tokens for their
+dn-direct verbs (`AdminTokenFetcher`); the `acl`, `tenant` and
+`sh token` verbs act as the login user. Errors print as `error CODE:
 message` and exit 1.
 """
 
@@ -94,15 +104,23 @@ class _Session:
         self.om = RemoteOmClient(om_address, clients=self.clients)
         self.scm = RemoteScmClient(om_address)
 
-    def client(self, device: str):
-        from ozone_tpu_torch.client.ozone_client import OzoneClient
+    def learn_cluster(self) -> None:
+        """Learn the datanodes up front (ecrd and repairs dial nodes no
+        allocation named) and the token posture: on a token-enforcing
+        cluster the dn-direct verbs take operator tokens from the SCM."""
+        from ozone_tpu_torch.net.scm_service import AdminTokenFetcher
 
-        # learn the datanodes up front: ecrd and repairs dial nodes no
-        # allocation named
         addresses, locations = self.scm.node_topology()
         for dn_id, addr in addresses.items():
             self.clients.register_remote(dn_id, addr)
         self.clients.learn_locations(locations)
+        if self.scm.status().get("block_tokens"):
+            self.clients.tokens.issuer = AdminTokenFetcher(self.scm)
+
+    def client(self, device: str):
+        from ozone_tpu_torch.client.ozone_client import OzoneClient
+
+        self.learn_cluster()
         return OzoneClient(self.om, self.clients, device=device)
 
     def __enter__(self):
@@ -146,7 +164,61 @@ _SH_VERBS = {
     "bucket": {"create", "delete", "info", "list", "set-smallobj", "link"},
     "key": {"put", "get", "info", "list", "delete", "rename", "checksum",
             "cat", "cp", "rewrite"},
+    "token": {"get", "renew", "cancel", "print"},
 }
+
+
+def _sh_token(args, verb: str) -> int:
+    """`ozone sh token get|renew|cancel|print`: delegation tokens as
+    portable JSON files (--token FILE; --renewer on get). The caller is
+    the login user, as the reference binds its principal; the OM refuses
+    an anonymous remote renew or cancel."""
+    import getpass
+
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    def read_token():
+        if not args.token:
+            print("error: --token FILE required", file=sys.stderr)
+            return None
+        try:
+            return json.loads(Path(args.token).read_text())
+        except (OSError, ValueError) as e:
+            print(f"error: cannot read token file {args.token}: {e}",
+                  file=sys.stderr)
+            return None
+
+    if verb == "print":
+        tok = read_token()
+        if tok is None:
+            return 2
+        _emit(tok)
+        return 0
+    om = RemoteOmClient(args.om)
+    try:
+        if verb == "get":
+            if not args.renewer:
+                return _usage("--renewer required")
+            with om.user_context(getpass.getuser()):
+                tok = om.get_delegation_token(args.renewer)
+            if args.token:
+                Path(args.token).write_text(json.dumps(tok))
+                print(f"token written to {args.token}")
+            else:
+                _emit(tok)
+            return 0
+        tok = read_token()
+        if tok is None:
+            return 2
+        with om.user_context(getpass.getuser()):
+            if verb == "renew":
+                _emit({"expiry": om.renew_delegation_token(tok)})
+            else:
+                om.cancel_delegation_token(tok)
+                print("token cancelled")
+    finally:
+        om.close()
+    return 0
 
 
 def cmd_sh(args) -> int:
@@ -154,6 +226,8 @@ def cmd_sh(args) -> int:
     if verb not in _SH_VERBS[kind]:
         return _usage(f"'{verb}' is not a {kind} verb (expected one of "
                       f"{sorted(_SH_VERBS[kind])})")
+    if kind == "token":
+        return _sh_token(args, verb)
     parts = _parse_path(args.path)
     with _Session(args.om) as s:
         om = s.om
@@ -241,6 +315,63 @@ def cmd_sh(args) -> int:
                         print(f"read {data.size} bytes to {args.file}")
                     else:
                         sys.stdout.buffer.write(data.tobytes())
+    return 0
+
+
+# ---------------------------------------------------------------- acl/tenant
+def cmd_acl(args) -> int:
+    """Native ACL verbs (`ozone sh volume|bucket|key|prefix
+    addacl|removeacl|setacl|getacl`), as the login user."""
+    import getpass
+
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    parts = _parse_path(args.path)
+    vol = parts[0]
+    bucket = parts[1] if len(parts) > 1 else ""
+    path = "/".join(parts[2:]) if len(parts) > 2 else ""
+    om = RemoteOmClient(args.om)
+    try:
+        with om.user_context(getpass.getuser()):
+            if args.verb == "get":
+                _emit(om.get_acls(args.object, vol, bucket, path))
+            else:
+                changed = om.modify_acl(args.object, vol, bucket, path,
+                                        args.verb, args.acl)
+                print("changed" if changed else "unchanged")
+    finally:
+        om.close()
+    return 0
+
+
+def cmd_tenant(args) -> int:
+    """Tenant admin verbs (`ozone tenant create|delete|list` and `ozone
+    tenant user assign|revoke|list`), as the login user."""
+    import getpass
+
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    om = RemoteOmClient(args.om)
+    try:
+        with om.user_context(getpass.getuser()):
+            if args.verb == "create":
+                om.create_tenant(args.tenant)
+                print(f"tenant {args.tenant} created")
+            elif args.verb == "delete":
+                om.delete_tenant(args.tenant)
+                print(f"tenant {args.tenant} deleted")
+            elif args.verb == "list":
+                _emit(om.list_tenants())
+            elif args.verb == "assign":
+                _emit(om.tenant_assign_user(args.tenant, args.user,
+                                            args.access_id))
+            elif args.verb == "revoke":
+                om.tenant_revoke_access(args.access_id)
+                print(f"revoked {args.access_id}")
+            else:
+                _emit(om.list_tenant_users(args.tenant))
+    finally:
+        om.close()
     return 0
 
 
@@ -553,13 +684,21 @@ def cmd_scm_om(args) -> int:
             print("--ha-id must name one of the --peer entries",
                   file=sys.stderr)
             return 1
-    d = ScmOmDaemon(Path(args.db), port=args.port,
-                    min_datanodes=args.min_datanodes, device=args.device,
-                    ha_id=args.ha_id if ha_peers else None,
-                    ha_peers=ha_peers)
+    try:
+        d = ScmOmDaemon(Path(args.db), port=args.port,
+                        min_datanodes=args.min_datanodes, device=args.device,
+                        ha_id=args.ha_id if ha_peers else None,
+                        ha_peers=ha_peers, block_tokens=args.block_tokens,
+                        insecure_secrets=args.insecure_secrets,
+                        acl_enabled=args.acl_enabled)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     d.start()
     print(f"scm+om serving on {d.address}"
-          + (f" as HA node {args.ha_id}" if ha_peers else ""), flush=True)
+          + (f" as HA node {args.ha_id}" if ha_peers else "")
+          + (" [block tokens]" if args.block_tokens else "")
+          + (" [acls]" if args.acl_enabled else ""), flush=True)
     return _serve(d.stop)
 
 
@@ -632,8 +771,12 @@ def cmd_cluster(args) -> int:
     try:
         # all at once: a datanode that comes up before the metadata server
         # registers on a later heartbeat
+        security = (["--block-tokens", "--insecure-secrets"]
+                    if args.block_tokens else [])
+        if args.acl_enabled:
+            security.append("--acl-enabled")
         spawn(["scm-om", "--db", str(root / "om.db"), "--port",
-               str(args.port), "--device", device], "scm-om.log")
+               str(args.port), "--device", device, *security], "scm-om.log")
         for i in range(args.datanodes):
             spawn(["datanode", "--root", str(root / f"dn{i}"), "--scm", om,
                    "--id", f"dn{i}", "--device", device], f"dn{i}.log")
@@ -675,6 +818,10 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["OBJECT_STORE", "FILE_SYSTEM_OPTIMIZED",
                              "LEGACY"],
                     help="bucket create: the bucket layout")
+    sh.add_argument("--token", default="",
+                    help="token get/renew/cancel/print: the token's file")
+    sh.add_argument("--renewer", default="",
+                    help="token get: the renewer principal")
     device_flag(sh)
     sh.set_defaults(fn=cmd_sh)
 
@@ -705,6 +852,25 @@ def build_parser() -> argparse.ArgumentParser:
     fs.add_argument("-r", "--recursive", action="store_true")
     fs.add_argument("--om", default="127.0.0.1:9860")
     fs.set_defaults(fn=cmd_fs)
+
+    acl = sub.add_parser("acl", help="native ACL grants (ozone sh "
+                                     "addacl/removeacl/setacl/getacl)")
+    acl.add_argument("object", choices=["volume", "bucket", "key", "prefix"])
+    acl.add_argument("verb", choices=["add", "remove", "set", "get"])
+    acl.add_argument("path", help="/volume[/bucket[/key-or-prefix]]")
+    acl.add_argument("-a", "--acl", action="append", default=[],
+                     help="a grant like user:alice:rwl[DEFAULT] (repeat)")
+    acl.add_argument("--om", default="127.0.0.1:9860")
+    acl.set_defaults(fn=cmd_acl)
+
+    tn = sub.add_parser("tenant", help="multi-tenant admin (ozone tenant)")
+    tn.add_argument("verb", choices=["create", "delete", "list", "assign",
+                                     "revoke", "users"])
+    tn.add_argument("tenant", nargs="?", default="")
+    tn.add_argument("--user", default="")
+    tn.add_argument("--access-id", default="")
+    tn.add_argument("--om", default="127.0.0.1:9860")
+    tn.set_defaults(fn=cmd_tenant)
 
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
@@ -794,6 +960,20 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--peer", action="append", default=[],
                     help="a ring member as ID=host:port (repeat for each, "
                          "this replica included)")
+
+    def security_flags(p):
+        p.add_argument("--block-tokens", action="store_true",
+                       help="enforce HMAC block and container tokens on "
+                            "every datanode lane (hdds.block.token.enabled)")
+        p.add_argument("--acl-enabled", action="store_true",
+                       help="check native ACLs on OM verbs "
+                            "(ozone.acl.enabled)")
+
+    security_flags(so)
+    so.add_argument("--insecure-secrets", action="store_true",
+                    help="hand the token keys out on Register and "
+                         "Heartbeat in the clear (required with "
+                         "--block-tokens until mutual TLS is ported)")
     device_flag(so)
     so.set_defaults(fn=cmd_scm_om)
 
@@ -827,6 +1007,7 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument("--port", type=int, default=9860)
     cl.add_argument("--root", default="",
                     help="data directory (default: a fresh temporary one)")
+    security_flags(cl)
     device_flag(cl)
     cl.set_defaults(fn=cmd_cluster)
     return ap

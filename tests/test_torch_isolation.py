@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor any `ozone_tpu` module,
-and its entry points refuse to run on a CUDA device that is not there."""
+"""The port stands alone: it imports neither jax nor any `ozone_tpu` module
+(nor `cryptography`: the security slice is the standard library's), and
+its entry points refuse to run on a CUDA device that is not there."""
 
 import subprocess
 import sys
@@ -20,8 +21,9 @@ def _run(code: str) -> str:
 
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, the daemons and the CLI included, imports
-    without jax, the reference package or grpc (the port's RPC is the
-    standard library's)."""
+    without jax, the reference package, grpc (the port's RPC is the
+    standard library's) or cryptography (tokens and ACLs are HMAC and
+    JSON)."""
     out = _run("""
         import importlib, pkgutil, sys
         import ozone_tpu_torch
@@ -32,6 +34,7 @@ def test_port_imports_no_jax_and_no_reference():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "grpc" or m.startswith("grpc.")
+                     or m == "cryptography" or m.startswith("cryptography.")
                      or m == "ozone_tpu" or m.startswith("ozone_tpu."))
         print(len(names), "ozone_tpu_torch.tools.cli" in names,
               "ozone_tpu_torch.net.daemons" in names,
@@ -108,6 +111,10 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.gateway.fs",
     "ozone_tpu_torch.gateway.httpfs",
     "ozone_tpu_torch.gateway.csi",
+    # security: block and container tokens, native ACLs, delegation tokens
+    "ozone_tpu_torch.utils.security",
+    "ozone_tpu_torch.om.acl",
+    "ozone_tpu_torch.om.dtokens",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -120,6 +127,7 @@ def test_slice_modules_import_alone_without_jax(module):
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "grpc" or m.startswith("grpc.")
+                     or m == "cryptography" or m.startswith("cryptography.")
                      or m == "ozone_tpu" or m.startswith("ozone_tpu."))
         print(bad, [t.name for t in threading.enumerate()
                     if t.name == "codec-service"])
@@ -128,9 +136,10 @@ def test_slice_modules_import_alone_without_jax(module):
 
 
 def test_light_cli_verbs_import_no_torch():
-    """The CLI's namespace, `fs` and admin verbs, the remote OM and SCM
-    clients under them, the file checksum, the ofs adapter and the CSI
-    driver start without importing torch."""
+    """The CLI's namespace, `fs`, admin, ACL, tenant and token verbs, the
+    remote OM and SCM clients under them, the file checksum, the ofs
+    adapter, the CSI driver and the security modules start without
+    importing torch."""
     out = _run("""
         import sys
         from ozone_tpu_torch.tools import cli
@@ -144,6 +153,11 @@ def test_light_cli_verbs_import_no_torch():
         cli.build_parser().parse_args(["admin", "status"])
         cli.build_parser().parse_args(["fs", "ls", "/v/b"])
         cli.build_parser().parse_args(["admin", "om", "list-open-files"])
+        cli.build_parser().parse_args(["acl", "bucket", "get", "/v/b"])
+        cli.build_parser().parse_args(["tenant", "create", "acme"])
+        cli.build_parser().parse_args(["sh", "token", "print"])
+        from ozone_tpu_torch.om import acl, dtokens
+        from ozone_tpu_torch.utils import security
         print("torch" in sys.modules)
     """)
     assert out.strip() == "False"
@@ -271,6 +285,7 @@ def test_source_names_no_jax(path):
         stripped = line.strip()
         if stripped.startswith(("import ", "from ")):
             assert "jax" not in stripped and "ozone_tpu." not in stripped \
+                and "cryptography" not in stripped \
                 and not stripped.startswith(("import ozone_tpu ", "from ozone_tpu ")), \
                 f"{path}: {stripped}"
 

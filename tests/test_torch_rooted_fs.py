@@ -8,9 +8,10 @@ tests of `tests/test_rooted_fs.py`, the CSI tests of
 script against each package: file statuses (without write times),
 listings, bytes, WebHDFS JSON answers and status codes, trash paths, CSI
 answers and the C client's results must be equal. Where the port departs
-on purpose the test pins it: the WebHDFS verbs that need ACLs or
-snapshots answer 501 UnsupportedOperationException (neither is ported),
-and the ofs adapter speaks the FSO directory verbs on an FSO bucket,
+on purpose the test pins it: the WebHDFS verbs that need snapshots
+answer 501 UnsupportedOperationException (not ported; the ACL verbs,
+served since the security slice, answer as the reference's), and the
+ofs adapter speaks the FSO directory verbs on an FSO bucket,
 where the reference's writes directory markers as files and refuses a
 nested create with NOT_A_DIRECTORY. The C client is built from the
 port's copy of o3fs.c with gcc into the port's build directory.
@@ -636,23 +637,29 @@ def test_webhdfs_blocklocations(side):
                                 "snapshotname": ""}),
 ])
 def test_webhdfs_acl_and_snapshot_verbs_answer_501(side, method, op, params):
-    """ACLs and snapshots are not ported: their WebHDFS verbs answer 501
-    with an UnsupportedOperationException, as the S3 gateway answers
-    `?acl`, and change nothing (the reference serves them)."""
+    """Snapshots are not ported: their WebHDFS verbs answer 501 with an
+    UnsupportedOperationException and change nothing (the reference
+    serves them). The ACL verbs are served since the security slice:
+    GETACLSTATUS and CHECKACCESS answer as the reference's gateway does,
+    status and body, and change nothing."""
     h = Http(side["port"].gw)
     h.req("PUT", "/av/ab", op="MKDIRS")
     h.put("/av/ab/f", b"x")
     before = h.req("GET", "/av/ab", op="LISTSTATUS")
     status, body = h.req(method, "/av/ab/f", op=op, **params)
-    assert status == 501
-    exc = body["RemoteException"]
-    assert exc["exception"] == "UnsupportedOperationException"
-    assert op in exc["message"]
-    assert _norm(h.req("GET", "/av/ab", op="LISTSTATUS")) == _norm(before)
     ref = Http(side["ref"].gw)
     ref.req("PUT", "/av/ab", op="MKDIRS")
     ref.put("/av/ab/f", b"x")
-    assert ref.req(method, "/av/ab/f", op=op, **params)[0] != 501
+    if op in ("GETACLSTATUS", "CHECKACCESS"):
+        assert (status, body) == ref.req(method, "/av/ab/f", op=op, **params)
+        assert status == 200
+    else:
+        assert status == 501
+        exc = body["RemoteException"]
+        assert exc["exception"] == "UnsupportedOperationException"
+        assert op in exc["message"]
+        assert ref.req(method, "/av/ab/f", op=op, **params)[0] != 501
+    assert _norm(h.req("GET", "/av/ab", op="LISTSTATUS")) == _norm(before)
 
 
 def test_webhdfs_on_fso_bucket(side):
