@@ -91,7 +91,7 @@ a phase says otherwise:
   no fallback and no RPC chunk call;
 - lifecycle tiering (`lifecycle_path`): a MiniOzoneCluster of 9
   datanodes with OZONE_TPU_TIER_BATCH=16; a RATIS/THREE bucket of 16 keys
-  of 16 MiB (8 in `main`), 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
+  of 16 MiB (4 in `main`), 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
   tiered to rs-6-3-1024k by one sweep of an age-0 rule (the XOR keys
   through the fused re-encode, the rest in [16, 6, 1 MiB] windows of many
   keys); every key re-read byte-exact and every unit's chunks, parity and
@@ -109,7 +109,7 @@ a phase says otherwise:
   bounded `compact_slabs_once`, the survivors read back byte-exact. Both
   print the metadata RPCs per step (CreateContainer, GetBlock, ...), and
   kernel launches equal the codec service's dispatches in every step.
-  `main` runs it at a cut depth (250 keys per tinyg run, 50 on the
+  `main` runs it at a cut depth (125 keys per tinyg run, 25 on the
   stripe path) to leave room for the later phases;
 - consensus and HA (`ha_path`): three ScmOmDaemons on one metadata ring
   (OM and SCM state on one Raft ring over the port's RPC) and 9
@@ -125,7 +125,7 @@ a phase says otherwise:
   (GiB/s, the raft round trips of `write_chunk_commit` and `put_block`),
   (d) a degraded GET of (a)'s keys with two datanodes down through the
   decode form. Launches equal dispatches in (a), (b) and (d). `main` cuts
-  (a) to 4 keys and (b) to 8;
+  (a) to 4 keys, (b) to 8 and (c) to 4;
 - the filesystem namespace (`fs_path`): an ScmOmDaemon and 9
   DatanodeDaemons, an FSO bucket at rs-6-3-1024k: (a) TestDFSIO, 8 ×
   64 MiB through `RootedOzoneFileSystem` on 4 threads, read back, each
@@ -140,13 +140,14 @@ a phase says otherwise:
   (e) a RATIS/THREE file hsynced after each of 4 × 4 MiB, read by a second
   client, its writer abandoned, `recover_lease`, the stale hsync and an EC
   hsync refused; (f) `freon fsg` and `fskg` of 128 × 3901 B on 8 threads.
-  Launches equal dispatches in every part that codes. `main` cuts (c) to
-  250 files per directory and (f) to 64 files;
+  Launches equal dispatches in every part that codes. `main` cuts (a) to
+  4 files, (c) to 125 files per directory and (f) to 32 files;
 - authorization and tokens (`security_path`): an ScmOmDaemon with block
   tokens (`insecure_secrets`: the keys ride Register and Heartbeat in the
-  clear until mutual TLS is ported) and native ACLs on, 9 DatanodeDaemons
-  on 3 racks (native lane), an S3Gateway with require_auth, rs-6-3-1024k:
-  (a) two tenants of two users each PUT 64 MiB and upload 96 MiB +
+  clear, so the native lane stays on; `encryption_path` runs them over
+  mutual TLS) and native ACLs on, 9 DatanodeDaemons on 3 racks (native
+  lane), an S3Gateway with require_auth, rs-6-3-1024k: (a) two tenants
+  of two users (one each in `main`) each PUT 64 MiB and upload 96 MiB +
   12 345 B in 8 MiB parts, GET whole and ranged, then a degraded GET with
   two datanodes' servers down; the same PUTs and GETs first on a cluster
   with tokens and ACLs off (the secured/unsecured ratio is printed);
@@ -165,8 +166,33 @@ a phase says otherwise:
   the owner's ACL grant), renewed, cancelled and then refused. It prints
   verify microseconds per check on each lane, `check_access` microseconds
   per authorizer check, refusals by reason and repair MiB/s per target;
-  launches equal dispatches in every coding step. A line before the
-  phases probes the host for `cryptography` and `openssl`.
+  launches equal dispatches in every coding step;
+- encryption at rest and in transit (`encryption_path`): an ScmOmDaemon
+  with `secure=True` (the cluster CA, mutual TLS on every channel with the
+  CRL checked per call, block tokens whose keys ride only mTLS) and 9
+  DatanodeDaemons on 3 racks enrolled at its enrollment endpoint (no
+  native sidecar: chunks ride the TLS RPC), a remote OzoneClient with its
+  own certificate, rs-6-3-1024k: (a) 4 × 64 MiB and 96 MiB + 12 345 B PUT
+  concurrently into a TDE bucket (master key mk1) and a plain one and read
+  back (TDE+mTLS against plain+mTLS GiB/s, the host's ctr_crypt GiB/s);
+  every TDE data unit equals ctr_crypt of the source under the DEK the KMS
+  unwraps, no cell the plaintext, parity and CRCs the plain coder's over
+  the ciphertext; (b) 16 ranged GETs of 1 MiB + 7 B off the AES block, an
+  encrypted multipart upload in 8 MiB parts through an S3Gateway with
+  require_auth and its own certificate, read whole and across part
+  boundaries; (c) a degraded GET of ciphertext (the decode form) with two
+  holders stopped, then a datanode's death and the SCM's reconstruction
+  onto an enrolled spare (rebuilt chunks equal the lost ciphertext,
+  MiB/s per target); (d) mk1 rotated, EDEK versions 0 and 1 read back;
+  (e) GDPR: the secret erased in the delete's apply, the raw chunks left
+  are ciphertext, an FSO directory's recursive delete erases every
+  child's; (f) no certificate (UNAVAILABLE), a bad enrollment secret,
+  no token, a revoked certificate (CERTIFICATE_REVOKED, seconds from the
+  revoke), a certificate renewed live under PUTs with no failed call, ms
+  per TLS handshake, seconds per enrollment. Launches equal dispatches in
+  every coding step and no chunk rides a native stream. A line before
+  the phases names the host's `cryptography` and `ssl`, and the run fails
+  without either.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -1919,16 +1945,20 @@ def restart_server(d) -> None:
     """Serve a daemon's datanode and pipeline-ring verbs again on its old
     port, with a new native sidecar, after stop_server (the registered
     address stays valid; clients discover the sidecar's new port); every
-    lane keeps the daemon's token verifier."""
+    lane keeps the daemon's token verifier. A mutual-TLS daemon serves
+    TLS again, with its CRL, and no sidecar."""
     from ozone_tpu_torch.net.dn_service import DatanodeRpcService
     from ozone_tpu_torch.net.rpc import RpcServer
     from ozone_tpu_torch.storage.fast_datapath import DatapathSidecar
 
     from ozone_tpu_torch.net.ratis_service import RatisRpcService
 
-    d.datapath = DatapathSidecar(d.dn, verifier=d.verifier)
-    d.datapath.start()
-    d.server = RpcServer(port=d.server.port)
+    if d.tls is None:  # a mutual-TLS datanode runs no sidecar
+        d.datapath = DatapathSidecar(d.dn, verifier=d.verifier)
+        d.datapath.start()
+    d.server = RpcServer(port=d.server.port, tls=d.tls)
+    if d.tls is not None:
+        d.server.crl_provider = d.tls.crl
     d.service = DatanodeRpcService(d.dn, d.server, datapath_port=d.advertise,
                                    verifier=d.verifier)
     # its pipeline rings answer again too (their raft state lived on)
@@ -4300,29 +4330,97 @@ def fs_path(device, cell: int, bpc: int, seed: int, n_io: int = 8,
 
 
 # ---------------------------------------------------------------- security
-def security_probe() -> str:
-    """What this host offers the encryption slice still to come: whether
-    the `cryptography` package is installed (and its version, read from
-    its metadata: nothing here imports it) and `openssl version`. Never
-    fails the run."""
+def repair_onto_spare(meta, dns, by_id, victim: str, device, bpc: int, what: str,
+                      how: str) -> dict:
+    """The victim datanode dies (stopped, its heartbeat far in the past, the
+    SCM's liveness sweep declares it DEAD) and the SCM's reconstruction
+    commands rebuild each of its EC units on a survivor: every rebuilt
+    chunk must equal the lost one with CRCs equal to the host CRC32C, the
+    rebuilt containers CLOSED, no command failed, and the step's kernel
+    launches equal the service's dispatches (and be more than none on the
+    card). Returns its launches, seconds and MiB/s per target."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.scm.node_manager import NodeState
+    from ozone_tpu_torch.storage.ids import ContainerState
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    vdn = by_id[victim].dn
+    lost, index = {}, {}  # the victim's EC units: (chunks, bytes), replica index
+    for c0 in vdn.list_containers():
+        if c0.replica_index <= 0:
+            continue  # a replicated container: re-replicated, not rebuilt
+        index[c0.id] = c0.replica_index
+        for b in vdn.list_blocks(c0.id):
+            lost[b.block_id] = [(ch, vdn.read_chunk(b.block_id, ch).copy())
+                                for ch in b.chunks]
+    by_id[victim].stop()
+    meta.scm.nodes.get(victim).last_heartbeat = -1e9
+    meta.scm.nodes.check_liveness()
+    if meta.scm.nodes.get(victim).state is not NodeState.DEAD:
+        raise AssertionError(f"{victim} not DEAD")
+    before = service_counts()
+    fused_kernel.launches.reset()
+    t0 = time.perf_counter()
+
+    def holder(bid):
+        with meta.scm_service.lock:
+            c0 = meta.scm.containers.get(bid.container_id)
+            held = [dn for dn, r in c0.replicas.items() if dn != victim and
+                    r.replica_index == index[bid.container_id]
+                    and r.state == "CLOSED"]
+        return held[0] if len(held) == 1 else None
+
+    wait_for(f"{what}: the reconstruction", lambda: all(
+        holder(bid) for bid in lost), 120, poll_s=0.05)
+    repair_s = time.perf_counter() - t0
+    launches = fused_kernel.launches.count
+    svc = service_delta(before)
+    host = Checksum(ChecksumType.CRC32C, bpc)
+    per_target: dict[str, int] = {}
+    for bid, chunks in lost.items():
+        dst = by_id[holder(bid)].dn
+        if dst.containers.get(bid.container_id).state is not ContainerState.CLOSED:
+            raise AssertionError(f"rebuilt container {bid.container_id} not CLOSED")
+        got = dst.get_block(bid).chunks
+        if [(i.offset, i.length) for i, _ in chunks] != [(i.offset, i.length)
+                                                         for i in got]:
+            raise AssertionError(f"rebuilt chunk list of {bid} differs")
+        for (_, want), i in zip(chunks, got):
+            data = dst.read_chunk(bid, i)
+            if not np.array_equal(data, want) or \
+                    host.compute(data).checksums != i.checksum.checksums:
+                raise AssertionError(f"rebuilt chunk {i.name} differs")
+            per_target[holder(bid)] = per_target.get(holder(bid), 0) + i.length
+    failed = {d.dn.id: d.failed_commands for d in dns if d.failed_commands}
+    if failed or not per_target:
+        raise AssertionError(f"repair: failed commands {failed}, rebuilt {per_target}")
+    rates = {t: n / repair_s / MIB for t, n in per_target.items()}
+    print(f"{what}: {victim} DEAD, {len(lost)} blocks rebuilt {how} in {repair_s:.3f} s: "
+          + ", ".join(f"{t} {per_target[t]} B = {r:.1f} MiB/s"
+                      for t, r in sorted(rates.items()))
+          + " per target (wall, from the death); every rebuilt chunk equals the lost "
+          f"one, CRCs equal host CRC32C; failed commands {failed}")
+    check_launches_equal(what, device, launches, svc)
+    if device.type == "cuda" and launches <= 0:
+        raise AssertionError(f"{what} launched no decode")
+    return {"launches": launches, "seconds": repair_s, "mib_s_per_target": rates}
+
+
+def crypto_check() -> str:
+    """What the encryption path runs on: the `cryptography` package (AES for
+    the KMS, x509 for the CA; found and its version read from its
+    metadata, the port imports it where it uses it) and Python's `ssl`
+    (mutual TLS). Raises when either is missing: nothing falls back."""
     import importlib.metadata
     import importlib.util
+    import ssl
 
-    try:
-        if importlib.util.find_spec("cryptography") is None:
-            crypto = "no cryptography package"
-        else:
-            crypto = f"cryptography {importlib.metadata.version('cryptography')}"
-    except Exception as e:  # noqa: BLE001 - a probe reports, it never fails
-        crypto = f"cryptography unreadable ({type(e).__name__}: {e})"
-    try:
-        ssl = subprocess.run(["openssl", "version"], capture_output=True, text=True,
-                             timeout=10).stdout.strip() or "openssl: no output"
-    except Exception as e:  # noqa: BLE001
-        ssl = f"no openssl ({type(e).__name__})"
-    import ssl as _ssl
-
-    return f"{crypto}; {ssl}; Python ssl module {_ssl.OPENSSL_VERSION}"
+    if importlib.util.find_spec("cryptography") is None:
+        raise AssertionError("no cryptography package: the KMS and the CA need it")
+    if not ssl.HAS_TLSv1_3:
+        raise AssertionError(f"Python's ssl ({ssl.OPENSSL_VERSION}) has no TLS 1.3")
+    return (f"cryptography {importlib.metadata.version('cryptography')}; Python ssl "
+            f"module {ssl.OPENSSL_VERSION}")
 
 
 class _Fixed:
@@ -4442,7 +4540,7 @@ def security_path(device, cell: int, bpc: int, seed: int, n_tenants: int = 2,
     Ozone's feature/S3-Multi-Tenancy.md with hdds.block.token.enabled and
     ozone.acl.enabled): an ScmOmDaemon with `block_tokens=True,
     insecure_secrets=True` (the keys ride Register and Heartbeat in the
-    clear until mutual TLS is ported) and ACLs on (superuser root), 9
+    clear; `encryption_path` runs the same tokens over mutual TLS) and ACLs on (superuser root), 9
     DatanodeDaemons on 3 racks each with its native sidecar, rs-6-3 at
     `cell` with CRC32C per `bpc`, and an S3Gateway with require_auth.
     (a) `n_tenants` tenants of `users_per_tenant` users each PUT a
@@ -4473,10 +4571,8 @@ def security_path(device, cell: int, bpc: int, seed: int, n_tenants: int = 2,
     from ozone_tpu_torch.net.om_service import RemoteOmClient
     from ozone_tpu_torch.net.ratis_service import RatisClientFactory
     from ozone_tpu_torch.net.scm_service import RemoteScmClient
-    from ozone_tpu_torch.scm.node_manager import NodeState
-    from ozone_tpu_torch.storage.ids import BlockID, ContainerState, StorageError
+    from ozone_tpu_torch.storage.ids import StorageError
     from ozone_tpu_torch.utils import security
-    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
 
     rs = f"rs-6-3-{cell // 1024}k"
     part = 8 * cell
@@ -4792,68 +4888,11 @@ def security_path(device, cell: int, bpc: int, seed: int, n_tenants: int = 2,
             finally:
                 scm.close()
             victim = info["block_groups"][0]["nodes"][2]
-            vdn = by_id[victim].dn
-            lost, index = {}, {}  # the victim's EC units: (chunks, bytes), replica index
-            for c0 in vdn.list_containers():
-                if c0.replica_index <= 0:
-                    continue  # a replicated container: re-replicated, not rebuilt
-                index[c0.id] = c0.replica_index
-                for b in vdn.list_blocks(c0.id):
-                    lost[b.block_id] = [(ch, vdn.read_chunk(b.block_id, ch).copy())
-                                        for ch in b.chunks]
-            by_id[victim].stop()
-            meta.scm.nodes.get(victim).last_heartbeat = -1e9
-            meta.scm.nodes.check_liveness()
-            if meta.scm.nodes.get(victim).state is not NodeState.DEAD:
-                raise AssertionError(f"{victim} not DEAD")
-            before = service_counts()
-            fused_kernel.launches.reset()
-            t0 = time.perf_counter()
-
-            def holder(bid):
-                with meta.scm_service.lock:
-                    c0 = meta.scm.containers.get(bid.container_id)
-                    held = [dn for dn, r in c0.replicas.items() if dn != victim and
-                            r.replica_index == index[bid.container_id]
-                            and r.state == "CLOSED"]
-                return held[0] if len(held) == 1 else None
-
-            wait_for("the token-signed reconstruction", lambda: all(
-                holder(bid) for bid in lost), 120, poll_s=0.05)
-            repair_s = time.perf_counter() - t0
-            out["launches"]["security_repair"] = fused_kernel.launches.count
-            svc = service_delta(before)
-            host = Checksum(ChecksumType.CRC32C, bpc)
-            per_target: dict[str, int] = {}
-            for bid, chunks in lost.items():
-                dst = by_id[holder(bid)].dn
-                if dst.containers.get(bid.container_id).state is not ContainerState.CLOSED:
-                    raise AssertionError(f"rebuilt container {bid.container_id} not CLOSED")
-                got = dst.get_block(bid).chunks
-                if [(i.offset, i.length) for i, _ in chunks] != [(i.offset, i.length)
-                                                                 for i in got]:
-                    raise AssertionError(f"rebuilt chunk list of {bid} differs")
-                for (_, want), i in zip(chunks, got):
-                    data = dst.read_chunk(bid, i)
-                    if not np.array_equal(data, want) or \
-                            host.compute(data).checksums != i.checksum.checksums:
-                        raise AssertionError(f"rebuilt chunk {i.name} differs")
-                    per_target[holder(bid)] = per_target.get(holder(bid), 0) + i.length
-            failed = {d.dn.id: d.failed_commands for d in dns if d.failed_commands}
-            if failed or not per_target:
-                raise AssertionError(f"repair: failed commands {failed}, rebuilt {per_target}")
-            out["repair_mib_s_per_target"] = {t: n / repair_s / MIB
-                                              for t, n in per_target.items()}
-            print(f"security repair: {victim} DEAD, {len(lost)} blocks rebuilt with tokens the "
-                  f"datanodes signed themselves in {repair_s:.3f} s: " + ", ".join(
-                      f"{t} {per_target[t]} B = {r:.1f} MiB/s" for t, r in
-                      sorted(out["repair_mib_s_per_target"].items())) +
-                  " per target (wall, from the death); every rebuilt chunk equals the lost "
-                  f"one, CRCs equal host CRC32C; failed commands {failed}")
-            check_launches_equal("security repair", device,
-                                 out["launches"]["security_repair"], svc)
-            if device.type == "cuda" and out["launches"]["security_repair"] <= 0:
-                raise AssertionError("the repair launched no decode")
+            rep = repair_onto_spare(meta, dns, by_id, victim, device, bpc,
+                                    "security repair", "with tokens the datanodes "
+                                    "signed themselves")
+            out["launches"]["security_repair"] = rep["launches"]
+            out["repair_mib_s_per_target"] = rep["mib_s_per_target"]
 
             # (f) delegation tokens through the remote OM
             with om.user_context("root"):
@@ -4917,6 +4956,492 @@ def security_path(device, cell: int, bpc: int, seed: int, n_tenants: int = 2,
     return out
 
 
+def encryption_path(device, cell: int, bpc: int, seed: int, big_cells: int = 64,
+                    n_big: int = 4, odd_cells: int = 96, n_ranged: int = 16,
+                    part_cells: int = 8, n_renew: int = 6, gdpr_files: int = 4) -> dict:
+    """Encryption at rest and in transit (Apache Ozone's security/SecuringTDE.md,
+    security/GDPR.md and security/SecureOzone.md with hdds.grpc.tls.enabled):
+    an ScmOmDaemon with `secure=True` (the cluster CA, mutual TLS on every
+    channel, the CRL checked on every call) and block tokens, its
+    enrollment endpoint gated by a secret; 9 DatanodeDaemons on 3 racks
+    enroll there (no native sidecar: every chunk rides the TLS RPC), a 10th
+    spare later; a remote OzoneClient with its own client certificate;
+    rs-6-3 at `cell`, CRC32C per `bpc`. (a) A TDE bucket under master key
+    mk1 and a plain one: `n_big` keys of `big_cells` cells and one of
+    `odd_cells` cells + 12 345 B PUT concurrently into each and read back
+    byte-exact (TDE+mTLS against plain+mTLS GiB/s, and the host's ctr_crypt
+    GiB/s); every TDE data unit equals ctr_crypt of the source under the DEK
+    kms_decrypt returns, none the plaintext, parity and CRCs the numpy
+    coder's and the host CRC32C's over the ciphertext. (b) `n_ranged`
+    ranged GETs of cell + 7 B at offsets off the AES block; an encrypted
+    multipart upload in `part_cells`-cell parts through an in-process
+    S3Gateway (require_auth, its own client certificate), read whole and
+    across part boundaries. (c) A degraded GET of a TDE key with two
+    holders stopped (the decode form on ciphertext), then one datanode
+    dies and the SCM's reconstruction rebuilds its ciphertext onto the
+    spare with tokens the datanodes sign. (d) mk1 rotated: a key written
+    before and one after read back under EDEK versions 0 and 1. (e) GDPR:
+    PUT, GET, delete, the row's secret erased in that apply, the raw
+    chunks left on the datanodes are not the source; an FSO directory's
+    recursive delete erases every child's secret. (f) Refusals with the
+    reference's codes: no client certificate (UNAVAILABLE), a bad
+    enrollment secret (IO_EXCEPTION), no token (BLOCK_TOKEN_VERIFICATION_
+    FAILED), a revoked certificate (CERTIFICATE_REVOKED: seconds from the
+    revoke to the first refusal at the metadata server and at a datanode);
+    a datanode's certificate renewed live under PUTs with no failed call;
+    ms per TLS handshake and seconds per datanode enrollment. Kernel
+    launches equal the codec service's dispatches in every step, and no
+    chunk rides a native stream."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.s3 import S3_VOLUME, S3Gateway
+    from ozone_tpu_torch.net import rpc
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.storage.ids import StorageError
+    from ozone_tpu_torch.utils.ca import CertificateClient
+    from ozone_tpu_torch.utils.kms import ctr_crypt
+
+    secret = "chip-smoke-enroll"
+    rs = f"rs-6-3-{cell // 1024}k"
+    part = part_cells * cell
+    rng = np.random.default_rng(seed + 15)
+    keys = {f"k{i}": rng.integers(0, 256, big_cells * cell, dtype=np.uint8)
+            for i in range(n_big)}
+    keys["odd"] = rng.integers(0, 256, odd_cells * cell + 12345, dtype=np.uint8)
+    total = sum(v.size for v in keys.values())
+    out: dict = {"launches": {}}
+
+    def step(what: str, fn, items, key=None, codes: bool = False):
+        """fn over items concurrently: (results, seconds); launches equal
+        dispatches, and a step that `codes` launched on the card."""
+        before = service_counts()
+        fused_kernel.launches.reset()
+        t0 = time.perf_counter()
+        res = concurrent(fn, items)
+        secs = time.perf_counter() - t0
+        launches = fused_kernel.launches.count
+        check_launches_equal(what, device, launches, service_delta(before))
+        if key is not None:
+            out["launches"][key] = launches
+        if codes and device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what} launched no kernel")
+        return res, secs
+
+    def refused(fn, code: str, what: str) -> None:
+        try:
+            fn()
+        except StorageError as e:
+            if e.code != code:
+                raise AssertionError(f"{what}: {e.code} ({e.msg}), want {code}")
+            return
+        raise AssertionError(f"{what}: served, want {code}")
+
+    def enrolled(root: Path, role: str):
+        cc = CertificateClient(root, role)
+        cc.enroll_remote(meta.enroll_address, secret=secret)
+        return cc.tls()
+
+    def remote_client(tls):
+        clients = DatanodeClientFactory()
+        clients.tls = tls
+        for d in dns:
+            clients.register_remote(d.dn.id, d.address)
+        return OzoneClient(RemoteOmClient(meta.address, clients=clients, tls=tls),
+                           clients, device=device)
+
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-enc-") as tmp:
+        root = Path(tmp)
+        hs0 = rpc.METRICS.histogram("tls_handshake")
+        hs0 = (hs0.count, hs0.total)
+        meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
+                           container_size=1024 * cell, stale_after_s=30.0,
+                           dead_after_s=60.0, background_interval_s=0.5,
+                           placement_seed=seed, device=device, block_tokens=True,
+                           secure=True, enrollment_secret=secret)
+        meta.start()
+        dns: list = []
+        oz = gw = gw_oz = None
+        try:
+            enroll_s = []
+            for i in range(9):
+                t0 = time.perf_counter()
+                d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address,
+                                   rack=f"/rack{i % 3}", heartbeat_interval_s=0.5,
+                                   device=device, ca_address=meta.enroll_address,
+                                   enrollment_secret=secret)
+                enroll_s.append(time.perf_counter() - t0)
+                # the reference checks every 60 s; 1 s keeps (f) short
+                d.cert_renewal.check_interval_s = 1.0
+                d.start()
+                dns.append(d)
+            by_id = {d.dn.id: d for d in dns}
+            wait_for("9 datanodes enforcing, with the keys", lambda: all(
+                d.verifier.enabled and d.secrets.export_keys() for d in dns), 30)
+            if any(d.datapath is not None for d in dns) or not all(
+                    d.server.tls_enabled for d in dns + [meta]):
+                raise AssertionError("a sidecar started, or a server without TLS")
+            out["enroll_s"] = statistics.mean(enroll_s)
+            print(f"encryption cluster: ScmOmDaemon secure (CA, mutual TLS, block "
+                  f"tokens), 9 datanodes enrolled in {statistics.mean(enroll_s):.3f} s "
+                  f"each (mean; min {min(enroll_s):.3f}, max {max(enroll_s):.3f}: key "
+                  "pair, CSR, signed over the enrollment RPC, server bound); no sidecar")
+            oz = remote_client(enrolled(root / "client", "client-smoke"))
+            om = oz.om
+            with om.user_context("root"):
+                om.kms_create_key("mk1")
+            oz.create_volume("enc")
+            om.create_bucket("enc", "tde", rs, encryption_key="mk1")
+            om.create_bucket("enc", "plain", rs)
+            tde = oz.get_volume("enc").get_bucket("tde")
+            plain = oz.get_volume("enc").get_bucket("plain")
+
+            # (a) PUT and GET, TDE against plain over the same mutual TLS
+            def put(b):
+                return lambda name: b.write_key(name, keys[name])
+
+            def get(b):
+                def one(name):
+                    if not np.array_equal(b.read_key(name), keys[name]):
+                        raise AssertionError(f"GET {b.name}/{name}: bytes differ")
+                return one
+
+            rates = {}
+            for tag, b in (("plain", plain), ("tde", tde)):
+                _, put_s = step(f"encryption {tag} PUT", put(b), list(keys),
+                                f"encryption_{tag}_put", codes=True)
+                _, get_s = step(f"encryption {tag} GET", get(b), list(keys),
+                                f"encryption_{tag}_get")
+                rates[tag] = {"put": total / put_s / 2**30, "get": total / get_s / 2**30}
+            c_times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ctr_crypt(keys["k0"], b"\x07" * 32, b"\x01" * 16, 5)
+                c_times.append(time.perf_counter() - t0)
+            out["ctr_gib_s"] = keys["k0"].size / min(c_times) / 2**30
+            out["gib_s"] = rates
+            print(f"encryption (a): {len(keys)} keys, {total} B, concurrently over mutual "
+                  f"TLS: PUT TDE {rates['tde']['put']:.3f} GiB/s, plain "
+                  f"{rates['plain']['put']:.3f} = {rates['tde']['put'] / rates['plain']['put']:.3f}x; "
+                  f"GET TDE {rates['tde']['get']:.3f}, plain {rates['plain']['get']:.3f} = "
+                  f"{rates['tde']['get'] / rates['plain']['get']:.3f}x (wall, this run); "
+                  f"host ctr_crypt {out['ctr_gib_s']:.3f} GiB/s on {keys['k0'].size} B "
+                  "(best of 3, one thread); every body byte-exact")
+            chunks = 0
+            for name, src in keys.items():
+                info = om.lookup_key("enc", "tde", name)
+                enc = info["encryption"]
+                dek = bytes.fromhex(om.kms_decrypt("enc", "tde", enc))
+                cipher = ctr_crypt(src, dek, bytes.fromhex(enc["iv"]))
+                same = (cipher[:src.size // cell * cell].reshape(-1, cell)
+                        == src[:src.size // cell * cell].reshape(-1, cell)).all(axis=1)
+                if same.any() or enc["master"] != "mk1" or enc["version"] != 0:
+                    raise AssertionError(f"TDE {name}: a cell stored in the clear, or "
+                                         f"a bad bundle {enc}")
+                chunks += check_ec_units(lambda i: by_id[i].dn, om.key_block_groups(info),
+                                         cipher, bpc, f"TDE unit check {name}",
+                                         crc_route="native")
+            print(f"encryption (a): {chunks} stored chunks of the TDE keys: data units "
+                  "equal ctr_crypt of the source under the DEK kms_decrypt returns, no "
+                  "cell equals the plaintext, parity equal the numpy coder's and CRC "
+                  "words the host CRC32C over the ciphertext")
+
+            # (b) ranged GETs off the AES block, and an encrypted multipart upload
+            # through the S3 gateway (its own client certificate)
+            odd = keys["odd"]
+            offs = [int(o) for o in rng.integers(0, odd.size - cell - 7, n_ranged)]
+            offs = [o + (3 if o % 16 == 0 else 0) for o in offs]
+
+            def ranged(o):
+                if not np.array_equal(tde.read_key_range("odd", o, cell + 7),
+                                      odd[o:o + cell + 7]):
+                    raise AssertionError(f"ranged GET at {o}: bytes differ")
+
+            _, rg_s = step("encryption ranged GET", ranged, offs, "encryption_ranged_get")
+            gw_oz = remote_client(enrolled(root / "s3g", "client-s3g"))
+            gw = S3Gateway(gw_oz, replication=rs, require_auth=True)
+            gw.start()
+            om.create_bucket(S3_VOLUME, "tde-mpu", rs, encryption_key="mk1")
+            s3 = S3Client(gw.address, "smoke", om.get_s3_secret("smoke"))
+            body = odd.tobytes()
+            res, mpu_s = step("encryption S3 multipart PUT",
+                              lambda _: s3_multipart(s3, "/tde-mpu/obj", body, part, 4),
+                              [0], "encryption_mpu_put", codes=True)
+            etag, parts = res[0]
+            mrow = om.lookup_key(S3_VOLUME, "tde-mpu", "obj")
+            ivs = [p["iv"] for p in mrow["enc_parts"]]
+            if len(ivs) != len(parts) or len(set(ivs)) != len(ivs) or \
+                    [p["size"] for p in mrow["enc_parts"]] != [
+                        min(part, len(body) - o) for o in range(0, len(body), part)]:
+                raise AssertionError(f"multipart enc_parts: {mrow['enc_parts'][:3]}")
+            n_cross = min(4, len(parts) - 1)
+
+            def mpu_get(j):
+                if j < 0:
+                    if s3.ok("GET", "/tde-mpu/obj")[1] != body:
+                        raise AssertionError("multipart GET: bytes differ")
+                    return
+                lo = (j + 1) * part - 777 - 13 * j
+                got = s3.ok("GET", "/tde-mpu/obj", extra={
+                    "Range": f"bytes={lo}-{lo + part}"}, status=206)[1]
+                if got != body[lo:lo + part + 1]:
+                    raise AssertionError(f"ranged multipart GET at {lo}")
+
+            _, mg_s = step("encryption S3 multipart GET", mpu_get,
+                           [-1] + list(range(n_cross)), "encryption_mpu_get")
+            print(f"encryption (b): {n_ranged} ranged GETs of {cell + 7} B off the AES "
+                  f"block in {rg_s:.3f} s; S3 multipart upload of {len(body)} B in "
+                  f"{len(parts)} parts of {part} B (each its own IV, the row's enc_parts) "
+                  f"in {mpu_s:.3f} s, ETag {etag}; GET whole and {n_cross} ranges across part boundaries "
+                  f"byte-exact in {mg_s:.3f} s")
+
+            # (c) a degraded GET of ciphertext, then the repair onto a spare
+            info = om.lookup_key("enc", "tde", "odd")
+            down = info["block_groups"][0]["nodes"][:2]
+            for dn_id in down:
+                stop_server(by_id[dn_id])
+            try:
+                _, deg_s = step("encryption degraded GET", get(tde), ["odd"],
+                                "encryption_degraded_get", codes=True)
+            finally:
+                for dn_id in down:
+                    restart_server(by_id[dn_id])
+            print(f"encryption (c): degraded GET of {odd.size} B with {down} stopped: the "
+                  f"decode form on ciphertext, byte-exact in {deg_s:.3f} s = "
+                  f"{odd.size / deg_s / 2**30:.3f} GiB/s")
+            scm = RemoteScmClient(meta.address, tls=om.tls)
+            try:
+                ec_ids = {c["id"] for c in scm.list_containers()}
+                for cid in sorted(ec_ids):
+                    scm.admin("close-container", str(cid))
+                wait_for("the containers closed", lambda: all(
+                    c["state"] == "CLOSED" and all(r["state"] == "CLOSED"
+                                                   for r in c["replicas"])
+                    for c in scm.list_containers() if c["id"] in ec_ids), 30)
+            finally:
+                scm.close()
+            t0 = time.perf_counter()
+            spare = DatanodeDaemon(root / "dn9", "dn9", meta.address, rack="/rack0",
+                                   heartbeat_interval_s=0.5, device=device,
+                                   ca_address=meta.enroll_address,
+                                   enrollment_secret=secret)
+            enroll_s.append(time.perf_counter() - t0)
+            spare.start()
+            dns.append(spare)
+            by_id["dn9"] = spare
+            wait_for("the spare enforcing, with the keys",
+                     lambda: spare.verifier.enabled and spare.secrets.export_keys(), 30)
+            rep = repair_onto_spare(meta, dns, by_id, info["block_groups"][0]["nodes"][2],
+                                    device, bpc, "encryption repair",
+                                    "over mutual TLS with tokens the datanodes signed")
+            out["launches"]["encryption_repair"] = rep["launches"]
+            out["repair_mib_s_per_target"] = rep["mib_s_per_target"]
+            dns.remove(by_id[info["block_groups"][0]["nodes"][2]])
+
+            # (d) master-key rotation: EDEK versions 0 and 1 both read back
+            with om.user_context("root"):
+                rot = om.kms_create_key("mk1", rotate=True)
+            late = rng.integers(0, 256, 6 * cell + 5, dtype=np.uint8)
+            step("encryption PUT after the rotation",
+                 lambda _: tde.write_key("late", late), [0], "encryption_rotated_put",
+                 codes=True)
+            versions = [om.lookup_key("enc", "tde", k)["encryption"]["version"]
+                        for k in ("k0", "late")]
+            if versions != [0, 1] or rot["versions"] != 2 or not np.array_equal(
+                    tde.read_key("late"), late) or not np.array_equal(
+                    tde.read_key("k0"), keys["k0"]):
+                raise AssertionError(f"rotation: versions {versions}, {rot}")
+            print(f"encryption (d): mk1 rotated to {rot['versions']} versions; a key "
+                  "of EDEK version 0 and one of version 1 read back byte-exact")
+
+            # (e) GDPR: the secret dies in the delete's apply. The daemon's
+            # background pass purges the deleted rows soon after, so every
+            # row the applies put into deleted_keys is recorded as written
+            store = meta.om.store
+            written: list = []
+            real_put = store.put
+
+            def spy_put(table, key, value):
+                if table == "deleted_keys":
+                    written.append(json.loads(json.dumps(value)))
+                return real_put(table, key, value)
+
+            store.put = spy_put
+            om.create_bucket("enc", "gdpr", rs, gdpr=True)
+            gb = oz.get_volume("enc").get_bucket("gdpr")
+            subj = rng.integers(0, 256, 6 * cell + 777, dtype=np.uint8)
+            step("encryption GDPR PUT", lambda _: gb.write_key("subject", subj), [0],
+                 "encryption_gdpr_put", codes=True)
+            ginfo = om.lookup_key("enc", "gdpr", "subject")
+            gsecret = bytes.fromhex(ginfo["encryption"]["gdpr_secret"])
+            if not np.array_equal(gb.read_key("subject"), subj):
+                raise AssertionError("GDPR GET: bytes differ")
+            gb.delete_key("subject")
+            raw, purged, base = [], 0, 0  # (key offset, chunk, bytes) of data units
+            for g in om.key_block_groups(ginfo):
+                for u, dn_id in enumerate(g.pipeline.nodes[:6]):
+                    try:
+                        blk = by_id[dn_id].dn.get_block(g.block_id)
+                        raw += [(base + ch.offset // cell * 6 * cell + u * cell
+                                 + ch.offset % cell, ch,
+                                 by_id[dn_id].dn.read_chunk(g.block_id, ch))
+                                for ch in blk.chunks]
+                    except (StorageError, KeyError):
+                        purged += 1
+                base += g.length
+            rows = [v for v in written
+                    if v.get("bucket") == "gdpr" and v.get("name") == "subject"]
+            if not rows or any(r.get("encryption") != {"erased": True} for r in rows):
+                raise AssertionError(f"GDPR: the deleted row kept its secret: {rows}")
+            if not raw:
+                raise AssertionError("GDPR: every chunk purged before the raw read")
+            for o, ch, data in raw:
+                plain_slice = subj[o:o + ch.length]
+                if np.array_equal(data, plain_slice) or not np.array_equal(
+                        ctr_crypt(data, gsecret, bytes.fromhex(ginfo["encryption"]["iv"]),
+                                  o), plain_slice):
+                    raise AssertionError(f"GDPR raw chunk {ch.name}: not the ciphertext")
+            om.create_bucket("enc", "gfso", rs, layout="FILE_SYSTEM_OPTIMIZED", gdpr=True)
+            fb = oz.get_volume("enc").get_bucket("gfso")
+            names = [f"f{i}" for i in range(gdpr_files)]
+            step("encryption GDPR FSO PUT",
+                 lambda n: fb.write_key(f"dir/sub/{n}", subj[:cell + 11]), names,
+                 "encryption_gdpr_fso_put", codes=True)
+            om.delete_directory("enc", "gfso", "dir", recursive=True)
+            try:
+                t_reap = wait_for("the directory-deleting pass", lambda: sorted(
+                    v.get("file_name") for v in written
+                    if v.get("bucket") == "gfso") == names, 30)
+            finally:
+                store.put = real_put
+            frows = [v for v in written if v.get("bucket") == "gfso"]
+            if any(r.get("encryption") != {"erased": True} for r in frows):
+                raise AssertionError("GDPR FSO: a child kept its secret")
+            print(f"encryption (e): GDPR key deleted: its row's secret erased in the "
+                  f"apply; {len(raw)} raw chunks still on the datanodes ({purged} units "
+                  f"already purged) are ciphertext (only the erased secret decrypts "
+                  f"them); an FSO directory of {gdpr_files} GDPR files deleted "
+                  f"recursively, every child's secret erased ({t_reap:.3f} s to reap)")
+
+            # (f) the transport's refusals, a revocation, a live renewal
+            refused(lambda: RemoteScmClient(meta.address).status(), "UNAVAILABLE",
+                    "a client with no certificate")
+            refused(lambda: RpcDatanodeClient(dns[0].dn.id, dns[0].address).echo(),
+                    "UNAVAILABLE", "a plaintext datanode client")
+            refused(lambda: CertificateClient(root / "rogue", "client-rogue").enroll_remote(
+                meta.enroll_address, secret="wrong"), "IO_EXCEPTION",
+                "a bad enrollment secret")
+            g0 = om.key_block_groups(om.lookup_key("enc", "tde", "k0"))[0]
+            bare = RpcDatanodeClient(g0.pipeline.nodes[0],
+                                     by_id[g0.pipeline.nodes[0]].address, tls=om.tls)
+            refused(lambda: bare.get_block(g0.block_id),
+                    "BLOCK_TOKEN_VERIFICATION_FAILED", "an untokened read over mTLS")
+            bare.close()
+            doomed = enrolled(root / "doomed", "client-doomed")
+            d_scm = RemoteScmClient(meta.address, tls=doomed)
+            d_dn = RpcDatanodeClient(dns[1].dn.id, dns[1].address, tls=doomed)
+            admin = RemoteScmClient(meta.address, tls=om.tls)
+            try:
+                d_scm.status()
+                d_dn.echo()
+                t_rev = time.perf_counter()
+                admin.admin("cert-revoke", str(doomed.serial()))
+
+                def refused_now(fn):
+                    try:
+                        fn()
+                        return False
+                    except StorageError as e:
+                        if e.code != "CERTIFICATE_REVOKED":
+                            raise
+                        return True
+
+                wait_for("the metadata server refuses the revoked",
+                         lambda: refused_now(d_scm.status), 10, 0.01)
+                meta_s = time.perf_counter() - t_rev
+                wait_for("a datanode refuses the revoked",
+                         lambda: refused_now(d_dn.echo), 30, 0.05)
+                dn_s = time.perf_counter() - t_rev
+                issued = admin.admin("cert-list")["result"]
+            finally:
+                d_scm.close()
+                d_dn.close()
+                admin.close()
+            if not any(r["serial"] == doomed.serial() and r["revoked"] for r in issued):
+                raise AssertionError("cert-list does not mark the revoked certificate")
+            out["revoke_s"] = {"meta": meta_s, "datanode": dn_s}
+            # a live renewal of a datanode's certificate under PUTs
+            d0 = dns[0]
+            old = d0.cert_client.cert.serial_number
+            errors: list = []
+            stop = threading.Event()
+            small = rng.integers(0, 256, 6 * cell, dtype=np.uint8)
+
+            def traffic(i):
+                if i == 0:
+                    d0.cert_client.install(
+                        meta.ca.sign_csr(d0.cert_client.make_csr(), valid_days=0),
+                        meta.ca.root_pem)
+                    d0.tls.reload()
+                    if not d0.cert_renewal.check_once():
+                        errors.append("no renewal")
+                    stop.set()
+                    return
+                j = 0
+                while not stop.is_set() or j < n_renew:
+                    try:
+                        tde.write_key(f"renew/{i}/{j}", small)
+                    except Exception as e:  # noqa: BLE001 - the count is the check
+                        errors.append(repr(e))
+                    j += 1
+
+            step("encryption PUTs across a live renewal", traffic, [0, 1, 2],
+                 "encryption_renewal_put", codes=True)
+            new = d0.cert_client.cert.serial_number
+            probe = RpcDatanodeClient(d0.dn.id, d0.address, tls=om.tls)
+            try:
+                probe.echo()
+                served = probe._ch._idle[0].getpeercert(binary_form=True)
+            finally:
+                probe.close()
+            import ssl
+
+            renewed = ssl.PEM_cert_to_DER_cert(d0.cert_client.cert_path.read_text())
+            if errors or new == old or served != renewed:
+                raise AssertionError(f"live renewal: {errors[:3]} {old} {new}")
+            hs = rpc.METRICS.histogram("tls_handshake")
+            n_hs, hs_s = hs.count - hs0[0], hs.total - hs0[1]
+            out["handshake_ms"] = 1e3 * hs_s / max(n_hs, 1)
+            lanes = {k: sum(d.lane_counts()[k] for d in dns) for k in (
+                "native_write_streams", "native_read_streams", "rpc_chunk_calls")}
+            if lanes["native_write_streams"] or lanes["native_read_streams"] or \
+                    not lanes["rpc_chunk_calls"]:
+                raise AssertionError(f"lane counts: {lanes}")
+            print(f"encryption (f): no certificate UNAVAILABLE (metadata server and "
+                  f"datanode), a bad enrollment secret IO_EXCEPTION, no token "
+                  f"BLOCK_TOKEN_VERIFICATION_FAILED; a revoked certificate "
+                  f"CERTIFICATE_REVOKED {meta_s:.3f} s after cert-revoke at the metadata "
+                  f"server, {dn_s:.3f} s at a datanode (its trust refresh every 1 s); "
+                  f"{d0.dn.id}'s certificate renewed live under {2 * n_renew}+ PUTs, no failed "
+                  f"call, new handshakes served serial {new}; {n_hs} TLS handshakes, "
+                  f"{out['handshake_ms']:.2f} ms each (client side); enrollment "
+                  f"{statistics.mean(enroll_s):.3f} s per datanode; lanes {lanes}")
+        finally:
+            if gw is not None:
+                gw.stop()
+            for c in (oz, gw_oz):
+                if c is not None:
+                    c.om.close()
+                    c.clients.close()
+            for d in dns:
+                d.stop()
+            meta.stop()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4935,8 +5460,8 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    # what the encryption slice to come can count on here (never fails)
-    print(f"security probe: {security_probe()}")
+    # the encryption path's host libraries: a missing one fails the run
+    print(f"crypto check: {crypto_check()}")
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
@@ -5040,21 +5565,25 @@ def main() -> int:
         fr = phase("freon_path", freon_path, device, MIB, bpc, args.seed)
         dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
                    statistics.mean(r["gib_s"] for r in put["service"]))
-        # depth cuts for fs_path's room (PERF.md section 4): two S3 clients of four
+        # depth cuts for the later phases' room (PERF.md section 4): two S3
+        # clients of four
         s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed, 2)
-        # depth cut: 8 big keys of 16
-        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed, 8)
-        # depth cut (PERF.md section 4): 250 keys per tinyg run and 50 on the
-        # stripe path, of the cell's 2000 and 500
+        # depth cut: 4 big keys of 16
+        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed, 4)
+        # depth cut: 125 keys per tinyg run and 25 on the stripe path, of the
+        # cell's 2000 and 500
         so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed,
-                   250, 64 * 1024, 50)
-        # depth cut: (a) and (d) take 4 keys of 8, (b) 8 keys of 16
-        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 4, 64 * MIB, 8)
-        # depth cuts for security_path's room (PERF.md section 4): (c) 250
-        # files per thread of 500, (f) 64 files of 128
-        fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed, md_files=250,
-                   n_small=64)
-        sec = phase("security_path", security_path, device, MIB, bpc, args.seed)
+                   125, 64 * 1024, 25)
+        # depth cut: (a) and (d) take 4 keys of 8, (b) 8 keys of 16, (c) 4 of 8
+        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 4, 64 * MIB, 8,
+                   n_ratis=4)
+        # depth cuts: (a) 4 files of 8, (c) 125 files per thread of 500, (f)
+        # 32 files of 128
+        fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed, n_io=4,
+                   md_files=125, n_small=32)
+        # depth cut: one user per tenant of two
+        sec = phase("security_path", security_path, device, MIB, bpc, args.seed, 2, 1)
+        enc = phase("encryption_path", encryption_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -5085,7 +5614,7 @@ def main() -> int:
             "lifecycle_xor_reencode": lc["xor_launches"],
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
-            **sec["launches"],
+            **sec["launches"], **enc["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

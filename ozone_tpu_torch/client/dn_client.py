@@ -8,10 +8,13 @@ the datanode's native datapath, the rest over the RPC) it builds lazily
 on first use. The factory's `TokenStore` holds the block and container
 tokens that rode each allocation and lookup, and every remote client
 attaches them to its verbs; a datanode installs an issuer over its
-imported keys to sign its own repair traffic. Left out: nearest-first
-ordering (`learn_locations` keeps the topology the SCM ships), and the
-TLS identity the reference's clients present (mutual TLS, with the KMS,
-is the next slice).
+imported keys to sign its own repair traffic. On a mutual-TLS cluster
+the factory's `tls` (a TlsMaterial or RotatingTls) is the identity every
+remote client presents (and the native lane is off); a renewal bumps the
+material's `version`, and the remote clients made under the old one are
+retired (closed with the factory: a repair may still be on one) so the
+next call presents the new certificate. Left out: nearest-first ordering
+(`learn_locations` keeps the topology the SCM ships).
 """
 
 from __future__ import annotations
@@ -264,6 +267,10 @@ class DatanodeClientFactory:
         self.tokens = TokenStore()
         #: dn_id -> topology location ("/rack"), learned from the SCM
         self.locations: dict[str, str] = {}
+        #: the identity remote clients present on a mutual-TLS cluster
+        self.tls = None
+        self._tls_ver = None
+        self._retired: list = []
 
     def learn_locations(self, locations: dict[str, str]) -> None:
         if locations:
@@ -302,6 +309,12 @@ class DatanodeClientFactory:
         if c is not None:
             return c
         with self._remote_lock:
+            ver = getattr(self.tls, "version", None)
+            if ver != self._tls_ver:
+                # a renewed identity: clients made under the old one retire
+                self._tls_ver = ver
+                self._retired.extend(self._remote.values())
+                self._remote.clear()
             c = self._remote.get(dn_id)
             if c is None and dn_id in self._addresses:
                 from ozone_tpu_torch.client.native_dn import (
@@ -310,7 +323,8 @@ class DatanodeClientFactory:
 
                 c = self._remote[dn_id] = NativeDatanodeClient(
                     dn_id, self._addresses[dn_id],
-                    native=self.native_datapath, tokens=self.tokens)
+                    native=self.native_datapath, tokens=self.tokens,
+                    tls=self.tls)
             return c
 
     def get(self, dn_id: str):
@@ -321,7 +335,8 @@ class DatanodeClientFactory:
 
     def close(self) -> None:
         with self._remote_lock:
-            clients = list(self._remote.values())
+            clients = list(self._remote.values()) + self._retired
             self._remote.clear()
+            self._retired = []
         for c in clients:
             c.close()

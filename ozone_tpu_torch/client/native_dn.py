@@ -22,9 +22,9 @@ A failed connect makes the next call discover again, so a restarted
 datanode's new sidecar is found. `OZONE_TPU_NATIVE_DATAPATH=0`, or
 `native=False`, keeps the client on the RPC (not counted). Each stream's
 header carries the block token of its factory's `TokenStore`, which the
-sidecar's auth callback verifies once per stream. Left out: the
-reference's partition checks, and its rule that the lane is off under
-TLS (TLS, with the KMS, is the next slice).
+sidecar's auth callback verifies once per stream. With `tls` the lane
+is off (the reference's rule: a mutual-TLS cluster keeps every verb on
+the authenticated RPC). Left out: the reference's partition checks.
 
 Frames (must match `csrc/datapath.cpp`): u32 length | u8 tag | body,
 little-endian; checksums travel as the u32 values of the stored
@@ -182,10 +182,14 @@ class _Conn:
 
 class NativeDatanodeClient(RpcDatanodeClient):
     def __init__(self, dn_id: str, address: str,
-                 native: Optional[bool] = None, tokens=None):
-        super().__init__(dn_id, address, tokens=tokens)
-        #: the native lane is asked for: `native`, or the environment's
-        self._np_enabled = enabled() if native is None else native
+                 native: Optional[bool] = None, tokens=None, tls=None):
+        super().__init__(dn_id, address, tokens=tokens, tls=tls)
+        #: the native lane is asked for: `native`, or the environment's;
+        #: never under TLS (the sidecar is a plaintext side channel, so a
+        #: mutual-TLS cluster keeps every verb on the authenticated RPC,
+        #: as the reference does)
+        self._np_enabled = (enabled() if native is None else native) \
+            and tls is None
         self._np_port: Optional[int] = None
         self._np_uds: Optional[str] = None
         self._np_probed = False

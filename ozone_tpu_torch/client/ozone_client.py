@@ -25,9 +25,20 @@ in the reference. A write handle's `hsync` commits the durable prefix
 mid-write (replicated keys; an EC writer refuses it). `file_checksum`
 composes the whole-key CRC from the chunk CRCs the datanodes store
 (`client/file_checksum.py`); `rename_key`, the fenced `rewrite_key` and
-`copy_key` are the `sh key` verbs of the same names. Left out for later
-slices: encryption (and so encrypted multipart uploads) and snapshot
-paths.
+`copy_key` are the `sh key` verbs of the same names.
+
+Encryption at rest (TDE and GDPR buckets, `utils/kms.py`): the open
+session carries the OM's envelope bundle; the data key is the GDPR
+secret inline or, for TDE, the EDEK unwrapped by the OM's access-checked
+`kms_decrypt` (`_data_key`). A write handle encrypts every byte with
+AES-256-CTR at its running offset before the datapath sees it, so an
+hsync'd prefix reads back; a multipart part is encrypted on its own under
+a fresh IV from offset 0, recorded with the part. A read decrypts the
+range it fetched at its key offset, or, for a multipart key, each part's
+slice at its offset in the part (`enc_parts`). The datanodes, checksums,
+scrubber, reconstruction and tiering see ciphertext only. The S3
+gateway, ofs and HttpFS reach all of it through this client. Left out
+for a later slice: snapshot paths.
 """
 
 from __future__ import annotations
@@ -61,15 +72,28 @@ METRICS = registry("client.ops")
 
 
 class KeyWriteHandle:
-    """Streaming write handle; commits the key on close."""
+    """Streaming write handle; commits the key on close. With `dek` (a
+    TDE or GDPR bucket) every byte is AES-CTR encrypted at its offset in
+    the key before it reaches the datapath."""
 
-    def __init__(self, session: OpenKeySession, om: OzoneManager, writer):
+    def __init__(self, session: OpenKeySession, om: OzoneManager, writer,
+                 dek: Optional[bytes] = None):
         self._session = session
         self._om = om
         self._writer = writer
         self._committed = False
+        self._dek = dek
+        self._iv = (bytes.fromhex(session.encryption["iv"])
+                    if dek is not None else b"")
+        self._enc_offset = 0
 
     def write(self, data) -> None:
+        if self._dek is not None:
+            from ozone_tpu_torch.utils.kms import ctr_crypt
+
+            data = ctr_crypt(hostmem.as_array(data), self._dek, self._iv,
+                             self._enc_offset)
+            self._enc_offset += data.size
         self._writer.write(data)
 
     def hsync(self) -> None:
@@ -119,10 +143,22 @@ class MultipartUpload:
         # the MD5 reads the caller's buffer in place (no copy of the part)
         view = hostmem.as_array(data)
         etag = hashlib.md5(view).hexdigest()
+        iv = ""
+        if session.encryption:
+            # parts are written on their own, in any order: each takes its
+            # own IV and its counter starts at 0
+            import os
+
+            from ozone_tpu_torch.utils.kms import ctr_crypt
+
+            raw = os.urandom(16)
+            view = ctr_crypt(view, self.bucket._data_key(session.encryption),
+                             raw)
+            iv = raw.hex()
         writer.write(view)
         groups = writer.close()
         om.commit_multipart_part(session, part_number, groups,
-                                 writer.bytes_written, etag)
+                                 writer.bytes_written, etag, iv=iv)
         self._etags[part_number] = etag
         return etag
 
@@ -199,13 +235,24 @@ class OzoneBucket:
             self.volume, self.name, key, replication, metadata=metadata)
         return MultipartUpload(self, key, upload_id)
 
+    def _data_key(self, enc: dict) -> Optional[bytes]:
+        """The data key of an envelope bundle: a GDPR secret is inline, a
+        TDE EDEK is unwrapped by the OM (access-checked)."""
+        if not enc:
+            return None
+        if "gdpr_secret" in enc:
+            return bytes.fromhex(enc["gdpr_secret"])
+        return bytes.fromhex(
+            self.client.om.kms_decrypt(self.volume, self.name, enc))
+
     def open_key(self, key: str, replication: Optional[str] = None,
                  metadata: Optional[dict] = None) -> KeyWriteHandle:
         om = self.client.om
         with Tracer.instance().span("om:open_key", key=key):
             session = om.open_key(self.volume, self.name, key, replication,
                                   metadata=metadata)
-        return KeyWriteHandle(session, om, self._make_writer(session))
+        return KeyWriteHandle(session, om, self._make_writer(session),
+                              dek=self._data_key(session.encryption))
 
     def _smallobj_conf(self) -> Optional[dict]:
         """The bucket's small-object thresholds, fetched once per handle
@@ -280,8 +327,6 @@ class OzoneBucket:
         if offset < 0 or length < 0 or offset + length > size:
             raise ValueError(f"range [{offset},{offset + length}) out of "
                              f"bounds for size {size}")
-        if info.get("encryption"):
-            raise ValueError("encrypted keys are not served by this port")
         t0 = time.perf_counter()
         with Tracer.instance().span("client:get", volume=self.volume,
                                     bucket=self.name,
@@ -361,6 +406,30 @@ class OzoneBucket:
         out = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
         if out.size != length:
             raise ValueError(f"key groups cover {out.size} of {length} B")
+        enc = info.get("encryption", {})
+        if enc and length:
+            from ozone_tpu_torch.utils.kms import ctr_crypt
+
+            dek = self._data_key(enc)
+            if "enc_parts" in info:
+                # multipart: each part was encrypted on its own from offset
+                # 0 under its IV; each covered slice decrypts at its offset
+                # in the part
+                segs, ppos = [], 0
+                for p in info["enc_parts"]:
+                    n = int(p["size"])
+                    a = max(offset, ppos)
+                    b = min(offset + length, ppos + n)
+                    if a < b:
+                        segs.append(ctr_crypt(
+                            out[a - offset:b - offset], dek,
+                            bytes.fromhex(p["iv"]), offset=a - ppos))
+                    ppos += n
+                out = (np.concatenate(segs) if segs
+                       else np.zeros(0, np.uint8))
+            else:
+                out = ctr_crypt(out, dek, bytes.fromhex(enc["iv"]),
+                                offset=offset)
         return out
 
     def file_checksum(self, key: str) -> dict:

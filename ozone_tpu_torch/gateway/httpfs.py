@@ -25,8 +25,8 @@ Responses follow the WebHDFS JSON schema (FileStatus.type FILE/DIRECTORY,
 modificationTime in ms, RemoteException envelope on errors). The verbs
 that need snapshots (CREATESNAPSHOT, RENAMESNAPSHOT, DELETESNAPSHOT,
 GETSNAPSHOTDIFF) answer 501 with an UnsupportedOperationException:
-snapshots are not ported yet. Encrypted buckets (the KMS) and TLS are
-the next slice.
+snapshots are not ported yet. Encrypted (TDE and GDPR) buckets are
+served through the client, which encrypts and decrypts.
 """
 
 from __future__ import annotations

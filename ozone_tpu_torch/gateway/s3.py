@@ -38,7 +38,8 @@ module the port does not have yet, the gateway answers as Apache Ozone
 replication), and aws-chunked uploads are not gated on the
 `S3_CHUNKED_UPLOAD` layout feature, which the reference reads from the
 OM's upgrade status (the port has no finalizer, so the feature is always
-finalized). Encrypted buckets (the KMS) and TLS are the next slice. The
+finalized). Encrypted (TDE and GDPR) buckets, multipart uploads
+included, are served through the client, which encrypts and decrypts. The
 wire protocol (paths, query verbs, XML bodies, ETags) follows S3.
 """
 

@@ -8,8 +8,10 @@ co-located behind one server).
 `DatanodeDaemon` serves the datanode verbs (`net/dn_service.py`), starts
 the native chunk datapath sidecar (`storage/fast_datapath.py`) that the
 bulk verbs ride and advertises it through `GetDatapathInfo` (on unless
-OZONE_TPU_NATIVE_DATAPATH=0; a sidecar that cannot be built or bound
-raises, the daemon never serves the RPC alone in its place), registers with the SCM with its filesystem capacity, heartbeats with a
+OZONE_TPU_NATIVE_DATAPATH=0 or the daemon runs TLS; a sidecar that
+cannot be built or bound raises, the daemon never serves the RPC alone
+in its place), registers with the SCM with its filesystem capacity,
+heartbeats with a
 full container report whenever one changed (or every 10 s), and runs the
 commands that come back: close, EC reconstruction on the port's
 `ECReconstructionCoordinator`, replication (a container export pulled
@@ -51,8 +53,8 @@ the background loops; every replica compacts its own raft log. The
 lifecycle sweeper is fenced with the ring's term and runs on the ready
 leader only.
 
-Block tokens (`ScmOmDaemon(block_tokens=True, insecure_secrets=True)`,
-the reference's hdds.block.token.enabled): the SCM mints and rotates the
+Block tokens (`ScmOmDaemon(block_tokens=True, secure=True)`, the
+reference's hdds.block.token.enabled): the SCM mints and rotates the
 secret keys (through the ring under HA), the OM signs a token onto every
 allocation and lookup, and each datanode verifies them on its three
 lanes (the RPC verbs, the native sidecar, the raft pipelines' Submit)
@@ -60,13 +62,34 @@ with one verifier. A datanode turns the verifier on at the first SCM
 answer that says tokens are on, before it holds any key, so it fails
 closed until the keys arrive; it then signs its own reconstruction and
 replication traffic with an issuer over the keys it imported. The keys
-ride Register and Heartbeat in the clear, so tokens need
-`insecure_secrets=True` until mutual TLS is ported: `secure=True` raises
-and names that later slice. `acl_enabled` turns the OM's native
-authorizer on (the superuser root passes every check).
+ride Register and Heartbeat, so tokens need mutual TLS (`secure=True`,
+below), or `insecure_secrets=True`, which sends them in the clear, for
+tests. `acl_enabled`
+turns the OM's native authorizer on (the superuser root passes every
+check).
 
-Left out: mutual TLS and certificate enrolment (with the KMS, the next
-slice), operational state, Recon, the HTTP server, geo replication and
+Mutual TLS (`ScmOmDaemon(secure=True)`, the reference's
+hdds.grpc.tls.enabled posture with the root CA in the SCM): the
+primordial metadata server hosts the cluster CA (`utils/ca.py`, under
+`<db dir>/ca`), enrolls its own certificate (`<db dir>/certs`), serves
+its main RPC over mutual TLS with the CRL checked on every call, and
+signs CSRs on a separate plaintext enrollment server (`enroll_port`,
+gated by `enrollment_secret`); the CA's `cert-list` and `cert-revoke`
+answer there. Another HA replica (`ca_address`) enrolls at the
+primordial one. A secure token-enforcing cluster needs an enrollment
+secret (open CSR signing would let any caller into the trust domain);
+the secret keys then ride only the mutual-TLS Register and Heartbeat.
+`DatanodeDaemon(ca_address=..., enrollment_secret=...)` enrolls at the
+enrollment endpoint (`<root>/certs`, its id among the certificate's
+names), then runs everything over mutual TLS: its server, its SCM
+client, its peers' datapath and raft channels. It starts no native
+sidecar (the reference keeps mTLS clusters on the authenticated
+channel). Its certificate renews in the background, served on the next
+handshake with no restart; the trust bundle and CRL are refreshed with
+it only when a secret authenticates the answers. A failed handshake is
+never retried in plaintext.
+
+Left out: operational state, Recon, the HTTP server, geo replication and
 its cadence, and sharding.
 """
 
@@ -107,6 +130,7 @@ from ozone_tpu_torch.storage.reconstruction import (
     ReconstructionCommand,
 )
 from ozone_tpu_torch.storage.scrubber import SCANNABLE_STATES, DeviceScrubber
+from ozone_tpu_torch.utils.ca import CertRenewalService
 from ozone_tpu_torch.utils.security import (
     BlockTokenIssuer,
     BlockTokenVerifier,
@@ -133,10 +157,16 @@ class DatanodeDaemon:
         heartbeat_interval_s: float = 1.0,
         scan_interval_s: float = 300.0,
         device="cuda",
+        ca_address: Optional[str] = None,
+        enrollment_secret: Optional[str] = None,
     ):
         # first: a datanode that cannot reach its device refuses to start
         self.device = resolve_device(device)
         self.dn = Datanode(Path(root), dn_id=dn_id)
+        #: the live TLS identity (secure clusters) and its renewal loop
+        self.tls = None
+        self.cert_client = None
+        self.cert_renewal: Optional[CertRenewalService] = None
         # token verification on every lane: off until the SCM's first
         # answer says tokens are on, then on before any key arrives
         self.secrets = SecretKeyManager(generate=False)
@@ -144,15 +174,21 @@ class DatanodeDaemon:
         #: the native datapath sidecar, or None when it is turned off
         self.datapath: Optional[DatapathSidecar] = None
         try:
-            if native_dn.enabled():
+            if ca_address is not None:
+                self._enroll(Path(root), dn_id, ca_address, enrollment_secret)
+            if native_dn.enabled() and self.tls is None:
                 self.datapath = DatapathSidecar(self.dn, host=host,
                                                 verifier=self.verifier)
                 self.datapath.start()  # raises when it cannot build or bind
-            self.server = RpcServer(host, port)
+            self.server = RpcServer(host, port, tls=self.tls)
         except BaseException:
             self.stop_datapath()
             self.dn.close()
             raise
+        if self.tls is not None:
+            # refuse peers whose serial the CRL lists (learned with the
+            # MAC'd trust refresh)
+            self.server.crl_provider = self.tls.crl
         self.service = DatanodeRpcService(self.dn, self.server,
                                           datapath_port=self.advertise,
                                           verifier=self.verifier)
@@ -161,15 +197,16 @@ class DatanodeDaemon:
         self.raft_rpc = RaftRpcService(self.server)
         self.xceiver_ratis = RatisXceiverServer(
             self.dn, Path(root), self.server.address,
-            rpc_service=self.raft_rpc)
+            rpc_service=self.raft_rpc, tls=self.tls)
         self.ratis_service = RatisRpcService(self.xceiver_ratis, self.server,
                                              verifier=self.verifier)
         self._groups_file = Path(root) / "ratis" / "groups.json"
-        self.scm = RemoteScmClient(scm_address)
+        self.scm = RemoteScmClient(scm_address, tls=self.tls)
         self.rack = rack
         self.heartbeat_interval = heartbeat_interval_s
         # peer clients for reconstruction and replication
         self.clients = DatanodeClientFactory()
+        self.clients.tls = self.tls
         self.clients.register_local(self.dn)
         self.reconstruction = ECReconstructionCoordinator(
             self.clients, device=self.device)
@@ -189,6 +226,27 @@ class DatanodeDaemon:
     @property
     def address(self) -> str:
         return self.server.address
+
+    def _enroll(self, root: Path, dn_id: str, ca_address: str,
+                secret: Optional[str]) -> None:
+        """Enroll at the CA's plaintext endpoint (once: the certificate
+        persists under <root>/certs), then hold the live identity and its
+        renewal loop. The recurring trust refresh runs only when the
+        secret authenticates its answers: an unauthenticated one would be
+        a standing channel for a rogue CA bundle."""
+        from ozone_tpu_torch.utils.ca import CertificateClient
+
+        cc = self.cert_client = CertificateClient(
+            root / "certs", f"datanode-{dn_id}",
+            hostnames=["localhost", "127.0.0.1", dn_id])
+        if not cc.enrolled:
+            cc.enroll_remote(ca_address, secret=secret)
+        self.tls = cc.rotating_tls()
+        trust = ((lambda: cc.refresh_trust_remote(ca_address, secret=secret))
+                 if secret is not None else None)
+        self.cert_renewal = CertRenewalService(
+            self.tls, lambda: cc.renew_remote(ca_address, secret=secret),
+            trust_fn=trust)
 
     def advertise(self) -> Optional[dict]:
         """GetDatapathInfo's answer: the sidecar's port and unix socket."""
@@ -233,6 +291,8 @@ class DatanodeDaemon:
 
     def start(self) -> None:
         self.server.start()
+        if self.cert_renewal is not None:
+            self.cert_renewal.start()
         self._rejoin_pipelines()
         try:
             self._register()
@@ -447,6 +507,8 @@ class DatanodeDaemon:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.cert_renewal is not None:
+            self.cert_renewal.stop()
         for t in (self._hb, self._scanner):
             if t is not None:
                 t.join(timeout=5)
@@ -482,26 +544,48 @@ class ScmOmDaemon:
         insecure_secrets: bool = False,
         secure: bool = False,
         acl_enabled: bool = False,
+        enroll_port: int = 0,
+        enrollment_secret: Optional[str] = None,
+        ca_address: Optional[str] = None,
     ):
-        if secure:
+        if block_tokens and not secure and not insecure_secrets:
             raise ValueError(
-                "secure=True (mutual TLS, the CA and certificate "
-                "enrolment) is not ported yet: it is the next slice, "
-                "encryption at rest and in transit")
-        if block_tokens and not insecure_secrets:
-            raise ValueError(
-                "block_tokens without mutual TLS would hand the signing "
+                "block_tokens without secure=True would hand the signing "
                 "keys to any caller of Register/Heartbeat; pass "
-                "insecure_secrets=True to accept that (mutual TLS is the "
-                "next slice)")
+                "secure=True (mTLS) or insecure_secrets=True (tests only)")
+        if block_tokens and secure and ca_address is None \
+                and enrollment_secret is None:
+            # open CSR signing would admit any caller into the mutual-TLS
+            # trust domain, where the admin token verbs live: the
+            # bootstrap secret is the cluster's admission credential
+            raise ValueError(
+                "secure block-token clusters require an "
+                "enrollment_secret: open CSR signing would let any "
+                "caller enroll and mint admin tokens")
         self.scm = StorageContainerManager(
             min_datanodes=min_datanodes, container_size=container_size,
             placement_seed=placement_seed, stale_after_s=stale_after_s,
             dead_after_s=dead_after_s, db_path=Path(om_db).parent / "scm.db",
             block_tokens=block_tokens)
-        self.server = RpcServer(host, port)
+        #: secure mode: the live identity, the CA (primordial replica), its
+        #: plaintext enrollment server and the renewal loop
+        self.tls = None
+        self.ca = None
+        self.cert_client = None
+        self.enroll_server: Optional[RpcServer] = None
+        self.cert_renewal: Optional[CertRenewalService] = None
+        self._enrollment_secret = enrollment_secret
+        if secure:
+            self._init_secure(Path(om_db).parent, host, enroll_port,
+                              enrollment_secret, ca_address, ha_id)
+        self.server = RpcServer(host, port, tls=self.tls)
+        if self.tls is not None:
+            self.server.crl_provider = self.tls.crl
         self.scm_service = ScmRpcService(self.scm, self.server)
-        self.scm_service.distribute_secrets = insecure_secrets
+        if insecure_secrets:
+            self.scm_service.distribute_secrets = True
+        if self.ca is not None:
+            self.scm_service.cert_ops = self._cert_ops
         self._wire_pipeline_hooks()
         self.om = OzoneManager(Path(om_db), self.scm, block_size=block_size)
         if acl_enabled:
@@ -562,6 +646,76 @@ class ScmOmDaemon:
     @property
     def address(self) -> str:
         return self.server.address
+
+    @property
+    def enroll_address(self) -> Optional[str]:
+        """The plaintext certificate-enrollment endpoint (secure mode, on
+        the replica that hosts the CA)."""
+        return (self.enroll_server.address
+                if self.enroll_server is not None else None)
+
+    # ----------------------------------------------------------- security
+    def _init_secure(self, meta_dir: Path, host: str, enroll_port: int,
+                     secret: Optional[str], ca_address: Optional[str],
+                     ha_id: Optional[str]) -> None:
+        from ozone_tpu_torch.utils.ca import (
+            CertificateAuthority,
+            CertificateClient,
+            EnrollmentService,
+        )
+
+        # the ring dials its peers with server_name=<ha id>: the
+        # certificate carries it among its names
+        names = ["localhost", "127.0.0.1"] + ([ha_id] if ha_id else [])
+        cc = self.cert_client = CertificateClient(meta_dir / "certs",
+                                                  "scm-om", hostnames=names)
+        if ca_address is not None:
+            # another HA replica: the CA lives on the primordial one
+            if not cc.enrolled:
+                cc.enroll_remote(ca_address, secret=secret)
+            renew = lambda: cc.renew_remote(ca_address,  # noqa: E731
+                                            secret=secret)
+            # no secret, no recurring plaintext trust refresh
+            trust = ((lambda: cc.refresh_trust_remote(ca_address,
+                                                      secret=secret))
+                     if secret is not None else None)
+        else:
+            self.ca = CertificateAuthority(meta_dir / "ca")
+            if not cc.enrolled:
+                cc.enroll(self.ca)
+            self.enroll_server = RpcServer(host, enroll_port)
+            EnrollmentService(self.ca, self.enroll_server, secret=secret)
+            renew = lambda: cc.renew(self.ca)  # noqa: E731
+            trust = lambda: cc.refresh_trust(self.ca)  # noqa: E731
+        self.tls = cc.rotating_tls()
+        self.cert_renewal = CertRenewalService(self.tls, renew,
+                                               trust_fn=trust)
+
+    def _cert_ops(self, op: str, target):
+        """The CA's lifecycle verbs: list the issued certificates, revoke
+        one by serial. This server enforces a new CRL at once; peers learn
+        it on their next trust refresh."""
+        if op == "cert-list":
+            return self.ca.issued()
+        try:
+            serial = int(str(target), 0)
+        except (TypeError, ValueError):
+            raise StorageError("INVALID", f"bad serial {target!r}")
+        try:
+            self.ca.revoke(serial)
+        except ValueError as e:
+            raise StorageError("INVALID", str(e))
+        if self.cert_renewal is not None:
+            self.cert_renewal.check_once()
+        out = {"revoked": serial, "crl": sorted(self.ca.crl())}
+        if self._enrollment_secret is None:
+            # without the secret peers run no trust refresh: the CRL
+            # reaches them at their next renewal only
+            out["warning"] = (
+                "no enrollment secret: datanodes cannot fetch "
+                "CRL updates; revocation takes effect on their "
+                "next renewal, not immediately")
+        return out
 
     # ------------------------------------------------------- SCM hooks
     def _wire_pipeline_hooks(self) -> None:
@@ -642,7 +796,8 @@ class ScmOmDaemon:
         from ozone_tpu_torch.om import requests as rq
 
         raft_rpc = RaftRpcService(self.server)
-        self._ha_transport = RpcRaftTransport("meta-ha", self._ha_peers)
+        self._ha_transport = RpcRaftTransport("meta-ha", self._ha_peers,
+                                              tls=self.tls)
         self.ha = MetaHARing(self.om, self.scm, raft_dir, ha_id,
                              list(self._ha_peers),
                              transport=self._ha_transport)
@@ -723,6 +878,7 @@ class ScmOmDaemon:
         heartbeat-learned address book before each sweep."""
         if self._lifecycle_clients is None:
             self._lifecycle_clients = DatanodeClientFactory()
+            self._lifecycle_clients.tls = self.tls
             self._lifecycle_clients.tokens.issuer = self.om.token_issuer
         for dn_id, addr in dict(self.scm_service.addresses).items():
             # update, not register: an unchanged address keeps its
@@ -767,7 +923,11 @@ class ScmOmDaemon:
             self.lifecycle.compact_slabs_once()
 
     def start(self) -> None:
+        if self.enroll_server is not None:
+            self.enroll_server.start()
         self.server.start()
+        if self.cert_renewal is not None:
+            self.cert_renewal.start()
         if self.ha is not None:
             self.ha.start()
 
@@ -784,11 +944,15 @@ class ScmOmDaemon:
 
     def stop(self) -> None:
         self._bg_stop.set()
+        if self.cert_renewal is not None:
+            self.cert_renewal.stop()
         if self._bg is not None:
             self._bg.join(timeout=30)
         # the server first: calls in flight finish (within its grace)
         # against a ring that still commits
         self.server.stop()
+        if self.enroll_server is not None:
+            self.enroll_server.stop()
         if self.ha is not None:
             self.ha.stop()
             self._ha_transport.close()

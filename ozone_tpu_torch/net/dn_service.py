@@ -15,8 +15,9 @@ needs a block token for its block and mode and a container verb a
 container token for its container, or it is refused with
 BLOCK_TOKEN_VERIFICATION_FAILED (the reference's HddsDispatcher
 validateToken). The client attaches the tokens of its factory's
-`TokenStore`. Left out: layout-version gating, the replication
-throttle, and TLS (with the KMS, the next slice).
+`TokenStore`; under mutual TLS (`tls`) every verb rides the TLS RPC
+(`net/rpc.py`). Left out: layout-version gating and the replication
+throttle.
 """
 
 from __future__ import annotations
@@ -337,18 +338,19 @@ class RpcDatanodeClient:
     """Remote datanode client (the ECXceiverClientGrpc analog). `tokens`
     (the factory's `client/dn_client.TokenStore`) supplies the block and
     container tokens each verb carries; none is attached where it holds
-    none (an insecure cluster ignores them)."""
+    none (an insecure cluster ignores them). `tls` is the caller's
+    identity on a mutual-TLS cluster."""
 
     #: per-verb default timeouts, capped by the ambient operation deadline
     _UNARY_TIMEOUT_S = 30.0
     _STREAM_TIMEOUT_S = 120.0
     _BULK_STREAM_TIMEOUT_S = 300.0
 
-    def __init__(self, dn_id: str, address: str, tokens=None):
+    def __init__(self, dn_id: str, address: str, tokens=None, tls=None):
         self.dn_id = dn_id
         self.address = address
         self.tokens = tokens
-        self._ch = RpcChannel(address)
+        self._ch = RpcChannel(address, tls=tls)
 
     def _call(self, method: str, meta: dict,
               payload=None) -> tuple[dict, memoryview]:

@@ -34,7 +34,13 @@ sends them from `user_context` and its `token`. The verbs: native ACLs
 (ModifyAcl, GetAcls, CheckAccess), S3 bucket grants (SetBucketAcl,
 GetBucketAcl), tenants and access ids, and the delegation tokens' get,
 renew and cancel; allocations carry their block and container tokens.
-Left out: sharding, snapshots, quotas and geo replication.
+Encryption: the KMS verbs (KmsCreateKey, KmsKeyInfo, KmsListKeys,
+KmsDecrypt, the reference's), a bucket's `encryption_key` and `gdpr` on
+CreateBucket, the envelope bundle on the open session's answer (a key's,
+and a multipart upload's from its row), and each part's IV on
+CommitMultipartPart. `RemoteOmClient(tls=...)` dials the mutual-TLS plane
+with its role's certificate. Left out: sharding, snapshots, quotas and
+geo replication.
 """
 
 from __future__ import annotations
@@ -90,7 +96,16 @@ class OmRpcService:
             "CreateBucket": w(lambda m: om.create_bucket(
                 m["volume"], m["bucket"],
                 m.get("replication", "rs-6-3-1024k"),
-                m.get("layout", "OBJECT_STORE"))),
+                m.get("layout", "OBJECT_STORE"),
+                encryption_key=m.get("encryption_key", ""),
+                gdpr=m.get("gdpr", False))),
+            # the KMS (OzoneKMSUtil + KMSClientProvider surface)
+            "KmsCreateKey": w(lambda m: om.kms_create_key(
+                m["name"], rotate=m.get("rotate", False))),
+            "KmsKeyInfo": w(lambda m: om.kms_key_info(m["name"])),
+            "KmsListKeys": w(lambda m: om.kms_list_keys()),
+            "KmsDecrypt": w(lambda m: om.kms_decrypt(
+                m["volume"], m["bucket"], m["bundle"])),
             "CreateBucketLink": w(lambda m: om.create_bucket_link(
                 m["src_volume"], m["src_bucket"], m["volume"], m["bucket"])),
             "DeleteBucket": w(lambda m: om.delete_bucket(m["volume"],
@@ -295,6 +310,7 @@ class OmRpcService:
             # an FSO session carries its tree position across the wire
             "parent_id": s.parent_id,
             "file_name": s.file_name,
+            "encryption": s.encryption,
         })
 
     def _allocate_block(self, req) -> bytes:
@@ -363,7 +379,7 @@ class OmRpcService:
             etag = self.om.commit_multipart_part(
                 _S(), m["part_number"],
                 [_block_group().from_json(g) for g in m["groups"]],
-                m["size"], m["etag"])
+                m["size"], m["etag"], iv=m.get("iv", ""))
         except OMError as e:
             raise StorageError(e.code, e.msg)
         return wire.pack({"result": etag})
@@ -388,6 +404,7 @@ class RemoteOpenKeySession:
         self.expect_generation = -1
         self.parent_id = meta.get("parent_id")
         self.file_name = meta.get("file_name")
+        self.encryption = meta.get("encryption") or {}
 
 
 class RemoteOmClient:
@@ -400,10 +417,12 @@ class RemoteOmClient:
     datanode addresses that allocations and lookups carry. Each call
     carries the caller identity bound by `user_context` (`_user`,
     `_groups`) and the delegation token the client was built with
-    (`_dtoken`, the authenticated path)."""
+    (`_dtoken`, the authenticated path). `tls` (a TlsMaterial or
+    RotatingTls) is the role's identity on a mutual-TLS cluster."""
 
-    def __init__(self, address: str, clients=None, token=None):
-        self._pool = FailoverChannels(address)
+    def __init__(self, address: str, clients=None, token=None, tls=None):
+        self._pool = FailoverChannels(address, tls=tls)
+        self.tls = tls
         self.addresses = self._pool.addresses
         self.address = self.addresses[0]
         self.block_size = 16 * 1024 * 1024
@@ -495,9 +514,24 @@ class RemoteOmClient:
         return self._call("ListVolumes")["result"]
 
     def create_bucket(self, volume, bucket, replication="rs-6-3-1024k",
-                      layout="OBJECT_STORE"):
+                      layout="OBJECT_STORE", encryption_key="", gdpr=False):
         self._call("CreateBucket", volume=volume, bucket=bucket,
-                   replication=replication, layout=layout)
+                   replication=replication, layout=layout,
+                   encryption_key=encryption_key, gdpr=gdpr)
+
+    # the KMS
+    def kms_create_key(self, name, rotate=False):
+        return self._call("KmsCreateKey", name=name, rotate=rotate)["result"]
+
+    def kms_key_info(self, name):
+        return self._call("KmsKeyInfo", name=name)["result"]
+
+    def kms_list_keys(self):
+        return self._call("KmsListKeys")["result"]
+
+    def kms_decrypt(self, volume, bucket, bundle):
+        return self._call("KmsDecrypt", volume=volume, bucket=bucket,
+                          bundle=bundle)["result"]
 
     def create_bucket_link(self, src_volume, src_bucket, volume, bucket):
         self._call("CreateBucketLink", src_volume=src_volume,
@@ -688,16 +722,17 @@ class RemoteOmClient:
             "bytes_per_checksum": info["bytes_per_checksum"],
             "volume": info["volume"],
             "bucket": info["bucket"],
+            "encryption": info.get("encryption", {}),
         })
 
     def commit_multipart_part(self, session, part_number, groups, size,
-                              etag):
+                              etag, iv=""):
         return self._call("CommitMultipartPart", volume=session.volume,
                           bucket=session.bucket, key=session.key,
                           upload_id=session.client_id,
                           part_number=part_number,
                           groups=[g.to_json() for g in groups], size=size,
-                          etag=etag)["result"]
+                          etag=etag, iv=iv)["result"]
 
     def complete_multipart_upload(self, volume, bucket, key, upload_id,
                                   parts):

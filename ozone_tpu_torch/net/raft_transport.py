@@ -8,8 +8,11 @@ registered `RaftNode`. `RpcRaftTransport` is the reference's
 `GrpcRaftTransport` (named after the port's `Rpc*` classes, as
 `RpcServer` is): the `consensus/raft.Transport` that carries the same
 request and response dicts `InProcessTransport` passes directly, so the
-raft core is the same in tests and daemons. Left out: TLS and partition
-injection (the port's RPC has neither yet).
+raft core is the same in tests and daemons. With `tls` the transport
+dials its peers over mutual TLS with `server_name=<peer id>` (a ring
+member's certificate carries its id among its names), and a renewed
+identity (a new `version`) retires the channels made under the old one.
+Left out: partition injection.
 """
 
 from __future__ import annotations
@@ -68,10 +71,16 @@ class RpcRaftTransport(Transport):
     its peers are known) through `set_peer`.
     """
 
-    def __init__(self, group_id: str, peers: dict[str, str],
+    def __init__(self, group_id: str, peers: dict[str, str], tls=None,
                  timeout_s: float = 5.0, vote_timeout_s: float = 1.0):
         self.group_id = group_id
         self._peers = dict(peers)
+        self._tls = tls
+        #: the identity version the cached channels were made under; the
+        #: retired ones are closed with the transport (a raft call may
+        #: still be on one)
+        self._tls_ver = getattr(tls, "version", None)
+        self._retired: list[RpcChannel] = []
         self._timeout = timeout_s
         #: votes get a short deadline: a hung call to a dead peer inside
         #: an election round delays the candidate's next campaign
@@ -92,13 +101,20 @@ class RpcRaftTransport(Transport):
 
     def _channel(self, peer_id: str) -> RpcChannel:
         with self._lock:
+            ver = getattr(self._tls, "version", None)
+            if ver != self._tls_ver:
+                self._retired.extend(self._channels.values())
+                self._channels.clear()
+                self._tls_ver = ver
             ch = self._channels.get(peer_id)
             if ch is None:
                 addr = self._peers.get(peer_id)
                 if not addr:
                     raise ConnectionError(
                         f"no address for raft peer {peer_id}")
-                ch = self._channels[peer_id] = RpcChannel(addr)
+                ch = self._channels[peer_id] = RpcChannel(
+                    addr, tls=self._tls,
+                    server_name=peer_id if self._tls is not None else None)
             return ch
 
     def send(self, peer_id: str, method: str, req: dict) -> dict:
@@ -118,7 +134,8 @@ class RpcRaftTransport(Transport):
 
     def close(self) -> None:
         with self._lock:
-            chans = list(self._channels.values())
+            chans = list(self._channels.values()) + self._retired
             self._channels.clear()
+            self._retired = []
         for ch in chans:
             ch.close()

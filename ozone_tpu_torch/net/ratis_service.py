@@ -118,9 +118,9 @@ class LocalRatisClient:
 
 
 class RemoteRatisClient:
-    def __init__(self, dn_id: str, address: str):
+    def __init__(self, dn_id: str, address: str, tls=None):
         self.dn_id = dn_id
-        self._ch = RpcChannel(address)
+        self._ch = RpcChannel(address, tls=tls)
 
     def submit(self, pipeline_id, request, timeout=30.0):
         raw = self._ch.call(SERVICE, "Submit", wire.pack({
@@ -149,7 +149,11 @@ class RatisClientFactory:
     """dn_id -> RatisClient resolver, local first, like
     `client/dn_client.DatanodeClientFactory`."""
 
-    def __init__(self, address_source=None):
+    def __init__(self, address_source=None, tls=None):
+        #: the identity remote clients present on a mutual-TLS cluster;
+        #: a renewal (a new `version`) rebuilds them
+        self.tls = tls
+        self._tls_ver = getattr(tls, "version", None)
         self._local: dict[str, LocalRatisClient] = {}
         self._remote_addr: dict[str, str] = {}
         self._remote: dict[str, RemoteRatisClient] = {}
@@ -185,12 +189,17 @@ class RatisClientFactory:
             if fresh:
                 self.register_remote(dn_id, fresh)
         with self._lock:
+            ver = getattr(self.tls, "version", None)
+            if ver != self._tls_ver:
+                self._tls_ver = ver
+                self._remote.clear()  # in-flight calls finish on theirs
             c = self._remote.get(dn_id)
             if c is None:
                 addr = self._remote_addr.get(dn_id)
                 if addr is None:
                     return None
-                c = self._remote[dn_id] = RemoteRatisClient(dn_id, addr)
+                c = self._remote[dn_id] = RemoteRatisClient(dn_id, addr,
+                                                            tls=self.tls)
             return c
 
     def close(self) -> None:

@@ -23,8 +23,28 @@ pooled. Clients keep idle connections per channel; the server hands one
 call at a time from a connection to a worker pool of the reference's
 size (16) and watches idle connections with a selector.
 
-Left out: TLS and certificate revocation, admission control and
-partition injection.
+TLS (the reference's grpc.tls.enabled mode): `RpcServer(tls=...,
+mutual=True)` wraps each accepted connection in the material's server
+context (a `utils/ca.py` TlsMaterial or RotatingTls, whose context is
+read at every accept, so a renewed certificate serves the next
+handshake); the handshake runs on a worker under its own deadline, never
+on the selector thread, so a silent or slow peer holds no other
+connection up. `mutual` requires a client certificate that chains to the
+CA bundle. After each call a TLS connection whose next frame already
+sits decrypted in the SSL buffer (`pending()`) is served at once, since
+its socket would never turn readable for the selector. With a
+`crl_provider` the server checks the peer certificate's serial on every
+call and answers CERTIFICATE_REVOKED (the reference's code) for a
+revoked one. `RpcChannel(address, tls=..., server_name=...)` dials TLS
+with its role's chain and checks the server's name (`server_name`, or
+"localhost", the SAN every certificate carries). A handshake the peer
+refuses, or a TLS 1.3 client certificate it turns away at the first
+read, is UNAVAILABLE, as the reference's gRPC status; nothing retries in
+plaintext. `FailoverChannels` drops its channels when the material's
+`version` changes. The `rpc` registry's `tls_handshake` histogram times
+each client handshake.
+
+Left out: admission control and partition injection.
 """
 
 from __future__ import annotations
@@ -33,6 +53,7 @@ import json
 import logging
 import selectors
 import socket
+import ssl
 import struct
 import threading
 import time
@@ -42,9 +63,13 @@ from typing import Callable, Iterable, Optional
 
 from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.storage.ids import StorageError
+from ozone_tpu_torch.utils.metrics import registry
 from ozone_tpu_torch.utils.tracing import Tracer
 
 log = logging.getLogger(__name__)
+
+#: client TLS handshakes (`tls_handshake` seconds)
+METRICS = registry("rpc")
 
 #: the reference's grpc.max_send/receive_message_length
 MAX_MESSAGE = 128 * 1024 * 1024
@@ -199,14 +224,44 @@ class _FrameIter:
             pass
 
 
+#: DER certificate -> serial, for the per-call revocation check (bounded)
+_SERIAL_CACHE: dict = {}
+
+
+def _peer_serial(conn) -> Optional[int]:
+    der = conn.getpeercert(binary_form=True)
+    if not der:
+        return None
+    serial = _SERIAL_CACHE.get(der)
+    if serial is None:
+        from cryptography import x509
+
+        serial = x509.load_der_x509_certificate(der).serial_number
+        if len(_SERIAL_CACHE) > 256:
+            _SERIAL_CACHE.clear()
+        _SERIAL_CACHE[der] = serial
+    return serial
+
+
 class RpcServer:
-    """One listening socket hosting any number of named services."""
+    """One listening socket hosting any number of named services; with
+    `tls`, over TLS (client certificates required unless `mutual=False`)."""
 
     #: longest a call may take to arrive or be answered on one connection
     CALL_TIMEOUT_S = 600.0
+    #: longest a TLS handshake may take once the client's hello arrived
+    HANDSHAKE_TIMEOUT_S = 10.0
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 max_workers: int = 16):
+                 max_workers: int = 16, tls=None, mutual: bool = True):
+        self._tls = tls
+        self._mutual = mutual
+        self.tls_enabled = tls is not None
+        #: callable() -> set of revoked certificate serials, read on every
+        #: call so a new CRL applies at once; None = no revocation check
+        self.crl_provider = None
+        #: TLS connections accepted whose handshake has not run yet
+        self._handshaking: set = set()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         _tune(self._sock)
@@ -263,7 +318,20 @@ class RpcServer:
                     except OSError:
                         continue
                     conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                    if self._tls is not None:
+                        try:
+                            conn = self._tls.server_context(
+                                self._mutual).wrap_socket(
+                                conn, server_side=True,
+                                do_handshake_on_connect=False)
+                        except (OSError, ValueError):
+                            conn.close()
+                            continue
                     with self._lock:
+                        if self._tls is not None:
+                            # the handshake runs on a worker once the
+                            # client's hello makes the socket readable
+                            self._handshaking.add(conn)
                         self._conns.add(conn)
                     self._sel.register(conn, selectors.EVENT_READ)
                 elif obj is self._wake_r:
@@ -291,19 +359,47 @@ class RpcServer:
         with self._lock:
             self._conns.discard(conn)
             self._active.discard(conn)
+            self._handshaking.discard(conn)
             self._lock.notify_all()
         try:
             conn.close()
         except OSError:
             pass
 
+    def _handshake(self, conn) -> bool:
+        """Run a TLS connection's handshake under its deadline; False when
+        it failed (a plaintext peer, an untrusted or missing certificate,
+        a peer that went silent mid-handshake)."""
+        try:
+            conn.settimeout(self.HANDSHAKE_TIMEOUT_S)
+            conn.do_handshake()
+        except (OSError, ValueError) as e:
+            log.debug("rpc server %s: TLS handshake failed: %r",
+                      self.address, e)
+            return False
+        with self._lock:
+            self._handshaking.discard(conn)
+        return True
+
     def _serve_one(self, conn: socket.socket) -> None:
         keep = False
         try:
-            keep = self._handle_call(conn)
+            if conn in self._handshaking:
+                # the call follows on its own; an idle socket goes back to
+                # the selector rather than holding this worker
+                keep = self._handshake(conn)
+            else:
+                keep = self._handle_call(conn)
+            # a TLS connection's next frame may already be decrypted in
+            # the SSL buffer, where the selector cannot see it
+            while keep and not self._stopped.is_set() \
+                    and isinstance(conn, ssl.SSLSocket) \
+                    and conn.pending() > 0:
+                keep = self._handle_call(conn)
         except _Transport:
-            pass
+            keep = False
         except Exception:
+            keep = False
             log.exception("rpc server %s: connection failed", self.address)
         if keep and not self._stopped.is_set():
             with self._lock:
@@ -340,6 +436,14 @@ class RpcServer:
                 "IO_EXCEPTION", f"UNIMPLEMENTED: no {kind} method {key}")])],
                 t_end)
             return True
+        revoked = self._revoked(conn)
+        if revoked is not None:
+            if frames is not None:
+                frames.drain()
+            _send(conn, [(ERROR, [_error_body(
+                "CERTIFICATE_REVOKED", f"serial {revoked} is revoked")])],
+                t_end)
+            return True
         fn = entry[1]
         tracer = Tracer.instance()
         try:
@@ -368,6 +472,17 @@ class RpcServer:
             return True
         _send(conn, [(DATA, _parts(out))], t_end)
         return True
+
+    def _revoked(self, conn) -> Optional[int]:
+        """The peer certificate's serial when the CRL lists it (the
+        handshake cannot consult a live CRL, so every call does)."""
+        if self.crl_provider is None or not isinstance(conn, ssl.SSLSocket):
+            return None
+        crl = self.crl_provider()
+        if not crl:
+            return None
+        serial = _peer_serial(conn)
+        return serial if serial is not None and serial in crl else None
 
     def stop(self, grace: Optional[float] = 0.5) -> None:
         """Stop accepting, close idle connections, let calls in flight
@@ -407,14 +522,19 @@ class RpcServer:
 
 # ------------------------------------------------------------------ client
 class RpcChannel:
-    """Client side of one server address: calls on pooled connections."""
+    """Client side of one server address: calls on pooled connections;
+    with `tls`, over TLS presenting this role's certificate and checking
+    the server's name (`server_name`, or "localhost")."""
 
     #: idle connections kept per channel
     MAX_IDLE = 32
     CONNECT_TIMEOUT_S = 10.0
 
-    def __init__(self, address: str):
+    def __init__(self, address: str, tls=None,
+                 server_name: Optional[str] = None):
         self.address = address
+        self._tls = tls
+        self._server_name = server_name or "localhost"
         host, _, port = address.rpartition(":")
         self._target = (host or "127.0.0.1", int(port))
         self._idle: list[socket.socket] = []
@@ -431,6 +551,8 @@ class RpcChannel:
         """An idle pooled connection is usable when nothing is waiting on
         it: EOF means the server closed it, stray bytes that it is out of
         step."""
+        if isinstance(sock, ssl.SSLSocket):
+            return RpcChannel._tls_alive(sock)
         try:
             sock.setblocking(False)
             try:
@@ -441,6 +563,28 @@ class RpcChannel:
             finally:
                 sock.setblocking(True)
         except OSError:
+            return False
+
+    @staticmethod
+    def _tls_alive(sock: ssl.SSLSocket) -> bool:
+        """The same check on TLS, which takes no MSG_PEEK: decrypted bytes
+        waiting, EOF, or application data on a non-blocking read mean the
+        connection is out of step (any byte read is the discarded
+        connection's); a read that wants more (a record that is not
+        application data, or nothing) means it is usable."""
+        if sock.pending() > 0:
+            return False
+        try:
+            sock.setblocking(False)
+            try:
+                sock.recv(1)
+                return False  # data or EOF
+            except (ssl.SSLWantReadError, ssl.SSLWantWriteError,
+                    BlockingIOError):
+                return True
+            finally:
+                sock.setblocking(True)
+        except (OSError, ValueError):
             return False
 
     def _acquire(self, t_end: Optional[float]) -> socket.socket:
@@ -465,7 +609,28 @@ class RpcChannel:
             sock.close()
             raise _Transport(f"connect failed: {e!r}") from e
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        if self._tls is not None:
+            sock = self._wrap(sock, t_end)
         return sock
+
+    def _wrap(self, sock: socket.socket, t_end) -> ssl.SSLSocket:
+        """The TLS handshake on a new connection, within the connect
+        deadline; a refusal is a transport failure, never a plaintext
+        retry."""
+        t0 = time.perf_counter()
+        try:
+            tls_sock = self._tls.client_context().wrap_socket(
+                sock, server_hostname=self._server_name,
+                do_handshake_on_connect=False)
+            left = self.CONNECT_TIMEOUT_S if t_end is None else min(
+                self.CONNECT_TIMEOUT_S, t_end - time.monotonic())
+            tls_sock.settimeout(max(left, 0.001))
+            tls_sock.do_handshake()
+        except (OSError, ValueError) as e:
+            sock.close()
+            raise _Transport(f"TLS handshake failed: {e!r}") from e
+        METRICS.histogram("tls_handshake").observe(time.perf_counter() - t0)
+        return tls_sock
 
     def _release(self, sock: socket.socket, ok: bool) -> None:
         if ok:
@@ -596,11 +761,16 @@ class FailoverChannels:
     sticky index that follows leader hints or rotates on unreachable
     replicas. Shared by the remote OM and SCM clients."""
 
-    def __init__(self, address: str):
+    def __init__(self, address: str, tls=None):
         self.addresses = [a.strip() for a in address.split(",")
                           if a.strip()]
         if not self.addresses:
             raise ValueError("empty address list")
+        self._tls = tls
+        #: the material's version (RotatingTls) the cached channels were
+        #: made under: a renewal retires them, parked until close() since
+        #: a call in flight may still be on one
+        self._tls_ver = getattr(tls, "version", None)
         self._chs: dict[str, RpcChannel] = {}
         #: channels of replicas retired by reconcile(); closed with the pool
         self._retired: list[RpcChannel] = []
@@ -614,10 +784,15 @@ class FailoverChannels:
 
     def channel(self, addr: Optional[str] = None) -> tuple[str, RpcChannel]:
         with self._lock:
+            ver = getattr(self._tls, "version", None)
+            if ver != self._tls_ver:
+                self._retired.extend(self._chs.values())
+                self._chs.clear()
+                self._tls_ver = ver
             a = addr if addr is not None else self.addresses[self._idx]
             ch = self._chs.get(a)
             if ch is None:
-                ch = self._chs[a] = RpcChannel(a)
+                ch = self._chs[a] = RpcChannel(a, tls=self._tls)
             return a, ch
 
     def rotate(self) -> None:

@@ -19,11 +19,15 @@ container close through the ring, and `ring_provider` ships the ring's
 addresses on every register and heartbeat answer, which the remote
 client adopts. On a token-enforcing SCM every register and heartbeat
 answer says so (`block_tokens`), and carries the live secret keys when
-`distribute_secrets` is on (the reference's SecretKeyProtocol); the
-remote client merges them into `security` for the datanode daemon. The
-operator's `block-token` and `container-token` verbs mint tokens for
-dn-direct tools (`AdminTokenFetcher` is a TokenStore issuer over them).
-Left out: the certificate verbs and TLS (with the KMS, the next slice),
+`distribute_secrets` is on (the reference's SecretKeyProtocol): it is
+on exactly when the server runs TLS (only an enrolled caller gets
+through the handshake), or under the daemon's tests-only
+`insecure_secrets`; the remote client merges them into `security` for
+the datanode daemon. The operator's `block-token` and `container-token`
+verbs mint tokens for dn-direct tools (`AdminTokenFetcher` is a
+TokenStore issuer over them); `cert-list` and `cert-revoke` answer on
+the replica that hosts the cluster CA (the daemon sets `cert_ops`).
+`RemoteScmClient(tls=...)` dials the mutual-TLS plane. Left out:
 decommission, the balancer and pipeline verbs.
 """
 
@@ -110,11 +114,14 @@ def deserialize_command(d: dict):
 class ScmRpcService:
     def __init__(self, scm: "StorageContainerManager", server: RpcServer):
         self.scm = scm
-        #: secret keys leave the SCM only where the operator allowed it:
-        #: with no mutual TLS (a later slice), any caller of Register or
-        #: Heartbeat could read them and mint its own tokens, so the
-        #: daemon turns this on only under insecure_secrets
-        self.distribute_secrets = False
+        #: secret keys leave the SCM only over mutual TLS, where every
+        #: caller holds a CA-issued certificate; without it any caller of
+        #: Register or Heartbeat could read them and mint its own tokens
+        #: (the daemon's tests-only insecure_secrets turns it on anyway)
+        self.distribute_secrets = server.tls_enabled
+        #: (op, target) -> answer of the CA's lifecycle verbs, set by a
+        #: daemon that hosts the cluster CA
+        self.cert_ops = None
         #: dn_id -> RPC address, learned at registration
         self.addresses: dict[str, str] = {}
         #: serializes the SCM's state between the RPC workers, the OM's
@@ -234,6 +241,13 @@ class ScmRpcService:
             out = self.ring_ops(op, target)
             return wire.pack(out if op == "ring-transfer"
                              else {"members": out})
+        if op in ("cert-list", "cert-revoke"):
+            # answered by the replica that hosts the root CA
+            if self.cert_ops is None:
+                raise StorageError(
+                    "UNSUPPORTED_REQUEST",
+                    "this replica does not host the cluster CA")
+            return wire.pack({"result": self.cert_ops(op, target)})
         if op == "close-container":
             if self.gate is not None:
                 self.gate()
@@ -320,8 +334,8 @@ class RemoteScmClient:
     stick to one replica and rotate when it is unreachable, with the
     failover loop's backoff."""
 
-    def __init__(self, address: str):
-        self._pool = FailoverChannels(address)
+    def __init__(self, address: str, tls=None):
+        self._pool = FailoverChannels(address, tls=tls)
         self.addresses = self._pool.addresses
         #: the security fields of the latest register and heartbeat
         #: answers ({"block_tokens": bool, "secret_keys": [...]}); the

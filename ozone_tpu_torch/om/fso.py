@@ -18,11 +18,12 @@ Object ids are allocated in pre_execute on the leader and carried inside
 the request, so a follower's apply on the metadata ring is deterministic
 (the OMClientRequest preExecute/validateAndUpdateCache contract). The
 requests, error codes and rows are the reference's, field for field.
-An open carries the explicit ACLs a caller fixed for the file (as
-`requests.OpenKey` does). Left out, as the port's OBS commit and
-`om/multipart.py` leave them out: the snapshots' copy-on-write pre-images
-of FSO rows (no snapshots in the port yet), and the envelope-encryption
-bundle an open may carry (KMS is a later slice).
+An open carries the explicit ACLs a caller fixed for the file and the
+envelope-encryption bundle the OM minted for it (as `requests.OpenKey`
+does); a GDPR file's secret is erased in the apply that deletes it,
+directly or through the directory-deleting service. Left out, as the
+port's OBS commit and `om/multipart.py` leave them out: the snapshots'
+copy-on-write pre-images of FSO rows (no snapshots in the port yet).
 """
 
 from __future__ import annotations
@@ -189,6 +190,9 @@ class OpenFile(OMRequest):
     new_dir_ids: list[str] = field(default_factory=list)
     created: float = 0.0
     metadata: dict = field(default_factory=dict)
+    #: the envelope-encryption bundle (TDE EDEK / GDPR secret) the OM
+    #: minted at open (see requests.OpenKey.encryption)
+    encryption: dict = field(default_factory=dict)
     #: stable identity of this file version (OmKeyInfo objectID) —
     #: rename-carried, overwrite-fresh; snapdiff pairs rows by it
     file_id: str = ""
@@ -236,6 +240,8 @@ class OpenFile(OMRequest):
             row["metadata"] = dict(self.metadata)
         if self.acls:
             row["acls"] = list(self.acls)
+        if self.encryption:
+            row["encryption"] = dict(self.encryption)
         store.put("open_keys", f"{fk}/{self.client_id}", row)
         return parent
 

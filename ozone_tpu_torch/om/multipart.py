@@ -10,8 +10,11 @@ its own block groups; complete stitches the listed parts in part-number
 order into the key row and routes every replaced or orphaned part's
 blocks into the deleted-keys purge chain. Rows are the reference's JSON.
 The open-key expiry seals an expired hsync session by lease recovery.
-Left out: snapshot pre-images (snapshots are not ported) and encrypted
-uploads.
+An encrypted upload (a TDE or GDPR bucket) holds one envelope bundle for
+all its parts; each part is encrypted on its own under its own IV,
+recorded with the part, and the completed key lists each part's size
+and IV (`enc_parts`) for the reader. Left out: snapshot pre-images
+(snapshots are not ported).
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ class InitiateMultipartUpload(rq.OMRequest):
     metadata: dict = field(default_factory=dict)
     #: LEGACY bucket: the key is normalized; enforce filesystem shape
     fs_paths: bool = False
+    #: TDE/GDPR: one envelope bundle for the whole upload; each part
+    #: encrypts on its own under it with a per-part IV
+    encryption: dict = field(default_factory=dict)
 
     def pre_execute(self, om) -> None:
         self.created = time.time()
@@ -91,6 +97,8 @@ class InitiateMultipartUpload(rq.OMRequest):
                 "created": self.created,
                 "parts": {},
                 "metadata": dict(self.metadata),
+                **({"encryption": dict(self.encryption)}
+                   if self.encryption else {}),
             },
         )
         return self.upload_id
@@ -110,6 +118,9 @@ class CommitMultipartPart(rq.OMRequest):
     etag: str
     block_groups: list[dict] = field(default_factory=list)
     ts: float = 0.0
+    #: the CTR IV this part's ciphertext was made with (an encrypted
+    #: upload)
+    iv: str = ""
 
     def pre_execute(self, om) -> None:
         self.ts = time.time()
@@ -131,6 +142,7 @@ class CommitMultipartPart(rq.OMRequest):
             "etag": self.etag,
             "block_groups": self.block_groups,
             "modified": self.ts,
+            **({"iv": self.iv} if self.iv else {}),
         }
         store.put("multipart", mk, mpu)
         return self.etag
@@ -218,6 +230,12 @@ class CompleteMultipartUpload(rq.OMRequest):
         }
         if mpu.get("metadata"):
             info["metadata"] = mpu["metadata"]
+        if mpu.get("encryption"):
+            info["encryption"] = mpu["encryption"]
+            # each part has its own IV: the reader decrypts the stitched
+            # stream part by part
+            info["enc_parts"] = [{"size": p["size"], "iv": p["iv"]}
+                                 for p in listed]
         store.put("keys", kk, info)
         store.delete("multipart", mk)
         return info

@@ -24,9 +24,16 @@ authorizer (`om/acl.py`, on with `enable_acls`) checks the caller bound
 by `user_context` at each verb the reference checks; tenants map S3
 access ids to their volumes; block tokens (`enable_block_tokens`) ride
 every allocation and lookup; delegation tokens (`om/dtokens.py`) are
-got, renewed, cancelled and purged through replicated requests. Left out
-for later slices: encryption (the KMS, TDE and GDPR), sharding, the
-upgrade finalizer and its layout gate, snapshots and geo replication.
+got, renewed, cancelled and purged through replicated requests.
+Encryption (`utils/kms.py`): the master keys live in this OM's store
+(`self.kms`); a TDE bucket's open (a key, an FSO file, a multipart
+upload) mints a fresh EDEK under the bucket's master key, a GDPR
+bucket's a per-key secret, and the bundle rides the replicated open
+(`_mint_encryption`); `kms_create_key` (superuser), `kms_key_info`,
+`kms_list_keys`, and `kms_decrypt`, which unwraps only a bundle of the
+bucket's own master key for a caller that may read or write the bucket.
+Left out for later slices: sharding, the upgrade finalizer and its
+layout gate, snapshots and geo replication.
 """
 
 from __future__ import annotations
@@ -87,6 +94,8 @@ class OpenKeySession:
         #: FSO sessions carry their resolved tree position
         self.parent_id: Optional[str] = info.get("parent_id")
         self.file_name: Optional[str] = info.get("file_name")
+        #: the TDE or GDPR bundle the OM minted at open ({} = plaintext)
+        self.encryption: dict = info.get("encryption", {})
 
 
 class OzoneManager:
@@ -128,6 +137,11 @@ class OzoneManager:
         self.dtoken_renew_interval_s = 24 * 3600.0
         self.dtoken_max_lifetime_s = 7 * 24 * 3600.0
         self.dtoken_key_lifetime_s = 30 * 24 * 3600.0
+        # the TDE key authority (OzoneKMSUtil / KMSClientProvider): the
+        # master keys live in the replicated store
+        from ozone_tpu_torch.utils.kms import KeyProvider
+
+        self.kms = KeyProvider(self.store)
 
     # ----------------------------------------------------------- acl/tenant
     def enable_acls(self, superusers=("root",)) -> None:
@@ -351,11 +365,14 @@ class OzoneManager:
     # ----------------------------------------------------------- buckets
     def create_bucket(self, volume: str, bucket: str,
                       replication: str = "rs-6-3-1024k",
-                      layout: str = "OBJECT_STORE") -> None:
+                      layout: str = "OBJECT_STORE", encryption_key: str = "",
+                      gdpr: bool = False) -> None:
         self.check_access(volume, None, None, "CREATE")
         # fail fast on a bad scheme string instead of at the first PUT
         ReplicationConfig.parse(replication)
-        self.submit(rq.CreateBucket(volume, bucket, replication, layout))
+        self.submit(rq.CreateBucket(volume, bucket, replication, layout,
+                                    encryption_key=encryption_key,
+                                    gdpr=gdpr))
 
     def create_bucket_link(self, src_volume: str, src_bucket: str,
                            volume: str, bucket: str) -> None:
@@ -424,6 +441,46 @@ class OzoneManager:
     def _is_legacy(binfo: dict) -> bool:
         return binfo.get("layout") == "LEGACY"
 
+    # ----------------------------------------------------------- TDE/KMS
+    def _mint_encryption(self, binfo: dict) -> dict:
+        """The per-key envelope bundle of an encrypted or GDPR bucket
+        (generateEncryptedKey at open); {} for a plaintext bucket."""
+        import os
+
+        if binfo.get("encryption_key"):
+            return self.kms.generate_edek(binfo["encryption_key"])
+        if binfo.get("gdpr"):
+            return {"gdpr_secret": os.urandom(32).hex(),
+                    "iv": os.urandom(16).hex()}
+        return {}
+
+    def kms_create_key(self, name: str, rotate: bool = False) -> dict:
+        self._check_superuser()  # the key authority's verbs are admin-only
+        return self.submit(rq.CreateMasterKey(name, rotate=rotate))
+
+    def kms_key_info(self, name: str) -> dict:
+        return self.kms.master_info(name)
+
+    def kms_list_keys(self) -> list[str]:
+        return self.kms.master_key_names()
+
+    def kms_decrypt(self, volume: str, bucket: str, bundle: dict) -> str:
+        """EDEK -> DEK (hex) for a caller that may read or write the
+        bucket. The bundle must be of this bucket's master key, or a READ
+        on any bucket would unwrap any bucket's EDEKs (a confused
+        deputy)."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        binfo = self.bucket_info(volume, bucket)
+        if binfo.get("encryption_key") != bundle.get("master"):
+            raise rq.OMError(
+                rq.PERMISSION_DENIED,
+                "EDEK was not issued for this bucket's master key")
+        try:
+            self.check_access(volume, bucket, None, "READ")
+        except rq.OMError:
+            self.check_access(volume, bucket, None, "WRITE")
+        return self.kms.unwrap_edek(bundle).hex()
+
     # ----------------------------------------------------------- keys
     def open_key(
         self,
@@ -447,9 +504,11 @@ class OzoneManager:
                     rq.INVALID_REQUEST,
                     f"bad per-key replication {replication!r}: {e}")
         client_id = uuid.uuid4().hex[:16]
+        enc = self._mint_encryption(binfo)
         if self._is_fso(binfo):
             parent = self.submit(fso.OpenFile(volume, bucket, key, client_id,
                                               repl, metadata=metadata or {},
+                                              encryption=enc,
                                               acls=acls or []))
             name = fso.split_path(key)[-1]
             open_k = f"{fso.dir_key(volume, bucket, parent, name)}/{client_id}"
@@ -459,7 +518,7 @@ class OzoneManager:
                 key = rq.normalize_fs_path(key)
             self.submit(rq.OpenKey(volume, bucket, key, client_id, repl,
                                    metadata=metadata or {}, fs_paths=legacy,
-                                   acls=acls or []))
+                                   encryption=enc, acls=acls or []))
             open_k = f"{key_key(volume, bucket, key)}/{client_id}"
         info = self.store.get("open_keys", open_k)
         self.metrics.counter("keys_opened").inc()
@@ -1004,7 +1063,8 @@ class OzoneManager:
         self, volume: str, bucket: str, key: str,
         replication: Optional[str] = None, metadata: Optional[dict] = None,
     ) -> str:
-        legacy = self._is_legacy(self.bucket_info(volume, bucket))
+        binfo = self.bucket_info(volume, bucket)
+        legacy = self._is_legacy(binfo)
         if legacy:
             key = rq.normalize_fs_path(key)
         if replication:
@@ -1016,7 +1076,8 @@ class OzoneManager:
                     f"bad per-key replication {replication!r}: {e}")
         return self.submit(mpu.InitiateMultipartUpload(
             volume, bucket, key, replication=replication or "",
-            metadata=metadata or {}, fs_paths=legacy))
+            metadata=metadata or {}, fs_paths=legacy,
+            encryption=self._mint_encryption(binfo)))
 
     def multipart_info(self, volume: str, bucket: str, key: str,
                        upload_id: str) -> dict:
@@ -1037,10 +1098,10 @@ class OzoneManager:
 
     def commit_multipart_part(self, session, part_number: int,
                               groups: list[BlockGroup], size: int,
-                              etag: str) -> str:
+                              etag: str, iv: str = "") -> str:
         return self.submit(mpu.CommitMultipartPart(
             session.volume, session.bucket, session.key, session.client_id,
-            part_number, size, etag, [g.to_json() for g in groups]))
+            part_number, size, etag, [g.to_json() for g in groups], iv=iv))
 
     def complete_multipart_upload(self, volume: str, bucket: str, key: str,
                                   upload_id: str, parts: list[dict]) -> dict:

@@ -19,10 +19,16 @@ filesystem attributes on the bucket row. The multipart requests are in
 security requests: native ACL changes on volume, bucket, key and prefix
 rows (`ModifyAcl`, with the OBS/FSO key resolution of `_acl_target`), the
 S3 bucket grants (`SetBucketAcl`), tenants and their access ids, and the
-delegation tokens' master keys, rows, renewals, cancels and purge. Left
-out for later slices: snapshots (and so their copy-on-write pre-images,
-which an ACL change on a key would also keep), the KMS master keys and
-encryption bundles, geo replication, quotas' set and repair verbs.
+delegation tokens' master keys, rows, renewals, cancels and purge.
+Encryption: a bucket's KMS master key (`encryption_key`, checked against
+the KMS at create) or its GDPR flag, the envelope bundle an open carries
+in the replicated request (`OpenKey.encryption`: an EDEK, or a GDPR
+bucket's per-key secret), the master keys' mint and rotation
+(`CreateMasterKey`), and the GDPR secret erased in the apply that
+deletes or overwrites a key (`erase_gdpr_secret`). Left out for later
+slices: snapshots (and so their copy-on-write pre-images, which an ACL
+change on a key would also keep), geo replication, quotas' set and
+repair verbs.
 `to_json` and `from_json` are the reference's wire form for the
 replicated log (`om/ha.py`, `consensus/meta_ring.py`).
 """
@@ -156,6 +162,12 @@ class CreateBucket(OMRequest):
     #: operations resolve to the source bucket
     source_volume: str = ""
     source_bucket: str = ""
+    #: TDE: the KMS master key every key of this bucket gets an EDEK
+    #: under (BucketEncryptionKeyInfo); "" = plaintext
+    encryption_key: str = ""
+    #: GDPR right to erasure: a per-key secret destroyed in the apply
+    #: that deletes the key
+    gdpr: bool = False
 
     #: the reference's three bucket layouts: OBS (flat object table),
     #: FSO (directory tree tables, `om/fso.py`) and LEGACY (flat table
@@ -164,6 +176,9 @@ class CreateBucket(OMRequest):
 
     def pre_execute(self, om) -> None:
         self.created = time.time()
+        if self.encryption_key:
+            # fail at the create, not at the first write
+            om.kms.master_info(self.encryption_key)
 
     def apply(self, store):
         from ozone_tpu_torch.om.acl import inherit_defaults
@@ -186,6 +201,10 @@ class CreateBucket(OMRequest):
             "created": self.created,
             "acls": inherit_defaults(vrow.get("acls", [])),
         }
+        if self.encryption_key:
+            row["encryption_key"] = self.encryption_key
+        if self.gdpr:
+            row["gdpr"] = True
         if self.source_volume and self.source_bucket:
             # links may be created before their source: a dangling link
             # resolves lazily and errors on use
@@ -485,6 +504,10 @@ class OpenKey(OMRequest):
     #: user metadata (the S3 x-amz-meta-* pairs), kept on the key row
     metadata: dict = field(default_factory=dict)
     fs_paths: bool = False
+    #: the envelope bundle the OM minted at open (an EDEK for a TDE
+    #: bucket, the per-key secret for a GDPR one); it rides the replicated
+    #: request, so every replica stores the same bundle
+    encryption: dict = field(default_factory=dict)
     #: stable identity of this key version (OmKeyInfo objectID)
     key_id: str = ""
     #: explicit key ACLs fixed at open (OmKeyArgs acls); empty = the
@@ -520,6 +543,8 @@ class OpenKey(OMRequest):
             row["acls"] = list(self.acls)
         if self.fs_paths:
             row["fs_paths"] = True  # the commit materializes parent markers
+        if self.encryption:
+            row["encryption"] = dict(self.encryption)
         store.put("open_keys", f"{kk}/{self.client_id}", row)
 
 
@@ -1456,3 +1481,36 @@ class PurgeExpiredDTokens(OMRequest):
             if row["expires"] < self.now and kid not in live_keys:
                 store.delete("dtoken_keys", kid)
         return dropped
+
+
+@dataclass
+class CreateMasterKey(OMRequest):
+    """Mint (or rotate) a named KMS master key. The material is made in
+    pre_execute on the leader and replicates through the log, so every
+    replica can unwrap EDEKs (the metadata ring is the key authority)."""
+
+    name: str
+    rotate: bool = False
+    material: str = ""
+
+    def pre_execute(self, om) -> None:
+        import os
+
+        self.material = os.urandom(32).hex()
+
+    def apply(self, store):
+        from ozone_tpu_torch.utils.kms import MASTER_PREFIX
+
+        k = MASTER_PREFIX + self.name
+        row = store.get("system", k)
+        if row is None:
+            if self.rotate:
+                raise OMError(INVALID_REQUEST,
+                              f"no master key {self.name!r} to rotate")
+            row = {"versions": []}
+        elif not self.rotate:
+            raise OMError(INVALID_REQUEST,
+                          f"master key {self.name!r} exists")
+        row["versions"].append(self.material)
+        store.put("system", k, row)
+        return {"name": self.name, "versions": len(row["versions"])}

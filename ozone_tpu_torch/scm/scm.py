@@ -17,9 +17,10 @@ on a single node and through the metadata ring under HA (the daemon's
 every register and heartbeat answer. Of the admin verbs,
 `apply_admin_op` serves the two the HA ring replicates: the container
 close and the key import (`net/scm_service.py` reads the rest locally).
-Left out for later slices: the CA and its certificates (with TLS and the
-KMS, the next slice), layout versions, the balancer, decommission and
-maintenance, and the background thread a daemon runs the loops on.
+The cluster CA lives beside it in the metadata daemon (`utils/ca.py`,
+`net/daemons.ScmOmDaemon(secure=True)`). Left out for later slices:
+layout versions, the balancer, decommission and maintenance, and the
+background thread a daemon runs the loops on.
 """
 
 from __future__ import annotations

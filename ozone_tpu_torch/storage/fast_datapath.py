@@ -21,8 +21,9 @@ three callbacks, each run once per stream:
 The chunk bytes land exactly where the RPC verbs put them (one file per
 block, chunks at their offsets, zero-filled short reads), and a sync
 stream is fsynced by the native side before the commit callback runs.
-The token check runs in Python, once per stream. Left out: the
-reference's layout gate; the lane is plaintext (TLS is the next slice).
+The token check runs in Python, once per stream. The lane is plaintext,
+so a mutual-TLS datanode starts no sidecar (as the reference). Left out:
+the reference's layout gate.
 A sidecar whose library cannot be built, or whose listener cannot bind,
 raises: a datanode asked for the native datapath never serves the RPC
 verbs alone in its place.

@@ -108,8 +108,11 @@ class RatisXceiverServer:
     def __init__(self, dn: Datanode, root: Path, node_address: str,
                  rpc_service=None,
                  config: RaftConfig = RaftConfig(),
-                 auto_timers: bool = True):
+                 auto_timers: bool = True, tls=None):
         self.dn = dn
+        #: the datanode's identity on a mutual-TLS cluster: the groups'
+        #: transports dial their peers with it
+        self.tls = tls
         self.root = Path(root)
         self.node_address = node_address
         self.rpc_service = rpc_service  # net/raft_transport.RaftRpcService
@@ -160,7 +163,7 @@ class RatisXceiverServer:
             if transport is None:
                 from ozone_tpu_torch.net.raft_transport import RpcRaftTransport
 
-                transport = RpcRaftTransport(gid, dict(peers))
+                transport = RpcRaftTransport(gid, dict(peers), tls=self.tls)
                 self._transports[gid] = transport
             sm = ContainerStateMachine(self.dn)
             node = RaftNode(

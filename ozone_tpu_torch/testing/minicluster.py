@@ -16,7 +16,14 @@ runs its plain version).
 `MiniOzoneHACluster` (the reference's MiniOzoneHAClusterImpl) boots N
 `ScmOmDaemon` replicas on one metadata ring over the port's RPC and M
 `DatanodeDaemon`s heartbeating every replica, hands out failover-aware
-clients, and stops and revives replicas by id. `make_meta_daemon` and
+clients, and stops and revives replicas by id. With `secure=True` every
+channel runs mutual TLS: the first replica hosts the cluster CA and its
+enrollment endpoint (`enroll_address`), the other replicas and the
+datanodes enroll there with `enrollment_secret`, and `client()` presents
+a client certificate enrolled the same way. The OM's KMS (TDE and GDPR
+buckets) needs nothing more: `om.kms_create_key`, then
+`om.create_bucket(..., encryption_key=...)` or `gdpr=True`, on either
+cluster. `make_meta_daemon` and
 `await_meta_leader` are the helpers the HA tests share. The sharded
 cluster is not ported.
 """
@@ -231,21 +238,29 @@ def free_ports(n: int) -> list[int]:
 class MiniOzoneHACluster:
     """A metadata ring of `num_meta` ScmOmDaemons and `num_datanodes`
     DatanodeDaemons (on `racks` racks, round robin) in one process, all
-    over the port's RPC. Extra keywords go to every ScmOmDaemon."""
+    over the port's RPC (mutual TLS with `secure`). Extra keywords go to
+    every ScmOmDaemon."""
 
     def __init__(self, root: Path, num_meta: int = 3,
                  num_datanodes: int = 5,
                  block_size: int = 256 * 1024,
                  heartbeat_interval_s: float = 0.15,
-                 device="cuda", racks: int = 1, **meta_kw):
+                 device="cuda", racks: int = 1, secure: bool = False,
+                 enrollment_secret: str = "mini-cluster-secret", **meta_kw):
         from ozone_tpu_torch.net.daemons import DatanodeDaemon
 
         self.root = Path(root)
         self.block_size = block_size
         self.device = device
         self._meta_kw = meta_kw
+        ports = free_ports(num_meta + 1)
         self.peers = {f"m{i}": f"127.0.0.1:{p}"
-                      for i, p in enumerate(free_ports(num_meta))}
+                      for i, p in enumerate(ports[:num_meta])}
+        #: the primordial replica's enrollment endpoint (secure clusters)
+        self.secure = secure
+        self.enrollment_secret = enrollment_secret
+        self.enroll_address = f"127.0.0.1:{ports[-1]}" if secure else None
+        self._client_tls = None
         self.metas: dict = {}
         self.datanodes: list = []
         try:
@@ -259,7 +274,10 @@ class MiniOzoneHACluster:
                 d = DatanodeDaemon(self.root / f"dn{i}", f"dn{i}", scm_addrs,
                                    rack=f"/rack{i % racks}",
                                    heartbeat_interval_s=heartbeat_interval_s,
-                                   device=device)
+                                   device=device,
+                                   ca_address=self.enroll_address,
+                                   enrollment_secret=(enrollment_secret
+                                                      if secure else None))
                 d.start()
                 self.datanodes.append(d)
         except BaseException:
@@ -268,8 +286,27 @@ class MiniOzoneHACluster:
 
     def _make_meta(self, mid: str):
         kw = dict(block_size=self.block_size, device=self.device)
+        if self.secure:
+            kw.update(secure=True, enrollment_secret=self.enrollment_secret)
+            if mid == "m0":  # the primordial replica hosts the CA
+                kw["enroll_port"] = int(self.enroll_address.rsplit(":", 1)[1])
+            else:
+                kw["ca_address"] = self.enroll_address
         kw.update(self._meta_kw)
         return make_meta_daemon(self.root, int(mid[1:]), self.peers, **kw)
+
+    def client_tls(self):
+        """The clients' certificate (secure clusters; None otherwise),
+        enrolled once under <root>/client-certs."""
+        if self.secure and self._client_tls is None:
+            from ozone_tpu_torch.utils.ca import CertificateClient
+
+            cc = CertificateClient(self.root / "client-certs", "client-cli")
+            if not cc.enrolled:
+                cc.enroll_remote(self.enroll_address,
+                                 secret=self.enrollment_secret)
+            self._client_tls = cc.tls()
+        return self._client_tls
 
     # ------------------------------------------------------------ control
     def await_leader(self, timeout: float = 15.0) -> str:
@@ -292,11 +329,13 @@ class MiniOzoneHACluster:
         from ozone_tpu_torch.net.scm_service import RemoteScmClient
 
         addrs = ",".join(self.peers.values())
+        tls = self.client_tls()
         clients = DatanodeClientFactory()
-        om = RemoteOmClient(addrs, clients=clients)
+        clients.tls = tls
+        om = RemoteOmClient(addrs, clients=clients, tls=tls)
         # datanode addresses up front, so a client that reads before it
         # writes resolves the replicas
-        scm = RemoteScmClient(addrs)
+        scm = RemoteScmClient(addrs, tls=tls)
         try:
             for dn_id, addr in scm.node_addresses().items():
                 clients.register_remote(dn_id, addr)
@@ -304,7 +343,8 @@ class MiniOzoneHACluster:
             pass  # learned from the allocations instead
         finally:
             scm.close()
-        ratis = RatisClientFactory(address_source=clients.remote_address)
+        ratis = RatisClientFactory(address_source=clients.remote_address,
+                                   tls=tls)
         return OzoneClient(om, clients, device=self.device,
                            ratis_clients=ratis)
 

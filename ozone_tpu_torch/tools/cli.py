@@ -37,6 +37,18 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools tenant create acme --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools tenant assign acme --user alice
     python -m ozone_tpu_torch.tools sh token get --renewer yarn --token t.json
+    python -m ozone_tpu_torch.tools scm-om --db /data/om.db --port 9860 \
+        --secure --enroll-port 9861 --enrollment-secret S --block-tokens
+    python -m ozone_tpu_torch.tools datanode --root /data/dn0 \
+        --scm 127.0.0.1:9860 --ca 127.0.0.1:9861 --enrollment-secret S
+    OZONE_TPU_CERT_DIR=~/.ozone-certs OZONE_TPU_ENROLL=127.0.0.1:9861 \
+        OZONE_TPU_ENROLL_SECRET=S python -m ozone_tpu_torch.tools \
+        admin kms create-key mk1 --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools sh bucket create /v/enc \
+        --encryption-key mk1 --om 127.0.0.1:9860   # or --gdpr
+    python -m ozone_tpu_torch.tools admin cert list --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools admin cert revoke <serial> --om ...
+    python -m ozone_tpu_torch.tools cluster --datanodes 9 --secure
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -51,8 +63,12 @@ list; the clients follow the leader. On a token-enforcing cluster
 (`scm-om --block-tokens --insecure-secrets`) the clients read the
 posture from the SCM's status and fetch operator tokens for their
 dn-direct verbs (`AdminTokenFetcher`); the `acl`, `tenant` and
-`sh token` verbs act as the login user. Errors print as `error CODE:
-message` and exit 1.
+`sh token` verbs act as the login user. On a mutual-TLS cluster
+(`scm-om --secure`; `cluster --secure` runs one with block tokens) every
+client command presents the certificate under OZONE_TPU_CERT_DIR, which
+it enrolls at OZONE_TPU_ENROLL (with OZONE_TPU_ENROLL_SECRET) on first
+use; without it the mutual-TLS plane refuses the command's connections.
+Errors print as `error CODE: message` and exit 1.
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ import argparse
 import json
 import logging
 import os
+import secrets
 import signal
 import subprocess
 import sys
@@ -91,6 +108,35 @@ def _device(args) -> str:
     return args.device
 
 
+_TLS: list = []
+
+
+def _client_tls():
+    """This process's client identity on a mutual-TLS cluster (the
+    reference's environment): the certificate under OZONE_TPU_CERT_DIR,
+    enrolled on first use at OZONE_TPU_ENROLL with OZONE_TPU_ENROLL_SECRET;
+    None without OZONE_TPU_CERT_DIR (plaintext)."""
+    if _TLS:
+        return _TLS[0]
+    cert_dir = os.environ.get("OZONE_TPU_CERT_DIR")
+    if not cert_dir:
+        return None
+    from ozone_tpu_torch.utils.ca import CertificateClient
+
+    cc = CertificateClient(Path(cert_dir).expanduser(), "client-cli")
+    if not cc.enrolled:
+        enroll = os.environ.get("OZONE_TPU_ENROLL")
+        if not enroll:
+            raise StorageError(
+                "NOT_ENROLLED", "OZONE_TPU_CERT_DIR is set but holds no "
+                "certificate; set OZONE_TPU_ENROLL to the enrollment "
+                "address")
+        cc.enroll_remote(enroll,
+                         secret=os.environ.get("OZONE_TPU_ENROLL_SECRET"))
+    _TLS.append(cc.tls())
+    return _TLS[0]
+
+
 class _Session:
     """A remote OM client and the datanode factory it feeds, closed on
     exit; `client(device)` is an OzoneClient over them."""
@@ -100,9 +146,11 @@ class _Session:
         from ozone_tpu_torch.net.om_service import RemoteOmClient
         from ozone_tpu_torch.net.scm_service import RemoteScmClient
 
+        tls = _client_tls()
         self.clients = DatanodeClientFactory()
-        self.om = RemoteOmClient(om_address, clients=self.clients)
-        self.scm = RemoteScmClient(om_address)
+        self.clients.tls = tls
+        self.om = RemoteOmClient(om_address, clients=self.clients, tls=tls)
+        self.scm = RemoteScmClient(om_address, tls=tls)
 
     def learn_cluster(self) -> None:
         """Learn the datanodes up front (ecrd and repairs dial nodes no
@@ -194,7 +242,7 @@ def _sh_token(args, verb: str) -> int:
             return 2
         _emit(tok)
         return 0
-    om = RemoteOmClient(args.om)
+    om = RemoteOmClient(args.om, tls=_client_tls())
     try:
         if verb == "get":
             if not args.renewer:
@@ -251,7 +299,9 @@ def cmd_sh(args) -> int:
             if verb == "create":
                 om.create_bucket(vol, bucket,
                                  args.replication or "rs-6-3-1024k",
-                                 args.layout)
+                                 args.layout,
+                                 encryption_key=args.encryption_key,
+                                 gdpr=args.gdpr)
             elif verb == "link":
                 if not args.to:
                     return _usage("bucket link requires --to /volume/bucket")
@@ -330,7 +380,7 @@ def cmd_acl(args) -> int:
     vol = parts[0]
     bucket = parts[1] if len(parts) > 1 else ""
     path = "/".join(parts[2:]) if len(parts) > 2 else ""
-    om = RemoteOmClient(args.om)
+    om = RemoteOmClient(args.om, tls=_client_tls())
     try:
         with om.user_context(getpass.getuser()):
             if args.verb == "get":
@@ -351,7 +401,7 @@ def cmd_tenant(args) -> int:
 
     from ozone_tpu_torch.net.om_service import RemoteOmClient
 
-    om = RemoteOmClient(args.om)
+    om = RemoteOmClient(args.om, tls=_client_tls())
     try:
         with om.user_context(getpass.getuser()):
             if args.verb == "create":
@@ -381,7 +431,7 @@ def cmd_fs(args) -> int:
     rm, recover-lease)."""
     from ozone_tpu_torch.net.om_service import RemoteOmClient
 
-    om = RemoteOmClient(args.om)
+    om = RemoteOmClient(args.om, tls=_client_tls())
     try:
         vol, bucket, *rest = _parse_path(args.path)
         path = "/".join(rest)
@@ -411,7 +461,7 @@ def cmd_fs(args) -> int:
 def cmd_admin(args) -> int:
     from ozone_tpu_torch.net.scm_service import RemoteScmClient
 
-    scm = RemoteScmClient(args.om)
+    scm = RemoteScmClient(args.om, tls=_client_tls())
     try:
         subject, verb, target = args.subject, args.verb, args.target
         if subject == "status":
@@ -423,13 +473,46 @@ def cmd_admin(args) -> int:
             from ozone_tpu_torch.net.om_service import RemoteOmClient
 
             parts = _parse_path(target or "")
-            om = RemoteOmClient(args.om)
+            om = RemoteOmClient(args.om, tls=_client_tls())
             try:
                 _emit(om.list_open_files(
                     parts[0] if parts else "",
                     parts[1] if len(parts) > 1 else "",
                     prefix=args.prefix, start_after=args.start_after,
                     limit=args.limit if args.limit is not None else 100))
+            finally:
+                om.close()
+        elif subject == "cert":
+            # the CA's lifecycle, answered by the replica that hosts it
+            if verb in (None, "list"):
+                _emit(scm.admin("cert-list", None))
+            elif verb == "revoke":
+                if not target:
+                    return _usage("cert revoke needs the certificate serial")
+                _emit(scm.admin("cert-revoke", target))
+            else:
+                return _usage(f"unknown cert verb {verb!r} "
+                              "(expected list|revoke <serial>)")
+        elif subject == "kms":
+            # the TDE master keys (ozone admin + the KMS's keyadmin)
+            from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+            om = RemoteOmClient(args.om, tls=_client_tls())
+            try:
+                if verb in ("create-key", "rotate-key", "info") \
+                        and not target:
+                    return _usage(f"kms {verb} needs a key name")
+                if verb == "create-key":
+                    _emit(om.kms_create_key(target))
+                elif verb == "rotate-key":
+                    _emit(om.kms_create_key(target, rotate=True))
+                elif verb in (None, "list"):
+                    _emit(om.kms_list_keys())
+                elif verb == "info":
+                    _emit(om.kms_key_info(target))
+                else:
+                    return _usage(f"unknown kms verb {verb!r} (expected "
+                                  "create-key|rotate-key|list|info)")
             finally:
                 om.close()
         elif subject == "safemode":
@@ -533,7 +616,7 @@ def cmd_lifecycle(args) -> int:
     rules, enforced by the metadata daemon's sweeper."""
     from ozone_tpu_torch.net.om_service import RemoteOmClient
 
-    om = RemoteOmClient(args.om)
+    om = RemoteOmClient(args.om, tls=_client_tls())
     try:
         verb = args.verb
         if verb == "run-now":
@@ -661,12 +744,15 @@ def cmd_datanode(args) -> int:
     d = DatanodeDaemon(Path(args.root), dn_id, args.scm, port=args.port,
                        rack=args.rack,
                        heartbeat_interval_s=args.heartbeat_interval,
-                       scan_interval_s=args.scan_interval, device=device)
+                       scan_interval_s=args.scan_interval, device=device,
+                       ca_address=args.ca or None,
+                       enrollment_secret=args.enrollment_secret or None)
     d.start()
     lane = d.advertise()
     native = f"{lane['port']} uds={lane['uds']}" if lane else "off"
     print(f"datanode {dn_id} serving on {d.address}, scm={args.scm}, "
-          f"native datapath={native}, device={d.device}", flush=True)
+          f"native datapath={native}, device={d.device}"
+          + (", mutual TLS" if d.tls is not None else ""), flush=True)
     rc = _serve(d.stop)
     print(f"datanode {dn_id} stopped; chunk streams by lane: "
           f"{json.dumps(d.lane_counts())}", flush=True)
@@ -690,7 +776,10 @@ def cmd_scm_om(args) -> int:
                         ha_id=args.ha_id if ha_peers else None,
                         ha_peers=ha_peers, block_tokens=args.block_tokens,
                         insecure_secrets=args.insecure_secrets,
-                        acl_enabled=args.acl_enabled)
+                        acl_enabled=args.acl_enabled, secure=args.secure,
+                        enroll_port=args.enroll_port,
+                        enrollment_secret=args.enrollment_secret or None,
+                        ca_address=args.ca or None)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -698,7 +787,10 @@ def cmd_scm_om(args) -> int:
     print(f"scm+om serving on {d.address}"
           + (f" as HA node {args.ha_id}" if ha_peers else "")
           + (" [block tokens]" if args.block_tokens else "")
-          + (" [acls]" if args.acl_enabled else ""), flush=True)
+          + (" [acls]" if args.acl_enabled else "")
+          + (f" [mutual TLS, enrollment on {d.enroll_address}]"
+             if d.enroll_address else
+             " [mutual TLS]" if args.secure else ""), flush=True)
     return _serve(d.stop)
 
 
@@ -767,19 +859,44 @@ def cmd_cluster(args) -> int:
                     f"{p.returncode} (see the logs in {root})")
 
     om = f"127.0.0.1:{args.port}"
-    scm = RemoteScmClient(om)
+    enroll = f"127.0.0.1:{args.port + 1}"
+    secret = args.enrollment_secret or (
+        secrets.token_hex(16) if args.secure else "")
+    scm = None
     try:
-        # all at once: a datanode that comes up before the metadata server
-        # registers on a later heartbeat
-        security = (["--block-tokens", "--insecure-secrets"]
-                    if args.block_tokens else [])
+        # all at once (a datanode that comes up before the metadata server
+        # registers on a later heartbeat), but for the enrollment below
+        if args.secure:
+            # mutual TLS with block tokens: the keys ride only the mTLS
+            # plane, and the datanodes enroll with the cluster's secret
+            security = ["--block-tokens", "--secure", "--enroll-port",
+                        str(args.port + 1), "--enrollment-secret", secret]
+            dn_security = ["--ca", enroll, "--enrollment-secret", secret]
+        else:
+            security = (["--block-tokens", "--insecure-secrets"]
+                        if args.block_tokens else [])
+            dn_security = []
         if args.acl_enabled:
             security.append("--acl-enabled")
         spawn(["scm-om", "--db", str(root / "om.db"), "--port",
                str(args.port), "--device", device, *security], "scm-om.log")
+        tls = None
+        if args.secure:
+            # the supervisor's own client certificate (the one the "cluster
+            # up" line hands to the user's commands), enrolled before the
+            # datanodes start: they enroll at construction
+            from ozone_tpu_torch.utils.ca import CertificateClient
+
+            cc = CertificateClient(root / "client-certs", "client-cli")
+            _wait("the enrollment endpoint did not answer",
+                  lambda: cc.enroll_remote(enroll, secret=secret) or True,
+                  120, children_alive)
+            tls = cc.tls()
         for i in range(args.datanodes):
             spawn(["datanode", "--root", str(root / f"dn{i}"), "--scm", om,
-                   "--id", f"dn{i}", "--device", device], f"dn{i}.log")
+                   "--id", f"dn{i}", "--device", device, *dn_security],
+                  f"dn{i}.log")
+        scm = RemoteScmClient(om, tls=tls)
         _wait("the datanodes did not register",
               lambda: len(scm.status()["nodes"]) >= args.datanodes, 120,
               children_alive)
@@ -787,9 +904,13 @@ def cmd_cluster(args) -> int:
         teardown()
         raise
     finally:
-        scm.close()
+        if scm is not None:
+            scm.close()
     print(f"cluster up: om={om} datanodes={args.datanodes} device={device} "
-          f"root={root} pids={[p.pid for p in procs]}", flush=True)
+          f"root={root} pids={[p.pid for p in procs]}"
+          + (f" secure: enroll={enroll} secret={secret} "
+             f"cert_dir={root / 'client-certs'}" if args.secure else ""),
+          flush=True)
     return _serve(teardown)
 
 
@@ -818,6 +939,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["OBJECT_STORE", "FILE_SYSTEM_OPTIMIZED",
                              "LEGACY"],
                     help="bucket create: the bucket layout")
+    sh.add_argument("--encryption-key", default="",
+                    help="bucket create: TDE under this KMS master key "
+                         "(admin kms create-key first)")
+    sh.add_argument("--gdpr", action="store_true",
+                    help="bucket create: a GDPR bucket (each key's secret "
+                         "is destroyed when the key is deleted)")
     sh.add_argument("--token", default="",
                     help="token get/renew/cancel/print: the token's file")
     sh.add_argument("--renewer", default="",
@@ -828,11 +955,14 @@ def build_parser() -> argparse.ArgumentParser:
     ad = sub.add_parser("admin", help="cluster admin (ozone admin)")
     ad.add_argument("subject", choices=["status", "safemode", "container",
                                         "om", "ring-status", "ring-add",
-                                        "ring-remove", "ring-transfer"])
+                                        "ring-remove", "ring-transfer",
+                                        "cert", "kms"])
     ad.add_argument("verb", nargs="?", default=None,
                     help="container: list|info <id>|close <id>; om: "
                          "list-open-files [/volume[/bucket]]; ring-add: "
-                         "<id>=<host:port>; ring-remove, ring-transfer: <id>")
+                         "<id>=<host:port>; ring-remove, ring-transfer: <id>; "
+                         "cert: list|revoke <serial>; kms: create-key|"
+                         "rotate-key|info <name>, list")
     ad.add_argument("target", nargs="?", default=None)
     ad.add_argument("--om", default="127.0.0.1:9860")
     ad.add_argument("--prefix", default="",
@@ -948,6 +1078,11 @@ def build_parser() -> argparse.ArgumentParser:
     dn.add_argument("--heartbeat-interval", type=float, default=1.0)
     dn.add_argument("--scan-interval", type=float, default=300.0,
                     help="seconds between background scrubs (0: none)")
+    dn.add_argument("--ca", default="",
+                    help="the CA's enrollment address (host:port): enroll, "
+                         "then serve and dial everything over mutual TLS")
+    dn.add_argument("--enrollment-secret", default="",
+                    help="the shared bootstrap secret of CSR signing")
     device_flag(dn)
     dn.set_defaults(fn=cmd_datanode)
 
@@ -972,8 +1107,20 @@ def build_parser() -> argparse.ArgumentParser:
     security_flags(so)
     so.add_argument("--insecure-secrets", action="store_true",
                     help="hand the token keys out on Register and "
-                         "Heartbeat in the clear (required with "
-                         "--block-tokens until mutual TLS is ported)")
+                         "Heartbeat in the clear (tests only; --secure "
+                         "sends them over mutual TLS)")
+    so.add_argument("--secure", action="store_true",
+                    help="host the cluster CA and serve over mutual TLS "
+                         "(hdds.grpc.tls.enabled)")
+    so.add_argument("--enroll-port", type=int, default=0,
+                    help="the plaintext certificate-enrollment port "
+                         "(secure mode)")
+    so.add_argument("--enrollment-secret", default="",
+                    help="the shared bootstrap secret that gates CSR "
+                         "signing (required with --secure --block-tokens)")
+    so.add_argument("--ca", default="",
+                    help="the primordial metadata server's enrollment "
+                         "address (a secure HA replica enrolls there)")
     device_flag(so)
     so.set_defaults(fn=cmd_scm_om)
 
@@ -1008,6 +1155,14 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument("--root", default="",
                     help="data directory (default: a fresh temporary one)")
     security_flags(cl)
+    cl.add_argument("--secure", action="store_true",
+                    help="mutual TLS with block tokens: the scm-om hosts "
+                         "the CA (enrollment on --port + 1), the datanodes "
+                         "enroll, and a client certificate is enrolled "
+                         "under <root>/client-certs")
+    cl.add_argument("--enrollment-secret", default="",
+                    help="--secure: the bootstrap secret (default: a "
+                         "random one, printed)")
     device_flag(cl)
     cl.set_defaults(fn=cmd_cluster)
     return ap

@@ -337,6 +337,7 @@ def test_requests_roundtrip_wire_form():
             rq.RenewDelegationToken("x", "r", 4.0, 5.0),
             rq.CancelDelegationToken("x", "o"),
             rq.PurgeExpiredDTokens(6.0),
+            rq.CreateMasterKey("mk", rotate=True, material="00" * 32),
         ]
 
     for rq in (t_rq, j_rq):
@@ -344,10 +345,12 @@ def test_requests_roundtrip_wire_form():
             assert rq.OMRequest.from_json(r.to_json()) == r
     assert [r.to_json() for r in reqs(t_rq)] == \
         [r.to_json() for r in reqs(j_rq)]
-    # an open's wire form carries its explicit ACLs on both sides
-    t = t_rq.OpenKey("v", "b", "k", "c", EC, acls=["a"]).to_json()
-    j = j_rq.OpenKey("v", "b", "k", "c", EC, acls=["a"]).to_json()
-    j.pop("encryption")
+    # an open's wire form carries its explicit ACLs and its encryption
+    # bundle on both sides
+    t = t_rq.OpenKey("v", "b", "k", "c", EC, acls=["a"],
+                     encryption={"iv": "00" * 16}).to_json()
+    j = j_rq.OpenKey("v", "b", "k", "c", EC, acls=["a"],
+                     encryption={"iv": "00" * 16}).to_json()
     assert t == j
 
 

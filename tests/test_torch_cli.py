@@ -17,7 +17,12 @@ replica and `admin ring-transfer` to a follower. The filesystem verbs:
 `fs mkdir|ls|stat|rm|recover-lease`, `sh key rename|checksum|cat|cp|
 rewrite`, `admin om list-open-files`, `freon fskg|fsg`, and an `httpfs`
 and a `csi` process; `sh key checksum` and the `fs` verbs import no
-torch.
+torch. Encryption: `admin kms create-key|rotate-key|list|info`, `sh
+bucket create --encryption-key|--gdpr` and a byte-exact `sh key put/get`
+of a TDE key on the plaintext cluster; then `cluster --secure` as a
+process (mutual TLS with block tokens, a client certificate enrolled for
+the user), driven with OZONE_TPU_CERT_DIR: the same TDE round trip,
+`admin cert list|revoke`, and a command without the certificate refused.
 """
 
 import json
@@ -647,3 +652,129 @@ def test_scm_om_ring_status_and_transfer(tmp_path, sh):
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+
+
+def test_kms_verbs_and_encrypted_buckets(live_cluster, sh, tmp_path):
+    """The KMS verbs, TDE and GDPR buckets from the shell, and a TDE and
+    a GDPR key put and got byte-exact; the stored row holds a wrapped
+    key, never the DEK."""
+    om, _ = live_cluster
+    rc, out, err = sh("admin", "kms", "create-key", "clikey", "--om", om)
+    assert rc == 0 and json.loads(out) == {"name": "clikey", "versions": 1}, err
+    rc, out, _ = sh("admin", "kms", "rotate-key", "clikey", "--om", om)
+    assert rc == 0 and json.loads(out)["versions"] == 2
+    rc, out, _ = sh("admin", "kms", "list", "--om", om)
+    assert "clikey" in json.loads(out)
+    rc, out, _ = sh("admin", "kms", "info", "clikey", "--om", om)
+    assert json.loads(out)["versions"] == 2
+    rc, _, err = sh("admin", "kms", "create-key", "clikey", "--om", om)
+    assert rc == 1 and err.startswith("error INVALID_REQUEST:")
+    rc, _, err = sh("admin", "kms", "info", "--om", om)
+    assert rc == 2
+    sh("sh", "volume", "create", "/venc", "--om", om)
+    assert sh("sh", "bucket", "create", "/venc/tde", "--om", om,
+              "--replication", "rs-3-2-4096", "--encryption-key",
+              "clikey")[0] == 0
+    assert sh("sh", "bucket", "create", "/venc/g", "--om", om,
+              "--replication", "rs-3-2-4096", "--gdpr")[0] == 0
+    rc, _, err = sh("sh", "bucket", "create", "/venc/bad", "--om", om,
+                    "--encryption-key", "no-such-key")
+    assert rc == 1 and err.startswith("error INVALID_REQUEST:")
+    rc, out, _ = sh("sh", "bucket", "info", "/venc/tde", "--om", om)
+    assert json.loads(out)["encryption_key"] == "clikey"
+    rc, out, _ = sh("sh", "bucket", "info", "/venc/g", "--om", om)
+    assert json.loads(out)["gdpr"] is True
+    payload = np.random.default_rng(5).integers(0, 256, 70_001,
+                                                dtype=np.uint8).tobytes()
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    src.write_bytes(payload)
+    for bucket in ("tde", "g"):
+        assert sh("sh", "key", "put", f"/venc/{bucket}/k", str(src), "--om",
+                  om, "--device", "cpu")[0] == 0
+        assert sh("sh", "key", "get", f"/venc/{bucket}/k", str(dst), "--om",
+                  om, "--device", "cpu")[0] == 0
+        assert dst.read_bytes() == payload
+    rc, out, _ = sh("sh", "key", "info", "/venc/tde/k", "--om", om)
+    enc = json.loads(out)["encryption"]
+    assert enc["master"] == "clikey" and enc["version"] == 1
+    assert "edek" in enc and "gdpr_secret" not in enc
+    # the CA's verbs answer only where a CA lives
+    rc, _, err = sh("admin", "cert", "list", "--om", om)
+    assert rc == 1 and err.startswith("error UNSUPPORTED_REQUEST:")
+
+
+def test_cluster_secure(tmp_path, sh, monkeypatch):
+    """`cluster --secure` as a process: the scm-om hosts the CA, every
+    datanode enrolls and serves mutual TLS with no native sidecar, and a
+    client certificate waits under <root>/client-certs. With
+    OZONE_TPU_CERT_DIR the shell's verbs run over mutual TLS (a TDE key
+    byte-exact), `admin cert list|revoke` act on the CA, and a command
+    without the certificate is refused at the handshake."""
+    port = _free_port()
+    while True:  # the enrollment endpoint takes the next port
+        probe = socket.socket()
+        try:
+            probe.bind(("127.0.0.1", port + 1))
+            break
+        except OSError:
+            port = _free_port()
+        finally:
+            probe.close()
+    om = f"127.0.0.1:{port}"
+    log = tmp_path / "cluster.log"
+    proc = _serve_until(["cluster", "--secure", "--datanodes", "5",
+                         "--port", str(port), "--root", str(tmp_path / "c"),
+                         "--enrollment-secret", "cli-secret",
+                         "--device", "cpu"], log, "cluster up")
+    try:
+        line = log.read_text()
+        cert_dir = re.search(r"cert_dir=(\S+)", line).group(1)
+        assert "enroll=127.0.0.1:%d" % (port + 1) in line
+        rc, _, err = sh("admin", "status", "--om", om)
+        assert rc == 1 and err.startswith("error UNAVAILABLE:")
+        monkeypatch.setenv("OZONE_TPU_CERT_DIR", cert_dir)
+        monkeypatch.setattr(cli, "_TLS", [])
+        rc, out, _ = sh("admin", "status", "--om", om)
+        assert rc == 0 and len(json.loads(out)["nodes"]) == 5
+        assert sh("admin", "kms", "create-key", "mk", "--om", om)[0] == 0
+        sh("sh", "volume", "create", "/sv", "--om", om)
+        assert sh("sh", "bucket", "create", "/sv/tde", "--om", om,
+                  "--replication", "rs-3-2-4096", "--encryption-key",
+                  "mk")[0] == 0
+        payload = np.random.default_rng(6).integers(
+            0, 256, 50_000, dtype=np.uint8).tobytes()
+        src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+        src.write_bytes(payload)
+        assert sh("sh", "key", "put", "/sv/tde/k", str(src), "--om", om,
+                  "--device", "cpu")[0] == 0
+        assert sh("sh", "key", "get", "/sv/tde/k", str(dst), "--om", om,
+                  "--device", "cpu")[0] == 0
+        assert dst.read_bytes() == payload
+        rc, out, _ = sh("admin", "cert", "list", "--om", om)
+        issued = json.loads(out)["result"]
+        assert rc == 0 and len(issued) == 7  # scm-om, 5 datanodes, client
+        assert {r["subject"].split("CN=")[1].split(",")[0] for r in issued} \
+            >= {"scm-om", "datanode-dn0", "client-cli"}
+        # a second enrolled certificate, revoked: its next call refused
+        from ozone_tpu_torch.utils.ca import CertificateClient
+
+        other = CertificateClient(tmp_path / "other", "client-cli")
+        other.enroll_remote("127.0.0.1:%d" % (port + 1), secret="cli-secret")
+        serial = str(other.cert.serial_number)
+        rc, out, _ = sh("admin", "cert", "revoke", serial, "--om", om)
+        assert rc == 0 and int(serial) in json.loads(out)["result"]["crl"]
+        monkeypatch.setenv("OZONE_TPU_CERT_DIR", str(tmp_path / "other"))
+        monkeypatch.setattr(cli, "_TLS", [])
+        rc, _, err = sh("admin", "status", "--om", om)
+        assert rc == 1 and err.startswith("error CERTIFICATE_REVOKED:")
+        logs = "".join((tmp_path / "c" / f"dn{i}.log").read_text()
+                       for i in range(5))
+        assert logs.count("native datapath=off") == 5
+        assert logs.count("mutual TLS") == 5
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()

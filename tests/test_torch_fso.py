@@ -244,10 +244,7 @@ def test_fso_requests_roundtrip_wire_form(P):
         assert P.rq.OMRequest.from_json(r.to_json()) == r
     ref_wire = [r.to_json() for r in reqs(j_fso)]
     port_wire = [r.to_json() for r in reqs(t_fso)]
-    # the reference's open carries the encryption bundle the port leaves
-    # out (empty here); the explicit ACLs are ported
-    for w in ref_wire:
-        w.pop("encryption", None)
+    # the open's encryption bundle (empty here) and explicit ACLs included
     assert port_wire == ref_wire
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor any `ozone_tpu` module
-(nor `cryptography`: the security slice is the standard library's), and
+(and `cryptography` only where the reference does, inside the functions
+of the KMS, the CA and the RPC's revocation check, never at import), and
 its entry points refuse to run on a CUDA device that is not there."""
 
 import subprocess
@@ -115,6 +116,10 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.utils.security",
     "ozone_tpu_torch.om.acl",
     "ozone_tpu_torch.om.dtokens",
+    # encryption at rest and in transit: the KMS and the CA (their
+    # `cryptography` is imported where it is used, never at import)
+    "ozone_tpu_torch.utils.kms",
+    "ozone_tpu_torch.utils.ca",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -281,13 +286,52 @@ def test_cuda_build_is_lazy():
     if "_build" not in p.relative_to(REPO).parts))  # build outputs
 def test_source_names_no_jax(path):
     text = (REPO / path).read_text()
+    # AES (the KMS), x509 (the CA) and the peer certificate's serial (the
+    # RPC's revocation check) are `cryptography`'s, as in the reference
+    crypto_ok = path in ("ozone_tpu_torch/utils/kms.py",
+                         "ozone_tpu_torch/utils/ca.py",
+                         "ozone_tpu_torch/net/rpc.py")
     for line in text.splitlines():
         stripped = line.strip()
         if stripped.startswith(("import ", "from ")):
             assert "jax" not in stripped and "ozone_tpu." not in stripped \
-                and "cryptography" not in stripped \
+                and (crypto_ok or "cryptography" not in stripped) \
                 and not stripped.startswith(("import ozone_tpu ", "from ozone_tpu ")), \
                 f"{path}: {stripped}"
+
+
+def test_secure_mode_and_tde_raise_without_cryptography(tmp_path):
+    """No fallback: with `cryptography` missing, a CA, a secure daemon and
+    a TDE bucket's first open raise (a plaintext cluster still runs)."""
+    out = _run(f"""
+        import sys
+        sys.modules["cryptography"] = None  # as if not installed
+        from pathlib import Path
+        from ozone_tpu_torch.net.daemons import ScmOmDaemon
+        from ozone_tpu_torch.utils.ca import CertificateAuthority
+        root = Path({str(tmp_path)!r})
+        seen = []
+        for fn in (lambda: CertificateAuthority(root / "ca"),
+                   lambda: ScmOmDaemon(root / "s" / "om.db", secure=True,
+                                       device="cpu")):
+            try:
+                fn()
+                seen.append("served")
+            except RuntimeError as e:
+                seen.append("cryptography" in str(e))
+        d = ScmOmDaemon(root / "p" / "om.db", device="cpu")
+        d.om.create_volume("v")
+        d.om.kms_create_key("mk")
+        d.om.create_bucket("v", "enc", "rs-3-2-4096", encryption_key="mk")
+        try:
+            d.om.open_key("v", "enc", "k")
+            seen.append("served")
+        except ImportError:
+            seen.append(True)
+        d.om.close()
+        print(seen)
+    """)
+    assert out.strip() == "[True, True, True]", out
 
 
 def test_host_crc_builds_from_the_port_alone(tmp_path):

@@ -509,3 +509,367 @@ def test_two_tenants_repair_and_degraded_get(tmp_path):
                            _data(5, 25_000).tobytes()]
     assert port["degraded"] == _data(4, 30_000).tobytes()
     assert port["rebuilt_equals_lost"] and port["repair_failed"] == []
+
+
+# ------------------------------------------------------ mutual TLS (secure)
+#: the reference's full posture (tests/test_block_tokens.py): mutual TLS on
+#: every channel, the CA in the SCM, datanodes enrolled over the plaintext
+#: CSR endpoint under a bootstrap secret, block tokens on the datapath
+#: whose keys ride only the mutual-TLS channels
+ENROLL_SECRET = "drill-secret"
+
+
+@pytest.fixture(scope="module")
+def secure_cluster(tmp_path_factory):
+    pytest.importorskip("cryptography")
+    root = tmp_path_factory.mktemp("mtls")
+    meta = daemons.ScmOmDaemon(
+        root / "om.db", block_size=4 * 4096, container_size=1024 * 1024,
+        stale_after_s=1000.0, dead_after_s=2000.0,
+        background_interval_s=0.2, block_tokens=True, secure=True,
+        enrollment_secret=ENROLL_SECRET, device="cpu")
+    meta.start()
+    dns = []
+    try:
+        for i in range(5):  # the reference's five: a repair targets the victim
+            d = daemons.DatanodeDaemon(
+                root / f"dn{i}", f"dn{i}", meta.address,
+                heartbeat_interval_s=0.2, ca_address=meta.enroll_address,
+                enrollment_secret=ENROLL_SECRET, device="cpu")
+            d.start()
+            dns.append(d)
+        _wait("every datanode enforcing, with the keys", lambda: all(
+            d.verifier.enabled and d.secrets.current() is not None
+            for d in dns))
+        yield meta, dns
+    finally:
+        for d in dns:
+            d.stop()
+        meta.stop()
+
+
+@pytest.fixture(scope="module")
+def client_tls(secure_cluster, tmp_path_factory):
+    """An enrolled client certificate: the ticket onto the wire, apart
+    from any token (an authenticated caller may still be unauthorized)."""
+    from ozone_tpu_torch.utils.ca import CertificateClient
+
+    meta, _ = secure_cluster
+    cc = CertificateClient(tmp_path_factory.mktemp("cli"), "client-cli")
+    cc.enroll_remote(meta.enroll_address, secret=ENROLL_SECRET)
+    return cc.tls()
+
+
+def _secure_client(meta, tls):
+    clients = DatanodeClientFactory()
+    clients.tls = tls
+    return OzoneClient(RemoteOmClient(meta.address, clients=clients, tls=tls),
+                       clients, device="cpu")
+
+
+def _first_unit(meta, dns, oz, volume, bucket, key):
+    info = oz.om.lookup_key(volume, bucket, key)
+    g = info["block_groups"][0]
+    bid = t_ids.BlockID(int(g["container_id"]), int(g["local_id"]))
+    dn_id = g["nodes"][0]
+    return bid, dn_id, next(d.address for d in dns if d.dn.id == dn_id)
+
+
+def test_secure_enforcement_active_on_datanodes(secure_cluster, tmp_path):
+    """Tokens on, every server on mutual TLS with the CRL checked, the
+    keys delivered over it, and no native sidecar anywhere."""
+    meta, dns = secure_cluster
+    assert meta.scm.block_tokens and meta.om.token_issuer is not None
+    assert meta.server.tls_enabled and meta.scm_service.distribute_secrets
+    assert meta.ca is not None and meta.enroll_address
+    for d in dns:
+        assert d.verifier.enabled and d.secrets.current() is not None
+        assert d.server.tls_enabled and d.server.crl_provider is not None
+        assert d.datapath is None and d.advertise() is None
+    with pytest.raises(ValueError):
+        # open CSR signing would admit any caller: a secret is required
+        daemons.ScmOmDaemon(tmp_path / "om.db", block_tokens=True,
+                            secure=True, device="cpu")
+
+
+def test_secure_tokened_write_and_read(secure_cluster, client_tls):
+    """The client path over mutual TLS, plain and TDE: allocations carry
+    WRITE tokens, lookups READ tokens, every chunk rides the RPC lane."""
+    meta, dns = secure_cluster
+    oz = _secure_client(meta, client_tls)
+    try:
+        b = oz.create_volume("v").create_bucket("b", replication=EC)
+        data = _data(3, 50_000)
+        b.write_key("k", data)
+        assert np.array_equal(b.read_key("k"), data)
+        with oz.om.user_context("root"):
+            oz.om.kms_create_key("mk1")
+        oz.om.create_bucket("v", "enc", EC, encryption_key="mk1")
+        e = oz.get_volume("v").get_bucket("enc")
+        e.write_key("k", data)
+        assert np.array_equal(e.read_key("k"), data)
+        assert np.array_equal(e.read_key_range("k", 4095, 20_000),
+                              data[4095:24_095])
+        lanes = [d.lane_counts() for d in dns]
+        assert sum(c["rpc_chunk_calls"] for c in lanes) > 0
+        assert sum(c["native_write_streams"] + c["native_read_streams"]
+                   for c in lanes) == 0
+    finally:
+        oz.om.close()
+        oz.clients.close()
+
+
+def test_secure_untokened_write_refused(secure_cluster, client_tls):
+    """An authenticated caller (through the handshake) without tokens
+    writes nothing."""
+    meta, dns = secure_cluster
+    c = RpcDatanodeClient("dn0", dns[0].address, tls=client_tls)
+    data = np.zeros(512, dtype=np.uint8)
+    cs = t_checksum.Checksum(t_checksum.ChecksumType.CRC32C, 4096).compute(data)
+    info = t_ids.ChunkInfo("c0", 0, data.size, cs)
+    try:
+        with pytest.raises(t_ids.StorageError) as e:
+            c.create_container(7777)
+        assert e.value.code == CODE
+        with pytest.raises(t_ids.StorageError) as e:
+            c.write_chunk(t_ids.BlockID(7777, 1), info, data)
+        assert e.value.code == CODE
+    finally:
+        c.close()
+
+
+def test_secure_untokened_read_refused(secure_cluster, client_tls):
+    meta, dns = secure_cluster
+    oz = _secure_client(meta, client_tls)
+    try:
+        oz.get_volume("v").get_bucket("b").write_key("r", _data(4, 9_000))
+        bid, dn_id, addr = _first_unit(meta, dns, oz, "v", "b", "r")
+    finally:
+        oz.om.close()
+        oz.clients.close()
+    c = RpcDatanodeClient(dn_id, addr, tls=client_tls)  # no token store
+    try:
+        for fn in (lambda: c.get_block(bid),
+                   lambda: c.list_blocks(bid.container_id),
+                   lambda: c.get_committed_block_length(bid)):
+            with pytest.raises(t_ids.StorageError) as e:
+                fn()
+            assert e.value.code == CODE
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("case", ["wrong-block", "expired", "read-to-write"])
+def test_secure_bad_tokens_refused(secure_cluster, client_tls, case):
+    """A real token for another block, an expired one, and a READ token
+    used to write: each BLOCK_TOKEN_VERIFICATION_FAILED over mutual TLS."""
+    from ozone_tpu_torch.client.dn_client import TokenStore
+
+    meta, dns = secure_cluster
+    oz = _secure_client(meta, client_tls)
+    try:
+        oz.get_volume("v").get_bucket("b").write_key("t", _data(5, 9_000))
+        bid, dn_id, addr = _first_unit(meta, dns, oz, "v", "b", "t")
+    finally:
+        oz.om.close()
+        oz.clients.close()
+    read = [t_sec.AccessMode.READ]
+    if case == "wrong-block":
+        other = t_ids.BlockID(bid.container_id, bid.local_id + 999)
+        tok = meta.om.token_issuer.issue(other, read)
+    elif case == "expired":
+        tok = t_sec.BlockTokenIssuer(meta.scm.secret_keys,
+                                     token_lifetime_s=-1.0).issue(bid, read)
+    else:
+        tok = meta.om.token_issuer.issue(bid, read)
+    store = TokenStore()
+    store.put_block_token(bid, tok)
+    c = RpcDatanodeClient(dn_id, addr, tokens=store, tls=client_tls)
+    try:
+        if case == "read-to-write":
+            c.get_block(bid)  # READ is fine
+            data = np.zeros(16, dtype=np.uint8)
+            cs = t_checksum.Checksum(t_checksum.ChecksumType.CRC32C,
+                                     4096).compute(data)
+            fn = lambda: c.write_chunk(  # noqa: E731
+                bid, t_ids.ChunkInfo("cx", 10**9, 16, cs), data)
+        else:
+            fn = lambda: c.get_block(bid)  # noqa: E731
+        with pytest.raises(t_ids.StorageError) as e:
+            fn()
+        assert e.value.code == CODE
+    finally:
+        c.close()
+
+
+def test_secure_uncertified_caller_rejected_at_transport(secure_cluster):
+    """No CA-issued certificate: the handshake itself fails, so the caller
+    never reaches a verb, let alone Register and the keys; the refusal
+    is UNAVAILABLE (the reference's gRPC status), never a plaintext
+    retry."""
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+
+    meta, dns = secure_cluster
+    c = RpcDatanodeClient("dn0", dns[0].address)  # plaintext channel
+    with pytest.raises(t_ids.StorageError) as e:
+        c.echo(b"hi")
+    assert e.value.code in ("UNAVAILABLE", "IO_EXCEPTION")
+    c.close()
+    scm = RemoteScmClient(meta.address)
+    with pytest.raises(t_ids.StorageError):
+        scm.register("evil", "127.0.0.1:1", rack="/r")
+    assert not scm.security.get("secret_keys")
+    scm.close()
+
+
+def test_secure_bad_enrollment_secret_refused(secure_cluster, tmp_path):
+    from ozone_tpu_torch.utils.ca import CertificateClient
+
+    meta, _ = secure_cluster
+    cc = CertificateClient(tmp_path / "rogue", "client-rogue")
+    with pytest.raises(t_ids.StorageError) as e:
+        cc.enroll_remote(meta.enroll_address, secret="wrong")
+    assert e.value.code == "IO_EXCEPTION"
+    assert not cc.enrolled
+
+
+def test_secure_live_cert_renewal(secure_cluster, client_tls):
+    """A datanode's certificate forced into the grace window renews over
+    the enrollment endpoint, and tokened traffic keeps flowing over the
+    renewed identity with no restart."""
+    meta, dns = secure_cluster
+    d = dns[0]
+    assert d.cert_renewal is not None and meta.cert_renewal is not None
+    old = d.cert_client.cert.serial_number
+    assert d.cert_renewal.check_once() is False
+    d.cert_client.install(
+        meta.ca.sign_csr(d.cert_client.make_csr(), valid_days=0),
+        meta.ca.root_pem)
+    d.tls.reload()
+    assert d.cert_renewal.check_once() is True
+    assert d.cert_client.cert.serial_number != old
+    assert d.cert_client.remaining_fraction() > 0.9
+    oz = _secure_client(meta, client_tls)
+    try:
+        b = oz.create_volume("vrenew").create_bucket("b", replication=EC)
+        data = _data(9, 30_000)
+        b.write_key("post-renewal", data)
+        assert np.array_equal(b.read_key("post-renewal"), data)
+    finally:
+        oz.om.close()
+        oz.clients.close()
+
+
+def test_secure_reconstruction_self_signs(secure_cluster, client_tls):
+    """Datanode-to-datanode repair over mutual TLS signs its own tokens:
+    a replica deleted under a closed container is rebuilt by the SCM's
+    reconstruction, and the key reads back."""
+    meta, dns = secure_cluster
+    oz = _secure_client(meta, client_tls)
+    try:
+        b = oz.get_volume("v").get_bucket("b")
+        data = _data(4, 30_000)
+        b.write_key("k2", data)
+        info = oz.om.lookup_key("v", "b", "k2")
+        g = info["block_groups"][0]
+        cid = int(g["container_id"])
+        for d in dns:
+            if d.dn.id in g["nodes"]:
+                try:
+                    d.dn.close_container(cid)
+                except t_ids.StorageError:
+                    pass
+        victim = next(d for d in dns if d.dn.id == g["nodes"][0])
+        victim.dn.delete_container(cid, force=True)
+
+        def rebuilt():
+            return any(c0.id == cid for c0 in victim.dn.list_containers())
+
+        _wait("the reconstruction restored the replica", rebuilt, 30.0)
+        assert np.array_equal(b.read_key("k2"), data)
+    finally:
+        oz.om.close()
+        oz.clients.close()
+
+
+def test_secure_revoked_client_refused(secure_cluster, tmp_path):
+    """`admin cert-revoke` on the CA's replica: the revoked client's next
+    call is CERTIFICATE_REVOKED there at once and on a datanode after its
+    trust refresh; `cert-list` marks it."""
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.utils.ca import CertificateClient
+
+    meta, dns = secure_cluster
+    cc = CertificateClient(tmp_path / "doomed", "client-doomed")
+    cc.enroll_remote(meta.enroll_address, secret=ENROLL_SECRET)
+    tls = cc.tls()
+    scm = RemoteScmClient(meta.address, tls=tls)
+    dn = RpcDatanodeClient(dns[1].dn.id, dns[1].address, tls=tls)
+    admin = RemoteScmClient(meta.address, tls=cc_admin(meta, tmp_path))
+    try:
+        assert scm.status()["nodes"]
+        assert bytes(dn.echo(b"x")) == b"x"
+        out = admin.admin("cert-revoke", str(tls.serial()))["result"]
+        assert tls.serial() in out["crl"] and "warning" not in out
+        listed = {r["serial"]: r["revoked"]
+                  for r in admin.admin("cert-list")["result"]}
+        assert listed[tls.serial()] is True
+        with pytest.raises(t_ids.StorageError) as e:
+            scm.status()
+        assert e.value.code == "CERTIFICATE_REVOKED"
+        dns[1].cert_renewal.check_once()  # its trust refresh
+        with pytest.raises(t_ids.StorageError) as e:
+            dn.echo(b"y")
+        assert e.value.code == "CERTIFICATE_REVOKED"
+        assert admin.status()["nodes"]  # everyone else is served
+    finally:
+        scm.close()
+        dn.close()
+        admin.close()
+
+
+def cc_admin(meta, tmp_path):
+    """An operator's own client certificate."""
+    from ozone_tpu_torch.utils.ca import CertificateClient
+
+    cc = CertificateClient(tmp_path / "admin", "client-admin")
+    cc.enroll_remote(meta.enroll_address, secret=ENROLL_SECRET)
+    return cc.tls()
+
+
+def test_secure_ha_ring_failover(tmp_path):
+    """Three ScmOmDaemons on one ring over mutual TLS: the replicas enroll
+    at the primordial one (which alone hosts the CA), the ring dials its
+    peers by id, block tokens ride it, and a leader's loss hands over
+    with every certificate and token still good."""
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneHACluster
+
+    c = MiniOzoneHACluster(tmp_path, num_meta=3, num_datanodes=5,
+                           device="cpu", secure=True, block_tokens=True)
+    oz = None
+    try:
+        assert [m.ca is not None for m in c.metas.values()] == \
+            [True, False, False]
+        assert all(m.server.tls_enabled for m in c.metas.values())
+        assert all(d.tls is not None and d.datapath is None
+                   for d in c.datanodes)
+        oz = c.client()
+        b = oz.create_volume("v").create_bucket("b", replication=EC)
+        data = _data(31, 40_000)
+        b.write_key("k", data)
+        leader = c.await_leader()
+        c.stop_meta(leader)
+        c.await_leader()
+        b.write_key("k2", data[::-1].copy())
+        assert np.array_equal(b.read_key("k"), data)
+        assert np.array_equal(b.read_key("k2"), data[::-1])
+        _wait("every datanode still enforcing", lambda: all(
+            d.verifier.enabled and d.secrets.current() is not None
+            for d in c.datanodes))
+        c.revive_meta(leader)
+        assert c.metas[leader].tls is not None
+    finally:
+        if oz is not None:
+            oz.om.close()
+            oz.clients.close()
+        c.shutdown()
