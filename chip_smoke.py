@@ -66,19 +66,20 @@ a phase says otherwise:
   host copies per chunk. Then `python -m ozone_tpu_torch.tools cluster
   --datanodes 10 --device cuda` as processes, driven through the CLI (`sh
   volume/bucket create`, `sh key put/get` of 64 MiB + 12 345 B with a byte
-  compare, `freon ockg -n 16 -s 16777216`, `admin status`: 10 HEALTHY),
+  compare, `freon ockg -n 8 -s 16777216` (16 in the cell), `admin status`:
+  10 HEALTHY),
   torn down by pid; every datanode log names its native port, and their
   lane counts show the chunks rode the native lane only. Beside those CLI
   commands, `s3g --require-auth --device cuda` runs as a process in front
   of that cluster: `s3 getsecret`, a signed PUT and GET of the same key's
-  bytes, a 3-part multipart upload and `freon s3kg -n 16`, each
-  byte-exact; stopped, it prints its kernel launches and service
+  bytes, a 3-part multipart upload and `freon s3kg -n 8` (16 in the
+  cell), each byte-exact; stopped, it prints its kernel launches and service
   dispatches, which must be equal;
 - the S3 gateway (`s3_path`): an `S3Gateway` with require_auth in this
   process, in front of an OzoneClient over an ScmOmDaemon and 12
   DatanodeDaemons (native lane), bucket rs-6-3-1024k, every request
   SigV4-signed with a secret from `s3 getsecret`: concurrent clients
-  (four in the cell, two in `main`) each PUT 64 MiB (payload hash signed) and upload 96 MiB +
+  (four in the cell, one in `main`) each PUT 64 MiB (payload hash signed) and upload 96 MiB +
   12 345 B in 8 MiB parts, four in flight (ListParts and
   ListMultipartUploads checked before the complete); GETs whole, 8 MiB
   ranges across part boundaries and a suffix range; HEAD; ListObjectsV2
@@ -91,7 +92,7 @@ a phase says otherwise:
   no fallback and no RPC chunk call;
 - lifecycle tiering (`lifecycle_path`): a MiniOzoneCluster of 9
   datanodes with OZONE_TPU_TIER_BATCH=16; a RATIS/THREE bucket of 16 keys
-  of 16 MiB (4 in `main`), 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
+  of 16 MiB (2 in `main`), 8 of 1 MiB + 12 345 B and 4 XOR(6,1) keys of 12 MiB + 7 B,
   tiered to rs-6-3-1024k by one sweep of an age-0 rule (the XOR keys
   through the fused re-encode, the rest in [16, 6, 1 MiB] windows of many
   keys); every key re-read byte-exact and every unit's chunks, parity and
@@ -109,7 +110,7 @@ a phase says otherwise:
   bounded `compact_slabs_once`, the survivors read back byte-exact. Both
   print the metadata RPCs per step (CreateContainer, GetBlock, ...), and
   kernel launches equal the codec service's dispatches in every step.
-  `main` runs it at a cut depth (125 keys per tinyg run, 25 on the
+  `main` runs it at a cut depth (64 keys per tinyg run, 16 on the
   stripe path) to leave room for the later phases;
 - consensus and HA (`ha_path`): three ScmOmDaemons on one metadata ring
   (OM and SCM state on one Raft ring over the port's RPC) and 9
@@ -125,7 +126,7 @@ a phase says otherwise:
   (GiB/s, the raft round trips of `write_chunk_commit` and `put_block`),
   (d) a degraded GET of (a)'s keys with two datanodes down through the
   decode form. Launches equal dispatches in (a), (b) and (d). `main` cuts
-  (a) to 4 keys, (b) to 8 and (c) to 4;
+  (a) to 2 keys, (b) to 8 and (c) to 4;
 - the filesystem namespace (`fs_path`): an ScmOmDaemon and 9
   DatanodeDaemons, an FSO bucket at rs-6-3-1024k: (a) TestDFSIO, 8 ×
   64 MiB through `RootedOzoneFileSystem` on 4 threads, read back, each
@@ -141,7 +142,7 @@ a phase says otherwise:
   client, its writer abandoned, `recover_lease`, the stale hsync and an EC
   hsync refused; (f) `freon fsg` and `fskg` of 128 × 3901 B on 8 threads.
   Launches equal dispatches in every part that codes. `main` cuts (a) to
-  4 files, (c) to 125 files per directory and (f) to 32 files;
+  4 files, (c) to 60 files per directory and (f) to 16 files;
 - authorization and tokens (`security_path`): an ScmOmDaemon with block
   tokens (`insecure_secrets`: the keys ride Register and Heartbeat in the
   clear, so the native lane stays on; `encryption_path` runs them over
@@ -192,7 +193,29 @@ a phase says otherwise:
   per TLS handshake, seconds per enrollment. Launches equal dispatches in
   every coding step and no chunk rides a native stream. A line before
   the phases names the host's `cryptography` and `ssl`, and the run fails
-  without either.
+  without either. `main` cuts it to 1 big key, 4 ranged GETs and 2
+  renewal rounds;
+- the rest of the SCM (`scm_admin_path`): an ScmOmDaemon and 12
+  DatanodeDaemons on 4 racks with 2 volumes each, rs-6-3-1024k, a client
+  reading nearest-first from /rack0, 9 keys of 68 MiB + odd tails: (a) a
+  volume removed under them, its units rebuilt by decode from the report
+  delta (MiB/s per target), a PUT after it on the healthy volume only;
+  (b) `admin datanode decommission` (a process) under 4 writers, nothing
+  allocated on the draining node, its units copied off byte-exact (drain
+  seconds, bytes), the node stopped and dead, every key GET byte-exact;
+  (c) a node decommissioned and stopped at once, declared DEAD, its units
+  rebuilt by decode; (d) `admin datanode maintenance` and `recommission`,
+  the excess deleted; (e) the SCM restarted mid-drain, the drain relearnt
+  from its store and the node's echo; (f) the dead node back, both
+  drained nodes recommissioned, `admin balancer start` with a 16 MiB band
+  until no move is left (moves, used spread), every key GET byte-exact,
+  `balancer_status()` across another SCM restart; (g) `admin datanode
+  list`, `pipeline list`, `replicationmanager` and `balancer status` as
+  processes. Every rebuilt or copied chunk and its CRCs equal the lost
+  one's; launches equal dispatches in every step; the only datanode
+  commands that may fail are the two shared faults of ROADMAP Queue 3
+  (printed by step and type); the port's log records are held back and
+  printed only if the phase fails.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -217,7 +240,9 @@ import contextlib
 import gc
 import hashlib
 import json
+import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2363,6 +2388,11 @@ def daemon_cluster_in_process(device, cell: int, bpc: int, seed: int,
     return out
 
 
+#: keys of the CLI cluster's `freon ockg` and `freon s3kg` (a depth cut:
+#: 16 in the cell)
+OCKG_KEYS = 8
+
+
 def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
     """`python -m ozone_tpu_torch.tools cluster --datanodes 10` (the supervisor,
     an scm-om and ten datanode processes) driven through the CLI: a volume,
@@ -2437,7 +2467,7 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
 
             def ockg():
                 text, times["freon ockg"] = cli(
-                    "freon", "ockg", "-n", "16", "-s", str(16 * cell), "--om", om,
+                    "freon", "ockg", "-n", str(OCKG_KEYS), "-s", str(16 * cell), "--om", om,
                     "--device", dev, "--replication", rs)
                 return json.loads(text)
 
@@ -2457,10 +2487,10 @@ def daemon_cluster_processes(device, cell: int, seed: int) -> dict:
             if not same:
                 raise AssertionError("cli key get differs from the file put")
             print(f"cli sh key put / get of {payload.size} B: byte-exact")
-            print(f"cli freon ockg -n 16 -s {16 * cell} (beside the key chain): ops "
+            print(f"cli freon ockg -n {OCKG_KEYS} -s {16 * cell} (beside the key chain): ops "
                   f"{rep['ops']}, failures {rep['failures']}, {rep['throughput_mib_s']} "
                   f"MiB/s, p50 {rep['p50_ms']} ms in the freon process")
-            if rep["ops"] != 16 or rep["failures"] != 0:
+            if rep["ops"] != OCKG_KEYS or rep["failures"] != 0:
                 raise AssertionError(f"cli freon ockg: {rep}")
             states = [n["state"] for n in st["nodes"]]
             print(f"cli admin status: {len(states)} datanodes {sorted(set(states))}, "
@@ -2519,7 +2549,7 @@ def s3g_process(cli, root: Path, om: str, rs: str, dev: str, cell: int, payload:
                 times: dict) -> dict:
     """`python -m ozone_tpu_torch.tools s3g --require-auth` in front of the CLI
     cluster: `s3 getsecret`, one signed PUT and GET of `payload` byte-exact
-    with its MD5 ETag, a 3-part multipart upload, `freon s3kg -n 16` signed
+    with its MD5 ETag, a 3-part multipart upload, `freon s3kg -n 8` signed
     with the secret; stopped, the gateway prints its kernel launches and
     codec-service dispatches, which must be equal."""
     import re
@@ -2564,11 +2594,11 @@ def s3g_process(cli, root: Path, om: str, rs: str, dev: str, cell: int, payload:
         times["s3g multipart"] = time.perf_counter() - t1
         if len(parts) != 3 or s3.ok("GET", "/cs3/mp")[1] != payload or not etag.endswith("-3"):
             raise AssertionError(f"s3g multipart: {etag} {len(parts)} parts")
-        text, times["freon s3kg"] = cli("freon", "s3kg", "-n", "16", "-s", str(cell),
+        text, times["freon s3kg"] = cli("freon", "s3kg", "-n", str(OCKG_KEYS), "-s", str(cell),
                                         "--endpoint", f"127.0.0.1:{port}", "--access-id",
                                         "smoke", "--validate", "--om", om)
         out["s3kg"] = json.loads(text)
-        if out["s3kg"]["ops"] != 16 or out["s3kg"]["failures"]:
+        if out["s3kg"]["ops"] != OCKG_KEYS or out["s3kg"]["failures"]:
             raise AssertionError(f"freon s3kg: {out['s3kg']}")
     finally:
         gw.send_signal(signal.SIGTERM)
@@ -2585,7 +2615,7 @@ def s3g_process(cli, root: Path, om: str, rs: str, dev: str, cell: int, payload:
     print(f"cli s3g (--require-auth, {rs}, device {dev}): up in {times['s3g up']:.2f} s; "
           f"signed PUT / GET of {len(payload)} B byte-exact, ETag = MD5 "
           f"({times['s3g PUT']:.3f} / {times['s3g GET']:.3f} s); 3-part multipart upload "
-          f"byte-exact, ETag {etag} ({times['s3g multipart']:.3f} s); freon s3kg -n 16 -s "
+          f"byte-exact, ETag {etag} ({times['s3g multipart']:.3f} s); freon s3kg -n {OCKG_KEYS} -s "
           f"{cell} --validate: {out['s3kg']['throughput_mib_s']} MiB/s, p50 "
           f"{out['s3kg']['p50_ms']} ms; stopped after {time.perf_counter() - t0:.2f} s: "
           f"kernel launches {out['launches']}, service dispatches {out['dispatches']}")
@@ -2863,14 +2893,14 @@ def s3_path(device, cell: int, bpc: int, seed: int, n_clients: int = 4) -> dict:
                   f"{rates['get']:.3f} GiB/s; ranged: {len(ranges)} GETs of {part} B at odd "
                   f"offsets across part boundaries, {ranged_b} B byte-exact in {rng_s:.3f} s = "
                   f"{rates['ranged_get']:.3f} GiB/s; suffix bytes=-1000000 byte-exact")
-            st, h, _ = s3.req("HEAD", "/s3b/c1/single")
-            if st != 200 or int(h["content-length"]) != len(singles[1]) or \
-                    h.get("x-amz-meta-client") != "1":
+            last = n_clients - 1
+            st, h, _ = s3.req("HEAD", f"/s3b/c{last}/single")
+            if st != 200 or int(h["content-length"]) != len(singles[last]) or \
+                    h.get("x-amz-meta-client") != str(last):
                 raise AssertionError(f"HEAD: {st} {h}")
             _, top = s3.ok("GET", "/s3b?list-type=2&delimiter=/")
             prefixes = xml_text(top, "Prefix")[1:]
             listed, token = [], ""
-            last = n_clients - 1
             while True:
                 q = f"/s3b?list-type=2&prefix=c{last}/&delimiter=/&max-keys=1"
                 _, page = s3.ok("GET", q + (f"&continuation-token={token}" if token else ""))
@@ -5442,6 +5472,611 @@ def encryption_path(device, cell: int, bpc: int, seed: int, big_cells: int = 64,
     return out
 
 
+# ------------------------------------------------------------ SCM admin path
+class _Collect(logging.Handler):
+    """Holds the port's log records of a phase instead of printing them: a
+    phase that drives expected command failures (the shared faults) prints
+    their count, and its records only when it fails."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def dump(self, last: int = 40) -> None:
+        fmt = logging.Formatter("%(levelname)s:%(name)s:%(message)s")
+        for r in self.records[-last:]:
+            print(fmt.format(r), file=sys.stderr)
+
+
+def scm_admin_path(device, cell: int, bpc: int, seed: int, n_keys: int = 9,
+                   key_cells: int = 68, n_writers: int = 4,
+                   writer_cells: int = 32, band_cells: int = 16) -> dict:
+    """The rest of the SCM (Apache Ozone's feature/Decommission.md,
+    feature/Topology.md and `ozone admin containerbalancer`): an
+    ScmOmDaemon and 12 DatanodeDaemons on 4 racks with 2 volumes each,
+    rs-6-3 at `cell`, CRC32C per `bpc`, a remote OzoneClient reading
+    nearest-first from /rack0. `n_keys` keys of `key_cells` cells and odd
+    tails are PUT three at a time, each batch's container closed after
+    it. (a) A volume
+    of the datanode with the most EC containers on it is removed; its
+    replicas leave the report, the node stays HEALTHY, and the SCM rebuilds
+    the lost units elsewhere by decode: every chunk and its CRCs equal the
+    lost one's (MiB/s per target); a PUT after it lands only on the
+    node's healthy volume. (b) `admin datanode decommission` (a process)
+    under `n_writers` writers of `writer_cells` cells: nothing is allocated
+    on the draining node, its units are copied off (drain seconds, bytes
+    moved) and equal the originals; the node is stopped and declared dead,
+    and every key is read back byte-exact. (c) A node decommissioned and
+    stopped at once: the copies planned from it fail (a shared fault,
+    counted) until it is declared DEAD, then its units are rebuilt by
+    decode, byte-exact. (d) `admin datanode maintenance`: its units are
+    copied, `recommission` brings it back and the excess replicas are
+    deleted (the repeated deletes that fail are the other shared fault).
+    (e) The SCM restarts mid-drain and relearns the drain from its store
+    and the node's echo; the node goes DECOMMISSIONED. (f) `admin balancer
+    start` with a band of `band_cells` cells over the node capacity (a cut:
+    upstream's default is 10%) moves containers from hot to cold nodes
+    until the spread is inside the band; every key reads back byte-exact;
+    `balancer_status()` survives another SCM restart. (g) `admin datanode
+    list`, `pipeline list`, `replicationmanager` and `balancer status` as
+    processes. Kernel launches equal the codec service's dispatches in
+    every step; a step that rebuilds launched the decode on the card. The
+    only datanode commands allowed to fail are those of the two shared
+    faults (ROADMAP Queue 3), printed by step and type."""
+    from collections import Counter
+
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.scm.node_manager import NodeOperationalState, NodeState
+    from ozone_tpu_torch.scm.replication_manager import (
+        DeleteReplicaCommand,
+        ReplicateCommand,
+    )
+    from ozone_tpu_torch.utils import checksum
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    rng = np.random.default_rng(seed + 17)
+    keys: dict[str, np.ndarray] = {}
+    out: dict = {"launches": {}, "failed": {}}
+    stopped: set[str] = set()
+    n_dn = 12
+    collect = _Collect()
+    port_log = logging.getLogger("ozone_tpu_torch")
+    old_propagate = port_log.propagate
+
+    def payload(n_cells: int, tail: int) -> np.ndarray:
+        return rng.integers(0, 256, n_cells * cell + tail, dtype=np.uint8)
+
+    def admin_cli(*argv) -> tuple[object, float]:
+        """An `admin` verb of the port's CLI as a process: its JSON, seconds."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ozone_tpu_torch.tools", "admin", *argv,
+             "--om", meta.address], capture_output=True, text=True,
+            timeout=60, cwd=str(repo), env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"admin {' '.join(argv)} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return json.loads(proc.stdout), time.perf_counter() - t0
+
+    def serving(dn_id: str) -> bool:
+        n = meta.scm.nodes.get(dn_id)
+        return (n is not None and n.state is NodeState.HEALTHY
+                and n.op_state is NodeOperationalState.IN_SERVICE)
+
+    def census() -> dict:
+        with meta.scm_service.lock:
+            st = meta.scm.replication_status()
+            st["open"] = sum(c.state.value != "CLOSED"
+                             for c in meta.scm.containers.containers())
+        return st
+
+    def settled() -> bool:
+        st = census()
+        return (st["under_replicated"] == st["over_replicated"] == st["missing"]
+                == st["open"] == 0 and not meta.scm.balancer.inflight)
+
+    def close_all(what: str) -> float:
+        """Close every open container and wait until the SCM holds every
+        index of every container CLOSED on a live node."""
+        t0 = time.perf_counter()
+        with meta.scm_service.lock:
+            open_ids = [c.id for c in meta.scm.containers.containers()
+                        if c.state.value == "OPEN"]
+        for cid in open_ids:
+            scm_client.admin("close-container", cid)
+        wait_for(f"{what}: containers closed and settled", settled, 60, poll_s=0.05)
+        return time.perf_counter() - t0
+
+    def units_of(dn_id: str, vol=None) -> dict:
+        """The EC units a datanode holds (on one volume, if given):
+        {(container, index): {block: [(offset, length, CRC words, bytes)]}}."""
+        dn = by_id[dn_id].dn
+        units = {}
+        for c in dn.list_containers():
+            if c.replica_index <= 0 or (vol is not None and c.db is not vol.db):
+                continue
+            units[(c.id, c.replica_index)] = {
+                b.block_id: [(ch.offset, ch.length, ch.checksum.checksums,
+                              dn.read_chunk(b.block_id, ch).tobytes())
+                             for ch in b.chunks]
+                for b in dn.list_blocks(c.id)}
+        return units
+
+    def home(cid: int, idx: int, exclude: set) -> str | None:
+        """A serving node the SCM lists as holding the index CLOSED, and
+        whose datanode holds it CLOSED on a healthy volume."""
+        with meta.scm_service.lock:
+            c = meta.scm.containers.get_or_none(cid)
+            held = [dn for dn, r in list(c.replicas.items())
+                    if r.replica_index == idx and r.state == "CLOSED"
+                    and dn not in exclude and serving(dn)] if c else []
+        for dn_id in held:
+            dn = by_id[dn_id].dn
+            rc = next((x for x in dn.list_containers() if x.id == cid), None)
+            if rc is not None and rc.replica_index == idx and \
+                    rc.state.value == "CLOSED" and \
+                    not any(v.failed and rc.db is v.db for v in dn.volumes):
+                return dn_id
+        return None
+
+    def check_rehomed(what: str, units: dict, exclude: set, secs: float) -> dict:
+        """Every unit now lives on another serving node with equal chunks
+        and CRC words (equal to the host CRC32C of the bytes, on the
+        native route: the numpy one runs at tens of MB/s); returns bytes
+        per target."""
+        host = checksum.Checksum(checksum.ChecksumType.CRC32C, bpc)
+        per_target: dict[str, int] = {}
+        for (cid, idx), blocks in units.items():
+            tgt = home(cid, idx, exclude)
+            if tgt is None:
+                raise AssertionError(f"{what}: container {cid} index {idx} "
+                                     "has no new home")
+            dn = by_id[tgt].dn
+            for bid, chunks in blocks.items():
+                got = [(ch.offset, ch.length, ch.checksum.checksums,
+                        dn.read_chunk(bid, ch).tobytes())
+                       for ch in dn.get_block(bid).chunks]
+                if got != chunks:
+                    raise AssertionError(f"{what}: {bid} index {idx} on {tgt} "
+                                         "differs from the lost unit")
+                for _, _, words, data in got:
+                    if host.compute(np.frombuffer(data, np.uint8)).checksums \
+                            != words:
+                        raise AssertionError(f"{what}: CRCs of {bid} differ "
+                                             "from the host CRC32C")
+                    per_target[tgt] = per_target.get(tgt, 0) + len(data)
+        rates = ", ".join(f"{t} {n} B = {n / secs / MIB:.1f} MiB/s"
+                          for t, n in sorted(per_target.items()))
+        out.setdefault("mib_s_per_target", {})[what] = {
+            t: n / secs / MIB for t, n in per_target.items()}
+        return per_target, rates
+
+    def begin() -> dict:
+        fused_kernel.launches.reset()
+        return {"svc": service_counts(),
+                "errors": {id(d): len(d.command_errors) for d in dns}}
+
+    def end(what: str, key: str, mark: dict, decode: bool = False) -> int:
+        """Launches equal dispatches (a decode step launched on the card);
+        the step's failed commands are the shared faults' only."""
+        launches = fused_kernel.launches.count
+        check_launches_equal(what, device, launches, service_delta(mark["svc"]))
+        if decode and device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what}: no decode launched")
+        out["launches"][key] = launches
+        failed = Counter()
+        for d in dns:
+            for cmd, e in d.command_errors[mark["errors"].get(id(d), 0):]:
+                code = getattr(e, "code", type(e).__name__)
+                if isinstance(cmd, DeleteReplicaCommand) and \
+                        code == "CONTAINER_NOT_FOUND":
+                    failed["DeleteReplicaCommand (excess delete again)"] += 1
+                elif isinstance(cmd, ReplicateCommand) and cmd.source in stopped:
+                    failed["ReplicateCommand (source stopped)"] += 1
+                else:
+                    raise AssertionError(f"{what}: {d.dn.id} command {cmd!r} "
+                                         f"failed: {e!r}")
+        out["failed"][what] = dict(failed)
+        return launches
+
+    def get_all(what: str, key: str) -> str:
+        """Every key GET through the OzoneClient, byte-exact."""
+        reloc0 = meta.om.metrics.counter("units_relocated").value
+        mark = begin()
+        t0 = time.perf_counter()
+        bucket = oz.get_volume("adm").get_bucket("b")
+
+        def get(name):
+            if not np.array_equal(bucket.read_key(name), keys[name]):
+                raise AssertionError(f"{what}: {name} differs")
+
+        concurrent(get, sorted(keys))
+        secs = time.perf_counter() - t0
+        launches = end(what, key, mark)
+        total = sum(v.size for v in keys.values())
+        return (f"{len(keys)} keys, {total} B byte-exact through the OzoneClient "
+                f"GET in {secs:.3f} s = {total / secs / 2**30:.3f} GiB/s; decode "
+                f"launches {launches}; units the lookups pointed at their current "
+                f"homes {meta.om.metrics.counter('units_relocated').value - reloc0}")
+
+    def declare_dead(dn_id: str) -> None:
+        with meta.scm_service.lock:
+            meta.scm.nodes.get(dn_id).last_heartbeat = -1e9
+            meta.scm.nodes.check_liveness()
+        if meta.scm.nodes.get(dn_id).state is not NodeState.DEAD:
+            raise AssertionError(f"{dn_id} not DEAD")
+
+    def restart_scm(what: str) -> float:
+        """Stop the metadata daemon and start it again on its port and
+        store; safemode holds until every live datanode registered (with
+        its report)."""
+        nonlocal meta
+        t0 = time.perf_counter()
+        port = meta.server.port
+        meta.stop()
+        meta = ScmOmDaemon(root / "om.db", port=port, **meta_kw,
+                           min_datanodes=n_dn - len(stopped))
+        meta.start()
+        wait_for(f"{what}: every live datanode registered", lambda: all(
+            meta.scm.nodes.get(d.dn.id) is not None for d in dns
+            if d.dn.id not in stopped), 30, poll_s=0.05)
+        return time.perf_counter() - t0
+
+    def revive(dn_id: str) -> None:
+        """Start a stopped datanode again on its root."""
+        i = next(i for i, d in enumerate(dns) if d.dn.id == dn_id)
+        d = DatanodeDaemon(root / dn_id, dn_id, meta.address,
+                           rack=f"/rack{int(dn_id[2:]) % 4}",
+                           heartbeat_interval_s=0.2, device=device, num_volumes=2)
+        d.start()
+        dns[i] = d
+        by_id[dn_id] = d
+        stopped.discard(dn_id)
+
+    def used_mib() -> dict:
+        return {n.dn_id: n.used_bytes / MIB for n in meta.scm.nodes.nodes()
+                if serving(n.dn_id)}
+
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-scm-") as tmp:
+        root = Path(tmp)
+        port_log.addHandler(collect)
+        port_log.propagate = False
+        # four blocks per container: a batch of up to four concurrent
+        # writers starts on a fresh container (the open ones are closed
+        # between batches) and never sees it closed under a block in
+        # flight (the SCM closes a full container at the next allocation)
+        meta_kw = dict(block_size=16 * cell, container_size=64 * cell,
+                       stale_after_s=30.0, dead_after_s=60.0,
+                       background_interval_s=0.2, placement_seed=seed,
+                       device=device)
+        meta = ScmOmDaemon(root / "om.db", **meta_kw)
+        meta.start()
+        dns: list = []
+        by_id: dict = {}
+        clients = DatanodeClientFactory()
+        clients.location = "/rack0"  # reads go nearest-first from here
+        scm_client = RemoteScmClient(meta.address)
+        oz = None
+        try:
+            for i in range(n_dn):
+                d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address,
+                                   rack=f"/rack{i % 4}", heartbeat_interval_s=0.2,
+                                   device=device, num_volumes=2)
+                d.start()
+                dns.append(d)
+                by_id[d.dn.id] = d
+            wait_for("12 datanodes registered",
+                     lambda: len(meta.scm.nodes.nodes()) == n_dn, 30)
+            oz = OzoneClient(RemoteOmClient(meta.address, clients=clients),
+                             clients, device=device)
+            bucket = oz.create_volume("adm").create_bucket("b", replication=rs)
+
+            # ---- setup: keys PUT two at a time, containers closed
+            for i in range(n_keys):
+                keys[f"k{i}"] = payload(key_cells, (i * 12345) % cell)
+            mark = begin()
+            t0 = time.perf_counter()
+            names = sorted(keys)
+            close_s = 0.0
+            for batch in (names[i:i + 3] for i in range(0, len(names), 3)):
+                concurrent(lambda n: bucket.write_key(n, keys[n]), batch)
+                close_s = close_all("setup")
+            put_s = time.perf_counter() - t0
+            end("setup PUT", "scm_admin_put", mark)
+            total = sum(v.size for v in keys.values())
+            print(f"scm_admin setup: {n_dn} datanodes on 4 racks, 2 volumes each; "
+                  f"{n_keys} keys, {total} B PUT in {put_s:.3f} s = "
+                  f"{total / put_s / 2**30:.3f} GiB/s, three at a time, each batch's "
+                  f"container closed after it; {len(meta.scm.containers.containers())} "
+                  f"containers, the last closed and settled {close_s:.2f} s after its "
+                  "PUT")
+
+            # ---- (a) a failed volume
+            def on_vol0(d):
+                return sum(c.replica_index > 0 and c.db is d.dn.volumes[0].db
+                           for c in d.dn.list_containers())
+
+            va = max(dns, key=on_vol0)
+            vol = va.dn.volumes[0]
+            lost = units_of(va.dn.id, vol)
+            mark = begin()
+            t0 = time.perf_counter()
+            shutil.rmtree(vol.root)
+            if va.dn.check_volumes() != [str(vol.root)]:
+                raise AssertionError("(a): the volume checker missed the failure")
+            # the node itself may take a unit back, on its healthy volume
+            wait_for("(a) rebuild", lambda: all(
+                home(cid, idx, set()) for cid, idx in lost), 60, poll_s=0.05)
+            secs = time.perf_counter() - t0
+            end("(a) failed volume", "scm_admin_failed_volume", mark, decode=True)
+            per, rates = check_rehomed("(a)", lost, set(), secs)
+            node = meta.scm.nodes.get(va.dn.id)
+            if node.state is not NodeState.HEALTHY or node.healthy_volumes != 1:
+                raise AssertionError(f"(a): {va.dn.id} {node.state} with "
+                                     f"{node.healthy_volumes} healthy volumes")
+            print(f"scm_admin (a) failed volume: {va.dn.id} lost {vol.root.name}; "
+                  f"{sum(len(b) for b in lost.values())} blocks "
+                  f"({sum(per.values())} B) of {len(lost)} units rebuilt by decode "
+                  f"in {secs:.3f} s from the report delta: {rates} per target; "
+                  "every chunk and its CRCs equal the lost one's")
+            before = {c.id for c in va.dn.list_containers()}
+            mark = begin()
+            n_put = 0
+            while n_put < 3:  # until a new container lands on the node
+                n_put += 1
+                keys[f"a{n_put}"] = payload(6, 777 * n_put)
+                bucket.write_key(f"a{n_put}", keys[f"a{n_put}"])
+                if {c.id for c in va.dn.list_containers()} - before:
+                    break
+                close_all("(a) PUT")
+            end("(a) PUT", "scm_admin_failed_volume_put", mark)
+            new = [c for c in va.dn.list_containers() if c.id not in before]
+            if any(c.db is not va.dn.volumes[1].db for c in new):
+                raise AssertionError("(a): a container landed on the failed volume")
+            close_all("(a)")
+            print(f"scm_admin (a): {va.dn.id} stays HEALTHY with 1 healthy volume; "
+                  f"{len(new)} new container(s) on it after {n_put} PUT(s), all on "
+                  "its healthy volume")
+
+            # ---- (b) decommission under writers
+            def ec_units(d):
+                return sum(c.replica_index > 0 for c in d.dn.list_containers())
+
+            vb = max((d for d in dns if d is not va), key=ec_units)
+            moved = units_of(vb.dn.id)
+            moved_b = sum(len(x[3]) for blocks in moved.values()
+                          for chunks in blocks.values() for x in chunks)
+            wkeys = {f"w{i}": payload(writer_cells, 4321 * i) for i in range(n_writers)}
+            keys.update(wkeys)
+            mark = begin()
+            t0 = time.perf_counter()
+            ans, cli_s = admin_cli("datanode", "decommission", vb.dn.id)
+            if ans["op_state"] != "DECOMMISSIONING":
+                raise AssertionError(f"(b): {ans}")
+            tw = time.perf_counter()
+            concurrent(lambda n: bucket.write_key(n, wkeys[n]), sorted(wkeys))
+            write_s = time.perf_counter() - tw
+            wait_for("(b) drain", lambda: meta.scm.nodes.get(vb.dn.id).op_state
+                     is NodeOperationalState.DECOMMISSIONED, 60, poll_s=0.05)
+            drain_s = time.perf_counter() - t0
+            end("(b) decommission", "scm_admin_decommission_put", mark)
+            per, _ = check_rehomed("(b)", moved, {vb.dn.id}, drain_s)
+            for n in wkeys:
+                info = oz.om.lookup_key("adm", "b", n)
+                if any(vb.dn.id in g["nodes"] for g in info["block_groups"]):
+                    raise AssertionError(f"(b): {n} allocated on the draining node")
+            wb = sum(v.size for v in wkeys.values())
+            print(f"scm_admin (b): `admin datanode decommission {vb.dn.id}` "
+                  f"({cli_s:.2f} s, a process); DECOMMISSIONING -> DECOMMISSIONED in "
+                  f"{drain_s:.3f} s, {len(moved)} units ({moved_b} B) copied off it "
+                  f"byte-exact, none rebuilt by decode (the reference copies); "
+                  f"{n_writers} writers PUT {wb} B in {write_s:.3f} s = "
+                  f"{wb / write_s / 2**30:.3f} GiB/s meanwhile, none allocated on it")
+            by_id[vb.dn.id].stop()
+            stopped.add(vb.dn.id)
+            declare_dead(vb.dn.id)
+            close_all("(b)")
+            print(f"scm_admin (b) GET with {vb.dn.id} stopped and dead: "
+                  + get_all("(b) GET", "scm_admin_get_b"))
+
+            # ---- (c) a node dies mid-drain
+            vc = max((d for d in dns if d.dn.id not in stopped and d is not va),
+                     key=ec_units)
+            lost = units_of(vc.dn.id)
+            mark = begin()
+            scm_client.admin("decommission", vc.dn.id)
+            vc.stop()
+            stopped.add(vc.dn.id)
+            t_stop = time.perf_counter()
+            # the copies planned from it fail, and nothing plans them again
+            # while it is only silent (a shared fault)
+            time.sleep(0.5)
+            declare_dead(vc.dn.id)
+            t0 = time.perf_counter()
+            wait_for("(c) rebuild", lambda: all(
+                home(cid, idx, {vc.dn.id}) for cid, idx in lost), 60, poll_s=0.05)
+            secs = time.perf_counter() - t0
+            wait_for("(c) DECOMMISSIONED", lambda: meta.scm.nodes.get(vc.dn.id).op_state
+                     is NodeOperationalState.DECOMMISSIONED, 30, poll_s=0.05)
+            close_all("(c)")
+            end("(c) dead mid-drain", "scm_admin_dead_mid_drain", mark, decode=True)
+            per, rates = check_rehomed("(c)", lost, {vc.dn.id}, secs)
+            print(f"scm_admin (c): {vc.dn.id} decommissioned and stopped at once, "
+                  f"declared DEAD {t0 - t_stop:.2f} s later: "
+                  f"{sum(len(b) for b in lost.values())} blocks ({sum(per.values())} B) "
+                  f"of {len(lost)} units rebuilt by decode in {secs:.3f} s: {rates} per "
+                  "target; every chunk and its CRCs equal the lost one's; "
+                  f"DECOMMISSIONED; failed commands {out['failed']['(c) dead mid-drain']}")
+
+            # ---- (d) maintenance, recommission, the excess deleted
+            live = [d for d in dns if d.dn.id not in stopped and d is not va]
+            vd = max(live, key=ec_units)
+            held = units_of(vd.dn.id)
+            mark = begin()
+            ans, cli_m = admin_cli("datanode", "maintenance", vd.dn.id)
+            t0 = time.perf_counter()
+            wait_for("(d) maintenance copies", lambda: all(
+                home(cid, idx, {vd.dn.id}) for cid, idx in held), 60, poll_s=0.05)
+            copy_s = time.perf_counter() - t0
+            keys["d1"] = payload(6, 99)
+            bucket.write_key("d1", keys["d1"])
+            if any(vd.dn.id in g["nodes"] for g in
+                   oz.om.lookup_key("adm", "b", "d1")["block_groups"]):
+                raise AssertionError("(d): allocated on the node in maintenance")
+            per, _ = check_rehomed("(d)", held, {vd.dn.id}, copy_s)
+            ans2, cli_r = admin_cli("datanode", "recommission", vd.dn.id)
+            t1 = time.perf_counter()
+            close_all("(d)")
+            trim_s = time.perf_counter() - t1
+            end("(d) maintenance", "scm_admin_maintenance", mark)
+            print(f"scm_admin (d): `admin datanode maintenance {vd.dn.id}` "
+                  f"({cli_m:.2f} s) -> {ans['op_state']}: its {len(held)} units "
+                  f"({sum(per.values())} B) copied byte-exact in {copy_s:.3f} s, a PUT "
+                  f"meanwhile not on it; `recommission` ({cli_r:.2f} s) -> "
+                  f"{ans2['op_state']}, the excess replicas deleted and settled in "
+                  f"{trim_s:.3f} s; failed commands {out['failed']['(d) maintenance']}")
+
+            # ---- (e) the SCM restarts mid-drain
+            live = [d for d in dns if d.dn.id not in stopped and d not in (va, vd)]
+            ve = max(live, key=ec_units)
+            mark = begin()
+            scm_client.admin("decommission", ve.dn.id)
+            wait_for("(e) op state persisted on the node",
+                     lambda: ve._op_state == "DECOMMISSIONING", 10, poll_s=0.02)
+            echo = ve._op_state
+            t0 = time.perf_counter()
+            up_s = restart_scm("(e)")
+            seeded = dict(meta.scm.nodes._seeded_op)
+            if seeded.get(ve.dn.id) != "DECOMMISSIONING" or \
+                    meta.scm.nodes.get(ve.dn.id).op_state \
+                    is not NodeOperationalState.DECOMMISSIONING:
+                raise AssertionError(f"(e): the restarted SCM lost the drain: {seeded}")
+            wait_for("(e) DECOMMISSIONED", lambda: meta.scm.nodes.get(ve.dn.id).op_state
+                     is NodeOperationalState.DECOMMISSIONED, 60, poll_s=0.05)
+            done_s = time.perf_counter() - t0
+            close_all("(e)")
+            end("(e) SCM restart", "scm_admin_scm_restart", mark)
+            print(f"scm_admin (e): the SCM restarted mid-drain of {ve.dn.id} (up with "
+                  f"every live datanode registered in {up_s:.3f} s); its store seeds "
+                  f"{seeded}, the node echoes {echo} at its register; "
+                  f"DECOMMISSIONED {done_s:.3f} s after the restart began")
+
+            # ---- (f) the balancer, with the dead node back and both
+            # decommissioned live nodes recommissioned: its stale replicas
+            # and the drained node's copies go as excess, so the balancer
+            # has cold nodes to fill
+            mark = begin()
+            t0 = time.perf_counter()
+            revive(vc.dn.id)
+            wait_for("(f) the dead node registered again",
+                     lambda: meta.scm.nodes.get(vc.dn.id) is not None, 30, poll_s=0.05)
+            for n in (vc.dn.id, ve.dn.id):
+                scm_client.admin("recommission", n)
+            close_all("(f) recommission")
+            back_s = time.perf_counter() - t0
+            end("(f) recommission", "scm_admin_recommission", mark)
+            print(f"scm_admin (f): {vc.dn.id} restarted, {vc.dn.id} and {ve.dn.id} "
+                  f"recommissioned: their excess replicas deleted and settled in "
+                  f"{back_s:.3f} s; failed commands "
+                  f"{out['failed']['(f) recommission']}")
+            cap = meta.scm.nodes.get(va.dn.id).capacity_bytes
+            threshold = band_cells * cell / cap
+            u0 = used_mib()
+            mark = begin()
+            t0 = time.perf_counter()
+            _, cli_b = admin_cli("balancer", "start", "--threshold", repr(threshold),
+                                 "--max-moves", "5", "--max-size", str(10 * 2**30))
+
+            def balanced() -> bool:
+                # an iteration that found nothing to move, none in flight
+                return (meta.scm.balancer.status.iterations > 0
+                        and not meta.scm.balancer.inflight
+                        and not meta.scm.balancer.status.last_iteration_moves)
+
+            wait_for("(f) the balancer", balanced, 60, poll_s=0.05)
+            bal_s = time.perf_counter() - t0
+            st, cli_s2 = admin_cli("balancer", "stop")
+            close_all("(f)")
+            end("(f) balancer", "scm_admin_balancer", mark)
+            u1 = used_mib()
+            spread = (max(u0.values()) - min(u0.values()),
+                      max(u1.values()) - min(u1.values()))
+            band_mib = band_cells * cell / MIB
+            if spread[0] > 2 * band_mib and (st["moves_scheduled"] == 0
+                                             or spread[1] >= spread[0]):
+                raise AssertionError(f"(f): {st['moves_scheduled']} moves, spread "
+                                     f"{spread[0]:.1f} -> {spread[1]:.1f} MiB")
+            out["balancer"] = {"moves": st["moves_scheduled"], "seconds": bal_s,
+                               "spread_mib": spread, "iterations": st["iterations"]}
+            print(f"scm_admin (f): `admin balancer start --threshold {threshold:.4g} "
+                  f"--max-moves 5 --max-size {10 * 2**30}` ({cli_b:.2f} s; a band of "
+                  f"{band_cells * cell} B over {cap} B per node): {st['iterations']} "
+                  f"iterations, "
+                  f"{st['moves_scheduled']} moves ({st['bytes_scheduled']} B by the "
+                  f"SCM's container sizes) done in {bal_s:.3f} s; used spread "
+                  f"{spread[0]:.1f} -> {spread[1]:.1f} MiB over {len(u1)} serving nodes "
+                  f"({min(u0.values()):.1f}-{max(u0.values()):.1f} -> "
+                  f"{min(u1.values()):.1f}-{max(u1.values()):.1f}); failed commands "
+                  f"{out['failed']['(f) balancer']}")
+            print("scm_admin (f) GET after the balancer: "
+                  + get_all("(f) GET", "scm_admin_get_f"))
+            mark = begin()
+            up_s = restart_scm("(f) restart")
+            st2 = meta.scm.balancer_status()
+            if st2 != st:
+                raise AssertionError(f"(f): balancer_status {st} -> {st2} across a restart")
+            close_all("(f) restart")
+            end("(f) restart", "scm_admin_balancer_restart", mark)
+            print(f"scm_admin (f): balancer_status() survives an SCM restart "
+                  f"({up_s:.3f} s): {st2}")
+
+            # ---- (g) the read verbs as processes, at once
+            t0 = time.perf_counter()
+            answers = concurrent(lambda a: admin_cli(*a), [
+                ("datanode", "list"), ("pipeline", "list"),
+                ("replicationmanager",), ("balancer", "status")])
+            g_s = time.perf_counter() - t0
+            ops = Counter(n["op_state"] for n in answers[0][0])
+            rm_census = answers[2][0]
+            if rm_census["under_replicated"] or rm_census["missing"] or \
+                    answers[3][0] != st:
+                raise AssertionError(f"(g): {rm_census}, {answers[3][0]}")
+            print(f"scm_admin (g): `admin datanode list` {dict(ops)}, `pipeline list` "
+                  f"{len(answers[1][0]['pipelines'])} open, `replicationmanager` "
+                  f"{rm_census}, `balancer status` equal, four processes in "
+                  f"{g_s:.2f} s ({', '.join(f'{a[1]:.2f}' for a in answers)} s each); "
+                  "`datanode decommission|maintenance|recommission` and `balancer "
+                  "start|stop` ran as processes in (b), (d) and (f)")
+            print(f"scm_admin: datanode commands failed by step and type "
+                  f"{json.dumps(out['failed'])} (the shared faults of ROADMAP Queue 3 "
+                  f"only); {len(collect.records)} warning log records held back")
+        except BaseException:
+            collect.dump()
+            raise
+        finally:
+            port_log.removeHandler(collect)
+            port_log.propagate = old_propagate
+            scm_client.close()
+            if oz is not None:
+                oz.om.close()
+            clients.close()
+            for d in dns:
+                if d.dn.id not in stopped:
+                    d.stop()
+            meta.stop()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5565,25 +6200,29 @@ def main() -> int:
         fr = phase("freon_path", freon_path, device, MIB, bpc, args.seed)
         dm = phase("daemon_path", daemon_path, device, MIB, bpc, args.seed,
                    statistics.mean(r["gib_s"] for r in put["service"]))
-        # depth cuts for the later phases' room (PERF.md section 4): two S3
-        # clients of four
-        s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed, 2)
-        # depth cut: 4 big keys of 16
-        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed, 4)
-        # depth cut: 125 keys per tinyg run and 25 on the stripe path, of the
+        # depth cuts for the later phases' room (PERF.md section 4): one S3
+        # client of four
+        s3 = phase("s3_path", s3_path, device, MIB, bpc, args.seed, 1)
+        # depth cut: 2 big keys of 16
+        lc = phase("lifecycle_path", lifecycle_path, device, MIB, bpc, args.seed, 2)
+        # depth cut: 64 keys per tinyg run and 16 on the stripe path, of the
         # cell's 2000 and 500
         so = phase("small_object_path", small_object_path, device, MIB, bpc, args.seed,
-                   125, 64 * 1024, 25)
-        # depth cut: (a) and (d) take 4 keys of 8, (b) 8 keys of 16, (c) 4 of 8
-        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 4, 64 * MIB, 8,
+                   64, 64 * 1024, 16)
+        # depth cut: (a) and (d) take 2 keys of 8, (b) 8 keys of 16, (c) 4 of 8
+        ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 2, 64 * MIB, 8,
                    n_ratis=4)
-        # depth cuts: (a) 4 files of 8, (c) 125 files per thread of 500, (f)
-        # 32 files of 128
+        # depth cuts: (a) 4 files of 8, (c) 60 files per thread of 500 (listed
+        # in pages of 25, of 100), (f) 16 files of 128
         fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed, n_io=4,
-                   md_files=125, n_small=32)
+                   md_files=60, md_page=25, n_small=16)
         # depth cut: one user per tenant of two
         sec = phase("security_path", security_path, device, MIB, bpc, args.seed, 2, 1)
-        enc = phase("encryption_path", encryption_path, device, MIB, bpc, args.seed)
+        # depth cuts: one big key of four, 4 ranged GETs of 16, 2 renewal
+        # rounds of 6
+        enc = phase("encryption_path", encryption_path, device, MIB, bpc, args.seed,
+                    n_big=1, n_ranged=4, n_renew=2)
+        adm = phase("scm_admin_path", scm_admin_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -5614,7 +6253,7 @@ def main() -> int:
             "lifecycle_xor_reencode": lc["xor_launches"],
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
-            **sec["launches"], **enc["launches"],
+            **sec["launches"], **enc["launches"], **adm["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

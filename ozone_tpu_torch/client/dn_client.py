@@ -13,8 +13,12 @@ the factory's `tls` (a TlsMaterial or RotatingTls) is the identity every
 remote client presents (and the native lane is off); a renewal bumps the
 material's `version`, and the remote clients made under the old one are
 retired (closed with the factory: a repair may still be on one) so the
-next call presents the new certificate. Left out: nearest-first ordering
-(`learn_locations` keeps the topology the SCM ships).
+next call presents the new certificate. `learn_locations` keeps the
+topology the SCM ships and `nearest_first` orders datanodes by tree
+distance from the factory's own `location` (or `node_id`), as the
+reference's sortDatanodes does (`scm/topology.py`): the replicated
+reader asks replicas in that order and the EC reader takes the nearest
+survivors for a decode.
 """
 
 from __future__ import annotations
@@ -265,8 +269,11 @@ class DatanodeClientFactory:
         self.health = HealthRegistry()
         #: tokens shared by every remote client of this factory
         self.tokens = TokenStore()
-        #: dn_id -> topology location ("/rack"), learned from the SCM
+        #: dn_id -> topology location ("/dc/rack"), learned from the SCM,
+        #: and this client's own position for nearest-first ordering
         self.locations: dict[str, str] = {}
+        self.location: Optional[str] = None
+        self.node_id: Optional[str] = None
         #: the identity remote clients present on a mutual-TLS cluster
         self.tls = None
         self._tls_ver = None
@@ -275,6 +282,17 @@ class DatanodeClientFactory:
     def learn_locations(self, locations: dict[str, str]) -> None:
         if locations:
             self.locations.update(locations)
+
+    def nearest_first(self, nodes) -> list[str]:
+        """Datanodes ordered nearest-first from this client's position;
+        with no topology known, the input order."""
+        if not self.locations or (
+                self.location is None and self.node_id is None):
+            return list(nodes)
+        from ozone_tpu_torch.scm.topology import sort_by_distance
+
+        return sort_by_distance(self.location, nodes, self.locations,
+                                reader_node=self.node_id)
 
     def register_local(self, dn: Datanode) -> LocalDatanodeClient:
         c = LocalDatanodeClient(dn)

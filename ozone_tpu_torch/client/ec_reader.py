@@ -19,7 +19,8 @@ erasure pattern share launches; with OZONE_TPU_CODEC_SERVICE=0 each is
 one launch of its own (`DeviceBatchPipeline`).
 
 Straggler tolerance (client/resilience.py): survivor choice skips
-breaker-open peers, every read feeds the per-peer latency EWMA, and a
+breaker-open peers and, with more survivors than it needs, takes the
+topology-nearest (`DatanodeClientFactory.nearest_first`), every read feeds the per-peer latency EWMA, and a
 cell read that runs past the peer's hedge delay is hedged. The normal
 path races the read against a decode of the same cell from parity; the
 recovery path drops the straggling survivor and replans the batched
@@ -500,6 +501,11 @@ class ECBlockGroupReader:
             # available (known zeros), so a short group repairs locally.
             nodes = self.group.pipeline.nodes
             pref = sorted(avail)
+            if getattr(self.clients, "nearest_first", None) is not None:
+                order = {dn: i for i, dn in
+                         enumerate(self.clients.nearest_first(
+                             [nodes[u] for u in pref]))}
+                pref.sort(key=lambda u: order.get(nodes[u], len(order)))
             usable = {u for u in pref if self._health.usable(nodes[u])}
             if usable:
                 pref.sort(key=lambda u: u not in usable)  # stable
@@ -521,6 +527,17 @@ class ECBlockGroupReader:
             usable = [u for u in avail if self._health.usable(nodes[u])]
             if len(usable) >= self.k:
                 avail = usable
+        if len(avail) > self.k and \
+                getattr(self.clients, "nearest_first", None) is not None:
+            # more survivors than needed: read the k topology-nearest (the
+            # survivor choice is the replica choice; it sets the decode's
+            # recovery matrix)
+            nodes = self.group.pipeline.nodes
+            order = {dn: i for i, dn in
+                     enumerate(self.clients.nearest_first(
+                         [nodes[u] for u in avail]))}
+            avail.sort(key=lambda u: order.get(nodes[u], len(order)))
+            avail = sorted(avail[: self.k])
         return avail[: self.k]
 
     def recover_cells(

@@ -314,9 +314,13 @@ class ReplicatedKeyReader:
             raise ValueError("range out of bounds")
         if length == 0:
             return np.zeros(0, np.uint8)
-        # non-claiming check: ordering must not consume half-open probes
-        nodes = sorted(self.group.pipeline.nodes,
-                       key=lambda dn: not self._health.usable(dn))
+        # the topology-nearest replica first (sortDatanodes); farther ones
+        # stay the hedge and failover chain, breaker-refusing ones last
+        # (a non-claiming check: ordering must not consume half-open probes)
+        nodes = self.group.pipeline.nodes
+        if getattr(self.clients, "nearest_first", None) is not None:
+            nodes = self.clients.nearest_first(nodes)
+        nodes = sorted(nodes, key=lambda dn: not self._health.usable(dn))
 
         def read_from(dn_id):
             return self._health.observe(

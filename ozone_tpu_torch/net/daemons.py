@@ -10,17 +10,25 @@ the native chunk datapath sidecar (`storage/fast_datapath.py`) that the
 bulk verbs ride and advertises it through `GetDatapathInfo` (on unless
 OZONE_TPU_NATIVE_DATAPATH=0 or the daemon runs TLS; a sidecar that
 cannot be built or bound raises, the daemon never serves the RPC alone
-in its place), registers with the SCM with its filesystem capacity,
-heartbeats with a
-full container report whenever one changed (or every 10 s), and runs the
-commands that come back: close, EC reconstruction on the port's
+in its place), registers with the SCM with its filesystem capacity and
+its full container report, heartbeats with a full container report
+whenever one changed (or every 10 s), and runs the commands that come
+back: close, EC reconstruction on the port's
 `ECReconstructionCoordinator`, replication (a container export pulled
 from the source and imported here), replica deletion and block
-deletion. A background loop scrubs one closed container per tick on the
-port's `DeviceScrubber`. The codec runs on `device` ("cuda" by default,
-raising when CUDA is absent; "cpu" runs the plain versions). A command
-that fails is logged and its error raised from the heartbeat that ran
-it; nothing is re-run on the CPU.
+deletion. A background loop checks its volumes (a failed one's replicas
+leave the next report) and scrubs one closed container per tick on the
+port's `DeviceScrubber`; containers queued for an on-demand scan (a
+write-fence violation) are scrubbed after each heartbeat once they are
+writer-free. The SCM's `set-op-state` command (decommission,
+maintenance) is persisted under the root (`op_state.json`) and echoed
+at every registration, so a restarted SCM relearns a drain in flight.
+Its peer clients read nearest-first from its own rack. The codec runs
+on `device` ("cuda" by default, raising when CUDA is absent; "cpu" runs
+the plain versions). A command that fails is logged, counted by type
+(`failed_commands`, with the command and its error in
+`command_errors`) and its error raised from the heartbeat that ran it;
+nothing is re-run on the CPU.
 
 Every datanode also hosts the raft groups of its RATIS pipelines
 (`storage/ratis.RatisXceiverServer`, XceiverServerRatis): the SCM's
@@ -89,8 +97,8 @@ handshake with no restart; the trust bundle and CRL are refreshed with
 it only when a secret authenticates the answers. A failed handshake is
 never retried in plaintext.
 
-Left out: operational state, Recon, the HTTP server, geo replication and
-its cadence, and sharding.
+Left out: Recon, the HTTP server, geo replication and its cadence, the
+replication bandwidth cap, and sharding.
 """
 
 from __future__ import annotations
@@ -159,10 +167,13 @@ class DatanodeDaemon:
         device="cuda",
         ca_address: Optional[str] = None,
         enrollment_secret: Optional[str] = None,
+        num_volumes: int = 1,
+        volume_policy: str = "round-robin",
     ):
         # first: a datanode that cannot reach its device refuses to start
         self.device = resolve_device(device)
-        self.dn = Datanode(Path(root), dn_id=dn_id)
+        self.dn = Datanode(Path(root), dn_id=dn_id, num_volumes=num_volumes,
+                           volume_policy=volume_policy)
         #: the live TLS identity (secure clusters) and its renewal loop
         self.tls = None
         self.cert_client = None
@@ -207,6 +218,8 @@ class DatanodeDaemon:
         # peer clients for reconstruction and replication
         self.clients = DatanodeClientFactory()
         self.clients.tls = self.tls
+        self.clients.location = rack
+        self.clients.node_id = dn_id
         self.clients.register_local(self.dn)
         self.reconstruction = ECReconstructionCoordinator(
             self.clients, device=self.device)
@@ -220,8 +233,21 @@ class DatanodeDaemon:
         self._stop = threading.Event()
         self._hb: Optional[threading.Thread] = None
         self._scanner: Optional[threading.Thread] = None
-        #: commands that raised, by type name
+        #: commands that raised, by type name, and the first 1000 of them
+        #: with their errors
         self.failed_commands: dict[str, int] = {}
+        self.command_errors: list[tuple] = []
+        # the persisted op state (persistedOpState): set by the SCM's
+        # command, echoed at registration
+        self._op_state_file = Path(root) / "op_state.json"
+        self._op_state: Optional[str] = None
+        if self._op_state_file.exists():
+            try:
+                loaded = json.loads(self._op_state_file.read_text())
+                if isinstance(loaded, dict):
+                    self._op_state = loaded.get("op_state")
+            except ValueError:  # corrupt: start IN_SERVICE, the SCM re-drives
+                log.warning("%s: unreadable %s", dn_id, self._op_state_file)
 
     @property
     def address(self) -> str:
@@ -264,13 +290,41 @@ class DatanodeDaemon:
             self.datapath.stop()
 
     def _capacity_bytes(self) -> int:
-        """Capacity of the filesystem under the datanode's volume."""
-        return shutil.disk_usage(self.dn.root).total
+        """Filesystem capacity across the healthy volumes (the reference's
+        StorageLocationReport), each filesystem counted once."""
+        total, seen = 0, set()
+        for v in self.dn.volumes:
+            if v.failed:
+                continue
+            try:
+                dev = v.root.stat().st_dev
+                if dev not in seen:
+                    seen.add(dev)
+                    total += shutil.disk_usage(v.root).total
+            except OSError:  # a vanished volume drops out of the report
+                continue
+        return total
 
     def _register(self) -> None:
+        """Register with the op state and the full container report."""
+        fp = self._report_fingerprint()
+        report = self.dn.container_report()
         self.scm.register(self.dn.id, self.address, rack=self.rack,
-                          capacity_bytes=self._capacity_bytes())
+                          capacity_bytes=self._capacity_bytes(),
+                          op_state=self._op_state, container_report=report)
+        self._last_report_fp = fp
+        self._last_report_t = time.monotonic()
+        self._last_used = sum(r["used_bytes"] for r in report)
         self._sync_security()
+
+    def _set_op_state(self, state: Optional[str]) -> None:
+        self._op_state = state if state != "IN_SERVICE" else None
+        if self._op_state is None:
+            self._op_state_file.unlink(missing_ok=True)
+        else:
+            tmp = self._op_state_file.with_suffix(".tmp")
+            tmp.write_text(json.dumps({"op_state": self._op_state}))
+            tmp.replace(self._op_state_file)
 
     def _sync_security(self) -> None:
         """Take the token posture and keys from the SCM's answers: turn
@@ -333,6 +387,10 @@ class DatanodeDaemon:
     def _scan_loop(self) -> None:
         while not self._stop.wait(self.scan_interval):
             try:
+                # disk health first (StorageVolumeChecker): a failed
+                # volume's replicas leave the next report and the SCM
+                # rebuilds them elsewhere
+                self.dn.check_volumes()
                 self.scan_once()
             except Exception:
                 log.exception("%s background scan failed", self.dn.id)
@@ -343,8 +401,7 @@ class DatanodeDaemon:
         every FULL_REPORT_EVERY_S), then every command that came back. A
         command that raises is logged; the first such error is raised
         once all commands ran."""
-        fp = (self.dn.mutation_count,
-              tuple(sorted((c.id, c.state.value) for c in self.dn.containers)))
+        fp = self._report_fingerprint()
         now = time.monotonic()
         report = None
         if fp != self._last_report_fp \
@@ -353,9 +410,10 @@ class DatanodeDaemon:
             self._last_used = sum(r["used_bytes"] for r in report)
         acks, self._pending_acks = self._pending_acks, []
         try:
-            commands = self.scm.heartbeat(self.dn.id, container_report=report,
-                                          used_bytes=self._last_used,
-                                          deleted_block_acks=acks)
+            commands = self.scm.heartbeat(
+                self.dn.id, container_report=report,
+                used_bytes=self._last_used, deleted_block_acks=acks,
+                healthy_volumes=self.dn.healthy_volume_count)
         except BaseException:
             self._pending_acks = acks + self._pending_acks
             raise
@@ -372,17 +430,42 @@ class DatanodeDaemon:
                     else cmd.get("type", "dict")
                 self.failed_commands[name] = \
                     self.failed_commands.get(name, 0) + 1
+                if len(self.command_errors) < 1000:
+                    self.command_errors.append((cmd, e))
                 log.exception("%s command %r failed", self.dn.id, cmd)
                 first = first or e
         if first is not None:
             raise first
 
+    def _report_fingerprint(self) -> tuple:
+        return (self.dn.mutation_count,
+                tuple(sorted((c.id, c.state.value)
+                             for c in self.dn.containers)))
+
     def _heartbeat_loop(self) -> None:
         while not self._stop.wait(self.heartbeat_interval):
             try:
                 self.heartbeat_once()
+                self._drain_scan_requests()
             except Exception:
                 log.exception("%s heartbeat failed", self.dn.id)
+
+    def _drain_scan_requests(self) -> None:
+        """Scrub the containers queued for an on-demand scan
+        (OnDemandContainerDataScanner) once writer-free; an OPEN replica's
+        chunks in flight would read torn, so it stays queued."""
+        for cid in self.dn.pop_scan_requests():
+            try:
+                c = self.dn.get_container(cid)
+            except StorageError:  # deleted since the request
+                continue
+            if c.state not in SCANNABLE_STATES:
+                self.dn.request_scan(cid)
+                continue
+            errs = self._scrubber.scrub_container(self.dn, cid)
+            if errs:
+                log.warning("%s: on-demand scan of container %d found: %s",
+                            self.dn.id, cid, errs[:4])
 
     def _learn_topology(self) -> None:
         """One NodeAddresses round trip feeds the address book."""
@@ -415,6 +498,8 @@ class DatanodeDaemon:
             self._replicate(cmd)
         elif isinstance(cmd, dict) and cmd.get("type") == "register":
             self._register()
+        elif isinstance(cmd, dict) and cmd.get("type") == "set-op-state":
+            self._set_op_state(cmd.get("op_state"))
         elif isinstance(cmd, dict) and cmd.get("type") == "join-pipeline":
             self._join_pipeline(cmd)
         elif isinstance(cmd, dict) and cmd.get("type") == "leave-pipeline":

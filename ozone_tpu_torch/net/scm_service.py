@@ -8,14 +8,25 @@ serialized with a type tag and the node address book so a remote
 datanode can rebuild against peers it has never met; the OM and tools
 allocate blocks, list containers and read the cluster status.
 `ScmRpcService` is `ScmGrpcService` and `RemoteScmClient` is
-`GrpcScmClient`. Of the admin verbs, container info, container close,
-safemode status and the metadata ring's verbs (`ring-status` from any
-replica; `ring-add`, `ring-remove`, `ring-transfer` on the leader) are
-ported. Under HA the daemon sets the hooks: `gate` refuses an
-allocation or a mutating verb on a follower with SCM_NOT_LEADER and the
-leader's address, `barrier` holds the answer until the decision records
-of an allocation are quorum-committed, `admin_submitter` sends the
-container close through the ring, and `ring_provider` ships the ring's
+`GrpcScmClient`. A registering datanode echoes the op state it
+persisted (`op_state`) and sends its full container report with the
+registration (upstream's register request carries it; the reference
+waits for the next heartbeat), and every heartbeat carries its
+healthy-volume count. The admin verbs: the mutating ones (`decommission`,
+`recommission`, `maintenance`, `close-container`, `close-pipeline`,
+`balancer-start` with config overrides, `balancer-stop`,
+`safemode-enter`, `safemode-exit`) go to `apply_admin_op`, through the
+ring under HA; the read-only ones (container info, `pipelines`,
+`balancer-status`, `replication-status`, safemode status, the tokens)
+are answered by the replica asked; and the metadata ring's verbs
+(`ring-status` from any replica; `ring-add`, `ring-remove`,
+`ring-transfer` on the leader). `finalize-upgrade` answers
+UNSUPPORTED_REQUEST (no layout versions in the port yet). Under HA the
+daemon sets the hooks: `gate` refuses an allocation or a mutating verb
+on a follower with SCM_NOT_LEADER and the leader's address, `barrier`
+holds the answer until the decision records of an allocation are
+quorum-committed, `admin_submitter` sends the mutating verbs through
+the ring, and `ring_provider` ships the ring's
 addresses on every register and heartbeat answer, which the remote
 client adopts. On a token-enforcing SCM every register and heartbeat
 answer says so (`block_tokens`), and carries the live secret keys when
@@ -27,8 +38,7 @@ the datanode daemon. The operator's `block-token` and `container-token`
 verbs mint tokens for dn-direct tools (`AdminTokenFetcher` is a
 TokenStore issuer over them); `cert-list` and `cert-revoke` answer on
 the replica that hosts the cluster CA (the daemon sets `cert_ops`).
-`RemoteScmClient(tls=...)` dials the mutual-TLS plane. Left out:
-decommission, the balancer and pipeline verbs.
+`RemoteScmClient(tls=...)` dials the mutual-TLS plane.
 """
 
 from __future__ import annotations
@@ -167,7 +177,9 @@ class ScmRpcService:
         changed = self.addresses.get(m["dn_id"]) != m["address"]
         self.addresses[m["dn_id"]] = m["address"]
         self.scm.register_datanode(m["dn_id"], m.get("rack", "/default-rack"),
-                                   m.get("capacity_bytes", 0))
+                                   m.get("capacity_bytes", 0),
+                                   op_state=m.get("op_state"),
+                                   container_report=m.get("container_report"))
         if changed and self.on_register is not None:
             # a restarted node binds a new port: its pipelines' peers
             # learn the new address
@@ -193,7 +205,8 @@ class ScmRpcService:
         cmds = self.scm.heartbeat(
             m["dn_id"], container_report=m.get("container_report"),
             used_bytes=m.get("used_bytes", 0),
-            deleted_block_acks=m.get("deleted_block_acks"))
+            deleted_block_acks=m.get("deleted_block_acks"),
+            healthy_volumes=m.get("healthy_volumes"))
         book = dict(self.addresses)
         return wire.pack({"commands": [serialize_command(c, book)
                                        for c in cmds],
@@ -219,6 +232,14 @@ class ScmRpcService:
     def _node_addresses(self, req) -> bytes:
         return wire.pack({"addresses": dict(self.addresses),
                           "locations": self.node_locations()})
+
+    #: admin verbs that change cluster state: leader-only under HA, and
+    #: replicated through the ring
+    MUTATING_ADMIN = frozenset({
+        "decommission", "recommission", "maintenance",
+        "balancer-start", "balancer-stop", "safemode-enter", "safemode-exit",
+        "close-container", "close-pipeline",
+    })
 
     def _admin_op(self, req) -> bytes:
         """Operator verbs (the `ozone admin` analog)."""
@@ -248,7 +269,7 @@ class ScmRpcService:
                     "UNSUPPORTED_REQUEST",
                     "this replica does not host the cluster CA")
             return wire.pack({"result": self.cert_ops(op, target)})
-        if op == "close-container":
+        if op in self.MUTATING_ADMIN:
             if self.gate is not None:
                 self.gate()
             if self.admin_submitter is not None:
@@ -264,6 +285,15 @@ class ScmRpcService:
         if op == "safemode-status":
             out = {"safemode": scm.safemode.in_safemode(),
                    **scm.safemode.status()}
+        elif op == "balancer-status":
+            out = scm.balancer_status()
+        elif op == "replication-status":
+            out = scm.replication_status()
+        elif op == "pipelines":
+            out = {"pipelines": [
+                {"id": p.id, "nodes": p.nodes,
+                 "replication": str(p.replication), "state": p.state.value}
+                for p in scm.containers.pipelines()]}
         elif op in ("container-token", "block-token"):
             # operator tokens for dn-direct debug and repair tools
             # (SCMSecurityProtocol.getContainerToken); None on an
@@ -409,17 +439,22 @@ class RemoteScmClient:
                     k for k in keys.values() if k.get("expires", 0) >= now]
 
     def register(self, dn_id: str, address: str, rack: str = "/default-rack",
-                 capacity_bytes: int = 0) -> None:
-        self._follow_ring(self._broadcast("Register", {
-            "dn_id": dn_id, "address": address, "rack": rack,
-            "capacity_bytes": capacity_bytes}))
+                 capacity_bytes: int = 0, op_state: Optional[str] = None,
+                 container_report: Optional[list[dict]] = None) -> None:
+        meta = {"dn_id": dn_id, "address": address, "rack": rack,
+                "capacity_bytes": capacity_bytes, "op_state": op_state}
+        if container_report is not None:
+            meta["container_report"] = container_report
+        self._follow_ring(self._broadcast("Register", meta))
 
     def heartbeat(self, dn_id: str, container_report=None, used_bytes: int = 0,
-                  deleted_block_acks: Optional[list[int]] = None) -> list:
+                  deleted_block_acks: Optional[list[int]] = None,
+                  healthy_volumes: Optional[int] = None) -> list:
         responses = self._broadcast("Heartbeat", {
             "dn_id": dn_id, "container_report": container_report,
             "used_bytes": used_bytes,
             "deleted_block_acks": deleted_block_acks or [],
+            "healthy_volumes": healthy_volumes,
         })
         self._follow_ring(responses)
         return [deserialize_command(c) for m in responses
@@ -443,7 +478,7 @@ class RemoteScmClient:
         m = self._call("NodeAddresses", {})
         return m["addresses"], m.get("locations", {})
 
-    def admin(self, op: str, target: Optional[str] = None) -> dict:
+    def admin(self, op: str, target=None) -> dict:
         return self._call("AdminOp", {"op": op, "target": target})
 
     def status(self) -> dict:

@@ -32,7 +32,12 @@ bucket's a per-key secret, and the bundle rides the replicated open
 (`_mint_encryption`); `kms_create_key` (superuser), `kms_key_info`,
 `kms_list_keys`, and `kms_decrypt`, which unwraps only a bundle of the
 bucket's own master key for a caller that may read or write the bucket.
-Left out for later slices: sharding, the upgrade finalizer and its
+A lookup points each EC unit at the node that holds its replica index
+now, from the SCM's replica map (`_current_holders`, upstream's
+refreshPipeline on lookup): once a repair, a drain or a balancer move
+has rehomed a unit, readers go to the new home instead of decoding
+around the old one. The reference hands out the placement of the write;
+the port departs on purpose (ROADMAP Queue 3). Left out for later slices: sharding, the upgrade finalizer and its
 layout gate, snapshots and geo replication.
 """
 
@@ -687,7 +692,50 @@ class OzoneManager:
         if info is None:
             raise rq.OMError(rq.KEY_NOT_FOUND, f"{volume}/{bucket}/{key}")
         self.metrics.counter("key_lookups").inc()
-        return self.mint_read_tokens(self._join_needle(volume, bucket, info))
+        return self.mint_read_tokens(self._current_holders(
+            self._join_needle(volume, bucket, info)))
+
+    def _current_holders(self, info: dict) -> dict:
+        """The key's EC units pointed at their current homes: a unit whose
+        write-time node is not a HEALTHY, IN_SERVICE holder of its index
+        moves to one that is, when the SCM knows of one; otherwise it stays
+        (a reader then decodes around it). Counts the units moved."""
+        from ozone_tpu_torch.scm.node_manager import (
+            NodeOperationalState,
+            NodeState,
+        )
+
+        groups = info.get("block_groups")
+        if not groups or self.scm is None:
+            return info
+
+        def serving(dn_id: str) -> bool:
+            n = self.scm.nodes.get(dn_id)
+            return (n is not None and n.state is NodeState.HEALTHY
+                    and n.op_state is NodeOperationalState.IN_SERVICE)
+
+        out, moved = [], 0
+        for g in groups:
+            c = self.scm.containers.get_or_none(int(g["container_id"]))
+            if c is None or c.replication.ec is None:
+                out.append(g)
+                continue
+            held: dict[int, list[str]] = {}
+            for dn_id, r in list(c.replicas.items()):
+                if r.replica_index and r.state == "CLOSED" \
+                        and serving(dn_id):
+                    held.setdefault(r.replica_index, []).append(dn_id)
+            nodes = list(g["nodes"])
+            for u, dn_id in enumerate(nodes):
+                homes = held.get(u + 1)
+                if homes and dn_id not in homes:
+                    nodes[u] = homes[0]
+                    moved += 1
+            out.append({**g, "nodes": nodes} if nodes != g["nodes"] else g)
+        if not moved:
+            return info
+        self.metrics.counter("units_relocated").inc(moved)
+        return {**info, "block_groups": out}
 
     def _join_needle(self, volume: str, bucket: str, info: dict) -> dict:
         """A needle row holds only (slab, offset, length, crc): its lookup

@@ -14,8 +14,14 @@ and the ids come from `id_source`, quorum-committed ranges. The
 lifecycle hooks (`on_pipeline_created`, `on_pipeline_closed`,
 `on_container_closing`) let the metadata daemon (`net/daemons.py`) turn
 pipelines into datanode raft groups and closes into close commands.
-Left out for later slices: the stateful-service rows (the balancer) and
-the node operational states (decommission).
+The store also keeps the node operational states (`persist_node_op_state`,
+read back at startup by `node_op_states`) and the stateful-service rows
+(`persist_service_state`, `service_state`: the balancer's config and
+progress), which ride the ring as `{"service": name, "state": ...}`
+records and the snapshot's `service_states`. `resend_closing` announces
+every CLOSING container's close again (the SCM's background sweep): a
+close command is fire-and-forget, and a restart or a lost heartbeat must
+not leave a container CLOSING for good.
 """
 
 from __future__ import annotations
@@ -56,6 +62,9 @@ class ContainerInfo:
     state: ContainerState = ContainerState.OPEN
     used_bytes: int = 0
     replicas: dict[str, ContainerReplica] = field(default_factory=dict)
+    #: when this SCM saw it close (its node manager's clock); None when it
+    #: closed before this SCM started
+    closed_at: Optional[float] = None
 
 
 class ContainerManager:
@@ -92,6 +101,11 @@ class ContainerManager:
         self.on_pipeline_closed = None
         #: callable(ContainerInfo) run when a container goes OPEN -> CLOSING
         self.on_container_closing = None
+        self._node_op_states: dict[str, str] = {}
+        #: stateful-service rows (the balancer's config and progress),
+        #: persisted and replicated so a service resumes after a restart
+        #: or a failover
+        self._service_states: dict[str, dict] = {}
         self._db = None
         if db_path is not None:
             from ozone_tpu_torch.scm.scm_store import ScmStore
@@ -139,6 +153,8 @@ class ContainerManager:
         self._next_pid = max(
             int(state.get("pipeline_floor", 1)),
             max((p.id for p in self._pipelines.values()), default=0) + 1)
+        self._node_op_states = dict(state.get("node_op_states", {}))
+        self._service_states = dict(state.get("service_states", {}))
 
     def _row(self, c: ContainerInfo) -> dict:
         return {
@@ -161,7 +177,14 @@ class ContainerManager:
     def apply_mutation(self, row: dict, counters: tuple[int, int]) -> None:
         """Follower-side deterministic apply of a leader's decision record
         (SCMStateMachine.applyTransaction): upsert the container row and
-        advance the id counters."""
+        advance the id counters. Service-state rows ride the same channel."""
+        if "service" in row:
+            with self._lock:
+                self._service_states[row["service"]] = dict(row["state"])
+                if self._db is not None:
+                    self._db.save_service_state(row["service"],
+                                                dict(row["state"]))
+            return
         with self._lock:
             c = self._containers.get(int(row["id"]))
             if c is None:
@@ -203,7 +226,8 @@ class ContainerManager:
                                for c in self._containers.values()],
                 "counters": [self._next_cid, self._next_lid],
                 "pipeline_floor": self._next_pid,
-                "service_states": {},
+                "service_states": {k: dict(v) for k, v
+                                   in self._service_states.items()},
             }
 
     def install_snapshot(self, snap: dict) -> None:
@@ -219,8 +243,16 @@ class ContainerManager:
                     self._pipelines.pop(c.pipeline.id, None)
             for pool in self._writable.values():
                 pool[:] = [cid for cid in pool if cid in keep]
+            # service rows are replace-all too: a stale local record the
+            # leader's checkpoint lacks must not resume a stopped service
+            self._service_states = {}
+            if self._db is not None:
+                self._db.replace_service_states({})
         for row in snap["containers"]:
             self.apply_mutation(row, tuple(snap["counters"]))
+        for name, state in snap.get("service_states", {}).items():
+            self.apply_mutation({"service": name, "state": state},
+                                tuple(snap["counters"]))
         with self._lock:
             self._next_cid = max(self._next_cid, int(snap["counters"][0]))
             self._next_lid = max(self._next_lid, int(snap["counters"][1]))
@@ -420,9 +452,50 @@ class ContainerManager:
             except Exception:  # the lifecycle must not fail on the hook
                 log.exception("container-closing hook failed for %s", c.id)
 
+    def service_state(self, name: str) -> Optional[dict]:
+        """The persisted state of a stateful background service
+        (StatefulServiceStateManager.readConfiguration)."""
+        with self._lock:
+            v = self._service_states.get(name)
+            return dict(v) if v is not None else None
+
+    def persist_service_state(self, name: str, state: dict) -> None:
+        """Durably record and replicate a service's config and progress
+        (saveConfiguration, which the reference's ContainerBalancer
+        calls)."""
+        with self._lock:
+            self._service_states[name] = dict(state)
+            counters = (self._next_cid, self._next_lid)
+            if self._db is not None:
+                self._db.save_service_state(name, dict(state))
+            if self.mutation_listener is not None:
+                self.mutation_listener(
+                    {"service": name, "state": dict(state)}, counters)
+
+    def node_op_states(self) -> dict[str, str]:
+        """The durable node operational states read at recovery."""
+        return dict(self._node_op_states)
+
+    def persist_node_op_state(self, dn_id: str, state: str) -> None:
+        if state == "IN_SERVICE":
+            self._node_op_states.pop(dn_id, None)
+        else:
+            self._node_op_states[dn_id] = state
+        if self._db is not None:
+            self._db.save_node_op_state(dn_id, state)
+
+    def resend_closing(self) -> None:
+        """Announce the close of every CLOSING container again."""
+        with self._lock:
+            closing = [c for c in self._containers.values()
+                       if c.state is ContainerState.CLOSING]
+        for c in closing:
+            self._fire_container_closing(c)
+
     def mark_closed(self, container_id: int) -> None:
         c = self._containers[container_id]
         c.state = ContainerState.CLOSED
+        c.closed_at = self.nodes.clock()
         self._persist(c)
         self._close_pipeline(c)
 

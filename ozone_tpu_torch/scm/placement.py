@@ -1,11 +1,15 @@
-"""Placement: rack-scatter, the SCM's policy for every pipeline.
+"""Placement policies: rack-scatter (the SCM's policy for every
+pipeline), capacity and random.
 
-Port of `RackScatterPlacement` from `ozone_tpu/scm/placement.py` (the
-reference's SCMContainerPlacementRackScatter: EC spreads d+p over as
-many racks as possible). Its draws on `random.Random(seed)` are the
-reference's, call for call, so a seeded port SCM picks the same nodes as
-a seeded `ozone_tpu` SCM. The random, capacity and rack-aware policies
-are not ported.
+Port of `ozone_tpu/scm/placement.py` (the reference's
+SCMContainerPlacementRackScatter: EC spreads d+p over as many racks as
+possible; SCMContainerPlacementCapacity: the less-used half of the
+candidates; SCMContainerPlacementRandom; and the rack-spread validation
+of SCMCommonPlacementPolicy). Candidates are the HEALTHY, IN_SERVICE
+nodes with a usable volume, so a draining, in-maintenance or
+storage-dead node gets no new replica. Every policy's draws on
+`random.Random(seed)` are the reference's, call for call, so a seeded
+port SCM picks the same nodes as a seeded `ozone_tpu` SCM.
 """
 
 from __future__ import annotations
@@ -37,6 +41,35 @@ class PlacementPolicy:
                 if n.dn_id not in ex and n.healthy_volumes != 0]
 
 
+class RandomPlacement(PlacementPolicy):
+    def choose(self, count, excluded=()):
+        cands = self._candidates(excluded)
+        if len(cands) < count:
+            raise PlacementError(
+                f"need {count} nodes, only {len(cands)} available"
+            )
+        return self.rng.sample(cands, count)
+
+
+class CapacityPlacement(PlacementPolicy):
+    """Prefer the less-utilized nodes: a random draw from the least-used
+    half (at least `count`), so a new node is not flooded at once."""
+
+    def choose(self, count, excluded=()):
+        cands = self._candidates(excluded)
+        if len(cands) < count:
+            raise PlacementError(
+                f"need {count} nodes, only {len(cands)} available"
+            )
+
+        def util(n: NodeInfo) -> float:
+            return n.used_bytes / n.capacity_bytes if n.capacity_bytes else 0.0
+
+        cands.sort(key=util)
+        pool = cands[: max(count, len(cands) // 2 + 1)]
+        return self.rng.sample(pool, count)
+
+
 class RackScatterPlacement(PlacementPolicy):
     """Scatter across racks, round-robin by rack."""
 
@@ -65,3 +98,9 @@ class RackScatterPlacement(PlacementPolicy):
         if len(chosen) < count:
             raise PlacementError("insufficient nodes across racks")
         return chosen
+
+    @staticmethod
+    def validate(racks_used: int, total_racks: int, count: int) -> bool:
+        """Mis-replication check: a placement is valid when it spans
+        min(count, total_racks) distinct racks."""
+        return racks_used >= min(count, max(total_racks, 1))

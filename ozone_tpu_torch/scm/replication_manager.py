@@ -18,7 +18,23 @@ event timeout, 10 minutes) is planned again. The reference clears its
 pending set only through `op_completed`, which no daemon calls: a plan
 that failed (a target that already held the container, because the SCM
 planned a replica it had not heard of yet) blocked that index's repair
-for good, and a rebuilt index could never be rebuilt again.
+for good, and a rebuilt index could never be rebuilt again. And when a
+node goes DEAD (`node_dead`), the pending plans that read from it or
+write to it are dropped, so the next scan plans those indexes anew: a
+copy planned off a draining node that then stopped is rebuilt by decode
+once the node is declared dead, where the reference keeps it pending.
+An index the balancer is moving (`moving`, set by the SCM) keeps its
+excess replica for the move to delete. A container this SCM saw close
+is not planned until every HEALTHY member has sent a full report since
+(ROADMAP Queue 3 item 3): the reference plans at once, counts a member
+whose report is late as lost, and sends its index to a node that holds
+it, which refuses with CONTAINER_EXISTS.
+
+Two behaviours are the reference's own and kept (ROADMAP Queue 3): an
+excess replica's DeleteReplicaCommand is queued again on every scan
+until a report drops the replica, so a late duplicate fails with
+CONTAINER_NOT_FOUND; and a copy planned off a draining node that stops
+fails, with no new plan until the node is DEAD.
 """
 
 from __future__ import annotations
@@ -121,8 +137,13 @@ class ReplicationManager:
         self.clock = time.monotonic
         self.metrics = MetricsRegistry("scm.replication")
         # in-flight op dedup (ContainerReplicaPendingOps analog):
-        # (container, index) -> when it was planned
+        # (container, index) -> when it was planned, and the nodes the
+        # plan reads from or writes to
         self._pending: dict[tuple[int, int], float] = {}
+        self._pending_nodes: dict[tuple[int, int], frozenset] = {}
+        #: callable(container, index) -> True while the balancer moves that
+        #: replica: its excess copy is the move's to delete
+        self.moving = None
 
     # ------------------------------------------------------------------ scan
     def run_once(self) -> HealthReport:
@@ -130,7 +151,7 @@ class ReplicationManager:
         now = self.clock()
         for op, t in list(self._pending.items()):
             if now - t > self.PENDING_TIMEOUT_S:
-                del self._pending[op]  # never completed: plan it again
+                self._unpend(op)  # never completed: plan it again
                 self.metrics.counter("pending_expired").inc()
         for c in self.containers.containers():
             if c.state in (ContainerState.DELETED, ContainerState.OPEN):
@@ -144,7 +165,23 @@ class ReplicationManager:
         self.metrics.gauge("unrecoverable").set(len(report.unrecoverable))
         return report
 
+    def _reported_since_close(self, c: ContainerInfo) -> bool:
+        """Every HEALTHY member of a container this SCM saw close has sent a
+        full report since: until then a member whose report is late would
+        count as lost, and its index be planned onto a node that holds it."""
+        if c.closed_at is None or c.pipeline is None:
+            return True
+        for dn in c.pipeline.nodes:
+            n = self.nodes.get(dn)
+            if n is not None and n.state is NodeState.HEALTHY \
+                    and n.last_report < c.closed_at:
+                return False
+        return True
+
     def _process_container(self, c: ContainerInfo, report: HealthReport) -> None:
+        if not self._reported_since_close(c):
+            self.metrics.counter("held_for_reports").inc()
+            return
         if c.replication.type is ReplicationType.EC:
             self._process_ec(c, report)
         else:
@@ -154,7 +191,7 @@ class ReplicationManager:
     def _process_ec(self, c: ContainerInfo, report: HealthReport) -> None:
         count = ECReplicaCount(c, self.nodes)
         for i in count.present:  # completed: the index is reported
-            self._pending.pop((c.id, i), None)
+            self._unpend((c.id, i))
         missing = [
             i for i in count.missing_indexes if (c.id, i) not in self._pending
         ]
@@ -182,11 +219,13 @@ class ReplicationManager:
                     ReplicateCommand(c.id, source=src, target=target.dn_id,
                                      replica_index=i),
                 )
-                self._pending[(c.id, i)] = self.clock()
+                self._plan((c.id, i), (src, target.dn_id))
             if rebuild:
                 self._emit_reconstruction(c, count, rebuild)
         for idx, extra_dns in count.excess_indexes.items():
             report.over_replicated.append(c.id)
+            if self.moving is not None and self.moving(c.id, idx):
+                continue
             for dn in extra_dns:
                 self.nodes.queue_command(
                     dn, DeleteReplicaCommand(c.id, replica_index=idx)
@@ -212,8 +251,9 @@ class ReplicationManager:
         # the first target coordinates: the command goes to one datanode,
         # which rebuilds every target
         self.nodes.queue_command(chosen[0].dn_id, cmd)
+        involved = (*sources.values(), *targets.values())
         for i in missing:
-            self._pending[(c.id, i)] = self.clock()
+            self._plan((c.id, i), involved)
         self.metrics.counter("reconstructions_emitted").inc()
 
     # ------------------------------------------------------------------ Ratis
@@ -227,7 +267,7 @@ class ReplicationManager:
         ]
         want = c.replication.factor
         if len(live) >= want:
-            self._pending.pop((c.id, 0), None)  # completed by a report
+            self._unpend((c.id, 0))  # completed by a report
         if len(live) < want:
             if not live:
                 report.unrecoverable.append(c.id)
@@ -245,12 +285,33 @@ class ReplicationManager:
                     n.dn_id,
                     ReplicateCommand(c.id, source=live[0], target=n.dn_id),
                 )
-            self._pending[(c.id, 0)] = self.clock()
+            self._plan((c.id, 0), (live[0], *(n.dn_id for n in chosen)))
         elif len(live) > want:
             report.over_replicated.append(c.id)
+            if self.moving is not None and self.moving(c.id, 0):
+                return
             for dn in live[want:]:
                 self.nodes.queue_command(dn, DeleteReplicaCommand(c.id))
 
     # ------------------------------------------------------------------ acks
+    def _plan(self, op: tuple[int, int], nodes) -> None:
+        self._pending[op] = self.clock()
+        self._pending_nodes[op] = frozenset(nodes)
+
+    def _unpend(self, op: tuple[int, int]) -> None:
+        self._pending.pop(op, None)
+        self._pending_nodes.pop(op, None)
+
     def op_completed(self, container_id: int, replica_index: int = 0) -> None:
-        self._pending.pop((container_id, replica_index), None)
+        self._unpend((container_id, replica_index))
+
+    def node_dead(self, dn_id: str) -> list[tuple[int, int]]:
+        """Drop the pending plans that read from or write to a node just
+        declared DEAD (they cannot complete); returns them."""
+        dropped = [op for op, nodes in list(self._pending_nodes.items())
+                   if dn_id in nodes]
+        for op in dropped:
+            self._unpend(op)
+        if dropped:
+            self.metrics.counter("pending_dropped_dead").inc(len(dropped))
+        return dropped

@@ -2,10 +2,10 @@
 
 Port of `ozone_tpu/scm/safemode.py` (the reference's SCMSafeModeManager
 and its exit rules): a minimum of registered datanodes, and the fraction
-of closed containers with a reported replica. Exit is one-way. The
-reference's pipeline rules gate on the pipelines its SCM store recovers
-at startup; the port's SCM has no store, so they wait for the slice that
-ports it, as does the admin override.
+of closed containers with a reported replica. Exit is one-way; the
+operator's `force` (`admin safemode enter|exit`) overrides the rules
+until it is cleared with None. The reference's pipeline rules, which
+gate on the pipelines its SCM store recovers at startup, are not ported.
 """
 
 from __future__ import annotations
@@ -37,9 +37,14 @@ class SafeModeManager:
         self.nodes = nodes
         self.containers = containers
         self.config = config
+        self._forced: bool | None = None  # the operator's override
         # exit is one-way: once the rules pass, later node flaps must not
         # re-gate allocation
         self._exited = False
+
+    def force(self, in_safemode: bool | None) -> None:
+        """The operator's override (`ozone admin safemode enter|exit`)."""
+        self._forced = in_safemode
 
     def status(self) -> dict:
         relevant = [
@@ -55,6 +60,8 @@ class SafeModeManager:
         }
 
     def in_safemode(self) -> bool:
+        if self._forced is not None:
+            return self._forced
         if self._exited:
             return False
         s = self.status()

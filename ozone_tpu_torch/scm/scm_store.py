@@ -5,10 +5,11 @@ metadata store: containers, pipelines and sequence ids persist; replicas
 are soft state rebuilt from datanode full container reports). Sqlite,
 the reference's schema: container rows and the monotonic id counters
 (persisted before use, so a restart never reissues an id) and the
-pipeline id floor; `load` also reads the node operational states and
-service-state rows the reference writes, so either package opens a
-store the other wrote. The writers of those two rows wait for the
-decommission and balancer slices.
+pipeline id floor, the node operational states (a restarted SCM must
+not forget a drain in flight) and the service-state rows of stateful
+background services (the balancer's config and progress, the
+reference's StatefulServiceStateManager rows). Either package opens a
+store the other wrote.
 """
 
 from __future__ import annotations
@@ -94,6 +95,40 @@ class ScmStore:
                     (json.dumps(int(pipeline_floor)),),
                 )
             self._conn.commit()
+
+    def _update_map(self, key: str, fn) -> None:
+        """Read-modify-write of one JSON map in the meta table."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT v FROM meta WHERE k=?", (key,)).fetchone()
+            states = json.loads(row[0]) if row else {}
+            fn(states)
+            self._conn.execute(
+                "INSERT OR REPLACE INTO meta VALUES (?, ?)",
+                (key, json.dumps(states)))
+            self._conn.commit()
+
+    def replace_service_states(self, states: dict) -> None:
+        """Replace-all write of the service-state map (snapshot install)."""
+        self._update_map("service_states", lambda m: (m.clear(),
+                                                      m.update(states)))
+
+    def save_service_state(self, name: str, state: dict) -> None:
+        """Durably record a background service's config and progress, so
+        a restarted or failed-over SCM resumes it."""
+        self._update_map("service_states",
+                         lambda m: m.__setitem__(name, state))
+
+    def save_node_op_state(self, dn_id: str, state: str) -> None:
+        """Durably record a node's operational state (IN_SERVICE clears
+        the entry)."""
+        def update(m):
+            if state == "IN_SERVICE":
+                m.pop(dn_id, None)
+            else:
+                m[dn_id] = state
+
+        self._update_map("node_op_states", update)
 
     def close(self) -> None:
         with self._lock:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import sqlite3
 import threading
 import time
@@ -28,6 +29,8 @@ from ozone_tpu_torch.storage.ids import (
     ContainerState,
     StorageError,
 )
+
+log = logging.getLogger(__name__)
 
 
 def _guard_sqlite(fn):
@@ -231,10 +234,35 @@ class Container:
 class HddsVolume:
     """One storage volume (disk) holding container directories + a VolumeDB."""
 
+    _PROBE = b"ozone-tpu-disk-check"
+
     def __init__(self, root: Path):
         self.root = Path(root)
         (self.root / "containers").mkdir(parents=True, exist_ok=True)
         self.db = VolumeDB(self.root / "metadata.db")
+        #: a failed disk (the volume checker's verdict): no new container
+        #: lands here and its replicas left the container set
+        self.failed = False
+
+    def check(self) -> bool:
+        """Disk health probe (the reference's DiskChecker behind
+        StorageVolumeChecker): a small write, read and delete in the volume
+        root. An OSError, or a read-back that differs, fails the volume;
+        the verdict is sticky."""
+        if self.failed:
+            return False
+        probe = self.root / ".disk-check"
+        try:
+            probe.write_bytes(self._PROBE)
+            ok = probe.read_bytes() == self._PROBE
+            probe.unlink()
+            if not ok:
+                raise OSError("disk probe read-back differs")
+            return True
+        except OSError:
+            log.warning("volume %s failed its disk check", self.root)
+            self.failed = True
+            return False
 
     def container_dir(self, container_id: int) -> Path:
         return self.root / "containers" / str(container_id)

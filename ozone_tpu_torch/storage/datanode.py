@@ -10,13 +10,23 @@ read-error hook the native datapath's `fail` callback calls
 (`on_read_error`), and the host full-data scan (`scan_container`) that the device scrubber
 (`storage/scrubber.py`) is held against. `mutation_count` moves with
 every change a container report shows, so the datanode daemon
-(`net/daemons.py`) sends a full report only when something changed. The
-scan queue and the volume checker are not ported yet.
+(`net/daemons.py`) sends a full report only when something changed.
+
+Volumes: a new container lands on the next healthy volume in turn
+(RoundRobinVolumeChoosingPolicy) or, with `volume_policy="capacity"`, on
+the least-used one (CapacityVolumeChoosingPolicy). `check_volumes` is
+the StorageVolumeChecker sweep: a volume that fails its disk probe is
+out for good and its replicas leave the container set, so the next
+report shows the loss and the SCM rebuilds them elsewhere;
+`healthy_volume_count` rides the heartbeat. A write-fence violation
+queues the container for an on-demand scan (`request_scan`), which the
+daemon drains (`pop_scan_requests`).
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import shutil
 import threading
 from pathlib import Path
@@ -28,6 +38,7 @@ from ozone_tpu_torch.storage.container import Container, ContainerSet, HddsVolum
 from ozone_tpu_torch.storage.ids import (
     CHECKSUM_MISMATCH,
     CLOSED_CONTAINER_IO,
+    CONTAINER_EXISTS,
     BlockData,
     BlockID,
     ChunkInfo,
@@ -37,13 +48,17 @@ from ozone_tpu_torch.storage.ids import (
 from ozone_tpu_torch.utils.checksum import Checksum, ChecksumError
 from ozone_tpu_torch.utils.metrics import MetricsRegistry
 
+log = logging.getLogger(__name__)
+
 
 class Datanode:
     """One datanode instance over a root directory of volumes."""
 
-    def __init__(self, root: Path, dn_id: str = "dn0", num_volumes: int = 1):
+    def __init__(self, root: Path, dn_id: str = "dn0", num_volumes: int = 1,
+                 volume_policy: str = "round-robin"):
         self.root = Path(root)
         self.id = dn_id
+        self.volume_policy = volume_policy
         self.volumes = [
             HddsVolume(self.root / f"vol{i}") for i in range(num_volumes)
         ]
@@ -53,9 +68,57 @@ class Datanode:
         self._lock = threading.Lock()
         #: bumped by every verb that changes what a container report shows
         self.mutation_count = 0
+        self._scan_requests: set[int] = set()
         for vol in self.volumes:
             for c in vol.load_containers():
                 self.containers.add(c)
+
+    # -- volume choice and health --
+    def _volume_used(self, vol: HddsVolume) -> int:
+        # volume membership by the shared VolumeDB handle: a path prefix
+        # would take vol1 for vol10
+        return sum(c.used_bytes() for c in self.containers
+                   if c.db is vol.db)
+
+    def _choose_volume(self) -> HddsVolume:
+        healthy = [v for v in self.volumes if not v.failed]
+        if not healthy:
+            raise StorageError("IO_EXCEPTION",
+                               f"{self.id}: no healthy volumes left")
+        if len(healthy) > 1 and self.volume_policy == "capacity":
+            used = {id(v.db): 0 for v in healthy}
+            for c in self.containers:
+                k = id(c.db)
+                if k in used:
+                    used[k] += c.used_bytes()
+            return min(healthy, key=lambda v: used[id(v.db)])
+        return healthy[next(self._rr) % len(healthy)]
+
+    def check_volumes(self) -> list[str]:
+        """Probe every volume; drop the replicas of each newly failed one
+        from the container set. Returns the roots of the volumes that
+        failed in this sweep."""
+        newly_failed: list[str] = []
+        for vol in self.volumes:
+            if vol.failed or vol.check():
+                continue
+            newly_failed.append(str(vol.root))
+            # under create_container's lock: a create that chose this
+            # volume before the verdict is in the set and goes here, a
+            # later one sees vol.failed
+            with self._lock:
+                lost = [c for c in self.containers if c.db is vol.db]
+                for c in lost:
+                    self.containers.remove(c.id)
+                self.mutation_count += 1
+            self.metrics.counter("volumes_failed").inc()
+            log.warning("%s: volume %s failed; dropped %d container "
+                        "replicas", self.id, vol.root, len(lost))
+        return newly_failed
+
+    @property
+    def healthy_volume_count(self) -> int:
+        return sum(1 for v in self.volumes if not v.failed)
 
     # -- container verbs --
     def create_container(
@@ -65,7 +128,12 @@ class Datanode:
         state: ContainerState = ContainerState.OPEN,
     ) -> Container:
         with self._lock:
-            vol = self.volumes[next(self._rr) % len(self.volumes)]
+            # refuse before touching a disk: a descriptor written for a
+            # container already held (on another volume) would load as a
+            # second copy of it at the next start
+            if container_id in {x.id for x in self.containers}:
+                raise StorageError(CONTAINER_EXISTS, str(container_id))
+            vol = self._choose_volume()
             c = Container(container_id, vol.container_dir(container_id),
                           vol.db, state=state, replica_index=replica_index)
             c.root.mkdir(parents=True, exist_ok=True)
@@ -94,6 +162,9 @@ class Datanode:
         self.containers.remove(container_id)
         self.mutation_count += 1
         self.metrics.counter("container_deleted").inc()
+
+    def get_container(self, container_id: int) -> Container:
+        return self.containers.get(container_id)
 
     def list_containers(self) -> list[Container]:
         return list(self.containers)
@@ -132,12 +203,25 @@ class Datanode:
     def _fence(self, container: Container, block_id: BlockID,
                writer: Optional[str]) -> None:
         """Single-writer block fence (the reference's
-        validateChunkForOverwrite); violations are counted."""
+        validateChunkForOverwrite). A violation is counted and queues the
+        container for an on-demand scan (OnDemandContainerDataScanner)."""
         try:
             container.bind_writer(block_id, writer)
         except StorageError:
             self.metrics.counter("write_fence_violations").inc()
+            self.request_scan(container.id)
             raise
+
+    # -- the on-demand scan queue, drained by the daemon --
+    def request_scan(self, container_id: int) -> None:
+        with self._lock:
+            self._scan_requests.add(int(container_id))
+
+    def pop_scan_requests(self) -> list[int]:
+        with self._lock:
+            out = sorted(self._scan_requests)
+            self._scan_requests.clear()
+            return out
 
     def read_chunk(
         self, block_id: BlockID, info: ChunkInfo, verify: bool = False

@@ -216,6 +216,7 @@ class MiniOzoneCluster:
         self._stop.set()
         if self._hb_thread:
             self._hb_thread.join(timeout=5)
+        self.scm.stop()
         self.om.close()
         for dn in self.datanodes:
             dn.close()

@@ -2,7 +2,7 @@
 
 Port of the part of `ozone_tpu/tools/cli.py` that runs and drives a
 cluster of processes (the reference's `ozone sh` volume/bucket/key verbs,
-`ozone admin` status and container verbs, `ozone freon` generators and
+`ozone admin` verbs, `ozone freon` generators and
 the service starters). It talks to the metadata daemon over the port's
 RPC (`net/`).
 
@@ -49,6 +49,16 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools admin cert list --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools admin cert revoke <serial> --om ...
     python -m ozone_tpu_torch.tools cluster --datanodes 9 --secure
+    python -m ozone_tpu_torch.tools datanode --root /data/dn0 --volumes 2 \
+        --volume-policy capacity --rack /rack1 --scm 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools admin datanode decommission dn3 --om ...
+    python -m ozone_tpu_torch.tools admin datanode maintenance|recommission dn3
+    python -m ozone_tpu_torch.tools admin pipeline list|close <id> --om ...
+    python -m ozone_tpu_torch.tools admin balancer start --threshold 0.1 \
+        --max-moves 5 --max-size 10737418240 --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools admin balancer status|stop --om ...
+    python -m ozone_tpu_torch.tools admin replicationmanager --om ...
+    python -m ozone_tpu_torch.tools admin safemode enter|exit|status --om ...
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -68,6 +78,8 @@ dn-direct verbs (`AdminTokenFetcher`); the `acl`, `tenant` and
 client command presents the certificate under OZONE_TPU_CERT_DIR, which
 it enrolls at OZONE_TPU_ENROLL (with OZONE_TPU_ENROLL_SECRET) on first
 use; without it the mutual-TLS plane refuses the command's connections.
+Clients read replicas nearest-first from OZONE_TPU_CLIENT_LOCATION (a
+topology path such as /dc1/rack2) when it is set.
 Errors print as `error CODE: message` and exit 1.
 """
 
@@ -149,6 +161,8 @@ class _Session:
         tls = _client_tls()
         self.clients = DatanodeClientFactory()
         self.clients.tls = tls
+        # this client's place in the topology: reads go nearest-first
+        self.clients.location = os.environ.get("OZONE_TPU_CLIENT_LOCATION")
         self.om = RemoteOmClient(om_address, clients=self.clients, tls=tls)
         self.scm = RemoteScmClient(om_address, tls=tls)
 
@@ -516,10 +530,52 @@ def cmd_admin(args) -> int:
             finally:
                 om.close()
         elif subject == "safemode":
-            if verb not in (None, "status"):
+            if verb in ("enter", "exit"):
+                _emit(scm.admin(f"safemode-{verb}"))
+            elif verb in (None, "status"):
+                _emit(scm.admin("safemode-status"))
+            else:
                 return _usage(f"unknown safemode verb {verb!r} "
-                              "(expected status)")
-            _emit(scm.admin("safemode-status"))
+                              "(expected enter|exit|status)")
+        elif subject == "datanode":
+            if verb in ("decommission", "recommission", "maintenance"):
+                if not target:
+                    return _usage(f"datanode {verb} needs a datanode id")
+                _emit(scm.admin(verb, target))
+            elif verb in (None, "list"):
+                _emit(scm.status()["nodes"])
+            else:
+                return _usage(f"unknown datanode verb {verb!r} (expected "
+                              "list|decommission|recommission|maintenance)")
+        elif subject == "pipeline":
+            if verb == "close":
+                if not target:
+                    return _usage("pipeline close requires a pipeline id")
+                _emit(scm.admin("close-pipeline", target))
+            elif verb in (None, "list"):
+                _emit(scm.admin("pipelines"))
+            else:
+                return _usage(f"unknown pipeline verb {verb!r} "
+                              "(expected list|close)")
+        elif subject == "balancer":
+            if verb not in (None, "status", "start", "stop"):
+                return _usage(f"unknown balancer verb {verb!r} "
+                              "(expected start|stop|status)")
+            cfg = {}
+            if args.threshold is not None:
+                cfg["threshold"] = args.threshold
+            if args.max_moves is not None:
+                cfg["max_moves_per_iteration"] = args.max_moves
+            if args.max_size is not None:
+                cfg["max_size_per_iteration"] = args.max_size
+            if cfg and verb != "start":
+                # the config applies at start only: dropping it silently
+                # would leave the operator believing it took
+                return _usage("balancer config flags require the 'start' "
+                              "verb")
+            _emit(scm.admin(f"balancer-{verb or 'status'}", cfg or None))
+        elif subject == "replicationmanager":
+            _emit(scm.admin("replication-status"))
         elif subject.startswith("ring-"):
             # the metadata ring; status is answered by any replica
             target = verb  # ring-<op> <target>
@@ -746,7 +802,9 @@ def cmd_datanode(args) -> int:
                        heartbeat_interval_s=args.heartbeat_interval,
                        scan_interval_s=args.scan_interval, device=device,
                        ca_address=args.ca or None,
-                       enrollment_secret=args.enrollment_secret or None)
+                       enrollment_secret=args.enrollment_secret or None,
+                       num_volumes=args.volumes,
+                       volume_policy=args.volume_policy)
     d.start()
     lane = d.advertise()
     native = f"{lane['port']} uds={lane['uds']}" if lane else "off"
@@ -954,11 +1012,16 @@ def build_parser() -> argparse.ArgumentParser:
 
     ad = sub.add_parser("admin", help="cluster admin (ozone admin)")
     ad.add_argument("subject", choices=["status", "safemode", "container",
+                                        "datanode", "pipeline", "balancer",
+                                        "replicationmanager",
                                         "om", "ring-status", "ring-add",
                                         "ring-remove", "ring-transfer",
                                         "cert", "kms"])
     ad.add_argument("verb", nargs="?", default=None,
-                    help="container: list|info <id>|close <id>; om: "
+                    help="container: list|info <id>|close <id>; safemode: "
+                         "enter|exit|status; datanode: list|decommission|"
+                         "recommission|maintenance <id>; pipeline: list|"
+                         "close <id>; balancer: start|stop|status; om: "
                          "list-open-files [/volume[/bucket]]; ring-add: "
                          "<id>=<host:port>; ring-remove, ring-transfer: <id>; "
                          "cert: list|revoke <serial>; kms: create-key|"
@@ -972,6 +1035,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "(the previous page's continuation)")
     ad.add_argument("--limit", type=int, default=None,
                     help="om list-open-files: page size")
+    ad.add_argument("--threshold", type=float, default=None,
+                    help="balancer start: utilization band around the "
+                         "cluster mean (e.g. 0.1)")
+    ad.add_argument("--max-moves", type=int, default=None,
+                    help="balancer start: moves per iteration")
+    ad.add_argument("--max-size", type=int, default=None,
+                    help="balancer start: bytes moved per iteration")
     ad.set_defaults(fn=cmd_admin)
 
     fs = sub.add_parser("fs", help="file-system verbs on FSO buckets "
@@ -1075,6 +1145,11 @@ def build_parser() -> argparse.ArgumentParser:
     dn.add_argument("--id", default="")
     dn.add_argument("--port", type=int, default=0)
     dn.add_argument("--rack", default="/default-rack")
+    dn.add_argument("--volumes", type=int, default=1,
+                    help="storage volumes under --root (hdds.datanode.dir)")
+    dn.add_argument("--volume-policy", default="round-robin",
+                    choices=["round-robin", "capacity"],
+                    help="volume chooser for new containers")
     dn.add_argument("--heartbeat-interval", type=float, default=1.0)
     dn.add_argument("--scan-interval", type=float, default=300.0,
                     help="seconds between background scrubs (0: none)")

@@ -423,6 +423,28 @@ print("torch" in sys.modules, file=sys.stderr)
     assert json.loads(proc.stdout[proc.stdout.index("["):])[0]["path"] == "d"
 
 
+
+def test_admin_scm_verbs_as_processes(live_cluster):
+    """The SCM's read-only admin verbs, each a process of its own: five
+    IN_SERVICE nodes, the balancer idle, the replication census, the
+    pipelines; a balancer flag without `start` is a usage error."""
+    om, _ = live_cluster
+    nodes = json.loads(_run("admin", "datanode", "list", "--om", om).stdout)
+    assert sorted((n["dn_id"], n["op_state"]) for n in nodes) == \
+        [(f"dn{i}", "IN_SERVICE") for i in range(5)]
+    st = json.loads(_run("admin", "balancer", "status", "--om", om).stdout)
+    assert st["running"] is False and st["threshold"] == 0.1
+    census = json.loads(_run("admin", "replicationmanager", "--om",
+                             om).stdout)
+    assert set(census) == {"healthy", "under_replicated", "over_replicated",
+                           "missing"} and census["missing"] == 0
+    pipes = json.loads(_run("admin", "pipeline", "list", "--om", om).stdout)
+    assert all(set(p["nodes"]) <= {f"dn{i}" for i in range(5)}
+               for p in pipes["pipelines"])
+    bad = _run("admin", "balancer", "stop", "--threshold", "0.2", "--om", om,
+               check=False)
+    assert bad.returncode == 2 and "require the 'start' verb" in bad.stderr
+
 def _serve_until(argv, log, marker):
     with open(log, "w") as f:
         proc = subprocess.Popen(
