@@ -215,7 +215,24 @@ a phase says otherwise:
   one's; launches equal dispatches in every step; the only datanode
   commands that may fail are the two shared faults of ROADMAP Queue 3
   (printed by step and type); the port's log records are held back and
-  printed only if the phase fails.
+  printed only if the phase fails;
+- bucket snapshots (`snapshot_path`, Apache Ozone's feature/Snapshot.md):
+  an ScmOmDaemon and 10 DatanodeDaemons, rs-6-3-1024k, an OBS bucket of 6
+  keys of 64 MiB and odd tails and an FSO bucket of 4 files of 16 MiB
+  under /d/e/: (a) snapshot s1 of each (create ms with the bucket full,
+  no row copied), 8 more (create ms beside them); (b) overwrites,
+  deletes, a rename and an add, /d renamed to /d2, and 3 alternating
+  pairs of 64 MiB PUTs into the snapshotted bucket and one without
+  snapshots (GiB/s of each); (c) snapshot s2, every key of s1 and s2 GET
+  through `.snapshot/` byte-exact; (d) a data-unit holder stopped, the
+  deleted and overwritten keys' `.snapshot/s1/` GETs decode on the card;
+  (e) the s1 -> s2 diffs, synchronous and paged, equal to the expected
+  set (which route answered); (f) the key-deleting service keeps every
+  chunk file while snapshots exist, then every snapshot deleted newest
+  first and the seconds to the last chunk file gone; (g) a PUT past a
+  bucket quota refused with QUOTA_EXCEEDED, `repair_quota` unchanged,
+  HttpFS's snapshot verbs, `sh snapshot` and `sh bucket setquota` as
+  processes. Launches equal dispatches in every step.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -5412,11 +5429,15 @@ def encryption_path(device, cell: int, bpc: int, seed: int, big_cells: int = 64,
 
             def traffic(i):
                 if i == 0:
+                    renewals = d0.cert_renewal.renewals
                     d0.cert_client.install(
                         meta.ca.sign_csr(d0.cert_client.make_csr(), valid_days=0),
                         meta.ca.root_pem)
                     d0.tls.reload()
-                    if not d0.cert_renewal.check_once():
+                    d0.cert_renewal.check_once()
+                    # the datanode's own renewal thread (a check every second)
+                    # may renew the expiring certificate first
+                    if d0.cert_renewal.renewals == renewals:
                         errors.append("no renewal")
                     stop.set()
                     return
@@ -6077,6 +6098,385 @@ def scm_admin_path(device, cell: int, bpc: int, seed: int, n_keys: int = 9,
     return out
 
 
+def snapshot_path(device, cell: int, bpc: int, seed: int, n_obs: int = 6,
+                  obs_cells: int = 64, n_fso: int = 4, fso_cells: int = 16,
+                  n_extra: int = 8, n_pairs: int = 3) -> dict:
+    """Bucket snapshots (Apache Ozone's feature/Snapshot.md: bucket
+    snapshots, `.snapshot/` reads, snapdiff) on an ScmOmDaemon and 10
+    DatanodeDaemons (9 and a spare), rs-6-3 at `cell`, CRC32C per `bpc`,
+    through a remote OzoneClient. An OBS bucket holds `n_obs` keys of
+    `obs_cells` cells and odd tails, an FSO bucket `n_fso` files of
+    `fso_cells` cells under /d/e/. (a) Snapshot s1 of each (create ms with
+    the bucket full, nothing copied), then `n_extra` more of the OBS
+    bucket (create ms with them). (b) Two keys overwritten, two deleted,
+    one renamed, one added; /d renamed to /d2 and one file deleted; then
+    `n_pairs` pairs of PUTs of `obs_cells` cells, alternating in order,
+    into the snapshotted bucket and one without snapshots (GiB/s of each).
+    (c) Snapshot s2; every key of s1 and s2 GET through `.snapshot/`,
+    byte-exact against the source bytes kept. (d) A datanode holding data
+    units of the deleted and overwritten keys stopped: their `.snapshot/s1/`
+    GETs decode on the card, byte-exact. (e) The s1 -> s2 diff of each
+    bucket, synchronous and as a paged job, equal to the expected
+    adds, deletes, modifies and renames (the FSO directory rename's files
+    as renames), and which route answered (the journal or the full
+    listing). (f) The key-deleting service while snapshots exist: every
+    chunk file of the deleted and overwritten keys stays on every
+    datanode; then every snapshot deleted, newest first (the overlays
+    merge down), and the seconds from the last delete to the last chunk
+    file gone. (g) A bucket quota of its usage plus one cell, set by `sh
+    bucket setquota` as a process: a PUT past it refused with
+    QUOTA_EXCEEDED, changing nothing; `repair_quota` gives every bucket's
+    usage back unchanged; HttpFS CREATESNAPSHOT, GETSNAPSHOTDIFF and
+    DELETESNAPSHOT answer 200; `sh snapshot create|list|diff|delete` as
+    processes. Launches equal the codec service's dispatches in every
+    step."""
+    import urllib.error
+    import urllib.request
+
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.httpfs import HttpFSGateway
+    from ozone_tpu_torch.om.requests import OMError
+    from ozone_tpu_torch.storage.ids import BlockID, StorageError
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    rng = np.random.default_rng(seed + 18)
+    gib = float(1 << 30)
+    out: dict = {"launches": {}}
+
+    def payload(n_cells: int, tail: int) -> np.ndarray:
+        return rng.integers(0, 256, n_cells * cell + tail, dtype=np.uint8)
+
+    def begin() -> dict:
+        fused_kernel.launches.reset()
+        return service_counts()
+
+    def end(what: str, key: str, mark: dict, decode: bool = False) -> int:
+        launches = fused_kernel.launches.count
+        check_launches_equal(what, device, launches, service_delta(mark))
+        if decode and device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what}: no decode launched")
+        out["launches"][key] = out["launches"].get(key, 0) + launches
+        return launches
+
+    def sh(*argv) -> str:
+        """A `sh` verb of the port's CLI as a process: its output."""
+        proc = subprocess.run(
+            [sys.executable, "-m", "ozone_tpu_torch.tools", "sh", *argv,
+             "--om", meta.address], capture_output=True, text=True,
+            timeout=60, cwd=str(repo), env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"sh {' '.join(argv)} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    def code(fn) -> str | None:
+        try:
+            fn()
+        except (OMError, StorageError) as e:
+            return e.code
+        return None
+
+    def read_all(what: str, reads: dict) -> tuple[int, float]:
+        """Every (bucket, path) GET, concurrently, byte-exact against its
+        bytes; the bytes and seconds."""
+        t0 = time.perf_counter()
+
+        def get(item):
+            (bucket, path), data = item
+            if not np.array_equal(bucket.read_key(path), data):
+                raise AssertionError(f"snapshot {what}: {path} differs")
+
+        concurrent(get, list(reads.items()))
+        return sum(v.size for v in reads.values()), time.perf_counter() - t0
+
+    with daemon_cluster(device, 10, cell, seed, "snap") as (meta, dns, oz):
+        om = oz.om
+        by_id = {d.dn.id: d for d in dns}
+        vol = oz.create_volume("snapv")
+        obs = vol.create_bucket("obs", replication=rs)
+        om.create_bucket("snapv", "fso", rs, "FILE_SYSTEM_OPTIMIZED")
+        fsb = vol.get_bucket("fso")
+        plain = vol.create_bucket("plain", replication=rs)
+        src = {f"k{i}": payload(obs_cells, 1000 * i + 7) for i in range(n_obs)}
+        fsrc = {f"d/e/f{i}": payload(fso_cells, 13 * i + 1) for i in range(n_fso)}
+        mark = begin()
+        t0 = time.perf_counter()
+        concurrent(lambda kv: obs.write_key(*kv), list(src.items()))
+        concurrent(lambda kv: fsb.write_key(*kv), list(fsrc.items()))
+        secs = time.perf_counter() - t0
+        launches = end("snapshot setup PUT", "snapshot_setup_put", mark)
+        total = sum(v.size for v in src.values()) + sum(v.size for v in fsrc.values())
+        print(f"snapshot setup: {n_obs} OBS keys and {n_fso} FSO files, {total} B "
+              f"PUT in {secs:.3f} s = {total / secs / gib:.3f} GiB/s ({launches} "
+              "launches)")
+
+        # ---- (a) snapshots of full buckets: chain rows only
+        t0 = time.perf_counter()
+        s1 = om.create_snapshot("snapv", "obs", "s1")
+        obs_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        om.create_snapshot("snapv", "fso", "s1")
+        fso_ms = 1e3 * (time.perf_counter() - t0)
+        extra_ms = []
+        for j in range(n_extra):
+            t0 = time.perf_counter()
+            om.create_snapshot("snapv", "obs", f"x{j}")
+            extra_ms.append(1e3 * (time.perf_counter() - t0))
+        copied = [k for k, _ in meta.om.store.iterate("keys", "/.snapshot/")]
+        if copied or not s1["cow"]:
+            raise AssertionError(f"snapshot (a): create copied {len(copied)} rows")
+        out["create_ms"] = {"obs_s1": obs_ms, "fso_s1": fso_ms,
+                            "obs_with_snapshots": extra_ms}
+        print(f"snapshot (a): create s1 of the full OBS bucket {obs_ms:.2f} ms, of "
+              f"the FSO bucket {fso_ms:.2f} ms, no row copied; {n_extra} more of "
+              f"the OBS bucket {extra_ms[0]:.2f} ms (1 before it) ... "
+              f"{extra_ms[-1]:.2f} ms ({n_extra} before it)")
+
+        # ---- (b) mutations after the snapshot, and the paired PUT series
+        v1 = {"obs": dict(src), "fso": dict(fsrc)}
+        live, flive = dict(src), dict(fsrc)
+        over, gone = ["k0", "k1"], ["k2", "k3"]
+        mark = begin()
+        for k in over:
+            live[k] = payload(obs_cells, 4242)
+            obs.write_key(k, live[k])
+        for k in gone:
+            obs.delete_key(k)
+            live.pop(k)
+        obs.rename_key("k4", "k4-renamed")
+        live["k4-renamed"] = live.pop("k4")
+        live["k-new"] = payload(obs_cells, 99)
+        obs.write_key("k-new", live["k-new"])
+        fsb.rename_key("d", "d2")
+        flive = {"d2" + k[1:]: v for k, v in flive.items()}
+        fsb.delete_key(f"d2/e/f{n_fso - 1}")
+        flive.pop(f"d2/e/f{n_fso - 1}")
+        series = {"obs": [], "plain": []}
+        for i in range(n_pairs):
+            data = payload(obs_cells, 0)
+            for name in (("obs", "plain") if i % 2 == 0 else ("plain", "obs")):
+                t0 = time.perf_counter()
+                (obs if name == "obs" else plain).write_key(f"pair{i}", data)
+                series[name].append(data.size / (time.perf_counter() - t0) / gib)
+            live[f"pair{i}"] = data
+        launches = end("snapshot (b) PUTs", "snapshot_cow_put", mark)
+        out["put_gib_s"] = {k: statistics.mean(v) for k, v in series.items()}
+        print(f"snapshot (b): 2 overwrites, 2 deletes, a rename and an add in the "
+              f"OBS bucket, /d -> /d2 and a delete in the FSO bucket; {n_pairs} "
+              f"pairs of {obs_cells} MiB PUTs, alternating: into the snapshotted "
+              f"bucket {[round(x, 4) for x in series['obs']]} GiB/s (mean "
+              f"{out['put_gib_s']['obs']:.4f}), into one without snapshots "
+              f"{[round(x, 4) for x in series['plain']]} (mean "
+              f"{out['put_gib_s']['plain']:.4f}), ratio "
+              f"{out['put_gib_s']['obs'] / out['put_gib_s']['plain']:.3f}; "
+              f"{launches} launches")
+
+        # ---- (c) s2, and every key of both snapshots through .snapshot/
+        om.create_snapshot("snapv", "obs", "s2")
+        om.create_snapshot("snapv", "fso", "s2")
+        v2 = {"obs": dict(live), "fso": dict(flive)}
+        reads = {}
+        for snap, vers in (("s1", v1), ("s2", v2)):
+            for bname, bucket in (("obs", obs), ("fso", fsb)):
+                listed = sorted(r["name"] for r in om.snapshot_keys("snapv", bname, snap))
+                if listed != sorted(vers[bname]):
+                    raise AssertionError(f"snapshot (c): {bname}@{snap} lists {listed}")
+                for name, data in vers[bname].items():
+                    reads[(bucket, f".snapshot/{snap}/{name}")] = data
+        mark = begin()
+        total, secs = read_all("(c)", reads)
+        launches = end("snapshot (c) GETs", "snapshot_get", mark)
+        out["get_gib_s"] = total / secs / gib
+        print(f"snapshot (c): {len(reads)} keys of s1 and s2, {total} B, GET through "
+              f".snapshot/ byte-exact in {secs:.3f} s = {out['get_gib_s']:.3f} GiB/s "
+              f"({launches} launches)")
+
+        # ---- (d) degraded .snapshot/ GETs: a data-unit holder stopped
+        infos = {k: om.snapshot_lookup_key("snapv", "obs", "s1", k) for k in over + gone}
+        holds: dict[str, int] = {}
+        for info in infos.values():
+            for dn_id in {n for g in info["block_groups"] for n in g["nodes"][:6]}:
+                holds[dn_id] = holds.get(dn_id, 0) + 1
+        victim = max(sorted(holds), key=lambda n: holds[n])
+        stop_server(by_id[victim])
+        try:
+            mark = begin()
+            nbytes, secs = read_all("(d)", {(obs, f".snapshot/s1/{k}"): v1["obs"][k]
+                                            for k in over + gone})
+            launches = end("snapshot (d) degraded GETs", "snapshot_degraded_get", mark,
+                           decode=True)
+        finally:
+            restart_server(by_id[victim])
+        out["degraded_gib_s"] = nbytes / secs / gib
+        print(f"snapshot (d): {victim} (a data unit of {holds[victim]} of the 4 "
+              f"keys) stopped; the deleted and overwritten keys' {nbytes} B GET "
+              f"through .snapshot/s1/ byte-exact in {secs:.3f} s = "
+              f"{out['degraded_gib_s']:.3f} GiB/s, {launches} decode launches")
+
+        # ---- (e) the s1 -> s2 diffs, synchronous and paged
+        fkeys = [f"d/e/f{i}" for i in range(n_fso)]
+        want = {
+            "obs": {"added": sorted(["k-new"] + [f"pair{i}" for i in range(n_pairs)]),
+                    "deleted": gone, "modified": over,
+                    "renamed": [["k4", "k4-renamed"]]},
+            "fso": {"added": [], "deleted": [fkeys[-1]], "modified": [],
+                    "renamed": [[k, "d2" + k[1:]] for k in fkeys[:-1]]},
+        }
+        out["diff_s"] = {}
+        for bname, exp in want.items():
+            t0 = time.perf_counter()
+            d = om.snapshot_diff("snapv", bname, "s1", "s2")
+            sync_s = time.perf_counter() - t0
+            got = {k: d[k] for k in exp}
+            if got != exp:
+                raise AssertionError(f"snapshot (e): {bname} diff {got} != {exp}")
+            t0 = time.perf_counter()
+            job = om.snapshot_diff_submit("snapv", bname, "s1", "s2")
+            wait_for(f"snapshot (e): {bname} diff job", lambda: (om.snapshot_diff_submit(
+                "snapv", bname, "s1", "s2")["status"] != "IN_PROGRESS"), 60, 0.02)
+            entries, token = [], ""
+            while True:
+                page = om.snapshot_diff_page(job["job_id"], token, 2)
+                entries += page["entries"]
+                token = page["next_token"]
+                if not token:
+                    break
+            job_s = time.perf_counter() - t0
+            exp_entries = ([{"op": "RENAME", "key": a, "target": b}
+                            for a, b in exp["renamed"]]
+                           + [{"op": "DELETE", "key": k} for k in exp["deleted"]]
+                           + [{"op": "MODIFY", "key": k} for k in exp["modified"]]
+                           + [{"op": "ADD", "key": k} for k in exp["added"]])
+            if page["status"] != "DONE" or entries != exp_entries:
+                raise AssertionError(f"snapshot (e): {bname} paged diff {entries}")
+            out["diff_s"][bname] = {"sync": sync_s, "job": job_s, "mode": d["mode"]}
+            examined = (f", {d['keys_examined']} keys examined"
+                        if "keys_examined" in d else "")
+            print(f"snapshot (e): {bname} s1 -> s2 diff {sync_s:.4f} s synchronous "
+                  f"(answered by: {d['mode']}{examined}), {job_s:.4f} s as a job "
+                  f"paged by 2 ({len(entries)} entries), both equal to the expected "
+                  "set")
+
+        # ---- (f) the deferred purge
+        old = [om.snapshot_lookup_key("snapv", "obs", "s1", k) for k in over + gone]
+        old.append(om.snapshot_lookup_key("snapv", "fso", "s1", fkeys[-1]))
+        # every unit's chunk file, but a data unit past a short group's bytes
+        # (the writer makes no block for it)
+        blocks = [(dn_id, BlockID(int(g["container_id"]), int(g["local_id"])))
+                  for info in old for g in info["block_groups"]
+                  for u, dn_id in enumerate(g["nodes"])
+                  if u >= 6 or int(g["length"]) > u * cell]
+
+        def present() -> list:
+            left = []
+            for dn_id, bid in blocks:
+                try:
+                    path = by_id[dn_id].dn.containers.get(
+                        bid.container_id).chunks.block_path(bid)
+                except (KeyError, StorageError):
+                    continue
+                if path.exists():
+                    left.append((dn_id, bid))
+            return left
+
+        missing = set(blocks) - set(present())
+        if missing:
+            raise AssertionError("snapshot (f): chunk files missing before the "
+                                 f"purge: {sorted(missing, key=str)[:6]}")
+        with meta.scm_service.lock:
+            purged = meta.om.run_key_deleting_service_once(limit=10_000)
+        time.sleep(1.5)  # three of the daemon's own passes and heartbeats
+        if purged or len(present()) != len(blocks):
+            raise AssertionError(f"snapshot (f): {purged} keys purged, "
+                                 f"{len(present())} of {len(blocks)} chunk files left "
+                                 "while snapshots exist")
+        print(f"snapshot (f): with snapshots, the key-deleting service purged 0 "
+              f"keys; all {len(blocks)} chunk files of the 5 deleted or "
+              f"overwritten versions stayed on their datanodes")
+        t0 = time.perf_counter()
+        for bname in ("obs", "fso"):
+            names = [s["name"] for s in om.list_snapshots("snapv", bname)]
+            for name in reversed(names):  # newest first: each merges down
+                if (bname, name) == ("obs", "s1"):
+                    for k in over + gone:  # s1 still answers after the merges
+                        if om.snapshot_lookup_key("snapv", bname, "s1",
+                                                  k)["size"] != v1["obs"][k].size:
+                            raise AssertionError(f"snapshot (f): s1's {k} changed")
+                om.delete_snapshot("snapv", bname, name)
+        t_last = time.perf_counter()
+        del_s = t_last - t0
+
+        def purge() -> bool:
+            with meta.scm_service.lock:
+                meta.om.run_key_deleting_service_once(limit=10_000)
+            return not present()
+
+        wait_for("snapshot (f): chunk files gone", purge, 60, 0.1)
+        purge_s = time.perf_counter() - t_last
+        out["purge_s"] = purge_s
+        print(f"snapshot (f): {n_extra + 4} snapshots deleted newest first in "
+              f"{del_s:.3f} s; the last chunk file gone {purge_s:.3f} s after the "
+              "last delete")
+
+        # ---- (g) quota, repair, HttpFS and the CLI
+        qb = vol.create_bucket("quota", replication=rs)
+        qb.write_key("q0", payload(2, 5))
+        used = om.bucket_info("snapv", "quota")["used_bytes"]
+        sh("bucket", "setquota", "/snapv/quota", "--quota", str(used + cell))
+        before = {b["name"]: (b.get("used_bytes"), b.get("key_count"))
+                  for b in om.list_buckets("snapv")}
+        mark = begin()
+        refused = code(lambda: qb.write_key("q1", payload(2, 6)))
+        launches = end("snapshot (g) refused PUT", "snapshot_quota_put", mark)
+        q = om.bucket_info("snapv", "quota")
+        if refused != "QUOTA_EXCEEDED" or (q["used_bytes"], q["key_count"]) != \
+                before["quota"] or code(lambda: om.lookup_key(
+                    "snapv", "quota", "q1")) != "KEY_NOT_FOUND":
+            raise AssertionError(f"snapshot (g): PUT past the quota: {refused}, {q}")
+        om.repair_quota("snapv")
+        after = {b["name"]: (b.get("used_bytes"), b.get("key_count"))
+                 for b in om.list_buckets("snapv")}
+        if after != before:
+            raise AssertionError(f"snapshot (g): repair {after} != {before}")
+        gw = HttpFSGateway(oz, replication=rs)
+        gw.start()
+        try:
+            statuses = []
+            for method, params in (
+                    ("PUT", "op=CREATESNAPSHOT&snapshotname=h1"),
+                    ("GET", "op=GETSNAPSHOTDIFF&oldsnapshotname=h1&snapshotname="),
+                    ("DELETE", "op=DELETESNAPSHOT&snapshotname=h1")):
+                req = urllib.request.Request(
+                    f"http://{gw.address}/webhdfs/v1/snapv/obs?{params}",
+                    method=method)
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        statuses.append(r.status)
+                except urllib.error.HTTPError as e:
+                    statuses.append(e.code)
+        finally:
+            gw.stop()
+        if statuses != [200, 200, 200]:
+            raise AssertionError(f"snapshot (g): HttpFS answered {statuses}")
+        t0 = time.perf_counter()
+        sh("snapshot", "create", "/snapv/obs", "--name", "c1")
+        listed = [s["name"] for s in json.loads(sh("snapshot", "list", "/snapv/obs"))]
+        paged = sh("snapshot", "diff", "/snapv/obs", "--name", "c1",
+                   "--page-size", "100")
+        sh("snapshot", "delete", "/snapv/obs", "--name", "c1")
+        cli_s = time.perf_counter() - t0
+        if listed != ["c1"] or paged.strip() or om.list_snapshots("snapv", "obs"):
+            raise AssertionError(f"snapshot (g): CLI listed {listed}, diff {paged!r}")
+        print(f"snapshot (g): a PUT past a quota of usage + 1 cell refused "
+              f"QUOTA_EXCEEDED, usage unchanged ({launches} launches); repair_quota "
+              f"gave every bucket's usage back; HttpFS CREATESNAPSHOT, "
+              f"GETSNAPSHOTDIFF, DELETESNAPSHOT {statuses}; `sh snapshot create|"
+              f"list|diff|delete` as processes {cli_s:.2f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6212,10 +6612,10 @@ def main() -> int:
         # depth cut: (a) and (d) take 2 keys of 8, (b) 8 keys of 16, (c) 4 of 8
         ha = phase("ha_path", ha_path, device, MIB, bpc, args.seed, 2, 64 * MIB, 8,
                    n_ratis=4)
-        # depth cuts: (a) 4 files of 8, (c) 60 files per thread of 500 (listed
+        # depth cuts: (a) 4 files of 8, (c) 40 files per thread of 500 (listed
         # in pages of 25, of 100), (f) 16 files of 128
         fs = phase("fs_path", fs_path, device, MIB, bpc, args.seed, n_io=4,
-                   md_files=60, md_page=25, n_small=16)
+                   md_files=40, md_page=25, n_small=16)
         # depth cut: one user per tenant of two
         sec = phase("security_path", security_path, device, MIB, bpc, args.seed, 2, 1)
         # depth cuts: one big key of four, 4 ranged GETs of 16, 2 renewal
@@ -6223,6 +6623,7 @@ def main() -> int:
         enc = phase("encryption_path", encryption_path, device, MIB, bpc, args.seed,
                     n_big=1, n_ranged=4, n_renew=2)
         adm = phase("scm_admin_path", scm_admin_path, device, MIB, bpc, args.seed)
+        snap = phase("snapshot_path", snapshot_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -6254,6 +6655,7 @@ def main() -> int:
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
             **sec["launches"], **enc["launches"], **adm["launches"],
+            **snap["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -37,8 +37,10 @@ a fresh IV from offset 0, recorded with the part. A read decrypts the
 range it fetched at its key offset, or, for a multipart key, each part's
 slice at its offset in the part (`enc_parts`). The datanodes, checksums,
 scrubber, reconstruction and tiering see ciphertext only. The S3
-gateway, ofs and HttpFS reach all of it through this client. Left out
-for a later slice: snapshot paths.
+gateway, ofs and HttpFS reach all of it through this client. A key path
+`.snapshot/<name>/<key>` reads the key as of bucket snapshot `<name>`
+(`lookup_key_info`): whole, ranged and positioned reads alike, so ofs
+and HttpFS serve snapshot paths too.
 """
 
 from __future__ import annotations
@@ -301,8 +303,18 @@ class OzoneBucket:
             time.perf_counter() - t0, sp.trace_id)
 
     def lookup_key_info(self, key: str) -> dict:
-        """The key's info row (snapshot paths are not ported)."""
-        return self.client.om.lookup_key(self.volume, self.name, key)
+        """The key's info row, with `.snapshot/<name>/<key>` routed to
+        the snapshot's lookup; whole and positioned reads share it."""
+        om = self.client.om
+        if key.startswith(".snapshot/"):
+            parts = key.split("/", 2)
+            if len(parts) != 3 or not parts[2]:
+                from ozone_tpu_torch.om.requests import OMError
+
+                raise OMError("KEY_NOT_FOUND", f"no key component in {key}")
+            return om.snapshot_lookup_key(self.volume, self.name,
+                                          parts[1], parts[2])
+        return om.lookup_key(self.volume, self.name, key)
 
     def read_key(self, key: str) -> np.ndarray:
         return self.read_key_info(self.lookup_key_info(key))
@@ -314,9 +326,8 @@ class OzoneBucket:
     def read_key_range(self, key: str, offset: int,
                        length: int) -> np.ndarray:
         """Positioned read of [offset, offset+length) in key space."""
-        return self.read_key_info_range(
-            self.client.om.lookup_key(self.volume, self.name, key),
-            offset, length)
+        return self.read_key_info_range(self.lookup_key_info(key),
+                                        offset, length)
 
     def read_key_info_range(self, info: dict, offset: int,
                             length: int) -> np.ndarray:

@@ -9,7 +9,8 @@ still fan out over the datapath to every member, while the create and
 commit verbs are proposed to the leader, so every replica applies the
 same ordered history; it commits once a majority took a chunk's bytes,
 and its `hsync` and `close` wait for the commit watermark on all members.
-Left out: block and container tokens on the proposals.
+The proposals carry the group's block and container tokens, which the
+leader checks before they enter the ring.
 """
 
 from __future__ import annotations

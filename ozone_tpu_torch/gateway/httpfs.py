@@ -5,28 +5,30 @@ HttpFSServerWebServer: a WebHDFS REST facade over the Ozone filesystem
 adapter). Serves the standard `/webhdfs/v1/<path>?op=...` verbs over the
 cluster-rooted filesystem (gateway/fs.py:RootedOzoneFileSystem):
 
-  GET    OPEN (offset/length), GETFILESTATUS, LISTSTATUS,
+  GET    OPEN (offset/length; .snapshot/<name>/ paths read a bucket
+         snapshot), GETFILESTATUS, LISTSTATUS,
          LISTSTATUS_BATCH (paged), GETCONTENTSUMMARY, GETFILECHECKSUM,
          GETXATTRS (text/hex/base64 encodings), LISTXATTRS,
          GETHOMEDIRECTORY, GETTRASHROOT, GETQUOTAUSAGE,
-         GETFILEBLOCKLOCATIONS (?offset/?length range filtering)
+         GETFILEBLOCKLOCATIONS (?offset/?length range filtering),
+         GETSNAPSHOTDIFF (the bucket snapshot diff as a
+         SnapshotDiffReport)
   PUT    CREATE (two-step 307 redirect per the WebHDFS spec, or direct
          with ?data=true), MKDIRS, RENAME (destination=),
          SETPERMISSION, SETOWNER, SETTIMES, SETXATTR (CREATE/REPLACE
-         flags), REMOVEXATTR
+         flags), REMOVEXATTR, CREATESNAPSHOT and RENAMESNAPSHOT (on
+         any path in a bucket: snapshots are per bucket, as Ozone's)
   POST   APPEND (two-step 307, read-modify-write re-put underneath:
          keys are immutable on the datapath), TRUNCATE (newlength=)
-  DELETE DELETE (recursive=, skiptrash=)
+  DELETE DELETE (recursive=, skiptrash=), DELETESNAPSHOT
 
   GET    GETACLSTATUS (the native ACL grants in Hadoop's AclEntry
          grammar), CHECKACCESS (?fsaction=rwx, the OM's authorizer)
 
 Responses follow the WebHDFS JSON schema (FileStatus.type FILE/DIRECTORY,
-modificationTime in ms, RemoteException envelope on errors). The verbs
-that need snapshots (CREATESNAPSHOT, RENAMESNAPSHOT, DELETESNAPSHOT,
-GETSNAPSHOTDIFF) answer 501 with an UnsupportedOperationException:
-snapshots are not ported yet. Encrypted (TDE and GDPR) buckets are
-served through the client, which encrypts and decrypts.
+modificationTime in ms, RemoteException envelope on errors). Encrypted
+(TDE and GDPR) buckets are served through the client, which encrypts and
+decrypts.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, quote, unquote, urlparse
@@ -174,12 +177,6 @@ class HttpFSGateway:
             }
         }
 
-    #: verbs of a module not ported yet: snapshots
-    UNSUPPORTED = {
-        ("GET", "GETSNAPSHOTDIFF"), ("PUT", "CREATESNAPSHOT"),
-        ("PUT", "RENAMESNAPSHOT"), ("DELETE", "DELETESNAPSHOT"),
-    }
-
     def _route(self, h, method: str) -> None:
         u = urlparse(h.path)
         if not u.path.startswith(PREFIX):
@@ -188,11 +185,6 @@ class HttpFSGateway:
         path = unquote(u.path[len(PREFIX):]) or "/"
         q = parse_qs(u.query, keep_blank_values=True)
         op = q.get("op", [""])[0].upper()
-        if (method, op) in self.UNSUPPORTED:
-            h._json(*self._exception(
-                501, "UnsupportedOperationException",
-                f"{method} op={op} is not supported by this gateway"))
-            return
         try:
             handler = getattr(self, f"_op_{method.lower()}_{op.lower()}",
                               None)
@@ -480,6 +472,35 @@ class HttpFSGateway:
             offset += g.length
         h._json(200, {"BlockLocations": {"BlockLocation": locs}})
 
+    def _snapshot_bucket(self, path: str) -> tuple[str, str]:
+        vol, bkt, _ = self.fs._resolve(path)
+        if not (vol and bkt):
+            raise OSError(f"no bucket in path {path!r}")
+        return vol, bkt
+
+    def _op_get_getsnapshotdiff(self, h, path: str, q) -> None:
+        """GETSNAPSHOTDIFF on the bucket snapshot diff: CREATE, DELETE,
+        MODIFY and RENAME entries in the SnapshotDiffReport shape."""
+        vol, bkt = self._snapshot_bucket(path)
+        old = q.get("oldsnapshotname", [""])[0]
+        new = q.get("snapshotname", [""])[0]
+        if not old:
+            raise OSError("oldsnapshotname required")
+        d = self.fs.client.om.snapshot_diff(vol, bkt, old, new or None)
+        diff_list = (
+            [{"sourcePath": p, "type": "CREATE"} for p in d["added"]]
+            + [{"sourcePath": p, "type": "DELETE"} for p in d["deleted"]]
+            + [{"sourcePath": p, "type": "MODIFY"} for p in d["modified"]]
+            + [{"sourcePath": a, "targetPath": b, "type": "RENAME"}
+               for a, b in d.get("renamed", [])]
+        )
+        h._json(200, {"SnapshotDiffReport": {
+            "diffList": diff_list,
+            "fromSnapshot": old,
+            "toSnapshot": new or ".",
+            "snapshotRoot": f"/{vol}/{bkt}",
+        }})
+
     # ----------------------------------------------------------------- PUT
     def _op_put_setxattr(self, h, path: str, q) -> None:
         """SETXATTR with the CREATE/REPLACE flag semantics of the
@@ -545,6 +566,24 @@ class HttpFSGateway:
             self.fs.set_attrs(path, attrs)
         h._reply(200)
 
+    def _op_put_createsnapshot(self, h, path: str, q) -> None:
+        """CREATESNAPSHOT on any path in a bucket snapshots the bucket;
+        without a snapshotname the name is s<ms since the epoch>."""
+        vol, bkt = self._snapshot_bucket(path)
+        name = (q.get("snapshotname", [""])[0]
+                or f"s{int(time.time() * 1000)}")
+        self.fs.client.om.create_snapshot(vol, bkt, name)
+        h._json(200, {"Path": f"/{vol}/{bkt}/.snapshot/{name}"})
+
+    def _op_put_renamesnapshot(self, h, path: str, q) -> None:
+        vol, bkt = self._snapshot_bucket(path)
+        old = q.get("oldsnapshotname", [""])[0]
+        new = q.get("snapshotname", [""])[0]
+        if not old or not new:
+            raise OSError("oldsnapshotname and snapshotname required")
+        self.fs.client.om.rename_snapshot(vol, bkt, old, new)
+        h._reply(200)
+
     def _op_put_create(self, h, path: str, q) -> None:
         if q.get("data", ["false"])[0] != "true":
             # WebHDFS two-step: redirect the client to the data endpoint
@@ -588,6 +627,14 @@ class HttpFSGateway:
         h._json(200, {"boolean": bool(ok)})
 
     # ----------------------------------------------------------------- DELETE
+    def _op_delete_deletesnapshot(self, h, path: str, q) -> None:
+        vol, bkt = self._snapshot_bucket(path)
+        name = q.get("snapshotname", [""])[0]
+        if not name:
+            raise OSError("snapshotname required")
+        self.fs.client.om.delete_snapshot(vol, bkt, name)
+        h._reply(200)
+
     def _op_delete_delete(self, h, path: str, q) -> None:
         if q.get("skiptrash", ["true"])[0] == "false":
             # fs -rm semantics without -skipTrash: move into the bucket

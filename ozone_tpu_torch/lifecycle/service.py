@@ -21,9 +21,10 @@ budget) with source reads paced by a `utils/throttle.py` token bucket.
 `compact_slabs_once` is the needle compaction of the small-object path:
 survivors of a slab past the dead-ratio knob are rewritten into a fresh
 slab through `client/slab.SlabPacker`, then the old slab row is retired
-and its blocks go to the SCM's deletion log. The codec runs on `device`.
-Left out: snapshot pre-images (the port has no snapshots, so no bucket
-is skipped for them) and the FSO layout (the port serves no FSO bucket).
+and its blocks go to the SCM's deletion log; a bucket with snapshots is
+skipped, since its snapshots' rows may still name the slab's blocks.
+The codec runs on `device`. Left out: the FSO layout (the port serves no
+FSO bucket).
 """
 
 from __future__ import annotations
@@ -338,8 +339,8 @@ class LifecycleService:
         into a fresh slab through the codec service at bulk QoS with
         per-key rewrite fences, then retire the old slab and hand its
         blocks to scm/block_deletion — only AFTER the new commit acked,
-        the same release ordering as tiering. (The reference also skips
-        snapshotted buckets; the port has no snapshots.)"""
+        the same release ordering as tiering. Snapshotted buckets are
+        skipped: their slab blocks may be referenced by snapshot rows."""
         if not self.leader_fn():
             return {"skipped": "not_leader"}
         from ozone_tpu_torch.utils.config import env_float
@@ -362,6 +363,10 @@ class LifecycleService:
                               seconds=self.sweep_deadline_s):
             for srow in candidates[:max_slabs]:
                 resilience.check_deadline("slab_compaction")
+                if rq.bucket_snapshots(self.om.store, srow["volume"],
+                                       srow["bucket"]):
+                    stats["skipped"] += 1
+                    continue
                 try:
                     self._compact_slab(srow, stats)
                 except (rq.OMError, StorageError, OSError, KeyError) as e:

@@ -39,8 +39,12 @@ KmsDecrypt, the reference's), a bucket's `encryption_key` and `gdpr` on
 CreateBucket, the envelope bundle on the open session's answer (a key's,
 and a multipart upload's from its row), and each part's IV on
 CommitMultipartPart. `RemoteOmClient(tls=...)` dials the mutual-TLS plane
-with its role's certificate. Left out: sharding, snapshots, quotas and
-geo replication.
+with its role's certificate. Snapshots: create, list, info, delete,
+rename, diff (synchronous, and the paged jobs' submit and page), a
+snapshot's key listing, and its key lookup with the address book as
+LookupKey has it. The quota, volume-owner and bucket-replication verbs,
+and the upgrade quiesce (Prepare, CancelPrepare, PrepareStatus). Left
+out: sharding and geo replication.
 """
 
 from __future__ import annotations
@@ -229,6 +233,43 @@ class OmRpcService:
                 m["token"])),
             "CancelDelegationToken": w(lambda m: om.cancel_delegation_token(
                 m["token"])),
+            # quotas, ownership and replication
+            "SetVolumeOwner": w(lambda m: om.set_volume_owner(
+                m["volume"], m["owner"])),
+            "SetQuota": w(lambda m: om.set_quota(
+                m["volume"], m.get("bucket", ""), m.get("quota_bytes"),
+                m.get("quota_namespace"))),
+            "RepairQuota": w(lambda m: om.repair_quota(m["volume"])),
+            "SetBucketReplication": w(lambda m: om.set_bucket_replication(
+                m["volume"], m["bucket"], m["replication"])),
+            # the upgrade quiesce (`admin om prepare`)
+            "Prepare": w(lambda m: {"txid": om.prepare()}),
+            "CancelPrepare": w(lambda m: om.cancel_prepare()),
+            "PrepareStatus": w(lambda m: {"prepared": om.prepared}),
+            # snapshots
+            "CreateSnapshot": w(lambda m: om.create_snapshot(
+                m["volume"], m["bucket"], m["name"])),
+            "ListSnapshots": w(lambda m: om.list_snapshots(
+                m["volume"], m["bucket"])),
+            "SnapshotInfo": w(lambda m: om.snapshot_info(
+                m["volume"], m["bucket"], m["name"])),
+            "DeleteSnapshot": w(lambda m: om.delete_snapshot(
+                m["volume"], m["bucket"], m["name"])),
+            "RenameSnapshot": w(lambda m: om.rename_snapshot(
+                m["volume"], m["bucket"], m["name"], m["new_name"])),
+            "SnapshotDiff": w(lambda m: om.snapshot_diff(
+                m["volume"], m["bucket"], m["from_snapshot"],
+                m.get("to_snapshot"))),
+            "SnapshotDiffSubmit": w(lambda m: om.snapshot_diff_submit(
+                m["volume"], m["bucket"], m["from_snapshot"],
+                m.get("to_snapshot"))),
+            "SnapshotDiffPage": w(lambda m: om.snapshot_diff_page(
+                m["job_id"], m.get("token", ""), m.get("page_size", 1000))),
+            "SnapshotKeys": w(lambda m: om.snapshot_keys(
+                m["volume"], m["bucket"], m["name"])),
+            "SnapshotLookupKey": w(lambda m: om.snapshot_lookup_key(
+                m["volume"], m["bucket"], m["name"], m["key"]),
+                with_addresses=True),
         }
         server.add_service(SERVICE, {n: self._gated(fn)
                                      for n, fn in methods.items()})
@@ -597,6 +638,79 @@ class RemoteOmClient:
     def lookup_key(self, volume, bucket, key):
         return self._learn_from(self._call("LookupKey", volume=volume,
                                            bucket=bucket, key=key))
+
+    # quotas, ownership, replication and the upgrade quiesce
+    def set_volume_owner(self, volume, owner):
+        return self._call("SetVolumeOwner", volume=volume,
+                          owner=owner)["result"]
+
+    def set_quota(self, volume, bucket="", quota_bytes=None,
+                  quota_namespace=None):
+        return self._call("SetQuota", volume=volume, bucket=bucket,
+                          quota_bytes=quota_bytes,
+                          quota_namespace=quota_namespace)["result"]
+
+    def repair_quota(self, volume):
+        return self._call("RepairQuota", volume=volume)["result"]
+
+    def set_bucket_replication(self, volume, bucket, replication):
+        return self._call("SetBucketReplication", volume=volume,
+                          bucket=bucket, replication=replication)["result"]
+
+    def prepare(self):
+        return self._call("Prepare")["result"]
+
+    def cancel_prepare(self):
+        self._call("CancelPrepare")
+
+    def prepare_status(self):
+        return self._call("PrepareStatus")["result"]
+
+    # snapshots
+    def create_snapshot(self, volume, bucket, name):
+        return self._call("CreateSnapshot", volume=volume, bucket=bucket,
+                          name=name)["result"]
+
+    def list_snapshots(self, volume, bucket):
+        return self._call("ListSnapshots", volume=volume,
+                          bucket=bucket)["result"]
+
+    def snapshot_info(self, volume, bucket, name):
+        return self._call("SnapshotInfo", volume=volume, bucket=bucket,
+                          name=name)["result"]
+
+    def delete_snapshot(self, volume, bucket, name):
+        self._call("DeleteSnapshot", volume=volume, bucket=bucket,
+                   name=name)
+
+    def rename_snapshot(self, volume, bucket, name, new_name):
+        return self._call("RenameSnapshot", volume=volume, bucket=bucket,
+                          name=name, new_name=new_name)["result"]
+
+    def snapshot_diff(self, volume, bucket, from_snapshot,
+                      to_snapshot=None):
+        return self._call("SnapshotDiff", volume=volume, bucket=bucket,
+                          from_snapshot=from_snapshot,
+                          to_snapshot=to_snapshot)["result"]
+
+    def snapshot_diff_submit(self, volume, bucket, from_snapshot,
+                             to_snapshot=None):
+        return self._call("SnapshotDiffSubmit", volume=volume,
+                          bucket=bucket, from_snapshot=from_snapshot,
+                          to_snapshot=to_snapshot)["result"]
+
+    def snapshot_diff_page(self, job_id, token="", page_size=1000):
+        return self._call("SnapshotDiffPage", job_id=job_id, token=token,
+                          page_size=page_size)["result"]
+
+    def snapshot_keys(self, volume, bucket, name):
+        return self._call("SnapshotKeys", volume=volume, bucket=bucket,
+                          name=name)["result"]
+
+    def snapshot_lookup_key(self, volume, bucket, name, key):
+        return self._learn_from(self._call(
+            "SnapshotLookupKey", volume=volume, bucket=bucket, name=name,
+            key=key))
 
     def key_block_groups(self, info):
         return [_block_group().from_json(g) for g in info["block_groups"]]

@@ -13,7 +13,8 @@ proposal is token-checked at the leader before it enters the ring
 (followers apply the committed log without checking again, as the
 reference's ContainerStateMachine does): a container create or close
 needs a container token, a chunk commit or block commit a WRITE block
-token. Left out: TLS.
+token. `RemoteRatisClient(tls=...)` dials a mutual-TLS ring, as the
+daemons' rings run on a secure cluster.
 """
 
 from __future__ import annotations

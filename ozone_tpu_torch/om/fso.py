@@ -21,9 +21,10 @@ requests, error codes and rows are the reference's, field for field.
 An open carries the explicit ACLs a caller fixed for the file and the
 envelope-encryption bundle the OM minted for it (as `requests.OpenKey`
 does); a GDPR file's secret is erased in the apply that deletes it,
-directly or through the directory-deleting service. Left out, as the
-port's OBS commit and `om/multipart.py` leave them out: the snapshots'
-copy-on-write pre-images of FSO rows (no snapshots in the port yet).
+directly or through the directory-deleting service. Every apply that
+mutates or deletes a dirs, files or dir_ids row first keeps its
+pre-image for the bucket's newest snapshot (`preserve_fso_preimage`),
+as the reference's do, site for site.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from ozone_tpu_torch.om.requests import (
     check_rewrite_fence,
     erase_gdpr_secret,
     finalize_commit,
+    newest_snapshot,
+    preserve_fso_preimage,
 )
 
 DIRECTORY_NOT_FOUND = "DIRECTORY_NOT_FOUND"
@@ -141,6 +144,8 @@ def _ensure_parents(
                 "created": created,
             }
             idk = id_key(volume, bucket, d["object_id"])
+            preserve_fso_preimage(store, volume, bucket, "dirs", dk)
+            preserve_fso_preimage(store, volume, bucket, "dir_ids", idk)
             store.put("dirs", dk, d)
             store.put("dir_ids", idk,
                       {"parent_id": parent, "name": name})
@@ -317,6 +322,7 @@ class DeleteFile(OMRequest):
             if store.exists("dirs", fk):
                 raise OMError(NOT_A_FILE, f"{fk} is a directory")
             raise OMError(KEY_NOT_FOUND, fk)
+        preserve_fso_preimage(store, self.volume, self.bucket, "files", fk)
         store.delete("files", fk)
         # fence a live hsync stream before purging its blocks
         stale_writer = info.get("hsync_client_id")
@@ -359,6 +365,9 @@ class DeleteDirectory(OMRequest):
         if has_children and not self.recursive:
             raise OMError(DIRECTORY_NOT_EMPTY, dk)
         idk = id_key(self.volume, self.bucket, d["object_id"])
+        preserve_fso_preimage(store, self.volume, self.bucket, "dirs", dk)
+        preserve_fso_preimage(store, self.volume, self.bucket,
+                              "dir_ids", idk)
         store.delete("dirs", dk)
         store.delete("dir_ids", idk)
         store.put(
@@ -390,6 +399,7 @@ class SetEntryAttrs(OMRequest):
         info = store.get(table, ek)
         if info is None:
             raise OMError(KEY_NOT_FOUND, ek)
+        preserve_fso_preimage(store, self.volume, self.bucket, table, ek)
         check_attr_preconds(info, self.preconds)
         merged = dict(info.get("attrs", {}))
         for k, v in self.attrs.items():
@@ -438,6 +448,13 @@ class RenameEntry(OMRequest):
                                   f"cannot move {sk} into its own subtree")
                 p = _parent_of(store, self.volume, self.bucket, p)
             idk = id_key(self.volume, self.bucket, d["object_id"])
+            nw = newest_snapshot(store, self.volume, self.bucket)
+            preserve_fso_preimage(store, self.volume, self.bucket,
+                                  "dirs", sk, newest=nw)
+            preserve_fso_preimage(store, self.volume, self.bucket,
+                                  "dirs", dk, newest=nw)
+            preserve_fso_preimage(store, self.volume, self.bucket,
+                                  "dir_ids", idk, newest=nw)
             d.update(name=dst_name, parent_id=dst_parent, modified=self.ts)
             store.delete("dirs", sk)
             store.put("dirs", dk, d)
@@ -447,6 +464,8 @@ class RenameEntry(OMRequest):
         f = store.get("files", sk)
         if f is None:
             raise OMError(KEY_NOT_FOUND, sk)
+        preserve_fso_preimage(store, self.volume, self.bucket, "files", sk)
+        preserve_fso_preimage(store, self.volume, self.bucket, "files", dk)
         f.update(file_name=dst_name, parent_id=dst_parent, modified=self.ts)
         store.delete("files", sk)
         store.put("files", dk, f)
@@ -473,7 +492,19 @@ class PurgeDirectories(OMRequest):
     dir_moves: list[list] = field(default_factory=list)  # [deleted_dirs key, info]
 
     def apply(self, store):
+        # one snapmeta scan per bucket for the whole batch
+        newest_cache: dict = {}
+
+        def _newest(vol0, bkt0):
+            key = (vol0, bkt0)
+            if key not in newest_cache:
+                newest_cache[key] = newest_snapshot(store, vol0, bkt0)
+            return newest_cache[key]
+
         for fk, info, ts in self.file_moves:
+            _, vol0, bkt0 = fk.split("/", 3)[:3]
+            preserve_fso_preimage(store, vol0, bkt0, "files", fk,
+                                  newest=_newest(vol0, bkt0))
             store.delete("files", fk)
             erase_gdpr_secret(info)
             store.put("deleted_keys", f"{fk}:{ts}", info)
@@ -483,6 +514,11 @@ class PurgeDirectories(OMRequest):
         for dk, info in self.dir_moves:
             idk = id_key(info["volume"], info["bucket"],
                          info["object_id"])
+            nw = _newest(info["volume"], info["bucket"])
+            preserve_fso_preimage(store, info["volume"], info["bucket"],
+                                  "dirs", dk, newest=nw)
+            preserve_fso_preimage(store, info["volume"], info["bucket"],
+                                  "dir_ids", idk, newest=nw)
             store.delete("dirs", dk)
             store.delete("dir_ids", idk)
             store.put("deleted_dirs", dk_suffix(dk, info), info)

@@ -10,12 +10,16 @@ and rows are the same JSON, so either package opens a database the other
 wrote. The rolling digest of the `keys` table rides the same commits, as
 in the reference. `export_state` and `import_state` ship the whole store as an HA
 snapshot (the OM follower bootstrap checkpoint), in the reference's
-form. Left out for later slices: the update journal (WAL-delta shipping
-to Recon and snapshot diffs), snapshot markers and row counts.
+form. The bounded update journal (`get_updates_since`, the reference's
+DBUpdatesWrapper) and the process-local snapshot markers feed the
+incremental snapshot diff (`om/snapshots.py`); derived rows (snapshot
+pre-images) are written with `journal=False`. Left out for later slices:
+row counts.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import hashlib
 import json
@@ -81,6 +85,14 @@ class OMMetadataStore:
         self._dirty: list[tuple[str, str, Optional[str]]] = []
         self.flush_every = flush_every
         self._txid = 0
+        # bounded update journal: (txid, table, key, value-or-None)
+        self._updates: list[tuple[int, str, str, Optional[dict]]] = []
+        self.max_journal = 100_000
+        #: snap_id -> txid at the snapshot's apply, for the incremental
+        #: snapshot diff. Not replicated: each replica's journal positions
+        #: are its own, and when the journal or a marker is gone the diff
+        #: falls back to the overlay or the full listing
+        self.snapshot_markers: dict[str, int] = {}
         # group commit (flush_group): _txid doubles as the apply sequence
         self._flush_cv = threading.Condition()
         self._flushed_txid = 0
@@ -145,7 +157,11 @@ class OMMetadataStore:
                         len(self._dirty) >= self.flush_every:
                     self._flush_locked()
 
-    def put(self, table: str, key: str, value: dict) -> None:
+    def put(self, table: str, key: str, value: dict,
+            journal: bool = True) -> None:
+        """`journal=False` skips the update journal, not durability:
+        derived rows (snapshot pre-images) would otherwise evict the live
+        history the incremental snapshot diff reads."""
         # serialized at put time: the flushed row is what was digested
         # even if the caller keeps mutating the dict
         dumped = json.dumps(value, sort_keys=True)
@@ -154,17 +170,41 @@ class OMMetadataStore:
             self._cache[table][key] = value
             self._dirty.append((table, key, dumped))
             self._txid += 1
+            if journal:
+                self._journal(table, key, value)
             if not self._defer and len(self._dirty) >= self.flush_every:
                 self._flush_locked()
 
-    def delete(self, table: str, key: str) -> None:
+    def delete(self, table: str, key: str, journal: bool = True) -> None:
         with self._lock:
             self._digest_mutate(table, key, None)
             self._cache[table][key] = None
             self._dirty.append((table, key, None))
             self._txid += 1
+            if journal:
+                self._journal(table, key, None)
             if not self._defer and len(self._dirty) >= self.flush_every:
                 self._flush_locked()
+
+    def _journal(self, table: str, key: str, value: Optional[dict]) -> None:
+        self._updates.append((self._txid, table, key, value))
+        if len(self._updates) > self.max_journal:
+            del self._updates[: len(self._updates) // 2]
+
+    def get_updates_since(
+        self, txid: int
+    ) -> tuple[list[tuple[int, str, str, Optional[dict]]], int, bool]:
+        """The updates after `txid`, the current txid, and whether the
+        journal still reaches back that far (False: the consumer must
+        rescan in full)."""
+        with self._lock:
+            complete = (
+                txid >= (self._updates[0][0] - 1) if self._updates
+                else txid >= self._txid
+            )
+            # txids strictly increase: binary-search the offset
+            i = bisect.bisect_right(self._updates, txid, key=lambda u: u[0])
+            return self._updates[i:], self._txid, complete
 
     def get(self, table: str, key: str) -> Optional[dict]:
         with self._lock:
@@ -303,7 +343,10 @@ class OMMetadataStore:
         """Replace every table with a shipped checkpoint."""
         with self._lock:
             self._dirty.clear()
+            self._updates.clear()
             self._digest_hashes.clear()
+            # shipped markers would index the sender's journal, not ours
+            self.snapshot_markers.clear()
             cur = self._conn.cursor()
             for t in _TABLES:
                 self._cache[t].clear()

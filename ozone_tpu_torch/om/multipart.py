@@ -13,8 +13,9 @@ The open-key expiry seals an expired hsync session by lease recovery.
 An encrypted upload (a TDE or GDPR bucket) holds one envelope bundle for
 all its parts; each part is encrypted on its own under its own IV,
 recorded with the part, and the completed key lists each part's size
-and IV (`enc_parts`) for the reader. Left out: snapshot pre-images
-(snapshots are not ported).
+and IV (`enc_parts`) for the reader. The complete keeps the replaced
+key's pre-image for the bucket's newest snapshot
+(`requests.preserve_preimage`).
 """
 
 from __future__ import annotations
@@ -194,6 +195,9 @@ class CompleteMultipartUpload(rq.OMRequest):
             raise rq.OMError(INVALID_PART, "no parts listed")
         kk = key_key(self.volume, self.bucket, self.key)
         old = store.get("keys", kk)
+        # before any mutation of the aliased old row (_release_blocks
+        # erases its GDPR secret in place)
+        rq.preserve_preimage(store, self.volume, self.bucket, kk)
         markers = (rq.missing_parent_markers(store, self.volume, self.bucket,
                                              self.key)
                    if self.fs_paths else [])
@@ -289,9 +293,7 @@ class OpenKeyCleanupService:
         expired = []
         hsynced = []
         for k, info in self.om.store.iterate("open_keys"):
-            # snapshot markers (a database the reference wrote) are not
-            # sessions
-            if k.startswith("/.snapmeta/"):
+            if rq.is_snapmeta(k):  # snapshot chain rows are not sessions
                 continue
             if info.get("hsync_client_id"):
                 # a live hsync stream refreshes "modified" on every sync

@@ -37,8 +37,17 @@ now, from the SCM's replica map (`_current_holders`, upstream's
 refreshPipeline on lookup): once a repair, a drain or a balancer move
 has rehomed a unit, readers go to the new home instead of decoding
 around the old one. The reference hands out the placement of the write;
-the port departs on purpose (ROADMAP Queue 3). Left out for later slices: sharding, the upgrade finalizer and its
-layout gate, snapshots and geo replication.
+the port departs on purpose (ROADMAP Queue 3); a snapshot lookup
+(`snapshot_lookup_key`) does the same. Bucket snapshots
+(`om/snapshots.py`): create, list, info, rename and delete through
+replicated requests, `.snapshot/` key listings and lookups, the diff
+(from the update journal, the copy-on-write overlays or the full
+listing) and its paged jobs; the key-deleting service defers a
+snapshotted bucket's deleted keys until its last snapshot is gone.
+Quotas (`set_quota`, `repair_quota`), volume ownership
+(`set_volume_owner`) and a bucket's default replication
+(`set_bucket_replication`). Left out for later slices: sharding, the
+upgrade finalizer and its layout gate, and geo replication.
 """
 
 from __future__ import annotations
@@ -147,6 +156,10 @@ class OzoneManager:
         from ozone_tpu_torch.utils.kms import KeyProvider
 
         self.kms = KeyProvider(self.store)
+        # paged snapshot-diff jobs (the SnapshotDiffManager job model)
+        from ozone_tpu_torch.om.snapshots import SnapshotDiffJobs
+
+        self._diff_jobs = SnapshotDiffJobs(self)
 
     # ----------------------------------------------------------- acl/tenant
     def enable_acls(self, superusers=("root",)) -> None:
@@ -358,6 +371,18 @@ class OzoneManager:
         self._check_superuser()
         self.submit(rq.DeleteVolume(volume))
 
+    def set_volume_owner(self, volume: str, owner: str) -> dict:
+        """`sh volume update --user`: only the current owner or a
+        superuser may transfer ownership."""
+        user, _ = self.current_user()
+        if self.acl_enabled and user is not None:
+            info = self.volume_info(volume)
+            if user != info.get("owner") and user not in self._superusers:
+                raise rq.OMError(
+                    rq.PERMISSION_DENIED,
+                    f"{user!r} is neither the owner nor a superuser")
+        return self.submit(rq.SetVolumeOwner(volume, owner))
+
     def volume_info(self, volume: str) -> dict:
         v = self.store.get("volumes", volume_key(volume))
         if v is None:
@@ -432,6 +457,16 @@ class OzoneManager:
         volume, bucket = self.resolve_bucket(volume, bucket)
         self.check_access(volume, bucket, None, "WRITE")
         return self.submit(rq.SetBucketAttrs(volume, bucket, attrs))
+
+    def set_bucket_replication(self, volume: str, bucket: str,
+                               replication: str) -> dict:
+        """A bucket's default replication (`sh bucket set-replication`):
+        keys written afterwards take it."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "WRITE")
+        ReplicationConfig.parse(replication)  # the create's fail-fast
+        return self.submit(
+            rq.SetBucketReplication(volume, bucket, replication))
 
     def list_buckets(self, volume: str) -> list[dict]:
         return [
@@ -641,7 +676,7 @@ class OzoneManager:
                                              limit + 1)
             for ok, info in chunk:
                 cursor = ok
-                if ok.startswith("/.snapmeta/"):
+                if rq.is_snapmeta(ok):
                     continue  # snapshot chain metadata rides this table
                 if volume and info.get("volume") != volume:
                     continue
@@ -678,6 +713,111 @@ class OzoneManager:
         out = self.submit(rq.RecoverLease(volume, bucket, key))
         self.metrics.counter("leases_recovered").inc()
         return out
+
+    # ------------------------------------------------------------ quotas
+    def set_quota(self, volume: str, bucket: str = "",
+                  quota_bytes: Optional[int] = None,
+                  quota_namespace: Optional[int] = None) -> dict:
+        """Space and namespace quota of a volume or a bucket; None leaves
+        a dimension as it is, -1 clears it. Through a link it sets the
+        source's, where usage is charged."""
+        if bucket:
+            volume, bucket = self.resolve_bucket(volume, bucket)
+        return self.submit(rq.SetQuota(volume, bucket,
+                                       quota_bytes, quota_namespace))
+
+    def repair_quota(self, volume: str, page: int = 1000) -> dict:
+        """Recount the usage counters from the key and file tables (the
+        QuotaRepairTask): the recount pages through the tables outside
+        the apply, then one small `ApplyQuotaRepair` replicates the
+        per-bucket deltas."""
+        vk = volume_key(volume)
+        if self.store.get("volumes", vk) is None:
+            raise rq.OMError(rq.VOLUME_NOT_FOUND, volume)
+        deltas: dict[str, list[int]] = {}
+        for bk, brow in list(self.store.iterate("buckets", f"/{volume}/")):
+            used = keys = 0
+            for table in ("keys", "files"):
+                after = ""
+                while True:
+                    rows = self.store.iterate_range(
+                        table, f"{bk}/", start_after=after, limit=page)
+                    for _, info in rows:
+                        used += int(info.get("size", 0))
+                        keys += 1
+                    if len(rows) < page:
+                        break
+                    after = rows[-1][0]
+            deltas[bk] = [used - int(brow.get("used_bytes", 0)),
+                          keys - int(brow.get("key_count", 0))]
+        return self.submit(rq.ApplyQuotaRepair(volume, deltas))
+
+    # --------------------------------------------------------- snapshots
+    def _snapshots(self):
+        from ozone_tpu_torch.om.snapshots import SnapshotManager
+
+        return SnapshotManager(self)
+
+    def create_snapshot(self, volume: str, bucket: str, name: str) -> dict:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self._snapshots().create_snapshot(volume, bucket,
+                                                 name).to_json()
+
+    def list_snapshots(self, volume: str, bucket: str) -> list[dict]:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return [s.to_json()
+                for s in self._snapshots().list_snapshots(volume, bucket)]
+
+    def snapshot_info(self, volume: str, bucket: str, name: str) -> dict:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self._snapshots().get_snapshot(volume, bucket,
+                                              name).to_json()
+
+    def delete_snapshot(self, volume: str, bucket: str, name: str) -> None:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        self._snapshots().delete_snapshot(volume, bucket, name)
+
+    def rename_snapshot(self, volume: str, bucket: str, name: str,
+                        new_name: str) -> dict:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self.submit(rq.RenameSnapshot(volume, bucket, name,
+                                             new_name))
+
+    def snapshot_diff(self, volume: str, bucket: str, from_snapshot: str,
+                      to_snapshot: Optional[str] = None) -> dict:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self._snapshots().snapshot_diff(volume, bucket,
+                                               from_snapshot, to_snapshot)
+
+    def snapshot_diff_submit(self, volume: str, bucket: str,
+                             from_snapshot: str,
+                             to_snapshot: Optional[str] = None) -> dict:
+        """Submit (or poll) a paged diff job; page its report with
+        snapshot_diff_page."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "LIST")
+        return self._diff_jobs.submit(volume, bucket, from_snapshot,
+                                      to_snapshot)
+
+    def snapshot_diff_page(self, job_id: str, token: str = "",
+                           page_size: int = 1000) -> dict:
+        out = self._diff_jobs.page(job_id, token, page_size)
+        # the page names keys: the same LIST right as the submit
+        self.check_access(out["volume"], out["bucket"], None, "LIST")
+        return out
+
+    def snapshot_keys(self, volume: str, bucket: str,
+                      name: str) -> list[dict]:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self._snapshots().list_keys(volume, bucket, name)
+
+    def snapshot_lookup_key(self, volume: str, bucket: str, name: str,
+                            key: str) -> dict:
+        """A key as of a snapshot, its EC units pointed at their current
+        homes (`_current_holders`), as `lookup_key` does."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self.mint_read_tokens(self._current_holders(
+            self._snapshots().lookup_key(volume, bucket, name, key)))
 
     def lookup_key(self, volume: str, bucket: str, key: str) -> dict:
         volume, bucket = self.resolve_bucket(volume, bucket)
@@ -1196,10 +1336,10 @@ class OzoneManager:
         dead_needles: dict[tuple, list[int]] = {}
         for dk, info in entries:
             vol, bkt = info.get("volume"), info.get("bucket")
-            # a bucket with snapshots (written by the reference) defers:
-            # a snapshot may still reference the blocks
+            # a bucket with snapshots defers: a snapshot may still
+            # reference the blocks (om/snapshots.py)
             if vol and bkt and next(self.store.iterate(
-                    "open_keys", f"/.snapmeta/{vol}/{bkt}/"), None):
+                    "open_keys", rq.snapmeta_key(vol, bkt, "")), None):
                 continue
             nd = info.get("needle")
             if nd:

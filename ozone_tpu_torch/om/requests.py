@@ -25,20 +25,27 @@ the KMS at create) or its GDPR flag, the envelope bundle an open carries
 in the replicated request (`OpenKey.encryption`: an EDEK, or a GDPR
 bucket's per-key secret), the master keys' mint and rotation
 (`CreateMasterKey`), and the GDPR secret erased in the apply that
-deletes or overwrites a key (`erase_gdpr_secret`). Left out for later
-slices: snapshots (and so their copy-on-write pre-images, which an ACL
-change on a key would also keep), geo replication, quotas' set and
-repair verbs.
+deletes or overwrites a key (`erase_gdpr_secret`). Bucket snapshots:
+`CreateSnapshot`, `DeleteSnapshot` (with its merge-down into the older
+copy-on-write snapshot) and `RenameSnapshot` keep the chain's rows in
+`open_keys` under `/.snapmeta/`, and every apply that mutates or
+deletes a key, file or directory row first calls `preserve_preimage` or
+`preserve_fso_preimage`, which copies the row's pre-image into the
+newest snapshot's overlay under `/.snapshot/` in `keys` (the reads are
+in `om/snapshots.py`). Quotas (`SetQuota`, `ApplyQuotaRepair`), volume
+ownership (`SetVolumeOwner`) and a bucket's default replication
+(`SetBucketReplication`). Left out for later slices: geo replication.
 `to_json` and `from_json` are the reference's wire form for the
 replicated log (`om/ha.py`, `consensus/meta_ring.py`).
 """
 
 from __future__ import annotations
 
+import json
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 from ozone_tpu_torch.om.metadata import (
     OMMetadataStore,
@@ -311,6 +318,11 @@ def finalize_commit(store, table: str, ek: str, info: dict, old,
     route a superseded previous version to the purge chain, fencing its
     writer first if it was a live hsync stream."""
     _, vol, bkt = ek.split("/", 3)[:3]
+    # snapshots: capture the pre-overwrite image first
+    if table == "keys":
+        preserve_preimage(store, vol, bkt, ek)
+    elif table == "files":
+        preserve_fso_preimage(store, vol, bkt, "files", ek)
     check_and_charge_quota(
         store, vol, bkt,
         int(info.get("size", 0)) - (int(old.get("size", 0)) if old else 0),
@@ -460,6 +472,8 @@ def put_parent_markers(store, volume: str, bucket: str,
     """Materialize LEGACY parent directory markers; the caller charges the
     namespace quota for them first, one count per marker."""
     for marker in markers:
+        preserve_preimage(store, volume, bucket,
+                          key_key(volume, bucket, marker))
         store.put("keys", key_key(volume, bucket, marker), {
             "volume": volume,
             "bucket": bucket,
@@ -573,6 +587,7 @@ class DeleteKey(OMRequest):
                 info.get("object_id") != self.expect_object_id:
             raise OMError(KEY_MODIFIED,
                           f"{kk} overwritten since the expiry scan")
+        preserve_preimage(store, self.volume, self.bucket, kk)
         store.delete("keys", kk)
         # deleting a live hsync stream: fence its writer first
         stale_writer = info.get("hsync_client_id")
@@ -618,6 +633,10 @@ class RenameKey(OMRequest):
                 put_parent_markers(store, self.volume, self.bucket,
                                    markers, info.get("replication", ""),
                                    self.ts or time.time())
+        # both ends change: the source row goes, the destination row is
+        # created or overwritten
+        preserve_preimage(store, self.volume, self.bucket, src)
+        preserve_preimage(store, self.volume, self.bucket, dst)
         info["name"] = self.new_key
         store.delete("keys", src)
         store.put("keys", dst, info)
@@ -658,6 +677,11 @@ class RecoverLease(OMRequest):
         for s in sessions:
             store.delete("open_keys", s)
         if cur is not None:
+            if table == "keys":
+                preserve_preimage(store, self.volume, self.bucket, ek)
+            else:
+                preserve_fso_preimage(store, self.volume, self.bucket,
+                                      "files", ek)
             if cur.pop("hsync_client_id", None) is not None:
                 cur["modified"] = self.modified
                 store.put(table, ek, cur)
@@ -739,6 +763,7 @@ class SetKeyAttrs(OMRequest):
             info = store.get("keys", kk)
         if info is None:
             raise OMError(KEY_NOT_FOUND, kk)
+        preserve_preimage(store, self.volume, self.bucket, kk)
         check_attr_preconds(info, self.preconds)
         merged = dict(info.get("attrs", {}))
         for k, v in self.attrs.items():
@@ -988,6 +1013,7 @@ class CommitKeys(OMRequest):
             }
             if e.get("metadata"):
                 info["metadata"] = dict(e["metadata"])
+            preserve_preimage(store, self.volume, self.bucket, kk)
             info["generation"] = (int(old.get("generation", 0)) + 1
                                   if old is not None else 1)
             if old is not None and (old.get("block_groups")
@@ -1232,6 +1258,11 @@ class ModifyAcl(OMRequest):
                      "buckets": BUCKET_NOT_FOUND,
                      "keys": KEY_NOT_FOUND,
                      "files": KEY_NOT_FOUND}[table], k)
+        elif table == "keys":
+            preserve_preimage(store, self.volume, self.bucket, k)
+        elif table == "files":
+            preserve_fso_preimage(store, self.volume, self.bucket,
+                                  "files", k)
         existing = row.get("acls", [])
         changed = False
         if self.op == "set":
@@ -1514,3 +1545,328 @@ class CreateMasterKey(OMRequest):
         row["versions"].append(self.material)
         store.put("system", k, row)
         return {"name": self.name, "versions": len(row["versions"])}
+
+
+# ------------------------------------------------------------- snapshots
+def snap_prefix(volume: str, bucket: str, snap_id: str) -> str:
+    """Key-table prefix of a snapshot's rows (its overlay, or all of a
+    materialized snapshot's rows): the one definition, shared by the
+    write side here and the read side in `om/snapshots.py`."""
+    return f"/.snapshot/{volume}/{bucket}/{snap_id}"
+
+
+def snapmeta_key(volume: str, bucket: str, name: str) -> str:
+    """open_keys row holding a snapshot's chain metadata."""
+    return f"/.snapmeta/{volume}/{bucket}/{name}"
+
+
+#: overlay row meaning "this key did not exist when the snapshot was
+#: taken": a key created after a snapshot must not leak into its reads
+#: through the fall-through to the live table
+ABSENT = {"__absent__": True}
+
+#: tells "resolve the newest snapshot yourself" from an explicit None
+#: (the bucket has no snapshots)
+_UNRESOLVED = object()
+
+
+def is_absent_marker(row: Optional[dict]) -> bool:
+    return bool(row) and row.get("__absent__") is True
+
+
+def bucket_snapshots(store, volume: str, bucket: str) -> list[dict]:
+    """This bucket's snapshot chain, oldest first."""
+    out = [v for _, v in store.iterate(
+        "open_keys", f"/.snapmeta/{volume}/{bucket}/")]
+    out.sort(key=lambda v: v["created"])
+    return out
+
+
+def newest_snapshot(store, volume: str, bucket: str) -> Optional[dict]:
+    """The bucket's newest snapshot in one pass (a bucket without
+    snapshots pays one empty indexed scan)."""
+    newest = None
+    for _, v in store.iterate("open_keys",
+                              f"/.snapmeta/{volume}/{bucket}/"):
+        if newest is None or v["created"] > newest["created"]:
+            newest = v
+    return newest
+
+
+def preserve_preimage(store, volume: str, bucket: str,
+                      full_key: str) -> None:
+    """Copy-on-write preservation of an OBS or LEGACY key row; call it
+    before mutating or deleting the live row `full_key`. When the
+    bucket's newest snapshot is copy-on-write and has no overlay entry
+    for the key yet, the current live row (or an ABSENT marker) is
+    recorded there. Reads resolve the value at snapshot S as the oldest
+    overlay entry among the snapshots >= S, else the live row: a
+    snapshot with no entry proves the key was not mutated in its reign."""
+    base = bucket_key(volume, bucket) + "/"
+    _preserve_row(store, volume, bucket, "keys", full_key,
+                  full_key[len(base):])
+
+
+def preserve_fso_preimage(store, volume: str, bucket: str, table: str,
+                          storage_key: str, newest=_UNRESOLVED) -> None:
+    """Copy-on-write preservation of an FSO row (dirs, files, dir_ids):
+    the overlay key carries the table and the id-keyed storage key
+    (`#table#key`), since FSO paths change under a one-row directory
+    rename; reads walk the tree as of the snapshot through
+    `snapshots.SnapshotStoreView`. An apply touching many rows resolves
+    `newest` once and passes it in."""
+    _preserve_row(store, volume, bucket, table, storage_key,
+                  f"#{table}#{storage_key}", newest=newest)
+
+
+def _preserve_row(store, volume: str, bucket: str, table: str,
+                  storage_key: str, rel: str, newest=_UNRESOLVED) -> None:
+    if newest is _UNRESOLVED:
+        newest = newest_snapshot(store, volume, bucket)
+    if newest is None or not newest.get("cow"):
+        return
+    ok = f"{snap_prefix(volume, bucket, newest['snap_id'])}/{rel}"
+    if store.get("keys", ok) is not None:
+        return  # already captured for this snapshot
+    old = store.get(table, storage_key)
+    if old is not None:
+        # a deep copy: the fetched dict is the live cache row, which the
+        # calling apply mutates next (a GDPR erase among others)
+        old = json.loads(json.dumps(old))
+    # derived rows stay out of the journal the incremental diff reads
+    store.put("keys", ok, old if old is not None else dict(ABSENT),
+              journal=False)
+
+
+def is_snapmeta(open_key: str) -> bool:
+    """True for the snapshot chain's rows in open_keys: every open-key
+    scan skips them."""
+    return open_key.startswith("/.snapmeta/")
+
+
+SNAPSHOT_NOT_FOUND = "SNAPSHOT_NOT_FOUND"
+SNAPSHOT_EXISTS = "SNAPSHOT_EXISTS"
+INVALID_SNAPSHOT_NAME = "INVALID_SNAPSHOT_NAME"
+
+
+@dataclass
+class CreateSnapshot(OMRequest):
+    """Bucket snapshot, chained to the bucket's previous one. Every new
+    snapshot is copy-on-write: the apply writes only the chain row
+    (O(#snapshots)), and the overlay fills as the pre-image sites capture
+    each first mutation while it is newest. OBS and LEGACY overlays are
+    path-keyed, FSO overlays id-keyed (`#table#key`)."""
+
+    volume: str
+    bucket: str
+    name: str
+    snap_id: str = ""
+    created: float = 0.0
+
+    def pre_execute(self, om) -> None:
+        self.snap_id = uuid.uuid4().hex[:12]
+        self.created = time.time()
+
+    def apply(self, store):
+        if not self.name or "/" in self.name:
+            # names ride the .snapshot/<name>/<key> path and the snapmeta
+            # key space: an empty or slashed name is unaddressable
+            raise OMError(INVALID_SNAPSHOT_NAME, repr(self.name))
+        brow = store.get("buckets", bucket_key(self.volume, self.bucket))
+        if brow is None:
+            raise OMError(BUCKET_NOT_FOUND, f"{self.volume}/{self.bucket}")
+        meta_key = snapmeta_key(self.volume, self.bucket, self.name)
+        if store.exists("open_keys", meta_key):
+            raise OMError(SNAPSHOT_EXISTS, self.name)
+        prev = newest_snapshot(store, self.volume, self.bucket)
+        info = {
+            "volume": self.volume,
+            "bucket": self.bucket,
+            "name": self.name,
+            "snap_id": self.snap_id,
+            "created": self.created,
+            "previous": prev["snap_id"] if prev is not None else None,
+            "cow": True,
+        }
+        if brow.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+            info["fso"] = True
+        store.put("open_keys", meta_key, info)
+        # this replica's journal position: the diff then walks only the
+        # updates between two snapshots
+        store.snapshot_markers[self.snap_id] = store.txid
+        return info
+
+
+@dataclass
+class DeleteSnapshot(OMRequest):
+    """Drop a snapshot's rows and chain row. A copy-on-write snapshot
+    first merges its overlay down into the adjacent older snapshot when
+    that one is copy-on-write too (an entry kept here may be the truth for
+    reads at older snapshots that saw no mutation of the key); a
+    materialized older snapshot is complete already. O(overlay)."""
+
+    volume: str
+    bucket: str
+    name: str
+
+    def apply(self, store):
+        meta_key = snapmeta_key(self.volume, self.bucket, self.name)
+        info = store.get("open_keys", meta_key)
+        if info is None:
+            raise OMError(SNAPSHOT_NOT_FOUND, self.name)
+        prefix = snap_prefix(self.volume, self.bucket, info["snap_id"])
+        if info.get("cow"):
+            snaps = bucket_snapshots(store, self.volume, self.bucket)
+            idx = next(i for i, s in enumerate(snaps)
+                       if s["snap_id"] == info["snap_id"])
+            older = snaps[idx - 1] if idx > 0 else None
+            if older is not None and older.get("cow"):
+                op = snap_prefix(self.volume, self.bucket, older["snap_id"])
+                for k, v in list(store.iterate("keys", prefix + "/")):
+                    rel = k[len(prefix) + 1:]
+                    if store.get("keys", f"{op}/{rel}") is None:
+                        store.put("keys", f"{op}/{rel}", v, journal=False)
+        for k, _ in list(store.iterate("keys", prefix)):
+            store.delete("keys", k, journal=False)
+        store.delete("open_keys", meta_key)
+        store.snapshot_markers.pop(info["snap_id"], None)
+        return info
+
+
+@dataclass
+class RenameSnapshot(OMRequest):
+    """Rename a snapshot: its rows and journal marker are keyed by
+    snap_id, so only the name-keyed chain row moves."""
+
+    volume: str
+    bucket: str
+    name: str
+    new_name: str
+
+    def apply(self, store):
+        if not self.new_name or "/" in self.new_name:
+            raise OMError(INVALID_SNAPSHOT_NAME, repr(self.new_name))
+        mk = snapmeta_key(self.volume, self.bucket, self.name)
+        info = store.get("open_keys", mk)
+        if info is None:
+            raise OMError(SNAPSHOT_NOT_FOUND, self.name)
+        nk = snapmeta_key(self.volume, self.bucket, self.new_name)
+        if store.exists("open_keys", nk):
+            raise OMError(SNAPSHOT_EXISTS, self.new_name)
+        info["name"] = self.new_name
+        store.delete("open_keys", mk)
+        store.put("open_keys", nk, info)
+        return info
+
+
+# ------------------------------------------- quotas, owner, replication
+@dataclass
+class SetQuota(OMRequest):
+    """Space and namespace quota of a volume (bucket "") or a bucket. None
+    leaves a dimension as it is; -1 clears it to unlimited."""
+
+    volume: str
+    bucket: str = ""
+    quota_bytes: Optional[int] = None
+    quota_namespace: Optional[int] = None
+
+    def apply(self, store):
+        if self.bucket:
+            k, table = bucket_key(self.volume, self.bucket), "buckets"
+            missing = BUCKET_NOT_FOUND
+        else:
+            k, table = volume_key(self.volume), "volumes"
+            missing = VOLUME_NOT_FOUND
+        row = store.get(table, k)
+        if row is None:
+            raise OMError(missing, k)
+        if self.quota_bytes is not None:
+            row["quota_bytes"] = int(self.quota_bytes)
+        if self.quota_namespace is not None:
+            row["quota_namespace"] = int(self.quota_namespace)
+        store.put(table, k, row)
+        return row
+
+
+@dataclass
+class SetVolumeOwner(OMRequest):
+    """Transfer a volume's ownership (`sh volume update --user`)."""
+
+    volume: str
+    owner: str
+
+    def pre_execute(self, om) -> None:
+        if not self.owner:
+            raise OMError(INVALID_REQUEST, "new owner must be non-empty")
+
+    def apply(self, store):
+        k = volume_key(self.volume)
+        row = store.get("volumes", k)
+        if row is None:
+            raise OMError(VOLUME_NOT_FOUND, self.volume)
+        row["owner"] = self.owner
+        store.put("volumes", k, row)
+        return row
+
+
+@dataclass
+class ApplyQuotaRepair(OMRequest):
+    """Apply per-bucket usage deltas computed beforehand: the recount
+    pages through the tables outside the apply (`OzoneManager.
+    repair_quota`), and this apply touches one row per bucket plus the
+    volume row. Deltas, not absolutes, so a key committed after its page
+    was scanned keeps its own charge."""
+
+    volume: str
+    #: bucket_key -> [d_used_bytes, d_key_count]
+    deltas: dict = None  # type: ignore[assignment]
+
+    def apply(self, store):
+        vk = volume_key(self.volume)
+        vrow = store.get("volumes", vk)
+        if vrow is None:
+            raise OMError(VOLUME_NOT_FOUND, self.volume)
+        out = {}
+        for bk, (d_used, d_keys) in (self.deltas or {}).items():
+            brow = store.get("buckets", bk)
+            if brow is None:
+                continue  # deleted between the scan and the apply
+            brow["used_bytes"] = int(brow.get("used_bytes", 0)) + int(d_used)
+            brow["key_count"] = int(brow.get("key_count", 0)) + int(d_keys)
+            store.put("buckets", bk, brow)
+            out[bk] = {"used_bytes": brow["used_bytes"],
+                       "key_count": brow["key_count"]}
+        # the volume's totals from the adjusted bucket rows: O(#buckets)
+        vtotal = vkeys = 0
+        for _, brow in store.iterate("buckets", f"/{self.volume}/"):
+            vtotal += int(brow.get("used_bytes", 0))
+            vkeys += int(brow.get("key_count", 0))
+        vrow["used_bytes"] = vtotal
+        vrow["key_count"] = vkeys
+        store.put("volumes", vk, vrow)
+        return {"volume_used_bytes": vtotal, "volume_key_count": vkeys,
+                "buckets": out}
+
+
+@dataclass
+class SetBucketReplication(OMRequest):
+    """Change a bucket's default replication: it applies to keys written
+    after the change; existing keys keep theirs until rewritten."""
+
+    volume: str
+    bucket: str
+    replication: str
+
+    def pre_execute(self, om) -> None:
+        from ozone_tpu_torch.scm.pipeline import ReplicationConfig
+
+        ReplicationConfig.parse(self.replication)  # raises on nonsense
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        b["replication"] = self.replication
+        store.put("buckets", k, b)
+        return b

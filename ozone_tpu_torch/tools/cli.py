@@ -59,6 +59,15 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools admin balancer status|stop --om ...
     python -m ozone_tpu_torch.tools admin replicationmanager --om ...
     python -m ozone_tpu_torch.tools admin safemode enter|exit|status --om ...
+    python -m ozone_tpu_torch.tools sh snapshot create /v/b --name s1 --om ...
+    python -m ozone_tpu_torch.tools sh key get /v/b/.snapshot/s1/k out --om ...
+    python -m ozone_tpu_torch.tools sh snapshot diff /v/b --name s1 --to s2 \
+        [--page-size 100] --om ...
+    python -m ozone_tpu_torch.tools sh snapshot list|info|rename|delete /v/b ...
+    python -m ozone_tpu_torch.tools sh bucket setquota /v/b --quota 10MB \
+        [--namespace-quota 1000] --om ...
+    python -m ozone_tpu_torch.tools sh volume update /v --user alice --om ...
+    python -m ozone_tpu_torch.tools admin om prepare|cancelprepare|status --om ...
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -222,12 +231,73 @@ def _usage(msg: str) -> int:
 
 # ---------------------------------------------------------------------- sh
 _SH_VERBS = {
-    "volume": {"create", "delete", "info", "list"},
-    "bucket": {"create", "delete", "info", "list", "set-smallobj", "link"},
+    "volume": {"create", "delete", "info", "list", "setquota", "update"},
+    "bucket": {"create", "delete", "info", "list", "setquota", "link",
+               "set-replication", "set-smallobj"},
     "key": {"put", "get", "info", "list", "delete", "rename", "checksum",
             "cat", "cp", "rewrite"},
+    "snapshot": {"create", "list", "info", "delete", "diff", "rename"},
     "token": {"get", "renew", "cancel", "print"},
 }
+
+
+def _quota_arg(v: str):
+    """'10MB' or '1073741824' -> bytes; '' -> None (unchanged);
+    'clear' -> -1 (unlimited)."""
+    from ozone_tpu_torch.utils.config import parse_size
+
+    if not v:
+        return None
+    if v == "clear":
+        return -1
+    return int(parse_size(v))
+
+
+def _sh_snapshot(om, args, verb: str, vol: str, bucket: str) -> int:
+    """`ozone sh snapshot create|list|info|delete|diff|rename`; a diff
+    with --page-size runs as a paged job and streams its entries as JSON
+    lines."""
+    if verb == "list":
+        _emit(om.list_snapshots(vol, bucket))
+        return 0
+    if not args.name:
+        return _usage(f"snapshot {verb} requires --name")
+    if verb == "diff" and args.page_size:
+        job = om.snapshot_diff_submit(vol, bucket, args.name,
+                                      args.to or None)
+        deadline = time.time() + 300
+        while job["status"] == "IN_PROGRESS" and time.time() < deadline:
+            time.sleep(0.1)
+            job = om.snapshot_diff_submit(vol, bucket, args.name,
+                                          args.to or None)
+        if job["status"] != "DONE":
+            _emit(job)
+            return 1
+        token = ""
+        while True:
+            page = om.snapshot_diff_page(job["job_id"], token,
+                                         args.page_size)
+            for e in page["entries"]:
+                print(json.dumps(e))
+            token = page["next_token"]
+            if not token:
+                break
+        print(json.dumps({"job_id": job["job_id"], "total": page["total"],
+                          "mode": page["mode"]}), file=sys.stderr)
+    elif verb == "diff":
+        _emit(om.snapshot_diff(vol, bucket, args.name, args.to or None))
+    elif verb == "create":
+        _emit(om.create_snapshot(vol, bucket, args.name))
+    elif verb == "rename":
+        if not args.to:
+            return _usage("snapshot rename requires --to")
+        _emit(om.rename_snapshot(vol, bucket, args.name, args.to))
+    elif verb == "info":
+        _emit(om.snapshot_info(vol, bucket, args.name))
+    else:
+        om.delete_snapshot(vol, bucket, args.name)
+        print(f"deleted snapshot {args.name}")
+    return 0
 
 
 def _sh_token(args, verb: str) -> int:
@@ -302,6 +372,13 @@ def cmd_sh(args) -> int:
                 om.create_volume(vol)
             elif verb == "delete":
                 om.delete_volume(vol)
+            elif verb == "setquota":
+                _emit(om.set_quota(vol, quota_bytes=_quota_arg(args.quota),
+                                   quota_namespace=args.namespace_quota))
+            elif verb == "update":
+                if not args.user:
+                    return _usage("volume update requires --user NEWOWNER")
+                _emit(om.set_volume_owner(vol, args.user))
             else:
                 _emit(om.volume_info(vol))
         elif kind == "bucket":
@@ -326,8 +403,21 @@ def cmd_sh(args) -> int:
                 om.delete_bucket(vol, bucket)
             elif verb == "set-smallobj":
                 _emit(om.set_bucket_smallobj(vol, bucket))
+            elif verb == "setquota":
+                _emit(om.set_quota(vol, bucket,
+                                   quota_bytes=_quota_arg(args.quota),
+                                   quota_namespace=args.namespace_quota))
+            elif verb == "set-replication":
+                if not args.replication:
+                    return _usage("set-replication requires --replication")
+                b = om.set_bucket_replication(vol, bucket, args.replication)
+                _emit({"bucket": f"/{vol}/{bucket}",
+                       "replication": b["replication"]})
             else:
                 _emit(om.bucket_info(vol, bucket))
+        elif kind == "snapshot":
+            vol, bucket = parts
+            return _sh_snapshot(om, args, verb, vol, bucket)
         else:
             if verb == "list":
                 vol, bucket = parts
@@ -481,19 +571,30 @@ def cmd_admin(args) -> int:
         if subject == "status":
             _emit(scm.status())
         elif subject == "om":
-            if verb != "list-open-files":
-                return _usage(f"unknown om verb {verb!r} "
-                              "(expected list-open-files)")
+            if verb not in (None, "status", "prepare", "cancelprepare",
+                            "list-open-files"):
+                return _usage(f"unknown om verb {verb!r} (expected "
+                              "prepare|cancelprepare|status|"
+                              "list-open-files)")
             from ozone_tpu_torch.net.om_service import RemoteOmClient
 
-            parts = _parse_path(target or "")
             om = RemoteOmClient(args.om, tls=_client_tls())
             try:
-                _emit(om.list_open_files(
-                    parts[0] if parts else "",
-                    parts[1] if len(parts) > 1 else "",
-                    prefix=args.prefix, start_after=args.start_after,
-                    limit=args.limit if args.limit is not None else 100))
+                if verb == "prepare":
+                    _emit(om.prepare())
+                elif verb == "cancelprepare":
+                    om.cancel_prepare()
+                    _emit({"prepared": False})
+                elif verb == "list-open-files":
+                    parts = _parse_path(target or "")
+                    _emit(om.list_open_files(
+                        parts[0] if parts else "",
+                        parts[1] if len(parts) > 1 else "",
+                        prefix=args.prefix, start_after=args.start_after,
+                        limit=args.limit if args.limit is not None
+                        else 100))
+                else:
+                    _emit(om.prepare_status())
             finally:
                 om.close()
         elif subject == "cert":
@@ -992,7 +1093,23 @@ def build_parser() -> argparse.ArgumentParser:
     sh.add_argument("--prefix", default="", help="key list: name prefix")
     sh.add_argument("--to", default="",
                     help="key rename: new name; key cp: /volume/bucket/key; "
-                         "bucket link: the link's /volume/bucket")
+                         "bucket link: the link's /volume/bucket; snapshot "
+                         "rename: new name; snapshot diff: the to-snapshot "
+                         "(default: the live bucket)")
+    sh.add_argument("--name", default="",
+                    help="snapshot verbs: snapshot name (diff: the "
+                         "from-snapshot)")
+    sh.add_argument("--page-size", type=int, default=0,
+                    help="snapshot diff: run as a paged job, streaming "
+                         "entries as JSON lines (0 = one report)")
+    sh.add_argument("--user", default="",
+                    help="volume update: the new owner")
+    sh.add_argument("--quota", default="",
+                    help="setquota: space quota (e.g. 10MB; 'clear' for "
+                         "unlimited)")
+    sh.add_argument("--namespace-quota", type=int, default=None,
+                    help="setquota: the most keys (-1 clears; omitted "
+                         "leaves it as it is)")
     sh.add_argument("--layout", default="OBJECT_STORE",
                     choices=["OBJECT_STORE", "FILE_SYSTEM_OPTIMIZED",
                              "LEGACY"],
@@ -1022,7 +1139,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "enter|exit|status; datanode: list|decommission|"
                          "recommission|maintenance <id>; pipeline: list|"
                          "close <id>; balancer: start|stop|status; om: "
-                         "list-open-files [/volume[/bucket]]; ring-add: "
+                         "prepare|cancelprepare|status|list-open-files "
+                         "[/volume[/bucket]]; ring-add: "
                          "<id>=<host:port>; ring-remove, ring-transfer: <id>; "
                          "cert: list|revoke <serial>; kms: create-key|"
                          "rotate-key|info <name>, list")

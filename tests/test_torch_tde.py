@@ -5,8 +5,8 @@ CPU's plain kernel versions): master keys in the OM's store, a fresh
 EDEK per key at open, client-side AES-CTR (datanodes hold ciphertext),
 rotation, multipart keys with per-part IVs, ranged reads and hsync'd
 prefixes, GDPR crypto-erasure in the delete's apply (OBS, FSO, an
-overwrite, a recursive delete) and the KMS decrypt bound to the bucket.
-Snapshot reads of an encrypted key wait for the snapshot slice. Across
+overwrite, a recursive delete), the KMS decrypt bound to the bucket, and
+`.snapshot/` reads of an encrypted key after its overwrite. Across
 the packages: `ctr_crypt` equals the reference's byte for byte at any
 offset and length (a counter that wraps 2^128 included), an EDEK wrapped
 by one package's `KeyProvider` unwraps in the other's over the same
@@ -248,6 +248,19 @@ def test_encrypted_hsync_prefix_readable(cluster):
         assert np.array_equal(br.read_key("hs"), data[:17_000])
         h.write(data[17_000:])
     assert np.array_equal(br.read_key("hs"), data)
+
+
+def test_encrypted_key_readable_through_snapshot(cluster):
+    """The snapshot keeps the key row with its encryption bundle, so a
+    .snapshot read decrypts like a live one after the live key is
+    overwritten."""
+    b = cluster.client().get_volume("ev").get_bucket("enc")
+    v1 = _payload(20, 12_000)
+    b.write_key("snapk", v1)
+    cluster.om.create_snapshot("ev", "enc", "s1")
+    b.write_key("snapk", _payload(21, 12_000))  # overwrite live
+    got = b.read_key(".snapshot/s1/snapk")
+    assert np.array_equal(got, v1)
 
 
 def test_gdpr_crypto_erasure(cluster):
