@@ -232,7 +232,25 @@ a phase says otherwise:
   first and the seconds to the last chunk file gone; (g) a PUT past a
   bucket quota refused with QUOTA_EXCEEDED, `repair_quota` unchanged,
   HttpFS's snapshot verbs, `sh snapshot` and `sh bucket setquota` as
-  processes. Launches equal dispatches in every step.
+  processes. Launches equal dispatches in every step;
+- geo replication (`geo_path`, rules in AWS S3's PutBucketReplication
+  shape): two daemon clusters in this process, the source an
+  ScmOmDaemon with 10 DatanodeDaemons (rs-6-3-1024k), the destination
+  one with 6, the source's shipper dialing the destination over the RPC:
+  (a) 4 keys of 64 MiB and odd tails and 16 of 4 MiB + 7 B under logs/
+  in bucket `src`, 2 of 64 MiB + 12 345 B in `src2`, PUT concurrently;
+  (b) rule `logs` through the S3 gateway's PUT ?replication (ARN form,
+  rs-3-2-1024k), rule `all` through `replication set` (a process); GET
+  ?replication re-PUTs unchanged; (c) the bootstrap through GeoRunNow:
+  every key byte-exact at RS(3,2), units and CRCs checked, no decode, a
+  second cycle ships nothing; (d) last-writer-wins both ways, one
+  conflict each; (e) a data-unit holder of src2 stopped, src2's
+  bootstrap decodes at the source; (f) the source daemon restarted with
+  a 0.5 s cadence resumes at its cursor shipping nothing again, then a
+  churn of 4 writers converges to lag 0 (seconds, peak lag); (g) `freon
+  geo` as a process, `replication status`, DELETE ?replication, after
+  which the cluster commits no geo checkpoint. Launches equal dispatches
+  in every step, split by form (the source's decodes, the encodes).
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -635,7 +653,9 @@ def service_counts() -> dict:
     with fused_kernel.launches.held():
         out = {name: codec_service.METRICS.counter(name).value
                for name in ("submissions", "dispatches", "multi_op_dispatches",
-                            "stripes_dispatched", "slots_dispatched")}
+                            "stripes_dispatched", "slots_dispatched",
+                            "dispatches_encode", "dispatches_decode",
+                            "dispatches_reencode")}
         out["launches_total"] = fused_kernel.launches.total
     for name in ("queue_wait_seconds", "dispatch_seconds"):
         h = codec_service.METRICS.histogram(name)
@@ -6477,6 +6497,485 @@ def snapshot_path(device, cell: int, bpc: int, seed: int, n_obs: int = 6,
     return out
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """The enclosed block runs with these environment variables set."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def geo_path(device, cell: int, bpc: int, seed: int, src_scheme: str = "",
+             dst_scheme: str = "", n_dn: int = 10, n_dst: int = 6, n_big: int = 4,
+             big_cells: int = 64, n_logs: int = 16, log_cells: int = 4,
+             n_src2: int = 2, freon_keys: int = 12, processes: bool = True) -> dict:
+    """Geo replication (the reference's extension; rules in AWS S3's
+    PutBucketReplication shape) between two daemon clusters in this
+    process: a source ScmOmDaemon with `n_dn` DatanodeDaemons (a spare
+    among them), `src_scheme` (rs-6-3 at `cell` by default), and a
+    destination with `n_dst`; the source's shipper dials the destination
+    over the RPC. Until (f) every cycle is driven through GeoRunNow and
+    the daemon's own cadence is held off. (a) Bucket `src` gets `n_big`
+    keys of `big_cells` cells and odd tails and `n_logs` of `log_cells`
+    cells + 7 B under logs/, `src2` `n_src2` of `big_cells` cells +
+    12 345 B, PUT concurrently. (b) Rule `logs` (to `dr-logs`, the
+    destination scheme as its StorageClass) through the S3 gateway's PUT
+    ?replication in the ARN form, rule `all` (to `dr`, --scheme, --append)
+    through `replication set`; GET ?replication re-PUTs unchanged and
+    `replication get` gives the same rules. (c) The bootstrap: every key
+    byte-exact at its rule's destination, RS at `dst_scheme` with every
+    unit and CRC checked, the markers naming the source row, no decode;
+    a second cycle ships nothing. (d) A source overwrite beaten by a later
+    destination overwrite, then the source's delete of the key: each
+    cycle counts one conflict and the destination's bytes stay. (e) A
+    datanode holding data units of src2's keys stopped, a rule installed
+    on src2: its bootstrap reads degraded (decodes at the source),
+    byte-exact at `dr2`. (f) The source daemon restarted on its store with
+    OZONE_TPU_GEO_PERIOD_S=0.5: its first cycle ships nothing already
+    shipped; 4 writers overwrite 2 keys, delete 2, add 4 under logs/ and
+    rename 1; GeoStatus polled until the lag is 0 and every destination
+    bucket holds its source's names, bytes and markers (seconds from the
+    last commit, peak lag). (g) `freon geo` against the destination,
+    `replication status`, DELETE ?replication on every bucket, after
+    which PUTs, a GeoRunNow and two periods leave `system/geo_state` as it
+    was. With `processes` the CLI verbs run as processes. Launches equal
+    the codec service's dispatches in every step, split by form (the
+    source's decodes, both clusters' encodes)."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.replication_geo.shipper import METRICS as GEO
+    from ozone_tpu_torch.tools import freon
+
+    src_scheme = src_scheme or f"rs-6-3-{cell // 1024}k"
+    dst_scheme = dst_scheme or f"rs-3-2-{cell // 1024}k"
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    rng = np.random.default_rng(seed + 19)
+    gib = float(1 << 30)
+    vol = "s3v"  # the gateway's volume
+    out: dict = {"launches": {}, "step_s": {}}
+    lap_t = [time.perf_counter()]
+
+    def lap(step: str) -> None:
+        now = time.perf_counter()
+        out["step_s"][step] = round(now - lap_t[0], 3)
+        lap_t[0] = now
+
+    # the phase drives every cycle itself until (f): no sweep and no
+    # cycle of the daemons' own, and a budget no bootstrap runs into
+    held = {"OZONE_TPU_LIFECYCLE_PERIOD_S": 1e9, "OZONE_TPU_GEO_PERIOD_S": 1e9,
+            "OZONE_TPU_GEO_DEADLINE_S": 600}
+    meta_kw = dict(block_size=16 * cell, container_size=4096 * cell,
+                   stale_after_s=30.0, dead_after_s=60.0, background_interval_s=0.5,
+                   placement_seed=seed, device=device)
+
+    def begin() -> dict:
+        fused_kernel.launches.reset()
+        return service_counts()
+
+    def end(what: str, key: str, mark: dict) -> dict:
+        """The step's launches by form; launches equal dispatches."""
+        launches = fused_kernel.launches.count
+        delta = service_delta(mark)
+        check_launches_equal(what, device, launches, delta)
+        forms = {f: delta[f"dispatches_{f}"] for f in ("encode", "decode")}
+        print(f"{what}: dispatches by form {forms}")
+        out["launches"][key] = out["launches"].get(key, 0) + launches
+        return forms
+
+    def cli(*argv) -> object:
+        """A `replication` verb of the port's CLI (a process with
+        `processes`): its JSON answer."""
+        if not processes:
+            return cli_json(*argv)
+        proc = subprocess.run([sys.executable, "-m", "ozone_tpu_torch.tools", *argv],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=str(repo), env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {' '.join(argv)} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return json.loads(proc.stdout)
+
+    def start_cluster(root: Path, n: int):
+        with env_set(**held):
+            meta = ScmOmDaemon(root / "om.db", **meta_kw)
+        meta.start()
+        dns = []
+        for i in range(n):
+            d = DatanodeDaemon(root / f"dn{i}", f"dn{i}", meta.address,
+                               heartbeat_interval_s=0.5, device=device)
+            d.start()
+            dns.append(d)
+        scm = RemoteScmClient(meta.address)
+        try:
+            wait_for(f"{n} datanodes registered",
+                     lambda: len(scm.status()["nodes"]) == n, 30)
+        finally:
+            scm.close()
+        return meta, dns
+
+    def client(meta, clients):
+        return OzoneClient(RemoteOmClient(meta.address, clients=clients), clients,
+                           device=device)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-geo-") as tmp:
+        root = Path(tmp)
+        metas: dict = {}
+        dns_all: list = []
+        fs = [DatanodeClientFactory(), DatanodeClientFactory()]
+        ozs: list = []
+        gw = None
+        try:
+            metas["src"], src_dns = start_cluster(root / "src", n_dn)
+            dns_all += src_dns
+            metas["dst"], dst_dns = start_cluster(root / "dst", n_dst)
+            dns_all += dst_dns
+            src_oz, dst_oz = client(metas["src"], fs[0]), client(metas["dst"], fs[1])
+            ozs += [src_oz, dst_oz]
+            dst_addr = metas["dst"].address
+            dst_by_id = {d.dn.id: d for d in dst_dns}
+
+            # (a) setup
+            src_oz.create_volume(vol)
+            for b in ("src", "src2"):
+                src_oz.om.create_bucket(vol, b, src_scheme)
+            truth: dict = {}  # (bucket, name) -> bytes at the source
+            for i in range(n_big):
+                truth[("src", f"big-{i}")] = rng.integers(
+                    0, 256, big_cells * cell + 12345 + 1000 * i, dtype=np.uint8)
+            for i in range(n_logs):
+                truth[("src", f"logs/{i:02d}")] = rng.integers(
+                    0, 256, log_cells * cell + 7, dtype=np.uint8)
+            for i in range(n_src2):
+                truth[("src2", f"k-{i}")] = rng.integers(
+                    0, 256, big_cells * cell + 12345, dtype=np.uint8)
+
+            def put(item):
+                (b, name), data = item
+                src_oz.get_volume(vol).get_bucket(b).write_key(name, data)
+
+            mark = begin()
+            t0 = time.perf_counter()
+            concurrent(put, list(truth.items()))
+            secs = time.perf_counter() - t0
+            total = sum(v.size for v in truth.values())
+            forms = end("geo (a) setup PUT", "geo_setup_put", mark)
+            if device.type == "cuda" and forms["encode"] <= 0:
+                raise AssertionError("geo (a): no encode launched")
+            print(f"geo (a) setup: {len(truth)} keys, {total} B in {secs:.3f} s, "
+                  f"{total / gib / secs:.3f} GiB/s")
+            out["setup_gib_s"] = total / gib / secs
+            lap("a")
+
+            # (b) rules: S3 ?replication, then `replication set --append`
+            gw = S3Gateway(src_oz, port=0, replication=src_scheme)
+            gw.start()
+            s3 = S3Client(gw.address, "", "")
+            body = ("<ReplicationConfiguration><Role></Role><Rule><ID>logs</ID>"
+                    "<Status>Enabled</Status><Filter><Prefix>logs/</Prefix></Filter>"
+                    f"<Destination><Bucket>arn:aws:s3:{dst_addr}::dr-logs</Bucket>"
+                    f"<StorageClass>{dst_scheme}</StorageClass></Destination>"
+                    "</Rule></ReplicationConfiguration>").encode()
+            s3.ok("PUT", "/src?replication", body, sign=False)
+            set_out = cli("replication", "set", f"/{vol}/src", "--dest", dst_addr,
+                          "--dest-bucket", "dr", "--scheme", dst_scheme, "--append",
+                          "--id", "all", "--om", metas["src"].address)
+            rules = src_oz.om.get_bucket_geo_replication(vol, "src")
+            if [r["id"] for r in rules] != ["logs", "all"] or set_out != rules:
+                raise AssertionError(f"geo (b): rules {rules}, CLI answered {set_out}")
+            _, xml1 = s3.ok("GET", "/src?replication", sign=False)
+            s3.ok("PUT", "/src?replication", xml1, sign=False)
+            _, xml2 = s3.ok("GET", "/src?replication", sign=False)
+            got = cli("replication", "get", f"/{vol}/src", "--om", metas["src"].address)
+            if xml2 != xml1 or got != rules \
+                    or src_oz.om.get_bucket_geo_replication(vol, "src") != rules:
+                raise AssertionError("geo (b): GET ?replication does not re-PUT "
+                                     "unchanged, or the CLI's rules differ")
+            print(f"geo (b): rules {[(r['id'], r['prefix'], r['bucket'], r['scheme']) for r in rules]}; "
+                  "GET ?replication re-PUT unchanged, `replication get` equal")
+            lap("b")
+
+            def dest_of(b: str, name: str) -> str:
+                if b == "src2":
+                    return "dr2"
+                return "dr-logs" if name.startswith("logs/") else "dr"
+
+            def check_dest(what: str, keys, ec_check=(), read=True) -> None:
+                """Every (bucket, name) of `keys` at its destination RS at
+                dst_scheme and marked with its source row's current
+                version, byte-exact unless `read` is off; `ec_check` keys
+                have every unit and CRC checked."""
+                def one(item):
+                    b, name = item
+                    sinfo = metas["src"].om.lookup_key(vol, b, name)
+                    dinfo = dst_oz.om.lookup_key(vol, dest_of(b, name), name)
+                    meta = dinfo.get("metadata") or {}
+                    if str(dinfo["replication"]) != dst_scheme \
+                            or meta.get("geo-src") != f"/{vol}/{b}" \
+                            or meta.get("geo-src-oid") != sinfo["object_id"]:
+                        raise AssertionError(f"{what}: {b}/{name} at the destination is "
+                                             f"{dinfo['replication']} with {meta}")
+                    if not read:
+                        return
+                    data = dst_oz.get_volume(vol).get_bucket(
+                        dest_of(b, name)).read_key_info(dinfo)
+                    if not np.array_equal(data, truth[(b, name)]):
+                        raise AssertionError(f"{what}: {b}/{name} differs at the "
+                                             "destination")
+                    if (b, name) in ec_check:
+                        check_ec_units(lambda i: dst_by_id[i].dn,
+                                       metas["dst"].om.key_block_groups(dinfo),
+                                       truth[(b, name)], bpc, f"{what} {name}",
+                                       crc_route="native")
+
+                concurrent(one, list(keys))
+
+            # (c) the bootstrap over GeoRunNow
+            mark = begin()
+            t0 = time.perf_counter()
+            stats = src_oz.om.run_geo_once()
+            secs = time.perf_counter() - t0
+            forms = end("geo (c) bootstrap", "geo_bootstrap", mark)
+            n_src = n_big + n_logs
+            if not stats["complete"] or stats["failed"] or stats["bootstrapped"] != 1 \
+                    or stats["keys_shipped"] != n_src:
+                raise AssertionError(f"geo (c): cycle {stats}")
+            if forms["decode"] != 0 or (device.type == "cuda" and forms["encode"] <= 0):
+                raise AssertionError(f"geo (c): dispatches by form {forms}")
+            src_keys = [k for k in truth if k[0] == "src"]
+            check_dest("geo (c)", src_keys,
+                       ec_check=[("src", "big-0")] + [k for k in src_keys
+                                                      if k[1].startswith("logs/")])
+            print(f"geo (c) bootstrap: {stats['keys_shipped']} keys, {stats['bytes']} B "
+                  f"in {secs:.3f} s, {stats['bytes'] / gib / secs:.3f} GiB/s; encode "
+                  f"launches {forms['encode']}, decode {forms['decode']}; every key "
+                  f"byte-exact at {dst_scheme}, units and CRCs checked on "
+                  f"{1 + n_logs} keys")
+            out["bootstrap_gib_s"] = stats["bytes"] / gib / secs
+            out["bootstrap_s"] = secs
+            again = src_oz.om.run_geo_once()
+            if again["keys_shipped"] or again["bytes"]:
+                raise AssertionError(f"geo (c): an unchanged cycle shipped {again}")
+            lap("c")
+
+            # (d) last-writer-wins, both ways
+            contested = "logs/00"
+            src_b = src_oz.get_volume(vol).get_bucket("src")
+            mark = begin()
+            src_b.write_key(contested, rng.integers(0, 256, log_cells * cell + 7,
+                                                    dtype=np.uint8))
+            local = rng.integers(0, 256, log_cells * cell + 99, dtype=np.uint8)
+            dst_oz.get_volume(vol).get_bucket("dr-logs").write_key(contested, local)
+            c1 = src_oz.om.run_geo_once()
+            src_b.delete_key(contested)
+            c2 = src_oz.om.run_geo_once()
+            end("geo (d) conflicts", "geo_conflicts", mark)
+            del truth[("src", contested)]
+            left = dst_oz.get_volume(vol).get_bucket("dr-logs").read_key(contested)
+            if (c1["conflicts"], c2["conflicts"], c1["keys_shipped"],
+                    c2["deletes_shipped"]) != (1, 1, 0, 0) \
+                    or not np.array_equal(left, local):
+                raise AssertionError(f"geo (d): cycles {c1}, {c2}; the destination's "
+                                     "own bytes did not stay")
+            print("geo (d): a stale replay and the source's delete each counted one "
+                  "conflict; the destination's own bytes stayed")
+            lap("d")
+
+            # (e) src2's bootstrap reads degraded at the source
+            g0 = metas["src"].om.lookup_key(vol, "src2", "k-0")["block_groups"][0]
+            victim = next(d for d in src_dns if d.dn.id == g0["nodes"][0])
+            stop_server(victim)
+            try:
+                src_oz.om.set_bucket_geo_replication(vol, "src2", [{
+                    "id": "dr2", "endpoint": dst_addr, "bucket": "dr2",
+                    "scheme": dst_scheme}])
+                mark = begin()
+                t0 = time.perf_counter()
+                stats = src_oz.om.run_geo_once()
+                secs = time.perf_counter() - t0
+                forms = end("geo (e) degraded ship", "geo_degraded_ship", mark)
+            finally:
+                restart_server(victim)
+            if stats["keys_shipped"] != n_src2 or stats["failed"] \
+                    or forms["decode"] <= 0 \
+                    or (device.type == "cuda" and forms["encode"] <= 0):
+                raise AssertionError(f"geo (e): cycle {stats}, dispatches {forms}")
+            check_dest("geo (e)", [k for k in truth if k[0] == "src2"])
+            print(f"geo (e) degraded source ({victim.dn.id} stopped): {stats['bytes']} B "
+                  f"in {secs:.3f} s, {stats['bytes'] / gib / secs:.3f} GiB/s; decode "
+                  f"launches {forms['decode']}, encode {forms['encode']}; byte-exact")
+            out["degraded_gib_s"] = stats["bytes"] / gib / secs
+            out["forms"] = {"degraded_decode": forms["decode"],
+                            "degraded_encode": forms["encode"]}
+            lap("e")
+
+            # (f) restart on the store, then churn under the cadence
+            cycles0 = GEO.counter("cycles").value
+            shipped0 = (GEO.counter("keys_shipped").value,
+                        GEO.counter("deletes_shipped").value)
+            gaps0 = GEO.counter("journal_gaps").value
+            mark = begin()
+            port = metas["src"].server.port
+            # the datanodes' failed heartbeats while it is down are
+            # expected: their records are held back, printed on a failure
+            collect = _Collect()
+            port_log = logging.getLogger("ozone_tpu_torch")
+            old_propagate, port_log.propagate = port_log.propagate, False
+            port_log.addHandler(collect)
+            t0 = time.perf_counter()
+            try:
+                metas.pop("src").stop()
+                with env_set(**{**held, "OZONE_TPU_GEO_PERIOD_S": 0.5}):
+                    metas["src"] = ScmOmDaemon(root / "src" / "om.db", port=port,
+                                               min_datanodes=n_dn, **meta_kw)
+                metas["src"].start()
+                wait_for("geo (f): every source datanode registered", lambda: all(
+                    metas["src"].scm.nodes.get(d.dn.id) is not None
+                    for d in src_dns), 30)
+                wait_for("geo (f): the first cycle after the restart",
+                         lambda: GEO.counter("cycles").value > cycles0, 30)
+            except BaseException:
+                collect.dump()
+                raise
+            finally:
+                port_log.removeHandler(collect)
+                port_log.propagate = old_propagate
+            restart_s = time.perf_counter() - t0
+            resumed = (GEO.counter("keys_shipped").value,
+                       GEO.counter("deletes_shipped").value)
+            if resumed != shipped0:
+                raise AssertionError(f"geo (f): the first cycle after the restart "
+                                     f"shipped {resumed} against {shipped0}")
+            # a new client and gateway: the old ones' channel died with it
+            gw.stop()
+            src_oz.om.close()
+            src_oz = ozs[0] = client(metas["src"], fs[0])
+            src_b = src_oz.get_volume(vol).get_bucket("src")
+            gw = S3Gateway(src_oz, port=0, replication=src_scheme)
+            gw.start()
+            s3 = S3Client(gw.address, "", "")
+            ops: list = []
+            for name in ("big-1", "logs/01"):
+                truth[("src", name)] = rng.integers(0, 256, truth[("src", name)].size,
+                                                    dtype=np.uint8)
+                ops.append(("put", name))
+            for name in ("big-2", "logs/02"):
+                del truth[("src", name)]
+                ops.append(("delete", name))
+            for i in range(4):
+                name = f"logs/new-{i}"
+                truth[("src", name)] = rng.integers(0, 256, log_cells * cell + 7,
+                                                    dtype=np.uint8)
+                ops.append(("put", name))
+            truth[("src", "logs/03-renamed")] = truth.pop(("src", "logs/03"))
+            ops.append(("rename", "logs/03"))
+
+            def writer(w: int) -> None:
+                for op, name in ops[w::4]:
+                    if op == "put":
+                        src_b.write_key(name, truth[("src", name)])
+                    elif op == "delete":
+                        src_b.delete_key(name)
+                    else:
+                        src_b.rename_key(name, name + "-renamed")
+
+            concurrent(writer, list(range(4)))
+            t_last = time.perf_counter()
+            peak = {"entries": 0, "seconds": 0.0}
+
+            def expected() -> set:
+                return {(dest_of(b, n), n) for b, n in truth}
+
+            def marked() -> set:
+                return {(db, k["name"]) for db in ("dr", "dr-logs", "dr2")
+                        for k in dst_oz.om.list_keys(vol, db)
+                        if (k.get("metadata") or {}).get("geo-src")}
+
+            def converged() -> bool:
+                lag = src_oz.om.geo_status()["lag"]
+                peak["entries"] = max(peak["entries"], lag["entries"])
+                peak["seconds"] = max(peak["seconds"], lag["seconds"])
+                return lag["entries"] == 0 and marked() == expected()
+
+            wait_for("geo (f): the churn converged", converged, 60, poll_s=0.05)
+            conv_s = time.perf_counter() - t_last
+            end("geo (f) restart and churn", "geo_churn", mark)
+            # the churned keys byte-exact; every other key's marker names
+            # its source row's current version, whose bytes (c) and (e) read
+            churned = {("src", n) for _, n in ops} | {("src", "logs/03-renamed")}
+            check_dest("geo (f)", [k for k in truth if k in churned])
+            check_dest("geo (f)", [k for k in truth if k not in churned], read=False)
+            print(f"geo (f): restarted in {restart_s:.3f} s ({len(collect.records)} "
+                  f"warning log records held back); resumed at the durable cursor "
+                  f"(its first cycle shipped nothing; journal gaps "
+                  f"{GEO.counter('journal_gaps').value - gaps0}, the cursor predating "
+                  f"the store's restart); the churn of {len(ops)} operations converged "
+                  f"{conv_s:.3f} s after the last commit, peak lag "
+                  f"{peak['entries']} entries, {peak['seconds']:.3f} s")
+            out.update(converge_s=conv_s, peak_lag_entries=peak["entries"],
+                       peak_lag_s=peak["seconds"])
+            lap("f")
+
+            # (g) freon geo, replication status, DELETE ?replication
+            metas["src"]._geo_period = 1e9  # freon's cycles run alone
+            while src_oz.om.run_geo_once().get("skipped"):
+                time.sleep(0.05)
+            mark = begin()
+            argv = ["freon", "geo", "-n", str(freon_keys), "-s", str(4 * cell + 7),
+                    "--dest", dst_addr, "--om", metas["src"].address, "--device",
+                    device.type]
+            rep = cli(*argv)
+            end("geo (g) freon geo", "geo_freon", mark)
+            if (rep["failures"], rep["verify_failures"], rep["lag_entries"]) != (0, 0, 0):
+                raise AssertionError(f"geo (g): freon geo reported {rep}")
+            status = cli("replication", "status", "--om", metas["src"].address)
+            if status["lag"]["entries"] != 0:
+                raise AssertionError(f"geo (g): replication status {status['lag']}")
+            for b in ("src", "src2"):
+                s3.ok("DELETE", f"/{b}?replication", status=204, sign=False)
+                s3.ok("GET", f"/{b}?replication", status=404, sign=False)
+            src_oz.om.delete_bucket_geo_replication("freon-vol", "freon-geo")
+            row = json.loads(json.dumps(metas["src"].om.store.get("system", "geo_state")))
+            metas["src"]._geo_last, metas["src"]._geo_period = 0.0, 0.5
+            src_b.write_key("after-rules", rng.integers(0, 256, cell, dtype=np.uint8))
+            idle = src_oz.om.run_geo_once()
+            time.sleep(1.2)  # two periods of the cadence
+            if metas["src"].om.store.get("system", "geo_state") != row \
+                    or idle["keys_shipped"]:
+                raise AssertionError("geo (g): a rule-less cluster changed its geo "
+                                     "state")
+            print(f"geo (g): freon geo {rep['ops']} keys, shipped {rep['shipped']}, "
+                  f"deletes {rep['deletes_shipped']}, verify failures 0, lag 0; "
+                  "`replication status` lag 0; with every rule deleted, PUTs, a "
+                  "GeoRunNow and two periods left system/geo_state unchanged")
+            lap("g")
+            print(f"geo step seconds: {out['step_s']}")
+        finally:
+            if gw is not None:
+                gw.stop()
+            for oz in ozs:
+                oz.om.close()
+            for f in fs:
+                f.close()
+            for d in dns_all:
+                d.stop()
+            for meta in metas.values():
+                meta.stop()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6624,6 +7123,7 @@ def main() -> int:
                     n_big=1, n_ranged=4, n_renew=2)
         adm = phase("scm_admin_path", scm_admin_path, device, MIB, bpc, args.seed)
         snap = phase("snapshot_path", snapshot_path, device, MIB, bpc, args.seed)
+        geo = phase("geo_path", geo_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -6655,7 +7155,7 @@ def main() -> int:
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
             **sec["launches"], **enc["launches"], **adm["launches"],
-            **snap["launches"],
+            **snap["launches"], **geo["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -447,13 +447,20 @@ class CodecService:
                         dispatch_span=d_sid)
                 if sub.tail:
                     METRICS.counter("tail_flushes").inc()
+        # the dispatch is counted with its launch, in the launch counter's
+        # critical section: a reader of both never sees one without the
+        # other; `dispatches_<kind>` splits it by form (encode, decode,
+        # reencode) for a process that runs several
+        key = lane.lane_key[0]
+        kind = key[0] if isinstance(key, tuple) and key else "other"
+
+        def tally():
+            METRICS.counter("dispatches").inc()
+            METRICS.counter(f"dispatches_{kind}").inc()
+
         t0 = time.monotonic()
         try:
-            # the dispatch is counted with its launch, in the launch
-            # counter's critical section: a reader of both never sees one
-            # without the other
-            with fused_kernel.launches.tallied(
-                    METRICS.counter("dispatches").inc):
+            with fused_kernel.launches.tallied(tally):
                 outs = lane.fn(self._stage(lane, entries, rows))
                 if not isinstance(outs, tuple):
                     outs = (outs,)

@@ -19,7 +19,13 @@ the body is read and bounds the requests in flight; a refusal answers
 Bucket `?lifecycle` PUT, GET and DELETE translate the AWS
 LifecycleConfiguration XML to and from the OM's rules
 (`lifecycle/policy.py`, the reference's tiering extension; warm storage
-classes map to this gateway's RS scheme).
+classes map to this gateway's RS scheme). Bucket `?replication` does the
+same for the AWS ReplicationConfiguration and the geo replication rules
+(`replication_geo/rules.py`, the reference's extension: the ARN's region
+slot, or an `<Endpoint>`, names the destination cluster): a malformed
+configuration answers 400 MalformedXML, an FSO bucket 400
+InvalidRequest, and a bucket without rules 404
+ReplicationConfigurationNotFoundError.
 
 Tenants (the reference's OMMultiTenantManager): an authenticated access
 id resolves to its tenant's volume, which is the request's bucket
@@ -34,8 +40,7 @@ Object `?acl` GET renders the effective policy (owner FULL_CONTROL and
 the bucket's public grants); object grants do not exist, so its PUT
 answers 501, as the reference's does. Where the reference answers from a
 module the port does not have yet, the gateway answers as Apache Ozone
-1.5 does: bucket `?replication` answers 501 NotImplemented (geo
-replication), and aws-chunked uploads are not gated on the
+1.5 does: aws-chunked uploads are not gated on the
 `S3_CHUNKED_UPLOAD` layout feature, which the reference reads from the
 OM's upgrade status (the port has no finalizer, so the feature is always
 finalized). Encrypted (TDE and GDPR) buckets, multipart uploads
@@ -101,10 +106,9 @@ _ERROR_MAP = {
     "SERVER_BUSY": ("SlowDown", 503),
 }
 
-#: bucket sub-resources answered 501: S3 features the store lacks, and
-#: `replication`, which waits for the port of geo replication
+#: bucket sub-resources answered 501: S3 features the store lacks
 _UNSUPPORTED_BUCKET_SUBS = (
-    "replication", "policy", "website", "cors",
+    "policy", "website", "cors",
     "encryption", "accelerate", "requestPayment", "logging", "notification",
     "inventory", "analytics", "metrics", "intelligent-tiering",
     "ownershipControls", "publicAccessBlock")
@@ -492,6 +496,43 @@ class S3Gateway:
         else:
             h._reply(*_err("MethodNotAllowed", method, 405))
 
+    def _bucket_replication_op(self, h, method: str, bucket: str) -> None:
+        """`?replication`: PUT parses the AWS ReplicationConfiguration
+        into the OM's geo replication rules, GET renders them back (404
+        when the bucket has none), DELETE clears them."""
+        from ozone_tpu_torch.replication_geo.rules import (
+            GeoReplicationError,
+            rules_from_s3_xml,
+            rules_to_s3_xml,
+        )
+
+        om = self.client.om
+        if method in ("PUT", "POST", "DELETE"):
+            body = h._body()  # drained before any call that may raise
+        if method == "PUT":
+            try:
+                rules = rules_from_s3_xml(
+                    body, default_target=self._default_ec_target())
+            except GeoReplicationError as e:
+                h._reply(*_err("MalformedXML", str(e), 400))
+                return
+            om.set_bucket_geo_replication(self._vol, bucket, rules)
+            h._reply(200)
+        elif method == "GET":
+            rules = om.get_bucket_geo_replication(self._vol, bucket)
+            if not rules:
+                h._reply(*_err(
+                    "ReplicationConfigurationNotFoundError",
+                    "The replication configuration was not found", 404))
+                return
+            h._reply(200, rules_to_s3_xml(rules),
+                     {"Content-Type": "application/xml"})
+        elif method == "DELETE":
+            om.delete_bucket_geo_replication(self._vol, bucket)
+            h._reply(204)
+        else:
+            h._reply(*_err("MethodNotAllowed", method, 405))
+
     def _list_buckets(self, h) -> None:
         root = ET.Element("ListAllMyBucketsResult", xmlns=_NS)
         buckets = ET.SubElement(root, "Buckets")
@@ -663,6 +704,9 @@ class S3Gateway:
             return
         if "lifecycle" in q:
             self._bucket_lifecycle_op(h, method, bucket)
+            return
+        if "replication" in q:
+            self._bucket_replication_op(h, method, bucket)
             return
         # the sub-resources the store does not serve answer 501 instead
         # of falling through to a bucket create or list: a silent 200

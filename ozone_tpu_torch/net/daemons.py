@@ -16,7 +16,10 @@ whenever one changed (or every 10 s), and runs the commands that come
 back: close, EC reconstruction on the port's
 `ECReconstructionCoordinator`, replication (a container export pulled
 from the source and imported here), replica deletion and block
-deletion. A background loop checks its volumes (a failed one's replicas
+deletion. `replication_bandwidth_mbps` caps its replication traffic
+(the reference's ReplicationSupervisor limit): one `Throttle` paces the
+export frames it serves and is paid for each export it pulls before the
+import. A background loop checks its volumes (a failed one's replicas
 leave the next report) and scrubs one closed container per tick on the
 port's `DeviceScrubber`; containers queued for an on-demand scan (a
 write-fence violation) are scrubbed after each heartbeat once they are
@@ -47,7 +50,13 @@ sweep and the slab compaction every OZONE_TPU_LIFECYCLE_PERIOD_S (60 s)
 on the OM's `LifecycleService`, whose datanode clients follow the
 heartbeat-learned address book; a `lifecycle run-now` runs the same
 service. Its codec (the tiering encode, the compaction's slab flush)
-runs on `device`, resolved at the first sweep that has work for it.
+runs on `device`, resolved at the first sweep that has work for it. The
+geo replication shipper (`replication_geo/shipper.py`) runs a cycle
+every OZONE_TPU_GEO_PERIOD_S (30 s) on the same thread, over the same
+datanode clients, within OZONE_TPU_GEO_DEADLINE_S (30 s), its source
+reads paced by OZONE_TPU_GEO_MBPS, its destinations dialed with the
+daemon's `tls`, its codec on `device`; a `replication run-now` runs it
+too. A rule-less cluster ships, fences and checkpoints nothing.
 
 With `ha_id` and `ha_peers` the daemon is one replica of the metadata
 ring (`consensus/meta_ring.MetaHARing`, the reference's OM HA and SCM
@@ -58,8 +67,8 @@ allocation is answered after its SCM decision records commit, the
 container close and the ring's operator verbs go through the ring, and
 the address book follows the ring's membership. Only the leader runs
 the background loops; every replica compacts its own raft log. The
-lifecycle sweeper is fenced with the ring's term and runs on the ready
-leader only.
+lifecycle sweeper and the geo shipper are fenced with the ring's term
+and run on the ready leader only.
 
 Block tokens (`ScmOmDaemon(block_tokens=True, secure=True)`, the
 reference's hdds.block.token.enabled): the SCM mints and rotates the
@@ -97,8 +106,7 @@ handshake with no restart; the trust bundle and CRL are refreshed with
 it only when a secret authenticates the answers. A failed handshake is
 never retried in plaintext.
 
-Left out: Recon, the HTTP server, geo replication and its cadence, the
-replication bandwidth cap, and sharding.
+Left out: Recon, the HTTP server and sharding.
 """
 
 from __future__ import annotations
@@ -169,6 +177,7 @@ class DatanodeDaemon:
         enrollment_secret: Optional[str] = None,
         num_volumes: int = 1,
         volume_policy: str = "round-robin",
+        replication_bandwidth_mbps: Optional[float] = None,
     ):
         # first: a datanode that cannot reach its device refuses to start
         self.device = resolve_device(device)
@@ -203,6 +212,16 @@ class DatanodeDaemon:
         self.service = DatanodeRpcService(self.dn, self.server,
                                           datapath_port=self.advertise,
                                           verifier=self.verifier)
+        #: the replication bandwidth cap (None = unlimited): it paces the
+        #: exports this node serves and the ones it pulls
+        self.replication_throttle = None
+        if replication_bandwidth_mbps:
+            from ozone_tpu_torch.utils.throttle import Throttle
+
+            self.replication_throttle = Throttle(
+                replication_bandwidth_mbps * 1024 * 1024,
+                metrics=self.dn.metrics)
+            self.service.throttle = self.replication_throttle
         # raft pipelines (XceiverServerRatis): the raft RPCs and the
         # client's Submit/Watch ride the same RpcServer
         self.raft_rpc = RaftRpcService(self.server)
@@ -587,6 +606,10 @@ class DatanodeDaemon:
         (DownloadAndImportReplicator)."""
         data = self.clients.get(cmd.source).export_container(
             cmd.container_id)
+        if self.replication_throttle is not None:
+            # paid before the import: a run of copies paces itself
+            # instead of bursting, then stalling foreground IO
+            self.replication_throttle.take(len(data))
         import_container(self.dn, data, replica_index=cmd.replica_index,
                          expect_id=cmd.container_id)
 
@@ -720,10 +743,39 @@ class ScmOmDaemon:
             alloc_barrier=lambda: (self.ha._await_records()
                                    if self.ha is not None else None))
         self.om.lifecycle = self.lifecycle
+        #: where the lifecycle sweep and the geo shipper run the codec
+        self.device = device
+        # the geo replication shipper: leader-singleton and term-fenced
+        # like the sweeper, on the same datanode clients;
+        # OZONE_TPU_GEO_MBPS paces its source reads
+        from ozone_tpu_torch.replication_geo.shipper import (
+            ReplicationShipper,
+        )
+
+        geo_throttle = None
+        geo_mbps = env_float("OZONE_TPU_GEO_MBPS", 0.0)
+        if geo_mbps > 0:
+            from ozone_tpu_torch.utils.throttle import Throttle
+
+            geo_throttle = Throttle(geo_mbps * 1024 * 1024,
+                                    metrics=self.om.metrics)
+        self.geo = ReplicationShipper(
+            self.om, clients_fn=self._lifecycle_client_factory,
+            term_fn=lambda: (self.ha.node.storage.term
+                             if self.ha is not None else 0),
+            leader_fn=lambda: (self.ha.is_ready
+                               if self.ha is not None else True),
+            throttle=geo_throttle,
+            ship_deadline_s=env_float("OZONE_TPU_GEO_DEADLINE_S", 30.0),
+            tls=self.tls, device=self.device)
+        self.om.geo = self.geo
         self.om.scm_lock = self.scm_service.lock
         #: seconds between lifecycle sweeps (and slab compactions)
         self._lc_period = env_float("OZONE_TPU_LIFECYCLE_PERIOD_S", 60.0)
         self._lc_last = time.monotonic()
+        #: seconds between geo ship cycles
+        self._geo_period = env_float("OZONE_TPU_GEO_PERIOD_S", 30.0)
+        self._geo_last = time.monotonic()
         self._bg_ticks = 0
         if ha_id is not None:
             self._init_ha(ha_id, Path(om_db).parent / "meta-raft")
@@ -978,8 +1030,9 @@ class ScmOmDaemon:
         deleting and key-deleting services (detached FSO subtrees move
         into the deleted-key chain, whose blocks go to the SCM's deletion
         log); every OZONE_TPU_LIFECYCLE_PERIOD_S, a lifecycle sweep
-        and a slab compaction after it (outside the SCM lock: they
-        allocate blocks and write to datanodes through the RPC). Under
+        and a slab compaction after it, and every OZONE_TPU_GEO_PERIOD_S
+        a geo ship cycle (outside the SCM lock: they allocate blocks and
+        write to datanodes through the RPC). Under
         HA every replica first compacts its raft log behind a snapshot
         once 512 entries sit past the last one; the rest runs on the
         leader only."""
@@ -1006,6 +1059,10 @@ class ScmOmDaemon:
             self._lc_last = now
             self.lifecycle.run_once()
             self.lifecycle.compact_slabs_once()
+        now = time.monotonic()
+        if now - self._geo_last >= self._geo_period:
+            self._geo_last = now
+            self.geo.run_once()
 
     def start(self) -> None:
         if self.enroll_server is not None:
@@ -1041,6 +1098,7 @@ class ScmOmDaemon:
         if self.ha is not None:
             self.ha.stop()
             self._ha_transport.close()
+        self.geo.close()
         if self._lifecycle_clients is not None:
             self._lifecycle_clients.close()
         self.om.close()

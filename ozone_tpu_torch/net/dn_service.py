@@ -16,8 +16,9 @@ container token for its container, or it is refused with
 BLOCK_TOKEN_VERIFICATION_FAILED (the reference's HddsDispatcher
 validateToken). The client attaches the tokens of its factory's
 `TokenStore`; under mutual TLS (`tls`) every verb rides the TLS RPC
-(`net/rpc.py`). Left out: layout-version gating and the replication
-throttle.
+(`net/rpc.py`). The hosting daemon's replication throttle (`throttle`)
+paces the frames of every container export served. Left out:
+layout-version gating.
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ class DatanodeRpcService:
         #: "uds"}) or None: clients discover the native lane through
         #: GetDatapathInfo and take the RPC verbs when it answers no port
         self.datapath_port = datapath_port
+        #: a utils.throttle.Throttle pacing the container exports this
+        #: node serves (the daemon's replication bandwidth cap), or None
+        self.throttle = None
         server.add_service(
             SERVICE,
             {
@@ -257,6 +261,8 @@ class DatanodeRpcService:
         yield wire.pack({"container_id": c.id, "size": len(data),
                          "compression": codec})
         for off in range(0, len(data), _EXPORT_FRAME):
+            if self.throttle is not None:
+                self.throttle.take(min(_EXPORT_FRAME, len(data) - off))
             yield data[off:off + _EXPORT_FRAME]
 
     def _import_container(self, frames) -> bytes:

@@ -43,8 +43,10 @@ with its role's certificate. Snapshots: create, list, info, delete,
 rename, diff (synchronous, and the paged jobs' submit and page), a
 snapshot's key listing, and its key lookup with the address book as
 LookupKey has it. The quota, volume-owner and bucket-replication verbs,
-and the upgrade quiesce (Prepare, CancelPrepare, PrepareStatus). Left
-out: sharding and geo replication.
+and the upgrade quiesce (Prepare, CancelPrepare, PrepareStatus). Geo
+replication: a bucket's rules set, get and clear, the shipper's status
+and a cycle run now (in the metadata daemon's process). Left out:
+sharding.
 """
 
 from __future__ import annotations
@@ -200,6 +202,18 @@ class OmRpcService:
                 m.get("max_keys"))),
             "SlabCompactionRunNow": w(lambda m: om.run_slab_compaction_once(
                 m.get("max_slabs"))),
+            # cross-cluster bucket replication (the reference's extension)
+            "SetBucketGeoReplication": w(
+                lambda m: om.set_bucket_geo_replication(
+                    m["volume"], m["bucket"], m["rules"])),
+            "GetBucketGeoReplication": w(
+                lambda m: om.get_bucket_geo_replication(
+                    m["volume"], m["bucket"])),
+            "DeleteBucketGeoReplication": w(
+                lambda m: om.delete_bucket_geo_replication(
+                    m["volume"], m["bucket"])),
+            "GeoStatus": w(lambda m: om.geo_status()),
+            "GeoRunNow": w(lambda m: om.run_geo_once(m.get("max_entries"))),
             # S3 bucket grants, native ACLs and tenants (the reference's
             # AddAcl/RemoveAcl/SetAcl/GetAcl and tenant admin verbs)
             "SetBucketAcl": w(lambda m: om.set_bucket_acl(
@@ -427,7 +441,7 @@ class OmRpcService:
 
 
 #: verbs whose answer waits for a whole background sweep in the daemon
-_SWEEP_VERBS = ("LifecycleRunNow", "SlabCompactionRunNow")
+_SWEEP_VERBS = ("LifecycleRunNow", "SlabCompactionRunNow", "GeoRunNow")
 _SWEEP_VERB_TIMEOUT_S = 600.0
 
 
@@ -923,6 +937,25 @@ class RemoteOmClient:
 
     def run_lifecycle_once(self, max_keys=None):
         return self._call("LifecycleRunNow", max_keys=max_keys)["result"]
+
+    # cross-cluster bucket replication
+    def set_bucket_geo_replication(self, volume, bucket, rules):
+        return self._call("SetBucketGeoReplication", volume=volume,
+                          bucket=bucket, rules=rules)["result"]
+
+    def get_bucket_geo_replication(self, volume, bucket):
+        return self._call("GetBucketGeoReplication", volume=volume,
+                          bucket=bucket)["result"]
+
+    def delete_bucket_geo_replication(self, volume, bucket):
+        self._call("DeleteBucketGeoReplication", volume=volume,
+                   bucket=bucket)
+
+    def geo_status(self):
+        return self._call("GeoStatus")["result"]
+
+    def run_geo_once(self, max_entries=None):
+        return self._call("GeoRunNow", max_entries=max_entries)["result"]
 
     def close(self) -> None:
         self._pool.close()

@@ -46,8 +46,12 @@ listing) and its paged jobs; the key-deleting service defers a
 snapshotted bucket's deleted keys until its last snapshot is gone.
 Quotas (`set_quota`, `repair_quota`), volume ownership
 (`set_volume_owner`) and a bucket's default replication
-(`set_bucket_replication`). Left out for later slices: sharding, the
-upgrade finalizer and its layout gate, and geo replication.
+(`set_bucket_replication`). Geo replication: a bucket's cross-cluster
+rules through replicated requests, the shipper's status and a cycle run
+now, on `replication_geo/shipper.py` (built on first use over `clients`
+and `device` unless a daemon installs its own in `self.geo`). Left out
+for later slices: sharding, and the upgrade finalizer and its layout
+gate.
 """
 
 from __future__ import annotations
@@ -136,6 +140,9 @@ class OzoneManager:
         #: the lifecycle sweeper: a daemon installs its own; otherwise
         #: built with defaults by the first run_*_once
         self.lifecycle = None
+        #: the geo replication shipper: a daemon installs its own (term-
+        #: fenced on the ring); otherwise built by the first run_geo_once
+        self.geo = None
         # durable upgrade-quiesce marker (OzoneManagerPrepareState)
         self._prepared = self.store.get("system", "om_prepared") is not None
         # the native authorizer (ozone.acl.enabled, off by default)
@@ -1240,6 +1247,60 @@ class OzoneManager:
     def run_lifecycle_once(self, max_keys: Optional[int] = None) -> dict:
         """One lifecycle sweep (the `lifecycle run-now` verb)."""
         return self._lifecycle_service().run_once(max_keys=max_keys)
+
+    # ----------------------------------------------------- geo replication
+    def set_bucket_geo_replication(self, volume: str, bucket: str,
+                                   rules: list[dict]) -> dict:
+        """Install a bucket's cross-cluster replication rules (prefix,
+        destination endpoint, optional destination volume, bucket and
+        scheme) on its row (`replication_geo/rules.py`)."""
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "WRITE")
+        return self.submit(
+            rq.SetBucketGeoReplication(volume, bucket, rules))
+
+    def get_bucket_geo_replication(self, volume: str,
+                                   bucket: str) -> list[dict]:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        return self.bucket_info(volume, bucket).get("geo_replication", [])
+
+    def delete_bucket_geo_replication(self, volume: str,
+                                      bucket: str) -> None:
+        volume, bucket = self.resolve_bucket(volume, bucket)
+        self.check_access(volume, bucket, None, "WRITE")
+        self.submit(rq.DeleteBucketGeoReplication(volume, bucket))
+
+    def geo_status(self) -> dict:
+        """The shipper's state (fencing term, journal cursor, the
+        bootstrapped buckets, the last cycle's stats), its live counters
+        and, once a shipper exists, the lag behind the journal's head
+        (the `replication status` view)."""
+        from ozone_tpu_torch.utils.metrics import registry
+
+        row = self.store.get("system", "geo_state") or {}
+        out = {
+            "term": row.get("term"),
+            "cursor": row.get("cursor") or {},
+            "bootstrapped": row.get("bootstrapped") or [],
+            "stats": row.get("stats") or {},
+            "metrics": registry("replication").snapshot(),
+        }
+        if self.geo is not None:
+            out["lag"] = self.geo.lag()
+        return out
+
+    def run_geo_once(self, max_entries: Optional[int] = None) -> dict:
+        """One ship cycle (the `replication run-now` verb), on the
+        daemon's shipper when one is installed, else on one built over
+        this OM's `clients` and `device`."""
+        if self.geo is None:
+            from ozone_tpu_torch.replication_geo.shipper import (
+                ReplicationShipper,
+            )
+
+            self.geo = ReplicationShipper(self, clients=self.clients,
+                                          device=self.device)
+        return self.geo.run_once(max_entries=max_entries)
 
     # ----------------------------------------------------------- multipart
     def _mpu_key_name(self, volume: str, bucket: str, key: str) -> str:

@@ -34,8 +34,10 @@ deletes a key, file or directory row first calls `preserve_preimage` or
 newest snapshot's overlay under `/.snapshot/` in `keys` (the reads are
 in `om/snapshots.py`). Quotas (`SetQuota`, `ApplyQuotaRepair`), volume
 ownership (`SetVolumeOwner`) and a bucket's default replication
-(`SetBucketReplication`). Left out for later slices: geo replication.
-`to_json` and `from_json` are the reference's wire form for the
+(`SetBucketReplication`). Geo replication: a bucket's cross-cluster
+rules on its row (`SetBucketGeoReplication`, refused on an FSO bucket,
+and `DeleteBucketGeoReplication`) and the shipper's term-fenced state in
+`system/geo_state` (`GeoCheckpoint`). `to_json` and `from_json` are the reference's wire form for the
 replicated log (`om/ha.py`, `consensus/meta_ring.py`).
 """
 
@@ -78,6 +80,7 @@ NOT_A_DIRECTORY = "NOT_A_DIRECTORY"
 INVALID_REQUEST = "INVALID_REQUEST"
 SMALLOBJ_NOT_SUPPORTED = "SMALLOBJ_NOT_SUPPORTED"
 LIFECYCLE_FENCED = "LIFECYCLE_FENCED"
+GEO_FENCED = "GEO_FENCED"
 PREFIX_NOT_FOUND = "PREFIX_NOT_FOUND"
 TENANT_ALREADY_EXISTS = "TENANT_ALREADY_EXISTS"
 TENANT_NOT_FOUND = "TENANT_NOT_FOUND"
@@ -1870,3 +1873,100 @@ class SetBucketReplication(OMRequest):
         b["replication"] = self.replication
         store.put("buckets", k, b)
         return b
+
+
+# ------------------------------------------------------- geo replication
+@dataclass
+class SetBucketGeoReplication(OMRequest):
+    """Install a bucket's cross-cluster replication rules (the S3
+    PutBucketReplication analog); they ride the bucket row, so they
+    replicate and survive failover like every bucket property. The
+    shipper (`replication_geo/shipper.py`) enforces them."""
+
+    volume: str
+    bucket: str
+    rules: list = field(default_factory=list)
+
+    def pre_execute(self, om) -> None:
+        from ozone_tpu_torch.replication_geo.rules import (
+            GeoReplicationError,
+            validate_rules,
+        )
+
+        try:
+            self.rules = validate_rules(self.rules)
+        except GeoReplicationError as e:
+            raise OMError(INVALID_REQUEST, str(e))
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        if b.get("layout") == "FILE_SYSTEM_OPTIMIZED":
+            # the shipper tails the flat key table; an FSO namespace
+            # commits through the file table, so rules here would ship
+            # nothing: refused, as lifecycle rules are
+            raise OMError(
+                INVALID_REQUEST,
+                "geo replication rules are not supported on "
+                "FILE_SYSTEM_OPTIMIZED buckets")
+        b["geo_replication"] = list(self.rules)
+        store.put("buckets", k, b)
+        return b
+
+
+@dataclass
+class DeleteBucketGeoReplication(OMRequest):
+    volume: str
+    bucket: str
+
+    def apply(self, store):
+        k = bucket_key(self.volume, self.bucket)
+        b = store.get("buckets", k)
+        if b is None:
+            raise OMError(BUCKET_NOT_FOUND, k)
+        b.pop("geo_replication", None)
+        store.put("buckets", k, b)
+        return b
+
+
+@dataclass
+class GeoCheckpoint(OMRequest):
+    """The shipper's state: fencing term, the journal cursor (the last
+    shipped txid) and the buckets whose first reconcile finished,
+    committed through the ring so a restarted or failed-over shipper
+    resumes at the last durable page. A `fence` checkpoint claims the
+    shipper role for `term` and is refused when a higher term holds it;
+    a plain checkpoint is refused unless its term is the fenced one. A
+    deposed shipper's late cursor can never regress the journal
+    position."""
+
+    term: int
+    cursor: dict = field(default_factory=dict)
+    stats: dict = field(default_factory=dict)
+    #: None = leave the bootstrapped-bucket set unchanged
+    bootstrapped: Optional[list] = None
+    fence: bool = False
+
+    def apply(self, store):
+        row = store.get("system", "geo_state") or {"term": -1}
+        fenced = int(row.get("term", -1))
+        if self.fence:
+            if int(self.term) < fenced:
+                raise OMError(
+                    GEO_FENCED,
+                    f"fence term {self.term} < current {fenced}")
+            row["term"] = int(self.term)
+        else:
+            if int(self.term) != fenced:
+                raise OMError(
+                    GEO_FENCED,
+                    f"checkpoint term {self.term} != fenced {fenced}")
+            row["cursor"] = dict(self.cursor)
+            if self.bootstrapped is not None:
+                row["bootstrapped"] = list(self.bootstrapped)
+            if self.stats:
+                row["stats"] = dict(self.stats)
+        store.put("system", "geo_state", row)
+        return dict(row)

@@ -18,6 +18,11 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools sh bucket set-smallobj /v/b --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools lifecycle set /v/b --target rs-6-3-1024k --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools lifecycle run-now --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools replication set /v/b --dest 10.0.0.2:9860 \
+        [--prefix logs/] [--dest-bucket dr] [--scheme rs-3-2-1024k] [--append]
+    python -m ozone_tpu_torch.tools replication get|clear /v/b --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools replication run-now|status --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools freon geo -n 12 --dest 10.0.0.2:9860 --om ...
     python -m ozone_tpu_torch.tools scm-om --db /data/m0/om.db --port 9860 \
         --ha-id m0 --peer m0=127.0.0.1:9860 --peer m1=127.0.0.1:9861 \
         --peer m2=127.0.0.1:9862
@@ -72,11 +77,12 @@ RPC (`net/`).
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
 put/get/cat/cp/rewrite`, `freon`, `s3g`, `httpfs`, `scm-om` (its
-lifecycle sweep and slab compaction encode there) and `cluster`, which
-passes it to its children. Without CUDA, "cuda" is an error that names
-CUDA (for `scm-om`, at its first sweep with work). The namespace, `fs`,
-admin, lifecycle and `csi` verbs, and `sh key checksum` (it reads chunk
-metadata, no data), import no torch, so they start in about a second.
+lifecycle sweep, slab compaction and geo ship cycles code there) and
+`cluster`, which passes it to its children. Without CUDA, "cuda" is an
+error that names CUDA (for `scm-om`, at its first sweep or ship cycle
+with work). The namespace, `fs`, admin, lifecycle, replication and
+`csi` verbs, and `sh key checksum` (it reads chunk metadata, no data),
+import no torch, so they start in about a second.
 Against a metadata ring, `--om` takes the replicas as a comma-separated
 list; the clients follow the leader. On a token-enforcing cluster
 (`scm-om --block-tokens --insecure-secrets`) the clients read the
@@ -760,6 +766,14 @@ def cmd_freon(args) -> int:
             _emit(freon.fsg(oz, n_files=args.num, size=args.size,
                             threads=args.threads,
                             replication=repl).summary())
+        elif args.generator == "geo":
+            if not args.dest:
+                return _usage("freon geo needs --dest HOST:PORT (the "
+                              "destination cluster's endpoint)")
+            _emit(freon.geo(oz, args.dest, n_keys=args.num, size=args.size,
+                            threads=args.threads,
+                            replication=repl or "RATIS/THREE",
+                            scheme=args.scheme).summary())
         else:  # ecrd
             _emit(freon.ecrd(oz, s.scm, size=args.size, rounds=args.num,
                              replication=repl or "rs-6-3-1048576"))
@@ -811,6 +825,50 @@ def cmd_lifecycle(args) -> int:
                 rule["target"] = args.target
             _emit(om.set_bucket_lifecycle(
                 vol, bucket, [*rules, rule]).get("lifecycle", []))
+    finally:
+        om.close()
+    return 0
+
+
+# ------------------------------------------------------------- replication
+def cmd_replication(args) -> int:
+    """Geo replication admin (`replication set|get|clear|run-now|status`):
+    a bucket's cross-cluster rules, enforced by the metadata daemon's
+    shipper."""
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+    om = RemoteOmClient(args.om, tls=_client_tls())
+    try:
+        verb = args.verb
+        if verb == "run-now":
+            _emit(om.run_geo_once(args.max_entries))
+            return 0
+        if verb == "status":
+            _emit(om.geo_status())
+            return 0
+        if not args.path:
+            return _usage(f"replication {verb} needs a /volume/bucket path")
+        parts = _parse_path(args.path)
+        if len(parts) != 2:
+            return _usage(f"expected /volume/bucket, got {args.path!r}")
+        vol, bucket = parts
+        if verb == "get":
+            _emit(om.get_bucket_geo_replication(vol, bucket))
+        elif verb == "clear":
+            om.delete_bucket_geo_replication(vol, bucket)
+            print(f"replication cleared on /{vol}/{bucket}")
+        else:  # set
+            if not args.dest:
+                return _usage("replication set needs --dest HOST:PORT (the "
+                              "destination cluster's endpoint)")
+            rules = (om.get_bucket_geo_replication(vol, bucket)
+                     if args.append else [])
+            rule = {"id": args.id or f"rule-{len(rules)}",
+                    "endpoint": args.dest, "prefix": args.prefix,
+                    "bucket": args.dest_bucket, "volume": args.dest_volume,
+                    "scheme": args.scheme, "enabled": True}
+            _emit(om.set_bucket_geo_replication(
+                vol, bucket, [*rules, rule]).get("geo_replication", []))
     finally:
         om.close()
     return 0
@@ -905,7 +963,9 @@ def cmd_datanode(args) -> int:
                        ca_address=args.ca or None,
                        enrollment_secret=args.enrollment_secret or None,
                        num_volumes=args.volumes,
-                       volume_policy=args.volume_policy)
+                       volume_policy=args.volume_policy,
+                       replication_bandwidth_mbps=(
+                           args.replication_bandwidth_mbps))
     d.start()
     lane = d.advertise()
     native = f"{lane['port']} uds={lane['uds']}" if lane else "off"
@@ -1193,7 +1253,7 @@ def build_parser() -> argparse.ArgumentParser:
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
                     choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg",
-                             "lcg", "tinyg", "fskg", "fsg", "swarm"])
+                             "lcg", "tinyg", "fskg", "fsg", "swarm", "geo"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
     fr.add_argument("-t", "--threads", type=int, default=4)
@@ -1218,6 +1278,11 @@ def build_parser() -> argparse.ArgumentParser:
     fr.add_argument("--access-id", default="",
                     help="s3kg: sign every request with this access id's "
                          "secret, fetched from --om (default: unsigned)")
+    fr.add_argument("--dest", default="",
+                    help="geo: the destination cluster's OM endpoint")
+    fr.add_argument("--scheme", default="",
+                    help="geo: the destination's replication scheme "
+                         "(default: keep the source key's)")
     device_flag(fr)
     fr.set_defaults(fn=cmd_freon)
 
@@ -1276,6 +1341,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "then serve and dial everything over mutual TLS")
     dn.add_argument("--enrollment-secret", default="",
                     help="the shared bootstrap secret of CSR signing")
+    dn.add_argument("--replication-bandwidth-mbps", type=float,
+                    default=None,
+                    help="cap on this datanode's replication traffic, "
+                         "MiB/s (exports served and pulled; default "
+                         "unlimited)")
     device_flag(dn)
     dn.set_defaults(fn=cmd_datanode)
 
@@ -1340,6 +1410,36 @@ def build_parser() -> argparse.ArgumentParser:
     lc.add_argument("--max-keys", type=int, default=None,
                     help="run-now: bound the sweep's scan")
     lc.set_defaults(fn=cmd_lifecycle)
+
+    geo = sub.add_parser("replication",
+                         help="cross-cluster asynchronous bucket "
+                              "replication")
+    geo.add_argument("verb", choices=["set", "get", "clear", "run-now",
+                                      "status"])
+    geo.add_argument("path", nargs="?", default="",
+                     help="/volume/bucket (set, get, clear)")
+    geo.add_argument("--om", default="127.0.0.1:9860")
+    geo.add_argument("--dest", default="",
+                     help="set: the destination cluster's OM endpoint "
+                          "HOST:PORT (comma-separated for a ring)")
+    geo.add_argument("--prefix", default="",
+                     help="set: key-name prefix filter")
+    geo.add_argument("--dest-bucket", default="",
+                     help="set: destination bucket (default: the source's "
+                          "name)")
+    geo.add_argument("--dest-volume", default="",
+                     help="set: destination volume (default: the source's "
+                          "name)")
+    geo.add_argument("--scheme", default="",
+                     help="set: destination replication scheme (default: "
+                          "the source key's; an EC scheme re-encodes)")
+    geo.add_argument("--id", default="", help="set: rule id (rule-<n>)")
+    geo.add_argument("--append", action="store_true",
+                     help="set: append to the bucket's rules instead of "
+                          "replacing them")
+    geo.add_argument("--max-entries", type=int, default=None,
+                     help="run-now: bound the journal scan")
+    geo.set_defaults(fn=cmd_replication)
 
     cl = sub.add_parser("cluster",
                         help="one-command local cluster: scm-om + N datanodes")

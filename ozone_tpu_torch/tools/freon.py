@@ -28,14 +28,17 @@ harness (thread-pool task loop, latency report) and
   (`gateway/fs.RootedOzoneFileSystem`);
 - swarm: the closed-loop multi-tenant overload workload over the S3
   gateway (Zipfian keys, mixed sizes, PUT/GET mix; a 503 SlowDown counts
-  as shed, not failed).
+  as shed, not failed);
+- geo: geo replication churn: keys under a rule to another cluster, a
+  ship cycle, overwrites and deletes, a second cycle, then every key
+  checked through the destination (byte-exact, or gone) and the lag.
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
 `--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
 does); `ecrd` also takes an SCM, in process or `RemoteScmClient`; `s3kg`
-and `swarm` take a gateway's host:port. The other generators of the
-reference wait for the port's snapshots and geo replication.
+and `swarm` take a gateway's host:port; `geo` the destination cluster's
+OM endpoint. The reference's other generators are not ported yet.
 """
 
 from __future__ import annotations
@@ -504,6 +507,86 @@ def lcg(client, n_keys: int = 20, size: int = 10 * 1024,
         "verify_failures": verify_failures,
         "sweep_bytes": sweep.get("bytes", 0),
         "sweep_dispatches": sweep.get("dispatches", 0),
+    })
+    return rep
+
+
+def geo(client, dest_endpoint: str, n_keys: int = 20,
+        size: int = 10 * 1024, threads: int = 4,
+        volume: str = "freon-vol", bucket: str = "freon-geo",
+        replication: str = "RATIS/THREE", scheme: str = "",
+        prefix: str = "geo", dest_client=None) -> FreonReport:
+    """Geo replication churn (write, ship, overwrite, delete, ship,
+    verify): `n_keys` keys under a rule to `dest_endpoint`, a ship cycle
+    (`replication run-now`), every third key overwritten and every fifth
+    of the rest deleted, a second cycle, then every surviving key read
+    back byte-exact through the destination (`dest_client`, or one
+    dialed on this client's device) and every deleted key checked gone
+    there. The timer covers the writes; the extras carry `shipped`,
+    `deletes_shipped`, `conflicts`, `ship_bytes`, `verify_failures` and
+    `lag_entries`."""
+    _ensure_bucket(client, volume, bucket, replication)
+    client.om.set_bucket_geo_replication(volume, bucket, [{
+        "id": "freon-geo", "endpoint": dest_endpoint, "prefix": prefix,
+        "scheme": scheme,
+    }])
+    b = client.get_volume(volume).get_bucket(bucket)
+
+    def op(i: int) -> int:
+        b.write_key(f"{prefix}-{i}", _det_payload(size, seed=i),
+                    replication)
+        return size
+
+    rep = BaseFreonGenerator("geo", n_keys, threads).run(op)
+    ship1 = client.om.run_geo_once()
+    # the churn after the first cycle: overwrites supersede shipped
+    # replicas and deletes retire them
+    expect: dict[str, Optional[int]] = {
+        f"{prefix}-{i}": i for i in range(n_keys)}
+    for i in range(0, n_keys, 3):
+        b.write_key(f"{prefix}-{i}", _det_payload(size, seed=i + 1000),
+                    replication)
+        expect[f"{prefix}-{i}"] = i + 1000
+    for i in range(1, n_keys, 5):
+        b.delete_key(f"{prefix}-{i}")
+        expect[f"{prefix}-{i}"] = None
+    ship2 = client.om.run_geo_once()
+    ship = {k: int(ship1.get(k, 0)) + int(ship2.get(k, 0))
+            for k in ("keys_shipped", "deletes_shipped", "conflicts",
+                      "bytes")}
+    remote = None
+    if dest_client is None:
+        from ozone_tpu_torch.replication_geo.shipper import resolve_cluster
+
+        remote = resolve_cluster(dest_endpoint, device=client.device)
+        dest_client = remote.oz
+    try:
+        db = dest_client.get_volume(volume).get_bucket(bucket)
+        verify_failures = 0
+        for name, seed in expect.items():
+            try:
+                info = dest_client.om.lookup_key(volume, bucket, name)
+            except Exception:  # noqa: BLE001 - absent at the destination
+                if seed is not None:
+                    verify_failures += 1
+                continue
+            if seed is None:  # deleted at the source, still there
+                verify_failures += 1
+                continue
+            if not np.array_equal(db.read_key_info(info),
+                                  _det_payload(size, seed=seed)):
+                verify_failures += 1
+    finally:
+        if remote is not None:
+            remote.close()
+    status = client.om.geo_status()
+    rep.extras.update({
+        "shipped": ship["keys_shipped"],
+        "deletes_shipped": ship["deletes_shipped"],
+        "conflicts": ship["conflicts"],
+        "ship_bytes": ship["bytes"],
+        "verify_failures": verify_failures,
+        "lag_entries": (status.get("lag") or {}).get("entries", 0),
     })
     return rep
 

@@ -1,10 +1,11 @@
 """Minimal metrics: named counters, gauges and latency histograms.
 
 A trimmed copy of `ozone_tpu/utils/metrics.py` holding what the port's
-datanode and codec service record: counters, gauges, and timing
-histograms whose observations may carry the trace id of the operation
-they belong to (the latest per bucket is kept as its exemplar), with the
-reference's bucket bounds and bucket-quantile estimates.
+datanode and codec service record: counters, gauges, timers (count,
+total, min, max: the geo shipper's cycle seconds), and timing histograms
+whose observations may carry the trace id of the operation they belong
+to (the latest per bucket is kept as its exemplar), with the reference's
+bucket bounds and bucket-quantile estimates.
 `registry(name)` returns the process-wide registry of that name. No
 exporters yet.
 """
@@ -36,6 +37,29 @@ class Gauge:
     def set(self, v: float) -> None:
         with self._lock:
             self.value = v
+
+
+class Timer:
+    """Latency accumulator: count, total, min and max."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+        self.total = 0.0
+        self.min = float("inf")
+        self.max = 0.0
+
+    def update(self, seconds: float) -> None:
+        with self._lock:
+            self.count += 1
+            self.total += seconds
+            self.min = min(self.min, seconds)
+            self.max = max(self.max, seconds)
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            return self.total / self.count if self.count else 0.0
 
 
 def log_buckets(lo: float = 1e-4, hi: float = 100.0,
@@ -121,6 +145,7 @@ class MetricsRegistry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._timers: dict[str, Timer] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -134,17 +159,21 @@ class MetricsRegistry:
         with self._lock:
             return self._histograms.setdefault(name, Histogram())
 
+    def timer(self, name: str) -> Timer:
+        with self._lock:
+            return self._timers.setdefault(name, Timer())
+
     def snapshot(self) -> dict:
         """Counter and gauge values by name, and `<name>_mean_s` of every
-        histogram that has observations."""
+        timer and histogram that has observations."""
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
-            hists = dict(self._histograms)
+            timed = {**self._timers, **self._histograms}
         return {
             **{k: c.value for k, c in counters.items()},
             **{k: g.value for k, g in gauges.items()},
-            **{f"{k}_mean_s": h.mean for k, h in hists.items() if h.count},
+            **{f"{k}_mean_s": t.mean for k, t in timed.items() if t.count},
         }
 
 

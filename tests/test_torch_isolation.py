@@ -120,6 +120,10 @@ def test_port_imports_no_jax_and_no_reference():
     # `cryptography` is imported where it is used, never at import)
     "ozone_tpu_torch.utils.kms",
     "ozone_tpu_torch.utils.ca",
+    # geo replication: the rules and their S3 XML, the shipper
+    "ozone_tpu_torch.replication_geo",
+    "ozone_tpu_torch.replication_geo.rules",
+    "ozone_tpu_torch.replication_geo.shipper",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -141,10 +145,11 @@ def test_slice_modules_import_alone_without_jax(module):
 
 
 def test_light_cli_verbs_import_no_torch():
-    """The CLI's namespace, `fs`, admin, ACL, tenant and token verbs, the
-    remote OM and SCM clients under them, the file checksum, the ofs
-    adapter, the CSI driver and the security modules start without
-    importing torch."""
+    """The CLI's namespace, `fs`, admin, ACL, tenant, token and
+    replication verbs, the remote OM and SCM clients under them, the file
+    checksum, the ofs adapter, the CSI driver, the security modules and
+    the geo replication rules and shipper start without importing
+    torch."""
     out = _run("""
         import sys
         from ozone_tpu_torch.tools import cli
@@ -161,6 +166,8 @@ def test_light_cli_verbs_import_no_torch():
         cli.build_parser().parse_args(["acl", "bucket", "get", "/v/b"])
         cli.build_parser().parse_args(["tenant", "create", "acme"])
         cli.build_parser().parse_args(["sh", "token", "print"])
+        cli.build_parser().parse_args(["replication", "get", "/v/b"])
+        from ozone_tpu_torch.replication_geo import rules, shipper
         from ozone_tpu_torch.om import acl, dtokens
         from ozone_tpu_torch.utils import security
         print("torch" in sys.modules)

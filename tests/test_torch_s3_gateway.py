@@ -14,9 +14,10 @@ status, ETag, Content-Range, Content-Length, x-amz-meta-* and
 Retry-After headers and the bodies (XML with random ids and times
 replaced) must be equal. Then: a degraded GET with two datanodes stopped
 on both; admission's 503 SlowDown with Retry-After, each knob on alone;
-the answers where the port departs from the reference on purpose (501
-for ?replication; ?lifecycle and ?acl, served since their slices, answer
-as the reference's); and the port-only short-group GET.
+the sub-resources the port once answered 501 (?lifecycle, ?acl and
+?replication, served since their slices, answer as the reference's; an
+object ACL's PUT answers 501 on both); and the port-only short-group
+GET.
 """
 
 import hashlib
@@ -477,15 +478,16 @@ def test_port_refusal_drains_the_body(sides):
     ("PUT", "/dep/o?acl", b"<AccessControlPolicy/>"),
 ])
 def test_port_departures_answer_501(sides, method, path, body):
-    """Where the port has no module yet (geo replication) it answers 501
-    NotImplemented as Apache Ozone 1.5 does, after draining the body, so
-    the keep-alive connection serves the next request. `?lifecycle` is
-    served since the lifecycle slice and `?acl` since the security
-    slice: their cases answer as the reference's gateway does, status
-    and body (`?lifecycle`: no configuration yet 404, an empty one 400
-    MalformedXML; bucket `?acl`: the grants' policy and its PUT; object
-    `?acl`: the effective policy, and 501 for its PUT, as there), with
-    the same drain and keep-alive."""
+    """Sub-resources the port answered 501 NotImplemented before their
+    slices (as Apache Ozone 1.5 does, after draining the body, so the
+    keep-alive connection serves the next request). `?lifecycle` is
+    served since the lifecycle slice, `?acl` since the security slice and
+    `?replication` since the geo replication slice: their cases answer as
+    the reference's gateway does, status and body (`?lifecycle`: no
+    configuration yet 404, an empty one 400 MalformedXML; `?replication`:
+    an empty configuration 400 MalformedXML, DELETE 204; bucket `?acl`:
+    the grants' policy and its PUT; object `?acl`: the effective policy,
+    and 501 for its PUT, as there), with the same drain and keep-alive."""
     port, ref = sides
     port.req("PUT", "/dep")
     port.req("PUT", "/dep/o", b"o")
@@ -497,6 +499,13 @@ def test_port_departures_answer_501(sides, method, path, body):
             ((404 if method == "GET" else 400), True)
         ref.req("PUT", "/dep")
         assert ref.req(method, path, body)[0] == st
+    elif "replication" in path:
+        ref.req("PUT", "/dep")
+        r_st, _, r_data = ref.req(method, path, body)
+        assert st == r_st == (204 if method == "DELETE" else 400)
+        if method == "PUT":
+            assert b"<Code>MalformedXML</Code>" in data
+            assert b"<Code>MalformedXML</Code>" in r_data
     elif "acl" in path:
         ref.req("PUT", "/dep")
         ref.req("PUT", "/dep/o", b"o")
@@ -511,11 +520,11 @@ def test_port_departures_answer_501(sides, method, path, body):
     assert port.req("GET", "/dep/o")[2] == b"o"
     missing = path.replace("/dep", "/nodep", 1)
     # a missing bucket: 404, except that both gateways parse a lifecycle
-    # configuration before they look the bucket up, and an object ACL's
-    # PUT answers 501 before any lookup
-    want = (ref.req(method, missing, body)[0]
-            if ("lifecycle" in path or "acl" in path) else 404)
+    # or replication configuration before they look the bucket up, and an
+    # object ACL's PUT answers 501 before any lookup
+    want = ref.req(method, missing, body)[0]
     assert port.req(method, missing, body)[0] == want
-    assert want == (400 if method == "PUT" and "lifecycle" in path
+    assert want == (400 if method == "PUT" and ("lifecycle" in path
+                                               or "replication" in path)
                     else 501 if method == "PUT" and "/o?acl" in path
                     else 404)
