@@ -250,7 +250,22 @@ a phase says otherwise:
   churn of 4 writers converges to lag 0 (seconds, peak lag); (g) `freon
   geo` as a process, `replication status`, DELETE ?replication, after
   which the cluster commits no geo checkpoint. Launches equal dispatches
-  in every step, split by form (the source's decodes, the encodes).
+  in every step, split by form (the source's decodes, the encodes);
+- the sharded metadata plane (`shard_path`, docs/OPERATIONS.md "Sharded
+  metadata plane" and bench.py's bench_meta_ops): 4 shards over 64 slots
+  sharing the SCM of a MiniOzoneCluster of 10 datanodes: (a) 4 writers
+  PUT 8 keys of 64 MiB and odd tails into 8 rs-6-3-1024k buckets, two
+  per shard (GiB/s, two keys' units and CRCs against the numpy coder,
+  every key byte-exact); (b) three cross-shard renames, two with a
+  coordinator crash and `recover` (presumed abort, then commit), no
+  launch and no chunk write; (c) a degraded GET of a renamed key decoding
+  on the card; (d) `migrate_slot` under 4 writers of 4 MiB keys, no
+  acknowledged key lost; (e) a GET through a cross-shard bucket link;
+  (f) ring mode (2 shards of 3 replicas, follower reads): ommg's rl mix at
+  a hit rate >= 0.8 and a leader killed mid-rename; (g) MiniShardedCluster
+  riding out `move_slot`, `admin shards map` through the CLI, and omkg
+  ops/s at 1, 2 and 4 in-process shards and 1 and 4 `shardd` processes
+  (their start seconds, exit 0 on SIGTERM).
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -278,6 +293,7 @@ import json
 import logging
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -6976,6 +6992,516 @@ def geo_path(device, cell: int, bpc: int, seed: int, src_scheme: str = "",
     return out
 
 
+def shard_path(device, cell: int, bpc: int, seed: int, n_keys: int = 8,
+               key_cells: int = 64, mig_cells: int = 4, ommg_ops: int = 600,
+               omkg_keys: int = 1500, shardd_keys: int = 600) -> dict:
+    """The sharded metadata plane (docs/OPERATIONS.md "Sharded metadata
+    plane", the deployment of bench.py's bench_meta_ops): four shards over
+    64 slots under an epoch-numbered root map, their data in rs-6-3 at
+    `cell` with CRC32C over `bpc`, all shards sharing the SCM of one
+    MiniOzoneCluster of 10 datanodes. (a) A plain plane of 4 shards, 8 EC
+    buckets (two per shard, named by slot), 4 writers PUT `n_keys` keys of
+    `key_cells` cells and odd tails (GiB/s); two keys' units and CRC words
+    equal the numpy coder's; every key reads back byte-exact; the
+    `om.shard` routes. (b) Three cross-shard renames: a coordinator crash
+    between the prepares then `recover` (presumed abort, the source key
+    byte-exact), a crash after the decision then `recover` (commit; the
+    key only under its new name), and one without a crash; no launch and
+    no chunk write; ms per rename and the 2PC counters. (c) One data-unit
+    holder of a renamed key stopped: its GET decodes on the card,
+    byte-exact (GiB/s). (d) `migrate_slot` moves an EC bucket's slot to
+    another shard while 4 writers PUT keys of `mig_cells` cells into it:
+    every acknowledged key reads back byte-exact from the new owner
+    (moved rejections, slots migrated, migration seconds). (e) A bucket
+    link on one shard to a source on another: a GET through it
+    byte-exact. (f) Ring mode, 2 shards of 3 replicas with follower reads
+    on: ommg `ommg_ops` ops of the `rl` mix over 4 buckets, 8 threads, hit
+    rate >= 0.8; a shard leader killed in the middle of a cross-shard
+    rename, the key under exactly one name. (g) Over the RPC:
+    MiniShardedCluster(n_shards=2) routes a client that rides out a
+    `move_slot`; `admin shards map` through the CLI; omkg ops/s with
+    `omkg_keys` keys at 1, 2 and 4 in-process shards and with
+    `shardd_keys` keys at 1 and 4 shardd processes (their start seconds,
+    exit 0 on SIGTERM) beside os.cpu_count(). Launches equal the codec
+    service's dispatches in every step."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.client.ozone_client import OzoneClient
+    from ozone_tpu_torch.net.om_service import RemoteOmClient
+    from ozone_tpu_torch.om.metadata import key_key
+    from ozone_tpu_torch.om.requests import OMError
+    from ozone_tpu_torch.om.sharding import METRICS as SHARD
+    from ozone_tpu_torch.om.sharding.plane import ShardedMetaPlane
+    from ozone_tpu_torch.om.sharding.shardmap import SHARD_MOVED, ShardMap, slot_for
+    from ozone_tpu_torch.om.sharding.txn import ShardPrepare, TxnJournal
+    from ozone_tpu_torch.testing.minicluster import (
+        MiniOzoneCluster,
+        MiniShardedCluster,
+        free_ports,
+    )
+    from ozone_tpu_torch.tools import freon
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    card = nvidia_smi() if device.type == "cuda" else "cpu"
+    rng = np.random.default_rng(seed + 20)
+    gib = float(1 << 30)
+    out: dict = {"launches": {}}
+    counters = ("routes", "moved_rejections", "slots_migrated", "cross_shard_prepares",
+                "cross_shard_commits", "cross_shard_aborts", "follower_read_hits",
+                "follower_read_misses")
+
+    def shard_counts() -> dict:
+        return {c: SHARD.counter(c).value for c in counters}
+
+    def begin() -> dict:
+        fused_kernel.launches.reset()
+        return service_counts()
+
+    def end(what: str, key: str, mark: dict, decode: bool = False) -> int:
+        launches = fused_kernel.launches.count
+        check_launches_equal(what, device, launches, service_delta(mark))
+        if decode and device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what}: no decode launched")
+        out["launches"][key] = out["launches"].get(key, 0) + launches
+        return launches
+
+    def bucket_on(m: ShardMap, sid: str, prefix: str) -> str:
+        """A bucket name whose slot the map gives to `sid`."""
+        return next(f"{prefix}{i}" for i in range(10_000)
+                    if m.shard_for("shardv", f"{prefix}{i}") == sid)
+
+    def code(fn) -> str | None:
+        try:
+            fn()
+        except OMError as e:
+            return e.code
+        return None
+
+    def chunk_writes(mini) -> int:
+        return sum(dn.metrics.histogram("chunk_write_seconds").count
+                   for dn in mini.datanodes)
+
+    with codec_route(True), tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as tmp:
+        root = Path(tmp)
+        mini = MiniOzoneCluster(root / "data", num_datanodes=10, block_size=16 * cell,
+                                container_size=64 * 16 * cell, stale_after_s=1e6,
+                                dead_after_s=2e6, placement_seed=seed, device=device)
+        plane = ShardedMetaPlane(root / "meta", n_shards=4, scm=mini.scm,
+                                 clients=mini.clients, device=device)
+        try:
+            f = plane.facade
+            oz = plane.client(mini.clients)
+            vol = oz.create_volume("shardv")
+            m = plane.current_map()
+            names = [bucket_on(m, sid, p) for p in ("ec-a", "ec-b") for sid in plane.shard_ids]
+            for b in names:
+                vol.create_bucket(b, replication=rs)
+
+            # ---- (a) EC writes through the plane, 4 writers
+            keys = {(names[i % len(names)], f"k{i}"):
+                    rng.integers(0, 256, key_cells * cell + 1000 * i + 7, dtype=np.uint8)
+                    for i in range(n_keys)}
+            items = list(keys.items())
+            c0 = shard_counts()
+            mark = begin()
+            t0 = time.perf_counter()
+            concurrent(lambda part: [vol.get_bucket(b).write_key(k, d) for (b, k), d in part],
+                       [items[w::4] for w in range(4)])
+            secs = time.perf_counter() - t0
+            launches = end("shard (a) EC PUTs", "shard_ec_put", mark)
+            total = sum(d.size for d in keys.values())
+            out["put_gib_s"] = total / secs / gib
+            for (b, k), d in items[:2]:
+                info = f.lookup_key("shardv", b, k)
+                check_ec_units(mini.datanode, f.key_block_groups(info), d, bpc,
+                               f"shard (a) {b}/{k}")
+            for (b, k), d in items:
+                if not np.array_equal(vol.get_bucket(b).read_key(k), d):
+                    raise AssertionError(f"shard (a): {b}/{k} differs")
+            per_shard = {sid: len(list(plane.shards[sid].om.store.iterate("keys")))
+                         for sid in plane.shard_ids}
+            if sorted(per_shard.values()) != [n_keys // 4] * 4:
+                raise AssertionError(f"shard (a): keys per shard {per_shard}")
+            routes = SHARD.counter("routes").value - c0["routes"]
+            print(f"shard (a): {n_keys} keys, {total} B over {len(names)} {rs} buckets "
+                  f"(2 per shard) by 4 writers in {secs:.3f} s = {out['put_gib_s']:.3f} "
+                  f"GiB/s, {launches} launches; 2 keys' units and CRCs equal the numpy "
+                  f"coder's, every key byte-exact; keys per shard {per_shard}; om.shard "
+                  f"routes {routes} [{card}]")
+
+            # ---- (b) cross-shard renames, with a coordinator crash twice
+            (b0, k0), d0 = items[0]
+            (b1, k1), d1 = items[1]
+            (b2, k2), d2 = items[2]
+
+            def dst_of(b):
+                """A bucket of the other shards' (the rename's destination)."""
+                src_sid = m.shard_for("shardv", b)
+                return next(x for x in names if m.shard_for("shardv", x) != src_sid)
+
+            c0, w0 = shard_counts(), chunk_writes(mini)
+            mark = begin()
+            ms = {}
+
+            def journal(txn, b, k, new):
+                rec = {"kind": "rename", "volume": "shardv", "src_bucket": b, "key": k,
+                       "dst_bucket": dst_of(b), "new_key": new,
+                       "src_shard": m.shard_for("shardv", b),
+                       "dst_shard": m.shard_for("shardv", dst_of(b)), "epoch": m.epoch}
+                plane.root.submit(TxnJournal(txn, "begin", rec))
+                info = plane.shards[rec["src_shard"]].submit(ShardPrepare(
+                    txn, "rename_src", {"volume": "shardv", "bucket": b, "key": k},
+                    epoch=m.epoch))
+                return rec, info
+
+            t0 = time.perf_counter()
+            journal("crash-between-prepares", b0, k0, "k0-renamed")
+            resolved = plane.recover()
+            ms["abort_on_recover"] = 1e3 * (time.perf_counter() - t0)
+            if [r["phase"] for r in resolved] != ["begin"] or \
+                    not np.array_equal(vol.get_bucket(b0).read_key(k0), d0) or \
+                    code(lambda: f.lookup_key("shardv", dst_of(b0), "k0-renamed")) \
+                    != "KEY_NOT_FOUND":
+                raise AssertionError(f"shard (b): presumed abort failed: {resolved}")
+            t0 = time.perf_counter()
+            rec, info = journal("crash-after-decide", b1, k1, "k1-renamed")
+            plane.shards[rec["dst_shard"]].submit(ShardPrepare(
+                "crash-after-decide", "rename_dst",
+                {"volume": "shardv", "bucket": rec["dst_bucket"], "new_key": "k1-renamed",
+                 "info": info}, epoch=m.epoch))
+            plane.root.submit(TxnJournal("crash-after-decide", "decide-commit", rec))
+            resolved = plane.recover()
+            ms["commit_on_recover"] = 1e3 * (time.perf_counter() - t0)
+            renamed = {(rec["dst_bucket"], "k1-renamed"): d1}
+            if [r["phase"] for r in resolved] != ["decide-commit"] or \
+                    code(lambda: f.lookup_key("shardv", b1, k1)) != "KEY_NOT_FOUND":
+                raise AssertionError(f"shard (b): the decided rename did not commit: "
+                                     f"{resolved}")
+            t0 = time.perf_counter()
+            f.rename_key_cross("shardv", b2, k2, dst_of(b2), "k2-renamed")
+            ms["rename"] = 1e3 * (time.perf_counter() - t0)
+            renamed[(dst_of(b2), "k2-renamed")] = d2
+            if code(lambda: f.lookup_key("shardv", b2, k2)) != "KEY_NOT_FOUND":
+                raise AssertionError("shard (b): the renamed key still reads at its source")
+            for (b, k), d in renamed.items():
+                if not np.array_equal(vol.get_bucket(b).read_key(k), d):
+                    raise AssertionError(f"shard (b): {b}/{k} differs after the rename")
+            launches = end("shard (b) cross-shard renames", "shard_cross_rename", mark)
+            writes = chunk_writes(mini) - w0
+            if launches or writes:
+                raise AssertionError(f"shard (b): {launches} launches, {writes} chunk "
+                                     "writes in the renames")
+            c1 = shard_counts()
+            twopc = {c: c1[c] - c0[c] for c in ("cross_shard_prepares",
+                                                "cross_shard_commits", "cross_shard_aborts")}
+            if twopc != {"cross_shard_prepares": 2, "cross_shard_commits": 2,
+                         "cross_shard_aborts": 1}:
+                raise AssertionError(f"shard (b): 2PC counters {twopc}")
+            out["rename_ms"] = ms
+            print(f"shard (b): a crash between the prepares, recovered (presumed abort) "
+                  f"in {ms['abort_on_recover']:.2f} ms; a crash after the decision, "
+                  f"recovered (commit) in {ms['commit_on_recover']:.2f} ms; a rename "
+                  f"without a crash {ms['rename']:.2f} ms; every key byte-exact under "
+                  f"exactly one name; 0 launches, 0 chunk writes; {twopc} [{card}]")
+
+            # ---- (c) degraded GET of a renamed key
+            (rb, rk), rd = next(iter(renamed.items()))
+            info = f.lookup_key("shardv", rb, rk)
+            victim = f.key_block_groups(info)[0].pipeline.nodes[0]
+            mini.stop_datanode(victim)
+            mark = begin()
+            t0 = time.perf_counter()
+            got = vol.get_bucket(rb).read_key(rk)
+            secs = time.perf_counter() - t0
+            launches = end("shard (c) degraded GET", "shard_degraded_get", mark, decode=True)
+            if not np.array_equal(got, rd):
+                raise AssertionError("shard (c): the degraded GET differs")
+            mini.restart_datanode(victim)
+            out["degraded_gib_s"] = rd.size / secs / gib
+            print(f"shard (c): {rb}/{rk} ({rd.size} B) with data unit 0's holder {victim} "
+                  f"stopped: byte-exact in {secs:.3f} s = {out['degraded_gib_s']:.3f} GiB/s, "
+                  f"{launches} decode launches [{card}]")
+
+            # ---- (d) live slot migration under 4 writers
+            mig = bucket_on(m, "s0", "mig")
+            vol.create_bucket(mig, replication=rs)
+            base = rng.integers(0, 256, mig_cells * cell, dtype=np.uint8)
+            acked: dict = {}
+            refused: list = []
+            lock = threading.Lock()
+            phase = {"migrated": None}
+
+            def payload(w: int, i: int) -> np.ndarray:
+                d = base.copy()
+                d[:8] = np.frombuffer(np.int64(w * 100_000 + i).tobytes(), np.uint8)
+                return d
+
+            def writer(w: int) -> None:
+                bucket = vol.get_bucket(mig)
+                i = after = 0
+                while after < 3:
+                    name = f"w{w}-{i}"
+                    try:
+                        bucket.write_key(name, payload(w, i))
+                    except OMError as e:
+                        if e.code != SHARD_MOVED:
+                            raise
+                        with lock:
+                            refused.append(name)
+                    else:
+                        with lock:
+                            acked[name] = (w, i)
+                            if phase["migrated"] is not None:
+                                after += 1
+                    i += 1
+                    if i > 400:
+                        raise AssertionError("shard (d): the migration never finished")
+
+            c0 = shard_counts()
+            mark = begin()
+            threads = [threading.Thread(target=writer, args=(w,)) for w in range(4)]
+            for t in threads:
+                t.start()
+            wait_for("shard (d): 8 keys acknowledged before the migration",
+                     lambda: len(acked) >= 8, 300)
+            slot, target = slot_for("shardv", mig), "s3"
+            t0 = time.perf_counter()
+            plane.migrate_slot(slot, target)
+            mig_s = time.perf_counter() - t0
+            phase["migrated"] = mig_s
+            for t in threads:
+                t.join(timeout=600)
+                if t.is_alive():
+                    raise AssertionError("shard (d): a writer did not finish")
+            launches = end("shard (d) PUTs across the migration", "shard_migration_put", mark)
+            dst = plane.shards[target].om.store
+            missing = [k for k in acked if dst.get("keys", key_key("shardv", mig, k)) is None]
+            if missing:
+                raise AssertionError(f"shard (d): acknowledged keys lost: {missing}")
+            for name, (w, i) in sorted(acked.items()):
+                if not np.array_equal(vol.get_bucket(mig).read_key(name), payload(w, i)):
+                    raise AssertionError(f"shard (d): {name} differs")
+            c1 = shard_counts()
+            moved = c1["moved_rejections"] - c0["moved_rejections"]
+            out["migration"] = {"seconds": mig_s, "acked": len(acked),
+                                "refused": len(refused), "moved_rejections": moved,
+                                "slots_migrated": c1["slots_migrated"] - c0["slots_migrated"]}
+            print(f"shard (d): slot {slot} ({mig}) moved s0 -> {target} in {mig_s:.3f} s "
+                  f"under 4 writers of {mig_cells * cell} B keys: {len(acked)} acknowledged, "
+                  f"every one byte-exact from {target}; {len(refused)} refused with "
+                  f"SHARD_MOVED; moved_rejections {moved}, slots_migrated "
+                  f"{out['migration']['slots_migrated']}; {launches} launches [{card}]")
+
+            # ---- (e) a cross-shard bucket link
+            (lb, lk), ld = items[3]
+            link = bucket_on(m, next(s for s in plane.shard_ids
+                                     if s != m.shard_for("shardv", lb)), "link")
+            c0 = shard_counts()
+            mark = begin()
+            f.create_bucket_link("shardv", lb, "shardv", link)
+            t0 = time.perf_counter()
+            got = vol.get_bucket(link).read_key(lk)
+            secs = time.perf_counter() - t0
+            end("shard (e) GET through a cross-shard link", "shard_link_get", mark)
+            c1 = shard_counts()
+            if not np.array_equal(got, ld) or c1["cross_shard_commits"] - \
+                    c0["cross_shard_commits"] != 1:
+                raise AssertionError("shard (e): the GET through the link differs")
+            print(f"shard (e): link {link} on {m.shard_for('shardv', link)} -> {lb} on "
+                  f"{m.shard_for('shardv', lb)} (a 2PC): GET of {lk} byte-exact in "
+                  f"{secs:.3f} s = {ld.size / secs / gib:.3f} GiB/s [{card}]")
+        finally:
+            plane.close()
+            mini.close()
+
+        # ---- (f) ring mode: follower reads and a leader kill mid-rename
+        with env_set(OZONE_TPU_OM_FOLLOWER_READS=1):
+            ring = ShardedMetaPlane(root / "ring", n_shards=2, mode="ring", replicas=3,
+                                    follower_reads=True, device=device)
+            try:
+                c0 = shard_counts()
+                t0 = time.perf_counter()
+                rep = freon.ommg(ring.client(), n_ops=ommg_ops, threads=8, mix="rl",
+                                 buckets=4)
+                secs = time.perf_counter() - t0
+                c1 = shard_counts()
+                hits = c1["follower_read_hits"] - c0["follower_read_hits"]
+                misses = c1["follower_read_misses"] - c0["follower_read_misses"]
+                rate = hits / max(1, hits + misses)
+                if rep.failures or rate < 0.8:
+                    raise AssertionError(f"shard (f): hit rate {rate:.3f}, "
+                                         f"{rep.failures} failures")
+                out["follower_hit_rate"] = rate
+                rf = ring.facade
+                rm = ring.current_map()
+                src = next(f"r{i}" for i in range(10_000)
+                           if rm.shard_for("shardv", f"r{i}") == "s0")
+                dstb = next(f"r{i}" for i in range(10_000)
+                            if rm.shard_for("shardv", f"r{i}") == "s1")
+                rf.create_volume("shardv")
+                for b in (src, dstb):
+                    rf.create_bucket("shardv", b, replication="RATIS/1")
+                s = rf.open_key("shardv", src, "old")
+                rf.commit_key(s, [], 21)
+                real = ring.coordinator._shard_submit
+                killed = []
+
+                def kill_after_src_prepare(sid, request):
+                    result = real(sid, request)
+                    if isinstance(request, ShardPrepare) and request.op == "rename_src" \
+                            and not killed:
+                        killed.append(ring.shards["s0"].kill_leader())
+                    return result
+
+                ring.coordinator._shard_submit = kill_after_src_prepare
+                t1 = time.perf_counter()
+                rf.rename_key_cross("shardv", src, "old", dstb, "new")
+                kill_ms = 1e3 * (time.perf_counter() - t1)
+                where = [code(lambda: rf.lookup_key("shardv", src, "old")),
+                         code(lambda: rf.lookup_key("shardv", dstb, "new"))]
+                if not killed or where != ["KEY_NOT_FOUND", None] or \
+                        rf.lookup_key("shardv", dstb, "new")["size"] != 21:
+                    raise AssertionError(f"shard (f): after the leader kill {where}")
+                print(f"shard (f): ommg {ommg_ops} ops (rl, 4 buckets, 8 threads) on 2 "
+                      f"shards of 3 replicas in {secs:.3f} s = {rep.ops / rep.elapsed_s:.1f} "
+                      f"ops/s, follower reads {hits} hits {misses} misses = {rate:.3f}; "
+                      f"leader {killed[0]} killed mid-rename: the rename finished on the "
+                      f"new leader in {kill_ms:.1f} ms, the key under its new name only "
+                      f"[{card}]")
+            finally:
+                ring.close()
+
+        # ---- (g) over the RPC: MiniShardedCluster, the CLI, omkg scaling
+        cluster = MiniShardedCluster(root / "rpc", n_shards=2, device=device)
+        rc = cluster.om_client()
+        try:
+            rc.create_volume("shardv")
+            gb = bucket_on(cluster.map, "s0", "g")
+            rc.create_bucket("shardv", gb, replication="RATIS/1")
+            for i in range(3):
+                s = rc.open_key("shardv", gb, f"k{i}")
+                if i == 2:  # the slot moves under an open key
+                    cluster.move_slot(slot_for("shardv", gb), "s1")
+                rc.commit_key(s, [], i)
+            names_rpc = sorted(k["name"] for k in rc.list_keys("shardv", gb))
+            on_s1 = sorted(k for k, _ in cluster.daemons["s1"].om.store.iterate("keys"))
+            if names_rpc != ["k0", "k1", "k2"] or len(on_s1) != 3:
+                raise AssertionError(f"shard (g): {names_rpc} after move_slot, s1 {on_s1}")
+            proc = subprocess.run([sys.executable, "-m", "ozone_tpu_torch.tools", "admin",
+                                   "shards", "map", "--om", cluster.map.addresses["s0"]],
+                                  capture_output=True, text=True, timeout=120,
+                                  cwd=str(repo), env=env)
+            shown = json.loads(proc.stdout) if proc.returncode == 0 else None
+            if not shown or shown["epoch"] != 2 or \
+                    shown["slots_per_shard"] != {"s0": 31, "s1": 33}:
+                raise AssertionError(f"shard (g): admin shards map: {proc.stdout} "
+                                     f"{proc.stderr[-2000:]}")
+            print(f"shard (g): MiniShardedCluster(2): a client rode out move_slot under "
+                  f"an open key (3 keys, all on s1); admin shards map: {json.dumps(shown)}")
+        finally:
+            rc.close()
+            cluster.shutdown()
+
+        ops_s = {}
+        for n in (1, 2, 4):
+            p = ShardedMetaPlane(root / f"omkg{n}", n_shards=n, device=device)
+            try:
+                rep = freon.omkg(p.client(), n_keys=omkg_keys, threads=8,
+                                 buckets=max(2 * n, 2))
+                if rep.failures:
+                    raise AssertionError(f"shard (g): omkg {n} shards: {rep.failures}")
+                ops_s[n] = rep.ops / rep.elapsed_s
+            finally:
+                p.close()
+
+        def spawn(n: int) -> tuple[dict, dict, dict]:
+            """n shardd processes over one address book: (book, procs, logs)."""
+            book = {f"s{i}": f"127.0.0.1:{port}" for i, port in enumerate(free_ports(n))}
+            arg = ",".join(f"{k}={v}" for k, v in book.items())
+            logs = {sid: root / f"shardd{n}-{sid}.log" for sid in book}
+            procs = {}
+            for sid in book:
+                with open(logs[sid], "w") as log:
+                    procs[sid] = subprocess.Popen(
+                        [sys.executable, "-m", "ozone_tpu_torch.tools.shardd", "--base",
+                         str(root / f"shardd{n}" / sid), "--shard-id", sid, "--shards",
+                         arg], cwd=str(repo), env=env, stdout=log, stderr=log)
+            return book, procs, logs
+
+        def ready(book: dict, procs: dict, logs: dict, t0: float) -> list:
+            """Seconds from t0 until each shard answers GetShardMap."""
+            start_s: dict = {}
+            while len(start_s) < len(book):
+                for sid, addr in book.items():
+                    if sid in start_s:
+                        continue
+                    if procs[sid].poll() is not None:
+                        raise AssertionError(f"shardd {sid} exited {procs[sid].returncode}: "
+                                             f"{logs[sid].read_text()[-2000:]}")
+                    c = RemoteOmClient(addr, shard_aware=False)
+                    try:
+                        if c.get_shard_map():
+                            start_s[sid] = time.perf_counter() - t0
+                    except Exception:
+                        pass
+                    finally:
+                        c.close()
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("shardd processes never became ready")
+                time.sleep(0.05)
+            return [round(start_s[sid], 3) for sid in sorted(start_s)]
+
+        def stop(procs: dict, logs: dict) -> dict:
+            """SIGTERM every process still running; their exit codes."""
+            for p in procs.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            rcs = {sid: p.wait(timeout=60) for sid, p in procs.items()}
+            return {sid: (rc, logs[sid].read_text()[-1000:] if rc else "")
+                    for sid, rc in rcs.items()}
+
+        # both sets and a bare `import torch` (the part of a shardd's start
+        # that is not its own) start together; each set is driven alone
+        t0 = time.perf_counter()
+        sets = {n: spawn(n) for n in (1, 4)}
+        probe = subprocess.Popen(
+            [sys.executable, "-c", "import time; t = time.perf_counter(); import torch; "
+             "print(time.perf_counter() - t, torch.cuda.is_initialized())"],
+            stdout=subprocess.PIPE, text=True, env=env)
+        proc_ops_s, start, exits = {}, {}, {}
+        try:
+            for n, (book, procs, logs) in sets.items():
+                start[n] = ready(book, procs, logs, t0)
+            for n, (book, procs, logs) in sets.items():
+                om = RemoteOmClient(",".join(book.values()), shard_aware=True)
+                try:
+                    rep = freon.omkg(OzoneClient(om, None, device=device),
+                                     n_keys=shardd_keys, threads=8, buckets=16)
+                finally:
+                    om.close()
+                if rep.failures:
+                    raise AssertionError(f"shard (g): omkg over {n} shardd: {rep.failures}")
+                proc_ops_s[n] = rep.ops / rep.elapsed_s
+                exits[n] = stop(procs, logs)  # before the next set runs
+        finally:
+            for n, (_, procs, logs) in sets.items():
+                exits.setdefault(n, stop(procs, logs))
+            torch_s = float(probe.communicate(timeout=120)[0].split()[0])
+        if any(rc for e in exits.values() for rc, _ in e.values()):
+            raise AssertionError(f"shard (g): shardd exits {exits}")
+        out["omkg_ops_s"], out["shardd_ops_s"] = ops_s, proc_ops_s
+        out["shardd_start_s"], out["torch_import_s"] = start, torch_s
+        print(f"shard (g): omkg {omkg_keys} keys, 8 threads: in-process "
+              + ", ".join(f"{n} shards {v:.1f} ops/s" for n, v in ops_s.items())
+              + f" (4/1 = {ops_s[4] / ops_s[1]:.2f}); {shardd_keys} keys over shardd "
+              "processes: " + ", ".join(f"{n} {v:.1f} ops/s" for n, v in proc_ops_s.items())
+              + f" (4/1 = {proc_ops_s[4] / proc_ops_s[1]:.2f}); os.cpu_count() "
+              f"{os.cpu_count()}; shardd start seconds {start} (a bare `import torch` "
+              f"{torch_s:.2f} s); every shardd exited 0 on SIGTERM [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7124,6 +7650,7 @@ def main() -> int:
         adm = phase("scm_admin_path", scm_admin_path, device, MIB, bpc, args.seed)
         snap = phase("snapshot_path", snapshot_path, device, MIB, bpc, args.seed)
         geo = phase("geo_path", geo_path, device, MIB, bpc, args.seed)
+        shard = phase("shard_path", shard_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -7155,7 +7682,7 @@ def main() -> int:
             "lifecycle_daemon_run_now": lc["daemon_launches"],
             **so["launches"], **ha["launches"], **fs["launches"],
             **sec["launches"], **enc["launches"], **adm["launches"],
-            **snap["launches"], **geo["launches"],
+            **snap["launches"], **geo["launches"], **shard["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

@@ -17,9 +17,11 @@ The durable applied floor, the OM-store row `system/raft_applied`,
 rides the same sqlite batch as the entry's rows, so a restart never
 applies a non-idempotent entry (a versioned CommitKeys) twice. The ring
 also serves the replicated `om prepare` and the operator verbs
-`ring_add`, `ring_remove`, `ring_transfer` and `ring_status`. Left out:
-the layout-feature gate at admission (the port has no finalizer) and
-the sharded plane's push of the commit index after each write.
+`ring_add`, `ring_remove`, `ring_transfer` and `ring_status`. With
+`push_commit_on_write` (the sharded plane's follower-read rings) the
+leader pushes the commit index to its followers right after each write.
+Left out: the layout-feature gate at admission (the port has no
+finalizer).
 """
 
 from __future__ import annotations
@@ -60,9 +62,8 @@ class MetaHARing(RaftSCM):
         # just SCM container state
         self.node.snapshot_fn = self._snapshot_all
         self.node.restore_fn = self._restore_all
-        # follower-read admission (om/sharding/leases.py) and its
-        # lease-renewal counter; the daemon serves no read through it
-        # until the sharded plane's router is ported
+        # follower-read admission (om/sharding/leases.py): any replica
+        # holding a live read lease may answer read verbs locally
         from ozone_tpu_torch.om.sharding.leases import (
             READ_LEASE_S,
             FollowerReadGate,
@@ -71,6 +72,11 @@ class MetaHARing(RaftSCM):
         self.read_gate = FollowerReadGate(self.node, READ_LEASE_S)
         _renewals = self.read_gate.metrics.counter("lease_renewals")
         self.node.on_lease_renewal = _renewals.inc
+        #: push the commit index to followers right after each write
+        #: commits (one extra heartbeat), so their read leases serve
+        #: fresh state instead of refusing on min_applied for a whole
+        #: heartbeat interval. Opt-in: the sharded plane sets it.
+        self.push_commit_on_write = False
 
     # ------------------------------------------------------------- apply
     def _apply(self, data: dict) -> Any:
@@ -206,6 +212,8 @@ class MetaHARing(RaftSCM):
             # block allocation in preExecute produced SCM decision
             # records; the client ack covers them too
             self._await_records()
+        if self.push_commit_on_write:
+            self.node.push_commit()
         if isinstance(result, Exception):
             raise result
         return result

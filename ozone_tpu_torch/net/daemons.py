@@ -106,7 +106,18 @@ handshake with no restart; the trust bundle and CRL are refreshed with
 it only when a secret authenticates the answers. A failed handshake is
 never retried in plaintext.
 
-Left out: Recon, the HTTP server and sharding.
+Sharding (`om/sharding/`): `ScmOmDaemon(shard_config=..., shard_map=...)`
+is one shard of the sharded metadata plane. It installs its replicated
+ownership row (`InstallShardConfig`, enforced by the OM's `check_shard`)
+and a copy of the root map (`InstallShardMap`, served by GetShardMap)
+at construction, or, under HA, from the background loop once this
+replica is the ready leader. Under HA with OZONE_TPU_OM_FOLLOWER_READS=1
+a follower holding a live read lease answers the follower-read verbs at
+the leader gate when it has applied the caller's `_min_applied`, and the
+leader pushes its commit index after each write. `tools/shardd.py` runs
+one such daemon as a process.
+
+Left out: Recon and the HTTP server.
 """
 
 from __future__ import annotations
@@ -122,6 +133,7 @@ from typing import Optional
 from ozone_tpu_torch.client import native_dn
 from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.codec.fused import resolve_device
+from ozone_tpu_torch.net import wire
 from ozone_tpu_torch.net.dn_service import DatanodeRpcService
 from ozone_tpu_torch.net.om_service import OmRpcService
 from ozone_tpu_torch.net.raft_transport import RaftRpcService
@@ -129,6 +141,13 @@ from ozone_tpu_torch.net.ratis_service import RatisRpcService
 from ozone_tpu_torch.net.rpc import RpcServer
 from ozone_tpu_torch.net.scm_service import RemoteScmClient, ScmRpcService
 from ozone_tpu_torch.om.om import OzoneManager
+# importing the sharding package registers its request classes before
+# any log replay: a shard ring follower applies them
+from ozone_tpu_torch.om.sharding.leases import follower_reads_enabled
+from ozone_tpu_torch.om.sharding.shardmap import (
+    InstallShardConfig,
+    InstallShardMap,
+)
 from ozone_tpu_torch.scm.block_deletion import DeleteBlocksCommand
 from ozone_tpu_torch.scm.pipeline import ReplicationType
 from ozone_tpu_torch.scm.replication_manager import (
@@ -655,6 +674,8 @@ class ScmOmDaemon:
         enroll_port: int = 0,
         enrollment_secret: Optional[str] = None,
         ca_address: Optional[str] = None,
+        shard_config: Optional[dict] = None,
+        shard_map: Optional[dict] = None,
     ):
         if block_tokens and not secure and not insecure_secrets:
             raise ValueError(
@@ -695,7 +716,8 @@ class ScmOmDaemon:
         if self.ca is not None:
             self.scm_service.cert_ops = self._cert_ops
         self._wire_pipeline_hooks()
-        self.om = OzoneManager(Path(om_db), self.scm, block_size=block_size)
+        self.om = OzoneManager(Path(om_db), self.scm, block_size=block_size,
+                               device=device)
         if acl_enabled:
             self.om.enable_acls()
         if block_tokens:
@@ -779,6 +801,23 @@ class ScmOmDaemon:
         self._bg_ticks = 0
         if ha_id is not None:
             self._init_ha(ha_id, Path(om_db).parent / "meta-raft")
+        # the sharded metadata plane: shard_config is this daemon's
+        # InstallShardConfig payload (epoch, shard_id, slot_count, owned),
+        # the replicated ownership row its OM enforces through
+        # check_shard; shard_map is the root map this daemon serves from
+        # GetShardMap, so clients discover the shard rings through any
+        # replica
+        self._shard_config = shard_config
+        self._shard_map = shard_map
+        self._shard_installed = shard_config is None and shard_map is None
+        if not self._shard_installed:
+            if self.ha is None:
+                self._install_sharding()
+            elif follower_reads_enabled():
+                # HA: the install waits for a ready leader (the
+                # background loop); a fresh commit index per write lets
+                # follower leases serve read-your-writes at once
+                self.ha.push_commit_on_write = True
 
     @property
     def address(self) -> str:
@@ -1000,12 +1039,33 @@ class ScmOmDaemon:
         self.scm_service.ring_provider = \
             lambda: [a for a in self._ha_peers.values() if a]
 
-    def _leader_gate(self) -> None:
+    def _install_sharding(self) -> None:
+        """Install this daemon's shard ownership and its copy of the root
+        map: at construction without HA; under HA from the background
+        loop once this replica is the ready leader (the install
+        replicates to the followers like any other OM request)."""
+        if self._shard_config is not None:
+            self.om.submit(InstallShardConfig(**self._shard_config))
+        if self._shard_map is not None:
+            self.om.submit(InstallShardMap(dict(self._shard_map)))
+        self._shard_installed = True
+
+    def _leader_gate(self, verb: Optional[str] = None,
+                     req: Optional[bytes] = None) -> None:
         # the ready leader, not just the leader: a fresh leader applies
         # the earlier terms' committed entries (its no-op) before it
         # serves, or a failover client could read stale state
         if self.ha is None or self.ha.is_ready:
             return
+        # lease-based follower reads (om/sharding/leases.py): a replica
+        # holding a live read lease answers read verbs locally once its
+        # applied state reaches the caller's floor; the leader-read
+        # fallback is the client's, on the OM_NOT_LEADER below
+        if verb is not None and req is not None and follower_reads_enabled():
+            m, _ = wire.unpack(req)
+            if self.ha.read_gate.try_serve(verb,
+                                           int(m.get("_min_applied") or 0)):
+                return
         raise StorageError("OM_NOT_LEADER",
                            self._leader_address(self.ha.leader_hint))
 
@@ -1045,6 +1105,10 @@ class ScmOmDaemon:
                     log.exception("raft log compaction failed")
             if not self.ha.is_leader:
                 return
+        if not self._shard_installed:
+            # the deferred HA shard install: this replica just became
+            # the leader
+            self._install_sharding()
         self.om.run_dir_deleting_service_once()
         with self.scm_service.lock:
             self.scm.run_background_once()

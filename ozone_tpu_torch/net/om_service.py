@@ -45,8 +45,18 @@ snapshot's key listing, and its key lookup with the address book as
 LookupKey has it. The quota, volume-owner and bucket-replication verbs,
 and the upgrade quiesce (Prepare, CancelPrepare, PrepareStatus). Geo
 replication: a bucket's rules set, get and clear, the shipper's status
-and a cycle run now (in the metadata daemon's process). Left out:
-sharding.
+and a cycle run now (in the metadata daemon's process). Sharding
+(`om/sharding/`): GetShardMap answers the root shard map row from any
+replica, ungated by the HA leader gate, since it is how a client finds
+the shard rings; the gate is told the verb and the request, so a
+follower holding a read lease answers the follower-read verbs. A
+`RemoteOmClient` discovers the map on its first call (`shard_aware`
+None; False never routes, True requires a routable map), routes every
+bucket-addressed verb to the owning shard's pool (`ShardRouter`), retries
+once through a refetched map on SHARD_MOVED, fans volume creates,
+deletes and bucket listings out to every shard, and with
+OZONE_TPU_OM_FOLLOWER_READS=1 sends a read verb first to a replica of
+the shard's round robin with its applied floor.
 """
 
 from __future__ import annotations
@@ -60,6 +70,9 @@ from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.net import wire
 from ozone_tpu_torch.net.rpc import FailoverChannels, RpcServer
 from ozone_tpu_torch.om.requests import OMError
+from ozone_tpu_torch.om.sharding.router import METRICS as SHARD_METRICS
+from ozone_tpu_torch.om.sharding.router import ShardRouter
+from ozone_tpu_torch.om.sharding.shardmap import SHARD_MOVED
 from ozone_tpu_torch.scm.pipeline import ReplicationConfig
 from ozone_tpu_torch.storage.ids import StorageError
 
@@ -284,14 +297,24 @@ class OmRpcService:
             "SnapshotLookupKey": w(lambda m: om.snapshot_lookup_key(
                 m["volume"], m["bucket"], m["name"], m["key"]),
                 with_addresses=True),
+            # the sharded metadata plane: the root map, answered by any
+            # replica (it is how a fresh client finds the shard rings,
+            # so it cannot be leader-gated)
+            "GetShardMap": w(lambda m: om.store.get("system", "shard_map")),
         }
-        server.add_service(SERVICE, {n: self._gated(fn)
+        server.add_service(SERVICE, {n: self._gated(n, fn)
                                      for n, fn in methods.items()})
 
-    def _gated(self, fn):
+    #: verbs exempt from the HA leader gate (see GetShardMap above)
+    UNGATED = frozenset({"GetShardMap"})
+
+    def _gated(self, name: str, fn):
         def method(req) -> bytes:
-            if self.gate is not None:
-                self.gate()
+            if self.gate is not None and name not in self.UNGATED:
+                # verb-aware: the HA gate admits read verbs on followers
+                # holding a live lease (om/sharding/leases.py) and
+                # bounces everything else to the leader
+                self.gate(name, req)
             return fn(req)
 
         return method
@@ -473,9 +496,13 @@ class RemoteOmClient:
     carries the caller identity bound by `user_context` (`_user`,
     `_groups`) and the delegation token the client was built with
     (`_dtoken`, the authenticated path). `tls` (a TlsMaterial or
-    RotatingTls) is the role's identity on a mutual-TLS cluster."""
+    RotatingTls) is the role's identity on a mutual-TLS cluster, and the
+    shard router's pools dial with it too. `shard_aware`: None discovers
+    the shard map on the first call, False never routes, True requires
+    a routable map."""
 
-    def __init__(self, address: str, clients=None, token=None, tls=None):
+    def __init__(self, address: str, clients=None, token=None, tls=None,
+                 shard_aware: Optional[bool] = None):
         self._pool = FailoverChannels(address, tls=tls)
         self.tls = tls
         self.addresses = self._pool.addresses
@@ -484,6 +511,14 @@ class RemoteOmClient:
         self.clients = clients
         self._caller = threading.local()
         self._token = token
+        #: client-side shard routing (om/sharding/router.py): None =
+        #: discover through GetShardMap on first use (a deployment with
+        #: no shard map costs one extra call, once), False = never
+        #: route, True = require a routable map
+        self._shard_aware = shard_aware
+        self._router = None
+        self._router_checked = shard_aware is False
+        self._router_lock = threading.Lock()
 
     def user_context(self, user, groups=()):
         """Bind a caller identity to every call this thread makes."""
@@ -499,40 +534,97 @@ class RemoteOmClient:
 
         return _ctx()
 
-    def _call(self, method: str, **meta) -> dict:
+    def _ensure_router(self) -> None:
+        """One-shot shard-map discovery (see __init__)."""
+        with self._router_lock:
+            if self._router_checked:
+                return
+            self._router_checked = True
+            try:
+                mj = self._call("GetShardMap", _pool=self._pool)["result"]
+            except StorageError:
+                mj = None  # a server without the verb, or transient
+            if mj and any(mj.get("addresses", {}).values()):
+                self._router = ShardRouter(mj, tls=self.tls)
+            elif self._shard_aware is True:
+                raise StorageError(
+                    "INVALID", "shard_aware=True but the server has no "
+                    "routable shard map")
+
+    def _refresh_shard_map(self) -> None:
+        """SHARD_MOVED invalidation: refetch the map and adopt it."""
+        SHARD_METRICS.counter("moved_rejections").inc()
+        mj = self._call("GetShardMap", _pool=self._pool)["result"]
+        if mj and self._router is not None:
+            self._router.update_map(mj)
+
+    def _call(self, method: str, _pool=None, **meta) -> dict:
         ident = getattr(self._caller, "identity", None)
         if ident is not None and ident[0] is not None:
             meta.setdefault("_user", ident[0])
             meta.setdefault("_groups", list(ident[1]))
         if self._token is not None:
             meta.setdefault("_dtoken", self._token)
+        if _pool is None and not self._router_checked:
+            self._ensure_router()
+        # shard routing: bucket-addressed verbs go to the owning ring
+        sid = None
+        pool = _pool
+        if pool is None and self._router is not None:
+            sid, pool = self._router.route(method, meta)
+        if pool is None:
+            pool = self._pool
+        # lease-based follower reads: spread read verbs over the shard's
+        # replicas; a follower without a live lease (or behind the
+        # caller's floor) answers OM_NOT_LEADER and the retry below
+        # falls back to the leader
+        read_addr = None
+        if sid is not None and "_min_applied" in meta:
+            read_addr = self._router.read_address(sid)
         payload = wire.pack(meta)
         # a sweep run now works in the daemon for as long as its budget
         hop_s = _SWEEP_VERB_TIMEOUT_S if method in _SWEEP_VERBS else 30.0
         last: Optional[Exception] = None
         attempts = max(4, 3 * len(self.addresses))
         policy = resilience.failover_retry_policy(attempts)
+        moved_retried = False
         for attempt in range(attempts):
             floor_s = None
-            addr, ch = self._pool.channel()
+            if read_addr is not None and attempt == 0:
+                addr, ch = pool.channel(read_addr)
+            else:
+                addr, ch = pool.channel()
             try:
                 m, _ = wire.unpack(ch.call(
                     SERVICE, method, payload,
                     timeout=resilience.op_timeout(hop_s, method)))
-                self.address = addr
+                if sid is None:
+                    self.address = addr
+                elif self._router is not None:
+                    self._router.observe(sid, m)
                 return m
             except StorageError as e:
                 last = e
                 if e.code == "OM_NOT_LEADER":
-                    self._pool.follow_hint(e.msg)
+                    pool.follow_hint(e.msg)
+                elif e.code == SHARD_MOVED and sid is not None \
+                        and not moved_retried:
+                    # a stale shard map: the rejection is the cache
+                    # invalidation; refetch, re-route, retry once
+                    moved_retried = True
+                    self._refresh_shard_map()
+                    new_sid, new_pool = self._router.route(method, meta)
+                    if new_pool is not None:
+                        sid, pool = new_sid, new_pool
+                        payload = wire.pack(meta)  # _min_applied moved
                 elif e.code == "UNAVAILABLE":
                     # unreachable replica: drop its channel and rotate;
                     # server-raised errors surface (a blind retry would
                     # re-run a non-idempotent write)
-                    self._pool.invalidate(addr)
-                    if len(self.addresses) == 1:
+                    pool.invalidate(addr)
+                    if len(pool.addresses) == 1:
                         raise
-                    self._pool.rotate()
+                    pool.rotate()
                 elif e.code == resilience.SERVER_BUSY:
                     # pushback from a healthy peer: back off, same replica
                     floor_s = resilience.server_pushback_floor(e, "om")
@@ -546,6 +638,14 @@ class RemoteOmClient:
             raise last
         raise StorageError("IO_EXCEPTION", f"no OM leader reachable: {last}")
 
+    def _shard_pools(self) -> Optional[list]:
+        """Every shard's pool on a routed client, else None."""
+        if not self._router_checked:
+            self._ensure_router()
+        if self._router is None:
+            return None
+        return list(self._router.pools.values())
+
     def _learn_from(self, m: dict):
         """Adopt the address book riding a located answer; returns the
         answer's result."""
@@ -557,9 +657,28 @@ class RemoteOmClient:
 
     # namespace
     def create_volume(self, volume):
+        pools = self._shard_pools()
+        if pools is not None:
+            # volumes exist on every shard (any shard may own buckets of
+            # any volume): fan the create out
+            for pool in pools:
+                self._call("CreateVolume", _pool=pool, volume=volume)
+            return
         self._call("CreateVolume", volume=volume)
 
     def delete_volume(self, volume):
+        pools = self._shard_pools()
+        if pools is not None:
+            # check all, then delete all: each shard's DeleteVolume sees
+            # only its own buckets, so a one-pass delete could remove
+            # the volume from empty shards and then fail
+            for pool in pools:
+                if self._call("ListBuckets", _pool=pool,
+                              volume=volume)["result"]:
+                    raise StorageError("VOLUME_NOT_EMPTY", volume)
+            for pool in pools:
+                self._call("DeleteVolume", _pool=pool, volume=volume)
+            return
         self._call("DeleteVolume", volume=volume)
 
     def volume_info(self, volume):
@@ -603,7 +722,18 @@ class RemoteOmClient:
         return self._call("BucketInfo", volume=volume, bucket=bucket)["result"]
 
     def list_buckets(self, volume):
+        pools = self._shard_pools()
+        if pools is not None:
+            out = []
+            for pool in pools:
+                out.extend(self._call("ListBuckets", _pool=pool,
+                                      volume=volume)["result"])
+            return sorted(out, key=lambda b: b["name"])
         return self._call("ListBuckets", volume=volume)["result"]
+
+    def get_shard_map(self):
+        """The root shard map row, or None on unsharded deployments."""
+        return self._call("GetShardMap")["result"]
 
     def upgrade_status(self):
         return self._call("UpgradeStatus")["result"]
@@ -958,4 +1088,6 @@ class RemoteOmClient:
         return self._call("GeoRunNow", max_entries=max_entries)["result"]
 
     def close(self) -> None:
+        if self._router is not None:
+            self._router.close()
         self._pool.close()

@@ -49,9 +49,12 @@ Quotas (`set_quota`, `repair_quota`), volume ownership
 (`set_bucket_replication`). Geo replication: a bucket's cross-cluster
 rules through replicated requests, the shipper's status and a cycle run
 now, on `replication_geo/shipper.py` (built on first use over `clients`
-and `device` unless a daemon installs its own in `self.geo`). Left out
-for later slices: sharding, and the upgrade finalizer and its layout
-gate.
+and `device` unless a daemon installs its own in `self.geo`). Sharding:
+`check_shard`, the ownership gate of `om/sharding/shardmap.py`, at bucket
+creation, link creation and every link resolution, so a replica whose
+replicated shard config does not own a bucket's slot answers SHARD_MOVED
+(the sharded plane itself is `om/sharding/`). Left out for later slices:
+the upgrade finalizer and its layout gate.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ from ozone_tpu_torch.om.metadata import (
     slab_key,
     volume_key,
 )
+from ozone_tpu_torch.om.sharding import shardmap as _shardmap
 from ozone_tpu_torch.scm.pipeline import ReplicationConfig
 from ozone_tpu_torch.scm.scm import StorageContainerManager
 from ozone_tpu_torch.storage.ids import BlockID
@@ -405,6 +409,7 @@ class OzoneManager:
                       layout: str = "OBJECT_STORE", encryption_key: str = "",
                       gdpr: bool = False) -> None:
         self.check_access(volume, None, None, "CREATE")
+        self.check_shard(volume, bucket)
         # fail fast on a bad scheme string instead of at the first PUT
         ReplicationConfig.parse(replication)
         self.submit(rq.CreateBucket(volume, bucket, replication, layout,
@@ -413,17 +418,30 @@ class OzoneManager:
 
     def create_bucket_link(self, src_volume: str, src_bucket: str,
                            volume: str, bucket: str) -> None:
-        """A link bucket aliasing the source (`sh bucket link`)."""
+        """A link bucket aliasing the source (`sh bucket link`). On a
+        sharded plane a link whose source hashes to another shard goes
+        through the cross-shard 2PC (`sharding/txn.link_bucket_cross`)
+        instead: this path gates on the link's own shard and validates
+        the source locally."""
         self.check_access(volume, None, None, "CREATE")
+        self.check_shard(volume, bucket)
         self.submit(rq.CreateBucket(volume, bucket,
                                     source_volume=src_volume,
                                     source_bucket=src_bucket))
+
+    def check_shard(self, volume: str, bucket: str) -> None:
+        """The shard-ownership gate (`sharding/shardmap.py`): SHARD_MOVED
+        when this replica's replicated shard config does not own the
+        (volume, bucket) slot; one cached `system` row get on unsharded
+        deployments."""
+        _shardmap.check_shard(self.store, volume, bucket)
 
     def resolve_bucket(self, volume: str, bucket: str) -> tuple[str, str]:
         """Follow link chains to the real bucket: DANGLING_LINK when a
         link's source is missing or the chain loops."""
         seen = set()
         while True:
+            self.check_shard(volume, bucket)
             row = self.store.get("buckets", bucket_key(volume, bucket))
             if row is None:
                 if seen:  # reached by following a link
@@ -627,6 +645,12 @@ class OzoneManager:
 
     def commit_key(self, session: OpenKeySession, groups: list[BlockGroup],
                    size: int, hsync: bool = False) -> None:
+        # the shard gate here too, where the reference has none: a write
+        # opened before its slot migrated must not commit on the old
+        # owner, whose rows the migration has already copied (an
+        # acknowledged key the new owner never sees); SHARD_MOVED sends
+        # the commit after the open-key row to the new owner
+        self.check_shard(session.volume, session.bucket)
         fence = getattr(session, "expect_object_id", "")
         fence_gen = int(getattr(session, "expect_generation", -1))
         if getattr(session, "parent_id", None) is not None:

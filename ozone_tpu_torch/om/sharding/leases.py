@@ -1,19 +1,22 @@
 """Lease-based follower reads for the metadata plane.
 
-Port of `ozone_tpu/om/sharding/leases.py`, the gate only. A follower
-that heard from its leader within the read-lease window may serve
-read-only verbs locally. Staleness is bounded by the lease: the window
-is shorter than the minimum election timeout, so while a follower's
-lease is live no other node can have won an election and committed
-writes it never heard of. Read-your-writes is bounded by `min_applied`:
-a follower whose state machine lags the index the client has already
-seen refuses, and the client falls back to the leader. The metadata
-ring builds a gate on every replica; no verb of the port's daemon is
-served through it until the sharded plane's router, which sends the
-client's applied floor, is ported.
+Port of `ozone_tpu/om/sharding/leases.py`. A follower that heard from
+its leader within the read-lease window may serve read-only verbs
+locally. Staleness is bounded by the lease: the window is shorter than
+the minimum election timeout, so while a follower's lease is live no
+other node can have won an election and committed writes it never heard
+of. Read-your-writes is bounded by `min_applied`: a follower whose state
+machine lags the index the client has already seen refuses, and the
+client falls back to the leader. The metadata ring builds a gate on
+every replica; the daemon's leader gate (`net/daemons.py`) and the
+in-process plane (`plane.py`) answer `FOLLOWER_READ_VERBS` through it
+when `follower_reads_enabled()`, and the shard router sends the client's
+applied floor with them.
 """
 
 from __future__ import annotations
+
+import os
 
 from ozone_tpu_torch.utils.metrics import registry
 
@@ -32,6 +35,13 @@ FOLLOWER_READ_VERBS = frozenset({
 #: minimum election timeout: a longer lease than that re-introduces the
 #: stale-read race the lease exists to close.
 READ_LEASE_S = 0.12
+
+
+def follower_reads_enabled() -> bool:
+    """OZONE_TPU_OM_FOLLOWER_READS=1: clients prefer follower replicas
+    for the read verbs above. Off by default: an unsharded deployment
+    keeps strict leader reads unless the operator opts in."""
+    return os.environ.get("OZONE_TPU_OM_FOLLOWER_READS", "0") == "1"
 
 
 class FollowerReadGate:

@@ -24,8 +24,17 @@ a client certificate enrolled the same way. The OM's KMS (TDE and GDPR
 buckets) needs nothing more: `om.kms_create_key`, then
 `om.create_bucket(..., encryption_key=...)` or `gdpr=True`, on either
 cluster. `make_meta_daemon` and
-`await_meta_leader` are the helpers the HA tests share. The sharded
-cluster is not ported.
+`await_meta_leader` are the helpers the HA tests share.
+
+`MiniShardedCluster` (the reference's) is the sharded metadata plane
+over the port's RPC: one single-replica ScmOmDaemon per shard, each
+booted with its replicated ownership row and a copy of the root shard
+map, and shard-aware `RemoteOmClient`s (`om_client`) that route by the
+fetched map; `move_slot` is the operator's rebalance under live clients.
+It is metadata-only, as in the reference: each daemon embeds its own
+SCM, so their container ids would collide; data-path drills run on the
+in-process `ShardedMetaPlane` (`om/sharding/plane.py`), whose shards
+share one SCM.
 """
 
 from __future__ import annotations
@@ -356,6 +365,97 @@ class MiniOzoneHACluster:
             d.stop()
         self.metas.clear()
         self.datanodes = []
+
+
+class MiniShardedCluster:
+    """The sharded metadata plane over the RPC: per-shard daemons with
+    replicated shard configs, a root map served ungated through
+    GetShardMap, and shard-aware remote clients that retry through
+    SHARD_MOVED. Every daemon's OM takes `device`, resolved here, so
+    "cuda" raises without CUDA."""
+
+    def __init__(self, root: Path, n_shards: int = 2,
+                 slot_count: int = 64, block_size: int = 256 * 1024,
+                 device="cuda"):
+        from ozone_tpu_torch.net.daemons import ScmOmDaemon
+        from ozone_tpu_torch.om.sharding.shardmap import ShardMap
+
+        self.root = Path(root)
+        self.device = resolve_device(device)
+        self.shard_ids = [f"s{i}" for i in range(n_shards)]
+        addresses = {sid: f"127.0.0.1:{p}"
+                     for sid, p in zip(self.shard_ids, free_ports(n_shards))}
+        self.map = ShardMap.uniform(self.shard_ids, epoch=1,
+                                    addresses=addresses,
+                                    slot_count=slot_count)
+        self.daemons: dict[str, ScmOmDaemon] = {}
+        try:
+            for sid in self.shard_ids:
+                d = ScmOmDaemon(
+                    self.root / sid / "om.db",
+                    port=int(addresses[sid].rsplit(":", 1)[1]),
+                    block_size=block_size, stale_after_s=1000.0,
+                    dead_after_s=2000.0, background_interval_s=0.2,
+                    device=self.device,
+                    shard_config={"epoch": 1, "shard_id": sid,
+                                  "slot_count": slot_count,
+                                  "owned": self.map.owned_slots(sid)},
+                    shard_map=self.map.to_json())
+                d.start()
+                self.daemons[sid] = d
+        except BaseException:
+            self.shutdown()
+            raise
+
+    def om_client(self):
+        """A shard-aware remote OM client (it discovers the map itself)."""
+        from ozone_tpu_torch.net.om_service import RemoteOmClient
+
+        return RemoteOmClient(",".join(self.map.addresses.values()),
+                              shard_aware=True)
+
+    def move_slot(self, slot: int, to_sid: str):
+        """The operator's rebalance: fence the source, copy the slot's
+        rows, grant the target, publish the bumped map on every daemon.
+        Clients holding the old map get SHARD_MOVED and refetch."""
+        from ozone_tpu_torch.om.sharding.shardmap import (
+            ImportRow,
+            InstallShardConfig,
+            InstallShardMap,
+            slot_for,
+        )
+
+        new_map = self.map.move_slot(slot, to_sid)
+        from_sid = self.map.shards[self.map.slots[slot]]
+        src, dst = self.daemons[from_sid].om, self.daemons[to_sid].om
+        src.submit(InstallShardConfig(
+            epoch=new_map.epoch, shard_id=from_sid,
+            slot_count=new_map.slot_count,
+            owned=new_map.owned_slots(from_sid)))
+        for vk, _ in list(src.store.iterate("volumes")):
+            for bk, brow in list(src.store.iterate("buckets", vk + "/")):
+                if slot_for(brow["volume"], brow["name"],
+                            new_map.slot_count) != slot:
+                    continue
+                dst.submit(ImportRow("buckets", bk, brow))
+                for table in ("keys", "open_keys", "deleted_keys",
+                              "multipart", "dirs", "files",
+                              "deleted_dirs"):
+                    for k, row in list(src.store.iterate(table, bk + "/")):
+                        dst.submit(ImportRow(table, k, row))
+        dst.submit(InstallShardConfig(
+            epoch=new_map.epoch, shard_id=to_sid,
+            slot_count=new_map.slot_count,
+            owned=new_map.owned_slots(to_sid)))
+        for d in self.daemons.values():
+            d.om.submit(InstallShardMap(new_map.to_json()))
+        self.map = new_map
+        return new_map
+
+    def shutdown(self) -> None:
+        for d in self.daemons.values():
+            d.stop()
+        self.daemons.clear()
 
 
 def make_meta_daemon(root, i: int, peers: dict, **overrides):

@@ -73,6 +73,9 @@ RPC (`net/`).
         [--namespace-quota 1000] --om ...
     python -m ozone_tpu_torch.tools sh volume update /v --user alice --om ...
     python -m ozone_tpu_torch.tools admin om prepare|cancelprepare|status --om ...
+    python -m ozone_tpu_torch.tools admin shards map|status --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools freon omkg|ommg -n 1000 --om ... \
+        --device cpu
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -636,6 +639,32 @@ def cmd_admin(args) -> int:
                                   "create-key|rotate-key|list|info)")
             finally:
                 om.close()
+        elif subject == "shards":
+            # the sharded metadata plane: the root shard map (epoch, slot
+            # ownership, address book) as any routing client sees it
+            from ozone_tpu_torch.net.om_service import RemoteOmClient
+            from ozone_tpu_torch.om.sharding.shardmap import ShardMap
+
+            om = RemoteOmClient(args.om, tls=_client_tls(),
+                                shard_aware=False)
+            try:
+                if verb not in (None, "map", "status"):
+                    return _usage(f"unknown shards verb {verb!r} "
+                                  "(expected map|status)")
+                mj = om.get_shard_map()
+                if not mj:
+                    print("no shard map installed (unsharded deployment)")
+                    return 0
+                m = ShardMap.from_json(mj)
+                counts: dict[str, int] = {}
+                for idx in m.slots:
+                    sid = m.shards[idx]
+                    counts[sid] = counts.get(sid, 0) + 1
+                _emit({"epoch": m.epoch, "slot_count": len(m.slots),
+                       "shards": sorted(counts), "slots_per_shard": counts,
+                       "addresses": m.addresses})
+            finally:
+                om.close()
         elif subject == "safemode":
             if verb in ("enter", "exit"):
                 _emit(scm.admin(f"safemode-{verb}"))
@@ -766,6 +795,12 @@ def cmd_freon(args) -> int:
             _emit(freon.fsg(oz, n_files=args.num, size=args.size,
                             threads=args.threads,
                             replication=repl).summary())
+        elif args.generator == "omkg":
+            _emit(freon.omkg(oz, n_keys=args.num,
+                             threads=args.threads).summary())
+        elif args.generator == "ommg":
+            _emit(freon.ommg(oz, n_ops=args.num, threads=args.threads,
+                             mix=args.mix).summary())
         elif args.generator == "geo":
             if not args.dest:
                 return _usage("freon geo needs --dest HOST:PORT (the "
@@ -1193,7 +1228,7 @@ def build_parser() -> argparse.ArgumentParser:
                                         "replicationmanager",
                                         "om", "ring-status", "ring-add",
                                         "ring-remove", "ring-transfer",
-                                        "cert", "kms"])
+                                        "cert", "kms", "shards"])
     ad.add_argument("verb", nargs="?", default=None,
                     help="container: list|info <id>|close <id>; safemode: "
                          "enter|exit|status; datanode: list|decommission|"
@@ -1203,7 +1238,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "[/volume[/bucket]]; ring-add: "
                          "<id>=<host:port>; ring-remove, ring-transfer: <id>; "
                          "cert: list|revoke <serial>; kms: create-key|"
-                         "rotate-key|info <name>, list")
+                         "rotate-key|info <name>, list; shards: map|status")
     ad.add_argument("target", nargs="?", default=None)
     ad.add_argument("--om", default="127.0.0.1:9860")
     ad.add_argument("--prefix", default="",
@@ -1253,7 +1288,8 @@ def build_parser() -> argparse.ArgumentParser:
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
                     choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg",
-                             "lcg", "tinyg", "fskg", "fsg", "swarm", "geo"])
+                             "lcg", "tinyg", "fskg", "fsg", "swarm", "geo",
+                             "omkg", "ommg"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
     fr.add_argument("-t", "--threads", type=int, default=4)
@@ -1263,6 +1299,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="s3kg, tinyg: GET each key back and compare")
     fr.add_argument("--target", default="rs-3-2-4096",
                     help="lcg: the EC scheme the lifecycle rule tiers to")
+    fr.add_argument("--mix", default="crudl",
+                    help="ommg op mix (c/r/u/d/l per char)")
     fr.add_argument("--no-packer", action="store_true",
                     help="tinyg: every key down the per-key stripe path "
                          "(the small-object before/after baseline)")

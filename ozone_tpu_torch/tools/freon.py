@@ -31,7 +31,12 @@ harness (thread-pool task loop, latency report) and
   as shed, not failed);
 - geo: geo replication churn: keys under a rule to another cluster, a
   ship cycle, overwrites and deletes, a second cycle, then every key
-  checked through the destination (byte-exact, or gone) and the lag.
+  checked through the destination (byte-exact, or gone) and the lag;
+- omkg: OmKeyGenerator, open and commit of empty keys (no datanode IO,
+  the namespace's throughput), over `buckets` buckets so a sharded
+  plane spreads them over its shards;
+- ommg: OmMetadataGenerator, a mix of create, read (lookup), update
+  (rename there and back), delete and list per the `mix` string.
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
@@ -721,6 +726,81 @@ def fsg(client, n_files: int = 50, size: int = 10 * 1024,
         return size * 2
 
     return BaseFreonGenerator("fsg", n_files, threads).run(op)
+
+
+def _freon_buckets(client, volume: str, bucket: str,
+                   buckets: int) -> list[str]:
+    """Create the generator's bucket set. buckets > 1 spreads ops over
+    `bucket-<j>` names: on a sharded metadata plane the (volume, bucket)
+    hash then fans the load over the shard rings instead of serializing
+    it on one ring's slot."""
+    try:
+        client.om.create_volume(volume)
+    except Exception:
+        pass
+    names = ([bucket] if buckets <= 1
+             else [f"{bucket}-{j}" for j in range(buckets)])
+    for name in names:
+        try:
+            client.om.create_bucket(volume, name)
+        except Exception:
+            pass
+    return names
+
+
+def omkg(client, n_keys: int = 1000, threads: int = 8,
+         volume: str = "freon-vol", bucket: str = "freon-meta",
+         buckets: int = 1) -> FreonReport:
+    """Pure OM metadata op generator: open and commit empty keys without
+    any datanode IO (OmKeyGenerator: the namespace's throughput)."""
+    names = _freon_buckets(client, volume, bucket, buckets)
+
+    def op(i: int) -> int:
+        b = names[i % len(names)]
+        s = client.om.open_key(volume, b, f"meta-{i}")
+        client.om.commit_key(s, [], 0)
+        return 0
+
+    return BaseFreonGenerator("omkg", n_keys, threads).run(op)
+
+
+def ommg(client, n_ops: int = 1000, threads: int = 8,
+         volume: str = "freon-vol", bucket: str = "freon-meta",
+         mix: str = "crudl", buckets: int = 1) -> FreonReport:
+    """Mixed OM metadata ops (OmMetadataGenerator): cycles create,
+    read (lookup), update (rename), delete and list per the mix."""
+    bad = set(mix) - set("crudl")
+    if not mix or bad:
+        raise ValueError(f"mix must be chars from 'crudl', got {mix!r}")
+    names = _freon_buckets(client, volume, bucket, buckets)
+    # seed keys the read and delete ops can hit (every bucket gets the
+    # whole seed set: op i addresses bucket i % len(names))
+    for name in names:
+        for i in range(min(64, n_ops)):
+            s = client.om.open_key(volume, name, f"mix-{i}")
+            client.om.commit_key(s, [], 0)
+
+    def op(i: int) -> int:
+        kind = mix[i % len(mix)]
+        b = names[i % len(names)]
+        name = f"mix-{i % 64}"
+        if kind == "c":
+            s = client.om.open_key(volume, b, f"mix-new-{i}")
+            client.om.commit_key(s, [], 0)
+        elif kind == "r":
+            client.om.lookup_key(volume, b, name)
+        elif kind == "u":
+            client.om.rename_key(volume, b, name, name + ".r")
+            client.om.rename_key(volume, b, name + ".r", name)
+        elif kind == "d":
+            s = client.om.open_key(volume, b, f"mix-del-{i}")
+            client.om.commit_key(s, [], 0)
+            client.om.delete_key(volume, b, f"mix-del-{i}")
+        elif kind == "l":
+            client.om.list_keys(volume, b, "mix-")
+        return 0
+
+    return BaseFreonGenerator("ommg", n_ops, threads).run(op)
 
 
 def swarm(endpoint: str, tenants: list, duration_s: float = 4.0,

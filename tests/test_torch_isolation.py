@@ -124,6 +124,14 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.replication_geo",
     "ozone_tpu_torch.replication_geo.rules",
     "ozone_tpu_torch.replication_geo.shipper",
+    # sharded metadata: the map and its gate, the 2PC, the plane, the
+    # router, shardd
+    "ozone_tpu_torch.om.sharding",
+    "ozone_tpu_torch.om.sharding.shardmap",
+    "ozone_tpu_torch.om.sharding.txn",
+    "ozone_tpu_torch.om.sharding.plane",
+    "ozone_tpu_torch.om.sharding.router",
+    "ozone_tpu_torch.tools.shardd",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -145,11 +153,11 @@ def test_slice_modules_import_alone_without_jax(module):
 
 
 def test_light_cli_verbs_import_no_torch():
-    """The CLI's namespace, `fs`, admin, ACL, tenant, token and
-    replication verbs, the remote OM and SCM clients under them, the file
-    checksum, the ofs adapter, the CSI driver, the security modules and
-    the geo replication rules and shipper start without importing
-    torch."""
+    """The CLI's namespace, `fs`, admin (`admin shards` too), ACL,
+    tenant, token and replication verbs, the remote OM and SCM clients
+    under them with the shard router, the file checksum, the ofs
+    adapter, the CSI driver, the security modules and the geo
+    replication rules and shipper start without importing torch."""
     out = _run("""
         import sys
         from ozone_tpu_torch.tools import cli
@@ -167,6 +175,8 @@ def test_light_cli_verbs_import_no_torch():
         cli.build_parser().parse_args(["tenant", "create", "acme"])
         cli.build_parser().parse_args(["sh", "token", "print"])
         cli.build_parser().parse_args(["replication", "get", "/v/b"])
+        cli.build_parser().parse_args(["admin", "shards", "map"])
+        from ozone_tpu_torch.om.sharding import router, shardmap, txn
         from ozone_tpu_torch.replication_geo import rules, shipper
         from ozone_tpu_torch.om import acl, dtokens
         from ozone_tpu_torch.utils import security

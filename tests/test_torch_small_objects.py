@@ -2,7 +2,7 @@
 
 Mirrors tests/test_small_objects.py case for case where the case needs
 neither the filesystem layout's tables nor a metadata ring (the sharded
-commit and the follower reads wait for those ports): routing at the
+commit and the follower reads are in tests/test_torch_sharding.py): routing at the
 inline and needle thresholds, byte-exact reads of all three paths,
 coalescing of concurrent PUTs into shared slabs, the crash drills, the
 needle CRC gate, `CommitKeys` (all-or-nothing quota, last-wins

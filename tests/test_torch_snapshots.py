@@ -1115,7 +1115,7 @@ _SITE = re.compile(r"\b(preserve_preimage|preserve_fso_preimage)\(")
 
 
 @pytest.mark.parametrize("rel", ["om/requests.py", "om/fso.py",
-                                 "om/multipart.py"])
+                                 "om/multipart.py", "om/sharding/txn.py"])
 def test_preimage_sites_match_reference(rel):
     """Every pre-image call site of the reference has its counterpart in
     the port: the same calls, in the same request classes, in order."""
