@@ -265,7 +265,24 @@ a phase says otherwise:
   a hit rate >= 0.8 and a leader killed mid-rename; (g) MiniShardedCluster
   riding out `move_slot`, `admin shards map` through the CLI, and omkg
   ops/s at 1, 2 and 4 in-process shards and 1 and 4 `shardd` processes
-  (their start seconds, exit 0 on SIGTERM).
+  (their start seconds, exit 0 on SIGTERM);
+- upgrade finalization and the operator's view (`ops_path`, Apache
+  Ozone's feature/Nonrolling-Upgrade.md, feature/Observability.md and
+  feature/Reconfigurability.md): an ScmOmDaemon with its HTTP server and
+  Recon and 10 DatanodeDaemons, rs-6-3-1024k, the metadata services and
+  nine datanodes at layout 2 and one at 0: (a) `admin upgrade`, 4 keys of
+  64 MiB and odd tails PUT with every member downgraded to per-chunk
+  verbs (counted per member), a snapshot create, an aws-chunked S3 PUT and
+  a StreamWriteBlock refused with NOT_SUPPORTED_OPERATION_PRIOR_
+  FINALIZATION; (b) `admin finalizeupgrade` (seconds until every datanode
+  reports the latest layout), 4 keys on the native batched lane (GiB/s
+  against (a)'s), the three verbs succeed; (c) Recon's tasks, du, the
+  container-key map, `/api/codec` against the launch counter, the node
+  layouts, the warehouse; (d) a degraded GET decoding on the card, Recon's
+  unhealthy and healthy views around the SCM's rebuild; (e) `/prom` under
+  the golden rules with exemplars, `/stacks`, live reconfiguration; (f)
+  insight against a datanode, a PUT's trace at the collector with its
+  critical path, and `audit` over the OM's audit log.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -3117,12 +3134,16 @@ def check_ec_units(dn_of, groups, data: np.ndarray, bpc: int, what: str,
 
 @contextlib.contextmanager
 def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str,
-                   background_interval_s: float = 0.5, ratis: bool = False):
+                   background_interval_s: float = 0.5, ratis: bool = False,
+                   layouts: dict | None = None, meta_kw: dict | None = None):
     """An ScmOmDaemon (its lifecycle sweep on `device`, its background pass
-    every `background_interval_s`) and `n_dn` DatanodeDaemons on loopback,
-    each with its native datapath, and an OzoneClient over RemoteOmClient
-    (with `ratis`, RATIS/THREE keys go through the pipeline rings); yields
-    (meta, daemons, client)."""
+    every `background_interval_s`, and `meta_kw` such as its HTTP and
+    Recon ports) and `n_dn` DatanodeDaemons on loopback, each with its
+    native datapath, and an OzoneClient over RemoteOmClient (with `ratis`,
+    RATIS/THREE keys go through the pipeline rings); yields (meta,
+    daemons, client). `layouts` seeds `layout_version.json` before the
+    daemons start: key "meta" for the metadata services, an int i for
+    datanode i."""
     from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
     from ozone_tpu_torch.client.ozone_client import OzoneClient
     from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
@@ -3134,12 +3155,18 @@ def daemon_cluster(device, n_dn: int, cell: int, seed: int, tag: str,
     os.environ["OZONE_TPU_LIFECYCLE_PERIOD_S"] = "1e9"
     with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{tag}-") as tmp:
         root = Path(tmp)
+        for where, version in (layouts or {}).items():
+            d = root if where == "meta" else root / f"dn{where}"
+            d.mkdir(parents=True, exist_ok=True)
+            (d / "layout_version.json").write_text(
+                json.dumps({"layout_version": version}))
         try:
             meta = ScmOmDaemon(root / "om.db", block_size=16 * cell,
                                container_size=4096 * cell, stale_after_s=30.0,
                                dead_after_s=60.0,
                                background_interval_s=background_interval_s,
-                               placement_seed=seed, device=device)
+                               placement_seed=seed, device=device,
+                               **(meta_kw or {}))
         finally:
             if old_period is None:
                 os.environ.pop("OZONE_TPU_LIFECYCLE_PERIOD_S")
@@ -4414,14 +4441,16 @@ def fs_path(device, cell: int, bpc: int, seed: int, n_io: int = 8,
 
 # ---------------------------------------------------------------- security
 def repair_onto_spare(meta, dns, by_id, victim: str, device, bpc: int, what: str,
-                      how: str) -> dict:
+                      how: str, on_dead=None) -> dict:
     """The victim datanode dies (stopped, its heartbeat far in the past, the
     SCM's liveness sweep declares it DEAD) and the SCM's reconstruction
     commands rebuild each of its EC units on a survivor: every rebuilt
     chunk must equal the lost one with CRCs equal to the host CRC32C, the
     rebuilt containers CLOSED, no command failed, and the step's kernel
     launches equal the service's dispatches (and be more than none on the
-    card). Returns its launches, seconds and MiB/s per target."""
+    card). `on_dead()` runs once the node is DEAD, inside the timed and
+    counted window (it must launch nothing). Returns its launches,
+    seconds and MiB/s per target."""
     from ozone_tpu_torch.codec import fused_kernel
     from ozone_tpu_torch.scm.node_manager import NodeState
     from ozone_tpu_torch.storage.ids import ContainerState
@@ -4444,6 +4473,8 @@ def repair_onto_spare(meta, dns, by_id, victim: str, device, bpc: int, what: str
     before = service_counts()
     fused_kernel.launches.reset()
     t0 = time.perf_counter()
+    if on_dead is not None:
+        on_dead()
 
     def holder(bid):
         with meta.scm_service.lock:
@@ -7502,6 +7533,468 @@ def shard_path(device, cell: int, bpc: int, seed: int, n_keys: int = 8,
     return out
 
 
+def check_prom_text(text: str) -> int:
+    """The `/prom` golden rules over a scrape: every `# TYPE` line names a
+    stable metric of a known type, follows its `# HELP` line and precedes
+    its samples, and every counter of every registry of this process is
+    there. Returns the number of metric families."""
+    import re
+
+    from ozone_tpu_torch.utils import metrics
+
+    lines = text.splitlines()
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    seen = set()
+    for i, line in enumerate(lines):
+        if not line.startswith("# TYPE "):
+            continue
+        _, _, metric, mtype = line.split(" ")
+        if mtype not in ("counter", "gauge", "summary", "histogram") \
+                or not name_re.match(metric) \
+                or not lines[i - 1].startswith(f"# HELP {metric} ") \
+                or not lines[i + 1].startswith(metric):
+            raise AssertionError(f"/prom: family {metric} breaks the exposition rules")
+        seen.add(metric)
+    with metrics._all_lock:
+        regs = dict(metrics._all_registries)
+    for name, reg in regs.items():
+        base = name.replace(".", "_").replace("-", "_")
+        for k in list(reg._counters):
+            want = f"{base}_{k.replace('.', '_').replace('-', '_')}"
+            if want not in seen:
+                raise AssertionError(f"/prom: registry {name} lacks {want}")
+    return len(seen)
+
+
+def ops_path(device, cell: int, bpc: int, seed: int, n_keys: int = 8,
+             key_cells: int = 64) -> dict:
+    """Upgrade finalization and the operator's view (Apache Ozone's
+    feature/Nonrolling-Upgrade.md, feature/Observability.md and
+    feature/Reconfigurability.md; docs/OPERATIONS.md): an ScmOmDaemon with
+    its HTTP server and Recon (tasks every 2 s) and 10 DatanodeDaemons,
+    rs-6-3 at `cell` with CRC32C over `bpc`, the metadata services and
+    nine datanodes seeded at layout 2, one at 0. (a) `admin upgrade`
+    shows the gated features; 4 of the `n_keys` keys of `key_cells`
+    cells and odd tails are PUT with every member downgraded to per-chunk
+    verbs (counted per member, no native write stream); a snapshot
+    create, an aws-chunked S3 PUT and a StreamWriteBlock are refused with
+    NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION and change nothing. (b)
+    `admin finalizeupgrade`: seconds until every datanode reports the
+    latest layout in the node table and on disk; 4 more keys on the
+    batched native lane (GiB/s against (a)'s); the three verbs succeed.
+    (c) Recon: `run_tasks_once` seconds, du equal to the bytes written,
+    every key's containers mapped, `/api/codec` dispatches equal the
+    launch counter's delta, the layouts in `/api/nodes`, a warehouse row
+    per task run. (d) A data-unit holder stopped: a degraded GET decodes
+    on the card; once it is DEAD, seconds until `/api/containers/
+    unhealthy` lists its containers with their missing index, the SCM's
+    rebuild (every chunk against the lost one) and seconds until Recon
+    reports them healthy. (e) A `/prom` scrape under the golden rules
+    (bytes, ms, exemplar trace ids), `/stacks` with the codec dispatcher
+    thread, `admin reconfig set ozone.scm.dead.node.interval`. (f)
+    `insight list|metrics|log-level|logs` against a datanode, `trace
+    slow|show` of a PUT's spans at the collector, `audit top|failures`
+    over the OM's audit log. Every key is byte-exact; launches equal the
+    codec service's dispatches in every step."""
+    import collections
+    import urllib.request
+
+    from ozone_tpu_torch.client.native_dn import NativeDatanodeClient
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.gateway.s3 import S3Gateway
+    from ozone_tpu_torch.net.dn_service import RpcDatanodeClient
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.storage.ids import BlockID, StorageError
+    from ozone_tpu_torch.tools import cli
+    from ozone_tpu_torch.utils import upgrade as ug
+    from ozone_tpu_torch.utils.insight import INSIGHT_POINTS
+    from ozone_tpu_torch.utils.metrics import registry
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    rs = f"rs-6-3-{cell // 1024}k"
+    rng = np.random.default_rng(seed + 21)
+    gib = float(1 << 30)
+    pre = ug.PRE_FINALIZE_ERROR
+    out: dict = {"launches": {}}
+    issued: collections.Counter = collections.Counter()
+    refused: list[str] = []
+    sizes = [key_cells * cell + 12345 * (i + 1) for i in range(n_keys)]
+    keys = [rng.integers(0, 256, n, dtype=np.uint8) for n in sizes]
+    s0 = service_counts()
+
+    def begin() -> dict:
+        fused_kernel.launches.reset()
+        return service_counts()
+
+    def end(what: str, key: str, mark: dict, decode: bool = False) -> int:
+        launches = fused_kernel.launches.count
+        check_launches_equal(what, device, launches, service_delta(mark))
+        if device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{what}: no {'decode' if decode else 'encode'} "
+                                 "launched")
+        out["launches"][key] = out["launches"].get(key, 0) + launches
+        return launches
+
+    def cli_text(*argv) -> str:
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        if rc != 0:
+            raise AssertionError(f"CLI {' '.join(argv)} exited {rc}")
+        return buf.getvalue()
+
+    def code(fn) -> str | None:
+        try:
+            fn()
+        except StorageError as e:
+            return e.code
+        return None
+
+    def http_json(addr: str, path: str):
+        with urllib.request.urlopen(f"http://{addr}{path}", timeout=30) as r:
+            return json.loads(r.read())
+
+    audit_log = logging.getLogger("audit.om")
+    layouts = {"meta": 2, **{i: 2 for i in range(9)}, 9: 0}
+    meta_kw = {"http_port": 0, "recon_port": 0, "recon_interval_s": 2.0}
+    with codec_route(True), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-ops-audit-") as tmp, \
+            daemon_cluster(device, 10, cell, seed, "ops", layouts=layouts,
+                           meta_kw=meta_kw) as (meta, dns, oz):
+        root = Path(tmp)
+        handler = logging.FileHandler(root / "om-audit.log")
+        old_level = audit_log.level
+        audit_log.addHandler(handler)
+        audit_log.setLevel(logging.INFO)
+        scm = RemoteScmClient(meta.address)
+        gw = None
+        dn0 = RpcDatanodeClient(dns[0].dn.id, dns[0].address)
+        try:
+            addr = meta.address
+            by_id = {d.dn.id: d for d in dns}
+
+            # (a) before finalization
+            st = cli_json("admin", "upgrade", "--om", addr)
+            gated = [f["name"] for f in st["features"] if not f["allowed"]]
+            if not st["needs_finalization"] or st["metadata_version"] != 2 or \
+                    gated != ["BUCKET_SNAPSHOTS", "S3_CHUNKED_UPLOAD",
+                              "RATIS_STREAMING_WRITE"]:
+                raise AssertionError(f"admin upgrade before finalization: {st}")
+            want = [2] * 9 + [0]
+            if [d.layout.metadata_version for d in dns] != want:
+                raise AssertionError("datanode layouts differ from the seeded ones")
+            wait_for("the seeded layouts in the node table", lambda: sorted(
+                (n["dn_id"], n["layout_version"]) for n in scm.status()["nodes"])
+                == [(f"dn{i}", v) for i, v in enumerate(want)], 30)
+            vol = oz.create_volume("opsv")
+            b = vol.create_bucket("ec", replication=rs)
+            issued.update(["CreateVolume", "CreateBucket"])
+            ids = [d.dn.id for d in dns]
+
+            def member_downgrades() -> dict:
+                out_ = {}
+                for dn_id in ids:
+                    c = oz.clients.maybe_get(dn_id)
+                    if isinstance(c, NativeDatanodeClient):
+                        out_[dn_id] = c.layout_downgrades
+                return out_
+
+            batch = registry("ec.writer").counter("batch_downgrades")
+
+            def put(idx: list[int], what: str, key: str) -> dict:
+                d0, b0 = member_downgrades(), batch.value
+                mark = begin()
+                t0 = time.perf_counter()
+                with LaneMeter(dns) as m:
+                    concurrent(lambda i: b.write_key(f"k{i}", keys[i]), idx)
+                secs = time.perf_counter() - t0
+                issued.update(["OpenKey", "CommitKey"] * len(idx))
+                launches = end(what, key, mark)
+                d1 = member_downgrades()
+                per = {dn: d1.get(dn, 0) - d0.get(dn, 0) for dn in ids}
+                nbytes = sum(sizes[i] for i in idx)
+                rate = nbytes / secs / gib
+                print(f"{what}: {len(idx)} keys, {nbytes} B in {secs:.3f} s = "
+                      f"{rate:.3f} GiB/s (wall); launches {launches}; batched-verb "
+                      f"refusals {batch.value - b0}; native-lane refusals per member "
+                      f"{per}; {m.line('batched_write_chunks')}")
+                return {"gib_s": rate, "per_member": per, "lane": m.d,
+                        "batch_refusals": batch.value - b0}
+
+            pre_put = put(list(range(n_keys // 2)), "ops PUT before finalization",
+                          "ops_put_pre_finalize")
+            touched = {dn for i in range(n_keys // 2)
+                       for g in oz.om.lookup_key("opsv", "ec", f"k{i}")["block_groups"]
+                       for dn in g["nodes"]}
+            if pre_put["lane"]["native_write_streams"] != 0 or any(
+                    pre_put["per_member"][dn] <= 0 for dn in touched) or \
+                    pre_put["batch_refusals"] < n_keys // 2:
+                raise AssertionError("before finalization every member must downgrade "
+                                     f"(counted) and no native write stream land: {pre_put}")
+            # the three gated verbs are refused and change nothing
+            refused.append("CreateSnapshot")
+            if code(lambda: oz.om.create_snapshot("opsv", "ec", "s1")) != pre or \
+                    oz.om.list_snapshots("opsv", "ec"):
+                raise AssertionError("snapshot create was not refused before finalization")
+            gw = S3Gateway(oz, replication=rs)
+            gw.upgrade_cache_ttl_s = 0.0
+            gw.start()
+            issued["CreateVolume"] += 1  # the gateway's s3v
+            secret = meta.om.get_s3_secret("ops")
+            issued["SetS3Secret"] += 1
+            s3 = S3Client(gw.address, "ops", secret)
+            s3.ok("PUT", "/opsb")
+            issued["CreateBucket"] += 1
+            chunked = rng.integers(0, 256, 3 * cell + 777, dtype=np.uint8).tobytes()
+            st_, _, _ = s3.req("PUT", "/opsb/chunked", chunked, streaming=True)
+            st_get, _, _ = s3.req("GET", "/opsb/chunked")
+            if st_ != 501 or st_get != 404:
+                raise AssertionError(f"aws-chunked PUT before finalization: {st_}, then "
+                                     f"GET {st_get}")
+            dn0.create_container(10 ** 6)
+            if code(lambda: dn0.stream_write_block(BlockID(10 ** 6, 1), [b"x" * 4096])) \
+                    != pre or code(lambda: dn0.get_block(BlockID(10 ** 6, 1))) is None:
+                raise AssertionError("StreamWriteBlock was not refused before finalization")
+            print(f"ops refusals before finalization: snapshot create, aws-chunked PUT "
+                  f"(HTTP {st_}), StreamWriteBlock all {pre}; nothing written")
+            mark = begin()
+            got = concurrent(lambda i: b.read_key(f"k{i}"), list(range(n_keys // 2)))
+            if not all(np.array_equal(g, keys[i]) for i, g in enumerate(got)):
+                raise AssertionError("ops GET before finalization: bytes differ")
+            del got
+            check_launches_equal("ops GET before finalization", device,
+                                 fused_kernel.launches.count, service_delta(mark))
+
+            # (b) finalization
+            t0 = time.perf_counter()
+            fin = cli_json("admin", "finalizeupgrade", "--om", addr)
+            if fin != {"scm": "FINALIZATION_DONE", "datanodes_notified": 10}:
+                raise AssertionError(f"admin finalizeupgrade: {fin}")
+            latest = ug.LATEST_VERSION
+
+            def finalized() -> bool:
+                return all(n["layout_version"] == latest
+                           for n in scm.status()["nodes"]) and all(
+                    json.loads((d.dn.root / "layout_version.json").read_text()
+                               )["layout_version"] == latest for d in dns)
+
+            fin_s = wait_for("every datanode finalized", finalized, 60, poll_s=0.05)
+            fin_s = time.perf_counter() - t0
+            post_put = put(list(range(n_keys // 2, n_keys)), "ops PUT after finalization",
+                           "ops_put_post_finalize")
+            if post_put["lane"]["native_write_streams"] <= 0 or \
+                    any(post_put["per_member"].values()) or post_put["batch_refusals"]:
+                raise AssertionError(f"after finalization the native lane must carry "
+                                     f"the writes, with no refusal: {post_put}")
+            print(f"ops finalize: every datanode at layout {latest} in the node table and "
+                  f"on disk {fin_s:.3f} s after `admin finalizeupgrade`; PUT "
+                  f"{pre_put['gib_s']:.3f} GiB/s before (per-chunk verbs) against "
+                  f"{post_put['gib_s']:.3f} GiB/s after (native batched lane)")
+            out.update(finalize_s=fin_s, put_gib_s_before=pre_put["gib_s"],
+                       put_gib_s_after=post_put["gib_s"])
+            oz.om.create_snapshot("opsv", "ec", "s1")
+            issued["CreateSnapshot"] += 1
+            mark = begin()
+            s3.ok("PUT", "/opsb/chunked", chunked, streaming=True)
+            issued.update(["OpenKey", "CommitKey"])
+            if s3.ok("GET", "/opsb/chunked")[1] != chunked:
+                raise AssertionError("aws-chunked object differs")
+            end("ops aws-chunked PUT after finalization", "ops_s3_chunked", mark)
+            if dn0.stream_write_block(BlockID(10 ** 6, 1), [b"x" * 4096]).length != 4096:
+                raise AssertionError("StreamWriteBlock after finalization")
+            print("ops after finalization: snapshot s1 created, aws-chunked PUT and GET "
+                  "byte-exact, StreamWriteBlock committed 4096 B")
+
+            # (c) Recon
+            recon = meta.recon
+            t0 = time.perf_counter()
+            recon.run_tasks_once()
+            out["recon_tasks_s"] = time.perf_counter() - t0
+            ra = recon.address
+            du = http_json(ra, "/api/nssummary?path=/opsv/ec")
+            if (du["total_files"], du["total_bytes"]) != (n_keys, sum(sizes)):
+                raise AssertionError(f"Recon du {du} != {n_keys} keys of {sum(sizes)} B")
+            ck = http_json(ra, "/api/containers/keys")
+            for i in range(n_keys):
+                for g in oz.om.lookup_key("opsv", "ec", f"k{i}")["block_groups"]:
+                    if f"/opsv/ec/k{i}" not in ck.get(str(g["container_id"]), []):
+                        raise AssertionError(f"Recon does not map k{i} to container "
+                                             f"{g['container_id']}")
+            for _ in range(5):  # read between two equal launch totals
+                l0 = fused_kernel.launches.total
+                cx = http_json(ra, "/api/codec")
+                if fused_kernel.launches.total == l0:
+                    break
+            launched = l0 - s0["launches_total"]
+            if device.type == "cuda" and cx["dispatches"] - s0["dispatches"] != launched:
+                raise AssertionError(f"/api/codec dispatches {cx['dispatches']} - "
+                                     f"{s0['dispatches']} != launches {launched}")
+            nodes = http_json(ra, "/api/nodes")
+            if sorted(n["layout_version"] for n in nodes) != [latest] * 10:
+                raise AssertionError(f"/api/nodes layouts {nodes}")
+            kinds = ("namespace", "filesizes", "container_health", "nodes",
+                     "table_counts")
+            rows = wait_for("a warehouse row per task run", lambda: len(
+                {len(recon.warehouse.history(k, 1000)) for k in kinds}) == 1, 10)
+            runs = len(recon.warehouse.history("namespace", 1000))
+            print(f"ops Recon: run_tasks_once {out['recon_tasks_s']:.3f} s; du "
+                  f"{du['total_bytes']} B in {du['total_files']} keys; every key's "
+                  f"containers mapped; /api/codec dispatches since the phase began "
+                  f"{cx['dispatches'] - s0['dispatches']} = kernel launches {launched}; "
+                  f"/api/nodes layouts all {latest}; {runs} task runs, one warehouse row "
+                  f"each of {len(kinds)} kinds ({rows:.2f} s wait)")
+
+            # (d) a datanode stopped: degraded GET, Recon's view, the rebuild
+            for c in scm.list_containers():
+                if c["id"] != 10 ** 6:
+                    scm.admin("close-container", str(c["id"]))
+            wait_for("containers closed", lambda: all(
+                c["state"] == "CLOSED" and all(r["state"] == "CLOSED" for r in c["replicas"])
+                for c in scm.list_containers()), 60)
+            info0 = oz.om.lookup_key("opsv", "ec", "k0")
+            victim = info0["block_groups"][0]["nodes"][0]
+            vdn = by_id[victim].dn
+            vcont = {c.id: c.replica_index for c in vdn.list_containers()
+                     if c.replica_index > 0}
+            stop_server(by_id[victim])
+            mark = begin()
+            t0 = time.perf_counter()
+            got = b.read_key("k0")
+            deg_s = time.perf_counter() - t0
+            if not np.array_equal(got, keys[0]):
+                raise AssertionError("ops degraded GET: bytes differ")
+            del got
+            end("ops degraded GET", "ops_degraded_get", mark, decode=True)
+            print(f"ops degraded GET ({victim} down): {sizes[0]} B byte-exact in "
+                  f"{deg_s:.3f} s = {sizes[0] / deg_s / gib:.3f} GiB/s (wall)")
+
+            def unhealthy_listed() -> bool:
+                rows_ = {r["container"]: r for r in
+                         http_json(ra, "/api/containers/unhealthy")}
+                return all(idx in rows_.get(cid, {}).get("missing_indexes", [])
+                           for cid, idx in vcont.items())
+
+            t_dead = [0.0]
+
+            def on_dead():
+                t_dead[0] = time.perf_counter()
+                out["recon_unhealthy_s"] = wait_for(
+                    "Recon lists the dead node's containers", unhealthy_listed, 30,
+                    poll_s=0.02)
+
+            rep = repair_onto_spare(meta, dns, by_id, victim, device, bpc,
+                                    "ops repair", "by the SCM's commands",
+                                    on_dead=on_dead)
+            out["launches"]["ops_repair"] = rep["launches"]
+
+            def healthy() -> bool:
+                h = http_json(ra, "/api/containers/health")
+                return all(cid in h["healthy"] for cid in vcont)
+
+            wait_for("Recon reports the rebuilt containers healthy", healthy, 60,
+                     poll_s=0.05)
+            out["recon_healthy_s"] = time.perf_counter() - t_dead[0]
+            print(f"ops Recon over the repair: {sorted(vcont)} listed unhealthy with "
+                  f"their missing index {out['recon_unhealthy_s']:.3f} s after {victim} "
+                  f"was DEAD; rebuilt in {rep['seconds']:.3f} s; healthy in Recon "
+                  f"{out['recon_healthy_s']:.3f} s after the death")
+
+            # (e) HTTP: /prom, /stacks, /reconfig
+            ha = meta.http.address
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://{ha}/prom", timeout=30) as r:
+                prom = r.read().decode()
+            prom_ms = 1e3 * (time.perf_counter() - t0)
+            fams = check_prom_text(prom)
+            exemplars = sum(1 for ln in prom.splitlines() if ' # {trace_id="' in ln)
+            if not exemplars:
+                raise AssertionError("/prom: no exemplar trace id")
+            with urllib.request.urlopen(f"http://{ha}/stacks", timeout=30) as r:
+                stacks = r.read().decode()
+            if 'Thread "codec-service"' not in stacks:
+                raise AssertionError("/stacks does not list the codec dispatcher thread")
+            rc_ = cli_json("admin", "reconfig", "set", "ozone.scm.dead.node.interval",
+                           "--value", "120", "--http", ha)
+            if rc_["new"] != 120.0 or meta.scm.nodes.dead_after != 120.0:
+                raise AssertionError(f"live reconfiguration: {rc_}")
+            out.update(prom_bytes=len(prom), prom_ms=prom_ms)
+            print(f"ops HTTP: /prom {len(prom)} B in {prom_ms:.2f} ms, {fams} families "
+                  f"under the golden rules, {exemplars} exemplar trace ids; /stacks "
+                  f"lists codec-service; reconfig ozone.scm.dead.node.interval "
+                  f"{rc_['old']} -> {rc_['new']} s, the node manager reads "
+                  f"{meta.scm.nodes.dead_after}")
+
+            # (f) insight, trace, audit
+            d1 = next(d for d in dns if d.dn.id != victim)
+            pts = cli_json("insight", "list", "--address", d1.address)
+            mx = cli_json("insight", "metrics", "--address", d1.address)
+            reg = mx["registries"].get(f"datanode.{d1.dn.id}", {})
+            if set(pts["points"]) != set(INSIGHT_POINTS) or \
+                    reg.get("bytes_written", 0) <= 0:
+                raise AssertionError(f"insight against {d1.dn.id}: {pts['component']}, "
+                                     f"{reg}")
+            cli_json("insight", "log-level", "--address", d1.address, "--logger",
+                     "ozone_tpu_torch.utils.http_server", "--level", "DEBUG")
+            http_json(ra, "/api/summary")
+            logs = cli_text("insight", "logs", "--address", d1.address, "--logger",
+                            "ozone_tpu_torch.utils.http_server", "--level", "DEBUG",
+                            "-n", "20")
+            cli_json("insight", "log-level", "--address", d1.address, "--logger",
+                     "ozone_tpu_torch.utils.http_server", "--level", "NOTSET")
+            if "/api/summary" not in logs:
+                raise AssertionError(f"insight logs after SetLogLevel DEBUG: {logs!r}")
+            with env_set(OZONE_TPU_TRACE_SLO_CLIENT_PUT_MS="0"):
+                small = rng.integers(0, 256, 2 * cell + 7, dtype=np.uint8)
+                mark = begin()
+                b.write_key("traced", small)
+                issued.update(["OpenKey", "CommitKey"])
+                end("ops traced PUT", "ops_traced_put", mark)
+                tid = next(t["traceId"] for t in Tracer.instance().recorder.slow(10)
+                           if t["root"] == "client:put")
+
+                def assembled() -> bool:
+                    for d in dns:
+                        d.trace_exporter.flush()
+                    names = {sp["name"] for sp in meta.trace_collector.trace(tid)}
+                    return "client:put" in names and any(
+                        "DatanodeService" in n and n.startswith("server:") for n in names)
+
+                trace_s = wait_for("the PUT's trace at the collector", assembled, 60,
+                                   poll_s=0.2)
+            spans = meta.trace_collector.trace(tid)
+            slow = cli_json("trace", "slow", "--om", addr)
+            shown = cli_text("trace", "show", tid, "--om", addr)
+            if tid not in {t["traceId"] for t in slow} or "critical path:" not in shown:
+                raise AssertionError(f"trace {tid} not retained by the collector")
+            stages = [ln.split()[0] for ln in shown.splitlines()[2:]]
+            print(f"ops trace {tid}: {len(spans)} spans at the collector ({trace_s:.2f} s), "
+                  f"client and datanode under one id; critical path stages {stages}")
+            handler.flush()
+            top = {r["action"]: r["count"] for r in
+                   cli_json("audit", "top", str(root / "om-audit.log"), "-n", "100")}
+            fails = cli_json("audit", "failures", str(root / "om-audit.log"), "-n", "100")
+            total = collections.Counter(issued)
+            total.update(refused)
+            if top != dict(total) or [(r["action"], r.get("error")) for r in fails] != \
+                    [(a, pre) for a in refused]:
+                raise AssertionError(f"audit: {top} != issued {dict(total)}, failures "
+                                     f"{fails}")
+            print(f"ops audit: {sum(top.values())} records, by action {top}; failures "
+                  f"{[(r['action'], r['error']) for r in fails]}")
+            out["audit"] = top
+        finally:
+            audit_log.removeHandler(handler)
+            audit_log.setLevel(old_level)
+            handler.close()
+            dn0.close()
+            if gw is not None:
+                gw.stop()
+            scm.close()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7650,7 +8143,10 @@ def main() -> int:
         adm = phase("scm_admin_path", scm_admin_path, device, MIB, bpc, args.seed)
         snap = phase("snapshot_path", snapshot_path, device, MIB, bpc, args.seed)
         geo = phase("geo_path", geo_path, device, MIB, bpc, args.seed)
-        shard = phase("shard_path", shard_path, device, MIB, bpc, args.seed)
+        # depth cut for ops_path's room: omkg 600 keys in process (of 1500)
+        shard = phase("shard_path", shard_path, device, MIB, bpc, args.seed,
+                      omkg_keys=600)
+        ops = phase("ops_path", ops_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -7683,6 +8179,7 @@ def main() -> int:
             **so["launches"], **ha["launches"], **fs["launches"],
             **sec["launches"], **enc["launches"], **adm["launches"],
             **snap["launches"], **geo["launches"], **shard["launches"],
+            **ops["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

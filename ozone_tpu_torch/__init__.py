@@ -12,3 +12,5 @@ kernel (or raises) for a CUDA tensor. Entry points default to
 `device="cuda"` and raise when CUDA is absent unless the caller passes
 `device="cpu"`.
 """
+
+__version__ = "0.1.0"

@@ -27,6 +27,7 @@ from ozone_tpu_torch.admission.controller import (
     ambient_qos,
     busy_error,
     controller,
+    controllers,
     current_tenant,
     qos_class_for,
     reset_for_tests,
@@ -45,6 +46,7 @@ __all__ = [
     "ambient_qos",
     "busy_error",
     "controller",
+    "controllers",
     "current_tenant",
     "qos_class_for",
     "reset_for_tests",

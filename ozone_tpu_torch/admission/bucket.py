@@ -69,6 +69,10 @@ class TenantBuckets:
                 pair = self._buckets[tenant] = (ops, byt)
             return pair
 
+    def tenants(self) -> list[str]:
+        with self._lock:
+            return sorted(self._buckets)
+
     def try_admit(self, tenant: str,
                   nbytes: int = 0) -> tuple[Optional[str], float]:
         """(None, 0.0) when admitted (both dimensions booked), else

@@ -128,6 +128,26 @@ class AdmissionController:
         self.shedder = shedder or SloShedder()
         self.retry_after_s = retry_after_s
 
+    @property
+    def enabled(self) -> bool:
+        return (self.gate.limit > 0 or self.buckets.enabled
+                or self.shedder.enabled)
+
+    def snapshot(self) -> dict:
+        """The hop's knobs, live in-flight depth, tenants seen and shed
+        state (Recon's /api/admission)."""
+        return {
+            "hop": self.hop,
+            "enabled": self.enabled,
+            "queue_limit": self.gate.limit,
+            "inflight": self.gate.inflight,
+            "ops_per_s": self.buckets.ops_per_s,
+            "bytes_per_s": self.buckets.bytes_per_s,
+            "burst_s": self.buckets.burst_s,
+            "tenants": self.buckets.tenants(),
+            "shed": self.shedder.snapshot(),
+        }
+
     def _reject(self, reason: str, retry_after_s: float) -> StorageError:
         METRICS.counter(f"{self.hop}_rejected_total").inc()
         METRICS.counter(f"{self.hop}_rejected_{reason}").inc()
@@ -196,6 +216,12 @@ def controller(hop: str) -> AdmissionController:
                 retry_after_s=_hop_knob_f(hop, "RETRY_AFTER_S", 0.25),
             )
         return ctl
+
+
+def controllers() -> dict[str, AdmissionController]:
+    """The installed controllers (Recon's /api/admission)."""
+    with _controllers_lock:
+        return dict(_controllers)
 
 
 def reset_for_tests() -> None:

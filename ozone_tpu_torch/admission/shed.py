@@ -61,6 +61,12 @@ class SloShedder:
             self._cached_at = now
             return self._cached
 
+    def snapshot(self) -> dict:
+        """Recon's view of the shedder (the reference's, less its mesh
+        signal)."""
+        return {"p99_ms": self.p99_ms, "codec_depth": self.codec_depth,
+                "over_budget": self.over_budget()}
+
     def should_shed(self, priority: str) -> Optional[str]:
         """Bulk work is refused while over budget; interactive work
         always passes."""

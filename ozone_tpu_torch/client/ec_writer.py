@@ -23,7 +23,8 @@ per unit: all the run's chunks plus the commit. With batched_rpc=False
 batched verb (a protocol downgrade, not a device fallback), each stripe
 is written on its own: k+p WriteChunk calls, then a PutBlock barrier on
 every unit, whose order defines the ack watermark (the reference's
-flushStripeFromQueue).
+flushStripeFromQueue). Each member's refusal of the batched verb counts
+once in the `ec.writer` registry's `batch_downgrades`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from ozone_tpu_torch.codec.pipeline import finish_pull, host_buffer, start_pull
 from ozone_tpu_torch.scm.pipeline import Pipeline
 from ozone_tpu_torch.storage.ids import BlockData, BlockID, ChunkInfo, StorageError
 from ozone_tpu_torch.utils.checksum import Checksum, ChecksumData, ChecksumType
+from ozone_tpu_torch.utils.metrics import registry
 from ozone_tpu_torch.utils.tracing import Tracer
 
 log = logging.getLogger(__name__)
@@ -468,6 +470,7 @@ class ECKeyWriter:
             elif batch_unsupported(err):
                 unsupported = True
                 cause = err
+                registry("ec.writer").counter("batch_downgrades").inc()
             elif isinstance(err, StorageError) \
                     and err.code == "INVALID_CONTAINER_STATE":
                 # container closed under us: a reallocation signal, not a

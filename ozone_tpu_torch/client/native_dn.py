@@ -24,7 +24,13 @@ datanode's new sidecar is found. `OZONE_TPU_NATIVE_DATAPATH=0`, or
 header carries the block token of its factory's `TokenStore`, which the
 sidecar's auth callback verifies once per stream. With `tls` the lane
 is off (the reference's rule: a mutual-TLS cluster keeps every verb on
-the authenticated RPC). Left out: the reference's partition checks.
+the authenticated RPC). Before a datanode finalizes its layout
+(RATIS_STREAMING_WRITE), its sidecar refuses write streams with
+NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION: a single-chunk write then
+runs as the RPC's WriteChunk (the verb predates the gate), a batched one
+raises for the writer to downgrade, and each such refusal is counted per
+client (`layout_downgrades`) and in `datapath.layout_downgrades`. Left
+out: the reference's partition checks.
 
 Frames (must match `csrc/datapath.cpp`): u32 length | u8 tag | body,
 little-endian; checksums travel as the u32 values of the stored
@@ -75,6 +81,8 @@ _POOL_CAP = 4
 
 #: bulk-verb calls that ran over the RPC although the native lane was on
 _FALLBACKS = hostmem.METRICS.counter("native_fallbacks")
+#: native write streams a datanode refused before finalizing its layout
+_LAYOUT_DOWNGRADES = hostmem.METRICS.counter("layout_downgrades")
 
 
 def enabled() -> bool:
@@ -198,6 +206,8 @@ class NativeDatanodeClient(RpcDatanodeClient):
         self._pool: list[_Conn] = []
         self._host = address.rsplit(":", 1)[0]
         self._fallback_logged = False
+        #: native write streams this datanode refused pre-finalize
+        self.layout_downgrades = 0
 
     # ------------------------------------------------------------ discovery
     def _lane(self, verb: str) -> Optional[int]:
@@ -284,20 +294,43 @@ class NativeDatanodeClient(RpcDatanodeClient):
                             f"native datapath to {self.address}: {e}")
 
     # ------------------------------------------------------------ write path
+    def _count_downgrade(self, e: StorageError) -> None:
+        """Count a pre-finalize refusal of a native write (raises
+        anything else)."""
+        from ozone_tpu_torch.utils.upgrade import PRE_FINALIZE_ERROR
+
+        if e.code != PRE_FINALIZE_ERROR:
+            raise e
+        self.layout_downgrades += 1
+        _LAYOUT_DOWNGRADES.inc()
+
     def write_chunks_commit(self, block_id, chunks, commit=None,
                             sync=False, writer=None):
         port = self._lane("WriteChunksCommit")
-        if port is None or not self._native_write(
+        try:
+            native = port is not None and self._native_write(
                 port, "WriteChunksCommit", block_id, chunks, commit, sync,
-                writer):
+                writer)
+        except StorageError as e:
+            # the batched verb is layout-gated on both lanes: the writer
+            # downgrades to per-chunk verbs
+            self._count_downgrade(e)
+            raise
+        if not native:
             super().write_chunks_commit(block_id, chunks, commit=commit,
                                         sync=sync, writer=writer)
 
     def write_chunk(self, block_id, info, data, sync=False, writer=None):
         port = self._lane("WriteChunk")
-        if port is None or not self._native_write(
+        try:
+            native = port is not None and self._native_write(
                 port, "WriteChunk", block_id, [(info, data)], None, sync,
-                writer):
+                writer)
+        except StorageError as e:
+            # the RPC's WriteChunk predates the layout gate
+            self._count_downgrade(e)
+            native = False
+        if not native:
             super().write_chunk(block_id, info, data, sync=sync,
                                 writer=writer)
 

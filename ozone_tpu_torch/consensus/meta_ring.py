@@ -20,8 +20,9 @@ also serves the replicated `om prepare` and the operator verbs
 `ring_add`, `ring_remove`, `ring_transfer` and `ring_status`. With
 `push_commit_on_write` (the sharded plane's follower-read rings) the
 leader pushes the commit index to its followers right after each write.
-Left out: the layout-feature gate at admission (the port has no
-finalizer).
+Admission checks the layout-feature gate (`OzoneManager.
+check_layout_allowed`) on the leader, as the standalone submit does;
+followers apply what the leader admitted.
 """
 
 from __future__ import annotations
@@ -202,6 +203,10 @@ class MetaHARing(RaftSCM):
                 "OM_PREPARED",
                 "OM is prepared for upgrade; writes are rejected until "
                 "cancelprepare")
+        # the layout gate at the standalone submit's admission point:
+        # only the leader admits, so a mixed-version ring stays
+        # deterministic
+        self.om.check_layout_allowed(type(request).__name__)
         from ozone_tpu_torch.utils.tracing import Tracer
 
         with Tracer.instance().span("om:submit",

@@ -38,12 +38,12 @@ grants READ to everyone (`*`), and a mutation where it grants WRITE
 (`_anonymous_allowed`); everything else anonymous is refused (403).
 Object `?acl` GET renders the effective policy (owner FULL_CONTROL and
 the bucket's public grants); object grants do not exist, so its PUT
-answers 501, as the reference's does. Where the reference answers from a
-module the port does not have yet, the gateway answers as Apache Ozone
-1.5 does: aws-chunked uploads are not gated on the
-`S3_CHUNKED_UPLOAD` layout feature, which the reference reads from the
-OM's upgrade status (the port has no finalizer, so the feature is always
-finalized). Encrypted (TDE and GDPR) buckets, multipart uploads
+answers 501, as the reference's does. aws-chunked uploads are gated on
+the `S3_CHUNKED_UPLOAD` layout feature, read from the OM's upgrade status
+(cached for `upgrade_cache_ttl_s`, 5 s): before the cluster finalizes,
+such a PUT answers 501 NotImplemented and writes nothing (a failed status
+read lets it through, as the reference's does: an unreachable OM fails
+the upload anyway). Encrypted (TDE and GDPR) buckets, multipart uploads
 included, are served through the client, which encrypts and decrypts. The
 wire protocol (paths, query verbs, XML bodies, ETags) follows S3.
 """
@@ -194,6 +194,10 @@ class S3Gateway:
         self.require_auth = require_auth
         #: signed-request freshness window (AWS: 15 min); 0 turns it off
         self.max_clock_skew_s = max_clock_skew_s
+        # the layout-feature view, refreshed from the OM on a short TTL
+        self._upgrade_cache: Optional[dict] = None
+        self._upgrade_cache_t = 0.0
+        self.upgrade_cache_ttl_s = 5.0
         try:
             client.om.create_volume(S3_VOLUME)
         except _OM_ERRORS:
@@ -306,6 +310,13 @@ class S3Gateway:
             secret, method, u.path, u.query, dict(h.headers), h._body(),
             auth, max_skew_s=self.max_clock_skew_s or None)
         if str(h.headers.get("x-amz-content-sha256", "")) == STREAMING:
+            if not self._feature_allowed("S3_CHUNKED_UPLOAD"):
+                # a layout-gated gateway feature: refused until the
+                # cluster finalizes
+                raise AuthError(
+                    "NotImplemented",
+                    "aws-chunked uploads need layout feature "
+                    "S3_CHUNKED_UPLOAD; cluster is not finalized")
             # verify the chunk chain; the operation gets the decoded
             # payload, whose declared length must match
             amz_date = str(h.headers.get("x-amz-date", ""))
@@ -324,6 +335,23 @@ class S3Gateway:
                                     f"decoded {len(decoded)} != {declared}")
             h._cached_body = decoded
         return auth.access_id
+
+    def _feature_allowed(self, name: str) -> bool:
+        """Is a layout-gated feature finalized cluster-wide? The OM's
+        UpgradeStatus with a short cache; open when the status cannot be
+        read (gating matters only while a reachable cluster is mid
+        upgrade)."""
+        now = time.monotonic()
+        if (self._upgrade_cache is None
+                or now - self._upgrade_cache_t > self.upgrade_cache_ttl_s):
+            try:
+                self._upgrade_cache = self.client.om.upgrade_status()
+                self._upgrade_cache_t = now
+            except Exception:  # noqa: BLE001
+                return True
+        feats = {f["name"]: f.get("allowed", True)
+                 for f in self._upgrade_cache.get("features", [])}
+        return bool(feats.get(name, True))
 
     def _authenticate_presigned(self, h, method: str, u) -> str:
         if str(h.headers.get("x-amz-content-sha256", "")) == STREAMING:

@@ -23,8 +23,9 @@ survivors of a slab past the dead-ratio knob are rewritten into a fresh
 slab through `client/slab.SlabPacker`, then the old slab row is retired
 and its blocks go to the SCM's deletion log; a bucket with snapshots is
 skipped, since its snapshots' rows may still name the slab's blocks.
-The codec runs on `device`. Left out: the FSO layout (the port serves no
-FSO bucket).
+The codec runs on `device`. The sweep skips FILE_SYSTEM_OPTIMIZED
+buckets, as the reference's does: its prefix rules read the flat key
+table, which an FSO bucket does not fill.
 """
 
 from __future__ import annotations

@@ -117,7 +117,24 @@ the leader gate when it has applied the caller's `_min_applied`, and the
 leader pushes its commit index after each write. `tools/shardd.py` runs
 one such daemon as a process.
 
-Left out: Recon and the HTTP server.
+Upgrade (`utils/upgrade.py`): each datanode keeps its layout version in
+`<root>/layout_version.json`, gates the streaming-write verbs on its RPC
+and its native sidecar with it, reports it on every heartbeat, and
+finalizes on the SCM's `finalize` command (the metadata daemon's
+`admin finalizeupgrade`); the metadata services keep theirs beside the
+SCM store. A store written by older software runs clamped before
+finalization.
+
+Observability: every daemon serves insight's verbs (`utils/insight.py`)
+on its RPC server and ships its spans every 2 s to the metadata daemon's
+`TraceCollector` (`utils/tracing.py`), whose own spans go straight in.
+`ScmOmDaemon(http_port=...)` serves `/prom`, `/prof`, `/stacks`,
+`/status` and `/reconfig` (`utils/http_server.py`) with three keys
+reconfigurable live: `ozone.scm.stale.node.interval`,
+`ozone.scm.dead.node.interval` and `ozone.om.block.size`.
+`recon_port` serves Recon (`recon/recon.py`, its warehouse in
+`<db dir>/recon.db`), whose tasks run on the background thread every
+`recon_interval_s` (30 s), never per tick.
 """
 
 from __future__ import annotations
@@ -166,11 +183,13 @@ from ozone_tpu_torch.storage.reconstruction import (
 )
 from ozone_tpu_torch.storage.scrubber import SCANNABLE_STATES, DeviceScrubber
 from ozone_tpu_torch.utils.ca import CertRenewalService
+from ozone_tpu_torch.utils.insight import InsightService
 from ozone_tpu_torch.utils.security import (
     BlockTokenIssuer,
     BlockTokenVerifier,
     SecretKeyManager,
 )
+from ozone_tpu_torch.utils.tracing import SpanExporter, TraceCollector, Tracer
 
 log = logging.getLogger(__name__)
 
@@ -202,6 +221,16 @@ class DatanodeDaemon:
         self.device = resolve_device(device)
         self.dn = Datanode(Path(root), dn_id=dn_id, num_volumes=num_volumes,
                            volume_policy=volume_policy)
+        # the layout version (VersionedDatanodeFeatures and the
+        # finalizeNewLayoutVersion command): it gates the streaming
+        # writes on the RPC and the sidecar
+        from ozone_tpu_torch.utils.upgrade import (
+            LayoutVersionManager,
+            UpgradeFinalizer,
+        )
+
+        self.layout = LayoutVersionManager(Path(root) / "layout_version.json")
+        self.finalizer = UpgradeFinalizer(self.layout)
         #: the live TLS identity (secure clusters) and its renewal loop
         self.tls = None
         self.cert_client = None
@@ -217,7 +246,8 @@ class DatanodeDaemon:
                 self._enroll(Path(root), dn_id, ca_address, enrollment_secret)
             if native_dn.enabled() and self.tls is None:
                 self.datapath = DatapathSidecar(self.dn, host=host,
-                                                verifier=self.verifier)
+                                                verifier=self.verifier,
+                                                layout=self.layout)
                 self.datapath.start()  # raises when it cannot build or bind
             self.server = RpcServer(host, port, tls=self.tls)
         except BaseException:
@@ -230,7 +260,8 @@ class DatanodeDaemon:
             self.server.crl_provider = self.tls.crl
         self.service = DatanodeRpcService(self.dn, self.server,
                                           datapath_port=self.advertise,
-                                          verifier=self.verifier)
+                                          verifier=self.verifier,
+                                          layout=self.layout)
         #: the replication bandwidth cap (None = unlimited): it paces the
         #: exports this node serves and the ones it pulls
         self.replication_throttle = None
@@ -250,6 +281,11 @@ class DatanodeDaemon:
         self.ratis_service = RatisRpcService(self.xceiver_ratis, self.server,
                                              verifier=self.verifier)
         self._groups_file = Path(root) / "ratis" / "groups.json"
+        self.insight = InsightService(self.server, f"datanode:{dn_id}")
+        # span export to the metadata daemon's collector
+        self.trace_exporter = SpanExporter(
+            Tracer.instance(), f"datanode-{dn_id}",
+            scm_address.split(",")[0].strip(), tls=self.tls)
         self.scm = RemoteScmClient(scm_address, tls=self.tls)
         self.rack = rack
         self.heartbeat_interval = heartbeat_interval_s
@@ -385,6 +421,7 @@ class DatanodeDaemon:
         self.server.start()
         if self.cert_renewal is not None:
             self.cert_renewal.start()
+        self.trace_exporter.start()
         self._rejoin_pipelines()
         try:
             self._register()
@@ -451,7 +488,8 @@ class DatanodeDaemon:
             commands = self.scm.heartbeat(
                 self.dn.id, container_report=report,
                 used_bytes=self._last_used, deleted_block_acks=acks,
-                healthy_volumes=self.dn.healthy_volume_count)
+                healthy_volumes=self.dn.healthy_volume_count,
+                layout_version=self.layout.metadata_version)
         except BaseException:
             self._pending_acks = acks + self._pending_acks
             raise
@@ -551,6 +589,10 @@ class DatanodeDaemon:
                     pass
         elif isinstance(cmd, dict) and cmd.get("type") == "close-container":
             self._close_container(cmd)
+        elif isinstance(cmd, dict) and cmd.get("type") == "finalize":
+            out = self.finalizer.finalize()
+            log.info("%s layout finalize: %s -> v%d", self.dn.id, out.value,
+                     self.layout.metadata_version)
         else:
             log.debug("%s ignoring command %r", self.dn.id, cmd)
 
@@ -636,6 +678,7 @@ class DatanodeDaemon:
         self._stop.set()
         if self.cert_renewal is not None:
             self.cert_renewal.stop()
+        self.trace_exporter.stop()
         for t in (self._hb, self._scanner):
             if t is not None:
                 t.join(timeout=5)
@@ -676,6 +719,9 @@ class ScmOmDaemon:
         ca_address: Optional[str] = None,
         shard_config: Optional[dict] = None,
         shard_map: Optional[dict] = None,
+        http_port: Optional[int] = None,
+        recon_port: Optional[int] = None,
+        recon_interval_s: float = 30.0,
     ):
         if block_tokens and not secure and not insecure_secrets:
             raise ValueError(
@@ -818,6 +864,75 @@ class ScmOmDaemon:
                 # background loop); a fresh commit index per write lets
                 # follower leases serve read-your-writes at once
                 self.ha.push_commit_on_write = True
+        self.insight = InsightService(self.server, "scm-om")
+        # the cluster trace collector, with this process's own spans fed
+        # straight in (no wire round trip)
+        self.trace_collector = TraceCollector(self.server)
+        self.trace_exporter = SpanExporter(
+            Tracer.instance(), "scm-om", collector=self.trace_collector)
+        self.http = None
+        if http_port is not None:
+            self.http = self._make_http(host, http_port, stale_after_s,
+                                        dead_after_s, block_size)
+        # Recon rides the metadata process and tails the same store
+        self.recon = None
+        if recon_port is not None:
+            from ozone_tpu_torch.recon.recon import ReconServer
+
+            self.recon = ReconServer(
+                self.om, self.scm, host=host, port=recon_port,
+                db_path=Path(om_db).parent / "recon.db")
+            # the slow-trace view serves the cluster collector's ring too
+            self.recon.trace_collector = self.trace_collector
+        # Recon's tasks scan the whole namespace: they run on their own
+        # cadence, never per background tick
+        self._recon_interval = recon_interval_s
+        self._recon_last = 0.0
+
+    def _make_http(self, host: str, port: int, stale_after_s: float,
+                   dead_after_s: float, block_size: int):
+        """/prom, /prof, /stacks, /status and live reconfiguration of the
+        liveness intervals and the OM's block size (the reference's
+        ReconfigureProtocol, feature/Reconfigurability.md)."""
+        from ozone_tpu_torch.utils.config import (
+            OzoneConfiguration,
+            ReconfigurationHandler,
+        )
+        from ozone_tpu_torch.utils.http_server import ServiceHttpServer
+
+        conf = OzoneConfiguration()
+        reconfig = ReconfigurationHandler(conf)
+
+        def set_float(attr):
+            def apply(v):
+                setattr(self.scm.nodes, attr, float(v))
+
+            return apply
+
+        def set_block_size(v):
+            self.om.block_size = int(v)
+
+        # seeded with the effective values, so /reconfig/properties
+        # reports what runs
+        for key, value, apply, validator, description in (
+                ("ozone.scm.stale.node.interval", stale_after_s,
+                 set_float("stale_after"), float,
+                 "seconds of heartbeat silence before STALE"),
+                ("ozone.scm.dead.node.interval", dead_after_s,
+                 set_float("dead_after"), float,
+                 "seconds of heartbeat silence before DEAD"),
+                ("ozone.om.block.size", block_size, set_block_size, int,
+                 "allocation unit for new keys (bytes)")):
+            conf.set(key, value)
+            reconfig.register(key, apply, validator=validator,
+                              description=description)
+        return ServiceHttpServer(
+            "scm-om", host, port,
+            status_provider=lambda: {
+                "address": self.address,
+                "safemode": self.scm.safemode.in_safemode(),
+            },
+            reconfig=reconfig)
 
     @property
     def address(self) -> str:
@@ -1127,13 +1242,23 @@ class ScmOmDaemon:
         if now - self._geo_last >= self._geo_period:
             self._geo_last = now
             self.geo.run_once()
+        now = time.monotonic()
+        if self.recon is not None \
+                and now - self._recon_last >= self._recon_interval:
+            self._recon_last = now
+            self.recon.run_tasks_once()
 
     def start(self) -> None:
         if self.enroll_server is not None:
             self.enroll_server.start()
         self.server.start()
+        if self.http is not None:
+            self.http.start()
+        if self.recon is not None:
+            self.recon.start()
         if self.cert_renewal is not None:
             self.cert_renewal.start()
+        self.trace_exporter.start()
         if self.ha is not None:
             self.ha.start()
 
@@ -1154,6 +1279,11 @@ class ScmOmDaemon:
             self.cert_renewal.stop()
         if self._bg is not None:
             self._bg.join(timeout=30)
+        if self.http is not None:
+            self.http.stop()
+        if self.recon is not None:
+            self.recon.stop()
+        self.trace_exporter.stop()
         # the server first: calls in flight finish (within its grace)
         # against a ring that still commits
         self.server.stop()

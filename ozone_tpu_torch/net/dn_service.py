@@ -17,8 +17,12 @@ BLOCK_TOKEN_VERIFICATION_FAILED (the reference's HddsDispatcher
 validateToken). The client attaches the tokens of its factory's
 `TokenStore`; under mutual TLS (`tls`) every verb rides the TLS RPC
 (`net/rpc.py`). The hosting daemon's replication throttle (`throttle`)
-paces the frames of every container export served. Left out:
-layout-version gating.
+paces the frames of every container export served. The daemon's
+layout manager (`layout`, `utils/upgrade.LayoutVersionManager`) gates
+the streaming-write verbs (`StreamWriteBlock`, `WriteChunksCommit`):
+before the datanode finalizes RATIS_STREAMING_WRITE they answer
+NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION, and clients downgrade to
+the per-chunk verbs.
 """
 
 from __future__ import annotations
@@ -54,9 +58,12 @@ class DatanodeRpcService:
     sidecar and the raft pipelines' Submit) before it runs."""
 
     def __init__(self, dn: Datanode, server: RpcServer, datapath_port=None,
-                 verifier=None):
+                 verifier=None, layout=None):
         self.dn = dn
         self.verifier = verifier
+        #: the hosting daemon's LayoutVersionManager: verbs a layout
+        #: feature introduced are refused until the datanode finalizes
+        self.layout = layout
         #: callable() -> the native sidecar's advertisement ({"port",
         #: "uds"}) or None: clients discover the native lane through
         #: GetDatapathInfo and take the RPC verbs when it answers no port
@@ -102,6 +109,24 @@ class DatanodeRpcService:
         security.gate(self.verifier, "rpc", m.get("container_token"),
                       container_id=int(container_id))
 
+    def _require_streaming_layout(self, verb: str) -> None:
+        """The layout gate of the streaming-write verbs (the datanode's
+        side of RequestFeatureValidator gating)."""
+        if self.layout is None:
+            return
+        from ozone_tpu_torch.utils.upgrade import (
+            PRE_FINALIZE_ERROR,
+            RATIS_STREAMING_WRITE,
+        )
+
+        if not self.layout.is_allowed(RATIS_STREAMING_WRITE):
+            raise StorageError(
+                PRE_FINALIZE_ERROR,
+                f"{verb} needs layout feature "
+                f"{RATIS_STREAMING_WRITE.name} "
+                f"(v{RATIS_STREAMING_WRITE.version}); datanode is at "
+                f"layout {self.layout.metadata_version}")
+
     def _stream_write_block(self, frames) -> bytes:
         """Streaming block write (the Ratis DataStream path): frame 0 is the
         header {block_id, chunk_size, sync, checksum_type,
@@ -109,6 +134,7 @@ class DatanodeRpcService:
         are cut here at chunk_size and written as they arrive, and one
         PutBlock commits them; the answer is the committed BlockData."""
         self._count_chunk_call()
+        self._require_streaming_layout("StreamWriteBlock")
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])
@@ -177,6 +203,7 @@ class DatanodeRpcService:
         chunks and computed their checksums; the commit applies only after
         every chunk landed."""
         self._count_chunk_call()
+        self._require_streaming_layout("WriteChunksCommit")
         it = iter(frames)
         header, _ = wire.unpack(next(it))
         block_id = BlockID.from_json(header["block_id"])

@@ -49,6 +49,7 @@ Left out: admission control and partition injection.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import selectors
@@ -531,9 +532,12 @@ class RpcChannel:
     CONNECT_TIMEOUT_S = 10.0
 
     def __init__(self, address: str, tls=None,
-                 server_name: Optional[str] = None):
+                 server_name: Optional[str] = None, traced: bool = True):
         self.address = address
         self._tls = tls
+        #: False: calls open no client span (the span exporter's own
+        #: channel must not trace the tracing plane)
+        self.traced = traced
         self._server_name = server_name or "localhost"
         host, _, port = address.rpartition(":")
         self._target = (host or "127.0.0.1", int(port))
@@ -663,6 +667,8 @@ class RpcChannel:
         return None if timeout is None else time.monotonic() + timeout
 
     def _span(self, key: str):
+        if not self.traced:
+            return contextlib.nullcontext()
         return Tracer.instance().span(f"client:{key}", address=self.address)
 
     # -- calls

@@ -20,8 +20,12 @@ ring under HA; the read-only ones (container info, `pipelines`,
 `balancer-status`, `replication-status`, safemode status, the tokens)
 are answered by the replica asked; and the metadata ring's verbs
 (`ring-status` from any replica; `ring-add`, `ring-remove`,
-`ring-transfer` on the leader). `finalize-upgrade` answers
-UNSUPPORTED_REQUEST (no layout versions in the port yet). Under HA the
+`ring-transfer` on the leader). `finalize-upgrade` is a mutating verb
+(the SCM finalizes, and every datanode is commanded to), and
+`upgrade-status` answers the finalizer's view; every heartbeat carries
+the node's `layout_version`. `replication-status` and `container-report`
+read Recon's container-health census (`recon/recon.ReconScmView`). Under
+HA the
 daemon sets the hooks: `gate` refuses an allocation or a mutating verb
 on a follower with SCM_NOT_LEADER and the leader's address, `barrier`
 holds the answer until the decision records of an allocation are
@@ -206,7 +210,8 @@ class ScmRpcService:
             m["dn_id"], container_report=m.get("container_report"),
             used_bytes=m.get("used_bytes", 0),
             deleted_block_acks=m.get("deleted_block_acks"),
-            healthy_volumes=m.get("healthy_volumes"))
+            healthy_volumes=m.get("healthy_volumes"),
+            layout_version=m.get("layout_version"))
         book = dict(self.addresses)
         return wire.pack({"commands": [serialize_command(c, book)
                                        for c in cmds],
@@ -238,7 +243,7 @@ class ScmRpcService:
     MUTATING_ADMIN = frozenset({
         "decommission", "recommission", "maintenance",
         "balancer-start", "balancer-stop", "safemode-enter", "safemode-exit",
-        "close-container", "close-pipeline",
+        "close-container", "close-pipeline", "finalize-upgrade",
     })
 
     def _admin_op(self, req) -> bytes:
@@ -289,6 +294,32 @@ class ScmRpcService:
             out = scm.balancer_status()
         elif op == "replication-status":
             out = scm.replication_status()
+        elif op == "container-report":
+            # container-state census and replication-health census in
+            # one view (`admin container report`)
+            from collections import Counter
+
+            states = Counter(
+                c.state.value for c in scm.containers.containers())
+            out = {"containers_total": sum(states.values()),
+                   "states": dict(states),
+                   "health": scm.replication_status()}
+        elif op == "upgrade-status":
+            # finalization progress (`admin upgrade`): the layout-feature
+            # catalog as this replica's finalizer sees it
+            if scm.finalizer is not None:
+                out = scm.finalizer.status()
+            else:
+                from ozone_tpu_torch.utils.upgrade import (
+                    FEATURES,
+                    LATEST_VERSION,
+                )
+
+                out = {"metadata_version": LATEST_VERSION,
+                       "software_version": LATEST_VERSION,
+                       "needs_finalization": False,
+                       "features": [{"name": f.name, "version": f.version,
+                                     "allowed": True} for f in FEATURES]}
         elif op == "pipelines":
             out = {"pipelines": [
                 {"id": p.id, "nodes": p.nodes,
@@ -449,12 +480,14 @@ class RemoteScmClient:
 
     def heartbeat(self, dn_id: str, container_report=None, used_bytes: int = 0,
                   deleted_block_acks: Optional[list[int]] = None,
-                  healthy_volumes: Optional[int] = None) -> list:
+                  healthy_volumes: Optional[int] = None,
+                  layout_version: Optional[int] = None) -> list:
         responses = self._broadcast("Heartbeat", {
             "dn_id": dn_id, "container_report": container_report,
             "used_bytes": used_bytes,
             "deleted_block_acks": deleted_block_acks or [],
             "healthy_volumes": healthy_volumes,
+            "layout_version": layout_version,
         })
         self._follow_ring(responses)
         return [deserialize_command(c) for m in responses

@@ -13,8 +13,8 @@ snapshot (the OM follower bootstrap checkpoint), in the reference's
 form. The bounded update journal (`get_updates_since`, the reference's
 DBUpdatesWrapper) and the process-local snapshot markers feed the
 incremental snapshot diff (`om/snapshots.py`); derived rows (snapshot
-pre-images) are written with `journal=False`. Left out for later slices:
-row counts.
+pre-images) are written with `journal=False`. `count` is a table's row
+count with no rows materialised (Recon's table insights).
 """
 
 from __future__ import annotations
@@ -217,6 +217,22 @@ class OMMetadataStore:
 
     def exists(self, table: str, key: str) -> bool:
         return self.get(table, key) is not None
+
+    def count(self, table: str) -> int:
+        """Row count without materialising rows: SQL COUNT(*) adjusted by
+        the bounded write-back cache."""
+        with self._lock:
+            n = self._conn.execute(
+                f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+            for k, v in self._cache[table].items():
+                in_db = self._conn.execute(
+                    f"SELECT 1 FROM {table} WHERE k=?", (k,)
+                ).fetchone() is not None
+                if v is None and in_db:
+                    n -= 1
+                elif v is not None and not in_db:
+                    n += 1
+            return n
 
     def iterate(
         self, table: str, prefix: str = ""

@@ -53,8 +53,15 @@ and `device` unless a daemon installs its own in `self.geo`). Sharding:
 `check_shard`, the ownership gate of `om/sharding/shardmap.py`, at bucket
 creation, link creation and every link resolution, so a replica whose
 replicated shard config does not own a bucket's slot answers SHARD_MOVED
-(the sharded plane itself is `om/sharding/`). Left out for later slices:
-the upgrade finalizer and its layout gate.
+(the sharded plane itself is `om/sharding/`). Upgrade: a request class
+that `utils/upgrade.GATED_OM_REQUESTS` ties to a layout feature is
+refused at admission with NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION
+while the SCM's layout manager has not finalized it
+(`check_layout_allowed`), and `upgrade_status` is the SCM finalizer's
+view. Audit: every applied request writes a SUCCESS record, and every
+request the layout gate or its apply refuses a FAILURE record with the
+error code, to the `audit.om` logger (`utils/audit.py`); the reference
+audits no gate refusal.
 """
 
 from __future__ import annotations
@@ -83,23 +90,17 @@ from ozone_tpu_torch.om.sharding import shardmap as _shardmap
 from ozone_tpu_torch.scm.pipeline import ReplicationConfig
 from ozone_tpu_torch.scm.scm import StorageContainerManager
 from ozone_tpu_torch.storage.ids import BlockID
+from ozone_tpu_torch.utils.audit import AuditLogger
 from ozone_tpu_torch.utils.metrics import MetricsRegistry
 from ozone_tpu_torch.utils.tracing import Tracer
+from ozone_tpu_torch.utils.upgrade import (
+    FEATURES,
+    GATED_OM_REQUESTS,
+    LATEST_VERSION,
+    PRE_FINALIZE_ERROR,
+)
 
 log = logging.getLogger(__name__)
-
-#: the layout features `ozone_tpu/utils/upgrade.py` catalogs, (name,
-#: version); the port has no finalizer, so all of them are allowed
-FEATURES = (
-    ("INITIAL", 0),
-    ("EC_DEVICE_CODEC", 1),
-    ("OM_REPLICATED_LOG", 2),
-    ("BUCKET_SNAPSHOTS", 3),
-    ("S3_CHUNKED_UPLOAD", 4),
-    ("RATIS_STREAMING_WRITE", 5),
-)
-LATEST_VERSION = max(v for _, v in FEATURES)
-
 
 class OpenKeySession:
     def __init__(self, info: dict, client_id: str):
@@ -137,6 +138,7 @@ class OzoneManager:
         self.clients = clients
         self.device = device
         self.metrics = MetricsRegistry("om")
+        self.audit = AuditLogger("om")
         self._lock = threading.RLock()
         #: serializes this OM's SCM calls with the SCM's other users (a
         #: daemon sets the SCM service's lock here)
@@ -311,7 +313,17 @@ class OzoneManager:
     def submit(self, request: rq.OMRequest) -> Any:
         """preExecute, then apply under the OM lock in one atomic batch,
         then a group commit: the request is durable before it is
-        acknowledged, and concurrent submits share one sqlite commit."""
+        acknowledged, and concurrent submits share one sqlite commit.
+        A request the layout gate or its apply refuses is audited as a
+        FAILURE (the gate's refusal too, so the audit log holds every
+        refusal before finalization), an applied one as a SUCCESS once
+        durable."""
+        try:
+            self.check_layout_allowed(type(request).__name__)
+        except rq.OMError as e:
+            self.audit.log(request.audit_action, vars(request), ok=False,
+                           error=e.code)
+            raise
         self._check_not_prepared()
         with self.metrics.histogram(type(request).__name__).time(), \
                 Tracer.instance().span("om:submit",
@@ -321,11 +333,34 @@ class OzoneManager:
                 # again under the lock: a write that passed the first
                 # check must not apply after prepare()'s flush point
                 self._check_not_prepared()
-                with self.store.atomic():
-                    result = request.apply(self.store)
+                try:
+                    with self.store.atomic():
+                        result = request.apply(self.store)
+                except rq.OMError as e:
+                    self.audit.log(request.audit_action, vars(request),
+                                   ok=False, error=e.code)
+                    raise
             self.store.flush_group()
+            self.audit.log(request.audit_action, vars(request), ok=True)
             self.metrics.counter("write_ops").inc()
             return result
+
+    def check_layout_allowed(self, request_name: str) -> None:
+        """Layout-feature request gating (the reference's
+        RequestFeatureValidator): a request of a feature the cluster has
+        not finalized is refused at admission. It runs on the leader's
+        side; followers apply what the leader admitted."""
+        feat = GATED_OM_REQUESTS.get(request_name)
+        lvm = getattr(self.scm, "layout", None)
+        if feat is None or lvm is None:
+            return
+        if not lvm.is_allowed(feat):
+            raise rq.OMError(
+                PRE_FINALIZE_ERROR,
+                f"{request_name} needs layout feature {feat.name} "
+                f"(v{feat.version}); cluster is at layout "
+                f"{lvm.metadata_version} — run `admin finalizeupgrade`",
+            )
 
     def _check_not_prepared(self) -> None:
         if self.prepared:
@@ -362,16 +397,22 @@ class OzoneManager:
         return self._prepared
 
     def upgrade_status(self) -> dict:
-        """The cluster's finalization view, the reference's answer with
-        no finalizer: every feature allowed. Served for clients that read
-        it (the `UpgradeStatus` RPC); nothing in the port gates on it."""
-        return {
-            "metadata_version": LATEST_VERSION,
-            "software_version": LATEST_VERSION,
-            "needs_finalization": False,
-            "features": [{"name": n, "version": v, "allowed": True}
-                         for n, v in FEATURES],
-        }
+        """The cluster's finalization view (UpgradeFinalizer.status),
+        served over the OM protocol so gateways gate their own feature
+        paths (S3 aws-chunked); with no finalizer, every feature is
+        allowed."""
+        fin = getattr(self.scm, "finalizer", None)
+        if fin is None:
+            return {
+                "metadata_version": LATEST_VERSION,
+                "software_version": LATEST_VERSION,
+                "needs_finalization": False,
+                "features": [
+                    {"name": f.name, "version": f.version, "allowed": True}
+                    for f in FEATURES
+                ],
+            }
+        return fin.status()
 
     # ----------------------------------------------------------- volumes
     def create_volume(self, volume: str, owner: str = "root") -> None:

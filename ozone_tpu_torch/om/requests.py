@@ -107,6 +107,10 @@ class OMRequest:
     def apply(self, store: OMMetadataStore) -> Any:
         raise NotImplementedError
 
+    @property
+    def audit_action(self) -> str:
+        return type(self).__name__
+
     def to_json(self) -> dict:
         """Wire form for the replicated log: the post-preExecute state,
         so followers apply without running preExecute again."""
@@ -388,6 +392,10 @@ class CommitKey(OMRequest):
     size: int
     block_groups: list[dict] = field(default_factory=list)
     replication: str = ""
+    #: the reference's fields, kept so the wire form and the audit record
+    #: are its own (the apply reads the session's)
+    checksum_type: str = "CRC32C"
+    bytes_per_checksum: int = 16 * 1024
     modified: float = 0.0
     hsync: bool = False
     #: rewrite fence: commit only if the live row still carries this

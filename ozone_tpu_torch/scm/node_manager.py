@@ -61,6 +61,8 @@ class NodeInfo:
     healthy_volumes: int = -1
     #: when its last full container report arrived (the node manager's clock)
     last_report: float = float("-inf")
+    #: the layout version its heartbeats report (-1: not reported yet)
+    layout_version: int = -1
 
 
 class NodeManager:

@@ -27,9 +27,12 @@ store's service-state row, so a restarted or promoted SCM resumes it.
 decommission, block deletion, the close re-announce, the balancer);
 `start_background` runs them on a thread. The cluster CA lives beside
 it in the metadata daemon (`utils/ca.py`,
-`net/daemons.ScmOmDaemon(secure=True)`). Left out for a later slice:
-layout versions and the upgrade finalizer (`finalize-upgrade` answers
-UNSUPPORTED_REQUEST).
+`net/daemons.ScmOmDaemon(secure=True)`). Upgrade: with `db_path` the
+metadata services' layout version persists beside the store
+(`layout_version.json`, `utils/upgrade.LayoutVersionManager`, read by
+the OM's request gate), the admin op `finalize-upgrade` runs the
+finalizer and queues a `finalize` command for every datanode, and each
+heartbeat's `layout_version` lands in the node table.
 """
 
 from __future__ import annotations
@@ -101,6 +104,23 @@ class StorageContainerManager:
         self.safemode = SafeModeManager(
             self.nodes, self.containers, SafeModeConfig(min_datanodes)
         )
+        # the metadata services' layout version (HDDSLayoutFeature),
+        # persisted beside the SCM store when there is one; without one
+        # there is no finalizer and every feature is allowed
+        self.layout = None
+        self.finalizer = None
+        if db_path is not None:
+            from pathlib import Path
+
+            from ozone_tpu_torch.utils.upgrade import (
+                LayoutVersionManager,
+                UpgradeFinalizer,
+            )
+
+            self.layout = LayoutVersionManager(
+                Path(db_path).parent / "layout_version.json")
+            # one finalizer, so features can register their actions on it
+            self.finalizer = UpgradeFinalizer(self.layout)
         self.replication = ReplicationManager(
             self.containers, self.nodes, self.placement
         )
@@ -161,19 +181,23 @@ class StorageContainerManager:
         used_bytes: int = 0,
         deleted_block_acks: Optional[list[int]] = None,
         healthy_volumes: Optional[int] = None,
+        layout_version: Optional[int] = None,
     ) -> list:
         """Process a heartbeat (with an optional full container report,
-        block-deletion acks and the node's healthy-volume count); return
-        the commands queued for the node."""
+        block-deletion acks, the node's healthy-volume count and its
+        layout version); return the commands queued for the node."""
         if deleted_block_acks:
             self.deleted_blocks.ack(dn_id, deleted_block_acks)
         if container_report is not None:
             self._ingest_report(dn_id, container_report)
         self.metrics.counter("heartbeats").inc()
-        if healthy_volumes is not None:
+        if healthy_volumes is not None or layout_version is not None:
             n = self.nodes.get(dn_id)
             if n is not None:
-                n.healthy_volumes = int(healthy_volumes)
+                if healthy_volumes is not None:
+                    n.healthy_volumes = int(healthy_volumes)
+                if layout_version is not None:
+                    n.layout_version = int(layout_version)
         return self.nodes.process_heartbeat(dn_id, used_bytes)
 
     def _on_dead_node(self, dn_id: str) -> None:
@@ -239,6 +263,16 @@ class StorageContainerManager:
             else:
                 self.decommission_monitor.start_maintenance(target)
             return {"node": target, "op_state": node.op_state.value}
+        if op == "finalize-upgrade":
+            # the metadata services finalize here; every datanode is
+            # commanded to finalize on its next heartbeat
+            state = None
+            if self.finalizer is not None:
+                state = self.finalizer.finalize().value
+            for n in self.nodes.nodes():
+                self.nodes.queue_command(n.dn_id, {"type": "finalize"})
+            return {"scm": state,
+                    "datanodes_notified": self.nodes.node_count()}
 
         def numeric_id(kind: str) -> int:
             try:
@@ -364,37 +398,20 @@ class StorageContainerManager:
         }
 
     def replication_status(self) -> dict:
-        """Containers by replication health (the reference's Recon
-        container-health census that `admin replicationmanager` reads):
-        counts of healthy, under-, over-replicated and missing."""
-        from ozone_tpu_torch.storage.ids import ContainerState
+        """Containers by replication health (Recon's container-health
+        census, which `admin replicationmanager` reads): counts of
+        healthy, under-, over-replicated and missing."""
+        from ozone_tpu_torch.recon.recon import ReconScmView
 
-        out = {"healthy": 0, "under_replicated": 0, "over_replicated": 0,
-               "missing": 0}
-        for c in self.containers.containers():
-            if c.state in (ContainerState.DELETED, ContainerState.OPEN):
-                continue
-            if c.replication.type is ReplicationType.EC:
-                count = ECReplicaCount(c, self.nodes)
-                key = ("missing" if not count.recoverable
-                       else "under_replicated" if count.missing_indexes
-                       else "over_replicated" if count.excess_indexes
-                       else "healthy")
-            else:
-                live, want = len(c.replicas), c.replication.factor
-                key = ("missing" if live == 0
-                       else "under_replicated" if live < want
-                       else "over_replicated" if live > want
-                       else "healthy")
-            out[key] += 1
-        return out
+        return {k: len(v) for k, v in
+                ReconScmView(self).container_health().items()}
 
     def status(self) -> dict:
         """Safemode, the nodes with their usage columns and the container
         count: the body of the SCM service's Status answer
         (ozone_tpu/net/scm_service.py `_status`), read in process. The
-        port has no layout versions or pipeline safemode rules yet, so
-        their fields are left out."""
+        port has no pipeline safemode rules yet, so their fields are left
+        out."""
         return {
             "safemode": self.safemode.in_safemode(),
             "safemode_status": self.safemode.status(),
@@ -411,6 +428,7 @@ class StorageContainerManager:
                         100.0 * n.used_bytes / n.capacity_bytes, 2)
                     if n.capacity_bytes else None,
                     "healthy_volumes": n.healthy_volumes,
+                    "layout_version": n.layout_version,
                 }
                 for n in self.nodes.nodes()
             ],

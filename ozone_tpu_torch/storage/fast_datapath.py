@@ -22,8 +22,11 @@ The chunk bytes land exactly where the RPC verbs put them (one file per
 block, chunks at their offsets, zero-filled short reads), and a sync
 stream is fsynced by the native side before the commit callback runs.
 The token check runs in Python, once per stream. The lane is plaintext,
-so a mutual-TLS datanode starts no sidecar (as the reference). Left out:
-the reference's layout gate.
+so a mutual-TLS datanode starts no sidecar (as the reference). Native
+writes are the batched verb: before the datanode's layout manager
+(`layout`) finalizes RATIS_STREAMING_WRITE, a write stream is refused
+with NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION before a byte lands, and
+the client writes per chunk over the RPC.
 A sidecar whose library cannot be built, or whose listener cannot bind,
 raises: a datanode asked for the native datapath never serves the RPC
 verbs alone in its place.
@@ -125,10 +128,12 @@ class DatapathSidecar:
     """One native listener per datanode process."""
 
     def __init__(self, dn, host: str = "127.0.0.1", port: int = 0,
-                 verifier=None):
+                 verifier=None, layout=None):
         self.dn = dn
         #: the datanode's BlockTokenVerifier (shared with its RPC lanes)
         self.verifier = verifier
+        #: the datanode's LayoutVersionManager (shared with its RPC lanes)
+        self.layout = layout
         self.host = host
         self._want_port = port
         self.port: Optional[int] = None
@@ -150,6 +155,8 @@ class DatapathSidecar:
         try:
             m = self._hdr(hdr, hdr_len)
             block_id = BlockID.from_json(m["block_id"])
+            if is_write:
+                self._gate_layout()
             security.gate(self.verifier, "native", m.get("token"),
                           block_id=block_id,
                           mode=security.AccessMode.WRITE if is_write
@@ -166,6 +173,24 @@ class DatapathSidecar:
             log.exception("datapath auth failed")
             return _pack_out(out, out_cap, False,
                              _error_body(IO_EXCEPTION, str(e)))
+
+    def _gate_layout(self) -> None:
+        """Native writes are the batched verb: the same layout gate as
+        the RPC's WriteChunksCommit."""
+        if self.layout is None:
+            return
+        from ozone_tpu_torch.utils.upgrade import (
+            PRE_FINALIZE_ERROR,
+            RATIS_STREAMING_WRITE,
+        )
+
+        if not self.layout.is_allowed(RATIS_STREAMING_WRITE):
+            raise StorageError(
+                PRE_FINALIZE_ERROR,
+                f"native datapath needs layout feature "
+                f"{RATIS_STREAMING_WRITE.name} "
+                f"(v{RATIS_STREAMING_WRITE.version}); datanode is at "
+                f"layout {self.layout.metadata_version}")
 
     def _done(self, hdr, hdr_len, is_write, nbytes, nchunks, out,
               out_cap) -> int:

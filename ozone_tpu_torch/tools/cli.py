@@ -76,6 +76,18 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools admin shards map|status --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools freon omkg|ommg -n 1000 --om ... \
         --device cpu
+    python -m ozone_tpu_torch.tools scm-om --db /data/om.db --port 9860 \
+        --http-port 9876 --recon-port 9888
+    python -m ozone_tpu_torch.tools admin upgrade|finalizeupgrade --om ...
+    python -m ozone_tpu_torch.tools admin reconfig set \
+        ozone.scm.dead.node.interval --value 60 --http 127.0.0.1:9876
+    python -m ozone_tpu_torch.tools admin namespace summary /v/b \
+        --http 127.0.0.1:9888
+    python -m ozone_tpu_torch.tools insight list|metrics|logs|log-level \
+        --address 127.0.0.1:<datanode port> [--logger L --level DEBUG]
+    python -m ozone_tpu_torch.tools trace slow|show <id> --om 127.0.0.1:9860
+    python -m ozone_tpu_torch.tools audit top|failures|parse om-audit.log
+    python -m ozone_tpu_torch.tools getconf | version
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -84,8 +96,10 @@ lifecycle sweep, slab compaction and geo ship cycles code there) and
 `cluster`, which passes it to its children. Without CUDA, "cuda" is an
 error that names CUDA (for `scm-om`, at its first sweep or ship cycle
 with work). The namespace, `fs`, admin, lifecycle, replication and
-`csi` verbs, and `sh key checksum` (it reads chunk metadata, no data),
-import no torch, so they start in about a second.
+`csi` verbs, `sh key checksum` (it reads chunk metadata, no data), and
+the `insight`, `trace`, `audit`, `getconf` and `version` verbs import no
+torch, so they start in about a second. A command that talks to `--om`
+ships the spans it finished to the cluster's trace collector on exit.
 Against a metadata ring, `--om` takes the replicas as a comma-separated
 list; the clients follow the leader. On a token-enforcing cluster
 (`scm-om --block-tokens --insecure-secrets`) the clients read the
@@ -114,6 +128,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 from pathlib import Path
 
 import numpy as np
@@ -712,6 +727,49 @@ def cmd_admin(args) -> int:
             _emit(scm.admin(f"balancer-{verb or 'status'}", cfg or None))
         elif subject == "replicationmanager":
             _emit(scm.admin("replication-status"))
+        elif subject == "upgrade":
+            # finalization progress (`ozone admin scm finalizationstatus`):
+            # which layout features are live and which are gated
+            _emit(scm.admin("upgrade-status"))
+        elif subject == "finalizeupgrade":
+            # the non-rolling upgrade's completion: the metadata services
+            # finalize and every datanode is commanded to
+            _emit(scm.admin("finalize-upgrade"))
+        elif subject == "namespace":
+            # `ozone admin namespace summary <path>`: du-style totals from
+            # Recon's NSSummary index (a path may stand in the verb slot)
+            if not args.http:
+                print("error: namespace summary requires --http host:port "
+                      "(the Recon endpoint)", file=sys.stderr)
+                return 2
+            if verb == "summary":
+                path = target or "/"
+            elif verb is None or verb.startswith("/"):
+                path = verb or "/"
+            else:
+                return _usage(f"unknown namespace verb {verb!r} "
+                              "(expected: summary <path>)")
+            return _http_get(args.http, "/api/nssummary?path="
+                             + urllib.parse.quote(path, safe="/"))
+        elif subject == "reconfig":
+            # live reconfiguration over the daemon's /reconfig endpoint
+            # (`ozone admin reconfig`, ReconfigureProtocol)
+            if not args.http:
+                print("error: reconfig requires --http host:port (the "
+                      "daemon's HTTP/metrics port)", file=sys.stderr)
+                return 2
+            if verb in (None, "properties"):
+                return _http_get(args.http, "/reconfig/properties")
+            if verb != "set":
+                return _usage(f"unknown reconfig verb {verb!r} "
+                              "(expected properties|set)")
+            if not target or args.value is None:
+                print("error: reconfig set needs a KEY target and --value",
+                      file=sys.stderr)
+                return 2
+            return _http_get(
+                args.http, f"/reconfig?key={urllib.parse.quote(target)}"
+                f"&value={urllib.parse.quote(args.value)}")
         elif subject.startswith("ring-"):
             # the metadata ring; status is answered by any replica
             target = verb  # ring-<op> <target>
@@ -723,6 +781,9 @@ def cmd_admin(args) -> int:
         else:  # container
             if verb in (None, "list"):
                 _emit(scm.list_containers())
+            elif verb == "report":
+                # the state and replication-health census
+                _emit(scm.admin("container-report"))
             elif verb in ("info", "close"):
                 if not target:
                     return _usage(f"container {verb} requires a container id")
@@ -730,9 +791,139 @@ def cmd_admin(args) -> int:
                                 else "close-container", target))
             else:
                 return _usage(f"unknown container verb {verb!r} "
-                              "(expected list|info <id>|close <id>)")
+                              "(expected list|report|info <id>|close <id>)")
     finally:
         scm.close()
+    return 0
+
+
+def _http_get(address: str, path: str) -> int:
+    """GET a daemon's HTTP endpoint and print its body; 1 on an error
+    answer or an unreachable daemon."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://{address}{path}",
+                                    timeout=10) as r:
+            print(r.read().decode())
+    except urllib.error.HTTPError as e:
+        print(f"error: {e.code} {e.read().decode()}", file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"error: cannot reach {address}: {e.reason}", file=sys.stderr)
+        return 1
+    return 0
+
+
+# ------------------------------------------------------------ observability
+def cmd_insight(args) -> int:
+    """Per-subsystem introspection (`ozone insight`): list the points,
+    read the metrics, tail the logs, set a logger's level on a running
+    daemon."""
+    from ozone_tpu_torch.utils.insight import InsightClient
+
+    cli = InsightClient(args.address or args.om, tls=_client_tls())
+    try:
+        if args.verb == "list":
+            _emit(cli.list_points())
+        elif args.verb == "metrics":
+            _emit(cli.metrics())
+        elif args.verb == "logs":
+            for r in cli.logs(n=args.num, logger=args.logger,
+                              level=args.level):
+                print(f"{r['ts']:.3f} {r['level']:<8} {r['logger']}: "
+                      f"{r['message']}")
+        else:  # log-level
+            _emit(cli.set_log_level(args.logger, args.level or "DEBUG"))
+    finally:
+        cli.close()
+    return 0
+
+
+def cmd_audit(args) -> int:
+    from ozone_tpu_torch.tools.audit_parser import run_cli
+
+    return run_cli(args)
+
+
+def cmd_trace(args) -> int:
+    """`trace slow|show`: the slow-request flight recorder of the cluster
+    trace collector: the traces retained past their per-op SLO, or one
+    trace's critical path (stage -> micros)."""
+    from ozone_tpu_torch.net import wire
+    from ozone_tpu_torch.net.rpc import RpcChannel
+    from ozone_tpu_torch.utils.tracing import TRACING_SERVICE
+
+    ch = RpcChannel(args.om.split(",")[0].strip(), tls=_client_tls())
+    try:
+        if args.verb == "slow":
+            m, _ = wire.unpack(ch.call(TRACING_SERVICE, "Slow",
+                                       wire.pack({"limit": args.limit})))
+            _emit(m.get("traces", []))
+            return 0
+        if not args.trace_id:
+            print("error: trace show requires a trace id", file=sys.stderr)
+            return 2
+        m, _ = wire.unpack(ch.call(TRACING_SERVICE, "Slow",
+                                   wire.pack({"trace_id": args.trace_id})))
+        entry = m.get("trace")
+        if not entry:
+            print(f"error: trace {args.trace_id!r} not retained (only "
+                  "over-SLO traces are pinned)", file=sys.stderr)
+            return 1
+        print(f"trace {entry['traceId']}  root={entry['root']}  "
+              f"{entry['durationMs']}ms (slo {entry['sloMs']}ms)  "
+              f"{len(entry['spans'])} spans")
+        print("critical path:")
+        total = sum(st["micros"] for st in entry["criticalPath"]) or 1
+        for st in entry["criticalPath"]:
+            share = 100.0 * st["micros"] / total
+            print(f"  {st['stage']:<28} {st['micros']:>12} us  "
+                  f"{share:5.1f}%")
+        return 0
+    finally:
+        ch.close()
+
+
+def cmd_getconf(args) -> int:
+    """`ozone getconf`: the generated defaults of every typed config
+    group."""
+    from ozone_tpu_torch.utils.config import ALL_GROUPS, generate_defaults
+
+    print(generate_defaults(list(ALL_GROUPS)))
+    return 0
+
+
+def cmd_version(args) -> int:
+    """`ozone version`: the package and runtime stack versions. It always
+    succeeds, and imports no torch (its version is the installed
+    distribution's; the devices are nvidia-smi's list)."""
+    import importlib.metadata
+    import shutil
+
+    import numpy
+
+    import ozone_tpu_torch
+
+    try:
+        torch_version = importlib.metadata.version("torch")
+    except importlib.metadata.PackageNotFoundError:
+        torch_version = "not installed"
+    devices: list[str] = []
+    smi = shutil.which("nvidia-smi")
+    if smi:
+        try:
+            out = subprocess.run(
+                [smi, "--query-gpu=name", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=10)
+            devices = [ln.strip() for ln in out.stdout.splitlines()
+                       if ln.strip()]
+        except (OSError, subprocess.SubprocessError) as e:
+            devices = [f"unavailable: {e}"]
+    _emit({"ozone_tpu_torch": ozone_tpu_torch.__version__,
+           "torch": torch_version, "numpy": numpy.__version__,
+           "python": sys.version.split()[0], "devices": devices})
     return 0
 
 
@@ -1033,7 +1224,9 @@ def cmd_scm_om(args) -> int:
                         acl_enabled=args.acl_enabled, secure=args.secure,
                         enroll_port=args.enroll_port,
                         enrollment_secret=args.enrollment_secret or None,
-                        ca_address=args.ca or None)
+                        ca_address=args.ca or None,
+                        http_port=args.http_port,
+                        recon_port=args.recon_port)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -1044,7 +1237,10 @@ def cmd_scm_om(args) -> int:
           + (" [acls]" if args.acl_enabled else "")
           + (f" [mutual TLS, enrollment on {d.enroll_address}]"
              if d.enroll_address else
-             " [mutual TLS]" if args.secure else ""), flush=True)
+             " [mutual TLS]" if args.secure else "")
+          + (f" [http {d.http.address}]" if d.http is not None else "")
+          + (f" [recon {d.recon.address}]" if d.recon is not None else ""),
+          flush=True)
     return _serve(d.stop)
 
 
@@ -1132,6 +1328,10 @@ def cmd_cluster(args) -> int:
             dn_security = []
         if args.acl_enabled:
             security.append("--acl-enabled")
+        if args.http_port:
+            security += ["--http-port", str(args.http_port)]
+        if args.recon_port:
+            security += ["--recon-port", str(args.recon_port)]
         spawn(["scm-om", "--db", str(root / "om.db"), "--port",
                str(args.port), "--device", device, *security], "scm-om.log")
         tls = None
@@ -1172,6 +1372,12 @@ def cmd_cluster(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ozone_tpu_torch.tools")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    ver = sub.add_parser("version", help="package and stack versions")
+    ver.set_defaults(fn=cmd_version)
+    gc = sub.add_parser("getconf",
+                        help="generated config defaults (ozone getconf)")
+    gc.set_defaults(fn=cmd_getconf)
 
     def device_flag(p):
         p.add_argument("--device", default="cuda",
@@ -1228,9 +1434,12 @@ def build_parser() -> argparse.ArgumentParser:
                                         "replicationmanager",
                                         "om", "ring-status", "ring-add",
                                         "ring-remove", "ring-transfer",
-                                        "cert", "kms", "shards"])
+                                        "cert", "kms", "shards", "upgrade",
+                                        "finalizeupgrade", "reconfig",
+                                        "namespace"])
     ad.add_argument("verb", nargs="?", default=None,
-                    help="container: list|info <id>|close <id>; safemode: "
+                    help="container: list|report|info <id>|close <id>; "
+                         "safemode: "
                          "enter|exit|status; datanode: list|decommission|"
                          "recommission|maintenance <id>; pipeline: list|"
                          "close <id>; balancer: start|stop|status; om: "
@@ -1238,7 +1447,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "[/volume[/bucket]]; ring-add: "
                          "<id>=<host:port>; ring-remove, ring-transfer: <id>; "
                          "cert: list|revoke <serial>; kms: create-key|"
-                         "rotate-key|info <name>, list; shards: map|status")
+                         "rotate-key|info <name>, list; shards: map|status; "
+                         "reconfig: properties|set <key> --value V; "
+                         "namespace: summary <path>")
     ad.add_argument("target", nargs="?", default=None)
     ad.add_argument("--om", default="127.0.0.1:9860")
     ad.add_argument("--prefix", default="",
@@ -1255,7 +1466,48 @@ def build_parser() -> argparse.ArgumentParser:
                     help="balancer start: moves per iteration")
     ad.add_argument("--max-size", type=int, default=None,
                     help="balancer start: bytes moved per iteration")
+    ad.add_argument("--http", default="",
+                    help="reconfig: the daemon's HTTP host:port; "
+                         "namespace: Recon's host:port")
+    ad.add_argument("--value", default=None,
+                    help="reconfig set: the key's new value")
     ad.set_defaults(fn=cmd_admin)
+
+    ins = sub.add_parser("insight",
+                         help="subsystem introspection (ozone insight)")
+    ins.add_argument("verb", choices=["list", "metrics", "logs",
+                                      "log-level"])
+    ins.add_argument("--om", default="127.0.0.1:9860")
+    ins.add_argument("--address", default="",
+                     help="daemon address (defaults to --om)")
+    ins.add_argument("--logger", default="")
+    ins.add_argument("--level", default="")
+    ins.add_argument("-n", "--num", type=int, default=100)
+    ins.set_defaults(fn=cmd_insight)
+
+    au = sub.add_parser("audit",
+                        help="audit log parser (ozone auditparser)")
+    au.add_argument("verb", choices=["parse", "top", "failures"])
+    au.add_argument("logfile", help="audit log file (JSON lines)")
+    au.add_argument("--user", default="")
+    au.add_argument("--action", default="")
+    au.add_argument("--result", default="")
+    au.add_argument("--by", default="action",
+                    choices=["action", "user", "result"])
+    au.add_argument("-n", "--num", type=int, default=50)
+    au.set_defaults(fn=cmd_audit)
+
+    tr = sub.add_parser("trace", help="slow-request flight recorder: "
+                                      "retained over-SLO traces and "
+                                      "their critical paths")
+    tr.add_argument("verb", choices=["slow", "show"],
+                    help="slow = list retained slow traces; "
+                         "show <id> = one trace's critical path")
+    tr.add_argument("trace_id", nargs="?", default="")
+    tr.add_argument("--om", default="127.0.0.1:9860")
+    tr.add_argument("--limit", type=int, default=20,
+                    help="slow: the most traces listed")
+    tr.set_defaults(fn=cmd_trace)
 
     fs = sub.add_parser("fs", help="file-system verbs on FSO buckets "
                                    "(ozone fs)")
@@ -1422,6 +1674,11 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--ca", default="",
                     help="the primordial metadata server's enrollment "
                          "address (a secure HA replica enrolls there)")
+    so.add_argument("--http-port", type=int, default=None,
+                    help="serve /prom /prof /stacks /status /reconfig on "
+                         "this port")
+    so.add_argument("--recon-port", type=int, default=None,
+                    help="serve the Recon API and web UI on this port")
     device_flag(so)
     so.set_defaults(fn=cmd_scm_om)
 
@@ -1494,18 +1751,56 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument("--enrollment-secret", default="",
                     help="--secure: the bootstrap secret (default: a "
                          "random one, printed)")
+    cl.add_argument("--http-port", type=int, default=None,
+                    help="the scm-om's HTTP port (/prom, /reconfig)")
+    cl.add_argument("--recon-port", type=int, default=None,
+                    help="the scm-om's Recon port")
     device_flag(cl)
     cl.set_defaults(fn=cmd_cluster)
     return ap
 
 
+def _ship_spans(args, since: float) -> None:
+    """Ship the spans this command finished to the cluster's collector:
+    a daemon exports every 2 s, but a `sh key put` exits before any
+    batch goes, and its client:put root would never reach the collector
+    (nor its slow-trace retention)."""
+    from ozone_tpu_torch.utils.tracing import SpanExporter, Tracer
+
+    om = getattr(args, "om", "")
+    tracer = Tracer.instance()
+    if not om or tracer._export_q is not None:
+        return  # a daemon's exporter in this process ships them
+    with tracer._lock:
+        mine = [sp for sp in tracer.spans if sp.start >= since]
+    if not mine:
+        return
+    exp = SpanExporter(tracer, service="cli",
+                       address=om.split(",")[0].strip(), tls=_client_tls())
+    tracer._export_q = None  # the exporter attached itself: detach it
+    exp._q.extend(mine)
+    while exp._q:
+        shipped = exp.exported
+        exp.flush()
+        if exp.exported == shipped:
+            break  # the collector is unreachable: lossy by design
+    if exp._ch is not None:
+        exp._ch.close()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    since = time.time()
     try:
         return args.fn(args)
     except StorageError as e:
         print(f"error {e.code}: {e.msg}", file=sys.stderr)
         return 1
+    finally:
+        try:
+            _ship_spans(args, since)
+        except Exception:  # noqa: BLE001 - tracing never fails a verb
+            pass
 
 
 if __name__ == "__main__":

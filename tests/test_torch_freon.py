@@ -181,13 +181,11 @@ def test_ecrd_matches_reference(clusters):
 
 def test_scm_status_matches_reference(clusters):
     """The port's SCM status() against the body of the reference SCM
-    service's Status handler (the block-token flag included), less the
-    layout-version fields and the pipeline rules of safemode the port
+    service's Status handler (the block-token flag and the layout
+    versions included), less the pipeline rules of safemode the port
     does not have."""
     port, ref = clusters
     want = ref_status(ref.scm)
-    for n in want["nodes"]:
-        n.pop("layout_version")
     for k in ("pipelines_total", "pipelines_healthy", "pipelines_with_member"):
         want["safemode_status"].pop(k)
     assert port.scm.status() == want

@@ -132,6 +132,18 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.om.sharding.plane",
     "ozone_tpu_torch.om.sharding.router",
     "ozone_tpu_torch.tools.shardd",
+    # upgrade finalization and the operator's view: layout versions, the
+    # audit log and its parser, /prom, insight, the trace collector, Recon
+    "ozone_tpu_torch.utils.upgrade",
+    "ozone_tpu_torch.utils.audit",
+    "ozone_tpu_torch.utils.metrics",
+    "ozone_tpu_torch.utils.tracing",
+    "ozone_tpu_torch.utils.http_server",
+    "ozone_tpu_torch.utils.insight",
+    "ozone_tpu_torch.tools.audit_parser",
+    "ozone_tpu_torch.recon",
+    "ozone_tpu_torch.recon.recon",
+    "ozone_tpu_torch.recon.ui",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -153,11 +165,13 @@ def test_slice_modules_import_alone_without_jax(module):
 
 
 def test_light_cli_verbs_import_no_torch():
-    """The CLI's namespace, `fs`, admin (`admin shards` too), ACL,
-    tenant, token and replication verbs, the remote OM and SCM clients
-    under them with the shard router, the file checksum, the ofs
-    adapter, the CSI driver, the security modules and the geo
-    replication rules and shipper start without importing torch."""
+    """The CLI's namespace, `fs`, admin (`admin shards`, `upgrade`,
+    `finalizeupgrade`, `reconfig` and `namespace` too), ACL, tenant,
+    token, replication, `insight`, `audit`, `trace`, `getconf` and
+    `version` verbs, the remote OM and SCM clients under them with the
+    shard router, the file checksum, the ofs adapter, the CSI driver,
+    the security modules, the geo replication rules and shipper, Recon
+    and the observability modules start without importing torch."""
     out = _run("""
         import sys
         from ozone_tpu_torch.tools import cli
@@ -176,6 +190,22 @@ def test_light_cli_verbs_import_no_torch():
         cli.build_parser().parse_args(["sh", "token", "print"])
         cli.build_parser().parse_args(["replication", "get", "/v/b"])
         cli.build_parser().parse_args(["admin", "shards", "map"])
+        for argv in (["admin", "upgrade"], ["admin", "finalizeupgrade"],
+                     ["admin", "reconfig", "properties", "--http", "h:1"],
+                     ["admin", "namespace", "summary", "/v/b"],
+                     ["insight", "logs", "--address", "h:1"],
+                     ["audit", "top", "a.log"], ["trace", "show", "t1"],
+                     ["getconf"], ["version"]):
+            cli.build_parser().parse_args(argv)
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["getconf"]) == 0
+            assert cli.main(["version"]) == 0
+            assert cli.main(["audit", "top", "no-such.log"]) == 1
+        from ozone_tpu_torch.recon import recon, ui
+        from ozone_tpu_torch.tools import audit_parser
+        from ozone_tpu_torch.utils import (http_server, insight, tracing,
+                                           upgrade)
         from ozone_tpu_torch.om.sharding import router, shardmap, txn
         from ozone_tpu_torch.replication_geo import rules, shipper
         from ozone_tpu_torch.om import acl, dtokens

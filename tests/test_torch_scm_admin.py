@@ -533,13 +533,33 @@ def test_admin_verbs_answer_as_the_reference(tmp_path):
 
 
 def test_finalize_upgrade_waits_for_the_upgrade_slice(tmp_path):
-    """The port has no layout versions yet: finalize-upgrade answers
-    UNSUPPORTED_REQUEST, where the reference finalizes."""
-    s = scm.StorageContainerManager(db_path=tmp_path / "scm.db")
-    with pytest.raises(ids.StorageError) as e:
-        s.apply_admin_op("finalize-upgrade")
-    assert e.value.code == "UNSUPPORTED_REQUEST"
-    s.stop()
+    """finalize-upgrade answers as the reference's does on a store
+    written at an older layout: the SCM finalizes, persists the latest
+    version and queues a finalize command for every datanode."""
+    import json
+
+    from ozone_tpu.scm import scm as ref_scm
+
+    def run(mod, root):
+        root.mkdir()
+        (root / "layout_version.json").write_text(
+            json.dumps({"layout_version": 2, "finalized": False}))
+        s = mod.StorageContainerManager(db_path=root / "scm.db")
+        s.register_datanode("dn0")
+        before = s.layout.metadata_version
+        out = s.apply_admin_op("finalize-upgrade")
+        again = s.apply_admin_op("finalize-upgrade")
+        cmds = s.nodes.process_heartbeat("dn0", 0)
+        s.stop()
+        return (before, out, again, cmds,
+                json.loads((root / "layout_version.json").read_text()))
+
+    got = run(scm, tmp_path / "port")
+    assert got == run(ref_scm, tmp_path / "ref")
+    assert got[0] == 2 and got[1]["scm"] == "FINALIZATION_DONE"
+    assert got[2]["scm"] == "ALREADY_FINALIZED"
+    assert {"type": "finalize"} in got[3]
+    assert got[4] == {"layout_version": 5, "finalized": True}
 
 
 def test_replication_status_equals_the_recon_census(tmp_path):
