@@ -13,9 +13,9 @@ whether a request may start work now.
 Every refusal is a `StorageError(SERVER_BUSY)` with a
 `retry_after_s=...` hint, counted per hop and per reason in the
 `admission` registry; the S3 gateway maps it to 503 `SlowDown` with
-`Retry-After`. The knobs are the reference's `OZONE_TPU_ADMIT_*`. Not
-ported yet: the RPC server's admission (the reference's `net/rpc.py`)
-and the controllers' snapshots that feed Recon's admission view.
+`Retry-After`. The OM, SCM and datanode RPC servers admit every call
+through their hop's controller (`net/rpc.py`), with the liveness verbs
+exempt. The knobs are the reference's `OZONE_TPU_ADMIT_*`.
 """
 
 from ozone_tpu_torch.admission.bucket import TenantBuckets

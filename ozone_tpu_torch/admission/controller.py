@@ -13,8 +13,11 @@ counter in the `admission` registry:
 - the SLO shedder (`admission/shed.py`): bulk work is refused while live
   signals are over budget.
 
-Only the S3 gateway (hop `gateway`) admits requests in the port so far.
-A refusal raises `StorageError(SERVER_BUSY, ...)` with a
+The S3 gateway (hop `gateway`) admits and charges each request; the
+RPC servers of the OM (`om`), SCM (`scm`) and datanode (`dn`) admit
+every call through `net/rpc.RpcServer.add_service(..., admission=)`,
+with their liveness verbs exempt, and the OM charges each caller's
+tenant bucket. A refusal raises `StorageError(SERVER_BUSY, ...)` with a
 `retry_after_s=<float>` hint. The code is not a transport fault: clients
 back off and retry the same peer, and no breaker trips.
 
@@ -47,7 +50,7 @@ import contextvars
 import os
 import re
 import threading
-from typing import Optional
+from typing import Iterable, Optional
 
 from ozone_tpu_torch.admission.bucket import TenantBuckets
 from ozone_tpu_torch.admission.shed import SloShedder
@@ -121,8 +124,13 @@ class AdmissionController:
                  bytes_per_s: float = 0.0, burst_s: float = 1.0,
                  queue_limit: int = 0,
                  shedder: Optional[SloShedder] = None,
-                 retry_after_s: float = 0.25):
+                 retry_after_s: float = 0.25,
+                 exempt: Iterable[str] = ()):
         self.hop = hop
+        #: verbs never refused (control-plane traffic: heartbeats and
+        #: registrations; refusing those turns overload into a dead-node
+        #: storm)
+        self.exempt = frozenset(exempt)
         self.buckets = TenantBuckets(ops_per_s, bytes_per_s, burst_s)
         self.gate = InflightGate(queue_limit)
         self.shedder = shedder or SloShedder()
@@ -154,11 +162,13 @@ class AdmissionController:
         return busy_error(self.hop, reason, retry_after_s)
 
     @contextlib.contextmanager
-    def admit(self):
+    def admit(self, verb: str = ""):
         """Bounded admission of one request: raises SERVER_BUSY when the
         hop's in-flight bound is reached, else tracks the request until
-        it completes. (The reference's exempt verbs, heartbeats and
-        registrations, come with the RPC server's admission.)"""
+        it completes. An exempt verb always passes, uncounted."""
+        if verb in self.exempt:
+            yield
+            return
         if not self.gate.try_enter():
             raise self._reject("queue", self.retry_after_s)
         METRICS.counter(f"{self.hop}_admitted").inc()
@@ -197,9 +207,11 @@ def _hop_knob_i(hop: str, suffix: str, default: int) -> int:
     return env_int(f"OZONE_TPU_ADMIT_{suffix}_{hop.upper()}", base)
 
 
-def controller(hop: str) -> AdmissionController:
+def controller(hop: str,
+               exempt: Iterable[str] = ()) -> AdmissionController:
     """Get or make the hop's controller, its knobs read from the
-    environment when it is made (`reset_for_tests` drops the cache)."""
+    environment when it is made (`reset_for_tests` drops the cache).
+    `exempt` applies only when the controller is made."""
     with _controllers_lock:
         ctl = _controllers.get(hop)
         if ctl is None:
@@ -214,6 +226,7 @@ def controller(hop: str) -> AdmissionController:
                     codec_depth=_hop_knob_i(hop, "SLO_CODEC_DEPTH", 0),
                 ),
                 retry_after_s=_hop_knob_f(hop, "RETRY_AFTER_S", 0.25),
+                exempt=exempt,
             )
         return ctl
 

@@ -704,7 +704,7 @@ class ECBlockGroupReader:
                     log.warning("unit %d failed (%s); excluding and "
                                 "retrying", e.unit, e.cause)
                     self._failed.add(e.unit)
-                except _StragglerHedge:
+                except _StragglerHedge:  # ozlint: allow[error-swallowing] -- a hedged straggler was excluded and counted by the recovery layer; the retry reconstructs it
                     # already excluded and counted by the recovery layer:
                     # the retry reconstructs them with the rest in one pass
                     pass

@@ -29,8 +29,10 @@ the authenticated RPC). Before a datanode finalizes its layout
 NOT_SUPPORTED_OPERATION_PRIOR_FINALIZATION: a single-chunk write then
 runs as the RPC's WriteChunk (the verb predates the gate), a batched one
 raises for the writer to downgrade, and each such refusal is counted per
-client (`layout_downgrades`) and in `datapath.layout_downgrades`. Left
-out: the reference's partition checks.
+client (`layout_downgrades`) and in `datapath.layout_downgrades`. Before
+each native stream the client consults `net/partition.py` with the
+datanode's RPC address and the verb, as `RpcChannel` does, so one block,
+delay or verb rule covers both lanes.
 
 Frames (must match `csrc/datapath.cpp`): u32 length | u8 tag | body,
 little-endian; checksums travel as the u32 values of the stored
@@ -46,6 +48,7 @@ import socket
 import struct
 import sys
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -149,7 +152,7 @@ class _Conn:
         for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
             try:
                 self.sock.setsockopt(socket.SOL_SOCKET, opt, 8 * 1024 * 1024)
-            except OSError:  # the kernel may cap or refuse; either is fine
+            except OSError:  # ozlint: allow[error-swallowing] -- the kernel may cap or refuse; either is fine
                 pass
         self._scratch = bytearray(4096)
 
@@ -184,7 +187,7 @@ class _Conn:
     def close(self) -> None:
         try:
             self.sock.close()
-        except OSError:  # best-effort teardown
+        except OSError:  # ozlint: allow[error-swallowing] -- best-effort teardown
             pass
 
 
@@ -232,6 +235,20 @@ class NativeDatanodeClient(RpcDatanodeClient):
         if port is None:
             self._fallback(verb, why)
         return port
+
+    def _check_partition(self, verb: str) -> None:
+        """Injected faults for one native stream, keyed by the datanode's
+        RPC address as the RPC lane's are: a drop raises UNAVAILABLE, a
+        delay blocks like a slow link."""
+        from ozone_tpu_torch.net import partition
+
+        drop, d = partition.consult(self.address, verb, None)
+        if drop:
+            raise StorageError(
+                "UNAVAILABLE",
+                f"native datapath to {self.address}: injected partition")
+        if d > 0:
+            time.sleep(d)  # ozlint: allow[deadline-propagation] -- injected chaos latency must block like a real slow link (net/partition.py delay rule)
 
     def _fallback(self, verb: str, why: str) -> None:
         _FALLBACKS.inc()
@@ -283,7 +300,7 @@ class NativeDatanodeClient(RpcDatanodeClient):
 
     @staticmethod
     def _status(body) -> None:
-        m = json.loads(bytes(body)) if len(body) else {}
+        m = json.loads(bytes(body)) if len(body) else {}  # ozlint: allow[datapath-no-copy] -- control-plane STATUS JSON, not payload
         err = m.get("error")
         if err:
             raise StorageError(err.get("code", "IO_EXCEPTION"),
@@ -357,6 +374,7 @@ class NativeDatanodeClient(RpcDatanodeClient):
                     f"chunk {info.name}: data {len(view)} != declared "
                     f"{info.length}")
             views.append(view)
+        self._check_partition(verb)
         conn = self._connect(port, verb)
         if conn is None:
             return False
@@ -418,6 +436,7 @@ class NativeDatanodeClient(RpcDatanodeClient):
             return None
         if port is None:
             return None
+        self._check_partition(verb)
         conn = self._connect(port, verb)
         if conn is None:
             return None

@@ -59,7 +59,7 @@ def start_pull(outs: tuple) -> tuple:
     hosts = []
     for t in outs:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+        host.copy_(t, non_blocking=True)  # ozlint: allow[span-on-dispatch] -- the device-to-host helper itself; every caller brackets it in its own dispatch span
         hosts.append(host)
     done = torch.cuda.Event()
     done.record()
@@ -72,7 +72,7 @@ def finish_pull(pulled: tuple) -> tuple:
     patterns."""
     hosts, done = pulled
     if done is not None:
-        done.synchronize()
+        done.synchronize()  # ozlint: allow[span-on-dispatch] -- the device-to-host helper itself; every caller brackets it in its own dispatch span
     return tuple(_host_array(h) for h in hosts)
 
 
@@ -94,7 +94,7 @@ class DeviceBatchPipeline:
         self._pending: Optional[tuple] = None
 
     def submit(self, batch, ctx: Any = None) -> Optional[tuple]:
-        prev, self._pending = self._pending, (ctx, start_pull(self._fn(batch)))
+        prev, self._pending = self._pending, (ctx, start_pull(self._fn(batch)))  # ozlint: allow[span-on-dispatch] -- per-operation pipeline: the owning op (ec:flush, ec:read, the scrub) brackets submit() in its span
         return self._to_host(prev)
 
     def drain(self) -> Optional[tuple]:
@@ -106,7 +106,7 @@ class DeviceBatchPipeline:
         if entry is None:
             return None
         ctx, pulled = entry
-        return ctx, finish_pull(pulled)
+        return ctx, finish_pull(pulled)  # ozlint: allow[span-on-dispatch] -- per-operation pipeline: the owning op brackets submit() and drain() in its span
 
 
 def batched(seq, n: int):

@@ -100,7 +100,7 @@ def qos_weights() -> dict[str, float]:
         cls, _, w = part.partition("=")
         try:
             out[cls.strip()] = max(1e-6, float(w))
-        except ValueError:
+        except ValueError:  # ozlint: allow[error-swallowing] -- malformed OZONE_TPU_CODEC_QOS entry: skipped, the defaults cover the class
             continue
     return out
 
@@ -166,7 +166,7 @@ class _Lane:
         self.fn = fn
         self.width = max(1, int(width))
         self.cls = cls
-        self.subs: deque[_Sub] = deque()
+        self.subs: deque[_Sub] = deque()  # ozlint: allow[bounded-queue] -- lane depth is governed by the weighted-fair scheduler's queue_depth gauge, which the admission SLO shedder watches; bounding here would drop accepted work
         self.queued = 0  # undispatched stripes across subs
         self.min_deadline_t = math.inf
         self.last_served = 0.0  # 0 = never dispatched from
@@ -200,7 +200,7 @@ class CodecService:
         self._queued_cls: dict[str, int] = {}  # class -> queued subs
         #: dispatched batches not yet completed: at most two (depth-1
         #: double buffer)
-        self._inflight: deque[tuple] = deque()
+        self._inflight: deque[tuple] = deque()  # ozlint: allow[bounded-queue] -- holds only batches already launched on the device: at most two (the double-buffered dispatch loop)
         self._dispatch_ewma_s = _DISPATCH_EWMA_SEED_S
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -550,7 +550,7 @@ class CodecService:
             subs = [s for lane in self._lanes.values() for s in lane.subs]
             self._lanes.clear()
             self._queued_cls.clear()
-            inflight, self._inflight = list(self._inflight), deque()
+            inflight, self._inflight = list(self._inflight), deque()  # ozlint: allow[bounded-queue] -- drain and reset of the bounded in-flight deque above, not a new queue
         for rec in inflight:
             for sub, _o, _t, _r in rec[0]:
                 subs.append(sub)

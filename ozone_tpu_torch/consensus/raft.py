@@ -615,7 +615,7 @@ class RaftNode:
             # sticky-leader pre-vote covers the unreachable case)
             try:
                 self._replicate_to(remove)
-            except Exception:  # best-effort courtesy send
+            except Exception:  # ozlint: allow[error-swallowing] -- best-effort courtesy send
                 pass
         return dict(new)
 
@@ -648,7 +648,7 @@ class RaftNode:
             while time.monotonic() < deadline:
                 try:
                     self._replicate_to(target)
-                except Exception:  # retried until the deadline
+                except Exception:  # ozlint: allow[error-swallowing] -- retried until the deadline
                     pass
                 with self._lock:
                     if self.role != LEADER:
@@ -734,7 +734,7 @@ class RaftNode:
                         "last_log_term": last_term,
                         "pre_vote": True,
                     })
-                except Exception:  # unreachable: the count decides
+                except Exception:  # ozlint: allow[error-swallowing] -- unreachable: the count decides
                     continue
                 if resp.get("granted"):
                     pre += 1
@@ -761,7 +761,7 @@ class RaftNode:
                     "last_log_term": last_term,
                     "leadership_transfer": transfer,
                 })
-            except Exception:  # unreachable: the count decides
+            except Exception:  # ozlint: allow[error-swallowing] -- unreachable: the count decides
                 continue
             with self._lock:
                 if resp["term"] > self.storage.term:

@@ -48,7 +48,17 @@ HOST_FLAGS = {
     #: (ozone_tpu/storage/fast_datapath.py:69-71)
     "datapath": ("-O3", "-march=native", "-std=c++17", "-pthread", "-shared",
                  "-fPIC"),
+    #: the LD_PRELOAD filesystem interposer, with the reference's flags
+    #: (ozone_tpu/native/__init__.py build_shared, extra -ldl)
+    "failure_injector": ("-O2", "-shared", "-fPIC", "-ldl"),
 }
+
+#: sources that are built but never loaded into this process: the
+#: interposer goes into a child's LD_PRELOAD (`testing/fault_injection.py`)
+PRELOAD_ONLY = frozenset({"failure_injector"})
+#: programs, not libraries: the sanitizer selftest program is compiled by
+#: its test with the sanitizer's flags, never here
+PROGRAMS = frozenset({"gf_coder_selftest"})
 
 #: C sources (libo3fs), with the reference's flags
 #: (ozone_tpu/native/__init__.py build_shared)
@@ -152,19 +162,31 @@ def _finish(name: str, job) -> None:
 
 
 def build_all() -> dict[str, tuple[float, str]]:
-    """Compile every csrc source, kernels and host libraries, in parallel
-    (one compiler process each) and load them."""
-    names = sorted({p.stem for p in CSRC.glob("*.cu")}
-                   | {p.stem for p in CSRC.glob("*.cpp")}
-                   | {p.stem for p in CSRC.glob("lib*/*.c")})
+    """Compile every csrc library, kernels and host libraries, in parallel
+    (one compiler process each) and load them (the interposer is built,
+    not loaded)."""
+    names = sorted(({p.stem for p in CSRC.glob("*.cu")}
+                    | {p.stem for p in CSRC.glob("*.cpp")}
+                    | {p.stem for p in CSRC.glob("lib*/*.c")}) - PROGRAMS)
     with _lock:
         jobs = {n: _start(n) for n in names if n not in _libs}
         for n, job in jobs.items():
             if job is not None:
                 _finish(n, job)
     for n in names:
-        load(n)
+        if n not in PRELOAD_ONLY:
+            load(n)
     return dict(build_log)
+
+
+def build(name: str) -> Path:
+    """The path of csrc/<name>'s library, compiling it if needed, without
+    loading it (the interposer is only ever preloaded into a child)."""
+    with _lock:
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        return _target(name)[1]
 
 
 def load(name: str) -> ctypes.CDLL:

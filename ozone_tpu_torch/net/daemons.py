@@ -375,7 +375,7 @@ class DatanodeDaemon:
                 if dev not in seen:
                     seen.add(dev)
                     total += shutil.disk_usage(v.root).total
-            except OSError:  # a vanished volume drops out of the report
+            except OSError:  # ozlint: allow[error-swallowing] -- a vanished volume drops out of the report
                 continue
         return total
 
@@ -533,7 +533,7 @@ class DatanodeDaemon:
         for cid in self.dn.pop_scan_requests():
             try:
                 c = self.dn.get_container(cid)
-            except StorageError:  # deleted since the request
+            except StorageError:  # ozlint: allow[error-swallowing] -- deleted since the request
                 continue
             if c.state not in SCANNABLE_STATES:
                 self.dn.request_scan(cid)
@@ -585,7 +585,7 @@ class DatanodeDaemon:
             if cmd.get("container_id") is not None:
                 try:
                     self.dn.close_container(int(cmd["container_id"]))
-                except StorageError:  # already closed, or absent
+                except StorageError:  # ozlint: allow[error-swallowing] -- already closed, or absent
                     pass
         elif isinstance(cmd, dict) and cmd.get("type") == "close-container":
             self._close_container(cmd)
@@ -659,7 +659,7 @@ class DatanodeDaemon:
             return
         try:
             self.dn.close_container(cid)
-        except StorageError:  # already closed, or not here yet
+        except StorageError:  # ozlint: allow[error-swallowing] -- already closed, or not here yet
             pass
 
     def _replicate(self, cmd: ReplicateCommand) -> None:
@@ -681,7 +681,7 @@ class DatanodeDaemon:
         self.trace_exporter.stop()
         for t in (self._hb, self._scanner):
             if t is not None:
-                t.join(timeout=5)
+                t.join(timeout=5)  # ozlint: allow[deadline-propagation] -- shutdown join of the daemon's own loop threads, not a request path
         self.xceiver_ratis.stop()
         self.server.stop()
         self.stop_datapath()
@@ -1088,7 +1088,7 @@ class ScmOmDaemon:
 
         raft_rpc = RaftRpcService(self.server)
         self._ha_transport = RpcRaftTransport("meta-ha", self._ha_peers,
-                                              tls=self.tls)
+                                              tls=self.tls, owner=ha_id)
         self.ha = MetaHARing(self.om, self.scm, raft_dir, ha_id,
                              list(self._ha_peers),
                              transport=self._ha_transport)
@@ -1278,7 +1278,7 @@ class ScmOmDaemon:
         if self.cert_renewal is not None:
             self.cert_renewal.stop()
         if self._bg is not None:
-            self._bg.join(timeout=30)
+            self._bg.join(timeout=30)  # ozlint: allow[deadline-propagation] -- shutdown join of the daemon's own loop threads, not a request path
         if self.http is not None:
             self.http.stop()
         if self.recon is not None:

@@ -31,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 
+from ozone_tpu_torch import admission
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.codec import hostmem
 from ozone_tpu_torch.net import wire
@@ -96,6 +97,11 @@ class DatanodeRpcService:
                 "ExportContainer": self._export_container,
                 "ReadChunks": self._read_chunks,
             },
+            # one in-flight bound across every datapath verb, unary and
+            # streaming alike; liveness probes and datapath discovery stay
+            # exempt
+            admission=admission.controller(
+                "dn", exempt=frozenset({"Echo", "GetDatapathInfo"})),
         )
 
     # ------------------------------------------------------------ token gate
@@ -500,17 +506,34 @@ class RpcDatanodeClient:
         if container_id is not None:
             meta.update(container_id=int(container_id),
                         **self._ctok(container_id))
-        view = memoryview(data)
 
-        def frames():
-            yield wire.pack(meta)
-            for off in range(0, len(view), _EXPORT_FRAME):
-                yield view[off:off + _EXPORT_FRAME]
+        def upload(blob):
+            view = memoryview(blob)
 
-        out = self._ch.call_streaming(
-            SERVICE, "ImportContainer", frames(),
-            timeout=resilience.op_timeout(self._BULK_STREAM_TIMEOUT_S,
-                                          "ImportContainer"))
+            def frames():
+                yield wire.pack(meta)
+                for off in range(0, len(view), _EXPORT_FRAME):
+                    yield view[off:off + _EXPORT_FRAME]
+
+            return self._ch.call_streaming(
+                SERVICE, "ImportContainer", frames(),
+                timeout=resilience.op_timeout(self._BULK_STREAM_TIMEOUT_S,
+                                              "ImportContainer"))
+
+        try:
+            out = upload(data)
+        except StorageError as e:
+            from ozone_tpu_torch.storage.container_packer import (
+                UNSUPPORTED_COMPRESSION,
+                compress_blob,
+                sniff_decompress,
+            )
+
+            if e.code != UNSUPPORTED_COMPRESSION:
+                raise
+            # the peer lacks this tarball's codec: recompress with gzip,
+            # which every node serves, and retry once
+            out = upload(compress_blob("gzip", sniff_decompress(data)))
         return int(wire.unpack(out)[0]["container_id"])
 
     def stream_write_block(self, block_id, data_frames,
@@ -559,7 +582,7 @@ class RpcDatanodeClient:
                                           "WriteChunksCommit"))
 
     def echo(self, data: bytes = b"ping") -> bytes:
-        return bytes(self._ch.call(SERVICE, "Echo", data))
+        return bytes(self._ch.call(SERVICE, "Echo", data))  # ozlint: allow[datapath-no-copy] -- the Echo liveness probe's answer, not payload
 
     def close(self):
         self._ch.close()

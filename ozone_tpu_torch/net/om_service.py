@@ -66,6 +66,7 @@ import contextlib
 import threading
 from typing import TYPE_CHECKING, Optional
 
+from ozone_tpu_torch import admission
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.net import wire
 from ozone_tpu_torch.net.rpc import FailoverChannels, RpcServer
@@ -302,8 +303,13 @@ class OmRpcService:
             # so it cannot be leader-gated)
             "GetShardMap": w(lambda m: om.store.get("system", "shard_map")),
         }
+        # past the in-flight bound a call is answered SERVER_BUSY instead
+        # of waiting for a worker; GetShardMap stays exempt (it is how a
+        # refused client finds somewhere else to go)
         server.add_service(SERVICE, {n: self._gated(n, fn)
-                                     for n, fn in methods.items()})
+                                     for n, fn in methods.items()},
+                           admission=admission.controller(
+                               "om", exempt=self.UNGATED))
 
     #: verbs exempt from the HA leader gate (see GetShardMap above)
     UNGATED = frozenset({"GetShardMap"})
@@ -331,8 +337,21 @@ class OmRpcService:
         groups = m.pop("_groups", ())
         if tok is not None:
             row = self.om.verify_delegation_token(tok)  # raises OMError
+            self._charge(row["owner"])
             return row["owner"], (), True
+        self._charge(user)
         return user, groups, False
+
+    def _charge(self, user) -> None:
+        """Per-tenant admission at the OM's front door: every verb that
+        carries an identity books one op against its caller's bucket (OM
+        work is metadata, so ops are the dimension that matters). Raises
+        StorageError(SERVER_BUSY) with its retry hint."""
+        ctl = admission.controller("om", exempt=self.UNGATED)
+        if not (ctl.buckets.enabled or ctl.shedder.enabled):
+            return
+        tenant = user or "anonymous"
+        ctl.charge(tenant, priority=admission.qos_class_for(tenant))
 
     def _bound(self, m: dict):
         """The OM's user context for this request's caller."""

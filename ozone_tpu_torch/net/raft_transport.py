@@ -12,13 +12,16 @@ raft core is the same in tests and daemons. With `tls` the transport
 dials its peers over mutual TLS with `server_name=<peer id>` (a ring
 member's certificate carries its id among its names), and a renewed
 identity (a new `version`) retires the channels made under the old one.
-Left out: partition injection.
+`owner` tags every outbound channel of the transport with the local node
+id, so an owner-scoped partition (`net/partition.block(dst, owner=id)`)
+isolates one replica of a ring whose members share a process.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+from typing import Optional
 
 from ozone_tpu_torch.consensus.raft import RaftNode, Transport
 from ozone_tpu_torch.net import wire
@@ -72,10 +75,13 @@ class RpcRaftTransport(Transport):
     """
 
     def __init__(self, group_id: str, peers: dict[str, str], tls=None,
-                 timeout_s: float = 5.0, vote_timeout_s: float = 1.0):
+                 timeout_s: float = 5.0, vote_timeout_s: float = 1.0,
+                 owner: Optional[str] = None):
         self.group_id = group_id
         self._peers = dict(peers)
         self._tls = tls
+        #: the partition scope tag of this node's outbound channels
+        self._owner = owner
         #: the identity version the cached channels were made under; the
         #: retired ones are closed with the transport (a raft call may
         #: still be on one)
@@ -114,7 +120,8 @@ class RpcRaftTransport(Transport):
                         f"no address for raft peer {peer_id}")
                 ch = self._channels[peer_id] = RpcChannel(
                     addr, tls=self._tls,
-                    server_name=peer_id if self._tls is not None else None)
+                    server_name=peer_id if self._tls is not None else None,
+                    owner=self._owner)
             return ch
 
     def send(self, peer_id: str, method: str, req: dict) -> dict:

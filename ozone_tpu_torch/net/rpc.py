@@ -44,7 +44,19 @@ plaintext. `FailoverChannels` drops its channels when the material's
 `version` changes. The `rpc` registry's `tls_handshake` histogram times
 each client handshake.
 
-Left out: admission control and partition injection.
+Admission: `add_service(..., admission=ctl)` puts a service behind an
+`admission/controller.AdmissionController`. The worker that takes a call
+admits it (`ctl.admit(verb)`, inside the server span) before the
+handler runs, so past the hop's in-flight bound a call is answered
+SERVER_BUSY and costs no handler time; the controller's exempt verbs
+(heartbeats, registrations, `Echo`) are never refused.
+
+Partition injection (`net/partition.py`): before each unary,
+client-streaming and server-streaming call the channel consults the
+process's partition tables and verb rules with its address, the method
+and its `owner` tag. A dropped call raises UNAVAILABLE as a cut wire
+would; an injected delay sleeps first, and a delay past the call's
+timeout sleeps until the deadline, then raises UNAVAILABLE.
 """
 
 from __future__ import annotations
@@ -271,13 +283,15 @@ class RpcServer:
         self.host = host
         self.port = self._sock.getsockname()[1]
         self._methods: dict[str, tuple[str, Callable]] = {}
+        #: method key -> the AdmissionController its service was added with
+        self._admission: dict = {}
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix=f"rpc-{self.port}")
         self._sel = selectors.DefaultSelector()
         self._wake_r, self._wake_w = socket.socketpair()
         self._wake_r.setblocking(False)
-        self._ready: deque = deque()
-        self._lock = threading.Condition()
+        self._ready: deque = deque()  # ozlint: allow[bounded-queue] -- connections handed back to the selector: at most one per open connection
+        self._cond = threading.Condition()
         self._conns: set = set()
         self._active: set = set()
         self._stopped = threading.Event()
@@ -289,12 +303,19 @@ class RpcServer:
 
     def add_service(self, service_name: str, methods: dict[str, Method],
                     stream_methods: Optional[dict] = None,
-                    server_stream_methods: Optional[dict] = None) -> None:
+                    server_stream_methods: Optional[dict] = None,
+                    admission=None) -> None:
+        """Register a service's methods; with `admission` (an
+        AdmissionController) every call of the service is admitted
+        through it before its handler runs."""
         for kind, table in ((UNARY, methods),
                             (CLIENT_STREAM, stream_methods or {}),
                             (SERVER_STREAM, server_stream_methods or {})):
             for name, fn in table.items():
-                self._methods[f"/{service_name}/{name}"] = (kind, fn)
+                key = f"/{service_name}/{name}"
+                self._methods[key] = (kind, fn)
+                if admission is not None:
+                    self._admission[key] = admission
 
     def start(self) -> None:
         self._sel.register(self._sock, selectors.EVENT_READ)
@@ -306,17 +327,17 @@ class RpcServer:
     def _wake(self) -> None:
         try:
             self._wake_w.send(b"\0")
-        except OSError:  # the server is stopping
+        except OSError:  # ozlint: allow[error-swallowing] -- the server is stopping: nothing to wake
             pass
 
     def _io_loop(self) -> None:
         while not self._stopped.is_set():
-            for key, _ in self._sel.select(timeout=1.0):
+            for key, _ in self._sel.select(timeout=1.0):  # ozlint: allow[deadline-propagation] -- the selector loop's poll period for its stop flag, not a request timeout
                 obj = key.fileobj
                 if obj is self._sock:
                     try:
                         conn, _ = self._sock.accept()
-                    except OSError:
+                    except OSError:  # ozlint: allow[error-swallowing] -- a connection reset before accept leaves nothing to serve
                         continue
                     conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                     if self._tls is not None:
@@ -328,7 +349,7 @@ class RpcServer:
                         except (OSError, ValueError):
                             conn.close()
                             continue
-                    with self._lock:
+                    with self._cond:
                         if self._tls is not None:
                             # the handshake runs on a worker once the
                             # client's hello makes the socket readable
@@ -339,11 +360,11 @@ class RpcServer:
                     try:
                         while self._wake_r.recv(4096):
                             pass
-                    except BlockingIOError:
+                    except BlockingIOError:  # ozlint: allow[error-swallowing] -- the wake socket is drained
                         pass
                 else:
                     self._sel.unregister(obj)
-                    with self._lock:
+                    with self._cond:
                         self._active.add(obj)
                     try:
                         self._pool.submit(self._serve_one, obj)
@@ -357,14 +378,14 @@ class RpcServer:
                     self._sel.register(conn, selectors.EVENT_READ)
 
     def _drop(self, conn: socket.socket) -> None:
-        with self._lock:
+        with self._cond:
             self._conns.discard(conn)
             self._active.discard(conn)
             self._handshaking.discard(conn)
-            self._lock.notify_all()
+            self._cond.notify_all()
         try:
             conn.close()
-        except OSError:
+        except OSError:  # ozlint: allow[error-swallowing] -- best-effort close of a socket being dropped
             pass
 
     def _handshake(self, conn) -> bool:
@@ -378,7 +399,7 @@ class RpcServer:
             log.debug("rpc server %s: TLS handshake failed: %r",
                       self.address, e)
             return False
-        with self._lock:
+        with self._cond:
             self._handshaking.discard(conn)
         return True
 
@@ -403,9 +424,9 @@ class RpcServer:
             keep = False
             log.exception("rpc server %s: connection failed", self.address)
         if keep and not self._stopped.is_set():
-            with self._lock:
+            with self._cond:
                 self._active.discard(conn)
-                self._lock.notify_all()
+                self._cond.notify_all()
             self._ready.append(conn)
             self._wake()
         else:
@@ -448,7 +469,8 @@ class RpcServer:
         fn = entry[1]
         tracer = Tracer.instance()
         try:
-            with tracer.activate(ctx), tracer.span(f"server:{key}"):
+            with tracer.activate(ctx), tracer.span(f"server:{key}"), \
+                    self._admit(key):
                 if kind == SERVER_STREAM:
                     for out in fn(request):
                         _send(conn, [(DATA, _parts(out))], t_end)
@@ -474,6 +496,14 @@ class RpcServer:
         _send(conn, [(DATA, _parts(out))], t_end)
         return True
 
+    def _admit(self, key: str):
+        """The admission of one call of `key`: SERVER_BUSY past its hop's
+        bound, a no-op for a service added without a controller."""
+        ctl = self._admission.get(key)
+        if ctl is None:
+            return contextlib.nullcontext()
+        return ctl.admit(key.rpartition("/")[2])
+
     def _revoked(self, conn) -> Optional[int]:
         """The peer certificate's serial when the CRL lists it (the
         handshake cannot consult a live CRL, so every call does)."""
@@ -493,32 +523,32 @@ class RpcServer:
         self._stopped.set()
         self._wake()
         if self._io is not None:
-            self._io.join(timeout=5)
+            self._io.join(timeout=5)  # ozlint: allow[deadline-propagation] -- shutdown join of the server's own selector thread, not a request path
         for sock in (self._sock, self._wake_r, self._wake_w):
             try:
                 sock.close()
-            except OSError:
+            except OSError:  # ozlint: allow[error-swallowing] -- best-effort close of a socket being dropped
                 pass
         self._sel.close()
-        with self._lock:
+        with self._cond:
             idle = [c for c in self._conns if c not in self._active]
         for c in idle:
             self._drop(c)
         self._pool.shutdown(wait=False)
         t_end = time.monotonic() + (grace or 0)
-        with self._lock:
+        with self._cond:
             while self._active and time.monotonic() < t_end:
-                self._lock.wait(timeout=max(0.0, t_end - time.monotonic()))
+                self._cond.wait(timeout=max(0.0, t_end - time.monotonic()))
             busy = list(self._active)
         for c in busy:
             try:
                 c.shutdown(socket.SHUT_RDWR)
-            except OSError:
+            except OSError:  # ozlint: allow[error-swallowing] -- best-effort close of a socket being dropped
                 pass
-        with self._lock:
+        with self._cond:
             t_end = time.monotonic() + 5
             while self._active and time.monotonic() < t_end:
-                self._lock.wait(timeout=max(0.0, t_end - time.monotonic()))
+                self._cond.wait(timeout=max(0.0, t_end - time.monotonic()))
 
 
 # ------------------------------------------------------------------ client
@@ -532,8 +562,12 @@ class RpcChannel:
     CONNECT_TIMEOUT_S = 10.0
 
     def __init__(self, address: str, tls=None,
-                 server_name: Optional[str] = None, traced: bool = True):
+                 server_name: Optional[str] = None,
+                 owner: Optional[str] = None, traced: bool = True):
         self.address = address
+        #: the scope tag partition rules match (`net/partition.py`): a raft
+        #: transport tags its channels with its node id
+        self.owner = owner
         self._tls = tls
         #: False: calls open no client span (the span exporter's own
         #: channel must not trace the tracing plane)
@@ -644,7 +678,7 @@ class RpcChannel:
                     return
         try:
             sock.close()
-        except OSError:
+        except OSError:  # ozlint: allow[error-swallowing] -- best-effort close of a socket being dropped
             pass
 
     # -- errors
@@ -671,6 +705,27 @@ class RpcChannel:
             return contextlib.nullcontext()
         return Tracer.instance().span(f"client:{key}", address=self.address)
 
+    def _check_partition(self, key: str, timeout: Optional[float]) -> None:
+        """Injected faults for one call (partition tables and verb rules):
+        a drop raises UNAVAILABLE; a delay sleeps, and one past the call's
+        timeout sleeps to the deadline, then raises UNAVAILABLE, as a
+        slow link would."""
+        from ozone_tpu_torch.net import partition
+
+        drop, d = partition.consult(self.address, key, self.owner)
+        if drop:
+            raise StorageError(
+                "UNAVAILABLE",
+                f"rpc {key} to {self.address}: injected network partition")
+        if d > 0:
+            if timeout is not None and d >= timeout:
+                time.sleep(timeout)  # ozlint: allow[deadline-propagation] -- injected chaos latency must block like a real slow link; bounded by the caller's timeout
+                raise StorageError(
+                    "UNAVAILABLE",
+                    f"rpc {key} to {self.address}: injected latency {d}s "
+                    f"exceeded deadline {timeout}s")
+            time.sleep(d)  # ozlint: allow[deadline-propagation] -- injected chaos latency, not a retry sleep (net/partition.py delay rule)
+
     # -- calls
     def call(self, service: str, method: str, request,
              timeout: Optional[float] = 30.0) -> bytearray:
@@ -688,6 +743,7 @@ class RpcChannel:
         """A unary call (one request frame) or a client stream (any number,
         then END), answered by one DATA or ERROR frame."""
         key = f"/{service}/{method}"
+        self._check_partition(key, timeout)
         t_end = self._deadline(timeout)
         with self._span(key):
             sock = None
@@ -722,6 +778,7 @@ class RpcChannel:
         """Server-streaming call: one request, the response frames yielded
         as they arrive (large downloads never buffer in one message)."""
         key = f"/{service}/{method}"
+        self._check_partition(key, timeout)
         t_end = self._deadline(timeout)
         with self._span(key):
             sock = None
@@ -756,7 +813,7 @@ class RpcChannel:
         for s in idle:
             try:
                 s.close()
-            except OSError:
+            except OSError:  # ozlint: allow[error-swallowing] -- best-effort close of a socket being dropped
                 pass
 
 

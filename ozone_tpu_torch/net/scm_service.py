@@ -53,6 +53,7 @@ import time
 from dataclasses import asdict
 from typing import TYPE_CHECKING, Optional
 
+from ozone_tpu_torch import admission
 from ozone_tpu_torch.client import resilience
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.net import wire
@@ -164,9 +165,16 @@ class ScmRpcService:
         }.items()}
         # these take the lock themselves: a ring operation or a quorum
         # barrier must not hold heartbeats back while it waits
+        # client-facing verbs are refused past the in-flight bound; node
+        # liveness traffic is exempt (a shed heartbeat turns overload into
+        # a dead-node storm)
         server.add_service(SERVICE, {**locked,
                                      "AllocateBlock": self._allocate_block,
-                                     "AdminOp": self._admin_op})
+                                     "AdminOp": self._admin_op},
+                           admission=admission.controller(
+                               "scm", exempt=frozenset({
+                                   "Register", "Heartbeat",
+                                   "NodeAddresses", "Status"})))
 
     def _locked(self, fn):
         @functools.wraps(fn)

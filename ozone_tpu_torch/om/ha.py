@@ -95,7 +95,7 @@ class ReplicatedOzoneManager:
         for e in entries:
             try:
                 rq.OMRequest.from_json(e["request"]).apply(self.om.store)
-            except rq.OMError:  # already applied: state converges
+            except rq.OMError:  # ozlint: allow[error-swallowing] -- already applied: state converges
                 pass
             self.applied_index = e["index"]
 
@@ -152,7 +152,7 @@ class ReplicatedOzoneManager:
                 self.wal.append(e)
                 try:
                     rq.OMRequest.from_json(e["request"]).apply(self.om.store)
-                except rq.OMError:  # already applied: state converges
+                except rq.OMError:  # ozlint: allow[error-swallowing] -- already applied: state converges
                     pass
                 self.applied_index = e["index"]
 

@@ -143,7 +143,7 @@ class _Shard:
                 for cand in self.replicas:
                     if cand.node.node_id not in self.transport.down:
                         cand.node.start_election()
-            time.sleep(0.01)
+            time.sleep(0.01)  # ozlint: allow[deadline-propagation] -- in-process ring's election poll, bounded by the caller's own deadline check above
 
     @property
     def om(self) -> OzoneManager:

@@ -232,7 +232,7 @@ class RaftSCM:
         self.scm = scm
         self.scm_id = scm_id
         self.ack_timeout_s = ack_timeout_s
-        self._queue: "_queue.Queue" = _queue.Queue()  # bounded by the ack window
+        self._queue: "_queue.Queue" = _queue.Queue()  # ozlint: allow[bounded-queue] -- bounded by the ack window
         self._inflight: set[str] = set()
         self._seq = 0
         self._committed_seq = 0
@@ -341,7 +341,7 @@ class RaftSCM:
                         self._committed_seq = rec["seq"]
                         self._ack_cv.notify_all()
                     break
-                except TimeoutError:  # retry while still leader
+                except TimeoutError:  # ozlint: allow[error-swallowing] -- retry while still leader
                     continue
 
     def _maybe_resync(self) -> None:
@@ -361,7 +361,7 @@ class RaftSCM:
                     self._committed_seq = max(self._committed_seq,
                                               rec["seq"])
                     self._ack_cv.notify_all()
-        except _queue.Empty:  # drained
+        except _queue.Empty:  # ozlint: allow[error-swallowing] -- drained
             pass
         try:
             if self.node.fetch_state_from(hint):

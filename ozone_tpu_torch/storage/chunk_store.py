@@ -40,9 +40,13 @@ class _CachedFd:
 class FilePerBlockStore:
     """Chunks of a block live in one file `<chunks_dir>/<local_id>.block`."""
 
-    def __init__(self, chunks_dir: Path):
+    def __init__(self, chunks_dir: Path, readonly: bool = False):
         self.chunks_dir = Path(chunks_dir)
-        self.chunks_dir.mkdir(parents=True, exist_ok=True)
+        #: opened by an offline tool: files open O_RDONLY, writes refused,
+        #: nothing created
+        self.readonly = readonly
+        if not readonly:
+            self.chunks_dir.mkdir(parents=True, exist_ok=True)
         self._fds: OrderedDict[int, _CachedFd] = OrderedDict()
         self._lock = threading.Lock()
 
@@ -56,7 +60,10 @@ class FilePerBlockStore:
         with self._lock:
             ent = self._fds.get(lid)
             if ent is None:
-                flags = os.O_RDWR | (os.O_CREAT if create else 0)
+                if self.readonly:
+                    flags = os.O_RDONLY
+                else:
+                    flags = os.O_RDWR | (os.O_CREAT if create else 0)
                 ent = _CachedFd(os.open(self.block_path(block_id), flags))
                 self._fds[lid] = ent
                 # evict idle LRU entries past the cap; pinned entries stay
@@ -80,7 +87,7 @@ class FilePerBlockStore:
         if ent.fd >= 0:
             try:
                 os.close(ent.fd)
-            except OSError:  # best-effort eviction: nothing to recover
+            except OSError:  # ozlint: allow[error-swallowing] -- best-effort eviction: nothing to recover
                 pass
             ent.fd = -1
 
@@ -97,6 +104,9 @@ class FilePerBlockStore:
     # ------------------------------------------------------------- chunk IO
     def write_chunk(self, block_id: BlockID, info: ChunkInfo, data,
                     sync: bool = False) -> None:
+        if self.readonly:
+            raise StorageError(
+                IO_EXCEPTION, f"write {info.name}: store is readonly")
         if isinstance(data, (bytes, bytearray, memoryview)):
             try:
                 view = memoryview(data).cast("B")

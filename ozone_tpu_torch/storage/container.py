@@ -3,7 +3,10 @@
 Port of `ozone_tpu/storage/container.py` (the reference's KeyValueContainer
 model): one sqlite DB per volume holds the block metadata of all its
 containers, each container is a directory with a JSON descriptor and
-file-per-block chunk files.
+file-per-block chunk files. `HddsVolume(root, readonly=True)` opens a
+volume for the offline debug tools: sqlite in mode=ro with no DDL, chunk
+files O_RDONLY, nothing created; `load_containers(on_error=...)` reports
+a bad descriptor and goes on instead of raising.
 """
 
 from __future__ import annotations
@@ -48,11 +51,17 @@ def _guard_sqlite(fn):
 
 
 class VolumeDB:
-    """Per-volume block-metadata store."""
+    """Per-volume block-metadata store. With readonly=True the sqlite file
+    opens in mode=ro and no DDL runs: the offline debug tools inspect a
+    failing disk remounted read-only without writing a byte."""
 
     @_guard_sqlite
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, readonly: bool = False):
         self._lock = threading.Lock()
+        if readonly:
+            self._conn = sqlite3.connect(f"file:{path}?mode=ro", uri=True,
+                                         check_same_thread=False)
+            return
         self._conn = sqlite3.connect(str(path), check_same_thread=False)
         self._conn.execute(
             "CREATE TABLE IF NOT EXISTS blocks ("
@@ -128,6 +137,7 @@ class Container:
         db: VolumeDB,
         state: ContainerState = ContainerState.OPEN,
         replica_index: int = 0,
+        readonly: bool = False,
     ):
         self.id = container_id
         self.root = Path(root)
@@ -135,7 +145,8 @@ class Container:
         self.state = state
         self.replica_index = replica_index
         self.created_at = time.time()
-        self.chunks = FilePerBlockStore(self.root / "chunks")
+        self.chunks = FilePerBlockStore(self.root / "chunks",
+                                        readonly=readonly)
         self._lock = threading.RLock()
         # write fence: the first identified writer of a block file owns it;
         # another writer's stream is refused instead of interleaving bytes
@@ -157,10 +168,11 @@ class Container:
         )
 
     @classmethod
-    def load(cls, root: Path, db: VolumeDB) -> "Container":
+    def load(cls, root: Path, db: VolumeDB,
+             readonly: bool = False) -> "Container":
         d = json.loads((Path(root) / "container.json").read_text())
         c = cls(int(d["id"]), root, db, ContainerState(d["state"]),
-                int(d.get("replica_index", 0)))
+                int(d.get("replica_index", 0)), readonly=readonly)
         c.created_at = d.get("created_at", c.created_at)
         return c
 
@@ -236,10 +248,12 @@ class HddsVolume:
 
     _PROBE = b"ozone-tpu-disk-check"
 
-    def __init__(self, root: Path):
+    def __init__(self, root: Path, readonly: bool = False):
         self.root = Path(root)
-        (self.root / "containers").mkdir(parents=True, exist_ok=True)
-        self.db = VolumeDB(self.root / "metadata.db")
+        if not readonly:
+            (self.root / "containers").mkdir(parents=True, exist_ok=True)
+        self.db = VolumeDB(self.root / "metadata.db", readonly=readonly)
+        self.readonly = readonly
         #: a failed disk (the volume checker's verdict): no new container
         #: lands here and its replicas left the container set
         self.failed = False
@@ -267,10 +281,25 @@ class HddsVolume:
     def container_dir(self, container_id: int) -> Path:
         return self.root / "containers" / str(container_id)
 
-    def load_containers(self) -> Iterator[Container]:
-        for d in sorted((self.root / "containers").iterdir()):
-            if (d / "container.json").exists():
-                yield Container.load(d, self.db)
+    def load_containers(self, on_error=None) -> Iterator[Container]:
+        """This volume's containers. With `on_error`, a container that
+        fails to load (a truncated descriptor, bad permissions) is reported
+        through the callback and skipped (the forensic tools' contract);
+        without it the error propagates (a serving datanode must not drop
+        replicas silently)."""
+        cdir = self.root / "containers"
+        if not cdir.is_dir():
+            return
+        for d in sorted(cdir.iterdir()):
+            if not (d / "container.json").exists():
+                continue
+            if on_error is None:
+                yield Container.load(d, self.db, readonly=self.readonly)
+                continue
+            try:
+                yield Container.load(d, self.db, readonly=self.readonly)
+            except Exception as e:  # noqa: BLE001 - reported, not fatal
+                on_error(f"{d}: bad descriptor: {e}")
 
     def close(self) -> None:
         self.db.close()

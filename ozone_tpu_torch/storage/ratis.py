@@ -163,7 +163,8 @@ class RatisXceiverServer:
             if transport is None:
                 from ozone_tpu_torch.net.raft_transport import RpcRaftTransport
 
-                transport = RpcRaftTransport(gid, dict(peers), tls=self.tls)
+                transport = RpcRaftTransport(gid, dict(peers), tls=self.tls,
+                                             owner=self.dn.id)
                 self._transports[gid] = transport
             sm = ContainerStateMachine(self.dn)
             node = RaftNode(

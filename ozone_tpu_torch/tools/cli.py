@@ -88,6 +88,22 @@ RPC (`net/`).
     python -m ozone_tpu_torch.tools trace slow|show <id> --om 127.0.0.1:9860
     python -m ozone_tpu_torch.tools audit top|failures|parse om-audit.log
     python -m ozone_tpu_torch.tools getconf | version
+    python -m ozone_tpu_torch.tools insight partition|heal --dst H:P \
+        [--owner ID] --address <daemon>; insight delay --dst H:P --seconds 0.5
+    python -m ozone_tpu_torch.tools fsck [--volume V --bucket B] --om ...
+    python -m ozone_tpu_torch.tools repair orphans [--delete] --om ...
+    python -m ozone_tpu_torch.tools repair quota --volume V --om ...
+    python -m ozone_tpu_torch.tools repair transaction|snapshot-chain \
+        --db /data/om.db [--index N | --path /v/b --name S --previous ID] \
+        [--apply]
+    python -m ozone_tpu_torch.tools debug chunk-info|verify-replicas /v/b/k
+    python -m ozone_tpu_torch.tools debug export-container|import-container \
+        <id> --dn dn3 --file c.tar --om ...
+    python -m ozone_tpu_torch.tools debug container-list|container-inspect \
+        [<id>] --root /data/dn3           # offline, read-only
+    python -m ozone_tpu_torch.tools debug ldb /data/om.db --table keys
+    python -m ozone_tpu_torch.tools freon rawcoder --schema rs-6-3 \
+        --cell 1048576 --batch 8
 
 Every command whose process runs the codec takes `--device` ("cuda" by
 default; "cpu" runs the plain PyTorch versions): `datanode`, `sh key
@@ -96,9 +112,13 @@ lifecycle sweep, slab compaction and geo ship cycles code there) and
 `cluster`, which passes it to its children. Without CUDA, "cuda" is an
 error that names CUDA (for `scm-om`, at its first sweep or ship cycle
 with work). The namespace, `fs`, admin, lifecycle, replication and
-`csi` verbs, `sh key checksum` (it reads chunk metadata, no data), and
-the `insight`, `trace`, `audit`, `getconf` and `version` verbs import no
-torch, so they start in about a second. A command that talks to `--om`
+`csi` verbs, `sh key checksum` (it reads chunk metadata, no data), the
+`repair` tools, the offline and trace `debug` verbs, and the `insight`,
+`trace`, `audit`, `getconf` and `version` verbs import no torch, so they
+start in about a second; so do the freon generators that run no codec
+(dcg, dcb, dcv, dsg, dnbp, dnsim, cmdw, dbgen, ralg). `fsck`, `debug
+chunk-info` and `debug verify-replicas` read block groups through the
+EC writer's types, which import torch when the verb runs. A command that talks to `--om`
 ships the spans it finished to the cluster's trace collector on exit.
 Against a metadata ring, `--om` takes the replicas as a comma-separated
 list; the clients follow the leader. On a token-enforcing cluster
@@ -820,7 +840,8 @@ def _http_get(address: str, path: str) -> int:
 def cmd_insight(args) -> int:
     """Per-subsystem introspection (`ozone insight`): list the points,
     read the metrics, tail the logs, set a logger's level on a running
-    daemon."""
+    daemon; and cut (`partition`), slow (`delay`), restore (`heal`) and
+    list (`partitions`) that daemon's outbound links in a fault drill."""
     from ozone_tpu_torch.utils.insight import InsightClient
 
     cli = InsightClient(args.address or args.om, tls=_client_tls())
@@ -834,8 +855,28 @@ def cmd_insight(args) -> int:
                               level=args.level):
                 print(f"{r['ts']:.3f} {r['level']:<8} {r['logger']}: "
                       f"{r['message']}")
-        else:  # log-level
+        elif args.verb == "log-level":
             _emit(cli.set_log_level(args.logger, args.level or "DEBUG"))
+        elif args.verb == "partition":
+            if not args.dst:
+                print("error INVALID: partition requires --dst",
+                      file=sys.stderr)
+                return 1
+            _emit(cli.partition(args.dst, owner=args.owner))
+        elif args.verb == "delay":
+            if not args.dst:
+                print("error INVALID: delay requires --dst", file=sys.stderr)
+                return 1
+            _emit(cli.delay(args.dst, args.seconds, owner=args.owner))
+        elif args.verb == "heal":
+            if args.owner and not args.dst:
+                print("error INVALID: heal --owner requires --dst",
+                      file=sys.stderr)
+                return 1
+            _emit(cli.heal(args.dst, owner=args.owner))
+        else:  # partitions
+            _emit({"blocked": cli.partition_list(),
+                   "delayed": cli.delays()})
     finally:
         cli.close()
     return 0
@@ -884,6 +925,494 @@ def cmd_trace(args) -> int:
         return 0
     finally:
         ch.close()
+
+
+# ------------------------------------------------------------ repair tools
+def _scan_referenced_blocks(om) -> set:
+    """Every (container, local) pair a committed key references."""
+    referenced: set[tuple[int, int]] = set()
+    for v in om.list_volumes():
+        for b in om.list_buckets(v["name"]):
+            for k in om.list_keys(v["name"], b["name"]):
+                for g in k.get("block_groups", []):
+                    referenced.add((int(g["container_id"]),
+                                    int(g["local_id"])))
+    return referenced
+
+
+def _repair_offline(args) -> int:
+    """Offline OM-db surgery (the reference's `ozone repair` RDBRepair
+    family: repair/om/SnapshotRepair.java re-points a snapshot chain link,
+    repair/TransactionInfoRepair.java resets the raft applied marker). Run
+    against a STOPPED OM's db; a dry run unless --apply."""
+    from ozone_tpu_torch.om.metadata import OMMetadataStore
+    from ozone_tpu_torch.om.requests import snapmeta_key
+
+    if not args.db:
+        print("error: --db OM_DB_PATH required (service must be stopped)",
+              file=sys.stderr)
+        return 2
+    if not Path(args.db).exists():
+        # the store would make a fresh empty db at a mistyped path and
+        # "repair" it
+        print(f"error: no OM db at {args.db}", file=sys.stderr)
+        return 2
+    store = OMMetadataStore(Path(args.db))
+    try:
+        if args.tool == "snapshot-chain":
+            if not args.snap_path or not args.name:
+                print("error: snapshot-chain requires --path /vol/bucket "
+                      "and --name SNAPSHOT", file=sys.stderr)
+                return 2
+            vol, bkt = _parse_path(args.snap_path)
+            k = snapmeta_key(vol, bkt, args.name)
+            row = store.get("open_keys", k)
+            if row is None:
+                print(f"error: no snapshot {args.name} in /{vol}/{bkt}",
+                      file=sys.stderr)
+                return 1
+            if args.apply and args.previous is None:
+                print("error: snapshot-chain --apply requires --previous "
+                      "(use 'none' to clear the link)", file=sys.stderr)
+                return 2
+            newprev = (None if args.previous in (None, "", "none")
+                       else args.previous)
+            if newprev is not None:
+                if newprev == row.get("snap_id"):
+                    print("error: --previous would make the snapshot its "
+                          "own predecessor", file=sys.stderr)
+                    return 1
+                siblings = {
+                    v["snap_id"] for _, v in store.iterate(
+                        "open_keys", snapmeta_key(vol, bkt, ""))
+                } - {row.get("snap_id")}
+                if newprev not in siblings:
+                    print(f"error: --previous {newprev} is not a snapshot "
+                          f"id in /{vol}/{bkt} (have: {sorted(siblings)})",
+                          file=sys.stderr)
+                    return 1
+            out = {"snapshot": args.name, "snap_id": row.get("snap_id"),
+                   "previous": row.get("previous"),
+                   "new_previous": newprev, "applied": False}
+            if args.apply:
+                row["previous"] = newprev
+                store.put("open_keys", k, row)
+                store.flush()
+                out["applied"] = True
+            _emit(out)
+        else:  # transaction
+            cur = store.get("system", "raft_applied")
+            out = {"raft_applied": cur, "new_index": args.index,
+                   "applied": False}
+            if args.apply:
+                if args.index is None:
+                    print("error: transaction --apply requires --index",
+                          file=sys.stderr)
+                    return 2
+                store.put("system", "raft_applied",
+                          {"index": int(args.index)})
+                store.flush()
+                out["applied"] = True
+            _emit(out)
+        return 0
+    finally:
+        store.close()
+
+
+def cmd_repair(args) -> int:
+    """Repair tools (`ozone repair`). `orphans`: blocks on datanodes that
+    no key references, left by failed writes or interrupted deletes;
+    reported, and reclaimed with --delete. `quota`: rebuild a volume's
+    usage counters. `snapshot-chain` and `transaction`: offline db edits.
+
+    Deletion safety: the blocks are listed BEFORE the namespace is scanned
+    (a key committed meanwhile is still seen as referenced), OPEN
+    containers are report-only (in-flight writes go to OPEN containers
+    only, so a closed one gains no new block), and the namespace is
+    checked again just before the deletes."""
+    from ozone_tpu_torch.storage.ids import BlockID
+
+    if args.tool in ("snapshot-chain", "transaction"):
+        return _repair_offline(args)
+    with _Session(args.om) as s:
+        if args.tool == "quota":
+            if not args.volume:
+                print("error: repair quota requires --volume",
+                      file=sys.stderr)
+                return 1
+            _emit(s.om.repair_quota(args.volume))
+            return 0
+        s.learn_cluster()
+        # 1. the candidates first: (pair, dn, container state)
+        candidates: list[tuple[tuple[int, int], str, str]] = []
+        for c in s.scm.list_containers():
+            if c["state"] == "DELETED":
+                continue
+            for rep in c["replicas"]:
+                client = s.clients.maybe_get(rep["dn_id"])
+                if client is None:
+                    continue
+                try:
+                    blocks = client.list_blocks(int(c["id"]))
+                except Exception:  # noqa: BLE001 - an unreachable replica lists nothing
+                    continue
+                for blk in blocks:
+                    candidates.append((
+                        (blk.block_id.container_id, blk.block_id.local_id),
+                        rep["dn_id"], c["state"]))
+        # 2. the namespace after the block listing
+        referenced = _scan_referenced_blocks(s.om)
+        orphans = [c for c in candidates if c[0] not in referenced]
+        # 3. reclaim, checked again just before deleting
+        recheck = (_scan_referenced_blocks(s.om)
+                   if args.delete and orphans else set())
+        report = []
+        for pair, dn_id, state in orphans:
+            entry = {"container_id": pair[0], "local_id": pair[1],
+                     "datanode": dn_id, "container_state": state,
+                     "action": "none"}
+            if args.delete:
+                if state == "OPEN":
+                    # an in-flight write may still commit this block
+                    entry["action"] = "skipped-open-container"
+                elif pair in recheck:
+                    entry["action"] = "skipped-now-referenced"
+                else:
+                    s.clients.get(dn_id).delete_block(BlockID(*pair))
+                    entry["action"] = "deleted"
+            report.append(entry)
+        _emit({"orphans": report, "count": len(report)})
+    return 0
+
+
+# -------------------------------------------------------------------- fsck
+def cmd_fsck(args) -> int:
+    """Namespace-wide health walk (`ozone fsck`): for every key in scope,
+    check each block group's units on their current datanodes and classify
+    the key
+    HEALTHY (every unit present), DEGRADED (readable with units missing:
+    EC with at least as many survivors as data units holding bytes,
+    replication with one) or UNRECOVERABLE (too few units to rebuild).
+    Exits 1 when a key is UNRECOVERABLE."""
+    from ozone_tpu_torch.client.ec_writer import block_lengths
+    from ozone_tpu_torch.scm.pipeline import ReplicationType
+
+    with _Session(args.om) as s:
+        s.learn_cluster()
+        if not s.clients.known_ids():
+            print(f"error: no datanode addresses learned from {args.om}: "
+                  "missing units cannot be told from an unreachable SCM; "
+                  "aborting", file=sys.stderr)
+            return 2
+        om = s.om
+        vols = ([args.volume] if args.volume
+                else [v["name"] for v in om.list_volumes()])
+        summary = {"HEALTHY": 0, "DEGRADED": 0, "UNRECOVERABLE": 0}
+        order = list(summary)
+        issues = []
+        for vol in vols:
+            buckets = ([args.bucket] if args.bucket
+                       else [b["name"] for b in om.list_buckets(vol)])
+            for bucket in buckets:
+                try:
+                    if om.bucket_info(vol, bucket).get("source"):
+                        continue  # a link: its source's keys are walked
+                    keys = om.list_keys(vol, bucket)
+                except StorageError as e:
+                    issues.append({"bucket": f"/{vol}/{bucket}",
+                                   "state": e.code})
+                    continue
+                for k in keys:
+                    worst = "HEALTHY"
+                    missing: list[dict] = []
+                    # the lookup names each EC unit's current home: a unit
+                    # the SCM rebuilt elsewhere counts where it now lives
+                    # (the reference walks the listed row's first homes,
+                    # so its fsck stays DEGRADED after a rebuild)
+                    info = om.lookup_key(vol, bucket, k["name"])
+                    for g in om.key_block_groups(info):
+                        repl = g.pipeline.replication
+                        if repl.type is ReplicationType.EC:
+                            # a short group wrote only the data units that
+                            # hold bytes; the rest are known zeros
+                            lens = block_lengths(g.length,
+                                                 repl.ec.data_units,
+                                                 repl.ec.cell_size)
+                            data_expected = [i for i, ln in enumerate(lens)
+                                             if ln > 0]
+                            expected = data_expected + (
+                                list(range(repl.ec.data_units,
+                                           len(g.pipeline.nodes)))
+                                if g.length else [])
+                            need = len(data_expected)
+                        else:
+                            expected = (list(range(len(g.pipeline.nodes)))
+                                        if g.length else [])
+                            need = 1 if expected else 0
+                        present = 0
+                        for i in expected:
+                            dn_id = g.pipeline.nodes[i]
+                            client = s.clients.maybe_get(dn_id)
+                            ok = False
+                            if client is not None:
+                                try:
+                                    client.get_block(g.block_id)
+                                    ok = True
+                                except Exception:  # noqa: BLE001 - a missing unit
+                                    ok = False
+                            if ok:
+                                present += 1
+                            else:
+                                missing.append({
+                                    "container_id": g.container_id,
+                                    "datanode": dn_id,
+                                    "replica_index": i + 1})
+                        if present >= len(expected):
+                            state = "HEALTHY"
+                        elif present >= need:
+                            state = "DEGRADED"
+                        else:
+                            state = "UNRECOVERABLE"
+                        if order.index(state) > order.index(worst):
+                            worst = state
+                    summary[worst] += 1
+                    if worst != "HEALTHY":
+                        issues.append({"key": f"/{vol}/{bucket}/{k['name']}",
+                                       "state": worst,
+                                       "missing_units": missing})
+        _emit({"keys": summary, "issues": issues})
+    return 1 if summary["UNRECOVERABLE"] else 0
+
+
+# ------------------------------------------------------------------- debug
+def _debug_offline_containers(args) -> int:
+    """`debug container-list|container-inspect --root DN_ROOT`: the offline
+    container explorer of a local datanode root (`ozone debug container
+    list|info|inspect`, run on the datanode's host with the service
+    stopped). Strictly read-only: the volumes are opened by the vol*
+    directories found (nothing is made), and an inspect reports checksum
+    errors without marking the container UNHEALTHY as the online scanner
+    would."""
+    from ozone_tpu_torch.storage.container import HddsVolume
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumError
+
+    if not args.root:
+        print("error: debug container verbs need --root DN_ROOT",
+              file=sys.stderr)
+        return 2
+    vol_dirs = sorted(p for p in Path(args.root).glob("vol*") if p.is_dir())
+    if not vol_dirs:
+        print(f"error: no vol* directories under {args.root}: not a "
+              "datanode root", file=sys.stderr)
+        return 2
+    vols = []
+    containers = []
+    load_errors: list[str] = []
+    for d in vol_dirs:
+        try:
+            v = HddsVolume(d, readonly=True)
+        except Exception as e:  # noqa: BLE001 - a forensic tool reports it
+            load_errors.append(f"{d}: cannot open volume db: {e}")
+            continue
+        vols.append(v)
+        containers.extend(v.load_containers(on_error=load_errors.append))
+    try:
+        containers.sort(key=lambda c: c.id)
+        for err in load_errors:
+            print(f"warning: {err}", file=sys.stderr)
+        if args.tool == "container-list":
+            rows = []
+            for c in containers:
+                blocks = c.list_blocks()
+                rows.append({"id": c.id, "state": c.state.value,
+                             "replica_index": c.replica_index,
+                             "blocks": len(blocks),
+                             "used_bytes": sum(b.length for b in blocks),
+                             "path": str(c.root)})
+            _emit(rows)
+            return 0
+        try:
+            cid = int(args.target)
+        except ValueError:
+            print(f"error: container id must be numeric, got "
+                  f"{args.target!r}", file=sys.stderr)
+            return 2
+        c = next((c for c in containers if c.id == cid), None)
+        if c is None:
+            print(f"error: no container {cid} under {args.root}",
+                  file=sys.stderr)
+            return 1
+        errors = []
+        blocks = c.list_blocks()
+        for b in blocks:
+            for ci in b.chunks:
+                try:
+                    data = c.chunks.read_chunk(b.block_id, ci)
+                    if ci.checksum.checksums:
+                        Checksum().verify(data, ci.checksum)
+                except (StorageError, ChecksumError) as e:
+                    errors.append(f"{b.block_id}/{ci.name}: {e}")
+        _emit({"id": c.id, "state": c.state.value,
+               "replica_index": c.replica_index, "path": str(c.root),
+               "blocks": [{"local_id": b.block_id.local_id,
+                           "length": b.length, "chunks": len(b.chunks)}
+                          for b in blocks],
+               "scan_errors": errors})
+        return 0
+    finally:
+        for v in vols:
+            v.close()
+
+
+def _debug_trace(args) -> int:
+    """`debug trace [ID]`: the cluster trace collector's recent traces, or
+    one trace's span tree across services."""
+    from ozone_tpu_torch.net import wire
+    from ozone_tpu_torch.net.rpc import RpcChannel
+    from ozone_tpu_torch.utils.tracing import TRACING_SERVICE
+
+    ch = RpcChannel(args.om.split(",")[0].strip(), tls=_client_tls())
+    try:
+        if not args.target:
+            m, _ = wire.unpack(ch.call(TRACING_SERVICE, "Recent",
+                                       wire.pack({})))
+            _emit(m["traces"])
+            return 0
+        m, _ = wire.unpack(ch.call(TRACING_SERVICE, "Query",
+                                   wire.pack({"trace_id": args.target})))
+        spans = m["spans"]
+        if not spans:
+            print(f"error: no trace {args.target!r}", file=sys.stderr)
+            return 1
+        # the roots are the spans whose parent never reached the collector
+        ids = {sp["spanId"] for sp in spans}
+        by_parent: dict = {}
+        roots = []
+        for sp in spans:
+            pid = sp.get("parentId", "")
+            if pid and pid in ids:
+                by_parent.setdefault(pid, []).append(sp)
+            else:
+                roots.append(sp)
+
+        def walk(items, depth):
+            for sp in sorted(items, key=lambda x: x["start"]):
+                print(f"{'  ' * depth}{sp['name']}  "
+                      f"[{sp.get('service', '?')}]  {sp['durationMs']}ms")
+                walk(by_parent.get(sp["spanId"], []), depth + 1)
+
+        walk(roots, 0)
+        return 0
+    finally:
+        ch.close()
+
+
+def cmd_debug(args) -> int:
+    """Debug tools (`ozone debug`): `ldb` (an OM db's rows), `chunk-info`
+    and `verify-replicas` (a key's units on their datanodes),
+    `export-container` and `import-container` (a replica's tarball),
+    `trace`, and the offline `container-list` and `container-inspect`."""
+    if args.tool == "ldb":
+        from ozone_tpu_torch.om.metadata import OMMetadataStore
+
+        store = OMMetadataStore(args.target)
+        try:
+            for k, v in store.iterate(args.table, args.prefix):
+                print(json.dumps({"key": k, "value": v}, default=str))
+        finally:
+            store.close()
+        return 0
+    if args.tool in ("container-list", "container-inspect"):
+        return _debug_offline_containers(args)
+    if args.tool == "trace":
+        return _debug_trace(args)
+    if not args.target:
+        print(f"error: debug {args.tool} requires a target", file=sys.stderr)
+        return 1
+    with _Session(args.om) as s:
+        s.learn_cluster()
+        if args.tool in ("export-container", "import-container"):
+            # a replica's backup and restore over the replication stream
+            # (`ozone debug container export|import`)
+            if not args.dn or not args.file:
+                print("error: requires --dn <id> and --file <path>",
+                      file=sys.stderr)
+                return 1
+            client = s.clients.maybe_get(args.dn)
+            if client is None:
+                print(f"error: unknown datanode {args.dn!r}",
+                      file=sys.stderr)
+                return 1
+            try:
+                cid = int(args.target)
+            except ValueError:
+                print(f"error: container id must be numeric: "
+                      f"{args.target!r}", file=sys.stderr)
+                return 1
+            if args.tool == "export-container":
+                data = client.export_container(cid)
+                Path(args.file).write_bytes(data)
+                print(f"exported container {args.target} from {args.dn}: "
+                      f"{len(data)} bytes -> {args.file}")
+            else:
+                out = client.import_container(Path(args.file).read_bytes(),
+                                              container_id=cid)
+                print(f"imported container {out} on {args.dn}")
+            return 0
+        vol, bucket, *rest = _parse_path(args.target)
+        info = s.om.lookup_key(vol, bucket, "/".join(rest))
+        groups = s.om.key_block_groups(info)
+        if args.tool == "chunk-info":
+            out = []
+            for g in groups:
+                unit_chunks: dict = {}
+                for i, dn_id in enumerate(g.pipeline.nodes):
+                    client = s.clients.maybe_get(dn_id)
+                    if client is None:
+                        unit_chunks[dn_id] = "unreachable"
+                        continue
+                    try:
+                        bd = client.get_block(g.block_id)
+                        unit_chunks[dn_id] = {
+                            "replica_index": i + 1,
+                            "chunks": [c.to_json() for c in bd.chunks]}
+                    except Exception as e:  # noqa: BLE001 - reported per unit
+                        unit_chunks[dn_id] = f"error: {e}"
+                out.append({"container_id": g.container_id,
+                            "local_id": g.local_id, "length": g.length,
+                            "replicas": unit_chunks})
+            _emit(out)
+            return 0
+        # verify-replicas: every unit read with its checksums verified; a
+        # data unit that holds no bytes of a short EC group has no block
+        # (the port's writer makes none) and reports "empty"
+        from ozone_tpu_torch.client.ec_writer import block_lengths
+
+        report = []
+        for g in groups:
+            ec = g.pipeline.replication.ec
+            lens = (block_lengths(g.length, ec.data_units, ec.cell_size)
+                    if ec is not None else [])
+            for i, dn_id in enumerate(g.pipeline.nodes):
+                client = s.clients.maybe_get(dn_id)
+                status = "ok"
+                if i < len(lens) and lens[i] == 0:
+                    status = "empty"
+                elif client is None:
+                    status = "unreachable"
+                else:
+                    try:
+                        bd = client.get_block(g.block_id)
+                        for c in bd.chunks:
+                            client.read_chunk(g.block_id, c, verify=True)
+                    except Exception as e:  # noqa: BLE001 - reported per unit
+                        status = f"corrupt/unavailable: {e}"
+                report.append({"container_id": g.container_id,
+                               "datanode": dn_id, "replica_index": i + 1,
+                               "status": status})
+        _emit(report)
+        return 1 if any(r["status"] not in ("ok", "empty")
+                        for r in report) else 0
 
 
 def cmd_getconf(args) -> int:
@@ -950,16 +1479,83 @@ def cmd_freon(args) -> int:
         _emit(freon.swarm(args.endpoint, tenants, duration_s=args.duration,
                           n_keys=args.num, tiny=args.tiny).summary())
         return 0
+    # local generators: no cluster, no codec
+    if args.generator == "cmdw":
+        root = args.root or tempfile.mkdtemp(prefix="ozone-cmdw-")
+        _emit(freon.cmdw(root, n_chunks=args.num, size=args.size,
+                         threads=args.threads).summary())
+        return 0
+    if args.generator == "dbgen":
+        if not args.root:
+            return _usage("freon dbgen needs --root DB_PATH")
+        _emit(freon.dbgen(args.root, n_keys=args.num).summary())
+        return 0
+    if args.generator == "ralg":
+        root = args.root or tempfile.mkdtemp(prefix="ozone-ralg-")
+        _emit(freon.ralg(root, n_entries=args.num, size=args.size,
+                         threads=args.threads).summary())
+        return 0
+    if args.generator == "rawcoder":
+        # the raw coder SPI on --device (the card unless --device cpu)
+        _emit(freon.rawcoder_bench(schema=args.schema, cell=args.cell,
+                                   batch=args.batch, device=_device(args)))
+        return 0
+    if args.generator == "dnsim":
+        with _Session(args.om) as s:
+            _emit(freon.dnsim(s.scm, n_datanodes=args.num,
+                              n_containers=args.containers,
+                              duration_s=args.duration,
+                              interval_s=args.interval,
+                              threads=args.threads).summary())
+        return 0
+    if args.generator in ("dcg", "dcb", "dcv", "dsg", "dnbp"):
+        # raw datanode verbs: no OM, no codec
+        with _Session(args.om) as s:
+            s.learn_cluster()
+            dn_ids = list(s.clients.known_ids())
+            if not dn_ids:
+                print(f"error: no datanodes known (is the SCM at {args.om} "
+                      "reachable?)", file=sys.stderr)
+                return 1
+            if args.generator == "dnbp":
+                rep = freon.dnbp(s.clients, dn_ids, args.num,
+                                 threads=args.threads)
+            elif args.generator == "dcb":
+                rep = freon.dcb(s.clients, dn_ids, args.num, size=args.size,
+                                batch=args.batch, threads=args.threads)
+            else:
+                gen = {"dcg": freon.dcg, "dcv": freon.dcv,
+                       "dsg": freon.dsg}[args.generator]
+                rep = gen(s.clients, dn_ids, args.num, size=args.size,
+                          threads=args.threads)
+            _emit(rep.summary())
+        return 0
     device = _device(args)
     with _Session(args.om) as s:
         oz = s.client(device)
         repl = args.replication or None
         if args.generator == "ockg":
             _emit(freon.ockg(oz, n_keys=args.num, size=args.size,
-                             threads=args.threads,
-                             replication=repl).summary())
+                             threads=args.threads, replication=repl,
+                             validate=args.validate,
+                             warmup=args.warmup).summary())
         elif args.generator == "ockr":
             _emit(freon.ockr(oz, args.num, threads=args.threads).summary())
+        elif args.generator == "ockrr":
+            _emit(freon.ockrr(oz, args.num, size=args.size,
+                              threads=args.threads,
+                              n_keys=args.keys).summary())
+        elif args.generator == "hsg":
+            _emit(freon.hsg(oz, n_keys=args.num, size=args.size,
+                            threads=args.threads,
+                            replication=repl or "RATIS/THREE").summary())
+        elif args.generator == "sdg":
+            # -t is not honored: the snapshot chain is ordered
+            _emit(freon.sdg(oz, n_rounds=args.num, size=args.size,
+                            replication=repl).summary())
+        elif args.generator == "scmtb":
+            _emit(freon.scmtb(oz, n_blocks=args.num, threads=args.threads,
+                              replication=repl or "rs-3-2-4096").summary())
         elif args.generator == "ockv":
             _emit(freon.ockv(oz, n_keys=args.num, size=args.size,
                              threads=args.threads).summary())
@@ -1476,12 +2072,20 @@ def build_parser() -> argparse.ArgumentParser:
     ins = sub.add_parser("insight",
                          help="subsystem introspection (ozone insight)")
     ins.add_argument("verb", choices=["list", "metrics", "logs",
-                                      "log-level"])
+                                      "log-level", "partition", "delay",
+                                      "heal", "partitions"])
     ins.add_argument("--om", default="127.0.0.1:9860")
     ins.add_argument("--address", default="",
                      help="daemon address (defaults to --om)")
     ins.add_argument("--logger", default="")
     ins.add_argument("--level", default="")
+    ins.add_argument("--dst", default="",
+                     help="partition/delay/heal: the peer address to cut, "
+                          "slow or restore")
+    ins.add_argument("--owner", default="",
+                     help="partition scope tag (default: the whole process)")
+    ins.add_argument("--seconds", type=float, default=0.1,
+                     help="delay: the latency to add, seconds")
     ins.add_argument("-n", "--num", type=int, default=100)
     ins.set_defaults(fn=cmd_insight)
 
@@ -1508,6 +2112,58 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--limit", type=int, default=20,
                     help="slow: the most traces listed")
     tr.set_defaults(fn=cmd_trace)
+
+    rp = sub.add_parser("repair", help="repair tools (ozone repair)")
+    rp.add_argument("tool", choices=["orphans", "quota", "snapshot-chain",
+                                     "transaction"])
+    rp.add_argument("--om", default="127.0.0.1:9860")
+    rp.add_argument("--volume", default="",
+                    help="quota: the volume whose usage counters to rebuild")
+    rp.add_argument("--delete", action="store_true",
+                    help="orphans: reclaim the orphaned blocks")
+    rp.add_argument("--db", default="",
+                    help="snapshot-chain/transaction: OM db path (offline; "
+                         "stop the OM first)")
+    rp.add_argument("--path", dest="snap_path", default="",
+                    help="snapshot-chain: /volume/bucket")
+    rp.add_argument("--name", default="",
+                    help="snapshot-chain: snapshot name")
+    rp.add_argument("--previous", default=None,
+                    help="snapshot-chain: the new previous snap_id ('none' "
+                         "clears the link); required with --apply")
+    rp.add_argument("--index", type=int, default=None,
+                    help="transaction: the new raft applied index")
+    rp.add_argument("--apply", action="store_true",
+                    help="snapshot-chain/transaction: write the change "
+                         "(default: a dry run)")
+    rp.set_defaults(fn=cmd_repair)
+
+    dbg = sub.add_parser("debug", help="debug tools (ozone debug)")
+    dbg.add_argument("tool", choices=["ldb", "chunk-info", "verify-replicas",
+                                      "export-container", "import-container",
+                                      "trace", "container-list",
+                                      "container-inspect"])
+    dbg.add_argument("--root", default="",
+                     help="container-list/inspect: a local datanode root "
+                          "(offline)")
+    dbg.add_argument("target", nargs="?", default="",
+                     help="db path (ldb), /vol/bucket/key, a container id "
+                          "(export/import/inspect), or a trace id (trace; "
+                          "empty = the recent ones)")
+    dbg.add_argument("--table", default="keys")
+    dbg.add_argument("--prefix", default="")
+    dbg.add_argument("--om", default="127.0.0.1:9860")
+    dbg.add_argument("--dn", default="",
+                     help="export/import-container: datanode id")
+    dbg.add_argument("--file", default="",
+                     help="export/import-container: local tarball path")
+    dbg.set_defaults(fn=cmd_debug)
+
+    fsck = sub.add_parser("fsck", help="namespace health walk (ozone fsck)")
+    fsck.add_argument("--om", default="127.0.0.1:9860")
+    fsck.add_argument("--volume", default="")
+    fsck.add_argument("--bucket", default="")
+    fsck.set_defaults(fn=cmd_fsck)
 
     fs = sub.add_parser("fs", help="file-system verbs on FSO buckets "
                                    "(ozone fs)")
@@ -1539,11 +2195,33 @@ def build_parser() -> argparse.ArgumentParser:
 
     fr = sub.add_parser("freon", help="load generators")
     fr.add_argument("generator",
-                    choices=["ockg", "ockr", "ockv", "ecrd", "mpug", "s3kg",
-                             "lcg", "tinyg", "fskg", "fsg", "swarm", "geo",
-                             "omkg", "ommg"])
+                    choices=["ockg", "ockr", "ockrr", "ockv", "ecrd",
+                             "rawcoder", "omkg", "ommg", "scmtb", "cmdw",
+                             "dbgen", "dcg", "dcb", "dcv", "dsg", "hsg",
+                             "dnbp", "ralg", "fskg", "mpug", "s3kg", "fsg",
+                             "sdg", "dnsim", "lcg", "geo", "swarm", "tinyg"])
     fr.add_argument("-n", "--num", type=int, default=100)
     fr.add_argument("-s", "--size", type=int, default=10240)
+    fr.add_argument("--keys", type=int, default=1,
+                    help="ockrr: size of the key pool to range-read over")
+    fr.add_argument("--warmup", type=int, default=0,
+                    help="ockg: unmeasured warm-up keys before the clock "
+                         "(the first launch builds the kernel)")
+    fr.add_argument("--schema", default="rs-6-3",
+                    help="rawcoder: the coder schema")
+    fr.add_argument("--cell", type=int, default=1024 * 1024,
+                    help="rawcoder: cell size in bytes")
+    fr.add_argument("--batch", type=int, default=8,
+                    help="rawcoder: stripes per call; dcb: chunks per "
+                         "WriteChunksCommit")
+    fr.add_argument("--root", default="",
+                    help="cmdw, ralg: a local directory; dbgen: the OM db "
+                         "path to write")
+    fr.add_argument("--containers", type=int, default=5,
+                    help="dnsim: made-up containers per simulated datanode")
+    fr.add_argument("--interval", type=float, default=0.5,
+                    help="dnsim: each simulated datanode's heartbeat "
+                         "interval, seconds")
     fr.add_argument("-t", "--threads", type=int, default=4)
     fr.add_argument("--om", default="127.0.0.1:9860")
     fr.add_argument("--replication", default="")
@@ -1562,7 +2240,8 @@ def build_parser() -> argparse.ArgumentParser:
     fr.add_argument("--depth", type=int, default=3,
                     help="fskg: directory depth of each file")
     fr.add_argument("--duration", type=float, default=4.0,
-                    help="swarm: seconds to drive load")
+                    help="swarm: seconds to drive load; dnsim: seconds to "
+                         "heartbeat")
     fr.add_argument("--endpoint", default="127.0.0.1:9878",
                     help="s3kg, swarm: S3 gateway host:port")
     fr.add_argument("--access-id", default="",

@@ -36,14 +36,30 @@ harness (thread-pool task loop, latency report) and
   the namespace's throughput), over `buckets` buckets so a sharded
   plane spreads them over its shards;
 - ommg: OmMetadataGenerator, a mix of create, read (lookup), update
-  (rename there and back), delete and list per the `mix` string.
+  (rename there and back), delete and list per the `mix` string;
+- hsg: HsyncGenerator, keys written in slices with an hsync after each;
+- dcg / dcv: DatanodeChunkGenerator and DatanodeChunkValidator, raw
+  WriteChunk and verified ReadChunk straight to the datanodes;
+- dcb: batched chunks and their putBlock in one WriteChunksCommit;
+- dsg: StreamingGenerator, whole blocks over StreamWriteBlock;
+- dnbp: DatanodeBlockPutter, raw putBlock commits;
+- cmdw: ChunkManagerDiskWrite, local chunk-store writes, no network;
+- scmtb: SCMThroughputBenchmark, block allocations with no data;
+- dnsim: DatanodeSimulator, a fleet of virtual datanodes heartbeating
+  the SCM with container reports;
+- dbgen: GeneratorOm, an OM database written offline;
+- ralg: LeaderAppendLogEntryGenerator, appends through a local 3-node
+  raft ring;
+- sdg: the snapshot-diff generator (write, snapshot, diff per round).
 
 The generators take a port `OzoneClient`, whose `device` the EC coding
 runs on: one over an in-process cluster, or one the CLI builds from
 `--om` over the RPC (`tools/cli.py`, as the reference's `cmd_freon`
 does); `ecrd` also takes an SCM, in process or `RemoteScmClient`; `s3kg`
 and `swarm` take a gateway's host:port; `geo` the destination cluster's
-OM endpoint. The reference's other generators are not ported yet.
+OM endpoint; the datanode generators (dcg, dcb, dsg, dcv, dnbp) a
+datanode client factory and the ids to spread over; `dnsim` an SCM
+client; `cmdw`, `dbgen` and `ralg` a local path.
 """
 
 from __future__ import annotations
@@ -974,3 +990,383 @@ def swarm(endpoint: str, tenants: list, duration_s: float = 4.0,
             "shed_fraction": round(shed / offered, 4) if offered else 0.0,
             "goodput_ops_s": round(ok / elapsed, 2) if elapsed else 0.0,
         })
+
+
+def hsg(
+    client,
+    n_keys: int = 20,
+    size: int = 10 * 1024,
+    syncs: int = 4,
+    threads: int = 4,
+    volume: str = "freon-vol",
+    bucket: str = "freon-hsync",
+    replication: str = "RATIS/THREE",
+) -> FreonReport:
+    """Hsync generator (freon HsyncGenerator): each op opens a key, writes
+    `syncs` slices with an hsync after each (the HBase WAL durability
+    pattern), then closes; the timer covers the whole open, (write and
+    hsync) x n, commit round trip."""
+    _ensure_bucket(client, volume, bucket, replication)
+    b = client.get_volume(volume).get_bucket(bucket)
+    payload = np.random.default_rng(0).integers(0, 256, size, dtype=np.uint8)
+
+    def op(i: int) -> int:
+        with b.open_key(f"hsync-{i}") as h:
+            for _ in range(syncs):
+                h.write(payload)
+                h.hsync()
+        return size * syncs
+
+    return BaseFreonGenerator("hsg", n_keys, threads).run(op)
+
+
+def _ensure_container(clients, dn_ids: list[str], container_id: int) -> None:
+    """Create the generator's container on every target datanode unless it
+    exists."""
+    from ozone_tpu_torch.storage.ids import StorageError
+
+    for dn in dn_ids:
+        try:
+            clients.get(dn).create_container(container_id)
+        except StorageError as e:
+            if e.code != "CONTAINER_EXISTS":
+                raise
+
+
+def _crc_payload(seed: int, size: int, bpc: int = 16 * 1024):
+    """A seeded payload and its CRC32C checksum data."""
+    from ozone_tpu_torch.utils.checksum import Checksum, ChecksumType
+
+    payload = np.random.default_rng(seed).integers(0, 256, size,
+                                                   dtype=np.uint8)
+    return payload, Checksum(ChecksumType.CRC32C, bpc).compute(payload)
+
+
+def dcg(clients, dn_ids: list[str], n_chunks: int = 100,
+        size: int = 1024 * 1024, threads: int = 4,
+        container_id: int = 10_000_000) -> FreonReport:
+    """Datanode chunk generator (DatanodeChunkGenerator): raw WriteChunk
+    straight to the datanodes, past the OM and the SCM."""
+    from ozone_tpu_torch.storage.ids import BlockID, ChunkInfo
+
+    payload, cs = _crc_payload(1, size)
+    _ensure_container(clients, dn_ids, container_id)
+
+    def op(i: int) -> int:
+        info = ChunkInfo(f"chunk_{i}", 0, size, cs)
+        clients.get(dn_ids[i % len(dn_ids)]).write_chunk(
+            BlockID(container_id, i + 1), info, payload)
+        return size
+
+    return BaseFreonGenerator("dcg", n_chunks, threads).run(op)
+
+
+def dcb(clients, dn_ids: list[str], n_blocks: int = 20,
+        size: int = 1024 * 1024, batch: int = 8, threads: int = 4,
+        container_id: int = 30_000_000) -> FreonReport:
+    """Batched chunk generator: `batch` checksummed chunks and the
+    piggybacked putBlock in ONE WriteChunksCommit stream (the batched
+    write verb's raw path: dcg pays a round trip per chunk, this one per
+    block)."""
+    from ozone_tpu_torch.storage.ids import BlockData, BlockID, ChunkInfo
+
+    payload, cs = _crc_payload(3, size)
+    _ensure_container(clients, dn_ids, container_id)
+
+    def op(i: int) -> int:
+        bid = BlockID(container_id, i + 1)
+        pairs = [(ChunkInfo(f"{bid}_chunk_{j}", j * size, size, cs), payload)
+                 for j in range(batch)]
+        clients.get(dn_ids[i % len(dn_ids)]).write_chunks_commit(
+            bid, pairs, commit=BlockData(bid, [c for c, _ in pairs]))
+        return size * batch
+
+    return BaseFreonGenerator("dcb", n_blocks, threads).run(op)
+
+
+def dsg(clients, dn_ids: list[str], n_blocks: int = 20,
+        size: int = 8 * 1024 * 1024, frame_size: int = 1024 * 1024,
+        chunk_size: int = 4 * 1024 * 1024, threads: int = 4,
+        container_id: int = 20_000_000) -> FreonReport:
+    """Datanode streaming-write generator (StreamingGenerator): whole
+    blocks over the client-streaming RPC, one commit ack each."""
+    from ozone_tpu_torch.storage.ids import BlockID
+
+    payload = np.random.default_rng(2).integers(
+        0, 256, size, dtype=np.uint8).tobytes()
+    _ensure_container(clients, dn_ids, container_id)
+
+    def op(i: int) -> int:
+        frames = (payload[o:o + frame_size]
+                  for o in range(0, len(payload), frame_size))
+        bd = clients.get(dn_ids[i % len(dn_ids)]).stream_write_block(
+            BlockID(container_id, i + 1), frames, chunk_size=chunk_size)
+        assert bd.length == size
+        return size
+
+    return BaseFreonGenerator("dsg", n_blocks, threads).run(op)
+
+
+def dcv(clients, dn_ids: list[str], n_chunks: int, size: int = 1024 * 1024,
+        threads: int = 4, container_id: int = 10_000_000) -> FreonReport:
+    """Datanode chunk validator (DatanodeChunkValidator): read back and
+    checksum-verify the chunks dcg wrote."""
+    from ozone_tpu_torch.storage.ids import BlockID, ChunkInfo
+
+    _, cs = _crc_payload(1, size)
+
+    def op(i: int) -> int:
+        info = ChunkInfo(f"chunk_{i}", 0, size, cs)
+        data = clients.get(dn_ids[i % len(dn_ids)]).read_chunk(
+            BlockID(container_id, i + 1), info, verify=True)
+        assert len(data) == size
+        return size
+
+    return BaseFreonGenerator("dcv", n_chunks, threads).run(op)
+
+
+def dnbp(clients, dn_ids: list[str], n_blocks: int = 200,
+         chunks_per_block: int = 4, size: int = 1024 * 1024,
+         threads: int = 4, container_id: int = 30_000_000) -> FreonReport:
+    """Datanode block putter (DatanodeBlockPutter): raw putBlock metadata
+    commits, the block manager's throughput with no chunk IO timed."""
+    from ozone_tpu_torch.storage.ids import BlockData, BlockID, ChunkInfo
+
+    _, cs = _crc_payload(3, 4096, bpc=4096)
+    _ensure_container(clients, dn_ids, container_id)
+
+    def op(i: int) -> int:
+        bid = BlockID(container_id, i + 1)
+        chunks = [ChunkInfo(f"{bid}_chunk_{c}", c * size, size, cs)
+                  for c in range(chunks_per_block)]
+        clients.get(dn_ids[i % len(dn_ids)]).put_block(BlockData(bid, chunks))
+        return 0
+
+    return BaseFreonGenerator("dnbp", n_blocks, threads).run(op)
+
+
+def cmdw(root, n_chunks: int = 200, size: int = 4 * 1024 * 1024,
+         threads: int = 4) -> FreonReport:
+    """Chunk-manager disk write (ChunkManagerDiskWrite): local chunk IO
+    only, no network, no OM or SCM (the disk path alone)."""
+    from pathlib import Path
+
+    from ozone_tpu_torch.storage.chunk_store import FilePerBlockStore
+    from ozone_tpu_torch.storage.ids import BlockID, ChunkInfo
+
+    store = FilePerBlockStore(Path(root))
+    payload, cs = _crc_payload(3, size)
+
+    def op(i: int) -> int:
+        store.write_chunk(BlockID(1 + i // 64, i + 1),
+                          ChunkInfo(f"c{i}", 0, size, cs), payload)
+        return size
+
+    try:
+        return BaseFreonGenerator("cmdw", n_chunks, threads).run(op)
+    finally:
+        store.close()
+
+
+def scmtb(client, n_blocks: int = 1000, threads: int = 8,
+          replication: str = "rs-3-2-4096",
+          block_size: int = 16 * 1024 * 1024) -> FreonReport:
+    """SCM block-allocation throughput (SCMThroughputBenchmark):
+    allocateBlock with no data written."""
+    from ozone_tpu_torch.scm.pipeline import ReplicationConfig
+
+    if hasattr(client.om, "scm") and not isinstance(client.om.scm, str):
+        # an in-process OM: the SCM directly
+        cfg = ReplicationConfig.parse(replication)
+
+        def alloc():
+            client.om.scm.allocate_block(cfg, block_size)
+    else:
+        # a remote OM: the SCM service beside it
+        from ozone_tpu_torch.net.scm_service import RemoteScmClient
+
+        scm = RemoteScmClient(client.om.address,
+                              tls=getattr(client.om, "tls", None))
+
+        def alloc():
+            scm.allocate_block(replication, block_size)
+
+    def op(i: int) -> int:
+        alloc()
+        return 0
+
+    return BaseFreonGenerator("scmtb", n_blocks, threads).run(op)
+
+
+def dnsim(scm, n_datanodes: int = 50, n_containers: int = 5,
+          duration_s: float = 5.0, interval_s: float = 0.5,
+          threads: int = 8, prefix: str = "simdn",
+          fcr_every_rounds: int = 10) -> FreonReport:
+    """Simulated-datanode fleet (freon DatanodeSimulator): registers n
+    virtual datanodes with the SCM over the real register and heartbeat
+    protocol, then heartbeats each from a thread pool for duration_s,
+    with a made-up full container report on the first beat and every
+    fcr_every_rounds after (the reference's FCR cadence). The nodes
+    register IN_MAINTENANCE so placement never picks them, and their
+    container ids lie in a high range no allocation reaches. Measures the
+    SCM's heartbeat ingest: heartbeats/s and latency percentiles."""
+    ids = [f"{prefix}-{i}" for i in range(n_datanodes)]
+    for i, dn_id in enumerate(ids):
+        scm.register(dn_id, f"sim://{dn_id}", rack=f"/sim-rack-{i % 8}",
+                     capacity_bytes=1 << 40, op_state="IN_MAINTENANCE")
+    base = 50_000_000
+
+    def report_for(i: int) -> list[dict]:
+        return [{"container_id": base + i * n_containers + j,
+                 "state": "CLOSED", "replica_index": 0, "block_count": 64,
+                 "used_bytes": 4 << 20} for j in range(n_containers)]
+
+    lock = threading.Lock()
+    lat: list[float] = []
+    counts = {"hb": 0, "fcr": 0, "failures": 0}
+    stop_at = time.time() + duration_s
+
+    def worker(shard: list[int]) -> None:
+        rounds = 0
+        while time.time() < stop_at:
+            round_t0 = time.time()
+            for idx in shard:
+                rep = (report_for(idx)
+                       if rounds % fcr_every_rounds == 0 else None)
+                s = time.perf_counter()
+                try:
+                    scm.heartbeat(ids[idx], container_report=rep,
+                                  used_bytes=(4 << 20) * n_containers)
+                except Exception:  # noqa: BLE001 - counted as a failure
+                    with lock:
+                        counts["failures"] += 1
+                    continue
+                dt = time.perf_counter() - s
+                with lock:
+                    lat.append(dt)
+                    counts["hb"] += 1
+                    if rep is not None:
+                        counts["fcr"] += 1
+            rounds += 1
+            pause = interval_s - (time.time() - round_t0)
+            if pause > 0:
+                time.sleep(pause)
+
+    threads = max(1, threads)
+    shards = [list(range(w, n_datanodes, threads)) for w in range(threads)]
+    ts = [threading.Thread(target=worker, args=(s,), daemon=True)
+          for s in shards if s]
+    t0 = time.time()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return FreonReport(
+        "dnsim", ops=counts["hb"], failures=counts["failures"],
+        elapsed_s=time.time() - t0, latencies_s=lat,
+        extras={"datanodes": n_datanodes, "fcrs": counts["fcr"],
+                "containers_per_dn": n_containers})
+
+
+def dbgen(db_path, n_keys: int = 10_000, volume: str = "genvol",
+          bucket: str = "genbucket", threads: int = 1) -> FreonReport:
+    """Offline OM metadata fabrication (freon GeneratorOm): writes a
+    populated OM database directly, with no cluster, for metadata-scale
+    work (`tools/om_scale.py`). The rows are the reference's, so either
+    package's tools read the store."""
+    from pathlib import Path
+
+    from ozone_tpu_torch.om.metadata import (
+        OMMetadataStore,
+        bucket_key,
+        key_key,
+        volume_key,
+    )
+
+    store = OMMetadataStore(Path(db_path), flush_every=4096)
+    store.put("volumes", volume_key(volume),
+              {"name": volume, "owner": "freon", "quota_bytes": -1,
+               "created": time.time()})
+    store.put("buckets", bucket_key(volume, bucket),
+              {"volume": volume, "name": bucket,
+               "replication": "rs-6-3-1024k", "layout": "OBJECT_STORE",
+               "versioning": False, "created": time.time()})
+
+    def op(i: int) -> int:
+        name = f"gen/{i // 1000}/key-{i}"
+        store.put("keys", key_key(volume, bucket, name), {
+            "volume": volume, "bucket": bucket, "name": name,
+            "replication": "rs-6-3-1024k",
+            "checksum_type": "CRC32C", "bytes_per_checksum": 16384,
+            "size": 1024, "block_groups": [], "created": time.time(),
+            "modified": time.time(),
+        })
+        return 1024
+
+    # one thread by design: one sqlite writer, batched by flush_every
+    try:
+        return BaseFreonGenerator("dbgen", n_keys, threads).run(op)
+    finally:
+        store.close()
+
+
+def ralg(root, n_entries: int = 2000, size: int = 1024,
+         threads: int = 1) -> FreonReport:
+    """Raft log append generator (LeaderAppendLogEntryGenerator): a local
+    3-node ring commits payload entries through its leader, the log append
+    and quorum commit with durable log writes."""
+    from pathlib import Path
+
+    from ozone_tpu_torch.consensus.raft import InProcessTransport, RaftNode
+
+    root = Path(root)
+    transport = InProcessTransport()
+    ids = ["r0", "r1", "r2"]
+    sink: list = []
+    nodes = [RaftNode(nid, ids, root / nid,
+                      sink.append if nid == "r0" else (lambda _e: None),
+                      transport=transport)
+             for nid in ids]
+    assert nodes[0].start_election()
+    payload = "x" * size
+
+    def op(i: int) -> int:
+        nodes[0].propose(f"{i}:{payload}")
+        return size
+
+    try:
+        return BaseFreonGenerator("ralg", n_entries, threads).run(op)
+    finally:
+        for n in nodes:
+            n.stop()
+
+
+def sdg(client, n_rounds: int = 10, keys_per_round: int = 5,
+        size: int = 2048, volume: str = "freon-vol",
+        bucket: str = "freon-snap",
+        replication: Optional[str] = None) -> FreonReport:
+    """Snapshot-diff generator: each op writes a few keys, snapshots, and
+    diffs against the previous snapshot (the incremental diff end to
+    end). One thread by design: round i diffs against round i-1's
+    snapshot. Snapshot names carry a per-run prefix, so runs against a
+    live cluster do not collide."""
+    import uuid
+
+    _ensure_bucket(client, volume, bucket, replication or "rs-6-3-1024k")
+    b = client.get_volume(volume).get_bucket(bucket)
+    payload = np.random.default_rng(6).integers(0, 256, size, dtype=np.uint8)
+    run = uuid.uuid4().hex[:8]
+
+    def op(i: int) -> int:
+        for k in range(keys_per_round):
+            b.write_key(f"{run}-r{i}-k{k}", payload)
+        client.om.create_snapshot(volume, bucket, f"{run}-s{i}")
+        if i > 0:
+            d = client.om.snapshot_diff(volume, bucket, f"{run}-s{i - 1}",
+                                        f"{run}-s{i}")
+            added = set(d.get("added", []))
+            assert all(f"{run}-r{i}-k{k}" in added
+                       for k in range(keys_per_round)), d
+        return keys_per_round * int(payload.size)
+
+    return BaseFreonGenerator("sdg", n_rounds, threads=1).run(op)

@@ -1,9 +1,9 @@
 """Insight: per-subsystem operator introspection over RPC.
 
 Port of `ozone_tpu/utils/insight.py` over the port's loggers and
-registries. Left out: the four partition verbs (Partition, Delay, Heal,
-PartitionList), which need `net/partition.py` and the RPC channel's
-partition checks.
+registries, with the four partition verbs (Partition, Delay, Heal,
+PartitionList) that cut, slow and restore the serving process's outbound
+links through `net/partition.py`.
 
 Mirror of the reference's `ozone insight` (hadoop-ozone/insight: per-
 subsystem InsightPoint classes expose the related loggers, metrics and
@@ -14,7 +14,8 @@ Here: a static registry of insight points (loggers + metrics registries
 per subsystem), a bounded in-memory ring of log records captured by a
 logging.Handler installed in every daemon, and an RPC service exposing
 ListPoints / Metrics / Logs / SetLogLevel so the CLI can introspect any
-running daemon.
+running daemon, and Partition / Delay / Heal / PartitionList so a fault
+drill can cut links between live daemons.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional
 
 from ozone_tpu_torch.net import wire
 from ozone_tpu_torch.net.rpc import RpcServer
+from ozone_tpu_torch.storage.ids import StorageError
 
 SERVICE = "ozone.tpu.Insight"
 
@@ -135,6 +137,10 @@ class InsightService:
             "Metrics": self._metrics,
             "Logs": self._logs,
             "SetLogLevel": self._set_log_level,
+            "Partition": self._partition,
+            "Delay": self._delay,
+            "Heal": self._heal,
+            "PartitionList": self._partition_list,
         })
 
     def _list_points(self, req: bytes) -> bytes:
@@ -170,6 +176,48 @@ class InsightService:
         logger.setLevel(m["level"].upper())
         return wire.pack({"logger": m["logger"], "level": m["level"]})
 
+    # ---- network-partition injection (the blockade analog): cut and
+    # restore this process's outbound links during a fault drill
+    def _partition(self, req: bytes) -> bytes:
+        from ozone_tpu_torch.net import partition
+
+        m, _ = wire.unpack(req)
+        if not m.get("dst"):
+            raise StorageError("INVALID", "partition requires a dst address")
+        partition.block(m["dst"], m.get("owner") or partition.ANY)
+        return wire.pack({"blocked": partition.blocked()})
+
+    def _delay(self, req: bytes) -> bytes:
+        from ozone_tpu_torch.net import partition
+
+        m, _ = wire.unpack(req)
+        if not m.get("dst"):
+            raise StorageError("INVALID", "delay requires a dst address")
+        partition.delay(m["dst"], float(m.get("seconds", 0.1)),
+                        m.get("owner") or partition.ANY)
+        return wire.pack({"blocked": partition.blocked(),
+                          "delayed": partition.delayed()})
+
+    def _heal(self, req: bytes) -> bytes:
+        from ozone_tpu_torch.net import partition
+
+        m, _ = wire.unpack(req)
+        if m.get("dst"):
+            partition.heal(m["dst"], m.get("owner") or partition.ANY)
+        elif m.get("owner"):
+            # an owner without a dst is ambiguous: refuse rather than
+            # clear every rule in the middle of a drill
+            raise StorageError("INVALID", "heal: owner given without dst")
+        else:
+            partition.clear()
+        return wire.pack({"blocked": partition.blocked()})
+
+    def _partition_list(self, req: bytes) -> bytes:
+        from ozone_tpu_torch.net import partition
+
+        return wire.pack({"blocked": partition.blocked(),
+                          "delayed": partition.delayed()})
+
 
 class InsightClient:
     def __init__(self, address: str, tls=None):
@@ -193,6 +241,25 @@ class InsightClient:
 
     def set_log_level(self, logger: str, level: str) -> dict:
         return self._call("SetLogLevel", logger=logger, level=level)
+
+    def partition(self, dst: str, owner: str = "") -> dict:
+        """Cut the target process's outbound link(s) to dst."""
+        return self._call("Partition", dst=dst, owner=owner)
+
+    def delay(self, dst: str, seconds: float, owner: str = "") -> dict:
+        """Add latency to the target process's calls to dst."""
+        return self._call("Delay", dst=dst, seconds=seconds, owner=owner)
+
+    def heal(self, dst: str = "", owner: str = "") -> dict:
+        """Restore a cut link, or every link when dst is empty."""
+        return self._call("Heal", dst=dst, owner=owner)
+
+    def partition_list(self) -> list:
+        return self._call("PartitionList")["blocked"]
+
+    def delays(self) -> list:
+        """The target process's active latency rules."""
+        return self._call("PartitionList")["delayed"]
 
     def close(self) -> None:
         self._ch.close()

@@ -157,9 +157,29 @@ def hints(adm, reg, err):
                                  "retry_after_s=0.250</Message>")]
 
 
+def exempt_verbs(adm, reg, err):
+    """`controller(hop, exempt=...)` and `admit(verb)`: an exempt verb
+    passes a full gate uncounted; the exemption is fixed at creation."""
+    m = reg("admission")
+    base = [m.counter(n).value for n in ("dn_admitted", "dn_rejected_queue")]
+    c = adm.controller("dn", exempt=frozenset({"Echo"}))
+    out = [sorted(c.exempt), adm.controller("dn", exempt={"Other"}) is c]
+    with c.admit("WriteChunk"):
+        try:
+            with c.admit("ReadChunk"):
+                out.append("second admitted")
+        except err as e:
+            out.append(e.code)
+        with c.admit("Echo"):
+            out.append(c.gate.inflight)
+    return out + [c.gate.inflight] + [
+        m.counter(n).value - b
+        for n, b in zip(("dn_admitted", "dn_rejected_queue"), base)]
+
+
 @pytest.mark.parametrize("scenario", [
     tenant_buckets, inflight_gate, controller_charge, queue_gate, slo_shed,
-    class_map, hop_knobs, hints], ids=lambda f: f.__name__)
+    class_map, hop_knobs, hints, exempt_verbs], ids=lambda f: f.__name__)
 def test_admission_matches_reference(monkeypatch, scenario):
     for name, value in KNOBS.items():
         monkeypatch.setenv(f"OZONE_TPU_ADMIT_{name}", value)
@@ -172,3 +192,125 @@ def test_admission_matches_reference(monkeypatch, scenario):
         for adm, _, _ in SIDES:
             adm.reset_for_tests()
     assert got[0] == got[1]
+
+
+# ------------------------------------------------- RPC-hop admission
+def test_rpc_server_admits_before_the_handler(monkeypatch):
+    """A service added with a controller answers SERVER_BUSY past its
+    in-flight bound, before its handler runs; an exempt verb still
+    passes; the calls of a service without one are never refused."""
+    import threading
+
+    from ozone_tpu_torch.net.rpc import RpcChannel, RpcServer
+
+    monkeypatch.setenv("OZONE_TPU_ADMIT_QUEUE_T", "1")
+    admission.reset_for_tests()
+    ctl = admission.controller("t", exempt={"Ping"})
+    entered, release, ran = threading.Event(), threading.Event(), []
+
+    def slow(req):
+        entered.set()
+        release.wait(10)
+        return req
+
+    def fast(req):
+        ran.append(bytes(req))
+        return req
+
+    server = RpcServer()
+    server.add_service("svc", {"Slow": slow, "Fast": fast, "Ping": fast},
+                       admission=ctl)
+    server.add_service("free", {"Fast": fast})
+    server.start()
+    ch = RpcChannel(server.address)
+    try:
+        t = threading.Thread(target=lambda: ch.call("svc", "Slow", b"s"))
+        t.start()
+        assert entered.wait(10)
+        with pytest.raises(StorageError) as ei:
+            ch.call("svc", "Fast", b"refused")
+        assert ei.value.code == admission.SERVER_BUSY
+        assert "retry_after_s=" in ei.value.msg and ran == []
+        assert bytes(ch.call("svc", "Ping", b"p")) == b"p"
+        assert bytes(ch.call("free", "Fast", b"f")) == b"f"
+        release.set()
+        t.join(10)
+        assert bytes(ch.call("svc", "Fast", b"ok")) == b"ok"
+        m = p_registry("admission")
+        assert m.counter("t_rejected_queue").value >= 1
+    finally:
+        release.set()
+        ch.close()
+        server.stop()
+        admission.reset_for_tests()
+
+
+def test_services_admit_with_the_reference_exemptions(tmp_path):
+    """The datanode, SCM and OM services put every verb behind their hop's
+    controller, with the reference's exempt verbs."""
+    from ozone_tpu_torch.net.daemons import ScmOmDaemon
+    from ozone_tpu_torch.net.dn_service import DatanodeRpcService
+    from ozone_tpu_torch.net.rpc import RpcServer
+    from ozone_tpu_torch.storage.datanode import Datanode
+
+    admission.reset_for_tests()
+    meta = ScmOmDaemon(tmp_path / "om.db")
+    server = RpcServer()
+    dn = Datanode(tmp_path / "dn0", "dn0")
+    DatanodeRpcService(dn, server)
+    try:
+        hops = {}
+        for srv in (meta.server, server):
+            for key, ctl in srv._admission.items():
+                hops.setdefault(ctl.hop, (ctl, set()))[1].add(key.rsplit("/", 1)[1])
+        assert sorted(hops) == ["dn", "om", "scm"]
+        assert hops["dn"][0].exempt == {"Echo", "GetDatapathInfo"}
+        assert hops["scm"][0].exempt == {"Register", "Heartbeat",
+                                         "NodeAddresses", "Status"}
+        assert hops["om"][0].exempt == {"GetShardMap"}
+        assert {"WriteChunk", "ReadChunks", "WriteChunksCommit"} <= hops["dn"][1]
+        assert {"AllocateBlock", "Heartbeat"} <= hops["scm"][1]
+        assert {"CreateVolume", "GetShardMap"} <= hops["om"][1]
+    finally:
+        server.stop()
+        dn.close()
+        meta.server.stop()
+        admission.reset_for_tests()
+
+
+def test_om_pushback_is_backoff_not_failure(tmp_path):
+    """A SERVER_BUSY refusal from the OM's tenant bucket is absorbed by the
+    client's retry loop: a backoff to the hinted floor on the same replica,
+    so a paced-down caller still succeeds on every op."""
+    from ozone_tpu_torch.client import resilience
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneHACluster
+
+    c = MiniOzoneHACluster(tmp_path, num_meta=1, num_datanodes=1,
+                           device="cpu")
+    try:
+        oz = c.client()
+        m = p_registry("admission")
+        rej = m.counter("om_rejected_ops").value
+        busy = resilience.METRICS.counter("server_busy").value
+        import os
+
+        old = {k: os.environ.get(k) for k in ("OZONE_TPU_ADMIT_OPS_OM",
+                                              "OZONE_TPU_ADMIT_BURST_S")}
+        os.environ.update(OZONE_TPU_ADMIT_OPS_OM="4",
+                          OZONE_TPU_ADMIT_BURST_S="0.5")
+        admission.reset_for_tests()
+        try:
+            for _ in range(8):
+                oz.om.list_volumes()
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            admission.reset_for_tests()
+        assert m.counter("om_rejected_ops").value > rej
+        assert resilience.METRICS.counter("server_busy").value > busy
+        oz.om.close()
+    finally:
+        c.shutdown()

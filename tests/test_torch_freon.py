@@ -181,13 +181,10 @@ def test_ecrd_matches_reference(clusters):
 
 def test_scm_status_matches_reference(clusters):
     """The port's SCM status() against the body of the reference SCM
-    service's Status handler (the block-token flag and the layout
-    versions included), less the pipeline rules of safemode the port
-    does not have."""
+    service's Status handler (the block-token flag, the layout versions
+    and the safemode pipeline rules' counts included)."""
     port, ref = clusters
     want = ref_status(ref.scm)
-    for k in ("pipelines_total", "pipelines_healthy", "pipelines_with_member"):
-        want["safemode_status"].pop(k)
     assert port.scm.status() == want
     assert len(want["nodes"]) == 12
 
@@ -320,3 +317,201 @@ def test_swarm_matches_reference_shape(tmp_path, monkeypatch):
     assert sorted(out["port"]) == sorted(out["ref"])
     assert sorted(out["port"]["per_tenant"]["t0"]) == \
         sorted(out["ref"]["per_tenant"]["t0"])
+
+
+# ------------------------------------------- the rest of freon (slice 22)
+def test_freon_rawcoder_matrix():
+    """rawcoder_bench per backend: the numpy row, and the torch coder's
+    plain version here."""
+    out = freon.rawcoder_bench(backends=["numpy", "torch"], schema="rs-3-2",
+                               cell=4096, batch=2, iters=1, device="cpu")
+    assert [r["backend"] for r in out] == ["numpy", "torch"]
+    assert all(r["encode_gib_s"] > 0 and r["decode_gib_s"] > 0 for r in out)
+
+
+def _chunk_rows(clients, dn_ids, cid):
+    out = []
+    for dn in dn_ids:
+        try:
+            blocks = clients.get(dn).list_blocks(cid)
+        except Exception:  # noqa: BLE001 - no container there
+            continue
+        for b in blocks:
+            out.append((dn, b.block_id.local_id,
+                        [(c.name, c.offset, c.length,
+                          [bytes(x).hex() for x in c.checksum.checksums])
+                         for c in b.chunks]))
+    return sorted(out)
+
+
+def test_datanode_generators_match_reference(clusters):
+    """dcg, dcv, dcb, dsg and dnbp straight to the in-process datanodes:
+    the same counts, the same block rows and checksums on both packages
+    (dsg over the RPC is `test_dsg_streams_whole_blocks_over_the_rpc`)."""
+    results = []
+    for c, mod in zip(clusters, (freon, j_freon)):
+        ids = [d.id for d in c.datanodes][:4]
+        reps = [mod.dcg(c.clients, ids, 8, size=8192, threads=2),
+                mod.dcv(c.clients, ids, 8, size=8192, threads=2),
+                mod.dcb(c.clients, ids, 4, size=4096, batch=3, threads=2),
+                mod.dsg(c.clients, ids, 4, size=3 * 4096, frame_size=4096,
+                        chunk_size=8192, threads=2),
+                mod.dnbp(c.clients, ids, 6, chunks_per_block=2, size=4096,
+                         threads=2)]
+        results.append(([counts(r) for r in reps],
+                        [sorted(r.summary()) for r in reps],
+                        _chunk_rows(c.clients, ids, 10_000_000),
+                        _chunk_rows(c.clients, ids, 30_000_000)))
+    got, want = results
+    assert got == want
+    # dsg's StreamWriteBlock is an RPC verb: the in-process clients of
+    # both packages have none, so each of its ops counts as a failure
+    assert got[0] == [("dcg", 8, 0), ("dcv", 8, 0), ("dcb", 4, 0),
+                      ("dsg", 0, 4), ("dnbp", 6, 0)]
+
+
+def test_local_generators_match_reference(tmp_path):
+    """cmdw (chunk-store writes), dbgen (an OM db written offline) and ralg
+    (appends through a local 3-node ring): the same counts and keys."""
+    results = []
+    for name, mod in (("port", freon), ("ref", j_freon)):
+        root = tmp_path / name
+        reps = [mod.cmdw(root / "chunks", n_chunks=12, size=16 * 1024,
+                         threads=2),
+                mod.dbgen(root / "gen.db", n_keys=300),
+                mod.ralg(root / "ralg", n_entries=40, size=128)]
+        results.append(([counts(r) for r in reps],
+                        [sorted(r.summary()) for r in reps],
+                        sorted(p.name for p in (root / "chunks").rglob("*.block"))))
+    got, want = results
+    assert got == want
+    assert got[0] == [("cmdw", 12, 0), ("dbgen", 300, 0), ("ralg", 40, 0)]
+
+
+def test_cluster_generators_match_reference(clusters):
+    """hsg (hsync'd keys), sdg (snapshot and diff rounds), scmtb (block
+    allocations) and ommg through both clusters' clients."""
+    results = []
+    for c, mod in zip(clusters, (freon, j_freon)):
+        oz = c.client()
+        reps = [mod.hsg(oz, n_keys=3, size=2000, syncs=2, threads=1,
+                        replication="RATIS/THREE"),
+                mod.sdg(oz, n_rounds=3, keys_per_round=2, size=1500,
+                        replication=EC),
+                mod.scmtb(oz, n_blocks=20, threads=2, replication=EC),
+                mod.ommg(oz, n_ops=20, threads=2)]
+        hs = oz.om.list_keys("freon-vol", "freon-hsync")
+        results.append(([counts(r) for r in reps],
+                        [(k["name"], k["size"]) for k in hs]))
+    got, want = results
+    assert got == want
+    assert got[0][:3] == [("hsg", 3, 0), ("sdg", 3, 0), ("scmtb", 20, 0)]
+
+
+def test_dnsim_matches_reference(tmp_path):
+    """dnsim: virtual datanodes register and heartbeat over each package's
+    real protocol, held IN_MAINTENANCE so placement never takes them."""
+    from ozone_tpu.net.daemons import ScmOmDaemon as JMeta
+    from ozone_tpu.net.scm_service import GrpcScmClient
+    from ozone_tpu.scm.pipeline import ReplicationConfig as JReplication
+    from ozone_tpu_torch.net.daemons import ScmOmDaemon
+    from ozone_tpu_torch.net.scm_service import RemoteScmClient
+    from ozone_tpu_torch.scm.pipeline import ReplicationConfig
+
+    out = []
+    for name, Meta, Scm, mod, Repl in (
+            ("port", ScmOmDaemon, RemoteScmClient, freon, ReplicationConfig),
+            ("ref", JMeta, GrpcScmClient, j_freon, JReplication)):
+        meta = Meta(tmp_path / name / "om.db", stale_after_s=1e6,
+                    dead_after_s=2e6)
+        meta.start()
+        scm = Scm(meta.address)
+        try:
+            for i in range(5):
+                meta.om.scm.register_datanode(f"real{i}")
+            s = mod.dnsim(scm, n_datanodes=8, n_containers=3, duration_s=1.2,
+                          interval_s=0.2, threads=4, prefix="simnode").summary()
+            states = {meta.om.scm.nodes.get(f"simnode-{i}").op_state.value
+                      for i in range(8)}
+            g = meta.om.scm.allocate_block(Repl.parse("rs-3-2-4096"), 8 * 4096)
+            out.append((sorted(s), s["failures"], s["ops"] >= 8, s["fcrs"] >= 8,
+                        s["datanodes"], states,
+                        all(not n.startswith("simnode") for n in g.pipeline.nodes)))
+        finally:
+            scm.close()
+            meta.stop()
+    assert out[0] == out[1]
+    assert out[0][1:] == (0, True, True, 8, {"IN_MAINTENANCE"}, True)
+
+
+def test_cli_offers_every_reference_generator():
+    """All 28 of the reference's freon generators are on the port's CLI,
+    with the reference's flags."""
+    from ozone_tpu.tools import cli as j_cli
+    from ozone_tpu_torch.tools import cli
+
+    def freon_parser(mod):
+        sub = next(a for a in mod.build_parser()._actions
+                   if a.__class__.__name__ == "_SubParsersAction")
+        return sub.choices["freon"]
+
+    p, j = freon_parser(cli), freon_parser(j_cli)
+    gen = next(a for a in p._actions if a.dest == "generator").choices
+    j_gen = next(a for a in j._actions if a.dest == "generator").choices
+    assert sorted(gen) == sorted(j_gen) and len(gen) == 28
+    flags = {s for a in p._actions for s in a.option_strings}
+    j_flags = {s for a in j._actions for s in a.option_strings}
+    assert j_flags - flags == set()
+    assert {"--keys", "--warmup", "--schema", "--cell", "--batch", "--root",
+            "--containers", "--interval"} <= flags
+
+
+def test_cli_local_generators_import_no_torch(tmp_path):
+    """dbgen, cmdw and ralg run from the CLI without a torch import."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys, io, contextlib, json\n"
+        "from ozone_tpu_torch.tools import cli\n"
+        f"root = {str(tmp_path)!r}\n"
+        "for argv in (['freon', 'dbgen', '-n', '50', '--root', root + '/g.db'],\n"
+        "             ['freon', 'cmdw', '-n', '4', '-s', '4096', '--root', root + '/c'],\n"
+        "             ['freon', 'ralg', '-n', '10', '--root', root + '/r']):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        assert cli.main(argv) == 0\n"
+        "    assert json.loads(buf.getvalue())['failures'] == 0\n"
+        "print('TORCH', 'torch' in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=str(Path(__file__).resolve().parents[1]))
+    assert "TORCH False" in r.stdout, r.stdout + r.stderr
+
+
+def test_dsg_streams_whole_blocks_over_the_rpc(tmp_path):
+    """dsg against DatanodeDaemons: whole blocks over StreamWriteBlock,
+    one commit each."""
+    from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
+    from ozone_tpu_torch.net.daemons import DatanodeDaemon, ScmOmDaemon
+
+    meta = ScmOmDaemon(tmp_path / "om.db")
+    meta.start()
+    dns = [DatanodeDaemon(tmp_path / f"dn{i}", f"dn{i}", meta.address,
+                          device="cpu") for i in range(2)]
+    for d in dns:
+        d.start()
+    f = DatanodeClientFactory()
+    try:
+        for d in dns:
+            f.register_remote(d.dn.id, d.address)
+        rep = freon.dsg(f, ["dn0", "dn1"], 4, size=3 * 4096, frame_size=4096,
+                        chunk_size=8192, threads=2)
+        assert counts(rep) == ("dsg", 4, 0)
+        assert rep.bytes_processed == 4 * 3 * 4096
+    finally:
+        f.close()
+        for d in dns:
+            d.stop()
+        meta.stop()

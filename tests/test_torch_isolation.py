@@ -144,6 +144,16 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.recon",
     "ozone_tpu_torch.recon.recon",
     "ozone_tpu_torch.recon.ui",
+    # fault injection and the repair tools: partitions and verb rules, the
+    # filesystem injector's controller, the chaos harness, ozlint, om_scale
+    "ozone_tpu_torch.net.partition",
+    "ozone_tpu_torch.testing.fault_injection",
+    "ozone_tpu_torch.testing.chaos",
+    "ozone_tpu_torch.tools.lint",
+    "ozone_tpu_torch.tools.lint.core",
+    "ozone_tpu_torch.tools.lint.rules",
+    "ozone_tpu_torch.tools.lint.__main__",
+    "ozone_tpu_torch.tools.om_scale",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -210,6 +220,25 @@ def test_light_cli_verbs_import_no_torch():
         from ozone_tpu_torch.replication_geo import rules, shipper
         from ozone_tpu_torch.om import acl, dtokens
         from ozone_tpu_torch.utils import security
+        # fault injection and the operator's repair tools
+        from ozone_tpu_torch.net import partition
+        from ozone_tpu_torch.testing import fault_injection
+        from ozone_tpu_torch.tools import lint, om_scale
+        from ozone_tpu_torch.tools.lint import rules
+        from ozone_tpu_torch.storage import container, container_packer
+        for argv in (["fsck", "--volume", "v"], ["repair", "orphans"],
+                     ["repair", "transaction", "--db", "x.db"],
+                     ["debug", "container-list", "--root", "r"],
+                     ["debug", "verify-replicas", "/v/b/k"],
+                     ["insight", "partition", "--dst", "h:2"],
+                     ["insight", "delay", "--dst", "h:2", "--seconds", "1"],
+                     ["insight", "partitions"]):
+            cli.build_parser().parse_args(argv)
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert cli.main(["repair", "transaction", "--db", "no.db"]) == 2
+            assert cli.main(["debug", "container-list", "--root", "no"]) == 2
+        lint.lint_source("x = 1", path="ozone_tpu_torch/net/x.py")
         print("torch" in sys.modules)
     """)
     assert out.strip() == "False"

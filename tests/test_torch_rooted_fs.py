@@ -838,10 +838,11 @@ def test_c_client_on_fso_bucket(side, lib):
 
 
 def test_example_binaries(side, lib, tmp_path):
-    """The reference's two example programs, built against the port's
-    o3fs.c, write and read a file through each gateway alike."""
-    exdir = REPO / "ozone_tpu" / "native" / "libo3fs" / "examples"
+    """The two example programs (the port's copies under
+    csrc/libo3fs/examples), built against the port's o3fs.c, write and
+    read a file through each gateway alike."""
     src = REPO / "ozone_tpu_torch" / "csrc" / "libo3fs"
+    exdir = src / "examples"
     wbin, rbin = tmp_path / "o3fs_write", tmp_path / "o3fs_read"
     for ex, out in (("libo3fs_write.c", wbin), ("libo3fs_read.c", rbin)):
         subprocess.run(["gcc", "-O2", "-I", str(src), "-o", str(out),

@@ -1195,3 +1195,258 @@ def test_plans_wait_for_every_member_report_after_close():
     assert port[0] == ref[0] == "CLOSED"
     assert len(ref[1]) == 1 and port[1] == []
     assert port[2] == []
+
+
+# ------------------------------------- safemode's pipeline rules (slice 22)
+def _restarted_scm(p, tmp, members=3):
+    """An SCM with a RATIS/THREE pipeline in its store, restarted: the
+    pipeline is recovered OPEN and gates safemode."""
+    db = tmp / f"{p.name}-scm.db"
+    s = p.scm.StorageContainerManager(db_path=db, stale_after_s=1e6,
+                                      dead_after_s=2e6)
+    for i in range(members):
+        s.register_datanode(f"dn{i}")
+    s.allocate_block(p.pipeline.ReplicationConfig.parse("RATIS/THREE"), 500)
+    s.stop()
+    return db, p.scm.StorageContainerManager(db_path=db, stale_after_s=1e6,
+                                             dead_after_s=2e6)
+
+
+def test_pipeline_safemode_rules_gate_until_members_return(tmp_path):
+    """HealthyPipelineSafeModeRule and OneReplicaPipelineSafeModeRule: a
+    recovered pipeline holds safemode until its members re-register; one
+    member back satisfies the one-replica rule, not the healthy one."""
+    def run(p):
+        _, s = _restarted_scm(p, tmp_path)
+        s.register_datanode("dn0")
+        out = [s.safemode.status(), s.safemode.in_safemode()]
+        s.register_datanode("dn1")
+        s.register_datanode("dn2")
+        out += [s.safemode.in_safemode(), s.safemode.status()]
+        s.stop()
+        return out
+
+    port, ref = _both(run)
+    assert port == ref
+    assert port[0]["pipelines_total"] == 1 and port[0]["pipelines_with_member"] == 1
+    assert port[1] is True and port[2] is False
+    assert port[3]["pipelines_healthy"] == 1
+
+
+def test_safemode_exit_is_one_way_and_prunes_dead_pipelines(tmp_path):
+    def run(p):
+        db, s = _restarted_scm(p, tmp_path)
+        for i in range(3):
+            s.register_datanode(f"dn{i}")
+        out = [s.safemode.in_safemode()]
+        s.nodes.get("dn0").state = p.nm.NodeState.STALE
+        out.append(s.safemode.in_safemode())  # exit latched
+        s.stop()
+        s3 = p.scm.StorageContainerManager(db_path=db, stale_after_s=1e6,
+                                           dead_after_s=2e6)
+        s3.register_datanode("dnX")
+        out.append(s3.safemode.in_safemode())
+        for pl in list(s3.containers.pipelines()):
+            s3.containers._pipelines.pop(pl.id)
+        out.append(s3.safemode.in_safemode())
+        s3.stop()
+        return out
+
+    port, ref = _both(run)
+    assert port == ref == [False, False, True, False]
+
+
+def test_dead_member_closes_pipeline_and_releases_safemode(tmp_path):
+    def run(p):
+        _, s = _restarted_scm(p, tmp_path)
+        s.register_datanode("dnX")
+        out = [s.safemode.in_safemode()]
+        for pl in s.containers.pipelines():
+            pl.state = p.pipeline.PipelineState.CLOSED
+        out.append(s.safemode.in_safemode())
+        out.append(s.safemode.status()["pipelines_total"])
+        s.stop()
+        return out
+
+    port, ref = _both(run)
+    assert port == ref == [True, False, 0]
+
+
+def test_safemode_defaults_are_the_references():
+    from ozone_tpu.scm.safemode import SafeModeConfig as JConfig
+    from ozone_tpu_torch.scm.safemode import SafeModeConfig
+
+    assert SafeModeConfig() == SafeModeConfig(**vars(JConfig()))
+    assert (SafeModeConfig().healthy_pipeline_fraction,
+            SafeModeConfig().one_replica_pipeline_fraction) == (0.10, 0.90)
+
+
+# --------------------------------- container transfer codecs (slice 22)
+def _seed_packer_dn(p, root, name="dn0"):
+    dn = p.datanode.Datanode(root / name, dn_id=name)
+    dn.create_container(1)
+    data = np.random.default_rng(0).integers(0, 256, 200_000, dtype=np.uint8)
+    info = p.ids.ChunkInfo("c0", 0, data.size)
+    dn.write_chunk(p.ids.BlockID(1, 1), info, data)
+    dn.put_block(p.ids.BlockData(p.ids.BlockID(1, 1), [info]))
+    dn.close_container(1)
+    return dn, data
+
+
+def _codecs():
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    return cp.available_codecs()
+
+
+@pytest.mark.parametrize("codec", _codecs())
+def test_packer_roundtrip_every_codec(tmp_path, codec):
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    src, data = _seed_packer_dn(PORT, tmp_path, "src")
+    blob = cp.export_container(src.get_container(1), compression=codec)
+    dst = datanode.Datanode(tmp_path / "dst", dn_id="dst")
+    c = cp.import_container(dst, blob)
+    got = dst.read_chunk(ids.BlockID(1, 1), c.get_block(ids.BlockID(1, 1)).chunks[0])
+    np.testing.assert_array_equal(got, data)
+    src.close()
+    dst.close()
+
+
+def test_zstd_beats_none_on_size(tmp_path):
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    if "zstd" not in cp.available_codecs():
+        pytest.skip("no zstandard in this interpreter")
+    src, _ = _seed_packer_dn(PORT, tmp_path, "src")
+    plain = cp.export_container(src.get_container(1), compression="none")
+    z = cp.export_container(src.get_container(1), compression="zstd")
+    assert len(z) < len(plain) and z[:4] == cp._ZSTD_MAGIC
+    src.close()
+
+
+def test_lz4_frames_when_the_module_imports(tmp_path):
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    if "lz4" not in cp.available_codecs():
+        pytest.skip("no lz4 in this interpreter")
+    src, data = _seed_packer_dn(PORT, tmp_path, "src")
+    blob = cp.export_container(src.get_container(1), compression="lz4")
+    assert blob[:4] == cp._LZ4_MAGIC
+    dst = datanode.Datanode(tmp_path / "dst", dn_id="dst")
+    c = cp.import_container(dst, blob)
+    got = dst.read_chunk(ids.BlockID(1, 1), c.get_block(ids.BlockID(1, 1)).chunks[0])
+    np.testing.assert_array_equal(got, data)
+    src.close()
+    dst.close()
+
+
+def test_negotiation_prefers_best_mutual():
+    from ozone_tpu.storage import container_packer as j_cp
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    ours = cp.available_codecs()
+    assert ours == j_cp.available_codecs()
+    assert cp.negotiate_codec(list(ours)) == ours[0]
+    for offer in (list(ours), ["gzip", "none"], ["none"], None, [],
+                  ["snappy-unknown"], ["lz4", "gzip"], ["zstd"]):
+        assert cp.negotiate_codec(offer) == j_cp.negotiate_codec(offer), offer
+    assert cp.negotiate_codec(None) == "gzip"
+    assert cp.negotiate_codec(["snappy-unknown"]) == "gzip"
+
+
+def test_unsupported_codec_refused_with_code(tmp_path, monkeypatch):
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    if "zstd" not in cp.available_codecs():
+        pytest.skip("no zstandard in this interpreter")
+    src, _ = _seed_packer_dn(PORT, tmp_path, "src")
+    blob = cp.export_container(src.get_container(1), compression="zstd")
+    monkeypatch.setattr(cp, "_zstd", lambda: None)  # the receiver lacks zstd
+    dst = datanode.Datanode(tmp_path / "dst", dn_id="dst")
+    with pytest.raises(ids.StorageError) as ei:
+        cp.import_container(dst, blob)
+    assert ei.value.code == cp.UNSUPPORTED_COMPRESSION
+    assert dst.list_containers() == []
+    src.close()
+    dst.close()
+
+
+def test_export_over_rpc_negotiates_and_falls_back_to_gzip(tmp_path, monkeypatch):
+    """Over the wire: the server picks the best codec both sides have and
+    import identifies it by its magic; a receiver that cannot decompress
+    the sender's codec answers UNSUPPORTED_COMPRESSION and the sender
+    retries with gzip."""
+    from ozone_tpu_torch.net.dn_service import DatanodeRpcService, RpcDatanodeClient
+    from ozone_tpu_torch.net.rpc import RpcServer
+    from ozone_tpu_torch.storage import container_packer as cp
+
+    src, data = _seed_packer_dn(PORT, tmp_path, "src")
+    dst = datanode.Datanode(tmp_path / "dst", dn_id="dst")
+    servers = []
+    for dn in (src, dst):
+        s = RpcServer()
+        DatanodeRpcService(dn, s)
+        s.start()
+        servers.append(s)
+    a = RpcDatanodeClient("src", servers[0].address)
+    b = RpcDatanodeClient("dst", servers[1].address)
+    try:
+        blob = a.export_container(1)
+        want = cp.available_codecs()[0]
+        magic = {"zstd": cp._ZSTD_MAGIC, "lz4": cp._LZ4_MAGIC}.get(want)
+        if magic is not None:
+            assert blob[:4] == magic
+        fallback = want == "zstd"
+        if fallback:
+            import threading
+
+            real = cp._zstd
+
+            def receiver_without_zstd():
+                # the receiving server's workers have no zstd; the sender,
+                # which recompresses, has
+                if threading.current_thread().name.startswith("rpc-"):
+                    return None
+                return real()
+
+            monkeypatch.setattr(cp, "_zstd", receiver_without_zstd)
+        recompressed = []
+        compress = cp.compress_blob
+        monkeypatch.setattr(cp, "compress_blob", lambda name, d: (
+            recompressed.append(name), compress(name, d))[1])
+        assert b.import_container(blob, container_id=1) == 1
+        # the refused zstd upload was sent again as gzip
+        assert recompressed == (["gzip"] if fallback else [])
+        got = dst.read_chunk(ids.BlockID(1, 1),
+                             dst.get_container(1).get_block(ids.BlockID(1, 1)).chunks[0])
+        np.testing.assert_array_equal(got, data)
+    finally:
+        a.close()
+        b.close()
+        for s in servers:
+            s.stop()
+        src.close()
+        dst.close()
+
+
+def test_rebuild_may_target_the_unhealthy_holder():
+    """Shared fault (ROADMAP Queue 3): a unit whose replica a scrub marked
+    UNHEALTHY is planned for rebuild with targets chosen outside the
+    present holders only, so the node that holds the UNHEALTHY replica
+    can be chosen; with every node in the group it is the only choice,
+    and its import meets CONTAINER_EXISTS. Both packages plan alike."""
+    def run(p):
+        nodes, pl, containers = _mini_scm(p, n=5)
+        rmgr = p.rm.ReplicationManager(containers, nodes, pl)
+        g, c = _closed_ec(p, containers)
+        sick = g.pipeline.nodes[1]
+        c.replicas[sick] = p.cm.ContainerReplica(sick, "UNHEALTHY", 2)
+        rmgr.run_once()
+        return sick, _commands(nodes)
+
+    (p_sick, port), (j_sick, ref) = _both(run)
+    assert port == ref and p_sick == j_sick
+    recon = [x for x in port[p_sick] if x[0] == "ReconstructionCommand"]
+    assert len(recon) == 1
+    assert ("targets", ((2, p_sick),)) in recon[0][1]
