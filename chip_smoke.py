@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--kernel-only]
+    python3 chip_smoke.py [--seed N] [--kernel-only | --mesh-only]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) and its host libraries
 (the CRC32C with g++ -msse4.2, the GF coder and the chunk datapath
@@ -286,19 +286,38 @@ a phase says otherwise:
 - fault injection and the repair tools (`chaos_path`, Apache Ozone's
   hadoop-ozone/fault-injection-test and docs/OPERATIONS.md): (a)
   `run_chaos` on a MiniOzoneCluster of 12 (max 3 down, 0.3 s, 20 s of
-  6 MiB + 4 KiB keys), every committed key byte-exact; (c) an
+  6 MiB + 4 KiB keys; 12 s in `main`), every committed key byte-exact; (c) an
   owner-scoped partition isolating the leader of a three-replica ring;
   on an ScmOmDaemon and 10 DatanodeDaemons: (b) partitions, a 0.5 s
   delay (a hedged GET) and a count-limited WriteChunksCommit rule on
   both lanes, the CLI's `insight partition|heal`, the OM's admission;
   (f) freon's rawcoder, dcg, dcb, dcv, dnbp, ralg, hsg, sdg, scmtb, cmdw,
-  dbgen, dnsim and `om_scale` at 100 000 keys; (d) a `datanode` process
+  dbgen, dnsim and `om_scale` at 100 000 keys (40 000 in `main`); (d) a `datanode` process
   under the LD_PRELOAD injector (EIO, then corrupted writes its scanner
   finds, rebuilt by the SCM, `debug container-inspect` offline); (e)
   `fsck` from DEGRADED to HEALTHY around a rebuild, `debug
   verify-replicas|chunk-info|export-container|import-container`,
   `repair orphans|quota|transaction`, and safemode's pipeline rules
-  after a restart.
+  after a restart;
+- the multi-device codec (`mesh_path`, the reference's
+  `parallel/{sharded,mesh_executor,multihost}.py`, BASELINE config #5):
+  (a) on a logical mesh of 4 slots on cuda:0, RS(6,3) and RS(10,4) at
+  1 MiB cells with CRC32C over 16 KiB, the DP encode [32, 6, 1 MiB], the
+  DP decode [2, 10], the TP encode of RS(6,3) on 3 slots and of RS(10,4)
+  on 2, and the ring decode of RS(10,4) with units 0 and 1 lost (10
+  survivors padded to 12), each equal to the single-device kernel and
+  the plain version bit for bit, with its launches a call (DP n, TP
+  n + 1, ring n + n(n - 1) + n); (b) a `MeshExecutor` on that mesh,
+  installed as the process singleton, under four encode and four decode
+  operations at once; (c) a degraded RS(10,4) GET over the ring, a
+  rebuild through `ECReconstructionCoordinator(mesh=)`, a scrub with
+  `mesh=`, a `ReconstructionStorm(executor=)` and the codec service's
+  spill at watermark 4, every one byte-exact, on in-process datanodes;
+  then the forms' CUDA-event times beside the single-device kernel's,
+  the plain version's and the bound; (d) with two or more GPUs the forms
+  on a mesh of every GPU and a two-process NCCL run, and with one a line
+  saying that neither was run. `--mesh-only` runs the build, the kernel
+  cases and this phase alone.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -327,6 +346,7 @@ import logging
 import os
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -8841,12 +8861,624 @@ def chaos_path(device, cell: int, bpc: int, seed: int, n_keys: int = 8,
     return out
 
 
+# -------------------------------------------------------------- mesh path
+#: the reference program each mesh form of the kernel replaces
+MESH_FORMS = {"dp_encode": "ozone_tpu/parallel/sharded.py:115",
+              "dp_decode": "ozone_tpu/parallel/sharded.py:168",
+              "tp_encode": "ozone_tpu/parallel/sharded.py:232",
+              "ring_decode": "ozone_tpu/parallel/sharded.py:291"}
+
+
+def tp_slots(k: int, n: int, logical: dict) -> int:
+    """Slots of a TP case: the logical mesh's stated count, else the most
+    devices (at least 2) that divide k."""
+    if logical:
+        return logical[k]
+    return max((m for m in range(2, n + 1) if k % m == 0), default=0)
+
+
+def mesh_cases(devices: list, cell: int, bpc: int, seed: int, logical: bool) -> list[dict]:
+    """The four mesh forms at the main path's width, each with its
+    single-device kernel call, its plain version, its launches a call and
+    its bound: DP encode RS(6,3) [32, 6, cell]; DP decode RS(10,4) [2, 10]
+    (units 0 and 1 from 2..11, B = 8); TP encode RS(6,3) and RS(10,4) (on
+    3 and 2 slots of a logical mesh); the ring decode of the same RS(10,4)
+    pattern over every slot (10 survivors padded to a multiple of the
+    slot count)."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import FusedSpec, _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.codec.torch_coder import apply_slice
+    from ozone_tpu_torch.parallel import sharded
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, ChecksumType
+
+    n, dev0 = len(devices), torch.device(devices[0])
+    mesh = sharded.make_mesh(devices=devices)
+    rng = np.random.default_rng(seed + 23)
+    rs63, rs104 = CoderOptions(6, 3, "rs", cell_size=cell), CoderOptions(10, 4, "rs", cell_size=cell)
+    spec63 = FusedSpec(rs63, ChecksumType.CRC32C, bpc)
+    spec104 = FusedSpec(rs104, ChecksumType.CRC32C, bpc)
+    kernel, plain = fused_kernel.fused_encode_crc, fused_kernel.fused_encode_crc_plain
+
+    def units(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev0)
+
+    def matrix(m):
+        return torch.from_numpy(m).to(dev0)
+
+    cases = []
+    data, pm = units((32, 6, cell)), matrix(_parity_matrix(rs63))
+    enc = sharded.make_sharded_fused_encoder(spec63, mesh)
+    cases.append(dict(
+        form="dp_encode", what=f"DP encode rs-6-3 [32, 6, {cell}]", slots=n,
+        run=lambda: enc(data), single=lambda: kernel(data, pm, CRC32C_POLY, bpc),
+        plain=lambda: plain(data, pm, CRC32C_POLY, bpc), launches=n,
+        bound=fused_bound(32, 6, 3, cell, bpc), in_bytes=32 * 6 * cell))
+    valid, erased = list(range(2, 12)), [0, 1]
+    surv, dm = units((8, 10, cell)), matrix(_decode_matrix(rs104, valid, erased))
+    dec = sharded.make_sharded_decoder(spec104, valid, erased, mesh)
+    cases.append(dict(
+        form="dp_decode", what=f"DP decode rs-10-4 [2, 10] B=8 cell={cell}", slots=n,
+        run=lambda: dec(surv),
+        single=lambda: kernel(surv, dm, CRC32C_POLY, bpc, crc_in=False),
+        plain=lambda: plain(surv, dm, CRC32C_POLY, bpc, crc_in=False), launches=n,
+        bound=fused_bound(8, 10, 2, cell, bpc, rows=2), in_bytes=8 * 10 * cell))
+    for opts, tp_data in ((rs63, units((8, 6, cell))), (rs104, units((8, 10, cell)))):
+        k, p = opts.data_units, opts.parity_units
+        m = tp_slots(k, n, {6: 3, 10: 2} if logical else {})
+        if not m:
+            print(f"mesh: TP rs-{k}-{p} skipped: no slot count from 2 to {n} divides {k}")
+            continue
+        tp = sharded.make_tp_encoder(opts, sharded.make_mesh(devices=devices[:m]))
+        tpm, sb = matrix(_parity_matrix(opts)), apply_slice(cell)
+        cases.append(dict(
+            form="tp_encode", what=f"TP encode rs-{k}-{p} [8, {k}, {cell}]", slots=m,
+            run=lambda tp=tp, d=tp_data: (tp(d),),
+            single=lambda d=tp_data, a=tpm: kernel(d, a, None, sb)[:1],
+            plain=lambda d=tp_data, a=tpm: (fused_kernel.gf_apply_plain(d, a),),
+            launches=m + 1, bound=fused_bound(8, k, p, cell, bpc, rows=0),
+            in_bytes=8 * k * cell))
+    ring = sharded.make_ring_decoder(spec104, valid, erased, mesh)
+    cases.append(dict(
+        form="ring_decode",
+        what=f"ring decode rs-10-4 [2, 10] B=8 cell={cell}, 10 survivors padded to "
+             f"{-(-10 // n) * n}", slots=n,
+        run=lambda: ring(surv),
+        single=lambda: kernel(surv, dm, CRC32C_POLY, bpc, crc_in=False),
+        plain=lambda: plain(surv, dm, CRC32C_POLY, bpc, crc_in=False),
+        launches=n + n * (n - 1) + min(n, 8),
+        bound=fused_bound(8, 10, 2, cell, bpc, rows=2), in_bytes=8 * 10 * cell))
+    return cases
+
+
+def check_mesh_cases(cases: list, device, where: str) -> None:
+    """Run each case once: its outputs equal the single-device kernel's and
+    the plain version's bit for bit, and on the card its launches a call
+    are the form's count (every one of them a kernel launch). Records each
+    case's largest difference in `err`."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.parallel import sharded
+
+    for case in cases:
+        form, counter = case["form"], sharded.launches[case["form"]]
+        before, total = counter.count, fused_kernel.launches.count
+        got = case["run"]()
+        got = got if isinstance(got, tuple) else (got,)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launched, all_launched = counter.count - before, fused_kernel.launches.count - total
+        err = 0
+        for name, want in (("single-device kernel", case["single"]()),
+                           ("plain version", case["plain"]())):
+            for g, w in zip(got, want):
+                w = w.to(g.device)
+                if g.shape != w.shape:
+                    raise AssertionError(f"mesh {case['what']} on {where}: shape "
+                                         f"{tuple(g.shape)} != {name}'s {tuple(w.shape)}")
+                if g.numel():
+                    err = max(err, (g.long() - w.long()).abs().max().item())
+            if err:
+                raise AssertionError(f"mesh {case['what']} on {where} differs from the "
+                                     f"{name} (max_abs_err {err})")
+        case["err"], case["launched"] = err, launched
+        print(f"mesh {case['what']} on {case['slots']} slots of {where}: equal to the "
+              f"single-device kernel and the plain version bit for bit; launches "
+              f"{launched} a call (of the kernel {all_launched}), expected {case['launches']}")
+        if device.type == "cuda" and not launched == all_launched == case["launches"]:
+            raise AssertionError(f"mesh {case['what']}: {launched} form launches, "
+                                 f"{all_launched} kernel launches, not {case['launches']}")
+
+
+def time_mesh_cases(cases: list, where: str) -> None:
+    """CUDA-event times of each case: a single call and a call in a run of
+    10, beside the single-device kernel's single call, the plain version
+    and the bound."""
+    for case in cases:
+        case["ms"] = cuda_ms(case["run"], rounds=10)
+        case["ms_in_run"] = cuda_ms(case["run"], calls=10, rounds=5)
+        case["single_ms"] = cuda_ms(case["single"], rounds=10)
+        case["plain_ms"] = cuda_ms(case["plain"], rounds=3)
+        bound_ms, bound_by = case["bound"]
+        print(f"mesh {case['what']} on {case['slots']} slots of {where}: {case['ms']:.4f} ms "
+              f"a single call ({case['ms_in_run']:.4f} ms in a run of 10), single-device "
+              f"kernel {case['single_ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{case['in_bytes'] / case['ms'] * 1e3 / 2**30:.2f} GiB/s in")
+
+
+def mesh_executor_step(ex, device, cell: int, bpc: int, seed: int) -> dict:
+    """(b): four encode operations (RS(6,3), [4, 6, cell] each) and four
+    decode operations (RS(10,4), [2, 10, cell] each) submitted at once
+    from eight threads to the executor, per-slot width 2; each result
+    equals the plain version's, and every dispatch is one launch a slot."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec import service as codec_service
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import FusedSpec, _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.parallel import mesh_executor, sharded
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, ChecksumType
+
+    rng = np.random.default_rng(seed + 29)
+    rs63, rs104 = CoderOptions(6, 3, "rs", cell_size=cell), CoderOptions(10, 4, "rs", cell_size=cell)
+    valid, erased = list(range(2, 12)), [0, 1]
+    ops = ([("encode", rng.integers(0, 256, (4, 6, cell), dtype=np.uint8)) for _ in range(4)]
+           + [("decode", rng.integers(0, 256, (2, 10, cell), dtype=np.uint8)) for _ in range(4)])
+    keys = {"encode": codec_service.encode_key(FusedSpec(rs63, ChecksumType.CRC32C, bpc)),
+            "decode": codec_service.decode_key(FusedSpec(rs104, ChecksumType.CRC32C, bpc),
+                                               valid, erased)}
+    snap0 = mesh_executor.METRICS.snapshot()
+    form0 = {f: sharded.launches[f].count for f in ("dp_encode", "dp_decode")}
+    barrier = threading.Barrier(len(ops))
+
+    def op(i):
+        kind, stripes = ops[i]
+        barrier.wait(timeout=60)
+        return ex.submit(keys[kind], stripes, width=2).result(timeout=120)
+
+    results = concurrent(op, list(range(len(ops))))
+    ex.quiesce()
+    for (kind, stripes), got in zip(ops, results):
+        t = torch.from_numpy(stripes).to(device)
+        if kind == "encode":
+            m, crc_in = _parity_matrix(rs63), True
+        else:
+            m, crc_in = _decode_matrix(rs104, valid, erased), False
+        want = fused_kernel.fused_encode_crc_plain(
+            t, torch.from_numpy(m).to(device), CRC32C_POLY, bpc, crc_in)
+        if not (np.array_equal(got[0], want[0].cpu().numpy())
+                and np.array_equal(got[1], want[1].cpu().numpy().view(np.uint32))):
+            raise AssertionError(f"mesh executor {kind} differs from the plain version")
+    snap1 = mesh_executor.METRICS.snapshot()
+    delta = {k: snap1.get(k, 0) - snap0.get(k, 0) for k in
+             ("submissions", "dispatches", "coalesced_operations", "multi_op_dispatches",
+              "stripes_dispatched", "slots_dispatched")}
+    launched = sum(sharded.launches[f].count - form0[f] for f in form0)
+    stats = ex.stats()
+    print(f"mesh executor: 8 concurrent operations (4 encode, 4 decode) equal to the plain "
+          f"version; {json.dumps(delta)}; launches {launched}; stats " + json.dumps(
+              {k: stats[k] for k in ("fill_ratio", "ops_per_dispatch", "max_inflight",
+                                     "devices", "mesh_depth", "programs",
+                                     "programs_host_twin", "compile_counts", "queue_depth",
+                                     "lanes", "inflight", "spill_enabled", "enabled")}))
+    if delta["submissions"] != 8 or not delta["dispatches"]:
+        raise AssertionError(f"mesh executor: {delta}")
+    if device.type == "cuda" and launched != ex.n_devices * delta["dispatches"]:
+        raise AssertionError(f"mesh executor: {launched} launches for "
+                             f"{delta['dispatches']} dispatches of {ex.n_devices} slots")
+    return {"launches": launched, **delta}
+
+
+def mesh_spill_step(device, cell: int, bpc: int, seed: int) -> dict:
+    """(c) the codec service's spill at watermark 4: its dispatcher held on
+    a slow lane, twelve one-stripe RS(6,3) encodes queue past the
+    watermark and their whole lane moves to the installed executor; every
+    result equals the plain version's."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec import service as codec_service
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import FusedSpec, _parity_matrix, make_fused_encoder
+    from ozone_tpu_torch.parallel import mesh_executor, sharded
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, ChecksumType
+
+    opts = CoderOptions(6, 3, "rs", cell_size=cell)
+    spec = FusedSpec(opts, ChecksumType.CRC32C, bpc)
+    enc0 = sharded.launches["dp_encode"].count
+    rng = np.random.default_rng(seed + 31)
+    datas = [rng.integers(0, 256, (1, 6, cell), dtype=np.uint8) for _ in range(12)]
+    release = threading.Event()
+
+    def slow(batch):
+        release.wait(timeout=60)
+        return (np.array(batch, copy=True),)
+
+    with env_set(OZONE_TPU_MESH_SPILL=1, OZONE_TPU_MESH_SPILL_WATERMARK=4):
+        svc = codec_service.CodecService()
+        s0, m0 = codec_service.METRICS.snapshot(), mesh_executor.METRICS.snapshot()
+        try:
+            if not mesh_executor.maybe_executor().accepts(codec_service.encode_key(spec)):
+                raise AssertionError("the mesh executor takes no RS(6,3) encode")
+            plug = svc.submit(("encode", "slow-plug"), slow,
+                              np.zeros((1, 4), dtype=np.uint8), width=1)
+            time.sleep(0.05)
+            fn = make_fused_encoder(spec, device=device)
+            futs = [svc.submit(codec_service.encode_key(spec), fn, d, width=1)
+                    for d in datas]
+            release.set()
+            plug.result(timeout=60)
+            results = [f.result(timeout=120) for f in futs]
+        finally:
+            release.set()
+            svc.close()
+    pm = torch.from_numpy(_parity_matrix(opts)).to(device)
+    for d, (parity, crcs) in zip(datas, results):
+        want = fused_kernel.fused_encode_crc_plain(torch.from_numpy(d).to(device), pm,
+                                                   CRC32C_POLY, bpc)
+        if not (np.array_equal(parity, want[0].cpu().numpy())
+                and np.array_equal(crcs, want[1].cpu().numpy().view(np.uint32))):
+            raise AssertionError("a spilled encode differs from the plain version")
+    s1, m1 = codec_service.METRICS.snapshot(), mesh_executor.METRICS.snapshot()
+    out = {k: s1.get(k, 0) - s0.get(k, 0) for k in ("mesh_spill_lanes", "mesh_spill_stripes")}
+    out.update({k: m1.get(k, 0) - m0.get(k, 0) for k in ("spilled_lanes", "dispatches")})
+    out["launches"] = sharded.launches["dp_encode"].count - enc0
+    ex = mesh_executor.maybe_executor()
+    print(f"codec service spill at watermark 4: 12 encodes equal to the plain version; "
+          f"{json.dumps(out)}")
+    if out["mesh_spill_lanes"] < 1 or out["mesh_spill_stripes"] < 8:
+        raise AssertionError(f"the service spilled nothing: {out}")
+    if device.type == "cuda" and out["launches"] != ex.n_devices * out["dispatches"]:
+        raise AssertionError("the spilled lane's DP launches differ from its dispatches")
+    return out
+
+
+def mesh_consumers_step(mesh, ex, device, cell: int, bpc: int, seed: int) -> dict:
+    """(c) on 16 in-process datanodes, RS(10,4): a key of one full group
+    and a short one; a degraded GET with units 0 and 1 down through
+    `ECBlockGroupReader(mesh=, use_ring=True)`; their replicas rebuilt onto
+    two spares by `ECReconstructionCoordinator(mesh=)` (DP decode), equal
+    to the lost ones; each rebuilt container scrubbed with
+    `DeviceScrubber(mesh=)`, agreeing with the host scan. Each step's
+    launches are counted against its form."""
+    from ozone_tpu_torch.client.ec_reader import ECBlockGroupReader
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.pipeline import batched, decode_batch_size
+    from ozone_tpu_torch.parallel import sharded
+    from ozone_tpu_torch.storage.reconstruction import (
+        ECReconstructionCoordinator,
+        ReconstructionCommand,
+    )
+    from ozone_tpu_torch.storage.scrubber import DeviceScrubber
+
+    n = mesh.devices.size
+    opts = CoderOptions(10, 4, "rs", cell_size=cell)
+    row = 10 * cell
+    data = np.random.default_rng(seed + 37).integers(0, 256, 16 * row + 12345, dtype=np.uint8)
+    lost, spares = [0, 1], ["dn14", "dn15"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        cluster = Cluster(Path(tmp), opts, 16)
+        try:
+            (groups,), _ = put_keys(cluster, [data], device, bpc)
+            cluster.dead = {groups[0].pipeline.nodes[u] for u in lost}
+            ring0, total0 = sharded.launches["ring_decode"].count, fused_kernel.launches.count
+            got, expect = [], 0
+            t0 = time.perf_counter()
+            for g in groups:
+                r = ECBlockGroupReader(g, opts, cluster.clients, bytes_per_checksum=bpc,
+                                       device=device, mesh=mesh, use_ring=True)
+                got.append(r.read_all())
+                stripes = [s for s in range(r.num_stripes)
+                           if any(s * row + u * cell < g.length for u in lost)]
+                expect += sum(n + n * (n - 1) + min(n, len(sb))
+                              for sb in batched(stripes, decode_batch_size()))
+            wall = time.perf_counter() - t0
+            out["mesh_degraded_get_ring"] = sharded.launches["ring_decode"].count - ring0
+            if not np.array_equal(np.concatenate(got), data):
+                raise AssertionError("the degraded GET over the ring differs from the source")
+            print(f"mesh degraded GET (units {lost} down, ring over {n} slots): {data.size} B "
+                  f"byte-exact in {wall:.3f} s ({data.size / wall / 2**30:.3f} GiB/s wall); "
+                  f"ring launches {out['mesh_degraded_get_ring']}, expected {expect} "
+                  f"(of the kernel {fused_kernel.launches.count - total0})")
+            if device.type == "cuda" and out["mesh_degraded_get_ring"] != expect:
+                raise AssertionError("the degraded GET's ring launches differ")
+
+            coord = ECReconstructionCoordinator(cluster.clients, bytes_per_checksum=bpc,
+                                                device=device, mesh=mesh)
+            dec0 = sharded.launches["dp_decode"].count
+            t0 = time.perf_counter()
+            for g in groups:
+                coord.reconstruct_container_group(ReconstructionCommand(
+                    g.container_id, opts,
+                    {u + 1: nd for u, nd in enumerate(g.pipeline.nodes) if u not in lost},
+                    {u + 1: spare for u, spare in zip(lost, spares)}))
+            repair_s = time.perf_counter() - t0
+            out["mesh_rebuild"] = sharded.launches["dp_decode"].count - dec0
+            batches = coord.metrics.counter("decode_dispatches").value
+            rebuilt = check_rebuilt(cluster, groups, lost, spares, bpc)
+            print(f"mesh rebuild (ECReconstructionCoordinator(mesh=), DP over {n} slots): "
+                  f"{len(groups)} containers onto {spares} in {repair_s:.3f} s, "
+                  f"{rebuilt['chunks']} chunks equal the lost ones, CRCs equal host CRC32C; "
+                  f"launches {out['mesh_rebuild']} for {batches} decode batches")
+            if device.type == "cuda" and out["mesh_rebuild"] != n * batches:
+                raise AssertionError("the rebuild's DP launches differ")
+
+            scrubber = DeviceScrubber(device=device, mesh=mesh)
+            total0 = fused_kernel.launches.count
+            for spare in spares:
+                dn = cluster.dns[spare]
+                for g in groups:
+                    errs = scrubber.scrub_container(dn, g.container_id, mark_unhealthy=False)
+                    if errs or dn.scan_container(g.container_id):
+                        raise AssertionError(f"scrub of rebuilt {g.container_id} on {spare}: "
+                                             f"{errs}")
+            out["mesh_scrub"] = fused_kernel.launches.count - total0
+            print(f"mesh scrub (DeviceScrubber(mesh=), {n} slots): {2 * len(groups)} rebuilt "
+                  f"containers clean, as the host scan says; launches {out['mesh_scrub']} for "
+                  f"{scrubber.dispatches} slice batches")
+            if device.type == "cuda" and out["mesh_scrub"] != n * scrubber.dispatches:
+                raise AssertionError("the scrub's launches differ")
+        finally:
+            cluster.close()
+    return out
+
+
+def mesh_storm_step(ex, device, cell: int, bpc: int, seed: int) -> dict:
+    """(c) `ReconstructionStorm(executor=)` on a MiniOzoneCluster of 12
+    datanodes (rs-6-3, blocks of 2 cells, containers of 3 blocks): the
+    datanode holding the most closed EC containers dies and the storm
+    rebuilds them through the executor's lanes; every rebuilt chunk equals
+    the lost one."""
+    from ozone_tpu_torch.client.reconstruction import ReconstructionStorm
+    from ozone_tpu_torch.parallel import sharded
+    from ozone_tpu_torch.scm.pipeline import ReplicationType
+    from ozone_tpu_torch.storage.ids import ContainerState
+    from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
+
+    block = 2 * cell
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-storm-") as tmp:
+        cluster = MiniOzoneCluster(Path(tmp), num_datanodes=12, racks=3, block_size=block,
+                                   container_size=3 * block, stale_after_s=1e6,
+                                   dead_after_s=2e6, placement_seed=seed, device=device)
+        try:
+            bucket = cluster.client().create_volume("mesh").create_bucket(
+                "b", replication=f"rs-6-3-{cell // 1024}k")
+            rng = np.random.default_rng(seed + 41)
+            for i in range(12):
+                bucket.write_key(f"k{i}", rng.integers(0, 256, 6 * block, dtype=np.uint8))
+            for dn in cluster.datanodes:
+                for c in dn.list_containers():
+                    if c.state is ContainerState.OPEN:
+                        dn.close_container(c.id)
+            cluster.tick()
+            cluster.heartbeat_all()
+            held: dict[str, list] = {}
+            for c in cluster.scm.containers.containers():
+                if c.replication.type is ReplicationType.EC \
+                        and c.state is ContainerState.CLOSED:
+                    for dn_id in c.replicas:
+                        held.setdefault(dn_id, []).append(c)
+            victim = max(sorted(held), key=lambda d: len(held[d]))
+            vdn = cluster.datanode(victim)
+            lost = {(c.id, bd.block_id.local_id): [vdn.read_chunk(bd.block_id, i)
+                                                   for i in bd.chunks]
+                    for c in held[victim] for bd in vdn.list_blocks(c.id)}
+            kill_datanode(cluster, victim)
+            dec0 = sharded.launches["dp_decode"].count
+            report = ReconstructionStorm(cluster.scm, cluster.clients, executor=ex,
+                                         device=device).repair_datanode(victim)
+            launched = sharded.launches["dp_decode"].count - dec0
+            if not report.ok or report.containers_repaired != len(held[victim]):
+                raise AssertionError(f"mesh storm: {report}")
+            for (cid, local_id), chunks in lost.items():
+                for dn in cluster.datanodes:
+                    if dn.id == victim or cid not in [c.id for c in dn.list_containers()]:
+                        continue
+                    blk = next((b for b in dn.list_blocks(cid)
+                                if b.block_id.local_id == local_id), None)
+                    if blk is None or len(blk.chunks) != len(chunks):
+                        continue
+                    if all(np.array_equal(dn.read_chunk(blk.block_id, i, verify=True), w)
+                           for i, w in zip(blk.chunks, chunks)):
+                        break
+                else:
+                    raise AssertionError(f"mesh storm: block {cid}/{local_id} not rebuilt")
+            print(f"mesh storm (ReconstructionStorm(executor=)): {victim} dead, "
+                  f"{report.containers_repaired} containers rebuilt byte-exact in "
+                  f"{report.elapsed_s:.3f} s; mesh_dispatches {report.mesh_dispatches}, "
+                  f"mesh_stripes {report.mesh_stripes}, mesh_coalesced_ops "
+                  f"{report.mesh_coalesced_ops}, mesh_multi_op_dispatches "
+                  f"{report.mesh_multi_op_dispatches}, mesh_max_inflight "
+                  f"{report.mesh_max_inflight}; launches {launched}")
+            if not report.mesh_dispatches:
+                raise AssertionError("the storm never reached the mesh executor")
+            if device.type == "cuda" and launched != ex.n_devices * report.mesh_dispatches:
+                raise AssertionError("the storm's DP launches differ from its mesh dispatches")
+        finally:
+            cluster.close()
+    return {"mesh_storm": launched}
+
+
+def mesh_worker(rank: int, port: int, device: str) -> int:
+    """One rank of the two-process run: a global mesh of one slot per
+    process (NCCL on a GPU each, gloo on the CPU); DP encode on this rank's
+    rows, then TP encode and the ring decode across the process boundary,
+    each equal to the plain version on this rank's device."""
+    from ozone_tpu_torch.codec import fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import FusedSpec, _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.parallel import multihost, sharded
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, ChecksumType
+
+    cell, bpc = (MIB, 16 * 1024) if device == "cuda" else (64 * 1024, 16 * 1024)
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device=device)
+    mesh = multihost.global_codec_mesh()
+    dev = mesh.first_device
+    rng = np.random.default_rng(43)
+    rs63, rs104 = CoderOptions(6, 3, "rs", cell_size=cell), CoderOptions(10, 4, "rs", cell_size=cell)
+    data = torch.from_numpy(rng.integers(0, 256, (8, 6, cell), dtype=np.uint8))
+    surv = torch.from_numpy(rng.integers(0, 256, (8, 10, cell), dtype=np.uint8))
+    pm63 = torch.from_numpy(_parity_matrix(rs63)).to(dev)
+    valid, erased = list(range(2, 12)), [0, 1]
+    dm = torch.from_numpy(_decode_matrix(rs104, valid, erased)).to(dev)
+    plain = fused_kernel.fused_encode_crc_plain
+    checks = {
+        "DP encode": (sharded.make_sharded_fused_encoder(
+            FusedSpec(rs63, ChecksumType.CRC32C, bpc), mesh)(data[rank * 4:rank * 4 + 4]),
+            plain(data[rank * 4:rank * 4 + 4].to(dev), pm63, CRC32C_POLY, bpc)),
+        "TP encode": ((sharded.make_tp_encoder(rs63, mesh)(data),),
+                      (fused_kernel.gf_apply_plain(data.to(dev), pm63),)),
+        "ring decode": (sharded.make_ring_decoder(
+            FusedSpec(rs104, ChecksumType.CRC32C, bpc), valid, erased, mesh)(surv),
+            plain(surv.to(dev), dm, CRC32C_POLY, bpc, crc_in=False)),
+    }
+    for name, (got, want) in checks.items():
+        if not all(torch.equal(g.to(dev), w) for g, w in zip(got, want)):
+            raise AssertionError(f"rank {rank}: {name} across processes differs")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"MESH_WORKER_OK {rank} on {dev}: " + ", ".join(checks), flush=True)
+    return 0
+
+
+def two_process_run(device_type: str) -> float:
+    """Two `chip_smoke.py --mesh-worker` processes on one host (NCCL, a
+    GPU each; or gloo on the CPU); both must finish OK within 300 s."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(rank), str(port),
+         device_type], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode or f"MESH_WORKER_OK {rank}" not in out:
+            raise AssertionError(f"mesh worker {rank} failed:\n{out[-4000:]}")
+        print(out.strip().splitlines()[-1])
+    return time.perf_counter() - t0
+
+
+def mesh_path(device, cell: int, bpc: int, seed: int, slots: int = 4) -> dict:
+    """The multi-device codec (`parallel/`), every form through the fused
+    kernel: (a) the forms on a logical mesh of `slots` slots on `device`
+    (mesh_cases), each equal to the single-device kernel and the plain
+    version with its launches a call; (b) the mesh executor over that mesh,
+    installed as the process singleton, under concurrent encode and decode
+    operations; (c) its consumers: a degraded GET over the ring, a rebuild
+    and a scrub over the mesh, a storm through the executor and the codec
+    service's spill at watermark 4; then the forms' times. (d) With two or
+    more GPUs, the forms on a mesh of every GPU and a two-process NCCL run;
+    with one, a line saying they were not run. Every form's launches are
+    counted from 0 before (a) and read after (c)."""
+    from ozone_tpu_torch.parallel import mesh_executor, sharded
+
+    logical = [device] * slots
+    where = f"{device} ({slots} logical slots)"
+    if device.type == "cuda":
+        from ozone_tpu_torch.codec import fused_kernel
+        from ozone_tpu_torch.codec.torch_coder import apply_slice
+
+        # the combines' inputs: n p units side by side (TP), 2 e (ring)
+        for units, rows in ((9, 3), (8, 4), (4, 2), (40, 4)):
+            smem, per_sm = fused_kernel.kernel_occupancy(units, rows, apply_slice(cell), 0)
+            print(f"mesh combine [{rows}, {units}] at slice {apply_slice(cell)}: {smem} B "
+                  f"shared memory per block (of {fused_kernel.MAX_SMEM_BYTES}), "
+                  f"{per_sm} blocks per SM")
+    cases = mesh_cases(logical, cell, bpc, seed, logical=True)
+    for counter in sharded.launches.values():
+        counter.reset()
+    check_mesh_cases(cases, device, where)
+    mesh = sharded.make_mesh(devices=logical)
+    ex = mesh_executor.MeshExecutor(mesh=mesh, depth=2)
+    installed, mesh_executor._executor = mesh_executor._executor, ex
+    try:
+        out = {"launches": {"mesh_executor": mesh_executor_step(ex, device, cell, bpc,
+                                                                seed)["launches"]}}
+        out["launches"].update(mesh_consumers_step(mesh, ex, device, cell, bpc, seed))
+        out["launches"].update(mesh_storm_step(ex, device, cell, bpc, seed))
+        out["launches"]["mesh_spill"] = mesh_spill_step(device, cell, bpc, seed)["launches"]
+    finally:
+        mesh_executor._executor = installed
+        ex.close()
+    out["form_launches"] = {f: c.count for f, c in sharded.launches.items()}
+    out["launches"]["mesh_forms"] = sum(c["launched"] for c in cases)
+    print(f"mesh path launches by form: {out['form_launches']}")
+    for form, n in out["form_launches"].items():
+        if device.type == "cuda" and n <= 0:
+            raise AssertionError(f"mesh form {form} launched no kernel on the mesh path")
+    out["cases"] = cases
+    if device.type == "cuda":
+        time_mesh_cases(cases, where)
+    n_gpu = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_gpu >= 2:
+        real = [torch.device("cuda", i) for i in range(n_gpu)]
+        out["real_cases"] = mesh_cases(real, cell, bpc, seed, logical=False)
+        check_mesh_cases(out["real_cases"], device, f"{n_gpu} GPUs")
+        time_mesh_cases(out["real_cases"], f"{n_gpu} GPUs")
+        out["nccl_s"] = two_process_run("cuda")
+        print(f"mesh two-process NCCL run: OK in {out['nccl_s']:.1f} s")
+    else:
+        print(f"mesh_path (d): {n_gpu} GPU on this host: the mesh over distinct GPUs and "
+              "the two-process NCCL lane were not run; every mesh number above is of "
+              "logical slots on one card")
+    return out
+
+
+def mesh_kernel_entries(mesh: dict) -> list[dict]:
+    """The kernels JSON line's entries of the mesh forms: one per form, the
+    first case of each, with TP's second case beside it."""
+    entries = []
+    for form, replaces in MESH_FORMS.items():
+        cases = [c for c in mesh["cases"] if c["form"] == form]
+        first = cases[0]
+        entry = {
+            "name": f"fused_encode_crc as mesh {first['what']} on {first['slots']} "
+                    "logical slots of one card",
+            "route": "cuda", "source": "ozone_tpu_torch/csrc/fused_encode_crc.cu",
+            "replaces": replaces, "launches": mesh["form_launches"][form],
+            "launches_a_call": first["launches"], "max_abs_err": first["err"],
+            "ms": first["ms"], "ms_in_run": first["ms_in_run"],
+            "single_device_ms": first["single_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1], "library_ms": None,
+        }
+        for other in cases[1:]:
+            scheme = other["what"].split(" [")[0].split()[-1].replace("-", "")
+            tag = f"{scheme}_{other['slots']}_slots"
+            entry.update({f"{tag}_{k}": other[v] for k, v in (
+                ("launches_a_call", "launches"), ("max_abs_err", "err"), ("ms", "ms"),
+                ("ms_in_run", "ms_in_run"), ("single_device_ms", "single_ms"),
+                ("plain_ms", "plain_ms"))})
+            entry[f"{tag}_bound_ms"] = other["bound"][0]
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernel-only", action="store_true",
                     help="build, kernel cases and timings only; no main paths")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, kernel cases and timings, then mesh_path only")
+    ap.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "DEVICE"),
+                    help=argparse.SUPPRESS)  # one rank of mesh_path's two-process run
     args = ap.parse_args()
+    if args.mesh_worker:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        rank, port, dev = args.mesh_worker
+        return mesh_worker(int(rank), int(port), dev)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -8951,7 +9583,15 @@ def main() -> int:
         finally:
             phase_s[name] = time.perf_counter() - t
 
-    if not args.kernel_only:
+    mesh = None
+    if args.mesh_only:
+        mesh = phase("mesh_path", mesh_path, device, MIB, bpc, args.seed)
+        paths = dict(mesh["launches"])
+        launches = sum(paths.values())
+        form_launches = {"gf_apply": None, "xor_reduce": None}
+        print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+              + f"; total {time.perf_counter() - t_start:.1f}")
+    elif not args.kernel_only:
         put = phase("main_path", main_path, device,
                     [192 * MIB, 192 * MIB, 96 * MIB + 12345, MIB + 7], MIB, bpc, args.seed)
         small = phase("small_puts", small_puts, device, 32, 6 * MIB + 4096, MIB, bpc,
@@ -8997,7 +9637,11 @@ def main() -> int:
         shard = phase("shard_path", shard_path, device, MIB, bpc, args.seed,
                       omkg_keys=600, ommg_ops=300, shardd_keys=300)
         ops = phase("ops_path", ops_path, device, MIB, bpc, args.seed)
-        chaos = phase("chaos_path", chaos_path, device, MIB, bpc, args.seed)
+        # depth cuts for mesh_path's room: 12 s of chaos writes (of 20) and
+        # om_scale at 40 000 keys (of 100 000)
+        chaos = phase("chaos_path", chaos_path, device, MIB, bpc, args.seed, chaos_s=12.0,
+                      om_scale_keys=40_000)
+        mesh = phase("mesh_path", mesh_path, device, MIB, bpc, args.seed)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -9030,7 +9674,7 @@ def main() -> int:
             **so["launches"], **ha["launches"], **fs["launches"],
             **sec["launches"], **enc["launches"], **adm["launches"],
             **snap["launches"], **geo["launches"], **shard["launches"],
-            **ops["launches"], **chaos["launches"],
+            **ops["launches"], **chaos["launches"], **mesh["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]
@@ -9065,7 +9709,8 @@ def main() -> int:
         "bound_ms": coder_timed[form]["bound_ms"],
         "bound_by": coder_timed[form]["bound_by"], "library_ms": None,
     } for form, replaces in (("gf_apply", "ozone_tpu/codec/jax_coder.py:108"),
-                             ("xor_reduce", "ozone_tpu/codec/jax_coder.py:177"))]}))
+                             ("xor_reduce", "ozone_tpu/codec/jax_coder.py:177"))]
+        + (mesh_kernel_entries(mesh) if mesh is not None else [])}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

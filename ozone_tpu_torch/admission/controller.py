@@ -33,14 +33,13 @@ OZONE_TPU_ADMIT_BURST_S         1.0     bucket burst window, seconds
 OZONE_TPU_ADMIT_QUEUE           256     per-hop in-flight bound (0 = off)
 OZONE_TPU_ADMIT_SLO_P99_MS      0       shed bulk past this client P99
 OZONE_TPU_ADMIT_SLO_CODEC_DEPTH 0       shed bulk past this codec backlog
+OZONE_TPU_ADMIT_SLO_MESH_DEPTH  0       shed bulk past this mesh in-flight
 OZONE_TPU_ADMIT_RETRY_AFTER_S   0.25    hint for queue and SLO refusals
 OZONE_TPU_ADMIT_CLASS           ""      tenant QoS map, "t1=bulk,t2=..."
 =============================== ======= ===================================
 
 A per-hop override appends the upper-cased hop name:
 `OZONE_TPU_ADMIT_QUEUE_GATEWAY`, `OZONE_TPU_ADMIT_OPS_OM`, ...
-The reference's `OZONE_TPU_ADMIT_SLO_MESH_DEPTH` comes with the port's
-mesh.
 """
 
 from __future__ import annotations
@@ -224,6 +223,7 @@ def controller(hop: str,
                 shedder=SloShedder(
                     p99_ms=_hop_knob_f(hop, "SLO_P99_MS", 0.0),
                     codec_depth=_hop_knob_i(hop, "SLO_CODEC_DEPTH", 0),
+                    mesh_depth=_hop_knob_i(hop, "SLO_MESH_DEPTH", 0),
                 ),
                 retry_after_s=_hop_knob_f(hop, "RETRY_AFTER_S", 0.25),
                 exempt=exempt,

@@ -2,11 +2,11 @@
 latency budget is crossed.
 
 Port of `ozone_tpu/admission/shed.py`. The signals are ones the process
-already exports: the client PUT and GET P99 (`client.ops` histograms)
-and the codec service's queue depth (`codec.service`). The reference's
-third signal, the multi-chip executor's in-flight depth, comes with the
-port's mesh. The verdict is cached for a short window; only `bulk` work
-is shed, interactive traffic passes.
+already exports: the client PUT and GET P99 (`client.ops` histograms),
+the codec service's queue depth (`codec.service`) and the mesh
+executor's in-flight depth (the `mesh` registry's `inflight_depth`). The
+verdict is cached for a short window; only `bulk` work is shed,
+interactive traffic passes.
 """
 
 from __future__ import annotations
@@ -23,9 +23,10 @@ class SloShedder:
     off."""
 
     def __init__(self, p99_ms: float = 0.0, codec_depth: int = 0,
-                 cache_s: float = 0.1):
+                 mesh_depth: int = 0, cache_s: float = 0.1):
         self.p99_ms = max(0.0, float(p99_ms))
         self.codec_depth = max(0, int(codec_depth))
+        self.mesh_depth = max(0, int(mesh_depth))
         self.cache_s = cache_s
         self._lock = threading.Lock()
         self._cached: Optional[str] = None
@@ -33,7 +34,7 @@ class SloShedder:
 
     @property
     def enabled(self) -> bool:
-        return bool(self.p99_ms or self.codec_depth)
+        return bool(self.p99_ms or self.codec_depth or self.mesh_depth)
 
     def _evaluate(self) -> Optional[str]:
         if self.p99_ms:
@@ -46,6 +47,10 @@ class SloShedder:
             depth = registry("codec.service").gauge("queue_depth").value
             if depth > self.codec_depth:
                 return "slo_codec_depth"
+        if self.mesh_depth:
+            depth = registry("mesh").gauge("inflight_depth").value
+            if depth > self.mesh_depth:
+                return "slo_mesh_depth"
         return None
 
     def over_budget(self) -> Optional[str]:
@@ -62,9 +67,9 @@ class SloShedder:
             return self._cached
 
     def snapshot(self) -> dict:
-        """Recon's view of the shedder (the reference's, less its mesh
-        signal)."""
+        """Recon's view of the shedder."""
         return {"p99_ms": self.p99_ms, "codec_depth": self.codec_depth,
+                "mesh_depth": self.mesh_depth,
                 "over_budget": self.over_budget()}
 
     def should_shed(self, priority: str) -> Optional[str]:

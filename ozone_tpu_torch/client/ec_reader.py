@@ -1,8 +1,7 @@
 """EC block-group read paths: normal, degraded, and targeted recovery.
 
-Port of `ozone_tpu/client/ec_reader.py` on a single device (the mesh and
-mesh-executor routes wait for the port's multi-device slice). It mirrors
-the reference's read stack: round-robin cell reads from the k data
+Port of `ozone_tpu/client/ec_reader.py`. It mirrors the reference's read
+stack: round-robin cell reads from the k data
 blocks, falling back to reading a decodable set of the other units and
 decoding the missing cells, and the targeted recovery that offline
 reconstruction drives (`recover_cells_iter`). For RS the read set is k
@@ -16,7 +15,12 @@ of batch N+1 run while batch N decodes and its results come back to the
 host. By default the batches go to the shared codec service
 (`ServicePipeline`), where batches of concurrent reads with the same
 erasure pattern share launches; with OZONE_TPU_CODEC_SERVICE=0 each is
-one launch of its own (`DeviceBatchPipeline`).
+one launch of its own (`DeviceBatchPipeline`). A reader given a mesh
+executor (`parallel/mesh_executor.py`) submits its batches to the
+executor's lane for the pattern instead, where they coalesce into
+full-width mesh dispatches; a reader given a `mesh` decodes each batch
+over it, stripe-parallel (DP) or survivor-sharded around the ring with
+`use_ring=True` (`parallel/sharded.py`), and bypasses the codec service.
 
 Straggler tolerance (client/resilience.py): survivor choice skips
 breaker-open peers and, with more survivors than it needs, takes the
@@ -100,7 +104,18 @@ class ECBlockGroupReader:
         bytes_per_checksum: int = 16 * 1024,
         device="cuda",
         qos_class: str = "interactive",
+        mesh=None,
+        use_ring: bool = False,
+        executor=None,
     ):
+        #: optional sharded.Mesh: recovery decodes run stripe-parallel
+        #: (DP) over it, or survivor-sharded around the ring with use_ring
+        self.mesh = mesh
+        self.use_ring = use_ring
+        #: optional mesh_executor.MeshExecutor: decode batches join its
+        #: submission queue, where concurrent readers (a reconstruction
+        #: storm) coalesce into full-width mesh dispatches
+        self._executor = executor
         self.group = group
         self.opts = options
         self.k, self.p, self.cell = (
@@ -130,9 +145,9 @@ class ECBlockGroupReader:
         #: re-activated on reader-pool worker threads
         self._deadline: Optional[resilience.Deadline] = None
         #: decode batches submitted, the hedge's single-cell decodes
-        #: included: one fused launch each on the direct route; on the
-        #: service route they coalesce, so launches are the service's
-        #: dispatches
+        #: included: one fused launch each on the direct route (a mesh's
+        #: per-form count over it); on the service and executor routes
+        #: they coalesce, so launches follow those dispatches
         self.dispatches = 0
         self._dispatch_lock = threading.Lock()  # hedges count from pool threads
 
@@ -661,10 +676,20 @@ class ECBlockGroupReader:
         return Tracer.instance().span("codec:device_dispatch", rows=rows)
 
     def _decode_pipe(self, valid: list[int], targets: list[int]):
-        """The recovery dispatch pipeline: the shared codec service, where
-        this read's batches share launches with every other operation on
-        the same erasure pattern, or a per-operation pipeline when the
-        service is off."""
+        """The recovery dispatch pipeline, best route first: the mesh
+        executor's lane for this pattern (when no mesh was given), then
+        the caller's mesh, then the shared codec service, where this
+        read's batches share launches with every other operation on the
+        same erasure pattern, then a per-operation pipeline."""
+        if self._executor is not None and self.mesh is None:
+            try:
+                return self._executor.pipeline(
+                    codec_service.decode_key(self.spec, valid, targets),
+                    width=self._decode_batch, qos=self._qos)
+            except KeyError:  # ozlint: allow[error-swallowing] -- no mesh program for this spec: the single-device routes below take it
+                pass
+        if self.mesh is not None:
+            return DeviceBatchPipeline(self._mesh_decode_fn(valid, targets))
         fn = make_fused_decoder(self.spec, valid, targets, device=self.device)
         svc = codec_service.maybe_service()
         if svc is not None:
@@ -672,6 +697,24 @@ class ECBlockGroupReader:
                 svc, codec_service.decode_key(self.spec, valid, targets),
                 fn, width=self._decode_batch, qos=self._qos)
         return DeviceBatchPipeline(fn)
+
+    def _mesh_decode_fn(self, valid: list[int], targets: list[int]):
+        """The decode over the reader's mesh: DP splits the stripe batch
+        over the slots, the ring splits the survivors (each slot fronting
+        one group of source datanodes)."""
+        from ozone_tpu_torch.parallel import sharded
+
+        if self.use_ring:
+            return sharded.make_ring_decoder(self.spec, valid, targets, self.mesh)
+        inner = sharded.make_sharded_decoder(self.spec, valid, targets, self.mesh)
+        n = self.mesh.devices.size
+
+        def fn(batch):
+            padded, orig = sharded.pad_batch(batch, n)
+            rec, crcs = inner(padded)
+            return rec[:orig], crcs[:orig]
+
+        return fn
 
     # ---------------------------------------------------------------- ranged
     def read(self, offset: int, length: int) -> np.ndarray:

@@ -14,10 +14,11 @@ submit their decode batches to the shared codec service (the "bulk"
 class), where batches of different containers with the same erasure
 pattern coalesce into shared launches of the fused kernel on one device.
 
-The reference spreads those batches over a device mesh through its mesh
-executor; the port has no mesh yet, so `executor` must be None and the
-report's `mesh_*` fields stay 0, as the reference reports for a storm
-with no mesh.
+With a mesh executor (`parallel/mesh_executor.py`: the one passed, or
+the process's when two or more CUDA devices are attached) the batches
+join its lane instead and coalesce into full-width mesh dispatches; the
+report's `mesh_*` fields are the executor's counter deltas across the
+storm, zeros with no executor.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ozone_tpu_torch.codec import lrc_math
+from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.scm.pipeline import ReplicationType
 from ozone_tpu_torch.storage.ids import ContainerState
 from ozone_tpu_torch.storage.reconstruction import (
@@ -54,8 +56,8 @@ class StormReport:
     containers_failed: int = 0
     containers_unrecoverable: int = 0
     elapsed_s: float = 0.0
-    #: mesh-executor counter deltas across the storm: zeros, since the
-    #: port's storm runs on one device with no mesh executor
+    #: mesh-executor counter deltas across the storm (zeros when the
+    #: storm ran with no executor)
     mesh_dispatches: int = 0
     mesh_stripes: int = 0
     mesh_coalesced_ops: int = 0
@@ -74,10 +76,11 @@ class ReconstructionStorm:
 
     `scm` is a StorageContainerManager (its .containers, .nodes and
     .placement drive planning); `clients` the DatanodeClientFactory
-    reaching the surviving nodes. `executor` takes only None until the
-    port has a mesh executor. The decodes run on `device` ("cuda"
-    launches the fused kernel and raises when CUDA is absent; "cpu" runs
-    its plain version).
+    reaching the surviving nodes. `executor` defaults to the process mesh
+    executor when one can exist (`mesh_executor.maybe_executor()`); with
+    none the storm runs through the shared single-device codec service.
+    The decodes run on `device` ("cuda" launches the fused kernel and
+    raises when CUDA is absent; "cpu" runs its plain version).
     """
 
     def __init__(self, scm, clients, executor=None,
@@ -86,11 +89,13 @@ class ReconstructionStorm:
                  max_parallel_containers: int = 4,
                  max_parallel_blocks: int = 2,
                  device="cuda"):
-        if executor is not None:
-            raise ValueError("the port has no mesh executor; pass executor=None")
+        from ozone_tpu_torch.parallel import mesh_executor
+
         self.scm = scm
         self.clients = clients
-        self.executor = None
+        if executor is None and resolve_device(device).type == "cuda":
+            executor = mesh_executor.maybe_executor()
+        self.executor = executor
         #: containers repairing at once: each streams its own survivor
         #: reads and target writes while their decode batches meet in the
         #: codec service's bulk lane, and this concurrency fills them
@@ -101,6 +106,7 @@ class ReconstructionStorm:
             bytes_per_checksum=bytes_per_checksum,
             max_parallel_blocks=max_parallel_blocks,
             device=device,
+            executor=self.executor,
         )
 
     # ------------------------------------------------------------- plan
@@ -178,7 +184,10 @@ class ReconstructionStorm:
     # ------------------------------------------------------------ drive
     def repair_datanode(self, dead_dn_id: str) -> StormReport:
         """The storm: plan, then repair the containers concurrently
-        through the shared coordinator."""
+        through the shared coordinator; the report carries the mesh
+        executor's dispatch deltas."""
+        from ozone_tpu_torch.parallel import mesh_executor as me
+
         report = StormReport(dead_dn=dead_dn_id)
         unrec0 = METRICS.counter("unrecoverable").value
         cmds = self.plan(dead_dn_id)
@@ -187,6 +196,7 @@ class ReconstructionStorm:
             METRICS.counter("unrecoverable").value - unrec0)
         if not cmds:
             return report
+        snap0 = me.METRICS.snapshot() if self.executor is not None else {}
         t0 = time.monotonic()
         METRICS.counter("storms").inc()
         METRICS.gauge("containers_in_flight").set(0)
@@ -215,4 +225,16 @@ class ReconstructionStorm:
                     METRICS.counter("containers_failed").inc()
                     report.failures.append((cmd.container_id, err))
         report.elapsed_s = time.monotonic() - t0
+        if self.executor is not None:
+            self.executor.quiesce()
+            snap1 = me.METRICS.snapshot()
+
+            def delta(name: str) -> int:
+                return int(snap1.get(name, 0)) - int(snap0.get(name, 0))
+
+            report.mesh_dispatches = delta("dispatches")
+            report.mesh_stripes = delta("stripes_dispatched")
+            report.mesh_coalesced_ops = delta("coalesced_operations")
+            report.mesh_multi_op_dispatches = delta("multi_op_dispatches")
+            report.mesh_max_inflight = self.executor._max_inflight
         return report

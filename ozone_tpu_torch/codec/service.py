@@ -36,8 +36,14 @@ tensor, and each dispatch's outputs come back through `start_pull` /
 `finish_pull`. Futures resolve to tuples of numpy arrays, CRC words as
 uint32. A lane function that raises fails its submitters' futures;
 nothing retries elsewhere, and a dispatcher that dies fails all pending
-work. The reference's spill of whole lanes to a multi-device mesh
-executor is not ported: it waits for the port's multi-device slice.
+work.
+
+Spill (``OZONE_TPU_MESH_SPILL=1``, off by default): once the queue depth
+crosses ``OZONE_TPU_MESH_SPILL_WATERMARK`` stripes, whole lanes none of
+whose stripes has been dispatched move to the multi-device mesh executor
+(`parallel/mesh_executor.py`), deepest first, until the depth is back
+at the watermark; their futures resolve there (`mesh_spill_lanes`,
+`mesh_spill_stripes`).
 
 ``OZONE_TPU_CODEC_SERVICE=0`` turns the service off; every caller then
 keeps its per-operation route (`DeviceBatchPipeline` or a direct launch).
@@ -347,6 +353,75 @@ class CodecService:
             lane.min_deadline_t = min(s.deadline_t() for s in lane.subs)
         return entries, row
 
+    # ------------------------------------------------------------ spill
+    def _collect_spill_locked(self) -> list[tuple]:
+        """Whole-lane overflow to the mesh executor: past the spill
+        watermark, pop entire lanes whose submissions are all untouched (a
+        spilled future must be served wholly by one executor), deepest
+        first, keeping the watermark's worth of work here so this device
+        stays fed while the overflow drains on the others."""
+        from ozone_tpu_torch.parallel import mesh_executor
+
+        if not mesh_executor.spill_enabled():
+            return []
+        depth = self._queue_depth_locked()
+        watermark = mesh_executor.spill_watermark()
+        if depth <= watermark:
+            return []
+        mex = mesh_executor.maybe_executor()
+        if mex is None:
+            return []
+        spilled: list[tuple] = []
+        for lane in sorted(self._lanes.values(), key=lambda ln: -ln.queued):
+            if depth <= watermark:
+                break
+            if not lane.subs or any(s.taken for s in lane.subs):
+                continue
+            key = lane.lane_key[0]
+            ok = mex.accepts_cached(key)
+            if ok is not True:
+                if ok is None:
+                    # unknown key: resolve it outside the lock, and spill
+                    # on a later pass
+                    spilled.append((mex, key, None))
+                continue
+            self._lanes.pop(lane.lane_key, None)
+            for sub in lane.subs:
+                left = self._queued_cls.get(sub.cls, 1) - 1
+                if left > 0:
+                    self._queued_cls[sub.cls] = left
+                else:
+                    self._queued_cls.pop(sub.cls, None)
+            depth -= lane.queued
+            spilled.append((mex, key, lane))
+        real = [s for s in spilled if s[2] is not None]
+        if real:
+            METRICS.counter("mesh_spill_lanes").inc(len(real))
+            METRICS.counter("mesh_spill_stripes").inc(
+                sum(lane.queued for _, _, lane in real))
+            METRICS.gauge("queue_depth").set(depth)
+        return spilled
+
+    @staticmethod
+    def _spill(spilled: list[tuple]) -> None:
+        """Hand popped lanes to the mesh executor, outside the service
+        lock. Entries with no lane resolve keys the peek did not know."""
+        for mex, key, lane in spilled:
+            if lane is None:
+                try:
+                    mex.accepts(key)
+                except Exception:  # the lane stays queued here
+                    log.exception("mesh program for %r could not be built", key)
+                continue
+            _, width, qos = lane.lane_key
+            try:
+                mex.absorb(key, width, qos, list(lane.subs))
+            except BaseException as e:  # spill must never strand futures
+                log.exception("mesh spill failed for %r", key)
+                for sub in lane.subs:
+                    if not sub.future.done():
+                        sub.future.set_exception(e)
+
     # ------------------------------------------------------- dispatcher
     def _loop(self) -> None:
         try:
@@ -354,11 +429,12 @@ class CodecService:
                 entries = None
                 with self._cond:
                     now = time.monotonic()
+                    spilled = self._collect_spill_locked()
                     picked = self._pick_lane_locked(now)
                     if picked is not None:
                         lane, reason = picked
                         entries, rows = self._pack_locked(lane)
-                    elif not self._inflight:
+                    elif not self._inflight and not spilled:
                         if not self._running:
                             if not self._lanes:
                                 break
@@ -370,6 +446,9 @@ class CodecService:
                         else:
                             self._cond.wait(self._next_wakeup_locked(now))
                             continue
+                if spilled:
+                    # outside the lock: submitters keep flowing
+                    self._spill(spilled)
                 if entries is not None:
                     self._dispatch(lane, entries, rows, reason)
                     # depth-1 double buffer: keep one older batch in

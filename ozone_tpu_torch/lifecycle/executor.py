@@ -17,9 +17,10 @@ deletion chain. The old replicated blocks are released only after the
 EC commit: the superseded version goes to the deleted table and the
 key-deleting service hands its blocks to the SCM's deletion log.
 
-The submissions take the shared codec service at the bulk class when it
-is on, else a depth-1 `DeviceBatchPipeline`; the reference's mesh lane
-waits for the port of the multi-device executor. XOR(1) sources go
+The submissions take the mesh executor's lane when one can exist (two or
+more CUDA devices, `mesh_executor.maybe_executor()`, on a CUDA device),
+else the shared codec service at the bulk class when it is on, else a
+depth-1 `DeviceBatchPipeline`. XOR(1) sources go
 through `re_encode_xor_key_to_rs`, one key per call. The codec runs on
 `device` ("cuda" launches the kernel and raises without CUDA; "cpu" runs
 its plain version); nothing falls back from one to the other.
@@ -345,6 +346,7 @@ class _SpecPacker:
                  stats: dict, spec=None):
         from ozone_tpu_torch.codec import service as codec_service
         from ozone_tpu_torch.codec.pipeline import DeviceBatchPipeline
+        from ozone_tpu_torch.parallel import mesh_executor
 
         self.executor = executor
         self.opts = opts
@@ -352,17 +354,31 @@ class _SpecPacker:
         self.bpc = bpc
         self.stats = stats
         self.window = tier_batch_size()
-        # the shared codec service at the bulk class: sweep windows
+        # the mesh lane first: on a multi-GPU host a bulk tiering sweep is
+        # the traffic the persistent mesh executor exists for, full-width
+        # windows coalescing with other sweeps into mesh-wide dispatches.
+        # Then the shared codec service at the bulk class: sweep windows
         # coalesce with other operations' stripes and the weighted fair
-        # scheduler keeps the sweep from starving interactive traffic;
-        # a per-sweep DeviceBatchPipeline when the service is off
-        svc = codec_service.maybe_service() if spec is not None else None
-        if svc is not None:
-            self.pipe = codec_service.ServicePipeline(
-                svc, codec_service.encode_key(spec), fn,
-                width=self.window, qos="bulk")
-        else:
-            self.pipe = DeviceBatchPipeline(fn)
+        # scheduler keeps the sweep from starving interactive traffic; a
+        # per-sweep DeviceBatchPipeline when the service is off
+        self.pipe = None
+        if spec is not None and executor.device.type == "cuda":
+            mex = mesh_executor.maybe_executor()
+            if mex is not None:
+                try:
+                    self.pipe = mex.pipeline(codec_service.encode_key(spec),
+                                             width=self.window, qos="bulk")
+                except KeyError:
+                    log.info("no mesh program for %s; the sweep takes one device",
+                             spec)
+        if self.pipe is None:
+            svc = codec_service.maybe_service() if spec is not None else None
+            if svc is not None:
+                self.pipe = codec_service.ServicePipeline(
+                    svc, codec_service.encode_key(spec), fn,
+                    width=self.window, qos="bulk")
+            else:
+                self.pipe = DeviceBatchPipeline(fn)
         self.host_checksum = Checksum(ctype, bpc)
         self.dispatches = 0
         self._reset_buffer()

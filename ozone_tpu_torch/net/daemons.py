@@ -165,6 +165,7 @@ from ozone_tpu_torch.om.sharding.shardmap import (
     InstallShardConfig,
     InstallShardMap,
 )
+from ozone_tpu_torch.parallel.sharded import default_codec_mesh
 from ozone_tpu_torch.scm.block_deletion import DeleteBlocksCommand
 from ozone_tpu_torch.scm.pipeline import ReplicationType
 from ozone_tpu_torch.scm.replication_manager import (
@@ -295,10 +296,14 @@ class DatanodeDaemon:
         self.clients.location = rack
         self.clients.node_id = dn_id
         self.clients.register_local(self.dn)
+        # multi-GPU hosts repair and scrub across every local card (DP
+        # over the default mesh); one card keeps the single-device path
+        self._codec_mesh = (default_codec_mesh() if self.device.type == "cuda"
+                            else None)
         self.reconstruction = ECReconstructionCoordinator(
-            self.clients, device=self.device)
+            self.clients, device=self.device, mesh=self._codec_mesh)
         self.scan_interval = scan_interval_s
-        self._scrubber = DeviceScrubber(device=self.device)
+        self._scrubber = DeviceScrubber(device=self.device, mesh=self._codec_mesh)
         self._scan_cursor = 0
         self._pending_acks: list[int] = []
         self._last_report_fp = None

@@ -4,9 +4,9 @@ Port of `ozone_tpu/recon/recon.py`: the same tasks, indexes, warehouse
 schema (`recon.db`, so either package reads the other's history) and
 routes. It imports neither torch nor the codec at module import: the OM
 and SCM are handed in, and the codec service is peeked at inside its
-view. `/api/mesh` answers as the reference does on one device (the port
-has no mesh executor: enabled, never started). `/api/codec` reads the
-port's codec service.
+view. `/api/mesh` peeks at the live mesh executor and answers with its
+`stats()` (enabled, not started, with the spill knobs' echo, while this
+process runs none). `/api/codec` reads the port's codec service.
 
 Mirror of the reference's Recon service (hadoop-ozone/recon ReconServer:
 an OM-metadata follower feeding aggregation tasks — ContainerKeyMapperTask,
@@ -847,17 +847,23 @@ class ReconServer:
         return svc.stats()
 
     def mesh_view(self) -> dict:
-        """The persistent mesh executor's panel, answered as the
-        reference answers on one device: the port has no mesh executor
-        (it waits for a four-chip cell), so it is enabled unless
-        OZONE_TPU_MESH=0 and never started, with the spill knobs'
-        echo."""
+        """Persistent mesh executor snapshot for the dashboard panel
+        (parallel/mesh_executor.stats: dispatch, fill and coalescing
+        accounting, in-flight depth, programs, the spill knobs). It peeks
+        at the singleton of a module already imported, so a monitoring
+        GET never starts the executor, builds a mesh or imports torch in
+        a process that does no mesh work."""
         import os
+        import sys
 
         from ozone_tpu_torch.utils.config import env_int
 
         if os.environ.get("OZONE_TPU_MESH", "1") == "0":
             return {"enabled": False}
+        mex = sys.modules.get("ozone_tpu_torch.parallel.mesh_executor")
+        ex = mex._executor if mex is not None else None
+        if ex is not None and ex._running:
+            return ex.stats()
         return {"enabled": True, "started": False,
                 "spill_enabled": os.environ.get(
                     "OZONE_TPU_MESH_SPILL", "0") in ("1", "true", "yes",

@@ -1,8 +1,7 @@
 """Offline EC reconstruction coordinator.
 
 Port of `ozone_tpu/storage/reconstruction.py` (the reference's
-ECReconstructionCoordinator, reconstructECContainerGroup) on its
-single-device path. Driven by a ReconstructECContainers command carrying
+ECReconstructionCoordinator, reconstructECContainerGroup). Driven by a ReconstructECContainers command carrying
 the source replica-index -> node and target index -> node maps, it
 
   1. creates RECOVERING containers on the targets,
@@ -13,7 +12,9 @@ the source replica-index -> node and target index -> node maps, it
      `max_parallel_blocks` blocks in flight; the reader picks the read
      set (k survivors for RS, the lost unit's local group for an LRC
      single loss) and submits to the shared codec service in its "bulk"
-     class unless the service is off,
+     class unless the service is off; given a mesh executor, to its lane
+     for the pattern, and given a mesh, it decodes over the mesh (DP, or
+     the survivor ring with `use_ring`),
   4. commits each target's block once every batch has landed, and closes
      the targets,
   5. deletes the RECOVERING containers on any failure.
@@ -75,8 +76,18 @@ class ECReconstructionCoordinator:
         bytes_per_checksum: int = 16 * 1024,
         max_parallel_blocks: int = 2,
         device="cuda",
+        mesh=None,
+        use_ring: bool = False,
+        executor=None,
     ):
         self.clients = clients
+        #: device mesh for the decode (parallel/sharded.py): stripe-parallel
+        #: by default, the survivor ring with use_ring
+        self.mesh = mesh
+        self.use_ring = use_ring
+        #: persistent mesh executor: the decode batches of every block and
+        #: container this coordinator repairs join one submission queue
+        self.executor = executor
         self.checksum = checksum
         self.bpc = bytes_per_checksum
         #: blocks of a container repaired at once: each block's
@@ -202,7 +213,8 @@ class ECReconstructionCoordinator:
         reader = ECBlockGroupReader(
             group, opts, self.clients, checksum=self.checksum,
             bytes_per_checksum=bpc, device=self.device,
-            qos_class="bulk")  # repair defers to interactive reads
+            qos_class="bulk",  # repair defers to interactive reads
+            mesh=self.mesh, use_ring=self.use_ring, executor=self.executor)
         lengths = unit_true_lengths(group, opts)
         host_checksum = Checksum(self.checksum, bpc)
 

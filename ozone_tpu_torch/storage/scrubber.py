@@ -15,8 +15,9 @@ replica. A chunk that cannot be read is checked against the block
 metadata first: if the block is gone, a concurrent deletion won the race
 and the chunk is skipped.
 
-The reference's option of sharding the slice batch over a device mesh
-waits for the port's multi-device slice.
+With a `mesh`, each slice batch is rounded up to a multiple of the mesh
+size and split over its slots (DP, `parallel/sharded.dp_apply`), one
+launch per slot, so one scrub dispatch spreads across every device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 from ozone_tpu_torch.codec.crc_device import make_crc_fn
 from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.codec.pipeline import finish_pull, host_buffer, start_pull
+from ozone_tpu_torch.parallel.sharded import dp_apply
 from ozone_tpu_torch.storage.ids import ContainerState, StorageError
 from ozone_tpu_torch.utils.checksum import (
     Checksum,
@@ -51,14 +53,17 @@ def _next_pow2(n: int) -> int:
 class DeviceScrubber:
     """Batched CRC32C verification over container contents, on `device`:
     "cuda" launches the kernel (and raises when CUDA is absent), "cpu"
-    runs its plain version."""
+    runs its plain version. With a `mesh` the slice batch is split over
+    its slots (DP)."""
 
     def __init__(self, max_batch_bytes: int = 64 * 1024 * 1024,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.max_batch_bytes = max_batch_bytes
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._fns: dict[int, object] = {}
-        #: slice batches verified (one kernel launch each on CUDA)
+        #: slice batches verified (one kernel launch each on CUDA, one
+        #: per slot on a mesh)
         self.dispatches = 0
 
     def _crc_fn(self, bpc: int):
@@ -77,13 +82,21 @@ class DeviceScrubber:
             return
         n = len(bufs)
         padded = _next_pow2(n)
+        if self.mesh is not None:
+            # the split rows must divide by the mesh, which may be any
+            # size: round the pow2 up to a multiple of it
+            padded += (-padded) % self.mesh.devices.size
         # a fresh (pinned, on CUDA) buffer: the copy to the card runs
         # asynchronously and the allocator keeps it until that is done
         staged = host_buffer((padded, 1, bpc), self.device)
         batch = staged.numpy()
         np.stack(bufs, out=batch[:n, 0])
         batch[n:] = 0
-        words = self._crc_fn(bpc)(staged.to(self.device, non_blocking=True))
+        fn = self._crc_fn(bpc)
+        if self.mesh is None:
+            words = fn(staged.to(self.device, non_blocking=True))
+        else:
+            (words,) = dp_apply(self.mesh, staged, lambda _slot, rows: (fn(rows),))
         self.dispatches += 1
         (crcs,) = finish_pull(start_pull((words,)))
         crcs = crcs.reshape(-1)[:n]

@@ -6,7 +6,9 @@ OzoneManager and N Datanodes wired through the in-process client
 factory, with a manual or background heartbeat pump and a command loop
 that runs the SCM's commands on the datanodes the way
 DatanodeStateMachine's handlers do: reconstruction on the port's
-`ECReconstructionCoordinator` (one device, no mesh), block deletion,
+`ECReconstructionCoordinator` (the mesh executor when two or more CUDA
+devices are attached, else the default mesh policy, which is no mesh on
+one device), block deletion,
 replica deletion and container copies; `run_deletion_services` reaps what
 deletes leave (FSO subtrees, then blocks) as a daemon's background pass
 does. The codec runs on `device`
@@ -50,6 +52,8 @@ from ozone_tpu_torch.client.dn_client import DatanodeClientFactory
 from ozone_tpu_torch.client.ozone_client import OzoneClient
 from ozone_tpu_torch.codec.fused import resolve_device
 from ozone_tpu_torch.om.om import OzoneManager
+from ozone_tpu_torch.parallel import mesh_executor
+from ozone_tpu_torch.parallel.sharded import default_codec_mesh
 from ozone_tpu_torch.scm.block_deletion import DeleteBlocksCommand
 from ozone_tpu_torch.scm.replication_manager import (
     DeleteReplicaCommand,
@@ -100,8 +104,15 @@ class MiniOzoneCluster:
         self.om = OzoneManager(self.root / "om" / "om.db", self.scm,
                                block_size=block_size, clients=self.clients,
                                device=self.device)
+        # repair decodes: the persistent mesh executor when it can exist
+        # (it coalesces batches across containers), else the DP mesh of
+        # every local GPU, else one device
+        ex = mesh_executor.maybe_executor() if self.device.type == "cuda" else None
         self.reconstruction = ECReconstructionCoordinator(
-            self.clients, device=self.device)
+            self.clients, device=self.device,
+            mesh=None if ex is not None or self.device.type != "cuda"
+            else default_codec_mesh(),
+            executor=ex)
         self._stopped_dns: set[str] = set()
         self._hb_thread: Optional[threading.Thread] = None
         self._stop = threading.Event()

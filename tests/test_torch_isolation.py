@@ -154,6 +154,12 @@ def test_port_imports_no_jax_and_no_reference():
     "ozone_tpu_torch.tools.lint.rules",
     "ozone_tpu_torch.tools.lint.__main__",
     "ozone_tpu_torch.tools.om_scale",
+    # the multi-device codec: the mesh and its forms, the persistent mesh
+    # executor, the torch.distributed bootstrap
+    "ozone_tpu_torch.parallel",
+    "ozone_tpu_torch.parallel.sharded",
+    "ozone_tpu_torch.parallel.mesh_executor",
+    "ozone_tpu_torch.parallel.multihost",
 ])
 def test_slice_modules_import_alone_without_jax(module):
     """Each entry module of the codec-service, LRC, scrubber and
@@ -264,6 +270,9 @@ def test_default_device_raises_without_cuda():
         from ozone_tpu_torch.testing.minicluster import MiniOzoneCluster
         from ozone_tpu_torch.net.daemons import DatanodeDaemon
         from ozone_tpu_torch.gateway.s3 import S3Gateway
+        from ozone_tpu_torch.parallel import multihost
+        from ozone_tpu_torch.parallel.mesh_executor import MeshExecutor
+        from ozone_tpu_torch.parallel.sharded import make_mesh
         import tempfile
         assert not torch.cuda.is_available()
         opts = CoderOptions(3, 2, "rs", cell_size=4096)
@@ -284,7 +293,11 @@ def test_default_device_raises_without_cuda():
                      lambda: re_encode_key_to_ec(None, clients, "v", "b", "k"),
                      lambda: re_encode_xor_key_to_rs(None, clients, "v", "b",
                                                      "k"),
-                     lambda: S3Gateway(OzoneClient(None, clients))):
+                     lambda: S3Gateway(OzoneClient(None, clients)),
+                     lambda: make_mesh(),
+                     lambda: make_mesh(devices=["cuda:0"]),
+                     lambda: MeshExecutor(),
+                     lambda: multihost.initialize("127.0.0.1:1", 1, 0)):
             try:
                 make()
             except RuntimeError as e:

@@ -4,9 +4,10 @@ The two drills of `tests/test_reconstruction_storm.py` on the port's
 `MiniOzoneCluster`: kill the datanode holding the most EC replicas,
 repair every container it held through one shared coordinator, and
 check each rebuilt block byte-exact; a container past its parity is
-counted unrecoverable and skipped. The port has no mesh executor, so its
-coalescing proof reads the shared codec service, where the storm's
-decode batches meet. Then a port and a JAX cluster with the same
+counted unrecoverable and skipped. The CPU gives the storm no mesh
+executor, so its coalescing proof reads the shared codec service, where
+the storm's decode batches meet (tests/test_torch_mesh_consumers.py runs
+a storm through an executor). Then a port and a JAX cluster with the same
 placement seed run the same storm: the plan (container ids, sources,
 targets) and the rebuilt chunks with their CRCs must be equal.
 """
@@ -110,7 +111,7 @@ def test_storm_repairs_dead_datanode_byte_exact(cluster):
     assert report.containers_planned == len(victim_containers)
     assert report.ok, f"storm failures: {report.failures}"
     assert report.containers_unrecoverable == 0
-    # no mesh on the port: the mesh fields stay 0, and the decode batches
+    # no mesh executor on the CPU: the mesh fields stay 0, and the batches
     # went through the codec service, never more dispatches than batches
     assert (report.mesh_dispatches, report.mesh_stripes,
             report.mesh_coalesced_ops, report.mesh_multi_op_dispatches,
@@ -170,9 +171,14 @@ def test_storm_skips_unrecoverable_and_reports(cluster):
 
 
 def test_storm_takes_no_executor(cluster):
-    with pytest.raises(ValueError, match="no mesh executor"):
-        ReconstructionStorm(cluster.scm, cluster.clients, executor=object(),
-                            device="cpu")
+    """On the CPU the storm takes no mesh executor of its own accord (no
+    CUDA device, none installed); one passed in reaches the coordinator."""
+    storm = ReconstructionStorm(cluster.scm, cluster.clients, device="cpu")
+    assert storm.executor is None and storm.coordinator.executor is None
+    ex = object()
+    storm = ReconstructionStorm(cluster.scm, cluster.clients, executor=ex,
+                                device="cpu")
+    assert storm.executor is ex and storm.coordinator.executor is ex
 
 
 def _plan_rows(cmds):
