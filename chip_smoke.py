@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--kernel-only | --mesh-only]
+    python3 chip_smoke.py [--seed N] [--kernel-only | --mesh-only | --host-only]
 
 Builds the port's CUDA kernels (nvcc, sm_90a) and its host libraries
 (the CRC32C with g++ -msse4.2, the GF coder and the chunk datapath
@@ -317,7 +317,24 @@ a phase says otherwise:
   the plain version's and the bound; (d) with two or more GPUs the forms
   on a mesh of every GPU and a two-process NCCL run, and with one a line
   saying that neither was run. `--mesh-only` runs the build, the kernel
-  cases and this phase alone.
+  cases and this phase alone;
+- the host coding backend (`host_path`, the reference's
+  `codec/fused.py` twin and policy, OZONE_TPU_FUSED_BACKEND): (a) under
+  `auto`, the link probe (pageable h2d and d2h, pinned beside them), the
+  host twin's rate for rs-6-3, rs-10-4 and lrc-12-2-2 at 1 MiB cells and
+  the verdicts for the encode (3/6) and two decodes (2/10, 1/6), each
+  checked against the ceiling formula on the printed numbers; (b) the
+  twin against the kernel and its plain version on every CRC32C encode
+  and decode case above, and a CRC32 spec under `native` launching the
+  kernel once; (c) three alternating native/CUDA pairs through the codec
+  service of an RS(6,3) PUT of a 192 MiB key (read back exact) and an
+  RS(10,4) degraded GET of 96 MiB + 12 345 B with units 0 and 1 down, each
+  run's GiB/s, launches, twin calls and dispatches (CUDA: launches equal
+  dispatches; native: no launch, twin calls equal dispatches); (d) a
+  `MeshExecutor` on 4 logical slots under `native`: an encode and a decode
+  program on the twin, no launch, equal to the kernel; (e) a PUT under
+  `auto` whose launches follow (a)'s encode verdict. `--host-only` runs
+  the build, the kernel cases and this phase alone.
 
 The kernel cases also hold the coder SPI's two forms of the kernel (no
 CRC rows) against their plain versions: the matrix apply
@@ -9465,6 +9482,328 @@ def mesh_kernel_entries(mesh: dict) -> list[dict]:
     return entries
 
 
+# -------------------------------------------------------------- host path
+#: the shapes of the policy's verdicts in host_path (a): (what, scheme,
+#: out_ratio), the encode's p/k and two decodes' e/v
+HOST_VERDICTS = (("encode rs-6-3 (p/k)", "rs-6-3", 3 / 6),
+                 ("decode rs-10-4 (2/10)", "rs-10-4", 2 / 10),
+                 ("decode rs-6-3 (1/6)", "rs-6-3", 1 / 6))
+
+
+def host_probe_step(cell: int) -> dict:
+    """(a) The backend policy under OZONE_TPU_FUSED_BACKEND=auto on the
+    card: its link probe (pageable h2d and d2h, with pinned beside it for
+    information), the twin's rate for rs-6-3, rs-10-4 and lrc-12-2-2, and
+    the verdict of each HOST_VERDICTS shape, each equal to the ceiling
+    formula applied to the printed numbers."""
+    from ozone_tpu_torch.codec import fused
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.utils.checksum import ChecksumType
+
+    fused._PROBE_CACHE.clear()
+    out = {"verdicts": {}}
+    with env_set(OZONE_TPU_FUSED_BACKEND="auto", OZONE_TPU_LINK_PROBE="1"):
+        for what, scheme, ratio in HOST_VERDICTS:
+            opts = CoderOptions.parse(f"{scheme}-{cell}")
+            host = fused._prefer_host_coder(opts, ratio, ChecksumType.CRC32C, "cuda")
+            out["verdicts"][what] = "host twin" if host else "cuda"
+    link = fused._PROBE_CACHE.get("link")
+    if not isinstance(link, tuple):
+        raise AssertionError(f"the link probe gave no sample on the card: {link!r}")
+    h2d, d2h = link
+    pinned = fused._measure_link(pinned=True)
+    rates = {}
+    for scheme in ("rs-6-3", "rs-10-4", "lrc-12-2-2"):
+        opts = CoderOptions.parse(f"{scheme}-{cell}")
+        rates[scheme] = fused._PROBE_CACHE.get(("native_rate", opts))
+        if rates[scheme] is None:
+            rates[scheme] = fused._native_rate_sample(opts)
+    print(f"host path (a) link probe: h2d {h2d:.1f} MiB/s, d2h {d2h:.1f} MiB/s pageable "
+          f"(the policy's sample); pinned h2d {pinned[0]:.1f}, d2h {pinned[1]:.1f} MiB/s "
+          f"(information)")
+    print("host path (a) host twin rate (_native_rate_sample, 4 stripes of 256 KiB "
+          "cells): " + ", ".join(f"{k} {v:.1f} MiB/s" for k, v in rates.items()))
+    for what, scheme, ratio in HOST_VERDICTS:
+        ceiling = 1.0 / (1.0 / h2d + ratio / d2h)
+        want = "cuda" if ceiling > rates[scheme] else "host twin"
+        got = out["verdicts"][what]
+        print(f"host path (a) verdict {what}: {got} (ceiling {ceiling:.1f} MiB/s against "
+              f"the twin's {rates[scheme]:.1f})")
+        if got != want:
+            raise AssertionError(f"verdict for {what} is {got}; the numbers give {want}")
+    counts = {k: fused.METRICS.counter(k).value for k in ("verdicts_host", "verdicts_device")}
+    print(f"host path (a) verdict counters: {counts}")
+    out.update(h2d=h2d, d2h=d2h, pinned=pinned, rates=rates)
+    return out
+
+
+def host_twin_cases(device, cases, decode_cases, seed: int) -> int:
+    """(b) The twin (`_native_fused_encoder`, `_native_fused_decoder`, fed
+    the CUDA tensor) against the kernel and its plain version on every
+    CRC32C encode and decode case of the kernel phase, exact; then, under
+    OZONE_TPU_FUSED_BACKEND=native, a CRC32 spec's encoder is the kernel
+    and launches once. Returns the cases compared."""
+    from ozone_tpu_torch.codec import fused, fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import _POLY, FusedSpec, _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.utils.checksum import ChecksumType
+
+    rng = np.random.default_rng(seed + 41)
+    poly = _POLY[ChecksumType.CRC32C]
+    n = 0
+    for k, p, cell, bpc, b, checksum, *rest in cases:
+        crc_in = rest[0] if rest else True
+        scheme = rest[1] if len(rest) > 1 else f"rs-{k}-{p}"
+        if checksum != "CRC32C" or not p or not crc_in:
+            continue  # the twin serves the CRC32C encode and decode only
+        opts = CoderOptions.parse(f"{scheme}-{cell}")
+        data = torch.from_numpy(rng.integers(0, 256, (b, k, cell), dtype=np.uint8)).to(device)
+        matrix = torch.from_numpy(_parity_matrix(opts)).to(device)
+        outs = [fused_kernel.fused_encode_crc(data, matrix, poly, bpc),
+                fused_kernel.fused_encode_crc_plain(data, matrix, poly, bpc)]
+        twin = fused._native_fused_encoder(opts, ChecksumType.CRC32C, bpc).run(data)
+        same = all(torch.equal(twin[i], o[i].cpu()) for o in outs for i in (0, 1))
+        print(f"host twin vs kernel and plain: {scheme} encode cell={cell} bpc={bpc} B={b}: "
+              f"{'exact' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"the host twin differs on {scheme} encode B={b}")
+        n += 1
+    for scheme, valid, erased, cell, bpc, b, checksum in decode_cases:
+        if checksum != "CRC32C":
+            continue
+        opts = CoderOptions.parse(f"{scheme}-{cell}")
+        data = torch.from_numpy(rng.integers(0, 256, (b, opts.data_units, cell),
+                                             dtype=np.uint8)).to(device)
+        parity, _ = fused_kernel.fused_encode_crc_plain(
+            data, torch.from_numpy(_parity_matrix(opts)).to(device), None, bpc)
+        units = torch.cat([data, parity], 1)
+        inputs = units[:, valid].contiguous()
+        matrix = torch.from_numpy(_decode_matrix(opts, valid, erased)).to(device)
+        outs = [fused_kernel.fused_encode_crc(inputs, matrix, poly, bpc, crc_in=False),
+                fused_kernel.fused_encode_crc_plain(inputs, matrix, poly, bpc, crc_in=False)]
+        twin = fused._native_fused_decoder(opts, ChecksumType.CRC32C, bpc, tuple(valid),
+                                           tuple(erased)).run(inputs)
+        same = (all(torch.equal(twin[i], o[i].cpu()) for o in outs for i in (0, 1))
+                and torch.equal(twin[0], units[:, erased].cpu()))
+        print(f"host twin vs kernel and plain: {scheme} decode erased={erased} "
+              f"matrix=[{len(erased)}, {len(valid)}] B={b}: {'exact' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"the host twin differs on {scheme} decode {erased}")
+        n += 1
+    spec = FusedSpec(CoderOptions(6, 3, "rs", cell_size=MIB), ChecksumType.CRC32, 16 * 1024)
+    with env_set(OZONE_TPU_FUSED_BACKEND="native"):
+        fn = fused.make_fused_encoder(spec, device=device)
+    data = torch.from_numpy(rng.integers(0, 256, (2, 6, MIB), dtype=np.uint8)).to(device)
+    fused_kernel.launches.reset()
+    calls0 = fused.host_twin_calls.count
+    fn(data)
+    launched, calls = fused_kernel.launches.count, fused.host_twin_calls.count - calls0
+    print(f"host path (b): under native a CRC32 spec stays on the card: {launched} launch, "
+          f"{calls} twin calls")
+    if launched != (device.type == "cuda") or calls:
+        raise AssertionError("a CRC32 spec under native did not launch the kernel once")
+    return n
+
+
+def host_route_run(device, cluster: Cluster, route: str, what: str, fn) -> dict:
+    """One run of `fn()` (returning user bytes) with OZONE_TPU_FUSED_BACKEND
+    `route` ("native") or unset ("cuda"): GiB/s (wall), kernel launches,
+    twin calls, the service's dispatches. On the CUDA route launches equal
+    dispatches and the twin is not called; on the native route no kernel
+    launches and every dispatch is one twin call."""
+    from ozone_tpu_torch.codec import fused, fused_kernel
+
+    env = {"OZONE_TPU_FUSED_BACKEND": "native" if route == "native" else "cuda"}
+    with env_set(**env):
+        before = service_counts()
+        fused_kernel.launches.reset()
+        fused.host_twin_calls.reset()
+        t0 = time.perf_counter()
+        nbytes = fn()
+        wall = time.perf_counter() - t0
+        launches, calls = fused_kernel.launches.count, fused.host_twin_calls.count
+        svc = service_delta(before)
+    rate = nbytes / wall / 2**30
+    print(f"host path {what} ({route}): {nbytes} B in {wall:.3f} s = {rate:.3f} GiB/s (wall); "
+          f"kernel launches {launches}, twin calls {calls}, service dispatches "
+          f"{svc['dispatches']}")
+    if svc["dispatches"] <= 0:
+        raise AssertionError(f"{what} ({route}): no service dispatch")
+    if route == "native" and (launches or calls != svc["dispatches"]):
+        raise AssertionError(f"{what} (native): {launches} launches, {calls} twin calls "
+                             f"for {svc['dispatches']} dispatches")
+    if route == "cuda" and (calls or (device.type == "cuda"
+                                      and launches != svc["dispatches"])):
+        raise AssertionError(f"{what} (cuda): {launches} launches, {calls} twin calls "
+                             f"for {svc['dispatches']} dispatches")
+    return {"gib_s": rate, "launches": launches, "twin_calls": calls,
+            "dispatches": svc["dispatches"]}
+
+
+#: route order of host_path (c)'s pairs
+HOST_ROUTES = ("native", "cuda") * 3
+
+
+def host_pairs_step(device, cell: int, bpc: int, seed: int) -> dict:
+    """(c) Alternating native and CUDA runs through the codec service: an
+    RS(6,3) PUT of one 192 MiB key into 9 datanodes, read back exact; and
+    an RS(10,4) degraded GET of a 96 MiB + 12 345 B key with units 0 and 1
+    down, exact. {what: {route: [run, ...]}}."""
+    from ozone_tpu_torch.codec.api import CoderOptions
+
+    rng = np.random.default_rng(seed + 43)
+    out = {"put": {"native": [], "cuda": []}, "degraded_get": {"native": [], "cuda": []}}
+    rs63 = CoderOptions(6, 3, "rs", cell_size=cell)
+    key = rng.integers(0, 256, 192 * MIB, dtype=np.uint8)
+    for route in HOST_ROUTES:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as tmp:
+            cluster = Cluster(Path(tmp), rs63, rs63.all_units)
+            stored: list = []
+            try:
+                def put():
+                    stored[:] = put_keys(cluster, [key], device, bpc)[0]
+                    return key.size
+                out["put"][route].append(
+                    host_route_run(device, cluster, route, "RS(6,3) PUT of 192 MiB", put))
+                read_groups(cluster, [key], stored, device, bpc)
+            finally:
+                cluster.close()
+    rs104 = CoderOptions(10, 4, "rs", cell_size=cell)
+    key = rng.integers(0, 256, 96 * MIB + 12345, dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as tmp:
+        cluster = Cluster(Path(tmp), rs104, rs104.all_units)
+        try:
+            groups, _ = put_keys(cluster, [key], device, bpc)
+            cluster.dead = {groups[0][0].pipeline.nodes[u] for u in (0, 1)}
+
+            def get():
+                read = read_groups(cluster, [key], groups, device, bpc)
+                if not read["dispatches"]:
+                    raise AssertionError("the degraded GET decoded nothing")
+                return read["bytes"]
+
+            for route in HOST_ROUTES:
+                out["degraded_get"][route].append(host_route_run(
+                    device, cluster, route, "RS(10,4) degraded GET (units 0, 1 down)", get))
+        finally:
+            cluster.close()
+    for what, runs in out.items():
+        rates = {route: " ".join(f"{r['gib_s']:.3f}" for r in rs)
+                 for route, rs in runs.items()}
+        print(f"host path (c) {what} GiB/s by route: "
+              + ", ".join(f"{route} {r}" for route, r in rates.items()))
+    return out
+
+
+def host_mesh_step(device, cell: int, bpc: int, seed: int, slots: int = 4) -> dict:
+    """(d) A MeshExecutor on `slots` logical slots of the card under
+    OZONE_TPU_FUSED_BACKEND=native: an RS(6,3) encode and an RS(10,4)
+    decode key resolve to the host twin on every slot (programs_host_twin
+    >= 2), launch nothing, and equal the single-device kernel."""
+    from ozone_tpu_torch.codec import fused, fused_kernel
+    from ozone_tpu_torch.codec import service as codec_service
+    from ozone_tpu_torch.codec.api import CoderOptions
+    from ozone_tpu_torch.codec.fused import FusedSpec, _decode_matrix, _parity_matrix
+    from ozone_tpu_torch.parallel import mesh_executor, sharded
+    from ozone_tpu_torch.utils.checksum import CRC32C_POLY, ChecksumType
+
+    rng = np.random.default_rng(seed + 47)
+    rs63, rs104 = CoderOptions(6, 3, "rs", cell_size=cell), CoderOptions(10, 4, "rs", cell_size=cell)
+    valid, erased = list(range(2, 12)), [0, 1]
+    jobs = [(codec_service.encode_key(FusedSpec(rs63, ChecksumType.CRC32C, bpc)),
+             rng.integers(0, 256, (8, 6, cell), dtype=np.uint8), _parity_matrix(rs63), True),
+            (codec_service.decode_key(FusedSpec(rs104, ChecksumType.CRC32C, bpc), valid,
+                                      erased),
+             rng.integers(0, 256, (8, 10, cell), dtype=np.uint8),
+             _decode_matrix(rs104, valid, erased), False)]
+    with env_set(OZONE_TPU_FUSED_BACKEND="native"):
+        ex = mesh_executor.MeshExecutor(mesh=sharded.make_mesh(devices=[device] * slots),
+                                        depth=2)
+        try:
+            fused_kernel.launches.reset()
+            forms0 = sum(c.count for c in sharded.launches.values())
+            calls0 = fused.host_twin_calls.count
+            results = [ex.submit(key, stripes, width=2).result(timeout=120)
+                       for key, stripes, _, _ in jobs]
+            ex.quiesce()
+            launched = (fused_kernel.launches.count
+                        + sum(c.count for c in sharded.launches.values()) - forms0)
+            calls = fused.host_twin_calls.count - calls0
+            stats = ex.stats()
+        finally:
+            ex.close()
+    for (key, stripes, m, crc_in), got in zip(jobs, results):
+        t = torch.from_numpy(stripes).to(device)
+        want = fused_kernel.fused_encode_crc(t, torch.from_numpy(m).to(device), CRC32C_POLY,
+                                             bpc, crc_in)
+        if not (np.array_equal(got[0], want[0].cpu().numpy())
+                and np.array_equal(got[1], want[1].cpu().numpy().view(np.uint32))):
+            raise AssertionError(f"mesh host twin {key[0]} differs from the kernel")
+    print(f"host path (d) mesh executor under native on {slots} logical slots: "
+          f"programs {stats['programs']}, programs_host_twin {stats['programs_host_twin']}, "
+          f"kernel launches {launched}, twin calls {calls}; encode and decode equal to the "
+          "single-device kernel")
+    if stats["programs_host_twin"] < 2 or launched:
+        raise AssertionError(f"mesh host twin: {stats['programs_host_twin']} twin programs, "
+                             f"{launched} launches")
+    return {"programs_host_twin": stats["programs_host_twin"], "twin_calls": calls}
+
+
+def host_auto_step(device, cell: int, bpc: int, seed: int, verdict: str) -> dict:
+    """(e) One RS(6,3) PUT of 96 MiB + 12 345 B under
+    OZONE_TPU_FUSED_BACKEND=auto: its launches follow (a)'s encode verdict
+    (the kernel: launches equal dispatches; the twin: no launch)."""
+    from ozone_tpu_torch.codec import fused, fused_kernel
+    from ozone_tpu_torch.codec.api import CoderOptions
+
+    rng = np.random.default_rng(seed + 53)
+    rs63 = CoderOptions(6, 3, "rs", cell_size=cell)
+    key = rng.integers(0, 256, 96 * MIB + 12345, dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as tmp, \
+            env_set(OZONE_TPU_FUSED_BACKEND="auto"):
+        cluster = Cluster(Path(tmp), rs63, rs63.all_units)
+        try:
+            before = service_counts()
+            fused_kernel.launches.reset()
+            fused.host_twin_calls.reset()
+            groups, _ = put_keys(cluster, [key], device, bpc)
+            launches, calls = fused_kernel.launches.count, fused.host_twin_calls.count
+            svc = service_delta(before)
+            read_groups(cluster, [key], groups, device, bpc)
+        finally:
+            cluster.close()
+    print(f"host path (e) PUT under auto (verdict {verdict}): kernel launches {launches}, "
+          f"twin calls {calls}, service dispatches {svc['dispatches']}; read back exact")
+    want = ((svc["dispatches"] if device.type == "cuda" else 0, 0) if verdict == "cuda"
+            else (0, svc["dispatches"]))
+    if not svc["dispatches"] or (launches, calls) != want:
+        raise AssertionError(f"PUT under auto: launches {launches}, twin calls {calls} for "
+                             f"{svc['dispatches']} dispatches and verdict {verdict}")
+    return {"launches": launches, "twin_calls": calls}
+
+
+def host_path(device, cell: int, bpc: int, seed: int, cases, decode_cases) -> dict:
+    """The host coding backend (`codec/fused.py`'s twin and policy): (a)
+    the probe and the `auto` verdicts, (b) the twin exact against the
+    kernel and its plain version, (c) native/CUDA pairs of a PUT and a
+    degraded GET through the codec service, (d) the mesh executor's host
+    twin, (e) a PUT under `auto` following (a)'s verdict. Every step
+    fails the run on a mismatch."""
+    out = {"probe": host_probe_step(cell)}
+    out["twin_cases"] = host_twin_cases(device, cases, decode_cases, seed)
+    out["pairs"] = host_pairs_step(device, cell, bpc, seed)
+    out["mesh"] = host_mesh_step(device, cell, bpc, seed)
+    out["auto"] = host_auto_step(device, cell, bpc, seed,
+                                 out["probe"]["verdicts"][HOST_VERDICTS[0][0]])
+    out["launches"] = {
+        "host_put_cuda": sum(r["launches"] for r in out["pairs"]["put"]["cuda"]),
+        "host_degraded_get_cuda": sum(
+            r["launches"] for r in out["pairs"]["degraded_get"]["cuda"]),
+        "host_auto_put": out["auto"]["launches"],
+    }
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9472,6 +9811,8 @@ def main() -> int:
                     help="build, kernel cases and timings only; no main paths")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, kernel cases and timings, then mesh_path only")
+    ap.add_argument("--host-only", action="store_true",
+                    help="build, kernel cases and timings, then host_path only")
     ap.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "DEVICE"),
                     help=argparse.SUPPRESS)  # one rank of mesh_path's two-process run
     args = ap.parse_args()
@@ -9584,9 +9925,13 @@ def main() -> int:
             phase_s[name] = time.perf_counter() - t
 
     mesh = None
-    if args.mesh_only:
-        mesh = phase("mesh_path", mesh_path, device, MIB, bpc, args.seed)
-        paths = dict(mesh["launches"])
+    if args.mesh_only or args.host_only:
+        if args.mesh_only:
+            mesh = phase("mesh_path", mesh_path, device, MIB, bpc, args.seed)
+            paths = dict(mesh["launches"])
+        else:
+            paths = dict(phase("host_path", host_path, device, MIB, bpc, args.seed, cases,
+                               decode_cases)["launches"])
         launches = sum(paths.values())
         form_launches = {"gf_apply": None, "xor_reduce": None}
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -9642,6 +9987,8 @@ def main() -> int:
         chaos = phase("chaos_path", chaos_path, device, MIB, bpc, args.seed, chaos_s=12.0,
                       om_scale_keys=40_000)
         mesh = phase("mesh_path", mesh_path, device, MIB, bpc, args.seed)
+        host = phase("host_path", host_path, device, MIB, bpc, args.seed, cases,
+                     decode_cases)
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
               + f"; total {time.perf_counter() - t_start:.1f}")
         paths = {
@@ -9675,6 +10022,7 @@ def main() -> int:
             **sec["launches"], **enc["launches"], **adm["launches"],
             **snap["launches"], **geo["launches"], **shard["launches"],
             **ops["launches"], **chaos["launches"], **mesh["launches"],
+            **host["launches"],
         })
         launches = sum(paths.values())
         form_launches = {form: fr["rawcoder"][f"{form}_launches"]

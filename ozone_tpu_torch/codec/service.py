@@ -27,7 +27,10 @@ Lanes: submissions coalesce per (semantic key, batch width, QoS class).
 The key carries the fused spec and, for decode, the erasure pattern
 (different recovery matrices cannot share one launch). A lane exists
 only while it has queued stripes and binds the fused callable of its
-first submitter.
+first submitter. A callable that is not the device path's (the host twin
+of `codec/fused.py`, whose `backend` is `fused.HOST_TWIN`) puts it at the
+end of the key (`backend_key`), so a twin writer and a device writer of
+one spec never share a lane; the device path's keys are the reference's.
 
 The device edge is `codec/pipeline.py`'s: a packed batch is staged in a
 fresh `host_buffer` (pinned when the submitters' stripes are), a lone
@@ -234,7 +237,7 @@ class CodecService:
             deadline = _ambient_deadline()
         fut: Future = Future()
         sub = _Sub(stripes, fut, qos, deadline, tail)
-        lane_key = (key, width, qos)
+        lane_key = (backend_key(key, fn), width, qos)
         with self._cond:
             if not self._running:
                 raise RuntimeError("codec service is shut down")
@@ -704,6 +707,14 @@ def decode_key(spec, valid, erased) -> tuple:
 
 def reencode_key(spec, lost: int) -> tuple:
     return ("reencode", spec, int(lost))
+
+
+def backend_key(key: tuple, fn: Callable) -> tuple:
+    """`key` as the lane of `fn`: unchanged for the device path, with the
+    function's `backend` appended otherwise (`fused.HOST_TWIN` for the
+    host twin)."""
+    backend = getattr(fn, "backend", None)
+    return key if backend is None else key + (backend,)
 
 
 def wait_result(fut: Future, grace_s: Optional[float] = None):

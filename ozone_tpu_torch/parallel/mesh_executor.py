@@ -29,12 +29,17 @@ service hands whole untouched lanes here once its queue depth crosses
 ``OZONE_TPU_MESH_SPILL_WATERMARK`` (`codec/service.py`,
 `_collect_spill_locked`).
 
-Three departures from the reference, each on purpose:
+Backend policy mirrors `codec/fused.py`: where it takes the host twin
+for a key's spec and transfer shape (``OZONE_TPU_FUSED_BACKEND=native``,
+or ``auto`` on CPU slots or behind a slow link), the key's program is the
+twin sharded over one worker thread per slot, each coding its contiguous
+rows of the batch; so is a key the codec service tagged as the twin's
+(ending in `fused.HOST_TWIN`: a spilled twin lane). Otherwise, and always
+with the knob unset, it is the sharded device program.
+`stats()["programs_host_twin"]` counts the twin programs.
 
-- A program is always the sharded device program (`_build_program`). The
-  reference's host twin for CPU-only hosts (the native coder on one
-  worker thread per mesh device) waits for the port's host backend
-  policy, so `stats()["programs_host_twin"]` reads 0.
+Two departures from the reference, each on purpose:
+
 - `maybe_executor()` answers None only when the executor is off, or
   when none is installed and fewer than two CUDA devices are attached.
   A failure to build the mesh raises, as does a failure to build a
@@ -52,12 +57,13 @@ import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from ozone_tpu_torch.codec import fused
 from ozone_tpu_torch.codec.fused import FusedSpec
 from ozone_tpu_torch.parallel import sharded
 from ozone_tpu_torch.utils.config import env_float, env_int
@@ -68,6 +74,16 @@ log = logging.getLogger(__name__)
 
 #: every mesh-executor signal in one registry (prometheus: mesh_*)
 METRICS: MetricsRegistry = registry("mesh")
+#: the registry's signals, each named by `stats()` (Recon's /api/mesh) at
+#: 0 until it moves, whatever this process ran before: counters and
+#: gauges, and the histograms' mean and percentiles
+_SIGNALS = ("submissions", "dispatches", "stripes_dispatched",
+            "slots_dispatched", "coalesced_operations", "multi_op_dispatches",
+            "staging_reuses", "spilled_lanes", "spilled_stripes", "devices",
+            "depth", "queue_depth", "batch_fill_pct", "inflight_depth",
+            "inflight_per_device", "max_inflight_depth") + tuple(
+    f"{h}_{q}_s" for h in ("queue_wait_seconds", "dispatch_seconds")
+    for q in ("mean", "p50", "p95", "p99"))
 
 #: in-flight mesh batches (double buffering = 2)
 DEFAULT_DEPTH = 2
@@ -156,8 +172,8 @@ class _MeshProgram:
     `fn(batch [W, ...]) -> tuple of outputs`, W any multiple of the mesh
     size up to the dispatch width. `caches` lists the plan caches the
     program builds its per-device matrices in; their size is the census
-    the warm-program probe reads (`compile_count`). `host_twin` is kept
-    for the reference's contract and is never True on the port."""
+    the warm-program probe reads (`compile_count`); a host-twin program
+    (`host_twin`) builds none."""
 
     __slots__ = ("fn", "caches", "host_twin")
 
@@ -258,6 +274,9 @@ class MeshExecutor:
         #: in-flight window recycles depth+1 buffers per lane shape
         self._staging: dict[tuple, list] = {}
         self._max_inflight = 0
+        #: one worker per slot for the host-twin programs
+        self._workers = ThreadPoolExecutor(
+            max_workers=self.n_devices, thread_name_prefix="mesh-dev")
         self._dispatch_ewma_s = 0.005
         self._running = True
         METRICS.gauge("devices").set(self.n_devices)
@@ -298,20 +317,34 @@ class MeshExecutor:
             return self._programs[key]
 
     def _build_program(self, key: tuple) -> Optional[_MeshProgram]:
-        """The sharded device program of an encode or decode key; None for
-        keys with no mesh form (re-encode, and any key that carries no
-        fused spec)."""
+        """The program of an encode or decode key: the host twin on every
+        slot where the backend policy takes it (or the key is a twin
+        lane's), else the sharded device program; None for keys with no
+        mesh form (re-encode, and any key that carries no fused spec)."""
         kind = key[0]
         spec = key[1] if len(key) > 1 else None
         if not isinstance(spec, FusedSpec):
             return None
         n = self.n_devices
+        tagged = key[-1] == fused.HOST_TWIN
+        dev = self.mesh.first_device
         if kind == "encode":
+            if tagged or fused._host_twin_wanted(spec, dev):
+                single = fused._native_fused_encoder(
+                    spec.options, spec.checksum, spec.bytes_per_checksum)
+                return _MeshProgram(self._host_shard(single), (), True)
             inner = sharded.make_sharded_fused_encoder(spec, self.mesh, self.axis)
             caches = (sharded._on_device,)
         elif kind == "decode":
+            valid, erased = list(key[2]), list(key[3])
+            if tagged or fused._host_twin_wanted(
+                    spec, dev, len(erased) / max(len(valid), 1)):
+                single = fused._native_fused_decoder(
+                    spec.options, spec.checksum, spec.bytes_per_checksum,
+                    tuple(valid), tuple(erased))
+                return _MeshProgram(self._host_shard(single), (), True)
             inner = sharded.make_sharded_decoder(
-                spec, list(key[2]), list(key[3]), self.mesh, self.axis)
+                spec, valid, erased, self.mesh, self.axis)
             caches = (sharded._decode_plan_cached,)
         else:
             # the re-encode's one fused launch has no sharded form here,
@@ -324,6 +357,23 @@ class MeshExecutor:
             return tuple(o[:orig] for o in outs)
 
         return _MeshProgram(fn, caches)
+
+    def _host_shard(self, single: Callable) -> Callable:
+        """The host mirror of the DP sharding: a batch's rows split into
+        one contiguous part per slot, each coded by the single-device twin
+        on its own worker thread, the outputs concatenated in row order."""
+        n = self.n_devices
+
+        def fn(batch):
+            rows = int(batch.shape[0])
+            bounds = [i * rows // n for i in range(n + 1)]
+            futs = [self._workers.submit(single, batch[a:b])
+                    for a, b in zip(bounds, bounds[1:]) if b > a]
+            outs = [f.result() for f in futs]
+            return tuple(torch.cat([o[i] for o in outs])
+                         for i in range(len(outs[0])))
+
+        return fn
 
     # ---------------------------------------------------------- staging
     def _take_staging(self, shape: tuple, dtype):
@@ -632,7 +682,7 @@ class MeshExecutor:
     def stats(self) -> dict:
         """Operator snapshot (the Recon /api/mesh payload), with every key
         of the reference's."""
-        snap = METRICS.snapshot()
+        snap = {**dict.fromkeys(_SIGNALS, 0), **METRICS.snapshot()}
         slots = snap.get("slots_dispatched", 0)
         disp = snap.get("dispatches", 0)
         snap["fill_ratio"] = (snap.get("stripes_dispatched", 0) / slots
@@ -672,6 +722,7 @@ class MeshExecutor:
             self._running = False
             self._cond.notify_all()
         self._thread.join(timeout=60.0)
+        self._workers.shutdown(wait=True)
         self._fail_pending(RuntimeError("mesh executor shut down"))
 
 

@@ -2,18 +2,22 @@
 
 Port of `EventQueue` from `ozone_tpu/utils/events.py` (the reference's
 EventQueue, hdds/server/events/EventQueue.java): handlers subscribe to
-topics and publish dispatches synchronously, in subscription order (the
-deterministic mode the reference's tests and minicluster use). The
-reference's worker-thread dispatch is not ported: no ported control loop
-uses it. `EventWatcher` (EventWatcher.java with its LeaseManager) tracks a
-started event by id until its completion event arrives; a lease that
-runs out re-publishes the payload (up to `max_retries`), then drops it
-and calls `on_timeout`.
+topics, and publish dispatches to them in subscription order:
+synchronously by default (the deterministic mode the reference's tests
+and minicluster use), or, with `async_dispatch=True`, on one
+`event-queue` worker thread in publish order, `flush()` waiting until the
+queue has drained (the reference's FixedThreadPoolWithAffinityExecutor
+with one thread). A handler's error is logged and reaches neither the
+publisher nor the next handler. `EventWatcher` (EventWatcher.java with
+its LeaseManager) tracks a started event by id until its completion
+event arrives; a lease that runs out re-publishes the payload (up to
+`max_retries`), then drops it and calls `on_timeout`.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
 import threading
 import time
 from collections import defaultdict
@@ -25,20 +29,49 @@ Handler = Callable[[Any], None]
 
 
 class EventQueue:
-    def __init__(self):
+    def __init__(self, async_dispatch: bool = False):
         self._handlers: dict[str, list[Handler]] = defaultdict(list)
         self._lock = threading.Lock()
+        self._async = async_dispatch
+        self._q: "queue.Queue[tuple[str, Any]]" = queue.Queue()
+        self._worker: Optional[threading.Thread] = None
+        if async_dispatch:
+            self._worker = threading.Thread(
+                target=self._drain, name="event-queue", daemon=True)
+            self._worker.start()
 
     def subscribe(self, topic: str, handler: Handler) -> None:
         with self._lock:
             self._handlers[topic].append(handler)
 
     def publish(self, topic: str, payload: Any = None) -> None:
-        for h in list(self._handlers.get(topic, ())):
+        if self._async:
+            self._q.put((topic, payload))
+        else:
+            self._dispatch(topic, payload)
+
+    def _dispatch(self, topic: str, payload: Any) -> None:
+        with self._lock:
+            handlers = list(self._handlers.get(topic, ()))
+        for h in handlers:
             try:
                 h(payload)
             except Exception:  # handler errors must not break the publisher
                 log.exception("event handler for %s failed", topic)
+
+    def _drain(self) -> None:
+        while True:
+            topic, payload = self._q.get()
+            try:
+                self._dispatch(topic, payload)
+            finally:
+                self._q.task_done()
+
+    def flush(self) -> None:
+        """Wait until every event published so far has been dispatched (a
+        no-op for the synchronous queue)."""
+        if self._async:
+            self._q.join()
 
 
 class EventWatcher:

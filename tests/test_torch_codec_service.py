@@ -274,25 +274,47 @@ def test_starvation_guard_preempts_pathological_weights(
 
 def test_idle_class_activation_floors_virtual_time(fresh_service_env):
     """A class idle through a long burst of the other class joins at the
-    system virtual clock: its stale low virtual time buys no monopoly."""
+    system virtual clock: its stale low virtual time buys no monopoly.
+
+    Counted, not timed: between the interactive submit and its dispatch,
+    the bulk class may run only the dispatches the weighted-fair order
+    allows it from where it joined (the clock) up to the interactive
+    class's virtual time, one dispatch costing 4 stripes / weight 1. The
+    burst (800 interactive stripes at weight 4) sets that time 50 bulk
+    dispatches above zero, so a bulk class joining at zero instead of at
+    the clock would run its whole backlog first."""
     svc = fresh_service_env(OZONE_TPU_CODEC_LINGER_MS="1",
                             OZONE_TPU_CODEC_STARVE_MS="5000",
                             OZONE_TPU_CODEC_QOS="interactive=4,bulk=1")
     slow_fn = _busy(0.002)
-    one = _rand((1, 3, CELL), 11)
+    order: list[str] = []
+
+    def tagged(name):
+        def fn(batch):
+            order.append(name)
+            return slow_fn(batch)
+        return fn
+
+    bulk_fn, inter_fn = tagged("bulk"), tagged("interactive")
+    burst = _rand((80, 3, CELL), 11)
+    one = burst[:1]
     for _ in range(10):
-        cs.wait_result(svc.submit(("interactive-lane",), slow_fn, one,
-                                  width=1, qos="interactive"))
+        cs.wait_result(svc.submit(("interactive-lane",), inter_fn, burst,
+                                  width=80, qos="interactive"))
+    with svc._lock:  # idle: the clock and the interactive time stand
+        vclock, v_inter = svc._vclock, svc._vtime["interactive"]
+    allowed = int((v_inter - vclock) // 4) + 1  # 4 stripes / weight 1
     data = _rand((4, 3, CELL), 12)
-    bulk_futs = [svc.submit(("bulk-lane",), slow_fn, data, width=4,
+    bulk_futs = [svc.submit(("bulk-lane",), bulk_fn, data, width=4,
                             qos="bulk") for _ in range(50)]
-    t0 = time.monotonic()
-    cs.wait_result(svc.submit(("interactive-lane",), slow_fn, one,
+    mark = len(order)
+    cs.wait_result(svc.submit(("interactive-lane",), inter_fn, one,
                               width=1, qos="interactive"))
-    dt = time.monotonic() - t0
-    assert dt < 0.05, (
-        f"interactive waited {dt:.3f}s behind an idle-activated bulk "
-        f"backlog: the activation floor is broken")
+    ahead = order[mark:order.index("interactive", mark)].count("bulk")
+    assert ahead <= allowed, (
+        f"{ahead} bulk dispatches ran ahead of the interactive submission "
+        f"(the weighted-fair order allows {allowed}): the activation floor "
+        f"is broken")
     assert svc._vtime["bulk"] > 0.0  # joined at the clock, not at zero
     for f in bulk_futs:
         cs.wait_result(f)
