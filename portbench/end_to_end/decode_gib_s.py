@@ -1,0 +1,10 @@
+"""Data bytes of the stripes made whole by the codec submissions whose
+recovered units and CRC32C words reached their submitters inside the
+window, over the window's length."""
+
+
+def read(w):
+    done = w.done_in_window("decode")
+    if not done:
+        return None
+    return sum(o.nbytes for o in done) / w.seconds / 2**30
