@@ -49,6 +49,7 @@ from ozone_tpu_torch.codec import cpp_coder, lrc_math, rs_math
 from ozone_tpu_torch.codec.gf256 import gf_matmul
 from ozone_tpu_torch.codec.api import CoderOptions
 from ozone_tpu_torch.codec.fused_kernel import LaunchCounter, fused_encode_crc
+from ozone_tpu_torch.codec.pipeline import H2D_BYTES
 from ozone_tpu_torch.utils import checksum as hostsum
 from ozone_tpu_torch.utils.checksum import ChecksumType
 from ozone_tpu_torch.utils.metrics import MetricsRegistry, registry
@@ -144,9 +145,12 @@ def resolve_device(device) -> torch.device:
 
 def _to_device(units, dev: torch.device) -> torch.Tensor:
     """A numpy array or tensor of units as a uint8 tensor on `dev`, copied
-    without blocking (asynchronously when the host memory is pinned)."""
+    without blocking (asynchronously when the host memory is pinned).
+    Host units count in `h2d_bytes` (`codec/pipeline.py`), whatever `dev`."""
     if not isinstance(units, torch.Tensor):
         units = torch.from_numpy(np.ascontiguousarray(units, dtype=np.uint8))
+    if units.device.type == "cpu":
+        H2D_BYTES.inc(units.nbytes)
     return units.to(dev, non_blocking=True)
 
 

@@ -15,6 +15,12 @@ batch does.
 pipeline, by `client/ec_writer.py` and by the shared codec service
 (`codec/service.py`) alike. On the CPU they do no copies and record no
 event, and outputs that are already numpy arrays pass through.
+
+The edge counts the bytes it moves, `h2d_bytes` (host rows handed to the
+device path: `codec/fused.py` `_to_device`, the mesh forms' slots) and
+`d2h_bytes` (tensors pulled back: `start_pull`, the mesh executor's pull)
+in the codec service's registry, on every device: the CPU's plain path
+counts what a card would move.
 """
 
 from __future__ import annotations
@@ -24,6 +30,11 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from ozone_tpu_torch.utils.metrics import registry
+
+H2D_BYTES = registry("codec.service").counter("h2d_bytes")
+D2H_BYTES = registry("codec.service").counter("d2h_bytes")
 
 #: stripes per decode dispatch, and so the pipeline's granularity; 8
 #: matches the writer's stripe_batch, and a 16-stripe group repairs as two
@@ -54,7 +65,10 @@ def start_pull(outs: tuple) -> tuple:
     """Start the device->host copy of a batch's output tensors on the
     current stream (the one that ran the kernel); returns (host tensors,
     event), the event None for CPU tensors and numpy arrays."""
-    if not isinstance(outs[0], torch.Tensor) or outs[0].device.type != "cuda":
+    if not isinstance(outs[0], torch.Tensor):
+        return tuple(outs), None
+    D2H_BYTES.inc(sum(t.nbytes for t in outs))
+    if outs[0].device.type != "cuda":
         return tuple(outs), None
     hosts = []
     for t in outs:

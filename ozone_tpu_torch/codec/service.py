@@ -41,6 +41,18 @@ uint32. A lane function that raises fails its submitters' futures;
 nothing retries elsewhere, and a dispatcher that dies fails all pending
 work.
 
+Tracing: the dispatcher thread's steps are spans that tile it, each
+starting where the one before it ended: `codec:pack` (spill collection,
+lane pick, packing, fairness accounting), `codec:stage`, `codec:launch`
+(the copy in and the kernel launch), `codec:pull_start`,
+`codec:pull_wait` (`finish_pull`), `codec:resolve` (slicing, the
+submitters' spans, their futures) and `codec:idle_wait` (nothing ready
+and nothing in flight). A dispatch's steps are children of its
+`codec:device_dispatch`, which runs from its `codec:stage` to the end of
+its `codec:resolve`. `dispatch_host_seconds_total` sums the host steps
+(pack, stage, launch, pull_start, resolve) and `pull_wait_seconds_total`
+the waits on the copy back.
+
 Spill (``OZONE_TPU_MESH_SPILL=1``, off by default): once the queue depth
 crosses ``OZONE_TPU_MESH_SPILL_WATERMARK`` stripes, whole lanes none of
 whose stripes has been dispatched move to the multi-device mesh executor
@@ -78,6 +90,10 @@ log = logging.getLogger(__name__)
 
 #: every service signal in one registry
 METRICS: MetricsRegistry = registry("codec.service")
+#: the dispatcher's host time (its steps but the pull waits and the idle
+#: waits) and its time blocked on the copy back, in float seconds
+_HOST_S = METRICS.counter("dispatch_host_seconds_total")
+_PULL_WAIT_S = METRICS.counter("pull_wait_seconds_total")
 
 #: default added-latency bound for a lone stripe waiting for co-batching
 DEFAULT_LINGER_MS = 2.0
@@ -145,12 +161,13 @@ class _Sub:
         self.future = future
         self.cls = cls
         self.deadline = deadline
+        tracer = Tracer.instance()
         self.t_enq = time.monotonic()
-        self.t_enq_wall = time.time()
+        self.t_enq_wall = tracer.now()
         #: the submitter's trace context: the dispatcher runs on its own
         #: thread, so per-submission spans join the operation's trace
         #: explicitly
-        self.trace_ctx = Tracer.instance().inject()
+        self.trace_ctx = tracer.inject()
         self.tail = tail
         self.taken = 0          # stripes already packed into dispatches
         self.pending_parts = 0  # dispatched parts not yet completed
@@ -211,6 +228,15 @@ class CodecService:
         #: double buffer)
         self._inflight: deque[tuple] = deque()  # ozlint: allow[bounded-queue] -- holds only batches already launched on the device: at most two (the double-buffered dispatch loop)
         self._dispatch_ewma_s = _DISPATCH_EWMA_SEED_S
+        tracer = Tracer.instance()
+        #: the dispatcher's own trace: its steps that belong to no
+        #: dispatch (`codec:idle_wait`, a `codec:pack` that packed
+        #: nothing) join it
+        self._ctx = f"{tracer._new_id()}:{tracer._new_id()}"
+        #: where the dispatcher's current step began (`Tracer.now()`), and
+        #: the steps marked since the last hand-over to the tracer
+        self._t = tracer.now()
+        self._steps: list[tuple] = []
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="codec-service")
@@ -426,6 +452,25 @@ class CodecService:
                         sub.future.set_exception(e)
 
     # ------------------------------------------------------- dispatcher
+    def _mark(self, name: str, ctx: str, **tags) -> float:
+        """Close the dispatcher's current step as a span `name` under
+        `ctx`, from the end of the step before it to now: the steps tile
+        the dispatcher thread. Returns the step's seconds."""
+        t0, self._t = self._t, Tracer.now()
+        self._steps.append((ctx, name, t0, self._t, tags))
+        return self._t - t0
+
+    def _flush_steps(self) -> None:
+        """Hand the marked steps to the tracer, in one pass."""
+        if self._steps:
+            steps, self._steps = self._steps, []
+            Tracer.instance().record_spans(steps)
+
+    def _poll(self) -> None:
+        """A pass of the loop that packed nothing: its host time is a
+        `codec:pack` of the dispatcher's own trace."""
+        _HOST_S.inc(self._mark("codec:pack", self._ctx, rows=0))
+
     def _loop(self) -> None:
         try:
             while True:
@@ -447,7 +492,10 @@ class CodecService:
                             reason = "linger"
                             entries, rows = self._pack_locked(lane)
                         else:
+                            self._poll()
+                            self._flush_steps()
                             self._cond.wait(self._next_wakeup_locked(now))
+                            self._mark("codec:idle_wait", self._ctx)
                             continue
                 if spilled:
                     # outside the lock: submitters keep flowing
@@ -459,10 +507,12 @@ class CodecService:
                     # on the device
                     if len(self._inflight) > 1:
                         self._complete(self._inflight.popleft())
-                elif self._inflight:
-                    # nothing packable right now: never hold results
-                    # hostage waiting for more work
-                    self._complete(self._inflight.popleft())
+                else:
+                    self._poll()
+                    if self._inflight:
+                        # nothing packable right now: never hold results
+                        # hostage waiting for more work
+                        self._complete(self._inflight.popleft())
         except BaseException:
             log.exception("codec service dispatcher crashed")
             raise
@@ -472,6 +522,7 @@ class CodecService:
             # get_service() hands out a fresh service
             with self._lock:
                 self._running = False
+            self._flush_steps()
             self._fail_pending(RuntimeError("codec service stopped"))
 
     def _stage(self, lane: _Lane, entries, rows: int):
@@ -499,12 +550,19 @@ class CodecService:
 
     def _dispatch(self, lane: _Lane, entries, rows: int,
                   reason: str) -> None:
+        """Stage, launch and start the copy back of one packed batch. Its
+        steps (`codec:pack` since the loop's last step, `codec:stage`,
+        `codec:launch`, `codec:pull_start`) are children of the dispatch's
+        own `codec:device_dispatch`, which `_complete` records from the
+        start of `codec:stage` to the end of `codec:resolve`."""
         now = time.monotonic()
         ops = len(entries)
         tracer = Tracer.instance()
+        t_now = tracer.now()
         # one shared dispatch span id per device dispatch: every
         # coalesced submission's span tags it
         d_tid, d_sid = tracer._new_id(), tracer._new_id()
+        ctx = f"{d_tid}:{d_sid}"
         fill_pct = round(100.0 * rows / lane.width, 1)
         lane_desc = str(lane.lane_key)[:120]
         with self._lock:
@@ -524,7 +582,8 @@ class CodecService:
                 if sub.trace_ctx:
                     tracer.record_span(
                         "codec:queue_wait", child_of=sub.trace_ctx,
-                        start=sub.t_enq_wall, duration=wait,
+                        start=sub.t_enq_wall,
+                        duration=t_now - sub.t_enq_wall,
                         lane=lane_desc, qos=sub.cls, fill_pct=fill_pct,
                         dispatch_span=d_sid)
                 if sub.tail:
@@ -540,16 +599,32 @@ class CodecService:
             METRICS.counter("dispatches").inc()
             METRICS.counter(f"dispatches_{kind}").inc()
 
-        t0 = time.monotonic()
+        host_s = self._mark("codec:pack", ctx, rows=rows)
+        # the stage's start on the tracer's clock, for the spans, and on
+        # the monotonic one, for the scheduling EWMA and the histogram
+        t_stage, m_stage = self._t, time.monotonic()
+        step = "codec:stage"
         try:
             with fused_kernel.launches.tallied(tally):
-                outs = lane.fn(self._stage(lane, entries, rows))
+                batch = self._stage(lane, entries, rows)
+                host_s += self._mark(step, ctx)
+                step = "codec:launch"
+                outs = lane.fn(batch)
                 if not isinstance(outs, tuple):
                     outs = (outs,)
+                host_s += self._mark(step, ctx,
+                                     launch=fused_kernel.launches.total,
+                                     h2d_bytes=batch.nbytes)
                 # the copy back starts now, under the next batch's packing
+                step = "codec:pull_start"
                 pulled = start_pull(outs)
+                host_s += self._mark(step, ctx, d2h_bytes=sum(
+                    h.nbytes for h in pulled[0]))
         except Exception as e:  # a fault of this dispatch: its submitters'
+            host_s += self._mark(step, ctx, error=type(e).__name__)
             self._resolve_error(entries, e)
+            self._close_dispatch(ctx, t_stage, host_s,
+                                 error=type(e).__name__)
             return
         METRICS.counter("stripes_dispatched").inc(rows)
         METRICS.counter("slots_dispatched").inc(lane.width)
@@ -561,40 +636,52 @@ class CodecService:
         elif reason == "deadline":
             METRICS.counter("deadline_flushes").inc()
         METRICS.gauge("batch_fill_pct").set(100.0 * rows / lane.width)
-        METRICS.gauge("last_coalesced_operations").set(ops)
         with self._lock:
             METRICS.gauge("queue_depth").set(self._queue_depth_locked())
-        self._inflight.append((entries, pulled, t0, time.time(),
-                               (d_tid, d_sid, fill_pct, reason,
-                                lane_desc, ops, rows, lane.width)))
+        self._inflight.append((entries, pulled, t_stage, m_stage, host_s,
+                               (ctx, fill_pct, reason, lane_desc, ops,
+                                rows, lane.width)))
+
+    def _close_dispatch(self, ctx: str, t_stage: float, host_s: float,
+                        **tags) -> None:
+        """End a dispatch's `codec:resolve`, count its host seconds and
+        record its `codec:device_dispatch`, from the start of
+        `codec:stage`."""
+        _HOST_S.inc(host_s + self._mark("codec:resolve", ctx))
+        self._flush_steps()
+        d_tid, d_sid = ctx.split(":")
+        Tracer.instance().record_span(
+            "codec:device_dispatch", child_of=f"{d_tid}:", span_id=d_sid,
+            start=t_stage, duration=self._t - t_stage, **tags)
 
     def _complete(self, rec: tuple) -> None:
-        entries, pulled, t0, t0_wall, dctx = rec
-        d_tid, d_sid, fill_pct, reason, lane_desc, ops, rows, width = dctx
+        entries, pulled, t_stage, m_stage, host_s, dctx = rec
+        ctx, fill_pct, reason, lane_desc, ops, rows, width = dctx
         try:
             host = finish_pull(pulled)
         except Exception as e:  # a fault of the copy back: its submitters'
+            _PULL_WAIT_S.inc(self._mark("codec:pull_wait", ctx,
+                                        error=type(e).__name__))
             self._resolve_error(entries, e)
+            self._close_dispatch(ctx, t_stage, host_s,
+                                 error=type(e).__name__)
             return
-        dt = time.monotonic() - t0
+        _PULL_WAIT_S.inc(self._mark("codec:pull_wait", ctx))
+        t_pulled, dt = self._t, time.monotonic() - m_stage
         self._dispatch_ewma_s += 0.2 * (dt - self._dispatch_ewma_s)
         METRICS.histogram("dispatch_seconds").observe(
             dt, entries[0][0].trace_ctx.split(":", 1)[0])
         tracer = Tracer.instance()
-        # the shared dispatch span (own trace, id known to every rider)
-        tracer.record_span(
-            "codec:device_dispatch", child_of=f"{d_tid}:",
-            span_id=d_sid, start=t0_wall, duration=dt,
-            lane=lane_desc, ops=ops, rows=rows, width=width,
-            fill_pct=fill_pct, reason=reason)
+        d_tid, d_sid = ctx.split(":")
         for sub, off, take, _row in entries:
             # per-submission dispatch span in the submitter's trace,
             # carrying the shared span id
             if sub.trace_ctx:
                 tracer.record_span(
                     "codec:dispatch", child_of=sub.trace_ctx,
-                    start=t0_wall, duration=dt, lane=lane_desc,
-                    qos=sub.cls, stripes=take, fill_pct=fill_pct,
+                    start=t_stage, duration=t_pulled - t_stage,
+                    lane=lane_desc, qos=sub.cls, stripes=take,
+                    fill_pct=fill_pct,
                     dispatch_span=d_sid, dispatch_trace=d_tid)
         for sub, off, take, row in entries:
             sub.parts.append(
@@ -602,6 +689,9 @@ class CodecService:
             sub.pending_parts -= 1
             if sub.taken == sub.n and sub.pending_parts == 0:
                 self._resolve(sub)
+        self._close_dispatch(ctx, t_stage, host_s, lane=lane_desc, ops=ops,
+                             rows=rows, width=width, fill_pct=fill_pct,
+                             reason=reason)
 
     @staticmethod
     def _resolve(sub: _Sub) -> None:

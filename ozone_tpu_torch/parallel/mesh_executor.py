@@ -65,6 +65,7 @@ import torch
 
 from ozone_tpu_torch.codec import fused
 from ozone_tpu_torch.codec.fused import FusedSpec
+from ozone_tpu_torch.codec.pipeline import D2H_BYTES
 from ozone_tpu_torch.parallel import sharded
 from ozone_tpu_torch.utils.config import env_float, env_int
 from ozone_tpu_torch.utils.metrics import MetricsRegistry, registry
@@ -138,7 +139,9 @@ def _contiguous(x) -> bool:
 
 def _start_pull(outs: tuple) -> tuple:
     """Start each output's copy to pinned host memory on the current
-    stream of the device that holds it, and record an event there."""
+    stream of the device that holds it, and record an event there. The
+    tensors count in the edge's `d2h_bytes` (`codec/pipeline.py`)."""
+    D2H_BYTES.inc(sum(t.nbytes for t in outs if isinstance(t, torch.Tensor)))
     pulls = []
     for t in outs:
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
@@ -203,7 +206,7 @@ class _Sub:
         self.cls = cls
         self.deadline = deadline
         self.t_enq = time.monotonic()
-        self.t_enq_wall = time.time()
+        self.t_enq_wall = Tracer.now()
         self.trace_ctx = Tracer.instance().inject()
         self.tail = tail
         self.taken = 0
@@ -554,6 +557,7 @@ class MeshExecutor:
         now = time.monotonic()
         ops = len(entries)
         tracer = Tracer.instance()
+        t_now = tracer.now()
         lane_desc = str(lane.lane_key)[:120]
         for sub, off, take, _row in entries:
             if off == 0:
@@ -563,7 +567,8 @@ class MeshExecutor:
                 if sub.trace_ctx:
                     tracer.record_span(
                         "mesh:queue_wait", child_of=sub.trace_ctx,
-                        start=sub.t_enq_wall, duration=wait,
+                        start=sub.t_enq_wall,
+                        duration=t_now - sub.t_enq_wall,
                         lane=lane_desc, qos=sub.cls)
         head = entries[0]
         staged = None
@@ -580,7 +585,9 @@ class MeshExecutor:
                 dst[row:row + take] = _rows(sub.stripes[off:off + take])
             if rows < lane.width:
                 dst[rows:] = 0  # constant-shape zero-padded tail
-        t0 = time.monotonic()
+        # the span's start on the tracer's clock; its duration for the
+        # scheduling EWMA and the histogram on the monotonic one
+        t0, m0 = tracer.now(), time.monotonic()
         with tracer.span("mesh:dispatch", lane=lane_desc, ops=ops,
                          rows=rows, width=lane.width,
                          devices=self.n_devices):
@@ -605,7 +612,7 @@ class MeshExecutor:
         with self._lock:
             METRICS.gauge("queue_depth").set(self._queue_depth_locked())
             self._inflight.append(
-                (entries, pulls, staged, t0, time.time(),
+                (entries, pulls, staged, t0, m0,
                  (lane_desc, ops, rows, lane.width)))
             depth_now = len(self._inflight)
         self._max_inflight = max(self._max_inflight, depth_now)
@@ -614,7 +621,7 @@ class MeshExecutor:
         METRICS.gauge("max_inflight_depth").set(self._max_inflight)
 
     def _complete(self, rec: tuple) -> None:
-        entries, pulls, staged, t0, t0_wall, dctx = rec
+        entries, pulls, staged, t0, m0, dctx = rec
         lane_desc, ops, rows, width = dctx
         try:
             with Tracer.instance().span("mesh:harvest", lane=lane_desc, rows=rows):
@@ -628,7 +635,7 @@ class MeshExecutor:
             # every copy that read the buffer finished before the outputs
             # that depend on it came back
             self._give_staging(staged)
-        dt = time.monotonic() - t0
+        t1, dt = Tracer.now(), time.monotonic() - m0
         self._dispatch_ewma_s += 0.2 * (dt - self._dispatch_ewma_s)
         METRICS.histogram("dispatch_seconds").observe(
             dt, entries[0][0].trace_ctx.split(":", 1)[0])
@@ -639,7 +646,7 @@ class MeshExecutor:
             if sub.trace_ctx:
                 tracer.record_span(
                     "mesh:device_dispatch", child_of=sub.trace_ctx,
-                    start=t0_wall, duration=dt, lane=lane_desc,
+                    start=t0, duration=t1 - t0, lane=lane_desc,
                     qos=sub.cls, stripes=take, ops=ops, rows=rows,
                     width=width)
         for sub, off, take, row in entries:

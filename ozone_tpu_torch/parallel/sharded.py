@@ -66,6 +66,7 @@ from ozone_tpu_torch.codec.fused import (
     _decode_matrix,
     _decode_plan_cached,
     _parity_matrix,
+    _to_device,
     resolve_device,
 )
 from ozone_tpu_torch.codec.fused_kernel import LaunchCounter
@@ -193,6 +194,12 @@ def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return t.contiguous()
 
 
+def _slot_rows(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A slot's part of the batch on `dev`, contiguous: host rows cross
+    the device edge through `fused._to_device`, which counts them."""
+    return _to_device(t, dev).contiguous()
+
+
 def _launch(form: str, dev: torch.device, data: torch.Tensor,
             matrix: torch.Tensor, poly: Optional[int], slice_bytes: int,
             crc_in: bool = True, crc_out: bool = True):
@@ -219,7 +226,7 @@ def dp_apply(mesh: Mesh, batch, per_slot) -> tuple:
         raise ValueError(f"batch of {t.shape[0]} rows does not split over "
                          f"{len(local)} slots; pad it (pad_batch)")
     per = t.shape[0] // len(local)
-    outs = [per_slot(s, _to(t[i * per:(i + 1) * per], s.device))
+    outs = [per_slot(s, _slot_rows(t[i * per:(i + 1) * per], s.device))
             for i, s in enumerate(local)]
     if len(outs) == 1:
         return outs[0]
@@ -327,7 +334,8 @@ def _tp_encoder_cached(options: CoderOptions, mesh: Mesh, axis: str):
         sb = apply_slice(cell)
         partials = []
         for s in mesh.local_slots:
-            units = _to(data[:, s.index * w:(s.index + 1) * w], s.device)
+            units = _slot_rows(data[:, s.index * w:(s.index + 1) * w],
+                               s.device)
             part, _ = _launch("tp_encode", s.device, units,
                               _tp_plan(options, n, s.device)[s.index], None, sb)
             partials.append(part)
@@ -443,7 +451,8 @@ def make_ring_decoder(spec: FusedSpec, valid: list[int], erased: list[int],
         sb = apply_slice(c)
         local = {}
         for s in mesh.local_slots:
-            mine = _to(units[:, s.index * upc:(s.index + 1) * upc], s.device)
+            mine = _slot_rows(units[:, s.index * upc:(s.index + 1) * upc],
+                              s.device)
             plan = _ring_plan_on(options, valid, erased, n, s.device)[s.index]
             local[s.index], _ = _launch("ring_decode", s.device, mine, plan, None, sb)
         acc = dict(local)

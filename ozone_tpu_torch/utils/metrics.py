@@ -207,21 +207,36 @@ class MetricsRegistry:
         with _all_lock:
             _all_registries[name] = self
 
+    # A metric that exists is found without the lock (a dict read is
+    # atomic) and without building a spare: hot paths look theirs up on
+    # every call.
     def counter(self, name: str) -> Counter:
-        with self._lock:
-            return self._counters.setdefault(name, Counter())
+        c = self._counters.get(name)
+        if c is None:
+            with self._lock:
+                c = self._counters.setdefault(name, Counter())
+        return c
 
     def gauge(self, name: str) -> Gauge:
-        with self._lock:
-            return self._gauges.setdefault(name, Gauge())
+        g = self._gauges.get(name)
+        if g is None:
+            with self._lock:
+                g = self._gauges.setdefault(name, Gauge())
+        return g
 
     def histogram(self, name: str) -> Histogram:
-        with self._lock:
-            return self._histograms.setdefault(name, Histogram())
+        h = self._histograms.get(name)
+        if h is None:
+            with self._lock:
+                h = self._histograms.setdefault(name, Histogram())
+        return h
 
     def timer(self, name: str) -> Timer:
-        with self._lock:
-            return self._timers.setdefault(name, Timer())
+        t = self._timers.get(name)
+        if t is None:
+            with self._lock:
+                t = self._timers.setdefault(name, Timer())
+        return t
 
     def snapshot(self) -> dict:
         """Counter and gauge values by name, `<name>_mean_s` of every

@@ -10,17 +10,21 @@ which carry a span's context onto a pool thread. A finished root offers
 its local trace to the tail-based `FlightRecorder`, which pins it with
 its `critical_path` (stage -> micros, summing to the root's duration)
 when the root exceeded its per-op SLO (OZONE_TPU_TRACE_SLO_<OP>_MS, else
-OZONE_TPU_TRACE_SLO_MS, 1000 ms). A `SpanExporter` ships finished spans
-in batches every 2 s to the metadata daemon's `TraceCollector` over the
-`ozone.tpu.Tracing` RPC service (or straight into an in-process
-collector), which assembles them across services into one trace per id
-and keeps its own flight recorder (`trace slow|show`, Recon's
-`/api/traces/slow`). Export is lossy by design: a bounded queue, and a
-batch the collector cannot take is dropped.
+OZONE_TPU_TRACE_SLO_MS, 1000 ms). Every span's start and end come from
+one clock, `Tracer.now()`: host wall time, the clock a device trace is
+aligned to. A span that falls off the full buffer unread counts in
+`spans_dropped` of the `tracing` registry. A `SpanExporter` ships
+finished spans in batches every 2 s to the metadata daemon's
+`TraceCollector` over the `ozone.tpu.Tracing` RPC service (or straight
+into an in-process collector), which assembles them across services into
+one trace per id and keeps its own flight recorder (`trace slow|show`,
+Recon's `/api/traces/slow`). Export is lossy by design: a bounded queue,
+and a batch the collector cannot take is dropped.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import re
 import threading
@@ -30,10 +34,22 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ozone_tpu_torch.utils import metrics as _metrics
+from ozone_tpu_torch.utils.config import env_float
+
 _local = threading.local()
 
+#: spans the buffer let go before anyone read them
+SPANS_DROPPED = _metrics.registry("tracing").counter("spans_dropped")
 
-@dataclass
+#: span and trace ids come from a generator of their own, reseeded in a
+#: forked child as `random`'s is: code that seeds `random` (a test, a
+#: seeded simulation) must not make ids repeat
+_IDS = random.Random()
+os.register_at_fork(after_in_child=_IDS.seed)
+
+
+@dataclass(slots=True)
 class Span:
     trace_id: str
     span_id: str
@@ -52,7 +68,15 @@ class Tracer:
     _instance: Optional["Tracer"] = None
     _instance_lock = threading.Lock()
 
+    #: the clock of every span's start and end (seconds of host wall
+    #: time), for `span` and for every `record_span` caller
+    now = staticmethod(time.time)
+
     def __init__(self, max_spans: int = 10_000, sample_rate: float = 1.0):
+        #: readers may pop from the left without the lock (a benchmark's
+        #: drain) and may swap in a larger deque; `_finish_all` makes room
+        #: itself, by the buffer's own `maxlen`, so the bound never drops
+        #: a span uncounted
         self.spans: deque[Span] = deque(maxlen=max_spans)
         self.sample_rate = sample_rate
         self._lock = threading.Lock()
@@ -70,7 +94,7 @@ class Tracer:
 
     @staticmethod
     def _new_id() -> str:
-        return f"{random.getrandbits(64):016x}"
+        return _IDS.getrandbits(64).to_bytes(8, "big").hex()
 
     def current(self) -> Optional[Span]:
         return getattr(_local, "span", None)
@@ -86,23 +110,43 @@ class Tracer:
             trace_id, parent_id = parent.trace_id, parent.span_id
         else:
             trace_id, parent_id = self._new_id(), ""
-        s = Span(trace_id, self._new_id(), parent_id, name, time.time(),
-                 tags=dict(tags))
+        s = Span(trace_id, self._new_id(), parent_id, name, self.now(),
+                 tags=tags)
         _local.span = s
-        t0 = time.perf_counter()
         try:
             yield s
         finally:
-            s.duration = time.perf_counter() - t0
+            s.duration = max(0.0, self.now() - s.start)
             _local.span = parent
             self._finish(s)
 
     def _finish(self, s: Span) -> None:
-        if self.sample_rate >= 1.0 or random.random() < self.sample_rate:
-            with self._lock:
-                self.spans.append(s)
-                if self._export_q is not None:
-                    self._export_q.append(s)
+        self._finish_all((s,))
+
+    def _finish_all(self, spans) -> None:
+        """Buffer finished spans under one hold of the lock, then offer
+        each root among them to the flight recorder."""
+        if self.sample_rate < 1.0:
+            spans = [s for s in spans if random.random() < self.sample_rate]
+        with self._lock:
+            cap = self.spans.maxlen
+            over = 0 if cap is None else len(self.spans) + len(spans) - cap
+            dropped = 0
+            while dropped < over:
+                try:
+                    self.spans.popleft()
+                except IndexError:  # a reader emptied it meanwhile
+                    break
+                dropped += 1
+            # a batch longer than the whole buffer loses its own oldest
+            if cap is not None:
+                dropped += max(0, len(spans) - cap)
+            self.spans.extend(spans)
+            if self._export_q is not None:
+                self._export_q.extend(spans)
+        if dropped:
+            SPANS_DROPPED.inc(dropped)
+        for s in spans:
             if not s.parent_id and \
                     s.duration >= self.recorder.slo_s(s.name):
                 # the root finishes last: the whole local trace is in the
@@ -128,16 +172,28 @@ class Tracer:
             else:
                 trace_id, parent_id = self._new_id(), ""
         s = Span(trace_id, span_id or self._new_id(), parent_id, name,
-                 start, duration, tags=dict(tags))
+                 start, duration, tags=tags)
         self._finish(s)
         return s
+
+    def record_spans(self, finished: list[tuple]) -> None:
+        """`record_span` for many intervals at once, each `(child_of,
+        name, start, end, tags)` with `child_of` an `inject` context: a
+        thread that times its own steps (the codec service's dispatcher)
+        records them in one pass."""
+        spans = []
+        for ctx, name, start, end, tags in finished:
+            trace_id, _, parent_id = ctx.partition(":")
+            spans.append(Span(trace_id, self._new_id(), parent_id, name,
+                              start, end - start, tags=tags))
+        self._finish_all(spans)
 
     def event(self, name: str, **attrs) -> None:
         """Annotate the current span (no-op outside any span): hedge,
         breaker and deadline decisions show why a path was taken."""
         s = self.current()
         if s is not None:
-            s.events.append({"t": time.time(), "name": name, **attrs})
+            s.events.append({"t": self.now(), "name": name, **attrs})
 
     @contextmanager
     def activate(self, ctx: str):
@@ -150,7 +206,7 @@ class Tracer:
         tid, sid = (ctx.split(":") + [""])[:2]
         prev = self.current()
         # context holder only: never finished, never recorded
-        _local.span = Span(tid, sid, "", "<activated>", time.time())
+        _local.span = Span(tid, sid, "", "<activated>", self.now())
         try:
             yield
         finally:
@@ -242,6 +298,10 @@ def critical_path(spans: list[dict]) -> list[dict]:
     ]
 
 
+#: root span name -> its OZONE_TPU_TRACE_SLO_<OP>_MS key
+_SLO_KEYS: dict[str, str] = {}
+
+
 class FlightRecorder:
     """Tail-based slow-trace retention: any trace whose ROOT span
     exceeds its per-op SLO is pinned — with its critical path — into a
@@ -265,12 +325,14 @@ class FlightRecorder:
         root span name, uppercased, non-alnum -> _), falling back to
         OZONE_TPU_TRACE_SLO_MS (default 1000 ms). Read live so
         operators can retune a running daemon's env between restarts
-        and tests can tighten it per-case."""
-        from ozone_tpu_torch.utils.config import env_float
-
-        default = env_float("OZONE_TPU_TRACE_SLO_MS", 1000.0)
-        key = re.sub(r"[^A-Za-z0-9]+", "_", op).strip("_").upper()
-        return env_float(f"OZONE_TPU_TRACE_SLO_{key}_MS", default) / 1e3
+        and tests can tighten it per-case; each name's key is worked out
+        once (every root span asks)."""
+        key = _SLO_KEYS.get(op)
+        if key is None:
+            key = _SLO_KEYS[op] = "OZONE_TPU_TRACE_SLO_{}_MS".format(
+                re.sub(r"[^A-Za-z0-9]+", "_", op).strip("_").upper())
+        return env_float(key, env_float("OZONE_TPU_TRACE_SLO_MS",
+                                        1000.0)) / 1e3
 
     def offer(self, root, spans: list) -> bool:
         """Retain the trace if its root exceeded the op's SLO. `root`
@@ -540,7 +602,5 @@ class TraceCollector:
 # Histogram exemplars stamp the active trace id (outlier observations
 # link a scraped tail bucket to a retained slow trace); registered here
 # so metrics stays import-independent of tracing.
-from ozone_tpu_torch.utils import metrics as _metrics  # noqa: E402
-
 _metrics.set_trace_id_provider(
     lambda: Tracer.instance().current_trace_id())

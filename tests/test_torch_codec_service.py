@@ -482,6 +482,157 @@ def test_tensor_submissions_stage_into_a_host_buffer(svc):
     assert np.array_equal(out, b.numpy())
 
 
+# ------------------------------------ dispatcher steps and the device edge
+STEPS = ("codec:idle_wait", "codec:pack", "codec:stage", "codec:launch",
+         "codec:pull_start", "codec:pull_wait", "codec:resolve")
+HOST_STEPS = ("codec:pack", "codec:stage", "codec:launch",
+              "codec:pull_start", "codec:resolve")
+#: slack of a boundary between two steps: one rounding of wall time
+TICK = 1e-6
+
+
+def _counts(*names):
+    return {n: cs.METRICS.counter(n).value for n in names}
+
+
+def _since(t0, names):
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    return [s for s in Tracer.instance().traces()
+            if s.name in names and s.start >= t0]
+
+
+def test_dispatcher_steps_tile_nest_and_sum(fresh_service_env):
+    """The dispatcher's steps cover its thread end to end, one after
+    another; each dispatch's steps are children of its
+    `codec:device_dispatch`, which starts with `codec:stage` (before the
+    launch) and ends with `codec:resolve`; the two time counters are the
+    sums of their steps."""
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    cs.reset_for_tests()
+    c0 = _counts("dispatch_host_seconds_total", "pull_wait_seconds_total",
+                 "dispatches")
+    t0 = Tracer.now()
+    svc = fresh_service_env(OZONE_TPU_CODEC_LINGER_MS="1")
+    fn = _encoder()
+
+    def submitter(i):
+        for j in range(4):
+            cs.wait_result(svc.submit(cs.encode_key(SPEC), fn,
+                                      _rand((1 + (i + j) % 3, 3, CELL), i),
+                                      width=4, tail=True))
+
+    threads = [threading.Thread(target=submitter, args=(i,))
+               for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    time.sleep(0.05)  # the dispatcher goes idle
+    cs.reset_for_tests()  # ends the loop: every step is recorded
+    c1 = _counts("dispatch_host_seconds_total", "pull_wait_seconds_total",
+                 "dispatches")
+    steps = sorted(_since(t0, STEPS), key=lambda s: s.start)
+    assert {s.name for s in steps} == set(STEPS)
+    for a, b in zip(steps, steps[1:]):
+        assert b.start == pytest.approx(a.start + a.duration, abs=TICK), \
+            (a.name, b.name)
+    covered = sum(s.duration for s in steps)
+    assert covered == pytest.approx(
+        steps[-1].start + steps[-1].duration - steps[0].start, abs=TICK)
+
+    dispatches = _since(t0, ("codec:device_dispatch",))
+    assert len(dispatches) == c1["dispatches"] - c0["dispatches"] > 1
+    for d in dispatches:
+        kids = {s.name: s for s in steps
+                if s.trace_id == d.trace_id and s.parent_id == d.span_id}
+        assert sorted(kids) == sorted(set(STEPS) - {"codec:idle_wait"})
+        end = d.start + d.duration
+        assert kids["codec:pack"].start + kids["codec:pack"].duration == \
+            pytest.approx(d.start, abs=TICK)
+        assert kids["codec:stage"].start == pytest.approx(d.start, abs=TICK)
+        assert d.start < kids["codec:launch"].start
+        for name in STEPS[2:]:
+            k = kids[name]
+            assert d.start - TICK <= k.start
+            assert k.start + k.duration <= end + TICK
+        r = kids["codec:resolve"]
+        assert r.start + r.duration == pytest.approx(end, abs=TICK)
+
+    host = sum(s.duration for s in steps if s.name in HOST_STEPS)
+    wait = sum(s.duration for s in steps if s.name == "codec:pull_wait")
+    assert c1["dispatch_host_seconds_total"] - \
+        c0["dispatch_host_seconds_total"] == pytest.approx(host, abs=TICK)
+    assert c1["pull_wait_seconds_total"] - \
+        c0["pull_wait_seconds_total"] == pytest.approx(wait, abs=TICK)
+
+
+def _rs_spec(k, p):
+    return FusedSpec(CoderOptions(k, p, "rs", cell_size=CELL),
+                     ChecksumType.CRC32C, 1024)
+
+
+WORDS = CELL // 1024 * 4  # CRC32C bytes per cell
+
+
+@pytest.mark.parametrize("lane,width,n,in_bytes,out_bytes", [
+    # RS(6,3) encode: 6 cells in; 3 parity cells and 9 cells' CRCs out
+    ("rs63-encode", 2, 2, 6 * CELL, 3 * CELL + 9 * WORDS),
+    # RS(10,4) decode of units 0 and 1 from units 2-11: 10 cells in; 2
+    # rebuilt cells and their CRCs out
+    ("rs104-decode", 2, 2, 10 * CELL, 2 * CELL + 2 * WORDS),
+    # one stripe in a lane of 4: the padding crosses the edge too
+    ("rs63-encode", 4, 1, 6 * CELL, 3 * CELL + 9 * WORDS),
+])
+def test_edge_bytes_per_stripe_are_exact(svc, lane, width, n, in_bytes,
+                                         out_bytes):
+    from ozone_tpu_torch.codec.fused import make_fused_decoder
+    from ozone_tpu_torch.utils.tracing import Tracer
+
+    if lane == "rs63-encode":
+        spec = _rs_spec(6, 3)
+        fn, key, k = make_fused_encoder(spec, "cpu"), cs.encode_key(spec), 6
+    else:
+        spec = _rs_spec(10, 4)
+        valid, erased = list(range(2, 12)), [0, 1]
+        fn = make_fused_decoder(spec, valid, erased, "cpu")
+        key, k = cs.decode_key(spec, valid, erased), 10
+    c0 = _counts("h2d_bytes", "d2h_bytes", "stripes_dispatched")
+    t0 = Tracer.now()
+    cs.wait_result(svc.submit(key, fn, _rand((n, k, CELL), 7), width=width,
+                              tail=n < width))
+    cs.reset_for_tests()
+    c1 = _counts("h2d_bytes", "d2h_bytes", "stripes_dispatched")
+    assert c1["stripes_dispatched"] - c0["stripes_dispatched"] == n
+    assert c1["h2d_bytes"] - c0["h2d_bytes"] == width * in_bytes
+    assert c1["d2h_bytes"] - c0["d2h_bytes"] == width * out_bytes
+    edge = (c1["h2d_bytes"] - c0["h2d_bytes"]
+            + c1["d2h_bytes"] - c0["d2h_bytes"]) / n
+    assert edge == width // n * (in_bytes + out_bytes)
+    (launch,) = _since(t0, ("codec:launch",))
+    (pull,) = _since(t0, ("codec:pull_start",))
+    assert launch.tags["h2d_bytes"] == width * in_bytes
+    assert pull.tags["d2h_bytes"] == width * out_bytes
+
+
+def test_mesh_forms_count_their_edge_bytes():
+    """The mesh forms' host rows and the mesh executor's pull count at the
+    same edge."""
+    from ozone_tpu_torch.parallel import mesh_executor, sharded
+
+    spec = _rs_spec(6, 3)
+    mesh = sharded.make_mesh(devices=["cpu"] * 2)
+    fn = sharded.make_sharded_fused_encoder(spec, mesh)
+    c0 = _counts("h2d_bytes", "d2h_bytes")
+    outs = fn(_rand((4, 6, CELL), 8))
+    mesh_executor._finish_pull(mesh_executor._start_pull(outs))
+    c1 = _counts("h2d_bytes", "d2h_bytes")
+    assert c1["h2d_bytes"] - c0["h2d_bytes"] == 4 * 6 * CELL
+    assert c1["d2h_bytes"] - c0["d2h_bytes"] == 4 * (3 * CELL + 9 * WORDS)
+
+
 # ------------------------------------------------- against the reference
 J_SPEC = j_fused.FusedSpec(JOptions(3, 2, "rs", cell_size=CELL),
                            JChecksumType.CRC32C, 1024)

@@ -217,6 +217,107 @@ def test_tracing_spans_nest_and_propagate():
     assert len(t.traces(trace_id=outer.trace_id)) == 3
 
 
+def test_spans_read_one_clock():
+    """`span` and `record_span` callers read `Tracer.now()`, host wall
+    time: the clock a device trace is aligned to."""
+    t = Tracer.instance()
+    assert Tracer.now is time.time or Tracer.now() == pytest.approx(
+        time.time(), abs=1e-3)
+    before = time.time()
+    with t.span("clocked") as s:
+        time.sleep(0.01)
+    after = time.time()
+    assert before <= s.start and s.start + s.duration <= after + 1e-6
+    assert s.duration >= 0.009
+
+
+def test_span_ids_ignore_a_seeded_random():
+    """Code that seeds `random` (tests of the consensus ring do) must not
+    make trace ids repeat: two traces after the same seed differ."""
+    import random
+
+    t = Tracer.instance()
+    random.seed(0)
+    with t.span("first") as a:
+        pass
+    random.seed(0)
+    with t.span("second") as b:
+        pass
+    assert a.trace_id != b.trace_id and a.span_id != b.span_id
+    assert len(t.traces(trace_id=b.trace_id)) == 1
+
+
+def test_full_buffer_counts_every_span_it_drops():
+    """A span that falls off the full buffer unread counts in
+    `spans_dropped` of the `tracing` registry, exactly, and `/prom`
+    renders it; spans a reader took first are not counted."""
+    from ozone_tpu_torch.utils import tracing
+
+    dropped = m.registry("tracing").counter("spans_dropped")
+    t = Tracer(max_spans=5)
+    d0 = dropped.value
+    for i in range(12):
+        t.record_span("s", child_of="t:p", start=float(i), duration=0.0)
+    assert dropped.value - d0 == 7
+    assert [s.start for s in t.spans] == [7.0, 8.0, 9.0, 10.0, 11.0]
+    # a batch longer than the buffer: the five buffered and its own
+    # three oldest fall off
+    t.record_spans([("t:p", "b", float(i), float(i), {}) for i in range(8)])
+    assert dropped.value - d0 == 15
+    assert [s.start for s in t.spans] == [3.0, 4.0, 5.0, 6.0, 7.0]
+    t.spans.popleft()
+    t.spans.popleft()  # a reader (a benchmark's drain) takes two
+    t.record_spans([("t:p", "c", 0.0, 0.0, {})] * 2)
+    assert dropped.value - d0 == 15 and len(t.spans) == 5
+    t.record_span("root", start=0.0, duration=0.0)
+    assert dropped.value - d0 == 16
+    assert f"tracing_spans_dropped {dropped.value}" in \
+        m.prometheus_text().splitlines()
+    assert tracing.SPANS_DROPPED is dropped
+
+
+def test_swapped_in_buffer_sets_the_bound():
+    """A caller that swaps in a larger buffer (`chip_smoke.py` does, to
+    keep a whole phase's spans) keeps every span up to its `maxlen`; an
+    unbounded one drops none."""
+    from collections import deque
+
+    dropped = m.registry("tracing").counter("spans_dropped")
+    t = Tracer(max_spans=5)
+    t.spans = deque(t.spans, maxlen=50)
+    d0 = dropped.value
+    for i in range(40):
+        t.record_span("s", child_of="t:p", start=float(i), duration=0.0)
+    t.record_spans([("t:p", "b", 40.0 + i, 40.0 + i, {}) for i in range(10)])
+    assert dropped.value == d0 and len(t.spans) == 50
+    t.record_span("s", child_of="t:p", start=50.0, duration=0.0)
+    assert dropped.value - d0 == 1 and t.spans[0].start == 1.0
+    t.spans = deque()
+    for i in range(20):
+        t.record_span("s", child_of="t:p", start=float(i), duration=0.0)
+    assert dropped.value - d0 == 1 and len(t.spans) == 20
+
+
+def test_slo_keys_computed_once_env_read_live(monkeypatch):
+    """Each root name's SLO key is worked out once; its value is read
+    from the environment on every call, so a per-case override holds."""
+    from ozone_tpu_torch.utils import tracing
+
+    rec = tracing.FlightRecorder
+    monkeypatch.delenv("OZONE_TPU_TRACE_SLO_MS", raising=False)
+    monkeypatch.delenv("OZONE_TPU_TRACE_SLO_CLIENT_PUT_MS", raising=False)
+    assert rec.slo_s("client:put") == 1.0
+    assert tracing._SLO_KEYS["client:put"] == \
+        "OZONE_TPU_TRACE_SLO_CLIENT_PUT_MS"
+    monkeypatch.setenv("OZONE_TPU_TRACE_SLO_MS", "250")
+    assert rec.slo_s("client:put") == 0.25
+    monkeypatch.setenv("OZONE_TPU_TRACE_SLO_CLIENT_PUT_MS", "0")
+    assert rec.slo_s("client:put") == 0.0
+    assert rec.slo_s("--weird  name--") == 0.25
+    assert tracing._SLO_KEYS["--weird  name--"] == \
+        "OZONE_TPU_TRACE_SLO_WEIRD_NAME_MS"
+
+
 def test_rpc_carries_trace_context(tmp_path):
     from ozone_tpu_torch.net.dn_service import (
         DatanodeRpcService,
